@@ -9,18 +9,35 @@ Phases, in order; any failure exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them) and build every kernel from ``csrc/`` with nvcc, one
      process per source, all started together;
-  2. kernels against their plain PyTorch versions on the card, at the
-     serving slice's shapes (max abs error <= 1e-5, float32), then each
-     kernel, its plain version and the one PyTorch library call that
-     computes the same function timed with CUDA events;
-  3. the slice: a BERT-base-width causal TransformerLM (vocab 30522,
-     units 768, hidden 3072, 12 layers, 12 heads, max_len 512, random
-     weights from seed 0) frozen with the slot cache and served through
-     ``InferenceSession.generate``: 16 concurrent requests, prompts of
-     8-256 tokens, 32 new tokens each. The kernels' launch counts are
-     zeroed just before this run and must show 12 launches per prefill
-     and per step; two requests are re-derived with the uncached
-     ``full_forward`` after every token.
+  2. kernels against their plain PyTorch versions on the card, float32:
+     the serving kernels at the serving slice's shapes (max abs error
+     <= 1e-5), the training kernels at the training slice's shapes
+     (1e-5 absolute for out, lse, nll and logp; 1e-5 relative to each
+     tensor's max abs for dq, dk, dv and dlogits, which sum over 128 rows
+     of O(1) terms); then each kernel, its plain version and the one
+     PyTorch library call that computes the same function timed with
+     CUDA events at the main paths' shapes;
+  3. the serving slice: a BERT-base-width causal TransformerLM (vocab
+     30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
+     random weights from seed 0) frozen with the slot cache and served
+     through ``InferenceSession.generate``: 16 concurrent requests,
+     prompts of 8-256 tokens, 32 new tokens each. The kernels' launch
+     counts are zeroed just before this run and must show 12 launches
+     per prefill and per step; two requests are re-derived with the
+     uncached ``full_forward`` after every token;
+  4. the training slice. 4a: a small BERT (2 layers, units 256, 4
+     heads, vocab 1000) takes one forward and backward and then three
+     ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
+     (plain versions) from the same weights; losses agree to 1e-5 and
+     gradients to 1e-4, both relative. 4b: BERT-base
+     (``bert_12_768_12``, vocab 30522, dropout 0.1, random weights from
+     seed 0) trains MLM + NSP with AdamW (lr 1e-4, wd 0.01) on a fixed
+     batch of 96 x 128 tokens with 20 masked positions: 2 warm-up steps,
+     then 10 timed steps, between which the launch counts are zeroed and
+     read, and must show 12 flash forward, 12 dq, 12 dkv, 2 xent forward
+     and 2 xent backward launches per step; losses are finite, the first
+     lies within 1.5 of ln(30522) + ln(2), and the last three fall below
+     it.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX; without a
@@ -30,6 +47,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,6 +57,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5                 # float32 reduction tier of the flash kernels
 TIE = 1e-4                 # a top-2 logit gap below this is a tie
+GRAD_REL = 1e-4            # phase 4a: gradients, relative to max abs
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12    # H100 SXM float32, CUDA cores (no tensor cores)
 
@@ -49,6 +68,14 @@ BUCKETS = (16, 32, 64, 128, 256)
 REQUESTS = 16
 NEW_TOKENS = 32
 DECODE_POSITIONS = (0, 127, 128, 511, 5, 300, 64, 256)
+
+# the training slice: the bench's on-chip BERT-base pretraining batch
+TRAIN = dict(batch=96, seq=128, preds=20, vocab=30522, heads=12, d=64)
+TRAIN_HYPER = {'learning_rate': 1e-4, 'wd': 0.01}
+TRAIN_WARMUP, TRAIN_ITERS = 2, 10
+SMALL_BERT = dict(vocab_size=1000, max_length=128, units=256,
+                  hidden_size=1024, num_layers=2, num_heads=4, dropout=0.0)
+SMALL_BATCH = dict(batch=4, seq=128, preds=8, lengths=(128, 97, 64, 1))
 
 
 def log(*args):
@@ -119,6 +146,104 @@ def check_kernels(torch, kernels, device, heads=12, d=64, slots=SLOTS,
         raise AssertionError('flash_decode_attention disagrees with its '
                              'plain version: %g > %g' % (err, TOL))
     worst['flash_decode_fwd'] = err
+    return worst
+
+
+def training_attention_cases(batch=TRAIN['batch'], seq=TRAIN['seq']):
+    """(batch, seq, causal, lengths) cases of the backward kernels'
+    check: the training shape, non-causal, with lengths below S in some
+    rows; a causal case; a row set with no visible key; S 17 and 200."""
+    lengths = [max(1, seq - (i % 5) * 23) for i in range(batch)]
+    return [(batch, seq, False, lengths), (2, seq, True, [seq, seq - 28]),
+            (2, 17, False, [17, 9]), (2, 200, True, [0, 180])]
+
+
+def _errs(a, b):
+    """(max abs error, max abs error relative to ``b``'s max abs)."""
+    err = (a - b).abs().max().item()
+    return err, err / max(b.abs().max().item(), 1e-30)
+
+
+def check_training_kernels(torch, kernels, device, heads=TRAIN['heads'],
+                           d=TRAIN['d'], cases=None,
+                           xent_shapes=((1920, 30522), (96, 2))):
+    """The training slice's kernels against their plain versions on
+    ``device``: flash forward, dq and dkv on each attention case, the
+    softmax-xent forward and backward on each (rows, V) with some labels
+    out of range. The forward outputs are held to TOL absolute, the
+    gradients to TOL relative to their max abs. Returns {kernel name:
+    worst max abs error}."""
+    gen = torch.Generator(device='cpu').manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    worst = dict.fromkeys(('flash_attention_fwd', 'flash_attention_dq',
+                           'flash_attention_dkv', 'softmax_xent_fwd',
+                           'softmax_xent_bwd'), 0.0)
+    for b, s, causal, lengths in cases or training_attention_cases():
+        q, k, v, do = (randn(b, heads, s, d) for _ in range(4))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        out, lse = kernels.flash_attention_with_lse(q, k, v, lens, causal)
+        ref, lse_ref = kernels.flash_attention_reference(q, k, v, lens,
+                                                         causal)
+        if not torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref)):
+            raise AssertionError('flash_attention lse: masked rows differ')
+        fin = ~torch.isneginf(lse_ref)
+        fwd = max((out - ref).abs().max().item(),
+                  (lse[fin] - lse_ref[fin]).abs().max().item())
+        dq = kernels.flash_attention_dq(q, k, v, out, lse, do, lens, causal)
+        dk, dv = kernels.flash_attention_dkv(q, k, v, out, lse, do, lens,
+                                             causal)
+        want = kernels.flash_attention_backward_reference(
+            q, k, v, out, lse, do, lens, causal)
+        errs = [_errs(a, w) for a, w in zip((dq, dk, dv), want)]
+        rel = [r for _, r in errs]
+        for name, t in (('dq', dq), ('dk', dk), ('dv', dv)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError('flash_attention %s is not finite' % name)
+        dead = lens == 0
+        if dead.any() and any(t[dead].abs().max().item() != 0.0
+                              for t in (dq, dk, dv)):
+            raise AssertionError('flash_attention: a length-0 row set must '
+                                 'give dq = dk = dv = 0')
+        log('check flash backward B=%d H=%d S=%d causal=%s lengths %d..%d: '
+            'fwd max_abs_err=%.3g, dq/dk/dv rel_err=%.3g/%.3g/%.3g '
+            '(max_abs_err %.3g/%.3g/%.3g)'
+            % (b, heads, s, causal, min(lengths), max(lengths), fwd, *rel,
+               *(e for e, _ in errs)))
+        if not fwd <= TOL or not max(rel) <= TOL:
+            raise AssertionError('flash backward kernels disagree with '
+                                 'their plain versions')
+        worst['flash_attention_fwd'] = max(worst['flash_attention_fwd'], fwd)
+        worst['flash_attention_dq'] = max(worst['flash_attention_dq'],
+                                          errs[0][0])
+        worst['flash_attention_dkv'] = max(worst['flash_attention_dkv'],
+                                           errs[1][0], errs[2][0])
+    for rows, vocab in xent_shapes:
+        x = randn(rows, vocab) * 3
+        lab = torch.randint(0, vocab, (rows,), generator=gen,
+                            dtype=torch.int32).to(device)
+        lab[:3] = torch.tensor([-1, vocab, vocab + 7], dtype=torch.int32)
+        g = torch.rand(rows, generator=gen).to(device)
+        nll, logp = kernels.softmax_xent_forward(x, lab)
+        nll_ref, logp_ref = kernels.softmax_xent_forward_reference(x, lab)
+        fwd = max((nll - nll_ref).abs().max().item(),
+                  (logp - logp_ref).abs().max().item())
+        if nll[:3].abs().max().item() != 0.0:
+            raise AssertionError('softmax_xent: an out-of-range label must '
+                                 'give nll 0')
+        dx = kernels.softmax_xent_backward(logp, lab, g)
+        bwd, bwd_rel = _errs(dx, kernels.softmax_xent_backward_reference(
+            logp, lab, g))
+        log('check softmax_xent rows=%d V=%d (3 labels out of range): '
+            'nll/logp max_abs_err=%.3g, dlogits rel_err=%.3g (max_abs_err '
+            '%.3g)' % (rows, vocab, fwd, bwd_rel, bwd))
+        if not fwd <= TOL or not bwd_rel <= TOL:
+            raise AssertionError('softmax_xent kernels disagree with their '
+                                 'plain versions')
+        worst['softmax_xent_fwd'] = max(worst['softmax_xent_fwd'], fwd)
+        worst['softmax_xent_bwd'] = max(worst['softmax_xent_bwd'], bwd)
     return worst
 
 
@@ -202,6 +327,105 @@ def time_kernels(torch, kernels, heads=12, d=64, seq=256, length=200):
     return rows
 
 
+def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
+                          heads=TRAIN['heads'], seq=TRAIN['seq'],
+                          d=TRAIN['d'], vocab=TRAIN['vocab']):
+    """Times of the training slice's kernels, their plain versions and
+    the library calls at the shapes of phase 4b: attention over B x H =
+    96 x 12, S 128, D 64, non-causal, every length 128 (the flash
+    forward as ``flash_attention_fwd`` at the training shape); the xent
+    head at the MLM shape, 1920 x 30522, with in-range labels (the
+    library's cross entropy refuses others)."""
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    gen = torch.Generator(device='cpu').manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    rows = {}
+    q, k, v, do = (randn(batch, heads, seq, d) for _ in range(4))
+    lens = torch.full((batch,), seq, dtype=torch.int32, device=dev)
+    out, lse = kernels.flash_attention_with_lse(q, k, v, lens)
+    shape = 'B%d H%d S%d D%d non-causal lengths %d' % (batch, heads, seq, d,
+                                                       seq)
+    visible = batch * heads * seq * seq     # (query, key) pairs
+    tensor_b = q.numel() * 4
+    lse_b, lens_b = lse.numel() * 4, batch * 4
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                   retain_graph=True)
+
+    library_bwd = time_ms(torch, sdpa_bwd)
+    b_ms, b_by = bound(4 * tensor_b + lse_b + lens_b, visible * 4 * d)
+    rows['flash_attention_fwd'] = dict(
+        ms=time_ms(torch, lambda: kernels.flash_attention_with_lse(
+            q, k, v, lens)),
+        plain_ms=time_ms(torch, lambda: kernels.flash_attention_reference(
+            q, k, v, lens)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v)),
+        bound_ms=b_ms, bound_by=b_by, shape=shape)
+    b_ms, b_by = bound(6 * tensor_b + lse_b + lens_b, visible * 6 * d)
+    rows['flash_attention_dq'] = dict(
+        ms=time_ms(torch, lambda: kernels.flash_attention_dq(
+            q, k, v, out, lse, do, lens)),
+        plain_ms=time_ms(torch, lambda: kernels.flash_attention_dq_reference(
+            q, k, v, out, lse, do, lens)),
+        library_ms=library_bwd, bound_ms=b_ms, bound_by=b_by,
+        shape=shape + '; library: SDPA backward (dq, dk and dv together)')
+    b_ms, b_by = bound(7 * tensor_b + lse_b + lens_b, visible * 8 * d)
+    rows['flash_attention_dkv'] = dict(
+        ms=time_ms(torch, lambda: kernels.flash_attention_dkv(
+            q, k, v, out, lse, do, lens)),
+        plain_ms=time_ms(torch, lambda: kernels.flash_attention_dkv_reference(
+            q, k, v, out, lse, do, lens)),
+        library_ms=library_bwd, bound_ms=b_ms, bound_by=b_by,
+        shape=shape + '; library: SDPA backward (dq, dk and dv together)')
+    del q, k, v, do, out, lse, qs, ks, vs, sdpa_out
+
+    n = batch * TRAIN['preds']
+    x = randn(n, vocab) * 3
+    lab = torch.randint(0, vocab, (n,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    lab64 = lab.long()
+    nll, logp = kernels.softmax_xent_forward(x, lab)
+    # the mean's cotangent, as autograd hands it to the backward
+    g = torch.full((n,), 1.0 / n, device=dev)
+    shape = 'rows %d V %d' % (n, vocab)
+    # per element: the max, the shift, exp, the sum and the log-prob
+    b_ms, b_by = bound(2 * x.numel() * 4 + 3 * n * 4, 5 * x.numel())
+    rows['softmax_xent_fwd'] = dict(
+        ms=time_ms(torch, lambda: kernels.softmax_xent_forward(x, lab)),
+        plain_ms=time_ms(torch, lambda: kernels.softmax_xent_forward_reference(
+            x, lab)),
+        library_ms=time_ms(torch, lambda: F.cross_entropy(
+            x, lab64, reduction='none')),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=shape + '; library: cross_entropy(reduction=none) writes nll '
+        'only, no logp')
+    xs = x.detach().clone().requires_grad_(True)
+    ce = F.cross_entropy(xs, lab64, reduction='sum') / n
+
+    def ce_bwd():
+        return torch.autograd.grad(ce, xs, retain_graph=True)
+
+    # per element: exp, the one-hot subtract and the scale by g
+    b_ms, b_by = bound(2 * x.numel() * 4 + 2 * n * 4, 3 * x.numel())
+    rows['softmax_xent_bwd'] = dict(
+        ms=time_ms(torch, lambda: kernels.softmax_xent_backward(
+            logp, lab, g)),
+        plain_ms=time_ms(torch, lambda: kernels.softmax_xent_backward_reference(
+            logp, lab, g)),
+        library_ms=time_ms(torch, ce_bwd), bound_ms=b_ms, bound_by=b_by,
+        shape=shape + '; library: backward alone of cross_entropy'
+        '(reduction=sum)')
+    return rows
+
+
 # -- phase 3: the serving slice ----------------------------------------------
 
 
@@ -255,8 +479,9 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         if not all(0 <= t < cfg['vocab'] for t in out):
             raise AssertionError('token outside the vocabulary')
     if device.type == 'cuda':
-        want = {'flash_attention_fwd': cfg['layers'] * prefills,
-                'flash_decode_fwd': cfg['layers'] * steps}
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention_fwd=cfg['layers'] * prefills,
+                    flash_decode_fwd=cfg['layers'] * steps)
         if launches != want:
             raise AssertionError('kernel launches %r, expected %r '
                                  '(layers x prefills, layers x steps)'
@@ -301,16 +526,264 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
     }
 
 
+# -- phase 4: the training slice ---------------------------------------------
+
+
+def pretrain_batch(torch, device, vocab, batch, seq, preds, lengths=None,
+                   seed=0):
+    """The bench's synthetic MLM + NSP batch (ids, token types, valid
+    lengths, masked positions; MLM and NSP labels), float32 as the bench
+    feeds it, on ``device``."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab, (batch, seq))
+    tt = (rs.rand(batch, seq) > 0.5)
+    vl = np.full((batch,), seq) if lengths is None else np.asarray(lengths)
+    mp = rs.randint(0, seq, (batch, preds))
+    mlm_y = rs.randint(0, vocab, (batch, preds))
+    nsp_y = rs.randint(0, 2, (batch,))
+
+    def put(a):
+        return torch.tensor(a.astype('float32'), device=device)
+    return [put(ids), put(tt), put(vl), put(mp)], [put(mlm_y), put(nsp_y)]
+
+
+def pretrain_loss_fn(gloss, vocab):
+    """MLM + NSP loss over BERTModel's outputs, as the bench composes
+    it."""
+    L = gloss.SoftmaxCrossEntropyLoss()
+
+    def fn(outs, labels):
+        _, _, mlm, nsp = outs
+        my, ny = labels
+        return L(mlm.reshape(-1, vocab), my.reshape(-1)).mean() \
+            + L(nsp, ny).mean()
+    return fn
+
+
+def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
+                      shape=SMALL_BATCH, steps=3, seed=0):
+    """Phase 4a: one forward + backward, then ``steps`` trainer steps,
+    on ``device`` and on the CPU from the same weights. Returns
+    (loss relative error, worst gradient relative error, step losses
+    relative error)."""
+    vocab = cfg['vocab_size']
+    loss_fn = pretrain_loss_fn(gloss, vocab)
+    runs = {}
+    for dev in (device, torch.device('cpu')):
+        net = bert.init_params(bert.get_bert(device=dev, **cfg), seed)
+        xs, ys = pretrain_batch(torch, dev, vocab, shape['batch'],
+                                shape['seq'], shape['preds'],
+                                shape['lengths'], seed)
+        loss = loss_fn(net(*xs), ys)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().cpu()
+                 for n, p in net.collect_params().items()}
+        pt = parallel.ParallelTrainer(net, loss_fn, 'adamw',
+                                      dict(TRAIN_HYPER), seed=seed)
+        losses = [pt.step(xs, ys).item() for _ in range(steps)]
+        runs[dev.type] = (loss.item(), grads, losses)
+    (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = runs[device.type], \
+        runs['cpu']
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    grad_err = 0.0
+    for name, want in g_cpu.items():
+        got = g_dev[name]
+        if (got is None) != (want is None):
+            raise AssertionError('phase 4a: %s has a gradient on one device '
+                                 'only' % name)
+        if want is not None:
+            grad_err = max(grad_err, _errs(got, want)[1])
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(s_dev, s_cpu))
+    log('phase 4a %s vs cpu: loss %.7g vs %.7g, rel_err %.3g; worst '
+        'gradient rel_err %.3g over %d parameters; %d steps %s vs %s, '
+        'rel_err %.3g' % (device.type, l_dev, l_cpu, loss_err, grad_err,
+                          len(g_cpu), steps, s_dev, s_cpu, step_err))
+    if not loss_err <= TOL or not grad_err <= GRAD_REL \
+            or not step_err <= TOL:
+        raise AssertionError('phase 4a: the card disagrees with the CPU')
+    return loss_err, grad_err, step_err
+
+
+def train_launches(layers):
+    """Kernel launches of one training step: the flash forward, dq and
+    dkv once per layer; the xent head once for MLM and once for NSP."""
+    return {'flash_attention_fwd': layers, 'flash_attention_dq': layers,
+            'flash_attention_dkv': layers, 'softmax_xent_fwd': 2,
+            'softmax_xent_bwd': 2, 'flash_decode_fwd': 0}
+
+
+def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
+               shape=TRAIN, warmup=TRAIN_WARMUP, iters=TRAIN_ITERS, seed=0):
+    """Phase 4b: BERT pretraining steps through ``ParallelTrainer.step``.
+    The launch counts are zeroed after the warm-up and read after the
+    timed steps. Returns a dict of results."""
+    t0 = time.perf_counter()
+    if cfg is None:
+        net = bert.bert_12_768_12(vocab_size=shape['vocab'], max_length=512,
+                                  dropout=0.1, device=device)
+    else:
+        net = bert.get_bert(device=device, **cfg)
+    bert.init_params(net, seed)
+    vocab = net.word_embed.weight.shape[0]
+    layers = len(net.encoder.cells)
+    xs, ys = pretrain_batch(torch, device, vocab, shape['batch'],
+                            shape['seq'], shape['preds'], seed=seed)
+    pt = parallel.ParallelTrainer(net, pretrain_loss_fn(gloss, vocab),
+                                  'adamw', dict(TRAIN_HYPER), seed=seed)
+    setup_s = time.perf_counter() - t0
+    cuda = device.type == 'cuda'
+    losses = [pt.step(xs, ys) for _ in range(warmup)]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    events = []
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        losses.append(pt.step(xs, ys))
+        if cuda:
+            end.record()
+            events.append((start, end))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    losses = [float(l) for l in losses]
+    per_step = train_launches(layers)
+    if cuda and counts != {n: c * iters for n, c in per_step.items()}:
+        raise AssertionError('phase 4b: kernel launches %r in %d steps, '
+                             'expected %r per step' % (counts, iters,
+                                                       per_step))
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError('phase 4b: a loss is not finite: %r' % losses)
+    expect = math.log(vocab) + math.log(2)
+    if not abs(losses[0] - expect) <= 1.5:
+        raise AssertionError('phase 4b: first loss %.4f is not within 1.5 '
+                             'of ln(V) + ln(2) = %.4f' % (losses[0], expect))
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError('phase 4b: the loss did not fall: %r' % losses)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    return {
+        'setup_s': setup_s, 'losses': losses, 'launches': counts,
+        'per_step': per_step, 'wall_s': wall,
+        'profile': (profile_step(torch, lambda: pt.step(xs, ys)) if cuda
+                    else None),
+        'samples_per_s': shape['batch'] * iters / wall,
+        'step_ms': statistics.mean(step_ms) if step_ms else None,
+        'step_ms_each': step_ms,
+        'peak_mem_bytes': (torch.cuda.max_memory_allocated() if cuda
+                           else None),
+    }
+
+
+KERNEL_GROUPS = (('attention kernels', ('flash_attention',)),
+                 ('xent kernels', ('softmax_xent',)),
+                 ('GEMMs', ('gemm', 'xmma', 'cutlass')),
+                 ('copies', ('memcpy', 'memset')))
+
+
+def profile_step(torch, step):
+    """One more step under ``torch.profiler``: device time by kernel
+    group and the device's busy share of the step's span (the union of
+    kernel intervals over first start to last end). Returns None when
+    the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3
+    if not spans:
+        return None
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s = s0
+        cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ['other'], 0.0)
+    for name, ms in by_name.items():
+        low = name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in low for k in keys)), 'other')
+        groups[group] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {'kernels': len(spans), 'busy_ms': busy / 1e3,
+            'span_ms': span / 1e3, 'busy_share': busy / span if span else 0,
+            'groups_ms': groups, 'top': [(n[:90], ms) for n, ms in top]}
+
+
 # -- entry -------------------------------------------------------------------
 
 KERNELS = {
     'flash_attention_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:111'),
+    'flash_attention_dq': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
+        replaces='mxnet_tpu/ops/pallas/attention.py:208'),
+    'flash_attention_dkv': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
+        replaces='mxnet_tpu/ops/pallas/attention.py:243'),
     'flash_decode_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_decode_fwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:423'),
+    'softmax_xent_fwd': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu',
+        replaces='mxnet_tpu/ops/pallas/xent.py:37'),
+    'softmax_xent_bwd': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu',
+        replaces='mxnet_tpu/ops/pallas/xent.py:49'),
 }
+TIMING_KEYS = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+
+
+def log_times(times):
+    for name, row in times.items():
+        log('time %s [%s]: kernel %.4f ms, plain %.4f ms, library %.4f ms, '
+            'bound %.4f ms (%s)' % (name, row['shape'], row['ms'],
+                                    row['plain_ms'], row['library_ms'],
+                                    row['bound_ms'], row['bound_by']))
+
+
+def kernel_rows(errs, times, train_times, launches_by_path):
+    """The ``kernels`` JSON rows: each kernel's launches on the main
+    paths, its worst error against its plain version and its times. The
+    flash forward runs on both paths: its row times the serving shape
+    and carries the training shape's times under ``at_training_shape``."""
+    rows = []
+    for name, meta in KERNELS.items():
+        t = times.get(name) or train_times[name]
+        by_path = {path: counts[name]
+                   for path, counts in launches_by_path.items()
+                   if counts[name]}
+        row = {'name': name, 'route': 'cuda', 'source': meta['source'],
+               'replaces': meta['replaces'],
+               'launches': sum(by_path.values()),
+               'launches_by_path': by_path, 'max_abs_err': errs[name]}
+        row.update({k: t[k] for k in TIMING_KEYS})
+        row['shape'] = t['shape']
+        if name in times and name in train_times:
+            tt = train_times[name]
+            row['at_training_shape'] = dict(
+                {k: tt[k] for k in TIMING_KEYS}, shape=tt['shape'])
+        rows.append(row)
+    return rows
 
 
 def main():
@@ -324,7 +797,9 @@ def main():
               'script', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch import parallel, serving
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo import bert
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.ops.kernels import _build
 
@@ -335,6 +810,7 @@ def main():
     log('python %s torch %s cuda %s' % (sys.version.split()[0],
                                         torch.__version__,
                                         torch.version.cuda))
+    cuda = torch.device('cuda')
     # phase 1: device and build
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -342,22 +818,25 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(card)
     t0 = time.perf_counter()
-    _build.build_all()
+    reports = _build.build_all()
     log('phase 1 build: %d kernel sources in %.1f s'
         % (len(_build.SOURCES), time.perf_counter() - t0))
+    for name, lines in reports.items():
+        log('ptxas %s: %s' % (name, ' | '.join(lines)))
 
     # phase 2: kernels against their plain versions, then times
-    errs = check_kernels(torch, kernels, torch.device('cuda'))
+    errs = check_kernels(torch, kernels, cuda)
+    for name, err in check_training_kernels(torch, kernels, cuda).items():
+        errs[name] = max(errs.get(name, 0.0), err)
     torch.cuda.synchronize()
     times = time_kernels(torch, kernels)
-    for name, row in times.items():
-        log('time %s [%s]: kernel %.4f ms, plain %.4f ms, library %.4f ms, '
-            'bound %.4f ms (%s)' % (name, row['shape'], row['ms'],
-                                    row['plain_ms'], row['library_ms'],
-                                    row['bound_ms'], row['bound_by']))
+    log_times(times)
+    train_times = time_training_kernels(torch, kernels)
+    log_times(train_times)
+    torch.cuda.empty_cache()
 
     # phase 3: the serving slice
-    res = serve(torch, serving, kernels, torch.device('cuda'))
+    res = serve(torch, serving, kernels, cuda)
     torch.cuda.synchronize()
     log('phase 3 slice: %d requests, prompts %s, %d new tokens each'
         % (REQUESTS, res['prompt_lens'], NEW_TOKENS))
@@ -372,16 +851,41 @@ def main():
         % (card, res['tokens_per_s'], res['ttft_p50_ms'],
            res['ttft_p99_ms'], res['decode_step_ms'], res['wall_s'],
            res['peak_mem_bytes'], res['cache_bytes'], res['setup_s']))
-    rows = []
-    for name, meta in KERNELS.items():
-        t = times[name]
-        rows.append({'name': name, 'route': 'cuda', 'source': meta['source'],
-                     'replaces': meta['replaces'],
-                     'launches': res['launches'][name],
-                     'max_abs_err': errs[name], 'ms': t['ms'],
-                     'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
-                     'bound_by': t['bound_by'],
-                     'library_ms': t['library_ms']})
+    torch.cuda.empty_cache()
+
+    # phase 4: the training slice
+    train_against_cpu(torch, bert, gloss, parallel, cuda)
+    torch.cuda.empty_cache()
+    tr = train_full(torch, bert, gloss, parallel, kernels, cuda)
+    log('phase 4b slice: BERT-base, batch %d, S %d, %d predictions, %d '
+        'warm-up + %d timed steps; launches in the timed steps %s (per '
+        'step %s)' % (TRAIN['batch'], TRAIN['seq'], TRAIN['preds'],
+                      TRAIN_WARMUP, TRAIN_ITERS, tr['launches'],
+                      tr['per_step']))
+    log('phase 4b losses: %s' % tr['losses'])
+    log('phase 4b metrics [%s]: samples/s %.2f, mean step %.3f ms (CUDA '
+        'events; each %s), wall %.3f s for %d steps, peak memory %d B, '
+        'setup %.1f s'
+        % (card, tr['samples_per_s'], tr['step_ms'],
+           ['%.3f' % t for t in tr['step_ms_each']], tr['wall_s'],
+           TRAIN_ITERS, tr['peak_mem_bytes'], tr['setup_s']))
+
+    prof = tr['profile']
+    if prof is None:
+        log('phase 4b profile: the trace holds no device event (not '
+            'measured)')
+    else:
+        log('phase 4b profile [%s], one more step: %d device events, busy '
+            '%.3f ms of a %.3f ms span (busy share %.3f); by group (ms) %s; '
+            'top kernels (ms) %s'
+            % (card, prof['kernels'], prof['busy_ms'], prof['span_ms'],
+               prof['busy_share'],
+               {g: round(ms, 3) for g, ms in prof['groups_ms'].items()},
+               [(n, round(ms, 3)) for n, ms in prof['top']]))
+
+    rows = kernel_rows(errs, times, train_times,
+                       {'serving': res['launches'],
+                        'training': tr['launches']})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

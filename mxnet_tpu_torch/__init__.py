@@ -9,7 +9,10 @@ ported path is a hand-written CUDA kernel for Hopper (``sm_90a``) under
 Ported so far: generation serving of the causal transformer LM through
 the slot KV cache (``serving.freeze_decode`` -> ``DecodeProgram`` ->
 ``InferenceSession.generate`` -> ``DecodeEngine``), carried by the
-flash-prefill and flash-decode attention kernels.
+flash-prefill and flash-decode attention kernels; and BERT pretraining
+(``gluon.model_zoo.bert`` + ``gluon.loss`` + AdamW through
+``parallel.ParallelTrainer.step``), carried by the flash forward, the
+flash dq / dkv backward and the softmax-xent forward / backward kernels.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 on a host without CUDA they raise instead of falling back.

@@ -7,13 +7,29 @@ bound with ``ctypes``. Beside each kernel sits its plain PyTorch version;
 a wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, and counts its launches (:func:`launch_counts`).
 """
-from .attention import (K_BLOCK, flash_attention,
+from ._launch import KERNELS, launch_counts, reset_launch_counts
+from .attention import (K_BLOCK, FlashAttentionFunction, flash_attention,
+                        flash_attention_backward,
+                        flash_attention_backward_reference,
+                        flash_attention_dkv, flash_attention_dkv_reference,
+                        flash_attention_dq, flash_attention_dq_reference,
                         flash_attention_reference, flash_attention_with_lse,
                         flash_decode_attention,
-                        flash_decode_attention_reference, launch_counts,
-                        online_softmax_block, reset_launch_counts)
+                        flash_decode_attention_reference,
+                        online_softmax_block)
+from .xent import (SoftmaxXentFunction, fused_softmax_xent_rows,
+                   fused_softmax_xent_rows_reference, softmax_xent_backward,
+                   softmax_xent_backward_reference, softmax_xent_forward,
+                   softmax_xent_forward_reference)
 
-__all__ = ['K_BLOCK', 'online_softmax_block', 'flash_attention',
-           'flash_attention_reference', 'flash_attention_with_lse',
-           'flash_decode_attention', 'flash_decode_attention_reference',
+__all__ = ['KERNELS', 'K_BLOCK', 'online_softmax_block', 'flash_attention',
+           'FlashAttentionFunction', 'flash_attention_reference',
+           'flash_attention_with_lse', 'flash_attention_dq',
+           'flash_attention_dkv', 'flash_attention_backward',
+           'flash_attention_dq_reference', 'flash_attention_dkv_reference',
+           'flash_attention_backward_reference', 'flash_decode_attention',
+           'flash_decode_attention_reference', 'fused_softmax_xent_rows',
+           'fused_softmax_xent_rows_reference', 'SoftmaxXentFunction',
+           'softmax_xent_forward', 'softmax_xent_forward_reference',
+           'softmax_xent_backward', 'softmax_xent_backward_reference',
            'launch_counts', 'reset_launch_counts']

@@ -5,8 +5,8 @@ The counterpart of ``mxnet_tpu/native/_build_util.py``. Each
 plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -cudart shared -o _build/<name>-<hash>.so \
-         csrc/<name>.cu
+         -Xcompiler -fPIC -cudart shared -Xptxas -v \
+         -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The file name carries a hash of the source, the shared headers and the
 flags, so a changed source rebuilds and a stale library is never
@@ -34,11 +34,15 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, 'csrc')
 _BUILD_DIR = os.path.join(_HERE, '_build')
 
-SOURCES = ('flash_attention_fwd', 'flash_decode_fwd')
+SOURCES = ('flash_attention_fwd', 'flash_attention_bwd', 'flash_decode_fwd',
+           'softmax_xent')
 # the CUDA runtime is linked shared: the library then binds to the
 # libcudart.so already loaded by torch, so one runtime serves the process
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills, which build_all hands back
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-cudart', 'shared')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-cudart', 'shared',
+              '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _loaded = {}
@@ -107,6 +111,7 @@ def _finish(name, started, timeout):
                            % (name, proc.returncode,
                               (err or out).decode('utf-8', 'replace')))
     os.replace(tmp, so)
+    return (out + err).decode('utf-8', 'replace')
 
 
 def build(name, timeout=600):
@@ -119,19 +124,24 @@ def build(name, timeout=600):
 
 def build_all(timeout=600):
     """Build every kernel library, one nvcc per source, all started
-    together. Returns {name: path}."""
+    together. Returns {name: ptxas's resource lines} for the sources it
+    built (a library already current is not rebuilt and not listed)."""
     started = {n: _start(n) for n in SOURCES}
-    errors = []
+    errors, reports = [], {}
     # reap every nvcc, even after one of them failed
     for n, s in started.items():
         if s is not None:
             try:
-                _finish(n, s, timeout)
+                log = _finish(n, s, timeout)
             except RuntimeError as exc:
                 errors.append(str(exc))
+                continue
+            reports[n] = [ln.strip() for ln in log.splitlines()
+                          if 'Compiling entry' in ln or 'registers' in ln
+                          or 'spill' in ln]
     if errors:
         raise RuntimeError('\n'.join(errors))
-    return {n: library_path(n) for n in SOURCES}
+    return reports
 
 
 def load(name):

@@ -1,0 +1,87 @@
+"""What every kernel wrapper shares: launch counts, input checks and the
+ctypes plumbing of a launch.
+
+Each wrapper adds one to its kernel's count where it launches the kernel
+and nowhere else, so a run can show that its main path went through the
+kernels (:func:`launch_counts`). A CPU tensor never counts: it runs the
+plain PyTorch version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts', 'count',
+           'on_cpu', 'ptr', 'stream', 'require', 'check_inputs',
+           'raise_on']
+
+# every hand-written kernel of the port, by the name its wrapper counts
+KERNELS = ('flash_attention_fwd', 'flash_attention_dq',
+           'flash_attention_dkv', 'flash_decode_fwd', 'softmax_xent_fwd',
+           'softmax_xent_bwd')
+
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def launch_counts():
+    """Kernel launches since the last reset, by kernel name."""
+    return dict(_launches)
+
+
+def reset_launch_counts():
+    for name in _launches:
+        _launches[name] = 0
+
+
+def count(kernel):
+    _launches[kernel] += 1
+
+
+def on_cpu(kernel, t, layout):
+    """The wrapper rule: True when ``t`` lies on the CPU (the wrapper
+    runs the plain version), False on a CUDA device (it launches the
+    kernel); any other device, or a rank other than that of ``layout``
+    (such as ``'(rows, V)'``), raises."""
+    if t.dim() != layout.count(',') + 1:
+        raise ValueError('%s: expected %s, got %r'
+                         % (kernel, layout, tuple(t.shape)))
+    if t.device.type == 'cpu':
+        return True
+    if t.device.type != 'cuda':
+        raise ValueError('%s: unsupported device %s' % (kernel, t.device))
+    return False
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_inputs(kernel, named, dtypes):
+    """Same device for all; dtype, contiguity and 16-byte alignment of
+    every tensor a kernel reads or writes."""
+    device = next(iter(named.values())).device
+    for label, t in named.items():
+        require(t.device == device, '%s: %s is on %s, expected %s'
+                % (kernel, label, t.device, device))
+        require(t.dtype == dtypes[label], '%s: %s must be %s, got %s'
+                % (kernel, label, dtypes[label], t.dtype))
+        require(t.is_contiguous(), '%s: %s must be contiguous'
+                % (kernel, label))
+        require(t.data_ptr() % 16 == 0, '%s: %s must be 16-byte aligned'
+                % (kernel, label))
+
+
+def raise_on(kernel, err):
+    if err != 0:
+        raise RuntimeError('%s launch failed: cudaError_t %d'
+                           % (kernel, err))

@@ -1,17 +1,28 @@
-"""Flash attention for prefill and single-token decode: CUDA kernels and
-their plain PyTorch versions.
+"""Flash attention for training, prefill and single-token decode: CUDA
+kernels and their plain PyTorch versions.
 
-The counterpart of ``mxnet_tpu/ops/pallas/attention.py``. Two kernels,
-forward only, float32:
+The counterpart of ``mxnet_tpu/ops/pallas/attention.py``. Four kernels,
+float32:
 
-  * :func:`flash_attention` -> ``csrc/flash_attention_fwd.cu``, which
-    replaces ``mxnet_tpu_flash_attention_fwd`` (attention.py:111);
+  * :func:`flash_attention_with_lse` -> ``csrc/flash_attention_fwd.cu``,
+    which replaces ``mxnet_tpu_flash_attention_fwd`` (attention.py:111);
+  * :func:`flash_attention_dq` and :func:`flash_attention_dkv` ->
+    ``csrc/flash_attention_bwd.cu``, which replace
+    ``mxnet_tpu_flash_attention_dq`` (attention.py:208) and
+    ``mxnet_tpu_flash_attention_dkv`` (attention.py:243);
   * :func:`flash_decode_attention` -> ``csrc/flash_decode_fwd.cu``,
     which replaces ``mxnet_tpu_flash_decode_fwd`` (attention.py:423).
 
+:func:`flash_attention` is differentiable: :class:`FlashAttentionFunction`
+(the counterpart of the ``jax.custom_vjp`` at attention.py:344-380) runs
+the forward kernel, saves q, k, v, the lengths, out and the log-sum-exp,
+and its backward runs the dq and dkv kernels, which recompute the
+probabilities from the saved log-sum-exp.
+
 Each public function has a plain PyTorch version beside it
-(:func:`flash_attention_reference`, :func:`flash_decode_attention_reference`)
-that walks the keys in ``K_BLOCK`` steps with the TPU kernel's ``-inf``
+(:func:`flash_attention_reference`, :func:`flash_attention_dq_reference`,
+:func:`flash_attention_dkv_reference`,
+:func:`flash_decode_attention_reference`) with the TPU kernels' ``-inf``
 masking and fully-masked-row guards. The wrapper rules:
 
   * a CPU tensor goes to the plain version;
@@ -20,11 +31,12 @@ masking and fully-masked-row guards. The wrapper rules:
   * each launch adds one to the kernel's count (:func:`launch_counts`).
 
 Decode bit-identity (the TPU kernels' contract, attention.py:18-26): both
-kernels walk the key axis from 0 in fixed ``K_BLOCK`` steps with the same
-score, rescale and accumulation expressions (``csrc/online_softmax.cuh``),
-so prefill, the reference forward and the cached step combine the same
-reduction tree over the real keys. What bounds each kernel on the H100,
-and what its design does about it, is noted at the top of its source.
+forward kernels walk the key axis from 0 in fixed ``K_BLOCK`` steps with
+the same score, rescale and accumulation expressions
+(``csrc/online_softmax.cuh``), so prefill, the reference forward and the
+cached step combine the same reduction tree over the real keys. What
+bounds each kernel on the H100, and what its design does about it, is
+noted at the top of its source.
 """
 from __future__ import annotations
 
@@ -33,26 +45,22 @@ import math
 
 import torch
 
+from ._launch import (check_inputs as _check_inputs, count as _count,
+                      on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
+                      require as _require, stream as _stream)
+
 __all__ = ['K_BLOCK', 'online_softmax_block', 'flash_attention',
-           'flash_attention_reference', 'flash_attention_with_lse',
-           'flash_decode_attention', 'flash_decode_attention_reference',
-           'launch_counts', 'reset_launch_counts']
+           'FlashAttentionFunction', 'flash_attention_reference',
+           'flash_attention_with_lse', 'flash_attention_dq',
+           'flash_attention_dkv', 'flash_attention_backward',
+           'flash_attention_dq_reference', 'flash_attention_dkv_reference',
+           'flash_attention_backward_reference', 'flash_decode_attention',
+           'flash_decode_attention_reference']
 
 # fixed key-axis block: part of the bit-identity contract
 K_BLOCK = 128
 _NEG_INF = float('-inf')
-
-_launches = {'flash_attention_fwd': 0, 'flash_decode_fwd': 0}
-
-
-def launch_counts():
-    """Kernel launches since the last reset, by kernel name."""
-    return dict(_launches)
-
-
-def reset_launch_counts():
-    for name in _launches:
-        _launches[name] = 0
+_QKV = '(B, H, Sq, D)'
 
 
 def online_softmax_block(scores, v_blk, m, l, o):
@@ -117,40 +125,6 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False,
     return out.to(q.dtype), lse
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _require(cond, msg):
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_inputs(kernel, named, dtypes):
-    """Same device for all; dtype, contiguity and 16-byte alignment of
-    every tensor a kernel reads or writes."""
-    device = next(iter(named.values())).device
-    for label, t in named.items():
-        _require(t.device == device, '%s: %s is on %s, expected %s'
-                 % (kernel, label, t.device, device))
-        _require(t.dtype == dtypes[label], '%s: %s must be %s, got %s'
-                 % (kernel, label, dtypes[label], t.dtype))
-        _require(t.is_contiguous(), '%s: %s must be contiguous'
-                 % (kernel, label))
-        _require(t.data_ptr() % 16 == 0, '%s: %s must be 16-byte aligned'
-                 % (kernel, label))
-
-
-def _raise_on(kernel, err):
-    if err != 0:
-        raise RuntimeError('%s launch failed: cudaError_t %d'
-                           % (kernel, err))
-
-
 def _fwd_lib():
     from . import _build
     lib = _build.load('flash_attention_fwd')
@@ -183,7 +157,7 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale):
                  _ptr(lse), b, h, sq, sk, d, float(scale), int(bool(causal)),
                  _stream(q.device))
     _raise_on('flash_attention_fwd', err)
-    _launches['flash_attention_fwd'] += 1
+    _count('flash_attention_fwd')
     return out, lse
 
 
@@ -191,16 +165,10 @@ def flash_attention_with_lse(q, k, v, lengths=None, causal=False,
                              scale=None):
     """:func:`flash_attention` that also returns the log-sum-exp
     (B, H, Sq) float32 -- the forward half of the flash backward."""
-    if q.dim() != 4:
-        raise ValueError('flash_attention: q must be (B, H, Sq, D), got %r'
-                         % (tuple(q.shape),))
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == 'cpu':
+    if _on_cpu('flash_attention', q, _QKV):
         return flash_attention_reference(q, k, v, lengths, causal, scale)
-    if q.device.type != 'cuda':
-        raise ValueError('flash_attention: unsupported device %s'
-                         % q.device)
     return _flash_attention_cuda(q, k, v, lengths, causal, scale)
 
 
@@ -210,9 +178,193 @@ def flash_attention(q, k, v, lengths=None, causal=False, scale=None):
     ``lengths`` (B,) or a scalar masks keys at positions >= length;
     ``causal`` adds the autoregressive mask (key <= query position).
     ``scale`` defaults to 1/sqrt(D). Returns (B, H, Sq, D); a row with
-    no visible key is 0.
+    no visible key is 0. Differentiable in q, k and v through
+    :class:`FlashAttentionFunction`; no gradient flows to ``lengths``.
     """
-    return flash_attention_with_lse(q, k, v, lengths, causal, scale)[0]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionFunction.apply(q, k, v, lengths, bool(causal),
+                                        float(scale))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash forward kernel, and the dq / dkv kernels as its backward
+    (the ``_flash_core`` custom_vjp of attention.py:344-380). Saves q, k,
+    v, the (B,) int32 lengths, out and the log-sum-exp; the probabilities
+    are recomputed, never stored."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal, scale):
+        lens = _lengths_tensor(lengths, q.shape[0], k.shape[2], q.device)
+        out, lse = flash_attention_with_lse(q, k, v, lens, causal, scale)
+        ctx.save_for_backward(q, k, v, lens, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lens, out, lse = ctx.saved_tensors
+        # the cotangent of a head merge is usually a permuted view
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), lens, ctx.causal,
+            ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# backward: dq and dk/dv recomputed from the saved log-sum-exp
+# ---------------------------------------------------------------------------
+
+
+def _bwd_terms(q, k, v, out, lse, do, lengths, causal, scale):
+    """p and ds of ``_p_block`` (attention.py:195-205) and the dq/dkv
+    bodies: s = (q k^T) * scale with masked keys at -inf, p = exp(s - lse)
+    with masked entries and rows whose lse is -inf at exactly 0,
+    ds = p * (do v^T - rowsum(do * o)) * scale."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    lens = _lengths_tensor(lengths, b, sk, q.device).to(torch.int64)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof, of = do.float(), out.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    k_pos = torch.arange(sk, device=q.device)
+    valid = (k_pos[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        q_pos = torch.arange(sq, device=q.device)
+        valid = valid & (q_pos[:, None] >= k_pos[None, :])
+    s = torch.where(valid, s, _NEG_INF)
+    dead = torch.isneginf(s) | torch.isneginf(lse)[..., None]
+    safe_lse = torch.where(torch.isneginf(lse), 0.0, lse)
+    p = torch.where(dead, 0.0, torch.exp(s - safe_lse[..., None]))
+    delta = torch.sum(dof * of, dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds, qf, kf, dof
+
+
+def flash_attention_dq_reference(q, k, v, out, lse, do, lengths=None,
+                                 causal=False, scale=None):
+    """Plain PyTorch version of the dq kernel: dq = ds k, (B, H, Sq, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _, ds, _, kf, _ = _bwd_terms(q, k, v, out, lse, do, lengths, causal,
+                                 scale)
+    return torch.matmul(ds, kf).to(q.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, out, lse, do, lengths=None,
+                                  causal=False, scale=None):
+    """Plain PyTorch version of the dkv kernel: dk = ds^T q and
+    dv = p^T do, each (B, H, Sk, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds, qf, _, dof = _bwd_terms(q, k, v, out, lse, do, lengths, causal,
+                                   scale)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, do, lengths=None,
+                                       causal=False, scale=None):
+    """Plain PyTorch version of the flash backward: (dq, dk, dv)."""
+    dq = flash_attention_dq_reference(q, k, v, out, lse, do, lengths,
+                                      causal, scale)
+    dk, dv = flash_attention_dkv_reference(q, k, v, out, lse, do, lengths,
+                                           causal, scale)
+    return dq, dk, dv
+
+
+def _bwd_lib(entry):
+    from . import _build
+    fn = getattr(_build.load('flash_attention_bwd'), entry)
+    if fn.argtypes is None:
+        outs = 1 if entry == 'mx_flash_attention_dq' else 2
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _bwd_checked(kernel, q, k, v, out, lse, do, lengths):
+    """Shape, dtype and layout checks shared by the two backward kernels;
+    returns the (B,) int32 lengths."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _require(k.shape == (b, h, sk, d) and v.shape == k.shape,
+             '%s: k/v must be (B, H, Sk, D) = %r, got %r / %r'
+             % (kernel, (b, h, sk, d), tuple(k.shape), tuple(v.shape)))
+    _require(out.shape == q.shape and do.shape == q.shape,
+             '%s: out/do must be %r, got %r / %r'
+             % (kernel, tuple(q.shape), tuple(out.shape), tuple(do.shape)))
+    _require(tuple(lse.shape) == (b, h, sq),
+             '%s: lse must be %r, got %r' % (kernel, (b, h, sq),
+                                            tuple(lse.shape)))
+    _require(d == 64, '%s: head dim %d not built (the kernel is '
+             'instantiated for 64)' % (kernel, d))
+    lens = _lengths_tensor(lengths, b, sk, q.device)
+    f32 = torch.float32
+    _check_inputs(kernel, {'q': q, 'k': k, 'v': v, 'out': out, 'lse': lse,
+                           'do': do, 'lengths': lens},
+                  {'q': f32, 'k': f32, 'v': f32, 'out': f32, 'lse': f32,
+                   'do': f32, 'lengths': torch.int32})
+    return lens
+
+
+def flash_attention_dq(q, k, v, out, lse, do, lengths=None, causal=False,
+                       scale=None):
+    """dq of flash attention from the forward's ``out`` and ``lse`` and
+    the output cotangent ``do``; (B, H, Sq, D) float32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _on_cpu('flash_attention_dq', q, _QKV):
+        return flash_attention_dq_reference(q, k, v, out, lse, do, lengths,
+                                            causal, scale)
+    lens = _bwd_checked('flash_attention_dq', q, k, v, out, lse, do,
+                        lengths)
+    b, h, sq, d = q.shape
+    dq = torch.empty_like(q)
+    fn = _bwd_lib('mx_flash_attention_dq')
+    with torch.cuda.device(q.device):
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
+                 _ptr(lens), _ptr(dq), b, h, sq, k.shape[2], d,
+                 float(scale), int(bool(causal)), _stream(q.device))
+    _raise_on('flash_attention_dq', err)
+    _count('flash_attention_dq')
+    return dq
+
+
+def flash_attention_dkv(q, k, v, out, lse, do, lengths=None, causal=False,
+                        scale=None):
+    """(dk, dv) of flash attention, each (B, H, Sk, D) float32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _on_cpu('flash_attention_dkv', q, _QKV):
+        return flash_attention_dkv_reference(q, k, v, out, lse, do, lengths,
+                                             causal, scale)
+    lens = _bwd_checked('flash_attention_dkv', q, k, v, out, lse, do,
+                        lengths)
+    b, h, sq, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = _bwd_lib('mx_flash_attention_dkv')
+    with torch.cuda.device(q.device):
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
+                 _ptr(lens), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
+                 float(scale), int(bool(causal)), _stream(q.device))
+    _raise_on('flash_attention_dkv', err)
+    _count('flash_attention_dkv')
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, out, lse, do, lengths=None,
+                             causal=False, scale=None):
+    """(dq, dk, dv): the dq kernel, then the dkv kernel (their plain
+    versions for CPU tensors)."""
+    dq = flash_attention_dq(q, k, v, out, lse, do, lengths, causal, scale)
+    dk, dv = flash_attention_dkv(q, k, v, out, lse, do, lengths, causal,
+                                 scale)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -265,9 +417,7 @@ def flash_decode_attention(q, keys, values, positions, heads, scale=None):
     queries against the slot cache ``keys``/``values`` (slots, max_len,
     U), read in place; slot s attends keys ``<= positions[s]``
     (``positions`` (slots,) int32). Returns (slots, U) float32."""
-    if q.dim() != 2:
-        raise ValueError('flash_decode_attention: q must be (slots, U), '
-                         'got %r' % (tuple(q.shape),))
+    cpu = _on_cpu('flash_decode_attention', q, '(slots, U)')
     slots, u = q.shape
     if u % heads:
         raise ValueError('flash_decode_attention: units %d not divisible '
@@ -275,12 +425,9 @@ def flash_decode_attention(q, keys, values, positions, heads, scale=None):
     d = u // heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == 'cpu':
+    if cpu:
         return flash_decode_attention_reference(q, keys, values, positions,
                                                 heads, scale)
-    if q.device.type != 'cuda':
-        raise ValueError('flash_decode_attention: unsupported device %s'
-                         % q.device)
     max_len = keys.shape[1]
     _require(keys.shape == (slots, max_len, u) and values.shape == keys.shape,
              'flash_decode_attention: cache must be (slots, max_len, U) = '
@@ -302,5 +449,5 @@ def flash_decode_attention(q, keys, values, positions, heads, scale=None):
                  _ptr(out), slots, max_len, u, heads, float(scale),
                  _stream(q.device))
     _raise_on('flash_decode_fwd', err)
-    _launches['flash_decode_fwd'] += 1
+    _count('flash_decode_fwd')
     return out

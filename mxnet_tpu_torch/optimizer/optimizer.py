@@ -1,0 +1,142 @@
+"""Optimizer base and AdamW, the counterpart of
+``mxnet_tpu/optimizer/optimizer.py``.
+
+Ported: the ``Optimizer`` bookkeeping (optimizer.py:78-257) -- per-index
+update counts, lr / wd multiplier tables, ``rescale_grad``,
+``clip_gradient``, the registry -- plus ``_AdamFamily`` (:423-437) and
+``AdamW`` (:464-483). Only AdamW is registered in the port so far. The
+JAX package's learning-rate schedulers, symbol attributes, ``param_dict``
+and fp16/bf16 master weights have no counterpart yet (no caller of the
+port needs them; there is no symbolic API and no AMP in the port).
+
+Weight decay reaches every parameter: ``set_wd_mult`` gives names not
+ending in ``_weight`` a multiplier of 0, but it runs in ``__init__``,
+when ``idx2name`` is still empty, and the trainer fills ``idx2name``
+later without rebuilding the table (train_step.py:511-512). The port
+copies that behaviour of the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.optimizer_ops import adamw_update
+
+__all__ = ['Optimizer', 'AdamW', 'register', 'create', 'opt_registry']
+
+opt_registry = {}
+
+
+def register(klass):
+    """Register an Optimizer subclass under its lowercase class name."""
+    opt_registry[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(name, **kwargs):
+    """Instantiate an optimizer by registered name (or pass one
+    through)."""
+    if isinstance(name, Optimizer):
+        return name
+    if isinstance(name, str) and name.lower() in opt_registry:
+        return opt_registry[name.lower()](**kwargs)
+    raise ValueError('Cannot find optimizer %s (the port has %s)'
+                     % (name, ', '.join(sorted(opt_registry))))
+
+
+class Optimizer:
+    """Base optimizer: update counts, lr/wd multiplier tables,
+    rescale/clip."""
+
+    def __init__(self, rescale_grad=1., param_idx2name=None, wd=0.,
+                 clip_gradient=None, learning_rate=0.01):
+        self.rescale_grad, self.clip_gradient = rescale_grad, clip_gradient
+        self.lr, self.wd = learning_rate, wd
+        self.num_update = 0
+        self._index_update_count = {}
+        if param_idx2name is None:
+            param_idx2name = {}
+        if not isinstance(param_idx2name, dict):
+            raise TypeError(
+                'param_idx2name should be a dict of param indexes to names.')
+        self.idx2name = dict(param_idx2name)
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    def create_state(self, index, weight):
+        """Optimizer state for one weight; None if stateless."""
+        return None
+
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError
+
+    def _begin(self, index):
+        """Bump the update count and resolve (lr, wd) for one step."""
+        self._update_count(index)
+        return self._get_lr(index), self._get_wd(index)
+
+    def _step_of(self, index):
+        return self._index_update_count[index]
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        # non-weight params (bias/gamma/beta...) default to wd 0 -- of the
+        # names known now (see the module docstring)
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith('_weight')}
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, index):
+        indices = index if isinstance(index, (list, tuple)) else [index]
+        for idx in indices:
+            bumped = self._index_update_count.get(idx, 0) + 1
+            self._index_update_count[idx] = bumped
+            self.num_update = max(bumped, self.num_update)
+
+    def _mult_of(self, index, table):
+        """Per-param multiplier: explicit index beats name lookup."""
+        if index in table:
+            return table[index]
+        if index in self.idx2name:
+            return table.get(self.idx2name[index], 1.0)
+        return 1.0
+
+    def _get_lr(self, index):
+        return self.lr * self._mult_of(index, self.lr_mult)
+
+    def _get_wd(self, index):
+        return self.wd * self._mult_of(index, self.wd_mult)
+
+
+class _AdamFamily(Optimizer):
+    """Shared (mean, var) state + bias-correction arithmetic."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def _bias_corrected(self, lr, t):
+        """lr * sqrt(1 - beta2^t) / (1 - beta1^t)."""
+        return lr * (1. - self.beta2 ** t) ** 0.5 / (1. - self.beta1 ** t)
+
+
+@register
+class AdamW(_AdamFamily):
+    """AdamW with decoupled weight decay scaled by the bias-corrected
+    step: ``w -= eta * (m / (sqrt(v) + eps) + wd * w)`` with
+    ``eta = lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` and ``t`` counted
+    per parameter from 1."""
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        eta = self._bias_corrected(lr, self._step_of(index))
+        mean, var = state
+        adamw_update(weight, grad, mean, var, self.rescale_grad, lr=1.0,
+                     eta=eta, wd=wd, clip_gradient=self.clip_gradient,
+                     beta1=self.beta1, beta2=self.beta2,
+                     epsilon=self.epsilon)

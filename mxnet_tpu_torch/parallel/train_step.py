@@ -1,0 +1,146 @@
+"""The training step, the counterpart of ``mxnet_tpu/parallel/train_step.py``
+(``ParallelTrainer`` :119-236, ``_build`` :498-651, ``_hyper`` :1142-1155,
+``step`` :1157-1236), on one device.
+
+The JAX trainer compiles forward, backward and the optimizer update into
+one XLA program over a mesh. PyTorch runs eagerly, so the port's step is
+the same sequence of work issued in order on one device: the forward in
+training mode, ``mean(loss(outputs, labels))``, its backward (through the
+kernels' ``autograd.Function``s), then the optimizer's own ``update`` for
+every parameter, in place. What the JAX trainer does that the port keeps:
+
+  * the loss is ``mean(loss_fn(outs, labels))``, differentiated as is
+    (``rescale_grad`` stays the optimizer's, 1 by default);
+  * ``idx2name`` is filled at the first step when the optimizer has none,
+    and the wd table is not rebuilt: weight decay reaches every
+    parameter (see ``optimizer/optimizer.py``);
+  * update counts, and so AdamW's ``t``, run per parameter from 1; a
+    parameter the loss does not reach gets a zero gradient and is still
+    updated (its weight decays), as the traced update does;
+  * dropout masks come from a ``torch.Generator`` that the trainer owns
+    and seeds (``seed``); JAX's threefry masks cannot be reproduced.
+
+Not ported yet, and refused with ``NotImplementedError``: a mesh of more
+than one device and ZeRO (ROADMAP A10, multi-GPU), the numerical
+guardrail (ROADMAP A10, robustness layers) and AMP (ROADMAP A9).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..gluon.nn import Dropout
+from ..optimizer import optimizer as _optmod
+
+__all__ = ['ParallelTrainer']
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _mesh_devices(mesh):
+    if isinstance(mesh, dict):
+        return math.prod(int(n) for n in mesh.values())
+    return len(mesh)
+
+
+class ParallelTrainer:
+    """Gluon-style trainer whose ``step`` runs forward, backward and the
+    update of every parameter of ``net`` on the net's device.
+
+    ``loss`` is a loss block, called as ``loss(outputs[0], labels[0])``,
+    or a callable ``fn(outputs, labels)`` that receives the net's outputs
+    and the labels (a list when there are several): multi-output models
+    (BERT: MLM + NSP heads) compose their objective there. ``x`` / ``y``
+    of :meth:`step` are one tensor (or numpy array) or a list; they are
+    moved to the net's device.
+
+    ``mesh`` may be None or a one-device mesh (a ``{axis: size}`` dict or
+    a sequence of devices); ``guardrail`` and ``zero`` may be None or
+    False; ``amp`` must be None.
+    """
+
+    def __init__(self, net, loss, optimizer='sgd', optimizer_params=None,
+                 mesh=None, guardrail=None, zero=None, amp=None, seed=0):
+        if mesh is not None and _mesh_devices(mesh) > 1:
+            raise NotImplementedError(
+                'ParallelTrainer: a mesh of %d devices is not ported yet '
+                '(ROADMAP A10, multi-GPU); the port trains on one device'
+                % _mesh_devices(mesh))
+        if zero:
+            raise NotImplementedError('ParallelTrainer: the ZeRO-sharded '
+                                      'update is not ported yet (ROADMAP A10, '
+                                      'multi-GPU)')
+        if guardrail:
+            raise NotImplementedError('ParallelTrainer: the numerical '
+                                      'guardrail is not ported yet (ROADMAP '
+                                      'A10, robustness layers)')
+        if amp is not None:
+            raise NotImplementedError('ParallelTrainer: AMP is not ported '
+                                      'yet (ROADMAP A9)')
+        self._net = net
+        self._loss = loss
+        if isinstance(optimizer, str):
+            self._opt = _optmod.create(optimizer, **(optimizer_params or {}))
+        else:
+            self._opt = optimizer
+        self._device = next(net.parameters()).device
+        self._generator = torch.Generator(device=self._device)
+        self._generator.manual_seed(int(seed))
+        for m in net.modules():
+            if isinstance(m, Dropout):
+                m.generator = self._generator
+        self._params = None
+        self._states = None
+        self.num_update = 0
+
+    @property
+    def learning_rate(self):
+        return self._opt.lr
+
+    def _build(self):
+        named = [(n, p) for n, p in self._net.collect_params().items()
+                 if p.requires_grad]
+        self._params = [p for _, p in named]
+        opt = self._opt
+        if not opt.idx2name:
+            opt.idx2name = {i: n for i, (n, _) in enumerate(named)}
+        self._states = [opt.create_state(i, p.detach())
+                        for i, p in enumerate(self._params)]
+
+    def _to_device(self, a):
+        return torch.as_tensor(a, device=self._device)
+
+    def step(self, x, y):
+        """One training step; returns the step's loss, a scalar tensor on
+        the net's device (reading it waits for the device)."""
+        if self._params is None:
+            self._build()
+        xs = [None if a is None else self._to_device(a) for a in _as_list(x)]
+        ys = [self._to_device(a) for a in _as_list(y)]
+        net = self._net
+        for p in self._params:
+            p.grad = None
+        net.train(True)
+        try:
+            outs = _as_list(net(*xs))
+            if isinstance(self._loss, torch.nn.Module):
+                loss = self._loss(outs[0], ys[0])
+            else:
+                loss = self._loss(outs if len(outs) > 1 else outs[0],
+                                  ys if len(ys) > 1 else ys[0])
+            loss = torch.mean(loss)
+        finally:
+            net.train(False)
+        loss.backward()
+        opt = self._opt
+        with torch.no_grad():
+            for i, (p, state) in enumerate(zip(self._params, self._states)):
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                opt.update(i, p.data, g, state)
+        for p in self._params:
+            p.grad = None
+        self.num_update += 1
+        return loss.detach()
