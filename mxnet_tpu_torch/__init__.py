@@ -9,10 +9,14 @@ ported path is a hand-written CUDA kernel for Hopper (``sm_90a``) under
 Ported so far: generation serving of the causal transformer LM through
 the slot KV cache (``serving.freeze_decode`` -> ``DecodeProgram`` ->
 ``InferenceSession.generate`` -> ``DecodeEngine``), carried by the
-flash-prefill and flash-decode attention kernels; and BERT pretraining
+flash-prefill and flash-decode attention kernels; BERT pretraining
 (``gluon.model_zoo.bert`` + ``gluon.loss`` + AdamW through
 ``parallel.ParallelTrainer.step``), carried by the flash forward, the
-flash dq / dkv backward and the softmax-xent forward / backward kernels.
+flash dq / dkv backward and the softmax-xent forward / backward kernels;
+and ResNet v1 training (``gluon.model_zoo.resnet`` + SGD with momentum
+through the same step), carried by the epilogue kernels (BatchNorm apply
+forward / backward, activation forward / backward, add + relu) and the
+softmax-xent head.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 on a host without CUDA they raise instead of falling back.

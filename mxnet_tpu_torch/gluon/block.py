@@ -13,9 +13,12 @@ it to training (``Module.train()``): a new block starts with
 """
 from __future__ import annotations
 
+import re
+
+import numpy as onp
 import torch
 
-__all__ = ['Block']
+__all__ = ['Block', 'params_from_jax']
 
 
 class Block(torch.nn.Module):
@@ -43,3 +46,39 @@ def _collect(mod, pre, out):
     for child in mod._modules.values():
         if child is not None:
             _collect(child, pre, out)
+
+
+_AUTO_PREFIX = re.compile(r'^[a-z]+\d+_')
+
+
+@torch.no_grad()
+def params_from_jax(jax_params, net):
+    """Copy a JAX net's parameters into ``net``.
+
+    ``jax_params`` maps each name of the JAX net's ``collect_params()``
+    (e.g. ``bertmodel0_enc_layer0_attn_qkv_weight``,
+    ``resnetv10_stage1_batchnorm0_running_var``) to an array. The model's
+    auto-numbered prefix is stripped; every remaining name must be a
+    parameter of ``net`` with the same shape, and every parameter of
+    ``net`` must be given, or this raises. Parameters that take no
+    gradient (moving statistics) are copied too. Returns ``net``."""
+    mine = net.collect_params()
+    given = {}
+    for name, value in jax_params.items():
+        short = _AUTO_PREFIX.sub('', name, count=1)
+        if short in given:
+            raise ValueError('params_from_jax: %r and another name both map '
+                             'to %r' % (name, short))
+        given[short] = value
+    unknown = sorted(set(given) - set(mine))
+    missing = sorted(set(mine) - set(given))
+    if unknown or missing:
+        raise ValueError('params_from_jax: names do not match the net '
+                         '(unknown %s, missing %s)' % (unknown, missing))
+    for name, p in mine.items():
+        arr = onp.array(given[name], dtype=onp.float32)
+        if arr.shape != tuple(p.shape):
+            raise ValueError('params_from_jax: %s has shape %r, the net %r'
+                             % (name, arr.shape, tuple(p.shape)))
+        p.copy_(torch.from_numpy(arr))
+    return net

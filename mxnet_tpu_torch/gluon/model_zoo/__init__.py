@@ -1,4 +1,4 @@
 """Model zoo of the port (counterpart of ``mxnet_tpu/gluon/model_zoo``)."""
-from . import bert
+from . import bert, resnet
 
-__all__ = ['bert']
+__all__ = ['bert', 'resnet']

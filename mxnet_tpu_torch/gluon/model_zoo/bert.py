@@ -15,13 +15,11 @@ biases and beta); :func:`params_from_jax` copies a JAX net's.
 """
 from __future__ import annotations
 
-import re
-
 import numpy as onp
 import torch
 
 from ...context import resolve_device
-from ..block import Block
+from ..block import Block, params_from_jax
 from ..nn import Dense, Dropout, Embedding, LayerNorm, TransformerEncoder
 
 __all__ = ['BERTModel', 'get_bert', 'bert_12_768_12', 'init_params',
@@ -150,38 +148,4 @@ def init_params(net, seed=0, std=0.02):
         else:
             w = rng.standard_normal(tuple(p.shape), dtype=onp.float32) * std
             p.copy_(torch.from_numpy(w))
-    return net
-
-
-_AUTO_PREFIX = re.compile(r'^[a-z]+\d+_')
-
-
-@torch.no_grad()
-def params_from_jax(jax_params, net):
-    """Copy a JAX BERT's weights into ``net``.
-
-    ``jax_params`` maps each name of the JAX net's ``collect_params()``
-    (e.g. ``bertmodel0_enc_layer0_attn_qkv_weight``) to an array. The
-    model's auto-numbered prefix is stripped; every remaining name must
-    be a parameter of ``net`` with the same shape, and every parameter of
-    ``net`` must be given, or this raises. Returns ``net``."""
-    mine = net.collect_params()
-    given = {}
-    for name, value in jax_params.items():
-        short = _AUTO_PREFIX.sub('', name, count=1)
-        if short in given:
-            raise ValueError('params_from_jax: %r and another name both map '
-                             'to %r' % (name, short))
-        given[short] = value
-    unknown = sorted(set(given) - set(mine))
-    missing = sorted(set(mine) - set(given))
-    if unknown or missing:
-        raise ValueError('params_from_jax: names do not match the net '
-                         '(unknown %s, missing %s)' % (unknown, missing))
-    for name, p in mine.items():
-        arr = onp.asarray(given[name], dtype=onp.float32)
-        if arr.shape != tuple(p.shape):
-            raise ValueError('params_from_jax: %s has shape %r, the net %r'
-                             % (name, arr.shape, tuple(p.shape)))
-        p.copy_(torch.from_numpy(arr))
     return net

@@ -1,8 +1,11 @@
 """Layers of the port (counterpart of ``mxnet_tpu/gluon/nn``)."""
-from .basic_layers import Activation, Dense, Dropout, Embedding, LayerNorm
+from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                           Flatten, HybridSequential, LayerNorm)
+from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoder, TransformerEncoderCell)
 
-__all__ = ['Activation', 'Dense', 'Dropout', 'Embedding', 'LayerNorm',
-           'MultiHeadAttention', 'PositionwiseFFN', 'TransformerEncoder',
-           'TransformerEncoderCell']
+__all__ = ['Activation', 'BatchNorm', 'Conv2D', 'Dense', 'Dropout',
+           'Embedding', 'Flatten', 'GlobalAvgPool2D', 'HybridSequential',
+           'LayerNorm', 'MaxPool2D', 'MultiHeadAttention', 'PositionwiseFFN',
+           'TransformerEncoder', 'TransformerEncoderCell']

@@ -17,6 +17,13 @@ from .attention import (K_BLOCK, FlashAttentionFunction, flash_attention,
                         flash_decode_attention,
                         flash_decode_attention_reference,
                         online_softmax_block)
+from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
+                       BnApplyFunction, act_backward, act_backward_reference,
+                       act_forward, act_forward_reference, add_act_forward,
+                       add_act_forward_reference, bn_act_backward,
+                       bn_act_backward_reference, bn_act_forward,
+                       bn_act_forward_reference, fused_act, fused_add_act,
+                       fused_bn_apply)
 from .xent import (SoftmaxXentFunction, fused_softmax_xent_rows,
                    fused_softmax_xent_rows_reference, softmax_xent_backward,
                    softmax_xent_backward_reference, softmax_xent_forward,
@@ -32,4 +39,10 @@ __all__ = ['KERNELS', 'K_BLOCK', 'online_softmax_block', 'flash_attention',
            'fused_softmax_xent_rows_reference', 'SoftmaxXentFunction',
            'softmax_xent_forward', 'softmax_xent_forward_reference',
            'softmax_xent_backward', 'softmax_xent_backward_reference',
+           'ACT_TYPES', 'act_forward', 'act_forward_reference',
+           'act_backward', 'act_backward_reference', 'add_act_forward',
+           'add_act_forward_reference', 'bn_act_forward',
+           'bn_act_forward_reference', 'bn_act_backward',
+           'bn_act_backward_reference', 'ActFunction', 'AddActFunction',
+           'BnApplyFunction', 'fused_act', 'fused_add_act', 'fused_bn_apply',
            'launch_counts', 'reset_launch_counts']

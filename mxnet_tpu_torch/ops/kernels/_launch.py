@@ -13,13 +13,14 @@ import ctypes
 import torch
 
 __all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts', 'count',
-           'on_cpu', 'ptr', 'stream', 'require', 'check_inputs',
+           'on_cpu', 'dense', 'ptr', 'stream', 'require', 'check_inputs',
            'raise_on']
 
 # every hand-written kernel of the port, by the name its wrapper counts
 KERNELS = ('flash_attention_fwd', 'flash_attention_dq',
            'flash_attention_dkv', 'flash_decode_fwd', 'softmax_xent_fwd',
-           'softmax_xent_bwd')
+           'softmax_xent_bwd', 'bn_act_fwd', 'bn_act_bwd', 'act_fwd',
+           'act_bwd', 'add_act_fwd')
 
 _launches = dict.fromkeys(KERNELS, 0)
 
@@ -38,12 +39,12 @@ def count(kernel):
     _launches[kernel] += 1
 
 
-def on_cpu(kernel, t, layout):
+def on_cpu(kernel, t, layout=None):
     """The wrapper rule: True when ``t`` lies on the CPU (the wrapper
     runs the plain version), False on a CUDA device (it launches the
     kernel); any other device, or a rank other than that of ``layout``
-    (such as ``'(rows, V)'``), raises."""
-    if t.dim() != layout.count(',') + 1:
+    (such as ``'(rows, V)'``; None takes any rank), raises."""
+    if layout is not None and t.dim() != layout.count(',') + 1:
         raise ValueError('%s: expected %s, got %r'
                          % (kernel, layout, tuple(t.shape)))
     if t.device.type == 'cpu':
@@ -51,6 +52,14 @@ def on_cpu(kernel, t, layout):
     if t.device.type != 'cuda':
         raise ValueError('%s: unsupported device %s' % (kernel, t.device))
     return False
+
+
+def dense(t):
+    """``t`` itself when it is contiguous and 16-byte aligned, else a
+    dense copy (an expanded or strided view, an offset slice)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def ptr(t):

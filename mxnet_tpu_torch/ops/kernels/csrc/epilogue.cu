@@ -1,0 +1,261 @@
+// Elementwise epilogue kernels for Hopper (sm_90a), float32: the BatchNorm
+// apply (+ activation) forward and backward, the activation forward and
+// its save-output backward, and the residual add (+ activation).
+//
+// Replaces, in mxnet_tpu/ops/pallas/epilogue.py:
+//   mxnet_tpu_bn_act_fwd  (:124)  out = act((x - mean[c]) * scale[c] + beta[c])
+//   mxnet_tpu_bn_act_bwd  (:136)  dx  = g * act'(out) * scale[c]
+//   mxnet_tpu_act_fwd     (:234)  out = act(x)
+//   mxnet_tpu_act_bwd     (:239)  dx  = g * act'(out)
+//   mxnet_tpu_add_act_fwd (:297)  out = act(x + y)
+// act' is computed from the OUTPUT alone (the save-output residual
+// contract of ops/nn.py _act_core), for the covered set: identity, relu,
+// sigmoid, tanh, softrelu, softsign, leaky (slope > 0).
+//
+// What bounds them on the H100: bytes. Each does a few flops per element
+// against 8-12 bytes moved; the ResNet-50 step runs ~1.36 G elements
+// through bn_act_fwd alone, 3.2 ms at 3.35 TB/s.
+//
+// Design. The TPU kernels flatten to (rows, 128) tiles padded to 256-row
+// blocks in VMEM, with the per-channel coefficients broadcast into
+// (rows, 1) columns. None of that is carried over: here one grid-stride
+// loop walks the n elements unpadded, 256 threads a block, neighbouring
+// threads on neighbouring addresses (coalesced 4-byte loads), and the BN
+// kernels read the coefficient of channel c = (i / inner) % C straight
+// from the (C,) vectors, which stay in L1/L2. The activation is a
+// template parameter, so each instance is a straight-line loop body.
+// Indices are 32-bit (Idx): n is at most INT32_MAX, so i + stride never
+// wraps; a larger tensor is refused (the wrappers raise first).
+//
+// Rounding. (x - mean) * scale + beta and x + y use explicitly rounded
+// intrinsics (__fsub_rn, __fmul_rn, __fadd_rn), which nvcc never
+// contracts into an FMA: every arithmetic step rounds once, as the plain
+// PyTorch versions' separate ops do, so identity, relu, leaky, add+relu
+// and the BN apply (and all the backward rules built from products and
+// compares) are bitwise equal to them. The transcendental activations
+// use expf / tanhf / log1pf (full-precision, no fast-math) and agree to a
+// couple of ulps.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+using Idx = uint32_t;
+
+enum Act {
+  IDENTITY = 0,
+  RELU = 1,
+  SIGMOID = 2,
+  TANH = 3,
+  SOFTRELU = 4,
+  SOFTSIGN = 5,
+  LEAKY = 6
+};
+
+template <int A>
+__device__ __forceinline__ float act_fwd(float x, float slope) {
+  if (A == RELU) return x < 0.f ? 0.f : x;  // NaN propagates
+  if (A == SIGMOID) return 1.f / __fadd_rn(1.f, expf(-x));
+  if (A == TANH) return tanhf(x);
+  // softplus as logaddexp(x, 0): max(x, 0) + log1p(exp(-|x|))
+  if (A == SOFTRELU) return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
+  if (A == SOFTSIGN) return x / __fadd_rn(fabsf(x), 1.f);
+  if (A == LEAKY) return x >= 0.f ? x : __fmul_rn(slope, x);
+  return x;  // IDENTITY
+}
+
+// d act / d x from the output alone
+template <int A>
+__device__ __forceinline__ float act_grad(float out, float slope) {
+  if (A == RELU) return out > 0.f ? 1.f : 0.f;
+  if (A == SIGMOID) return __fmul_rn(out, __fsub_rn(1.f, out));
+  if (A == TANH) return __fsub_rn(1.f, __fmul_rn(out, out));
+  if (A == SOFTRELU) return __fsub_rn(1.f, expf(-out));
+  if (A == SOFTSIGN) {
+    const float a = __fsub_rn(1.f, fabsf(out));
+    return __fmul_rn(a, a);
+  }
+  if (A == LEAKY) return out >= 0.f ? 1.f : slope;
+  return 1.f;  // IDENTITY
+}
+
+template <int A>
+__global__ void __launch_bounds__(THREADS)
+epilogue_bn_act_fwd_kernel(const float* __restrict__ x,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ beta,
+                           float* __restrict__ out, Idx n, Idx c, Idx inner,
+                           float slope) {
+  const Idx stride = (Idx)gridDim.x * THREADS;
+  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
+    const Idx ch = (i / inner) % c;
+    const float y = __fadd_rn(
+        __fmul_rn(__fsub_rn(x[i], mean[ch]), scale[ch]), beta[ch]);
+    out[i] = act_fwd<A>(y, slope);
+  }
+}
+
+template <int A>
+__global__ void __launch_bounds__(THREADS)
+epilogue_bn_act_bwd_kernel(const float* __restrict__ g,
+                           const float* __restrict__ out,
+                           const float* __restrict__ scale,
+                           float* __restrict__ dx, Idx n, Idx c, Idx inner,
+                           float slope) {
+  const Idx stride = (Idx)gridDim.x * THREADS;
+  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
+    const Idx ch = (i / inner) % c;
+    dx[i] = __fmul_rn(__fmul_rn(g[i], act_grad<A>(out[i], slope)),
+                      scale[ch]);
+  }
+}
+
+template <int A>
+__global__ void __launch_bounds__(THREADS)
+epilogue_act_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
+                        Idx n, float slope) {
+  const Idx stride = (Idx)gridDim.x * THREADS;
+  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride)
+    out[i] = act_fwd<A>(x[i], slope);
+}
+
+template <int A>
+__global__ void __launch_bounds__(THREADS)
+epilogue_act_bwd_kernel(const float* __restrict__ g,
+                        const float* __restrict__ out,
+                        float* __restrict__ dx, Idx n, float slope) {
+  const Idx stride = (Idx)gridDim.x * THREADS;
+  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride)
+    dx[i] = __fmul_rn(g[i], act_grad<A>(out[i], slope));
+}
+
+template <int A>
+__global__ void __launch_bounds__(THREADS)
+epilogue_add_act_fwd_kernel(const float* __restrict__ x,
+                            const float* __restrict__ y,
+                            float* __restrict__ out, Idx n, float slope) {
+  const Idx stride = (Idx)gridDim.x * THREADS;
+  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride)
+    out[i] = act_fwd<A>(__fadd_rn(x[i], y[i]), slope);
+}
+
+// blocks for n elements: one element per thread up to 8 blocks of 256
+// threads on every SM (2048 threads, the SM's limit), then the
+// grid-stride loop takes the rest
+unsigned grid_for(long long n) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms <= 0)
+      sms = 132;  // the H100 SXM
+  }
+  const long long want = (n + THREADS - 1) / THREADS;
+  const long long cap = (long long)sms * 8;
+  return (unsigned)(want < cap ? want : cap);
+}
+
+// run the launch (the variadic argument) with the activation code bound
+// to a compile-time constant A; an unknown code is an error of the caller
+#define MX_ACT_DISPATCH(act, ...)                                     \
+  switch (act) {                                                      \
+    case IDENTITY: { constexpr int A = IDENTITY; __VA_ARGS__; break; } \
+    case RELU:     { constexpr int A = RELU;     __VA_ARGS__; break; } \
+    case SIGMOID:  { constexpr int A = SIGMOID;  __VA_ARGS__; break; } \
+    case TANH:     { constexpr int A = TANH;     __VA_ARGS__; break; } \
+    case SOFTRELU: { constexpr int A = SOFTRELU; __VA_ARGS__; break; } \
+    case SOFTSIGN: { constexpr int A = SOFTSIGN; __VA_ARGS__; break; } \
+    case LEAKY:    { constexpr int A = LEAKY;    __VA_ARGS__; break; } \
+    default: return cudaErrorInvalidValue;                            \
+  }
+
+}  // namespace
+
+// ---- host entry points ----
+// Every tensor is float32, contiguous, on the device. n is the element
+// count, at most INT32_MAX; for the BN kernels x is (outer, C, inner)
+// around the BN axis and scale / mean / beta are (C,). act is the Act
+// code above, slope the leaky slope. Each returns the cudaError_t of its
+// launch.
+extern "C" int mx_bn_act_fwd(const void* x, const void* scale,
+                             const void* mean, const void* beta, void* out,
+                             long long n, int c, long long inner, int act,
+                             float slope, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  if (c <= 0 || inner <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(n);
+  const float* xp = static_cast<const float*>(x);
+  const float* sp = static_cast<const float*>(scale);
+  const float* mp = static_cast<const float*>(mean);
+  const float* bp = static_cast<const float*>(beta);
+  float* op = static_cast<float*>(out);
+  MX_ACT_DISPATCH(act, epilogue_bn_act_fwd_kernel<A><<<grid, THREADS, 0, s>>>(
+                           xp, sp, mp, bp, op, (Idx)n, (Idx)c, (Idx)inner,
+                           slope));
+  return cudaGetLastError();
+}
+
+extern "C" int mx_bn_act_bwd(const void* g, const void* out,
+                             const void* scale, void* dx, long long n, int c,
+                             long long inner, int act, float slope,
+                             void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  if (c <= 0 || inner <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(n);
+  const float* gp = static_cast<const float*>(g);
+  const float* op = static_cast<const float*>(out);
+  const float* sp = static_cast<const float*>(scale);
+  float* dp = static_cast<float*>(dx);
+  MX_ACT_DISPATCH(act, epilogue_bn_act_bwd_kernel<A><<<grid, THREADS, 0, s>>>(
+                           gp, op, sp, dp, (Idx)n, (Idx)c, (Idx)inner, slope));
+  return cudaGetLastError();
+}
+
+extern "C" int mx_act_fwd(const void* x, void* out, long long n, int act,
+                          float slope, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(n);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  MX_ACT_DISPATCH(act, epilogue_act_fwd_kernel<A><<<grid, THREADS, 0, s>>>(
+                           xp, op, (Idx)n, slope));
+  return cudaGetLastError();
+}
+
+extern "C" int mx_act_bwd(const void* g, const void* out, void* dx,
+                          long long n, int act, float slope, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(n);
+  const float* gp = static_cast<const float*>(g);
+  const float* op = static_cast<const float*>(out);
+  float* dp = static_cast<float*>(dx);
+  MX_ACT_DISPATCH(act, epilogue_act_bwd_kernel<A><<<grid, THREADS, 0, s>>>(
+                           gp, op, dp, (Idx)n, slope));
+  return cudaGetLastError();
+}
+
+extern "C" int mx_add_act_fwd(const void* x, const void* y, void* out,
+                              long long n, int act, float slope,
+                              void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(n);
+  const float* xp = static_cast<const float*>(x);
+  const float* yp = static_cast<const float*>(y);
+  float* op = static_cast<float*>(out);
+  MX_ACT_DISPATCH(act, epilogue_add_act_fwd_kernel<A><<<grid, THREADS, 0, s>>>(
+                           xp, yp, op, (Idx)n, slope));
+  return cudaGetLastError();
+}

@@ -1,0 +1,367 @@
+"""Elementwise epilogue kernels: CUDA kernels and their plain PyTorch
+versions.
+
+The counterpart of ``mxnet_tpu/ops/pallas/epilogue.py``. Five kernels, all
+in ``csrc/epilogue.cu``, float32, over the tensor's elements unpadded:
+
+  * :func:`bn_act_forward` replaces ``mxnet_tpu_bn_act_fwd``
+    (epilogue.py:124): ``act((x - mean) * scale + beta)`` with (C,)
+    coefficients along ``axis``;
+  * :func:`bn_act_backward` replaces ``mxnet_tpu_bn_act_bwd`` (:136):
+    ``dx = g * act'(out) * scale``;
+  * :func:`act_forward` replaces ``mxnet_tpu_act_fwd`` (:234): ``act(x)``;
+  * :func:`act_backward` replaces ``mxnet_tpu_act_bwd`` (:239):
+    ``g * act'(out)``, from the output alone;
+  * :func:`add_act_forward` replaces ``mxnet_tpu_add_act_fwd`` (:297):
+    ``act(x + y)``.
+
+``act'`` comes from the output alone (:func:`act_grad_from_out`), for the
+covered set :data:`ACT_TYPES`; ``None`` means identity. Three
+``torch.autograd.Function``s wire them as the JAX custom_vjps do:
+:class:`ActFunction` saves the output only, :class:`AddActFunction`
+gives ``dx, dx`` from the output, :class:`BnApplyFunction` takes ``dx``
+from the ``bn_act_backward`` kernel and the coefficient gradients
+``dscale``, ``dmean``, ``dbeta`` from plain reductions, as
+``_bn_apply_bwd`` (:162-181) does outside its kernel.
+
+Wrapper rules as in ``attention.py``: a CPU tensor takes the plain version
+(the ``*_reference`` functions), a CUDA tensor launches the kernel or
+raises, and each launch is counted. A CUDA input that is not contiguous
+(the global average pool's backward hands over an expanded view) or not
+16-byte aligned is copied into a dense tensor first.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._launch import (check_inputs as _check_inputs, count as _count,
+                      dense as _dense, on_cpu as _on_cpu, ptr as _ptr,
+                      raise_on as _raise_on, require as _require,
+                      stream as _stream)
+
+__all__ = ['ACT_TYPES', 'MAX_ELEMENTS', 'act_reference',
+           'act_grad_from_out', 'act_forward', 'act_forward_reference',
+           'act_backward', 'act_backward_reference', 'add_act_forward',
+           'add_act_forward_reference', 'bn_act_forward',
+           'bn_act_forward_reference', 'bn_act_backward',
+           'bn_act_backward_reference', 'ActFunction', 'AddActFunction',
+           'BnApplyFunction', 'fused_act', 'fused_add_act',
+           'fused_bn_apply']
+
+# the activations the kernels cover, by the code csrc/epilogue.cu reads
+ACT_TYPES = ('identity', 'relu', 'sigmoid', 'tanh', 'softrelu', 'softsign',
+             'leaky')
+_CODE = {name: i for i, name in enumerate(ACT_TYPES)}
+
+
+def _code(act_type):
+    name = 'identity' if act_type is None else act_type
+    try:
+        return _CODE[name]
+    except KeyError:
+        raise ValueError('unsupported epilogue act_type %r (have %s)'
+                         % (act_type, ', '.join(ACT_TYPES)))
+
+
+def act_reference(x, act_type, slope=0.0):
+    """``act(x)`` in float32, the expressions of ``_act_apply``
+    (epilogue.py:45-63): softrelu is ``logaddexp(x, 0)``, leaky
+    ``where(x >= 0, x, slope * x)``."""
+    name = ACT_TYPES[_code(act_type)]
+    if name == 'relu':
+        return torch.relu(x)
+    if name == 'sigmoid':
+        return torch.sigmoid(x)
+    if name == 'tanh':
+        return torch.tanh(x)
+    if name == 'softrelu':
+        return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    if name == 'softsign':
+        return x / (x.abs() + 1)
+    if name == 'leaky':
+        return torch.where(x >= 0, x, slope * x)
+    return x
+
+
+def act_grad_from_out(out, act_type, slope=0.0):
+    """``d act / d x`` from the output alone, the closed forms of
+    ``_act_grad_from_out`` (epilogue.py:66-85)."""
+    name = ACT_TYPES[_code(act_type)]
+    one = torch.ones_like(out)
+    if name == 'relu':
+        return (out > 0).to(out.dtype)
+    if name == 'sigmoid':
+        return out * (1 - out)
+    if name == 'tanh':
+        return 1 - out * out
+    if name == 'softrelu':
+        return 1 - torch.exp(-out)
+    if name == 'softsign':
+        a = 1 - out.abs()
+        return a * a
+    if name == 'leaky':
+        return torch.where(out >= 0, one, slope * one)
+    return one
+
+
+def _lib(entry, nargs):
+    from . import _build
+    fn = getattr(_build.load('epilogue'), entry)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = nargs
+    return fn
+
+
+_P, _N, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_float)
+# the kernels index elements in 32 bits
+MAX_ELEMENTS = 2 ** 31 - 1
+
+
+def _launch(kernel, entry, argtypes, tensors, result, *scalars):
+    """Check ``tensors`` (name -> float32 input) and ``result``, launch
+    ``entry`` on the current stream and count it; returns ``result``."""
+    named = dict(tensors)
+    named['result'] = result
+    _check_inputs(kernel, named, dict.fromkeys(named, torch.float32))
+    _require(result.numel() <= MAX_ELEMENTS, '%s: %d elements, more than '
+             'the %d the kernel indexes' % (kernel, result.numel(),
+                                            MAX_ELEMENTS))
+    device = result.device
+    with torch.cuda.device(device):
+        err = _lib(entry, argtypes)(*[_ptr(t) for t in named.values()],
+                                    *scalars, _stream(device))
+    _raise_on(kernel, err)
+    _count(kernel)
+    return result
+
+
+def _empty(like):
+    return torch.empty(like.shape, dtype=torch.float32, device=like.device)
+
+
+def _same_shape(kernel, a, b):
+    _require(a.shape == b.shape, '%s: shapes %r and %r differ'
+             % (kernel, tuple(a.shape), tuple(b.shape)))
+
+
+# -- activation forward / backward -------------------------------------------
+
+
+def act_forward_reference(x, act_type, slope=0.0):
+    """Plain PyTorch version of :func:`act_forward`."""
+    return act_reference(x.float(), act_type, slope).to(x.dtype)
+
+
+def act_forward(x, act_type, slope=0.0):
+    """``act(x)``, any shape."""
+    code = _code(act_type)
+    if _on_cpu('act_forward', x):
+        return act_forward_reference(x, act_type, slope)
+    x = _dense(x)
+    return _launch('act_fwd', 'mx_act_fwd', [_P, _P, _N, _I, _F, _P],
+                   {'x': x}, _empty(x), x.numel(), code, float(slope))
+
+
+def act_backward_reference(g, out, act_type, slope=0.0):
+    """Plain PyTorch version of :func:`act_backward`."""
+    of = out.float()
+    return (g.float() * act_grad_from_out(of, act_type, slope)).to(out.dtype)
+
+
+def act_backward(g, out, act_type, slope=0.0):
+    """``g * act'(out)``, the gradient of ``act`` from its output."""
+    code = _code(act_type)
+    if _on_cpu('act_backward', out):
+        return act_backward_reference(g, out, act_type, slope)
+    _same_shape('act_backward', g, out)
+    g, out = _dense(g), _dense(out)
+    return _launch('act_bwd', 'mx_act_bwd', [_P, _P, _P, _N, _I, _F, _P],
+                   {'g': g, 'out': out}, _empty(out), out.numel(), code,
+                   float(slope))
+
+
+def add_act_forward_reference(x, y, act_type='relu', slope=0.0):
+    """Plain PyTorch version of :func:`add_act_forward`."""
+    return act_reference(x.float() + y.float(), act_type,
+                         slope).to(x.dtype)
+
+
+def add_act_forward(x, y, act_type='relu', slope=0.0):
+    """``act(x + y)`` of two tensors of one shape."""
+    code = _code(act_type)
+    if _on_cpu('add_act_forward', x):
+        return add_act_forward_reference(x, y, act_type, slope)
+    _same_shape('add_act_forward', x, y)
+    x, y = _dense(x), _dense(y)
+    return _launch('add_act_fwd', 'mx_add_act_fwd',
+                   [_P, _P, _P, _N, _I, _F, _P], {'x': x, 'y': y}, _empty(x),
+                   x.numel(), code, float(slope))
+
+
+# -- BatchNorm apply forward / backward --------------------------------------
+
+
+def _channel_shape(x, axis):
+    ax = axis % x.dim()
+    shape = [1] * x.dim()
+    shape[ax] = x.shape[ax]
+    return ax, shape
+
+
+def _around(x, ax):
+    """(C, inner) of ``x`` split as (outer, C, inner) around axis
+    ``ax``."""
+    inner = 1
+    for s in x.shape[ax + 1:]:
+        inner *= s
+    return x.shape[ax], inner
+
+
+def bn_act_forward_reference(x, scale, mean, beta, axis=1, act_type=None,
+                             slope=0.0):
+    """Plain PyTorch version of :func:`bn_act_forward`: the expression
+    order of ``_bn_train_fwd_impl`` (ops/nn.py:830)."""
+    _, shape = _channel_shape(x, axis)
+    y = (x.float() - mean.float().reshape(shape)) \
+        * scale.float().reshape(shape) + beta.float().reshape(shape)
+    return act_reference(y, act_type, slope).to(x.dtype)
+
+
+def bn_act_forward(x, scale, mean, beta, axis=1, act_type=None, slope=0.0):
+    """``act((x - mean) * scale + beta)`` with (C,) coefficients along
+    ``axis`` of ``x``."""
+    code = _code(act_type)
+    if _on_cpu('bn_act_forward', x):
+        return bn_act_forward_reference(x, scale, mean, beta, axis,
+                                        act_type, slope)
+    ax, _ = _channel_shape(x, axis)
+    c, inner = _around(x, ax)
+    for label, v in (('scale', scale), ('mean', mean), ('beta', beta)):
+        _require(tuple(v.shape) == (c,), 'bn_act_forward: %s has shape %r, '
+                 'expected (%d,)' % (label, tuple(v.shape), c))
+    x, scale, mean, beta = (_dense(t) for t in (x, scale, mean, beta))
+    return _launch('bn_act_fwd', 'mx_bn_act_fwd',
+                   [_P] * 5 + [_N, _I, _N, _I, _F, _P],
+                   {'x': x, 'scale': scale, 'mean': mean, 'beta': beta},
+                   _empty(x), x.numel(), c, inner, code, float(slope))
+
+
+def bn_act_backward_reference(g, out, scale, axis=1, act_type=None,
+                              slope=0.0):
+    """Plain PyTorch version of :func:`bn_act_backward`."""
+    _, shape = _channel_shape(out, axis)
+    of = out.float()
+    dx = g.float() * act_grad_from_out(of, act_type, slope) \
+        * scale.float().reshape(shape)
+    return dx.to(out.dtype)
+
+
+def bn_act_backward(g, out, scale, axis=1, act_type=None, slope=0.0):
+    """``g * act'(out) * scale`` with (C,) ``scale`` along ``axis``."""
+    code = _code(act_type)
+    if _on_cpu('bn_act_backward', out):
+        return bn_act_backward_reference(g, out, scale, axis, act_type,
+                                         slope)
+    _same_shape('bn_act_backward', g, out)
+    ax, _ = _channel_shape(out, axis)
+    c, inner = _around(out, ax)
+    _require(tuple(scale.shape) == (c,), 'bn_act_backward: scale has shape '
+             '%r, expected (%d,)' % (tuple(scale.shape), c))
+    g, out, scale = _dense(g), _dense(out), _dense(scale)
+    return _launch('bn_act_bwd', 'mx_bn_act_bwd',
+                   [_P] * 4 + [_N, _I, _N, _I, _F, _P],
+                   {'g': g, 'out': out, 'scale': scale}, _empty(out),
+                   out.numel(), c, inner, code, float(slope))
+
+
+# -- autograd wiring ----------------------------------------------------------
+
+
+class ActFunction(torch.autograd.Function):
+    """``_act_kernel_core`` (epilogue.py:257-273): the residual is the
+    output only."""
+
+    @staticmethod
+    def forward(ctx, x, act_type, slope):
+        out = act_forward(x, act_type, slope)
+        ctx.save_for_backward(out)
+        ctx.act_type, ctx.slope = act_type, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        return act_backward(g, out, ctx.act_type, ctx.slope), None, None
+
+
+class AddActFunction(torch.autograd.Function):
+    """``_add_act_core`` (epilogue.py:300-319): both addends' gradients
+    are ``g * act'(out)``, one ``act_bwd`` launch."""
+
+    @staticmethod
+    def forward(ctx, x, y, act_type, slope):
+        out = add_act_forward(x, y, act_type, slope)
+        ctx.save_for_backward(out)
+        ctx.act_type, ctx.slope = act_type, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        dx = act_backward(g, out, ctx.act_type, ctx.slope)
+        return dx, dx, None, None
+
+
+class BnApplyFunction(torch.autograd.Function):
+    """``_bn_apply_core`` (epilogue.py:148-184): ``dx`` from the
+    ``bn_act_bwd`` kernel; ``dscale``, ``dmean`` and ``dbeta`` as plain
+    reductions over every axis but ``axis``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, mean, beta, axis, act_type, slope):
+        out = bn_act_forward(x, scale, mean, beta, axis, act_type, slope)
+        ctx.save_for_backward(out, scale, mean, x)
+        ctx.axis, ctx.act_type, ctx.slope = axis, act_type, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, scale, mean, x = ctx.saved_tensors
+        axis, act_type, slope = ctx.axis, ctx.act_type, ctx.slope
+        dx = bn_act_backward(g, out, scale, axis, act_type, slope)
+        dscale = dmean = dbeta = None
+        if any(ctx.needs_input_grad[1:4]):
+            ax, shape = _channel_shape(out, axis)
+            red = tuple(i for i in range(out.dim()) if i != ax)
+            local = g.float() * act_grad_from_out(out.float(), act_type,
+                                                  slope)
+            cen = x.float() - mean.float().reshape(shape)
+            dscale = torch.sum(local * cen, dim=red).to(scale.dtype)
+            sum_local = torch.sum(local, dim=red)
+            dmean = (-sum_local * scale.float()).to(mean.dtype)
+            dbeta = sum_local.to(scale.dtype)
+        return dx, dscale, dmean, dbeta, None, None, None
+
+
+def fused_act(x, act_type, slope=0.0):
+    """Activation with the save-output backward (``fused_act``,
+    epilogue.py:276)."""
+    return ActFunction.apply(x, act_type, float(slope))
+
+
+def fused_add_act(x, y, act_type='relu', slope=0.0):
+    """``act(x + y)`` with ``d/dx = d/dy = g * act'(out)``
+    (``fused_add_act``, epilogue.py:325)."""
+    return AddActFunction.apply(x, y, act_type, float(slope))
+
+
+def fused_bn_apply(x, scale, mean, beta, axis=1, act_type=None, slope=0.0):
+    """``act((x - mean) * scale + beta)`` with (C,) coefficients along
+    ``axis``, differentiable in ``x`` and the coefficients
+    (``fused_bn_apply``, epilogue.py:187)."""
+    return BnApplyFunction.apply(x, scale, mean, beta, int(axis), act_type,
+                                 float(slope))

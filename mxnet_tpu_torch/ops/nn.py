@@ -1,12 +1,28 @@
-"""Op bodies of the BERT training path, the counterpart of the ops of the
-same names in ``mxnet_tpu/ops/nn.py``.
+"""Op bodies of the ported training paths, the counterpart of the ops of
+the same names in ``mxnet_tpu/ops/nn.py``.
 
-Only the ops BERT reaches are here. Each keeps the JAX body's order of
-operations, so the CPU parity tests compare like with like:
+Only the ops BERT and ResNet v1 reach are here. Each keeps the JAX body's
+order of operations, so the CPU parity tests compare like with like:
 
   * :func:`fully_connected` (nn.py:29): ``x @ W^T`` then ``+ b``, W (out,
     in);
-  * :func:`activation` (nn.py:439): tanh and exact-erf gelu;
+  * :func:`convolution` (nn.py:100): 2-D NCHW convolution as one
+    ``F.conv2d`` (the JAX op is one XLA convolution, outside any Pallas
+    kernel);
+  * :func:`pooling` (nn.py:261): max pooling with ``_max_pool_core``'s
+    equality-mask backward (:class:`MaxPoolFunction`) and global average
+    pooling;
+  * :func:`activation` (nn.py:439) and :func:`leaky_relu` (nn.py:454):
+    the kernel-covered activations go through the epilogue kernels'
+    save-output core, as the JAX ops do with the ``epilogue`` family on;
+    gelu stays plain;
+  * :func:`add_relu` (nn.py:490): the ResNet v1 block join through the
+    add+act kernel;
+  * :func:`batch_norm` (nn.py:785-917): training mode through
+    :class:`BatchNormTrainFunction` (``_bn_train_core``: one-pass float32
+    statistics, the ``bn_act_fwd`` kernel, the plain ``_bn_train_bwd``
+    backward); inference mode and ``use_global_stats`` through the BN
+    apply kernels;
   * :func:`flash_attention_op` (nn.py:504): head-split (B*H, S, D)
     attention through the flash kernels; the mask is the (B,) lengths
     form only;
@@ -15,10 +31,10 @@ operations, so the CPU parity tests compare like with like:
   * :func:`layer_norm` (nn.py:920-990): ``_ln_core``, float32 centred
     two-pass variance and ``rsqrt``, with its hand-written backward;
   * :func:`dropout` (nn.py:1059) on a caller's ``torch.Generator``;
-  * :func:`embedding` (nn.py:1077).
+  * :func:`embedding` (nn.py:1077); :func:`flatten`.
 
-The attention and loss ops always go through ``ops/kernels``: the kernels
-on a CUDA tensor, their plain versions on a CPU tensor. There is no knob.
+The kernel ops always go through ``ops/kernels``: the kernels on a CUDA
+tensor, their plain versions on a CPU tensor. There is no knob.
 """
 from __future__ import annotations
 
@@ -27,11 +43,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .kernels import flash_attention, fused_softmax_xent_rows
+from .kernels import (bn_act_forward, flash_attention, fused_act,
+                      fused_add_act, fused_bn_apply, fused_softmax_xent_rows)
 
-__all__ = ['fully_connected', 'activation', 'flash_attention_op',
+__all__ = ['fully_connected', 'convolution', 'pooling', 'MaxPoolFunction',
+           'activation', 'leaky_relu', 'add_relu', 'batch_norm',
+           'BatchNormTrainFunction', 'flash_attention_op',
            'softmax_cross_entropy', 'fused_softmax_xent', 'layer_norm',
-           'LayerNormFunction', 'dropout', 'embedding']
+           'LayerNormFunction', 'dropout', 'embedding', 'flatten']
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -44,22 +63,124 @@ def fully_connected(data, weight, bias=None, flatten=True):
     return out
 
 
-# the activations BERT reaches: the pooler's tanh and the exact-erf GELU
-# of the FFN and the MLM transform
-_ACTIVATIONS = {
-    'tanh': torch.tanh,
-    'gelu': lambda x: F.gelu(x, approximate='none'),
-}
+def _pair(v, what):
+    t = (int(v),) * 2 if isinstance(v, int) else tuple(int(a) for a in v)
+    if len(t) != 2:
+        raise ValueError('%s must be an int or 2 ints, got %r' % (what, v))
+    return t
+
+
+def convolution(data, weight, bias=None, stride=1, pad=0, dilate=1,
+                num_group=1):
+    """2-D convolution over NCHW ``data`` with an (out, in // groups, kh,
+    kw) ``weight`` and an optional (out,) ``bias``."""
+    if data.dim() != 4:
+        raise NotImplementedError('convolution: only the 2-D NCHW form is '
+                                  'ported, got %d-D data' % data.dim())
+    return F.conv2d(data, weight, bias, stride=_pair(stride, 'stride'),
+                    padding=_pair(pad, 'pad'),
+                    dilation=_pair(dilate, 'dilate'), groups=int(num_group))
+
+
+class MaxPoolFunction(torch.autograd.Function):
+    """``_max_pool_core`` (nn.py:193-254): max pooling whose backward
+    gives the cotangent of a window to EVERY position equal to the
+    window's max (the reference's pool.h rule), where autograd of
+    ``F.max_pool2d`` picks one winner. For each of the kh x kw window
+    offsets, one strided slice of the -inf-padded input is compared with
+    the output and the masked cotangent is added back at that offset, in
+    the JAX loop's order."""
+
+    @staticmethod
+    def forward(ctx, data, kernel, stride, pad):
+        out = F.max_pool2d(data, kernel, stride, pad)
+        ctx.save_for_backward(data, out)
+        ctx.kernel, ctx.stride, ctx.pad = kernel, stride, pad
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, out = ctx.saved_tensors
+        (kh, kw), (sh, sw), (ph, pw) = ctx.kernel, ctx.stride, ctx.pad
+        xp = F.pad(data, (pw, pw, ph, ph), value=-math.inf)
+        oh, ow = out.shape[2:]
+        dxp = torch.zeros(xp.shape, dtype=g.dtype, device=g.device)
+        for i in range(kh):
+            for j in range(kw):
+                rows = slice(i, i + (oh - 1) * sh + 1, sh)
+                cols = slice(j, j + (ow - 1) * sw + 1, sw)
+                hit = (xp[:, :, rows, cols] == out).to(g.dtype)
+                dxp[:, :, rows, cols] += g * hit
+        h, w = data.shape[2:]
+        dx = dxp[:, :, ph:ph + h, pw:pw + w]
+        return dx.to(data.dtype), None, None, None
+
+
+def pooling(data, kernel=(1, 1), pool_type='max', global_pool=False,
+            stride=None, pad=0):
+    """2-D pooling over NCHW ``data``: max pooling over windows
+    (``pooling_convention='valid'``) or average pooling over the whole
+    plane (``global_pool``), the two kinds ResNet v1 runs. The JAX op
+    falls back to autodiff's one-winner backward above 64 window offsets;
+    the port keeps the equality rule for every window."""
+    if data.dim() != 4:
+        raise NotImplementedError('pooling: only 2-D NCHW is ported')
+    if global_pool and pool_type == 'avg':
+        return torch.mean(data, dim=(2, 3), keepdim=True)
+    if not global_pool and pool_type == 'max':
+        k = _pair(kernel, 'kernel')
+        s = k if stride is None else _pair(stride, 'stride')
+        return MaxPoolFunction.apply(data, k, s, _pair(pad, 'pad'))
+    raise NotImplementedError('pooling: %s%s pooling is not ported '
+                              '(ROADMAP A.9)' % (
+                                  'global ' if global_pool else '', pool_type))
+
+
+# the activations with an output-only derivative: the epilogue kernels'
+# save-output core covers them (``_ACT_RESCHED``, nn.py:430)
+_EPILOGUE_ACTS = frozenset(('relu', 'sigmoid', 'tanh', 'softrelu',
+                            'softsign'))
 
 
 def activation(data, act_type='relu'):
-    """Elementwise activation by name (``gelu`` is the exact-erf form)."""
-    try:
-        fn = _ACTIVATIONS[act_type]
-    except KeyError:
-        raise ValueError('unknown act_type %r (have %s)'
-                         % (act_type, ', '.join(sorted(_ACTIVATIONS))))
-    return fn(data)
+    """Elementwise activation by name: relu, sigmoid, tanh, softrelu and
+    softsign through the act kernels; gelu (the exact-erf form) plain."""
+    if act_type in _EPILOGUE_ACTS:
+        return fused_act(data, act_type)
+    if act_type == 'gelu':
+        return F.gelu(data, approximate='none')
+    raise ValueError('unknown act_type %r (have %s)'
+                     % (act_type, ', '.join(sorted(_EPILOGUE_ACTS
+                                                   | {'gelu'}))))
+
+
+def leaky_relu(data, act_type='leaky', slope=0.25):
+    """``LeakyReLU``: ``leaky`` (and ``rrelu``, which the JAX op computes
+    as leaky) through the act kernels when ``slope > 0`` -- the sign
+    invariant the output-only backward needs -- and plainly otherwise;
+    ``gelu`` plain. The other kinds (prelu, elu, selu) are not ported."""
+    if act_type in ('leaky', 'rrelu'):
+        if slope > 0:
+            return fused_act(data, 'leaky', float(slope))
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == 'gelu':
+        return F.gelu(data, approximate='none')
+    raise NotImplementedError('leaky_relu: act_type %r is not ported '
+                              '(ROADMAP A.9)' % (act_type,))
+
+
+def add_relu(data, residual):
+    """``relu(data + residual)``, the ResNet v1 residual join: one add+act
+    kernel with the save-output backward for same-shape operands; the
+    plain spelling for broadcasting ones, as the JAX op does."""
+    if data.shape == residual.shape:
+        return fused_add_act(data, residual, 'relu')
+    return torch.relu(data + residual)
+
+
+def flatten(data):
+    """Collapse all axes but the first."""
+    return data.reshape(data.shape[0], -1)
 
 
 def flash_attention_op(q, k, v, mask=None, *, num_heads, causal=False,
@@ -104,6 +225,82 @@ def fused_softmax_xent(pred, label):
     lead = pred.shape[:-1]
     nll = fused_softmax_xent_rows(pred.reshape(-1, v), label.reshape(-1))
     return nll.reshape(lead + (1,)).to(pred.dtype)
+
+
+class BatchNormTrainFunction(torch.autograd.Function):
+    """``_bn_train_core`` (nn.py:785-874): the training-mode BatchNorm.
+
+    Forward: one-pass float32 statistics ``mean = E[x]``, ``var =
+    max(E[x^2] - E[x]^2, 0)`` (biased), ``inv = rsqrt(var + eps)``, then
+    the ``bn_act_fwd`` kernel with ``scale = inv * g``. Returns (out,
+    mean, var); mean and var are not differentiable (the layer reads them
+    under ``no_grad`` for its moving averages, so their cotangents are 0
+    in the JAX step too). Backward: the plain ``_bn_train_bwd`` math from
+    the saved (data, g, mean, inv)."""
+
+    @staticmethod
+    def forward(ctx, data, g, beta, eps, ax):
+        red = tuple(i for i in range(data.dim()) if i != ax)
+        m_count = 1.0
+        for i in red:
+            m_count *= data.shape[i]
+        xf = data.float()
+        s1 = torch.sum(xf, dim=red)
+        s2 = torch.sum(xf * xf, dim=red)
+        mean = s1 / m_count
+        var = torch.clamp_min(s2 / m_count - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        out = bn_act_forward(xf, inv * g.float(), mean, beta.float(),
+                             axis=ax).to(data.dtype)
+        ctx.save_for_backward(data, g, mean, inv)
+        ctx.ax, ctx.m_count, ctx.beta_dtype = ax, m_count, beta.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        data, g, mean, inv = ctx.saved_tensors
+        ax, m_count = ctx.ax, ctx.m_count
+        red = tuple(i for i in range(data.dim()) if i != ax)
+        shape = [1] * data.dim()
+        shape[ax] = data.shape[ax]
+        xf = data.float()
+        dyf = dout.float()
+        sum_dy = torch.sum(dyf, dim=red)
+        sum_dy_x = torch.sum(dyf * xf, dim=red)
+        sum_dy_xhat = (sum_dy_x - mean * sum_dy) * inv
+        xhat = (xf - mean.reshape(shape)) * inv.reshape(shape)
+        scale = (g.float() * inv).reshape(shape)
+        dx = scale * (dyf - (sum_dy / m_count).reshape(shape)
+                      - xhat * (sum_dy_xhat / m_count).reshape(shape))
+        return (dx.to(data.dtype), sum_dy_xhat.to(g.dtype),
+                sum_dy.to(ctx.beta_dtype), None, None)
+
+
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               fix_gamma=True, use_global_stats=False, axis=1,
+               training=True):
+    """BatchNorm over ``axis``; returns (out, mean, var) as the JAX op
+    does, and leaves the moving averages to the layer.
+
+    Training (and not ``use_global_stats``): batch statistics through
+    :class:`BatchNormTrainFunction`; mean and var come back in the moving
+    stats' dtype. Otherwise the moving statistics fold into a per-channel
+    ``scale = rsqrt(var + eps) * g`` and the BN apply kernels run
+    (:func:`~mxnet_tpu_torch.ops.kernels.fused_bn_apply`), differentiable
+    in the data, gamma and beta: frozen-BN fine-tuning takes the
+    ``bn_act_bwd`` kernel. ``fix_gamma`` uses ones for gamma."""
+    ax = int(axis) % data.dim()
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if training and not use_global_stats:
+        out, mean, var = BatchNormTrainFunction.apply(data, g, beta,
+                                                      float(eps), ax)
+        stat = moving_mean.dtype
+        return out, mean.to(stat), var.to(stat)
+    scale = torch.rsqrt(moving_var.float() + eps) * g.float()
+    out = fused_bn_apply(data, scale, moving_mean.float(), beta.float(),
+                         axis=ax)
+    return out.to(data.dtype), moving_mean, moving_var
 
 
 class LayerNormFunction(torch.autograd.Function):

@@ -1,4 +1,6 @@
 """Optimizers of the port (counterpart of ``mxnet_tpu/optimizer``)."""
-from .optimizer import AdamW, Optimizer, create, opt_registry, register
+from .optimizer import (SGD, AdamW, Optimizer, create, opt_registry,
+                        register)
 
-__all__ = ['Optimizer', 'AdamW', 'create', 'register', 'opt_registry']
+__all__ = ['Optimizer', 'SGD', 'AdamW', 'create', 'register',
+           'opt_registry']

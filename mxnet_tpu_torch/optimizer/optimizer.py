@@ -1,27 +1,30 @@
-"""Optimizer base and AdamW, the counterpart of
+"""Optimizer base, SGD and AdamW, the counterpart of
 ``mxnet_tpu/optimizer/optimizer.py``.
 
 Ported: the ``Optimizer`` bookkeeping (optimizer.py:78-257) -- per-index
 update counts, lr / wd multiplier tables, ``rescale_grad``,
-``clip_gradient``, the registry -- plus ``_AdamFamily`` (:423-437) and
-``AdamW`` (:464-483). Only AdamW is registered in the port so far. The
+``clip_gradient``, the registry -- plus ``SGD`` (:259-305; PyTorch
+gradients are dense, so its row-sparse ``lazy_update`` has no
+counterpart), ``_AdamFamily`` (:423-437) and ``AdamW`` (:464-483). The
 JAX package's learning-rate schedulers, symbol attributes, ``param_dict``
 and fp16/bf16 master weights have no counterpart yet (no caller of the
 port needs them; there is no symbolic API and no AMP in the port).
 
-Weight decay reaches every parameter: ``set_wd_mult`` gives names not
-ending in ``_weight`` a multiplier of 0, but it runs in ``__init__``,
-when ``idx2name`` is still empty, and the trainer fills ``idx2name``
-later without rebuilding the table (train_step.py:511-512). The port
-copies that behaviour of the JAX package.
+Weight decay reaches every parameter, under SGD as under AdamW:
+``set_wd_mult`` gives names not ending in ``_weight`` a multiplier of 0,
+but it runs in ``__init__``, when ``idx2name`` is still empty, and the
+trainer fills ``idx2name`` later without rebuilding the table
+(train_step.py:511-512). The port copies that behaviour of the JAX
+package: BatchNorm gamma / beta and conv biases decay too.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.optimizer_ops import adamw_update
+from ..ops.optimizer_ops import adamw_update, sgd_mom_update, sgd_update
 
-__all__ = ['Optimizer', 'AdamW', 'register', 'create', 'opt_registry']
+__all__ = ['Optimizer', 'SGD', 'AdamW', 'register', 'create',
+           'opt_registry']
 
 opt_registry = {}
 
@@ -107,6 +110,30 @@ class Optimizer:
 
     def _get_wd(self, index):
         return self.wd * self._mult_of(index, self.wd_mult)
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum and weight decay: ``mom = momentum * mom - lr *
+    (clip(g) + wd * w)``, ``w += mom``; without momentum (the default)
+    ``w -= lr * (clip(g) + wd * w)`` and no state."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        kwargs = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                      clip_gradient=self.clip_gradient)
+        if state is not None:
+            sgd_mom_update(weight, grad, state, momentum=self.momentum,
+                           **kwargs)
+        else:
+            sgd_update(weight, grad, **kwargs)
 
 
 class _AdamFamily(Optimizer):

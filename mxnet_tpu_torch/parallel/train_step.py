@@ -17,6 +17,11 @@ every parameter, in place. What the JAX trainer does that the port keeps:
   * update counts, and so AdamW's ``t``, run per parameter from 1; a
     parameter the loss does not reach gets a zero gradient and is still
     updated (its weight decays), as the traced update does;
+  * parameters that take no gradient (``requires_grad`` False: the
+    BatchNorm moving statistics, ``grad_req='null'`` in the JAX net) keep
+    their index in ``idx2name`` but are not updated; the training-mode
+    forward writes the new moving averages in place, where the JAX step
+    writes its aux outputs back after the update (train_step.py:573-637);
   * dropout masks come from a ``torch.Generator`` that the trainer owns
     and seeds (``seed``); JAX's threefry masks cannot be reproduced.
 
@@ -101,14 +106,17 @@ class ParallelTrainer:
         return self._opt.lr
 
     def _build(self):
-        named = [(n, p) for n, p in self._net.collect_params().items()
-                 if p.requires_grad]
-        self._params = [p for _, p in named]
+        named = list(self._net.collect_params().items())
         opt = self._opt
         if not opt.idx2name:
             opt.idx2name = {i: n for i, (n, _) in enumerate(named)}
+        # parameters that take no gradient (BatchNorm's moving statistics,
+        # grad_req 'null' in the JAX net) are not updated: the forward
+        # writes them in place
+        self._params = [(i, p) for i, (_, p) in enumerate(named)
+                        if p.requires_grad]
         self._states = [opt.create_state(i, p.detach())
-                        for i, p in enumerate(self._params)]
+                        for i, p in self._params]
 
     def _to_device(self, a):
         return torch.as_tensor(a, device=self._device)
@@ -121,7 +129,7 @@ class ParallelTrainer:
         xs = [None if a is None else self._to_device(a) for a in _as_list(x)]
         ys = [self._to_device(a) for a in _as_list(y)]
         net = self._net
-        for p in self._params:
+        for _, p in self._params:
             p.grad = None
         net.train(True)
         try:
@@ -137,10 +145,10 @@ class ParallelTrainer:
         loss.backward()
         opt = self._opt
         with torch.no_grad():
-            for i, (p, state) in enumerate(zip(self._params, self._states)):
+            for (i, p), state in zip(self._params, self._states):
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 opt.update(i, p.data, g, state)
-        for p in self._params:
+        for _, p in self._params:
             p.grad = None
         self.num_update += 1
         return loss.detach()

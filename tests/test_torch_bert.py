@@ -3,8 +3,9 @@ loss, AdamW, ``ParallelTrainer.step``) against the JAX package's.
 
 One tiny BERT (2 layers, units 32, hidden 64, 2 heads, vocab 50,
 max_length 16, dropout 0) is built in the JAX package with
-``MXNET_TPU_PALLAS=attention,xent`` (its flash-attention and softmax-xent
-kernels run in the Pallas interpreter), filled with numpy-seeded weights,
+``MXNET_TPU_PALLAS=attention,epilogue,xent`` (its flash-attention,
+epilogue and softmax-xent kernels run in the Pallas interpreter; the
+pooler's tanh takes the act kernels' save-output core, as in the port), filled with numpy-seeded weights,
 and carried into the port by ``bert.params_from_jax``. The JAX side runs
 once per module (forward, ``autograd.record()`` gradients, three
 ``ParallelTrainer`` AdamW steps); the port's tests compare against it.
@@ -93,7 +94,7 @@ def _pretrain_loss(L, reshape):
 @pytest.fixture(scope='module')
 def ref():
     """Everything the JAX package computes for the slice, as numpy."""
-    config.set('MXNET_TPU_PALLAS', 'attention,xent')
+    config.set('MXNET_TPU_PALLAS', 'attention,epilogue,xent')
     try:
         net = jax_bert.get_bert(**CFG)
         net.initialize(mx.init.Xavier())

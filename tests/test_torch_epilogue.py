@@ -1,0 +1,377 @@
+"""Port parity: the epilogue family of the port (the act, add+act and BN
+apply kernels behind ``ActFunction``, ``AddActFunction`` and
+``BnApplyFunction``), the ops built on them (``activation``,
+``leaky_relu``, ``add_relu``, ``batch_norm``) and the max-pool equality
+backward, against the JAX package's.
+
+On the CPU the port's wrappers run their plain PyTorch versions and the
+JAX kernels run through the Pallas interpreter, with
+``MXNET_TPU_PALLAS=epilogue`` set as the JAX package's own tests set it.
+Inputs and cotangents come from a numpy seed and go to both, and every
+comparison is element by element.
+
+Tolerances, float32:
+  * exact: identity, relu, leaky (slope 0.25), add+relu, forward and
+    backward; softsign too (one division, both sides IEEE);
+  * the BN apply forward: one rounding of the product. XLA on the CPU
+    contracts ``(x - mean) * scale + beta`` into one fused multiply-add,
+    which rounds once where the port's separate ops (and the CUDA kernel,
+    by design, to be bitwise equal to them on the card) round twice; the
+    difference is at most half an ulp of the product plus one ulp of the
+    result. Its ``dx`` is exact for the non-transcendental acts;
+  * transcendental activations (sigmoid, tanh, softrelu): 5e-7 relative
+    forward (``tests/test_pallas.py``'s ULP tier); their backward,
+    computed from the output, 5e-7 relative to the gradient's max abs
+    (an output one ulp apart moves ``1 - out^2`` near |out| = 1 by more
+    than 5e-7 of itself);
+  * coefficient gradients (dscale, dmean, dbeta, dgamma) and the
+    training-mode BatchNorm, whose statistics sum over N*H*W elements in
+    another order: 1e-5 relative to the tensor's max abs.
+
+The kernels themselves (CUDA, sm_90a) run only on the card: the test
+marked ``cuda`` compares them with their plain versions there, bitwise
+where the plain version is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mxnet_tpu import config
+from mxnet_tpu.ops import nn as jax_nn
+from mxnet_tpu.ops.pallas import epilogue as jax_epi
+from mxnet_tpu_torch.ops import kernels
+from mxnet_tpu_torch.ops import nn as port_nn
+
+torch.set_num_threads(1)
+ULP = 5e-7
+RED = 1e-5
+EXACT_ACTS = ('identity', 'relu', 'leaky', 'softsign')
+ULP_ACTS = ('sigmoid', 'tanh', 'softrelu')
+SHAPE = (3, 5, 7, 9)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def kernels_on():
+    config.set('MXNET_TPU_PALLAS', 'epilogue')
+    yield
+    config.unset('MXNET_TPU_PALLAS')
+
+
+def _arrays(seed, *shapes, scale=3.0):
+    rs = np.random.RandomState(seed)
+    return [(rs.randn(*s) * scale).astype('float32') for s in shapes]
+
+
+def _slope(act):
+    return 0.25 if act == 'leaky' else 0.0
+
+
+def _port_grad(fn, arrays, g):
+    ts = [torch.tensor(a, requires_grad=True) for a in arrays]
+    out = fn(*ts)
+    out.backward(torch.tensor(g))
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _jax_grad(fn, arrays, g):
+    out, vjp = jax.vjp(fn, *[jnp.asarray(a) for a in arrays])
+    return np.asarray(out), [np.asarray(d) for d in vjp(jnp.asarray(g))]
+
+
+def _assert_rel_max(got, want, tol, what):
+    bound = tol * max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=0, atol=bound, err_msg=what)
+
+
+def _assert_fwd(got, want, act, what):
+    if act in ULP_ACTS:
+        np.testing.assert_allclose(got, want, rtol=ULP, atol=0, err_msg=what)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _assert_bwd(got, want, act, what):
+    if act in ULP_ACTS:
+        _assert_rel_max(got, want, ULP, what)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+@pytest.mark.parametrize('act', EXACT_ACTS + ULP_ACTS)
+def test_fused_act_matches_jax(act):
+    x, g = _arrays(0, SHAPE, SHAPE)
+    slope = _slope(act)
+    out, (dx,) = _port_grad(lambda a: kernels.fused_act(a, act, slope),
+                            [x], g)
+    want, (dwant,) = _jax_grad(lambda a: jax_epi.fused_act(a, act, slope),
+                               [x], g)
+    _assert_fwd(out, want, act, act)
+    _assert_bwd(dx, dwant, act, act)
+
+
+@pytest.mark.parametrize('act', ('relu', 'leaky', 'tanh'))
+def test_fused_add_act_matches_jax(act):
+    x, y, g = _arrays(1, SHAPE, SHAPE, SHAPE)
+    slope = _slope(act)
+    out, (dx, dy) = _port_grad(
+        lambda a, b: kernels.fused_add_act(a, b, act, slope), [x, y], g)
+    want, (dxw, dyw) = _jax_grad(
+        lambda a, b: jax_epi.fused_add_act(a, b, act, slope), [x, y], g)
+    _assert_fwd(out, want, act, act)
+    _assert_bwd(dx, dxw, act, act + ' dx')
+    _assert_bwd(dy, dyw, act, act + ' dy')
+    np.testing.assert_array_equal(dx, dy)
+
+
+def _bn_coeffs(seed, c):
+    rs = np.random.RandomState(seed)
+    return [(rs.rand(c) + 0.5).astype('float32'),
+            rs.randn(c).astype('float32'), rs.randn(c).astype('float32')]
+
+
+@pytest.mark.parametrize('act', ('identity', 'relu', 'leaky', 'tanh'))
+@pytest.mark.parametrize('axis', (1, 3))
+def test_fused_bn_apply_matches_jax(act, axis):
+    x, g = _arrays(2, SHAPE, SHAPE)
+    c = SHAPE[axis]
+    scale, mean, beta = _bn_coeffs(3, c)
+    slope = _slope(act)
+    jact = None if act == 'identity' else act
+    out, grads = _port_grad(
+        lambda *a: kernels.fused_bn_apply(*a, axis=axis, act_type=act,
+                                          slope=slope),
+        [x, scale, mean, beta], g)
+    want, wgrads = _jax_grad(
+        lambda *a: jax_epi.fused_bn_apply(*a, axis=axis, act_type=jact,
+                                          slope=slope),
+        [x, scale, mean, beta], g)
+    if act in ULP_ACTS:
+        _assert_rel_max(out, want, ULP, 'out')
+    else:
+        shape = [1] * x.ndim
+        shape[axis] = c
+        prod = np.abs((x - mean.reshape(shape)) * scale.reshape(shape))
+        bound = 2.0 ** -23 * (prod + np.abs(want))
+        assert (np.abs(out - want) <= bound).all()
+        # the apply with an identity act IS the plain expression
+        sep = (x - mean.reshape(shape)) * scale.reshape(shape) \
+            + beta.reshape(shape)
+        if act == 'identity':
+            np.testing.assert_array_equal(out, sep)
+    _assert_bwd(grads[0], wgrads[0], act, 'dx')
+    for name, a, b in zip(('dscale', 'dmean', 'dbeta'), grads[1:],
+                          wgrads[1:]):
+        _assert_rel_max(a, b, RED, name)
+
+
+def test_activation_and_leaky_relu_ops_match_jax():
+    """The ops route the kernel-covered acts through the act kernels, as
+    the JAX ops do with the epilogue family on; gelu stays plain."""
+    x, g = _arrays(4, SHAPE, SHAPE)
+    for act in ('relu', 'sigmoid', 'tanh', 'softrelu', 'softsign', 'gelu'):
+        out, (dx,) = _port_grad(lambda a: port_nn.activation(a, act), [x], g)
+        want, (dw,) = _jax_grad(
+            lambda a: jax_nn.activation(a, act_type=act), [x], g)
+        if act == 'gelu':
+            # two erf implementations: ulps of the largest value, not of
+            # each (the far negative tail is ~1e-6)
+            _assert_rel_max(out, want, ULP, act)
+            _assert_rel_max(dx, dw, ULP, act)
+            continue
+        _assert_fwd(out, want, act, act)
+        _assert_bwd(dx, dw, act, act)
+    out, (dx,) = _port_grad(lambda a: port_nn.leaky_relu(a, slope=0.25),
+                            [x], g)
+    want, (dw,) = _jax_grad(
+        lambda a: jax_nn.leaky_relu([a], act_type='leaky', slope=0.25),
+        [x], g)
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(dx, dw)
+    with pytest.raises(ValueError, match='unknown act_type'):
+        port_nn.activation(torch.tensor(x), 'swish')
+    with pytest.raises(NotImplementedError, match='prelu'):
+        port_nn.leaky_relu(torch.tensor(x), act_type='prelu')
+
+
+def test_add_relu_op_matches_jax():
+    x, y, g = _arrays(5, SHAPE, SHAPE, SHAPE)
+    out, (dx, dy) = _port_grad(port_nn.add_relu, [x, y], g)
+    want, (dxw, dyw) = _jax_grad(jax_nn.add_relu, [x, y], g)
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(dx, dxw)
+    np.testing.assert_array_equal(dy, dyw)
+    # broadcasting operands keep the plain spelling
+    b = np.ones((1, 5, 1, 1), 'float32')
+    np.testing.assert_array_equal(
+        port_nn.add_relu(torch.tensor(x), torch.tensor(b)).numpy(),
+        np.asarray(jax_nn.add_relu(jnp.asarray(x), jnp.asarray(b))))
+
+
+def _bn_inputs(seed):
+    x, g = _arrays(seed, (4, 6, 5, 7), (4, 6, 5, 7), scale=1.0)
+    rs = np.random.RandomState(seed + 1)
+    gamma = (rs.rand(6) + 0.5).astype('float32')
+    beta = rs.randn(6).astype('float32')
+    mm = rs.randn(6).astype('float32')
+    mv = (rs.rand(6) + 0.1).astype('float32')
+    return x + 2.0, g, gamma, beta, mm, mv
+
+
+def test_batch_norm_training_matches_jax():
+    x, g, gamma, beta, mm, mv = _bn_inputs(6)
+
+    def port(a, gm, bt):
+        out, mean, var = port_nn.batch_norm(
+            a, gm, bt, torch.tensor(mm), torch.tensor(mv), eps=1e-5,
+            fix_gamma=False, training=True)
+        port.stats = (mean.detach().numpy(), var.detach().numpy())
+        return out
+
+    def jax_fn(a, gm, bt):
+        return jax_nn.batch_norm(
+            a, gm, bt, jnp.asarray(mm), jnp.asarray(mv), eps=1e-5,
+            fix_gamma=False, training=True)
+
+    out, grads = _port_grad(port, [x, gamma, beta], g)
+    want, wgrads = _jax_grad(lambda *a: jax_fn(*a)[0], [x, gamma, beta], g)
+    _assert_rel_max(out, want, RED, 'out')
+    stats = [np.asarray(t) for t in jax_fn(x, gamma, beta)[1:]]
+    for name, a, b in zip(('mean', 'var'), port.stats, stats):
+        _assert_rel_max(a, b, RED, name)
+    # the biased variance of the batch (not F.batch_norm's unbiased one)
+    np.testing.assert_allclose(port.stats[1], x.var(axis=(0, 2, 3)),
+                               rtol=1e-4)
+    for name, a, b in zip(('dx', 'dgamma', 'dbeta'), grads, wgrads):
+        _assert_rel_max(a, b, RED, name)
+
+
+@pytest.mark.parametrize('use_global_stats', (False, True))
+def test_batch_norm_inference_and_global_stats_match_jax(use_global_stats):
+    """Inference mode, and ``use_global_stats`` under autograd (frozen-BN
+    fine-tuning): the moving statistics fold into the apply kernels'
+    coefficients; the data gradient is the ``bn_act_bwd`` kernel's."""
+    x, g, gamma, beta, mm, mv = _bn_inputs(8)
+    training = use_global_stats
+
+    def port(a, gm, bt):
+        return port_nn.batch_norm(
+            a, gm, bt, torch.tensor(mm), torch.tensor(mv), eps=1e-5,
+            fix_gamma=False, use_global_stats=use_global_stats,
+            training=training)[0]
+
+    def jax_fn(a, gm, bt):
+        return jax_nn.batch_norm(
+            a, gm, bt, jnp.asarray(mm), jnp.asarray(mv), eps=1e-5,
+            fix_gamma=False, use_global_stats=use_global_stats,
+            training=training)[0]
+
+    out, grads = _port_grad(port, [x, gamma, beta], g)
+    want, wgrads = _jax_grad(jax_fn, [x, gamma, beta], g)
+    _assert_rel_max(out, want, ULP, 'out')
+    _assert_rel_max(grads[0], wgrads[0], ULP, 'dx')
+    for name, a, b in zip(('dgamma', 'dbeta'), grads[1:], wgrads[1:]):
+        _assert_rel_max(a, b, RED, name)
+
+
+def test_max_pool_gives_ties_every_max_position():
+    """``_max_pool_core``'s backward: a window's cotangent reaches every
+    position equal to its max. The input is a relu output with exact-zero
+    ties and repeated values, as the ResNet stem pools."""
+    rs = np.random.RandomState(9)
+    x = np.maximum(np.round(rs.randn(2, 3, 11, 12) * 2) / 2,
+                   0).astype('float32')
+    g = rs.randn(2, 3, 6, 6).astype('float32')
+
+    def port(a):
+        return port_nn.pooling(a, kernel=3, stride=2, pad=1)
+
+    def jax_fn(a):
+        return jax_nn.pooling(a, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                              pool_type='max')
+
+    out, (dx,) = _port_grad(port, [x], g)
+    want, (dw,) = _jax_grad(jax_fn, [x], g)
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(dx, dw)
+    # ties do occur, and F.max_pool2d's one-winner backward differs there
+    xt = torch.tensor(x, requires_grad=True)
+    torch.nn.functional.max_pool2d(xt, 3, 2, 1).backward(torch.tensor(g))
+    assert not np.array_equal(xt.grad.numpy(), dx)
+
+
+def test_global_avg_pool_matches_jax():
+    x, = _arrays(10, (2, 4, 5, 6))
+    out = port_nn.pooling(torch.tensor(x), pool_type='avg',
+                          global_pool=True).numpy()
+    want = np.asarray(jax_nn.pooling(jnp.asarray(x), pool_type='avg',
+                                     global_pool=True))
+    assert out.shape == want.shape == (2, 4, 1, 1)
+    np.testing.assert_allclose(out, want, rtol=ULP, atol=1e-7)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    kernels.reset_launch_counts()
+    x, y = (torch.tensor(a) for a in _arrays(11, SHAPE, SHAPE))
+    kernels.fused_act(x, 'relu')
+    kernels.fused_add_act(x, y)
+    kernels.fused_bn_apply(x, torch.ones(5), torch.zeros(5), torch.zeros(5))
+    assert not any(kernels.launch_counts().values())
+    with pytest.raises(ValueError, match='unsupported epilogue act_type'):
+        kernels.act_forward(x, 'gelu')
+    with pytest.raises(ValueError, match='unsupported device'):
+        kernels.act_forward(x.to('meta'), 'relu')
+
+
+def test_launch_refuses_more_elements_than_the_kernels_index(monkeypatch):
+    """The kernels index in 32 bits: a launch of more elements raises
+    before the library is loaded, and counts nothing."""
+    from mxnet_tpu_torch.ops.kernels import epilogue
+    monkeypatch.setattr(epilogue, 'MAX_ELEMENTS', 10)
+    kernels.reset_launch_counts()
+    x = torch.zeros(11)
+    with pytest.raises(ValueError, match='more than the 10'):
+        epilogue._launch('act_fwd', 'mx_act_fwd', [], {'x': x},
+                         torch.empty_like(x), x.numel(), 1, 0.0)
+    assert not any(kernels.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_epilogue_kernels_match_plain_versions_on_card():
+    """The five kernels against their plain versions on the card: bitwise
+    for identity, relu, leaky, add+relu and the BN apply, forward and
+    backward; 5e-7 relative for the transcendental acts. A non-contiguous
+    cotangent (an expanded view) is made dense, not refused."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels are CUDA C++ for '
+                    'sm_90a and have no CPU mode')
+    x, y, g = (torch.tensor(a, device='cuda')
+               for a in _arrays(12, SHAPE, SHAPE, SHAPE))
+    scale, mean, beta = (torch.tensor(a, device='cuda')
+                         for a in _bn_coeffs(13, SHAPE[1]))
+    for act in EXACT_ACTS + ULP_ACTS:
+        slope = _slope(act)
+        pairs = [
+            (kernels.act_forward(x, act, slope),
+             kernels.act_forward_reference(x, act, slope)),
+            (kernels.act_backward(g, x, act, slope),
+             kernels.act_backward_reference(g, x, act, slope)),
+            (kernels.add_act_forward(x, y, act, slope),
+             kernels.add_act_forward_reference(x, y, act, slope)),
+            (kernels.bn_act_forward(x, scale, mean, beta, 1, act, slope),
+             kernels.bn_act_forward_reference(x, scale, mean, beta, 1, act,
+                                              slope)),
+            (kernels.bn_act_backward(g, x, scale, 1, act, slope),
+             kernels.bn_act_backward_reference(g, x, scale, 1, act, slope)),
+        ]
+        for got, want in pairs:
+            if act in ULP_ACTS:
+                tol = ULP * want.abs().max().item()
+                assert (got - want).abs().max().item() <= tol, act
+            else:
+                assert torch.equal(got, want), act
+    gexp = g[:1, :1, :1, :1].expand(SHAPE)
+    assert torch.equal(kernels.act_backward(gexp, x, 'relu'),
+                       kernels.act_backward_reference(gexp, x, 'relu'))

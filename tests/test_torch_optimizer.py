@@ -1,5 +1,6 @@
-"""Port parity: AdamW of the port (``ops.optimizer_ops.adamw_update`` and
-the ``optimizer.AdamW`` bookkeeping) against the JAX package's.
+"""Port parity: AdamW and SGD of the port (``ops.optimizer_ops`` and the
+``optimizer.AdamW`` / ``optimizer.SGD`` bookkeeping) against the JAX
+package's.
 
 Three updates from the same numpy-seeded weights and gradients. The port
 updates in place, the JAX op returns new arrays; the expressions are the
@@ -88,4 +89,72 @@ def test_wd_mult_follows_names_known_at_init():
                                 param_idx2name={0: 'a_weight', 1: 'a_bias'})
     assert opt._get_wd(0) == pytest.approx(0.1) and opt._get_wd(1) == 0.0
     with pytest.raises(ValueError, match='Cannot find optimizer'):
-        port_optimizer.create('sgd')
+        port_optimizer.create('ftml')
+
+
+@pytest.mark.parametrize('momentum', [0.0, 0.9])
+@pytest.mark.parametrize('wd,clip', [(0.0, None), (1e-4, None),
+                                     (0.01, 1.5)])
+def test_sgd_updates_match_jax_over_three_steps(momentum, wd, clip):
+    w, grads = _arrays(1)
+    jw, jm = jnp.asarray(w), jnp.zeros(w.shape)
+    pw = torch.tensor(w)
+    pm = torch.zeros_like(pw)
+    for t, g in enumerate(grads, 1):
+        kw = dict(lr=0.1, wd=wd, rescale_grad=0.5,
+                  clip_gradient=-1.0 if clip is None else clip)
+        if momentum:
+            jw, jm = jax_ops.sgd_mom_update(jw, jnp.asarray(g), jm,
+                                            momentum=momentum, **kw)
+        else:
+            jw = jax_ops.sgd_update(jw, jnp.asarray(g), **kw)
+        kw['clip_gradient'] = clip
+        if momentum:
+            out = port_ops.sgd_mom_update(pw, torch.tensor(g), pm,
+                                          momentum=momentum, **kw)
+            assert out[0] is pw and out[1] is pm
+            np.testing.assert_allclose(pm.numpy(), np.asarray(jm), rtol=0,
+                                       atol=TOL, err_msg='mom t=%d' % t)
+        else:
+            assert port_ops.sgd_update(pw, torch.tensor(g), **kw) is pw
+        np.testing.assert_allclose(pw.numpy(), np.asarray(jw), rtol=0,
+                                   atol=TOL, err_msg='weight t=%d' % t)
+
+
+@pytest.mark.parametrize('momentum', [0.0, 0.9])
+def test_sgd_optimizer_matches_jax_with_wd_on_every_parameter(momentum):
+    """The registered ``sgd``: state only with momentum, weight decay on
+    a ``_bias`` parameter too (the names arrive after ``__init__``)."""
+    names = {0: 'net_conv_weight', 1: 'net_batchnorm_beta'}
+    hyper = {'learning_rate': 0.1, 'momentum': momentum, 'wd': 1e-2,
+             'clip_gradient': 2.0}
+    jopt = jax_optimizer.create('sgd', **hyper)
+    popt = port_optimizer.create('sgd', **hyper)
+    assert isinstance(popt, port_optimizer.SGD)
+    jopt.idx2name = dict(names)
+    popt.idx2name = dict(names)
+    ws = {i: _arrays(20 + i, (4, 3) if i == 0 else (4,)) for i in names}
+    jw = {i: nd.array(ws[i][0]) for i in names}
+    pw = {i: torch.tensor(ws[i][0]) for i in names}
+    jst = {i: jopt.create_state(i, jw[i]) for i in names}
+    pst = {i: popt.create_state(i, pw[i]) for i in names}
+    assert (pst[0] is None) == (momentum == 0.0)
+    for step in range(3):
+        for i in names:
+            g = ws[i][1][step]
+            jopt.update(i, jw[i], nd.array(g), jst[i])
+            popt.update(i, pw[i], torch.tensor(g), pst[i])
+            np.testing.assert_allclose(pw[i].numpy(), jw[i].asnumpy(),
+                                       rtol=0, atol=TOL,
+                                       err_msg='index %d step %d'
+                                       % (i, step))
+    assert popt._index_update_count == {0: 3, 1: 3}
+    assert popt._get_wd(1) == jopt._get_wd(1) == pytest.approx(1e-2)
+    # the decay moved the beta: without it the same steps land elsewhere
+    nowd = port_optimizer.create('sgd', **dict(hyper, wd=0.0))
+    nowd.idx2name = dict(names)
+    beta = torch.tensor(ws[1][0])
+    state = nowd.create_state(1, beta)
+    for step in range(3):
+        nowd.update(1, beta, torch.tensor(ws[1][1][step]), state)
+    assert (beta - pw[1]).abs().max().item() > 1e3 * TOL
