@@ -58,7 +58,29 @@ Phases, in order; any failure exits non-zero:
      trained net, its moving statistics recomputed for its weights, with
      every BatchNorm frozen (``use_global_stats``) fine-tunes 3 SGD steps
      (lr 0.01), which adds 53 BN apply backward launches a step; the
-     losses must be finite and the moving statistics must not move.
+     losses must be finite and the moving statistics must not move;
+  6. the SSD detection serving slice. The nms kernel against its plain
+     version on the card, keep masks bitwise equal: 16 x 7378 boxes
+     class-aware at topk 400, 2 x 7378 class-agnostic with every box
+     suppressing, N of 1, 100 and 129, all invalid, duplicates and zero
+     areas, NaN coordinates, and N of 300, 1500 and 3000 with and without
+     class ids (every instance of the kernel). 6a: the tiny SSD of
+     ``tests/test_image_ssd.py`` on 4 x 3 x 32 x 32 on the card and on the
+     CPU (heads within 1e-5 of their max abs; the card's heads through
+     the CPU's detection match the card's detections, given the
+     margins). 6b: ``ssd_300(20)`` (Xavier weights from seed 0) behind
+     ``MultiBoxDetection()``, frozen with buckets 1-16 and served through
+     ``InferenceSession(max_batch=16, deadline_ms=5)``: 64 single-image
+     requests (3 x 300 x 300, uniform in (-1, 1)) from 8 client threads,
+     8 back to back each, then 8 one by one; launch counts exactly one
+     nms and 14 BN apply a batch; every response (7378, 6), finite, with
+     a kept row, and equal to its image run at the bucket its batch ran
+     in; img/s, latency, peak memory, a profiled batch at bucket 16; the
+     BN apply kernel bitwise against its plain version on the 14 inputs
+     of a batch at bucket 16 (16 x 16 x 300 x 300 down to 16 x 128 x 4 x
+     4); then the nms kernel bitwise against its plain version on that
+     batch's inputs and on its first image, and both timed there with
+     the bound and the latency floor.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX; without a
@@ -1234,6 +1256,498 @@ def finetune_frozen(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
             'batch_stat_loss': batch_loss}
 
 
+# -- phase 6: the SSD detection serving slice --------------------------------
+
+SSD_CLASSES = 20
+SSD_IMAGE = 300
+SSD_ANCHORS = 7378
+SSD_BATCH_NORMS = 14
+SSD_BUCKETS = (1, 2, 4, 8, 16)
+SSD_CLIENTS, SSD_PER_CLIENT, SSD_SEQUENTIAL = 8, 8, 8
+SSD_TINY = dict(num_classes=3, sizes=[(0.2, 0.3), (0.5, 0.6)],
+                ratios=[(1.0, 2.0, 0.5)] * 2, base_channels=(8, 16),
+                scale_channels=(16,))
+SSD_TINY_BATCH = (4, 3, 32, 32)
+SSD_HEAD_REL = 1e-5        # 6a: heads, relative to each head's max abs
+DET_TOL = 1e-5             # 6a: matched detections' scores and coordinates
+IOU_MARGIN = 1e-5          # 6a: a deciding IoU's distance from 0.45
+NMS_THRESH = 0.45
+NMS_TOPK = 400
+# flops of one IoU and its test: 4 max / min, 3 subtractions, 2 clamps,
+# 2 multiplications, 2 additions, a division and 2 compares
+NMS_IOU_FLOPS = 16
+
+
+def nms_cases(n=SSD_ANCHORS, seed=6):
+    """(label, boxes (B, N, 4), valid (B, N), class ids or None, topk)
+    numpy cases of the nms kernel check: the served shape class-aware at
+    topk 400 and 16 images, every box suppressing (topk -1, 7378 steps),
+    N of 1, 100 and 129, all invalid, duplicates and zero areas, NaN
+    coordinates; then N of 300, 1500 and 3000 with and without class ids,
+    so that each of the kernel's ten instances (1, 2, 4, 8 or 16 boxes a
+    thread, class-aware or not) runs at least once."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+
+    def boxes(b, m):
+        xy = rs.rand(b, m, 2)
+        wh = rs.rand(b, m, 2) * 0.3
+        return np.concatenate([xy, xy + wh], -1).astype('float32')
+
+    def valid(b, m):
+        return rs.rand(b, m) < 0.9
+
+    def ids(b, m, k=SSD_CLASSES):
+        return rs.randint(0, k, (b, m)).astype('float32')
+
+    cases = [('class-aware B16 N%d topk %d' % (n, NMS_TOPK), boxes(16, n),
+              valid(16, n), ids(16, n), NMS_TOPK),
+             ('class-agnostic B2 N%d topk -1' % n, boxes(2, n), valid(2, n),
+              None, -1)]
+    for m in (1, 100, 129):
+        cases.append(('B3 N%d' % m, boxes(3, m), valid(3, m), ids(3, m, 3),
+                      -1))
+    cases.append(('all invalid', boxes(2, 600), np.zeros((2, 600), bool),
+                  ids(2, 600), NMS_TOPK))
+    dup = boxes(2, 1000)
+    dup[:, 1::3] = dup[:, 0:999:3]
+    dup[:, 2::5, 2] = dup[:, 2::5, 0]
+    cases.append(('duplicates and zero areas', dup, valid(2, 1000), None,
+                  300))
+    nan = boxes(2, 700)
+    nan[0, 5, 1] = np.nan
+    nan[1, 0, 2] = np.nan
+    cases.append(('NaN coordinates', nan, valid(2, 700), ids(2, 700, 3), -1))
+    for m in (300, 1500, 3000):
+        cases.append(('class-agnostic B2 N%d topk -1' % m, boxes(2, m),
+                      valid(2, m), None, -1))
+        cases.append(('class-aware B2 N%d topk %d' % (m, NMS_TOPK),
+                      boxes(2, m), valid(2, m), ids(2, m), NMS_TOPK))
+    return cases
+
+
+def check_nms_kernel(torch, kernels, device, cases=None):
+    """Phase 6: the nms kernel against its plain version on ``device``,
+    keep masks bitwise equal in every case. Returns {'nms': 0.0}, the max
+    abs error of equal masks."""
+    for label, b, v, c, topk in cases or nms_cases():
+        boxes, valid = (torch.from_numpy(a).to(device) for a in (b, v))
+        cls = None if c is None else torch.from_numpy(c).to(device)
+        got = kernels.greedy_nms_keep(boxes, valid, NMS_THRESH, topk,
+                                      cls_id=cls)
+        want = kernels.greedy_nms_keep_reference(boxes, valid, NMS_THRESH,
+                                                 topk, cls_id=cls)
+        if not torch.equal(got, want):
+            raise AssertionError('nms [%s]: the kernel keeps %d boxes, its '
+                                 'plain version %d' % (label, int(got.sum()),
+                                                       int(want.sum())))
+        log('check nms [%s]: %d of %d valid boxes kept, bitwise equal'
+            % (label, int(got.sum()), int(v.sum())))
+    return {'nms': 0.0}
+
+
+def nms_work(torch, kernels, boxes, valid, keep, topk, cls_id):
+    """(bytes, flops) the kernel's call needs on these inputs: each input
+    read once and the mask written once; an IoU for every step the kernel
+    does not skip (i < n_iter still kept) against every later valid box of
+    its class."""
+    b, n = valid.shape
+    n_iter = kernels.nms_iterations(n, topk)
+    nbytes = boxes.numel() * 4 + valid.numel() + keep.numel() + (
+        0 if cls_id is None else cls_id.numel() * 4)
+    idx = torch.arange(n, device=boxes.device)
+    pairs = 0
+    for img in range(b):
+        steps = torch.nonzero(keep[img, :n_iter]).flatten()
+        later = (idx[None, :] > steps[:, None]) & valid[img][None, :]
+        if cls_id is not None:
+            later &= cls_id[img][None, :] == cls_id[img][steps][:, None]
+        pairs += int(later.sum())
+    return nbytes, pairs * NMS_IOU_FLOPS
+
+
+def time_nms(torch, kernels, args):
+    """Times of the nms kernel and its plain version on the served batch's
+    inputs at the top bucket (``args``: boxes (16, N, 4), valid, thresh,
+    topk, class ids, as box_nms hands them over), and on its first image;
+    the bound from these inputs; and the latency floor of the step chain,
+    the kernel on the first 512 boxes of each image (one a thread) with
+    the same topk. The kernel's mask must equal its plain version's on
+    both. PyTorch has no NMS op and torchvision is not installed: no
+    library call."""
+    boxes, valid, thresh, topk, cls_id = args
+    rows = {}
+    for b in (boxes.shape[0], 1):
+        bx, vd, cl = boxes[:b], valid[:b], cls_id[:b]
+
+        def kernel():
+            return kernels.greedy_nms_keep(bx, vd, thresh, topk, cls_id=cl)
+
+        keep = kernel()
+        if not torch.equal(keep, kernels.greedy_nms_keep_reference(
+                bx, vd, thresh, topk, cls_id=cl)):
+            raise AssertionError('nms disagrees with its plain version on '
+                                 'the served batch\'s first %d images' % b)
+        log('check nms [the served batch\'s decoded boxes, B%d N%d]: %d '
+            'kept, bitwise equal' % (b, bx.shape[1], int(keep.sum())))
+        nbytes, flops = nms_work(torch, kernels, bx, vd, keep, topk, cl)
+        b_ms, b_by = bound(nbytes, flops)
+        head = (bx[:, :512].contiguous(), vd[:, :512].contiguous(),
+                cl[:, :512].contiguous())
+        rows[b] = dict(
+            ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: kernels.greedy_nms_keep_reference(
+                bx, vd, thresh, topk, cls_id=cl), iters=3, warmup=1),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            floor_ms=time_ms(torch, lambda: kernels.greedy_nms_keep(
+                head[0], head[1], thresh, topk, cls_id=head[2])),
+            shape='B%d N%d class-aware topk %d thresh %g, the served batch '
+            'at bucket %d; %d of the %d steps kept; library: none (no NMS '
+            'op in PyTorch, no torchvision)'
+            % (b, bx.shape[1], topk, thresh, boxes.shape[0],
+               int(keep[:, :kernels.nms_iterations(bx.shape[1], topk)].sum()),
+               b * kernels.nms_iterations(bx.shape[1], topk)))
+    top = rows[boxes.shape[0]]
+    top['at_batch_1'] = rows[1]
+    return {'nms': top}
+
+
+def _detector(gluon, ssd, net):
+    """The served block: SSD, then MultiBoxDetection (one image in, (N, 6)
+    detections out)."""
+
+    class Detector(gluon.Block):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+            self.det = ssd.MultiBoxDetection()
+
+        def forward(self, x):
+            return self.det(*self.net(x))
+
+    return Detector()
+
+
+def _seed_moving_stats(torch, net, seed):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, p in sorted(net.collect_params().items()):
+            if name.endswith('running_mean'):
+                p.copy_(torch.from_numpy(
+                    0.1 * rs.randn(*p.shape).astype('float32')))
+            elif name.endswith('running_var'):
+                p.copy_(torch.from_numpy(
+                    (0.5 + rs.rand(*p.shape)).astype('float32')))
+
+
+def _decode64(anchors, cls_preds, box_preds, var=(0.1, 0.1, 0.2, 0.2)):
+    """multibox_detection's candidates in float64, per image: the
+    foreground probabilities (N, C) and the clipped corner boxes (N, 4)."""
+    import numpy as np
+    a = anchors[0].astype(np.float64)
+    aw, ah = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+    acx, acy = (a[:, 0] + a[:, 2]) / 2, (a[:, 1] + a[:, 3]) / 2
+    out = []
+    for c, loc in zip(cls_preds.astype(np.float64),
+                      box_preds.astype(np.float64)):
+        e = np.exp(c - c.max(axis=1, keepdims=True))
+        prob = (e / e.sum(axis=1, keepdims=True))[:, 1:]
+        loc = loc.reshape(-1, 4)
+        cx, cy = loc[:, 0] * var[0] * aw + acx, loc[:, 1] * var[1] * ah + acy
+        w, h = np.exp(loc[:, 2] * var[2]) * aw, np.exp(loc[:, 3] * var[3]) * ah
+        boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1)
+        out.append((prob, np.clip(boxes, 0, 1)))
+    return out
+
+
+def _iou64(a, b):
+    """(n, 4) x (m, 4) corner boxes -> (n, m) IoU in float64, in the
+    kernel's formula."""
+    import numpy as np
+    a, b = a[:, None].astype(np.float64), b[None].astype(np.float64)
+    iw = np.maximum(np.minimum(a[..., 2], b[..., 2])
+                    - np.maximum(a[..., 0], b[..., 0]), 0)
+    ih = np.maximum(np.minimum(a[..., 3], b[..., 3])
+                    - np.maximum(a[..., 1], b[..., 1]), 0)
+    inter = iw * ih
+    area = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1]) \
+        + (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area - inter + 1e-12)
+
+
+def detection_margin(prob, boxes, margin, thresh=0.01):
+    """The smallest slack of the decisions MultiBoxDetection takes on
+    these candidates, each over its own margin (> 1 when every decision
+    holds with room): scores against ``thresh``, a valid row's top class
+    over its second, the 400th score over the 401st, the scores of a
+    same-class pair that overlaps above 0.45 (``margin`` each); a deciding
+    IoU against 0.45 (IOU_MARGIN)."""
+    import numpy as np
+    top2 = np.sort(prob, axis=1)[:, -2:]
+    score, cid = top2[:, 1], prob.argmax(axis=1)
+    valid = score > thresh
+    slack = [np.abs(score - thresh).min() / margin,
+             (top2[valid, 1] - top2[valid, 0]).min() / margin]
+    order = np.argsort(-score, kind='stable')
+    if valid.sum() > NMS_TOPK:
+        slack.append((score[order[NMS_TOPK - 1]] - score[order[NMS_TOPK]])
+                     / margin)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    for c in np.unique(cid[valid]):
+        idx = np.flatnonzero(valid & (cid == c))
+        iou = _iou64(boxes[idx], boxes[idx])
+        decides = (rank[idx][:, None] < rank[idx][None, :]) \
+            & (rank[idx][:, None] < NMS_TOPK)
+        if decides.any():
+            slack.append(np.abs(iou - NMS_THRESH)[decides].min() / IOU_MARGIN)
+        close = np.abs(score[idx][:, None] - score[idx][None, :])
+        over = decides & (iou > NMS_THRESH)
+        if over.any():
+            slack.append(close[over].min() / margin)
+    return min(slack)
+
+
+def match_detections(got, want, tol=DET_TOL):
+    """Kept rows of two (N, 6) detection arrays matched one to one: equal
+    ids, scores and coordinates within ``tol``. Returns the kept count."""
+    import numpy as np
+    got, want = got[got[:, 0] >= 0], want[want[:, 0] >= 0]
+    same = (got[:, None, 0] == want[None, :, 0]) & (np.abs(
+        got[:, None, 1:] - want[None, :, 1:]).max(axis=-1) <= tol)
+    if len(got) != len(want) or not (same.sum(axis=0) == 1).all() \
+            or not (same.sum(axis=1) == 1).all():
+        raise AssertionError('detections differ: %d and %d kept rows, %d '
+                             'matched' % (len(got), len(want),
+                                          int((same.sum(axis=1) == 1).sum())))
+    return len(got)
+
+
+def ssd_against_cpu(torch, ssd, ops, kernels, gnn, device,
+                    shape=SSD_TINY_BATCH, seed=0):
+    """Phase 6a: the tiny SSD (``tests/test_image_ssd.py``) from
+    ``init_params(seed)`` and seeded moving statistics, on ``device`` and
+    on the CPU: heads within SSD_HEAD_REL of their max abs; then the
+    card's heads, copied to the CPU, give detections that match the
+    card's, given the margins (every decision further from its edge than
+    four times the two devices' probability difference, and IoUs 1e-5)."""
+    import numpy as np
+    x = np.random.RandomState(seed).uniform(-1, 1, shape).astype('float32')
+    det = ssd.MultiBoxDetection()
+    runs = {}
+    for dev in (device, torch.device('cpu')):
+        net = ssd.init_params(ssd.SSD(device=dev, **SSD_TINY), seed)
+        _seed_moving_stats(torch, net, seed + 1)
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            heads = net(torch.from_numpy(x).to(dev))
+            dets = det(*heads)
+        runs[dev.type] = ([h.cpu().numpy() for h in heads],
+                          dets.cpu().numpy(), kernels.launch_counts())
+    (heads, dets, launches), (cpu_heads, _, _) = runs[device.type], runs['cpu']
+    head_err = max(np.abs(a - b).max() / np.abs(b).max()
+                   for a, b in zip(heads, cpu_heads))
+    with torch.inference_mode():
+        cls = torch.from_numpy(heads[1])
+        d = (ops.softmax(cls.to(device)).cpu() - ops.softmax(cls)).abs() \
+            .max().item()
+        cpu_dets = det(*[torch.from_numpy(h) for h in heads]).numpy()
+    slack = min(detection_margin(p, b, max(4 * d, 1e-9))
+                for p, b in _decode64(*heads))
+    if slack <= 1:
+        raise AssertionError('phase 6a: a detection decision lies within its '
+                             'margin (slack %.3g): the comparison cannot '
+                             'decide' % slack)
+    kept = [match_detections(a, b) for a, b in zip(dets, cpu_dets)]
+    bns = sum(isinstance(m, gnn.BatchNorm) for m in net.modules())
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(bn_act_fwd=bns, nms=1)
+    log('phase 6a %s vs cpu: tiny SSD %s, heads rel_err %.3g; the card\'s '
+        'heads through the CPU\'s detection: kept rows %s matched (ids '
+        'equal, scores and boxes within %g), probability difference %.3g, '
+        'smallest decision slack %.3g margins; launches %s'
+        % (device.type, shape, head_err, kept, DET_TOL, d, slack,
+           {k: v for k, v in launches.items() if v}))
+    if not head_err <= SSD_HEAD_REL:
+        raise AssertionError('phase 6a: the heads disagree')
+    if device.type == 'cuda' and launches != want:
+        raise AssertionError('phase 6a: launches %r, expected %r'
+                             % (launches, want))
+
+
+def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
+              image=SSD_IMAGE, buckets=SSD_BUCKETS, clients=SSD_CLIENTS,
+              per_client=SSD_PER_CLIENT, sequential=SSD_SEQUENTIAL, seed=0):
+    """Phase 6b: ``ssd_300(20)`` from ``init_params(seed)`` behind
+    MultiBoxDetection, frozen with the bucket ladder (all warmed) and
+    served through ``InferenceSession(max_batch=16, deadline_ms=5)``:
+    ``clients`` threads each sending ``per_client`` single-image requests
+    back to back, then ``sequential`` requests one by one. Launch counts
+    are zeroed just before and read just after; each response must equal
+    ``frozen.run`` of its image, at its row of a zero batch of the bucket
+    its batch ran in. Returns a dict of results."""
+    import threading
+    import numpy as np
+    cuda = device.type == 'cuda'
+    t0 = time.perf_counter()
+    net = ssd.init_params(ssd.ssd_300(SSD_CLASSES, device=device), seed)
+    frozen = serving.freeze(_detector(gluon, ssd, net),
+                            data_shapes=[('data', (3, image, image))],
+                            buckets=buckets)
+    frozen.warmup()
+    setup_s = time.perf_counter() - t0
+    total = clients * per_client + sequential
+    x = np.random.RandomState(seed).uniform(
+        -1, 1, (total, 3, image, image)).astype('float32')
+    # which rows ran together, at which bucket
+    seen = []
+    run = frozen.run
+
+    def recording(arrays, n=None):
+        seen.append((arrays[0].copy(), frozen.policy.bucket_for(n)))
+        return run(arrays, n)
+
+    frozen.run = recording
+    outs, lat, errors = [None] * total, [0.0] * total, []
+    with serving.InferenceSession(frozen, max_batch=buckets[-1],
+                                  deadline_ms=5.0, timeout_s=600) as sess:
+        def client(c):
+            try:
+                for k in range(per_client):
+                    i = c * per_client + k
+                    t = time.perf_counter()
+                    outs[i] = sess.infer(x[i], timeout=600)[0]
+                    lat[i] = time.perf_counter() - t
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        for i in range(clients * per_client, total):
+            t = time.perf_counter()
+            outs[i] = sess.infer(x[i], timeout=600)[0]
+            lat[i] = time.perf_counter() - t
+        wall_seq = time.perf_counter() - t2
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        stats = sess.stats()
+    del frozen.run
+    if errors:
+        raise errors[0]
+    batches = stats['queue']['batches']
+    if len(seen) != batches or \
+            sum(stats['batches_by_bucket'].values()) != batches:
+        raise AssertionError('phase 6b: %d batches, %d runs recorded, by '
+                             'bucket %r' % (batches, len(seen),
+                                            stats['batches_by_bucket']))
+    bns = sum(isinstance(m, gnn.BatchNorm) for m in net.modules())
+    if bns != SSD_BATCH_NORMS:
+        raise AssertionError('ssd_300 has %d BatchNorms' % bns)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(nms=batches, bn_act_fwd=bns * batches)
+    if cuda and launches != want:
+        raise AssertionError('phase 6b: launches %r in %d batches, expected '
+                             '%r' % (launches, batches, want))
+    kept = []
+    for i, out in enumerate(outs):
+        if out.shape != (SSD_ANCHORS, 6) or not np.isfinite(out).all() \
+                or not (out[:, 0] >= 0).any():
+            raise AssertionError('phase 6b: response %d is %r, not finite or '
+                                 'keeps nothing' % (i, out.shape))
+        rows, bucket = next((rows, b) for rows, b in seen
+                            if any(np.array_equal(r, x[i]) for r in rows))
+        r = next(k for k, row in enumerate(rows) if np.array_equal(row,
+                                                                   x[i]))
+        batch = np.zeros((bucket,) + x.shape[1:], 'float32')
+        batch[r] = x[i]
+        if not np.array_equal(out, frozen.run([batch], n=bucket)[0][r]):
+            raise AssertionError('phase 6b: response %d differs from its '
+                                 'image run at bucket %d' % (i, bucket))
+        kept.append(int((out[:, 0] >= 0).sum()))
+    # the kernels' inputs of one batch at the top bucket, taken after the
+    # served run so that holding them leaves its peak memory alone: nms
+    # for phase 6's timing, the BN apply for its check at this path's
+    # shapes
+    captured, bn_captured = [], []
+    keep_fn, bn_fn = contrib.greedy_nms_keep, kernels.epilogue.bn_act_forward
+
+    def capture(*args, **kw):
+        captured.append(args[:4] + (kw.get('cls_id'),))
+        return keep_fn(*args, **kw)
+
+    def capture_bn(*args, **kw):
+        bn_captured.append((args, kw))
+        return bn_fn(*args, **kw)
+
+    contrib.greedy_nms_keep = capture
+    kernels.epilogue.bn_act_forward = capture_bn
+    try:
+        frozen.run([x[:buckets[-1]]])
+    finally:
+        contrib.greedy_nms_keep = keep_fn
+        kernels.epilogue.bn_act_forward = bn_fn
+    prof = profile_step(torch, lambda: frozen.run([x[:buckets[-1]]]),
+                        SSD_GROUPS) if cuda else None
+    first = lat[:clients * per_client]
+    return {
+        'setup_s': setup_s, 'launches': launches, 'batches': batches,
+        'by_bucket': stats['batches_by_bucket'], 'wall_s': wall,
+        'wall_seq_s': wall_seq, 'img_per_s': clients * per_client / wall,
+        'p50_ms': percentile(first, 50) * 1e3,
+        'p99_ms': percentile(first, 99) * 1e3,
+        'seq_p50_ms': percentile(lat[clients * per_client:], 50) * 1e3,
+        'seq_p99_ms': percentile(lat[clients * per_client:], 99) * 1e3,
+        'kept_min': min(kept), 'kept_max': max(kept), 'requests': total,
+        'peak_mem_bytes': peak, 'profile': prof, 'compiled':
+        stats['compiled'], 'nms_inputs': captured[0],
+        'bn_inputs': bn_captured,
+    }
+
+
+def check_ssd_bn_apply(torch, kernels, calls):
+    """Phase 6b: the BN apply kernel against its plain version on the
+    inputs that the served batch at the top bucket gave its 14 inference
+    BatchNorms (``calls``: (args, kwargs) of each ``bn_act_forward``),
+    bitwise. Returns {'bn_act_fwd': 0.0}."""
+    if len(calls) != SSD_BATCH_NORMS:
+        raise AssertionError('phase 6b: %d BN apply calls captured, expected '
+                             '%d' % (len(calls), SSD_BATCH_NORMS))
+    shapes = []
+    with torch.inference_mode():
+        for args, kw in calls:
+            got = kernels.bn_act_forward(*args, **kw)
+            want = kernels.bn_act_forward_reference(*args, **kw)
+            if not torch.equal(got, want):
+                err, _ = _errs(got, want)
+                raise AssertionError('bn_act_fwd disagrees with its plain '
+                                     'version at %s: max abs err %.3g'
+                                     % (tuple(args[0].shape), err))
+            shapes.append(tuple(args[0].shape))
+    log('check bn_act_fwd [the served batch\'s %d BatchNorms, %s]: bitwise '
+        'equal' % (len(shapes), shapes))
+    return {'bn_act_fwd': 0.0}
+
+
+# profile groups of one served batch (see BERT_GROUPS); 'other' holds the
+# softmax, decode, sorts and gathers around the kernel, and the max pools
+SSD_GROUPS = (('BN apply (epilogue kernel)', ('epilogue_',), ()),
+              ('NMS kernel', ('nms_keep',), ()),
+              ('convolutions', (), ('aten::convolution',)),
+              ('copies', ('memcpy', 'memset'), ()))
+
+
 # -- entry -------------------------------------------------------------------
 
 KERNELS = {
@@ -1270,6 +1784,9 @@ KERNELS = {
     'add_act_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
         replaces='mxnet_tpu/ops/pallas/epilogue.py:297'),
+    'nms': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/nms.cu',
+        replaces='mxnet_tpu/ops/pallas/nms.py:29'),
 }
 TIMING_KEYS = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 
@@ -1301,6 +1818,7 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                'launches': sum(by_path.values()),
                'launches_by_path': by_path, 'max_abs_err': errs[name]}
         row.update({k: t[k] for k in TIMING_KEYS})
+        row.update({k: t[k] for k in ('floor_ms', 'at_batch_1') if k in t})
         row['shape'] = t['shape']
         if name in times and name in train_times:
             tt = train_times[name]
@@ -1321,11 +1839,12 @@ def main():
               'script', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from mxnet_tpu_torch import optimizer, parallel, serving
+    from mxnet_tpu_torch import gluon, optimizer, parallel, serving
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon import nn as gnn
-    from mxnet_tpu_torch.gluon.model_zoo import bert, resnet
-    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.gluon.model_zoo import bert, resnet, ssd
+    from mxnet_tpu_torch.ops import contrib, kernels
+    from mxnet_tpu_torch.ops import nn as ops
     from mxnet_tpu_torch.ops.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1436,12 +1955,50 @@ def main():
            fz['launches'], fz['per_step'], fz['losses']))
     torch.cuda.empty_cache()
 
+    # phase 6: the SSD detection serving slice
+    errs.update(check_nms_kernel(torch, kernels, cuda))
+    ssd_against_cpu(torch, ssd, ops, kernels, gnn, cuda)
+    det = serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, cuda)
+    for name, err in check_ssd_bn_apply(torch, kernels,
+                                        det.pop('bn_inputs')).items():
+        errs[name] = max(errs[name], err)
+    log('phase 6b slice: ssd_300(%d) at %d x %d px, %d anchors, buckets %s '
+        'warmed in %.1f s; %d requests (%d clients x %d back to back, then %d '
+        'one by one) in %d batches, by bucket %s; launches %s (per batch: 1 '
+        'nms, %d bn_act_fwd); every response (%d-%d kept rows) equal to its '
+        'image run at its bucket'
+        % (SSD_CLASSES, SSD_IMAGE, SSD_IMAGE, SSD_ANCHORS, list(SSD_BUCKETS),
+           det['setup_s'], det['requests'], SSD_CLIENTS, SSD_PER_CLIENT,
+           SSD_SEQUENTIAL, det['batches'], det['by_bucket'], det['launches'],
+           SSD_BATCH_NORMS, det['kept_min'], det['kept_max']))
+    log('phase 6b metrics [%s]: img/s %.2f (%d requests in %.3f s), latency '
+        'p50 %.2f ms p99 %.2f ms; one by one p50 %.2f ms p99 %.2f ms (%.3f s '
+        'for %d); peak memory %d B'
+        % (card, det['img_per_s'], SSD_CLIENTS * SSD_PER_CLIENT,
+           det['wall_s'], det['p50_ms'], det['p99_ms'], det['seq_p50_ms'],
+           det['seq_p99_ms'], det['wall_seq_s'], SSD_SEQUENTIAL,
+           det['peak_mem_bytes']))
+    log_profile('phase 6b (a batch at bucket %d; "other" is softmax, decode, '
+                'sorts, gathers and max pools)' % SSD_BUCKETS[-1], card,
+                det['profile'])
+    nms_times = time_nms(torch, kernels, det.pop('nms_inputs'))
+    log_times(nms_times)
+    for b, row in ((SSD_BUCKETS[-1], nms_times['nms']),
+                   (1, nms_times['nms']['at_batch_1'])):
+        log('time nms at B%d [%s]: kernel %.4f ms, plain %.4f ms, bound %.4f '
+            'ms (%s), latency floor %.4f ms (the same steps over 512 boxes)'
+            % (b, card, row['ms'], row['plain_ms'], row['bound_ms'],
+               row['bound_by'], row['floor_ms']))
+    train_times.update(nms_times)
+    torch.cuda.empty_cache()
+
     rows = kernel_rows(errs, times, train_times,
                        {'serving': res['launches'],
                         'training': tr['launches'],
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
-                        'resnet frozen-BN fine-tuning': fz['launches']})
+                        'resnet frozen-BN fine-tuning': fz['launches'],
+                        'ssd serving': det['launches']})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

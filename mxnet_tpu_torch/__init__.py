@@ -13,10 +13,14 @@ flash-prefill and flash-decode attention kernels; BERT pretraining
 (``gluon.model_zoo.bert`` + ``gluon.loss`` + AdamW through
 ``parallel.ParallelTrainer.step``), carried by the flash forward, the
 flash dq / dkv backward and the softmax-xent forward / backward kernels;
-and ResNet v1 training (``gluon.model_zoo.resnet`` + SGD with momentum
+ResNet v1 training (``gluon.model_zoo.resnet`` + SGD with momentum
 through the same step), carried by the epilogue kernels (BatchNorm apply
 forward / backward, activation forward / backward, add + relu) and the
-softmax-xent head.
+softmax-xent head; and SSD-300 detection served one-shot
+(``gluon.model_zoo.ssd`` + ``ops.contrib.multibox_detection`` through
+``serving.freeze`` -> ``FrozenProgram`` -> ``InferenceSession.infer`` and
+the micro-batcher), carried by the greedy-NMS kernel and the BatchNorm
+apply kernel.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 on a host without CUDA they raise instead of falling back.

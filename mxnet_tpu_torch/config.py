@@ -1,7 +1,8 @@
 """Serving knobs of the port, the counterpart of ``mxnet_tpu/config.py``.
 
-The port keeps its own copy of the ``MXNET_TPU_SERVE_*`` knobs the
-decode-serving path reads, with the JAX package's names and defaults
+The port keeps its own copy of the ``MXNET_TPU_SERVE_*`` knobs its
+serving paths read (the decode engine, and the one-shot freeze and
+micro-batcher), with the JAX package's names and defaults
 (read from the environment). Constructor arguments always win over a
 knob. There is no kernel on/off knob: on a CUDA tensor the kernel runs.
 """
@@ -13,6 +14,16 @@ __all__ = ['KNOBS', 'get']
 
 # name -> (type, default, doc)
 KNOBS = {
+    'MXNET_TPU_SERVE_MAX_BATCH': (
+        int, 64, 'Largest micro-batch; also the default top of the '
+        'batch bucket ladder.'),
+    'MXNET_TPU_SERVE_DEADLINE_MS': (
+        float, 5.0, 'Micro-batch flush deadline: the oldest queued '
+        'request waits at most this long for batch-mates.'),
+    'MXNET_TPU_SERVE_BUCKETS': (
+        str, None, 'Explicit batch bucket ladder as a comma list '
+        '(e.g. "1,8,32,64"); unset derives powers of two up to '
+        'MXNET_TPU_SERVE_MAX_BATCH.'),
     'MXNET_TPU_SERVE_QUEUE_DEPTH': (
         int, 256, 'Admission bound on pending requests; a submit against '
         'a full queue raises BackpressureError.'),

@@ -24,6 +24,8 @@ from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
                        bn_act_backward_reference, bn_act_forward,
                        bn_act_forward_reference, fused_act, fused_add_act,
                        fused_bn_apply)
+from .nms import (MAX_BOXES, greedy_nms_keep, greedy_nms_keep_reference,
+                  nms_iterations)
 from .xent import (SoftmaxXentFunction, fused_softmax_xent_rows,
                    fused_softmax_xent_rows_reference, softmax_xent_backward,
                    softmax_xent_backward_reference, softmax_xent_forward,
@@ -45,4 +47,5 @@ __all__ = ['KERNELS', 'K_BLOCK', 'online_softmax_block', 'flash_attention',
            'bn_act_forward_reference', 'bn_act_backward',
            'bn_act_backward_reference', 'ActFunction', 'AddActFunction',
            'BnApplyFunction', 'fused_act', 'fused_add_act', 'fused_bn_apply',
-           'launch_counts', 'reset_launch_counts']
+           'MAX_BOXES', 'greedy_nms_keep', 'greedy_nms_keep_reference',
+           'nms_iterations', 'launch_counts', 'reset_launch_counts']

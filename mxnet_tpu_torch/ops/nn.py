@@ -31,7 +31,10 @@ order of operations, so the CPU parity tests compare like with like:
   * :func:`layer_norm` (nn.py:920-990): ``_ln_core``, float32 centred
     two-pass variance and ``rsqrt``, with its hand-written backward;
   * :func:`dropout` (nn.py:1059) on a caller's ``torch.Generator``;
-  * :func:`embedding` (nn.py:1077); :func:`flatten`.
+  * :func:`embedding` (nn.py:1077); :func:`flatten`;
+  * :func:`softmax` (nn.py:568), plain, in ``jax.nn.softmax``'s order
+    (SSD's detection head), and :func:`relu`, plain ``torch.relu`` as the
+    JAX package's ``relu`` (math.py:41) is ``jax.nn.relu``, no kernel.
 
 The kernel ops always go through ``ops/kernels``: the kernels on a CUDA
 tensor, their plain versions on a CPU tensor. There is no knob.
@@ -50,7 +53,8 @@ __all__ = ['fully_connected', 'convolution', 'pooling', 'MaxPoolFunction',
            'activation', 'leaky_relu', 'add_relu', 'batch_norm',
            'BatchNormTrainFunction', 'flash_attention_op',
            'softmax_cross_entropy', 'fused_softmax_xent', 'layer_norm',
-           'LayerNormFunction', 'dropout', 'embedding', 'flatten']
+           'LayerNormFunction', 'dropout', 'embedding', 'flatten',
+           'softmax', 'relu']
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -181,6 +185,21 @@ def add_relu(data, residual):
 def flatten(data):
     """Collapse all axes but the first."""
     return data.reshape(data.shape[0], -1)
+
+
+def relu(data):
+    """``max(x, 0)``, plain: the JAX op is ``jax.nn.relu``, outside the
+    epilogue kernels."""
+    return torch.relu(data)
+
+
+def softmax(data, axis=-1, temperature=None):
+    """Softmax over ``axis`` (of ``data / temperature``): ``exp(x -
+    max)`` over its sum, as ``jax.nn.softmax`` computes it."""
+    x = data if temperature in (None, 1.0) else data / temperature
+    ax = -1 if axis is None else int(axis)
+    e = torch.exp(x - torch.amax(x, dim=ax, keepdim=True))
+    return e / torch.sum(e, dim=ax, keepdim=True)
 
 
 def flash_attention_op(q, k, v, mask=None, *, num_heads, causal=False,

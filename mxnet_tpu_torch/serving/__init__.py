@@ -1,11 +1,17 @@
-"""Generation serving (the port of ``mxnet_tpu/serving``):
-``freeze_decode`` -> ``DecodeProgram`` -> ``InferenceSession.generate``.
+"""Serving (the port of ``mxnet_tpu/serving``): one-shot inference
+(``freeze`` -> ``FrozenProgram`` -> ``InferenceSession.infer`` / ``submit``
+through the micro-batcher) and generation (``freeze_decode`` ->
+``DecodeProgram`` -> ``InferenceSession.generate``).
 """
-from .batcher import BackpressureError, BatcherClosed, RequestTimeout
+from .batcher import (BackpressureError, BatcherClosed, MicroBatcher,
+                      RequestTimeout)
+from .bucket import BucketPolicy
 from .decode import (DecodeProgram, TransformerLM, freeze_decode,
                      init_transformer_lm, params_from_jax)
+from .freeze import FrozenProgram, freeze
 from .server import InferenceSession
 
-__all__ = ['BackpressureError', 'BatcherClosed', 'RequestTimeout',
-           'DecodeProgram', 'TransformerLM', 'freeze_decode',
-           'init_transformer_lm', 'params_from_jax', 'InferenceSession']
+__all__ = ['BackpressureError', 'BatcherClosed', 'MicroBatcher',
+           'RequestTimeout', 'BucketPolicy', 'DecodeProgram',
+           'TransformerLM', 'freeze_decode', 'init_transformer_lm',
+           'params_from_jax', 'FrozenProgram', 'freeze', 'InferenceSession']

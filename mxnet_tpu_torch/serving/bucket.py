@@ -1,13 +1,17 @@
-"""Prompt-length bucketing, the port's copy of ``mxnet_tpu/serving/bucket.py``.
+"""Shape bucketing, the port's copy of ``mxnet_tpu/serving/bucket.py``.
 
-Requests pad up to a small fixed ladder of lengths (powers of two by
-default), so the set of prefill shapes the engine ever runs is bounded
-by the ladder. Pure shape math on the host.
+Requests pad up to a small fixed ladder of sizes (powers of two by
+default): prompt lengths for the decode engine's prefills, batch sizes
+(axis 0, zero rows) for a frozen one-shot program. So the set of shapes a
+program ever runs is bounded by the ladder. Pure shape math on the host;
+sequence-length buckets of one-shot inputs are not ported.
 """
 from __future__ import annotations
 
-__all__ = ['default_buckets', 'parse_buckets', 'bucket_for',
-           'BucketPolicy']
+import numpy as onp
+
+__all__ = ['default_buckets', 'parse_buckets', 'bucket_for', 'pad_axis0',
+           'unpad_axis0', 'BucketPolicy']
 
 
 def default_buckets(max_batch):
@@ -50,6 +54,24 @@ def bucket_for(n, buckets):
                      % (n, buckets[-1]))
 
 
+def pad_axis0(arr, target):
+    """Zero-pad ``arr`` along axis 0 up to ``target`` rows (no copy when
+    already there)."""
+    arr = onp.asarray(arr)
+    n = arr.shape[0]
+    if n == target:
+        return arr
+    if n > target:
+        raise ValueError('cannot pad %d rows down to %d' % (n, target))
+    pad = onp.zeros((target - n,) + arr.shape[1:], dtype=arr.dtype)
+    return onp.concatenate([arr, pad], axis=0)
+
+
+def unpad_axis0(arr, n):
+    """Strip bucket padding: the first ``n`` rows."""
+    return onp.asarray(arr)[:n]
+
+
 class BucketPolicy:
     """An ascending bucket ladder (a comma string or a sequence)."""
 
@@ -70,6 +92,16 @@ class BucketPolicy:
 
     def bucket_for(self, n):
         return bucket_for(n, self.buckets)
+
+    def pad(self, arrays, n=None):
+        """Zero-pad each stacked input array along axis 0 to the bucket of
+        ``n`` rows (default: the first array's). Returns ``(padded, n)``,
+        ``n`` for :func:`unpad_axis0` on the outputs."""
+        arrays = [onp.asarray(a) for a in arrays]
+        if n is None:
+            n = arrays[0].shape[0]
+        b = self.bucket_for(n)
+        return [pad_axis0(a, b) for a in arrays], n
 
     def __repr__(self):
         return 'BucketPolicy(buckets=%r)' % (self.buckets,)

@@ -1,17 +1,34 @@
-"""InferenceSession for generation, the port of the decode mode of
-``mxnet_tpu/serving/server.py``.
+"""InferenceSession, the port of ``mxnet_tpu/serving/server.py``
+(:64-157, 224-245, 322-356): the request path a serving frontend talks
+to.
 
-A session wraps a :class:`~.decode.DecodeProgram` behind the
-continuous-batching :class:`~.decode.engine.DecodeEngine`. Knob defaults
-come from ``MXNET_TPU_SERVE_*`` (``mxnet_tpu_torch/config.py``);
-constructor arguments win. One-shot serving of frozen programs, the
-breaker, the watchdog and the HTTP endpoint are later slices.
+Two modes, chosen by the program:
+
+  * a :class:`~.freeze.FrozenProgram` (one-shot inference) is served
+    behind the flush :class:`~.batcher.MicroBatcher`: ``submit`` ->
+    admission control (bounded queue, typed
+    :class:`~.batcher.BackpressureError`) -> micro-batch flush
+    (``max_batch`` or ``deadline_ms``) -> pad to the bucket -> the block
+    on the program's device -> outputs copied to the host -> unpad ->
+    per-request futures;
+  * a :class:`~.decode.DecodeProgram` goes to the continuous-batching
+    :class:`~.decode.engine.DecodeEngine` (:meth:`InferenceSession.generate`).
+
+Knob defaults come from ``MXNET_TPU_SERVE_*`` (``mxnet_tpu_torch/config.py``);
+constructor arguments win. Arguments of the other mode are ignored, as in
+the JAX session. Not ported: the circuit breaker and the CPU fallback
+(ROADMAP A6) -- a failing batch fails its requests --, the stall
+watchdog, and the HTTP endpoint.
 """
 from __future__ import annotations
 
+import threading
+
 from .. import config as _config
+from .batcher import MicroBatcher
 from .decode.engine import DecodeEngine
 from .decode.program import DecodeProgram
+from .freeze import FrozenProgram
 
 __all__ = ['InferenceSession']
 
@@ -21,38 +38,115 @@ def _pick(value, knob):
 
 
 class InferenceSession:
-    """Serve a :class:`DecodeProgram`: :meth:`generate` streams tokens."""
+    """Serve a :class:`FrozenProgram` (:meth:`submit`, :meth:`infer`,
+    :meth:`infer_batch`) or a :class:`DecodeProgram` (:meth:`generate`).
+    Warm a frozen program's buckets first with
+    :meth:`FrozenProgram.warmup`."""
 
-    def __init__(self, program, max_queue=None, timeout_s=None,
-                 max_new_tokens=None, prefill_interleave=None, name=None):
-        if not isinstance(program, DecodeProgram):
-            raise TypeError('InferenceSession serves a DecodeProgram; got '
-                            '%s (use freeze_decode first)'
-                            % type(program).__name__)
-        self.program = program
-        self.name = name or program.name
-        self._engine = DecodeEngine(
-            program,
-            max_queue=int(_pick(max_queue, 'MXNET_TPU_SERVE_QUEUE_DEPTH')),
-            timeout_s=float(_pick(timeout_s, 'MXNET_TPU_SERVE_TIMEOUT_S')),
-            max_new_tokens=int(_pick(max_new_tokens,
-                                     'MXNET_TPU_SERVE_MAX_NEW_TOKENS')),
-            prefill_interleave=int(_pick(
-                prefill_interleave, 'MXNET_TPU_SERVE_PREFILL_INTERLEAVE')),
-            name=self.name)
+    def __init__(self, program, max_batch=None, deadline_ms=None,
+                 max_queue=None, timeout_s=None, name=None,
+                 max_new_tokens=None, prefill_interleave=None):
+        self.name = name or getattr(program, 'name', None)
+        max_queue = int(_pick(max_queue, 'MXNET_TPU_SERVE_QUEUE_DEPTH'))
+        timeout_s = float(_pick(timeout_s, 'MXNET_TPU_SERVE_TIMEOUT_S'))
+        self._engine = self._batcher = None
+        if isinstance(program, DecodeProgram):
+            self._engine = DecodeEngine(
+                program, max_queue=max_queue, timeout_s=timeout_s,
+                max_new_tokens=int(_pick(max_new_tokens,
+                                         'MXNET_TPU_SERVE_MAX_NEW_TOKENS')),
+                prefill_interleave=int(_pick(
+                    prefill_interleave,
+                    'MXNET_TPU_SERVE_PREFILL_INTERLEAVE')),
+                name=self.name)
+            self.program = program
+            return
+        if not isinstance(program, FrozenProgram):
+            raise TypeError('InferenceSession serves a FrozenProgram or a '
+                            'DecodeProgram; got %s (use serving.freeze / '
+                            'freeze_decode first)' % type(program).__name__)
+        self.program = self.frozen = program
+        top = program.policy.max_batch
+        max_batch = int(max_batch if max_batch is not None else
+                        min(top, _config.get('MXNET_TPU_SERVE_MAX_BATCH')))
+        if max_batch > top:
+            raise ValueError('max_batch %d exceeds the largest bucket %d'
+                             % (max_batch, top))
+        self._lock = threading.Lock()
+        self._by_bucket = {}
+        self._batcher = MicroBatcher(
+            self._run_batch, max_batch=max_batch,
+            deadline_ms=float(_pick(deadline_ms,
+                                    'MXNET_TPU_SERVE_DEADLINE_MS')),
+            max_queue=max_queue, timeout_s=timeout_s, name=self.name,
+            example_shapes=[s for _n, s, _dt in program.data_descs])
+
+    # -- one-shot requests -------------------------------------------------
+
+    def _require_oneshot(self, what):
+        if self._batcher is None:
+            raise TypeError('%s serves one-shot programs; this session '
+                            'wraps a DecodeProgram: use generate()' % what)
+
+    def submit(self, *arrays):
+        """Enqueue one single-example request; returns a Future whose
+        result is the list of per-example output arrays."""
+        self._require_oneshot('submit')
+        return self._batcher.submit(*arrays)
+
+    def infer(self, *arrays, timeout=None):
+        """Blocking single-request inference through the batcher."""
+        self._require_oneshot('infer')
+        return self._batcher.infer(*arrays, timeout=timeout)
+
+    def infer_batch(self, arrays):
+        """Run an already-stacked batch (one array per input, n rows)
+        through the bucketed program directly, on the caller's thread:
+        the bulk path; the queue is for concurrent single requests."""
+        self._require_oneshot('infer_batch')
+        return self.frozen.run(list(arrays))
+
+    def _run_batch(self, stacked, n):
+        # the batcher's worker: the program runs on its device and
+        # returns host arrays, so the futures resolve with data on the host
+        outs = self.frozen.run(stacked, n)
+        bucket = self.frozen.policy.bucket_for(n)
+        with self._lock:
+            self._by_bucket[bucket] = self._by_bucket.get(bucket, 0) + 1
+        return outs
+
+    # -- generation --------------------------------------------------------
 
     def generate(self, tokens, max_new_tokens=None, eos_id=None):
         """Stream a generation: returns a
         :class:`~.decode.engine.GenerateStream` (iterate per token, or
         ``.result(timeout)`` for the whole sequence)."""
+        if self._engine is None:
+            raise TypeError('generate() needs a DecodeProgram session (use '
+                            'serving.freeze_decode)')
         return self._engine.generate(tokens, max_new_tokens=max_new_tokens,
                                      eos_id=eos_id)
 
+    # -- lifecycle ---------------------------------------------------------
+
     def stats(self):
-        return self._engine.stats()
+        """The decode engine's stats, or for a one-shot session the
+        batcher's queue stats, the bucket ladder, the buckets run and the
+        batches run by bucket."""
+        if self._engine is not None:
+            return self._engine.stats()
+        with self._lock:
+            by_bucket = dict(sorted(self._by_bucket.items()))
+        return {'name': self.name, 'buckets': list(self.frozen.policy.buckets),
+                'compiled': self.frozen.compile_count,
+                'batches_by_bucket': by_bucket,
+                'queue': self._batcher.stats()}
 
     def close(self, drain=True, timeout=30.0):
-        self._engine.close(drain=drain, timeout=timeout)
+        if self._engine is not None:
+            self._engine.close(drain=drain, timeout=timeout)
+        else:
+            self._batcher.close(drain=drain, timeout=timeout)
 
     def __enter__(self):
         return self
