@@ -20,7 +20,12 @@ Phases, in order; any failure exits non-zero:
      5e-7 of the max abs for sigmoid, tanh and softrelu); then each
      kernel, its plain version and the one
      PyTorch library call that computes the same function timed with
-     CUDA events at the main paths' shapes;
+     CUDA events at the main paths' shapes, one event pair a call
+     (``ms``: the wrapper's host cost included, the earlier protocol), and
+     the kernel and the library call also by the probe's back-to-back
+     slope timer over inputs rotated past the L2 (``device_ms``: device
+     time alone, inputs read from memory as the bound counts them; see
+     phase 7);
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -80,7 +85,19 @@ Phases, in order; any failure exits non-zero:
      of a batch at bucket 16 (16 x 16 x 300 x 300 down to 16 x 128 x 4 x
      4); then the nms kernel bitwise against its plain version on that
      batch's inputs and on its first image, and both timed there with
-     the bound and the latency floor.
+     the bound and the latency floor;
+  7. the matmul probe slice. The four bf16 tensor-core kernels (cur,
+     noacc, ws, ep) at odd shapes (M of 1 and 6272 + 77, N of 8 and 64,
+     K of 8 and 72, ...) into NaN-filled outputs: each within the float64
+     bound |y - y64| <= ulp_bf16(|y64|) + K 2^-23 (|a| @ |b|), and within
+     twice it of the plain version; cuBLAS (``torch.matmul``) held to the
+     same bound. Then, with the launch counts zeroed, the probe's entry
+     (``mxnet_tpu_torch.tools.probe_matmul_pipeline.run``) at its eight
+     ResNet-50 1x1-conv shapes: the same checks, then cuBLAS, the plain
+     version and the four kernels timed by its slope timer over inputs
+     rotated past twice the L2, a line each with ms, GB/s, TFLOP/s and share of
+     the bound (989 TFLOP/s bf16 dense, 3.35 TB/s); every variant must
+     have launched.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX; without a
@@ -93,7 +110,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -333,7 +349,49 @@ def time_ms(torch, fn, iters=30, warmup=5):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, inputs):
+    """Device milliseconds of one ``fn(*inputs)``, the host's cost left
+    out: the probe's slope of n and 4n calls back to back, the host given
+    a head start (``probe_matmul_pipeline.slope_ms``). The calls rotate
+    over clones of the tensors ``inputs`` that together exceed twice the
+    L2, so each call reads its inputs from memory, as the bound counts
+    them (``inputs`` empty: the call reads what it holds)."""
+    from mxnet_tpu_torch.tools.probe_matmul_pipeline import (cold_copies,
+                                                              slope_ms)
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    copies = [inputs] + [tuple(t.clone() for t in inputs)
+                         for _ in range(cold_copies(nbytes) - 1 if nbytes
+                                        else 0)]
+    return slope_ms(torch, lambda i: fn(*copies[i % len(copies)]))
+
+
+def timings(torch, inputs, kernel, plain, library=None, library_inputs=None,
+            plain_iters=30, plain_warmup=5, **row):
+    """A row of the kernels table: ``kernel``, ``plain`` and ``library``
+    (a callable or None) called on the tensors ``inputs`` (the library on
+    ``library_inputs`` where given), timed one event pair a call on the
+    same inputs (ms, plain_ms, library_ms), and the kernel and the library
+    call back to back on inputs rotated past the L2 (device_ms,
+    library_device_ms, :func:`device_ms`); ``row`` adds bound and
+    shape."""
+    lib_in = inputs if library_inputs is None else library_inputs
+    row.update(
+        ms=time_ms(torch, lambda: kernel(*inputs)),
+        device_ms=device_ms(torch, kernel, inputs),
+        plain_ms=time_ms(torch, lambda: plain(*inputs), iters=plain_iters,
+                         warmup=plain_warmup),
+        library_ms=(None if library is None
+                    else time_ms(torch, lambda: library(*lib_in))),
+        library_device_ms=(None if library is None
+                           else device_ms(torch, library, lib_in)))
+    return row
+
+
 def bound(nbytes, flops):
+    """(the least ms the card could take, 'bytes' or 'operations'):
+    ``nbytes`` at 3.35 TB/s against ``flops`` at 67 TFLOP/s, float32 on
+    the CUDA cores (the bf16 matmuls' bound is the probe's
+    ``bound_ms``)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
@@ -359,13 +417,14 @@ def time_kernels(torch, kernels, heads=12, d=64, seq=256, length=200):
     nbytes = 4 * q.numel() * 4 + heads * seq * 4 + 4
     flops = visible * heads * 4 * d
     b_ms, b_by = bound(nbytes, flops)
-    rows['flash_attention_fwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.flash_attention(
-            q, k, v, lengths, causal=True)),
-        plain_ms=time_ms(torch, lambda: kernels.flash_attention_reference(
-            q, k, v, lengths, causal=True)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask)),
+    rows['flash_attention_fwd'] = timings(
+        torch, (q, k, v, lengths),
+        lambda q, k, v, lengths: kernels.flash_attention(q, k, v, lengths,
+                                                         causal=True),
+        lambda q, k, v, lengths: kernels.flash_attention_reference(
+            q, k, v, lengths, causal=True),
+        lambda q, k, v, lengths: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask),
         bound_ms=b_ms, bound_by=b_by,
         shape='B1 H%d S%d D%d causal length %d' % (heads, seq, d, length))
 
@@ -382,13 +441,14 @@ def time_kernels(torch, kernels, heads=12, d=64, seq=256, length=200):
     qh = qd.view(SLOTS, heads, 1, d)
     dmask = (torch.arange(512, device=dev)[None, :]
              <= pos.long()[:, None])[:, None, None, :]
-    rows['flash_decode_fwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.flash_decode_attention(
-            qd, keys, values, pos, heads)),
-        plain_ms=time_ms(torch, lambda: kernels.flash_decode_attention_reference(
-            qd, keys, values, pos, heads)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=dmask)),
+    rows['flash_decode_fwd'] = timings(
+        torch, (qd, keys, values, pos),
+        lambda qd, keys, values, pos: kernels.flash_decode_attention(
+            qd, keys, values, pos, heads),
+        lambda qd, keys, values, pos: (
+            kernels.flash_decode_attention_reference(qd, keys, values, pos,
+                                                     heads)),
+        F.scaled_dot_product_attention, library_inputs=(qh, kh, vh, dmask),
         bound_ms=b_ms, bound_by=b_by,
         shape='slots %d max_len 512 U %d heads %d positions %s'
         % (SLOTS, units, heads, list(DECODE_POSITIONS)))
@@ -424,34 +484,27 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
     sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
 
     def sdpa_bwd():
+        # reads the graph's saved q, k, v and output: 151 MB, past the L2
         return torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
                                    retain_graph=True)
 
-    library_bwd = time_ms(torch, sdpa_bwd)
     b_ms, b_by = bound(4 * tensor_b + lse_b + lens_b, visible * 4 * d)
-    rows['flash_attention_fwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.flash_attention_with_lse(
-            q, k, v, lens)),
-        plain_ms=time_ms(torch, lambda: kernels.flash_attention_reference(
-            q, k, v, lens)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v)),
+    rows['flash_attention_fwd'] = timings(
+        torch, (q, k, v, lens), kernels.flash_attention_with_lse,
+        kernels.flash_attention_reference,
+        lambda q, k, v, lens: F.scaled_dot_product_attention(q, k, v),
         bound_ms=b_ms, bound_by=b_by, shape=shape)
     b_ms, b_by = bound(6 * tensor_b + lse_b + lens_b, visible * 6 * d)
-    rows['flash_attention_dq'] = dict(
-        ms=time_ms(torch, lambda: kernels.flash_attention_dq(
-            q, k, v, out, lse, do, lens)),
-        plain_ms=time_ms(torch, lambda: kernels.flash_attention_dq_reference(
-            q, k, v, out, lse, do, lens)),
-        library_ms=library_bwd, bound_ms=b_ms, bound_by=b_by,
+    rows['flash_attention_dq'] = timings(
+        torch, (q, k, v, out, lse, do, lens), kernels.flash_attention_dq,
+        kernels.flash_attention_dq_reference, sdpa_bwd, library_inputs=(),
+        bound_ms=b_ms, bound_by=b_by,
         shape=shape + '; library: SDPA backward (dq, dk and dv together)')
     b_ms, b_by = bound(7 * tensor_b + lse_b + lens_b, visible * 8 * d)
-    rows['flash_attention_dkv'] = dict(
-        ms=time_ms(torch, lambda: kernels.flash_attention_dkv(
-            q, k, v, out, lse, do, lens)),
-        plain_ms=time_ms(torch, lambda: kernels.flash_attention_dkv_reference(
-            q, k, v, out, lse, do, lens)),
-        library_ms=library_bwd, bound_ms=b_ms, bound_by=b_by,
+    rows['flash_attention_dkv'] = timings(
+        torch, (q, k, v, out, lse, do, lens), kernels.flash_attention_dkv,
+        kernels.flash_attention_dkv_reference, sdpa_bwd, library_inputs=(),
+        bound_ms=b_ms, bound_by=b_by,
         shape=shape + '; library: SDPA backward (dq, dk and dv together)')
     del q, k, v, do, out, lse, qs, ks, vs, sdpa_out
 
@@ -466,29 +519,26 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
     shape = 'rows %d V %d' % (n, vocab)
     # per element: the max, the shift, exp, the sum and the log-prob
     b_ms, b_by = bound(2 * x.numel() * 4 + 3 * n * 4, 5 * x.numel())
-    rows['softmax_xent_fwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.softmax_xent_forward(x, lab)),
-        plain_ms=time_ms(torch, lambda: kernels.softmax_xent_forward_reference(
-            x, lab)),
-        library_ms=time_ms(torch, lambda: F.cross_entropy(
-            x, lab64, reduction='none')),
-        bound_ms=b_ms, bound_by=b_by,
+    rows['softmax_xent_fwd'] = timings(
+        torch, (x, lab), kernels.softmax_xent_forward,
+        kernels.softmax_xent_forward_reference,
+        lambda x, lab: F.cross_entropy(x, lab, reduction='none'),
+        library_inputs=(x, lab64), bound_ms=b_ms, bound_by=b_by,
         shape=shape + '; library: cross_entropy(reduction=none) writes nll '
         'only, no logp')
     xs = x.detach().clone().requires_grad_(True)
     ce = F.cross_entropy(xs, lab64, reduction='sum') / n
 
     def ce_bwd():
+        # reads the graph's saved log-probabilities: 234 MB, past the L2
         return torch.autograd.grad(ce, xs, retain_graph=True)
 
     # per element: exp, the one-hot subtract and the scale by g
     b_ms, b_by = bound(2 * x.numel() * 4 + 2 * n * 4, 3 * x.numel())
-    rows['softmax_xent_bwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.softmax_xent_backward(
-            logp, lab, g)),
-        plain_ms=time_ms(torch, lambda: kernels.softmax_xent_backward_reference(
-            logp, lab, g)),
-        library_ms=time_ms(torch, ce_bwd), bound_ms=b_ms, bound_by=b_by,
+    rows['softmax_xent_bwd'] = timings(
+        torch, (logp, lab, g), kernels.softmax_xent_backward,
+        kernels.softmax_xent_backward_reference, ce_bwd, library_inputs=(),
+        bound_ms=b_ms, bound_by=b_by,
         shape=shape + '; library: backward alone of cross_entropy'
         '(reduction=sum)')
     return rows
@@ -582,39 +632,34 @@ def time_epilogue_kernels(torch, kernels, batch=RESNET['batch']):
     n = x.numel()
     rows = {}
     b_ms, b_by = bound(8 * n + 12 * c, 3 * n)
-    rows['bn_act_fwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.bn_act_forward(
-            x, scale, mean, beta)),
-        plain_ms=time_ms(torch, lambda: kernels.bn_act_forward_reference(
-            x, scale, mean, beta)),
-        library_ms=time_ms(torch, lambda: F.batch_norm(
-            x, mean, var, gamma, beta, training=False, eps=eps)),
+    rows['bn_act_fwd'] = timings(
+        torch, (x, scale, mean, beta), kernels.bn_act_forward,
+        kernels.bn_act_forward_reference,
+        lambda x, mean, var, gamma, beta: F.batch_norm(
+            x, mean, var, gamma, beta, training=False, eps=eps),
+        library_inputs=(x, mean, var, gamma, beta),
         bound_ms=b_ms, bound_by=b_by,
         shape='%s identity; library: batch_norm(training=False)' % (stem,))
-    b_ms, b_by = bound(12 * n + 4 * c, 2 * n)
-    rows['bn_act_bwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.bn_act_backward(g, x, scale)),
-        plain_ms=time_ms(torch, lambda: kernels.bn_act_backward_reference(
-            g, x, scale)),
-        library_ms=time_ms(torch, lambda: torch.mul(
-            g, scale.view(1, -1, 1, 1))),
+    # identity: dx = g * scale[c] reads g and scale only; the saved
+    # output is passed but an identity act's derivative never reads it
+    b_ms, b_by = bound(8 * n + 4 * c, n)
+    rows['bn_act_bwd'] = timings(
+        torch, (g, x, scale), kernels.bn_act_backward,
+        kernels.bn_act_backward_reference,
+        lambda g, x, scale: torch.mul(g, scale.view(1, -1, 1, 1)),
         bound_ms=b_ms, bound_by=b_by,
         shape='%s identity; library: torch.mul(g, scale[c])' % (stem,))
     b_ms, b_by = bound(8 * n, n)
-    rows['act_fwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.act_forward(x, 'relu')),
-        plain_ms=time_ms(torch, lambda: kernels.act_forward_reference(
-            x, 'relu')),
-        library_ms=time_ms(torch, lambda: torch.relu(x)),
+    rows['act_fwd'] = timings(
+        torch, (x,), lambda x: kernels.act_forward(x, 'relu'),
+        lambda x: kernels.act_forward_reference(x, 'relu'), torch.relu,
         bound_ms=b_ms, bound_by=b_by,
         shape='%s relu; library: torch.relu' % (stem,))
     b_ms, b_by = bound(12 * n, n)
-    rows['act_bwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.act_backward(g, out, 'relu')),
-        plain_ms=time_ms(torch, lambda: kernels.act_backward_reference(
-            g, out, 'relu')),
-        library_ms=time_ms(torch, lambda: torch.ops.aten.threshold_backward(
-            g, out, 0)),
+    rows['act_bwd'] = timings(
+        torch, (g, out), lambda g, out: kernels.act_backward(g, out, 'relu'),
+        lambda g, out: kernels.act_backward_reference(g, out, 'relu'),
+        lambda g, out: torch.ops.aten.threshold_backward(g, out, 0),
         bound_ms=b_ms, bound_by=b_by,
         shape='%s relu; library: aten.threshold_backward' % (stem,))
     del x, g, out
@@ -622,11 +667,10 @@ def time_epilogue_kernels(torch, kernels, batch=RESNET['batch']):
               for _ in range(2))
     nj = xj.numel()
     b_ms, b_by = bound(12 * nj, 2 * nj)
-    rows['add_act_fwd'] = dict(
-        ms=time_ms(torch, lambda: kernels.add_act_forward(xj, yj, 'relu')),
-        plain_ms=time_ms(torch, lambda: kernels.add_act_forward_reference(
-            xj, yj, 'relu')),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    rows['add_act_fwd'] = timings(
+        torch, (xj, yj), lambda x, y: kernels.add_act_forward(x, y, 'relu'),
+        lambda x, y: kernels.add_act_forward_reference(x, y, 'relu'),
+        bound_ms=b_ms, bound_by=b_by,
         shape='%s relu; no single library call' % (join,))
     return rows
 
@@ -1380,12 +1424,15 @@ def time_nms(torch, kernels, args):
     for b in (boxes.shape[0], 1):
         bx, vd, cl = boxes[:b], valid[:b], cls_id[:b]
 
-        def kernel():
+        def kernel(bx, vd, cl):
             return kernels.greedy_nms_keep(bx, vd, thresh, topk, cls_id=cl)
 
-        keep = kernel()
-        if not torch.equal(keep, kernels.greedy_nms_keep_reference(
-                bx, vd, thresh, topk, cls_id=cl)):
+        def plain(bx, vd, cl):
+            return kernels.greedy_nms_keep_reference(bx, vd, thresh, topk,
+                                                     cls_id=cl)
+
+        keep = kernel(bx, vd, cl)
+        if not torch.equal(keep, plain(bx, vd, cl)):
             raise AssertionError('nms disagrees with its plain version on '
                                  'the served batch\'s first %d images' % b)
         log('check nms [the served batch\'s decoded boxes, B%d N%d]: %d '
@@ -1394,13 +1441,10 @@ def time_nms(torch, kernels, args):
         b_ms, b_by = bound(nbytes, flops)
         head = (bx[:, :512].contiguous(), vd[:, :512].contiguous(),
                 cl[:, :512].contiguous())
-        rows[b] = dict(
-            ms=time_ms(torch, kernel),
-            plain_ms=time_ms(torch, lambda: kernels.greedy_nms_keep_reference(
-                bx, vd, thresh, topk, cls_id=cl), iters=3, warmup=1),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            floor_ms=time_ms(torch, lambda: kernels.greedy_nms_keep(
-                head[0], head[1], thresh, topk, cls_id=head[2])),
+        rows[b] = timings(
+            torch, (bx, vd, cl), kernel, plain, plain_iters=3,
+            plain_warmup=1, bound_ms=b_ms, bound_by=b_by,
+            floor_ms=time_ms(torch, lambda: kernel(*head)),
             shape='B%d N%d class-aware topk %d thresh %g, the served batch '
             'at bucket %d; %d of the %d steps kept; library: none (no NMS '
             'op in PyTorch, no torchvision)'
@@ -1748,6 +1792,83 @@ SSD_GROUPS = (('BN apply (epilogue kernel)', ('epilogue_',), ()),
               ('copies', ('memcpy', 'memset'), ()))
 
 
+# -- phase 7: the matmul probe slice -----------------------------------------
+
+# odd shapes of the matmul kernels' check: M of 1 and past a tile (6272 +
+# 77), N of 8, 40 and 64 (the 128 x 64 tile), K of 8, 72 and 2048, N past
+# a 128 tile (136, 520)
+MATMUL_ODD = ((1, 64, 256), (6272 + 77, 512, 2048), (300, 72, 64),
+              (6272 + 77, 72, 136), (129, 1024, 64), (257, 2048, 520),
+              (1000, 256, 8), (77, 8, 40))
+
+
+def check_matmul_kernels(torch, kernels, probe, device, shapes=MATMUL_ODD):
+    """The four matmul kernels against the float64 product at each (M, K,
+    N), into NaN-filled outputs: each within the float64 bound and within
+    twice it of the plain version (two sums that both hold the bound);
+    cuBLAS and the plain version held to the bound too. Returns {kernel
+    name: worst max abs difference from the plain version}."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    worst = {'matmul_' + v: 0.0 for v in kernels.MATMUL_VARIANTS}
+    for m, k, n in shapes:
+        a = torch.randn(m, k, generator=gen, device=device).bfloat16()
+        b = torch.randn(k, n, generator=gen, device=device).bfloat16()
+        y64, allowed = probe.float64_bound(a, b)
+        plain = kernels.matmul_reference(a, b)
+        ratios = {'cublas': probe.bound_ratio(torch.matmul(a, b), y64,
+                                              allowed),
+                  'plain': probe.bound_ratio(plain, y64, allowed)}
+        for v in kernels.MATMUL_VARIANTS:
+            out = torch.full((m, n), float('nan'), dtype=torch.bfloat16,
+                             device=device)
+            kernels.matmul(a, b, v, out=out)
+            ratios[v] = probe.bound_ratio(out, y64, allowed)
+            vs_plain = probe.bound_ratio(out, plain.double(), 2 * allowed)
+            if not (ratios[v] <= 1 and vs_plain <= 1):
+                raise AssertionError(
+                    'matmul %s at M=%d K=%d N=%d: |y - y64| / bound %.3g, '
+                    'against the plain version %.3g' % (v, m, k, n,
+                                                        ratios[v], vs_plain))
+            err = (out.float() - plain.float()).abs().max().item()
+            worst['matmul_' + v] = max(worst['matmul_' + v], err)
+        if not max(ratios['cublas'], ratios['plain']) <= 1:
+            raise AssertionError('cuBLAS or the plain version leaves the '
+                                 'float64 bound at M=%d K=%d N=%d: %r'
+                                 % (m, k, n, ratios))
+        log('check matmul M=%d K=%d N=%d: |y - y64| / float64 bound %s'
+            % (m, k, n, {name: round(r, 3) for name, r in ratios.items()}))
+    return worst
+
+
+def matmul_rows(kernels, shapes):
+    """Rows 13-16 of the kernels table from the probe's run (``shapes``,
+    :func:`probe_matmul_pipeline.run`): each kernel's, the plain
+    version's and cuBLAS's device times and the bound at the probe's
+    first shape (401408 x 64 x 256, the most bytes), as ms / device_ms,
+    plain_ms and library_ms / library_device_ms (these rows have no
+    earlier per-call time to stay comparable with), and all eight shapes
+    under ``by_shape``."""
+    first = shapes[0]
+    rows = {}
+    for v in kernels.MATMUL_VARIANTS:
+        ms, lib_ms = first['rows'][v]['ms'], first['rows']['cublas']['ms']
+        rows['matmul_' + v] = dict(
+            ms=ms, device_ms=ms, plain_ms=first['rows']['plain']['ms'],
+            library_ms=lib_ms, library_device_ms=lib_ms,
+            bound_ms=first['bound_ms'], bound_by=first['bound_by'],
+            shape='M%d K%d N%d bf16 (probe shape 1), device times; library: '
+            'torch.matmul (cuBLAS, float32 sums)'
+            % (first['M'], first['K'], first['N']),
+            by_shape=[dict(M=s['M'], K=s['K'], N=s['N'],
+                           device_ms=s['rows'][v]['ms'],
+                           share=s['rows'][v]['share'],
+                           library_device_ms=s['rows']['cublas']['ms'],
+                           plain_device_ms=s['rows']['plain']['ms'],
+                           bound_ms=s['bound_ms'], bound_by=s['bound_by'])
+                      for s in shapes])
+    return rows
+
+
 # -- entry -------------------------------------------------------------------
 
 KERNELS = {
@@ -1787,18 +1908,32 @@ KERNELS = {
     'nms': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/nms.cu',
         replaces='mxnet_tpu/ops/pallas/nms.py:29'),
+    'matmul_cur': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        replaces='tools/probe_matmul_pipeline.py:41'),
+    'matmul_noacc': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        replaces='tools/probe_matmul_pipeline.py:65'),
+    'matmul_ws': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        replaces='tools/probe_matmul_pipeline.py:88'),
+    'matmul_ep': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        replaces='tools/probe_matmul_pipeline.py:112'),
 }
-TIMING_KEYS = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+TIMING_KEYS = ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+               'library_ms', 'library_device_ms')
 
 
 def log_times(times):
     for name, row in times.items():
         lib = row['library_ms']
-        log('time %s [%s]: kernel %.4f ms, plain %.4f ms, library %s, '
-            'bound %.4f ms (%s)' % (name, row['shape'], row['ms'],
-                                    row['plain_ms'],
-                                    'none' if lib is None else '%.4f ms' % lib,
-                                    row['bound_ms'], row['bound_by']))
+        log('time %s [%s]: kernel %.4f ms (device %.4f ms), plain %.4f ms, '
+            'library %s, bound %.4f ms (%s)'
+            % (name, row['shape'], row['ms'], row['device_ms'],
+               row['plain_ms'], 'none' if lib is None else
+               '%.4f ms (device %.4f ms)' % (lib, row['library_device_ms']),
+               row['bound_ms'], row['bound_by']))
 
 
 def kernel_rows(errs, times, train_times, launches_by_path):
@@ -1818,7 +1953,8 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                'launches': sum(by_path.values()),
                'launches_by_path': by_path, 'max_abs_err': errs[name]}
         row.update({k: t[k] for k in TIMING_KEYS})
-        row.update({k: t[k] for k in ('floor_ms', 'at_batch_1') if k in t})
+        row.update({k: t[k] for k in ('floor_ms', 'at_batch_1', 'by_shape')
+                    if k in t})
         row['shape'] = t['shape']
         if name in times and name in train_times:
             tt = train_times[name]
@@ -1846,20 +1982,21 @@ def main():
     from mxnet_tpu_torch.ops import contrib, kernels
     from mxnet_tpu_torch.ops import nn as ops
     from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.tools import probe_matmul_pipeline as probe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (phase 7's cuBLAS yardstick) sum in float32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log('tf32 off: torch.backends.cuda.matmul.allow_tf32=False, '
-        'torch.backends.cudnn.allow_tf32=False')
+        'torch.backends.cudnn.allow_tf32=False; bf16 reduced-precision '
+        'reductions off')
     log('python %s torch %s cuda %s' % (sys.version.split()[0],
                                         torch.__version__,
                                         torch.version.cuda))
     cuda = torch.device('cuda')
     # phase 1: device and build
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = probe.card()
     log(card)
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -1992,13 +2129,39 @@ def main():
     train_times.update(nms_times)
     torch.cuda.empty_cache()
 
+    # phase 7: the matmul probe slice
+    errs.update(check_matmul_kernels(torch, kernels, probe, cuda))
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    shapes = probe.run(torch, log=log)['shapes']
+    probe_s = time.perf_counter() - t0
+    probe_launches = kernels.launch_counts()
+    idle = [v for v in kernels.MATMUL_VARIANTS
+            if not probe_launches['matmul_' + v]]
+    if idle or any(c for name, c in probe_launches.items()
+                   if not name.startswith('matmul_')):
+        raise AssertionError('phase 7: the probe launched %r' % probe_launches)
+    for s in shapes:
+        for v in kernels.MATMUL_VARIANTS:
+            errs['matmul_' + v] = max(errs['matmul_' + v],
+                                      s['rows'][v]['max_abs_err'])
+    log('phase 7 slice: the matmul probe at %d shapes in %.1f s [%s]; '
+        'launches %s' % (len(shapes), probe_s, card, probe_launches))
+    mm_times = matmul_rows(kernels, shapes)
+    log_times(mm_times)
+    train_times.update(mm_times)
+    del shapes
+    torch.cuda.empty_cache()
+
     rows = kernel_rows(errs, times, train_times,
                        {'serving': res['launches'],
                         'training': tr['launches'],
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
                         'resnet frozen-BN fine-tuning': fz['launches'],
-                        'ssd serving': det['launches']})
+                        'ssd serving': det['launches'],
+                        'matmul probe': probe_launches})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
