@@ -8,10 +8,16 @@ Phases, in order; any failure exits non-zero:
   1. device and build: print the card's name and power limit (as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them) and build every kernel from ``csrc/`` with nvcc, one
-     process per source, all started together;
+     process per source, all started together; the flash forward's
+     instances must spill no register (``-Xptxas -v``);
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
-     <= 1e-5), the training kernels at the training slice's shapes
+     <= 1e-5; the flash forward through every block size it is built
+     for), the decode contract bitwise (row p of the causal forward over
+     a 512-token, 12-head sequence, through every block size, equal to
+     the decode kernel's output at position p over a slot cache holding
+     the same K/V, p in 0, 5, 64, 127, 128, 200, 255, 256, 300, 511),
+     the training kernels at the training slice's shapes
      (1e-5 absolute for out, lse, nll and logp; 1e-5 relative to each
      tensor's max abs for dq, dk, dv and dlogits, which sum over 128 rows
      of O(1) terms), the five epilogue kernels for every act type at the
@@ -109,6 +115,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import time
@@ -181,6 +188,30 @@ def attention_cases():
     return cases
 
 
+DECODE_CHECK_POSITIONS = (0, 5, 64, 127, 128, 200, 255, 256, 300, 511)
+
+
+def decode_identity(torch, kernels, q, k, v, positions, block_q):
+    """The decode contract: row p of the causal forward kernel at
+    ``block_q`` over ``q``, ``k``, ``v`` (1, H, S, D) against the decode
+    kernel's output at position p over a slot cache of max_len S holding
+    the same K/V (one slot a position). Returns ([torch.equal per
+    position], max abs difference)."""
+    _, heads, seq, d = q.shape
+    n = len(positions)
+    cache = [t[0].transpose(0, 1).reshape(1, seq, heads * d)
+             .expand(n, seq, heads * d).contiguous() for t in (k, v)]
+    qd = q[0][:, list(positions)].transpose(0, 1).reshape(n, heads * d)
+    pos = torch.tensor(positions, dtype=torch.int32, device=q.device)
+    dec = kernels.flash_decode_attention(qd.contiguous(), *cache, pos,
+                                         heads).view(n, heads, d)
+    out, _ = kernels.flash_attention_with_lse(q, k, v, None, True,
+                                              block_q=block_q)
+    rows = out[0][:, list(positions)].transpose(0, 1)
+    return ([torch.equal(rows[i], dec[i]) for i in range(n)],
+            (rows - dec).abs().max().item())
+
+
 def check_kernels(torch, kernels, device, heads=12, d=64, slots=SLOTS,
                   max_len=512, positions=DECODE_POSITIONS):
     """Each kernel against its plain version on ``device``; returns
@@ -195,27 +226,44 @@ def check_kernels(torch, kernels, device, heads=12, d=64, slots=SLOTS,
         q, k, v = (randn(1, heads, s, d) for _ in range(3))
         lengths = None if length is None else torch.tensor(
             [length], dtype=torch.int32, device=device)
-        out, lse = kernels.flash_attention_with_lse(q, k, v, lengths,
-                                                    causal=causal)
         ref, lse_ref = kernels.flash_attention_reference(q, k, v, lengths,
                                                          causal=causal)
-        if not torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref)):
-            raise AssertionError('flash_attention lse: masked rows differ '
-                                 '(S=%d causal=%s length=%s)'
-                                 % (s, causal, length))
         fin = ~torch.isneginf(lse_ref)
-        err = max((out - ref).abs().max().item(),
-                  (lse[fin] - lse_ref[fin]).abs().max().item()
-                  if fin.any() else 0.0)
-        if length == 0 and out.abs().max().item() != 0.0:
-            raise AssertionError('flash_attention: fully masked rows '
-                                 'must be 0')
-        log('check flash_attention S=%d causal=%s length=%s max_abs_err=%.3g'
-            % (s, causal, length, err))
-        if not err <= TOL:
-            raise AssertionError('flash_attention disagrees with its plain '
-                                 'version: %g > %g' % (err, TOL))
-        worst['flash_attention_fwd'] = max(worst['flash_attention_fwd'], err)
+        # the block size the wrapper picks, then every one it is built for
+        for bq in (None,) + kernels.FWD_BLOCK_Q:
+            out, lse = kernels.flash_attention_with_lse(
+                q, k, v, lengths, causal=causal, block_q=bq)
+            if not torch.equal(torch.isneginf(lse),
+                               torch.isneginf(lse_ref)):
+                raise AssertionError('flash_attention lse: masked rows '
+                                     'differ (S=%d causal=%s length=%s '
+                                     'block_q=%s)' % (s, causal, length, bq))
+            err = max((out - ref).abs().max().item(),
+                      (lse[fin] - lse_ref[fin]).abs().max().item()
+                      if fin.any() else 0.0)
+            if length == 0 and out.abs().max().item() != 0.0:
+                raise AssertionError('flash_attention: fully masked rows '
+                                     'must be 0')
+            log('check flash_attention S=%d causal=%s length=%s block_q=%s '
+                'max_abs_err=%.3g' % (s, causal, length,
+                                      bq or kernels.fwd_geometry(
+                                          1, heads, s)[0], err))
+            if not err <= TOL:
+                raise AssertionError('flash_attention disagrees with its '
+                                     'plain version: %g > %g' % (err, TOL))
+            worst['flash_attention_fwd'] = max(worst['flash_attention_fwd'],
+                                               err)
+    q, k, v = (randn(1, heads, 512, d) for _ in range(3))
+    for bq in kernels.FWD_BLOCK_Q:
+        equal, diff = decode_identity(torch, kernels, q, k, v,
+                                      DECODE_CHECK_POSITIONS, bq)
+        log('check decode contract block_q=%d: forward row p bitwise equal '
+            'to the decode step at p for p in %s: %s (max abs difference '
+            '%g)' % (bq, list(DECODE_CHECK_POSITIONS), equal, diff))
+        if not all(equal):
+            raise AssertionError('flash_attention row differs from the '
+                                 'decode kernel (block_q=%d): %s'
+                                 % (bq, equal))
     units = heads * d
     keys, values = randn(slots, max_len, units), randn(slots, max_len, units)
     q = randn(slots, units)
@@ -426,7 +474,9 @@ def time_kernels(torch, kernels, heads=12, d=64, seq=256, length=200):
         lambda q, k, v, lengths: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask),
         bound_ms=b_ms, bound_by=b_by,
-        shape='B1 H%d S%d D%d causal length %d' % (heads, seq, d, length))
+        shape='B1 H%d S%d D%d causal length %d, block_q %d, %d blocks'
+        % ((heads, seq, d, length)
+           + kernels.fwd_geometry(1, heads, seq)[:2]))
 
     units = heads * d
     keys, values = randn(SLOTS, 512, units), randn(SLOTS, 512, units)
@@ -493,7 +543,9 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
         torch, (q, k, v, lens), kernels.flash_attention_with_lse,
         kernels.flash_attention_reference,
         lambda q, k, v, lens: F.scaled_dot_product_attention(q, k, v),
-        bound_ms=b_ms, bound_by=b_by, shape=shape)
+        bound_ms=b_ms, bound_by=b_by,
+        shape=shape + ', block_q %d, %d blocks'
+        % kernels.fwd_geometry(batch, heads, seq)[:2])
     b_ms, b_by = bound(6 * tensor_b + lse_b + lens_b, visible * 6 * d)
     rows['flash_attention_dq'] = timings(
         torch, (q, k, v, out, lse, do, lens), kernels.flash_attention_dq,
@@ -2004,6 +2056,12 @@ def main():
         % (len(_build.SOURCES), time.perf_counter() - t0))
     for name, lines in reports.items():
         log('ptxas %s: %s' % (name, ' | '.join(lines)))
+    spills = [ln for ln in reports.get('flash_attention_fwd', ())
+              if any(int(n) for n in re.findall(
+                  r'(\d+) bytes spill (?:stores|loads)', ln))]
+    if spills:
+        raise AssertionError('flash_attention_fwd spills registers: %s'
+                             % spills)
 
     # phase 2: kernels against their plain versions, then times
     errs = check_kernels(torch, kernels, cuda)

@@ -8,14 +8,14 @@ a wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, and counts its launches (:func:`launch_counts`).
 """
 from ._launch import KERNELS, launch_counts, reset_launch_counts
-from .attention import (K_BLOCK, FlashAttentionFunction, flash_attention,
-                        flash_attention_backward,
+from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
+                        flash_attention, flash_attention_backward,
                         flash_attention_backward_reference,
                         flash_attention_dkv, flash_attention_dkv_reference,
                         flash_attention_dq, flash_attention_dq_reference,
                         flash_attention_reference, flash_attention_with_lse,
                         flash_decode_attention,
-                        flash_decode_attention_reference,
+                        flash_decode_attention_reference, fwd_geometry,
                         online_softmax_block)
 from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
                        BnApplyFunction, act_backward, act_backward_reference,
@@ -33,7 +33,8 @@ from .xent import (SoftmaxXentFunction, fused_softmax_xent_rows,
                    softmax_xent_backward_reference, softmax_xent_forward,
                    softmax_xent_forward_reference)
 
-__all__ = ['KERNELS', 'K_BLOCK', 'online_softmax_block', 'flash_attention',
+__all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
+           'online_softmax_block', 'flash_attention',
            'FlashAttentionFunction', 'flash_attention_reference',
            'flash_attention_with_lse', 'flash_attention_dq',
            'flash_attention_dkv', 'flash_attention_backward',

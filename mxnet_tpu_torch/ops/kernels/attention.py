@@ -34,7 +34,9 @@ Decode bit-identity (the TPU kernels' contract, attention.py:18-26): both
 forward kernels walk the key axis from 0 in fixed ``K_BLOCK`` steps with
 the same score, rescale and accumulation expressions
 (``csrc/online_softmax.cuh``), so prefill, the reference forward and the
-cached step combine the same reduction tree over the real keys. What
+cached step combine the same reduction tree over the real keys: a row of
+the forward kernel is bitwise the decode kernel's output at that
+position, for every block size :func:`fwd_geometry` can pick. What
 bounds each kernel on the H100, and what its design does about it, is
 noted at the top of its source.
 """
@@ -49,16 +51,24 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
 
-__all__ = ['K_BLOCK', 'online_softmax_block', 'flash_attention',
-           'FlashAttentionFunction', 'flash_attention_reference',
-           'flash_attention_with_lse', 'flash_attention_dq',
-           'flash_attention_dkv', 'flash_attention_backward',
+__all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry', 'online_softmax_block',
+           'flash_attention', 'FlashAttentionFunction',
+           'flash_attention_reference', 'flash_attention_with_lse',
+           'flash_attention_dq', 'flash_attention_dkv',
+           'flash_attention_backward',
            'flash_attention_dq_reference', 'flash_attention_dkv_reference',
            'flash_attention_backward_reference', 'flash_decode_attention',
            'flash_decode_attention_reference']
 
 # fixed key-axis block: part of the bit-identity contract
 K_BLOCK = 128
+# query rows a work item of the forward kernel, the instances built,
+# largest first; each does a row's arithmetic alike, so all are bitwise
+# equal
+FWD_BLOCK_Q = (128, 32)
+SMS = 132                   # streaming multiprocessors of the H100 SXM
+SMEM_BLOCK_MAX = 232448     # bytes of shared memory a block may take
+_D = 64                     # the head dim the kernels are built for
 _NEG_INF = float('-inf')
 _QKV = '(B, H, Sq, D)'
 
@@ -125,25 +135,60 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False,
     return out.to(q.dtype), lse
 
 
+def fwd_geometry(batch, heads, sq, block_q=None):
+    """Launch geometry of the forward kernel: (block_q, blocks, shared
+    memory bytes a block).
+
+    The kernel's work items are (batch * head, query tile of ``block_q``
+    rows), batch * heads * ceil(sq / block_q) of them. ``blocks``
+    persistent blocks, at most one an SM, walk them in strides of
+    ``blocks``, each staging the next item's tiles while it computes.
+    ``block_q`` is the largest of :data:`FWD_BLOCK_Q` whose items fill
+    the :data:`SMS` SMs, else the smallest (short sequences: 96 items at
+    1 x 12 x 256); a ``block_q`` given is kept. The bytes follow the
+    kernel's ``Layout`` (``csrc/flash_attention_fwd.cu``): the Q tile,
+    two K and two V tiles of K_BLOCK rows, the K_BLOCK x block_q P tile
+    and three floats a row."""
+    def items(bq):
+        return batch * heads * -(-sq // bq)
+    if block_q is None:
+        block_q = next((bq for bq in FWD_BLOCK_Q if items(bq) >= SMS),
+                       FWD_BLOCK_Q[-1])
+    if block_q not in FWD_BLOCK_Q:
+        raise ValueError('flash_attention: block_q %r not built (have %s)'
+                         % (block_q, FWD_BLOCK_Q))
+    floats = (block_q * _D + 4 * K_BLOCK * _D + K_BLOCK * block_q
+              + 3 * block_q)
+    return block_q, min(items(block_q), SMS), 4 * floats
+
+
 def _fwd_lib():
     from . import _build
     lib = _build.load('flash_attention_fwd')
     fn = lib.mx_flash_attention_fwd
     if fn.argtypes is None:
+        for bq in FWD_BLOCK_Q:
+            built = lib.mx_flash_attention_fwd_smem(bq)
+            _require(built == fwd_geometry(1, 1, 1, bq)[2],
+                     'flash_attention: fwd_geometry gives %d bytes at '
+                     'block_q %d, the kernel takes %d'
+                     % (fwd_geometry(1, 1, 1, bq)[2], bq, built))
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
     return fn
 
 
-def _flash_attention_cuda(q, k, v, lengths, causal, scale):
+def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _require(k.shape == (b, h, sk, d) and v.shape == k.shape,
              'flash_attention: k/v must be (B, H, Sk, D) = %r, got %r / %r'
              % ((b, h, sk, d), tuple(k.shape), tuple(v.shape)))
-    _require(d == 64, 'flash_attention: head dim %d not built (the '
+    _require(d == _D, 'flash_attention: head dim %d not built (the '
              'kernel is instantiated for 64)' % d)
+    block_q, blocks, _ = fwd_geometry(b, h, sq, block_q)
     lens = _lengths_tensor(lengths, b, sk, q.device)
     _check_inputs('flash_attention', {'q': q, 'k': k, 'v': v,
                                       'lengths': lens},
@@ -155,21 +200,24 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale):
     with torch.cuda.device(q.device):
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out),
                  _ptr(lse), b, h, sq, sk, d, float(scale), int(bool(causal)),
-                 _stream(q.device))
+                 block_q, blocks, _stream(q.device))
     _raise_on('flash_attention_fwd', err)
     _count('flash_attention_fwd')
     return out, lse
 
 
 def flash_attention_with_lse(q, k, v, lengths=None, causal=False,
-                             scale=None):
+                             scale=None, block_q=None):
     """:func:`flash_attention` that also returns the log-sum-exp
-    (B, H, Sq) float32 -- the forward half of the flash backward."""
+    (B, H, Sq) float32 -- the forward half of the flash backward.
+    ``block_q`` picks the kernel's query rows a work item (one of
+    :data:`FWD_BLOCK_Q`; None: :func:`fwd_geometry` picks); every
+    instance gives the same bits."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu('flash_attention', q, _QKV):
         return flash_attention_reference(q, k, v, lengths, causal, scale)
-    return _flash_attention_cuda(q, k, v, lengths, causal, scale)
+    return _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q)
 
 
 def flash_attention(q, k, v, lengths=None, causal=False, scale=None):

@@ -17,6 +17,7 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import DECODE_CHECK_POSITIONS, decode_identity
 from mxnet_tpu.ops.pallas import attention as jax_attn
 from mxnet_tpu_torch.ops import kernels
 from mxnet_tpu_torch.ops.kernels import attention as port_attn
@@ -142,6 +143,78 @@ def test_wrappers_reject_other_devices():
                                        2)
 
 
+@pytest.mark.parametrize('batch,sq', [(1, 256), (96, 128), (1, 1),
+                                      (1, 17), (1, 200), (1, 513),
+                                      (4, 17), (2, 200)])
+def test_fwd_geometry_covers_rows_and_fits(batch, sq):
+    heads = 12
+    bq, blocks, smem = kernels.fwd_geometry(batch, heads, sq)
+    assert bq in kernels.FWD_BLOCK_Q
+    tiles = -(-sq // bq)
+    items = batch * heads * tiles
+    # the query tiles of a batch*head cover its rows, none wholly past Sq
+    assert tiles * bq >= sq > (tiles - 1) * bq
+    # blocks walk items blockIdx, + blocks, ...: each item once, and every
+    # block has one
+    assert 0 < blocks <= min(items, port_attn.SMS)
+    assert sorted(i for blk in range(blocks)
+                  for i in range(blk, items, blocks)) == list(range(items))
+    assert 0 < smem <= port_attn.SMEM_BLOCK_MAX
+    if items < port_attn.SMS:
+        assert bq == min(kernels.FWD_BLOCK_Q) and blocks == items
+    else:
+        # the largest block size whose items still fill every SM
+        larger = [b for b in kernels.FWD_BLOCK_Q if b > bq]
+        assert all(batch * heads * -(-sq // b) < port_attn.SMS
+                   for b in larger)
+
+
+def test_fwd_geometry_serving_and_training_shapes():
+    # the serving prefill (1 x 12 x 256) runs at least 96 blocks
+    bq, blocks, _ = kernels.fwd_geometry(1, 12, 256)
+    assert blocks >= 96 and bq == 32
+    # the BERT training forward: 1152 items of 128 rows on 132 blocks
+    assert kernels.fwd_geometry(96, 12, 128)[:2] == (128, 132)
+    # a block size asked for is kept; one not built raises
+    assert kernels.fwd_geometry(1, 12, 256, 128)[:2] == (128, 24)
+    with pytest.raises(ValueError, match='not built'):
+        kernels.fwd_geometry(1, 12, 256, 16)
+
+
+def test_fwd_geometry_shared_memory_layout():
+    # the Q tile, two K and two V tiles (K_BLOCK x D), the K_BLOCK x
+    # block_q P tile and corr, m, l a row: the kernel's Layout
+    for bq in kernels.FWD_BLOCK_Q:
+        floats = bq * 64 + 4 * 128 * 64 + 128 * bq + 3 * bq
+        assert kernels.fwd_geometry(1, 1, 1, bq)[2] == 4 * floats
+    assert [kernels.fwd_geometry(1, 1, 1, b)[2] for b in (128, 32)] == [
+        230912, 156032]
+
+
+def test_fwd_block_q_is_ignored_on_cpu():
+    rs = np.random.RandomState(8)
+    q, k, v = (torch.tensor(a) for a in _qkv(rs, 1, 2, 40, 16))
+    ref = kernels.flash_attention_with_lse(q, k, v, causal=True)
+    for bq in kernels.FWD_BLOCK_Q:
+        got = kernels.flash_attention_with_lse(q, k, v, causal=True,
+                                               block_q=bq)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_forward_rows_bitwise_equal_decode_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels are CUDA C++ for '
+                    'sm_90a and have no CPU mode')
+    rs = np.random.RandomState(9)
+    q, k, v = (torch.tensor(a, device='cuda') for a in _qkv(rs, 1, 12, 512,
+                                                           64))
+    for bq in kernels.FWD_BLOCK_Q:
+        equal, diff = decode_identity(torch, kernels, q, k, v,
+                                      DECODE_CHECK_POSITIONS, bq)
+        assert all(equal), (bq, equal, diff)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     if not torch.cuda.is_available():
@@ -152,12 +225,13 @@ def test_kernels_match_plain_versions_on_card():
         q, k, v = (torch.tensor(a, device='cuda')
                    for a in _qkv(rs, 1, 12, seq, 64))
         lengths = torch.tensor([seq - 2], dtype=torch.int32, device='cuda')
-        got, lse = kernels.flash_attention_with_lse(q, k, v, lengths,
-                                                    causal=True)
         want, lse_ref = kernels.flash_attention_reference(
             q, k, v, lengths, causal=True)
-        assert (got - want).abs().max().item() <= ATOL
-        assert (lse - lse_ref).abs().max().item() <= ATOL
+        for bq in kernels.FWD_BLOCK_Q:
+            got, lse = kernels.flash_attention_with_lse(
+                q, k, v, lengths, causal=True, block_q=bq)
+            assert (got - want).abs().max().item() <= ATOL
+            assert (lse - lse_ref).abs().max().item() <= ATOL
     keys = torch.tensor(rs.randn(8, 512, 768).astype('float32'),
                         device='cuda')
     values = torch.tensor(rs.randn(8, 512, 768).astype('float32'),
