@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them) and build every kernel from ``csrc/`` with nvcc, one
      process per source, all started together; the flash forward's
-     instances must spill no register (``-Xptxas -v``);
+     instances and the ws / ep kernels must spill no register (``-Xptxas
+     -v``), and the ws / ep kernels' SASS (``cuobjdump -sass``) must hold
+     HGMMA and UTMALDG (counted with UTMASTG), or the run fails;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -92,9 +94,11 @@ Phases, in order; any failure exits non-zero:
      4); then the nms kernel bitwise against its plain version on that
      batch's inputs and on its first image, and both timed there with
      the bound and the latency floor;
-  7. the matmul probe slice. The four bf16 tensor-core kernels (cur,
-     noacc, ws, ep) at odd shapes (M of 1 and 6272 + 77, N of 8 and 64,
-     K of 8 and 72, ...) into NaN-filled outputs: each within the float64
+  7. the matmul probe slice. The geometry of ws and ep at each probe
+     shape (``matmul_geometry``), then the four bf16 tensor-core kernels
+     (cur, noacc, ws, ep) at odd shapes (M of 1 and 6272 + 77, N of 8 and
+     64, K of 8, 72 and 200, one 64-deep slice, ...) into NaN-filled
+     outputs: each within the float64
      bound |y - y64| <= ulp_bf16(|y64|) + K 2^-23 (|a| @ |b|), and within
      twice it of the plain version; cuBLAS (``torch.matmul``) held to the
      same bound. Then, with the launch counts zeroed, the probe's entry
@@ -117,6 +121,7 @@ import math
 import os
 import re
 import statistics
+import subprocess
 import sys
 import time
 
@@ -1848,10 +1853,22 @@ SSD_GROUPS = (('BN apply (epilogue kernel)', ('epilogue_',), ()),
 
 # odd shapes of the matmul kernels' check: M of 1 and past a tile (6272 +
 # 77), N of 8, 40 and 64 (the 128 x 64 tile), K of 8, 72 and 2048, N past
-# a 128 tile (136, 520)
+# a 128 tile (136, 520); then for the wgmma mainloop's instances
+# (matmul_geometry): one 64-deep K slice with M a multiple of 128 (BN 128),
+# K 200 over four slices, the last one partly past K (BN 128 at N 96), N
+# 256 with M past a tile, M of 1 at N 1024 (four BN 256 tiles for ws; N
+# 2048 reaches ep's BN 256), and more tiles than ep has blocks at BN 64 and
+# 128, so that each block walks several tiles through its ring and its
+# staging buffers
 MATMUL_ODD = ((1, 64, 256), (6272 + 77, 512, 2048), (300, 72, 64),
               (6272 + 77, 72, 136), (129, 1024, 64), (257, 2048, 520),
-              (1000, 256, 8), (77, 8, 40))
+              (1000, 256, 8), (77, 8, 40), (1024, 64, 128), (515, 200, 96),
+              (131, 256, 256), (1, 512, 1024), (40000 + 77, 128, 64),
+              (20000 + 3, 200, 128))
+# instructions the ws and ep kernels must contain (cuobjdump -sass): the
+# wgmma, the TMA load and the TMA store
+SM90_SASS = ('HGMMA', 'UTMALDG', 'UTMASTG')
+SM90_KERNELS = ('matmul_ws_kernel', 'matmul_ep_kernel')
 
 
 def check_matmul_kernels(torch, kernels, probe, device, shapes=MATMUL_ODD):
@@ -1890,6 +1907,42 @@ def check_matmul_kernels(torch, kernels, probe, device, shapes=MATMUL_ODD):
         log('check matmul M=%d K=%d N=%d: |y - y64| / float64 bound %s'
             % (m, k, n, {name: round(r, 3) for name, r in ratios.items()}))
     return worst
+
+
+def check_sm90_build(build, ptxas):
+    """The ws and ep kernels of ``csrc/matmul_sm90.cu`` as built: the
+    spills in ptxas's lines for that source (``ptxas``; empty when the
+    library was current and not rebuilt), and the count of each of
+    :data:`SM90_SASS` in each kernel's SASS (``cuobjdump -sass`` from
+    nvcc's toolkit). Raises when a kernel spills or lacks HGMMA or
+    UTMALDG, so an mma.sync build cannot pass. Returns {kernel:
+    {instruction: count}}."""
+    spills = [ln for ln in ptxas if any(int(n) for n in re.findall(
+        r'(\d+) bytes spill (?:stores|loads)', ln))]
+    if spills:
+        raise AssertionError('matmul_sm90 spills registers: %s' % spills)
+    tool = os.path.join(build._cuda_home(), 'bin', 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', build.library_path('matmul_sm90')],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r'Function : (\S+)', line)
+        if head:
+            fn = head.group(1)
+            fn = fn if any(k in fn for k in SM90_KERNELS) else None
+            if fn:
+                counts[fn] = dict.fromkeys(SM90_SASS, 0)
+        elif fn:
+            for op in SM90_SASS:
+                counts[fn][op] += len(re.findall(r'\b%s\b' % op, line))
+    missing = [k for k in SM90_KERNELS if not any(k in f for f in counts)]
+    short = {f: c for f, c in counts.items()
+             if not (c['HGMMA'] and c['UTMALDG'])}
+    if missing or short:
+        raise AssertionError('matmul_sm90 SASS: kernels missing %s, without '
+                             'HGMMA or UTMALDG %s' % (missing, short))
+    return counts
 
 
 def matmul_rows(kernels, shapes):
@@ -1967,10 +2020,10 @@ KERNELS = {
         source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
         replaces='tools/probe_matmul_pipeline.py:65'),
     'matmul_ws': dict(
-        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul_sm90.cu',
         replaces='tools/probe_matmul_pipeline.py:88'),
     'matmul_ep': dict(
-        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul_sm90.cu',
         replaces='tools/probe_matmul_pipeline.py:112'),
 }
 TIMING_KEYS = ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -2062,6 +2115,9 @@ def main():
     if spills:
         raise AssertionError('flash_attention_fwd spills registers: %s'
                              % spills)
+    for fn, counts in check_sm90_build(
+            _build, reports.get('matmul_sm90', ())).items():
+        log('sass matmul_sm90 %s: %s' % (fn, counts))
 
     # phase 2: kernels against their plain versions, then times
     errs = check_kernels(torch, kernels, cuda)
@@ -2188,6 +2244,10 @@ def main():
     torch.cuda.empty_cache()
 
     # phase 7: the matmul probe slice
+    for m, k, n in probe.SHAPES:
+        log('geometry M=%d K=%d N=%d: %s' % (m, k, n, {
+            v: tuple(kernels.matmul_geometry(v, m, k, n))
+            for v in ('ws', 'ep')}))
     errs.update(check_matmul_kernels(torch, kernels, probe, cuda))
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()

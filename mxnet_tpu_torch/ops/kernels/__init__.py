@@ -24,8 +24,9 @@ from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
                        bn_act_backward_reference, bn_act_forward,
                        bn_act_forward_reference, fused_act, fused_add_act,
                        fused_bn_apply)
-from .matmul import (VARIANTS as MATMUL_VARIANTS, matmul, matmul_cur,
-                     matmul_ep, matmul_noacc, matmul_reference, matmul_ws)
+from .matmul import (VARIANTS as MATMUL_VARIANTS, MatmulGeometry, matmul,
+                     matmul_cur, matmul_ep, matmul_geometry, matmul_noacc,
+                     matmul_reference, matmul_ws)
 from .nms import (MAX_BOXES, greedy_nms_keep, greedy_nms_keep_reference,
                   nms_iterations)
 from .xent import (SoftmaxXentFunction, fused_softmax_xent_rows,
@@ -51,6 +52,7 @@ __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'bn_act_backward_reference', 'ActFunction', 'AddActFunction',
            'BnApplyFunction', 'fused_act', 'fused_add_act', 'fused_bn_apply',
            'MAX_BOXES', 'greedy_nms_keep', 'greedy_nms_keep_reference',
-           'nms_iterations', 'MATMUL_VARIANTS', 'matmul', 'matmul_reference',
+           'nms_iterations', 'MATMUL_VARIANTS', 'MatmulGeometry',
+           'matmul_geometry', 'matmul', 'matmul_reference',
            'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep',
            'launch_counts', 'reset_launch_counts']

@@ -1,20 +1,16 @@
-// bf16 matrix products on the tensor cores for Hopper (sm_90a):
-// Y (M, N) = bf16(A (M, K) . B (K, N)), every operand row-major, the sum
-// taken in float32 and rounded to bf16 once.
+// bf16 matrix products on the tensor cores for Hopper (sm_90a), on the
+// mma.sync mainloop: Y (M, N) = bf16(A (M, K) . B (K, N)), every operand
+// row-major, the sum taken in float32 and rounded to bf16 once.
 //
-// Replaces the four Pallas variants of tools/probe_matmul_pipeline.py, the
-// repo's probe of a hand-written matmul against the compiler's on
+// Replaces two of the four Pallas variants of tools/probe_matmul_pipeline.py,
+// the repo's probe of a hand-written matmul against the compiler's on
 // ResNet-50's 1x1-conv shapes (bf16, batch 128, M = B*H*W):
 //   pallas_cur   (:41)  f32 scratch accumulator, grid (m, n), m outer
 //   pallas_noacc (:65)  the dot cast straight to the output block
-//   pallas_ws    (:88)  grid (n, m): the weight tile stays while A/Y stream
-//   pallas_ep    (:112) the (n, m) order as a hand-built double-buffered
-//                       pipeline (emit_pipeline), refs left in HBM
-// with one template and four C entry points: mx_matmul_cur, _noacc, _ws,
-// _ep. All four compute the same Y; they differ in block order, in where
-// the accumulator is staged before the cast, and in how copies overlap.
-// The TPU kernels leave rows past (M // bm) * bm unwritten (their grid is
-// M // bm); here every row is computed.
+// with one template and two C entry points, mx_matmul_cur and _noacc. The
+// other two, pallas_ws (:88) and pallas_ep (:112), run on TMA and wgmma in
+// matmul_sm90.cu. The TPU kernels leave rows past (M // bm) * bm unwritten
+// (their grid is M // bm); here every row is computed.
 //
 // What bounds them on the H100: bytes at six of the probe's eight shapes
 // (K or N of 64-256 against M of 25088-401408: 2 * (MK + KN + MN) bytes
@@ -39,25 +35,17 @@
 // it column-major), then issues mma.sync.m16n8k16 bf16 x bf16 -> f32 into
 // 64 (32) float32 accumulators a thread.
 //
-// The variants:
-//   cur    grid (m, n), n fastest: consecutive blocks share the A tile in
-//          L2 (the TPU's m-outer order). The epilogue stages the f32
-//          accumulator tile in shared memory (as acc_ref does; 69632 B,
-//          dynamic shared memory), then each thread reads 8 floats,
-//          rounds them and writes 16 bytes: rows of Y go out in full
-//          sectors.
-//   noacc  the same grid; the accumulator registers are rounded to bf16
-//          pairs and stored straight from the fragments (4 bytes a thread,
-//          16 bytes a row per warp store).
-//   ws     grid (n, m), m fastest: consecutive blocks share the (K x BN)
-//          weight tile in L2 while A and Y stream; stores as noacc.
-//   ep     persistent: one block per free slot of each SM (SM count times
-//          the occupancy the kernel allows), each walking its output tiles
-//          in (n outer, m inner) order. Its cp.async ring runs over the
-//          block's whole sequence of (tile, k-slice) pairs, so the first
-//          slice of the next tile is in flight while this tile's last
-//          slice and its epilogue run; stores as noacc.
-// TMA and wgmma (the card's full tensor-core rate) are for a later PR.
+// The variants, both with grid (m, n), n fastest: consecutive blocks
+// share the A tile in L2 (the TPU's m-outer order).
+//   cur    the epilogue stages the f32 accumulator tile in shared memory
+//          (as acc_ref does; 69632 B, dynamic shared memory), then each
+//          thread reads 8 floats, rounds them and writes 16 bytes: rows
+//          of Y go out in full sectors.
+//   noacc  the accumulator registers are rounded to bf16 pairs and stored
+//          straight from the fragments (4 bytes a thread, 16 bytes a row
+//          per warp store).
+// The kernel template keeps the (n, m) order (N_OUTER) it was written
+// with; no entry point launches it that way any more.
 //
 // Rounding: products of bf16 are exact in f32; the tensor cores sum them
 // in f32 in their own order, and __floats2bfloat162_rn rounds to nearest
@@ -69,7 +57,6 @@
 #include <stdint.h>
 
 #include <atomic>
-#include <climits>
 
 namespace {
 
@@ -331,99 +318,22 @@ __global__ void __launch_bounds__(THREADS, 2)
     store_direct<BN>(p, acc, m0, n0, warp_m, warp_n, lane);
 }
 
-// ep: persistent blocks; the ring runs across tiles.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 2)
-    matmul_persistent_kernel(Problem p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  bf16* bs = as + STAGES * A_STAGE;
-  const int tiles = p.tiles_m * p.tiles_n;
-  const int kt = (p.k + BK - 1) / BK;
-  // this block's tiles: blockIdx.x, + gridDim.x, ... (grid <= tiles)
-  const int mine = (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
-  const long long steps = (long long)mine * kt;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warp_m = warp / WARPS_N, warp_n = warp % WARPS_N;
-  float acc[MT][Tile<BN>::NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < Tile<BN>::NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  // step s is k-slice s % kt of the block's tile s / kt; tile t sits at
-  // (t % tiles_m, t / tiles_m): m inner, n outer
-  int load_tile = blockIdx.x, load_k = 0;
-  load_slice<BN>(p, as, bs, (load_tile % p.tiles_m) * BM,
-                 (load_tile / p.tiles_m) * BN, 0);
-  cp_async_commit();
-  int tile = blockIdx.x, k = 0;
-  for (long long s = 0; s < steps; ++s) {
-    cp_async_wait_all();
-    __syncthreads();  // step s landed; every warp is done with s - 1
-    if (s + 1 < steps) {
-      if (++load_k == kt) {
-        load_k = 0;
-        load_tile += gridDim.x;
-      }
-      load_slice<BN>(p, as + ((s + 1) & 1) * A_STAGE,
-                     bs + ((s + 1) & 1) * Tile<BN>::B_STAGE,
-                     (load_tile % p.tiles_m) * BM,
-                     (load_tile / p.tiles_m) * BN, load_k * BK);
-    }
-    cp_async_commit();
-    mma_slice<BN>(acc, as + (s & 1) * A_STAGE,
-                  bs + (s & 1) * Tile<BN>::B_STAGE, warp_m, warp_n, lane);
-    if (++k == kt) {
-      store_direct<BN>(p, acc, (tile % p.tiles_m) * BM,
-                       (tile / p.tiles_m) * BN, warp_m, warp_n, lane);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < Tile<BN>::NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-      k = 0;
-      tile += gridDim.x;
-    }
-  }
-}
-
-enum Variant { CUR, NOACC, WS, EP };
+enum Variant { CUR, NOACC };
 
 constexpr int MAX_DEVICES = 64;
 
-// What a launch would otherwise ask the runtime each time, once for each
-// kernel instance and device: the dynamic shared-memory attribute (above
-// 48 KB it has to be asked for, or the launch is refused) and the most
-// blocks the grid takes, SMs x blocks an SM for the persistent kernel,
-// unbounded for the others. 0 until then.
+// Once for each kernel instance and device: the dynamic shared-memory
+// attribute (above 48 KB it has to be asked for, or the launch is
+// refused).
 template <int BN>
-cudaError_t setup(Variant v, void (*kernel)(Problem), int smem, int dev,
-                  int* cap) {
-  static std::atomic<int> caps[4][MAX_DEVICES];
+cudaError_t setup(Variant v, void (*kernel)(Problem), int smem, int dev) {
+  static std::atomic<bool> done[2][MAX_DEVICES];
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  *cap = caps[v][dev].load(std::memory_order_acquire);
-  if (*cap > 0) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
+  if (done[v][dev].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  int c = INT_MAX;
-  if (v == EP) {
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, THREADS, smem)) != cudaSuccess)
-      return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    c = sms * per_sm;
-  }
-  caps[v][dev].store(c, std::memory_order_release);
-  *cap = c;
-  return cudaSuccess;
+  if (e == cudaSuccess) done[v][dev].store(true, std::memory_order_release);
+  return e;
 }
 
 template <int BN>
@@ -434,26 +344,17 @@ cudaError_t launch(Variant v, Problem p, cudaStream_t s) {
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   void (*kernel)(Problem);
   int smem = Tile<BN>::PIPE_BYTES;
-  switch (v) {
-    case CUR:
-      kernel = matmul_tile_kernel<BN, true, false>;
-      if (Tile<BN>::STAGED_BYTES > smem) smem = Tile<BN>::STAGED_BYTES;
-      break;
-    case NOACC:
-      kernel = matmul_tile_kernel<BN, false, false>;
-      break;
-    case WS:
-      kernel = matmul_tile_kernel<BN, false, true>;
-      break;
-    default:
-      kernel = matmul_persistent_kernel<BN>;
+  if (v == CUR) {
+    kernel = matmul_tile_kernel<BN, true, false>;
+    if (Tile<BN>::STAGED_BYTES > smem) smem = Tile<BN>::STAGED_BYTES;
+  } else {
+    kernel = matmul_tile_kernel<BN, false, false>;
   }
-  int dev = 0, cap = 0;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if ((e = setup<BN>(v, kernel, smem, dev, &cap)) != cudaSuccess) return e;
-  const long long grid = tiles < cap ? tiles : cap;
-  kernel<<<(unsigned)grid, THREADS, smem, s>>>(p);
+  if ((e = setup<BN>(v, kernel, smem, dev)) != cudaSuccess) return e;
+  kernel<<<(unsigned)tiles, THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -480,14 +381,4 @@ extern "C" int mx_matmul_cur(const void* a, const void* b, void* y, int m,
 extern "C" int mx_matmul_noacc(const void* a, const void* b, void* y, int m,
                                int n, int k, void* stream) {
   return run(NOACC, a, b, y, m, n, k, stream);
-}
-
-extern "C" int mx_matmul_ws(const void* a, const void* b, void* y, int m,
-                            int n, int k, void* stream) {
-  return run(WS, a, b, y, m, n, k, stream);
-}
-
-extern "C" int mx_matmul_ep(const void* a, const void* b, void* y, int m,
-                            int n, int k, void* stream) {
-  return run(EP, a, b, y, m, n, k, stream);
 }

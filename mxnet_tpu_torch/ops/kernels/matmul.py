@@ -4,23 +4,27 @@ matmul probe and their plain PyTorch version.
 The counterpart of the Pallas bodies and of ``lax_mm`` in
 ``tools/probe_matmul_pipeline.py`` (:35-139): ``Y = bf16(A . B)`` for ``A``
 (M, K) and ``B`` (K, N) in bf16, the sum taken in float32. The four
-variants (``csrc/matmul.cu``) compute the same ``Y`` and differ only in
-how they schedule it on the card:
+variants compute the same ``Y`` and differ only in how they schedule it
+on the card:
 
   * ``cur``   -- ``pallas_cur`` :41: blocks in (m, n) order, the float32
     accumulator staged in shared memory before the cast;
   * ``noacc`` -- ``pallas_noacc`` :65: the same order, the accumulator
     registers cast and stored straight from the fragments;
-  * ``ws``    -- ``pallas_ws`` :88: (n, m) order, so that consecutive
-    blocks share the weight tile;
+  * ``ws``    -- ``pallas_ws`` :88: one block a tile in (n, m) order, so
+    that consecutive blocks share the weight tile;
   * ``ep``    -- ``pallas_ep`` :112: persistent blocks walking (n, m)
-    tiles through one double-buffered copy ring (``emit_pipeline``).
+    tiles through one copy ring that runs across tiles
+    (``emit_pipeline``).
 
-The TPU's ``bm`` and ``bn`` are VMEM tile sizes; the port does not take
-them: its tile is 128 x 128 (128 x 64 for N <= 64) with K in slices of
-32, chosen for Hopper's shared memory (``csrc/matmul.cu``). The TPU
-kernels' grid is ``M // bm``, so they leave the rows past
-``(M // bm) * bm`` unwritten; the port computes every row.
+``cur`` and ``noacc`` run the ``mma.sync`` mainloop of ``csrc/matmul.cu``
+(a 128 x 128 tile, 128 x 64 for N <= 64, K in slices of 32). ``ws`` and
+``ep`` run the TMA-fed ``wgmma`` mainloop of ``csrc/matmul_sm90.cu`` (K in
+slices of 64), whose tile, ring depth, grid and shared memory come from
+:func:`matmul_geometry`; the C side refuses a geometry it has no instance
+of. The TPU's ``bm`` and ``bn`` are VMEM tile sizes; the port does not
+take them. The TPU kernels' grid is ``M // bm``, so they leave the rows
+past ``(M // bm) * bm`` unwritten; the port computes every row.
 
 Wrapper rules as in ``nms.py``: the inputs are checked on any device (bf16,
 2-D, contiguous, matching K, K and N multiples of 8 so that every row
@@ -30,6 +34,7 @@ and each launch is counted under ``matmul_<variant>``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -37,13 +42,43 @@ import torch
 from ._launch import (check_inputs as _check_inputs, count as _count,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
+from .attention import SMEM_BLOCK_MAX, SMS
 
-__all__ = ['VARIANTS', 'matmul', 'matmul_reference', 'matmul_cur',
+__all__ = ['VARIANTS', 'SM90_VARIANTS', 'SM90_BN', 'MatmulGeometry',
+           'matmul_geometry', 'matmul', 'matmul_reference', 'matmul_cur',
            'matmul_noacc', 'matmul_ws', 'matmul_ep']
 
 VARIANTS = ('cur', 'noacc', 'ws', 'ep')
+# the variants on the TMA / wgmma mainloop (csrc/matmul_sm90.cu)
+SM90_VARIANTS = ('ws', 'ep')
 # the kernels take M, N and K as 32-bit ints
 _MAX_DIM = 2 ** 31 - 1
+
+# The instances csrc/matmul_sm90.cu builds (its INSTANCES table):
+# (variant, BM, BN) -> (the most ring stages, blocks an SM its registers
+# are bounded for). BM is 64 a consumer warpgroup.
+_INSTANCES = {
+    ('ws', 128, 64): (4, 2), ('ws', 128, 128): (3, 2),
+    ('ws', 64, 256): (2, 2), ('ws', 128, 256): (4, 1),
+    ('ep', 128, 64): (8, 1), ('ep', 128, 128): (6, 1),
+    ('ep', 128, 256): (4, 1),
+}
+SM90_BN = (64, 128, 256)
+# ws takes its 128 x 256 tile (one block an SM) from this many K slices on;
+# below, 64 x 256 tiles two blocks an SM, whose loads and stores overlap
+_WS_DEEP = 8
+_BK = 64                    # K slice: 64 bf16, one 128-byte swizzled row
+_ROW = 128                  # bytes of a swizzled shared-memory row
+_ALIGN = 1024               # the 128-byte swizzle's period; slack for it
+_SM_SMEM = 233472           # shared memory of an SM (228 KB)
+_BLOCK_RESERVED = 1024      # shared memory the system keeps a block
+
+MatmulGeometry = collections.namedtuple(
+    'MatmulGeometry', 'bm bn bk stages grid smem per_sm tiles')
+MatmulGeometry.__doc__ = (
+    'Launch geometry of a ws / ep kernel: the tile (bm, bn, bk), the ring '
+    'stages, the grid, the bytes of shared memory a block, the blocks an SM '
+    'and the output tiles.')
 
 
 def matmul_reference(a, b):
@@ -72,12 +107,78 @@ def _check(kernel, a, b, variant):
              '%s: a and b must be contiguous' % kernel)
 
 
+def _smem_bytes(variant, bm, bn, stages):
+    """The kernel's layout (``layout_bytes``): alignment slack, the ring of
+    ``stages`` stages (a BM x 64 A box and a 64 x BN B slice, 128 bytes a
+    row), the bf16 staging (ws: the BM x BN tile over the drained ring; ep:
+    two 64 x 64 boxes a warpgroup beside it), and a full and an empty
+    mbarrier a stage."""
+    ring = stages * (bm + bn) * _ROW
+    if variant == 'ep':
+        region = ring + 2 * bm * 64 * 2
+    else:
+        region = max(ring, bm * bn * 2)
+    return _ALIGN + region + 16 * stages
+
+
+def _pick_tile(variant, k, n):
+    """(BM, BN): the smallest built BN that covers N (one tile across N, so
+    A is read once), 256 past it; BM 128, but 64 for ws's BN 256 below
+    :data:`_WS_DEEP` K slices."""
+    bn = next((b for b in SM90_BN if n <= b), SM90_BN[-1])
+    if variant == 'ws' and bn == 256 and -(-k // _BK) < _WS_DEEP:
+        return 64, bn
+    return 128, bn
+
+
+def matmul_geometry(variant, m, k, n):
+    """Launch geometry of the ``ws`` or ``ep`` kernel for ``A`` (M, K) .
+    ``B`` (K, N), as a :class:`MatmulGeometry`.
+
+    The tile from :func:`_pick_tile`, the ring's depth from the instance.
+    ``ws`` takes one block a tile (grid = tiles) and a ring no deeper than
+    the tile's K slices, so that at K = 64 its staging tile alone sets the
+    shared memory; ``ep`` takes the instance's full ring and a persistent
+    grid of min(tiles, SMS x blocks an SM). Blocks an SM are the fewer of
+    what the registers are bounded for and what the shared memory allows."""
+    _require(variant in SM90_VARIANTS, 'matmul_geometry: variant %r is not '
+             'on the wgmma mainloop (have %s)'
+             % (variant, ', '.join(SM90_VARIANTS)))
+    bm, bn = _pick_tile(variant, k, n)
+    most, reg_blocks = _INSTANCES[(variant, bm, bn)]
+    stages = most if variant == 'ep' else min(most, -(-k // _BK))
+    smem = _smem_bytes(variant, bm, bn, stages)
+    per_sm = min(reg_blocks, _SM_SMEM // (smem + _BLOCK_RESERVED))
+    tiles = -(-m // bm) * -(-n // bn)
+    grid = tiles if variant == 'ws' else min(tiles, SMS * per_sm)
+    assert smem <= SMEM_BLOCK_MAX and per_sm >= 1
+    return MatmulGeometry(bm, bn, _BK, stages, grid, smem, per_sm, tiles)
+
+
 def _lib(variant):
     from . import _build
-    fn = getattr(_build.load('matmul'), 'mx_matmul_' + variant)
+    if variant not in SM90_VARIANTS:
+        fn = getattr(_build.load('matmul'), 'mx_matmul_' + variant)
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+        return fn
+    lib = _build.load('matmul_sm90')
+    fn = getattr(lib, 'mx_matmul_' + variant)
     if fn.argtypes is None:
+        lib.mx_matmul_sm90_smem.restype = ctypes.c_int
+        lib.mx_matmul_sm90_smem.argtypes = [ctypes.c_int] * 4
+        for (v, bm, bn), (most, _) in _INSTANCES.items():
+            for stages in range(1, most + 1):
+                built = lib.mx_matmul_sm90_smem(int(v == 'ep'), bm, bn,
+                                                stages)
+                want = _smem_bytes(v, bm, bn, stages)
+                _require(built == want, 'matmul_%s: matmul_geometry gives '
+                         '%d bytes at BM %d BN %d and %d stages, the kernel '
+                         'takes %d' % (v, want, bm, bn, stages, built))
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
     return fn
 
@@ -103,8 +204,12 @@ def matmul(a, b, variant='cur', out=None):
     if m == 0 or n == 0:
         return out
     device = a.device
+    k = a.shape[1]
+    geometry = ()
+    if variant in SM90_VARIANTS:
+        geometry = matmul_geometry(variant, m, k, n)[:6]
     with torch.cuda.device(device):
-        err = _lib(variant)(_ptr(a), _ptr(b), _ptr(out), m, n, a.shape[1],
+        err = _lib(variant)(_ptr(a), _ptr(b), _ptr(out), m, n, k, *geometry,
                             _stream(device))
     _raise_on(kernel, err)
     _count(kernel)

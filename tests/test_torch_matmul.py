@@ -24,12 +24,17 @@ them (``test_tail_rows``). ``pallas_ep`` goes through ``emit_pipeline``,
 which asks for the TPU generation; the test patches that one function to
 answer 5 while it runs.
 
-The CUDA kernels (``csrc/matmul.cu``) run only on the card: the last test
-is marked ``cuda`` and skips here.
+The CUDA kernels (``csrc/matmul.cu`` for ``cur`` and ``noacc``,
+``csrc/matmul_sm90.cu`` for ``ws`` and ``ep``) run only on the card: the
+last test is marked ``cuda`` and skips here. What surrounds them here is
+the launch geometry of ``ws`` and ``ep`` (``matmul_geometry``), held to
+the kernel's layout and instance table, and a mirror of ``ep``'s tile
+walk.
 """
 import functools
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -39,7 +44,9 @@ import jax.numpy as jnp
 from jax._src.pallas.mosaic import pipeline as _pipeline
 from jax.experimental.pallas import tpu as pltpu
 
+from chip_smoke import MATMUL_ODD
 from mxnet_tpu_torch.ops import kernels
+from mxnet_tpu_torch.ops.kernels import attention as port_attention
 from mxnet_tpu_torch.tools import probe_matmul_pipeline as port_probe
 
 torch.set_num_threads(1)
@@ -218,6 +225,168 @@ def test_wrapper_refuses(what, a, b, variant):
         kernels.matmul(a, b, variant)
 
 
+@pytest.mark.parametrize('what,a,b,variant,out', [
+    ('dtype', torch.zeros(16, 64), _bf16(64, 64), 'ws', None),
+    ('rank', _bf16(16, 64), _bf16(1, 64, 64), 'ep', None),
+    ('K mismatch', _bf16(16, 64), _bf16(72, 64), 'ws', None),
+    ('N not a multiple of 8', _bf16(16, 64), _bf16(64, 100), 'ep', None),
+    ('K not a multiple of 8', _bf16(16, 4), _bf16(4, 8), 'ws', None),
+    ('not contiguous', _bf16(16, 64), _bf16(64, 64).t(), 'ep', None),
+    ('out shape', _bf16(16, 64), _bf16(64, 64), 'ws', _bf16(16, 72)),
+    ('out shape', _bf16(16, 64), _bf16(64, 64), 'ep', _bf16(64, 16)),
+])
+def test_wgmma_variants_refuse(what, a, b, variant, out):
+    """``ws`` and ``ep`` refuse what every variant refused before they moved
+    to the wgmma mainloop."""
+    with pytest.raises(ValueError):
+        kernels.matmul(a, b, variant, out=out)
+
+
+_matmul = importlib.import_module('mxnet_tpu_torch.ops.kernels.matmul')
+_SM90_SRC = os.path.join(os.path.dirname(_matmul.__file__), 'csrc',
+                         'matmul_sm90.cu')
+GEOMETRY_SHAPES = [tuple(s) for s in port_probe.SHAPES] + list(MATMUL_ODD)
+
+
+def _gid(shape):
+    return 'M%d-K%d-N%d' % shape
+
+
+@pytest.mark.parametrize('variant', ('ws', 'ep'))
+@pytest.mark.parametrize('shape', GEOMETRY_SHAPES, ids=_gid)
+def test_matmul_geometry(shape, variant):
+    """At the probe's eight shapes and every odd shape of chip_smoke: a
+    built instance, shared memory within a block's 232,448 bytes and the
+    blocks an SM within the SM's 228 KB; ws one block a tile with a ring no
+    deeper than the tile's K slices, ep a persistent grid of min(tiles, 132
+    x blocks an SM) and a ring of at least 4 stages and 48 KB."""
+    m, k, n = shape
+    g = kernels.matmul_geometry(variant, m, k, n)
+    assert (variant, g.bm, g.bn) in _matmul._INSTANCES
+    most, reg_blocks = _matmul._INSTANCES[(variant, g.bm, g.bn)]
+    assert g.bk == 64 and g.bn in _matmul.SM90_BN and g.bm in (64, 128)
+    # BN covers N where an instance does (A is read once)
+    assert g.bn >= n or g.bn == 256
+    assert g.smem == _matmul._smem_bytes(variant, g.bm, g.bn, g.stages)
+    assert g.smem <= port_attention.SMEM_BLOCK_MAX == 232448
+    assert 1 <= g.per_sm <= reg_blocks
+    assert g.per_sm * (g.smem + 1024) <= 233472
+    assert g.tiles == -(-m // g.bm) * -(-n // g.bn)
+    kt = -(-k // 64)
+    stage = (g.bm + g.bn) * 128
+    if variant == 'ws':
+        assert g.grid == g.tiles
+        assert g.stages == min(most, kt)
+        # the staging tile overlays the drained ring
+        assert g.smem == 1024 + max(g.stages * stage, g.bm * g.bn * 2) + (
+            16 * g.stages)
+    else:
+        assert g.grid == min(g.tiles, 132 * g.per_sm)
+        assert g.stages == most >= 4 and g.stages * stage >= 48 * 1024
+        # two 64 x 64 bf16 staging boxes a consumer warpgroup
+        assert g.smem == 1024 + g.stages * stage + 2 * g.bm * 64 * 2 + (
+            16 * g.stages)
+
+
+@pytest.mark.parametrize('shape,ws,ep', [
+    # (M, K, N): ws (bm, bn, stages, per_sm), ep (bm, bn, stages, grid)
+    ((401408, 64, 256), (64, 256, 1, 2), (128, 256, 4, 132)),
+    ((401408, 256, 64), (128, 64, 4, 2), (128, 64, 8, 132)),
+    ((100352, 512, 128), (128, 128, 3, 2), (128, 128, 6, 132)),
+    ((100352, 128, 512), (64, 256, 2, 2), (128, 256, 4, 132)),
+    ((6272, 512, 2048), (128, 256, 4, 1), (128, 256, 4, 132)),
+    ((6272, 2048, 512), (128, 256, 4, 1), (128, 256, 4, 98)),
+    ((1, 64, 256), (64, 256, 1, 2), (128, 256, 4, 1)),
+], ids=lambda x: str(x))
+def test_matmul_geometry_picks(shape, ws, ep):
+    """BN covers N up to 256, so at probe shape 1 each variant reads A once;
+    ws takes 64 x 256 tiles two blocks an SM below 8 K slices (at K 64 a
+    one-stage ring) and 128 x 256 tiles one block an SM from 8 on; ep
+    takes 128-row tiles and one block an SM."""
+    g = kernels.matmul_geometry('ws', *shape)
+    assert (g.bm, g.bn, g.stages, g.per_sm) == ws
+    g = kernels.matmul_geometry('ep', *shape)
+    assert (g.bm, g.bn, g.stages, g.grid) == ep
+
+
+@pytest.mark.parametrize('variant', ('cur', 'noacc', 'tiled'))
+def test_matmul_geometry_refuses_other_variants(variant):
+    with pytest.raises(ValueError, match='wgmma'):
+        kernels.matmul_geometry(variant, 128, 64, 64)
+
+
+def test_instances_mirror_the_source():
+    """``_INSTANCES`` is the C table ``INSTANCES`` (variant, BM, BN, stages,
+    blocks an SM), each entry launched by the kernel of its template
+    arguments (BN, consumer warpgroups = BM / 64, blocks an SM), and the
+    layout formula is the C one."""
+    src = open(_SM90_SRC).read()
+    table = re.search(r'INSTANCES\[\] = \{(.*?)\};', src, re.S).group(1)
+    rows = [tuple(int(x) for x in r.split(','))
+            for r in re.findall(r'\{([\d, ]+)\}', table)]
+    assert {(('ws', 'ep')[ep], bm, bn): (stages, blocks)
+            for ep, bm, bn, stages, blocks in rows} == _matmul._INSTANCES
+    kernels_of = re.findall(r'case (\d+): return matmul_(ws|ep)_kernel<(\d+), '
+                            r'(\d+), (\d+)>;', src)
+    assert len(kernels_of) == len(rows)
+    for i, v, bn, cwg, blocks in kernels_of:
+        ep, bm, bn_, _, blocks_ = rows[int(i)]
+        assert (('ws', 'ep')[ep], bm, bn_, blocks_) == (
+            v, 64 * int(cwg), int(bn), int(blocks))
+    assert 'ALIGN + region_bytes(ep, bm, bn, stages) + 16 * stages' in src
+
+
+def _ep_walk(m, k, n):
+    """Mirror of the ep kernel's loops (``gemm<BN, CWG, true>``): block b
+    takes tiles b, b + grid, ...; tile t sits at (t % tiles_m, t //
+    tiles_m); the producer walks (tile, k slice) pairs through the ring of
+    ``stages`` stages with a phase bit that flips at each wrap, and the
+    consumers walk the same pairs. Returns {block: [(m0, n0), ...]} and
+    each block's (stage, phase, m0, n0, k0) sequence."""
+    g = kernels.matmul_geometry('ep', m, k, n)
+    tiles_m = -(-m // g.bm)
+    kt = -(-k // g.bk)
+    walk, ring = {}, {}
+    for b in range(g.grid):
+        stage = phase = 0
+        seq = []
+        for t in range(b, g.tiles, g.grid):
+            m0, n0 = (t % tiles_m) * g.bm, (t // tiles_m) * g.bn
+            walk.setdefault(b, []).append((m0, n0))
+            for s in range(kt):
+                seq.append((stage, phase, m0, n0, s * g.bk))
+                stage += 1
+                if stage == g.stages:
+                    stage, phase = 0, phase ^ 1
+        ring[b] = seq
+    return g, walk, ring
+
+
+@pytest.mark.parametrize('shape', [tuple(s) for s in port_probe.SHAPES] + [
+    (1, 512, 1024), (515, 200, 96), (6349, 72, 136)], ids=_gid)
+def test_ep_tile_walk(shape):
+    """Every output tile is visited exactly once; each block walks its tiles
+    in (n outer, m inner) order; at any moment the blocks work on a window
+    of consecutive tiles (sharing B's tile in L2); a stage is refilled only
+    after the ring wrapped, with the other phase."""
+    m, k, n = shape
+    g, walk, ring = _ep_walk(m, k, n)
+    seen = [t for tiles in walk.values() for t in tiles]
+    want = [(tm * g.bm, tn * g.bn) for tn in range(-(-n // g.bn))
+            for tm in range(-(-m // g.bm))]
+    assert sorted(seen) == sorted(want) and len(set(seen)) == g.tiles
+    for tiles in walk.values():
+        assert tiles == sorted(tiles, key=lambda mn: (mn[1], mn[0]))
+    # the i-th tile of every block lies within one window of grid tiles
+    rounds = max(len(t) for t in walk.values())
+    for i in range(rounds):
+        ids = [want.index(t[i]) for t in walk.values() if len(t) > i]
+        assert max(ids) - min(ids) < g.grid
+    for seq in ring.values():
+        for j, (stage, phase, *_) in enumerate(seq):
+            assert (stage, phase) == (j % g.stages, (j // g.stages) % 2)
+
+
 def test_cpu_run_counts_no_launch():
     kernels.reset_launch_counts()
     a, b = _torch_in(256, 64, 128)
@@ -287,14 +456,17 @@ def test_probe_raises_without_a_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_version_on_card():
-    """``csrc/matmul.cu`` on the card at odd shapes: each variant within
+    """``csrc/matmul.cu`` and ``csrc/matmul_sm90.cu`` on the card at odd
+    shapes, every instance of ``ws`` and ``ep`` among them: each variant within
     the float64 bound and within twice it of the plain version, every row
     of a NaN-filled output written; one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels are CUDA C++ for sm_90a '
                     'and have no CPU mode')
     for m, k, n in [(1, 64, 256), (6349, 512, 2048), (300, 72, 64),
-                    (129, 1024, 64), (257, 2048, 520), (1000, 256, 8)]:
+                    (129, 1024, 64), (257, 2048, 520), (1000, 256, 8),
+                    (1024, 64, 128), (515, 200, 96), (131, 256, 256),
+                    (1, 512, 1024)]:
         a, b = (t.cuda() for t in _torch_in(m, k, n))
         y64, allowed = port_probe.float64_bound(a, b)
         plain = kernels.matmul_reference(a, b)
