@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them) and build every kernel from ``csrc/`` with nvcc, one
      process per source, all started together; the flash forward's
-     instances and the ws / ep kernels must spill no register (``-Xptxas
-     -v``), and the ws / ep kernels' SASS (``cuobjdump -sass``) must hold
-     HGMMA and UTMALDG (counted with UTMASTG), or the run fails;
+     instances and the four matmul variants' kernels must spill no
+     register (``-Xptxas -v``), and every matmul kernel's SASS
+     (``cuobjdump -sass``) must hold HGMMA and UTMALDG (counted with
+     UTMASTG, of which noacc's must hold none), or the run fails;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -94,10 +95,12 @@ Phases, in order; any failure exits non-zero:
      4); then the nms kernel bitwise against its plain version on that
      batch's inputs and on its first image, and both timed there with
      the bound and the latency floor;
-  7. the matmul probe slice. The geometry of ws and ep at each probe
-     shape (``matmul_geometry``), then the four bf16 tensor-core kernels
-     (cur, noacc, ws, ep) at odd shapes (M of 1 and 6272 + 77, N of 8 and
-     64, K of 8, 72 and 200, one 64-deep slice, ...) into NaN-filled
+  7. the matmul probe slice. The geometry of the four variants at each
+     probe shape (``matmul_geometry``), then the four bf16 tensor-core
+     kernels (cur, noacc, ws, ep; all on the TMA / wgmma mainloop of
+     ``csrc/matmul_sm90.cu``, whose SASS phase 1 checks) at odd shapes (M
+     of 1 and 6272 + 77, N of 8 and 64, K of 8, 72 and 200, one 64-deep
+     slice, N past a 256 tile, ...) into NaN-filled
      outputs: each within the float64
      bound |y - y64| <= ulp_bf16(|y64|) + K 2^-23 (|a| @ |b|), and within
      twice it of the plain version; cuBLAS (``torch.matmul``) held to the
@@ -1853,22 +1856,29 @@ SSD_GROUPS = (('BN apply (epilogue kernel)', ('epilogue_',), ()),
 
 # odd shapes of the matmul kernels' check: M of 1 and past a tile (6272 +
 # 77), N of 8, 40 and 64 (the 128 x 64 tile), K of 8, 72 and 2048, N past
-# a 128 tile (136, 520); then for the wgmma mainloop's instances
-# (matmul_geometry): one 64-deep K slice with M a multiple of 128 (BN 128),
-# K 200 over four slices, the last one partly past K (BN 128 at N 96), N
-# 256 with M past a tile, M of 1 at N 1024 (four BN 256 tiles for ws; N
-# 2048 reaches ep's BN 256), and more tiles than ep has blocks at BN 64 and
-# 128, so that each block walks several tiles through its ring and its
-# staging buffers
+# a 128 tile (136, 520); then for the instances (matmul_geometry): one
+# 64-deep K slice with M a multiple of 128 (BN 128), K 200 over four
+# slices, the last one partly past K (BN 128 at N 96), N 256 with M past a
+# tile, M of 1 at N 1024 (four BN 256 tiles for the one-block-a-tile
+# variants; N 2048 reaches ep's BN 256), and more tiles than ep has blocks
+# at BN 64 and 128, so that each block walks several tiles through its
+# ring and its staging buffers; last, for cur and noacc's (m, n) walk and
+# masked stores: M past a tile with N past BN 256 (cur's 64 x 256 tiles in
+# three columns, noacc's 128 x 128 in five, the last 8 wide), M of 77 at K
+# 1024 and N 40 (one 128 x 64 tile masked at both edges), and one 64-deep
+# slice with M and N past the tile
 MATMUL_ODD = ((1, 64, 256), (6272 + 77, 512, 2048), (300, 72, 64),
               (6272 + 77, 72, 136), (129, 1024, 64), (257, 2048, 520),
               (1000, 256, 8), (77, 8, 40), (1024, 64, 128), (515, 200, 96),
               (131, 256, 256), (1, 512, 1024), (40000 + 77, 128, 64),
-              (20000 + 3, 200, 128))
-# instructions the ws and ep kernels must contain (cuobjdump -sass): the
-# wgmma, the TMA load and the TMA store
+              (20000 + 3, 200, 128), (6272 + 77, 72, 520), (77, 1024, 40),
+              (4096 + 13, 64, 264))
+# instructions counted in each kernel's SASS (cuobjdump -sass): the wgmma,
+# the TMA load and the TMA store. Every kernel must hold the first two;
+# noacc, whose Y leaves from registers, must hold no TMA store.
 SM90_SASS = ('HGMMA', 'UTMALDG', 'UTMASTG')
-SM90_KERNELS = ('matmul_ws_kernel', 'matmul_ep_kernel')
+SM90_KERNELS = ('matmul_ws_kernel', 'matmul_ep_kernel', 'matmul_cur_kernel',
+                'matmul_noacc_kernel')
 
 
 def check_matmul_kernels(torch, kernels, probe, device, shapes=MATMUL_ODD):
@@ -1910,13 +1920,13 @@ def check_matmul_kernels(torch, kernels, probe, device, shapes=MATMUL_ODD):
 
 
 def check_sm90_build(build, ptxas):
-    """The ws and ep kernels of ``csrc/matmul_sm90.cu`` as built: the
+    """The four variants' kernels of ``csrc/matmul_sm90.cu`` as built: the
     spills in ptxas's lines for that source (``ptxas``; empty when the
     library was current and not rebuilt), and the count of each of
     :data:`SM90_SASS` in each kernel's SASS (``cuobjdump -sass`` from
-    nvcc's toolkit). Raises when a kernel spills or lacks HGMMA or
-    UTMALDG, so an mma.sync build cannot pass. Returns {kernel:
-    {instruction: count}}."""
+    nvcc's toolkit). Raises when a kernel spills, lacks HGMMA or UTMALDG,
+    or, in noacc, holds a UTMASTG. Returns {kernel: {instruction:
+    count}}."""
     spills = [ln for ln in ptxas if any(int(n) for n in re.findall(
         r'(\d+) bytes spill (?:stores|loads)', ln))]
     if spills:
@@ -1938,10 +1948,12 @@ def check_sm90_build(build, ptxas):
                 counts[fn][op] += len(re.findall(r'\b%s\b' % op, line))
     missing = [k for k in SM90_KERNELS if not any(k in f for f in counts)]
     short = {f: c for f, c in counts.items()
-             if not (c['HGMMA'] and c['UTMALDG'])}
+             if not (c['HGMMA'] and c['UTMALDG'])
+             or ('matmul_noacc_kernel' in f and c['UTMASTG'])}
     if missing or short:
         raise AssertionError('matmul_sm90 SASS: kernels missing %s, without '
-                             'HGMMA or UTMALDG %s' % (missing, short))
+                             'HGMMA or UTMALDG or (noacc) with UTMASTG %s'
+                             % (missing, short))
     return counts
 
 
@@ -2014,10 +2026,10 @@ KERNELS = {
         source='mxnet_tpu_torch/ops/kernels/csrc/nms.cu',
         replaces='mxnet_tpu/ops/pallas/nms.py:29'),
     'matmul_cur': dict(
-        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul_sm90.cu',
         replaces='tools/probe_matmul_pipeline.py:41'),
     'matmul_noacc': dict(
-        source='mxnet_tpu_torch/ops/kernels/csrc/matmul.cu',
+        source='mxnet_tpu_torch/ops/kernels/csrc/matmul_sm90.cu',
         replaces='tools/probe_matmul_pipeline.py:65'),
     'matmul_ws': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/matmul_sm90.cu',
@@ -2247,7 +2259,7 @@ def main():
     for m, k, n in probe.SHAPES:
         log('geometry M=%d K=%d N=%d: %s' % (m, k, n, {
             v: tuple(kernels.matmul_geometry(v, m, k, n))
-            for v in ('ws', 'ep')}))
+            for v in kernels.MATMUL_VARIANTS}))
     errs.update(check_matmul_kernels(torch, kernels, probe, cuda))
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()

@@ -17,10 +17,8 @@ on the card:
     tiles through one copy ring that runs across tiles
     (``emit_pipeline``).
 
-``cur`` and ``noacc`` run the ``mma.sync`` mainloop of ``csrc/matmul.cu``
-(a 128 x 128 tile, 128 x 64 for N <= 64, K in slices of 32). ``ws`` and
-``ep`` run the TMA-fed ``wgmma`` mainloop of ``csrc/matmul_sm90.cu`` (K in
-slices of 64), whose tile, ring depth, grid and shared memory come from
+All four run the TMA-fed ``wgmma`` mainloop of ``csrc/matmul_sm90.cu`` (K
+in slices of 64), whose tile, ring depth, grid and shared memory come from
 :func:`matmul_geometry`; the C side refuses a geometry it has no instance
 of. The TPU's ``bm`` and ``bn`` are VMEM tile sizes; the port does not
 take them. The TPU kernels' grid is ``M // bm``, so they leave the rows
@@ -44,13 +42,13 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
                       require as _require, stream as _stream)
 from .attention import SMEM_BLOCK_MAX, SMS
 
-__all__ = ['VARIANTS', 'SM90_VARIANTS', 'SM90_BN', 'MatmulGeometry',
-           'matmul_geometry', 'matmul', 'matmul_reference', 'matmul_cur',
-           'matmul_noacc', 'matmul_ws', 'matmul_ep']
+__all__ = ['VARIANTS', 'SM90_BN', 'MatmulGeometry', 'matmul_geometry',
+           'matmul', 'matmul_reference', 'matmul_cur', 'matmul_noacc',
+           'matmul_ws', 'matmul_ep']
 
 VARIANTS = ('cur', 'noacc', 'ws', 'ep')
-# the variants on the TMA / wgmma mainloop (csrc/matmul_sm90.cu)
-SM90_VARIANTS = ('ws', 'ep')
+# the variants as csrc/matmul_sm90.cu numbers them (its Variant enum)
+_C_VARIANTS = ('ws', 'ep', 'cur', 'noacc')
 # the kernels take M, N and K as 32-bit ints
 _MAX_DIM = 2 ** 31 - 1
 
@@ -62,11 +60,16 @@ _INSTANCES = {
     ('ws', 64, 256): (2, 2), ('ws', 128, 256): (4, 1),
     ('ep', 128, 64): (8, 1), ('ep', 128, 128): (6, 1),
     ('ep', 128, 256): (4, 1),
+    ('cur', 128, 64): (4, 2), ('cur', 128, 128): (3, 2),
+    ('cur', 64, 256): (2, 2), ('cur', 128, 256): (4, 1),
+    ('noacc', 128, 64): (4, 2), ('noacc', 128, 128): (3, 2),
+    ('noacc', 128, 256): (4, 1),
 }
 SM90_BN = (64, 128, 256)
-# ws takes its 128 x 256 tile (one block an SM) from this many K slices on;
-# below, 64 x 256 tiles two blocks an SM, whose loads and stores overlap
-_WS_DEEP = 8
+# ws, cur and noacc take their 128 x 256 tile (one block an SM) from this
+# many K slices on; below, tiles two blocks an SM, whose loads and stores
+# overlap
+_DEEP = 8
 _BK = 64                    # K slice: 64 bf16, one 128-byte swizzled row
 _ROW = 128                  # bytes of a swizzled shared-memory row
 _ALIGN = 1024               # the 128-byte swizzle's period; slack for it
@@ -76,7 +79,7 @@ _BLOCK_RESERVED = 1024      # shared memory the system keeps a block
 MatmulGeometry = collections.namedtuple(
     'MatmulGeometry', 'bm bn bk stages grid smem per_sm tiles')
 MatmulGeometry.__doc__ = (
-    'Launch geometry of a ws / ep kernel: the tile (bm, bn, bk), the ring '
+    'Launch geometry of a matmul kernel: the tile (bm, bn, bk), the ring '
     'stages, the grid, the bytes of shared memory a block, the blocks an SM '
     'and the output tiles.')
 
@@ -110,60 +113,55 @@ def _check(kernel, a, b, variant):
 def _smem_bytes(variant, bm, bn, stages):
     """The kernel's layout (``layout_bytes``): alignment slack, the ring of
     ``stages`` stages (a BM x 64 A box and a 64 x BN B slice, 128 bytes a
-    row), the bf16 staging (ws: the BM x BN tile over the drained ring; ep:
-    two 64 x 64 boxes a warpgroup beside it), and a full and an empty
-    mbarrier a stage."""
+    row), the staging (ws: the BM x BN bf16 tile over the drained ring;
+    cur: the float32 tile over it; ep: two 64 x 64 bf16 boxes a warpgroup
+    beside it; noacc: none), and a full and an empty mbarrier a stage."""
     ring = stages * (bm + bn) * _ROW
     if variant == 'ep':
         region = ring + 2 * bm * 64 * 2
     else:
-        region = max(ring, bm * bn * 2)
+        region = max(ring, bm * bn * {'ws': 2, 'cur': 4, 'noacc': 0}[variant])
     return _ALIGN + region + 16 * stages
 
 
 def _pick_tile(variant, k, n):
     """(BM, BN): the smallest built BN that covers N (one tile across N, so
-    A is read once), 256 past it; BM 128, but 64 for ws's BN 256 below
-    :data:`_WS_DEEP` K slices."""
+    A is read once), 256 past it, with BM 128. Below :data:`_DEEP` K slices
+    the one-block-a-tile variants take two blocks an SM in place of BN
+    256: ws and cur a 64 x 256 tile, noacc (no staging) 128 x 128, which
+    ran faster there (probe shapes 1, 4 and 6)."""
     bn = next((b for b in SM90_BN if n <= b), SM90_BN[-1])
-    if variant == 'ws' and bn == 256 and -(-k // _BK) < _WS_DEEP:
-        return 64, bn
+    if variant != 'ep' and bn == 256 and -(-k // _BK) < _DEEP:
+        return (128, 128) if variant == 'noacc' else (64, 256)
     return 128, bn
 
 
 def matmul_geometry(variant, m, k, n):
-    """Launch geometry of the ``ws`` or ``ep`` kernel for ``A`` (M, K) .
-    ``B`` (K, N), as a :class:`MatmulGeometry`.
+    """Launch geometry of the ``variant`` kernel for ``A`` (M, K) . ``B``
+    (K, N), as a :class:`MatmulGeometry`.
 
     The tile from :func:`_pick_tile`, the ring's depth from the instance.
-    ``ws`` takes one block a tile (grid = tiles) and a ring no deeper than
-    the tile's K slices, so that at K = 64 its staging tile alone sets the
-    shared memory; ``ep`` takes the instance's full ring and a persistent
-    grid of min(tiles, SMS x blocks an SM). Blocks an SM are the fewer of
-    what the registers are bounded for and what the shared memory allows."""
-    _require(variant in SM90_VARIANTS, 'matmul_geometry: variant %r is not '
-             'on the wgmma mainloop (have %s)'
-             % (variant, ', '.join(SM90_VARIANTS)))
+    ``ws``, ``cur`` and ``noacc`` take one block a tile (grid = tiles) and
+    a ring no deeper than the tile's K slices, so that at K = 64 the
+    staging tile (ws, cur) sets the shared memory; ``ep`` takes the
+    instance's full ring and a persistent grid of min(tiles, SMS x blocks
+    an SM). Blocks an SM are the fewer of what the registers are bounded
+    for and what the shared memory allows."""
+    _require(variant in VARIANTS, 'matmul_geometry: unknown variant %r '
+             '(have %s)' % (variant, ', '.join(VARIANTS)))
     bm, bn = _pick_tile(variant, k, n)
     most, reg_blocks = _INSTANCES[(variant, bm, bn)]
     stages = most if variant == 'ep' else min(most, -(-k // _BK))
     smem = _smem_bytes(variant, bm, bn, stages)
     per_sm = min(reg_blocks, _SM_SMEM // (smem + _BLOCK_RESERVED))
     tiles = -(-m // bm) * -(-n // bn)
-    grid = tiles if variant == 'ws' else min(tiles, SMS * per_sm)
+    grid = min(tiles, SMS * per_sm) if variant == 'ep' else tiles
     assert smem <= SMEM_BLOCK_MAX and per_sm >= 1
     return MatmulGeometry(bm, bn, _BK, stages, grid, smem, per_sm, tiles)
 
 
 def _lib(variant):
     from . import _build
-    if variant not in SM90_VARIANTS:
-        fn = getattr(_build.load('matmul'), 'mx_matmul_' + variant)
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-        return fn
     lib = _build.load('matmul_sm90')
     fn = getattr(lib, 'mx_matmul_' + variant)
     if fn.argtypes is None:
@@ -171,8 +169,8 @@ def _lib(variant):
         lib.mx_matmul_sm90_smem.argtypes = [ctypes.c_int] * 4
         for (v, bm, bn), (most, _) in _INSTANCES.items():
             for stages in range(1, most + 1):
-                built = lib.mx_matmul_sm90_smem(int(v == 'ep'), bm, bn,
-                                                stages)
+                built = lib.mx_matmul_sm90_smem(_C_VARIANTS.index(v), bm,
+                                                bn, stages)
                 want = _smem_bytes(v, bm, bn, stages)
                 _require(built == want, 'matmul_%s: matmul_geometry gives '
                          '%d bytes at BM %d BN %d and %d stages, the kernel '
@@ -203,11 +201,8 @@ def matmul(a, b, variant='cur', out=None):
                   dict.fromkeys(('a', 'b', 'y'), torch.bfloat16))
     if m == 0 or n == 0:
         return out
-    device = a.device
-    k = a.shape[1]
-    geometry = ()
-    if variant in SM90_VARIANTS:
-        geometry = matmul_geometry(variant, m, k, n)[:6]
+    device, k = a.device, a.shape[1]
+    geometry = matmul_geometry(variant, m, k, n)[:6]
     with torch.cuda.device(device):
         err = _lib(variant)(_ptr(a), _ptr(b), _ptr(out), m, n, k, *geometry,
                             _stream(device))

@@ -24,12 +24,12 @@ them (``test_tail_rows``). ``pallas_ep`` goes through ``emit_pipeline``,
 which asks for the TPU generation; the test patches that one function to
 answer 5 while it runs.
 
-The CUDA kernels (``csrc/matmul.cu`` for ``cur`` and ``noacc``,
-``csrc/matmul_sm90.cu`` for ``ws`` and ``ep``) run only on the card: the
-last test is marked ``cuda`` and skips here. What surrounds them here is
-the launch geometry of ``ws`` and ``ep`` (``matmul_geometry``), held to
-the kernel's layout and instance table, and a mirror of ``ep``'s tile
-walk.
+The CUDA kernels (all four variants in ``csrc/matmul_sm90.cu``) run only
+on the card: the last test is marked ``cuda`` and skips here. What
+surrounds them here is the launch geometry of the four variants
+(``matmul_geometry``), held to the kernel's layout and instance table, and
+mirrors of ``ep``'s tile walk, of ``cur`` and ``noacc``'s (m, n) walk, of
+``cur``'s float32 staging layout and of ``noacc``'s quad transpose.
 """
 import functools
 import importlib.util
@@ -252,88 +252,116 @@ def _gid(shape):
     return 'M%d-K%d-N%d' % shape
 
 
-@pytest.mark.parametrize('variant', ('ws', 'ep'))
+@pytest.mark.parametrize('variant', VARIANTS)
 @pytest.mark.parametrize('shape', GEOMETRY_SHAPES, ids=_gid)
 def test_matmul_geometry(shape, variant):
     """At the probe's eight shapes and every odd shape of chip_smoke: a
     built instance, shared memory within a block's 232,448 bytes and the
-    blocks an SM within the SM's 228 KB; ws one block a tile with a ring no
-    deeper than the tile's K slices, ep a persistent grid of min(tiles, 132
-    x blocks an SM) and a ring of at least 4 stages and 48 KB."""
+    blocks an SM within the SM's 228 KB; ws, cur and noacc one block a tile
+    with a ring no deeper than the tile's K slices, ep a persistent grid of
+    min(tiles, 132 x blocks an SM) and a ring of at least 4 stages and 48
+    KB."""
     m, k, n = shape
     g = kernels.matmul_geometry(variant, m, k, n)
     assert (variant, g.bm, g.bn) in _matmul._INSTANCES
     most, reg_blocks = _matmul._INSTANCES[(variant, g.bm, g.bn)]
     assert g.bk == 64 and g.bn in _matmul.SM90_BN and g.bm in (64, 128)
-    # BN covers N where an instance does (A is read once)
-    assert g.bn >= n or g.bn == 256
+    kt = -(-k // 64)
+    # BN covers N where an instance does (A is read once); noacc takes 128
+    # x 128 tiles in place of BN 256 below 8 K slices
+    if variant == 'noacc' and n > 128 and kt < 8:
+        assert (g.bm, g.bn) == (128, 128)
+    else:
+        assert g.bn >= n or g.bn == 256
     assert g.smem == _matmul._smem_bytes(variant, g.bm, g.bn, g.stages)
     assert g.smem <= port_attention.SMEM_BLOCK_MAX == 232448
     assert 1 <= g.per_sm <= reg_blocks
     assert g.per_sm * (g.smem + 1024) <= 233472
     assert g.tiles == -(-m // g.bm) * -(-n // g.bn)
-    kt = -(-k // 64)
-    stage = (g.bm + g.bn) * 128
-    if variant == 'ws':
-        assert g.grid == g.tiles
-        assert g.stages == min(most, kt)
-        # the staging tile overlays the drained ring
-        assert g.smem == 1024 + max(g.stages * stage, g.bm * g.bn * 2) + (
-            16 * g.stages)
-    else:
+    ring = g.stages * (g.bm + g.bn) * 128
+    if variant == 'ep':
         assert g.grid == min(g.tiles, 132 * g.per_sm)
-        assert g.stages == most >= 4 and g.stages * stage >= 48 * 1024
+        assert g.stages == most >= 4 and ring >= 48 * 1024
         # two 64 x 64 bf16 staging boxes a consumer warpgroup
-        assert g.smem == 1024 + g.stages * stage + 2 * g.bm * 64 * 2 + (
-            16 * g.stages)
+        assert g.smem == 1024 + ring + 2 * g.bm * 64 * 2 + 16 * g.stages
+        return
+    assert g.grid == g.tiles
+    assert g.stages == min(most, kt)
+    # ws: the bf16 tile over the drained ring; cur: the float32 tile;
+    # noacc: the ring alone
+    staged = {'ws': 2, 'cur': 4, 'noacc': 0}[variant] * g.bm * g.bn
+    assert g.smem == 1024 + max(ring, staged) + 16 * g.stages
 
 
-@pytest.mark.parametrize('shape,ws,ep', [
-    # (M, K, N): ws (bm, bn, stages, per_sm), ep (bm, bn, stages, grid)
-    ((401408, 64, 256), (64, 256, 1, 2), (128, 256, 4, 132)),
-    ((401408, 256, 64), (128, 64, 4, 2), (128, 64, 8, 132)),
-    ((100352, 512, 128), (128, 128, 3, 2), (128, 128, 6, 132)),
-    ((100352, 128, 512), (64, 256, 2, 2), (128, 256, 4, 132)),
-    ((6272, 512, 2048), (128, 256, 4, 1), (128, 256, 4, 132)),
-    ((6272, 2048, 512), (128, 256, 4, 1), (128, 256, 4, 98)),
-    ((1, 64, 256), (64, 256, 1, 2), (128, 256, 4, 1)),
+@pytest.mark.parametrize('shape,ws,ep,cur,noacc', [
+    # (M, K, N): ws, cur and noacc (bm, bn, stages, per_sm), ep (bm, bn,
+    # stages, grid)
+    ((401408, 64, 256), (64, 256, 1, 2), (128, 256, 4, 132),
+     (64, 256, 1, 2), (128, 128, 1, 2)),
+    ((401408, 256, 64), (128, 64, 4, 2), (128, 64, 8, 132),
+     (128, 64, 4, 2), (128, 64, 4, 2)),
+    ((100352, 512, 128), (128, 128, 3, 2), (128, 128, 6, 132),
+     (128, 128, 3, 2), (128, 128, 3, 2)),
+    ((100352, 128, 512), (64, 256, 2, 2), (128, 256, 4, 132),
+     (64, 256, 2, 2), (128, 128, 2, 2)),
+    ((25088, 1024, 256), (128, 256, 4, 1), (128, 256, 4, 132),
+     (128, 256, 4, 1), (128, 256, 4, 1)),
+    ((25088, 256, 1024), (64, 256, 2, 2), (128, 256, 4, 132),
+     (64, 256, 2, 2), (128, 128, 3, 2)),
+    ((6272, 512, 2048), (128, 256, 4, 1), (128, 256, 4, 132),
+     (128, 256, 4, 1), (128, 256, 4, 1)),
+    ((6272, 2048, 512), (128, 256, 4, 1), (128, 256, 4, 98),
+     (128, 256, 4, 1), (128, 256, 4, 1)),
+    ((1, 64, 256), (64, 256, 1, 2), (128, 256, 4, 1), (64, 256, 1, 2),
+     (128, 128, 1, 2)),
 ], ids=lambda x: str(x))
-def test_matmul_geometry_picks(shape, ws, ep):
-    """BN covers N up to 256, so at probe shape 1 each variant reads A once;
-    ws takes 64 x 256 tiles two blocks an SM below 8 K slices (at K 64 a
-    one-stage ring) and 128 x 256 tiles one block an SM from 8 on; ep
-    takes 128-row tiles and one block an SM."""
-    g = kernels.matmul_geometry('ws', *shape)
-    assert (g.bm, g.bn, g.stages, g.per_sm) == ws
+def test_matmul_geometry_picks(shape, ws, ep, cur, noacc):
+    """BN covers N up to 256, so at probe shape 1 each variant but noacc
+    reads A once; below 8 K slices ws and cur take 64 x 256 tiles two
+    blocks an SM (at K 64 a one-stage ring), noacc 128 x 128 tiles two
+    blocks an SM, and from 8 on all three take 128 x 256 tiles one block
+    an SM; ep takes 128-row tiles and one block an SM."""
+    for variant, want in (('ws', ws), ('cur', cur), ('noacc', noacc)):
+        g = kernels.matmul_geometry(variant, *shape)
+        assert (g.bm, g.bn, g.stages, g.per_sm) == want
     g = kernels.matmul_geometry('ep', *shape)
     assert (g.bm, g.bn, g.stages, g.grid) == ep
 
 
-@pytest.mark.parametrize('variant', ('cur', 'noacc', 'tiled'))
+@pytest.mark.parametrize('variant', ('tiled', 'splitk', 'CUR'))
 def test_matmul_geometry_refuses_other_variants(variant):
-    with pytest.raises(ValueError, match='wgmma'):
+    with pytest.raises(ValueError, match='unknown variant'):
         kernels.matmul_geometry(variant, 128, 64, 64)
 
 
 def test_instances_mirror_the_source():
     """``_INSTANCES`` is the C table ``INSTANCES`` (variant, BM, BN, stages,
-    blocks an SM), each entry launched by the kernel of its template
-    arguments (BN, consumer warpgroups = BM / 64, blocks an SM), and the
-    layout formula is the C one."""
+    blocks an SM), each entry launched by the kernel of its variant and
+    template arguments (BN, consumer warpgroups = BM / 64, blocks an SM),
+    and the layout formula is the C one."""
     src = open(_SM90_SRC).read()
+    names = ('ws', 'ep', 'cur', 'noacc')
+    assert 'enum Variant { WS = 0, EP = 1, CUR = 2, NOACC = 3 };' in src
+    assert _matmul._C_VARIANTS == names
     table = re.search(r'INSTANCES\[\] = \{(.*?)\};', src, re.S).group(1)
     rows = [tuple(int(x) for x in r.split(','))
             for r in re.findall(r'\{([\d, ]+)\}', table)]
-    assert {(('ws', 'ep')[ep], bm, bn): (stages, blocks)
-            for ep, bm, bn, stages, blocks in rows} == _matmul._INSTANCES
-    kernels_of = re.findall(r'case (\d+): return matmul_(ws|ep)_kernel<(\d+), '
+    assert {(names[v], bm, bn): (stages, blocks)
+            for v, bm, bn, stages, blocks in rows} == _matmul._INSTANCES
+    assert {names[r[0]] for r in rows} == set(VARIANTS)
+    kernels_of = re.findall(r'case (\d+): return matmul_(\w+)_kernel<(\d+), '
                             r'(\d+), (\d+)>;', src)
     assert len(kernels_of) == len(rows)
     for i, v, bn, cwg, blocks in kernels_of:
-        ep, bm, bn_, _, blocks_ = rows[int(i)]
-        assert (('ws', 'ep')[ep], bm, bn_, blocks_) == (
+        variant, bm, bn_, _, blocks_ = rows[int(i)]
+        assert (names[variant], bm, bn_, blocks_) == (
             v, 64 * int(cwg), int(bn), int(blocks))
-    assert 'ALIGN + region_bytes(ep, bm, bn, stages) + 16 * stages' in src
+    for v in names:
+        assert re.search(r'__global__ void __launch_bounds__\(Tile<BN, '
+                         r'CWG>::THREADS, BLOCKS\)\s+matmul_%s_kernel\(' % v,
+                         src)
+        assert 'gemm<BN, CWG, %s>(&ta, &tb, &ty, p);' % v.upper() in src
+    assert 'ALIGN + region_bytes(v, bm, bn, stages) + 16 * stages' in src
 
 
 def _ep_walk(m, k, n):
@@ -385,6 +413,174 @@ def test_ep_tile_walk(shape):
     for seq in ring.values():
         for j, (stage, phase, *_) in enumerate(seq):
             assert (stage, phase) == (j % g.stages, (j // g.stages) % 2)
+
+
+def _mn_walk(variant, m, k, n):
+    """Mirror of cur and noacc's loops (``gemm<BN, CWG, CUR / NOACC>``,
+    ``origin``): block b takes tile b alone (grid = tiles), at (b //
+    tiles_n, b % tiles_n); its producer and consumers walk the tile's K
+    slices through the ring with a phase bit that flips at each wrap.
+    Returns the geometry, [(m0, n0)] by block and each block's (stage,
+    phase, k0) sequence."""
+    g = kernels.matmul_geometry(variant, m, k, n)
+    tiles_n = -(-n // g.bn)
+    walk = [((b // tiles_n) * g.bm, (b % tiles_n) * g.bn)
+            for b in range(g.grid)]
+    ring = [(s % g.stages, (s // g.stages) % 2, s * g.bk)
+            for s in range(-(-k // g.bk))]
+    return g, walk, ring
+
+
+@pytest.mark.parametrize('variant', ('cur', 'noacc'))
+@pytest.mark.parametrize('shape', [tuple(s) for s in port_probe.SHAPES] + [
+    (1, 512, 1024), (515, 200, 96), (6349, 72, 520), (77, 1024, 40),
+    (4109, 64, 264)], ids=_gid)
+def test_mn_tile_walk(shape, variant):
+    """Every output tile is visited exactly once, n fastest: the blocks that
+    share an A tile (one row of tiles) are consecutive, and so run together
+    and read A from memory once; the ring's stage and phase advance as in
+    ``ep``'s walk."""
+    m, k, n = shape
+    g, walk, ring = _mn_walk(variant, m, k, n)
+    tiles_n = -(-n // g.bn)
+    want = [(tm * g.bm, tn * g.bn) for tm in range(-(-m // g.bm))
+            for tn in range(tiles_n)]
+    assert g.grid == g.tiles == len(want)
+    assert walk == want and len(set(walk)) == g.tiles
+    rows = {}
+    for b, (m0, _) in enumerate(walk):
+        rows.setdefault(m0, []).append(b)
+    for blocks in rows.values():
+        assert blocks == list(range(blocks[0], blocks[0] + tiles_n))
+    for j, (stage, phase, k0) in enumerate(ring):
+        assert (stage, phase) == (j % g.stages, (j // g.stages) % 2)
+    assert ring[-1][2] < k <= ring[-1][2] + g.bk
+
+
+def _c_body(name):
+    """The body of the device function ``name`` in csrc/matmul_sm90.cu."""
+    src = open(_SM90_SRC).read()
+    start = src.index('{\n', src.index(' %s(' % name)) + 2
+    return src[start:src.index('\n}\n', start)]
+
+
+def _staged_chunk(r, c):
+    expr = re.fullmatch(r'\s*return ([^;]+);\s*', _c_body('staged_chunk'))
+    return eval(expr.group(1), {}, {'r': r, 'c': c})
+
+
+def _banks(addresses, width):
+    """Wavefronts over the banks: the most distinct 4-byte words any of the
+    32 banks serves for accesses of ``width`` bytes at ``addresses``."""
+    words = {}
+    for a in addresses:
+        for w in range(a // 4, (a + width) // 4):
+            words.setdefault(w % 32, set()).add(w)
+    return max(len(v) for v in words.values())
+
+
+@pytest.mark.parametrize('bn', (64, 128, 256))
+def test_cur_staging_layout(bn):
+    """``staged_chunk`` (parsed from the source) places each 16-byte chunk
+    of a float32 row within its own 128-byte line, once; the fragments'
+    8-byte writes (each half-warp: 4 rows x 2 chunks) and the read-back's
+    16-byte loads (each quarter-warp: 8 chunks of a row, 32 bytes apart)
+    meet every bank once; and the read-back returns every element of the
+    warpgroup's 64 rows where the fragments put it."""
+    pitch, chunks = bn * 4, bn // 4
+    for r in range(64):
+        placed = [_staged_chunk(r, c) for c in range(chunks)]
+        assert sorted(placed) == list(range(chunks))
+        assert all(p // 8 == c // 8 for c, p in enumerate(placed))
+    # fragment writes: warp w, lane l holds rows 16 w + l / 4 (+ 8), columns
+    # 8 i + 2 (l % 4) + (0, 1) as acc[4 i + (0, 1)] (+ (2, 3))
+    staged = {}
+    for warp in range(4):
+        for i in range(bn // 8):
+            for half in range(2):
+                at = []
+                for lane in range(16 * half, 16 * half + 16):
+                    q = lane % 4
+                    for dr in (0, 8):
+                        r = warp * 16 + lane // 4 + dr
+                        a = (r * pitch + _staged_chunk(r, 2 * i + q // 2) * 16
+                             + (q % 2) * 8)
+                        if dr == 0:
+                            at.append(a)
+                        col = 8 * i + 2 * q
+                        staged[a], staged[a + 4] = (r, col), (r, col + 1)
+                assert _banks(at, 8) == 1
+    assert len(staged) == 64 * bn
+    # read back: bn / 8 threads a row, 8 columns a thread
+    tr = bn // 8
+    for h in range(2):
+        for first in range(0, 128, 8):
+            assert _banks([(t // tr) * pitch
+                           + _staged_chunk(t // tr, 2 * (t % tr) + h) * 16
+                           for t in range(first, first + 8)], 16) == 1
+    for tid in range(128):
+        g = tid % tr
+        for row in range(tid // tr, 64, 128 // tr):
+            got = [staged[row * pitch + _staged_chunk(row, 2 * g + h) * 16
+                          + 4 * e] for h in range(2) for e in range(4)]
+            assert got == [(row, 8 * g + c) for c in range(8)]
+
+
+def _run_quad_transpose(values):
+    """Run ``quad_transpose`` as written in the source on the four lanes of
+    a quad in lockstep: each statement for every lane, a shuffle reading
+    the partner lane's values from before the statement."""
+    body = re.sub(r'//[^\n]*', '', _c_body('quad_transpose'))
+    envs = [{'q': q, 'v': list(values[q])} for q in range(4)]
+
+    def python(expr):
+        expr = re.sub(r'__shfl_xor_sync\(0xffffffffu, (.+?), (\d)\)',
+                      r'shfl("\1", \2)', expr)
+        return re.sub(r'(\w+) \? ([\w\[\]]+) : ([\w\[\]]+)',
+                      r'(\2 if \1 else \3)', expr)
+
+    for statement in filter(None, (st.strip() for st in body.split(';'))):
+        statement = re.sub(r'^const (bool|uint32_t) ', '', statement)
+        parts = [p.split(' = ', 1) for p in re.split(r', (?=\w+ = )',
+                                                     statement)]
+        before = [dict(e, v=list(e['v'])) for e in envs]
+        for q, env in enumerate(envs):
+            def shfl(expr, lane_xor, q=q):
+                return eval(python(expr), {}, before[q ^ lane_xor])
+            for lhs, rhs in parts:
+                value = eval(python(rhs), {'shfl': shfl}, before[q])
+                index = re.fullmatch(r'v\[(\d)\]', lhs)
+                if index:
+                    env['v'][int(index.group(1))] = value
+                else:
+                    env[lhs] = value
+                    before[q][lhs] = value
+    return [env['v'] for env in envs]
+
+
+def test_noacc_quad_transpose():
+    """``quad_transpose`` as written: lane q starts with columns 2 q, 2 q +
+    1 of each of four 8-column groups and ends with the 8 columns of group
+    q in order, so noacc's 16-byte store at column 8 (4 b + q) is whole."""
+    got = _run_quad_transpose([[(q, j) for j in range(4)] for q in range(4)])
+    assert got == [[(c, q) for c in range(4)] for q in range(4)]
+
+
+@pytest.mark.parametrize('shape', [(6349, 72, 520), (77, 1024, 40),
+                                   (4109, 64, 264), (1, 64, 256)], ids=_gid)
+def test_mn_stores_cover_y(shape):
+    """cur and noacc store 16 bytes (8 columns) where row < M and column <
+    N, over every tile of the walk: the stores cover Y exactly once."""
+    m, k, n = shape
+    for variant in ('cur', 'noacc'):
+        g, walk, _ = _mn_walk(variant, m, k, n)
+        covered = np.zeros((m, n), np.int64)
+        for m0, n0 in walk:
+            for r in range(m0, min(m0 + g.bm, m)):
+                for c in range(n0, n0 + g.bn, 8):
+                    if c < n:
+                        covered[r, c:c + 8] += 1
+        assert (covered == 1).all()
 
 
 def test_cpu_run_counts_no_launch():
@@ -456,17 +652,18 @@ def test_probe_raises_without_a_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_version_on_card():
-    """``csrc/matmul.cu`` and ``csrc/matmul_sm90.cu`` on the card at odd
-    shapes, every instance of ``ws`` and ``ep`` among them: each variant within
-    the float64 bound and within twice it of the plain version, every row
-    of a NaN-filled output written; one launch a call."""
+    """``csrc/matmul_sm90.cu`` on the card at odd shapes, every instance of
+    the four variants among them: each variant within the float64 bound
+    and within twice it of the plain version, every row of a NaN-filled
+    output written; one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels are CUDA C++ for sm_90a '
                     'and have no CPU mode')
     for m, k, n in [(1, 64, 256), (6349, 512, 2048), (300, 72, 64),
                     (129, 1024, 64), (257, 2048, 520), (1000, 256, 8),
                     (1024, 64, 128), (515, 200, 96), (131, 256, 256),
-                    (1, 512, 1024)]:
+                    (1, 512, 1024), (6349, 72, 520), (77, 1024, 40),
+                    (4109, 64, 264)]:
         a, b = (t.cuda() for t in _torch_in(m, k, n))
         y64, allowed = port_probe.float64_bound(a, b)
         plain = kernels.matmul_reference(a, b)
