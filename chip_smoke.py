@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them) and build every kernel from ``csrc/`` with nvcc, one
      process per source, all started together; the flash forward's
-     instances and the four matmul variants' kernels must spill no
-     register (``-Xptxas -v``), and every matmul kernel's SASS
+     instances, the dq kernel and the four matmul variants' kernels must
+     spill no register (``-Xptxas -v``), every matmul kernel's SASS
      (``cuobjdump -sass``) must hold HGMMA and UTMALDG (counted with
-     UTMASTG, of which noacc's must hold none), or the run fails;
+     UTMASTG, of which noacc's must hold none) and the dq kernel's HMMA
+     (its 3xTF32 tensor-core products), or the run fails;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -23,13 +24,18 @@ Phases, in order; any failure exits non-zero:
      the training kernels at the training slice's shapes
      (1e-5 absolute for out, lse, nll and logp; 1e-5 relative to each
      tensor's max abs for dq, dk, dv and dlogits, which sum over 128 rows
-     of O(1) terms), the five epilogue kernels for every act type at the
-     ResNet's stem and last-stage BN shapes and at an odd size (bitwise
+     of O(1) terms), the xent forward also at V 1000, 30523, 50000,
+     200003 and 600001 so that each of its instances (a warp, a cluster
+     of 2, 4 or 8 CTAs, a block a row) launches and rows start on and off
+     16-byte boundaries, with labels out of range in every case; the five epilogue kernels for
+     every act type at the ResNet's stem and last-stage BN shapes and at an odd size (bitwise
      for identity, relu, leaky, softsign, add+relu and the BN apply;
      5e-7 of the max abs for sigmoid, tanh and softrelu); then each
      kernel, its plain version and the one
      PyTorch library call that computes the same function timed with
-     CUDA events at the main paths' shapes, one event pair a call
+     CUDA events at the main paths' shapes (the xent forward also beside
+     ``log_softmax``, which writes the same logp; dq + dkv also against
+     SDPA's backward in alternating turns), one event pair a call
      (``ms``: the wrapper's host cost included, the earlier protocol), and
      the kernel and the library call also by the probe's back-to-back
      slope timer over inputs rotated past the L2 (``device_ms``: device
@@ -134,6 +140,7 @@ TIE = 1e-4                 # a top-2 logit gap below this is a tie
 GRAD_REL = 1e-4            # phase 4a: gradients, relative to max abs
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12    # H100 SXM float32, CUDA cores (no tensor cores)
+PEAK_TF32_FLOP_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 SLICE = dict(vocab=30522, units=768, hidden=3072, layers=12, heads=12,
              max_len=512)
@@ -304,15 +311,25 @@ def _errs(a, b):
     return err, err / max(b.abs().max().item(), 1e-30)
 
 
+# the xent forward's cases: the MLM and NSP heads, ResNet's, an odd V
+# (rows starting at every offset mod 16 bytes), V taking clusters of 4
+# and of 8 CTAs (chunks above 16384 floats) and one past what a cluster
+# holds; each of the forward's instances in one of them
+XENT_SHAPES = ((1920, 30522), (96, 2), (128, 1000), (8, 30523), (16, 50000),
+               (4, 200003), (4, 600001))
+
+
 def check_training_kernels(torch, kernels, device, heads=TRAIN['heads'],
                            d=TRAIN['d'], cases=None,
-                           xent_shapes=((1920, 30522), (96, 2))):
+                           xent_shapes=XENT_SHAPES):
     """The training slice's kernels against their plain versions on
     ``device``: flash forward, dq and dkv on each attention case, the
-    softmax-xent forward and backward on each (rows, V) with some labels
-    out of range. The forward outputs are held to TOL absolute, the
-    gradients to TOL relative to their max abs. Returns {kernel name:
-    worst max abs error}."""
+    softmax-xent forward and backward on each (rows, V) with up to 3
+    labels out of range. The forward outputs are held to TOL absolute,
+    the gradients to TOL relative to their max abs. On the card the xent
+    cases must launch every instance of the forward and rows both on and
+    off a 16-byte boundary. Returns {kernel name: worst max abs
+    error}."""
     gen = torch.Generator(device='cpu').manual_seed(2)
 
     def randn(*shape):
@@ -360,30 +377,46 @@ def check_training_kernels(torch, kernels, device, heads=TRAIN['heads'],
                                           errs[0][0])
         worst['flash_attention_dkv'] = max(worst['flash_attention_dkv'],
                                            errs[1][0], errs[2][0])
+    kernels.reset_launch_counts()
+    offsets = set()     # row starts mod 16 bytes
     for rows, vocab in xent_shapes:
         x = randn(rows, vocab) * 3
         lab = torch.randint(0, vocab, (rows,), generator=gen,
                             dtype=torch.int32).to(device)
-        lab[:3] = torch.tensor([-1, vocab, vocab + 7], dtype=torch.int32)
+        out = min(3, rows - 1)
+        lab[:out] = torch.tensor([-1, vocab, vocab + 7][:out],
+                                 dtype=torch.int32)
         g = torch.rand(rows, generator=gen).to(device)
         nll, logp = kernels.softmax_xent_forward(x, lab)
         nll_ref, logp_ref = kernels.softmax_xent_forward_reference(x, lab)
         fwd = max((nll - nll_ref).abs().max().item(),
                   (logp - logp_ref).abs().max().item())
-        if nll[:3].abs().max().item() != 0.0:
+        if out and nll[:out].abs().max().item() != 0.0:
             raise AssertionError('softmax_xent: an out-of-range label must '
                                  'give nll 0')
         dx = kernels.softmax_xent_backward(logp, lab, g)
         bwd, bwd_rel = _errs(dx, kernels.softmax_xent_backward_reference(
             logp, lab, g))
-        log('check softmax_xent rows=%d V=%d (3 labels out of range): '
+        offsets.update(r * vocab * 4 % 16 for r in range(rows))
+        log('check softmax_xent rows=%d V=%d %s (%d labels out of range): '
             'nll/logp max_abs_err=%.3g, dlogits rel_err=%.3g (max_abs_err '
-            '%.3g)' % (rows, vocab, fwd, bwd_rel, bwd))
+            '%.3g)' % (rows, vocab, tuple(kernels.xent_geometry(rows, vocab)),
+                       out, fwd, bwd_rel, bwd))
         if not fwd <= TOL or not bwd_rel <= TOL:
             raise AssertionError('softmax_xent kernels disagree with their '
                                  'plain versions')
         worst['softmax_xent_fwd'] = max(worst['softmax_xent_fwd'], fwd)
         worst['softmax_xent_bwd'] = max(worst['softmax_xent_bwd'], bwd)
+    if device.type == 'cuda':
+        launched = {i for (name, i), n in kernels.instance_launches().items()
+                    if name == 'softmax_xent_fwd' and n}
+        log('check softmax_xent: forward instances launched %s, row starts '
+            'mod 16 bytes %s' % (sorted(launched), sorted(offsets)))
+        if launched != set(kernels.XENT_INSTANCES) or len(offsets) < 2:
+            raise AssertionError('softmax_xent cases launched the instances '
+                                 '%s of %s, row offsets %s'
+                                 % (launched, kernels.XENT_INSTANCES,
+                                    offsets))
     return worst
 
 
@@ -443,13 +476,13 @@ def timings(torch, inputs, kernel, plain, library=None, library_inputs=None,
     return row
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_F32_FLOP_S):
     """(the least ms the card could take, 'bytes' or 'operations'):
-    ``nbytes`` at 3.35 TB/s against ``flops`` at 67 TFLOP/s, float32 on
-    the CUDA cores (the bf16 matmuls' bound is the probe's
-    ``bound_ms``)."""
+    ``nbytes`` at 3.35 TB/s against ``flops`` at ``peak`` (67 TFLOP/s,
+    float32 on the CUDA cores, unless the kernel runs other arithmetic;
+    the bf16 matmuls' bound is the probe's ``bound_ms``)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -554,19 +587,39 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
         bound_ms=b_ms, bound_by=b_by,
         shape=shape + ', block_q %d, %d blocks'
         % kernels.fwd_geometry(batch, heads, seq)[:2])
-    b_ms, b_by = bound(6 * tensor_b + lse_b + lens_b, visible * 6 * d)
+    # dq's three products run on the tensor cores in 3xTF32: three TF32
+    # products each; the float32 CUDA-core bound of earlier runs beside it
+    b_ms, b_by = bound(6 * tensor_b + lse_b + lens_b, 3 * visible * 6 * d,
+                       PEAK_TF32_FLOP_S)
     rows['flash_attention_dq'] = timings(
         torch, (q, k, v, out, lse, do, lens), kernels.flash_attention_dq,
         kernels.flash_attention_dq_reference, sdpa_bwd, library_inputs=(),
         bound_ms=b_ms, bound_by=b_by,
-        shape=shape + '; library: SDPA backward (dq, dk and dv together)')
+        bound_cuda_core_ms=bound(6 * tensor_b + lse_b + lens_b,
+                                 visible * 6 * d)[0],
+        shape=shape + '; bound: 3xTF32 at 495 TFLOP/s; library: SDPA '
+        'backward (dq, dk and dv together)')
     b_ms, b_by = bound(7 * tensor_b + lse_b + lens_b, visible * 8 * d)
     rows['flash_attention_dkv'] = timings(
         torch, (q, k, v, out, lse, do, lens), kernels.flash_attention_dkv,
         kernels.flash_attention_dkv_reference, sdpa_bwd, library_inputs=(),
         bound_ms=b_ms, bound_by=b_by,
         shape=shape + '; library: SDPA backward (dq, dk and dv together)')
-    del q, k, v, do, out, lse, qs, ks, vs, sdpa_out
+    # dq + dkv as a step runs them against SDPA's backward, in turns
+    # (pair, SDPA, SDPA, pair, pair, SDPA): the spread of the comparison
+    # within this run
+    ins = (q, k, v, out, lse, do, lens)
+
+    def pair(*t):
+        return kernels.flash_attention_dq(*t), kernels.flash_attention_dkv(*t)
+
+    turns = {'dq+dkv': [], 'sdpa_backward': []}
+    for name in ('dq+dkv', 'sdpa_backward', 'sdpa_backward', 'dq+dkv',
+                 'dq+dkv', 'sdpa_backward'):
+        turns[name].append(device_ms(torch, pair, ins) if name == 'dq+dkv'
+                           else device_ms(torch, sdpa_bwd, ()))
+    rows['flash_attention_dq']['pair_turns_device_ms'] = turns
+    del q, k, v, do, out, lse, qs, ks, vs, sdpa_out, ins
 
     n = batch * TRAIN['preds']
     x = randn(n, vocab) * 3
@@ -584,8 +637,15 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
         kernels.softmax_xent_forward_reference,
         lambda x, lab: F.cross_entropy(x, lab, reduction='none'),
         library_inputs=(x, lab64), bound_ms=b_ms, bound_by=b_by,
-        shape=shape + '; library: cross_entropy(reduction=none) writes nll '
-        'only, no logp')
+        shape=shape + ', %s; library: cross_entropy(reduction=none), '
+        'nll_loss(log_softmax(x)): it writes the logp too, into a temporary'
+        % (kernels.xent_geometry(n, vocab),))
+    # the one call that writes the same logp
+    row = rows['softmax_xent_fwd']
+    row['log_softmax_ms'] = time_ms(
+        torch, lambda: F.log_softmax(x, dim=-1))
+    row['log_softmax_device_ms'] = device_ms(
+        torch, lambda x: F.log_softmax(x, dim=-1), (x,))
     xs = x.detach().clone().requires_grad_(True)
     ce = F.cross_entropy(xs, lab64, reduction='sum') / n
 
@@ -1919,20 +1979,37 @@ def check_matmul_kernels(torch, kernels, probe, device, shapes=MATMUL_ODD):
     return worst
 
 
-def check_sm90_build(build, ptxas):
-    """The four variants' kernels of ``csrc/matmul_sm90.cu`` as built: the
-    spills in ptxas's lines for that source (``ptxas``; empty when the
-    library was current and not rebuilt), and the count of each of
-    :data:`SM90_SASS` in each kernel's SASS (``cuobjdump -sass`` from
-    nvcc's toolkit). Raises when a kernel spills, lacks HGMMA or UTMALDG,
-    or, in noacc, holds a UTMASTG. Returns {kernel: {instruction:
-    count}}."""
-    spills = [ln for ln in ptxas if any(int(n) for n in re.findall(
+def _spills(ptxas):
+    """The ptxas lines that report a spill."""
+    return [ln for ln in ptxas if any(int(n) for n in re.findall(
         r'(\d+) bytes spill (?:stores|loads)', ln))]
-    if spills:
-        raise AssertionError('matmul_sm90 spills registers: %s' % spills)
+
+
+def ptxas_entries(ptxas):
+    """{entry name: (registers, spill bytes)} from ptxas's lines for one
+    source (``Compiling entry`` starts an entry; its spill and register
+    lines follow)."""
+    entries, fn = {}, None
+    for ln in ptxas:
+        head = re.search(r"Compiling entry function '(\S+)'", ln)
+        if head:
+            fn = head.group(1)
+            entries[fn] = [0, 0]
+        elif fn:
+            spill = re.findall(r'(\d+) bytes spill (?:stores|loads)', ln)
+            entries[fn][1] += sum(int(n) for n in spill)
+            regs = re.search(r'Used (\d+) registers', ln)
+            if regs:
+                entries[fn][0] = int(regs.group(1))
+    return {f: tuple(v) for f, v in entries.items()}
+
+
+def sass_counts(build, source, kernel_keys, ops):
+    """{kernel: {instruction: count}} of the kernels of ``source`` whose
+    names hold one of ``kernel_keys``, from ``cuobjdump -sass`` (nvcc's
+    toolkit) of its library."""
     tool = os.path.join(build._cuda_home(), 'bin', 'cuobjdump')
-    sass = subprocess.run([tool, '-sass', build.library_path('matmul_sm90')],
+    sass = subprocess.run([tool, '-sass', build.library_path(source)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     counts, fn = {}, None
@@ -1940,12 +2017,26 @@ def check_sm90_build(build, ptxas):
         head = re.search(r'Function : (\S+)', line)
         if head:
             fn = head.group(1)
-            fn = fn if any(k in fn for k in SM90_KERNELS) else None
+            fn = fn if any(k in fn for k in kernel_keys) else None
             if fn:
-                counts[fn] = dict.fromkeys(SM90_SASS, 0)
+                counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
-            for op in SM90_SASS:
+            for op in ops:
                 counts[fn][op] += len(re.findall(r'\b%s\b' % op, line))
+    return counts
+
+
+def check_sm90_build(build, ptxas):
+    """The four variants' kernels of ``csrc/matmul_sm90.cu`` as built: the
+    spills in ptxas's lines for that source (``ptxas``; empty when the
+    library was current and not rebuilt), and the count of each of
+    :data:`SM90_SASS` in each kernel's SASS. Raises when a kernel spills,
+    lacks HGMMA or UTMALDG, or, in noacc, holds a UTMASTG. Returns
+    {kernel: {instruction: count}}."""
+    spills = _spills(ptxas)
+    if spills:
+        raise AssertionError('matmul_sm90 spills registers: %s' % spills)
+    counts = sass_counts(build, 'matmul_sm90', SM90_KERNELS, SM90_SASS)
     missing = [k for k in SM90_KERNELS if not any(k in f for f in counts)]
     short = {f: c for f, c in counts.items()
              if not (c['HGMMA'] and c['UTMALDG'])
@@ -1955,6 +2046,27 @@ def check_sm90_build(build, ptxas):
                              'HGMMA or UTMALDG or (noacc) with UTMASTG %s'
                              % (missing, short))
     return counts
+
+
+def check_dq_build(build, ptxas):
+    """The dq kernel of ``csrc/flash_attention_bwd.cu`` as built: its
+    registers and spills from ptxas (``ptxas``: that source's lines; empty
+    when the library was current) and its tensor-core instructions
+    (HMMA) in the SASS. Raises when it spills or holds no HMMA. Returns
+    (registers or None, {instruction: count})."""
+    regs = None
+    for fn, (n, spill) in ptxas_entries(ptxas).items():
+        if 'flash_attention_dq_kernel' in fn:
+            if spill:
+                raise AssertionError('flash_attention_dq spills %d bytes'
+                                     % spill)
+            regs = n
+    counts = sass_counts(build, 'flash_attention_bwd',
+                         ('flash_attention_dq_kernel',), ('HMMA', 'LDS'))
+    if len(counts) != 1 or not next(iter(counts.values()))['HMMA']:
+        raise AssertionError('flash_attention_dq SASS holds no HMMA: %s'
+                             % counts)
+    return regs, next(iter(counts.values()))
 
 
 def matmul_rows(kernels, shapes):
@@ -2051,6 +2163,15 @@ def log_times(times):
                row['plain_ms'], 'none' if lib is None else
                '%.4f ms (device %.4f ms)' % (lib, row['library_device_ms']),
                row['bound_ms'], row['bound_by']))
+        if 'bound_cuda_core_ms' in row:
+            log('time %s: float32 CUDA-core bound %.4f ms (operations)'
+                % (name, row['bound_cuda_core_ms']))
+        if 'log_softmax_ms' in row:
+            log('time %s: log_softmax %.4f ms (device %.4f ms)'
+                % (name, row['log_softmax_ms'], row['log_softmax_device_ms']))
+        if 'pair_turns_device_ms' in row:
+            log('time dq + dkv against SDPA backward, device ms in turns: %s'
+                % row['pair_turns_device_ms'])
 
 
 def kernel_rows(errs, times, train_times, launches_by_path):
@@ -2070,7 +2191,10 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                'launches': sum(by_path.values()),
                'launches_by_path': by_path, 'max_abs_err': errs[name]}
         row.update({k: t[k] for k in TIMING_KEYS})
-        row.update({k: t[k] for k in ('floor_ms', 'at_batch_1', 'by_shape')
+        row.update({k: t[k] for k in ('floor_ms', 'at_batch_1', 'by_shape',
+                                      'bound_cuda_core_ms', 'log_softmax_ms',
+                                      'log_softmax_device_ms',
+                                      'pair_turns_device_ms')
                     if k in t})
         row['shape'] = t['shape']
         if name in times and name in train_times:
@@ -2121,15 +2245,17 @@ def main():
         % (len(_build.SOURCES), time.perf_counter() - t0))
     for name, lines in reports.items():
         log('ptxas %s: %s' % (name, ' | '.join(lines)))
-    spills = [ln for ln in reports.get('flash_attention_fwd', ())
-              if any(int(n) for n in re.findall(
-                  r'(\d+) bytes spill (?:stores|loads)', ln))]
+    spills = _spills(reports.get('flash_attention_fwd', ()))
     if spills:
         raise AssertionError('flash_attention_fwd spills registers: %s'
                              % spills)
     for fn, counts in check_sm90_build(
             _build, reports.get('matmul_sm90', ())).items():
         log('sass matmul_sm90 %s: %s' % (fn, counts))
+    regs, counts = check_dq_build(_build,
+                                  reports.get('flash_attention_bwd', ()))
+    log('flash_attention_dq: %s registers, no spills; SASS %s'
+        % (regs, counts))
 
     # phase 2: kernels against their plain versions, then times
     errs = check_kernels(torch, kernels, cuda)

@@ -7,7 +7,8 @@ bound with ``ctypes``. Beside each kernel sits its plain PyTorch version;
 a wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, and counts its launches (:func:`launch_counts`).
 """
-from ._launch import KERNELS, launch_counts, reset_launch_counts
+from ._launch import (KERNELS, instance_launches, launch_counts,
+                      reset_launch_counts)
 from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
                         flash_attention, flash_attention_backward,
                         flash_attention_backward_reference,
@@ -29,10 +30,11 @@ from .matmul import (VARIANTS as MATMUL_VARIANTS, MatmulGeometry, matmul,
                      matmul_reference, matmul_ws)
 from .nms import (MAX_BOXES, greedy_nms_keep, greedy_nms_keep_reference,
                   nms_iterations)
-from .xent import (SoftmaxXentFunction, fused_softmax_xent_rows,
+from .xent import (XENT_INSTANCES, SoftmaxXentFunction, XentGeometry,
+                   fused_softmax_xent_rows,
                    fused_softmax_xent_rows_reference, softmax_xent_backward,
                    softmax_xent_backward_reference, softmax_xent_forward,
-                   softmax_xent_forward_reference)
+                   softmax_xent_forward_reference, xent_geometry)
 
 __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'online_softmax_block', 'flash_attention',
@@ -41,7 +43,8 @@ __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'flash_attention_dkv', 'flash_attention_backward',
            'flash_attention_dq_reference', 'flash_attention_dkv_reference',
            'flash_attention_backward_reference', 'flash_decode_attention',
-           'flash_decode_attention_reference', 'fused_softmax_xent_rows',
+           'flash_decode_attention_reference', 'XENT_INSTANCES',
+           'XentGeometry', 'xent_geometry', 'fused_softmax_xent_rows',
            'fused_softmax_xent_rows_reference', 'SoftmaxXentFunction',
            'softmax_xent_forward', 'softmax_xent_forward_reference',
            'softmax_xent_backward', 'softmax_xent_backward_reference',
@@ -55,4 +58,4 @@ __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'nms_iterations', 'MATMUL_VARIANTS', 'MatmulGeometry',
            'matmul_geometry', 'matmul', 'matmul_reference',
            'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep',
-           'launch_counts', 'reset_launch_counts']
+           'launch_counts', 'instance_launches', 'reset_launch_counts']

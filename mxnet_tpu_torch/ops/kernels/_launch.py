@@ -12,7 +12,8 @@ import ctypes
 
 import torch
 
-__all__ = ['KERNELS', 'launch_counts', 'reset_launch_counts', 'count',
+__all__ = ['KERNELS', 'launch_counts', 'instance_launches',
+           'reset_launch_counts', 'count',
            'on_cpu', 'dense', 'ptr', 'stream', 'require', 'check_inputs',
            'raise_on']
 
@@ -24,6 +25,7 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_dq',
            'matmul_ws', 'matmul_ep')
 
 _launches = dict.fromkeys(KERNELS, 0)
+_instances = {}
 
 
 def launch_counts():
@@ -31,13 +33,23 @@ def launch_counts():
     return dict(_launches)
 
 
+def instance_launches():
+    """Launches since the last reset of the kernels with several
+    instances, by (kernel name, instance)."""
+    return dict(_instances)
+
+
 def reset_launch_counts():
     for name in _launches:
         _launches[name] = 0
+    _instances.clear()
 
 
-def count(kernel):
+def count(kernel, instance=None):
     _launches[kernel] += 1
+    if instance is not None:
+        _instances[kernel, instance] = _instances.get((kernel, instance),
+                                                      0) + 1
 
 
 def on_cpu(kernel, t, layout=None):

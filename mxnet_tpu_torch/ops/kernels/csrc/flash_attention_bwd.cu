@@ -18,31 +18,34 @@
 // What bounds them on the H100: at BERT-base training shapes (B*H 1152,
 // S 128, D 64) dq does 3 and dk/dv 4 products of 2*S*S*D flops per
 // (batch, head): 7.2 and 9.7 GFLOP against ~0.23-0.26 GB of q, k, v, o,
-// do in and gradients out, so the float32 CUDA-core rate (67 TFLOP/s, no
-// tensor cores in this version) bounds both.
+// do in and gradients out. dk/dv runs on the CUDA cores, so the float32
+// rate (67 TFLOP/s) bounds it; dq runs its products on the tensor cores in
+// 3xTF32 (3 x 7.2 GFLOP at 495 TFLOP/s, 0.044 ms), so its 226 MB at
+// 3.35 TB/s (0.068 ms) bound it.
 //
 // Design. Each output tile is owned by one block, so no sum crosses
 // blocks and there is no atomicAdd (results are deterministic); the TPU
 // grid's sequential walk becomes a loop inside the block. Tiles are 64
-// rows; a block has 256 threads (16 x 16), and each thread owns a 4 x 4
-// patch of every 64 x 64 product, accumulated in registers from 16-byte
-// shared-memory loads (register tiling, as a SIMT GEMM does):
-//   * dq: grid (B*H, ceil(Sq/64)). The block stages its Q and dO tiles
-//     once, then walks the key tiles: S = Q K^T and dP = dO V^T (thread:
-//     query rows 4*ty + r, keys tx + 16*c), dS into shared memory, then
-//     dQ += dS K (thread: query rows 4*ty + r, dims 4*tx + c). Key tiles
-//     past the block's last visible key are skipped.
-//   * dk/dv: grid (B*H, ceil(Sk/64)). The block stages its K and V tiles
-//     once, then walks the query tiles: S and dP as above, P and dS into
-//     shared memory, then dV += P^T dO and dK += dS^T Q (thread: keys
-//     4*ty + r, dims 4*tx + c). A causal block starts at the first query
-//     tile that can see its keys; a block wholly past the length sees no
-//     query at all.
-//   * Staged tiles have rows of 68 floats: with the strided key ownership
-//     (tx + 16*c) every 16-byte load of a quarter-warp hits distinct banks.
+// rows.
+//   * dq (namespace dqk below): four warps, each owning 32 query rows,
+//     run S = Q K^T, dP = dO V^T and dQ += dS K as m16n8k8 TF32 mma
+//     products in 3xTF32, its scores and gradients in mma fragments, K/V
+//     double-buffered by cp.async into swizzled tiles; its own note below.
+//   * dk/dv: grid (B*H, ceil(Sk/64)), 256 threads (16 x 16), each owning
+//     a 4 x 4 patch of every 64 x 64 product, accumulated in registers
+//     from 16-byte shared-memory loads (register tiling, as a SIMT GEMM
+//     does). The block stages its K and V tiles once, then walks the query
+//     tiles: S and dP (thread: query rows 4*ty + r, keys tx + 16*c), P and
+//     dS into shared memory, then dV += P^T dO and dK += dS^T Q (thread:
+//     keys 4*ty + r, dims 4*tx + c). A causal block starts at the first
+//     query tile that can see its keys; a block wholly past the length
+//     sees no query at all. Staged tiles have rows of 68 floats: with the
+//     strided key ownership (tx + 16*c) every 16-byte load of a
+//     quarter-warp hits distinct banks.
 //   * delta is recomputed by each kernel from do and o, as the TPU kernels
 //     do, so the two launches stay independent.
-// wgmma/TMA and bf16 are later work.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -137,7 +140,7 @@ __device__ __forceinline__ void tile_dot(const float* a, const float* b,
 
 // p and ds of the thread's 4 x 4 (query 4 ty + r, key tx + 16 c) from the
 // staged Q, dO (query tile at qbase) and K, V (key tile at kbase), into
-// ps (if given) and dss, both [query][key]
+// ps and dss, both [query][key]
 __device__ __forceinline__ void probs(const float* qs, const float* dos,
                                       const float* ks, const float* vs,
                                       const float* lse_s,
@@ -162,13 +165,239 @@ __device__ __forceinline__ void probs(const float* qs, const float* dos,
       const float p = (vis && lse_i != -CUDART_INF_F)
                           ? expf(s[r][c] * scale - lse_i)
                           : 0.f;
-      if (ps != nullptr) ps[i * LD + j] = p;
+      ps[i * LD + j] = p;
       dss[i * LD + j] = p * (dp[r][c] - delta_i) * scale;
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---- dq: the three products on the tensor cores in 3xTF32 ----
+//
+// Why the tensor cores here and not in the forward: the forward must stay
+// bitwise equal to the decode kernel (flash_attention_fwd.cu), so every
+// score there is one float32 fma chain in a fixed order; dq has no such
+// contract, only the 1e-5 tier (relative to its max abs), which 3xTF32
+// holds: x = big + small with big = tf32(x) and small = tf32(x - big)
+// (big rounded to nearest on the 10-bit mantissa, small toward zero) keeps
+// 21 of x's 24 bits, and big.big + big.small + small.big drops only the
+// small.small term (2^-22 relative), summed in float32 by the mma.
+namespace dqk {
+
+constexpr int MT = 2;             // m16 tiles (16 query rows) a warp
+constexpr int WARPS = 4;
+constexpr int BQ = 16 * MT * WARPS;  // query rows a block
+constexpr int BK = 32;            // keys a tile
+constexpr int NS = BK / 8;        // the tile's m16n8 key tiles
+constexpr int THREADS = 32 * WARPS;
+constexpr int CHUNKS = D / 4;     // 16-byte chunks a row
+// shared memory: the Q and dO tiles, two K and two V tiles (96 KB: two
+// blocks an SM)
+constexpr int QTILE = BQ * D;
+constexpr int KTILE = BK * D;
+constexpr size_t SMEM_BYTES = (2 * QTILE + 4 * KTILE) * sizeof(float);
+
+// Float offset of (row, col) in a tile of D-float rows, no padding: the
+// 8-float group of the column XOR-ed with two bits of the row. The warps'
+// fragment loads then hit distinct banks: the float2 loads of rows 8m + g
+// (A, and B of S and dP: lanes g = 0-3 of a half-warp, columns 8kk + 2tq)
+// and the scalar loads of rows 8m + 2tq (+ 1) (B of dS.K, columns
+// 8n + g); a 16-byte staging copy keeps its chunk whole. For a row 8m + u
+// (u < 8) the XOR is that of u alone, flipped by 2 when m is odd, so the
+// kernel precomputes each lane's offsets once.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * D + (col ^ (((row ^ (row >> 2)) & 3) << 3));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows row0 .. row0 + ROWS - 1 of an (n, D) matrix into a swizzled tile;
+// rows >= n become zeros (src-size 0). The caller commits the group.
+template <int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
+                                      int n, int t) {
+#pragma unroll
+  for (int i = 0; i < ROWS * CHUNKS / THREADS; ++i) {
+    const int idx = t + i * THREADS;
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    const bool valid = row0 + r < n;
+    cp_async16(dst + swz(r, 4 * c),
+               src + (size_t)(valid ? row0 + r : 0) * D + 4 * c, valid);
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float exp2f_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x = big + small, as CUTLASS's fast 3xTF32 splits it: big = tf32(x)
+// rounded to nearest, ties away from zero, on the 10-bit mantissa (the
+// bits of cvt.rna.tf32.f32, which ptxas expands to a longer sequence than
+// this add-and-mask; finite inputs), small = x - big (exact) handed to
+// the mma whole, which reads a tf32 operand's top 19 bits: small rounded
+// toward zero. Three instructions an element.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a . b: one m16n8k8 product, tf32 operands, float32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[m][n] += A[m] . B[n] over the MT m-tiles and N n-tiles in 3xTF32,
+// the small terms first: each B fragment is split once for both m-tiles,
+// and each pass leaves MT x N independent accumulators in flight
+template <int N>
+__device__ __forceinline__ void mma3(float (&acc)[MT][N][4],
+                                     const float (&a)[MT][4],
+                                     const float (&b)[N][2]) {
+  uint32_t ab[MT][4], as[MT][4], bb[N][2], bs[N][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(a[m][e], ab[m][e], as[m][e]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split(b[n][0], bb[n][0], bs[n][0]);
+    split(b[n][1], bb[n][1], bs[n][1]);
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma(acc[m][n], as[m], bb[n]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma(acc[m][n], ab[m], bs[n]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma(acc[m][n], ab[m], bb[n]);
+}
+
+// acc = A B^T for the warp's 32 rows (m-tile m: wrow + 16m + g and
+// wrow + 16m + 8 + g) of the BQ-row tile `at` against the BK rows of
+// `bt`, over D: S = Q K^T, dP = dO V^T. The k index (d) is permuted within
+// each 8-group alike in A and B (the mma's column t holds d = 2t, column
+// t + 4 holds d = 2t + 1), so each lane's A and B values are float2
+// loads; xo[k] is the lane's offset of column group k in a row 8m + g
+// with m even (xo[k ^ 2]: m odd).
+__device__ __forceinline__ void product_nt(float (&acc)[MT][NS][4],
+                                           const float* at, const float* bt,
+                                           int wrow, const int (&xo)[8]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    float a[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float2 lo = ld2(at + (wrow + 16 * m) * D + xo[kk]);
+      const float2 hi = ld2(at + (wrow + 16 * m + 8) * D + xo[kk ^ 2]);
+      a[m][0] = lo.x;
+      a[m][1] = hi.x;
+      a[m][2] = lo.y;
+      a[m][3] = hi.y;
+    }
+    float b[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float2 x = ld2(bt + 8 * n * D + xo[kk ^ ((n & 1) << 1)]);
+      b[n][0] = x.x;
+      b[n][1] = x.y;
+    }
+    mma3<NS>(acc, a, b);
+  }
+}
+
+// lse and delta = rowsum(dO * O) of the thread's rows (element h of
+// m-tile m: row 32w + 16m + 8h + g), from the staged dO tile and O in
+// device memory: lane l sums row 32w + l, and shuffles hand each lane its
+// rows
+__device__ __forceinline__ void row_stats(float (&lse_r)[MT][2],
+                                          float (&delta_r)[MT][2],
+                                          const float* lse, const float* o,
+                                          const float* dos, int q0, int sq,
+                                          int w, int lane, int g) {
+  const int row = 32 * w + lane;
+  float acc = 0.f;
+  if (q0 + row < sq) {
+    const float* orow = o + (size_t)(q0 + row) * D;
+#pragma unroll
+    for (int c = 0; c < D; c += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(dos + swz(row, c));
+      const float4 b = *reinterpret_cast<const float4*>(orow + c);
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * m + 8 * h + g;  // of the warp's 32
+      delta_r[m][h] = __shfl_sync(0xffffffffu, acc, r);
+      const int qi = q0 + 32 * w + r;
+      lse_r[m][h] = qi < sq ? lse[qi] : -CUDART_INF_F;
+    }
+}
+
+// Design. A block of 4 warps owns a 128-row query tile of one (batch,
+// head); blocks walk items (batch*head, query tile) with the query tiles
+// of a head adjacent, so a head's K and V are read from memory once and
+// from L2 after; two blocks an SM. Warp w owns rows 32w .. 32w + 31, two
+// m16 tiles, and keeps their scores, dP, dS and dQ in mma fragments
+// (registers) throughout; every K and V fragment a lane loads and splits
+// serves both m-tiles. Per 32-key tile:
+//   S = Q K^T and dP = dO V^T (four m16n8 tiles each an m-tile, k over
+//   d), then p and ds in place in the fragments, then dQ += dS K with dS
+//   as the A operand straight from dP's fragments: the key index is
+//   permuted within each 8-group alike in A and B (column t <- key 2t,
+//   t + 4 <- key 2t + 1), so no shuffle moves the accumulator layout into
+//   the operand layout. Every product is 3xTF32 (m16n8k8, three mma
+//   each).
+// Q and dO are staged once, K and V double-buffered: the next tile's
+// 16-byte cp.async copies run while this one is computed, one block
+// barrier a tile; tiles swizzled without padding, every fragment address
+// a precomputed lane offset plus a constant. delta and lse stay in
+// registers. Key tiles past the block's last visible key are not walked;
+// a block with none writes zeros; the masks are skipped where a whole
+// tile is visible to every row.
+__global__ void __launch_bounds__(THREADS, 2)
 flash_attention_dq_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -178,74 +407,160 @@ flash_attention_dq_kernel(const float* __restrict__ q,
                           const int* __restrict__ lengths,
                           float* __restrict__ dq, int heads, int sq, int sk,
                           float scale, int causal) {
-  extern __shared__ float smem[];
-  float* qs = smem;             // [T][LD] query tile
-  float* dos = qs + TILE;       // [T][LD] dO of the query tile
-  float* ks = dos + TILE;       // [T][LD] key tile
-  float* vs = ks + TILE;        // [T][LD] value tile
-  float* dss = vs + TILE;       // [T][LD] dS, [query][key]
-  float* lse_s = dss + TILE;    // [T]
-  float* delta_s = lse_s + T;   // [T]
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;            // [BQ][D] swizzled
+  float* dos = qs + QTILE;     // [BQ][D] swizzled
+  float* ks = dos + QTILE;     // 2 x [BK][D] swizzled
+  float* vs = ks + 2 * KTILE;  // 2 x [BK][D] swizzled
 
-  const int bh = blockIdx.x;
+  const int qtiles = (sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / qtiles;
   const int b = bh / heads;
-  const int q0 = blockIdx.y * T;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int q0 = (blockIdx.x % qtiles) * BQ;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wrow = 32 * w;  // the thread's rows: wrow + 16m + 8h + g
+  const size_t qoff = (size_t)bh * sq * D;
   const float* kb = k + (size_t)bh * sk * D;
   const float* vb = v + (size_t)bh * sk * D;
 
-  stage(qs, q + (size_t)bh * sq * D, q0, sq);
-  stage(dos, dout + (size_t)bh * sq * D, q0, sq);
-  __syncthreads();
-  row_stats(lse_s, delta_s, lse + (size_t)bh * sq, o + (size_t)bh * sq * D,
-            dos, q0, sq);
-
-  float acc[4][4];
+  // the lane's fragment offsets (floats; see swz): column group k of a
+  // row 8m + g, m even (xo), and column group n of a row 8m + 2tq + e,
+  // m even (yo[e])
+  int xo[8], yo[2][8];
+  {
+    const int sg = (g ^ (g >> 2)) & 3;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int kk = 0; kk < 8; ++kk) xo[kk] = g * D + 8 * (kk ^ sg) + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < 2; ++e) {
+      const int u = 2 * tq + e;
+      const int su = (u ^ (u >> 2)) & 3;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) yo[e][n] = u * D + 8 * (n ^ su) + g;
+    }
+  }
 
   const int len = max(0, min(lengths[b], sk));
   int kend = len;  // one past the last key any row of the block sees
-  if (causal) kend = min(kend, min(q0 + T, sq));
-  for (int kbase = 0; kbase < kend; kbase += T) {
-    __syncthreads();  // the previous tile is consumed, row stats written
-    stage(ks, kb, kbase, sk);
-    stage(vs, vb, kbase, sk);
-    __syncthreads();
-    probs(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, kbase, sq, len,
-          scale, causal, ty, tx);
-    __syncthreads();
-    // dQ[4 ty + r][4 tx + c] += sum_j dS[4 ty + r][j] K[j][4 tx + c]
-#pragma unroll 2
-    for (int j = 0; j < T; j += 4) {
-      float4 a[4], kv[4];
+  if (causal) kend = min(kend, min(q0 + BQ, sq));
+  const int ntiles = (kend + BK - 1) / BK;
+
+  float acc[MT][8][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = ld4(dss + (4 * ty + r) * LD + j);
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) kv[e] = ld4(ks + (j + e) * LD + 4 * tx);
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  if (ntiles > 0) {
+    stage<BQ>(qs, q + qoff, q0, sq, t);
+    stage<BQ>(dos, dout + qoff, q0, sq, t);
+    stage<BK>(ks, kb, 0, sk, t);
+    stage<BK>(vs, vb, 0, sk, t);
+    cp_async_commit();
+  }
+  float lse_r[MT][2] = {}, delta_r[MT][2] = {}, lse2[MT][2] = {};
+  // exp(x) = 2^(x log2 e): the scores and lse pre-scaled, one fma and
+  // ex2.approx an element
+  const float scale2 = scale * LOG2E;
+  for (int j = 0; j < ntiles; ++j) {
+    const int kbase = j * BK;
+    cp_async_wait_all();  // tile j (and at j == 0 Q and dO) has landed
+    __syncthreads();      // visible to all; tile j - 1 consumed
+    if (j + 1 < ntiles) {
+      stage<BK>(ks + ((j + 1) & 1) * KTILE, kb, kbase + BK, sk, t);
+      stage<BK>(vs + ((j + 1) & 1) * KTILE, vb, kbase + BK, sk, t);
+      cp_async_commit();
+    }
+    if (j == 0)
+      row_stats(lse_r, delta_r, lse + (size_t)bh * sq, o + qoff, dos, q0,
+                sq, w, lane, g);
+    const float* kt = ks + (j & 1) * KTILE;
+    const float* vt = vs + (j & 1) * KTILE;
+
+    if (j == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) lse2[m][h] = lse_r[m][h] * LOG2E;
+    }
+    float s[MT][NS][4], dp[MT][NS][4];
+    product_nt(s, qs, kt, wrow, xo);
+    product_nt(dp, dos, vt, wrow, xo);
+    // p = exp(s * scale - lse) = 2^(s * scale log2 e - lse log2 e)
+    // (ex2.approx), 0 where masked or lse == -inf (the exponential taken
+    // unconditionally, selected after); ds = p * (dp - delta) * scale,
+    // in dp's registers. Element e of n-tile n of m-tile m: row wrow +
+    // 16m + 8 (e >> 1) + g, key kbase + 8n + 2tq + (e & 1). In a tile
+    // visible to every row of the block no row has lse == -inf, and
+    // nothing is masked.
+    const bool whole = q0 + BQ <= sq && kbase + BK <= len &&
+                       (!causal || kbase + BK - 1 <= q0);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float w = comp(a[r], e);
-          acc[r][0] = fmaf(w, kv[e].x, acc[r][0]);
-          acc[r][1] = fmaf(w, kv[e].y, acc[r][1]);
-          acc[r][2] = fmaf(w, kv[e].z, acc[r][2]);
-          acc[r][3] = fmaf(w, kv[e].w, acc[r][3]);
+          const float lse_i = lse_r[m][e >> 1];
+          const float delta_i = delta_r[m][e >> 1];
+          const float ex = exp2f_approx(s[m][n][e] * scale2 - lse2[m][e >> 1]);
+          float p = ex;
+          if (!whole) {
+            const int qi = q0 + wrow + 16 * m + 8 * (e >> 1) + g;
+            const int kj = kbase + 8 * n + 2 * tq + (e & 1);
+            const bool vis = lse_i != -CUDART_INF_F && kj < len &&
+                             (!causal || kj <= qi);
+            p = vis ? ex : 0.f;
+          }
+          dp[m][n][e] = p * (dp[m][n][e] - delta_i) * scale;
         }
+    // dQ += dS K: k-step jj takes keys 8jj .. 8jj + 7 (A column t <- key
+    // 2t from element 0 / 2, t + 4 <- key 2t + 1 from element 1 / 3); B
+    // n-tile n is K[keys][8n .. 8n + 7] with the same key order
+#pragma unroll
+    for (int jj = 0; jj < NS; ++jj) {
+      float a[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        a[m][0] = dp[m][jj][0];
+        a[m][1] = dp[m][jj][2];
+        a[m][2] = dp[m][jj][1];
+        a[m][3] = dp[m][jj][3];
+      }
+      const int flip = (jj & 1) << 1;
+      float bk[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        bk[n][0] = kt[8 * jj * D + yo[0][n ^ flip]];
+        bk[n][1] = kt[8 * jj * D + yo[1][n ^ flip]];
+      }
+      mma3<8>(acc, a, bk);
     }
   }
+  // acc[m][n]: rows wrow + 16m + g (elements 0, 1) and + 8 (2, 3), dims
+  // 8n + 2tq + 0/1
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
-    if (qi < sq)
-      *reinterpret_cast<float4*>(dq + ((size_t)bh * sq + qi) * D + 4 * tx) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  }
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + wrow + 16 * m + 8 * h + g;
+      if (qi < sq) {
+        float* row = dq + qoff + (size_t)qi * D + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(row + 8 * n) =
+              make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+      }
+    }
 }
+
+}  // namespace dqk
 
 __global__ void __launch_bounds__(THREADS)
 flash_attention_dkv_kernel(const float* __restrict__ q,
@@ -360,12 +675,16 @@ extern "C" int mx_flash_attention_dq(const void* q, const void* k,
                                      int d, float scale, int causal,
                                      void* stream) {
   if (d != D) return cudaErrorInvalidValue;
-  const size_t smem = (5 * TILE + 2 * T) * sizeof(float);
-  cudaError_t err = set_smem(flash_attention_dq_kernel, smem);
+  const size_t smem = dqk::SMEM_BYTES;
+  cudaError_t err = set_smem(dqk::flash_attention_dq_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, (sq + T - 1) / T);
-  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
-  flash_attention_dq_kernel<<<grid, THREADS, smem,
+  // one block an item: (batch*head, query tile), the tiles of a head
+  // adjacent
+  const long long items =
+      (long long)batch * heads * ((sq + dqk::BQ - 1) / dqk::BQ);
+  if (items == 0) return cudaSuccess;
+  const dim3 grid((unsigned)items);
+  dqk::flash_attention_dq_kernel<<<grid, dqk::THREADS, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),

@@ -3,8 +3,8 @@
 //
 // Replaces: mxnet_tpu_softmax_xent_fwd (mxnet_tpu/ops/pallas/xent.py:37)
 // and mxnet_tpu_softmax_xent_bwd (xent.py:49), the loss head of every
-// training step with SoftmaxCrossEntropyLoss (BERT's MLM head at V 30522
-// and its NSP head at V 2).
+// training step with SoftmaxCrossEntropyLoss (BERT's MLM head at V 30522,
+// its NSP head at V 2, ResNet's at V 1000).
 //
 //   forward   m = max_c x_c;  z = sum_c exp(x_c - m)
 //             logp_c = (x_c - m) - log z
@@ -18,14 +18,43 @@
 // dx: at the MLM shape (1920 x 30522) each moves 2 x 234 MB, 0.14 ms at
 // 3.35 TB/s.
 //
-// Design. One block of 256 threads per row, the rows in parallel (the TPU
-// kernel took 8-row blocks in a sequential grid). The forward reads its
-// row twice: once for a running (max, exp-sum) per thread, merged across
-// the block with warp shuffles, and once to write logp; so it moves 1.5x
-// its bound's bytes rather than the 2x of a separate max pass. Loads are
-// scalar and coalesced: a row of odd V is not 16-byte aligned. V = 2 (the
-// NSP head) takes the same path with 254 idle threads. Every output
-// element is written by one thread: no atomics.
+// Forward design: the row is read from device memory once. Three
+// instances, picked by xent.py xent_geometry from V (the INSTANCES table
+// below; xent.py mirrors it):
+//   * WARP_ROW (V <= WARP_V): one warp a row, the row in registers (32
+//     values a lane, coalesced scalar loads), max and exp-sum by warp
+//     butterflies; the NSP and ResNet heads;
+//   * CLUSTER_ROW: a thread-block cluster of C <= 8 CTAs owns a row, CTA
+//     k the columns [k chunk, (k + 1) chunk). Each CTA copies its chunk
+//     into shared memory once: the 16-byte-aligned middle by one bulk
+//     copy (cp.async.bulk, TMA 1-D) completing on an mbarrier, the at
+//     most 3 + 3 unaligned head and tail elements by scalar loads (a row
+//     of odd V, or of V = 2 mod 4, starts off a 16-byte boundary, and
+//     neither the copy nor a 16-byte access may cross the row's ends).
+//     The buffer keeps the global address's alignment (column c at
+//     position c - c0 + h0, h0 = the chunk's start mod 4), so its float4
+//     slots map onto aligned float4s of x and of logp; positions outside
+//     the chunk hold -inf, so the reductions run branch-free over whole
+//     slots with four independent chains a thread. Each CTA reduces its
+//     (max, exp-sum) from shared memory, the CTAs exchange them through
+//     distributed shared memory (mapa / ld.shared::cluster) after a
+//     cluster barrier, and every CTA merges the C partials in rank order:
+//     the same operations on the same values, so all CTAs of a row hold a
+//     bitwise identical max and log z. Then each CTA writes its logp from
+//     shared memory in 16-byte stores (scalar at the two ends); the CTA
+//     holding the label's column writes nll. A CTA arrives on a second
+//     cluster barrier once its partials have been read and waits on it
+//     before it exits, so no CTA's shared memory goes while a peer reads.
+//     C is the fewest CTAs whose chunk is at most CHUNK_TARGET floats
+//     (64 KB: three CTAs an SM, so one row's stores overlap other rows'
+//     loads); V 30522 takes 2, which measured faster on the H100 than
+//     1, 4 or 8 (chip_smoke.py times each size);
+//   * TWO_PASS (V past what 8 CTAs hold, 8 x MAX_CHUNK): one block of 256
+//     threads a row, reading the row twice (a running max / exp-sum, then
+//     logp): the first form of this kernel, kept for such widths.
+// Every output element is written by one thread: no atomics.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -33,6 +62,31 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---- the forward's instances (xent.py XENT_INSTANCES mirrors this) ----
+enum Instance { WARP_ROW = 0, CLUSTER_ROW = 1, TWO_PASS = 2 };
+constexpr int WARP_V = 1024;              // widest row a warp holds
+constexpr int PER_LANE = WARP_V / 32;     // values a lane
+constexpr int CLUSTER_MAX = 8;            // portable cluster size
+constexpr int HEADER = 128;               // mbarrier, partials, scratch
+constexpr int SMEM_MAX = 232448;          // a block's shared memory
+// floats of a CTA's chunk: a multiple of 4, buffer of chunk + 4 floats
+constexpr int MAX_CHUNK = ((SMEM_MAX - HEADER) / 4 - 4) & ~3;
+constexpr int CHUNK_TARGET = 16384;
+
+struct InstanceInfo {
+  int instance, threads, most_cluster, most_chunk;
+};
+constexpr InstanceInfo INSTANCES[] = {
+    {WARP_ROW, THREADS, 1, WARP_V},
+    {CLUSTER_ROW, THREADS, CLUSTER_MAX, MAX_CHUNK},
+    {TWO_PASS, THREADS, 1, 0},
+};
+
+__host__ __device__ constexpr int cluster_smem_bytes(int chunk) {
+  return HEADER + 4 * (chunk + 4);
+}
 
 // merge (m2, z2) into (m, z): z sums exp(x - m) over its elements
 __device__ __forceinline__ void merge(float& m, float& z, float m2,
@@ -43,11 +97,306 @@ __device__ __forceinline__ void merge(float& m, float& z, float m2,
   m = mn;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// every lane ends with the same bits: each step adds the same two values
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// ---- WARP_ROW ----
 __global__ void __launch_bounds__(THREADS)
-softmax_xent_fwd_kernel(const float* __restrict__ x,
-                        const int* __restrict__ labels,
-                        float* __restrict__ nll, float* __restrict__ logp,
-                        int v) {
+softmax_xent_fwd_warp_kernel(const float* __restrict__ x,
+                             const int* __restrict__ labels,
+                             float* __restrict__ nll,
+                             float* __restrict__ logp,
+                             int rows, int v) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const float* xr = x + (size_t)r * v;
+  float e[PER_LANE];
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int c = lane + 32 * i;
+    e[i] = c < v ? __ldg(xr + c) : -CUDART_INF_F;
+  }
+  float mc[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
+                 -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) mc[i & 3] = fmaxf(mc[i & 3], e[i]);
+  const float m = warp_max(fmaxf(fmaxf(mc[0], mc[1]), fmaxf(mc[2], mc[3])));
+  const float shift = m == -CUDART_INF_F ? 0.f : m;
+  float zc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) zc[i & 3] += expf(e[i] - shift);
+  const float logz = logf(warp_sum((zc[0] + zc[1]) + (zc[2] + zc[3])));
+  const int lab = labels[r];
+  float* lr = logp + (size_t)r * v;
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int c = lane + 32 * i;
+    if (c < v) {
+      const float lp = (e[i] - m) - logz;
+      lr[c] = lp;
+      if (c == lab) nll[r] = -lp;
+    }
+  }
+  if (lane == 0 && !(lab >= 0 && lab < v)) nll[r] = 0.f;
+}
+
+// ---- CLUSTER_ROW ----
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the float at shared address `local` in the CTA of cluster rank `rank`
+__device__ __forceinline__ float ld_peer(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from 16-byte-aligned global `src` to shared
+// `dst`, reported to the mbarrier as transaction bytes; the logits are
+// read once, so they leave L2 first
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 policy;\n"
+      "createpolicy.fractional.L2::evict_first.b64 policy, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], policy;\n}\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A CTA's share of a row: columns [c0, c0 + len) at buffer positions
+// [h0, h0 + len); the bulk copy takes positions [lo, lo + body) (lo a
+// multiple of 4), the threads the rest of the nq float4 slots
+// (tests/test_torch_xent.py runs this arithmetic in Python).
+struct Chunk {
+  int c0, len, h0, lo, body, nq;
+};
+
+__device__ __forceinline__ Chunk chunk_of(size_t row_start, int v, int chunk,
+                                          int rank) {
+  Chunk k;
+  k.c0 = rank * chunk;
+  k.len = max(0, min(v, k.c0 + chunk) - k.c0);
+  k.h0 = (int)((row_start + k.c0) & 3);
+  const int head = min(k.len, (4 - k.h0) & 3);
+  k.lo = k.h0 + head;
+  k.body = (k.len - head) & ~3;
+  k.nq = (k.h0 + k.len + 3) >> 2;
+  return k;
+}
+
+__global__ void __launch_bounds__(THREADS)
+softmax_xent_fwd_cluster_kernel(const float* __restrict__ x,
+                                const int* __restrict__ labels,
+                                float* __restrict__ nll,
+                                float* __restrict__ logp,
+                                int v, int chunk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* part = reinterpret_cast<float*>(smem + 8);    // this CTA's m, z
+  float* red_m = reinterpret_cast<float*>(smem + 16);  // [WARPS]
+  float* red_z = reinterpret_cast<float*>(smem + 48);  // [WARPS]
+  float* stat = reinterpret_cast<float*>(smem + 80);   // the row's m, log z
+  float* buf = reinterpret_cast<float*>(smem + HEADER);
+
+  const uint32_t rank = cluster_rank();
+  const uint32_t csize = cluster_size();
+  const int r = blockIdx.x / csize;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const size_t row_start = (size_t)r * v;
+  const Chunk k = chunk_of(row_start, v, chunk, rank);
+  const float* xc = x + row_start + k.c0 - k.h0;  // buffer position 0
+  const uint32_t bar_a = smem_u32(bar);
+
+  if (t == 0) mbar_init(bar_a, 1);
+  __syncthreads();
+  if (t == 0) {
+    if (k.body > 0) {
+      mbar_expect_tx(bar_a, 4 * k.body);
+      bulk_load(smem_u32(buf + k.lo), xc + k.lo, 4 * k.body, bar_a);
+    } else {
+      mbar_arrive(bar_a);
+    }
+  }
+  // the slots' other positions: head (below lo, at most 4) by threads
+  // 0-3, tail and pad (from lo + body, at most 6) by threads 4-11
+  if (t < 12) {
+    const int p = t < 4 ? t : k.lo + k.body + (t - 4);
+    if ((t < 4 ? p < k.lo : p < 4 * k.nq)) {
+      const bool in = p >= k.h0 && p < k.h0 + k.len;
+      buf[p] = in ? xc[p] : -CUDART_INF_F;
+    }
+  }
+  mbar_wait(bar_a, 0);
+  __syncthreads();
+
+  // the CTA's (max, exp-sum) over its slots, four chains a thread
+  const float4* b4 = reinterpret_cast<const float4*>(buf);
+  float mc[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
+                 -CUDART_INF_F};
+#pragma unroll 4
+  for (int i = t; i < k.nq; i += THREADS) {
+    const float4 a = b4[i];
+    mc[0] = fmaxf(mc[0], a.x);
+    mc[1] = fmaxf(mc[1], a.y);
+    mc[2] = fmaxf(mc[2], a.z);
+    mc[3] = fmaxf(mc[3], a.w);
+  }
+  float m = warp_max(fmaxf(fmaxf(mc[0], mc[1]), fmaxf(mc[2], mc[3])));
+  if (lane == 0) red_m[w] = m;
+  __syncthreads();
+  m = red_m[0];
+#pragma unroll
+  for (int i = 1; i < WARPS; ++i) m = fmaxf(m, red_m[i]);
+  const float shift = m == -CUDART_INF_F ? 0.f : m;
+  float zc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int i = t; i < k.nq; i += THREADS) {
+    const float4 a = b4[i];
+    zc[0] += expf(a.x - shift);
+    zc[1] += expf(a.y - shift);
+    zc[2] += expf(a.z - shift);
+    zc[3] += expf(a.w - shift);
+  }
+  const float z = warp_sum((zc[0] + zc[1]) + (zc[2] + zc[3]));
+  if (lane == 0) red_z[w] = z;
+  __syncthreads();
+  if (t == 0) {
+    float zs = red_z[0];
+#pragma unroll
+    for (int i = 1; i < WARPS; ++i) zs += red_z[i];
+    part[0] = m;
+    part[1] = zs;
+  }
+  cluster_arrive();  // the partials are written
+  cluster_wait();
+  if (t == 0) {
+    // every CTA of the row merges the same partials in rank order
+    const uint32_t pm = smem_u32(part), pz = smem_u32(part + 1);
+    float gm = -CUDART_INF_F, gz = 0.f;
+    for (uint32_t i = 0; i < csize; ++i)
+      merge(gm, gz, ld_peer(pm, i), ld_peer(pz, i));
+    stat[0] = gm;
+    stat[1] = logf(gz);
+  }
+  __syncthreads();
+  cluster_arrive();  // the peers' partials are read; wait before exit
+  const float gm = stat[0];
+  const float logz = stat[1];
+
+  // logp from shared memory: whole slots as aligned float4s, the two end
+  // slots element by element
+  float* lc = logp + row_start + k.c0 - k.h0;
+#pragma unroll 4
+  for (int i = t; i < k.nq; i += THREADS) {
+    const float4 a = b4[i];
+    const int p = 4 * i;
+    float4 o;
+    o.x = (a.x - gm) - logz;
+    o.y = (a.y - gm) - logz;
+    o.z = (a.z - gm) - logz;
+    o.w = (a.w - gm) - logz;
+    if (p >= k.h0 && p + 3 < k.h0 + k.len) {  // streaming: read much later
+      __stcs(reinterpret_cast<float4*>(lc + p), o);
+    } else {
+      const float ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (p + e >= k.h0 && p + e < k.h0 + k.len) lc[p + e] = ov[e];
+    }
+  }
+  if (t == 0) {
+    const int lab = labels[r];
+    if (lab >= k.c0 && lab < k.c0 + k.len)
+      nll[r] = -((buf[lab - k.c0 + k.h0] - gm) - logz);
+    else if (rank == 0 && !(lab >= 0 && lab < v))
+      nll[r] = 0.f;
+  }
+  cluster_wait();
+}
+
+// ---- TWO_PASS ----
+__global__ void __launch_bounds__(THREADS)
+softmax_xent_fwd_two_pass_kernel(const float* __restrict__ x,
+                                 const int* __restrict__ labels,
+                                 float* __restrict__ nll,
+                                 float* __restrict__ logp,
+                                 int v) {
   __shared__ float wm[WARPS], wz[WARPS];
   const int r = blockIdx.x;
   const int t = threadIdx.x;
@@ -66,8 +415,7 @@ softmax_xent_fwd_kernel(const float* __restrict__ x,
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    merge(m, z, __shfl_xor_sync(0xffffffffu, m, off),
-          __shfl_xor_sync(0xffffffffu, z, off));
+    merge(m, z, __shfl_xor_sync(FULL, m, off), __shfl_xor_sync(FULL, z, off));
   if ((t & 31) == 0) {
     wm[t >> 5] = m;
     wz[t >> 5] = z;
@@ -102,21 +450,104 @@ softmax_xent_bwd_kernel(const float* __restrict__ logp,
     dr[c] = gr * (expf(lr[c]) - (c == lab ? 1.f : 0.f));
 }
 
+cudaError_t launch_cluster(const float* x, const int* labels, float* nll,
+                           float* logp, int rows, int v, int cluster,
+                           int chunk, cudaStream_t stream) {
+  // the shared-memory attribute once per device
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(softmax_xent_fwd_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               cluster_smem_bytes(MAX_CHUNK));
+    if (err != cudaSuccess) return err;
+    // the whole carveout as shared memory, so small chunks stack up to
+    // seven CTAs an SM
+    err = cudaFuncSetAttribute(softmax_xent_fwd_cluster_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)rows * (unsigned)cluster);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = cluster_smem_bytes(chunk);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, softmax_xent_fwd_cluster_kernel, x,
+                           labels, nll, logp, v, chunk);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ---- host entry points ----
 // logits / logp / dx (rows, V), labels (rows,) int32, nll / g (rows,);
 // all contiguous on the device, float32 unless stated. Each returns the
-// cudaError_t of its launch.
+// cudaError_t of its launch. The forward's instance, cluster and chunk
+// come from xent.py xent_geometry; a combination the instance does not
+// take is refused (cudaErrorInvalidValue).
 extern "C" int mx_softmax_xent_fwd(const void* logits, const void* labels,
                                    void* nll, void* logp, int rows, int v,
+                                   int instance, int cluster, int chunk,
                                    void* stream) {
-  if (rows == 0 || v == 0) return cudaSuccess;
-  softmax_xent_fwd_kernel<<<rows, THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<const int*>(labels),
-      static_cast<float*>(nll), static_cast<float*>(logp), v);
-  return cudaGetLastError();
+  const auto* x = static_cast<const float*>(logits);
+  const auto* lab = static_cast<const int*>(labels);
+  auto* n = static_cast<float*>(nll);
+  auto* lp = static_cast<float*>(logp);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (rows < 0 || v < 0 || instance < WARP_ROW || instance > TWO_PASS ||
+      cluster < 1 || cluster > INSTANCES[instance].most_cluster)
+    return cudaErrorInvalidValue;
+  switch (instance) {
+    case WARP_ROW:
+      if (v > INSTANCES[WARP_ROW].most_chunk) return cudaErrorInvalidValue;
+      if (rows == 0 || v == 0) return cudaSuccess;
+      softmax_xent_fwd_warp_kernel<<<(rows + WARPS - 1) / WARPS, THREADS, 0,
+                                     st>>>(x, lab, n, lp, rows, v);
+      return cudaGetLastError();
+    case CLUSTER_ROW:
+      // every CTA of the cluster holds at least one column
+      if (chunk % 4 != 0 || chunk < 4 ||
+          chunk > INSTANCES[CLUSTER_ROW].most_chunk ||
+          (long long)chunk * cluster < v ||
+          (long long)chunk * (cluster - 1) >= v)
+        return cudaErrorInvalidValue;
+      if (rows == 0) return cudaSuccess;
+      return launch_cluster(x, lab, n, lp, rows, v, cluster, chunk, st);
+    default:  // TWO_PASS
+      if (rows == 0 || v == 0) return cudaSuccess;
+      softmax_xent_fwd_two_pass_kernel<<<rows, THREADS, 0, st>>>(x, lab, n,
+                                                                 lp, v);
+      return cudaGetLastError();
+  }
+}
+
+// Dynamic shared memory of the forward's instance at `chunk` floats a CTA
+// in bytes (-1: no such instance), so the wrapper can hold xent_geometry
+// to the kernel's layout.
+extern "C" int mx_softmax_xent_fwd_smem(int instance, int chunk) {
+  switch (instance) {
+    case WARP_ROW:
+    case TWO_PASS:
+      return 0;
+    case CLUSTER_ROW:
+      return chunk >= 0 && chunk <= MAX_CHUNK ? cluster_smem_bytes(chunk)
+                                              : -1;
+    default:
+      return -1;
+  }
 }
 
 extern "C" int mx_softmax_xent_bwd(const void* logp, const void* labels,

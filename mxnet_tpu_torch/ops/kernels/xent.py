@@ -6,8 +6,10 @@ The counterpart of ``mxnet_tpu/ops/pallas/xent.py``. Two kernels, both in
 
   * :func:`softmax_xent_forward` replaces ``mxnet_tpu_softmax_xent_fwd``
     (xent.py:37): per row the max, the exp-sum, ``logp = x - m - log z``
-    and ``nll = -logp[label]`` from one read of the logits for the
-    statistics and one for ``logp``;
+    and ``nll = -logp[label]``, the logits read once. Its instance comes
+    from :func:`xent_geometry`: a warp a row (V <= 1024), a thread-block
+    cluster a row with the row held in the CTAs' shared memory, or for
+    rows wider than a cluster holds, a block a row reading it twice;
   * :func:`softmax_xent_backward` replaces ``mxnet_tpu_softmax_xent_bwd``
     (xent.py:49): ``dx = g * (exp(logp) - onehot(label))``.
 
@@ -25,18 +27,75 @@ kernel or raises, inputs are checked, each launch is counted.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
+from .attention import SMEM_BLOCK_MAX
 from ._launch import (check_inputs as _check_inputs, count as _count,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
 
-__all__ = ['fused_softmax_xent_rows', 'fused_softmax_xent_rows_reference',
+__all__ = ['XENT_INSTANCES', 'XentGeometry', 'xent_geometry',
+           'fused_softmax_xent_rows',
+           'fused_softmax_xent_rows_reference',
            'SoftmaxXentFunction', 'softmax_xent_forward',
            'softmax_xent_forward_reference', 'softmax_xent_backward',
            'softmax_xent_backward_reference']
+
+
+# the forward's instances, in the order of the C enum Instance
+# (csrc/softmax_xent.cu), which the constants below mirror
+XENT_INSTANCES = ('warp', 'cluster', 'two_pass')
+XENT_THREADS = 256
+XENT_WARP_V = 1024          # widest row one warp holds in registers
+XENT_CLUSTER_MAX = 8        # CTAs a cluster (the portable size)
+XENT_HEADER = 128           # bytes of mbarrier, partials and scratch
+# floats of a CTA's chunk (a multiple of 4; its buffer holds chunk + 4)
+XENT_CHUNK_MAX = ((SMEM_BLOCK_MAX - XENT_HEADER) // 4 - 4) & ~3
+XENT_CHUNK_TARGET = 16384   # 64 KB a CTA: three CTAs an SM
+
+XentGeometry = collections.namedtuple(
+    'XentGeometry', 'instance cluster chunk smem threads grid')
+
+
+def _chunk(v, cluster):
+    per = -(-v // cluster)
+    return 4 * -(-per // 4)
+
+
+def _cluster_geometry(rows, v, cluster):
+    """The cluster instance's geometry at ``cluster`` CTAs a row; raises
+    where a CTA of it would hold no column or its chunk does not fit."""
+    chunk = _chunk(v, cluster)
+    _require(1 <= cluster <= XENT_CLUSTER_MAX and chunk <= XENT_CHUNK_MAX
+             and (cluster - 1) * chunk < v,
+             'xent_geometry: no cluster instance of %r CTAs for V %d'
+             % (cluster, v))
+    return XentGeometry('cluster', cluster, chunk,
+                        XENT_HEADER + 4 * (chunk + 4), XENT_THREADS,
+                        rows * cluster)
+
+
+def xent_geometry(rows, v):
+    """The forward kernel's instance for (rows, V) logits, as a
+    :class:`XentGeometry` (instance, CTAs a cluster, floats a CTA's chunk,
+    dynamic shared memory bytes a CTA, threads a block, blocks).
+
+    ``warp`` for V <= :data:`XENT_WARP_V` (eight rows a block); else
+    ``cluster``, the fewest of 1, 2, 4, 8 CTAs a row whose chunk (V / CTAs
+    rounded up to a multiple of 4) is at most :data:`XENT_CHUNK_TARGET`
+    floats, or 8 while the chunk fits a block's shared memory
+    (:data:`XENT_CHUNK_MAX`); past that ``two_pass``, a block a row."""
+    if v <= XENT_WARP_V:
+        return XentGeometry('warp', 1, v, 0, XENT_THREADS,
+                            -(-rows // (XENT_THREADS // 32)))
+    cluster = next((c for c in (1, 2, 4, 8)
+                    if _chunk(v, c) <= XENT_CHUNK_TARGET), XENT_CLUSTER_MAX)
+    if _chunk(v, cluster) > XENT_CHUNK_MAX:
+        return XentGeometry('two_pass', 1, v, 0, XENT_THREADS, rows)
+    return _cluster_geometry(rows, v, cluster)
 
 
 def _onehot(labels, v, device):
@@ -74,20 +133,35 @@ def _rows_g(g, rows, device):
 
 def _lib(entry):
     from . import _build
-    fn = getattr(_build.load('softmax_xent'), entry)
+    lib = _build.load('softmax_xent')
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
+        fwd = entry == 'mx_softmax_xent_fwd'
+        if fwd:
+            # the kernel's layout against xent_geometry's
+            smem = lib.mx_softmax_xent_fwd_smem
+            smem.restype = ctypes.c_int
+            smem.argtypes = [ctypes.c_int] * 2
+            for chunk in (4, XENT_CHUNK_TARGET, XENT_CHUNK_MAX):
+                built = smem(XENT_INSTANCES.index('cluster'), chunk)
+                want = XENT_HEADER + 4 * (chunk + 4)
+                _require(built == want, 'softmax_xent_fwd: xent_geometry '
+                         'gives %d bytes at chunk %d, the kernel takes %d'
+                         % (want, chunk, built))
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
+            5 if fwd else 2) + [ctypes.c_void_p]
     return fn
 
 
 def softmax_xent_forward(logits, labels):
     """Per-row ``nll`` (rows,) and ``logp`` (rows, V), both float32, of
-    (rows, V) logits and (rows,) labels."""
+    (rows, V) logits and (rows,) labels, by the instance
+    :func:`xent_geometry` picks."""
     if _on_cpu('softmax_xent_forward', logits, '(rows, V)'):
         return softmax_xent_forward_reference(logits, labels)
     rows, v = logits.shape
+    geom = xent_geometry(rows, v)
     lab = labels.to(dtype=torch.int32).reshape(-1).contiguous()
     _require(lab.shape[0] == rows, 'softmax_xent_forward: %d labels for '
              '%d rows' % (lab.shape[0], rows))
@@ -98,9 +172,10 @@ def softmax_xent_forward(logits, labels):
     with torch.cuda.device(logits.device):
         err = _lib('mx_softmax_xent_fwd')(
             _ptr(logits), _ptr(lab), _ptr(nll), _ptr(logp), rows, v,
+            XENT_INSTANCES.index(geom.instance), geom.cluster, geom.chunk,
             _stream(logits.device))
     _raise_on('softmax_xent_fwd', err)
-    _count('softmax_xent_fwd')
+    _count('softmax_xent_fwd', geom.instance)
     return nll, logp
 
 

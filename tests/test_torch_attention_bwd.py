@@ -130,7 +130,8 @@ def test_training_kernels_match_plain_versions_on_card():
     """The four kernels of the training slice (flash dq and dkv,
     softmax-xent forward and backward) against their plain versions on
     the card: 1e-5 absolute for the forward outputs, 1e-5 relative to
-    each tensor's max abs for the gradients."""
+    each tensor's max abs for the gradients; the xent forward at every
+    instance it is built for."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels are CUDA C++ for '
                     'sm_90a and have no CPU mode')
@@ -146,7 +147,10 @@ def test_training_kernels_match_plain_versions_on_card():
         for a, b in zip(got, want):
             tol = 1e-5 * max(b.abs().max().item(), 1e-30)
             assert (a - b).abs().max().item() <= tol
-    for rows, vocab in ((96, 2), (300, 30522)):
+    # every instance of the xent forward: a warp a row, a cluster of CTAs
+    # (rows on and off 16-byte boundaries), a block a row
+    for rows, vocab in ((96, 2), (300, 30522), (128, 1000), (8, 30523),
+                        (4, 600001)):
         rs = np.random.RandomState(rows)
         x = torch.tensor(rs.randn(rows, vocab).astype('float32') * 3,
                          device='cuda')
@@ -161,3 +165,145 @@ def test_training_kernels_match_plain_versions_on_card():
         dx_ref = kernels.softmax_xent_backward_reference(logp, lab, gr)
         tol = 1e-5 * dx_ref.abs().max().item()
         assert (dx - dx_ref).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the dq kernel's arithmetic (csrc/flash_attention_bwd.cu, namespace dqk):
+# S = Q K^T, dP = dO V^T and dQ = dS K on the tensor cores in 3xTF32
+# ---------------------------------------------------------------------------
+
+
+def tf32_split(x):
+    """(big, small) as the kernel's ``split`` and the mma read them: big =
+    tf32(x) rounded to nearest, ties away from zero, on the 10-bit mantissa
+    (add half of the 13 dropped bits to the magnitude, then clear them);
+    small = x - big as the mma reads a float32 register given as tf32, its
+    13 low bits dropped (toward zero)."""
+    def top19(t):
+        return (t.contiguous().view(torch.int32) & -0x2000).view(
+            torch.float32)
+    bits = x.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return big, top19(x - big)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as the kernel's ``mma3`` sums it: small.big + big.small +
+    big.big in float32, small.small dropped."""
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)) + torch.matmul(
+        ab, bb)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _kernel_exp(s, scale, lse):
+    """p as the kernel takes it from the unscaled float32 scores: 2^(s
+    scale2 - lse2), scale2 = scale log2 e and lse2 = lse log2 e rounded to
+    float32, the argument one fma (rounded once); exp2 stands in for
+    ``ex2.approx``, whose own rounding is not mirrored."""
+    scale2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    lse2 = lse * torch.tensor(LOG2E, dtype=torch.float32)
+    arg = s.double() * scale2.double() - lse2.double()[..., None]
+    return torch.exp2(arg.float())
+
+
+def dq_mirror(q, k, v, out, lse, do, lengths, causal, scale, mm):
+    """dq as ``_p_block`` orders it (attention.py:195), every product by
+    ``mm``; (B, H, S, D) tensors of one dtype. In float32 p is taken the
+    kernel's way (:func:`_kernel_exp`), in float64 as exp(s scale -
+    lse)."""
+    sk = k.shape[2]
+    s = mm(q, k.transpose(-1, -2))
+    kp = torch.arange(sk)
+    valid = (kp[None, :] < lengths[:, None].long())[:, None, None, :]
+    if causal:
+        valid = valid & (torch.arange(q.shape[2])[:, None] >= kp[None, :])
+    dead = ~valid | torch.isneginf(lse)[..., None]
+    safe = torch.where(torch.isneginf(lse), 0.0, lse)
+    ex = (_kernel_exp(s, scale, safe) if s.dtype == torch.float32
+          else torch.exp(s * scale - safe[..., None]))
+    p = torch.where(dead, 0.0, ex)
+    delta = torch.sum(do * out, dim=-1)
+    ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+    return mm(ds, k)
+
+
+def test_tf32_split_rounds_to_nearest_on_the_mantissa():
+    rs = np.random.RandomState(5)
+    x = torch.tensor(np.concatenate([
+        rs.randn(4096) * 10.0 ** rs.randint(-6, 6, 4096),
+        [1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23,
+         1 + 3 * 2 ** -11, 0.0]]).astype('float32'))
+    big, small = tf32_split(x)
+    for t in (big, small):
+        assert not (t.view(torch.int32) & 0x1fff).any()
+    x64, big64, small64 = x.double(), big.double(), small.double()
+    # big within half a tf32 ulp, x - big exact in float32
+    assert ((x64 - big64).abs() <= 2.0 ** -11 * x64.abs()).all()
+    assert torch.equal((x - big).double(), x64 - big64)
+    # the pair keeps x within 2^-21 of itself (small toward zero)
+    assert ((x64 - big64 - small64).abs() <= 2.0 ** -21 * x64.abs()).all()
+    # ties go away from zero; below half goes down
+    assert big[-5].item() == 1 + 2 ** -10 and big[-4].item() == -(1 + 2 ** -10)
+    assert big[-3].item() == 1.0 and big[-2].item() == 1 + 2 ** -9
+    assert big[-1].item() == 0.0 and small[-1].item() == 0.0
+
+
+def test_3xtf32_product_holds_float32_accuracy():
+    """The three terms miss a b by at most 2 x 2^-21 + 2^-22 of |a| |b|
+    (each small part, and small.small dropped), their float32 sums by
+    (k + 2) 2^-24 more."""
+    rs = np.random.RandomState(6)
+    a, b = (torch.tensor(rs.randn(64, 64).astype('float32')) for _ in '12')
+    got = mm_3xtf32(a, b).double()
+    want = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    assert ((got - want).abs() <= (5 * 2.0 ** -22 + 66 * 2.0 ** -24)
+            * scale).all()
+
+
+@pytest.fixture(scope='module')
+def training_dq():
+    """dq at the training shape (B 96, H 12, S 128, D 64, lengths 128 down
+    to 36 as chip_smoke's case has them): the 3xTF32 mirror, float64 and
+    ``jax.grad`` of the JAX package's Pallas flash attention in the
+    interpreter, from one numpy seed."""
+    b, h, s, d = 96, 12, 128, 64
+    q, k, v, g = _inputs(96, b, h, s, d)
+    lengths = np.array([max(1, s - (i % 5) * 23) for i in range(b)],
+                       'int32')
+    lens = torch.tensor(lengths)
+    qt, kt, vt, gt = map(torch.tensor, (q, k, v, g))
+    out, lse = kernels.flash_attention_reference(qt, kt, vt, lens)
+    scale = 1.0 / 8
+    mirror, exact = [], []
+    for i in range(0, b, 24):
+        part = slice(i, i + 24)
+        args = (qt[part], kt[part], vt[part], out[part], lse[part],
+                gt[part], lens[part])
+        mirror.append(dq_mirror(*args, False, scale, mm_3xtf32))
+        exact.append(dq_mirror(*(t.double() if t.is_floating_point() else t
+                                 for t in args), False, scale,
+                               torch.matmul))
+    jax_dq = _jax_grads(q, k, v, g, lengths, False)[0]
+    return torch.cat(mirror), torch.cat(exact), torch.tensor(jax_dq)
+
+
+def test_dq_in_3xtf32_against_float64_at_training_shape(training_dq):
+    """The kernel's arithmetic holds dq to 2e-6 of its max abs against
+    float64 (the card's check allows 1e-5): 3xTF32 is float32-grade."""
+    mirror, exact, _ = training_dq
+    rel = ((mirror.double() - exact).abs().max()
+           / exact.abs().max()).item()
+    assert rel <= 2e-6, rel
+
+
+def test_dq_in_3xtf32_against_jax_at_training_shape(training_dq):
+    """... and to 1e-5 of its max abs against the JAX package's flash
+    attention gradient (its own float32 forward and backward)."""
+    mirror, _, jax_dq = training_dq
+    rel = ((mirror - jax_dq).abs().max() / jax_dq.abs().max()).item()
+    assert rel <= 1e-5, rel

@@ -14,6 +14,10 @@ The kernels themselves (CUDA, sm_90a) run only on the card: the test
 marked ``cuda`` in ``test_torch_attention_bwd.py`` compares them with
 their plain versions there.
 """
+import importlib
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -169,3 +173,212 @@ def test_wrappers_reject_other_devices_and_bad_shapes():
                                       1.0)
     with pytest.raises(ValueError, match='expected \\(rows, V\\)'):
         kernels.softmax_xent_forward(torch.zeros(3), torch.zeros(3))
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's instances and its cluster arithmetic, as the CUDA
+# source writes them (csrc/softmax_xent.cu), run in Python
+# ---------------------------------------------------------------------------
+
+_xent = importlib.import_module('mxnet_tpu_torch.ops.kernels.xent')
+_SRC = os.path.join(os.path.dirname(_xent.__file__), 'csrc',
+                    'softmax_xent.cu')
+GEOMETRY_V = [1, 2, 1000, 1024, 1025, 16384, 16385, 30522, 30523, 50000,
+              200003, 464608, 464609, 600000]
+
+
+def _source():
+    return open(_SRC).read()
+
+
+def _const(src, name):
+    return int(re.search(r'constexpr int %s = (\d+);' % name, src).group(1))
+
+
+def test_instance_table_mirrors_the_source():
+    """``XENT_INSTANCES`` and the limits are the C enum, constants and
+    ``INSTANCES`` table; the shared-memory formula is the C one."""
+    src = _source()
+    assert ('enum Instance { WARP_ROW = 0, CLUSTER_ROW = 1, TWO_PASS = 2 };'
+            in src)
+    assert _xent.XENT_INSTANCES == ('warp', 'cluster', 'two_pass')
+    for name, want in (('THREADS', _xent.XENT_THREADS),
+                       ('WARP_V', _xent.XENT_WARP_V),
+                       ('CLUSTER_MAX', _xent.XENT_CLUSTER_MAX),
+                       ('HEADER', _xent.XENT_HEADER),
+                       ('SMEM_MAX', _xent.SMEM_BLOCK_MAX),
+                       ('CHUNK_TARGET', _xent.XENT_CHUNK_TARGET)):
+        assert _const(src, name) == want, name
+    assert ('constexpr int MAX_CHUNK = ((SMEM_MAX - HEADER) / 4 - 4) & ~3;'
+            in src)
+    assert _xent.XENT_CHUNK_MAX == 58076
+    table = re.search(r'INSTANCES\[\] = \{(.*?)\};', src, re.S).group(1)
+    rows = re.findall(r'\{(\w+), (\w+), (\w+), (\w+)\}', table)
+    names = {'WARP_ROW': 'warp', 'CLUSTER_ROW': 'cluster',
+             'TWO_PASS': 'two_pass'}
+    values = {'THREADS': _xent.XENT_THREADS, 'CLUSTER_MAX': 8,
+              'WARP_V': _xent.XENT_WARP_V, 'MAX_CHUNK': _xent.XENT_CHUNK_MAX}
+    got = [(names[i], values.get(t, t), int(values.get(c, c)),
+            int(values.get(k, k))) for i, t, c, k in rows]
+    assert got == [('warp', 256, 1, 1024), ('cluster', 256, 8, 58076),
+                   ('two_pass', 256, 1, 0)]
+    assert 'return HEADER + 4 * (chunk + 4);' in src
+
+
+def test_card_cases_reach_every_instance_and_cluster_size():
+    """chip_smoke's xent cases launch every instance of the forward, the
+    cluster at 2, 4 and 8 CTAs a row (8 with a chunk above the 16384-float
+    target), and rows starting at every offset mod 16 bytes."""
+    from chip_smoke import XENT_SHAPES
+    geoms = [kernels.xent_geometry(rows, v) for rows, v in XENT_SHAPES]
+    assert {g.instance for g in geoms} == set(kernels.XENT_INSTANCES)
+    clusters = {g.cluster for g in geoms if g.instance == 'cluster'}
+    assert clusters == {2, 4, 8}
+    assert any(g.cluster == 8 and g.chunk > _xent.XENT_CHUNK_TARGET
+               for g in geoms if g.instance == 'cluster')
+    assert {r * v * 4 % 16 for rows, v in XENT_SHAPES
+            for r in range(rows)} == {0, 4, 8, 12}
+
+
+def test_forward_kernels_carry_the_profile_key():
+    """Every kernel of the source holds 'softmax_xent' in its name, the
+    key by which chip_smoke's profiles count the 'xent kernels' group."""
+    from chip_smoke import BERT_GROUPS, RESNET_GROUPS
+    names = re.findall(r'__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(',
+                       _source())
+    assert len(names) == 4
+    for groups in (BERT_GROUPS, RESNET_GROUPS):
+        keys = dict((g, k) for g, k, _ in groups)['xent kernels']
+        assert all(any(key in name for key in keys) for name in names)
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _chunk_of(row_start, v, chunk, rank):
+    """``chunk_of`` of the source: (c0, len, h0, lo, body, nq)."""
+    c0 = rank * chunk
+    n = max(0, min(v, c0 + chunk) - c0)
+    h0 = (row_start + c0) & 3
+    head = min(n, (4 - h0) & 3)
+    return c0, n, h0, h0 + head, (n - head) & ~3, (h0 + n + 3) >> 2
+
+
+@pytest.mark.parametrize('v', GEOMETRY_V)
+@pytest.mark.parametrize('rows', [1, 7, 1920])
+def test_xent_geometry(rows, v):
+    """A warp a row up to 1024 columns; above, the fewest CTAs a cluster
+    whose chunk is at most 16384 floats, or 8 while a chunk fits a block;
+    past that a block a row. A cluster's chunks tile the row exactly,
+    every CTA holding a column; its shared memory stays within a block's
+    232,448 bytes; at most 8 CTAs a cluster."""
+    g = kernels.xent_geometry(rows, v)
+    assert g.instance in kernels.XENT_INSTANCES and g.threads == 256
+    if v <= 1024:
+        assert g == ('warp', 1, v, 0, 256, -(-rows // 8))
+        return
+    if v > 8 * _xent.XENT_CHUNK_MAX:
+        assert g == ('two_pass', 1, v, 0, 256, rows)
+        return
+    assert g.instance == 'cluster' and 1 <= g.cluster <= 8
+    assert g.grid == rows * g.cluster
+    assert g.chunk % 4 == 0 and g.smem == 128 + 4 * (g.chunk + 4)
+    assert g.smem <= 232448
+    smaller = [c for c in (1, 2, 4, 8) if c < g.cluster]
+    assert g.chunk <= 16384 or g.cluster == 8
+    assert all(_ceil(_ceil(v, c), 4) * 4 > 16384 for c in smaller)
+    spans = [_chunk_of(0, v, g.chunk, k)[:2] for k in range(g.cluster)]
+    assert all(n >= 1 for _, n in spans)
+    assert sum(n for _, n in spans) == v
+    assert [c0 for c0, _ in spans] == [sum(n for _, n in spans[:k])
+                                       for k in range(g.cluster)]
+
+
+@pytest.mark.parametrize('v,cluster', [(30522, 4), (30523, 4), (30522, 2),
+                                       (30523, 8), (1025, 1), (8193, 2),
+                                       (464608, 8), (1027, 8), (50000, 4),
+                                       (200003, 8)])
+def test_cluster_chunks_cover_each_row_once_aligned(v, cluster):
+    """Every row's chunks as the CTAs load and store them, for rows
+    starting at each offset mod 16 bytes: the bulk copy reads 16-byte
+    aligned whole 16-byte units inside the chunk into 16-byte aligned
+    buffer positions; threads 0-3 and 4-11 fill the rest of the used
+    float4 slots; together they cover every slot position once, each
+    column of the chunk exactly once and nothing outside the row; the
+    16-byte logp stores land on aligned addresses inside the chunk; the
+    buffer fits the chunk + 4 floats allocated."""
+    g = _xent._cluster_geometry(3, v, cluster)
+    for r in range(4):
+        row_start = r * v
+        cols = []
+        for rank in range(cluster):
+            c0, n, h0, lo, body, nq = _chunk_of(row_start, v, g.chunk, rank)
+            assert 4 * nq <= g.chunk + 4
+            assert lo % 4 == 0 and lo <= 4 and body % 4 == 0
+            if body:
+                src = row_start + c0 - h0 + lo      # element index into x
+                assert src % 4 == 0                 # 16-byte aligned
+                assert c0 <= c0 + lo - h0 and c0 + lo - h0 + body <= c0 + n
+            filled = list(range(lo, lo + body))
+            for t in range(12):
+                p = t if t < 4 else lo + body + (t - 4)
+                if p < lo if t < 4 else p < 4 * nq:
+                    filled.append(p)
+            assert sorted(filled) == list(range(4 * nq))
+            cols += [c0 + p - h0 for p in range(4 * nq)
+                     if h0 <= p < h0 + n]
+            for i in range(nq):
+                p = 4 * i
+                if h0 <= p and p + 3 < h0 + n:
+                    assert (row_start + c0 - h0 + p) % 4 == 0
+        assert cols == list(range(v))
+
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _merge(m, z, m2, z2):
+    """``merge`` of the source, in float32."""
+    mn = max(m, m2)
+    if mn == -np.inf:
+        return m, z
+    return mn, _f32(z * np.exp(_f32(m - mn)) + z2 * np.exp(_f32(m2 - mn)))
+
+
+@pytest.mark.parametrize('cluster', [2, 4, 8])
+def test_rank_ordered_merge_gives_every_rank_the_same_log_z(cluster):
+    """Each CTA of a row merges the cluster's (max, exp-sum) partials in
+    rank order, so every rank's log z is bitwise the same and within 1e-6
+    of the float64 log-sum-exp; from 3 CTAs on, a merge that started from
+    the CTA's own partial would not be the same on every rank (two
+    partials commute)."""
+    rs = np.random.RandomState(11)
+    differs = 0
+    for row in range(100):
+        x = (rs.randn(30522) * 3).astype('float32')
+        g = _xent._cluster_geometry(1, x.size, cluster)
+        parts = []
+        for rank in range(g.cluster):
+            seg = x[rank * g.chunk:(rank + 1) * g.chunk]
+            m = seg.max()
+            parts.append((m, np.exp(seg - m, dtype=np.float32).sum(
+                dtype=np.float32)))
+        logz = []
+        for rank in range(g.cluster):
+            gm, gz = _f32(-np.inf), _f32(0)
+            for m, z in parts:                       # rank order
+                gm, gz = _merge(gm, gz, m, z)
+            logz.append((gm, np.log(gz)))
+            om, oz = _f32(-np.inf), _f32(0)           # own partial first
+            for m, z in parts[rank:] + parts[:rank]:
+                om, oz = _merge(om, oz, m, z)
+            differs += (om, np.log(oz)) != logz[-1]
+        assert len(set(logz)) == 1
+        gm, lz = logz[0]
+        x64 = x.astype(np.float64)
+        want = np.log(np.exp(x64 - x64.max()).sum())
+        # a tenth of the card check's 1e-5 on logp = (x - m) - log z
+        assert gm == x.max() and abs(lz - want) <= 1e-6
+    assert (differs > 0) == (cluster > 2)
