@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them) and build every kernel from ``csrc/`` with nvcc, one
      process per source, all started together; the flash forward's
-     instances, the dq kernel and the four matmul variants' kernels must
-     spill no register (``-Xptxas -v``), every matmul kernel's SASS
+     instances, the dq kernel, the four matmul variants' kernels and the
+     activation kernels of ``epilogue.cu`` must spill no register
+     (``-Xptxas -v``; the last two log theirs), every matmul kernel's SASS
      (``cuobjdump -sass``) must hold HGMMA and UTMALDG (counted with
      UTMASTG, of which noacc's must hold none) and the dq kernel's HMMA
      (its 3xTF32 tensor-core products), or the run fails;
@@ -27,15 +28,17 @@ Phases, in order; any failure exits non-zero:
      of O(1) terms), the xent forward also at V 1000, 30523, 50000,
      200003 and 600001 so that each of its instances (a warp, a cluster
      of 2, 4 or 8 CTAs, a block a row) launches and rows start on and off
-     16-byte boundaries, with labels out of range in every case; the five epilogue kernels for
-     every act type at the ResNet's stem and last-stage BN shapes and at an odd size (bitwise
-     for identity, relu, leaky, softsign, add+relu and the BN apply;
-     5e-7 of the max abs for sigmoid, tanh and softrelu); then each
-     kernel, its plain version and the one
-     PyTorch library call that computes the same function timed with
-     CUDA events at the main paths' shapes (the xent forward also beside
-     ``log_softmax``, which writes the same logp; dq + dkv also against
-     SDPA's backward in alternating turns), one event pair a call
+     16-byte boundaries, with labels out of range in every case; the
+     five epilogue kernels for every act type at the ResNet's stem and
+     last-stage BN shapes and at odd sizes (9102 and 3003 elements:
+     whole tiles, a rest and a tail; 5: below a tile), bitwise for
+     identity, relu, leaky, softsign, add+relu and the BN apply, 5e-7 of
+     the max abs for sigmoid, tanh and softrelu; then each kernel, its
+     plain version and the one PyTorch library call that computes the
+     same function timed with CUDA events at the main paths' shapes
+     (the xent forward also beside ``log_softmax``, which writes the
+     same logp; dq + dkv also against SDPA's backward in alternating
+     turns), one event pair a call
      (``ms``: the wrapper's host cost included, the earlier protocol), and
      the kernel and the library call also by the probe's back-to-back
      slope timer over inputs rotated past the L2 (``device_ms``: device
@@ -159,9 +162,12 @@ SMALL_BERT = dict(vocab_size=1000, max_length=128, units=256,
 SMALL_BATCH = dict(batch=4, seq=128, preds=8, lengths=(128, 97, 64, 1))
 
 # the epilogue kernels' checks: the stem BN of ResNet-50 at batch 128, a
-# stage-4 BN, and an odd size for the grid-stride loop's tail
+# stage-4 BN, and odd sizes: 9102 and 3003 elements (whole 1024-float
+# tiles of the activation kernels' stream, whole vectors past them and
+# tails of 2 and 3) and 5 (below a tile, a tail of 1)
 ULP = 5e-7
-EPI_SHAPES = ((128, 64, 112, 112), (128, 2048, 7, 7), (3, 7, 11, 13))
+EPI_SHAPES = ((128, 64, 112, 112), (128, 2048, 7, 7), (2, 3, 37, 41),
+              (3, 7, 11, 13), (1, 1, 1, 5))
 EPI_EXACT_ACTS = ('identity', 'relu', 'leaky', 'softsign')
 EPI_ULP_ACTS = ('sigmoid', 'tanh', 'softrelu')
 EPI_KERNELS = ('bn_act_fwd', 'bn_act_bwd', 'act_fwd', 'act_bwd',
@@ -791,7 +797,8 @@ def time_epilogue_kernels(torch, kernels, batch=RESNET['batch']):
         torch, (xj, yj), lambda x, y: kernels.add_act_forward(x, y, 'relu'),
         lambda x, y: kernels.add_act_forward_reference(x, y, 'relu'),
         bound_ms=b_ms, bound_by=b_by,
-        shape='%s relu; no single library call' % (join,))
+        shape='%s relu; library: none (aten._add_relu, the one call that '
+        'computes relu(x + y), has no CUDA kernel)' % (join,))
     return rows
 
 
@@ -2048,6 +2055,33 @@ def check_sm90_build(build, ptxas):
     return counts
 
 
+def check_epilogue_build(ptxas):
+    """Registers and spill bytes of every instance of the activation
+    kernels of ``csrc/epilogue.cu`` (``epilogue_act_fwd_kernel<A, EVICT>``,
+    ``epilogue_act_bwd_kernel<A, EVICT>``) from ptxas's lines for that
+    source (``ptxas``; empty when the library was current and not
+    rebuilt). Raises when one spills, or when ptxas ran and reported
+    neither kernel. Returns {kernel: {'st' or 'cs': most registers over
+    the acts}} (``cs``: the evict-first stores)."""
+    regs, spills = {}, {}
+    for fn, (n, spill) in ptxas_entries(ptxas).items():
+        m = re.search(r'epilogue_(act_fwd|act_bwd)_kernelILi\d+ELb([01])E',
+                      fn)
+        if not m:
+            continue
+        if spill:
+            spills[fn] = spill
+        by = regs.setdefault(m.group(1), {})
+        key = 'cs' if m.group(2) == '1' else 'st'
+        by[key] = max(by.get(key, 0), n)
+    if spills:
+        raise AssertionError('epilogue act kernels spill: %s' % spills)
+    if ptxas and set(regs) != {'act_fwd', 'act_bwd'}:
+        raise AssertionError('ptxas reported no act_fwd / act_bwd kernel of '
+                             'epilogue.cu: %s' % sorted(regs))
+    return regs
+
+
 def check_dq_build(build, ptxas):
     """The dq kernel of ``csrc/flash_attention_bwd.cu`` as built: its
     registers and spills from ptxas (``ptxas``: that source's lines; empty
@@ -2256,6 +2290,9 @@ def main():
                                   reports.get('flash_attention_bwd', ()))
     log('flash_attention_dq: %s registers, no spills; SASS %s'
         % (regs, counts))
+    regs = check_epilogue_build(reports.get('epilogue', ()))
+    log('epilogue act kernels: registers by store kind (most over the acts) '
+        '%s, no spills' % (regs or 'not reported: the library was current'))
 
     # phase 2: kernels against their plain versions, then times
     errs = check_kernels(torch, kernels, cuda)

@@ -18,29 +18,54 @@
 //
 // Design. The TPU kernels flatten to (rows, 128) tiles padded to 256-row
 // blocks in VMEM, with the per-channel coefficients broadcast into
-// (rows, 1) columns. None of that is carried over: here one grid-stride
-// loop walks the n elements unpadded, 256 threads a block, neighbouring
-// threads on neighbouring addresses (coalesced 4-byte loads), and the BN
-// kernels read the coefficient of channel c = (i / inner) % C straight
-// from the (C,) vectors, which stay in L1/L2. The activation is a
-// template parameter, so each instance is a straight-line loop body.
-// Indices are 32-bit (Idx): n is at most INT32_MAX, so i + stride never
-// wraps; a larger tensor is refused (the wrappers raise first).
+// (rows, 1) columns. None of that is carried over. The BN and add+act
+// kernels walk the n elements unpadded in one grid-stride loop, 256
+// threads a block, neighbouring threads on neighbouring addresses
+// (coalesced 4-byte loads), and the BN kernels read the coefficient of
+// channel c = (i / inner) % C straight from the (C,) vectors, which stay
+// in L1/L2.
+//
+// The activation forward and backward are 16-byte streams (stream):
+// DRAM latency times 3.35 TB/s asks for 15-20 KB of loads in flight on
+// every SM, and a grid-stride loop of one 4-byte load a thread, whose
+// i < n guard keeps the next load from issuing early, keeps at most 8 KB
+// (16 KB for the backward's two inputs). Here a block takes one tile of
+// THREADS x VEC floats: each thread one float4 load of each input
+// (ld.global.nc, no L1 allocation: every byte is read once), then one
+// float4 store, with no guard; with 8 blocks an SM that is 32 KB of
+// loads in flight (64 KB backward). Two or four vectors a thread and a
+// persistent grid measured no faster (tools/probe_epilogue_variants.py
+// builds them). An output of at least the L2's size, which cannot stay
+// there, is stored evict-first (st.global.cs, EVICT), measured 1-3 %
+// faster; a smaller one is stored normally, faster for it, and stays in
+// L2 for the layer that reads it next. One block past the whole tiles
+// takes the rest: whole vectors, fewer than a tile, then the n % 4
+// scalars. The partition (EVICT, tiles) comes from epilogue.py
+// epilogue_geometry; the entry points refuse tiles that do not match n.
+//
+// The activation is a template parameter, so each instance is
+// straight-line code. Indices are 32-bit (Idx): n is at most INT32_MAX,
+// so i + stride never wraps; a larger tensor is refused (the wrappers
+// raise first).
 //
 // Rounding. (x - mean) * scale + beta and x + y use explicitly rounded
 // intrinsics (__fsub_rn, __fmul_rn, __fadd_rn), which nvcc never
 // contracts into an FMA: every arithmetic step rounds once, as the plain
 // PyTorch versions' separate ops do, so identity, relu, leaky, add+relu
 // and the BN apply (and all the backward rules built from products and
-// compares) are bitwise equal to them. The transcendental activations
-// use expf / tanhf / log1pf (full-precision, no fast-math) and agree to a
-// couple of ulps.
+// compares) are bitwise equal to them. The backward is the product
+// g * act'(out), not a select, so a NaN in g stays NaN where out <= 0,
+// as in the plain version. The transcendental activations use expf /
+// tanhf / log1pf (full-precision, no fast-math) and agree to a couple of
+// ulps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int VEC = 4;  // floats in a 16-byte vector
+constexpr int TILE = THREADS * VEC;  // the stream's floats a block
 using Idx = uint32_t;
 
 enum Act {
@@ -112,23 +137,97 @@ epilogue_bn_act_bwd_kernel(const float* __restrict__ g,
   }
 }
 
-template <int A>
-__global__ void __launch_bounds__(THREADS)
-epilogue_act_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
-                        Idx n, float slope) {
-  const Idx stride = (Idx)gridDim.x * THREADS;
-  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride)
-    out[i] = act_fwd<A>(x[i], slope);
+// one 16-byte load of an input read once: the read-only path, no L1 line
+__device__ __forceinline__ float4 load4(const float* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
 }
 
-template <int A>
+// one 16-byte store; EVICT: streaming (st.global.cs), evicted first
+template <bool EVICT>
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  if (EVICT)
+    __stcs(reinterpret_cast<float4*>(p), v);
+  else
+    *reinterpret_cast<float4*>(p) = v;
+}
+
+template <int A, bool EVICT>
+struct ActFwd {
+  const float* x;
+  float* out;
+  float slope;
+  struct In {
+    float4 a;
+  };
+  __device__ __forceinline__ In load(Idx i) const { return {load4(x + i)}; }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    store4<EVICT>(out + i, make_float4(act_fwd<A>(v.a.x, slope),
+                                       act_fwd<A>(v.a.y, slope),
+                                       act_fwd<A>(v.a.z, slope),
+                                       act_fwd<A>(v.a.w, slope)));
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    out[i] = act_fwd<A>(x[i], slope);
+  }
+};
+
+template <int A, bool EVICT>
+struct ActBwd {
+  const float* g;
+  const float* out;
+  float* dx;
+  float slope;
+  struct In {
+    float4 a, o;  // g, out
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    return {load4(g + i), load4(out + i)};
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    store4<EVICT>(dx + i,
+                  make_float4(__fmul_rn(v.a.x, act_grad<A>(v.o.x, slope)),
+                              __fmul_rn(v.a.y, act_grad<A>(v.o.y, slope)),
+                              __fmul_rn(v.a.z, act_grad<A>(v.o.z, slope)),
+                              __fmul_rn(v.a.w, act_grad<A>(v.o.w, slope))));
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    dx[i] = __fmul_rn(g[i], act_grad<A>(out[i], slope));
+  }
+};
+
+// op over n elements: block b < tiles takes tile b, one vector of each
+// input a thread; block `tiles`, where n is not a whole number of tiles,
+// the whole vectors past them and the n % VEC scalars
+template <class Op>
+__device__ __forceinline__ void stream(const Op& op, Idx n, Idx tiles) {
+  const Idx i = (Idx)blockIdx.x * TILE + threadIdx.x * VEC;
+  if (blockIdx.x < tiles) {
+    op.store(i, op.load(i));
+    return;
+  }
+  const Idx whole = n & ~(Idx)(VEC - 1);
+  if (i < whole) op.store(i, op.load(i));
+  if (whole + threadIdx.x < n) op.scalar(whole + threadIdx.x);
+}
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_act_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
+                        Idx n, Idx tiles, float slope) {
+  stream(ActFwd<A, EVICT>{x, out, slope}, n, tiles);
+}
+
+template <int A, bool EVICT>
 __global__ void __launch_bounds__(THREADS)
 epilogue_act_bwd_kernel(const float* __restrict__ g,
                         const float* __restrict__ out,
-                        float* __restrict__ dx, Idx n, float slope) {
-  const Idx stride = (Idx)gridDim.x * THREADS;
-  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride)
-    dx[i] = __fmul_rn(g[i], act_grad<A>(out[i], slope));
+                        float* __restrict__ dx, Idx n, Idx tiles,
+                        float slope) {
+  stream(ActBwd<A, EVICT>{g, out, dx, slope}, n, tiles);
 }
 
 template <int A>
@@ -172,14 +271,31 @@ unsigned grid_for(long long n) {
     default: return cudaErrorInvalidValue;                            \
   }
 
+// the same with the store kind bound to a compile-time constant E
+#define MX_EVICT_DISPATCH(evict, ...)                                  \
+  if (evict) {                                                         \
+    constexpr bool E = true;                                           \
+    __VA_ARGS__;                                                       \
+  } else {                                                             \
+    constexpr bool E = false;                                          \
+    __VA_ARGS__;                                                       \
+  }
+
+// the stream's grid (epilogue.py epilogue_geometry): one block a whole
+// tile, one more for the rest; 0 when `tiles` is not n's
+unsigned stream_grid(long long n, long long tiles) {
+  if (tiles != n / TILE) return 0;
+  return (unsigned)(tiles + (n % TILE != 0));
+}
+
 }  // namespace
 
 // ---- host entry points ----
-// Every tensor is float32, contiguous, on the device. n is the element
-// count, at most INT32_MAX; for the BN kernels x is (outer, C, inner)
-// around the BN axis and scale / mean / beta are (C,). act is the Act
-// code above, slope the leaky slope. Each returns the cudaError_t of its
-// launch.
+// Every tensor is float32, contiguous, 16-byte aligned, on the device. n
+// is the element count, at most INT32_MAX; for the BN kernels x is
+// (outer, C, inner) around the BN axis and scale / mean / beta are (C,).
+// act is the Act code above, slope the leaky slope. Each returns the
+// cudaError_t of its launch.
 extern "C" int mx_bn_act_fwd(const void* x, const void* scale,
                              const void* mean, const void* beta, void* out,
                              long long n, int c, long long inner, int act,
@@ -218,30 +334,38 @@ extern "C" int mx_bn_act_bwd(const void* g, const void* out,
   return cudaGetLastError();
 }
 
+// evict (0 or 1): evict-first stores; tiles: n / (THREADS * VEC), the
+// whole tiles of the stream's partition of n
 extern "C" int mx_act_fwd(const void* x, void* out, long long n, int act,
-                          float slope, void* stream) {
+                          float slope, int evict, long long tiles,
+                          void* stream) {
   if (n == 0) return cudaSuccess;
   if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned grid = stream_grid(n, tiles);
+  if (grid == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n);
   const float* xp = static_cast<const float*>(x);
   float* op = static_cast<float*>(out);
-  MX_ACT_DISPATCH(act, epilogue_act_fwd_kernel<A><<<grid, THREADS, 0, s>>>(
-                           xp, op, (Idx)n, slope));
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_act_fwd_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 xp, op, (Idx)n, (Idx)tiles, slope)));
   return cudaGetLastError();
 }
 
 extern "C" int mx_act_bwd(const void* g, const void* out, void* dx,
-                          long long n, int act, float slope, void* stream) {
+                          long long n, int act, float slope, int evict,
+                          long long tiles, void* stream) {
   if (n == 0) return cudaSuccess;
   if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned grid = stream_grid(n, tiles);
+  if (grid == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n);
   const float* gp = static_cast<const float*>(g);
   const float* op = static_cast<const float*>(out);
   float* dp = static_cast<float*>(dx);
-  MX_ACT_DISPATCH(act, epilogue_act_bwd_kernel<A><<<grid, THREADS, 0, s>>>(
-                           gp, op, dp, (Idx)n, slope));
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_act_bwd_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 gp, op, dp, (Idx)n, (Idx)tiles, slope)));
   return cudaGetLastError();
 }
 

@@ -12,6 +12,11 @@ in ``csrc/epilogue.cu``, float32, over the tensor's elements unpadded:
   * :func:`act_forward` replaces ``mxnet_tpu_act_fwd`` (:234): ``act(x)``;
   * :func:`act_backward` replaces ``mxnet_tpu_act_bwd`` (:239):
     ``g * act'(out)``, from the output alone;
+
+these two stream 16-byte vectors, in whole tiles of
+``EPI_THREADS * EPI_VEC`` floats and a rest, as :func:`epilogue_geometry`
+partitions the elements, an output of at least the L2's size stored
+evict-first;
   * :func:`add_act_forward` replaces ``mxnet_tpu_add_act_fwd`` (:297):
     ``act(x + y)``.
 
@@ -32,6 +37,7 @@ raises, and each launch is counted. A CUDA input that is not contiguous
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -41,7 +47,9 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
                       raise_on as _raise_on, require as _require,
                       stream as _stream)
 
-__all__ = ['ACT_TYPES', 'MAX_ELEMENTS', 'act_reference',
+__all__ = ['ACT_TYPES', 'MAX_ELEMENTS', 'EPI_THREADS', 'EPI_VEC',
+           'EPI_TILE', 'EpilogueGeometry', 'epilogue_geometry',
+           'act_reference',
            'act_grad_from_out', 'act_forward', 'act_forward_reference',
            'act_backward', 'act_backward_reference', 'add_act_forward',
            'add_act_forward_reference', 'bn_act_forward',
@@ -120,6 +128,35 @@ _P, _N, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 # the kernels index elements in 32 bits
 MAX_ELEMENTS = 2 ** 31 - 1
 
+# the activation kernels' stream (csrc/epilogue.cu stream): threads a
+# block, floats a vector (one of each input a thread), floats a tile (a
+# block); an output of at least the L2's 50 MB is stored evict-first, as
+# tools/probe_epilogue_variants.py measured fastest on the H100 at
+# ResNet-50's relu and join shapes
+EPI_THREADS = 256
+EPI_VEC = 4
+EPI_TILE = EPI_THREADS * EPI_VEC
+EPI_EVICT_BYTES = 50 * 10 ** 6
+
+EpilogueGeometry = collections.namedtuple(
+    'EpilogueGeometry', 'evict tiles body rest tail grid')
+
+
+def epilogue_geometry(n):
+    """Launch geometry of the activation kernels for ``n`` float32
+    elements, as an :class:`EpilogueGeometry`: ``tiles`` whole tiles of
+    :data:`EPI_TILE` floats (``body`` elements), one block each, and one
+    block more (``grid`` counts it) for the ``rest`` (whole 16-byte
+    vectors past the tiles, fewer than a tile) and the ``tail`` of
+    ``n % 4`` scalars; ``evict``: the output, 4n bytes, is at least
+    :data:`EPI_EVICT_BYTES` and is stored evict-first."""
+    tiles = n // EPI_TILE
+    body = tiles * EPI_TILE
+    tail = n % EPI_VEC
+    rest = n - body - tail
+    return EpilogueGeometry(4 * n >= EPI_EVICT_BYTES, tiles, body, rest,
+                            tail, tiles + (1 if rest or tail else 0))
+
 
 def _launch(kernel, entry, argtypes, tensors, result, *scalars):
     """Check ``tensors`` (name -> float32 input) and ``result``, launch
@@ -162,8 +199,10 @@ def act_forward(x, act_type, slope=0.0):
     if _on_cpu('act_forward', x):
         return act_forward_reference(x, act_type, slope)
     x = _dense(x)
-    return _launch('act_fwd', 'mx_act_fwd', [_P, _P, _N, _I, _F, _P],
-                   {'x': x}, _empty(x), x.numel(), code, float(slope))
+    geom = epilogue_geometry(x.numel())
+    return _launch('act_fwd', 'mx_act_fwd', [_P, _P, _N, _I, _F, _I, _N, _P],
+                   {'x': x}, _empty(x), x.numel(), code, float(slope),
+                   int(geom.evict), geom.tiles)
 
 
 def act_backward_reference(g, out, act_type, slope=0.0):
@@ -179,9 +218,11 @@ def act_backward(g, out, act_type, slope=0.0):
         return act_backward_reference(g, out, act_type, slope)
     _same_shape('act_backward', g, out)
     g, out = _dense(g), _dense(out)
-    return _launch('act_bwd', 'mx_act_bwd', [_P, _P, _P, _N, _I, _F, _P],
+    geom = epilogue_geometry(out.numel())
+    return _launch('act_bwd', 'mx_act_bwd',
+                   [_P, _P, _P, _N, _I, _F, _I, _N, _P],
                    {'g': g, 'out': out}, _empty(out), out.numel(), code,
-                   float(slope))
+                   float(slope), int(geom.evict), geom.tiles)
 
 
 def add_act_forward_reference(x, y, act_type='relu', slope=0.0):

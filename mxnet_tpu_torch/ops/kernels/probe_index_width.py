@@ -92,6 +92,8 @@ def main():
     s = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     big, nj, zero = ctypes.c_longlong, ctypes.c_longlong(xj.numel()), \
         ctypes.c_float(0.0)
+    geom = epilogue.epilogue_geometry(n)
+    stream_args = (int(geom.evict), big(geom.tiles))
     # identity (code 0) for the BN apply, relu (code 1) for the acts
     direct = {
         'bn_act_fwd': lambda lib: lib.mx_bn_act_fwd(
@@ -101,9 +103,9 @@ def main():
             p(g), p(x), p(scale), p(out), big(n), c, big(inner), 0, zero,
             s()),
         'act_fwd': lambda lib: lib.mx_act_fwd(p(x), p(out), big(n), 1, zero,
-                                              s()),
+                                              *stream_args, s()),
         'act_bwd': lambda lib: lib.mx_act_bwd(p(g), p(x), p(out), big(n), 1,
-                                              zero, s()),
+                                              zero, *stream_args, s()),
         'add_act_fwd': lambda lib: lib.mx_add_act_fwd(
             p(xj), p(yj), p(outj), nj, 1, zero, s()),
     }

@@ -44,6 +44,7 @@ from mxnet_tpu.ops import nn as jax_nn
 from mxnet_tpu.ops.pallas import epilogue as jax_epi
 from mxnet_tpu_torch.ops import kernels
 from mxnet_tpu_torch.ops import nn as port_nn
+from mxnet_tpu_torch.ops.kernels import epilogue
 
 torch.set_num_threads(1)
 ULP = 5e-7
@@ -338,6 +339,136 @@ def test_launch_refuses_more_elements_than_the_kernels_index(monkeypatch):
     assert not any(kernels.launch_counts().values())
 
 
+def _stream_walk(n, geom):
+    """The element indices the activation kernels' stream visits for
+    ``n`` elements at ``geom``, as csrc/epilogue.cu ``stream`` forms them
+    (blocks, then threads: a vector of a whole tile, or in the block past
+    the tiles a vector of the rest and a scalar of the tail)."""
+    threads, vec, tile = epilogue.EPI_THREADS, epilogue.EPI_VEC, \
+        epilogue.EPI_TILE
+    whole = n - n % vec
+    for b in range(geom.grid):
+        for t in range(threads):
+            i = b * tile + t * vec
+            if b < geom.tiles:
+                yield from range(i, i + vec)
+                continue
+            if i < whole:
+                yield from range(i, i + vec)
+            if whole + t < n:
+                yield whole + t
+
+
+def _assert_partition(n, geom):
+    """``geom`` partitions n elements as the stream walks them, checked
+    from the geometry alone: whole tiles, one block each, then one block
+    for fewer than a tile of whole vectors and a tail of n % 4, every
+    index in 32 bits; the C entry points' rule (tiles = n // tile, grid =
+    tiles + (n % tile != 0)) holds."""
+    threads, vec, tile = epilogue.EPI_THREADS, epilogue.EPI_VEC, \
+        epilogue.EPI_TILE
+    assert tile == threads * vec
+    assert geom.tiles == n // tile and geom.body == geom.tiles * tile
+    assert geom.tail == n % vec and geom.rest % vec == 0
+    assert 0 <= geom.rest < tile
+    assert geom.body + geom.rest + geom.tail == n
+    assert geom.grid == geom.tiles + (n % tile != 0)
+    # block b < tiles takes tile b alone, so each tile once; the block
+    # past them takes vector body / 4 + j on thread j, at most one a
+    # thread, and threads 0..tail-1 the scalars
+    assert geom.rest // vec < threads and geom.tail < vec
+    # the largest index the kernel forms, before its guard, fits 32 bits
+    assert geom.grid * tile <= n + tile < 2 ** 32
+    assert n <= epilogue.MAX_ELEMENTS
+
+
+TILE = epilogue.EPI_TILE
+
+
+@pytest.mark.parametrize('n', sorted({
+    0, 1, 2, 3, 4, 5, 7, 8, 1023, 1024, 1025, 3003, 9102, TILE - 4,
+    TILE - 1, TILE + 1, TILE + 3, TILE + 4, 2 * TILE - 1, 2 * TILE,
+    3 * TILE + 1027, 128 * 512 * 7 * 7, 128 * 64 * 112 * 112,
+    128 * 64 * 112 * 112 + 5, epilogue.MAX_ELEMENTS - 3,
+    epilogue.MAX_ELEMENTS}))
+def test_epilogue_geometry_covers_every_element_once(n):
+    """The vector body, the rest and the scalar tail of
+    ``epilogue_geometry(n)`` cover the n elements exactly once: from the
+    geometry for every n, and by walking the kernel's indices where n is
+    small."""
+    geom = kernels.epilogue_geometry(n)
+    _assert_partition(n, geom)
+    if n <= 4 * TILE:
+        walked = list(_stream_walk(n, geom))
+        assert sorted(walked) == list(range(n))
+
+
+def test_epilogue_geometry_evicts_outputs_the_l2_cannot_hold():
+    """Stores evict first from an output of EPI_EVICT_BYTES on: ResNet-50's
+    28 x 28 relus (51.4 MB) and larger at batch 128, not its 14 x 14
+    (25.7 MB) and 7 x 7 ones."""
+    limit = epilogue.EPI_EVICT_BYTES
+    assert not kernels.epilogue_geometry(limit // 4 - 1).evict
+    assert kernels.epilogue_geometry(-(-limit // 4)).evict
+    for shape, evict in (((128, 64, 112, 112), True),
+                         ((128, 128, 28, 28), True),
+                         ((128, 256, 14, 14), False),
+                         ((128, 512, 7, 7), False),
+                         ((128, 2048, 7, 7), True)):
+        assert kernels.epilogue_geometry(
+            int(np.prod(shape))).evict is evict, shape
+
+
+def test_stream_constants_match_the_source():
+    """epilogue.py's stream constants are those of csrc/epilogue.cu: the
+    threads a block, the floats a vector and a tile."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(epilogue.__file__), 'csrc',
+                            'epilogue.cu')).read()
+    assert int(re.search(r'constexpr int THREADS = (\d+);', src).group(1)) \
+        == epilogue.EPI_THREADS
+    assert int(re.search(r'constexpr int VEC = (\d+);', src).group(1)) \
+        == epilogue.EPI_VEC
+    assert 'constexpr int TILE = THREADS * VEC;' in src
+
+
+# ptxas -v lines of csrc/epilogue.cu, as ptxas prints them for sm_90a
+PTXAS_LINES = [
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e723epilogue_act_fwd_kernelILi1ELb1EEEvPKfPfjjf' "
+    "for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 20 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e723epilogue_act_bwd_kernelILi6ELb0EEEvPKfS2_"
+    "Pfjjf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 32 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e727epilogue_add_act_fwd_kernelILi6EEEvPKfS2_Pfjf' "
+    "for 'sm_90a'",
+    'ptxas info    : Used 18 registers, used 0 barriers',
+]
+
+
+def test_ptxas_report_of_the_act_kernels():
+    """chip_smoke's phase-1 check reads the registers and spills of the
+    stream kernels' instances from ptxas's report, keyed by store kind,
+    and fails on a spill or when ptxas ran and named neither kernel."""
+    import chip_smoke
+    assert chip_smoke.check_epilogue_build(PTXAS_LINES) == {
+        'act_fwd': {'cs': 20}, 'act_bwd': {'st': 32}}
+    spilled = list(PTXAS_LINES)
+    spilled[1] = '    0 bytes stack frame, 8 bytes spill stores, 8 bytes ' \
+        'spill loads'
+    with pytest.raises(AssertionError, match='spill'):
+        chip_smoke.check_epilogue_build(spilled)
+    with pytest.raises(AssertionError, match='no act_fwd / act_bwd'):
+        chip_smoke.check_epilogue_build(PTXAS_LINES[-2:])
+    assert chip_smoke.check_epilogue_build([]) == {}
+
+
 @pytest.mark.cuda
 def test_epilogue_kernels_match_plain_versions_on_card():
     """The five kernels against their plain versions on the card: bitwise
@@ -375,3 +506,19 @@ def test_epilogue_kernels_match_plain_versions_on_card():
     gexp = g[:1, :1, :1, :1].expand(SHAPE)
     assert torch.equal(kernels.act_backward(gexp, x, 'relu'),
                        kernels.act_backward_reference(gexp, x, 'relu'))
+    # the activation stream's tails: below a tile, and a tile plus 3
+    for n in (1, 3, 5, 1025, TILE + 3):
+        x, g = (torch.tensor(a, device='cuda')
+                for a in _arrays(14 + n, (n,), (n,)))
+        for act in EXACT_ACTS + ULP_ACTS:
+            slope = _slope(act)
+            out = kernels.act_forward_reference(x, act, slope)
+            for got, want in (
+                    (kernels.act_forward(x, act, slope), out),
+                    (kernels.act_backward(g, out, act, slope),
+                     kernels.act_backward_reference(g, out, act, slope))):
+                if act in ULP_ACTS:
+                    tol = ULP * want.abs().max().item()
+                    assert (got - want).abs().max().item() <= tol, (act, n)
+                else:
+                    assert torch.equal(got, want), (act, n)
