@@ -172,6 +172,16 @@ EPI_EXACT_ACTS = ('identity', 'relu', 'leaky', 'softsign')
 EPI_ULP_ACTS = ('sigmoid', 'tanh', 'softrelu')
 EPI_KERNELS = ('bn_act_fwd', 'bn_act_bwd', 'act_fwd', 'act_bwd',
                'add_act_fwd')
+# the BN apply at inners that are no multiple of 4, where a vector's
+# elements take their own channels, (shape, axis): inner 49 (ResNet-50's
+# 7 x 7 stage, below a tile and over 49 whole ones), 1 (the last axis,
+# C 37: every vector spans four channels and wraps at C), 2 and 3 (two
+# or three runs a vector, whole tiles and a tail), 25 and 9 (SSD's 5 x 5
+# and 3 x 3 maps)
+EPI_BN_CASES = (((2, 4, 7, 7), 1), ((16, 64, 7, 7), 1), ((64, 33, 3, 37), -1),
+                ((5, 3, 7, 37), -1), ((2, 3, 1, 3), 1), ((40, 9, 11, 3), 2),
+                ((128, 3, 25, 2), 2), ((3, 5, 7, 2), 2), ((16, 8, 5, 5), 1),
+                ((16, 24, 3, 3), 1))
 
 # the ResNet slice: the bench's on-chip ResNet-50 v1 batch and SGD
 RESNET = dict(depth=50, batch=128, image=224, classes=1000)
@@ -670,61 +680,102 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
     return rows
 
 
+def _bn_pairs(kernels, x, g, scale, mean, beta, axis, act, slope):
+    """(kernel name, kernel result, plain result) of the two BN apply
+    kernels with (C,) coefficients along ``axis``; the backward reads the
+    plain forward's output."""
+    out = kernels.bn_act_forward_reference(x, scale, mean, beta, axis, act,
+                                           slope)
+    return [
+        ('bn_act_fwd', kernels.bn_act_forward(x, scale, mean, beta, axis,
+                                              act, slope), out),
+        ('bn_act_bwd', kernels.bn_act_backward(g, out, scale, axis, act,
+                                               slope),
+         kernels.bn_act_backward_reference(g, out, scale, axis, act,
+                                           slope)),
+    ]
+
+
 def _epi_pairs(kernels, x, y, g, scale, mean, beta, act, slope):
     """(kernel name, kernel result, plain result) of the five epilogue
-    kernels on one input set; the backward kernels read the plain
-    forward's output."""
+    kernels on one input set (the BN apply along axis 1); the backward
+    kernels read the plain forward's output."""
     out = kernels.act_forward_reference(x, act, slope)
-    bn_out = kernels.bn_act_forward_reference(x, scale, mean, beta, 1, act,
-                                              slope)
     return [
         ('act_fwd', kernels.act_forward(x, act, slope), out),
         ('act_bwd', kernels.act_backward(g, out, act, slope),
          kernels.act_backward_reference(g, out, act, slope)),
         ('add_act_fwd', kernels.add_act_forward(x, y, act, slope),
          kernels.add_act_forward_reference(x, y, act, slope)),
-        ('bn_act_fwd', kernels.bn_act_forward(x, scale, mean, beta, 1, act,
-                                              slope), bn_out),
-        ('bn_act_bwd', kernels.bn_act_backward(g, bn_out, scale, 1, act,
-                                               slope),
-         kernels.bn_act_backward_reference(g, bn_out, scale, 1, act,
-                                           slope)),
-    ]
+    ] + _bn_pairs(kernels, x, g, scale, mean, beta, 1, act, slope)
 
 
-def check_epilogue_kernels(torch, kernels, device, shapes=EPI_SHAPES):
+def _check_pairs(pairs, act, where, worst):
+    """Each (name, kernel result, plain result) of ``pairs``: bitwise for
+    the exact acts, 5e-7 of the plain result's max abs for the
+    transcendental ones; raises naming ``where``, else folds each max
+    abs error into ``worst`` and returns {name: error}."""
+    errs = {}
+    for name, got, want in pairs:
+        err, rel = _errs(got, want)
+        errs[name] = err
+        ok = got.equal(want) if act in EPI_EXACT_ACTS else rel <= ULP
+        if not ok:
+            raise AssertionError(
+                '%s (%s) disagrees with its plain version at %s: max abs '
+                'err %.3g, rel %.3g' % (name, act, where, err, rel))
+        worst[name] = max(worst[name], err)
+    return errs
+
+
+def _bn_coeffs(torch, c, gen, device):
+    scale = torch.rand(c, generator=gen, device=device) + 0.5
+    mean, beta = (torch.randn(c, generator=gen, device=device)
+                  for _ in range(2))
+    return scale, mean, beta
+
+
+def check_epilogue_kernels(torch, kernels, device, shapes=EPI_SHAPES,
+                           bn_cases=EPI_BN_CASES):
     """The five epilogue kernels against their plain versions on
-    ``device`` for every act type at each shape: bitwise for the exact
+    ``device`` for every act type at each shape, and the two BN apply
+    kernels at each (shape, axis) of ``bn_cases``: bitwise for the exact
     acts, 5e-7 of the plain result's max abs for the transcendental ones;
     a cotangent that is an expanded (stride-0) view is made dense.
     Returns {kernel name: worst max abs error}."""
     gen = torch.Generator(device=device).manual_seed(4)
     worst = dict.fromkeys(EPI_KERNELS, 0.0)
+
+    def how(act):
+        return 'bitwise' if act in EPI_EXACT_ACTS else 'rel <= %g' % ULP
+
+    for shape, axis in bn_cases:
+        x, g = (torch.randn(shape, generator=gen, device=device) * 3
+                for _ in range(2))
+        c = shape[axis]
+        coeffs = _bn_coeffs(torch, c, gen, device)
+        inner = math.prod(shape[axis % len(shape) + 1:])
+        for act in EPI_EXACT_ACTS + EPI_ULP_ACTS:
+            slope = 0.25 if act == 'leaky' else 0.0
+            errs = _check_pairs(
+                _bn_pairs(kernels, x, g, *coeffs, axis, act, slope), act,
+                '%s axis %d (C %d, inner %d)' % (shape, axis, c, inner),
+                worst)
+            log('check bn apply %s axis=%d (C %d, inner %d) act=%s: '
+                'max_abs_err %s (%s)' % (shape, axis, c, inner, act, {
+                    k: '%.3g' % v for k, v in errs.items()}, how(act)))
     for shape in shapes:
         x, y, g = (torch.randn(shape, generator=gen, device=device) * 3
                    for _ in range(3))
-        c = shape[1]
-        scale = torch.rand(c, generator=gen, device=device) + 0.5
-        mean, beta = (torch.randn(c, generator=gen, device=device)
-                      for _ in range(2))
+        scale, mean, beta = _bn_coeffs(torch, shape[1], gen, device)
         for act in EPI_EXACT_ACTS + EPI_ULP_ACTS:
             slope = 0.25 if act == 'leaky' else 0.0
-            errs = {}
-            for name, got, want in _epi_pairs(kernels, x, y, g, scale, mean,
-                                              beta, act, slope):
-                err, rel = _errs(got, want)
-                errs[name] = err
-                ok = torch.equal(got, want) if act in EPI_EXACT_ACTS \
-                    else rel <= ULP
-                if not ok:
-                    raise AssertionError(
-                        '%s (%s) disagrees with its plain version at %s: '
-                        'max abs err %.3g, rel %.3g' % (name, act, shape,
-                                                        err, rel))
-                worst[name] = max(worst[name], err)
+            errs = _check_pairs(_epi_pairs(kernels, x, y, g, scale, mean,
+                                           beta, act, slope), act, shape,
+                                worst)
             log('check epilogue %s act=%s: max_abs_err %s (%s)'
                 % (shape, act, {k: '%.3g' % v for k, v in errs.items()},
-                   'bitwise' if act in EPI_EXACT_ACTS else 'rel <= %g' % ULP))
+                   how(act)))
         gexp = g[:1, :1, :1, :1].expand(shape)
         out = kernels.act_forward_reference(x, 'relu')
         if not torch.equal(kernels.act_backward(gexp, out, 'relu'),
@@ -2056,17 +2107,19 @@ def check_sm90_build(build, ptxas):
 
 
 def check_epilogue_build(ptxas):
-    """Registers and spill bytes of every instance of the activation
-    kernels of ``csrc/epilogue.cu`` (``epilogue_act_fwd_kernel<A, EVICT>``,
-    ``epilogue_act_bwd_kernel<A, EVICT>``) from ptxas's lines for that
-    source (``ptxas``; empty when the library was current and not
-    rebuilt). Raises when one spills, or when ptxas ran and reported
-    neither kernel. Returns {kernel: {'st' or 'cs': most registers over
-    the acts}} (``cs``: the evict-first stores)."""
+    """Registers and spill bytes of every instance of the stream kernels
+    of ``csrc/epilogue.cu`` (``epilogue_act_fwd_kernel<A, EVICT>``,
+    ``epilogue_act_bwd_kernel<A, EVICT>``, ``epilogue_bn_act_fwd_kernel<A,
+    EVICT>``, ``epilogue_bn_act_bwd_kernel<A, EVICT>``)
+    from ptxas's lines for that source (``ptxas``; empty when the library
+    was current and not rebuilt). Raises when one spills, or when ptxas
+    ran and reported not all four kernels. Returns {kernel: {'st' or
+    'cs': most registers over the acts}} (``cs``: the evict-first
+    stores)."""
     regs, spills = {}, {}
     for fn, (n, spill) in ptxas_entries(ptxas).items():
-        m = re.search(r'epilogue_(act_fwd|act_bwd)_kernelILi\d+ELb([01])E',
-                      fn)
+        m = re.search(r'epilogue_((?:bn_)?act_(?:fwd|bwd))_kernelILi\d+ELb'
+                      r'([01])E', fn)
         if not m:
             continue
         if spill:
@@ -2075,10 +2128,12 @@ def check_epilogue_build(ptxas):
         key = 'cs' if m.group(2) == '1' else 'st'
         by[key] = max(by.get(key, 0), n)
     if spills:
-        raise AssertionError('epilogue act kernels spill: %s' % spills)
-    if ptxas and set(regs) != {'act_fwd', 'act_bwd'}:
-        raise AssertionError('ptxas reported no act_fwd / act_bwd kernel of '
-                             'epilogue.cu: %s' % sorted(regs))
+        raise AssertionError('epilogue stream kernels spill: %s' % spills)
+    want = {'act_fwd', 'act_bwd', 'bn_act_fwd', 'bn_act_bwd'}
+    if ptxas and set(regs) != want:
+        raise AssertionError('ptxas reported no %s kernel of epilogue.cu: '
+                             '%s' % (' / '.join(sorted(want - set(regs))),
+                                     sorted(regs)))
     return regs
 
 
@@ -2291,8 +2346,9 @@ def main():
     log('flash_attention_dq: %s registers, no spills; SASS %s'
         % (regs, counts))
     regs = check_epilogue_build(reports.get('epilogue', ()))
-    log('epilogue act kernels: registers by store kind (most over the acts) '
-        '%s, no spills' % (regs or 'not reported: the library was current'))
+    log('epilogue stream kernels: registers by store kind (most over the '
+        'acts) %s, no spills' % (regs or 'not reported: the library was '
+                                 'current'))
 
     # phase 2: kernels against their plain versions, then times
     errs = check_kernels(torch, kernels, cuda)

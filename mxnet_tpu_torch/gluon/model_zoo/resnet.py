@@ -16,7 +16,8 @@ What the v1 cell is (``resnet.py:39-78``): conv -> BN (-> relu) for each
 step of the plan, then ``relu(body + shortcut)`` through the add+act
 kernel. The bottleneck's stride sits on its first 1x1 conv, and both of
 its 1x1 convs carry biases (checkpoint parity with the reference). The
-v2 (pre-activation) nets are not ported yet (ROADMAP A.2).
+v2 (pre-activation) nets are not ported yet (ROADMAP: "the rest of
+training").
 
 Weights: :func:`init_params` fills a net from a numpy seed with the
 bench's initializer, Xavier (uniform, avg, magnitude 3); BatchNorm gamma
@@ -182,8 +183,9 @@ def get_resnet(version, num_layers, pretrained=False, device=None,
         raise ValueError('Invalid number of layers: %d. Options are %s'
                          % (num_layers, sorted(resnet_spec)))
     if version != 1:
-        raise NotImplementedError('ResNet v%s is not ported yet (ROADMAP '
-                                  'A.2); the port has v1' % (version,))
+        raise NotImplementedError('ResNet v%s is not ported yet (ROADMAP: '
+                                  '"the rest of training"); the port '
+                                  'has v1' % (version,))
     if pretrained:
         raise NotImplementedError('the port has no model store: fill the '
                                   'weights with init_params or '

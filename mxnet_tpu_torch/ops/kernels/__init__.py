@@ -19,12 +19,14 @@ from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
                         flash_decode_attention_reference, fwd_geometry,
                         online_softmax_block)
 from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
-                       BnApplyFunction, EpilogueGeometry, act_backward,
+                       BnApplyFunction, BnGeometry, EpilogueGeometry,
+                       act_backward,
                        act_backward_reference,
                        act_forward, act_forward_reference, add_act_forward,
                        add_act_forward_reference, bn_act_backward,
                        bn_act_backward_reference, bn_act_forward,
-                       bn_act_forward_reference, epilogue_geometry,
+                       bn_act_forward_reference, bn_geometry,
+                       epilogue_geometry,
                        fused_act, fused_add_act, fused_bn_apply)
 from .matmul import (VARIANTS as MATMUL_VARIANTS, MatmulGeometry, matmul,
                      matmul_cur, matmul_ep, matmul_geometry, matmul_noacc,
@@ -50,6 +52,7 @@ __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'softmax_xent_forward', 'softmax_xent_forward_reference',
            'softmax_xent_backward', 'softmax_xent_backward_reference',
            'ACT_TYPES', 'EpilogueGeometry', 'epilogue_geometry',
+           'BnGeometry', 'bn_geometry',
            'act_forward', 'act_forward_reference',
            'act_backward', 'act_backward_reference', 'add_act_forward',
            'add_act_forward_reference', 'bn_act_forward',

@@ -18,19 +18,15 @@
 //
 // Design. The TPU kernels flatten to (rows, 128) tiles padded to 256-row
 // blocks in VMEM, with the per-channel coefficients broadcast into
-// (rows, 1) columns. None of that is carried over. The BN and add+act
-// kernels walk the n elements unpadded in one grid-stride loop, 256
-// threads a block, neighbouring threads on neighbouring addresses
-// (coalesced 4-byte loads), and the BN kernels read the coefficient of
-// channel c = (i / inner) % C straight from the (C,) vectors, which stay
-// in L1/L2.
+// (rows, 1) columns. None of that is carried over: every kernel walks
+// the n elements unpadded.
 //
-// The activation forward and backward are 16-byte streams (stream):
-// DRAM latency times 3.35 TB/s asks for 15-20 KB of loads in flight on
-// every SM, and a grid-stride loop of one 4-byte load a thread, whose
-// i < n guard keeps the next load from issuing early, keeps at most 8 KB
-// (16 KB for the backward's two inputs). Here a block takes one tile of
-// THREADS x VEC floats: each thread one float4 load of each input
+// The BN apply and the activation forward and backward are 16-byte
+// streams (stream): DRAM latency times 3.35 TB/s asks for 15-20 KB of
+// loads in flight on every SM, and a grid-stride loop of one 4-byte load
+// a thread, whose i < n guard keeps the next load from issuing early,
+// keeps at most 8 KB (16 KB for two inputs). Here a block takes one tile
+// of THREADS x VEC floats: each thread one float4 load of each input
 // (ld.global.nc, no L1 allocation: every byte is read once), then one
 // float4 store, with no guard; with 8 blocks an SM that is 32 KB of
 // loads in flight (64 KB backward). Two or four vectors a thread and a
@@ -43,10 +39,21 @@
 // scalars. The partition (EVICT, tiles) comes from epilogue.py
 // epilogue_geometry; the entry points refuse tiles that do not match n.
 //
+// The BN apply's channel, (i / inner) % C, costs two divisions by
+// runtime values, some 15-20 integer instructions each. The host turns
+// inner and C into multiply-high divisors (Divisor, Channels), a vector
+// divides its first index only, and its other elements step from there;
+// a multiply-high division of every element measured no slower
+// (tools/probe_epilogue_variants.py per_elem): the loads in flight, not
+// the channel, set the time.
+//
+// The add+act kernel still walks the elements in one grid-stride loop of
+// coalesced 4-byte loads, 256 threads a block, on grid_for's grid.
+//
 // The activation is a template parameter, so each instance is
 // straight-line code. Indices are 32-bit (Idx): n is at most INT32_MAX,
-// so i + stride never wraps; a larger tensor is refused (the wrappers
-// raise first).
+// so no index formed (i + stride, a tile past the last) wraps; a larger
+// tensor is refused (the wrappers raise first).
 //
 // Rounding. (x - mean) * scale + beta and x + y use explicitly rounded
 // intrinsics (__fsub_rn, __fmul_rn, __fadd_rn), which nvcc never
@@ -103,38 +110,6 @@ __device__ __forceinline__ float act_grad(float out, float slope) {
   }
   if (A == LEAKY) return out >= 0.f ? 1.f : slope;
   return 1.f;  // IDENTITY
-}
-
-template <int A>
-__global__ void __launch_bounds__(THREADS)
-epilogue_bn_act_fwd_kernel(const float* __restrict__ x,
-                           const float* __restrict__ scale,
-                           const float* __restrict__ mean,
-                           const float* __restrict__ beta,
-                           float* __restrict__ out, Idx n, Idx c, Idx inner,
-                           float slope) {
-  const Idx stride = (Idx)gridDim.x * THREADS;
-  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
-    const Idx ch = (i / inner) % c;
-    const float y = __fadd_rn(
-        __fmul_rn(__fsub_rn(x[i], mean[ch]), scale[ch]), beta[ch]);
-    out[i] = act_fwd<A>(y, slope);
-  }
-}
-
-template <int A>
-__global__ void __launch_bounds__(THREADS)
-epilogue_bn_act_bwd_kernel(const float* __restrict__ g,
-                           const float* __restrict__ out,
-                           const float* __restrict__ scale,
-                           float* __restrict__ dx, Idx n, Idx c, Idx inner,
-                           float slope) {
-  const Idx stride = (Idx)gridDim.x * THREADS;
-  for (Idx i = (Idx)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
-    const Idx ch = (i / inner) % c;
-    dx[i] = __fmul_rn(__fmul_rn(g[i], act_grad<A>(out[i], slope)),
-                      scale[ch]);
-  }
 }
 
 // one 16-byte load of an input read once: the read-only path, no L1 line
@@ -230,6 +205,162 @@ epilogue_act_bwd_kernel(const float* __restrict__ g,
   stream(ActBwd<A, EVICT>{g, out, dx, slope}, n, tiles);
 }
 
+// A divisor d in [1, 2^31) as a multiply-high (Granlund-Montgomery, as
+// CUTLASS's FastDivmod): for d >= 2, l = ceil(log2 d), mul = ceil(2^(31 +
+// l) / d) < 2^32 and shift = l - 1, and i / d = umulhi(i, mul) >> shift
+// for every i < 2^31; d = 1 has mul 0 and i / 1 = i. The host computes
+// mul and shift (epilogue.py fast_divisor, held there to exact division).
+struct Divisor {
+  Idx d, mul, shift;
+  __device__ __forceinline__ Idx div(Idx i) const {
+    return mul ? __umulhi(i, mul) >> shift : i;
+  }
+};
+
+// Where element i of x, (outer, C, inner) around the BN axis, lies: its
+// channel (i / inner) % C and its offset r in the channel's run of inner
+// elements, by two divisions of the first element of a vector; the next
+// element steps from there.
+struct Channels {
+  Divisor inner, c;
+  __device__ __forceinline__ Idx at(Idx i, Idx& r) const {
+    const Idx q = inner.div(i);
+    r = i - q * inner.d;
+    return q - c.div(q) * c.d;
+  }
+  // (ch, r) of element i + 1 from those of element i: a run ends at
+  // inner, and the channel after C - 1 is 0 (the next outer index)
+  __device__ __forceinline__ void step(Idx& ch, Idx& r) const {
+    if (++r == inner.d) {
+      r = 0;
+      ch = ch + 1 == c.d ? 0 : ch + 1;
+    }
+  }
+};
+
+// one coefficient of a (C,) vector: the read-only path, with an L1 line
+// (each is read by every vector of its channel)
+__device__ __forceinline__ float coef(const float* p, Idx ch) {
+  return __ldg(p + ch);
+}
+
+template <int A>
+__device__ __forceinline__ float bn_fwd(float x, float s, float m, float b,
+                                        float slope) {
+  return act_fwd<A>(__fadd_rn(__fmul_rn(__fsub_rn(x, m), s), b), slope);
+}
+
+template <int A>
+__device__ __forceinline__ float bn_bwd(float g, float o, float s,
+                                        float slope) {
+  return __fmul_rn(__fmul_rn(g, act_grad<A>(o, slope)), s);
+}
+
+// The BN apply's stream: a vector finds the channel of its first element
+// by division, and each further element steps from the one before (inner
+// < 4 crosses more than one run in a vector, and C - 1 wraps to 0).
+template <int A, bool EVICT>
+struct BnFwd {
+  const float* x;
+  const float* scale;
+  const float* mean;
+  const float* beta;
+  float* out;
+  Channels chans;
+  float slope;
+  struct In {
+    float4 a;
+    Idx ch, r;
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    In v;
+    v.a = load4(x + i);
+    v.ch = chans.at(i, v.r);
+    return v;
+  }
+  __device__ __forceinline__ float one(float xi, Idx ch) const {
+    return bn_fwd<A>(xi, coef(scale, ch), coef(mean, ch), coef(beta, ch),
+                     slope);
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    float4 y;
+    Idx ch = v.ch, r = v.r;
+    y.x = one(v.a.x, ch);
+    chans.step(ch, r);
+    y.y = one(v.a.y, ch);
+    chans.step(ch, r);
+    y.z = one(v.a.z, ch);
+    chans.step(ch, r);
+    y.w = one(v.a.w, ch);
+    store4<EVICT>(out + i, y);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    Idx r;
+    out[i] = one(x[i], chans.at(i, r));
+  }
+};
+
+template <int A, bool EVICT>
+struct BnBwd {
+  const float* g;
+  const float* out;
+  const float* scale;
+  float* dx;
+  Channels chans;
+  float slope;
+  struct In {
+    float4 a, o;  // g, out
+    Idx ch, r;
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    In v;
+    v.a = load4(g + i);
+    // identity's derivative is 1: its backward never reads the output
+    v.o = A == IDENTITY ? make_float4(0.f, 0.f, 0.f, 0.f) : load4(out + i);
+    v.ch = chans.at(i, v.r);
+    return v;
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    float4 d;
+    Idx ch = v.ch, r = v.r;
+    d.x = bn_bwd<A>(v.a.x, v.o.x, coef(scale, ch), slope);
+    chans.step(ch, r);
+    d.y = bn_bwd<A>(v.a.y, v.o.y, coef(scale, ch), slope);
+    chans.step(ch, r);
+    d.z = bn_bwd<A>(v.a.z, v.o.z, coef(scale, ch), slope);
+    chans.step(ch, r);
+    d.w = bn_bwd<A>(v.a.w, v.o.w, coef(scale, ch), slope);
+    store4<EVICT>(dx + i, d);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    Idx r;
+    dx[i] = bn_bwd<A>(g[i], A == IDENTITY ? 0.f : out[i],
+                      coef(scale, chans.at(i, r)), slope);
+  }
+};
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_bn_act_fwd_kernel(const float* __restrict__ x,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ beta,
+                           float* __restrict__ out, Idx n, Idx tiles,
+                           Channels chans, float slope) {
+  stream(BnFwd<A, EVICT>{x, scale, mean, beta, out, chans, slope}, n,
+         tiles);
+}
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_bn_act_bwd_kernel(const float* __restrict__ g,
+                           const float* __restrict__ out,
+                           const float* __restrict__ scale,
+                           float* __restrict__ dx, Idx n, Idx tiles,
+                           Channels chans, float slope) {
+  stream(BnBwd<A, EVICT>{g, out, scale, dx, chans, slope}, n, tiles);
+}
+
 template <int A>
 __global__ void __launch_bounds__(THREADS)
 epilogue_add_act_fwd_kernel(const float* __restrict__ x,
@@ -281,11 +412,29 @@ unsigned grid_for(long long n) {
     __VA_ARGS__;                                                       \
   }
 
+// the Divisor of d from the host's (mul, shift); false when d is not in
+// [1, 2^31) or the shift is not one a 32-bit quotient takes
+bool divisor(long long d, unsigned mul, int shift, Divisor& out) {
+  out = {(Idx)d, (Idx)mul, (Idx)shift};
+  return d >= 1 && d <= INT32_MAX && shift >= 0 && shift < 32;
+}
+
 // the stream's grid (epilogue.py epilogue_geometry): one block a whole
 // tile, one more for the rest; 0 when `tiles` is not n's
 unsigned stream_grid(long long n, long long tiles) {
   if (tiles != n / TILE) return 0;
   return (unsigned)(tiles + (n % TILE != 0));
+}
+
+// the BN apply's grid, the stream's, with chans filled from the divisors
+// of inner and c; 0 when one is refused, or `tiles` is not n's
+unsigned bn_grid(long long n, long long c, long long inner,
+                 unsigned inner_mul, int inner_shift, unsigned c_mul,
+                 int c_shift, long long tiles, Channels& chans) {
+  if (!divisor(inner, inner_mul, inner_shift, chans.inner) ||
+      !divisor(c, c_mul, c_shift, chans.c))
+    return 0;
+  return stream_grid(n, tiles);
 }
 
 }  // namespace
@@ -296,41 +445,55 @@ unsigned stream_grid(long long n, long long tiles) {
 // (outer, C, inner) around the BN axis and scale / mean / beta are (C,).
 // act is the Act code above, slope the leaky slope. Each returns the
 // cudaError_t of its launch.
+// The BN entry points: c and inner as above, (inner_mul, inner_shift)
+// and (c_mul, c_shift) their divisors (epilogue.py bn_geometry), evict
+// and tiles as for the activation kernels below.
 extern "C" int mx_bn_act_fwd(const void* x, const void* scale,
                              const void* mean, const void* beta, void* out,
-                             long long n, int c, long long inner, int act,
-                             float slope, void* stream) {
+                             long long n, long long c, long long inner,
+                             unsigned inner_mul, int inner_shift,
+                             unsigned c_mul, int c_shift, int act,
+                             float slope, int evict, long long tiles,
+                             void* stream) {
   if (n == 0) return cudaSuccess;
   if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
-  if (c <= 0 || inner <= 0) return cudaErrorInvalidValue;
+  Channels ch;
+  const unsigned grid = bn_grid(n, c, inner, inner_mul, inner_shift, c_mul,
+                                c_shift, tiles, ch);
+  if (grid == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n);
   const float* xp = static_cast<const float*>(x);
   const float* sp = static_cast<const float*>(scale);
   const float* mp = static_cast<const float*>(mean);
   const float* bp = static_cast<const float*>(beta);
   float* op = static_cast<float*>(out);
-  MX_ACT_DISPATCH(act, epilogue_bn_act_fwd_kernel<A><<<grid, THREADS, 0, s>>>(
-                           xp, sp, mp, bp, op, (Idx)n, (Idx)c, (Idx)inner,
-                           slope));
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_bn_act_fwd_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 xp, sp, mp, bp, op, (Idx)n, (Idx)tiles, ch, slope)));
   return cudaGetLastError();
 }
 
 extern "C" int mx_bn_act_bwd(const void* g, const void* out,
-                             const void* scale, void* dx, long long n, int c,
-                             long long inner, int act, float slope,
+                             const void* scale, void* dx, long long n,
+                             long long c, long long inner,
+                             unsigned inner_mul, int inner_shift,
+                             unsigned c_mul, int c_shift, int act,
+                             float slope, int evict, long long tiles,
                              void* stream) {
   if (n == 0) return cudaSuccess;
   if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
-  if (c <= 0 || inner <= 0) return cudaErrorInvalidValue;
+  Channels ch;
+  const unsigned grid = bn_grid(n, c, inner, inner_mul, inner_shift, c_mul,
+                                c_shift, tiles, ch);
+  if (grid == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n);
   const float* gp = static_cast<const float*>(g);
   const float* op = static_cast<const float*>(out);
   const float* sp = static_cast<const float*>(scale);
   float* dp = static_cast<float*>(dx);
-  MX_ACT_DISPATCH(act, epilogue_bn_act_bwd_kernel<A><<<grid, THREADS, 0, s>>>(
-                           gp, op, sp, dp, (Idx)n, (Idx)c, (Idx)inner, slope));
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_bn_act_bwd_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 gp, op, sp, dp, (Idx)n, (Idx)tiles, ch, slope)));
   return cudaGetLastError();
 }
 

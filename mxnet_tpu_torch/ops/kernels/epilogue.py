@@ -13,10 +13,12 @@ in ``csrc/epilogue.cu``, float32, over the tensor's elements unpadded:
   * :func:`act_backward` replaces ``mxnet_tpu_act_bwd`` (:239):
     ``g * act'(out)``, from the output alone;
 
-these two stream 16-byte vectors, in whole tiles of
+these four stream 16-byte vectors, in whole tiles of
 ``EPI_THREADS * EPI_VEC`` floats and a rest, as :func:`epilogue_geometry`
 partitions the elements, an output of at least the L2's size stored
-evict-first;
+evict-first; the BN apply finds the channel of a vector's first element
+by two multiply-high divisions (:func:`fast_divisor`,
+:func:`bn_geometry`) and steps the others from it;
   * :func:`add_act_forward` replaces ``mxnet_tpu_add_act_fwd`` (:297):
     ``act(x + y)``.
 
@@ -49,7 +51,8 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
 
 __all__ = ['ACT_TYPES', 'MAX_ELEMENTS', 'EPI_THREADS', 'EPI_VEC',
            'EPI_TILE', 'EpilogueGeometry', 'epilogue_geometry',
-           'act_reference',
+           'Divisor', 'fast_divisor', 'BnGeometry',
+           'bn_geometry', 'act_reference',
            'act_grad_from_out', 'act_forward', 'act_forward_reference',
            'act_backward', 'act_backward_reference', 'add_act_forward',
            'add_act_forward_reference', 'bn_act_forward',
@@ -123,16 +126,16 @@ def _lib(entry, nargs):
     return fn
 
 
-_P, _N, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                  ctypes.c_float)
+_P, _N, _I, _U, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_uint, ctypes.c_float)
 # the kernels index elements in 32 bits
 MAX_ELEMENTS = 2 ** 31 - 1
 
-# the activation kernels' stream (csrc/epilogue.cu stream): threads a
-# block, floats a vector (one of each input a thread), floats a tile (a
-# block); an output of at least the L2's 50 MB is stored evict-first, as
-# tools/probe_epilogue_variants.py measured fastest on the H100 at
-# ResNet-50's relu and join shapes
+# the stream of the BN apply and activation kernels (csrc/epilogue.cu
+# stream): threads a block, floats a vector (one of each input a thread),
+# floats a tile (a block); an output of at least the L2's 50 MB is stored
+# evict-first, as tools/probe_epilogue_variants.py measured fastest on the
+# H100 at ResNet-50's relu and join shapes
 EPI_THREADS = 256
 EPI_VEC = 4
 EPI_TILE = EPI_THREADS * EPI_VEC
@@ -143,7 +146,7 @@ EpilogueGeometry = collections.namedtuple(
 
 
 def epilogue_geometry(n):
-    """Launch geometry of the activation kernels for ``n`` float32
+    """Launch geometry of the stream kernels for ``n`` float32
     elements, as an :class:`EpilogueGeometry`: ``tiles`` whole tiles of
     :data:`EPI_TILE` floats (``body`` elements), one block each, and one
     block more (``grid`` counts it) for the ``rest`` (whole 16-byte
@@ -156,6 +159,40 @@ def epilogue_geometry(n):
     rest = n - body - tail
     return EpilogueGeometry(4 * n >= EPI_EVICT_BYTES, tiles, body, rest,
                             tail, tiles + (1 if rest or tail else 0))
+
+
+Divisor = collections.namedtuple('Divisor', 'd mul shift')
+
+
+def fast_divisor(d):
+    """The divisor ``d`` in [1, 2**31) as csrc/epilogue.cu ``Divisor``
+    divides by it: ``i // d == (i * mul >> 32) >> shift`` for every
+    ``i < 2**31`` (Granlund-Montgomery, as CUTLASS's ``FastDivmod``), with
+    ``l = ceil(log2 d)``, ``mul = ceil(2**(31 + l) / d)``, below 2**32,
+    and ``shift = l - 1``; ``d = 1`` has ``mul = 0`` (the kernel then
+    takes ``i`` itself). The kernel takes these numbers as given: this
+    function is the one place they are computed."""
+    d = int(d)
+    if not 1 <= d <= MAX_ELEMENTS:
+        raise ValueError('fast_divisor: %d is not in [1, 2**31)' % d)
+    if d == 1:
+        return Divisor(1, 0, 0)
+    l = (d - 1).bit_length()
+    return Divisor(d, -(-(1 << (31 + l)) // d), l - 1)
+
+
+BnGeometry = collections.namedtuple(
+    'BnGeometry', EpilogueGeometry._fields + ('inner', 'c'))
+
+
+def bn_geometry(n, c, inner):
+    """Launch geometry of the BN apply kernels for ``n`` float32 elements
+    of a tensor (outer, ``c``, ``inner``) around the BN axis, as a
+    :class:`BnGeometry`: the stream's partition and store kind of
+    :func:`epilogue_geometry` and the :class:`Divisor` of ``inner`` and
+    of ``c``."""
+    return BnGeometry(*epilogue_geometry(n), fast_divisor(inner),
+                      fast_divisor(c))
 
 
 def _launch(kernel, entry, argtypes, tensors, result, *scalars):
@@ -262,6 +299,19 @@ def _around(x, ax):
     return x.shape[ax], inner
 
 
+# the BN entry points' scalars after the tensors: n, c, inner, inner's
+# and c's divisors, act, slope, evict, tiles, stream
+_BN_ARGS = [_N, _N, _N, _U, _I, _U, _I, _I, _F, _I, _N, _P]
+
+
+def _bn_args(n, c, inner, code, slope):
+    # an empty tensor launches nothing (the entry points return first),
+    # and its C or inner may be 0, which no divisor takes
+    geom = bn_geometry(n, max(c, 1), max(inner, 1))
+    return (n, c, inner, geom.inner.mul, geom.inner.shift, geom.c.mul,
+            geom.c.shift, code, float(slope), int(geom.evict), geom.tiles)
+
+
 def bn_act_forward_reference(x, scale, mean, beta, axis=1, act_type=None,
                              slope=0.0):
     """Plain PyTorch version of :func:`bn_act_forward`: the expression
@@ -285,10 +335,9 @@ def bn_act_forward(x, scale, mean, beta, axis=1, act_type=None, slope=0.0):
         _require(tuple(v.shape) == (c,), 'bn_act_forward: %s has shape %r, '
                  'expected (%d,)' % (label, tuple(v.shape), c))
     x, scale, mean, beta = (_dense(t) for t in (x, scale, mean, beta))
-    return _launch('bn_act_fwd', 'mx_bn_act_fwd',
-                   [_P] * 5 + [_N, _I, _N, _I, _F, _P],
+    return _launch('bn_act_fwd', 'mx_bn_act_fwd', [_P] * 5 + _BN_ARGS,
                    {'x': x, 'scale': scale, 'mean': mean, 'beta': beta},
-                   _empty(x), x.numel(), c, inner, code, float(slope))
+                   _empty(x), *_bn_args(x.numel(), c, inner, code, slope))
 
 
 def bn_act_backward_reference(g, out, scale, axis=1, act_type=None,
@@ -313,10 +362,9 @@ def bn_act_backward(g, out, scale, axis=1, act_type=None, slope=0.0):
     _require(tuple(scale.shape) == (c,), 'bn_act_backward: scale has shape '
              '%r, expected (%d,)' % (tuple(scale.shape), c))
     g, out, scale = _dense(g), _dense(out), _dense(scale)
-    return _launch('bn_act_bwd', 'mx_bn_act_bwd',
-                   [_P] * 4 + [_N, _I, _N, _I, _F, _P],
+    return _launch('bn_act_bwd', 'mx_bn_act_bwd', [_P] * 4 + _BN_ARGS,
                    {'g': g, 'out': out, 'scale': scale}, _empty(out),
-                   out.numel(), c, inner, code, float(slope))
+                   *_bn_args(out.numel(), c, inner, code, slope))
 
 
 # -- autograd wiring ----------------------------------------------------------

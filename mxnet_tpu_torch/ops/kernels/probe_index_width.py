@@ -94,14 +94,16 @@ def main():
         ctypes.c_float(0.0)
     geom = epilogue.epilogue_geometry(n)
     stream_args = (int(geom.evict), big(geom.tiles))
+    bn = epilogue.bn_geometry(n, c, inner)
     # identity (code 0) for the BN apply, relu (code 1) for the acts
+    bn_args = (big(n), big(c), big(inner), ctypes.c_uint(bn.inner.mul),
+               bn.inner.shift, ctypes.c_uint(bn.c.mul), bn.c.shift, 0, zero,
+               *stream_args)
     direct = {
         'bn_act_fwd': lambda lib: lib.mx_bn_act_fwd(
-            p(x), p(scale), p(mean), p(beta), p(out), big(n), c, big(inner),
-            0, zero, s()),
+            p(x), p(scale), p(mean), p(beta), p(out), *bn_args, s()),
         'bn_act_bwd': lambda lib: lib.mx_bn_act_bwd(
-            p(g), p(x), p(scale), p(out), big(n), c, big(inner), 0, zero,
-            s()),
+            p(g), p(x), p(scale), p(out), *bn_args, s()),
         'act_fwd': lambda lib: lib.mx_act_fwd(p(x), p(out), big(n), 1, zero,
                                               *stream_args, s()),
         'act_bwd': lambda lib: lib.mx_act_bwd(p(g), p(x), p(out), big(n), 1,

@@ -136,7 +136,7 @@ def pooling(data, kernel=(1, 1), pool_type='max', global_pool=False,
         s = k if stride is None else _pair(stride, 'stride')
         return MaxPoolFunction.apply(data, k, s, _pair(pad, 'pad'))
     raise NotImplementedError('pooling: %s%s pooling is not ported '
-                              '(ROADMAP A.9)' % (
+                              '(ROADMAP: "the rest of training")' % (
                                   'global ' if global_pool else '', pool_type))
 
 
@@ -170,7 +170,8 @@ def leaky_relu(data, act_type='leaky', slope=0.25):
     if act_type == 'gelu':
         return F.gelu(data, approximate='none')
     raise NotImplementedError('leaky_relu: act_type %r is not ported '
-                              '(ROADMAP A.9)' % (act_type,))
+                              '(ROADMAP: "the rest of training")'
+                              % (act_type,))
 
 
 def add_relu(data, residual):

@@ -26,8 +26,9 @@ every parameter, in place. What the JAX trainer does that the port keeps:
     and seeds (``seed``); JAX's threefry masks cannot be reproduced.
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh of more
-than one device and ZeRO (ROADMAP A10, multi-GPU), the numerical
-guardrail (ROADMAP A10, robustness layers) and AMP (ROADMAP A9).
+than one device, ZeRO and the numerical guardrail (ROADMAP: "multi-GPU,
+robustness layers and the tail") and AMP (ROADMAP: "AMP: bf16 compute
+over fp32 master weights").
 """
 from __future__ import annotations
 
@@ -72,19 +73,22 @@ class ParallelTrainer:
         if mesh is not None and _mesh_devices(mesh) > 1:
             raise NotImplementedError(
                 'ParallelTrainer: a mesh of %d devices is not ported yet '
-                '(ROADMAP A10, multi-GPU); the port trains on one device'
-                % _mesh_devices(mesh))
+                '(ROADMAP: "multi-GPU, robustness layers and the tail"); '
+                'the port trains on one device' % _mesh_devices(mesh))
         if zero:
             raise NotImplementedError('ParallelTrainer: the ZeRO-sharded '
-                                      'update is not ported yet (ROADMAP A10, '
-                                      'multi-GPU)')
+                                      'update is not ported yet (ROADMAP: '
+                                      '"multi-GPU, robustness layers '
+                                      'and the tail")')
         if guardrail:
             raise NotImplementedError('ParallelTrainer: the numerical '
-                                      'guardrail is not ported yet (ROADMAP '
-                                      'A10, robustness layers)')
+                                      'guardrail is not ported yet (ROADMAP: '
+                                      '"multi-GPU, robustness layers '
+                                      'and the tail")')
         if amp is not None:
             raise NotImplementedError('ParallelTrainer: AMP is not ported '
-                                      'yet (ROADMAP A9)')
+                                      'yet (ROADMAP: "AMP: bf16 compute '
+                                      'over fp32 master weights")')
         self._net = net
         self._loss = loss
         if isinstance(optimizer, str):

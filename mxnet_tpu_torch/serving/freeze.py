@@ -14,8 +14,10 @@ their algorithms chosen for every bucket.
 
 The JAX package's symbolic path (a ``Module``, a ``FeedForward``, a
 ``(symbol, arg_params, aux_params)`` triple), the on-disk artifact
-(``save`` / ``load`` / ``load_frozen``, ROADMAP A7) and the CPU fallback
-(``run_fallback``, A6) are not ported.
+(``save`` / ``load`` / ``load_frozen``, ROADMAP: "frozen-artifact
+persistence, then the HTTP server") and the CPU fallback
+(``run_fallback``, ROADMAP: "breaker / watchdog and the visible degraded
+path") are not ported.
 """
 from __future__ import annotations
 

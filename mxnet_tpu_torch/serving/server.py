@@ -17,7 +17,8 @@ Two modes, chosen by the program:
 Knob defaults come from ``MXNET_TPU_SERVE_*`` (``mxnet_tpu_torch/config.py``);
 constructor arguments win. Arguments of the other mode are ignored, as in
 the JAX session. Not ported: the circuit breaker and the CPU fallback
-(ROADMAP A6) -- a failing batch fails its requests --, the stall
+(ROADMAP: "breaker / watchdog and the visible degraded path") -- a
+failing batch fails its requests --, the stall
 watchdog, and the HTTP endpoint.
 """
 from __future__ import annotations

@@ -231,10 +231,11 @@ def test_three_adamw_steps_match_jax(ref):
 def test_trainer_refuses_what_is_not_ported(ref):
     net = _port_net(ref)
     fn = _port_loss_fn()
-    for kw, item in (({'mesh': {'dp': 2}}, 'A10, multi-GPU'),
-                     ({'zero': True}, 'A10, multi-GPU'),
-                     ({'guardrail': True}, 'A10, robustness'),
-                     ({'amp': 'bf16'}, 'A9')):
+    tail = 'multi-GPU, robustness layers and the tail'
+    for kw, item in (({'mesh': {'dp': 2}}, 'mesh of 2 devices.*' + tail),
+                     ({'zero': True}, 'ZeRO.*' + tail),
+                     ({'guardrail': True}, 'guardrail.*' + tail),
+                     ({'amp': 'bf16'}, 'AMP: bf16 compute')):
         with pytest.raises(NotImplementedError, match=item):
             port_parallel.ParallelTrainer(net, fn, 'adamw', dict(HYPER),
                                           **kw)

@@ -18,7 +18,9 @@ Tolerances, float32:
     which rounds once where the port's separate ops (and the CUDA kernel,
     by design, to be bitwise equal to them on the card) round twice; the
     difference is at most half an ulp of the product plus one ulp of the
-    result. Its ``dx`` is exact for the non-transcendental acts;
+    result. Its ``dx`` is exact for identity, relu and leaky; softsign's
+    ``(1 - |out|)^2`` reads outputs that may differ by that rounding, so
+    its ``dx`` takes the transcendental backward's tier below;
   * transcendental activations (sigmoid, tanh, softrelu): 5e-7 relative
     forward (``tests/test_pallas.py``'s ULP tier); their backward,
     computed from the output, 5e-7 relative to the gradient's max abs
@@ -133,11 +135,10 @@ def _bn_coeffs(seed, c):
             rs.randn(c).astype('float32'), rs.randn(c).astype('float32')]
 
 
-@pytest.mark.parametrize('act', ('identity', 'relu', 'leaky', 'tanh'))
-@pytest.mark.parametrize('axis', (1, 3))
-def test_fused_bn_apply_matches_jax(act, axis):
-    x, g = _arrays(2, SHAPE, SHAPE)
-    c = SHAPE[axis]
+def _bn_apply_parity(x, g, axis, act):
+    """``fused_bn_apply`` of the port against the JAX package's, forward
+    and every gradient, at the tolerances of the module docstring."""
+    c = x.shape[axis]
     scale, mean, beta = _bn_coeffs(3, c)
     slope = _slope(act)
     jact = None if act == 'identity' else act
@@ -153,7 +154,7 @@ def test_fused_bn_apply_matches_jax(act, axis):
         _assert_rel_max(out, want, ULP, 'out')
     else:
         shape = [1] * x.ndim
-        shape[axis] = c
+        shape[axis % x.ndim] = c
         prod = np.abs((x - mean.reshape(shape)) * scale.reshape(shape))
         bound = 2.0 ** -23 * (prod + np.abs(want))
         assert (np.abs(out - want) <= bound).all()
@@ -162,10 +163,32 @@ def test_fused_bn_apply_matches_jax(act, axis):
             + beta.reshape(shape)
         if act == 'identity':
             np.testing.assert_array_equal(out, sep)
-    _assert_bwd(grads[0], wgrads[0], act, 'dx')
+    if act == 'softsign':
+        # (1 - |out|)^2 of outputs that may differ by the forward's bound
+        _assert_rel_max(grads[0], wgrads[0], ULP, 'dx')
+    else:
+        _assert_bwd(grads[0], wgrads[0], act, 'dx')
     for name, a, b in zip(('dscale', 'dmean', 'dbeta'), grads[1:],
                           wgrads[1:]):
         _assert_rel_max(a, b, RED, name)
+
+
+@pytest.mark.parametrize('act', ('identity', 'relu', 'leaky', 'tanh'))
+@pytest.mark.parametrize('axis', (1, 3))
+def test_fused_bn_apply_matches_jax(act, axis):
+    x, g = _arrays(2, SHAPE, SHAPE)
+    _bn_apply_parity(x, g, axis, act)
+
+
+@pytest.mark.parametrize('act', EXACT_ACTS + ULP_ACTS)
+@pytest.mark.parametrize('shape,axis', (((2, 4, 7, 7), 1),
+                                        ((2, 4, 7, 7), -1),
+                                        ((2, 3, 1, 3), 1)))
+def test_fused_bn_apply_odd_inners_match_jax(shape, axis, act):
+    """Inners that are no multiple of 4, where the kernel's vectors span
+    channels: 49 (the 7 x 7 maps), 1 (the last axis) and 3."""
+    x, g = _arrays(15, shape, shape)
+    _bn_apply_parity(x, g, axis, act)
 
 
 def test_activation_and_leaky_relu_ops_match_jax():
@@ -339,11 +362,12 @@ def test_launch_refuses_more_elements_than_the_kernels_index(monkeypatch):
     assert not any(kernels.launch_counts().values())
 
 
-def _stream_walk(n, geom):
-    """The element indices the activation kernels' stream visits for
-    ``n`` elements at ``geom``, as csrc/epilogue.cu ``stream`` forms them
-    (blocks, then threads: a vector of a whole tile, or in the block past
-    the tiles a vector of the rest and a scalar of the tail)."""
+def _stream_items(n, geom):
+    """(first element, width) of each vector (width 4) and scalar (width
+    1) the stream kernels visit for ``n`` elements at ``geom``, as
+    csrc/epilogue.cu ``stream`` forms them (blocks, then threads: a
+    vector of a whole tile, or in the block past the tiles a vector of
+    the rest and a scalar of the tail)."""
     threads, vec, tile = epilogue.EPI_THREADS, epilogue.EPI_VEC, \
         epilogue.EPI_TILE
     whole = n - n % vec
@@ -351,12 +375,18 @@ def _stream_walk(n, geom):
         for t in range(threads):
             i = b * tile + t * vec
             if b < geom.tiles:
-                yield from range(i, i + vec)
+                yield i, vec
                 continue
             if i < whole:
-                yield from range(i, i + vec)
+                yield i, vec
             if whole + t < n:
-                yield whole + t
+                yield whole + t, 1
+
+
+def _stream_walk(n, geom):
+    """The element indices the stream visits, in its order."""
+    for i, width in _stream_items(n, geom):
+        yield from range(i, i + width)
 
 
 def _assert_partition(n, geom):
@@ -433,6 +463,133 @@ def test_stream_constants_match_the_source():
     assert 'constexpr int TILE = THREADS * VEC;' in src
 
 
+def _kernel_div(i, div):
+    """``i // div.d`` as csrc/epilogue.cu ``Divisor::div`` computes it:
+    the high 32 bits of the 64-bit product ``i * mul`` (``__umulhi``),
+    shifted right; ``mul`` 0 (d = 1) gives ``i``."""
+    return (i * div.mul >> 32) >> div.shift if div.mul else i
+
+
+def _channel_at(i, geom):
+    """``Channels::at``: the channel of element i and its offset in the
+    channel's run of ``inner`` elements, by two divisions and the
+    remainders taken back from the quotients."""
+    q = _kernel_div(i, geom.inner)
+    r = i - q * geom.inner.d
+    return q - _kernel_div(q, geom.c) * geom.c.d, r
+
+
+def _channel_step(ch, r, geom):
+    """``Channels::step``: (channel, offset) of the next element."""
+    r += 1
+    if r == geom.inner.d:
+        r = 0
+        ch = 0 if ch + 1 == geom.c.d else ch + 1
+    return ch, r
+
+
+def _bn_walk(n, geom):
+    """(element, channel) as the BN kernels find them: a vector divides
+    its first index and each further element steps from the one before;
+    a scalar of the tail divides its own index."""
+    for i, width in _stream_items(n, geom):
+        ch, r = _channel_at(i, geom)
+        yield i, ch
+        for j in range(1, width):
+            ch, r = _channel_step(ch, r, geom)
+            yield i + j, ch
+
+
+# the inners and channel counts of the BatchNorms ResNet-50 v1 (224 px)
+# and ssd_300 run, and the largest divisors the kernels take
+RESNET_INNERS = (112 * 112, 56 * 56, 28 * 28, 14 * 14, 7 * 7)
+SSD_INNERS = tuple(s * s for s in (300, 150, 75, 38, 19, 10, 5, 3, 1))
+BN_CHANNELS = (3, 32, 64, 128, 256, 512, 1024, 2048)
+BIG_DIVISORS = (2 ** 16 + 1, 2 ** 30, 2 ** 30 + 1, 2 ** 31 - 2,
+                epilogue.MAX_ELEMENTS)
+DIVISOR_SETS = [range(k, k + 512) for k in range(1, 4097, 512)] + [
+    RESNET_INNERS + SSD_INNERS + BN_CHANNELS + BIG_DIVISORS]
+
+
+@pytest.mark.parametrize('divisors', DIVISOR_SETS,
+                         ids=['%d-%d' % (d[0], d[-1]) for d in
+                              DIVISOR_SETS[:-1]] + ['shapes'])
+def test_fast_divisor_divides_exactly(divisors):
+    """The kernel's division by ``fast_divisor(d)`` gives ``i // d`` and
+    ``i % d`` for every divisor 1-4096 and every inner and channel count
+    of the ResNet-50 and SSD BatchNorms, at numerators 0, d - 1, d,
+    2**31 - 1 and a seeded sample of [0, 2**31); its multiplier fits 32
+    bits."""
+    rs = np.random.RandomState(16)
+    top = epilogue.MAX_ELEMENTS
+    for d in divisors:
+        div = epilogue.fast_divisor(d)
+        assert div.d == d and 0 <= div.mul < 2 ** 32 and 0 <= div.shift < 32
+        nums = {0, d - 1, d, top, top - d + 1, top - 1} | set(
+            int(v) for v in rs.randint(0, top, size=24, dtype=np.int64))
+        for i in nums:
+            if i > top or i < 0:
+                continue
+            q = _kernel_div(i, div)
+            assert (q, i - q * d) == divmod(i, d), (i, d)
+
+
+def test_fast_divisor_refuses_what_the_kernel_cannot_divide_by():
+    for d in (0, -1, 2 ** 31):
+        with pytest.raises(ValueError, match='not in'):
+            epilogue.fast_divisor(d)
+    # an empty tensor's C or inner may be 0: its launch arguments carry
+    # the divisor of 1 there, and the entry points return before reading
+    # them
+    for c, inner in ((0, 5), (3, 0)):
+        args = epilogue._bn_args(0, c, inner, 0, 0.0)
+        div_inner = epilogue.fast_divisor(max(inner, 1))
+        div_c = epilogue.fast_divisor(max(c, 1))
+        assert args[:7] == (0, c, inner, div_inner.mul, div_inner.shift,
+                            div_c.mul, div_c.shift)
+
+
+@pytest.mark.parametrize('inner', (1, 2, 3, 4, 49, 63, 196))
+@pytest.mark.parametrize('c', (1, 3, 37))
+def test_bn_channel_walk_matches_the_channel_of_every_element(inner, c):
+    """Every element's channel as the kernels walk it, ``(i // inner) %
+    c``: a vector spanning two runs (inner 49, 63), or up to four (inner
+    1-3), and the channel wrapping from c - 1 to 0 inside a vector. Over
+    whole tiles, the rest and a tail."""
+    for outer in (1, 5, 2 * epilogue.EPI_TILE // (c * inner) + 3):
+        n = outer * c * inner
+        geom = kernels.bn_geometry(n, c, inner)
+        walked = list(_bn_walk(n, geom))
+        assert sorted(i for i, _ in walked) == list(range(n))
+        assert [ch for _, ch in sorted(walked)] == \
+            [(i // inner) % c for i in range(n)], (outer, c, inner)
+
+
+# ResNet-50's nine BatchNorm shapes at batch 128, SSD's at batch 16, odd
+# ones of the card checks, and a tensor of the most elements the kernels
+# index
+BN_SHAPES = ((128, 64, 112, 112), (128, 64, 56, 56), (128, 256, 56, 56),
+             (128, 128, 28, 28), (128, 512, 28, 28), (128, 256, 14, 14),
+             (128, 1024, 14, 14), (128, 512, 7, 7), (128, 2048, 7, 7),
+             (16, 64, 300, 300), (16, 512, 38, 38), (16, 256, 5, 5),
+             (16, 256, 3, 3), (2, 4, 7, 7), (2, 3, 1, 3),
+             (1, 1, 1, epilogue.MAX_ELEMENTS))
+
+
+@pytest.mark.parametrize('shape', BN_SHAPES)
+def test_bn_geometry_is_the_streams_with_the_divisors(shape):
+    """``bn_geometry`` partitions the elements as ``epilogue_geometry``
+    does and carries the divisors of inner and C."""
+    n, c, inner = int(np.prod(shape)), shape[1], int(np.prod(shape[2:]))
+    geom = kernels.bn_geometry(n, c, inner)
+    assert tuple(geom[:6]) == tuple(kernels.epilogue_geometry(n))
+    _assert_partition(n, kernels.epilogue_geometry(n))
+    assert geom.inner == epilogue.fast_divisor(inner)
+    assert geom.c == epilogue.fast_divisor(c)
+    # the last element's channel, as the kernel finds it
+    assert _channel_at(n - 1, geom)[0] == c - 1
+
+
 # ptxas -v lines of csrc/epilogue.cu, as ptxas prints them for sm_90a
 PTXAS_LINES = [
     "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
@@ -446,6 +603,16 @@ PTXAS_LINES = [
     '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
     'ptxas info    : Used 32 registers, used 0 barriers',
     "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e726epilogue_bn_act_fwd_kernelILi0ELb1EEEvPKfS2_"
+    "S2_S2_PfjjNS_8ChannelsEf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 26 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e726epilogue_bn_act_bwd_kernelILi3ELb0EEEvPKfS2_"
+    "S2_PfjjNS_8ChannelsEf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 30 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
     "epilogue_cu_1878d3e727epilogue_add_act_fwd_kernelILi6EEEvPKfS2_Pfjf' "
     "for 'sm_90a'",
     'ptxas info    : Used 18 registers, used 0 barriers',
@@ -454,18 +621,24 @@ PTXAS_LINES = [
 
 def test_ptxas_report_of_the_act_kernels():
     """chip_smoke's phase-1 check reads the registers and spills of the
-    stream kernels' instances from ptxas's report, keyed by store kind,
-    and fails on a spill or when ptxas ran and named neither kernel."""
+    stream kernels' instances (act and BN apply) from ptxas's report,
+    keyed by store kind, and fails on a spill or when ptxas ran and did
+    not name all four kernels."""
     import chip_smoke
     assert chip_smoke.check_epilogue_build(PTXAS_LINES) == {
-        'act_fwd': {'cs': 20}, 'act_bwd': {'st': 32}}
-    spilled = list(PTXAS_LINES)
-    spilled[1] = '    0 bytes stack frame, 8 bytes spill stores, 8 bytes ' \
-        'spill loads'
-    with pytest.raises(AssertionError, match='spill'):
-        chip_smoke.check_epilogue_build(spilled)
-    with pytest.raises(AssertionError, match='no act_fwd / act_bwd'):
+        'act_fwd': {'cs': 20}, 'act_bwd': {'st': 32},
+        'bn_act_fwd': {'cs': 26}, 'bn_act_bwd': {'st': 30}}
+    for line in (1, 7):
+        spilled = list(PTXAS_LINES)
+        spilled[line] = '    0 bytes stack frame, 8 bytes spill stores, ' \
+            '8 bytes spill loads'
+        with pytest.raises(AssertionError, match='spill'):
+            chip_smoke.check_epilogue_build(spilled)
+    with pytest.raises(AssertionError,
+                       match='no act_bwd / act_fwd / bn_act_bwd / bn_act_fwd'):
         chip_smoke.check_epilogue_build(PTXAS_LINES[-2:])
+    with pytest.raises(AssertionError, match='no bn_act_bwd / bn_act_fwd'):
+        chip_smoke.check_epilogue_build(PTXAS_LINES[:6])
     assert chip_smoke.check_epilogue_build([]) == {}
 
 
@@ -473,7 +646,9 @@ def test_ptxas_report_of_the_act_kernels():
 def test_epilogue_kernels_match_plain_versions_on_card():
     """The five kernels against their plain versions on the card: bitwise
     for identity, relu, leaky, add+relu and the BN apply, forward and
-    backward; 5e-7 relative for the transcendental acts. A non-contiguous
+    backward; 5e-7 relative for the transcendental acts. The BN apply
+    also along other axes, at inners that are no multiple of 4
+    (``chip_smoke.EPI_BN_CASES``: 1, 2, 3, 9, 25, 49). A non-contiguous
     cotangent (an expanded view) is made dense, not refused."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels are CUDA C++ for '
@@ -506,6 +681,29 @@ def test_epilogue_kernels_match_plain_versions_on_card():
     gexp = g[:1, :1, :1, :1].expand(SHAPE)
     assert torch.equal(kernels.act_backward(gexp, x, 'relu'),
                        kernels.act_backward_reference(gexp, x, 'relu'))
+    import chip_smoke
+    for k, (shape, axis) in enumerate(chip_smoke.EPI_BN_CASES):
+        xb, gb = (torch.tensor(a, device='cuda')
+                  for a in _arrays(30 + k, shape, shape))
+        coeffs = [torch.tensor(a, device='cuda')
+                  for a in _bn_coeffs(31 + k, shape[axis])]
+        for act in EXACT_ACTS + ULP_ACTS:
+            slope = _slope(act)
+            out = kernels.bn_act_forward_reference(xb, *coeffs, axis, act,
+                                                   slope)
+            for got, want in (
+                    (kernels.bn_act_forward(xb, *coeffs, axis, act, slope),
+                     out),
+                    (kernels.bn_act_backward(gb, out, coeffs[0], axis, act,
+                                             slope),
+                     kernels.bn_act_backward_reference(gb, out, coeffs[0],
+                                                       axis, act, slope))):
+                if act in ULP_ACTS:
+                    tol = ULP * want.abs().max().item()
+                    assert (got - want).abs().max().item() <= tol, \
+                        (act, shape, axis)
+                else:
+                    assert torch.equal(got, want), (act, shape, axis)
     # the activation stream's tails: below a tile, and a tile plus 3
     for n in (1, 3, 5, 1025, TILE + 3):
         x, g = (torch.tensor(a, device='cuda')

@@ -336,5 +336,5 @@ def test_init_params_is_seeded_xavier():
     assert torch.equal(a['batchnorm0_gamma'], torch.ones(8))
     assert torch.equal(a['batchnorm0_running_var'], torch.ones(8))
     assert not a['stage1_conv0_bias'].any()
-    with pytest.raises(NotImplementedError, match='A.2'):
+    with pytest.raises(NotImplementedError, match='the rest of training'):
         port_resnet.get_resnet(2, 50, device='cpu')
