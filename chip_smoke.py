@@ -9,12 +9,13 @@ Phases, in order; any failure exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them) and build every kernel from ``csrc/`` with nvcc, one
      process per source, all started together; the flash forward's
-     instances, the dq kernel, the four matmul variants' kernels and the
-     activation kernels of ``epilogue.cu`` must spill no register
-     (``-Xptxas -v``; the last two log theirs), every matmul kernel's SASS
-     (``cuobjdump -sass``) must hold HGMMA and UTMALDG (counted with
-     UTMASTG, of which noacc's must hold none) and the dq kernel's HMMA
-     (its 3xTF32 tensor-core products), or the run fails;
+     instances, the dq and dk/dv kernels, the four matmul variants'
+     kernels and the activation kernels of ``epilogue.cu`` must spill no
+     register (``-Xptxas -v``; the last three log theirs), every matmul
+     kernel's SASS (``cuobjdump -sass``) must hold HGMMA and UTMALDG
+     (counted with UTMASTG, of which noacc's must hold none) and the dq
+     and dk/dv kernels' HMMA (their 3xTF32 tensor-core products), or the
+     run fails;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -615,12 +616,17 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
                                  visible * 6 * d)[0],
         shape=shape + '; bound: 3xTF32 at 495 TFLOP/s; library: SDPA '
         'backward (dq, dk and dv together)')
-    b_ms, b_by = bound(7 * tensor_b + lse_b + lens_b, visible * 8 * d)
+    # dkv's four products likewise
+    b_ms, b_by = bound(7 * tensor_b + lse_b + lens_b, 3 * visible * 8 * d,
+                       PEAK_TF32_FLOP_S)
     rows['flash_attention_dkv'] = timings(
         torch, (q, k, v, out, lse, do, lens), kernels.flash_attention_dkv,
         kernels.flash_attention_dkv_reference, sdpa_bwd, library_inputs=(),
         bound_ms=b_ms, bound_by=b_by,
-        shape=shape + '; library: SDPA backward (dq, dk and dv together)')
+        bound_cuda_core_ms=bound(7 * tensor_b + lse_b + lens_b,
+                                 visible * 8 * d)[0],
+        shape=shape + '; bound: 3xTF32 at 495 TFLOP/s; library: SDPA '
+        'backward (dq, dk and dv together)')
     # dq + dkv as a step runs them against SDPA's backward, in turns
     # (pair, SDPA, SDPA, pair, pair, SDPA): the spread of the comparison
     # within this run
@@ -2137,25 +2143,33 @@ def check_epilogue_build(ptxas):
     return regs
 
 
-def check_dq_build(build, ptxas):
-    """The dq kernel of ``csrc/flash_attention_bwd.cu`` as built: its
+def _check_mma_build(build, ptxas, kernel):
+    """``kernel`` of ``csrc/flash_attention_bwd.cu`` as built: its
     registers and spills from ptxas (``ptxas``: that source's lines; empty
     when the library was current) and its tensor-core instructions
     (HMMA) in the SASS. Raises when it spills or holds no HMMA. Returns
     (registers or None, {instruction: count})."""
     regs = None
     for fn, (n, spill) in ptxas_entries(ptxas).items():
-        if 'flash_attention_dq_kernel' in fn:
+        if kernel + '_kernel' in fn:
             if spill:
-                raise AssertionError('flash_attention_dq spills %d bytes'
-                                     % spill)
+                raise AssertionError('%s spills %d bytes' % (kernel, spill))
             regs = n
-    counts = sass_counts(build, 'flash_attention_bwd',
-                         ('flash_attention_dq_kernel',), ('HMMA', 'LDS'))
+    counts = sass_counts(build, 'flash_attention_bwd', (kernel + '_kernel',),
+                         ('HMMA', 'LDS'))
     if len(counts) != 1 or not next(iter(counts.values()))['HMMA']:
-        raise AssertionError('flash_attention_dq SASS holds no HMMA: %s'
-                             % counts)
+        raise AssertionError('%s SASS holds no HMMA: %s' % (kernel, counts))
     return regs, next(iter(counts.values()))
+
+
+def check_dq_build(build, ptxas):
+    """The dq kernel: :func:`_check_mma_build`."""
+    return _check_mma_build(build, ptxas, 'flash_attention_dq')
+
+
+def check_dkv_build(build, ptxas):
+    """The dk/dv kernel: :func:`_check_mma_build`."""
+    return _check_mma_build(build, ptxas, 'flash_attention_dkv')
 
 
 def matmul_rows(kernels, shapes):
@@ -2341,10 +2355,10 @@ def main():
     for fn, counts in check_sm90_build(
             _build, reports.get('matmul_sm90', ())).items():
         log('sass matmul_sm90 %s: %s' % (fn, counts))
-    regs, counts = check_dq_build(_build,
-                                  reports.get('flash_attention_bwd', ()))
-    log('flash_attention_dq: %s registers, no spills; SASS %s'
-        % (regs, counts))
+    for name, check in (('flash_attention_dq', check_dq_build),
+                        ('flash_attention_dkv', check_dkv_build)):
+        regs, counts = check(_build, reports.get('flash_attention_bwd', ()))
+        log('%s: %s registers, no spills; SASS %s' % (name, regs, counts))
     regs = check_epilogue_build(reports.get('epilogue', ()))
     log('epilogue stream kernels: registers by store kind (most over the '
         'acts) %s, no spills' % (regs or 'not reported: the library was '

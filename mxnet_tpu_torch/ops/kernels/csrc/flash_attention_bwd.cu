@@ -17,31 +17,23 @@
 //
 // What bounds them on the H100: at BERT-base training shapes (B*H 1152,
 // S 128, D 64) dq does 3 and dk/dv 4 products of 2*S*S*D flops per
-// (batch, head): 7.2 and 9.7 GFLOP against ~0.23-0.26 GB of q, k, v, o,
-// do in and gradients out. dk/dv runs on the CUDA cores, so the float32
-// rate (67 TFLOP/s) bounds it; dq runs its products on the tensor cores in
-// 3xTF32 (3 x 7.2 GFLOP at 495 TFLOP/s, 0.044 ms), so its 226 MB at
-// 3.35 TB/s (0.068 ms) bound it.
+// (batch, head): 7.2 and 9.7 GFLOP against 0.23 and 0.26 GB of q, k, v,
+// o, do in and gradients out. Both run their products on the tensor
+// cores in 3xTF32 (3 x 7.2 and 3 x 9.7 GFLOP at 495 TFLOP/s, 0.044 and
+// 0.059 ms), so their bytes at 3.35 TB/s (0.068 and 0.079 ms) bound
+// them.
 //
 // Design. Each output tile is owned by one block, so no sum crosses
 // blocks and there is no atomicAdd (results are deterministic); the TPU
-// grid's sequential walk becomes a loop inside the block. Tiles are 64
-// rows.
+// grid's sequential walk becomes a loop inside the block.
 //   * dq (namespace dqk below): four warps, each owning 32 query rows,
 //     run S = Q K^T, dP = dO V^T and dQ += dS K as m16n8k8 TF32 mma
 //     products in 3xTF32, its scores and gradients in mma fragments, K/V
 //     double-buffered by cp.async into swizzled tiles; its own note below.
-//   * dk/dv: grid (B*H, ceil(Sk/64)), 256 threads (16 x 16), each owning
-//     a 4 x 4 patch of every 64 x 64 product, accumulated in registers
-//     from 16-byte shared-memory loads (register tiling, as a SIMT GEMM
-//     does). The block stages its K and V tiles once, then walks the query
-//     tiles: S and dP (thread: query rows 4*ty + r, keys tx + 16*c), P and
-//     dS into shared memory, then dV += P^T dO and dK += dS^T Q (thread:
-//     keys 4*ty + r, dims 4*tx + c). A causal block starts at the first
-//     query tile that can see its keys; a block wholly past the length
-//     sees no query at all. Staged tiles have rows of 68 floats: with the
-//     strided key ownership (tx + 16*c) every 16-byte load of a
-//     quarter-warp hits distinct banks.
+//   * dk/dv (namespace dkvk): the same helpers transposed: four warps,
+//     each owning 32 key rows, run S^T = K Q^T, dP^T = V dO^T, dV += P^T
+//     dO and dK += dS^T Q, the query tiles (Q, dO, O and lse)
+//     double-buffered; its own note below.
 //   * delta is recomputed by each kernel from do and o, as the TPU kernels
 //     do, so the two launches stay independent.
 #include <cstdint>
@@ -52,135 +44,19 @@
 namespace {
 
 constexpr int D = 64;         // head dim: the instance the slice needs
-constexpr int T = 64;         // rows of every tile (queries or keys)
-constexpr int LD = D + 4;     // padded row stride of a staged tile, floats
-constexpr int THREADS = 256;  // 16 x 16, each owning 4 x 4 outputs
-constexpr int TILE = T * LD;  // floats of one staged tile
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// rows [base, base + T) of src (n rows of D floats) into dst (T rows of
-// LD floats), zeros past row n; coalesced 16-byte loads
-__device__ __forceinline__ void stage(float* dst, const float* src, int base,
-                                      int n) {
-  for (int idx = threadIdx.x; idx < T * D / 4; idx += THREADS) {
-    const int r = idx / (D / 4);
-    const int c = idx % (D / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (base + r < n)
-      x = reinterpret_cast<const float4*>(src + (size_t)(base + r) * D)[c];
-    *reinterpret_cast<float4*>(dst + r * LD + 4 * c) = x;
-  }
-}
-
-// lse and delta = rowsum(do * o) of query rows [base, base + T), from the
-// staged dO tile and o in device memory; four threads per row
-__device__ __forceinline__ void row_stats(float* lse_s, float* delta_s,
-                                          const float* lse, const float* o,
-                                          const float* dos, int base, int n) {
-  const int r = threadIdx.x >> 2;
-  const int part = threadIdx.x & 3;
-  const bool ok = base + r < n;
-  float acc = 0.f;
-  if (ok) {
-    const float* orow = o + (size_t)(base + r) * D + part * (D / 4);
-    const float* drow = dos + r * LD + part * (D / 4);
-#pragma unroll
-    for (int k = 0; k < D / 4; k += 4) {
-      const float4 a = ld4(drow + k);
-      const float4 w = ld4(orow + k);
-      acc = fmaf(a.x, w.x, acc);
-      acc = fmaf(a.y, w.y, acc);
-      acc = fmaf(a.z, w.z, acc);
-      acc = fmaf(a.w, w.w, acc);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) {
-    delta_s[r] = acc;
-    lse_s[r] = ok ? lse[base + r] : -CUDART_INF_F;
-  }
-}
-
-// one product of two staged tiles over D: out[r][c] = a[4 ty + r] .
-// b[tx + 16 c]
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ty, int tx, float out[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = ld4(a + (4 * ty + r) * LD + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = ld4(b + (tx + 16 * c) * LD + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float s = out[r][c];
-        s = fmaf(av[r].x, bv[c].x, s);
-        s = fmaf(av[r].y, bv[c].y, s);
-        s = fmaf(av[r].z, bv[c].z, s);
-        s = fmaf(av[r].w, bv[c].w, s);
-        out[r][c] = s;
-      }
-  }
-}
-
-// p and ds of the thread's 4 x 4 (query 4 ty + r, key tx + 16 c) from the
-// staged Q, dO (query tile at qbase) and K, V (key tile at kbase), into
-// ps and dss, both [query][key]
-__device__ __forceinline__ void probs(const float* qs, const float* dos,
-                                      const float* ks, const float* vs,
-                                      const float* lse_s,
-                                      const float* delta_s, float* ps,
-                                      float* dss, int qbase, int kbase,
-                                      int sq, int len, float scale,
-                                      int causal, int ty, int tx) {
-  float s[4][4], dp[4][4];
-  tile_dot(qs, ks, ty, tx, s);
-  tile_dot(dos, vs, ty, tx, dp);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = 4 * ty + r;
-    const int qi = qbase + i;
-    const float lse_i = lse_s[i];
-    const float delta_i = delta_s[i];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = tx + 16 * c;
-      const int kj = kbase + j;
-      const bool vis = qi < sq && kj < len && (!causal || kj <= qi);
-      const float p = (vis && lse_i != -CUDART_INF_F)
-                          ? expf(s[r][c] * scale - lse_i)
-                          : 0.f;
-      ps[i * LD + j] = p;
-      dss[i * LD + j] = p * (dp[r][c] - delta_i) * scale;
-    }
-  }
-}
-
-// ---- dq: the three products on the tensor cores in 3xTF32 ----
+// ---- dq and dk/dv: the products on the tensor cores in 3xTF32 ----
 //
 // Why the tensor cores here and not in the forward: the forward must stay
 // bitwise equal to the decode kernel (flash_attention_fwd.cu), so every
-// score there is one float32 fma chain in a fixed order; dq has no such
-// contract, only the 1e-5 tier (relative to its max abs), which 3xTF32
-// holds: x = big + small with big = tf32(x) and small = tf32(x - big)
-// (big rounded to nearest on the 10-bit mantissa, small toward zero) keeps
-// 21 of x's 24 bits, and big.big + big.small + small.big drops only the
-// small.small term (2^-22 relative), summed in float32 by the mma.
+// score there is one float32 fma chain in a fixed order; dq, dk and dv
+// have no such contract, only the 1e-5 tier (relative to their max abs),
+// which 3xTF32 holds: x = big + small with big = tf32(x) and small =
+// tf32(x - big) (big rounded to nearest on the 10-bit mantissa, small
+// toward zero) keeps 21 of x's 24 bits, and big.big + big.small +
+// small.big drops only the small.small term (2^-22 relative), summed in
+// float32 by the mma.
+// Namespace dqk holds the helpers both kernels share and the dq kernel.
 namespace dqk {
 
 constexpr int MT = 2;             // m16 tiles (16 query rows) a warp
@@ -215,6 +91,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
+// one float; src-size 0 writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -223,14 +107,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows row0 .. row0 + ROWS - 1 of an (n, D) matrix into a swizzled tile;
-// rows >= n become zeros (src-size 0). The caller commits the group.
-template <int ROWS>
+// rows row0 .. row0 + ROWS - 1 of an (n, D) matrix into a swizzled tile
+// by NT threads, thread t copying chunk t % CHUNKS of rows t / CHUNKS +
+// i NT / CHUNKS; rows >= n become zeros (src-size 0). The caller commits
+// the group.
+template <int ROWS, int NT = THREADS>
 __device__ __forceinline__ void stage(float* dst, const float* src, int row0,
                                       int n, int t) {
+  static_assert(ROWS * CHUNKS % NT == 0 && NT % CHUNKS == 0, "stage");
 #pragma unroll
-  for (int i = 0; i < ROWS * CHUNKS / THREADS; ++i) {
-    const int idx = t + i * THREADS;
+  for (int i = 0; i < ROWS * CHUNKS / NT; ++i) {
+    const int idx = t + i * NT;
     const int r = idx / CHUNKS;
     const int c = idx % CHUNKS;
     const bool valid = row0 + r < n;
@@ -272,16 +159,16 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// acc[m][n] += A[m] . B[n] over the MT m-tiles and N n-tiles in 3xTF32,
-// the small terms first: each B fragment is split once for both m-tiles,
-// and each pass leaves MT x N independent accumulators in flight
-template <int N>
-__device__ __forceinline__ void mma3(float (&acc)[MT][N][4],
-                                     const float (&a)[MT][4],
+// acc[m][n] += A[m] . B[n] over the M m-tiles and N n-tiles in 3xTF32,
+// the small terms first: each B fragment is split once for all m-tiles,
+// and each pass leaves M x N independent accumulators in flight
+template <int M, int N>
+__device__ __forceinline__ void mma3(float (&acc)[M][N][4],
+                                     const float (&a)[M][4],
                                      const float (&b)[N][2]) {
-  uint32_t ab[MT][4], as[MT][4], bb[N][2], bs[N][2];
+  uint32_t ab[M][4], as[M][4], bb[N][2], bs[N][2];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) split(a[m][e], ab[m][e], as[m][e]);
 #pragma unroll
@@ -290,40 +177,42 @@ __device__ __forceinline__ void mma3(float (&acc)[MT][N][4],
     split(b[n][1], bb[n][1], bs[n][1]);
   }
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int n = 0; n < N; ++n) mma(acc[m][n], as[m], bb[n]);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int n = 0; n < N; ++n) mma(acc[m][n], ab[m], bs[n]);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int n = 0; n < N; ++n) mma(acc[m][n], ab[m], bb[n]);
 }
 
-// acc = A B^T for the warp's 32 rows (m-tile m: wrow + 16m + g and
-// wrow + 16m + 8 + g) of the BQ-row tile `at` against the BK rows of
-// `bt`, over D: S = Q K^T, dP = dO V^T. The k index (d) is permuted within
+// acc = A B^T for the warp's 16 M rows (m-tile m: wrow + 16m + g and
+// wrow + 16m + 8 + g, wrow a multiple of 16) of the tile `at` against the
+// first 8 N rows of `bt`, over D: S = Q K^T and dP = dO V^T in dq, S^T =
+// K Q^T and dP^T = V dO^T in dk/dv. The k index (d) is permuted within
 // each 8-group alike in A and B (the mma's column t holds d = 2t, column
 // t + 4 holds d = 2t + 1), so each lane's A and B values are float2
 // loads; xo[k] is the lane's offset of column group k in a row 8m + g
 // with m even (xo[k ^ 2]: m odd).
-__device__ __forceinline__ void product_nt(float (&acc)[MT][NS][4],
+template <int M, int N>
+__device__ __forceinline__ void product_nt(float (&acc)[M][N][4],
                                            const float* at, const float* bt,
                                            int wrow, const int (&xo)[8]) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < N; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
-    float a[MT][4];
+    float a[M][4];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
+    for (int m = 0; m < M; ++m) {
       const float2 lo = ld2(at + (wrow + 16 * m) * D + xo[kk]);
       const float2 hi = ld2(at + (wrow + 16 * m + 8) * D + xo[kk ^ 2]);
       a[m][0] = lo.x;
@@ -331,14 +220,86 @@ __device__ __forceinline__ void product_nt(float (&acc)[MT][NS][4],
       a[m][2] = lo.y;
       a[m][3] = hi.y;
     }
-    float b[NS][2];
+    float b[N][2];
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
+    for (int n = 0; n < N; ++n) {
       const float2 x = ld2(bt + 8 * n * D + xo[kk ^ ((n & 1) << 1)]);
       b[n][0] = x.x;
       b[n][1] = x.y;
     }
-    mma3<NS>(acc, a, b);
+    mma3(acc, a, b);
+  }
+}
+
+// acc += P B for the warp's M m-tiles, P (16 rows x 8 KT columns) straight
+// from an accumulator of product_nt and B the first 8 KT rows of the tile
+// `bt` (D columns): dQ += dS K in dq, dV += P^T dO and dK += dS^T Q in
+// dk/dv. k-step kk takes P's columns 8kk .. 8kk + 7 (A column t <- column
+// 2t from element 0 / 2, t + 4 <- 2t + 1 from element 1 / 3), so no
+// shuffle moves the accumulator layout into the operand layout; B n-tile
+// n is bt[rows][8n .. 8n + 7] with the same row order. yo[e][n] is the
+// lane's offset of column group n in a row 8m + 2tq + e with m even.
+template <int M, int KT>
+__device__ __forceinline__ void product_pb(float (&acc)[M][8][4],
+                                           const float (&p)[M][KT][4],
+                                           const float* bt,
+                                           const int (&yo)[2][8]) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    float a[M][4];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      a[m][0] = p[m][kk][0];
+      a[m][1] = p[m][kk][2];
+      a[m][2] = p[m][kk][1];
+      a[m][3] = p[m][kk][3];
+    }
+    const int flip = (kk & 1) << 1;
+    float b[8][2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      b[n][0] = bt[8 * kk * D + yo[0][n ^ flip]];
+      b[n][1] = bt[8 * kk * D + yo[1][n ^ flip]];
+    }
+    mma3(acc, a, b);
+  }
+}
+
+// acc[m][n] of product_pb into rows row0 + 16m + g (elements 0, 1) and
+// + 8 (2, 3), dims 8n + 2tq + 0/1, of an (n, D) matrix; rows >= n skipped
+template <int M>
+__device__ __forceinline__ void store_rows(const float (&acc)[M][8][4],
+                                           float* out, int row0, int n,
+                                           int g, int tq) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 16 * m + 8 * h + g;
+      if (r < n) {
+        float* row = out + (size_t)r * D + 2 * tq;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          *reinterpret_cast<float2*>(row + 8 * c) =
+              make_float2(acc[m][c][2 * h], acc[m][c][2 * h + 1]);
+      }
+    }
+}
+
+// the lane's fragment offsets (floats; see swz): column group k of a row
+// 8m + g, m even (xo), and column group n of a row 8m + 2tq + e, m even
+// (yo[e])
+__device__ __forceinline__ void lane_offsets(int g, int tq, int (&xo)[8],
+                                             int (&yo)[2][8]) {
+  const int sg = (g ^ (g >> 2)) & 3;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) xo[kk] = g * D + 8 * (kk ^ sg) + 2 * tq;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int u = 2 * tq + e;
+    const int su = (u ^ (u >> 2)) & 3;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) yo[e][n] = u * D + 8 * (n ^ su) + g;
   }
 }
 
@@ -427,22 +388,8 @@ flash_attention_dq_kernel(const float* __restrict__ q,
   const float* kb = k + (size_t)bh * sk * D;
   const float* vb = v + (size_t)bh * sk * D;
 
-  // the lane's fragment offsets (floats; see swz): column group k of a
-  // row 8m + g, m even (xo), and column group n of a row 8m + 2tq + e,
-  // m even (yo[e])
   int xo[8], yo[2][8];
-  {
-    const int sg = (g ^ (g >> 2)) & 3;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) xo[kk] = g * D + 8 * (kk ^ sg) + 2 * tq;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int u = 2 * tq + e;
-      const int su = (u ^ (u >> 2)) & 3;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) yo[e][n] = u * D + 8 * (n ^ su) + g;
-    }
-  }
+  lane_offsets(g, tq, xo, yo);
 
   const int len = max(0, min(lengths[b], sk));
   int kend = len;  // one past the last key any row of the block sees
@@ -520,49 +467,121 @@ flash_attention_dq_kernel(const float* __restrict__ q,
           }
           dp[m][n][e] = p * (dp[m][n][e] - delta_i) * scale;
         }
-    // dQ += dS K: k-step jj takes keys 8jj .. 8jj + 7 (A column t <- key
-    // 2t from element 0 / 2, t + 4 <- key 2t + 1 from element 1 / 3); B
-    // n-tile n is K[keys][8n .. 8n + 7] with the same key order
-#pragma unroll
-    for (int jj = 0; jj < NS; ++jj) {
-      float a[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        a[m][0] = dp[m][jj][0];
-        a[m][1] = dp[m][jj][2];
-        a[m][2] = dp[m][jj][1];
-        a[m][3] = dp[m][jj][3];
-      }
-      const int flip = (jj & 1) << 1;
-      float bk[8][2];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        bk[n][0] = kt[8 * jj * D + yo[0][n ^ flip]];
-        bk[n][1] = kt[8 * jj * D + yo[1][n ^ flip]];
-      }
-      mma3<8>(acc, a, bk);
-    }
+    // dQ += dS K: k-step jj takes keys 8jj .. 8jj + 7
+    product_pb(acc, dp, kt, yo);
   }
-  // acc[m][n]: rows wrow + 16m + g (elements 0, 1) and + 8 (2, 3), dims
-  // 8n + 2tq + 0/1
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qi = q0 + wrow + 16 * m + 8 * h + g;
-      if (qi < sq) {
-        float* row = dq + qoff + (size_t)qi * D + 2 * tq;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          *reinterpret_cast<float2*>(row + 8 * n) =
-              make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
-      }
-    }
+  store_rows(acc, dq + qoff, q0 + wrow, sq, g, tq);
 }
 
 }  // namespace dqk
 
-__global__ void __launch_bounds__(THREADS)
+// ---- dk/dv: dq's helpers on the transposed problem ----
+namespace dkvk {
+
+using dqk::CHUNKS;
+using dqk::LOG2E;
+using dqk::cp_async4;
+using dqk::cp_async_commit;
+using dqk::cp_async_wait_all;
+using dqk::exp2f_approx;
+using dqk::lane_offsets;
+using dqk::ld2;
+using dqk::product_nt;
+using dqk::product_pb;
+using dqk::stage;
+using dqk::store_rows;
+using dqk::swz;
+
+constexpr int MT = 2;  // m16 tiles (16 keys) a warp
+constexpr int WARPS = 4;
+constexpr int BK = 16 * MT * WARPS;  // keys a block
+constexpr int BQ = 32;               // queries a tile
+constexpr int NQ = BQ / 8;           // the tile's m16n8 query tiles
+constexpr int THREADS = 32 * WARPS;
+constexpr int KTILE = BK * D;
+constexpr int QTILE = BQ * D;
+// shared memory: the K and V tiles, two Q, dO and O tiles, two lse and
+// delta rows (112.5 KB: two blocks an SM)
+constexpr size_t SMEM_BYTES =
+    (2 * KTILE + 6 * QTILE + 4 * BQ) * sizeof(float);
+
+// the Q, dO and O tiles of query rows row0 .. row0 + BQ - 1 and their
+// lse, each lse by the thread that copies its row's first chunk (rows
+// >= n become zeros). The caller commits the group.
+__device__ __forceinline__ void stage_queries(float* qt, float* dot,
+                                              float* ot, float* lse_t,
+                                              const float* q,
+                                              const float* dout,
+                                              const float* o,
+                                              const float* lse, int row0,
+                                              int n, int t) {
+  stage<BQ, THREADS>(qt, q, row0, n, t);
+  stage<BQ, THREADS>(dot, dout, row0, n, t);
+  stage<BQ, THREADS>(ot, o, row0, n, t);
+#pragma unroll
+  for (int i = 0; i < BQ * CHUNKS / THREADS; ++i) {
+    const int idx = t + i * THREADS;
+    if (idx % CHUNKS == 0) {
+      const int r = idx / CHUNKS;
+      const bool valid = row0 + r < n;
+      cp_async4(lse_t + r, lse + (valid ? row0 + r : 0), valid);
+    }
+  }
+}
+
+// delta = rowsum(dO * O) of the staged query tile and its lse (-inf past
+// row n): every thread reads back only the chunks it copied itself
+// (visible to it after its cp.async wait, no barrier), the 16 threads of
+// a row (one half-warp) sum their chunks by shuffles, and the first
+// writes the row's delta and, past n, lse = -inf
+__device__ __forceinline__ void query_stats(float* lse_t, float* delta_t,
+                                            const float* dot,
+                                            const float* ot, int row0,
+                                            int n, int t) {
+#pragma unroll
+  for (int i = 0; i < BQ * CHUNKS / THREADS; ++i) {
+    const int idx = t + i * THREADS;
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    const float4 a = *reinterpret_cast<const float4*>(dot + swz(r, 4 * c));
+    const float4 b = *reinterpret_cast<const float4*>(ot + swz(r, 4 * c));
+    float acc = a.x * b.x;
+    acc = fmaf(a.y, b.y, acc);
+    acc = fmaf(a.z, b.z, acc);
+    acc = fmaf(a.w, b.w, acc);
+#pragma unroll
+    for (int x = 1; x < CHUNKS; x <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, x);
+    if (c == 0) {
+      delta_t[r] = acc;
+      if (row0 + r >= n) lse_t[r] = -CUDART_INF_F;
+    }
+  }
+}
+
+// Design. A block of 4 warps owns a 128-key tile of one (batch, head)
+// (at S 128 the whole head: Q, dO and O are read once); blocks walk items
+// (batch*head, key tile) with the key tiles of a head adjacent, so a
+// longer head's Q, dO and O come from L2 after the first; two blocks an
+// SM. Warp w owns keys 32w .. 32w + 31, two m16 tiles, and keeps S^T,
+// dP^T, P^T, dS^T, dK and dV in mma fragments (registers) throughout;
+// every Q and dO fragment a lane loads and splits serves both m-tiles.
+// K and V are staged once; per 32-query tile:
+//   S^T = K Q^T and dP^T = V dO^T (four m16n8 query tiles, k over d), then
+//   p and ds in place in the fragments, then dV += P^T dO and dK += dS^T Q
+//   with P^T and dS^T as the A operand straight from the fragments: the
+//   query index is permuted within each 8-group alike in A and B, as dq
+//   permutes keys (product_pb). Every product is 3xTF32.
+// The query tiles (Q, dO, O, lse) are double-buffered: the next tile's
+// cp.async copies run while this one is computed, then each thread waits
+// for its own copies and sums delta of the chunks it copied
+// (query_stats), and one block barrier a tile publishes tile and
+// statistics. In the transposed fragments lse and delta vary along n:
+// each lane reads those of queries 8n + 2tq (+ 1) as float2. A causal
+// block starts at the first query tile that sees its keys; a block past
+// the length walks nothing and writes zeros; the masks are skipped where
+// a whole tile is visible to every key.
+__global__ void __launch_bounds__(THREADS, 2)
 flash_attention_dkv_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -573,85 +592,127 @@ flash_attention_dkv_kernel(const float* __restrict__ q,
                            float* __restrict__ dk, float* __restrict__ dv,
                            int heads, int sq, int sk, float scale,
                            int causal) {
-  extern __shared__ float smem[];
-  float* ks = smem;             // [T][LD] key tile
-  float* vs = ks + TILE;        // [T][LD] value tile
-  float* qs = vs + TILE;        // [T][LD] query tile
-  float* dos = qs + TILE;       // [T][LD] dO of the query tile
-  float* ps = dos + TILE;       // [T][LD] P, [query][key]
-  float* dss = ps + TILE;       // [T][LD] dS, [query][key]
-  float* lse_s = dss + TILE;    // [T]
-  float* delta_s = lse_s + T;   // [T]
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                // [BK][D] swizzled
+  float* vs = ks + KTILE;          // [BK][D] swizzled
+  float* qs = vs + KTILE;          // 2 x [BQ][D] swizzled
+  float* dos = qs + 2 * QTILE;     // 2 x [BQ][D] swizzled
+  float* os = dos + 2 * QTILE;     // 2 x [BQ][D] swizzled
+  float* lse_s = os + 2 * QTILE;   // 2 x [BQ]
+  float* delta_s = lse_s + 2 * BQ;  // 2 x [BQ]
 
-  const int bh = blockIdx.x;
+  const int ktiles = (sk + BK - 1) / BK;
+  const int bh = blockIdx.x / ktiles;
   const int b = bh / heads;
-  const int k0 = blockIdx.y * T;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const float* qb = q + (size_t)bh * sq * D;
-  const float* dob = dout + (size_t)bh * sq * D;
-  const float* ob = o + (size_t)bh * sq * D;
+  const int k0 = (blockIdx.x % ktiles) * BK;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wrow = 16 * MT * w;  // keys k0 + wrow + 16m + 8h + g
+  const size_t qoff = (size_t)bh * sq * D;
+  const size_t koff = (size_t)bh * sk * D;
+  const float* qb = q + qoff;
+  const float* dob = dout + qoff;
+  const float* ob = o + qoff;
   const float* lseb = lse + (size_t)bh * sq;
 
-  stage(ks, k + (size_t)bh * sk * D, k0, sk);
-  stage(vs, v + (size_t)bh * sk * D, k0, sk);
-
-  float dka[4][4], dva[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dka[r][c] = dva[r][c] = 0.f;
+  int xo[8], yo[2][8];
+  lane_offsets(g, tq, xo, yo);
 
   const int len = max(0, min(lengths[b], sk));
   // no query sees a key at or past the length; a causal key k is seen
   // only by queries q >= k
-  const int qbegin = causal ? k0 : 0;
-  const int qend = k0 < len ? sq : 0;
-  for (int i0 = qbegin; i0 < qend; i0 += T) {
-    __syncthreads();  // the previous tile is consumed (and ks/vs staged)
-    stage(qs, qb, i0, sq);
-    stage(dos, dob, i0, sq);
-    __syncthreads();
-    row_stats(lse_s, delta_s, lseb, ob, dos, i0, sq);
-    __syncthreads();
-    probs(qs, dos, ks, vs, lse_s, delta_s, ps, dss, i0, k0, sq, len, scale,
-          causal, ty, tx);
-    __syncthreads();
-    // dV[4 ty + r][4 tx + c] += sum_i P[i][4 ty + r] dO[i][4 tx + c]
-    // dK[4 ty + r][4 tx + c] += sum_i dS[i][4 ty + r] Q[i][4 tx + c]
-#pragma unroll 2
-    for (int i = 0; i < T; ++i) {
-      const float4 p4 = ld4(ps + i * LD + 4 * ty);
-      const float4 s4 = ld4(dss + i * LD + 4 * ty);
-      const float4 g4 = ld4(dos + i * LD + 4 * tx);
-      const float4 q4 = ld4(qs + i * LD + 4 * tx);
+  const int qbegin = causal ? k0 / BQ * BQ : 0;
+  const int ntiles = k0 < len ? max(0, (sq - qbegin + BQ - 1) / BQ) : 0;
+
+  float dka[MT][8][4], dva[MT][8][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float pr = comp(p4, r);
-        const float sr = comp(s4, r);
-        dva[r][0] = fmaf(pr, g4.x, dva[r][0]);
-        dva[r][1] = fmaf(pr, g4.y, dva[r][1]);
-        dva[r][2] = fmaf(pr, g4.z, dva[r][2]);
-        dva[r][3] = fmaf(pr, g4.w, dva[r][3]);
-        dka[r][0] = fmaf(sr, q4.x, dka[r][0]);
-        dka[r][1] = fmaf(sr, q4.y, dka[r][1]);
-        dka[r][2] = fmaf(sr, q4.z, dka[r][2]);
-        dka[r][3] = fmaf(sr, q4.w, dka[r][3]);
-      }
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[m][n][e] = dva[m][n][e] = 0.f;
+
+  if (ntiles > 0) {
+    stage<BK, THREADS>(ks, k + koff, k0, sk, t);
+    stage<BK, THREADS>(vs, v + koff, k0, sk, t);
+    stage_queries(qs, dos, os, lse_s, qb, dob, ob, lseb, qbegin, sq, t);
+    cp_async_commit();
+    cp_async_wait_all();
+    query_stats(lse_s, delta_s, dos, os, qbegin, sq, t);
+  }
+  // exp(x) = 2^(x log2 e): the scores and lse pre-scaled, one fma and
+  // ex2.approx an element
+  const float scale2 = scale * LOG2E;
+  for (int j = 0; j < ntiles; ++j) {
+    const int q0 = qbegin + j * BQ;
+    const int cur = j & 1;
+    const int nxt = cur ^ 1;
+    __syncthreads();  // tile j and its statistics visible; j - 1 consumed
+    if (j + 1 < ntiles) {
+      stage_queries(qs + nxt * QTILE, dos + nxt * QTILE, os + nxt * QTILE,
+                    lse_s + nxt * BQ, qb, dob, ob, lseb, q0 + BQ, sq, t);
+      cp_async_commit();
+    }
+    const float* qt = qs + cur * QTILE;
+    const float* dot = dos + cur * QTILE;
+    float st[MT][NQ][4], dpt[MT][NQ][4];
+    product_nt(st, ks, qt, wrow, xo);
+    product_nt(dpt, vs, dot, wrow, xo);
+    // lse (and pre-scaled) and delta of the lane's queries q0 + 8n + 2tq
+    // + 0/1
+    float lq[NQ][2], l2[NQ][2], dl[NQ][2];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 x = ld2(lse_s + cur * BQ + 8 * n + 2 * tq);
+      const float2 y = ld2(delta_s + cur * BQ + 8 * n + 2 * tq);
+      lq[n][0] = x.x;
+      lq[n][1] = x.y;
+      l2[n][0] = x.x * LOG2E;
+      l2[n][1] = x.y * LOG2E;
+      dl[n][0] = y.x;
+      dl[n][1] = y.y;
+    }
+    // p = 2^(s scale log2 e - lse log2 e) (ex2.approx), 0 where masked or
+    // lse == -inf; ds = p (dp - delta) scale, in dp's registers. Element e
+    // of n-tile n of m-tile m: key k0 + wrow + 16m + 8 (e >> 1) + g, query
+    // q0 + 8n + 2tq + (e & 1). In a tile visible to every key of the block
+    // no query has lse == -inf, and nothing is masked.
+    const bool whole = q0 + BQ <= sq && k0 + BK <= len &&
+                       (!causal || k0 + BK - 1 <= q0);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ex = exp2f_approx(st[m][n][e] * scale2 - l2[n][e & 1]);
+          float p = ex;
+          if (!whole) {
+            const int kj = k0 + wrow + 16 * m + 8 * (e >> 1) + g;
+            const int qi = q0 + 8 * n + 2 * tq + (e & 1);
+            const bool vis = lq[n][e & 1] != -CUDART_INF_F && kj < len &&
+                             (!causal || kj <= qi);
+            p = vis ? ex : 0.f;
+          }
+          st[m][n][e] = p;
+          dpt[m][n][e] = p * (dpt[m][n][e] - dl[n][e & 1]) * scale;
+        }
+    product_pb(dva, st, dot, yo);  // dV += P^T dO
+    product_pb(dka, dpt, qt, yo);  // dK += dS^T Q
+    if (j + 1 < ntiles) {
+      cp_async_wait_all();
+      query_stats(lse_s + nxt * BQ, delta_s + nxt * BQ, dos + nxt * QTILE,
+                  os + nxt * QTILE, q0 + BQ, sq, t);
     }
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kj = k0 + 4 * ty + r;
-    if (kj < sk) {
-      const size_t at = ((size_t)bh * sk + kj) * D + 4 * tx;
-      *reinterpret_cast<float4*>(dk + at) =
-          make_float4(dka[r][0], dka[r][1], dka[r][2], dka[r][3]);
-      *reinterpret_cast<float4*>(dv + at) =
-          make_float4(dva[r][0], dva[r][1], dva[r][2], dva[r][3]);
-    }
-  }
+  store_rows(dka, dk + koff, k0 + wrow, sk, g, tq);
+  store_rows(dva, dv + koff, k0 + wrow, sk, g, tq);
 }
+
+}  // namespace dkvk
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
@@ -702,13 +763,17 @@ extern "C" int mx_flash_attention_dkv(const void* q, const void* k,
                                       int sk, int d, float scale, int causal,
                                       void* stream) {
   if (d != D) return cudaErrorInvalidValue;
-  const size_t smem = (6 * TILE + 2 * T) * sizeof(float);
-  cudaError_t err = set_smem(flash_attention_dkv_kernel, smem);
+  const size_t smem = dkvk::SMEM_BYTES;
+  cudaError_t err = set_smem(dkvk::flash_attention_dkv_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, (sk + T - 1) / T);
-  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
-  flash_attention_dkv_kernel<<<grid, THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  // one block an item: (batch*head, key tile), the tiles of a head
+  // adjacent
+  const long long items =
+      (long long)batch * heads * ((sk + dkvk::BK - 1) / dkvk::BK);
+  if (items == 0) return cudaSuccess;
+  const dim3 grid((unsigned)items);
+  dkvk::flash_attention_dkv_kernel<<<grid, dkvk::THREADS, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(lse), static_cast<const float*>(dout),

@@ -168,8 +168,10 @@ def test_training_kernels_match_plain_versions_on_card():
 
 
 # ---------------------------------------------------------------------------
-# the dq kernel's arithmetic (csrc/flash_attention_bwd.cu, namespace dqk):
-# S = Q K^T, dP = dO V^T and dQ = dS K on the tensor cores in 3xTF32
+# the backward kernels' arithmetic (csrc/flash_attention_bwd.cu): dq's S =
+# Q K^T, dP = dO V^T and dQ = dS K (namespace dqk), dk/dv's S^T = K Q^T,
+# dP^T = V dO^T, dV = P^T dO and dK = dS^T Q (namespace dkvk), all on the
+# tensor cores in 3xTF32
 # ---------------------------------------------------------------------------
 
 
@@ -210,25 +212,44 @@ def _kernel_exp(s, scale, lse):
     return torch.exp2(arg.float())
 
 
-def dq_mirror(q, k, v, out, lse, do, lengths, causal, scale, mm):
-    """dq as ``_p_block`` orders it (attention.py:195), every product by
-    ``mm``; (B, H, S, D) tensors of one dtype. In float32 p is taken the
-    kernel's way (:func:`_kernel_exp`), in float64 as exp(s scale -
+def _mirror_p_ds(s, dp, lse, delta, lengths, causal, scale):
+    """p and ds from the scores ``s`` and ``dp`` (B, H, Sq, Sk) as
+    ``_p_block`` orders them (attention.py:195). In float32 p is taken the
+    kernels' way (:func:`_kernel_exp`), in float64 as exp(s scale -
     lse)."""
-    sk = k.shape[2]
-    s = mm(q, k.transpose(-1, -2))
+    sq, sk = s.shape[-2:]
     kp = torch.arange(sk)
     valid = (kp[None, :] < lengths[:, None].long())[:, None, None, :]
     if causal:
-        valid = valid & (torch.arange(q.shape[2])[:, None] >= kp[None, :])
+        valid = valid & (torch.arange(sq)[:, None] >= kp[None, :])
     dead = ~valid | torch.isneginf(lse)[..., None]
     safe = torch.where(torch.isneginf(lse), 0.0, lse)
     ex = (_kernel_exp(s, scale, safe) if s.dtype == torch.float32
           else torch.exp(s * scale - safe[..., None]))
     p = torch.where(dead, 0.0, ex)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def dq_mirror(q, k, v, out, lse, do, lengths, causal, scale, mm):
+    """dq as the dq kernel computes it, every product by ``mm``; (B, H,
+    S, D) tensors of one dtype."""
     delta = torch.sum(do * out, dim=-1)
-    ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+    _, ds = _mirror_p_ds(mm(q, k.transpose(-1, -2)),
+                         mm(do, v.transpose(-1, -2)), lse, delta, lengths,
+                         causal, scale)
     return mm(ds, k)
+
+
+def dkv_mirror(q, k, v, out, lse, do, lengths, causal, scale, mm):
+    """(dk, dv) as the dk/dv kernel computes them, every product by
+    ``mm`` in the kernel's orientation (keys the rows): S^T = K Q^T and
+    dP^T = V dO^T, then dV = P^T dO and dK = dS^T Q."""
+    delta = torch.sum(do * out, dim=-1)
+    st = mm(k, q.transpose(-1, -2))
+    dpt = mm(v, do.transpose(-1, -2))
+    p, ds = _mirror_p_ds(st.transpose(-1, -2), dpt.transpose(-1, -2), lse,
+                         delta, lengths, causal, scale)
+    return mm(ds.transpose(-1, -2), q), mm(p.transpose(-1, -2), do)
 
 
 def test_tf32_split_rounds_to_nearest_on_the_mantissa():
@@ -265,12 +286,34 @@ def test_3xtf32_product_holds_float32_accuracy():
             * scale).all()
 
 
+@pytest.mark.parametrize('causal', [False, True])
+def test_mirrors_in_float64_match_the_plain_versions(causal):
+    """The mirrors' masks and orientation: in float64 with exact products
+    they give the plain versions' dq, dk and dv (a row set of length 0,
+    one below S, S 37 off every tile) to the RED tier: the plain versions
+    compute in float32."""
+    q, k, v, g = (torch.tensor(a).double() for a in _inputs(7, 3, 2, 37, 64))
+    lens = torch.tensor([37, 0, 30], dtype=torch.int32)
+    out, lse = kernels.flash_attention_reference(q, k, v, lens, causal)
+    want = kernels.flash_attention_backward_reference(q, k, v, out, lse, g,
+                                                      lens, causal)
+    got = (dq_mirror(q, k, v, out, lse, g, lens, causal, 0.125,
+                     torch.matmul),
+           *dkv_mirror(q, k, v, out, lse, g, lens, causal, 0.125,
+                       torch.matmul))
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=RED,
+                                   err_msg=name)
+        assert not a[1].any(), name
+
+
 @pytest.fixture(scope='module')
 def training_dq():
-    """dq at the training shape (B 96, H 12, S 128, D 64, lengths 128 down
-    to 36 as chip_smoke's case has them): the 3xTF32 mirror, float64 and
-    ``jax.grad`` of the JAX package's Pallas flash attention in the
-    interpreter, from one numpy seed."""
+    """dq, dk and dv at the training shape (B 96, H 12, S 128, D 64,
+    lengths 128 down to 36 as chip_smoke's case has them): the 3xTF32
+    mirrors, float64 and ``jax.grad`` of the JAX package's Pallas flash
+    attention in the interpreter, from one numpy seed; each a dict of
+    name -> tensor."""
     b, h, s, d = 96, 12, 128, 64
     q, k, v, g = _inputs(96, b, h, s, d)
     lengths = np.array([max(1, s - (i % 5) * 23) for i in range(b)],
@@ -284,26 +327,52 @@ def training_dq():
         part = slice(i, i + 24)
         args = (qt[part], kt[part], vt[part], out[part], lse[part],
                 gt[part], lens[part])
-        mirror.append(dq_mirror(*args, False, scale, mm_3xtf32))
-        exact.append(dq_mirror(*(t.double() if t.is_floating_point() else t
-                                 for t in args), False, scale,
-                               torch.matmul))
-    jax_dq = _jax_grads(q, k, v, g, lengths, False)[0]
-    return torch.cat(mirror), torch.cat(exact), torch.tensor(jax_dq)
+        args64 = tuple(t.double() if t.is_floating_point() else t
+                       for t in args)
+        mirror.append((dq_mirror(*args, False, scale, mm_3xtf32),
+                       *dkv_mirror(*args, False, scale, mm_3xtf32)))
+        exact.append((dq_mirror(*args64, False, scale, torch.matmul),
+                       *dkv_mirror(*args64, False, scale, torch.matmul)))
+    names = ('dq', 'dk', 'dv')
+    jax_g = _jax_grads(q, k, v, g, lengths, False)
+    return tuple({n: torch.cat([part[i] for part in parts])
+                  for i, n in enumerate(names)} for parts in (mirror, exact)
+                 ) + ({n: torch.tensor(a) for n, a in zip(names, jax_g)},)
 
 
 def test_dq_in_3xtf32_against_float64_at_training_shape(training_dq):
     """The kernel's arithmetic holds dq to 2e-6 of its max abs against
     float64 (the card's check allows 1e-5): 3xTF32 is float32-grade."""
     mirror, exact, _ = training_dq
-    rel = ((mirror.double() - exact).abs().max()
-           / exact.abs().max()).item()
+    rel = ((mirror['dq'].double() - exact['dq']).abs().max()
+           / exact['dq'].abs().max()).item()
     assert rel <= 2e-6, rel
 
 
 def test_dq_in_3xtf32_against_jax_at_training_shape(training_dq):
     """... and to 1e-5 of its max abs against the JAX package's flash
     attention gradient (its own float32 forward and backward)."""
-    mirror, _, jax_dq = training_dq
-    rel = ((mirror - jax_dq).abs().max() / jax_dq.abs().max()).item()
+    mirror, _, jax_g = training_dq
+    rel = ((mirror['dq'] - jax_g['dq']).abs().max()
+           / jax_g['dq'].abs().max()).item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize('name', ['dk', 'dv'])
+def test_dkv_in_3xtf32_against_float64_at_training_shape(training_dq, name):
+    """The dk/dv kernel's arithmetic holds dk and dv to 2e-6 of their max
+    abs against float64, as dq's does."""
+    mirror, exact, _ = training_dq
+    rel = ((mirror[name].double() - exact[name]).abs().max()
+           / exact[name].abs().max()).item()
+    assert rel <= 2e-6, rel
+
+
+@pytest.mark.parametrize('name', ['dk', 'dv'])
+def test_dkv_in_3xtf32_against_jax_at_training_shape(training_dq, name):
+    """... and to 1e-5 of their max abs against the JAX package's flash
+    attention gradient."""
+    mirror, _, jax_g = training_dq
+    rel = ((mirror[name] - jax_g[name]).abs().max()
+           / jax_g[name].abs().max()).item()
     assert rel <= 1e-5, rel
