@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero:
      gives them) and build every kernel from ``csrc/`` with nvcc, one
      process per source, all started together; the flash forward's
      instances, the dq and dk/dv kernels, the four matmul variants'
-     kernels and the activation kernels of ``epilogue.cu`` must spill no
-     register (``-Xptxas -v``; the last three log theirs), every matmul
+     kernels, the activation kernels of ``epilogue.cu``, the decode
+     kernel and the nms mask, scan and finish kernels must spill no
+     register (``-Xptxas -v``; all but the first three log theirs), every
+     matmul
      kernel's SASS (``cuobjdump -sass``) must hold HGMMA and UTMALDG
      (counted with UTMASTG, of which noacc's must hold none) and the dq
      and dk/dv kernels' HMMA (their 3xTF32 tensor-core products), or the
@@ -22,8 +24,12 @@ Phases, in order; any failure exits non-zero:
      for), the decode contract bitwise (row p of the causal forward over
      a 512-token, 12-head sequence, through every block size, equal to
      the decode kernel's output at position p over a slot cache holding
-     the same K/V, p in 0, 5, 64, 127, 128, 200, 255, 256, 300, 511),
-     the training kernels at the training slice's shapes
+     the same K/V, p in 0, 5, 64, 127, 128, 200, 255, 256, 300, 511;
+     and over 1152 tokens, nine tiles, two rounds of the decode kernel's
+     8-CTA cluster, p on the tile edges 0, 127, 128, 255, 511, 1023,
+     1024, 1151), the decode kernel against its plain version at max_len
+     512, 1152 and 0 (an empty cache: every slot writes zeros), the
+     training kernels at the training slice's shapes
      (1e-5 absolute for out, lse, nll and logp; 1e-5 relative to each
      tensor's max abs for dq, dk, dv and dlogits, which sum over 128 rows
      of O(1) terms), the xent forward also at V 1000, 30523, 50000,
@@ -44,7 +50,8 @@ Phases, in order; any failure exits non-zero:
      the kernel and the library call also by the probe's back-to-back
      slope timer over inputs rotated past the L2 (``device_ms``: device
      time alone, inputs read from memory as the bound counts them; see
-     phase 7);
+     phase 7); the decode kernel's device time also at every slot on
+     position 127 and 511;
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -87,9 +94,10 @@ Phases, in order; any failure exits non-zero:
      version on the card, keep masks bitwise equal: 16 x 7378 boxes
      class-aware at topk 400, 2 x 7378 class-agnostic with every box
      suppressing, N of 1, 100 and 129, all invalid, duplicates and zero
-     areas, NaN coordinates, and N of 300, 1500 and 3000 with and without
-     class ids (every instance of the kernel). 6a: the tiny SSD of
-     ``tests/test_image_ssd.py`` on 4 x 3 x 32 x 32 on the card and on the
+     areas, NaN coordinates, N of 300, 1500 and 3000 with and without
+     class ids, the 64-box word and row-block edges (N of 63, 64 and 65
+     both ways, topk 63, 64 and 65 at N 129) and N 8192, the cap. 6a:
+     the tiny SSD of ``tests/test_image_ssd.py`` on 4 x 3 x 32 x 32 on the card and on the
      CPU (heads within 1e-5 of their max abs; the card's heads through
      the CPU's detection match the card's detections, given the
      margins). 6b: ``ssd_300(20)`` (Xavier weights from seed 0) behind
@@ -104,7 +112,9 @@ Phases, in order; any failure exits non-zero:
      of a batch at bucket 16 (16 x 16 x 300 x 300 down to 16 x 128 x 4 x
      4); then the nms kernel bitwise against its plain version on that
      batch's inputs and on its first image, and both timed there with
-     the bound and the latency floor;
+     the bound, the time on 512 boxes an image, and the device times of
+     its mask, scan (the ordered walk) and finish kernels apart, from a
+     ``torch.profiler`` trace of wrapper calls on the served batch;
   7. the matmul probe slice. The geometry of the four variants at each
      probe shape (``matmul_geometry``), then the four bf16 tensor-core
      kernels (cur, noacc, ws, ep; all on the TMA / wgmma mainloop of
@@ -221,6 +231,10 @@ def attention_cases():
 
 
 DECODE_CHECK_POSITIONS = (0, 5, 64, 127, 128, 200, 255, 256, 300, 511)
+# more than 8 tiles: the decode kernel's cluster of 8 CTAs walks two
+# rounds, so CTA 0 holds tiles 0 and 8; positions on the tile edges
+DECODE_LONG = 1152
+DECODE_LONG_POSITIONS = (0, 127, 128, 255, 511, 1023, 1024, 1151)
 
 
 def decode_identity(torch, kernels, q, k, v, positions, block_q):
@@ -244,8 +258,8 @@ def decode_identity(torch, kernels, q, k, v, positions, block_q):
             (rows - dec).abs().max().item())
 
 
-def check_kernels(torch, kernels, device, heads=12, d=64, slots=SLOTS,
-                  max_len=512, positions=DECODE_POSITIONS):
+def check_kernels(torch, kernels, device, heads=12, d=64, max_len=512,
+                  positions=DECODE_POSITIONS):
     """Each kernel against its plain version on ``device``; returns
     {kernel name: max abs error}."""
     gen = torch.Generator(device='cpu').manual_seed(0)
@@ -285,31 +299,37 @@ def check_kernels(torch, kernels, device, heads=12, d=64, slots=SLOTS,
                                      'plain version: %g > %g' % (err, TOL))
             worst['flash_attention_fwd'] = max(worst['flash_attention_fwd'],
                                                err)
-    q, k, v = (randn(1, heads, 512, d) for _ in range(3))
-    for bq in kernels.FWD_BLOCK_Q:
-        equal, diff = decode_identity(torch, kernels, q, k, v,
-                                      DECODE_CHECK_POSITIONS, bq)
-        log('check decode contract block_q=%d: forward row p bitwise equal '
-            'to the decode step at p for p in %s: %s (max abs difference '
-            '%g)' % (bq, list(DECODE_CHECK_POSITIONS), equal, diff))
-        if not all(equal):
-            raise AssertionError('flash_attention row differs from the '
-                                 'decode kernel (block_q=%d): %s'
-                                 % (bq, equal))
+    for seq, checked in ((512, DECODE_CHECK_POSITIONS),
+                         (DECODE_LONG, DECODE_LONG_POSITIONS)):
+        q, k, v = (randn(1, heads, seq, d) for _ in range(3))
+        for bq in kernels.FWD_BLOCK_Q:
+            equal, diff = decode_identity(torch, kernels, q, k, v, checked,
+                                          bq)
+            log('check decode contract S=%d block_q=%d: forward row p '
+                'bitwise equal to the decode step at p for p in %s: %s (max '
+                'abs difference %g)' % (seq, bq, list(checked), equal, diff))
+            if not all(equal):
+                raise AssertionError('flash_attention row differs from the '
+                                     'decode kernel (S=%d block_q=%d): %s'
+                                     % (seq, bq, equal))
     units = heads * d
-    keys, values = randn(slots, max_len, units), randn(slots, max_len, units)
-    q = randn(slots, units)
-    pos = torch.tensor(positions, dtype=torch.int32, device=device)
-    out = kernels.flash_decode_attention(q, keys, values, pos, heads)
-    ref = kernels.flash_decode_attention_reference(q, keys, values, pos,
-                                                   heads)
-    err = (out - ref).abs().max().item()
-    log('check flash_decode_attention positions=%s max_abs_err=%.3g'
-        % (list(positions), err))
-    if not err <= TOL:
-        raise AssertionError('flash_decode_attention disagrees with its '
-                             'plain version: %g > %g' % (err, TOL))
-    worst['flash_decode_fwd'] = err
+    for length, checked in ((max_len, positions),
+                            (DECODE_LONG, DECODE_LONG_POSITIONS),
+                            (0, (0, 300))):
+        n = len(checked)
+        keys, values = randn(n, length, units), randn(n, length, units)
+        q = randn(n, units)
+        pos = torch.tensor(checked, dtype=torch.int32, device=device)
+        out = kernels.flash_decode_attention(q, keys, values, pos, heads)
+        ref = kernels.flash_decode_attention_reference(q, keys, values, pos,
+                                                       heads)
+        err = (out - ref).abs().max().item()
+        log('check flash_decode_attention max_len=%d positions=%s '
+            'max_abs_err=%.3g' % (length, list(checked), err))
+        if not err <= TOL:
+            raise AssertionError('flash_decode_attention disagrees with its '
+                                 'plain version: %g > %g' % (err, TOL))
+        worst['flash_decode_fwd'] = max(worst['flash_decode_fwd'], err)
     return worst
 
 
@@ -560,7 +580,27 @@ def time_kernels(torch, kernels, heads=12, d=64, seq=256, length=200):
         bound_ms=b_ms, bound_by=b_by,
         shape='slots %d max_len 512 U %d heads %d positions %s'
         % (SLOTS, units, heads, list(DECODE_POSITIONS)))
+    rows['flash_decode_fwd']['device_ms_at_pos'] = decode_at_positions(
+        torch, kernels, qd, keys, values, pos, heads)
     return rows
+
+
+def decode_at_positions(torch, kernels, qd, keys, values, pos, heads):
+    """Device ms of the decode kernel with every slot on one position
+    (127: one tile a (slot, head) and no chain; 511: four tiles and a
+    chain of four), each beside its bytes bound, so that the chain's
+    share shows."""
+    slots, units = qd.shape
+    at_pos = {}
+    for p in (127, 511):
+        same = torch.full_like(pos, p)
+        nbytes = 2 * slots * (p + 1) * units * 4 + 2 * qd.numel() * 4
+        at_pos[p] = dict(
+            device_ms=device_ms(torch, lambda *a: (
+                kernels.flash_decode_attention(*a, heads)),
+                (qd, keys, values, same)),
+            bound_ms=bound(nbytes, slots * (p + 1) * units * 4)[0])
+    return at_pos
 
 
 def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
@@ -1511,9 +1551,11 @@ def nms_cases(n=SSD_ANCHORS, seed=6):
     numpy cases of the nms kernel check: the served shape class-aware at
     topk 400 and 16 images, every box suppressing (topk -1, 7378 steps),
     N of 1, 100 and 129, all invalid, duplicates and zero areas, NaN
-    coordinates; then N of 300, 1500 and 3000 with and without class ids,
-    so that each of the kernel's ten instances (1, 2, 4, 8 or 16 boxes a
-    thread, class-aware or not) runs at least once."""
+    coordinates; N of 300, 1500 and 3000 with and without class ids; at
+    the 64-box word and row-block edges N of 63, 64 and 65 and topk of
+    63, 64 and 65 at N 129; and N of 8192 (``MAX_BOXES``, 128 words: the
+    scan's every thread), class-aware at topk 400 and class-agnostic at
+    topk -1."""
     import numpy as np
     rs = np.random.RandomState(seed)
 
@@ -1546,11 +1588,19 @@ def nms_cases(n=SSD_ANCHORS, seed=6):
     nan[0, 5, 1] = np.nan
     nan[1, 0, 2] = np.nan
     cases.append(('NaN coordinates', nan, valid(2, 700), ids(2, 700, 3), -1))
-    for m in (300, 1500, 3000):
+    for m in (300, 1500, 3000, 63, 64, 65, 8192):
         cases.append(('class-agnostic B2 N%d topk -1' % m, boxes(2, m),
                       valid(2, m), None, -1))
         cases.append(('class-aware B2 N%d topk %d' % (m, NMS_TOPK),
                       boxes(2, m), valid(2, m), ids(2, m), NMS_TOPK))
+    for m in (63, 64, 65):
+        cases.append(('class-aware B2 N%d topk -1' % m, boxes(2, m),
+                      valid(2, m), ids(2, m, 3), -1))
+        cases.append(('class-agnostic B2 N%d topk %d' % (m, NMS_TOPK),
+                      boxes(2, m), valid(2, m), None, NMS_TOPK))
+    for k in (63, 64, 65):
+        cases.append(('class-agnostic B2 N129 topk %d' % k, boxes(2, 129),
+                      valid(2, 129), None, k))
     return cases
 
 
@@ -1594,15 +1644,50 @@ def nms_work(torch, kernels, boxes, valid, keep, topk, cls_id):
     return nbytes, pairs * NMS_IOU_FLOPS
 
 
+NMS_STAGES = ('mask', 'scan', 'finish')
+
+
+def nms_stage_ms(torch, call, reps=20):
+    """Device ms of each of the nms kernel's three launches (``mask``,
+    ``scan``: the ordered walk, ``finish``; ``<stage>_device_ms``): the
+    mean duration of each kernel, found by its name
+    (``nms_keep_<stage>``), over its launches in a ``torch.profiler``
+    trace of ``reps`` calls of ``call()``. The trace may drop a launch
+    (one of 20 mask kernels in a run on the H100); it raises when it
+    holds fewer than half of a kernel's. Kernel durations, inputs warm
+    in the L2: not the slope timer of ``device_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    ms, seen = dict.fromkeys(NMS_STAGES, 0.0), dict.fromkeys(NMS_STAGES, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for stage in NMS_STAGES:
+            if 'nms_keep_%s' % stage in e.name:
+                ms[stage] += (e.time_range.end - e.time_range.start) / 1e3
+                seen[stage] += 1
+    if any(2 * n < reps or n > reps for n in seen.values()):
+        raise AssertionError('nms profile: kernels traced %s of %d calls'
+                             % (seen, reps))
+    return {'%s_device_ms' % k: v / seen[k] for k, v in ms.items()}
+
+
 def time_nms(torch, kernels, args):
     """Times of the nms kernel and its plain version on the served batch's
     inputs at the top bucket (``args``: boxes (16, N, 4), valid, thresh,
     topk, class ids, as box_nms hands them over), and on its first image;
-    the bound from these inputs; and the latency floor of the step chain,
-    the kernel on the first 512 boxes of each image (one a thread) with
-    the same topk. The kernel's mask must equal its plain version's on
-    both. PyTorch has no NMS op and torchvision is not installed: no
-    library call."""
+    the bound from these inputs; the kernel on the first 512 boxes of
+    each image with the same topk (``floor_ms``: the scan's row blocks
+    with a fourteenth of the IoUs); and its mask, scan and finish kernels
+    apart (:func:`nms_stage_ms`). The kernel's mask must equal its plain
+    version's on both. PyTorch has no NMS op and torchvision is not
+    installed: no library call."""
     boxes, valid, thresh, topk, cls_id = args
     rows = {}
     for b in (boxes.shape[0], 1):
@@ -1620,7 +1705,9 @@ def time_nms(torch, kernels, args):
             raise AssertionError('nms disagrees with its plain version on '
                                  'the served batch\'s first %d images' % b)
         log('check nms [the served batch\'s decoded boxes, B%d N%d]: %d '
-            'kept, bitwise equal' % (b, bx.shape[1], int(keep.sum())))
+            'kept, bitwise equal; the mask kernel writes %d bytes of words'
+            % (b, bx.shape[1], int(keep.sum()), 8 * b * -(-bx.shape[1] // 64)
+               * kernels.nms_iterations(bx.shape[1], topk)))
         nbytes, flops = nms_work(torch, kernels, bx, vd, keep, topk, cl)
         b_ms, b_by = bound(nbytes, flops)
         head = (bx[:, :512].contiguous(), vd[:, :512].contiguous(),
@@ -1629,6 +1716,7 @@ def time_nms(torch, kernels, args):
             torch, (bx, vd, cl), kernel, plain, plain_iters=3,
             plain_warmup=1, bound_ms=b_ms, bound_by=b_by,
             floor_ms=time_ms(torch, lambda: kernel(*head)),
+            **nms_stage_ms(torch, lambda: kernel(bx, vd, cl)),
             shape='B%d N%d class-aware topk %d thresh %g, the served batch '
             'at bucket %d; %d of the %d steps kept; library: none (no NMS '
             'op in PyTorch, no torchvision)'
@@ -2162,6 +2250,26 @@ def _check_mma_build(build, ptxas, kernel):
     return regs, next(iter(counts.values()))
 
 
+def check_no_spills(ptxas, source, kernel_keys):
+    """{entry: registers} of the entries of ``source`` whose names hold
+    one of ``kernel_keys``, from ptxas's lines (``ptxas``; empty when the
+    library was current and not rebuilt). Raises when one spills, or when
+    ptxas ran and reported none of a key."""
+    regs, spills = {}, {}
+    for fn, (n, spill) in ptxas_entries(ptxas).items():
+        if any(k in fn for k in kernel_keys):
+            regs[fn] = n
+            if spill:
+                spills[fn] = spill
+    if spills:
+        raise AssertionError('%s kernels spill: %s' % (source, spills))
+    missing = [k for k in kernel_keys if not any(k in f for f in regs)]
+    if ptxas and missing:
+        raise AssertionError('ptxas reported no %s kernel of %s'
+                             % (' / '.join(missing), source))
+    return regs
+
+
 def check_dq_build(build, ptxas):
     """The dq kernel: :func:`_check_mma_build`."""
     return _check_mma_build(build, ptxas, 'flash_attention_dq')
@@ -2275,6 +2383,14 @@ def log_times(times):
         if 'pair_turns_device_ms' in row:
             log('time dq + dkv against SDPA backward, device ms in turns: %s'
                 % row['pair_turns_device_ms'])
+        if 'device_ms_at_pos' in row:
+            log('time %s: device ms at one position for every slot %s'
+                % (name, row['device_ms_at_pos']))
+        if 'mask_device_ms' in row:
+            log('time %s: device ms (profiler) of the mask kernel %.4f, the '
+                'walk %.4f, the finish %.4f'
+                % (name, row['mask_device_ms'],
+                   row['scan_device_ms'], row['finish_device_ms']))
 
 
 def kernel_rows(errs, times, train_times, launches_by_path):
@@ -2297,7 +2413,9 @@ def kernel_rows(errs, times, train_times, launches_by_path):
         row.update({k: t[k] for k in ('floor_ms', 'at_batch_1', 'by_shape',
                                       'bound_cuda_core_ms', 'log_softmax_ms',
                                       'log_softmax_device_ms',
-                                      'pair_turns_device_ms')
+                                      'pair_turns_device_ms',
+                                      'device_ms_at_pos', 'mask_device_ms',
+                                      'scan_device_ms', 'finish_device_ms')
                     if k in t})
         row['shape'] = t['shape']
         if name in times and name in train_times:
@@ -2359,6 +2477,13 @@ def main():
                         ('flash_attention_dkv', check_dkv_build)):
         regs, counts = check(_build, reports.get('flash_attention_bwd', ()))
         log('%s: %s registers, no spills; SASS %s' % (name, regs, counts))
+    for source, keys in (('flash_decode_fwd', ('flash_decode_fwd_kernel',)),
+                         ('nms', ('nms_keep_mask_kernel',
+                                  'nms_keep_scan_kernel',
+                                  'nms_keep_finish_kernel'))):
+        regs = check_no_spills(reports.get(source, ()), source, keys)
+        log('%s kernels: registers %s, no spills'
+            % (source, regs or 'not reported: the library was current'))
     regs = check_epilogue_build(reports.get('epilogue', ()))
     log('epilogue stream kernels: registers by store kind (most over the '
         'acts) %s, no spills' % (regs or 'not reported: the library was '
@@ -2481,10 +2606,13 @@ def main():
     log_times(nms_times)
     for b, row in ((SSD_BUCKETS[-1], nms_times['nms']),
                    (1, nms_times['nms']['at_batch_1'])):
-        log('time nms at B%d [%s]: kernel %.4f ms, plain %.4f ms, bound %.4f '
-            'ms (%s), latency floor %.4f ms (the same steps over 512 boxes)'
-            % (b, card, row['ms'], row['plain_ms'], row['bound_ms'],
-               row['bound_by'], row['floor_ms']))
+        log('time nms at B%d [%s]: kernel %.4f ms (device %.4f: mask %.4f, '
+            'walk %.4f, finish %.4f), plain %.4f ms, bound %.4f ms (%s), '
+            '%.4f ms over the first 512 boxes'
+            % (b, card, row['ms'], row['device_ms'], row['mask_device_ms'],
+               row['scan_device_ms'], row['finish_device_ms'],
+               row['plain_ms'], row['bound_ms'], row['bound_by'],
+               row['floor_ms']))
     train_times.update(nms_times)
     torch.cuda.empty_cache()
 

@@ -9,131 +9,387 @@
 // balance point. At 8 slots and a full 512-row cache that is 25 MB per
 // layer; the live prefix is usually much less.
 //
-// Design. The TPU kernel ran one program per slot and looped over heads
-// inside it, reading the whole padded cache row. Here:
-//   * grid (slots, heads): each (slot, head) is its own block of 128
-//     threads (96 blocks at 8 slots x 12 heads), so heads run in parallel;
-//   * the cache is read in place in its native (slots, max_len, U) layout,
-//     head h at columns h*D .. (h+1)*D: no transpose, no copy, no padding
-//     of the single query row;
-//   * the walk stops after the tile that holds the slot's position, so the
-//     bytes read follow the live prefix and not max_len;
-//   * K/V tiles of K_BLOCK = 128 rows are staged in shared memory with
-//     16-byte coalesced loads (K rows padded to D + 1 floats so that thread
-//     j reading key row j has no bank conflicts);
-//   * thread j scores key j; the tile max is a shared-memory tree (exact in
-//     any order); the weight sum and the D accumulators are sequential over
-//     the tile's keys, in the same order and with the same expressions as
-//     the prefill kernel (online_softmax.cuh), which keeps the cached step
-//     and the prefill on one reduction tree over the real keys.
-// Split-K across blocks would reorder that walk; it waits for an ordered
-// combine in a later version.
+// The arithmetic is the walk of online_softmax.cuh, bit for bit: the key
+// axis from 0 in K_BLOCK = 128-key tiles, tile j folded into (m, l, acc)
+// by rescale / weight and a sequential fma chain over its keys. Only the
+// fold of l and acc is ordered; everything before it depends on the
+// earlier tiles through the running max alone, and a max is exact in any
+// order. So the tiles run in parallel and only the fold is a chain:
+//   * grid (C, slots, heads), C = min(8, ceil(max_len / 128)): the C CTAs
+//     of a (slot, head) form a thread-block cluster, and CTA r owns tiles
+//     r, r + C, r + 2C, ..., one a round (max_len 512: C 4, 384 CTAs of
+//     256 threads at 8 slots x 12 heads). A round's shared memory holds
+//     one tile, so every max_len runs; a CTA whose tile lies past the
+//     slot's position loads nothing but still arrives at every cluster
+//     barrier. Where the slot's visible keys fit in one tile, no CTA
+//     touches another's shared memory: the cluster skips its barriers
+//     and the CTAs with no tile leave at once;
+//   * parallel part, per CTA: all 256 threads stage the K and V tile by
+//     cp.async with every copy in flight at once and no register staged
+//     (3 CTAs an SM; the cache read in place in its (slots, max_len, U)
+//     layout, K rows padded to D + 1 floats so that thread j reading key
+//     row j has no bank conflicts; V is waited for only before the
+//     weights are written, so it lands while the keys are scored);
+//     thread j < 128 scores key j with mx::tile_score; the tile max goes
+//     through warp shuffles; a cluster barrier; then the CTA reads the
+//     maxima of the earlier tiles of its round over distributed shared
+//     memory (mapa), folds them into the round's carried max with fmaxf
+//     (exact in any order, so this is the walk's running max m_{j-1}),
+//     and calls mx::rescale(m_{j-1}, tmax_j) and mx::weight as the walk
+//     does: its safe_m, corr and weights are the walk's bits; thread 64
+//     sums the weights in key order (psum);
+//   * ordered part, the only chain: l_j = fma(l_{j-1}, corr_j, psum_j) and
+//     acc_j = fma chain over tile j's keys from acc_{j-1} * corr_j, tile
+//     after tile. Each CTA folds its own tile from its own shared memory
+//     and hands its D accumulators and l to the CTA of the next tile by
+//     st.async into that CTA's shared memory (16 bytes a store), each
+//     store completing its bytes on that CTA's mbarrier, which expects
+//     D + 1 floats a phase and which its threads wait on. (Rank 0 folding
+//     every tile from its peers' shared memory after a second cluster
+//     barrier gives the same bits and was slower on the H100.)
+//     The CTA of the last tile writes out = mx::finish_out(acc, l) once.
+//     A cluster barrier ends each round, so no CTA reuses or releases
+//     shared memory that a peer still writes. A slot with no visible key
+//     (position < 0, or max_len 0) writes finish_out(0, 0) from rank 0.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 #include "online_softmax.cuh"
 
 namespace {
 
-constexpr int THREADS = mx::K_BLOCK;  // one key of the tile per thread
+constexpr int THREADS = 2 * mx::K_BLOCK;  // 256: all stage, 128 score
+constexpr int CLUSTER_MAX = 8;            // portable cluster size
+constexpr int SCORE_WARPS = mx::K_BLOCK / 32;
+constexpr int PSUM_THREAD = 64;           // outside the D chain threads
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+struct Smem {
+  float ks[mx::K_BLOCK * (D + 1)];  // K tile, rows padded
+  float vs[mx::K_BLOCK * D];        // V tile
+  float ps[mx::K_BLOCK];            // weights
+  float qs[D];                      // scaled query
+  alignas(16) float acc_in[D];      // the previous tile's acc
+  float wmax[SCORE_WARPS];
+  float tmax;                       // this tile's score max
+  float safe_m, corr, psum;         // this tile's rescale, weight sum
+  float l_in;                       // the previous tile's l
+  unsigned long long bar;           // acc_in / l_in written
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// `p` (this CTA's shared memory) in the CTA of cluster rank `rank`, as a
+// generic pointer: plain loads and stores through it reach that CTA's
+// shared memory, and the compiler may batch them
+template <class T>
+__device__ __forceinline__ T* peer(T* p, uint32_t rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(out)
+      : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+// cp.async of `bytes` (4 or 16) from global `src` to shared `dst`;
+// `valid` false zero-fills `dst` and reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const uint32_t d = smem_u32(dst);
+  const int n = valid ? BYTES : 0;
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival on the mbarrier at shared address `bar` that also expects
+// `bytes` of asynchronous stores before its phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// shared address `local` in the CTA of cluster rank `rank`
+__device__ __forceinline__ uint32_t peer_u32(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  return remote;
+}
+
+// asynchronous stores into a peer's shared memory (cluster addresses),
+// each completing its bytes on the peer's mbarrier `bar`
+__device__ __forceinline__ void st_async(uint32_t dst, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t dst, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 3)
 flash_decode_fwd_kernel(const float* __restrict__ q,
                         const float* __restrict__ keys,
                         const float* __restrict__ values,
                         const int* __restrict__ positions,
                         float* __restrict__ out,
                         int max_len, int units, float scale) {
-  constexpr int KS = D + 1;                // padded K row stride
-  extern __shared__ float smem[];
-  float* ks = smem;                        // [K_BLOCK][D + 1]
-  float* vs = ks + mx::K_BLOCK * KS;       // [K_BLOCK][D]
-  float* ps = vs + mx::K_BLOCK * D;        // [K_BLOCK] scores, then weights
-  float* red = ps + mx::K_BLOCK;           // [K_BLOCK] max tree
-  float* qs = red + mx::K_BLOCK;           // [D] scaled query
+  constexpr int KS = D + 1;
+  constexpr int QUADS = D / 4;
+  static_assert(mx::K_BLOCK * QUADS % THREADS == 0, "tile / threads");
+  static_assert(D <= PSUM_THREAD, "the psum thread lies past the D chain");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
 
-  const int slot = blockIdx.x;
-  const int h = blockIdx.y;
   const int t = threadIdx.x;
+  const uint32_t rank = cluster_rank();
+  const int csize = (int)gridDim.x;
+  const int slot = blockIdx.y;
+  const int h = blockIdx.z;
   const int pos = positions[slot];
   const int last = min(pos, max_len - 1);  // last visible key
-  const int ntiles = pos < 0 ? 0 : last / mx::K_BLOCK + 1;
+  const int ntiles = last < 0 ? 0 : last / mx::K_BLOCK + 1;
+  const int rounds = (ntiles + csize - 1) / csize;
 
   const size_t row0 = (size_t)slot * max_len;
   const float* kb = keys + row0 * units + h * D;
   const float* vb = values + row0 * units + h * D;
+  float* orow = out + (size_t)slot * units + h * D;
 
-  if (t < D) qs[t] = __fmul_rn(q[(size_t)slot * units + h * D + t], scale);
-  float m = -CUDART_INF_F;
-  float l = 0.f;
-  float acc = 0.f;  // thread t < D owns output column t
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int kbase = j * mx::K_BLOCK;
-    __syncthreads();  // qs written / the previous tile consumed
-    for (int idx = t; idx < mx::K_BLOCK * D / 4; idx += THREADS) {
-      const int r = idx / (D / 4);
-      const int c = idx % (D / 4);
-      const int kp = kbase + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (kp < max_len) {
-        kv = reinterpret_cast<const float4*>(kb + (size_t)kp * units)[c];
-        vv = reinterpret_cast<const float4*>(vb + (size_t)kp * units)[c];
-      }
-      float* kr = ks + r * KS + 4 * c;
-      kr[0] = kv.x;
-      kr[1] = kv.y;
-      kr[2] = kv.z;
-      kr[3] = kv.w;
-      reinterpret_cast<float4*>(vs + r * D)[c] = vv;
-    }
-    __syncthreads();
-
-    const int kp = kbase + t;
-    const float s = kp <= last ? mx::tile_score<D>(qs, ks + t * KS)
-                               : -CUDART_INF_F;
-    ps[t] = s;
-    red[t] = s;
-    __syncthreads();
-    for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
-      if (t < stride) red[t] = fmaxf(red[t], red[t + stride]);
-      __syncthreads();
-    }
-    float safe_m, corr;
-    mx::rescale(m, red[0], safe_m, corr);
-    ps[t] = mx::weight(s, safe_m);
-    __syncthreads();
-
-    if (t < D) {
-      float psum = 0.f;
-      for (int jj = 0; jj < mx::K_BLOCK; ++jj) psum = __fadd_rn(psum, ps[jj]);
-      l = __fmaf_rn(l, corr, psum);
-      acc = __fmul_rn(acc, corr);
-      for (int jj = 0; jj < mx::K_BLOCK; ++jj)
-        acc = __fmaf_rn(ps[jj], vs[jj * D + t], acc);
-    }
+  if (t < D) sm.qs[t] = __fmul_rn(q[(size_t)slot * units + h * D + t], scale);
+  constexpr int HANDOFF_BYTES = (D + 1) * (int)sizeof(float);  // acc, l
+  if (t == 0) {
+    mbar_init(smem_u32(&sm.bar), 1);
+    mbar_expect_tx(smem_u32(&sm.bar), HANDOFF_BYTES);  // phase 0 armed
+  }
+  // one tile: rank 0 alone, no cluster barrier (nor any peer access)
+  const bool alone = ntiles == 1;
+  if (ntiles == 0 || (alone && rank != 0)) {
+    // no visible key: the walk's untouched (l, acc)
+    if (ntiles == 0 && rank == 0 && t < D)
+      orow[t] = mx::finish_out(0.f, 0.f);
+    return;  // before any barrier
   }
 
-  if (t < D) out[(size_t)slot * units + h * D + t] = mx::finish_out(acc, l);
+  float m_carry = -CUDART_INF_F;  // max over the earlier rounds' tiles
+  uint32_t waits = 0;             // phases of sm.bar consumed
+
+  for (int g = 0; g < rounds; ++g) {
+    const int j = g * csize + (int)rank;  // this CTA's tile this round
+    const bool has = j < ntiles;          // uniform over the CTA
+    const int kbase = j * mx::K_BLOCK;
+    float s = -CUDART_INF_F;
+    if (has) {
+      // all of the tile's copies in flight at once, no registers staged:
+      // K a float at a time into its padded rows, then V 16 bytes at a
+      // time; rows past max_len are zero-filled
+#pragma unroll 8
+      for (int idx = t; idx < mx::K_BLOCK * D; idx += THREADS) {
+        const int kp = kbase + idx / D;
+        const bool in = kp < max_len;
+        cp_async<4>(sm.ks + (idx / D) * KS + idx % D,
+                    kb + (size_t)(in ? kp : 0) * units + idx % D, in);
+      }
+      cp_async_commit();
+#pragma unroll 8
+      for (int idx = t; idx < mx::K_BLOCK * QUADS; idx += THREADS) {
+        const int kp = kbase + idx / QUADS;
+        const bool in = kp < max_len;
+        cp_async<16>(sm.vs + 4 * idx,
+                     vb + (size_t)(in ? kp : 0) * units + 4 * (idx % QUADS),
+                     in);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // this thread's K copies have landed
+      __syncthreads();
+      if (t < mx::K_BLOCK) {
+        if (kbase + t <= last) s = mx::tile_score<D>(sm.qs, sm.ks + t * KS);
+        float wm = s;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          wm = fmaxf(wm, __shfl_xor_sync(0xffffffffu, wm, o));
+        if ((t & 31) == 0) sm.wmax[t >> 5] = wm;
+      }
+      __syncthreads();
+      if (t == 0) {
+        float tm = sm.wmax[0];
+#pragma unroll
+        for (int w = 1; w < SCORE_WARPS; ++w) tm = fmaxf(tm, sm.wmax[w]);
+        sm.tmax = tm;
+      }
+    }
+    if (!alone) cluster_sync();  // every tile max of the round is written
+
+    if (has) {
+      if (t == 0) {
+        // m_{j-1}: the earlier rounds' max, then the earlier ranks' tiles
+        float m = m_carry;
+        for (uint32_t r = 0; r < rank; ++r)
+          m = fmaxf(m, *peer(&sm.tmax, r));
+        mx::rescale(m, sm.tmax, sm.safe_m, sm.corr);
+      }
+      __syncthreads();
+      if (t < mx::K_BLOCK) sm.ps[t] = mx::weight(s, sm.safe_m);
+      cp_async_wait<0>();  // and its V copies
+      __syncthreads();
+      if (t == PSUM_THREAD) {
+        float psum = 0.f;
+        for (int jj = 0; jj < mx::K_BLOCK; ++jj)
+          psum = __fadd_rn(psum, sm.ps[jj]);
+        sm.psum = psum;
+      }
+    }
+    if (t == 0 && g + 1 < rounds) {
+      // a later round exists, so every tile of this one is live
+      for (int r = 0; r < csize; ++r)
+        m_carry = fmaxf(m_carry, *peer(&sm.tmax, (uint32_t)r));
+    }
+
+    if (has) {
+      float lt = 0.f, at = 0.f;
+      if (t < D && j > 0) {
+        mbar_wait_cluster(smem_u32(&sm.bar), waits & 1u);
+        if (t == 0) mbar_expect_tx(smem_u32(&sm.bar), HANDOFF_BYTES);
+        lt = sm.l_in;
+        at = sm.acc_in[t];
+      }
+      if (j > 0) ++waits;
+      if (t < D) {
+        // acc's fold, the walk's expressions in its order
+        at = __fmul_rn(at, sm.corr);
+#pragma unroll 16
+        for (int jj = 0; jj < mx::K_BLOCK; ++jj)
+          at = __fmaf_rn(sm.ps[jj], sm.vs[jj * D + t], at);
+      }
+      __syncthreads();  // psum is written
+      if (t < D) {
+        lt = __fmaf_rn(lt, sm.corr, sm.psum);
+        if (j + 1 == ntiles) {
+          orow[t] = mx::finish_out(at, lt);
+        } else {
+          // four columns a store: thread 4c sends columns 4c .. 4c + 3
+          const float a1 = __shfl_down_sync(0xffffffffu, at, 1);
+          const float a2 = __shfl_down_sync(0xffffffffu, at, 2);
+          const float a3 = __shfl_down_sync(0xffffffffu, at, 3);
+          if ((t & 3) == 0) {
+            const uint32_t next = (rank + 1) % (uint32_t)csize;
+            const uint32_t bar = peer_u32(smem_u32(&sm.bar), next);
+            st_async(peer_u32(smem_u32(sm.acc_in + t), next),
+                     make_float4(at, a1, a2, a3), bar);
+            if (t == 0) st_async(peer_u32(smem_u32(&sm.l_in), next), lt,
+                                 bar);
+          }
+        }
+      }
+    }
+    if (!alone) cluster_sync();  // no peer reads or writes this round
+  }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* keys, const float* values,
                    const int* positions, float* out, int slots, int max_len,
                    int heads, float scale, cudaStream_t stream) {
-  const size_t smem =
-      (mx::K_BLOCK * (D + 1) + mx::K_BLOCK * D + 2 * mx::K_BLOCK + D) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_fwd_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* kernel = flash_decode_fwd_kernel<D>;
+  // the shared-memory attribute once per device
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(slots, heads);
-  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
-  flash_decode_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, keys, values, positions, out, max_len, heads * D, scale);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(Smem<D>));
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  if (slots == 0) return cudaSuccess;
+  const int tiles = (max_len + mx::K_BLOCK - 1) / mx::K_BLOCK;
+  // max_len 0: a cluster of one whose CTAs find no tile
+  const int cluster = tiles < CLUSTER_MAX ? (tiles > 0 ? tiles : 1)
+                                          : CLUSTER_MAX;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, (unsigned)slots, (unsigned)heads);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = sizeof(Smem<D>);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, q, keys, values, positions, out,
+                           max_len, heads * D, scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -149,7 +405,9 @@ extern "C" int mx_flash_decode_fwd(const void* q, const void* keys,
                                    int units, int heads, float scale,
                                    void* stream) {
   // the instance the slice needs: head dim 64
-  if (heads <= 0 || units != heads * 64) return cudaErrorInvalidValue;
+  if (heads <= 0 || units != heads * 64 || slots < 0 || max_len < 0 ||
+      heads > 65535 || slots > 65535)
+    return cudaErrorInvalidValue;
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(keys);
   const auto* vf = static_cast<const float*>(values);

@@ -21,9 +21,17 @@ Semantics, all the TPU kernel's (``nms.py:29-64``):
     neither suppresses nor is suppressed (the JAX kernel, run by the
     Pallas interpreter, extracts box ``i`` exactly).
 
+The kernel is three launches on the stream (``csrc/nms.cu``): a
+parallel pass writes, for every box ``i < n_iter``, one 64-bit word a
+64-box column block whose bit ``j`` says that ``i`` would suppress ``j``
+(scratch from PyTorch's caching allocator, :func:`nms_scratch_words`);
+one ordered walk an image then keeps box ``i < n_iter`` when it is valid
+and no earlier kept row removed it; a parallel pass ORs the kept rows'
+words into each box's removed bit and writes ``valid & ~removed``.
+
 Wrapper rules as in ``epilogue.py``: a CPU tensor takes the plain version
 (:func:`greedy_nms_keep_reference`), a CUDA tensor launches the kernel or
-raises, and each launch is counted.
+raises, and each call is counted once.
 """
 from __future__ import annotations
 
@@ -39,13 +47,26 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
 __all__ = ['MAX_BOXES', 'greedy_nms_keep', 'greedy_nms_keep_reference',
            'nms_iterations']
 
-# the kernel holds at most 16 boxes in each of its 512 threads
+# the scan's tables hold 128 words of 64 boxes an image
 MAX_BOXES = 8192
+MASK_WORD = 64   # boxes a mask word
 
 
 def nms_iterations(n, topk=-1):
     """``n_iter`` of ``nms.py:105``: every box, or the first ``topk``."""
     return n if topk is None or topk < 0 else min(int(topk), n)
+
+
+def nms_mask_words(n):
+    """Mask words a row of ``n`` boxes takes: ``ceil(n / 64)``."""
+    return -(-n // MASK_WORD)
+
+
+def nms_scratch_words(batch, n, n_iter):
+    """64-bit words of the kernel's scratch: the mask words (batch,
+    ceil(n / 64), n_iter), then each image's 128 kept and 128 removed
+    words."""
+    return batch * (nms_mask_words(n) * n_iter + 2 * MAX_BOXES // MASK_WORD)
 
 
 def _batched(boxes, valid, cls_id):
@@ -103,7 +124,7 @@ def _lib():
     fn = _build.load('nms').mx_nms_keep
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_void_p]
     return fn
 
@@ -115,8 +136,8 @@ def greedy_nms_keep(boxes, valid, thresh, topk=-1, cls_id=None):
     ``valid`` (N,) / (B, N) bool; ``cls_id`` None (class-agnostic) or
     (N,) / (B, N) class ids, when only same-class boxes suppress each
     other. Returns the (N,) / (B, N) bool keep mask. On a CUDA tensor one
-    kernel launch covers the batch; at most :data:`MAX_BOXES` boxes an
-    image."""
+    call of the kernel (its mask, walk and finish launches) covers the
+    batch; at most :data:`MAX_BOXES` boxes an image."""
     if _on_cpu('greedy_nms_keep', boxes):
         return greedy_nms_keep_reference(boxes, valid, thresh, topk, cls_id)
     b, v, c, single = _batched(boxes, valid, cls_id)
@@ -134,12 +155,14 @@ def greedy_nms_keep(boxes, valid, thresh, topk=-1, cls_id=None):
         c = _dense(c.float())
         named['cls_id'], dtypes['cls_id'] = c, torch.float32
     _check_inputs('greedy_nms_keep', named, dtypes)
-    device = b.device
-    with torch.cuda.device(device):
+    n_iter = nms_iterations(n, topk)
+    mask = torch.empty(nms_scratch_words(bsz, n, n_iter), dtype=torch.int64,
+                       device=b.device)
+    with torch.cuda.device(b.device):
         err = _lib()(_ptr(b), _ptr(v),
                      ctypes.c_void_p(None if c is None else c.data_ptr()),
-                     _ptr(keep), bsz, n, nms_iterations(n, topk),
-                     float(thresh), _stream(device))
+                     _ptr(keep), _ptr(mask), bsz, n, n_iter, float(thresh),
+                     _stream(b.device))
     _raise_on('nms', err)
     _count('nms')
     return keep[0] if single else keep

@@ -101,6 +101,141 @@ def test_flash_decode_matches_jax_and_einsum(max_len):
     np.testing.assert_allclose(want, einsum, rtol=0, atol=ATOL)
 
 
+# float32 primitives of csrc/online_softmax.cuh in numpy. The fma is the
+# float64 product and sum rounded to float32 (not always the single
+# rounding of __fmaf_rn, but deterministic): both schedules below use the
+# same primitives, so what the test pins is the schedule.
+def _fma(a, b, c):
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _rescale(m, tile_max):
+    m_new = np.fmax(m, tile_max)
+    safe = np.float32(0) if m_new == -np.inf else m_new
+    corr = np.float32(0) if m == -np.inf else np.exp(np.float32(m - safe))
+    return m_new, safe, corr
+
+
+def _scores(qs, k_tile, base, last):
+    """tile_score: one fma chain over d from 0; keys past `last` -inf."""
+    s = np.zeros(len(k_tile), np.float32)
+    for d in range(qs.shape[0]):
+        s = _fma(qs[d], k_tile[:, d], s)
+    s[base + np.arange(len(k_tile)) > last] = -np.inf
+    return s
+
+
+def _weights(s, safe):
+    with np.errstate(over='ignore'):
+        return np.where(s == -np.inf, np.float32(0),
+                        np.exp((s - safe).astype(np.float32)))
+
+
+def _fold(p, v, corr, l, acc):
+    psum = np.float32(0)
+    for x in p:
+        psum = np.float32(psum + x)
+    l = _fma(l, corr, psum)
+    acc = (acc * corr).astype(np.float32)
+    for jj in range(len(p)):
+        acc = _fma(p[jj], v[jj], acc)
+    return l, acc
+
+
+def _finish(l, acc):
+    return (acc / np.maximum(l, np.float32(1e-20))).astype(np.float32)
+
+
+def _tiles(qs, keys, pos):
+    """The scores of every tile up to the one holding the last visible
+    key (none when pos < 0 or the cache is empty)."""
+    block = port_attn.K_BLOCK
+    last = min(pos, len(keys) - 1)
+    ntiles = 0 if last < 0 else last // block + 1
+    return [_scores(qs, keys[j * block:(j + 1) * block], j * block, last)
+            for j in range(ntiles)]
+
+
+def _walk_decode(qs, keys, values, pos):
+    """The sequential walk of the old kernel and of the forward's row."""
+    block = port_attn.K_BLOCK
+    m, l = np.float32(-np.inf), np.float32(0)
+    acc = np.zeros(values.shape[1], np.float32)
+    for j, s in enumerate(_tiles(qs, keys, pos)):
+        m, safe, corr = _rescale(m, s.max())
+        l, acc = _fold(_weights(s, safe), values[j * block:(j + 1) * block],
+                       corr, l, acc)
+    return _finish(l, acc)
+
+
+def _cluster_decode(qs, keys, values, pos):
+    """csrc/flash_decode_fwd.cu's schedule: C = min(8, ceil(max_len /
+    128)) CTAs (one at max_len 0), CTA r holding tile g C + r in round g; every tile scored
+    and its max taken at once; each tile's running max the carried max of
+    the earlier rounds, then fmaxf over the earlier ranks of its round;
+    rescale, weights and psum a tile apart; then only the fold in tile
+    order."""
+    block = port_attn.K_BLOCK
+    max_len = len(keys)
+    csize = max(1, min(8, -(-max_len // block)))
+    tiles = _tiles(qs, keys, pos)
+    maxima = [s.max() for s in tiles]
+    rounds = -(-len(tiles) // csize)
+    l, acc = np.float32(0), np.zeros(values.shape[1], np.float32)
+    m_carry = np.float32(-np.inf)
+    for g in range(rounds):
+        live = range(g * csize, min(len(tiles), (g + 1) * csize))
+        folded = []
+        for j in live:
+            m = m_carry
+            for r in range(j - g * csize):
+                m = np.fmax(m, maxima[g * csize + r])
+            _, safe, corr = _rescale(m, maxima[j])
+            folded.append((_weights(tiles[j], safe), corr))
+        for j, (p, corr) in zip(live, folded):
+            l, acc = _fold(p, values[j * block:(j + 1) * block], corr, l,
+                           acc)
+        if g + 1 < rounds:
+            for j in live:
+                m_carry = np.fmax(m_carry, maxima[j])
+    return _finish(l, acc)
+
+
+@pytest.mark.parametrize('max_len', [0, 40, 300, 512, 1100])
+def test_decode_cluster_schedule_bitwise_equals_walk(max_len):
+    """The decode kernel's schedule against the same primitives run as
+    the sequential walk, bitwise, with positions on every tile edge, no
+    visible key (-1), past the cache (max_len + 5), and slots whose later
+    tiles are all masked; then the walk against the plain version. At
+    max_len 0 every slot sees no key and writes zeros."""
+    rs = np.random.RandomState(max_len)
+    heads, d = 2, 64
+    edges = (0, 127, 128, 255, 511, 1023, 1024)
+    positions = [p for p in edges if p < max_len] + [max_len - 1, -1,
+                                                     max_len + 5, 5]
+    keys = rs.randn(len(positions), max_len, heads * d).astype('float32')
+    values = rs.randn(len(positions), max_len, heads * d).astype('float32')
+    q = rs.randn(len(positions), heads * d).astype('float32')
+    scale = np.float32(1 / np.sqrt(d))
+    walk = np.zeros_like(q)
+    for i, pos in enumerate(positions):
+        for h in range(heads):
+            cols = slice(h * d, (h + 1) * d)
+            qs = (q[i, cols] * scale).astype(np.float32)
+            want = _walk_decode(qs, keys[i, :, cols], values[i, :, cols],
+                                pos)
+            got = _cluster_decode(qs, keys[i, :, cols], values[i, :, cols],
+                                  pos)
+            assert got.tobytes() == want.tobytes(), (max_len, pos, h)
+            walk[i, cols] = want
+    plain = kernels.flash_decode_attention_reference(
+        torch.tensor(q), torch.tensor(keys), torch.tensor(values),
+        torch.tensor(positions, dtype=torch.int32), heads).numpy()
+    np.testing.assert_allclose(walk, plain, rtol=0, atol=ATOL)
+    if max_len == 0:
+        assert not walk.any() and not plain.any()
+
+
 def test_online_softmax_block_matches_jax():
     rs = np.random.RandomState(11)
     s = rs.randn(2, 5, 8).astype('float32')

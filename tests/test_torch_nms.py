@@ -17,7 +17,10 @@ be equal. The numpy loop of ``tests/test_control_flow.py`` rounds each
 step in float32 in the kernel's order, so it needs no margin.
 
 The CUDA kernel (``csrc/nms.cu``) runs only on the card: the last test
-is marked ``cuda`` and skips here.
+is marked ``cuda`` and skips here. Its schedule -- a parallel mask of
+64-bit suppression words, an ordered walk of 64-row blocks on one word
+column each, a parallel finish -- runs here as ``_bitmask_keep``, held
+bitwise to the plain version and to the JAX kernel.
 """
 import numpy as np
 import pytest
@@ -207,6 +210,126 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         kernels.greedy_nms_keep(torch.zeros(2, 5, 4),
                                 torch.ones(2, 4, dtype=torch.bool), 0.5)
+
+
+WORD = kernels.nms.MASK_WORD
+
+
+def _words(bits):
+    """(..., m) bool -> (..., ceil(m / 64)) Python ints, bit k of word w
+    for column 64 w + k."""
+    pad = -bits.shape[-1] % WORD
+    bits = np.concatenate([bits, np.zeros(bits.shape[:-1] + (pad,), bool)],
+                          -1)
+    packed = np.packbits(bits, axis=-1, bitorder='little')
+    words = packed.reshape(bits.shape[:-1] + (-1, 8)).view('<u8')[..., 0]
+    return [[int(x) for x in row] for row in np.atleast_2d(words)]
+
+
+def _bitmask_keep(boxes, valid, thresh, topk, cls):
+    """``csrc/nms.cu``'s schedule in float32 numpy: the mask kernel's
+    words (class keys, NaN for a box with a NaN coordinate; fminf / fmaxf;
+    for thresh >= 0 only pairs overlapping in x and y get the division),
+    the walk of 64-row blocks on word column rb alone, then the finish of
+    the words right of the walked rows."""
+    n = len(boxes)
+    n_iter = kernels.nms_iterations(n, topk)
+    words = kernels.nms.nms_mask_words(n)
+    blocks = kernels.nms.nms_mask_words(n_iter)
+    b = boxes.astype(np.float32)
+    x1, y1, x2, y2 = b.T
+    area = (x2 - x1) * (y2 - y1)
+    key = np.zeros(n, np.float32) if cls is None else cls.astype(np.float32)
+    key = np.where(np.isnan(b).any(1), np.float32(np.nan), key)
+    t = np.float32(thresh)
+    r = slice(0, n_iter)
+    with np.errstate(invalid='ignore', divide='ignore', over='ignore'):
+        dx = np.fmin(x2[None, :], x2[r, None]) - np.fmax(x1[None, :],
+                                                          x1[r, None])
+        dy = np.fmin(y2[None, :], y2[r, None]) - np.fmax(y1[None, :],
+                                                          y1[r, None])
+        if not t < 0:
+            inter = dx * dy
+            near = (dx > 0) & (dy > 0)
+        else:
+            iw = np.where(np.isnan(dx), dx, np.maximum(dx, np.float32(0)))
+            ih = np.where(np.isnan(dy), dy, np.maximum(dy, np.float32(0)))
+            inter = iw * ih
+            near = np.ones_like(inter, bool)
+        den = ((area[None, :] + area[r, None]) - inter) + np.float32(1e-12)
+        iou = inter / den
+    idx = np.arange(n)
+    bits = (near & (key[None, :] == key[r, None]) & (iou > t)
+            & (idx[None, :] > idx[r, None]))
+    rows = _words(bits) if n_iter else []          # [i][w]
+    col = [[rows[i][w] for i in range(n_iter)] for w in range(words)]
+    vw = _words(np.asarray(valid, bool)[None])[0]
+    kept_w, removed = [0] * blocks, [0] * words
+    for rb in range(blocks):
+        gone = 0
+        for i in range(rb * WORD):
+            if kept_w[i // WORD] >> (i % WORD) & 1:
+                gone |= col[rb][i]
+        span = min(WORD, n_iter - rb * WORD)
+        for k in range(span):
+            if vw[rb] >> k & 1 and not gone >> k & 1:
+                kept_w[rb] |= 1 << k
+                gone |= col[rb][rb * WORD + k]
+        removed[rb] = gone
+    for w in range(blocks, words):
+        for i in range(n_iter):
+            if kept_w[i // WORD] >> (i % WORD) & 1:
+                removed[w] |= col[w][i]
+    return np.array([bool(vw[j // WORD] >> (j % WORD) & 1)
+                     and not removed[j // WORD] >> (j % WORD) & 1
+                     for j in range(n)])
+
+
+# the word and row-block edges of the kernel's schedule: N and topk on
+# either side of 64, N past two words; class-aware where n + topk is odd
+EDGES = [(n, topk) for n in (63, 64, 65, 129) for topk in (63, 64, 65, -1)]
+
+
+@pytest.mark.parametrize('seed,n,classes,topk,thresh,dup,zero_area', CASES)
+def test_bitmask_schedule_matches_greedy_and_jax(seed, n, classes, topk,
+                                                 thresh, dup, zero_area):
+    boxes, valid, cls = _boxes(seed, n, classes, dup, zero_area)
+    got = _bitmask_keep(boxes, valid, thresh, topk, cls)
+    np.testing.assert_array_equal(got, _port(boxes, valid, thresh, topk,
+                                             cls))
+    _assert_margins(boxes, valid, thresh, topk, cls)
+    np.testing.assert_array_equal(got, _jax(boxes, valid, thresh, topk, cls))
+
+
+@pytest.mark.parametrize('n,topk', EDGES)
+def test_bitmask_schedule_at_word_edges(n, topk):
+    classes = 3 if (n + topk) % 2 else 0
+    boxes, valid, cls = _boxes(20 + n + topk, n, classes, dup=n == 129,
+                               zero_area=n == 65)
+    got = _bitmask_keep(boxes, valid, 0.3, topk, cls)
+    np.testing.assert_array_equal(got, _port(boxes, valid, 0.3, topk, cls))
+    _assert_margins(boxes, valid, 0.3, topk, cls)
+    np.testing.assert_array_equal(got, _jax(boxes, valid, 0.3, topk, cls))
+
+
+@pytest.mark.parametrize('bad,at,classes', [(np.nan, 40, 0), (np.nan, 0, 3),
+                                            (np.inf, 64, 0),
+                                            (-np.inf, 3, 3)])
+def test_bitmask_schedule_non_finite_and_negative_thresh(bad, at, classes):
+    """NaN and inf coordinates through the class keys and the fast path,
+    and thresh < 0, where the kernel takes the walk's clamps: every pair
+    whose IoU is not NaN suppresses."""
+    boxes, valid, cls = _boxes(9, 100, classes, dup=True)
+    boxes[at, 2] = bad
+    valid[at] = True
+    for thresh in (0.3, -0.25):
+        got = _bitmask_keep(boxes, valid, thresh, -1, cls)
+        np.testing.assert_array_equal(got, _port(boxes, valid, thresh, -1,
+                                                 cls))
+        finite = np.isfinite(boxes).all(axis=1)
+        _assert_margins(boxes, valid & finite, thresh, -1, cls)
+        np.testing.assert_array_equal(got, _jax(boxes, valid, thresh, -1,
+                                                cls))
 
 
 @pytest.mark.cuda
