@@ -36,6 +36,11 @@ Phases, in order; any failure exits non-zero:
      200003 and 600001 so that each of its instances (a warp, a cluster
      of 2, 4 or 8 CTAs, a block a row) launches and rows start on and off
      16-byte boundaries, with labels out of range in every case; the
+     xent backward alone on ``XENT_BWD_CASES`` (V 1, 2, 3, 5, 1000, 30522
+     and 30523, n below a tile and of whole tiles, n % 4 each of 0-3,
+     labels 0, V - 1, -1 and V, g a scalar and per row), each case's
+     max abs difference and bitwise equality printed, and past 2**31 - 1
+     elements in chunks of whole rows (``XENT_BWD_CHUNKED``); the
      five epilogue kernels for every act type at the ResNet's stem and
      last-stage BN shapes and at odd sizes (9102 and 3003 elements:
      whole tiles, a rest and a tail; 5: below a tile), bitwise for
@@ -356,17 +361,156 @@ XENT_SHAPES = ((1920, 30522), (96, 2), (128, 1000), (8, 30523), (16, 50000),
                (4, 200003), (4, 600001))
 
 
+# the xent backward's own cases (rows, V), each with g per row and g a
+# scalar: vectors crossing rows (more than once at V 1-3), n % 4 each of
+# 0-3 (odd V at 4-7 rows), n below one tile (5 x 4), one whole tile (512 x
+# 2) and whole tiles (128 x 1000, ResNet's head), the MLM's V and an odd
+# V; rows 0-7 label columns 0, V - 1, -1 and V in turn (XENT_BWD_LABELS),
+# the rest at random
+XENT_BWD_CASES = ((4, 1), (5, 1), (6, 1), (7, 1), (2, 2), (3, 2), (512, 2),
+                  (4, 3), (5, 3), (6, 3), (7, 3), (4, 5), (5, 5), (6, 5),
+                  (7, 5), (128, 1000), (3, 1000), (2, 30522), (3, 30522),
+                  (4, 30523), (5, 30523), (6, 30523), (7, 30523))
+XENT_BWD_LABELS = (lambda v: 0, lambda v: v - 1, lambda v: -1, lambda v: v)
+XENT_BWD_G = 0.37          # the scalar cotangent
+
+
+def xent_bwd_inputs(torch, kernels, rows, v, gen, device):
+    """``logp`` (the plain forward's, of logits randn * 3) and labels of a
+    backward case: rows 0-7 take ``XENT_BWD_LABELS`` in turn, the rest a
+    label in [0, V) from ``gen``."""
+    x = (torch.randn(rows, v, generator=gen) * 3).to(device)
+    lab = torch.randint(0, v, (rows,), generator=gen, dtype=torch.int32)
+    for r in range(min(rows, 8)):
+        lab[r] = XENT_BWD_LABELS[r % 4](v)
+    lab = lab.to(device)
+    return kernels.softmax_xent_forward_reference(x, lab)[1], lab
+
+
+def xent_bwd_paths(cases, labels):
+    """What the backward's stream meets over ``cases`` with the labels
+    ``labels`` (a list of int lists, one a case): n % 4, whether n is
+    below one tile or whole tiles, the lanes of the one-hot elements in
+    their vectors, and whether a one-hot element lies in a vector that
+    crosses rows."""
+    tile = 1024
+    paths = dict(n_mod_4=set(), below_tile=False, whole_tiles=False,
+                 onehot_lanes=set(), onehot_crossing=False)
+    for (rows, v), labs in zip(cases, labels):
+        n = rows * v
+        paths['n_mod_4'].add(n % 4)
+        paths['below_tile'] |= n < tile
+        paths['whole_tiles'] |= n % tile == 0
+        for r, lab in enumerate(labs):
+            if 0 <= lab < v:
+                i = r * v + lab
+                first = i - i % 4
+                paths['onehot_lanes'].add(i % 4)
+                paths['onehot_crossing'] |= (
+                    first + 3 < n - n % 4 and first // v != (first + 3) // v)
+    return paths
+
+
+def check_xent_backward(torch, kernels, device, cases=XENT_BWD_CASES):
+    """The xent backward kernel alone against its plain version on each
+    of ``cases``, with g per row and g a scalar: within TOL relative to
+    the plain result's max abs, finite; prints each case's max abs
+    difference and whether it is bitwise equal. On the card the cases
+    must reach every path of the stream (``xent_bwd_paths``). Returns
+    the worst max abs error."""
+    gen = torch.Generator(device='cpu').manual_seed(4)
+    worst, labels = 0.0, []
+    for rows, v in cases:
+        logp, lab = xent_bwd_inputs(torch, kernels, rows, v, gen, device)
+        labels.append(lab.tolist())
+        for kind, g in (('row', torch.rand(rows, generator=gen).to(device)),
+                        ('scalar', XENT_BWD_G)):
+            dx = kernels.softmax_xent_backward(logp, lab, g)
+            want = kernels.softmax_xent_backward_reference(logp, lab, g)
+            err, rel = _errs(dx, want)
+            log('check softmax_xent_bwd rows=%d V=%d n=%d (n %% 4 = %d, %d '
+                'tiles) g %s: max_abs_err=%.3g rel_err=%.3g bitwise %s'
+                % (rows, v, rows * v, rows * v % 4, rows * v // 1024, kind,
+                   err, rel, bool(torch.equal(dx, want))))
+            if not bool(torch.isfinite(dx).all()) or not rel <= TOL:
+                raise AssertionError('softmax_xent_bwd disagrees with its '
+                                     'plain version at rows %d V %d, g %s'
+                                     % (rows, v, kind))
+            worst = max(worst, err)
+    paths = xent_bwd_paths(cases, labels)
+    log('check softmax_xent_bwd paths: %s' % {k: sorted(p) if isinstance(
+        p, set) else p for k, p in paths.items()})
+    if device.type == 'cuda' and not (
+            paths['n_mod_4'] == {0, 1, 2, 3} and paths['below_tile']
+            and paths['whole_tiles'] and {0, 3} <= paths['onehot_lanes']
+            and paths['onehot_crossing']):
+        raise AssertionError('softmax_xent_bwd cases miss a path of the '
+                             'stream: %s' % paths)
+    return worst
+
+
+# the backward past 2**31 - 1 elements, launched in chunks of whole rows:
+# 70356 rows a chunk at V 30523 (a multiple of 4: each chunk starts on a
+# row), and rows of 2**30 + 1 elements, one a chunk, each chunk after the
+# first starting 1 or 2 elements into the row before (``lead``)
+XENT_BWD_CHUNKED = ((70360, 30523), (3, 2 ** 30 + 1))
+
+
+def check_xent_backward_chunks(torch, kernels, device,
+                               cases=XENT_BWD_CHUNKED):
+    """The xent backward on tensors of more than 2**31 - 1 elements (up
+    to 13 GB each for logp and dx), launched in the chunks of
+    ``xent_bwd_geometry``, labels at column 0 and V - 1 in the rows where
+    chunks meet; held to the plain version slice by slice of rows, within
+    TOL relative to each slice's max abs. Returns the worst max abs
+    error."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst = 0.0
+    for rows, v in cases:
+        chunks, _ = kernels.xent_bwd_geometry(rows, v)
+        logp = torch.rand(rows, v, generator=gen, device=device).mul_(-12)
+        lab = torch.randint(0, v, (rows,), generator=gen, device=device,
+                            dtype=torch.int32)
+        for c in chunks[1:]:
+            lab[c.row] = v - 1
+            lab[c.row + 1] = 0
+        g = torch.rand(rows, generator=gen, device=device)
+        dx = kernels.softmax_xent_backward(logp, lab, g)
+        step = max(1, 2 ** 28 // v)
+        err = rel = 0.0
+        for r0 in range(0, rows, step):
+            part = slice(r0, r0 + step)
+            e, r = _errs(dx[part], kernels.softmax_xent_backward_reference(
+                logp[part], lab[part], g[part]))
+            err, rel = max(err, e), max(rel, r)
+        log('check softmax_xent_bwd chunked rows=%d V=%d n=%d: %d launches '
+            '(starts %s, leads %s): max_abs_err=%.3g rel_err=%.3g'
+            % (rows, v, rows * v, len(chunks), [c.start for c in chunks],
+               [c.lead for c in chunks], err, rel))
+        if not rel <= TOL:
+            raise AssertionError('softmax_xent_bwd disagrees with its plain '
+                                 'version in chunks at rows %d V %d'
+                                 % (rows, v))
+        worst = max(worst, err)
+        del logp, dx
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
+    return worst
+
+
 def check_training_kernels(torch, kernels, device, heads=TRAIN['heads'],
                            d=TRAIN['d'], cases=None,
-                           xent_shapes=XENT_SHAPES):
+                           xent_shapes=XENT_SHAPES,
+                           xent_bwd_cases=XENT_BWD_CASES):
     """The training slice's kernels against their plain versions on
     ``device``: flash forward, dq and dkv on each attention case, the
     softmax-xent forward and backward on each (rows, V) with up to 3
     labels out of range. The forward outputs are held to TOL absolute,
     the gradients to TOL relative to their max abs. On the card the xent
     cases must launch every instance of the forward and rows both on and
-    off a 16-byte boundary. Returns {kernel name: worst max abs
-    error}."""
+    off a 16-byte boundary. Then the backward alone on
+    ``xent_bwd_cases`` (:func:`check_xent_backward`). Returns {kernel
+    name: worst max abs error}."""
     gen = torch.Generator(device='cpu').manual_seed(2)
 
     def randn(*shape):
@@ -454,6 +598,9 @@ def check_training_kernels(torch, kernels, device, heads=TRAIN['heads'],
                                  '%s of %s, row offsets %s'
                                  % (launched, kernels.XENT_INSTANCES,
                                     offsets))
+    worst['softmax_xent_bwd'] = max(
+        worst['softmax_xent_bwd'],
+        check_xent_backward(torch, kernels, device, xent_bwd_cases))
     return worst
 
 
@@ -723,6 +870,8 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
         bound_ms=b_ms, bound_by=b_by,
         shape=shape + '; library: backward alone of cross_entropy'
         '(reduction=sum)')
+    row = rows['softmax_xent_bwd']
+    row['bound_share'] = row['bound_ms'] / row['device_ms']
     return rows
 
 
@@ -2377,6 +2526,9 @@ def log_times(times):
         if 'bound_cuda_core_ms' in row:
             log('time %s: float32 CUDA-core bound %.4f ms (operations)'
                 % (name, row['bound_cuda_core_ms']))
+        if 'bound_share' in row:
+            log('time %s: share of the bound %.3f (device)'
+                % (name, row['bound_share']))
         if 'log_softmax_ms' in row:
             log('time %s: log_softmax %.4f ms (device %.4f ms)'
                 % (name, row['log_softmax_ms'], row['log_softmax_device_ms']))
@@ -2411,6 +2563,7 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                'launches_by_path': by_path, 'max_abs_err': errs[name]}
         row.update({k: t[k] for k in TIMING_KEYS})
         row.update({k: t[k] for k in ('floor_ms', 'at_batch_1', 'by_shape',
+                                      'bound_share',
                                       'bound_cuda_core_ms', 'log_softmax_ms',
                                       'log_softmax_device_ms',
                                       'pair_turns_device_ms',
@@ -2493,6 +2646,10 @@ def main():
     errs = check_kernels(torch, kernels, cuda)
     for name, err in check_training_kernels(torch, kernels, cuda).items():
         errs[name] = max(errs.get(name, 0.0), err)
+    torch.cuda.empty_cache()
+    errs['softmax_xent_bwd'] = max(errs['softmax_xent_bwd'],
+                                   check_xent_backward_chunks(torch, kernels,
+                                                              cuda))
     errs.update(check_epilogue_kernels(torch, kernels, cuda))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

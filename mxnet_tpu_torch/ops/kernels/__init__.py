@@ -33,11 +33,12 @@ from .matmul import (VARIANTS as MATMUL_VARIANTS, MatmulGeometry, matmul,
                      matmul_reference, matmul_ws)
 from .nms import (MAX_BOXES, greedy_nms_keep, greedy_nms_keep_reference,
                   nms_iterations)
-from .xent import (XENT_INSTANCES, SoftmaxXentFunction, XentGeometry,
-                   fused_softmax_xent_rows,
+from .xent import (XENT_INSTANCES, SoftmaxXentFunction, XentBwdChunk,
+                   XentGeometry, fused_softmax_xent_rows,
                    fused_softmax_xent_rows_reference, softmax_xent_backward,
                    softmax_xent_backward_reference, softmax_xent_forward,
-                   softmax_xent_forward_reference, xent_geometry)
+                   softmax_xent_forward_reference, xent_bwd_geometry,
+                   xent_geometry)
 
 __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'online_softmax_block', 'flash_attention',
@@ -47,7 +48,8 @@ __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'flash_attention_dq_reference', 'flash_attention_dkv_reference',
            'flash_attention_backward_reference', 'flash_decode_attention',
            'flash_decode_attention_reference', 'XENT_INSTANCES',
-           'XentGeometry', 'xent_geometry', 'fused_softmax_xent_rows',
+           'XentGeometry', 'xent_geometry', 'XentBwdChunk',
+           'xent_bwd_geometry', 'fused_softmax_xent_rows',
            'fused_softmax_xent_rows_reference', 'SoftmaxXentFunction',
            'softmax_xent_forward', 'softmax_xent_forward_reference',
            'softmax_xent_backward', 'softmax_xent_backward_reference',

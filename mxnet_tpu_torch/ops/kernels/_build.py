@@ -24,11 +24,12 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import subprocess
 import threading
 
-__all__ = ['SOURCES', 'NVCC_FLAGS', 'library_path', 'build', 'build_all',
-           'load']
+__all__ = ['SOURCES', 'NVCC_FLAGS', 'library_path', 'source_text', 'build',
+           'build_all', 'load']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, 'csrc')
@@ -75,6 +76,20 @@ def library_path(name):
         raise KeyError('unknown kernel source %r (have %s)'
                        % (name, ', '.join(SOURCES)))
     return os.path.join(_BUILD_DIR, '%s-%s.so' % (name, _digest(name)))
+
+
+def source_text(name):
+    """The text of ``csrc/<name>.cu`` with each ``#include "<h>.cuh"`` of
+    a header in ``csrc/`` replaced by the header's text (its ``#pragma
+    once`` dropped): a copy that compiles from any directory, for the
+    probes' text-substituted variants."""
+    with open(os.path.join(_CSRC, name + '.cu')) as f:
+        text = f.read()
+
+    def header(match):
+        with open(os.path.join(_CSRC, match.group(1))) as f:
+            return f.read().replace('#pragma once\n', '')
+    return re.sub(r'^#include "(\w+\.cuh)"$', header, text, flags=re.M)
 
 
 def _command(name, out):

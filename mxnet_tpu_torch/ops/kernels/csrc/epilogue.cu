@@ -22,22 +22,10 @@
 // the n elements unpadded.
 //
 // The BN apply and the activation forward and backward are 16-byte
-// streams (stream): DRAM latency times 3.35 TB/s asks for 15-20 KB of
-// loads in flight on every SM, and a grid-stride loop of one 4-byte load
-// a thread, whose i < n guard keeps the next load from issuing early,
-// keeps at most 8 KB (16 KB for two inputs). Here a block takes one tile
-// of THREADS x VEC floats: each thread one float4 load of each input
-// (ld.global.nc, no L1 allocation: every byte is read once), then one
-// float4 store, with no guard; with 8 blocks an SM that is 32 KB of
-// loads in flight (64 KB backward). Two or four vectors a thread and a
-// persistent grid measured no faster (tools/probe_epilogue_variants.py
-// builds them). An output of at least the L2's size, which cannot stay
-// there, is stored evict-first (st.global.cs, EVICT), measured 1-3 %
-// faster; a smaller one is stored normally, faster for it, and stays in
-// L2 for the layer that reads it next. One block past the whole tiles
-// takes the rest: whole vectors, fewer than a tile, then the n % 4
-// scalars. The partition (EVICT, tiles) comes from epilogue.py
-// epilogue_geometry; the entry points refuse tiles that do not match n.
+// streams (csrc/stream.cuh: one float4 of each input a thread, one block
+// a tile, evict-first stores from the L2's size on), partitioned by
+// epilogue.py epilogue_geometry; the entry points refuse tiles that do
+// not match n.
 //
 // The BN apply's channel, (i / inner) % C, costs two divisions by
 // runtime values, some 15-20 integer instructions each. The host turns
@@ -51,9 +39,8 @@
 // coalesced 4-byte loads, 256 threads a block, on grid_for's grid.
 //
 // The activation is a template parameter, so each instance is
-// straight-line code. Indices are 32-bit (Idx): n is at most INT32_MAX,
-// so no index formed (i + stride, a tile past the last) wraps; a larger
-// tensor is refused (the wrappers raise first).
+// straight-line code. Indices are 32-bit (Idx): a tensor of more than
+// INT32_MAX elements is refused (the wrappers raise first).
 //
 // Rounding. (x - mean) * scale + beta and x + y use explicitly rounded
 // intrinsics (__fsub_rn, __fmul_rn, __fadd_rn), which nvcc never
@@ -68,12 +55,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "stream.cuh"
 
-constexpr int THREADS = 256;
-constexpr int VEC = 4;  // floats in a 16-byte vector
-constexpr int TILE = THREADS * VEC;  // the stream's floats a block
-using Idx = uint32_t;
+using namespace mx_stream;
+
+namespace {
 
 enum Act {
   IDENTITY = 0,
@@ -110,24 +96,6 @@ __device__ __forceinline__ float act_grad(float out, float slope) {
   }
   if (A == LEAKY) return out >= 0.f ? 1.f : slope;
   return 1.f;  // IDENTITY
-}
-
-// one 16-byte load of an input read once: the read-only path, no L1 line
-__device__ __forceinline__ float4 load4(const float* p) {
-  float4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p));
-  return v;
-}
-
-// one 16-byte store; EVICT: streaming (st.global.cs), evicted first
-template <bool EVICT>
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  if (EVICT)
-    __stcs(reinterpret_cast<float4*>(p), v);
-  else
-    *reinterpret_cast<float4*>(p) = v;
 }
 
 template <int A, bool EVICT>
@@ -174,21 +142,6 @@ struct ActBwd {
   }
 };
 
-// op over n elements: block b < tiles takes tile b, one vector of each
-// input a thread; block `tiles`, where n is not a whole number of tiles,
-// the whole vectors past them and the n % VEC scalars
-template <class Op>
-__device__ __forceinline__ void stream(const Op& op, Idx n, Idx tiles) {
-  const Idx i = (Idx)blockIdx.x * TILE + threadIdx.x * VEC;
-  if (blockIdx.x < tiles) {
-    op.store(i, op.load(i));
-    return;
-  }
-  const Idx whole = n & ~(Idx)(VEC - 1);
-  if (i < whole) op.store(i, op.load(i));
-  if (whole + threadIdx.x < n) op.scalar(whole + threadIdx.x);
-}
-
 template <int A, bool EVICT>
 __global__ void __launch_bounds__(THREADS)
 epilogue_act_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -204,18 +157,6 @@ epilogue_act_bwd_kernel(const float* __restrict__ g,
                         float slope) {
   stream(ActBwd<A, EVICT>{g, out, dx, slope}, n, tiles);
 }
-
-// A divisor d in [1, 2^31) as a multiply-high (Granlund-Montgomery, as
-// CUTLASS's FastDivmod): for d >= 2, l = ceil(log2 d), mul = ceil(2^(31 +
-// l) / d) < 2^32 and shift = l - 1, and i / d = umulhi(i, mul) >> shift
-// for every i < 2^31; d = 1 has mul 0 and i / 1 = i. The host computes
-// mul and shift (epilogue.py fast_divisor, held there to exact division).
-struct Divisor {
-  Idx d, mul, shift;
-  __device__ __forceinline__ Idx div(Idx i) const {
-    return mul ? __umulhi(i, mul) >> shift : i;
-  }
-};
 
 // Where element i of x, (outer, C, inner) around the BN axis, lies: its
 // channel (i / inner) % C and its offset r in the channel's run of inner
@@ -411,20 +352,6 @@ unsigned grid_for(long long n) {
     constexpr bool E = false;                                          \
     __VA_ARGS__;                                                       \
   }
-
-// the Divisor of d from the host's (mul, shift); false when d is not in
-// [1, 2^31) or the shift is not one a 32-bit quotient takes
-bool divisor(long long d, unsigned mul, int shift, Divisor& out) {
-  out = {(Idx)d, (Idx)mul, (Idx)shift};
-  return d >= 1 && d <= INT32_MAX && shift >= 0 && shift < 32;
-}
-
-// the stream's grid (epilogue.py epilogue_geometry): one block a whole
-// tile, one more for the rest; 0 when `tiles` is not n's
-unsigned stream_grid(long long n, long long tiles) {
-  if (tiles != n / TILE) return 0;
-  return (unsigned)(tiles + (n % TILE != 0));
-}
 
 // the BN apply's grid, the stream's, with chans filled from the divisors
 // of inner and c; 0 when one is refused, or `tiles` is not n's

@@ -53,10 +53,34 @@
 //     threads a row, reading the row twice (a running max / exp-sum, then
 //     logp): the first form of this kernel, kept for such widths.
 // Every output element is written by one thread: no atomics.
+//
+// Backward design: no element needs another, so the (rows, V) tensor is
+// one flat stream of n = rows x V elements (csrc/stream.cuh, as the
+// epilogue kernels: one float4 of logp a thread, one block a tile, dx
+// stored evict-first from the L2's size on, the partition from
+// epilogue.py epilogue_geometry). Rows of V = 2 mod 4 or odd V start off
+// a 16-byte boundary; the stream does not care, since a vector may span
+// rows. A vector finds the row and column of its first element by one
+// multiply-high division by V (the host's fast_divisor), and each further
+// element steps from the one before: column V wraps to column 0 of the
+// next row, more than once in a vector where V < 4. g[row] and
+// label[row] are read through the read-only path, with an L1 line (all
+// the vectors of a row read the same one). Each element is
+// g * (expf(logp) - [col == label]), the expression of the block-a-row
+// kernel this replaces, so the result is bitwise the same.
+//
+// The stream indexes in 32 bits. A tensor of more than INT32_MAX
+// elements is launched in chunks of whole rows (xent.py
+// xent_bwd_geometry), each from a 16-byte-aligned element: a chunk whose
+// first row starts off the boundary begins `lead` (< 4, < V) elements
+// earlier, with the end of the row before, which the chunk before it
+// leaves out. labels and g then point at that row.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "stream.cuh"
 
 namespace {
 
@@ -436,18 +460,79 @@ softmax_xent_fwd_two_pass_kernel(const float* __restrict__ x,
   if (!hit && t == 0) nll[r] = 0.f;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---- backward ----
+using mx_stream::Divisor;
+using mx_stream::Idx;
+
+// The backward's stream over a chunk of n elements: element i lies in row
+// `row` (of labels and g) at column `col`; the first `lead` elements end
+// the row before the chunk's first whole row.
+template <bool EVICT>
+struct XentBwd {
+  const float* logp;
+  const int* labels;
+  const float* g;
+  float* dx;
+  Divisor v;
+  Idx lead;
+  struct In {
+    float4 a;
+    Idx row, col;
+  };
+  __device__ __forceinline__ Idx at(Idx i, Idx& col) const {
+    if (i < lead) {
+      col = v.d - lead + i;
+      return 0;
+    }
+    const Idx t = i - lead;
+    const Idx q = v.div(t);
+    col = t - q * v.d;
+    return q + (lead != 0);
+  }
+  // (row, col) of element i + 1 from those of element i
+  __device__ __forceinline__ void step(Idx& row, Idx& col) const {
+    if (++col == v.d) {
+      col = 0;
+      ++row;
+    }
+  }
+  __device__ __forceinline__ float one(float lp, Idx row, Idx col) const {
+    const float gr = __ldg(g + row);
+    const int lab = __ldg(labels + row);
+    return gr * (expf(lp) - ((int)col == lab ? 1.f : 0.f));
+  }
+  __device__ __forceinline__ In load(Idx i) const {
+    In x;
+    x.a = mx_stream::load4(logp + i);
+    x.row = at(i, x.col);
+    return x;
+  }
+  __device__ __forceinline__ void store(Idx i, const In& x) const {
+    float4 d;
+    Idx row = x.row, col = x.col;
+    d.x = one(x.a.x, row, col);
+    step(row, col);
+    d.y = one(x.a.y, row, col);
+    step(row, col);
+    d.z = one(x.a.z, row, col);
+    step(row, col);
+    d.w = one(x.a.w, row, col);
+    mx_stream::store4<EVICT>(dx + i, d);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    Idx col;
+    const Idx row = at(i, col);
+    dx[i] = one(logp[i], row, col);
+  }
+};
+
+template <bool EVICT>
+__global__ void __launch_bounds__(mx_stream::THREADS)
 softmax_xent_bwd_kernel(const float* __restrict__ logp,
                         const int* __restrict__ labels,
                         const float* __restrict__ g, float* __restrict__ dx,
-                        int v) {
-  const int r = blockIdx.x;
-  const int lab = labels[r];
-  const float gr = g[r];
-  const float* lr = logp + (size_t)r * v;
-  float* dr = dx + (size_t)r * v;
-  for (int c = threadIdx.x; c < v; c += THREADS)
-    dr[c] = gr * (expf(lr[c]) - (c == lab ? 1.f : 0.f));
+                        Idx n, Idx tiles, Divisor v, Idx lead) {
+  mx_stream::stream(XentBwd<EVICT>{logp, labels, g, dx, v, lead}, n, tiles);
 }
 
 cudaError_t launch_cluster(const float* x, const int* labels, float* nll,
@@ -550,13 +635,34 @@ extern "C" int mx_softmax_xent_fwd_smem(int instance, int chunk) {
   }
 }
 
+// The backward over one chunk (xent.py xent_bwd_geometry): n elements
+// of logp / dx from a 16-byte-aligned element, labels / g from the row of
+// its first element; v with its divisor (v_mul, v_shift); lead (< 4, <
+// v) elements of that row before the first whole row; evict and tiles
+// of the chunk's stream partition (epilogue.py epilogue_geometry). A
+// combination the stream does not take is refused.
 extern "C" int mx_softmax_xent_bwd(const void* logp, const void* labels,
-                                   const void* g, void* dx, int rows, int v,
-                                   void* stream) {
-  if (rows == 0 || v == 0) return cudaSuccess;
-  softmax_xent_bwd_kernel<<<rows, THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logp), static_cast<const int*>(labels),
-      static_cast<const float*>(g), static_cast<float*>(dx), v);
+                                   const void* g, void* dx, long long n,
+                                   long long v, unsigned v_mul, int v_shift,
+                                   long long lead, int evict,
+                                   long long tiles, void* stream) {
+  if (n == 0) return cudaSuccess;
+  Divisor vd;
+  if (n < 0 || n > INT32_MAX || !mx_stream::divisor(v, v_mul, v_shift, vd) ||
+      lead < 0 || lead >= mx_stream::VEC || lead >= v || lead > n)
+    return cudaErrorInvalidValue;
+  const unsigned grid = mx_stream::stream_grid(n, tiles);
+  if (grid == 0) return cudaErrorInvalidValue;
+  const auto* lp = static_cast<const float*>(logp);
+  const auto* lab = static_cast<const int*>(labels);
+  const auto* gp = static_cast<const float*>(g);
+  auto* dp = static_cast<float*>(dx);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (evict)
+    softmax_xent_bwd_kernel<true><<<grid, mx_stream::THREADS, 0, st>>>(
+        lp, lab, gp, dp, (Idx)n, (Idx)tiles, vd, (Idx)lead);
+  else
+    softmax_xent_bwd_kernel<false><<<grid, mx_stream::THREADS, 0, st>>>(
+        lp, lab, gp, dp, (Idx)n, (Idx)tiles, vd, (Idx)lead);
   return cudaGetLastError();
 }

@@ -131,11 +131,11 @@ _P, _N, _I, _U, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 # the kernels index elements in 32 bits
 MAX_ELEMENTS = 2 ** 31 - 1
 
-# the stream of the BN apply and activation kernels (csrc/epilogue.cu
-# stream): threads a block, floats a vector (one of each input a thread),
-# floats a tile (a block); an output of at least the L2's 50 MB is stored
-# evict-first, as tools/probe_epilogue_variants.py measured fastest on the
-# H100 at ResNet-50's relu and join shapes
+# the stream of the BN apply, the activation kernels and the xent
+# backward (csrc/stream.cuh): threads a block, floats a vector (one of
+# each input a thread), floats a tile (a block); an output of at least
+# the L2's 50 MB is stored evict-first, as tools/probe_epilogue_variants.py
+# measured fastest on the H100 at ResNet-50's relu and join shapes
 EPI_THREADS = 256
 EPI_VEC = 4
 EPI_TILE = EPI_THREADS * EPI_VEC
@@ -165,7 +165,7 @@ Divisor = collections.namedtuple('Divisor', 'd mul shift')
 
 
 def fast_divisor(d):
-    """The divisor ``d`` in [1, 2**31) as csrc/epilogue.cu ``Divisor``
+    """The divisor ``d`` in [1, 2**31) as csrc/stream.cuh ``Divisor``
     divides by it: ``i // d == (i * mul >> 32) >> shift`` for every
     ``i < 2**31`` (Granlund-Montgomery, as CUTLASS's ``FastDivmod``), with
     ``l = ceil(log2 d)``, ``mul = ceil(2**(31 + l) / d)``, below 2**32,

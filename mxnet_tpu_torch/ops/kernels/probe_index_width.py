@@ -3,7 +3,8 @@ element indices, at ResNet-50's stem shape (batch 128).
 
     python3 -m mxnet_tpu_torch.ops.kernels.probe_index_width
 
-``csrc/epilogue.cu`` indexes in 32 bits (``using Idx = uint32_t``). This
+``csrc/epilogue.cu`` indexes in 32 bits (``using Idx = uint32_t`` in the
+``csrc/stream.cuh`` it includes). This
 builds it twice more into the git-ignored ``_build/`` directory, once
 with that line as it is and once with ``uint64_t``, calls each C entry
 point directly, and prints for each kernel the median of 30 CUDA-event
@@ -46,10 +47,9 @@ def _time_ms(fn, iters=30, warmup=5):
 
 def _build_variants():
     """{'32': CDLL, '64': CDLL} of csrc/epilogue.cu with either index."""
-    with open(os.path.join(_build._CSRC, 'epilogue.cu')) as f:
-        src = f.read()
+    src = _build.source_text('epilogue')
     if _IDX not in src:
-        raise RuntimeError('csrc/epilogue.cu no longer declares %r' % _IDX)
+        raise RuntimeError('csrc/stream.cuh no longer declares %r' % _IDX)
     home = _build._cuda_home()
     os.makedirs(_build._BUILD_DIR, exist_ok=True)
     procs = {}

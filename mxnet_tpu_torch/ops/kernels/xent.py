@@ -11,7 +11,10 @@ The counterpart of ``mxnet_tpu/ops/pallas/xent.py``. Two kernels, both in
     cluster a row with the row held in the CTAs' shared memory, or for
     rows wider than a cluster holds, a block a row reading it twice;
   * :func:`softmax_xent_backward` replaces ``mxnet_tpu_softmax_xent_bwd``
-    (xent.py:49): ``dx = g * (exp(logp) - onehot(label))``.
+    (xent.py:49): ``dx = g * (exp(logp) - onehot(label))``, a 16-byte
+    stream over the rows x V elements as the epilogue kernels stream
+    theirs, in chunks of whole rows past 2**31 - 1 elements
+    (:func:`xent_bwd_geometry`).
 
 :func:`fused_softmax_xent_rows` wires them through
 :class:`SoftmaxXentFunction`, which saves ``logp`` as ``_xent_fwd``
@@ -33,11 +36,14 @@ import ctypes
 import torch
 
 from .attention import SMEM_BLOCK_MAX
+from .epilogue import (EPI_VEC, MAX_ELEMENTS, epilogue_geometry,
+                       fast_divisor)
 from ._launch import (check_inputs as _check_inputs, count as _count,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
 
 __all__ = ['XENT_INSTANCES', 'XentGeometry', 'xent_geometry',
+           'XentBwdChunk', 'xent_bwd_geometry',
            'fused_softmax_xent_rows',
            'fused_softmax_xent_rows_reference',
            'SoftmaxXentFunction', 'softmax_xent_forward',
@@ -98,6 +104,48 @@ def xent_geometry(rows, v):
     return _cluster_geometry(rows, v, cluster)
 
 
+XentBwdChunk = collections.namedtuple(
+    'XentBwdChunk', 'row start n lead geom')
+
+
+def xent_bwd_geometry(rows, v):
+    """The backward kernel's launches for (rows, V) ``logp``, as
+    ``(chunks, divisor)``: the :func:`fast_divisor` of V and one
+    :class:`XentBwdChunk` a launch. The kernel indexes a launch's
+    elements in 32 bits, so a tensor of more than :data:`MAX_ELEMENTS`
+    elements goes in chunks of whole rows. A chunk's elements are
+    ``[start, start + n)`` of the flat (rows, V), ``start`` a multiple
+    of 4 (16-byte aligned: the stream loads whole vectors); its labels
+    and g start at row ``row``. Where the first whole row of a chunk
+    starts off the boundary, the chunk begins ``lead`` (< 4, < V)
+    elements earlier with the end of row ``row``, which the chunk before
+    it leaves out. ``geom`` is the chunk's :func:`epilogue_geometry`.
+    A chunk holds a multiple of 4 rows where that fits, and then no lead
+    is needed; a row wider than ``MAX_ELEMENTS - 3`` cannot be chunked
+    and is refused (ValueError), unless the whole tensor fits one
+    launch."""
+    n = rows * v
+    if n == 0:
+        return (), None
+    if n <= MAX_ELEMENTS:
+        return ((XentBwdChunk(0, 0, n, 0, epilogue_geometry(n)),),
+                fast_divisor(v))
+    per = (MAX_ELEMENTS - (EPI_VEC - 1)) // v
+    _require(per >= 1, 'softmax_xent_backward: a row of %d elements is '
+             'wider than the %d a launch indexes' % (v, MAX_ELEMENTS - 3))
+    if per >= EPI_VEC:
+        per -= per % EPI_VEC
+    firsts = range(0, rows, per)
+    starts = [f * v & ~(EPI_VEC - 1) for f in firsts] + [n]
+    chunks = []
+    for k, first in enumerate(firsts):
+        lead = first * v - starts[k]
+        size = starts[k + 1] - starts[k]
+        chunks.append(XentBwdChunk(first - (lead != 0), starts[k], size,
+                                   lead, epilogue_geometry(size)))
+    return tuple(chunks), fast_divisor(v)
+
+
 def _onehot(labels, v, device):
     cls = torch.arange(v, device=device, dtype=torch.int32)
     return (cls[None, :] == labels.reshape(-1, 1)).float()
@@ -136,8 +184,14 @@ def _lib(entry):
     lib = _build.load('softmax_xent')
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fwd = entry == 'mx_softmax_xent_fwd'
-        if fwd:
+        fn.restype = ctypes.c_int
+        if entry == 'mx_softmax_xent_bwd':
+            fn.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_void_p]
+            return fn
+        if entry == 'mx_softmax_xent_fwd':
             # the kernel's layout against xent_geometry's
             smem = lib.mx_softmax_xent_fwd_smem
             smem.restype = ctypes.c_int
@@ -148,9 +202,8 @@ def _lib(entry):
                 _require(built == want, 'softmax_xent_fwd: xent_geometry '
                          'gives %d bytes at chunk %d, the kernel takes %d'
                          % (want, chunk, built))
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
-            5 if fwd else 2) + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
     return fn
 
 
@@ -181,7 +234,8 @@ def softmax_xent_forward(logits, labels):
 
 def softmax_xent_backward(logp, labels, g, dtype=torch.float32):
     """dlogits (rows, V) in ``dtype`` from the saved ``logp``, the labels
-    and the cotangent ``g`` of ``nll`` (a scalar or (rows,))."""
+    and the cotangent ``g`` of ``nll`` (a scalar or (rows,)); one launch
+    a chunk of :func:`xent_bwd_geometry`, counted once a call."""
     if _on_cpu('softmax_xent_backward', logp, '(rows, V)'):
         return softmax_xent_backward_reference(logp, labels, g, dtype)
     rows, v = logp.shape
@@ -195,14 +249,25 @@ def softmax_xent_backward(logp, labels, g, dtype=torch.float32):
                   {'logp': logp, 'labels': lab, 'g': gr},
                   {'logp': torch.float32, 'labels': torch.int32,
                    'g': torch.float32})
+    chunks, div = xent_bwd_geometry(rows, v)
     dx = torch.empty_like(logp)
+    if not chunks:
+        return dx
+    fn = _lib('mx_softmax_xent_bwd')
     with torch.cuda.device(logp.device):
-        err = _lib('mx_softmax_xent_bwd')(
-            _ptr(logp), _ptr(lab), _ptr(gr), _ptr(dx), rows, v,
-            _stream(logp.device))
-    _raise_on('softmax_xent_bwd', err)
+        for c in chunks:
+            err = fn(_at(logp, c.start), _at(lab, c.row), _at(gr, c.row),
+                     _at(dx, c.start), c.n,
+                     v, div.mul, div.shift, c.lead, int(c.geom.evict),
+                     c.geom.tiles, _stream(logp.device))
+            _raise_on('softmax_xent_bwd', err)
     _count('softmax_xent_bwd')
     return dx
+
+
+def _at(t, element):
+    """The device address of element ``element`` of ``t``."""
+    return ctypes.c_void_p(t.data_ptr() + element * t.element_size())
 
 
 class SoftmaxXentFunction(torch.autograd.Function):

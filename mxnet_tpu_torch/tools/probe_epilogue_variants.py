@@ -491,8 +491,7 @@ def _nvcc(build, cu, so):
 
 
 def _start_variant(build, name, subs, extra):
-    with open(os.path.join(build._CSRC, 'epilogue.cu')) as f:
-        text = f.read()
+    text = build.source_text('epilogue')
     for old, new in subs:
         if text.count(old) != 1:
             raise RuntimeError('variant %s: %r occurs %d times'

@@ -365,7 +365,7 @@ def test_launch_refuses_more_elements_than_the_kernels_index(monkeypatch):
 def _stream_items(n, geom):
     """(first element, width) of each vector (width 4) and scalar (width
     1) the stream kernels visit for ``n`` elements at ``geom``, as
-    csrc/epilogue.cu ``stream`` forms them (blocks, then threads: a
+    csrc/stream.cuh ``stream`` forms them (blocks, then threads: a
     vector of a whole tile, or in the block past the tiles a vector of
     the rest and a scalar of the tail)."""
     threads, vec, tile = epilogue.EPI_THREADS, epilogue.EPI_VEC, \
@@ -450,12 +450,15 @@ def test_epilogue_geometry_evicts_outputs_the_l2_cannot_hold():
 
 
 def test_stream_constants_match_the_source():
-    """epilogue.py's stream constants are those of csrc/epilogue.cu: the
-    threads a block, the floats a vector and a tile."""
+    """epilogue.py's stream constants are those of the stream that
+    csrc/epilogue.cu includes (csrc/stream.cuh): the threads a block, the
+    floats a vector and a tile."""
     import os
     import re
-    src = open(os.path.join(os.path.dirname(epilogue.__file__), 'csrc',
-                            'epilogue.cu')).read()
+    csrc = os.path.join(os.path.dirname(epilogue.__file__), 'csrc')
+    assert '#include "stream.cuh"' in open(os.path.join(
+        csrc, 'epilogue.cu')).read()
+    src = open(os.path.join(csrc, 'stream.cuh')).read()
     assert int(re.search(r'constexpr int THREADS = (\d+);', src).group(1)) \
         == epilogue.EPI_THREADS
     assert int(re.search(r'constexpr int VEC = (\d+);', src).group(1)) \
@@ -464,7 +467,7 @@ def test_stream_constants_match_the_source():
 
 
 def _kernel_div(i, div):
-    """``i // div.d`` as csrc/epilogue.cu ``Divisor::div`` computes it:
+    """``i // div.d`` as csrc/stream.cuh ``Divisor::div`` computes it:
     the high 32 bits of the 64-bit product ``i * mul`` (``__umulhi``),
     shifted right; ``mul`` 0 (d = 1) gives ``i``."""
     return (i * div.mul >> 32) >> div.shift if div.mul else i

@@ -240,12 +240,16 @@ def test_card_cases_reach_every_instance_and_cluster_size():
             for r in range(rows)} == {0, 4, 8, 12}
 
 
+_KERNEL_NAME = re.compile(
+    r'__global__ void __launch_bounds__\([\w:]+\)\s+(\w+)\(')
+
+
 def test_forward_kernels_carry_the_profile_key():
-    """Every kernel of the source holds 'softmax_xent' in its name, the
-    key by which chip_smoke's profiles count the 'xent kernels' group."""
+    """Every kernel of the source, the backward's too, holds
+    'softmax_xent' in its name, the key by which chip_smoke's profiles
+    count the 'xent kernels' group."""
     from chip_smoke import BERT_GROUPS, RESNET_GROUPS
-    names = re.findall(r'__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(',
-                       _source())
+    names = _KERNEL_NAME.findall(_source())
     assert len(names) == 4
     for groups in (BERT_GROUPS, RESNET_GROUPS):
         keys = dict((g, k) for g, k, _ in groups)['xent kernels']
@@ -382,3 +386,184 @@ def test_rank_ordered_merge_gives_every_rank_the_same_log_z(cluster):
         # a tenth of the card check's 1e-5 on logp = (x - m) - log z
         assert gm == x.max() and abs(lz - want) <= 1e-6
     assert (differs > 0) == (cluster > 2)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel: a 16-byte stream over the flat rows x V elements
+# (csrc/stream.cuh), a vector's row and column from one division by V, in
+# chunks of whole rows past 2**31 - 1 elements (xent_bwd_geometry)
+# ---------------------------------------------------------------------------
+
+_epi = importlib.import_module('mxnet_tpu_torch.ops.kernels.epilogue')
+_HEADER = os.path.join(os.path.dirname(_SRC), 'stream.cuh')
+MAX = _epi.MAX_ELEMENTS
+
+
+def _kernel_div(i, div):
+    """``Divisor::div`` of csrc/stream.cuh: the high 32 bits of
+    ``i * mul``, shifted; ``mul`` 0 (d = 1) gives ``i``."""
+    return (i * div.mul >> 32) >> div.shift if div.mul else i
+
+
+def _bwd_at(i, div, lead):
+    """``XentBwd::at``: (row, column) of chunk element i, the row counted
+    from the one that labels and g point at."""
+    if i < lead:
+        return 0, div.d - lead + i
+    t = i - lead
+    q = _kernel_div(t, div)
+    return q + (lead != 0), t - q * div.d
+
+
+def _bwd_step(row, col, v):
+    """``XentBwd::step``: the next element's (row, column)."""
+    col += 1
+    return (row + 1, 0) if col == v else (row, col)
+
+
+def _bwd_walk(n, div, lead):
+    """(element, row, column) of every element of an n-element chunk as
+    the stream visits it (``stream`` in csrc/stream.cuh): a vector's
+    first element by ``at``, the three after it by ``step``; the scalars
+    of the tail by ``at``."""
+    geom = _epi.epilogue_geometry(n)
+    whole = n - n % 4
+    for b in range(geom.grid):
+        for t in range(_epi.EPI_THREADS):
+            i = b * _epi.EPI_TILE + t * 4
+            if b < geom.tiles or i < whole:
+                row, col = _bwd_at(i, div, lead)
+                for e in range(4):
+                    yield i + e, row, col
+                    row, col = _bwd_step(row, col, div.d)
+            if b >= geom.tiles and whole + t < n:
+                yield (whole + t,) + _bwd_at(whole + t, div, lead)
+
+
+@pytest.mark.parametrize('v', [1, 2, 3, 4, 5, 6, 7, 8, 9, 1000, 30522])
+def test_bwd_stepping_matches_divmod(v):
+    """Every element's (row, column) as a vector of the backward stream
+    steps to it equals ``divmod`` of its flat index, over whole tiles, the
+    rest and a tail, for V below 4 (a vector crossing rows, more than once
+    at V 1-3) and above; and in a chunk that starts at any row r from the
+    16-byte boundary at or below it, its ``lead`` elements ending row
+    r - 1 (V >= 4, where lead < V)."""
+    rows = max(3, -(-3 * _epi.EPI_TILE // v) + 5)
+    n = rows * v
+    chunks, div = kernels.xent_bwd_geometry(rows, v)
+    assert len(chunks) == 1 and chunks[0][:4] == (0, 0, n, 0)
+    assert sorted(_bwd_walk(n, div, 0)) == [(i,) + divmod(i, v)
+                                            for i in range(n)]
+    if v < 4:
+        return
+    for first in (1, 2, 3, rows // 2, rows - 1):
+        start = first * v & ~3
+        lead = first * v - start
+        base = first - (lead != 0)
+        walked = [(start + i, base + r, c)
+                  for i, r, c in _bwd_walk(n - start, div, lead)]
+        assert sorted(walked) == [(i,) + divmod(i, v)
+                                  for i in range(start, n)]
+
+
+def _assert_chunks(rows, v):
+    chunks, div = kernels.xent_bwd_geometry(rows, v)
+    n = rows * v
+    assert div == _epi.fast_divisor(v)
+    assert chunks[0].start == 0 and chunks[0].lead == 0
+    firsts = []
+    end = 0
+    for c in chunks:
+        assert c.start == end and c.start % 4 == 0     # 16-byte aligned
+        assert 1 <= c.n <= MAX and 0 <= c.lead < min(4, v)
+        first = c.row + (c.lead != 0)                  # first whole row
+        assert c.start + c.lead == first * v
+        assert c.geom == _epi.epilogue_geometry(c.n)
+        firsts.append(first)
+        end = c.start + c.n
+    assert end == n
+    # each chunk ends at the 16-byte boundary at or below the next one's
+    # first row: the rows are covered once, in order
+    assert firsts == sorted(set(firsts)) and firsts[0] == 0
+    for k, c in enumerate(chunks[:-1]):
+        assert c.start + c.n == firsts[k + 1] * v & ~3
+    if len(firsts) > 1 and firsts[1] >= 4:
+        assert all(f % firsts[1] == 0 for f in firsts)
+        assert firsts[1] % 4 == 0 and all(c.lead == 0 for c in chunks)
+    return chunks
+
+
+@pytest.mark.parametrize('rows,v', [
+    (2 ** 31 - 1, 1), (2 ** 31, 1), (2 ** 31 + 5, 1), (2 ** 30, 2),
+    (2 ** 30 + 1, 2), (715827883, 3), (715827882, 3), (70359, 30522),
+    (70356, 30522), (70360, 30523), (1920 * 40, 30522), (3, 2 ** 30 + 1),
+    (5, 2 ** 29 + 3), (2, 2 ** 31 - 4), (7, 2 ** 30 - 2), (1, 2 ** 31 - 1),
+    (9, 715827883)])
+def test_bwd_chunks_cover_every_row_once(rows, v):
+    """``xent_bwd_geometry`` around 2**31 elements: one launch up to
+    2**31 - 1 of them; past that chunks of whole rows, a multiple of 4
+    rows each where that fits (no lead), each chunk 16-byte aligned,
+    under 2**31 elements, starting where the one before ends, every row
+    in exactly one chunk's whole rows. Arithmetic only: no tensor."""
+    chunks = _assert_chunks(rows, v)
+    assert (len(chunks) == 1) == (rows * v <= MAX)
+
+
+def test_bwd_geometry_refuses_rows_no_launch_holds():
+    """A row wider than 2**31 - 4 elements in a tensor past one launch
+    cannot be chunked: a typed error. Alone it is one launch; empty
+    tensors launch nothing."""
+    with pytest.raises(ValueError, match='wider than'):
+        kernels.xent_bwd_geometry(2, MAX - 2)
+    assert len(kernels.xent_bwd_geometry(1, MAX)[0]) == 1
+    assert kernels.xent_bwd_geometry(0, 30522) == ((), None)
+    assert kernels.xent_bwd_geometry(5, 0) == ((), None)
+
+
+def test_bwd_stream_is_the_epilogue_stream():
+    """The backward streams with the epilogue kernels' code: both sources
+    include csrc/stream.cuh, whose threads, vector and tile are
+    epilogue.py's, and neither holds a copy of it; the backward is one
+    kernel, the stream over ``XentBwd``."""
+    hdr = open(_HEADER).read()
+    assert _const(hdr, 'THREADS') == _epi.EPI_THREADS
+    assert _const(hdr, 'VEC') == _epi.EPI_VEC == 4
+    assert 'constexpr int TILE = THREADS * VEC;' in hdr
+    assert _epi.EPI_TILE == _epi.EPI_THREADS * _epi.EPI_VEC
+    epi = open(os.path.join(os.path.dirname(_SRC), 'epilogue.cu')).read()
+    for src in (_source(), epi):
+        assert '#include "stream.cuh"' in src
+        for piece in ('ld.global.nc.L1::no_allocate.v4.f32',
+                      'struct Divisor', 'void stream(', 'using Idx =',
+                      'unsigned stream_grid('):
+            assert piece in hdr and piece not in src, piece
+    assert 'mx_stream::stream(XentBwd<EVICT>{' in _source()
+
+
+def test_bwd_kernel_carries_the_profile_key():
+    """The backward kernel, one template over the store kind, is named
+    with 'softmax_xent', so phase 4b's and 5b's 'xent kernels' groups
+    count it."""
+    names = [n for n in _KERNEL_NAME.findall(_source()) if 'bwd' in n]
+    assert names == ['softmax_xent_bwd_kernel']
+    assert 'template <bool EVICT>\n__global__ void __launch_bounds__(' \
+        'mx_stream::THREADS)\nsoftmax_xent_bwd_kernel(' in _source()
+
+
+def test_card_bwd_cases_reach_every_path_of_the_stream():
+    """chip_smoke's backward cases, by their labels' pattern alone: n % 4
+    takes each of 0-3, n lies below one tile and on whole tiles, one-hot
+    elements fall on a vector's first and last lane and on a vector that
+    crosses rows, at V 1, 2, 3, 5, 1000, 30522 and 30523, with labels -1
+    and V."""
+    from chip_smoke import (XENT_BWD_CASES, XENT_BWD_LABELS,
+                            xent_bwd_paths)
+    labels = [[XENT_BWD_LABELS[r % 4](v) if r < 8 else -1
+               for r in range(rows)] for rows, v in XENT_BWD_CASES]
+    paths = xent_bwd_paths(XENT_BWD_CASES, labels)
+    assert {0, 3} <= paths.pop('onehot_lanes')
+    assert paths == dict(n_mod_4={0, 1, 2, 3}, below_tile=True,
+                         whole_tiles=True, onehot_crossing=True)
+    assert {v for _, v in XENT_BWD_CASES} == {1, 2, 3, 5, 1000, 30522,
+                                             30523}
+    assert all(rows >= 4 for rows, v in XENT_BWD_CASES if v % 2)
