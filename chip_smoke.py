@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
      process per source, all started together; the flash forward's
      instances, the dq and dk/dv kernels, the four matmul variants'
      kernels, the activation kernels of ``epilogue.cu``, the decode
-     kernel and the nms mask, scan and finish kernels must spill no
+     kernel's slot and paged instances and the nms mask, scan and finish
+     kernels must spill no
      register (``-Xptxas -v``; all but the first three log theirs), every
      matmul
      kernel's SASS (``cuobjdump -sass``) must hold HGMMA and UTMALDG
@@ -29,6 +30,12 @@ Phases, in order; any failure exits non-zero:
      8-CTA cluster, p on the tile edges 0, 127, 128, 255, 511, 1023,
      1024, 1151), the decode kernel against its plain version at max_len
      512, 1152 and 0 (an empty cache: every slot writes zeros), the
+     paged decode kernel against its plain version (1e-5) and bitwise
+     against the slot kernel over the same K/V, scattered into pools
+     through shuffled page tables whose trash page and unused pages hold
+     large finite garbage, at page sizes 8, 16, 128 and 256, max_len 512
+     and 1152 (at 256 a view of 1280 keys), at the slot checks'
+     positions and the page edges, the
      training kernels at the training slice's shapes
      (1e-5 absolute for out, lse, nll and logp; 1e-5 relative to each
      tensor's max abs for dq, dk, dv and dlogits, which sum over 128 rows
@@ -56,7 +63,10 @@ Phases, in order; any failure exits non-zero:
      slope timer over inputs rotated past the L2 (``device_ms``: device
      time alone, inputs read from memory as the bound counts them; see
      phase 7); the decode kernel's device time also at every slot on
-     position 127 and 511;
+     position 127 and 511; the paged decode kernel's at page size 16
+     beside the slot kernel over the same K/V, the page-table gather +
+     the slot kernel and SDPA over the gathered view, at the decode case
+     and at phase 3's positions;
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -64,7 +74,18 @@ Phases, in order; any failure exits non-zero:
      prompts of 8-256 tokens, 32 new tokens each. The kernels' launch
      counts are zeroed just before this run and must show 12 launches
      per prefill and per step; two requests are re-derived with the
-     uncached ``full_forward`` after every token;
+     uncached ``full_forward`` after every token. 3p: the same requests
+     through ``freeze_decode``'s default, the paged cache at page size 16
+     (257 pages): the tokens must equal phase 3's token for token, with
+     12 flash forward launches a prefill, 12 paged decode launches a step
+     and no slot decode launch; its metrics beside phase 3's and
+     ``cache_accounting()``. 3s: prefix sharing (16 prompts of one
+     192-token prefix and 8-64-token suffixes, the prefix alone twice
+     amid them: one prefill, >= 15 hits, >= 1 copy on write) and then
+     speculative decoding of phase 3's prompts with 3 proposals a tick
+     from a self-draft (acceptance >= 0.9, fewer ticks than tokens), exact
+     launch counts, every token teacher-forced against ``full_forward``
+     (a mismatch only at a tie within 1e-4);
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -168,6 +189,16 @@ BUCKETS = (16, 32, 64, 128, 256)
 REQUESTS = 16
 NEW_TOKENS = 32
 DECODE_POSITIONS = (0, 127, 128, 511, 5, 300, 64, 256)
+# the paged cache (phases 2, 3p, 3s): the reference's default page size,
+# and the page sizes the paged decode kernel is held to the slot one at
+PAGE_SIZE = 16
+PAGED_CHECK_SIZES = (8, 16, 128, 256)
+# phase 3s: one 192-token prefix (12 pages) shared by 16 requests with
+# suffixes of 8-64 tokens; speculative decoding with a self-draft
+PREFIX_TOKENS = 192
+SUFFIX_RANGE = (8, 64)
+SPEC_K = 3
+SPEC_ACCEPTANCE = 0.9      # tests/test_paged_decode.py's bar
 
 # the training slice: the bench's on-chip BERT-base pretraining batch
 TRAIN = dict(batch=96, seq=128, preds=20, vocab=30522, heads=12, d=64)
@@ -261,6 +292,93 @@ def decode_identity(torch, kernels, q, k, v, positions, block_q):
     rows = out[0][:, list(positions)].transpose(0, 1)
     return ([torch.equal(rows[i], dec[i]) for i in range(n)],
             (rows - dec).abs().max().item())
+
+
+def paged_positions(view, page_size, base):
+    """The positions a paged check covers in a view of ``view`` keys: the
+    slot check's ``base`` and the page edges ps - 1, ps, 3 ps - 1 and
+    3 ps, those below the view."""
+    edges = (page_size - 1, page_size, 3 * page_size - 1, 3 * page_size)
+    return tuple(sorted({p for p in base + edges if p < view}))
+
+
+def paged_case(torch, randn, max_len, page_size, positions, units):
+    """A pool holding one slot a position: the slot-layout K and V
+    (``positions`` slots, view = max_pages x page_size rows, rows past
+    max_len zero) scattered into pools through a shuffled page table,
+    the entries wholly past a slot's position on the trash page, which
+    holds large finite garbage with the unused pages. Returns (q,
+    key_pool, value_pool, tables, positions, slot K, slot V): the slot K
+    and V hold zeros where the pool holds garbage."""
+    n = len(positions)
+    max_pages = -(-max_len // page_size)
+    view = max_pages * page_size
+    pages = n * max_pages + 3
+    dev = randn(1).device
+    keys, values = randn(n, view, units), randn(n, view, units)
+    keys[:, max_len:] = 0.0
+    values[:, max_len:] = 0.0
+    pools = [randn(pages, page_size, units) * 1e30 for _ in range(2)]
+    gen = torch.Generator(device='cpu').manual_seed(page_size + max_len)
+    order = torch.randperm(pages - 1, generator=gen)[:n * max_pages] + 1
+    tables = order.view(n, max_pages).to(torch.int32)
+    for s, p in enumerate(positions):
+        tables[s, p // page_size + 1:] = 0       # the trash page
+        keys[s, (p // page_size + 1) * page_size:] = 0.0
+        values[s, (p // page_size + 1) * page_size:] = 0.0
+    tables = tables.to(dev)
+    for pool, slot in zip(pools, (keys, values)):
+        used = tables.long().view(-1)
+        live = used != 0
+        pool[used[live]] = slot.view(n * max_pages, page_size,
+                                     units)[live]
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return randn(n, units), pools[0], pools[1], tables, pos, keys, values
+
+
+def check_paged_kernel(torch, kernels, device, heads=12, d=64,
+                       page_sizes=PAGED_CHECK_SIZES,
+                       lengths=((512, DECODE_CHECK_POSITIONS),
+                                (DECODE_LONG, DECODE_LONG_POSITIONS))):
+    """The paged decode kernel against its plain version (``TOL``) and,
+    bitwise, against the slot decode kernel over the same K/V, at each
+    page size and view; returns the worst error against the plain
+    version."""
+    gen = torch.Generator(device='cpu').manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    worst = 0.0
+    for ps in page_sizes:
+        for max_len, base in lengths:
+            view = -(-max_len // ps) * ps
+            checked = paged_positions(view, ps, base)
+            q, kp, vp, tables, pos, keys, values = paged_case(
+                torch, randn, max_len, ps, checked, heads * d)
+            out = kernels.flash_paged_decode_attention(q, kp, vp, tables, pos,
+                                                       heads)
+            ref = kernels.flash_paged_decode_attention_reference(
+                q, kp, vp, tables, pos, heads)
+            slot = kernels.flash_decode_attention(q, keys, values, pos, heads)
+            err = (out - ref).abs().max().item()
+            equal = [torch.equal(out[i], slot[i]) for i in range(len(pos))]
+            log('check flash_paged_decode_attention page_size=%d max_len=%d '
+                '(view %d, %d pages) positions=%s: max_abs_err=%.3g against '
+                'the plain version; bitwise the slot kernel: %s'
+                % (ps, max_len, view, kp.shape[0], list(checked), err,
+                   all(equal)))
+            if not err <= TOL:
+                raise AssertionError('flash_paged_decode_attention disagrees '
+                                     'with its plain version: %g > %g'
+                                     % (err, TOL))
+            if not all(equal):
+                raise AssertionError(
+                    'flash_paged_decode_attention differs from the slot '
+                    'kernel (page_size %d, max_len %d): %s'
+                    % (ps, max_len, dict(zip(checked, equal))))
+            worst = max(worst, err)
+    return worst
 
 
 def check_kernels(torch, kernels, device, heads=12, d=64, max_len=512,
@@ -732,6 +850,96 @@ def time_kernels(torch, kernels, heads=12, d=64, seq=256, length=200):
     return rows
 
 
+def phase3_waves(seed=0, offset=16):
+    """Phase 3's decode positions: its 16 prompt lengths (drawn as
+    :func:`serve` draws them) in two waves of eight slots, ``offset``
+    tokens into their new ones."""
+    import numpy as np
+    lens = np.random.RandomState(seed).randint(8, 257, size=REQUESTS)
+    return [tuple(int(n) + offset for n in lens[w:w + SLOTS])
+            for w in range(0, REQUESTS, SLOTS)]
+
+
+def paged_bound(positions, units, slots, max_pages):
+    """(bound ms, by) of one paged decode call: each visible K and V row
+    read once, the page tables, q, positions and out once."""
+    live = sum(p + 1 for p in positions)
+    nbytes = (2 * live * units + slots * max_pages + 2 * slots * units
+              + slots) * 4
+    return bound(nbytes, live * units * 4)
+
+
+def time_paged_decode(torch, kernels, heads=12, d=64, max_len=512,
+                      page_size=PAGE_SIZE):
+    """Times of the paged decode kernel at phase 2's decode case (8
+    slots, max_len 512, ``DECODE_POSITIONS``, page size 16) and at phase
+    3's positions (:func:`phase3_waves`), each beside the slot kernel
+    over the same K/V, the reference's structure (the page-table gather,
+    then the slot kernel) and SDPA over the gathered view."""
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    gen = torch.Generator(device='cpu').manual_seed(3)
+    units = heads * d
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def paged(q, kp, vp, tables, pos):
+        return kernels.flash_paged_decode_attention(q, kp, vp, tables, pos,
+                                                    heads)
+
+    def gather_slot(q, kp, vp, tables, pos):
+        n = q.shape[0]
+        return kernels.flash_decode_attention(
+            q, kp[tables.long()].view(n, -1, units),
+            vp[tables.long()].view(n, -1, units), pos, heads)
+
+    def sdpa_inputs(q, keys, values, pos):
+        n, view = keys.shape[:2]
+        mask = (torch.arange(view, device=dev)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        return (q.view(n, heads, 1, d),
+                keys.view(n, view, heads, d).transpose(1, 2),
+                values.view(n, view, heads, d).transpose(1, 2), mask)
+
+    def case(positions):
+        q, kp, vp, tables, pos, keys, values = paged_case(
+            torch, randn, max_len, page_size, positions, units)
+        gk = kp[tables.long()].view(len(positions), -1, units)
+        gv = vp[tables.long()].view(len(positions), -1, units)
+        return (q, kp, vp, tables, pos), (q, keys, values, pos), \
+            sdpa_inputs(q, gk, gv, pos)
+
+    inputs, slot_in, lib_in = case(DECODE_POSITIONS)
+    b_ms, b_by = paged_bound(DECODE_POSITIONS, units, SLOTS,
+                             inputs[3].shape[1])
+    row = timings(
+        torch, inputs, paged,
+        lambda *a: kernels.flash_paged_decode_attention_reference(*a, heads),
+        F.scaled_dot_product_attention, library_inputs=lib_in,
+        bound_ms=b_ms, bound_by=b_by,
+        shape='slots %d max_len 512 page_size %d (%d pages) U %d heads %d '
+        'positions %s; library: SDPA over the gathered view'
+        % (SLOTS, page_size, inputs[1].shape[0], units, heads,
+           list(DECODE_POSITIONS)))
+    row['slot_device_ms'] = device_ms(
+        torch, lambda *a: kernels.flash_decode_attention(*a, heads), slot_in)
+    row['gather_slot_device_ms'] = device_ms(torch, gather_slot, inputs)
+    row['at_phase3'] = []
+    for wave in phase3_waves():
+        inputs, slot_in, lib_in = case(wave)
+        row['at_phase3'].append(dict(
+            positions=list(wave), device_ms=device_ms(torch, paged, inputs),
+            slot_device_ms=device_ms(
+                torch, lambda *a: kernels.flash_decode_attention(*a, heads),
+                slot_in),
+            gather_slot_device_ms=device_ms(torch, gather_slot, inputs),
+            library_device_ms=device_ms(torch, F.scaled_dot_product_attention,
+                                        lib_in),
+            bound_ms=paged_bound(wave, units, SLOTS, inputs[3].shape[1])[0]))
+    return {'flash_paged_decode_fwd': row}
+
+
 def decode_at_positions(torch, kernels, qd, keys, values, pos, heads):
     """Device ms of the decode kernel with every slot on one position
     (127: one tile a (slot, head) and no chain; 511: four tiles and a
@@ -1059,15 +1267,25 @@ def percentile(vals, p):
 
 def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
           buckets=BUCKETS, requests=REQUESTS, new_tokens=NEW_TOKENS,
-          prompt_range=(8, 256), recheck=2, seed=0):
-    """Drive the slice through its entry points and check it. Returns a
-    dict of results (launch counts of the run included)."""
+          prompt_range=(8, 256), recheck=2, seed=0, paged=False):
+    """Drive the slice through its entry points and check it: over the
+    slot cache (``paged=False``, phase 3) or over the default,
+    ``freeze_decode``'s paged cache at page size 16 (phase 3p). Returns a
+    dict of results (tokens and launch counts of the run included)."""
     import numpy as np
     t0 = time.perf_counter()
     model, params = serving.init_transformer_lm(seed=seed, **cfg)
-    prog = serving.freeze_decode(model, params, slots=slots,
-                                 prefill_buckets=buckets, paged=False,
-                                 device=device)
+    if paged:
+        prog = serving.freeze_decode(model, params, slots=slots,
+                                     prefill_buckets=buckets, device=device)
+        if not (isinstance(prog, serving.PagedDecodeProgram)
+                and prog.page_size == PAGE_SIZE):
+            raise AssertionError('freeze_decode did not page the model: %r'
+                                 % (prog,))
+    else:
+        prog = serving.freeze_decode(model, params, slots=slots,
+                                     prefill_buckets=buckets, paged=False,
+                                     device=device)
     del params
     setup_s = time.perf_counter() - t0
     rs = np.random.RandomState(seed)
@@ -1087,7 +1305,8 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         outs = [s.result(600) for s in streams]
         wall = time.perf_counter() - t1
         launches = kernels.launch_counts()
-        after = sess.stats()['counts']
+        stats = sess.stats()
+        after = stats['counts']
     prefills = after['prefills'] - before['prefills']
     steps = after['steps'] - before['steps']
     step_s = after['step_seconds'] - before['step_seconds']
@@ -1102,8 +1321,9 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
             raise AssertionError('token outside the vocabulary')
     if device.type == 'cuda':
         want = dict.fromkeys(launches, 0)
-        want.update(flash_attention_fwd=cfg['layers'] * prefills,
-                    flash_decode_fwd=cfg['layers'] * steps)
+        want['flash_attention_fwd'] = cfg['layers'] * prefills
+        want['flash_paged_decode_fwd' if paged
+             else 'flash_decode_fwd'] = cfg['layers'] * steps
         if launches != want:
             raise AssertionError('kernel launches %r, expected %r '
                                  '(layers x prefills, layers x steps)'
@@ -1144,8 +1364,137 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         'peak_mem_bytes': (torch.cuda.max_memory_allocated()
                            if device.type == 'cuda' else None),
         'cache_bytes': prog.cache_bytes(),
-        'prompt_lens': [int(n) for n in lens],
+        'prompt_lens': [int(n) for n in lens], 'outs': outs,
+        'cache_accounting': stats['cache'], 'pages': stats.get('pages'),
+        'counts': {k: after[k] - before[k] for k in (
+            'prefix_hits', 'cow_copies', 'page_evictions')},
     }
+
+
+def teacher_forced(torch, model, params, prompts, outs, device):
+    """Each served token against ``full_forward`` over the prompt and
+    the served tokens before it (one forward a request; causal, so
+    position i sees tokens <= i only): the token must be the forward's
+    argmax, or tie with it within ``TIE``. Returns (tokens equal, ties
+    [(request, token, gap)])."""
+    equal, ties = 0, []
+    with torch.inference_mode():
+        for r, (prompt, out) in enumerate(zip(prompts, outs)):
+            toks = torch.tensor([list(prompt) + out[:-1]], device=device)
+            logits = model.full_forward(params, toks)[0, len(prompt) - 1:]
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError('non-finite logits')
+            best = logits.argmax(dim=-1).tolist()
+            for t, (b, o) in enumerate(zip(best, out)):
+                if b == o:
+                    equal += 1
+                    continue
+                gap = abs(float(logits[t, b]) - float(logits[t, o]))
+                if not gap < TIE:
+                    raise AssertionError(
+                        'request %d token %d: served %d, full_forward %d, '
+                        'logit gap %.3g is no tie' % (r, t, o, b, gap))
+                ties.append((r, t, gap))
+    return equal, ties
+
+
+def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
+                 buckets=BUCKETS, requests=REQUESTS, new_tokens=NEW_TOKENS,
+                 seed=0, spec_k=SPEC_K, prefix_tokens=PREFIX_TOKENS,
+                 suffix_range=SUFFIX_RANGE, prompt_range=(8, 256)):
+    """Phase 3s at the slice's width, through ``freeze_decode``'s paged
+    default. Prefix sharing: ``requests`` prompts of one
+    ``prefix_tokens``-token prefix and a distinct suffix of
+    ``suffix_range`` tokens each, and the prefix alone sent twice amid
+    them (its last prompt token is re-fed into the prefix's last page
+    while the other sharers hold it: a copy on write); every request
+    after the first must hit. Speculative decoding: phase 3's prompts with
+    ``spec_k`` proposals a tick from a self-draft (the same weights frozen
+    ``paged=False``); acceptance >= ``SPEC_ACCEPTANCE`` and fewer ticks
+    than tokens. Launch counts exact in both runs; every token
+    teacher-forced against ``full_forward`` (:func:`teacher_forced`), since
+    a suffix streamed through decode steps and the verify pass run other
+    GEMM shapes than the prefill and step they replace."""
+    import numpy as np
+    layers = cfg['layers']
+    model, params = serving.init_transformer_lm(seed=seed, **cfg)
+    rs = np.random.RandomState(seed + 1)
+    prefix = rs.randint(0, cfg['vocab'], prefix_tokens).tolist()
+    shared = [prefix + rs.randint(0, cfg['vocab'], n).tolist()
+              for n in rs.randint(suffix_range[0], suffix_range[1] + 1,
+                                  requests)]
+    shared = shared[:slots] + [prefix, prefix] + shared[slots:]
+    phase3 = np.random.RandomState(seed)     # phase 3's prompts
+    lens = phase3.randint(prompt_range[0], prompt_range[1] + 1,
+                          size=requests)
+    plain = [phase3.randint(0, cfg['vocab'], size=n).tolist() for n in lens]
+    out = {}
+    for run, prompts in (('prefix', shared), ('spec', plain)):
+        prog = serving.freeze_decode(
+            model, params, slots=slots, prefill_buckets=buckets,
+            spec_k=spec_k if run == 'spec' else None, device=device)
+        draft = None
+        if run == 'spec':
+            draft = serving.freeze_decode(model, params, slots=slots,
+                                          prefill_buckets=buckets,
+                                          paged=False, device=device)
+        with serving.InferenceSession(prog, timeout_s=600, draft=draft,
+                                      max_new_tokens=new_tokens) as sess:
+            sess.generate(rs.randint(0, cfg['vocab'], 8).tolist(),
+                          max_new_tokens=2).result(600)
+            before = sess.stats()['counts']
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            streams = [sess.generate(p) for p in prompts]
+            outs = [s.result(600) for s in streams]
+            wall = time.perf_counter() - t1
+            launches = kernels.launch_counts()
+            stats = sess.stats()
+        c = {k: v - before[k] for k, v in stats['counts'].items()
+             if k != 'retired'}
+        if any(len(o) != new_tokens for o in outs):
+            raise AssertionError('phase 3s %s: a request ended early' % run)
+        want = dict.fromkeys(launches, 0)
+        plain_steps = c['steps'] - c['spec_rounds']
+        # the draft prefills every admission, a prefix hit included
+        want['flash_attention_fwd'] = layers * (
+            c['prefills'] + (c['prefills'] + c['prefix_hits'] if draft
+                             else 0))
+        want['flash_paged_decode_fwd'] = layers * plain_steps
+        want['flash_decode_fwd'] = layers * (
+            plain_steps + (spec_k + 1) * c['spec_rounds'] if draft else 0)
+        if device.type == 'cuda' and launches != want:
+            raise AssertionError('phase 3s %s: kernel launches %r, expected '
+                                 '%r' % (run, launches, want))
+        if run == 'prefix' and not (c['prefix_hits'] >= requests - 1
+                                    and c['cow_copies'] >= 1
+                                    and c['prefills'] == 1):
+            raise AssertionError('phase 3s prefix: %d hits, %d copies on '
+                                 'write, %d prefills' % (
+                                     c['prefix_hits'], c['cow_copies'],
+                                     c['prefills']))
+        acceptance = (c['spec_accepted'] / c['spec_proposed']
+                      if c['spec_proposed'] else None)
+        tokens = sum(len(o) for o in outs)
+        if run == 'spec' and not (acceptance is not None
+                                  and acceptance >= SPEC_ACCEPTANCE
+                                  and c['steps'] < tokens):
+            raise AssertionError('phase 3s spec: acceptance %r, %d ticks for '
+                                 '%d tokens' % (acceptance, c['steps'],
+                                                tokens))
+        equal, ties = teacher_forced(torch, model, prog.params, prompts,
+                                     outs, device)
+        ttft = [s.ttft_s for s in streams]
+        out[run] = dict(
+            counts=c, launches=launches, tokens=tokens, wall_s=wall,
+            tokens_per_s=tokens / wall, acceptance=acceptance,
+            ttft_p50_ms=percentile(ttft, 50) * 1e3,
+            ttft_p99_ms=percentile(ttft, 99) * 1e3,
+            step_ms=c['step_seconds'] / c['steps'] * 1e3,
+            recheck_equal=equal, recheck_ties=ties,
+            cache_accounting=stats['cache'], pages=stats['pages'])
+        del prog, draft
+    return out
 
 
 # -- phase 4: the training slice ---------------------------------------------
@@ -1796,34 +2145,50 @@ def nms_work(torch, kernels, boxes, valid, keep, topk, cls_id):
 NMS_STAGES = ('mask', 'scan', 'finish')
 
 
-def nms_stage_ms(torch, call, reps=20):
+def nms_stage_ms(torch, call, reps=20, rounds=5):
     """Device ms of each of the nms kernel's three launches (``mask``,
     ``scan``: the ordered walk, ``finish``; ``<stage>_device_ms``): the
     mean duration of each kernel, found by its name
-    (``nms_keep_<stage>``), over its launches in a ``torch.profiler``
-    trace of ``reps`` calls of ``call()``. The trace may drop a launch
-    (one of 20 mask kernels in a run on the H100); it raises when it
-    holds fewer than half of a kernel's. Kernel durations, inputs warm
-    in the L2: not the slope timer of ``device_ms``."""
+    (``nms_keep_<stage>``), over its launches in ``torch.profiler`` traces
+    of ``reps`` calls of ``call()`` each. A trace may drop launches (one
+    of 20 mask kernels in one run on the H100, 14 of 20 in another), so
+    traces are taken, up to ``rounds`` of them, until every kernel holds
+    ``reps`` traced launches in all. It raises when one does not, or when
+    a trace holds more launches of a kernel than calls. Kernel durations,
+    inputs warm in the L2: not the slope timer of ``device_ms``."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
     ms, seen = dict.fromkeys(NMS_STAGES, 0.0), dict.fromkeys(NMS_STAGES, 0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for stage in NMS_STAGES:
-            if 'nms_keep_%s' % stage in e.name:
-                ms[stage] += (e.time_range.end - e.time_range.start) / 1e3
-                seen[stage] += 1
-    if any(2 * n < reps or n > reps for n in seen.values()):
-        raise AssertionError('nms profile: kernels traced %s of %d calls'
-                             % (seen, reps))
+    traces = []
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        got = dict.fromkeys(NMS_STAGES, 0)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for stage in NMS_STAGES:
+                if 'nms_keep_%s' % stage in e.name:
+                    ms[stage] += (e.time_range.end - e.time_range.start) / 1e3
+                    got[stage] += 1
+        traces.append(got)
+        if any(n > reps for n in got.values()):
+            raise AssertionError('nms profile: kernels traced %s of %d calls'
+                                 % (got, reps))
+        for stage, n in got.items():
+            seen[stage] += n
+        if min(seen.values()) >= reps:
+            break
+    else:
+        raise AssertionError('nms profile: kernels traced %s in %d traces of '
+                             '%d calls' % (traces, rounds, reps))
+    if len(traces) > 1:
+        log('time nms: the profiler dropped launches; kernels traced %s in '
+            'traces of %d calls' % (traces, reps))
     return {'%s_device_ms' % k: v / seen[k] for k, v in ms.items()}
 
 
@@ -2473,6 +2838,9 @@ KERNELS = {
     'flash_decode_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_decode_fwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:423'),
+    'flash_paged_decode_fwd': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_decode_fwd.cu',
+        replaces='mxnet_tpu/ops/pallas/attention.py:508'),
     'softmax_xent_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu',
         replaces='mxnet_tpu/ops/pallas/xent.py:37'),
@@ -2538,6 +2906,17 @@ def log_times(times):
         if 'device_ms_at_pos' in row:
             log('time %s: device ms at one position for every slot %s'
                 % (name, row['device_ms_at_pos']))
+        if 'slot_device_ms' in row:
+            log('time %s: device ms of the slot kernel over the same K/V '
+                '%.4f, of the page-table gather + the slot kernel %.4f'
+                % (name, row['slot_device_ms'], row['gather_slot_device_ms']))
+            for at in row['at_phase3']:
+                log('time %s at phase 3\'s positions %s: device ms paged '
+                    '%.4f, slot %.4f, gather + slot %.4f, SDPA over the '
+                    'gathered view %.4f; bound %.4f ms'
+                    % (name, at['positions'], at['device_ms'],
+                       at['slot_device_ms'], at['gather_slot_device_ms'],
+                       at['library_device_ms'], at['bound_ms']))
         if 'mask_device_ms' in row:
             log('time %s: device ms (profiler) of the mask kernel %.4f, the '
                 'walk %.4f, the finish %.4f'
@@ -2567,7 +2946,9 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'bound_cuda_core_ms', 'log_softmax_ms',
                                       'log_softmax_device_ms',
                                       'pair_turns_device_ms',
-                                      'device_ms_at_pos', 'mask_device_ms',
+                                      'device_ms_at_pos', 'slot_device_ms',
+                                      'gather_slot_device_ms', 'at_phase3',
+                                      'mask_device_ms',
                                       'scan_device_ms', 'finish_device_ms')
                     if k in t})
         row['shape'] = t['shape']
@@ -2630,7 +3011,8 @@ def main():
                         ('flash_attention_dkv', check_dkv_build)):
         regs, counts = check(_build, reports.get('flash_attention_bwd', ()))
         log('%s: %s registers, no spills; SASS %s' % (name, regs, counts))
-    for source, keys in (('flash_decode_fwd', ('flash_decode_fwd_kernel',)),
+    # the decode kernel's two instances: the slot cache and the page pool
+    for source, keys in (('flash_decode_fwd', ('SlotRows', 'PagedRows')),
                          ('nms', ('nms_keep_mask_kernel',
                                   'nms_keep_scan_kernel',
                                   'nms_keep_finish_kernel'))):
@@ -2644,6 +3026,7 @@ def main():
 
     # phase 2: kernels against their plain versions, then times
     errs = check_kernels(torch, kernels, cuda)
+    errs['flash_paged_decode_fwd'] = check_paged_kernel(torch, kernels, cuda)
     for name, err in check_training_kernels(torch, kernels, cuda).items():
         errs[name] = max(errs.get(name, 0.0), err)
     torch.cuda.empty_cache()
@@ -2654,6 +3037,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     times = time_kernels(torch, kernels)
+    times.update(time_paged_decode(torch, kernels))
     log_times(times)
     train_times = time_training_kernels(torch, kernels)
     log_times(train_times)
@@ -2680,6 +3064,54 @@ def main():
         % (card, res['tokens_per_s'], res['ttft_p50_ms'],
            res['ttft_p99_ms'], res['decode_step_ms'], res['wall_s'],
            res['peak_mem_bytes'], res['cache_bytes'], res['setup_s']))
+    torch.cuda.empty_cache()
+
+    # phase 3p: the same requests through freeze_decode's default, the
+    # paged cache at page size 16
+    rp = serve(torch, serving, kernels, cuda, paged=True, recheck=0)
+    torch.cuda.synchronize()
+    if rp['outs'] != res['outs']:
+        raise AssertionError('phase 3p: paged tokens differ from phase 3\'s '
+                             'slot-cache tokens: %s' % [
+                                 i for i, (a, b) in enumerate(
+                                     zip(rp['outs'], res['outs'])) if a != b])
+    log('phase 3p slice: paged cache, page size %d; %d prefills, %d steps, '
+        'launches %s; the 16 streams token for token phase 3\'s; prefix hits '
+        '%d, copies on write %d, page evictions %d'
+        % (PAGE_SIZE, rp['prefills'], rp['steps'], rp['launches'],
+           rp['counts']['prefix_hits'], rp['counts']['cow_copies'],
+           rp['counts']['page_evictions']))
+    log('phase 3p metrics [%s]: tokens/s %.2f (phase 3 %.2f), TTFT p50 %.2f '
+        'ms (%.2f), p99 %.2f ms (%.2f), mean decode step %.3f ms (%.3f), '
+        'wall %.3f s, peak memory %d B, pool %d B (slot cache %d B)'
+        % (card, rp['tokens_per_s'], res['tokens_per_s'], rp['ttft_p50_ms'],
+           res['ttft_p50_ms'], rp['ttft_p99_ms'], res['ttft_p99_ms'],
+           rp['decode_step_ms'], res['decode_step_ms'], rp['wall_s'],
+           rp['peak_mem_bytes'], rp['cache_bytes'], res['cache_bytes']))
+    log('phase 3p cache_accounting (idle, after the run): %s; pool %s'
+        % (json.dumps(rp['cache_accounting']), rp['pages']))
+    torch.cuda.empty_cache()
+
+    # phase 3s: prefix sharing, then speculative decoding, at full width
+    sh = serve_shared(torch, serving, kernels, cuda)
+    torch.cuda.synchronize()
+    for run, r in sh.items():
+        c = r['counts']
+        log('phase 3s %s: %d prefills, %d ticks (%d speculative), prefix hits '
+            '%d (%d tokens), copies on write %d, proposed %d, accepted %d '
+            '(acceptance %s); launches %s; teacher-forced: %d tokens equal to '
+            'full_forward, %d ties %s'
+            % (run, c['prefills'], c['steps'], c['spec_rounds'],
+               c['prefix_hits'], c['prefix_tokens_saved'], c['cow_copies'],
+               c['spec_proposed'], c['spec_accepted'], r['acceptance'],
+               r['launches'], r['recheck_equal'], len(r['recheck_ties']),
+               r['recheck_ties']))
+        log('phase 3s %s metrics [%s]: %d tokens, tokens/s %.2f, TTFT p50 '
+            '%.2f ms, p99 %.2f ms, mean tick %.3f ms, wall %.3f s; '
+            'cache_accounting %s'
+            % (run, card, r['tokens'], r['tokens_per_s'], r['ttft_p50_ms'],
+               r['ttft_p99_ms'], r['step_ms'], r['wall_s'],
+               json.dumps(r['cache_accounting'])))
     torch.cuda.empty_cache()
 
     # phase 4: the training slice
@@ -2804,6 +3236,9 @@ def main():
 
     rows = kernel_rows(errs, times, train_times,
                        {'serving': res['launches'],
+                        'paged serving': rp['launches'],
+                        'prefix sharing': sh['prefix']['launches'],
+                        'speculative decoding': sh['spec']['launches'],
                         'training': tr['launches'],
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],

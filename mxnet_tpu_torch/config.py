@@ -5,6 +5,12 @@ serving paths read (the decode engine, and the one-shot freeze and
 micro-batcher), with the JAX package's names and defaults
 (read from the environment). Constructor arguments always win over a
 knob. There is no kernel on/off knob: on a CUDA tensor the kernel runs.
+
+The paged-cache knobs (``MXNET_TPU_SERVE_PAGED`` to
+``MXNET_TPU_SERVE_SPEC_K``) are here; ``MXNET_TPU_SERVE_SPEC_DRAFT``, which
+loads a saved draft artifact, waits for the port of frozen-artifact
+persistence (ROADMAP: "Frozen-artifact persistence"): pass the draft to
+the session or engine as ``draft=``.
 """
 from __future__ import annotations
 
@@ -45,7 +51,37 @@ KNOBS = {
     'MXNET_TPU_SERVE_PREFILL_INTERLEAVE': (
         int, 1, 'Prefills admitted between consecutive decode steps '
         'while sequences are in flight.'),
+    'MXNET_TPU_SERVE_PAGED': (
+        bool, True, 'Serve decode families that support it '
+        '(transformers) from the paged KV cache: one page pool shared by '
+        'the sequences plus a page table each, instead of slots x max_len '
+        'rows reserved per slot. 0 keeps the slot cache.'),
+    'MXNET_TPU_SERVE_PAGE_SIZE': (
+        int, 16, 'KV rows per page of the paged decode cache (a power of '
+        'two).'),
+    'MXNET_TPU_SERVE_PAGES': (
+        int, 0, 'Pages of the pool, the reserved trash page included. 0 '
+        'sizes it to the slot cache\'s worst case (slots x max_pages + 1); '
+        'a smaller pool trades capacity for memory, and admission then '
+        'fails typed (BackpressureError) when the pool is exhausted.'),
+    'MXNET_TPU_SERVE_PREFIX_CACHE': (
+        bool, True, 'Share common prompt prefixes in the paged cache: '
+        'full (and exactly matching partial) prompt pages are refcounted '
+        'and referenced read-only by later prompts that walk the same '
+        'tokens, copied on write at the first divergent token. 0 '
+        'disables sharing.'),
+    'MXNET_TPU_SERVE_SPEC_K': (
+        int, 0, 'Speculative-decoding lookahead: the draft proposes this '
+        'many tokens a tick and the target verifies them in one pass '
+        '(greedy acceptance). 0 disables speculation; needs a paged '
+        'target and a draft program.'),
 }
+
+
+def _parse(typ, raw):
+    if typ is bool:
+        return raw not in ('0', 'false', 'False')
+    return typ(raw)
 
 
 def get(name):
@@ -55,4 +91,4 @@ def get(name):
     raw = os.environ.get(name)
     if raw is None or raw.strip() == '':
         return default
-    return typ(raw)
+    return _parse(typ, raw.strip())

@@ -16,7 +16,9 @@ from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
                         flash_attention_dq, flash_attention_dq_reference,
                         flash_attention_reference, flash_attention_with_lse,
                         flash_decode_attention,
-                        flash_decode_attention_reference, fwd_geometry,
+                        flash_decode_attention_reference,
+                        flash_paged_decode_attention,
+                        flash_paged_decode_attention_reference, fwd_geometry,
                         online_softmax_block)
 from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
                        BnApplyFunction, BnGeometry, EpilogueGeometry,
@@ -47,7 +49,9 @@ __all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'flash_attention_dkv', 'flash_attention_backward',
            'flash_attention_dq_reference', 'flash_attention_dkv_reference',
            'flash_attention_backward_reference', 'flash_decode_attention',
-           'flash_decode_attention_reference', 'XENT_INSTANCES',
+           'flash_decode_attention_reference',
+           'flash_paged_decode_attention',
+           'flash_paged_decode_attention_reference', 'XENT_INSTANCES',
            'XentGeometry', 'xent_geometry', 'XentBwdChunk',
            'xent_bwd_geometry', 'fused_softmax_xent_rows',
            'fused_softmax_xent_rows_reference', 'SoftmaxXentFunction',

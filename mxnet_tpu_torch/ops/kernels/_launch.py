@@ -19,7 +19,8 @@ __all__ = ['KERNELS', 'launch_counts', 'instance_launches',
 
 # every hand-written kernel of the port, by the name its wrapper counts
 KERNELS = ('flash_attention_fwd', 'flash_attention_dq',
-           'flash_attention_dkv', 'flash_decode_fwd', 'softmax_xent_fwd',
+           'flash_attention_dkv', 'flash_decode_fwd',
+           'flash_paged_decode_fwd', 'softmax_xent_fwd',
            'softmax_xent_bwd', 'bn_act_fwd', 'bn_act_bwd', 'act_fwd',
            'act_bwd', 'add_act_fwd', 'nms', 'matmul_cur', 'matmul_noacc',
            'matmul_ws', 'matmul_ep')

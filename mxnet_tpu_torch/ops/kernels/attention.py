@@ -11,7 +11,11 @@ float32:
     ``mxnet_tpu_flash_attention_dq`` (attention.py:208) and
     ``mxnet_tpu_flash_attention_dkv`` (attention.py:243);
   * :func:`flash_decode_attention` -> ``csrc/flash_decode_fwd.cu``,
-    which replaces ``mxnet_tpu_flash_decode_fwd`` (attention.py:423).
+    which replaces ``mxnet_tpu_flash_decode_fwd`` (attention.py:423);
+    :func:`flash_paged_decode_attention` -> the same kernel's paged
+    instance, which replaces ``flash_paged_decode_attention``
+    (attention.py:508, a page-table gather and then that kernel): it
+    reads each slot's rows through its page table in place.
 
 :func:`flash_attention` is differentiable: :class:`FlashAttentionFunction`
 (the counterpart of the ``jax.custom_vjp`` at attention.py:344-380) runs
@@ -22,7 +26,8 @@ probabilities from the saved log-sum-exp.
 Each public function has a plain PyTorch version beside it
 (:func:`flash_attention_reference`, :func:`flash_attention_dq_reference`,
 :func:`flash_attention_dkv_reference`,
-:func:`flash_decode_attention_reference`) with the TPU kernels' ``-inf``
+:func:`flash_decode_attention_reference`,
+:func:`flash_paged_decode_attention_reference`) with the TPU kernels' ``-inf``
 masking and fully-masked-row guards. The wrapper rules:
 
   * a CPU tensor goes to the plain version;
@@ -58,7 +63,8 @@ __all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry', 'online_softmax_block',
            'flash_attention_backward',
            'flash_attention_dq_reference', 'flash_attention_dkv_reference',
            'flash_attention_backward_reference', 'flash_decode_attention',
-           'flash_decode_attention_reference']
+           'flash_decode_attention_reference', 'flash_paged_decode_attention',
+           'flash_paged_decode_attention_reference']
 
 # fixed key-axis block: part of the bit-identity contract
 K_BLOCK = 128
@@ -498,4 +504,93 @@ def flash_decode_attention(q, keys, values, positions, heads, scale=None):
                  _stream(q.device))
     _raise_on('flash_decode_fwd', err)
     _count('flash_decode_fwd')
+    return out
+
+
+# ---------------------------------------------------------------------------
+# single-token decode over the paged cache
+# ---------------------------------------------------------------------------
+
+
+def flash_paged_decode_attention_reference(q, key_pool, value_pool, tables,
+                                           positions, heads, scale=None):
+    """Plain PyTorch version of the paged decode kernel, the JAX
+    function's own structure: gather each slot's view of ``max_pages x
+    page_size`` rows through its page table, then
+    :func:`flash_decode_attention_reference` over it. Returns (slots,
+    U)."""
+    slots, u = q.shape
+    view = key_pool[tables.long()].reshape(slots, -1, u)
+    values = value_pool[tables.long()].reshape(slots, -1, u)
+    return flash_decode_attention_reference(q, view, values, positions,
+                                            heads, scale)
+
+
+def _paged_decode_lib():
+    from . import _build
+    fn = _build.load('flash_decode_fwd').mx_flash_paged_decode_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def flash_paged_decode_attention(q, key_pool, value_pool, tables, positions,
+                                 heads, scale=None):
+    """Decode-step attention over the paged cache: ``q`` (slots, U)
+    single-token queries against the pools ``key_pool`` / ``value_pool``
+    (pages, page_size, U), read in place through ``tables`` (slots,
+    max_pages) int32; slot s attends the keys ``<= positions[s]``
+    (int32) of its view of ``max_pages x page_size`` rows. Keys past a
+    slot's position get weight 0 whatever their page holds, so the
+    result is bitwise :func:`flash_decode_attention` over the gathered
+    view. Returns (slots, U) float32."""
+    cpu = _on_cpu('flash_paged_decode_attention', q, '(slots, U)')
+    slots, u = q.shape
+    if u % heads:
+        raise ValueError('flash_paged_decode_attention: units %d not '
+                         'divisible by heads %d' % (u, heads))
+    d = u // heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if cpu:
+        return flash_paged_decode_attention_reference(
+            q, key_pool, value_pool, tables, positions, heads, scale)
+    _require(key_pool.dim() == 3 and key_pool.shape[2] == u
+             and value_pool.shape == key_pool.shape,
+             'flash_paged_decode_attention: pools must be (pages, '
+             'page_size, %d), got %r / %r' % (u, tuple(key_pool.shape),
+                                              tuple(value_pool.shape)))
+    pages, page_size, _ = key_pool.shape
+    _require(page_size > 0 and page_size & (page_size - 1) == 0,
+             'flash_paged_decode_attention: page_size %d is not a power of '
+             'two' % page_size)
+    _require(tables.dim() == 2 and tables.shape[0] == slots,
+             'flash_paged_decode_attention: tables must be (slots, '
+             'max_pages) with slots %d, got %r' % (slots,
+                                                  tuple(tables.shape)))
+    _require(tuple(positions.shape) == (slots,),
+             'flash_paged_decode_attention: positions must be (slots,)')
+    _require(d == 64, 'flash_paged_decode_attention: head dim %d not built '
+             '(the kernel is instantiated for 64)' % d)
+    max_pages = tables.shape[1]
+    _require(max_pages * page_size < 2 ** 31
+             and pages * page_size * u < 2 ** 32,
+             'flash_paged_decode_attention: a view of 2**31 rows or a pool '
+             'of 2**32 floats or more')
+    _check_inputs('flash_paged_decode_attention',
+                  {'q': q, 'key_pool': key_pool, 'value_pool': value_pool,
+                   'tables': tables, 'positions': positions},
+                  {'q': torch.float32, 'key_pool': torch.float32,
+                   'value_pool': torch.float32, 'tables': torch.int32,
+                   'positions': torch.int32})
+    out = torch.empty_like(q)
+    fn = _paged_decode_lib()
+    with torch.cuda.device(q.device):
+        err = fn(_ptr(q), _ptr(key_pool), _ptr(value_pool), _ptr(tables),
+                 _ptr(positions), _ptr(out), slots, max_pages, page_size,
+                 pages, u, heads, float(scale), _stream(q.device))
+    _raise_on('flash_paged_decode_fwd', err)
+    _count('flash_paged_decode_fwd')
     return out

@@ -1,7 +1,26 @@
 // Single-token flash-decode attention for Hopper (sm_90a), float32.
 //
 // Replaces: mxnet_tpu_flash_decode_fwd (mxnet_tpu/ops/pallas/attention.py:423),
-// the TPU kernel of every decode step of the slot-cache engine.
+// the TPU kernel of every decode step of the slot-cache engine, and
+// flash_paged_decode_attention (attention.py:508), which gathers each slot's
+// pages through its page table and then runs that kernel. One body serves
+// both, as two instances that differ only in where a tile's K and V rows are
+// staged from (the row policies SlotRows and PagedRows below):
+//   * slot cache (slots, max_len, U): row kp of slot s at (s * max_len + kp)
+//     * U + h * D;
+//   * page pool (pages, ps, U) with tables (slots, max_pages), ps a power of
+//     two: row kp at (table[s][kp >> log2 ps] * ps + (kp & (ps - 1))) * U +
+//     h * D. The 128 threads of a tile's keys look up their row's offset
+//     once a tile, into shared memory, before the copies (a tile spans 128 /
+//     ps pages below ps 128, lies in one page above); the view is max_pages
+//     * ps keys, and a table entry outside the pool reads the trash page 0.
+//     The offsets are in floats and 32 bits, so that each copy adds one to
+//     its base and multiplies nothing.
+// Each staged row is the same D floats in both layouts and a key past the
+// slot's position gets weight exactly 0 whatever its row holds, so the
+// paged instance is bitwise the slot instance over the same K/V: no gather
+// of the view into device memory, which would move slots x view x U floats
+// for K and again for V in every layer of every step.
 //
 // What bounds it on the H100: memory. Each (slot, head) reads the K and V
 // rows of its live prefix once -- 2 * (position + 1) * D * 4 bytes -- and
@@ -192,11 +211,56 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
   } while (!done);
 }
 
-template <int D>
+// Row policies: where row kp of a (slot, head)'s keys and values lies, as
+// an offset in floats from the slot's first row.
+// The slot cache: a slot's rows are contiguous, max_len of them.
+struct SlotRows {
+  static constexpr bool PAGED = false;
+  static constexpr int SMEM = 0;  // no shared memory of its own
+  const float* keys;
+  const float* values;
+  __device__ __forceinline__ size_t first(int slot, int max_len) const {
+    return (size_t)slot * max_len;
+  }
+  // row kp; `prow` unused
+  static __device__ __forceinline__ size_t offset(const unsigned*, int,
+                                                  int kp, int units) {
+    return (size_t)kp * units;
+  }
+};
+
+// The page pool: a slot's rows through its page table. The pool holds
+// fewer than 2^32 floats (the host entry refuses more), so a row's offset
+// fits 32 bits.
+struct PagedRows {
+  static constexpr bool PAGED = true;
+  static constexpr int SMEM = mx::K_BLOCK * (int)sizeof(unsigned);  // prow
+  const float* keys;
+  const float* values;
+  const int* tables;  // (slots, max_pages)
+  int max_pages;
+  int log2_ps;
+  int pages;
+  __device__ __forceinline__ size_t first(int, int) const { return 0; }
+  // the offset of the slot's key kp (< view) in the pool, from its table
+  // entry; an entry outside the pool reads the trash page 0
+  __device__ __forceinline__ unsigned pool_offset(int slot, int kp,
+                                                  int units) const {
+    const int pg = __ldg(tables + (size_t)slot * max_pages + (kp >> log2_ps));
+    const unsigned page = (unsigned)pg < (unsigned)pages ? pg : 0u;
+    return ((page << log2_ps) | (unsigned)(kp & ((1 << log2_ps) - 1))) *
+           (unsigned)units;
+  }
+  // row r of the tile, looked up once a tile into `prow`
+  static __device__ __forceinline__ size_t offset(const unsigned* prow, int r,
+                                                  int, int) {
+    return (size_t)prow[r];
+  }
+};
+
+template <int D, class Rows>
 __global__ void __launch_bounds__(THREADS, 3)
-flash_decode_fwd_kernel(const float* __restrict__ q,
-                        const float* __restrict__ keys,
-                        const float* __restrict__ values,
+flash_decode_fwd_kernel(const float* __restrict__ q, Rows rows,
                         const int* __restrict__ positions,
                         float* __restrict__ out,
                         int max_len, int units, float scale) {
@@ -206,6 +270,8 @@ flash_decode_fwd_kernel(const float* __restrict__ q,
   static_assert(D <= PSUM_THREAD, "the psum thread lies past the D chain");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  // the paged instance's pool offset of each key of the tile
+  unsigned* prow = reinterpret_cast<unsigned*>(smem_raw + sizeof(Smem<D>));
 
   const int t = threadIdx.x;
   const uint32_t rank = cluster_rank();
@@ -217,9 +283,10 @@ flash_decode_fwd_kernel(const float* __restrict__ q,
   const int ntiles = last < 0 ? 0 : last / mx::K_BLOCK + 1;
   const int rounds = (ntiles + csize - 1) / csize;
 
-  const size_t row0 = (size_t)slot * max_len;
-  const float* kb = keys + row0 * units + h * D;
-  const float* vb = values + row0 * units + h * D;
+  // max_len: the view's length (max_pages * ps for the paged instance)
+  const size_t row0 = rows.first(slot, max_len);
+  const float* kb = rows.keys + row0 * units + h * D;
+  const float* vb = rows.values + row0 * units + h * D;
   float* orow = out + (size_t)slot * units + h * D;
 
   if (t < D) sm.qs[t] = __fmul_rn(q[(size_t)slot * units + h * D + t], scale);
@@ -246,6 +313,11 @@ flash_decode_fwd_kernel(const float* __restrict__ q,
     const int kbase = j * mx::K_BLOCK;
     float s = -CUDART_INF_F;
     if (has) {
+      if constexpr (Rows::PAGED) {
+        if (t < mx::K_BLOCK && kbase + t < max_len)
+          prow[t] = rows.pool_offset(slot, kbase + t, units);
+        __syncthreads();
+      }
       // all of the tile's copies in flight at once, no registers staged:
       // K a float at a time into its padded rows, then V 16 bytes at a
       // time; rows past max_len are zero-filled
@@ -254,7 +326,9 @@ flash_decode_fwd_kernel(const float* __restrict__ q,
         const int kp = kbase + idx / D;
         const bool in = kp < max_len;
         cp_async<4>(sm.ks + (idx / D) * KS + idx % D,
-                    kb + (size_t)(in ? kp : 0) * units + idx % D, in);
+                    kb + Rows::offset(prow, in ? idx / D : 0, in ? kp : 0,
+                                      units) + idx % D,
+                    in);
       }
       cp_async_commit();
 #pragma unroll 8
@@ -262,7 +336,9 @@ flash_decode_fwd_kernel(const float* __restrict__ q,
         const int kp = kbase + idx / QUADS;
         const bool in = kp < max_len;
         cp_async<16>(sm.vs + 4 * idx,
-                     vb + (size_t)(in ? kp : 0) * units + 4 * (idx % QUADS),
+                     vb + Rows::offset(prow, in ? idx / QUADS : 0,
+                                       in ? kp : 0, units) +
+                         4 * (idx % QUADS),
                      in);
       }
       cp_async_commit();
@@ -352,12 +428,13 @@ flash_decode_fwd_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* keys, const float* values,
-                   const int* positions, float* out, int slots, int max_len,
-                   int heads, float scale, cudaStream_t stream) {
-  auto* kernel = flash_decode_fwd_kernel<D>;
-  // the shared-memory attribute once per device
+template <int D, class Rows>
+cudaError_t launch(const float* q, Rows rows, const int* positions,
+                   float* out, int slots, int max_len, int heads, float scale,
+                   cudaStream_t stream) {
+  auto* kernel = flash_decode_fwd_kernel<D, Rows>;
+  constexpr int SMEM_BYTES = (int)sizeof(Smem<D>) + Rows::SMEM;
+  // the shared-memory attribute once per device (and instance)
   static bool attr_set[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -366,7 +443,7 @@ cudaError_t launch(const float* q, const float* keys, const float* values,
   if (!attr_set[dev]) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sizeof(Smem<D>));
+                               SMEM_BYTES);
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
@@ -378,7 +455,7 @@ cudaError_t launch(const float* q, const float* keys, const float* values,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)cluster, (unsigned)slots, (unsigned)heads);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = sizeof(Smem<D>);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -387,8 +464,8 @@ cudaError_t launch(const float* q, const float* keys, const float* values,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, q, keys, values, positions, out,
-                           max_len, heads * D, scale);
+  err = cudaLaunchKernelEx(&cfg, kernel, q, rows, positions, out, max_len,
+                           heads * D, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -408,11 +485,41 @@ extern "C" int mx_flash_decode_fwd(const void* q, const void* keys,
   if (heads <= 0 || units != heads * 64 || slots < 0 || max_len < 0 ||
       heads > 65535 || slots > 65535)
     return cudaErrorInvalidValue;
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(keys);
-  const auto* vf = static_cast<const float*>(values);
-  const auto* pf = static_cast<const int*>(positions);
-  auto* of = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  return launch<64>(qf, kf, vf, pf, of, slots, max_len, heads, scale, st);
+  const SlotRows rows = {static_cast<const float*>(keys),
+                        static_cast<const float*>(values)};
+  return launch<64>(static_cast<const float*>(q), rows,
+                    static_cast<const int*>(positions),
+                    static_cast<float*>(out), slots, max_len, heads, scale,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// q (slots, U), key_pool/value_pool (pages, page_size, U), tables (slots,
+// max_pages) int32, positions (slots,) int32, out (slots, U); all contiguous
+// on the device, 16-byte aligned, U = heads*D, page_size a power of two.
+// Slot s attends keys <= positions[s] of its view, the max_pages * page_size
+// rows its table names. Returns the cudaError_t of the launch.
+extern "C" int mx_flash_paged_decode_fwd(const void* q, const void* key_pool,
+                                         const void* value_pool,
+                                         const void* tables,
+                                         const void* positions, void* out,
+                                         int slots, int max_pages,
+                                         int page_size, int pages, int units,
+                                         int heads, float scale,
+                                         void* stream) {
+  int log2_ps = 0;
+  while (log2_ps < 30 && (1 << log2_ps) < page_size) ++log2_ps;
+  if (heads <= 0 || units != heads * 64 || slots < 0 || max_pages < 0 ||
+      pages < 1 || page_size < 1 || (1 << log2_ps) != page_size ||
+      heads > 65535 || slots > 65535 ||
+      (long long)max_pages * page_size > 0x7fffffffLL ||
+      (long long)pages * page_size * units > 0xffffffffLL)
+    return cudaErrorInvalidValue;
+  const PagedRows rows = {static_cast<const float*>(key_pool),
+                          static_cast<const float*>(value_pool),
+                          static_cast<const int*>(tables), max_pages,
+                          log2_ps, pages};
+  return launch<64>(static_cast<const float*>(q), rows,
+                    static_cast<const int*>(positions),
+                    static_cast<float*>(out), slots, max_pages * page_size,
+                    heads, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,12 @@
-"""Autoregressive decoding over a slot KV cache (the port of
+"""Autoregressive decoding over a slot or a paged KV cache (the port of
 ``mxnet_tpu/serving/decode``)."""
 from .engine import DecodeEngine, DrainTimeout, GenerateStream
 from .model import (DecodeModel, TransformerLM, init_transformer_lm,
                     params_from_jax)
-from .program import DecodeProgram, freeze_decode
+from .paged import PageAllocator, PagedCacheSpec, PrefixCache
+from .program import DecodeProgram, PagedDecodeProgram, freeze_decode
 
 __all__ = ['DecodeEngine', 'DrainTimeout', 'GenerateStream', 'DecodeModel',
            'TransformerLM', 'init_transformer_lm', 'params_from_jax',
-           'DecodeProgram', 'freeze_decode']
+           'PageAllocator', 'PagedCacheSpec', 'PrefixCache',
+           'DecodeProgram', 'PagedDecodeProgram', 'freeze_decode']

@@ -1,5 +1,5 @@
-"""Continuous batching over the slot cache, the port of
-``mxnet_tpu/serving/decode/engine.py``.
+"""Continuous batching over the slot cache or the paged cache, the port
+of ``mxnet_tpu/serving/decode/engine.py``.
 
 Sequences join and leave the in-flight decode batch at token
 granularity. The engine schedules a fixed register file of ``slots``
@@ -18,11 +18,29 @@ raises :class:`BackpressureError`, a reaper thread independent of the
 worker enforces the per-request budget with :class:`RequestTimeout`,
 and a closed engine raises :class:`BatcherClosed`.
 
+**Paged scheduling** (``program.paged``): the engine owns the host state
+of the page pool: a :class:`~.paged.PageAllocator` free list with
+refcounts, a page allocated when a sequence's position crosses into it,
+a :class:`~.paged.PrefixCache` that lands a prompt on the registered
+pages of an earlier one (no prefill runs for them; the rest of the
+prompt streams through decode steps), copy-on-write before any write
+into a shared page, and LRU eviction of cached prefixes under pool
+pressure. An exhausted pool fails the stream with
+:class:`BackpressureError`, at admission or mid-stream, never a stall.
+**Speculative decoding**: with a ``draft`` program and ``spec_k > 0``,
+a tick runs the draft ``spec_k`` single steps to propose tokens and one
+target ``run_verify`` to score all ``spec_k + 1`` positions; the longest
+greedy-matching prefix is accepted, plus the target's own token at the
+first mismatch. Rejected K/V rows stay masked until overwritten.
+
 The scheduler is numpy + threading around a duck-typed program
 (``slots``, ``max_len``, ``max_prompt_len()``, ``new_cache()``,
-``run_prefill``, ``run_step``); the worker thread alone owns the device
-cache. The breaker, watchdog, degraded fallback, paging, speculation,
-adapters, migration and tracing of the JAX engine are later slices.
+``run_prefill``, ``run_step``; a paged one adds ``page_size``, ``pages``,
+``max_pages``, ``spec_k``, ``run_copy_page`` and ``run_verify``); the
+worker thread alone owns the device cache. The breaker, watchdog,
+degraded fallback, sampling, adapters, migration and tracing of the JAX
+engine are later slices (ROADMAP queue A): a failed device call fails
+the streams it carried and the cache is rebuilt.
 """
 from __future__ import annotations
 
@@ -33,7 +51,9 @@ import time
 
 import numpy as onp
 
+from ... import config as _config
 from ..batcher import BackpressureError, BatcherClosed, RequestTimeout
+from .paged import TRASH_PAGE, PageAllocator, PrefixCache, pages_for
 
 __all__ = ['GenerateStream', 'DecodeEngine', 'DrainTimeout']
 
@@ -108,7 +128,8 @@ class _Seq:
     """One admitted request's scheduling state."""
 
     __slots__ = ('stream', 'prompt', 'max_new', 'eos_id', 'slot', 'pos',
-                 'last_token', 'enqueued_at', 'deadline_at')
+                 'last_token', 'enqueued_at', 'deadline_at', 'table',
+                 'pages')
 
     def __init__(self, stream, prompt, max_new, eos_id, enqueued_at,
                  deadline_at):
@@ -121,13 +142,31 @@ class _Seq:
         self.last_token = None
         self.enqueued_at = enqueued_at
         self.deadline_at = deadline_at
+        # paged: the page table (int32, max_pages entries, trash-filled)
+        # and the pool pages this sequence holds a ref on
+        self.table = None
+        self.pages = []
+
+    @property
+    def extending(self):
+        """True while a prefix-hit sequence still feeds its unshared
+        prompt suffix through decode steps (nothing is emitted until its
+        last prompt token is fed)."""
+        return self.pos is not None and self.pos < len(self.prompt)
 
 
 class DecodeEngine:
-    """Continuous-batching scheduler over a slot decode program."""
+    """Continuous-batching scheduler over a decode program, slot or
+    paged.
+
+    ``prefix_cache`` (None: ``MXNET_TPU_SERVE_PREFIX_CACHE``) shares
+    prompt prefixes on a paged program; ``draft`` (a slot
+    :class:`~.program.DecodeProgram` with the target's slots) turns on
+    speculative decoding on a paged program with ``spec_k > 0``."""
 
     def __init__(self, program, max_queue=256, timeout_s=30.0,
-                 max_new_tokens=64, prefill_interleave=1, name='decode'):
+                 max_new_tokens=64, prefill_interleave=1, name='decode',
+                 draft=None, prefix_cache=None):
         self.program = program
         self.slots = int(program.slots)
         self.max_queue = int(max_queue)
@@ -145,7 +184,46 @@ class DecodeEngine:
         self._counts = {'requests': 0, 'rejected': 0, 'tokens': 0,
                         'prefills': 0, 'steps': 0, 'timeouts': 0,
                         'drain_timeouts': 0, 'step_seconds': 0.0,
-                        'retired': {}}
+                        'retired': {}, 'prefix_hits': 0,
+                        'prefix_tokens_saved': 0, 'spec_proposed': 0,
+                        'spec_accepted': 0, 'spec_rounds': 0,
+                        'cow_copies': 0, 'pool_exhausted': 0,
+                        'page_evictions': 0}
+        # paged scheduling: the host side of the page pool
+        self.paged = bool(getattr(program, 'paged', False))
+        self._allocator = self._prefix = None
+        if self.paged:
+            self._allocator = PageAllocator(program.pages)
+            if prefix_cache is None:
+                prefix_cache = _config.get('MXNET_TPU_SERVE_PREFIX_CACHE')
+            if prefix_cache:
+                self._prefix = PrefixCache(program.page_size,
+                                           self._allocator)
+        # speculative decoding: the draft proposes spec_k tokens a tick,
+        # the target verifies them in one call
+        self._draft = self._draft_cache = None
+        self.spec_k = 0
+        if draft is not None:
+            spec_k = int(getattr(program, 'spec_k', 0))
+            if not self.paged or not spec_k:
+                raise ValueError(
+                    'speculative decoding needs a paged target program '
+                    'with spec_k > 0 (got paged=%r spec_k=%r)'
+                    % (self.paged, spec_k))
+            if int(draft.slots) != self.slots:
+                raise ValueError('draft slots %d != target slots %d'
+                                 % (int(draft.slots), self.slots))
+            if getattr(draft, 'paged', False):
+                raise ValueError(
+                    'the draft must be a slot-cache program (freeze it '
+                    'with paged=False)')
+            dm = getattr(draft, 'model', None)
+            if dm is not None and not getattr(dm, 'supports_paging', True):
+                raise ValueError(
+                    'draft family %r cannot roll back rejected proposals '
+                    '(it needs a position-addressed cache)' % (dm.family,))
+            self._draft = draft
+            self.spec_k = spec_k
         self._worker = threading.Thread(
             target=self._run, daemon=True,
             name='mxnet-tpu-torch-%s-decode' % name)
@@ -260,7 +338,10 @@ class DecodeEngine:
                     break
                 seq = self._pending.pop(0)
                 slot = self._free.pop(0)
-            self._admit(seq, slot)
+            if self.paged:
+                self._admit_paged(seq, slot)
+            else:
+                self._admit(seq, slot)
             budget -= 1
         if self._active:
             self._step()
@@ -284,6 +365,97 @@ class DecodeEngine:
                 self._free.append(slot)
                 self._counts['retired'][reason] = \
                     self._counts['retired'].get(reason, 0) + 1
+                # drop the sequence's page holds; pages the prefix
+                # registry still holds stay for later hits
+                self._release_pages_locked(seq)
+
+    # -- paged pool bookkeeping (worker thread only) ------------------------
+
+    def _rebuild_cache(self):
+        """A fresh device cache: at first use, and after a failed device
+        call (the in-place updates may have left it half written). The
+        pool's host state describes the old pool, so it resets with it;
+        callers retire (and release) their slots first."""
+        self._cache = self.program.new_cache()
+        if self._allocator is not None:
+            with self._lock:
+                self._allocator.reset()
+                if self._prefix is not None:
+                    self._prefix.clear()
+        if self._draft is not None:
+            self._draft_cache = self._draft.new_cache()
+
+    def _release_pages_locked(self, seq):
+        if self._allocator is not None and seq.pages:
+            for p in seq.pages:
+                self._allocator.release(p)
+            seq.pages = []
+
+    def _free_slot(self, seq, slot):
+        """Give back a slot that never went live, and its pages."""
+        with self._lock:
+            self._release_pages_locked(seq)
+            self._free.append(slot)
+
+    def _alloc_pages(self, n):
+        """``n`` fresh pages, evicting LRU cached prefixes under pool
+        pressure; None when the pool is exhausted."""
+        with self._lock:
+            ids = self._allocator.alloc(n)
+            if ids is None and self._prefix is not None:
+                evicted = self._prefix.evict_lru(n)
+                self._counts['page_evictions'] += len(evicted)
+                ids = self._allocator.alloc(n)
+        return ids
+
+    def _fail_pool_exhausted(self, seq):
+        """An exhausted pool is typed backpressure, never a stall: the
+        stream fails with BackpressureError and the client backs off."""
+        with self._lock:
+            self._counts['pool_exhausted'] += 1
+            depth = len(self._pending)
+        seq.stream._finish('error', BackpressureError(depth, self.max_queue))
+
+    def _ensure_writable(self, seq, first_pos, last_pos):
+        """Make every page this tick writes (positions ``first_pos ..
+        last_pos`` of ``seq``) private: allocate pages at boundary
+        crossings, copy shared pages on write. Returns False when the
+        pool is exhausted (after LRU eviction); a failed copy raises."""
+        ps = self.program.page_size
+        for pi in range(int(first_pos) // ps, int(last_pos) // ps + 1):
+            page = int(seq.table[pi])
+            if page == TRASH_PAGE:
+                ids = self._alloc_pages(1)
+                if ids is None:
+                    return False
+                seq.table[pi] = ids[0]
+                with self._lock:
+                    seq.pages.append(ids[0])
+                continue
+            with self._lock:
+                shared = self._allocator.refcount(page) > 1
+                if shared and self._prefix is not None \
+                        and self._allocator.refcount(page) == 2 \
+                        and self._prefix.release_leaf(page):
+                    # the registry was the only other holder: its
+                    # registration goes instead of a copy
+                    shared = self._allocator.refcount(page) > 1
+            if not shared:
+                continue
+            # copy-on-write: the first divergent write into a shared
+            # page lands in this sequence's own copy
+            ids = self._alloc_pages(1)
+            if ids is None:
+                return False
+            self._cache = self.program.run_copy_page(self._cache, page,
+                                                     ids[0])
+            with self._lock:
+                self._allocator.release(page)
+                seq.pages.remove(page)
+                seq.pages.append(ids[0])
+                self._counts['cow_copies'] += 1
+            seq.table[pi] = ids[0]
+        return True
 
     def _admit(self, seq, slot):
         """Prefill one pending request into ``slot`` (join)."""
@@ -306,6 +478,10 @@ class DecodeEngine:
             seq.stream._finish('error', exc)
             logging.exception('decode %s: prefill failed', self.name)
             return
+        self._join(seq, slot, tok)
+
+    def _join(self, seq, slot, tok):
+        """A prefilled sequence joins the batch with its first token."""
         with self._lock:
             self._counts['prefills'] += 1
             self._counts['tokens'] += 1
@@ -315,12 +491,86 @@ class DecodeEngine:
         seq.slot = slot
         seq.pos = len(seq.prompt)
         seq.last_token = int(tok)
-        seq.stream.ttft_s = max(0.0, time.monotonic() - seq.enqueued_at)
-        seq.stream._emit(tok)
+        self._emit_token(seq, tok)
         reason = self._finished_reason(seq, int(tok))
         if reason is not None:
             seq.stream._finish(reason)
             self._retire(slot, seq, reason)
+
+    def _admit_paged(self, seq, slot):
+        """Paged join: a prefix-cache hit references the registered pages
+        and streams the rest of the prompt through decode steps (no
+        prefill runs for the shared pages); a miss allocates pages and
+        runs one bucketed prefill into them. A refused sequence gives
+        back its slot and pages before its stream fails."""
+        if seq.stream.done() or seq.stream._cancelled:
+            if not seq.stream.done():
+                seq.stream._finish('cancelled')
+            with self._lock:
+                self._free.append(slot)
+            return
+        prompt = seq.prompt
+        n = len(prompt)
+        seq.table = onp.full(self.program.max_pages, TRASH_PAGE, 'int32')
+        try:
+            if self._cache is None:
+                self._rebuild_cache()
+            shared, covered = [], 0
+            if self._prefix is not None:
+                with self._lock:
+                    shared, covered = self._prefix.lookup(prompt)
+                # leave >= 1 prompt token to step on: its logits give
+                # the first generated token
+                covered = min(covered, n - 1)
+            if covered > 0:
+                with self._lock:
+                    for p in shared:
+                        self._allocator.ref(p)
+                    seq.pages = list(shared)
+                    self._counts['prefix_hits'] += 1
+                    self._counts['prefix_tokens_saved'] += covered
+                seq.table[:len(shared)] = shared
+                if self._draft is not None:
+                    # the draft has no prefix cache: prefill it whole
+                    self._draft_cache, _t, _l = self._draft.run_prefill(
+                        self._draft_cache, onp.asarray(prompt, 'int32'),
+                        slot)
+                seq.slot = slot
+                seq.pos = covered
+                seq.last_token = int(prompt[covered])
+                with self._lock:
+                    self._active[slot] = seq
+                return
+            ids = self._alloc_pages(pages_for(n, self.program.page_size))
+            if ids is None:
+                self._free_slot(seq, slot)
+                self._fail_pool_exhausted(seq)
+                return
+            with self._lock:
+                seq.pages = list(ids)
+            seq.table[:len(ids)] = ids
+            self._cache, tok, _logits = self.program.run_prefill(
+                self._cache, onp.asarray(prompt, 'int32'), ids)
+            if self._draft is not None:
+                self._draft_cache, _t, _l = self._draft.run_prefill(
+                    self._draft_cache, onp.asarray(prompt, 'int32'), slot)
+            if self._prefix is not None:
+                with self._lock:
+                    self._prefix.register(prompt, ids)
+        except Exception as exc:
+            self._free_slot(seq, slot)
+            seq.stream._finish('error', exc)
+            logging.exception('decode %s: paged prefill failed', self.name)
+            return
+        self._join(seq, slot, tok)
+
+    @staticmethod
+    def _emit_token(seq, tok):
+        """Stream one generated token; the first sets the TTFT (a
+        prefix-hit sequence earns its first token from a decode step)."""
+        if seq.stream.ttft_s is None:
+            seq.stream.ttft_s = max(0.0, time.monotonic() - seq.enqueued_at)
+        seq.stream._emit(tok)
 
     def _finished_reason(self, seq, tok):
         if seq.eos_id is not None and tok == seq.eos_id:
@@ -332,10 +582,21 @@ class DecodeEngine:
         return None
 
     def _step(self):
-        """Advance every live slot one token."""
+        """Advance every live slot one token; a paged engine runs the
+        page-table step, or the speculative tick when every live slot
+        allows it (none extending, ``pos + spec_k < max_len``)."""
         with self._lock:
             active = dict(self._active)
         if not active:
+            return
+        if self.paged:
+            if self._draft is not None and all(
+                    not s.extending
+                    and s.pos + self.spec_k < self.program.max_len
+                    for s in active.values()):
+                self._spec_step(active)
+            else:
+                self._paged_step(active)
             return
         tokens = onp.zeros(self.slots, 'int32')
         positions = onp.zeros(self.slots, 'int32')
@@ -347,13 +608,7 @@ class DecodeEngine:
             self._cache, toks, _logits = self.program.run_step(
                 self._cache, tokens, positions)
         except Exception as exc:
-            # fail the in-flight streams with the error, retire their
-            # slots and start from a fresh cache
-            logging.exception('decode %s: step failed', self.name)
-            for slot, seq in active.items():
-                seq.stream._finish('error', exc)
-                self._retire(slot, seq, 'error')
-            self._cache = None
+            self._fail_step(active, exc, 'step')
             return
         dt = time.monotonic() - t0
         with self._lock:
@@ -366,13 +621,191 @@ class DecodeEngine:
             tok = int(toks[slot])
             seq.pos += 1
             seq.last_token = tok
-            seq.stream._emit(tok)
+            self._emit_token(seq, tok)
             reason = self._finished_reason(seq, tok)
             if reason is not None:
                 seq.stream._finish(reason)
                 self._retire(slot, seq, reason)
 
+    def _fail_step(self, active, exc, what):
+        """A failed device call: fail the streams it carried, retire their
+        slots (and pages) and rebuild the cache at the next admission."""
+        logging.exception('decode %s: %s failed', self.name, what)
+        for slot, seq in active.items():
+            seq.stream._finish('error', exc)
+            self._retire(slot, seq, 'error')
+        self._cache = None
+
+    def _page_faults(self, active, lookahead=0):
+        """Before a step: allocate pages at boundary crossings and copy
+        shared pages on write for every live slot, positions ``pos ..
+        pos + lookahead``. An exhausted pool fails that stream typed and
+        drops it from this tick."""
+        for slot, seq in list(active.items()):
+            if seq.stream.done() or seq.stream._cancelled:
+                continue
+            if not self._ensure_writable(seq, seq.pos, seq.pos + lookahead):
+                self._fail_pool_exhausted(seq)
+                self._retire(slot, seq, 'error')
+                del active[slot]
+        return active
+
+    def _paged_step(self, active):
+        """One decode step through the page tables. A slot still
+        extending (a prefix hit feeding its prompt suffix) feeds prompt
+        tokens and emits nothing until its last prompt token's logits
+        give its first generated token. With a draft, the draft's cache
+        steps too, so that its history has no hole at these positions."""
+        tokens = onp.zeros(self.slots, 'int32')
+        positions = onp.zeros(self.slots, 'int32')
+        tables = onp.zeros((self.slots, self.program.max_pages), 'int32')
+        t0 = time.monotonic()
+        try:
+            active = self._page_faults(active)
+            if not active:
+                return
+            for slot, seq in active.items():
+                tokens[slot] = seq.last_token
+                positions[slot] = seq.pos
+                tables[slot] = seq.table
+            self._cache, toks, _logits = self.program.run_step(
+                self._cache, tokens, positions, tables)
+            if self._draft is not None:
+                self._draft_cache, _t, _l = self._draft.run_step(
+                    self._draft_cache, tokens, positions)
+        except Exception as exc:
+            self._fail_step(active, exc, 'paged step')
+            return
+        dt = time.monotonic() - t0
+        emitted = 0
+        for slot, seq in active.items():
+            if seq.stream.done() or seq.stream._cancelled:
+                continue            # retired at the next tick
+            fed = seq.pos
+            seq.pos += 1
+            if fed < len(seq.prompt) - 1:
+                # extending: the next prompt token feeds
+                seq.last_token = int(seq.prompt[seq.pos])
+                continue
+            tok = int(toks[slot])
+            seq.last_token = tok
+            self._emit_token(seq, tok)
+            emitted += 1
+            reason = self._finished_reason(seq, tok)
+            if reason is not None:
+                seq.stream._finish(reason)
+                self._retire(slot, seq, reason)
+        with self._lock:
+            self._counts['steps'] += 1
+            self._counts['tokens'] += emitted
+            self._counts['step_seconds'] += dt
+
+    def _spec_step(self, active):
+        """Speculative tick: the draft proposes ``spec_k`` tokens (that
+        many draft steps), the target scores all ``spec_k + 1`` positions
+        in one verify call, and the longest greedy-matching prefix is
+        accepted plus the target's token at the first mismatch: 1 to
+        ``spec_k + 1`` tokens a sequence for one target pass."""
+        k = self.spec_k
+        C = k + 1
+        inputs = onp.zeros((self.slots, C), 'int32')
+        positions = onp.zeros(self.slots, 'int32')
+        tables = onp.zeros((self.slots, self.program.max_pages), 'int32')
+        t0 = time.monotonic()
+        try:
+            active = self._page_faults(active, lookahead=k)
+            if not active:
+                return
+            for slot, seq in active.items():
+                inputs[slot, 0] = seq.last_token
+                positions[slot] = seq.pos
+                tables[slot] = seq.table
+            cur = inputs[:, 0].copy()
+            for c in range(1, C):
+                self._draft_cache, dtoks, _l = self._draft.run_step(
+                    self._draft_cache, cur, positions + (c - 1))
+                cur = onp.asarray(dtoks, 'int32').copy()
+                inputs[:, c] = cur
+            # feed the last proposal too (its output is dropped): a fully
+            # accepted round moves past pos + k, and this is the only
+            # write of that draft row; skipped, every later proposal
+            # would attend a zero row there
+            self._draft_cache, _t, _l = self._draft.run_step(
+                self._draft_cache, cur, positions + k)
+            self._cache, vtoks, _logits = self.program.run_verify(
+                self._cache, inputs, positions, tables)
+        except Exception as exc:
+            self._fail_step(active, exc, 'speculative step')
+            return
+        dt = time.monotonic() - t0
+        emitted_total = accepted_total = proposed_total = 0
+        for slot, seq in active.items():
+            if seq.stream.done() or seq.stream._cancelled:
+                continue            # its proposals were never judged
+            proposed_total += k
+            # the target's token at index c predicts position pos + c + 1;
+            # the draft's next proposal is accepted while it matches
+            emitted = []
+            adv = 1
+            for c in range(C):
+                emitted.append(int(vtoks[slot, c]))
+                if c < k and int(inputs[slot, c + 1]) == emitted[-1]:
+                    adv += 1
+                    continue
+                break
+            p0 = seq.pos
+            seq.pos = p0 + adv
+            seq.last_token = emitted[-1]
+            accepted_total += adv - 1
+            reason = None
+            for i, tok in enumerate(emitted):
+                self._emit_token(seq, tok)
+                emitted_total += 1
+                # each token's finish check at its own position p0 + i + 1
+                if seq.eos_id is not None and tok == seq.eos_id:
+                    reason = 'eos'
+                elif len(seq.stream.tokens) >= seq.max_new:
+                    reason = 'length'
+                elif p0 + i + 2 >= self.program.max_len:
+                    reason = 'length'
+                if reason is not None:
+                    break
+            if reason is not None:
+                seq.stream._finish(reason)
+                self._retire(slot, seq, reason)
+        with self._lock:
+            self._counts['steps'] += 1
+            self._counts['spec_rounds'] += 1
+            self._counts['spec_proposed'] += proposed_total
+            self._counts['spec_accepted'] += accepted_total
+            self._counts['tokens'] += emitted_total
+            self._counts['step_seconds'] += dt
+
     # -- introspection and shutdown ----------------------------------------
+
+    def cache_accounting(self):
+        """The cache's device bytes and what a sequence holds of them: for
+        a paged program the pool's real residency, the pool's occupancy
+        and the bytes the live sequences hold each (one page when idle,
+        what a new sequence costs at least); for a slot program its
+        slots x max_len rows, the worst case for every sequence."""
+        prog = self.program
+        out = {'paged': self.paged, 'cache_bytes': int(prog.cache_bytes())}
+        per_seq = getattr(prog, 'per_sequence_bytes', None)
+        amort = out['per_sequence_bytes_max'] = \
+            int(per_seq()) if callable(per_seq) else None
+        if self.paged:
+            with self._lock:
+                out['pool'] = self._allocator.stats()
+                live = len(self._active)
+                live_pages = sum(len(s.pages)
+                                 for s in self._active.values())
+            pb = out['page_bytes'] = int(prog.page_bytes())
+            amort = live_pages * pb // live if live else pb
+        out['per_sequence_bytes_amortized'] = amort
+        if amort:
+            out['max_concurrent_sequences_per_gb'] = (1 << 30) // amort
+        return out
 
     def stats(self):
         with self._lock:
@@ -382,10 +815,24 @@ class DecodeEngine:
                 'free_slots': len(self._free),
                 'slots': self.slots,
                 'closed': self._closed,
+                'paged': self.paged,
                 'counts': {k: (dict(v) if isinstance(v, dict) else v)
                            for k, v in self._counts.items()},
             }
+            if self._allocator is not None:
+                out['pages'] = self._allocator.stats()
+                if self._prefix is not None:
+                    out['pages']['prefix_entries'] = len(self._prefix)
+            if self._draft is not None:
+                proposed = self._counts['spec_proposed']
+                out['spec'] = {
+                    'k': self.spec_k, 'proposed': proposed,
+                    'accepted': self._counts['spec_accepted'],
+                    'acceptance_rate': round(
+                        self._counts['spec_accepted'] / proposed, 4)
+                    if proposed else None}
         out['cache_bytes'] = int(self.program.cache_bytes())
+        out['cache'] = self.cache_accounting()
         return out
 
     def close(self, drain=True, timeout=30.0):
@@ -416,9 +863,10 @@ class DecodeEngine:
                 leftovers = list(self._pending) + list(
                     self._active.values())
                 self._pending = []
-                for slot in list(self._active):
+                for slot, seq in list(self._active.items()):
                     del self._active[slot]
                     self._free.append(slot)
+                    self._release_pages_locked(seq)
                 self._counts['drain_timeouts'] += len(leftovers)
         for seq in leftovers:
             seq.stream._finish('error', DrainTimeout(

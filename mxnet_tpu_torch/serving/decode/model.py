@@ -5,9 +5,12 @@ One math path serves prefill, the decode step and the uncached
 reference forward, so that N tokens decoded through the cache equal the
 N tokens of re-running the whole-sequence forward after every token.
 Attention always goes through ``ops/kernels/attention.py``: the
-flash-prefill kernel in :meth:`TransformerLM.prefill` and
-:meth:`TransformerLM.full_forward`, the flash-decode kernel in
-:meth:`TransformerLM.step` (their plain PyTorch versions on the CPU).
+flash-prefill kernel in :meth:`TransformerLM.prefill`,
+:meth:`TransformerLM.paged_prefill` and :meth:`TransformerLM.full_forward`,
+the flash-decode kernel in :meth:`TransformerLM.step` and its paged
+instance in :meth:`TransformerLM.paged_step` (their plain PyTorch versions
+on the CPU). The speculative :meth:`TransformerLM.paged_verify` is plain
+attention, as in the JAX package.
 
 Parameters are a ``{name: tensor}`` dict under the JAX model's names and
 ``(out, in)`` weight layout, so :func:`params_from_jax` carries a JAX
@@ -23,8 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from ...context import resolve_device
-from ...ops.kernels.attention import flash_attention, flash_decode_attention
+from ...ops.kernels.attention import (flash_attention, flash_decode_attention,
+                                      flash_paged_decode_attention)
 from .cache import CacheSpec, write_position, write_slot
+from .paged import (PagedCacheSpec, gather_pages, write_paged_chunk,
+                    write_paged_rows, write_prefill_pages)
 
 __all__ = ['DecodeModel', 'TransformerLM', 'init_transformer_lm',
            'params_from_jax']
@@ -45,9 +51,13 @@ class DecodeModel:
           -> (cache, logits (slots, V))
       * ``full_forward(params, tokens)``
           tokens (B, T) int64 -> logits (B, T, V), the uncached reference
+
+    A family with ``supports_paging`` also serves the paged cache
+    (``paged_spec``, ``paged_prefill``, ``paged_step``, ``paged_verify``).
     """
 
     family = None
+    supports_paging = False
 
     def __init__(self, config):
         self.config = dict(config)
@@ -61,7 +71,7 @@ class DecodeModel:
 class TransformerLM(DecodeModel):
     """Causal decoder over bert.py-style blocks (fused QKV, post-norm
     residual cells, GELU FFN, tied embedding head) with a preallocated
-    per-slot KV cache.
+    per-slot KV cache, or a paged one (``paged_*``).
 
     config: vocab, units, hidden, layers, heads, max_len, eps.
     params: embed (V, U), pos (max_len, U), out_bias (V,), and per layer
@@ -242,6 +252,102 @@ class TransformerLM(DecodeModel):
                              device=tokens.device)
         x, _ = self._full_pass(params, tokens, lengths)
         return self._head(params, x)
+
+    # -- the paged cache ----------------------------------------------------
+
+    supports_paging = True
+
+    def paged_spec(self, page_size):
+        """Pool metadata: one (pages, page_size, units) pool per layer's
+        K and V."""
+        return PagedCacheSpec(
+            {'l%d_%s' % (i, kv): ((self.units,), 'float32')
+             for i in range(self.layers) for kv in ('k', 'v')},
+            page_size, self.max_len)
+
+    def paged_prefill(self, params, pool, tokens, length, page_ids):
+        """The prefill through the page table: the same ``_full_pass`` as
+        :meth:`prefill` (so the same logits), with the prompt's K/V,
+        zero-padded to whole pages, written page by page to the
+        host-allocated ``page_ids`` (npages,) int64 in place; trailing
+        all-padding pages point at the trash page. Returns (pool, logits
+        (V,)) at position ``length - 1``."""
+        lengths = torch.tensor([int(length)], dtype=torch.int32,
+                               device=tokens.device)
+        x, kvs = self._full_pass(params, tokens, lengths)
+        rows = page_ids.shape[0] * next(iter(pool.values())).shape[1]
+        pad = rows - tokens.shape[1]
+        for i, (k, v) in enumerate(kvs):
+            for name, arr in (('k', k), ('v', v)):
+                write_prefill_pages(pool['l%d_%s' % (i, name)],
+                                    F.pad(arr[0], (0, 0, 0, pad)), page_ids)
+        return pool, self._head(params, x[0, int(length) - 1])
+
+    def paged_step(self, params, pool, tokens, positions, tables):
+        """One decode step over the pool: :meth:`step`'s math, with each
+        slot's row written at ``(table[pos // ps], pos % ps)`` (in place)
+        and the paged decode kernel reading its keys through its table
+        (``tables`` (slots, max_pages) int32). Keys past a slot's position,
+        trash-page rows among them, get weight 0, so the logits are
+        bitwise :meth:`step`'s over the same K/V. Returns (pool, logits
+        (slots, V))."""
+        ps = next(iter(pool.values())).shape[1]
+        pos_idx = positions.long()
+        x = self._embed(params, tokens, pos_idx)          # (slots, U)
+        page_ids = tables.gather(1, (pos_idx // ps)[:, None])[:, 0].long()
+        offsets = pos_idx % ps
+        for i in range(self.layers):
+            qkv = self._dense(x, params['l%d_qkv_w' % i],
+                              params['l%d_qkv_b' % i])
+            q, k, v = qkv.split(self.units, dim=-1)
+            pk = write_paged_rows(pool['l%d_k' % i], k, page_ids, offsets)
+            pv = write_paged_rows(pool['l%d_v' % i], v, page_ids, offsets)
+            ctx = flash_paged_decode_attention(q.contiguous(), pk, pv, tables,
+                                               positions, heads=self.heads,
+                                               scale=self.scale)
+            x = self._attn_out_ffn(params, i, x, ctx)
+        return pool, self._head(params, x)
+
+    def paged_verify(self, params, pool, tokens, positions, tables):
+        """The speculative verify: ``tokens`` (slots, C), the last accepted
+        token and the draft's proposals, advance every slot C positions in
+        one call, with logits at each. Causal within the chunk, each slot
+        masked to its own history. Plain attention (the JAX package's
+        einsum and softmax, no kernel): its sums run in another order than
+        the one-token step's, so its logits agree with the step's to
+        float32 precision, not bitwise; rejected rows stay masked until
+        overwritten. Returns (pool, logits (slots, C, V))."""
+        slots, C = tokens.shape
+        ps = next(iter(pool.values())).shape[1]
+        d = self.units // self.heads
+        qpos = positions.long()[:, None] + torch.arange(
+            C, device=tokens.device)[None, :]             # (S, C)
+        x = self._embed(params, tokens, qpos)             # (S, C, U)
+        page_ids = tables.long().gather(1, qpos // ps)
+        offsets = qpos % ps
+        ar = torch.arange(tables.shape[1] * ps, device=tokens.device)
+        # query c of slot s sees key j iff j <= positions[s] + c
+        bias = torch.where(ar[None, None, :] <= qpos[:, :, None],
+                           0.0, -1e9)[:, None]           # (S, 1, C, Lp)
+        for i in range(self.layers):
+            qkv = self._dense(x, params['l%d_qkv_w' % i],
+                              params['l%d_qkv_b' % i])
+            q, k, v = qkv.split(self.units, dim=-1)
+            write_paged_chunk(pool['l%d_k' % i], k, page_ids, offsets)
+            write_paged_chunk(pool['l%d_v' % i], v, page_ids, offsets)
+            ck = gather_pages(pool['l%d_k' % i], tables)  # (S, Lp, U)
+            cv = gather_pages(pool['l%d_v' % i], tables)
+            qh = (q * self.scale).reshape(slots, C, self.heads, d) \
+                .permute(0, 2, 1, 3)                      # (S, H, C, D)
+            kh = ck.reshape(slots, -1, self.heads, d).permute(0, 2, 3, 1)
+            vh = cv.reshape(slots, -1, self.heads, d).permute(0, 2, 1, 3)
+            scores = torch.matmul(qh, kh) + bias          # (S, H, C, Lp)
+            att = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+            att = att / att.sum(dim=-1, keepdim=True)
+            ctx = torch.matmul(att, vh).permute(0, 2, 1, 3) \
+                .reshape(slots, C, self.units)
+            x = self._attn_out_ffn(params, i, x, ctx)
+        return pool, self._head(params, x)                # (S, C, V)
 
 
 def init_transformer_lm(vocab, units=32, hidden=64, layers=2, heads=4,

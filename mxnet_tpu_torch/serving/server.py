@@ -11,15 +11,19 @@ Two modes, chosen by the program:
     (``max_batch`` or ``deadline_ms``) -> pad to the bucket -> the block
     on the program's device -> outputs copied to the host -> unpad ->
     per-request futures;
-  * a :class:`~.decode.DecodeProgram` goes to the continuous-batching
-    :class:`~.decode.engine.DecodeEngine` (:meth:`InferenceSession.generate`).
+  * a :class:`~.decode.DecodeProgram` (slot or paged) goes to the
+    continuous-batching :class:`~.decode.engine.DecodeEngine`
+    (:meth:`InferenceSession.generate`); ``draft=`` (a slot program)
+    turns on speculative decoding for a paged program with ``spec_k > 0``.
 
 Knob defaults come from ``MXNET_TPU_SERVE_*`` (``mxnet_tpu_torch/config.py``);
 constructor arguments win. Arguments of the other mode are ignored, as in
 the JAX session. Not ported: the circuit breaker and the CPU fallback
 (ROADMAP: "breaker / watchdog and the visible degraded path") -- a
 failing batch fails its requests --, the stall
-watchdog, and the HTTP endpoint.
+watchdog, the HTTP endpoint, and loading the draft from the
+``MXNET_TPU_SERVE_SPEC_DRAFT`` artifact (ROADMAP: "Frozen-artifact
+persistence").
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ class InferenceSession:
 
     def __init__(self, program, max_batch=None, deadline_ms=None,
                  max_queue=None, timeout_s=None, name=None,
-                 max_new_tokens=None, prefill_interleave=None):
+                 max_new_tokens=None, prefill_interleave=None, draft=None):
         self.name = name or getattr(program, 'name', None)
         max_queue = int(_pick(max_queue, 'MXNET_TPU_SERVE_QUEUE_DEPTH'))
         timeout_s = float(_pick(timeout_s, 'MXNET_TPU_SERVE_TIMEOUT_S'))
@@ -59,7 +63,7 @@ class InferenceSession:
                 prefill_interleave=int(_pick(
                     prefill_interleave,
                     'MXNET_TPU_SERVE_PREFILL_INTERLEAVE')),
-                name=self.name)
+                name=self.name, draft=draft)
             self.program = program
             return
         if not isinstance(program, FrozenProgram):

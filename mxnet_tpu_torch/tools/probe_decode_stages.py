@@ -24,7 +24,9 @@ none reads the shared memory of one that left:
   * ``against`` (with ``--against DIR``): ``DIR/flash_decode_fwd.cu`` as
     it stands, built with ``-I DIR``, for example the csrc directory of an
     earlier commit unpacked by ``git archive``; its entry point must take
-    the same arguments.
+    the same arguments. The SASS of its slot-cache kernel (``cuobjdump
+    -sass``, addresses and encodings dropped) is first compared with the
+    built slot instance's, line by line.
 
 Configurations, each slot at one position: max_len 128 (a cluster of one
 CTA) and 512 (of four) at position 127 (one tile, no chain), 255 and 383
@@ -44,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -104,6 +107,31 @@ def _build_variant(build, name, subs, csrc=None):
                             stderr=subprocess.PIPE), so
 
 
+def _slot_sass(build, so):
+    """The SASS instructions of the slot-cache decode kernel in library
+    ``so`` (the one ``flash_decode_fwd_kernel`` that is not the paged
+    instance), addresses and encodings dropped."""
+    tool = os.path.join(build._cuda_home(), 'bin', 'cuobjdump')
+    text = subprocess.run([tool, '-sass', so], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    fns, fn = {}, None
+    for line in text.splitlines():
+        head = re.search(r'Function : (\S+)', line)
+        if head:
+            fn = head.group(1)
+            fns[fn] = []
+        else:
+            ins = re.match(r'\s*/\*[0-9a-f]+\*/\s*(.*?)\s*;', line)
+            if fn and ins:
+                fns[fn].append(ins.group(1))
+    slot = [f for f in fns
+            if 'flash_decode_fwd_kernel' in f and 'PagedRows' not in f]
+    if len(slot) != 1:
+        raise RuntimeError('%s: no single slot decode kernel in %s'
+                           % (so, sorted(fns)))
+    return fns[slot[0]]
+
+
 def _entry(lib):
     fn = lib.mx_flash_decode_fwd
     fn.restype = ctypes.c_int
@@ -136,6 +164,14 @@ def main(argv=None):
             raise RuntimeError('nvcc failed on variant %s:\n%s'
                                % (name, err.decode('utf-8', 'replace')))
         fns[name] = _entry(ctypes.CDLL(so))
+    if against:
+        built = _slot_sass(_build, _build.library_path('flash_decode_fwd'))
+        other = _slot_sass(_build, procs['against'][1])
+        differ = sum(a != b for a, b in zip(built, other)) + abs(
+            len(built) - len(other))
+        print('slot decode kernel SASS: built %d instructions, against %d, '
+              '%d lines differ' % (len(built), len(other), differ),
+              flush=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device='cpu').manual_seed(0)
     units = HEADS * D

@@ -120,13 +120,29 @@ def test_params_from_jax_checks_names_and_shapes(models):
         port.params_from_jax(missing, 'cpu')
 
 
-@pytest.mark.parametrize('kwargs', [dict(paged=True), dict(adapter_rank=4),
+@pytest.mark.parametrize('kwargs', [dict(adapter_rank=4),
                                     dict(sample_args=True),
                                     dict(logit_mask=True)])
 def test_freeze_decode_refuses_unported_configurations(models, kwargs):
     _jm, np_params, pmodel, _pp = models
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         port.freeze_decode(pmodel, np_params, device='cpu', **kwargs)
+
+
+@pytest.mark.parametrize('paged', [True, None, False])
+def test_freeze_decode_pages_transformers_by_default(models, paged):
+    """paged=None resolves as in the JAX package (MXNET_TPU_SERVE_PAGED,
+    True): a transformer gets the paged program; paged=False keeps the
+    slot cache."""
+    _jm, np_params, pmodel, _pp = models
+    prog = port.freeze_decode(pmodel, np_params, prefill_buckets=(4, 8),
+                              device='cpu', paged=paged)
+    if paged is False:
+        assert type(prog) is port.DecodeProgram and not prog.paged
+    else:
+        assert isinstance(prog, port.PagedDecodeProgram) and prog.paged
+        assert prog.page_size == 16
+        assert prog.pages == prog.slots * prog.max_pages + 1
 
 
 def test_freeze_decode_checks_model_and_max_len(models):
