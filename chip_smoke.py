@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero:
      kernel's SASS (``cuobjdump -sass``) must hold HGMMA and UTMALDG
      (counted with UTMASTG, of which noacc's must hold none) and the dq
      and dk/dv kernels' HMMA (their 3xTF32 tensor-core products), or the
-     run fails;
+     run fails; the bf16 instances (AMP) of the flash forward, dq, dk/dv
+     and the act kernels among them, each held apart: no spill, HMMA in
+     the bf16 dq and dk/dv;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -66,7 +68,19 @@ Phases, in order; any failure exits non-zero:
      position 127 and 511; the paged decode kernel's at page size 16
      beside the slot kernel over the same K/V, the page-table gather +
      the slot kernel and SDPA over the gathered view, at the decode case
-     and at phase 3's positions;
+     and at phase 3's positions. Then the bf16 instances (AMP): the flash
+     forward, dq and dk/dv at the training slice's attention cases and
+     the act forward and backward for every act type at the epilogue
+     check sizes, each bitwise equal to its float32 kernel on the
+     widened inputs, rounded (lse equal), and within one bf16 ULP of
+     its plain version beyond the float32 tier (1e-5 absolute for out,
+     1e-5 of the max abs for the gradients; the act kernels plainly);
+     then each timed at the main path's shapes (attention at B 96 H 12
+     S 128 D 64, the act kernels at the pooler's 96 x 768 tanh, also at
+     the ResNet stem shape in relu) beside its float32 instance, its
+     plain version and the library call on bf16 (SDPA and its backward,
+     ``torch.tanh`` / ``tanh_backward``, ``torch.relu`` /
+     ``threshold_backward``), with bounds at bf16 bytes;
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -98,7 +112,16 @@ Phases, in order; any failure exits non-zero:
      read, and must show 12 flash forward, 12 dq, 12 dkv, 2 xent forward
      and 2 xent backward launches per step; losses are finite, the first
      lies within 1.5 of ln(30522) + ln(2), and the last three fall below
-     it;
+     it. 4a-amp: 4a's small BERT under ``amp='bf16'`` on the card
+     against the CPU (loss and step losses 1e-2, gradients 2e-2 of their
+     max abs: ``tests/test_torch_amp.py``'s tolerances). 4c: 4b's
+     configuration, weights and batch under ``amp='bf16'`` (bf16 compute
+     over float32 masters), 2 + 10 steps: per step exactly 12 bf16 flash
+     forward, dq and dk/dv launches, one bf16 act forward and backward,
+     2 float32 xent forward and backward, and nothing else; losses finite
+     and falling, the first within rtol 6e-2 of 4b's; masters and AdamW
+     state float32; step ms, samples/s, busy share, the profile groups
+     (casts apart) and peak memory beside 4b's;
   5. the ResNet slice. 5a: a narrow v1 ResNet (``[2, 1, 1, 1]`` x ``[8,
      16, 32, 64, 128]``, 10 classes) takes one forward and backward and
      three SGD steps (lr 0.001) on the card and on the CPU from the same
@@ -207,6 +230,14 @@ TRAIN_WARMUP, TRAIN_ITERS = 2, 10
 SMALL_BERT = dict(vocab_size=1000, max_length=128, units=256,
                   hidden_size=1024, num_layers=2, num_heads=4, dropout=0.0)
 SMALL_BATCH = dict(batch=4, seq=128, preds=8, lengths=(128, 97, 64, 1))
+# AMP (phases 2, 4a-amp, 4c): the bf16 instances within one bf16 ULP of
+# their plain versions beyond the float32 tier; the small BERT card vs CPU
+# at tests/test_torch_amp.py's tolerances; 4c's first loss against 4b's at
+# the reference's bf16 tier (tests/test_amp.py:152-164)
+BF16_ULPS = 1.0
+AMP_LOSS_RTOL = 1e-2
+AMP_GRAD_REL = 2e-2
+AMP_FIRST_LOSS_RTOL = 6e-2
 
 # the epilogue kernels' checks: the stem BN of ResNet-50 at batch 128, a
 # stage-4 BN, and odd sizes: 9102 and 3003 elements (whole 1024-float
@@ -1083,6 +1114,241 @@ def time_training_kernels(torch, kernels, batch=TRAIN['batch'],
     return rows
 
 
+# -- phase 2: the bf16 instances (AMP) -----------------------------------------
+
+BF16_KERNELS = ('flash_attention_fwd.bf16', 'flash_attention_dq.bf16',
+                'flash_attention_dkv.bf16', 'act_fwd.bf16', 'act_bwd.bf16')
+
+
+def bf16_ulps(torch, got, want, tier=0.0):
+    """Largest |got - want| - ``tier`` over elements (0 where negative),
+    in bf16 ULPs of the larger magnitude of the two (2^(e - 7) for a value
+    in [2^e, 2^(e + 1))). ``tier`` is the float32 kernels' tolerance: two
+    float32 sums in other orders move an element near 0 by up to it,
+    many of that element's bf16 ULPs."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(mag, min=2.0 ** -126)))
+                     - 7)
+    return (torch.clamp((g - w).abs() - tier, min=0) / ulp).max().item()
+
+
+def _bitwise_rounded(torch, got, f32):
+    """``got`` (bf16) equal to the float32 result ``f32`` rounded to bf16
+    (to nearest even)."""
+    return torch.equal(got, f32.to(torch.bfloat16))
+
+
+def check_bf16_kernels(torch, kernels, device, heads=TRAIN['heads'],
+                       d=TRAIN['d'], cases=None, epi_shapes=EPI_SHAPES):
+    """The bf16 instances against the float32 kernels and their plain
+    versions on ``device``: the flash forward, dq and dk/dv on each
+    attention case and the act forward and backward for every act type at
+    each epilogue shape. Each is bitwise the float32 kernel on the widened
+    inputs, rounded (the forward's lse equal), and within
+    :data:`BF16_ULPS` bf16 ULPs of its plain version beyond the float32
+    tier (TOL absolute for out, TOL of the max abs for the gradients, 0
+    for the act kernels). Returns {kernel name: worst max abs error
+    against the plain version}."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device='cpu').manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    worst = dict.fromkeys(BF16_KERNELS, 0.0)
+
+    def hold(name, bitwise, ulps, err, where):
+        if not bitwise or not ulps <= BF16_ULPS:
+            raise AssertionError('%s at %s: bitwise the float32 kernel %s, %.3g '
+                                 'bf16 ULPs from its plain version'
+                                 % (name, where, bitwise, ulps))
+        worst[name] = max(worst[name], err)
+
+    for b, sq, causal, lengths in cases or training_attention_cases():
+        q, k, v, do = (randn(b, heads, sq, d).to(bf) for _ in range(4))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        w = [t.float() for t in (q, k, v, do)]
+        out, lse = kernels.flash_attention_with_lse(q, k, v, lens, causal)
+        out32, lse32 = kernels.flash_attention_with_lse(*w[:3], lens, causal)
+        ref, lse_ref = kernels.flash_attention_reference(q, k, v, lens, causal)
+        fin = ~torch.isneginf(lse_ref)
+        where = 'B=%d S=%d causal=%s' % (b, sq, causal)
+        lse_ok = torch.equal(torch.isneginf(lse), ~fin) and (
+            not fin.any() or (lse[fin] - lse_ref[fin]).abs().max().item()
+            <= TOL)
+        fwd_ulps = bf16_ulps(torch, out, ref, TOL) if lse_ok else math.inf
+        hold('flash_attention_fwd.bf16', _bitwise_rounded(torch, out, out32)
+             and torch.equal(lse, lse32), fwd_ulps,
+             (out.float() - ref.float()).abs().max().item(), where)
+        dq = kernels.flash_attention_dq(q, k, v, out, lse, do, lens, causal)
+        dk, dv = kernels.flash_attention_dkv(q, k, v, out, lse, do, lens,
+                                             causal)
+        wo = out.float()
+        dq32 = kernels.flash_attention_dq(*w[:3], wo, lse, w[3], lens, causal)
+        dk32, dv32 = kernels.flash_attention_dkv(*w[:3], wo, lse, w[3], lens,
+                                                 causal)
+        want = kernels.flash_attention_backward_reference(
+            q, k, v, out, lse, do, lens, causal)
+        ulps = [bf16_ulps(torch, a, r, TOL * r.float().abs().max().item())
+                for a, r in zip((dq, dk, dv), want)]
+        raw = [bf16_ulps(torch, a, r) for a, r in zip((dq, dk, dv), want)]
+        errs = [(a.float() - r.float()).abs().max().item()
+                for a, r in zip((dq, dk, dv), want)]
+        log('check bf16 flash %s lengths %d..%d: fwd bitwise, %.3g ULPs beyond '
+            'the tier (raw %.3g); dq/dk/dv bitwise the float32 kernel %s, '
+            'ULPs beyond the tier %s (raw %s), max_abs_err %s'
+            % (where, min(lengths), max(lengths), fwd_ulps,
+               bf16_ulps(torch, out, ref),
+               [_bitwise_rounded(torch, a, f) for a, f in
+                ((dq, dq32), (dk, dk32), (dv, dv32))],
+               ['%.3g' % u for u in ulps], ['%.3g' % u for u in raw],
+               ['%.3g' % e for e in errs]))
+        hold('flash_attention_dq.bf16', _bitwise_rounded(torch, dq, dq32),
+             ulps[0], errs[0], where)
+        for t, f, u, e in ((dk, dk32, ulps[1], errs[1]),
+                           (dv, dv32, ulps[2], errs[2])):
+            hold('flash_attention_dkv.bf16', _bitwise_rounded(torch, t, f),
+                 u, e, where)
+        del q, k, v, do, w, out, out32, ref, dq, dk, dv, want
+    for shape in epi_shapes:
+        x, g = (torch.randn(shape, generator=gen).mul(3).to(device, bf)
+                for _ in range(2))
+        for act in EPI_EXACT_ACTS + EPI_ULP_ACTS:
+            slope = 0.25 if act == 'leaky' else 0.0
+            y = kernels.act_forward(x, act, slope)
+            o = kernels.act_forward_reference(x, act, slope)
+            ulps_f = bf16_ulps(torch, y, o)
+            hold('act_fwd.bf16', _bitwise_rounded(
+                torch, y, kernels.act_forward(x.float(), act, slope)), ulps_f,
+                (y.float() - o.float()).abs().max().item(),
+                '%s %s' % (shape, act))
+            dx = kernels.act_backward(g, o, act, slope)
+            dref = kernels.act_backward_reference(g, o, act, slope)
+            ulps_b = bf16_ulps(torch, dx, dref)
+            hold('act_bwd.bf16', _bitwise_rounded(torch, dx, kernels.act_backward(
+                g.float(), o.float(), act, slope)), ulps_b,
+                (dx.float() - dref.float()).abs().max().item(),
+                '%s %s' % (shape, act))
+            log('check bf16 act %s act=%s: fwd / bwd bitwise the float32 '
+                'kernel, %.3g / %.3g bf16 ULPs from the plain version'
+                % (shape, act, ulps_f, ulps_b))
+        del x, g
+    return worst
+
+
+def time_bf16_kernels(torch, kernels, batch=TRAIN['batch'],
+                      heads=TRAIN['heads'], seq=TRAIN['seq'], d=TRAIN['d'],
+                      pooler=(TRAIN['batch'], 768),
+                      stem=(RESNET['batch'], 64, 112, 112)):
+    """Times of the bf16 instances at phase 4c's shapes, each beside its
+    float32 instance (``f32_device_ms``, the same inputs widened), its
+    plain version and the library call on bf16: attention at B x H x S x D
+    = 96 x 12 x 128 x 64 against SDPA and SDPA's backward; the act kernels
+    at the pooler's tanh (96 x 768) against ``torch.tanh`` and
+    ``tanh_backward``, and at the ResNet stem shape in relu against
+    ``torch.relu`` and ``threshold_backward`` (``at_stem``). Bounds: the
+    bytes at bf16 widths (lse float32) at 3.35 TB/s against the
+    arithmetic each performs: the forward's float32 on the CUDA cores,
+    dq's and dk/dv's 3xTF32."""
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    bf = torch.bfloat16
+    gen = torch.Generator(device='cpu').manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    rows = {}
+    q, k, v, do = (randn(batch, heads, seq, d) for _ in range(4))
+    lens = torch.full((batch,), seq, dtype=torch.int32, device=dev)
+    qb, kb, vb, dob = (t.to(bf) for t in (q, k, v, do))
+    outb, lse = kernels.flash_attention_with_lse(qb, kb, vb, lens)
+    out = outb.float()
+    shape = 'B%d H%d S%d D%d non-causal lengths %d, bf16' % (batch, heads,
+                                                            seq, d, seq)
+    visible = batch * heads * seq * seq
+    tensor_b = qb.numel() * 2
+    lse_b, lens_b = lse.numel() * 4, batch * 4
+    qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                  for t in (qb, kb, vb))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qs, ks, vs), dob,
+                                   retain_graph=True)
+
+    b_ms, b_by = bound(4 * tensor_b + lse_b + lens_b, visible * 4 * d)
+    rows['flash_attention_fwd.bf16'] = timings(
+        torch, (qb, kb, vb, lens), kernels.flash_attention_with_lse,
+        kernels.flash_attention_reference,
+        lambda q, k, v, lens: F.scaled_dot_product_attention(q, k, v),
+        bound_ms=b_ms, bound_by=b_by,
+        f32_device_ms=device_ms(torch, kernels.flash_attention_with_lse,
+                                (q, k, v, lens)),
+        shape=shape + ', block_q %d, %d blocks; library: SDPA on bf16'
+        % kernels.fwd_geometry(batch, heads, seq)[:2])
+    ins, ins32 = (qb, kb, vb, outb, lse, dob, lens), (q, k, v, out, lse, do,
+                                                       lens)
+    for name, fn, nbytes, products in (
+            ('flash_attention_dq.bf16', kernels.flash_attention_dq,
+             6 * tensor_b, 6), ('flash_attention_dkv.bf16',
+                                kernels.flash_attention_dkv, 7 * tensor_b, 8)):
+        plain = (kernels.flash_attention_dq_reference if 'dq' in name
+                 else kernels.flash_attention_dkv_reference)
+        b_ms, b_by = bound(nbytes + lse_b + lens_b, 3 * visible * products * d,
+                           PEAK_TF32_FLOP_S)
+        rows[name] = timings(
+            torch, ins, fn, plain, sdpa_bwd, library_inputs=(),
+            bound_ms=b_ms, bound_by=b_by,
+            f32_device_ms=device_ms(torch, fn, ins32),
+            shape=shape + '; bound: 3xTF32 at 495 TFLOP/s; library: SDPA '
+            'backward on bf16 (dq, dk and dv together)')
+    del q, k, v, do, qb, kb, vb, dob, outb, out, lse, qs, ks, vs, sdpa_out
+    del ins, ins32
+    torch.cuda.empty_cache()
+
+    x, g = (randn(*pooler).to(bf) for _ in range(2))
+    o = kernels.act_forward_reference(x, 'tanh')
+    n = x.numel()
+    b_ms, b_by = bound(4 * n, n)
+    rows['act_fwd.bf16'] = timings(
+        torch, (x,), lambda x: kernels.act_forward(x, 'tanh'),
+        lambda x: kernels.act_forward_reference(x, 'tanh'), torch.tanh,
+        bound_ms=b_ms, bound_by=b_by,
+        f32_device_ms=device_ms(torch, lambda x: kernels.act_forward(
+            x, 'tanh'), (x.float(),)),
+        shape='%s tanh bf16 (the pooler); library: torch.tanh' % (pooler,))
+    # g * (1 - out^2): a product, a difference and a product an element
+    b_ms, b_by = bound(6 * n, 3 * n)
+    rows['act_bwd.bf16'] = timings(
+        torch, (g, o), lambda g, o: kernels.act_backward(g, o, 'tanh'),
+        lambda g, o: kernels.act_backward_reference(g, o, 'tanh'),
+        torch.ops.aten.tanh_backward, bound_ms=b_ms, bound_by=b_by,
+        f32_device_ms=device_ms(torch, lambda g, o: kernels.act_backward(
+            g, o, 'tanh'), (g.float(), o.float())),
+        shape='%s tanh bf16 (the pooler); library: aten.tanh_backward'
+        % (pooler,))
+    xs, gs = (torch.randn(stem, generator=gen).to(dev, bf) for _ in range(2))
+    os_ = torch.relu(xs)
+    ns = xs.numel()
+    rows['act_fwd.bf16']['at_stem'] = dict(
+        shape='%s relu bf16; library: torch.relu' % (stem,),
+        device_ms=device_ms(torch, lambda x: kernels.act_forward(x, 'relu'),
+                            (xs,)),
+        library_device_ms=device_ms(torch, torch.relu, (xs,)),
+        bound_ms=bound(4 * ns, ns)[0])
+    rows['act_bwd.bf16']['at_stem'] = dict(
+        shape='%s relu bf16; library: aten.threshold_backward' % (stem,),
+        device_ms=device_ms(torch, lambda g, o: kernels.act_backward(
+            g, o, 'relu'), (gs, os_)),
+        library_device_ms=device_ms(
+            torch, lambda g, o: torch.ops.aten.threshold_backward(g, o, 0),
+            (gs, os_)),
+        bound_ms=bound(6 * ns, ns)[0])
+    return rows
+
+
 def _bn_pairs(kernels, x, g, scale, mean, beta, axis, act, slope):
     """(kernel name, kernel result, plain result) of the two BN apply
     kernels with (C,) coefficients along ``axis``; the backward reads the
@@ -1533,25 +1799,31 @@ def pretrain_loss_fn(gloss, vocab):
 
 
 def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
-                      shape=SMALL_BATCH, steps=3, seed=0):
+                      shape=SMALL_BATCH, steps=3, seed=0, amp=None):
     """Phase 4a: one forward + backward, then ``steps`` trainer steps,
-    on ``device`` and on the CPU from the same weights. Returns
-    (loss relative error, worst gradient relative error, step losses
-    relative error)."""
+    on ``device`` and on the CPU from the same weights; with ``amp``
+    ('bf16', phase 4a-amp) the forward runs under the policy's scope and
+    the trainer takes ``amp``, held to :data:`AMP_LOSS_RTOL` and
+    :data:`AMP_GRAD_REL`. Returns (loss relative error, worst gradient
+    relative error, step losses relative error)."""
+    from mxnet_tpu_torch import amp as amp_mod
     vocab = cfg['vocab_size']
     loss_fn = pretrain_loss_fn(gloss, vocab)
+    phase = 'phase 4a' + ('-amp (%s)' % amp if amp else '')
     runs = {}
     for dev in (device, torch.device('cpu')):
         net = bert.init_params(bert.get_bert(device=dev, **cfg), seed)
         xs, ys = pretrain_batch(torch, dev, vocab, shape['batch'],
                                 shape['seq'], shape['preds'],
                                 shape['lengths'], seed)
-        loss = loss_fn(net(*xs), ys)
+        with amp_mod.scope(amp_mod.resolve(amp) if amp else None):
+            loss = loss_fn(net(*xs), ys)
         loss.backward()
         grads = {n: None if p.grad is None else p.grad.detach().cpu()
                  for n, p in net.collect_params().items()}
         pt = parallel.ParallelTrainer(net, loss_fn, 'adamw',
-                                      dict(TRAIN_HYPER), seed=seed)
+                                      dict(TRAIN_HYPER), seed=seed,
+                                      amp=amp if amp else False)
         losses = [pt.step(xs, ys).item() for _ in range(steps)]
         runs[dev.type] = (loss.item(), grads, losses)
     (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = runs[device.type], \
@@ -1561,18 +1833,21 @@ def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
     for name, want in g_cpu.items():
         got = g_dev[name]
         if (got is None) != (want is None):
-            raise AssertionError('phase 4a: %s has a gradient on one device '
-                                 'only' % name)
+            raise AssertionError('%s: %s has a gradient on one device '
+                                 'only' % (phase, name))
         if want is not None:
             grad_err = max(grad_err, _errs(got, want)[1])
     step_err = max(abs(a - b) / abs(b) for a, b in zip(s_dev, s_cpu))
-    log('phase 4a %s vs cpu: loss %.7g vs %.7g, rel_err %.3g; worst '
+    log('%s %s vs cpu: loss %.7g vs %.7g, rel_err %.3g; worst '
         'gradient rel_err %.3g over %d parameters; %d steps %s vs %s, '
-        'rel_err %.3g' % (device.type, l_dev, l_cpu, loss_err, grad_err,
-                          len(g_cpu), steps, s_dev, s_cpu, step_err))
-    if not loss_err <= TOL or not grad_err <= GRAD_REL \
-            or not step_err <= TOL:
-        raise AssertionError('phase 4a: the card disagrees with the CPU')
+        'rel_err %.3g' % (phase, device.type, l_dev, l_cpu, loss_err,
+                          grad_err, len(g_cpu), steps, s_dev, s_cpu,
+                          step_err))
+    loss_tol, grad_tol = ((AMP_LOSS_RTOL, AMP_GRAD_REL) if amp
+                          else (TOL, GRAD_REL))
+    if not loss_err <= loss_tol or not grad_err <= grad_tol \
+            or not step_err <= loss_tol:
+        raise AssertionError('%s: the card disagrees with the CPU' % phase)
     return loss_err, grad_err, step_err
 
 
@@ -1587,11 +1862,30 @@ def train_launches(kernels, layers):
     return want
 
 
+def amp_train_launches(kernels, layers):
+    """Kernel launches of one training step under ``amp='bf16'``: the
+    bf16 flash forward, dq and dkv once per layer, the bf16 act kernels
+    once each for the pooler's tanh, the float32 xent head (its logits
+    widened by the keep-fp32 class) once for MLM and once for NSP; no
+    float32 attention or act launch."""
+    bf = kernels.BF16
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({'flash_attention_fwd' + bf: layers,
+                 'flash_attention_dq' + bf: layers,
+                 'flash_attention_dkv' + bf: layers, 'softmax_xent_fwd': 2,
+                 'softmax_xent_bwd': 2, 'act_fwd' + bf: 1,
+                 'act_bwd' + bf: 1})
+    return want
+
+
 def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
-               shape=TRAIN, warmup=TRAIN_WARMUP, iters=TRAIN_ITERS, seed=0):
-    """Phase 4b: BERT pretraining steps through ``ParallelTrainer.step``.
-    The launch counts are zeroed after the warm-up and read after the
-    timed steps. Returns a dict of results."""
+               shape=TRAIN, warmup=TRAIN_WARMUP, iters=TRAIN_ITERS, seed=0,
+               amp=None):
+    """Phase 4b (``amp`` None: float32) or 4c (``amp='bf16'``): BERT
+    pretraining steps through ``ParallelTrainer.step``. The launch counts
+    are zeroed after the warm-up and read after the timed steps. Returns
+    a dict of results."""
+    phase = 'phase 4c' if amp else 'phase 4b'
     t0 = time.perf_counter()
     if cfg is None:
         net = bert.bert_12_768_12(vocab_size=shape['vocab'], max_length=512,
@@ -1604,7 +1898,8 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     xs, ys = pretrain_batch(torch, device, vocab, shape['batch'],
                             shape['seq'], shape['preds'], seed=seed)
     pt = parallel.ParallelTrainer(net, pretrain_loss_fn(gloss, vocab),
-                                  'adamw', dict(TRAIN_HYPER), seed=seed)
+                                  'adamw', dict(TRAIN_HYPER), seed=seed,
+                                  amp=amp if amp else False)
     setup_s = time.perf_counter() - t0
     cuda = device.type == 'cuda'
     losses = [pt.step(xs, ys) for _ in range(warmup)]
@@ -1628,25 +1923,39 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     wall = time.perf_counter() - t1
     counts = kernels.launch_counts()
     losses = [float(l) for l in losses]
-    per_step = train_launches(kernels, layers)
+    per_step = (amp_train_launches if amp else train_launches)(kernels,
+                                                               layers)
     if cuda and counts != {n: c * iters for n, c in per_step.items()}:
-        raise AssertionError('phase 4b: kernel launches %r in %d steps, '
-                             'expected %r per step' % (counts, iters,
+        raise AssertionError('%s: kernel launches %r in %d steps, '
+                             'expected %r per step' % (phase, counts, iters,
                                                        per_step))
     if not all(math.isfinite(l) for l in losses):
-        raise AssertionError('phase 4b: a loss is not finite: %r' % losses)
+        raise AssertionError('%s: a loss is not finite: %r' % (phase,
+                                                               losses))
     expect = math.log(vocab) + math.log(2)
     if not abs(losses[0] - expect) <= 1.5:
-        raise AssertionError('phase 4b: first loss %.4f is not within 1.5 '
-                             'of ln(V) + ln(2) = %.4f' % (losses[0], expect))
+        raise AssertionError('%s: first loss %.4f is not within 1.5 '
+                             'of ln(V) + ln(2) = %.4f' % (phase, losses[0],
+                                                          expect))
     if not statistics.mean(losses[-3:]) < losses[0]:
-        raise AssertionError('phase 4b: the loss did not fall: %r' % losses)
+        raise AssertionError('%s: the loss did not fall: %r' % (phase,
+                                                                losses))
+    # masters and optimizer state stay float32 under AMP
+    masters = sorted({str(p.dtype) for p in net.parameters()})
+    states = sorted({str(t.dtype) for st in pt._states
+                     for t in (st if isinstance(st, (tuple, list)) else (st,))
+                     if t is not None})
+    if masters != ['torch.float32'] or states != ['torch.float32']:
+        raise AssertionError('%s: masters %s, AdamW state %s: not float32'
+                             % (phase, masters, states))
     step_ms = [s.elapsed_time(e) for s, e in events]
     return {
         'setup_s': setup_s, 'losses': losses, 'launches': counts,
-        'per_step': per_step, 'wall_s': wall,
+        'per_step': per_step, 'wall_s': wall, 'amp': pt.amp,
+        'master_dtypes': masters, 'state_dtypes': states,
         'profile': (profile_step(torch, lambda: pt.step(xs, ys),
-                                 BERT_GROUPS) if cuda else None),
+                                 AMP_GROUPS if amp else BERT_GROUPS)
+                    if cuda else None),
         'samples_per_s': shape['batch'] * iters / wall,
         'step_ms': statistics.mean(step_ms) if step_ms else None,
         'step_ms_each': step_ms,
@@ -1661,8 +1970,12 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
 # annotation) that encloses the CUDA runtime call which launched it
 BERT_GROUPS = (('attention kernels', ('flash_attention',), ()),
                ('xent kernels', ('softmax_xent',), ()),
-               ('GEMMs', ('gemm', 'xmma', 'cutlass'), ()),
+               ('GEMMs', ('gemm', 'xmma', 'cutlass', 'nvjet'), ()),
                ('copies', ('memcpy', 'memset'), ()))
+# 4c: 4b's groups and the AMP casts apart (the copies that make the bf16
+# compute copies of the masters and activations, and widen gradients)
+AMP_GROUPS = BERT_GROUPS[:3] + (
+    ('casts', (), ('aten::_to_copy', 'ToCopyBackward')),) + BERT_GROUPS[3:]
 RESNET_GROUPS = (('epilogue kernels', ('epilogue_',), ()),
                  ('xent kernels', ('softmax_xent',), ()),
                  ('SGD', (), ('sgd_update',)),
@@ -2723,11 +3036,12 @@ def check_epilogue_build(ptxas):
     was current and not rebuilt). Raises when one spills, or when ptxas
     ran and reported not all four kernels. Returns {kernel: {'st' or
     'cs': most registers over the acts}} (``cs``: the evict-first
-    stores)."""
+    stores). The act kernels' bf16 instances count as ``act_fwd_bf16`` /
+    ``act_bwd_bf16``."""
     regs, spills = {}, {}
     for fn, (n, spill) in ptxas_entries(ptxas).items():
-        m = re.search(r'epilogue_((?:bn_)?act_(?:fwd|bwd))_kernelILi\d+ELb'
-                      r'([01])E', fn)
+        m = re.search(r'epilogue_((?:bn_)?act_(?:fwd|bwd)(?:_bf16)?)_kernel'
+                      r'ILi\d+ELb([01])E', fn)
         if not m:
             continue
         if spill:
@@ -2737,7 +3051,8 @@ def check_epilogue_build(ptxas):
         by[key] = max(by.get(key, 0), n)
     if spills:
         raise AssertionError('epilogue stream kernels spill: %s' % spills)
-    want = {'act_fwd', 'act_bwd', 'bn_act_fwd', 'bn_act_bwd'}
+    want = {'act_fwd', 'act_bwd', 'bn_act_fwd', 'bn_act_bwd', 'act_fwd_bf16',
+            'act_bwd_bf16'}
     if ptxas and set(regs) != want:
         raise AssertionError('ptxas reported no %s kernel of epilogue.cu: '
                              '%s' % (' / '.join(sorted(want - set(regs))),
@@ -2745,23 +3060,33 @@ def check_epilogue_build(ptxas):
     return regs
 
 
+def _instance(fn):
+    """'bf16' or 'f32': the element type of a mangled kernel instance."""
+    return 'bf16' if '__nv_bfloat16' in fn else 'f32'
+
+
 def _check_mma_build(build, ptxas, kernel):
-    """``kernel`` of ``csrc/flash_attention_bwd.cu`` as built: its
-    registers and spills from ptxas (``ptxas``: that source's lines; empty
-    when the library was current) and its tensor-core instructions
-    (HMMA) in the SASS. Raises when it spills or holds no HMMA. Returns
-    (registers or None, {instruction: count})."""
-    regs = None
+    """``kernel``'s two instances (float32, bf16) in
+    ``csrc/flash_attention_bwd.cu`` as built: their registers and spills
+    from ptxas (``ptxas``: that source's lines; empty when the library was
+    current) and their tensor-core instructions (HMMA) in the SASS.
+    Raises when one spills or holds no HMMA, or an instance is missing.
+    Returns {'f32' / 'bf16': (registers or None, {instruction: count})}."""
+    regs = {}
     for fn, (n, spill) in ptxas_entries(ptxas).items():
         if kernel + '_kernel' in fn:
             if spill:
-                raise AssertionError('%s spills %d bytes' % (kernel, spill))
-            regs = n
-    counts = sass_counts(build, 'flash_attention_bwd', (kernel + '_kernel',),
-                         ('HMMA', 'LDS'))
-    if len(counts) != 1 or not next(iter(counts.values()))['HMMA']:
-        raise AssertionError('%s SASS holds no HMMA: %s' % (kernel, counts))
-    return regs, next(iter(counts.values()))
+                raise AssertionError('%s (%s) spills %d bytes'
+                                     % (kernel, _instance(fn), spill))
+            regs[_instance(fn)] = n
+    counts = {_instance(fn): c for fn, c in sass_counts(
+        build, 'flash_attention_bwd', (kernel + '_kernel',),
+        ('HMMA', 'LDS')).items()}
+    if set(counts) != {'f32', 'bf16'} or not all(
+            c['HMMA'] for c in counts.values()):
+        raise AssertionError('%s SASS: an instance missing or without HMMA: '
+                             '%s' % (kernel, counts))
+    return {k: (regs.get(k), c) for k, c in counts.items()}
 
 
 def check_no_spills(ptxas, source, kernel_keys):
@@ -2829,10 +3154,19 @@ KERNELS = {
     'flash_attention_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:111'),
+    'flash_attention_fwd.bf16': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu',
+        replaces='mxnet_tpu/ops/pallas/attention.py:111'),
     'flash_attention_dq': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:208'),
+    'flash_attention_dq.bf16': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
+        replaces='mxnet_tpu/ops/pallas/attention.py:208'),
     'flash_attention_dkv': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
+        replaces='mxnet_tpu/ops/pallas/attention.py:243'),
+    'flash_attention_dkv.bf16': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:243'),
     'flash_decode_fwd': dict(
@@ -2856,7 +3190,13 @@ KERNELS = {
     'act_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
         replaces='mxnet_tpu/ops/pallas/epilogue.py:234'),
+    'act_fwd.bf16': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
+        replaces='mxnet_tpu/ops/pallas/epilogue.py:234'),
     'act_bwd': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
+        replaces='mxnet_tpu/ops/pallas/epilogue.py:239'),
+    'act_bwd.bf16': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
         replaces='mxnet_tpu/ops/pallas/epilogue.py:239'),
     'add_act_fwd': dict(
@@ -2894,6 +3234,14 @@ def log_times(times):
         if 'bound_cuda_core_ms' in row:
             log('time %s: float32 CUDA-core bound %.4f ms (operations)'
                 % (name, row['bound_cuda_core_ms']))
+        if 'f32_device_ms' in row:
+            log('time %s: the float32 instance on the same inputs widened, '
+                'device %.4f ms' % (name, row['f32_device_ms']))
+        if 'at_stem' in row:
+            at = row['at_stem']
+            log('time %s at %s: device %.4f ms, library %.4f ms, bound %.4f '
+                'ms (bytes)' % (name, at['shape'], at['device_ms'],
+                                at['library_device_ms'], at['bound_ms']))
         if 'bound_share' in row:
             log('time %s: share of the bound %.3f (device)'
                 % (name, row['bound_share']))
@@ -2943,7 +3291,8 @@ def kernel_rows(errs, times, train_times, launches_by_path):
         row.update({k: t[k] for k in TIMING_KEYS})
         row.update({k: t[k] for k in ('floor_ms', 'at_batch_1', 'by_shape',
                                       'bound_share',
-                                      'bound_cuda_core_ms', 'log_softmax_ms',
+                                      'bound_cuda_core_ms', 'f32_device_ms',
+                                      'at_stem', 'log_softmax_ms',
                                       'log_softmax_device_ms',
                                       'pair_turns_device_ms',
                                       'device_ms_at_pos', 'slot_device_ms',
@@ -3009,8 +3358,14 @@ def main():
         log('sass matmul_sm90 %s: %s' % (fn, counts))
     for name, check in (('flash_attention_dq', check_dq_build),
                         ('flash_attention_dkv', check_dkv_build)):
-        regs, counts = check(_build, reports.get('flash_attention_bwd', ()))
-        log('%s: %s registers, no spills; SASS %s' % (name, regs, counts))
+        for inst, (regs, counts) in sorted(check(
+                _build, reports.get('flash_attention_bwd', ())).items()):
+            log('%s (%s): %s registers, no spills; SASS %s'
+                % (name, inst, regs, counts))
+    log('flash_attention_fwd instances: registers %s, no spills' % {
+        '%s bq %s' % (_instance(fn), re.search(r'ILi(\d+)E', fn).group(1)): n
+        for fn, (n, _) in ptxas_entries(
+            reports.get('flash_attention_fwd', ())).items()})
     # the decode kernel's two instances: the slot cache and the page pool
     for source, keys in (('flash_decode_fwd', ('SlotRows', 'PagedRows')),
                          ('nms', ('nms_keep_mask_kernel',
@@ -3030,6 +3385,8 @@ def main():
     for name, err in check_training_kernels(torch, kernels, cuda).items():
         errs[name] = max(errs.get(name, 0.0), err)
     torch.cuda.empty_cache()
+    errs.update(check_bf16_kernels(torch, kernels, cuda))
+    torch.cuda.empty_cache()
     errs['softmax_xent_bwd'] = max(errs['softmax_xent_bwd'],
                                    check_xent_backward_chunks(torch, kernels,
                                                               cuda))
@@ -3041,6 +3398,11 @@ def main():
     log_times(times)
     train_times = time_training_kernels(torch, kernels)
     log_times(train_times)
+    torch.cuda.empty_cache()
+    bf16_times = time_bf16_kernels(torch, kernels)
+    log_times(bf16_times)
+    train_times.update(bf16_times)
+    del bf16_times
     torch.cuda.empty_cache()
     epi_times = time_epilogue_kernels(torch, kernels)
     log_times(epi_times)
@@ -3132,6 +3494,37 @@ def main():
            TRAIN_ITERS, tr['peak_mem_bytes'], tr['setup_s']))
 
     log_profile('phase 4b', card, tr['profile'])
+    torch.cuda.empty_cache()
+
+    # phase 4c: the same under amp='bf16' (bf16 compute over float32
+    # masters), first its small BERT on the card against the CPU
+    train_against_cpu(torch, bert, gloss, parallel, cuda, amp='bf16')
+    torch.cuda.empty_cache()
+    tc = train_full(torch, bert, gloss, parallel, kernels, cuda, amp='bf16')
+    first_rel = abs(tc['losses'][0] - tr['losses'][0]) / abs(tr['losses'][0])
+    log('phase 4c slice: BERT-base under amp=%r, batch %d, S %d, %d '
+        'predictions, %d warm-up + %d timed steps; launches in the timed '
+        'steps %s (per step %s); masters %s, AdamW state %s'
+        % (tc['amp'], TRAIN['batch'], TRAIN['seq'], TRAIN['preds'],
+           TRAIN_WARMUP, TRAIN_ITERS, tc['launches'], tc['per_step'],
+           tc['master_dtypes'], tc['state_dtypes']))
+    log('phase 4c losses: %s; first loss %.6f against 4b\'s %.6f, rel %.4g '
+        '(limit %g)' % (tc['losses'], tc['losses'][0], tr['losses'][0],
+                        first_rel, AMP_FIRST_LOSS_RTOL))
+    if not first_rel <= AMP_FIRST_LOSS_RTOL:
+        raise AssertionError('phase 4c: first loss %.6f is not within %g of '
+                             '4b\'s %.6f' % (tc['losses'][0],
+                                              AMP_FIRST_LOSS_RTOL,
+                                              tr['losses'][0]))
+    log('phase 4c metrics [%s]: samples/s %.2f (4b %.2f), mean step %.3f ms '
+        '(4b %.3f; CUDA events; each %s), wall %.3f s for %d steps, peak '
+        'memory %d B (4b %d B), setup %.1f s'
+        % (card, tc['samples_per_s'], tr['samples_per_s'], tc['step_ms'],
+           tr['step_ms'], ['%.3f' % t for t in tc['step_ms_each']],
+           tc['wall_s'], TRAIN_ITERS, tc['peak_mem_bytes'],
+           tr['peak_mem_bytes'], tc['setup_s']))
+    log_profile('phase 4c (casts: aten::_to_copy and ToCopyBackward)', card,
+                tc['profile'])
     torch.cuda.empty_cache()
 
     # phase 5: the ResNet slice
@@ -3240,6 +3633,7 @@ def main():
                         'prefix sharing': sh['prefix']['launches'],
                         'speculative decoding': sh['spec']['launches'],
                         'training': tr['launches'],
+                        'bert amp training': tc['launches'],
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
                         'resnet frozen-BN fine-tuning': fz['launches'],

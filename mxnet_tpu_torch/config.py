@@ -1,10 +1,18 @@
-"""Serving knobs of the port, the counterpart of ``mxnet_tpu/config.py``.
+"""Knobs of the port, the counterpart of ``mxnet_tpu/config.py``.
 
-The port keeps its own copy of the ``MXNET_TPU_SERVE_*`` knobs its
-serving paths read (the decode engine, and the one-shot freeze and
-micro-batcher), with the JAX package's names and defaults
-(read from the environment). Constructor arguments always win over a
-knob. There is no kernel on/off knob: on a CUDA tensor the kernel runs.
+The port keeps its own copy of the knobs its paths read: the
+``MXNET_TPU_SERVE_*`` knobs of the serving paths (the decode engine, and
+the one-shot freeze and micro-batcher) and ``MXNET_TPU_AMP`` of the
+training step, with the JAX package's names, defaults and parsing (read
+from the environment). Constructor arguments always win over a knob.
+There is no kernel on/off knob: on a CUDA tensor the kernel runs.
+
+Parsing is the reference's (``Knob.parse`` and ``get``,
+``mxnet_tpu/config.py:44-47, 729-738``): an unset variable gives the
+default; a set one is parsed as it stands, unstripped. A bool knob is
+False for ``'0'``, ``''``, ``'false'`` and ``'False'`` and True for
+anything else (``' 0'`` is True); an int or float knob raises
+``ValueError`` on ``''``.
 
 The paged-cache knobs (``MXNET_TPU_SERVE_PAGED`` to
 ``MXNET_TPU_SERVE_SPEC_K``) are here; ``MXNET_TPU_SERVE_SPEC_DRAFT``, which
@@ -75,20 +83,28 @@ KNOBS = {
         'many tokens a tick and the target verifies them in one pass '
         '(greedy acceptance). 0 disables speculation; needs a paged '
         'target and a draft program.'),
+    'MXNET_TPU_AMP': (
+        str, None, "Default AMP policy ('bf16' | 'fp16' | 'off') for "
+        'ParallelTrainer / Module.fit / gluon Trainer when no explicit '
+        'amp= is passed. Low-precision compute copies are cast inside the '
+        'compiled step; fp32 master weights, optimizer state, guardrail '
+        'sentinel and checkpoints stay float32 (bit-exact resume). '
+        "'fp16' auto-enables the dynamic-loss-scaling guardrail. Unset/off "
+        'keeps every program float32, byte-identical to pre-AMP builds.'),
 }
 
 
 def _parse(typ, raw):
     if typ is bool:
-        return raw not in ('0', 'false', 'False')
+        return raw not in ('0', '', 'false', 'False')
     return typ(raw)
 
 
 def get(name):
-    """Typed value of knob ``name``: the environment's, else the
-    default."""
+    """Typed value of knob ``name``: the environment's, parsed as it
+    stands, else (unset) the default."""
     typ, default, _doc = KNOBS[name]
     raw = os.environ.get(name)
-    if raw is None or raw.strip() == '':
+    if raw is None:
         return default
-    return _parse(typ, raw.strip())
+    return _parse(typ, raw)

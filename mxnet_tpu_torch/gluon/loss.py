@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import cast_op_inputs as _amp
 from ..ops import nn as ops
 from .block import Block
 
@@ -54,6 +55,8 @@ class SoftmaxCrossEntropyLoss(Loss):
                 and self._axis in (-1, None):
             nll = ops.fused_softmax_xent(pred, label)
             return self._reduce(nll, sample_weight)
+        if not self._from_logits:
+            pred, = _amp('log_softmax', pred)     # a keep-fp32 op under AMP
         logp = pred if self._from_logits \
             else torch.log_softmax(pred, dim=self._axis)
         if self._sparse_label:

@@ -6,7 +6,9 @@ The blocks and parameter names are the JAX model's, so
 the CPU parity tests compare like with like. Where the JAX model gathers
 the masked positions with a one-hot ``batch_dot`` (bert.py:88-101), the
 port gathers them with ``torch.gather``, which is exact against it in
-float32. The MLM decoder is tied to ``word_embed.weight``: the same
+float32; under AMP the rows are cast first, as ``batch_dot`` (a
+cast-to-compute op) casts them, so the gathered rows have the JAX
+dtype. The MLM decoder is tied to ``word_embed.weight``: the same
 ``nn.Parameter`` serves both, and its gradient is the sum of both uses.
 
 Weights: :func:`init_params` fills a net from a numpy seed (normal with
@@ -18,7 +20,9 @@ from __future__ import annotations
 import numpy as onp
 import torch
 
+from ...amp import cast_op_inputs as _amp
 from ...context import resolve_device
+from ...ops import nn as ops
 from ..block import Block, params_from_jax
 from ..nn import Dense, Dropout, Embedding, LayerNorm, TransformerEncoder
 
@@ -96,11 +100,14 @@ class BERTModel(Block):
             outputs.append(self.pooler(seq[:, 0, :]))
         if self._use_decoder and masked_positions is not None:
             idx = masked_positions.to(torch.int64)
+            rows, = _amp('batch_dot', seq)
             gathered = torch.gather(
-                seq, 1, idx[..., None].expand(-1, -1, seq.shape[2]))
+                rows, 1, idx[..., None].expand(-1, -1, seq.shape[2]))
             h = self.decoder_layer_norm(self.decoder_transform(gathered))
-            outputs.append(torch.matmul(h, self.word_embed.weight.t())
-                           + self.decoder_bias)
+            # the tied decoder: one FullyConnected over word_embed.weight
+            outputs.append(ops.fully_connected(h, self.word_embed.weight,
+                                               self.decoder_bias,
+                                               flatten=False))
         if self._use_classifier and self._use_pooler:
             outputs.append(self.nsp_classifier(outputs[1]))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]

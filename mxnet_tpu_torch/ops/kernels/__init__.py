@@ -5,9 +5,12 @@ Each TPU (Pallas) kernel on a ported path becomes a CUDA C++ kernel for
 ``sm_90a`` under ``csrc/``, built by nvcc on first use (``_build``) and
 bound with ``ctypes``. Beside each kernel sits its plain PyTorch version;
 a wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor, and counts its launches (:func:`launch_counts`).
+CUDA tensor, and counts its launches (:func:`launch_counts`). The
+attention training kernels and the act kernels are built for bf16 too
+(AMP); their bf16 instances count under their kernel's name and
+:data:`BF16`.
 """
-from ._launch import (KERNELS, instance_launches, launch_counts,
+from ._launch import (BF16, KERNELS, instance_launches, launch_counts,
                       reset_launch_counts)
 from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
                         flash_attention, flash_attention_backward,
@@ -42,7 +45,7 @@ from .xent import (XENT_INSTANCES, SoftmaxXentFunction, XentBwdChunk,
                    softmax_xent_forward_reference, xent_bwd_geometry,
                    xent_geometry)
 
-__all__ = ['KERNELS', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
+__all__ = ['KERNELS', 'BF16', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'online_softmax_block', 'flash_attention',
            'FlashAttentionFunction', 'flash_attention_reference',
            'flash_attention_with_lse', 'flash_attention_dq',

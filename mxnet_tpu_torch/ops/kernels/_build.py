@@ -80,16 +80,24 @@ def library_path(name):
 
 def source_text(name):
     """The text of ``csrc/<name>.cu`` with each ``#include "<h>.cuh"`` of
-    a header in ``csrc/`` replaced by the header's text (its ``#pragma
-    once`` dropped): a copy that compiles from any directory, for the
-    probes' text-substituted variants."""
+    a header in ``csrc/`` replaced by the header's text, the headers'
+    own includes too, each header once (its ``#pragma once`` dropped): a
+    copy that compiles from any directory, for the probes'
+    text-substituted variants."""
     with open(os.path.join(_CSRC, name + '.cu')) as f:
         text = f.read()
+    seen = set()
 
     def header(match):
+        if match.group(1) in seen:
+            return ''
+        seen.add(match.group(1))
         with open(os.path.join(_CSRC, match.group(1))) as f:
-            return f.read().replace('#pragma once\n', '')
-    return re.sub(r'^#include "(\w+\.cuh)"$', header, text, flags=re.M)
+            return inline(f.read().replace('#pragma once\n', ''))
+
+    def inline(src):
+        return re.sub(r'^#include "(\w+\.cuh)"$', header, src, flags=re.M)
+    return inline(text)
 
 
 def _command(name, out):

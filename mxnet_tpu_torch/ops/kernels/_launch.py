@@ -4,7 +4,9 @@ ctypes plumbing of a launch.
 Each wrapper adds one to its kernel's count where it launches the kernel
 and nowhere else, so a run can show that its main path went through the
 kernels (:func:`launch_counts`). A CPU tensor never counts: it runs the
-plain PyTorch version.
+plain PyTorch version. A kernel built for bf16 too counts its bf16
+instance under its own name (``flash_attention_fwd.bf16``), so a run
+tells the AMP launches from the float32 ones.
 """
 from __future__ import annotations
 
@@ -12,18 +14,21 @@ import ctypes
 
 import torch
 
-__all__ = ['KERNELS', 'launch_counts', 'instance_launches',
-           'reset_launch_counts', 'count',
+__all__ = ['KERNELS', 'BF16', 'launch_counts', 'instance_launches',
+           'reset_launch_counts', 'count', 'io_dtype', 'instance',
            'on_cpu', 'dense', 'ptr', 'stream', 'require', 'check_inputs',
            'raise_on']
 
-# every hand-written kernel of the port, by the name its wrapper counts
-KERNELS = ('flash_attention_fwd', 'flash_attention_dq',
-           'flash_attention_dkv', 'flash_decode_fwd',
-           'flash_paged_decode_fwd', 'softmax_xent_fwd',
+# every hand-written kernel of the port, by the name its wrapper counts;
+# the bf16 instances (AMP) by their kernel's name and BF16
+BF16 = '.bf16'
+KERNELS = ('flash_attention_fwd', 'flash_attention_fwd' + BF16,
+           'flash_attention_dq', 'flash_attention_dq' + BF16,
+           'flash_attention_dkv', 'flash_attention_dkv' + BF16,
+           'flash_decode_fwd', 'flash_paged_decode_fwd', 'softmax_xent_fwd',
            'softmax_xent_bwd', 'bn_act_fwd', 'bn_act_bwd', 'act_fwd',
-           'act_bwd', 'add_act_fwd', 'nms', 'matmul_cur', 'matmul_noacc',
-           'matmul_ws', 'matmul_ep')
+           'act_fwd' + BF16, 'act_bwd', 'act_bwd' + BF16, 'add_act_fwd',
+           'nms', 'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep')
 
 _launches = dict.fromkeys(KERNELS, 0)
 _instances = {}
@@ -51,6 +56,31 @@ def count(kernel, instance=None):
     if instance is not None:
         _instances[kernel, instance] = _instances.get((kernel, instance),
                                                       0) + 1
+
+
+def io_dtype(kernel, named, allowed=(torch.float32, torch.bfloat16)):
+    """The one dtype of the tensors ``named`` (label -> tensor), which
+    must be one of ``allowed``: a kernel built for float32 and bf16 takes
+    all its inputs in one of them. Mixed dtypes, and any other type (fp16
+    among them), raise ``TypeError``."""
+    dtypes = {t.dtype for t in named.values()}
+    if len(dtypes) != 1:
+        raise TypeError('%s: %s must share one dtype, got %s'
+                        % (kernel, ', '.join(named), ', '.join(
+                            '%s %s' % (k, t.dtype) for k, t in named.items())))
+    dtype = dtypes.pop()
+    if dtype not in allowed:
+        raise TypeError('%s: %s is not built (have %s)'
+                        % (kernel, dtype, ', '.join(map(str, allowed))))
+    return dtype
+
+
+def instance(kernel, entry, dtype):
+    """(the name it counts under, its C entry) of the instance of
+    ``kernel`` (C entry ``entry`` for float32) for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return kernel + BF16, entry + '_bf16'
+    return kernel, entry
 
 
 def on_cpu(kernel, t, layout=None):

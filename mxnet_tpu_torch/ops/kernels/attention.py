@@ -2,7 +2,7 @@
 kernels and their plain PyTorch versions.
 
 The counterpart of ``mxnet_tpu/ops/pallas/attention.py``. Four kernels,
-float32:
+float32, the training ones (forward, dq, dkv) also bf16:
 
   * :func:`flash_attention_with_lse` -> ``csrc/flash_attention_fwd.cu``,
     which replaces ``mxnet_tpu_flash_attention_fwd`` (attention.py:111);
@@ -35,6 +35,15 @@ masking and fully-masked-row guards. The wrapper rules:
   * inputs are checked for dtype, shape, contiguity and device;
   * each launch adds one to the kernel's count (:func:`launch_counts`).
 
+bf16 (AMP): the forward, dq and dkv take q, k, v, out and do all float32
+or all bfloat16 and launch that dtype's instance (counted as
+``flash_attention_fwd.bf16`` and so on); ``lse`` stays float32; mixed
+dtypes, fp16 and other types raise ``TypeError``. The bf16 instances
+widen on load, compute as the float32 ones and round each output once,
+so on the card they are bitwise the float32 kernel on the widened
+inputs, rounded. The plain versions widen, compute as for float32 and
+round to the input dtype.
+
 Decode bit-identity (the TPU kernels' contract, attention.py:18-26): both
 forward kernels walk the key axis from 0 in fixed ``K_BLOCK`` steps with
 the same score, rescale and accumulation expressions
@@ -53,6 +62,7 @@ import math
 import torch
 
 from ._launch import (check_inputs as _check_inputs, count as _count,
+                      instance as _instance, io_dtype as _io_dtype,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
 
@@ -115,8 +125,8 @@ def _lengths_tensor(lengths, batch, sk, device):
 
 def flash_attention_reference(q, k, v, lengths=None, causal=False,
                               scale=None):
-    """Plain PyTorch version of the flash-attention forward:
-    (out (B, H, Sq, D), lse (B, H, Sq)), float32."""
+    """Plain PyTorch version of the flash-attention forward: (out (B, H,
+    Sq, D) in q's dtype, lse (B, H, Sq) float32), computed in float32."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if scale is None:
@@ -168,10 +178,10 @@ def fwd_geometry(batch, heads, sq, block_q=None):
     return block_q, min(items(block_q), SMS), 4 * floats
 
 
-def _fwd_lib():
+def _fwd_lib(entry='mx_flash_attention_fwd'):
     from . import _build
     lib = _build.load('flash_attention_fwd')
-    fn = lib.mx_flash_attention_fwd
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         for bq in FWD_BLOCK_Q:
             built = lib.mx_flash_attention_fwd_smem(bq)
@@ -196,19 +206,21 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
              'kernel is instantiated for 64)' % d)
     block_q, blocks, _ = fwd_geometry(b, h, sq, block_q)
     lens = _lengths_tensor(lengths, b, sk, q.device)
+    dt = q.dtype
     _check_inputs('flash_attention', {'q': q, 'k': k, 'v': v,
                                       'lengths': lens},
-                  {'q': torch.float32, 'k': torch.float32,
-                   'v': torch.float32, 'lengths': torch.int32})
+                  {'q': dt, 'k': dt, 'v': dt, 'lengths': torch.int32})
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _fwd_lib()
+    name, entry = _instance('flash_attention_fwd', 'mx_flash_attention_fwd',
+                            dt)
+    fn = _fwd_lib(entry)
     with torch.cuda.device(q.device):
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out),
                  _ptr(lse), b, h, sq, sk, d, float(scale), int(bool(causal)),
                  block_q, blocks, _stream(q.device))
-    _raise_on('flash_attention_fwd', err)
-    _count('flash_attention_fwd')
+    _raise_on(name, err)
+    _count(name)
     return out, lse
 
 
@@ -221,13 +233,15 @@ def flash_attention_with_lse(q, k, v, lengths=None, causal=False,
     instance gives the same bits."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    _io_dtype('flash_attention', {'q': q, 'k': k, 'v': v})
     if _on_cpu('flash_attention', q, _QKV):
         return flash_attention_reference(q, k, v, lengths, causal, scale)
     return _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q)
 
 
 def flash_attention(q, k, v, lengths=None, causal=False, scale=None):
-    """Blockwise flash attention over (B, H, S, D) float32 tensors.
+    """Blockwise flash attention over (B, H, S, D) tensors, float32 or
+    bfloat16 (all three alike; the output in their dtype).
 
     ``lengths`` (B,) or a scalar masks keys at positions >= length;
     ``causal`` adds the autoregressive mask (key <= query position).
@@ -298,7 +312,8 @@ def _bwd_terms(q, k, v, out, lse, do, lengths, causal, scale):
 
 def flash_attention_dq_reference(q, k, v, out, lse, do, lengths=None,
                                  causal=False, scale=None):
-    """Plain PyTorch version of the dq kernel: dq = ds k, (B, H, Sq, D)."""
+    """Plain PyTorch version of the dq kernel: dq = ds k, (B, H, Sq, D) in
+    q's dtype, computed in float32."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _, ds, _, kf, _ = _bwd_terms(q, k, v, out, lse, do, lengths, causal,
@@ -333,11 +348,16 @@ def _bwd_lib(entry):
     from . import _build
     fn = getattr(_build.load('flash_attention_bwd'), entry)
     if fn.argtypes is None:
-        outs = 1 if entry == 'mx_flash_attention_dq' else 2
+        outs = 1 if entry.startswith('mx_flash_attention_dq') else 2
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return fn
+
+
+def _bwd_dtype(kernel, q, k, v, out, do):
+    """The one dtype (float32 or bfloat16) of the backward's inputs."""
+    return _io_dtype(kernel, {'q': q, 'k': k, 'v': v, 'out': out, 'do': do})
 
 
 def _bwd_checked(kernel, q, k, v, out, lse, do, lengths):
@@ -357,20 +377,22 @@ def _bwd_checked(kernel, q, k, v, out, lse, do, lengths):
     _require(d == 64, '%s: head dim %d not built (the kernel is '
              'instantiated for 64)' % (kernel, d))
     lens = _lengths_tensor(lengths, b, sk, q.device)
-    f32 = torch.float32
+    dt = q.dtype
     _check_inputs(kernel, {'q': q, 'k': k, 'v': v, 'out': out, 'lse': lse,
                            'do': do, 'lengths': lens},
-                  {'q': f32, 'k': f32, 'v': f32, 'out': f32, 'lse': f32,
-                   'do': f32, 'lengths': torch.int32})
+                  {'q': dt, 'k': dt, 'v': dt, 'out': dt,
+                   'lse': torch.float32, 'do': dt, 'lengths': torch.int32})
     return lens
 
 
 def flash_attention_dq(q, k, v, out, lse, do, lengths=None, causal=False,
                        scale=None):
     """dq of flash attention from the forward's ``out`` and ``lse`` and
-    the output cotangent ``do``; (B, H, Sq, D) float32."""
+    the output cotangent ``do``; (B, H, Sq, D) in q's dtype (float32 or
+    bfloat16, as k, v, out and do)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    dt = _bwd_dtype('flash_attention_dq', q, k, v, out, do)
     if _on_cpu('flash_attention_dq', q, _QKV):
         return flash_attention_dq_reference(q, k, v, out, lse, do, lengths,
                                             causal, scale)
@@ -378,21 +400,25 @@ def flash_attention_dq(q, k, v, out, lse, do, lengths=None, causal=False,
                         lengths)
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
-    fn = _bwd_lib('mx_flash_attention_dq')
+    name, entry = _instance('flash_attention_dq', 'mx_flash_attention_dq',
+                            dt)
+    fn = _bwd_lib(entry)
     with torch.cuda.device(q.device):
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
                  _ptr(lens), _ptr(dq), b, h, sq, k.shape[2], d,
                  float(scale), int(bool(causal)), _stream(q.device))
-    _raise_on('flash_attention_dq', err)
-    _count('flash_attention_dq')
+    _raise_on(name, err)
+    _count(name)
     return dq
 
 
 def flash_attention_dkv(q, k, v, out, lse, do, lengths=None, causal=False,
                         scale=None):
-    """(dk, dv) of flash attention, each (B, H, Sk, D) float32."""
+    """(dk, dv) of flash attention, each (B, H, Sk, D) in k's dtype
+    (float32 or bfloat16, as q, v, out and do)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    dt = _bwd_dtype('flash_attention_dkv', q, k, v, out, do)
     if _on_cpu('flash_attention_dkv', q, _QKV):
         return flash_attention_dkv_reference(q, k, v, out, lse, do, lengths,
                                              causal, scale)
@@ -401,13 +427,15 @@ def flash_attention_dkv(q, k, v, out, lse, do, lengths=None, causal=False,
     b, h, sq, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _bwd_lib('mx_flash_attention_dkv')
+    name, entry = _instance('flash_attention_dkv', 'mx_flash_attention_dkv',
+                            dt)
+    fn = _bwd_lib(entry)
     with torch.cuda.device(q.device):
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
                  _ptr(lens), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
                  float(scale), int(bool(causal)), _stream(q.device))
-    _raise_on('flash_attention_dkv', err)
-    _count('flash_attention_dkv')
+    _raise_on(name, err)
+    _count(name)
     return dk, dv
 
 

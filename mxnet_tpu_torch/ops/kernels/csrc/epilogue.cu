@@ -1,4 +1,5 @@
-// Elementwise epilogue kernels for Hopper (sm_90a), float32: the BatchNorm
+// Elementwise epilogue kernels for Hopper (sm_90a), float32 (the activation
+// forward and backward also bf16): the BatchNorm
 // apply (+ activation) forward and backward, the activation forward and
 // its save-output backward, and the residual add (+ activation).
 //
@@ -37,6 +38,14 @@
 //
 // The add+act kernel still walks the elements in one grid-stride loop of
 // coalesced 4-byte loads, 256 threads a block, on grid_for's grid.
+//
+// The activation forward and backward also take bf16 (AMP; the reference
+// kernels' contract, epilogue.py:26-27, 234-244): each element widens to
+// float exactly, the activation and its gradient run in float32 with the
+// same expressions as the float32 instances, and the result rounds to bf16
+// once, to nearest even. So a bf16 instance is bitwise the float32
+// instance on the widened inputs, rounded. Their stream is the same with
+// 8 elements a 16-byte vector (stream<VEC_BF16>).
 //
 // The activation is a template parameter, so each instance is
 // straight-line code. Indices are 32-bit (Idx): a tensor of more than
@@ -141,6 +150,76 @@ struct ActBwd {
     dx[i] = __fmul_rn(g[i], act_grad<A>(out[i], slope));
   }
 };
+
+// bf16: one 16-byte vector of 8 elements of each input a thread
+template <int A, bool EVICT>
+struct ActFwdBf16 {
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  float slope;
+  struct In {
+    float a[VEC_BF16];
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    In v;
+    load8(x + i, v.a);
+    return v;
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    float y[VEC_BF16];
+#pragma unroll
+    for (int e = 0; e < VEC_BF16; ++e) y[e] = act_fwd<A>(v.a[e], slope);
+    store8<EVICT>(out + i, y);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    out[i] = __float2bfloat16_rn(act_fwd<A>(__bfloat162float(x[i]), slope));
+  }
+};
+
+template <int A, bool EVICT>
+struct ActBwdBf16 {
+  const __nv_bfloat16* g;
+  const __nv_bfloat16* out;
+  __nv_bfloat16* dx;
+  float slope;
+  struct In {
+    float a[VEC_BF16], o[VEC_BF16];  // g, out
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    In v;
+    load8(g + i, v.a);
+    load8(out + i, v.o);
+    return v;
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    float d[VEC_BF16];
+#pragma unroll
+    for (int e = 0; e < VEC_BF16; ++e)
+      d[e] = __fmul_rn(v.a[e], act_grad<A>(v.o[e], slope));
+    store8<EVICT>(dx + i, d);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    dx[i] = __float2bfloat16_rn(__fmul_rn(
+        __bfloat162float(g[i]), act_grad<A>(__bfloat162float(out[i]), slope)));
+  }
+};
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_act_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                             __nv_bfloat16* __restrict__ out, Idx n,
+                             Idx tiles, float slope) {
+  stream<VEC_BF16>(ActFwdBf16<A, EVICT>{x, out, slope}, n, tiles);
+}
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_act_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                             const __nv_bfloat16* __restrict__ out,
+                             __nv_bfloat16* __restrict__ dx, Idx n,
+                             Idx tiles, float slope) {
+  stream<VEC_BF16>(ActBwdBf16<A, EVICT>{g, out, dx, slope}, n, tiles);
+}
 
 template <int A, bool EVICT>
 __global__ void __launch_bounds__(THREADS)
@@ -455,6 +534,42 @@ extern "C" int mx_act_bwd(const void* g, const void* out, void* dx,
   float* dp = static_cast<float*>(dx);
   MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
       evict, epilogue_act_bwd_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 gp, op, dp, (Idx)n, (Idx)tiles, slope)));
+  return cudaGetLastError();
+}
+
+// The bf16 instances of mx_act_fwd / mx_act_bwd: every tensor bf16,
+// tiles n / (THREADS * VEC_BF16) (epilogue.py epilogue_geometry at 2 bytes
+// an element), evict from an output of the L2's size in bytes.
+extern "C" int mx_act_fwd_bf16(const void* x, void* out, long long n,
+                               int act, float slope, int evict,
+                               long long tiles, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned grid = stream_grid<VEC_BF16>(n, tiles);
+  if (grid == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_act_fwd_bf16_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 xp, op, (Idx)n, (Idx)tiles, slope)));
+  return cudaGetLastError();
+}
+
+extern "C" int mx_act_bwd_bf16(const void* g, const void* out, void* dx,
+                               long long n, int act, float slope, int evict,
+                               long long tiles, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned grid = stream_grid<VEC_BF16>(n, tiles);
+  if (grid == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const __nv_bfloat16*>(g);
+  const auto* op = static_cast<const __nv_bfloat16*>(out);
+  auto* dp = static_cast<__nv_bfloat16*>(dx);
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_act_bwd_bf16_kernel<A, E><<<grid, THREADS, 0, s>>>(
                  gp, op, dp, (Idx)n, (Idx)tiles, slope)));
   return cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32: dq, and dk/dv.
+// Flash-attention backward for Hopper (sm_90a), float32 and bf16: dq, and
+// dk/dv.
 //
 // Replaces: mxnet_tpu_flash_attention_dq (mxnet_tpu/ops/pallas/attention.py:208)
 // and mxnet_tpu_flash_attention_dkv (attention.py:243), the backward of
@@ -36,14 +37,37 @@
 //     double-buffered; its own note below.
 //   * delta is recomputed by each kernel from do and o, as the TPU kernels
 //     do, so the two launches stay independent.
+//
+// bf16 (AMP, rows 2b and 3b): q, k, v, o, do and the gradients bf16, lse
+// float32, the reference kernels' contract (attention.py:212-240,
+// 248-281: upcast on load, compute in f32, store the input dtype). Each
+// kernel is instantiated for the element type: the staging reads 16-byte
+// vectors of 8 bf16 with plain loads, widens them in registers (exact) and
+// stores the float32 tiles of today's swizzled layout, dq's delta reads O
+// the same way, and each gradient rounds once, to nearest even. The
+// products stay 3xTF32 with the split kept: a bf16 value is exact in TF32
+// (its small part is 0), but p and ds are float32. So each bf16 instance
+// is bitwise the float32 instance on the widened inputs, rounded. The cost:
+// cp.async cannot convert, so dq's bf16 tiles and dk/dv's K and V (staged
+// once) are loaded, widened and stored by the threads, waited for where
+// they are issued; dk/dv's query tiles, walked in the loop, keep their
+// cp.async double-buffering as raw bf16 rows in the second half of each
+// float32 tile, widened in place after they land (two more block
+// barriers a tile): the converting loads there spilled at 255 registers.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "bf16.cuh"
+
 namespace {
 
 constexpr int D = 64;         // head dim: the instance the slice needs
+
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 // ---- dq and dk/dv: the products on the tensor cores in 3xTF32 ----
 //
@@ -108,21 +132,39 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // rows row0 .. row0 + ROWS - 1 of an (n, D) matrix into a swizzled tile
-// by NT threads, thread t copying chunk t % CHUNKS of rows t / CHUNKS +
-// i NT / CHUNKS; rows >= n become zeros (src-size 0). The caller commits
-// the group.
-template <int ROWS, int NT = THREADS>
-__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
+// by NT threads; rows >= n become zeros. float32: thread t copies chunk t %
+// CHUNKS of rows t / CHUNKS + i NT / CHUNKS by cp.async (src-size 0 for
+// the zeros), the caller commits the group; bf16: thread t converts the
+// 8-element vector t % 8 of rows t / 8 + i NT / 8 into one swizzled
+// 8-float group (swz keeps a group whole), written when this returns.
+template <int ROWS, int NT = THREADS, typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
                                       int n, int t) {
-  static_assert(ROWS * CHUNKS % NT == 0 && NT % CHUNKS == 0, "stage");
+  if constexpr (kBf16<T>) {
+    constexpr int V8 = D / 8;  // 8-element vectors a row
+    static_assert(ROWS * V8 % NT == 0 && NT % V8 == 0, "stage");
 #pragma unroll
-  for (int i = 0; i < ROWS * CHUNKS / NT; ++i) {
-    const int idx = t + i * NT;
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    const bool valid = row0 + r < n;
-    cp_async16(dst + swz(r, 4 * c),
-               src + (size_t)(valid ? row0 + r : 0) * D + 4 * c, valid);
+    for (int i = 0; i < ROWS * V8 / NT; ++i) {
+      const int idx = t + i * NT;
+      const int r = idx / V8;
+      const int c = 8 * (idx % V8);
+      float f[8] = {};
+      if (row0 + r < n) mx_bf16::load8(src + (size_t)(row0 + r) * D + c, f);
+      float* g = dst + swz(r, c);
+      *reinterpret_cast<float4*>(g) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(g + 4) = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  } else {
+    static_assert(ROWS * CHUNKS % NT == 0 && NT % CHUNKS == 0, "stage");
+#pragma unroll
+    for (int i = 0; i < ROWS * CHUNKS / NT; ++i) {
+      const int idx = t + i * NT;
+      const int r = idx / CHUNKS;
+      const int c = idx % CHUNKS;
+      const bool valid = row0 + r < n;
+      cp_async16(dst + swz(r, 4 * c),
+                 src + (size_t)(valid ? row0 + r : 0) * D + 4 * c, valid);
+    }
   }
 }
 
@@ -265,11 +307,21 @@ __device__ __forceinline__ void product_pb(float (&acc)[M][8][4],
   }
 }
 
+// two adjacent outputs (float32: one 8-byte store; bf16: each rounded to
+// nearest even, one 4-byte store)
+__device__ __forceinline__ void store2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<uint32_t*>(o) = mx_bf16::pack2(a, b);
+}
+
 // acc[m][n] of product_pb into rows row0 + 16m + g (elements 0, 1) and
 // + 8 (2, 3), dims 8n + 2tq + 0/1, of an (n, D) matrix; rows >= n skipped
-template <int M>
+template <int M, typename T>
 __device__ __forceinline__ void store_rows(const float (&acc)[M][8][4],
-                                           float* out, int row0, int n,
+                                           T* out, int row0, int n,
                                            int g, int tq) {
 #pragma unroll
   for (int m = 0; m < M; ++m)
@@ -277,11 +329,10 @@ __device__ __forceinline__ void store_rows(const float (&acc)[M][8][4],
     for (int h = 0; h < 2; ++h) {
       const int r = row0 + 16 * m + 8 * h + g;
       if (r < n) {
-        float* row = out + (size_t)r * D + 2 * tq;
+        T* row = out + (size_t)r * D + 2 * tq;
 #pragma unroll
         for (int c = 0; c < 8; ++c)
-          *reinterpret_cast<float2*>(row + 8 * c) =
-              make_float2(acc[m][c][2 * h], acc[m][c][2 * h + 1]);
+          store2(row + 8 * c, acc[m][c][2 * h], acc[m][c][2 * h + 1]);
       }
     }
 }
@@ -305,25 +356,37 @@ __device__ __forceinline__ void lane_offsets(int g, int tq, int (&xo)[8],
 
 // lse and delta = rowsum(dO * O) of the thread's rows (element h of
 // m-tile m: row 32w + 16m + 8h + g), from the staged dO tile and O in
-// device memory: lane l sums row 32w + l, and shuffles hand each lane its
-// rows
+// device memory (bf16: 8 elements a load, widened, the same fma order):
+// lane l sums row 32w + l, and shuffles hand each lane its rows
+template <typename T>
 __device__ __forceinline__ void row_stats(float (&lse_r)[MT][2],
                                           float (&delta_r)[MT][2],
-                                          const float* lse, const float* o,
+                                          const float* lse, const T* o,
                                           const float* dos, int q0, int sq,
                                           int w, int lane, int g) {
   const int row = 32 * w + lane;
   float acc = 0.f;
   if (q0 + row < sq) {
-    const float* orow = o + (size_t)(q0 + row) * D;
+    const T* orow = o + (size_t)(q0 + row) * D;
+    if constexpr (kBf16<T>) {
 #pragma unroll
-    for (int c = 0; c < D; c += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(dos + swz(row, c));
-      const float4 b = *reinterpret_cast<const float4*>(orow + c);
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-      acc = fmaf(a.z, b.z, acc);
-      acc = fmaf(a.w, b.w, acc);
+      for (int c = 0; c < D; c += 8) {
+        float b[8];
+        mx_bf16::load8(orow + c, b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc = fmaf(dos[swz(row, c + e)], b[e], acc);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < D; c += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(dos + swz(row, c));
+        const float4 b = *reinterpret_cast<const float4*>(orow + c);
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+        acc = fmaf(a.z, b.z, acc);
+        acc = fmaf(a.w, b.w, acc);
+      }
     }
   }
 #pragma unroll
@@ -358,15 +421,16 @@ __device__ __forceinline__ void row_stats(float (&lse_r)[MT][2],
 // registers. Key tiles past the block's last visible key are not walked;
 // a block with none writes zeros; the masks are skipped where a whole
 // tile is visible to every row.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_dq_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ o,
+flash_attention_dq_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ o,
                           const float* __restrict__ lse,
-                          const float* __restrict__ dout,
+                          const T* __restrict__ dout,
                           const int* __restrict__ lengths,
-                          float* __restrict__ dq, int heads, int sq, int sk,
+                          T* __restrict__ dq, int heads, int sq, int sk,
                           float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;            // [BQ][D] swizzled
@@ -385,8 +449,8 @@ flash_attention_dq_kernel(const float* __restrict__ q,
   const int tq = lane & 3;
   const int wrow = 32 * w;  // the thread's rows: wrow + 16m + 8h + g
   const size_t qoff = (size_t)bh * sq * D;
-  const float* kb = k + (size_t)bh * sk * D;
-  const float* vb = v + (size_t)bh * sk * D;
+  const T* kb = k + (size_t)bh * sk * D;
+  const T* vb = v + (size_t)bh * sk * D;
 
   int xo[8], yo[2][8];
   lane_offsets(g, tq, xo, yo);
@@ -480,6 +544,7 @@ namespace dkvk {
 
 using dqk::CHUNKS;
 using dqk::LOG2E;
+using dqk::cp_async16;
 using dqk::cp_async4;
 using dqk::cp_async_commit;
 using dqk::cp_async_wait_all;
@@ -505,19 +570,83 @@ constexpr int QTILE = BQ * D;
 constexpr size_t SMEM_BYTES =
     (2 * KTILE + 6 * QTILE + 4 * BQ) * sizeof(float);
 
-// the Q, dO and O tiles of query rows row0 .. row0 + BQ - 1 and their
-// lse, each lse by the thread that copies its row's first chunk (rows
-// >= n become zeros). The caller commits the group.
+// bf16: a query tile's BQ raw rows (BQ x 64 bf16, 4 KB) are copied by
+// cp.async into the second half of its float32 tile, RAW floats in, and
+// widened in place once they have landed (widen_queries), so the copies
+// still run while the tile before is computed
+constexpr int RAW = QTILE / 2;
+constexpr int RAW_VECS = BQ * D / 8 / THREADS;  // 16-byte vectors a thread
+
+// thread t's copies of the raw rows: vectors t + i THREADS (row idx / 8,
+// vector idx % 8), rows >= n zeros (src-size 0). Here and in
+// widen_queries an empty asm makes t opaque, so the per-thread offsets are
+// formed where they are used: hoisted out of the query loop they stayed
+// live across the products, and the kernel, at 255 registers, spilled 44
+// bytes (the float32 instance has no such offsets in the loop's tail)
+__device__ __forceinline__ void stage_raw(float* tile,
+                                          const __nv_bfloat16* src, int row0,
+                                          int n, int t) {
+  asm volatile("" : "+r"(t));
+#pragma unroll
+  for (int i = 0; i < RAW_VECS; ++i) {
+    const int idx = t + i * THREADS;
+    const int r = idx / 8;
+    const bool valid = row0 + r < n;
+    cp_async16(tile + RAW + 4 * idx,
+               reinterpret_cast<const float*>(
+                   src + (size_t)(valid ? row0 + r : 0) * D + 8 * (idx % 8)),
+               valid);
+  }
+}
+
+// the three query tiles' raw rows widened into their float32 swizzled
+// layout, in place: each thread reads the vectors it copied (visible to it
+// after its cp.async wait), a block barrier (the float32 rows overlap the
+// raw ones), then writes them; the caller's barrier publishes them
+__device__ __forceinline__ void widen_queries(float* qt, float* dot,
+                                              float* ot, int t) {
+  asm volatile("" : "+r"(t));
+  float* const tiles[3] = {qt, dot, ot};
+  uint4 w[3][RAW_VECS];
+#pragma unroll
+  for (int x = 0; x < 3; ++x)
+#pragma unroll
+    for (int i = 0; i < RAW_VECS; ++i)
+      w[x][i] = *reinterpret_cast<const uint4*>(tiles[x] + RAW +
+                                                4 * (t + i * THREADS));
+  __syncthreads();
+#pragma unroll
+  for (int x = 0; x < 3; ++x)
+#pragma unroll
+    for (int i = 0; i < RAW_VECS; ++i) {
+      const int idx = t + i * THREADS;
+      float f[8];
+      mx_bf16::widen8(w[x][i], f);
+      float* g = tiles[x] + swz(idx / 8, 8 * (idx % 8));
+      *reinterpret_cast<float4*>(g) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(g + 4) = make_float4(f[4], f[5], f[6], f[7]);
+    }
+}
+
+// the Q, dO and O tiles of query rows row0 .. row0 + BQ - 1 (float32: by
+// stage; bf16: their raw rows, stage_raw) and their lse, each lse by the
+// thread that copies its row's first chunk (rows >= n become zeros). The
+// caller commits the group.
+template <typename T>
 __device__ __forceinline__ void stage_queries(float* qt, float* dot,
                                               float* ot, float* lse_t,
-                                              const float* q,
-                                              const float* dout,
-                                              const float* o,
-                                              const float* lse, int row0,
-                                              int n, int t) {
-  stage<BQ, THREADS>(qt, q, row0, n, t);
-  stage<BQ, THREADS>(dot, dout, row0, n, t);
-  stage<BQ, THREADS>(ot, o, row0, n, t);
+                                              const T* q, const T* dout,
+                                              const T* o, const float* lse,
+                                              int row0, int n, int t) {
+  if constexpr (kBf16<T>) {
+    stage_raw(qt, q, row0, n, t);
+    stage_raw(dot, dout, row0, n, t);
+    stage_raw(ot, o, row0, n, t);
+  } else {
+    stage<BQ, THREADS>(qt, q, row0, n, t);
+    stage<BQ, THREADS>(dot, dout, row0, n, t);
+    stage<BQ, THREADS>(ot, o, row0, n, t);
+  }
 #pragma unroll
   for (int i = 0; i < BQ * CHUNKS / THREADS; ++i) {
     const int idx = t + i * THREADS;
@@ -581,15 +710,16 @@ __device__ __forceinline__ void query_stats(float* lse_t, float* delta_t,
 // block starts at the first query tile that sees its keys; a block past
 // the length walks nothing and writes zeros; the masks are skipped where
 // a whole tile is visible to every key.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_dkv_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           const float* __restrict__ o,
+flash_attention_dkv_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ o,
                            const float* __restrict__ lse,
-                           const float* __restrict__ dout,
+                           const T* __restrict__ dout,
                            const int* __restrict__ lengths,
-                           float* __restrict__ dk, float* __restrict__ dv,
+                           T* __restrict__ dk, T* __restrict__ dv,
                            int heads, int sq, int sk, float scale,
                            int causal) {
   extern __shared__ __align__(16) float smem[];
@@ -613,9 +743,9 @@ flash_attention_dkv_kernel(const float* __restrict__ q,
   const int wrow = 16 * MT * w;  // keys k0 + wrow + 16m + 8h + g
   const size_t qoff = (size_t)bh * sq * D;
   const size_t koff = (size_t)bh * sk * D;
-  const float* qb = q + qoff;
-  const float* dob = dout + qoff;
-  const float* ob = o + qoff;
+  const T* qb = q + qoff;
+  const T* dob = dout + qoff;
+  const T* ob = o + qoff;
   const float* lseb = lse + (size_t)bh * sq;
 
   int xo[8], yo[2][8];
@@ -641,6 +771,10 @@ flash_attention_dkv_kernel(const float* __restrict__ q,
     stage_queries(qs, dos, os, lse_s, qb, dob, ob, lseb, qbegin, sq, t);
     cp_async_commit();
     cp_async_wait_all();
+    if constexpr (kBf16<T>) {
+      widen_queries(qs, dos, os, t);
+      __syncthreads();  // query_stats reads chunks others widened
+    }
     query_stats(lse_s, delta_s, dos, os, qbegin, sq, t);
   }
   // exp(x) = 2^(x log2 e): the scores and lse pre-scaled, one fma and
@@ -704,6 +838,11 @@ flash_attention_dkv_kernel(const float* __restrict__ q,
     product_pb(dka, dpt, qt, yo);  // dK += dS^T Q
     if (j + 1 < ntiles) {
       cp_async_wait_all();
+      if constexpr (kBf16<T>) {
+        widen_queries(qs + nxt * QTILE, dos + nxt * QTILE, os + nxt * QTILE,
+                      t);
+        __syncthreads();  // query_stats reads chunks others widened
+      }
       query_stats(lse_s + nxt * BQ, delta_s + nxt * BQ, dos + nxt * QTILE,
                   os + nxt * QTILE, q0 + BQ, sq, t);
     }
@@ -721,23 +860,14 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-}  // namespace
-
-// ---- host entry points ----
-// q, o, do (B*H, Sq, D); k, v (B*H, Sk, D); lse (B*H, Sq); lengths (B,)
-// int32; outputs dq (B*H, Sq, D) or dk, dv (B*H, Sk, D). All contiguous
-// float32 on the device, 16-byte aligned. Each returns the cudaError_t of
-// its launch.
-extern "C" int mx_flash_attention_dq(const void* q, const void* k,
-                                     const void* v, const void* o,
-                                     const void* lse, const void* dout,
-                                     const void* lengths, void* dq,
-                                     int batch, int heads, int sq, int sk,
-                                     int d, float scale, int causal,
-                                     void* stream) {
+template <typename T>
+int dq_entry(const void* q, const void* k, const void* v, const void* o,
+             const void* lse, const void* dout, const void* lengths,
+             void* dq, int batch, int heads, int sq, int sk, int d,
+             float scale, int causal, void* stream) {
   if (d != D) return cudaErrorInvalidValue;
   const size_t smem = dqk::SMEM_BYTES;
-  cudaError_t err = set_smem(dqk::flash_attention_dq_kernel, smem);
+  cudaError_t err = set_smem(dqk::flash_attention_dq_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   // one block an item: (batch*head, query tile), the tiles of a head
   // adjacent
@@ -745,14 +875,69 @@ extern "C" int mx_flash_attention_dq(const void* q, const void* k,
       (long long)batch * heads * ((sq + dqk::BQ - 1) / dqk::BQ);
   if (items == 0) return cudaSuccess;
   const dim3 grid((unsigned)items);
-  dqk::flash_attention_dq_kernel<<<grid, dqk::THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(o),
-      static_cast<const float*>(lse), static_cast<const float*>(dout),
-      static_cast<const int*>(lengths), static_cast<float*>(dq), heads, sq,
-      sk, scale, causal);
+  dqk::flash_attention_dq_kernel<T><<<grid, dqk::THREADS, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const float*>(lse), static_cast<const T*>(dout),
+      static_cast<const int*>(lengths), static_cast<T*>(dq), heads, sq, sk,
+      scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dkv_entry(const void* q, const void* k, const void* v, const void* o,
+              const void* lse, const void* dout, const void* lengths,
+              void* dk, void* dv, int batch, int heads, int sq, int sk,
+              int d, float scale, int causal, void* stream) {
+  if (d != D) return cudaErrorInvalidValue;
+  const size_t smem = dkvk::SMEM_BYTES;
+  cudaError_t err = set_smem(dkvk::flash_attention_dkv_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  // one block an item: (batch*head, key tile), the tiles of a head
+  // adjacent
+  const long long items =
+      (long long)batch * heads * ((sk + dkvk::BK - 1) / dkvk::BK);
+  if (items == 0) return cudaSuccess;
+  const dim3 grid((unsigned)items);
+  dkvk::flash_attention_dkv_kernel<T><<<grid, dkvk::THREADS, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const float*>(lse), static_cast<const T*>(dout),
+      static_cast<const int*>(lengths), static_cast<T*>(dk),
+      static_cast<T*>(dv), heads, sq, sk, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ---- host entry points ----
+// q, o, do (B*H, Sq, D); k, v (B*H, Sk, D); lse (B*H, Sq) float32; lengths
+// (B,) int32; outputs dq (B*H, Sq, D) or dk, dv (B*H, Sk, D). All
+// contiguous on the device, 16-byte aligned; q, k, v, o, do and the
+// outputs float32, or bf16 for the _bf16 entries. Each returns the
+// cudaError_t of its launch.
+extern "C" int mx_flash_attention_dq(const void* q, const void* k,
+                                     const void* v, const void* o,
+                                     const void* lse, const void* dout,
+                                     const void* lengths, void* dq,
+                                     int batch, int heads, int sq, int sk,
+                                     int d, float scale, int causal,
+                                     void* stream) {
+  return dq_entry<float>(q, k, v, o, lse, dout, lengths, dq, batch, heads,
+                         sq, sk, d, scale, causal, stream);
+}
+
+extern "C" int mx_flash_attention_dq_bf16(const void* q, const void* k,
+                                          const void* v, const void* o,
+                                          const void* lse, const void* dout,
+                                          const void* lengths, void* dq,
+                                          int batch, int heads, int sq,
+                                          int sk, int d, float scale,
+                                          int causal, void* stream) {
+  return dq_entry<__nv_bfloat16>(q, k, v, o, lse, dout, lengths, dq, batch,
+                                 heads, sq, sk, d, scale, causal, stream);
 }
 
 extern "C" int mx_flash_attention_dkv(const void* q, const void* k,
@@ -762,22 +947,18 @@ extern "C" int mx_flash_attention_dkv(const void* q, const void* k,
                                       void* dv, int batch, int heads, int sq,
                                       int sk, int d, float scale, int causal,
                                       void* stream) {
-  if (d != D) return cudaErrorInvalidValue;
-  const size_t smem = dkvk::SMEM_BYTES;
-  cudaError_t err = set_smem(dkvk::flash_attention_dkv_kernel, smem);
-  if (err != cudaSuccess) return err;
-  // one block an item: (batch*head, key tile), the tiles of a head
-  // adjacent
-  const long long items =
-      (long long)batch * heads * ((sk + dkvk::BK - 1) / dkvk::BK);
-  if (items == 0) return cudaSuccess;
-  const dim3 grid((unsigned)items);
-  dkvk::flash_attention_dkv_kernel<<<grid, dkvk::THREADS, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(o),
-      static_cast<const float*>(lse), static_cast<const float*>(dout),
-      static_cast<const int*>(lengths), static_cast<float*>(dk),
-      static_cast<float*>(dv), heads, sq, sk, scale, causal);
-  return cudaGetLastError();
+  return dkv_entry<float>(q, k, v, o, lse, dout, lengths, dk, dv, batch,
+                          heads, sq, sk, d, scale, causal, stream);
+}
+
+extern "C" int mx_flash_attention_dkv_bf16(const void* q, const void* k,
+                                           const void* v, const void* o,
+                                           const void* lse, const void* dout,
+                                           const void* lengths, void* dk,
+                                           void* dv, int batch, int heads,
+                                           int sq, int sk, int d, float scale,
+                                           int causal, void* stream) {
+  return dkv_entry<__nv_bfloat16>(q, k, v, o, lse, dout, lengths, dk, dv,
+                                  batch, heads, sq, sk, d, scale, causal,
+                                  stream);
 }

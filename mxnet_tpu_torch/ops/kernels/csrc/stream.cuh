@@ -27,16 +27,25 @@
 //   In load(Idx i)                 the inputs of the vector at i,
 //   void store(Idx i, const In&)   its output,
 //   void scalar(Idx i)             element i alone (the tail).
+//
+// bf16 (the AMP instances of the activation kernels): a 16-byte vector is
+// VEC_BF16 = 8 elements, so a tile is THREADS x 8 and the tail n % 8
+// (stream<VEC_BF16>, stream_grid<VEC_BF16>). load8 widens the 8 bf16 of a
+// vector to float exactly (a shift), store8 rounds 8 floats to bf16 once,
+// to nearest even (bf16.cuh): arithmetic in float32 between.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace mx_stream {
 
 constexpr int THREADS = 256;
 constexpr int VEC = 4;  // floats in a 16-byte vector
 constexpr int TILE = THREADS * VEC;  // the stream's floats a block
+constexpr int VEC_BF16 = 8;  // bf16 elements in a 16-byte vector
 using Idx = uint32_t;
 
 // one 16-byte load of an input read once: the read-only path, no L1 line
@@ -57,17 +66,33 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
     *reinterpret_cast<float4*>(p) = v;
 }
 
-// op over n elements: block b < tiles takes tile b, one vector of each
-// input a thread; block `tiles`, where n is not a whole number of tiles,
-// the whole vectors past them and the n % VEC scalars
-template <class Op>
+using mx_bf16::load8;  // the 8 bf16 of a vector of an input, as floats
+
+// 8 floats rounded to bf16 into one 16-byte store (EVICT as store4)
+template <bool EVICT>
+__device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                       const float (&f)[VEC_BF16]) {
+  using mx_bf16::pack2;
+  const uint4 v = make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]),
+                             pack2(f[4], f[5]), pack2(f[6], f[7]));
+  if (EVICT)
+    __stcs(reinterpret_cast<uint4*>(p), v);
+  else
+    *reinterpret_cast<uint4*>(p) = v;
+}
+
+// op over n elements, V of them a 16-byte vector (VEC floats, VEC_BF16
+// bf16): block b < tiles takes tile b, one vector of each input a thread;
+// block `tiles`, where n is not a whole number of tiles, the whole vectors
+// past them and the n % V scalars
+template <int V = VEC, class Op>
 __device__ __forceinline__ void stream(const Op& op, Idx n, Idx tiles) {
-  const Idx i = (Idx)blockIdx.x * TILE + threadIdx.x * VEC;
+  const Idx i = (Idx)blockIdx.x * (THREADS * V) + threadIdx.x * V;
   if (blockIdx.x < tiles) {
     op.store(i, op.load(i));
     return;
   }
-  const Idx whole = n & ~(Idx)(VEC - 1);
+  const Idx whole = n & ~(Idx)(V - 1);
   if (i < whole) op.store(i, op.load(i));
   if (whole + threadIdx.x < n) op.scalar(whole + threadIdx.x);
 }
@@ -91,11 +116,14 @@ inline bool divisor(long long d, unsigned mul, int shift, Divisor& out) {
   return d >= 1 && d <= INT32_MAX && shift >= 0 && shift < 32;
 }
 
-// the stream's grid (epilogue.py epilogue_geometry): one block a whole
-// tile, one more for the rest; 0 when `tiles` is not n's
+// the stream's grid (epilogue.py epilogue_geometry) at V elements a
+// vector: one block a whole tile, one more for the rest; 0 when `tiles`
+// is not n's
+template <int V = VEC>
 inline unsigned stream_grid(long long n, long long tiles) {
-  if (tiles != n / TILE) return 0;
-  return (unsigned)(tiles + (n % TILE != 0));
+  constexpr long long tile = (long long)THREADS * V;
+  if (tiles != n / tile) return 0;
+  return (unsigned)(tiles + (n % tile != 0));
 }
 
 }  // namespace mx_stream

@@ -2,7 +2,8 @@
 versions.
 
 The counterpart of ``mxnet_tpu/ops/pallas/epilogue.py``. Five kernels, all
-in ``csrc/epilogue.cu``, float32, over the tensor's elements unpadded:
+in ``csrc/epilogue.cu``, float32 (the activation forward and backward
+also bf16), over the tensor's elements unpadded:
 
   * :func:`bn_act_forward` replaces ``mxnet_tpu_bn_act_fwd``
     (epilogue.py:124): ``act((x - mean) * scale + beta)`` with (C,)
@@ -21,6 +22,15 @@ by two multiply-high divisions (:func:`fast_divisor`,
 :func:`bn_geometry`) and steps the others from it;
   * :func:`add_act_forward` replaces ``mxnet_tpu_add_act_fwd`` (:297):
     ``act(x + y)``.
+
+bf16 (AMP): :func:`act_forward` and :func:`act_backward` take float32 or
+bfloat16 (``g`` and ``out`` alike) and launch that dtype's instance
+(counted as ``act_fwd.bf16`` / ``act_bwd.bf16``), whose stream has 8
+elements a 16-byte vector (``epilogue_geometry(n, 2)``); mixed dtypes,
+fp16 and other types raise ``TypeError``. The instance widens on load,
+computes in float32 as the float32 one and rounds once, so it is bitwise
+the float32 kernel on the widened input, rounded; the plain versions
+widen, compute in float32 and round to the input dtype.
 
 ``act'`` comes from the output alone (:func:`act_grad_from_out`), for the
 covered set :data:`ACT_TYPES`; ``None`` means identity. Three
@@ -45,7 +55,8 @@ import ctypes
 import torch
 
 from ._launch import (check_inputs as _check_inputs, count as _count,
-                      dense as _dense, on_cpu as _on_cpu, ptr as _ptr,
+                      dense as _dense, instance as _instance,
+                      io_dtype as _io_dtype, on_cpu as _on_cpu, ptr as _ptr,
                       raise_on as _raise_on, require as _require,
                       stream as _stream)
 
@@ -145,20 +156,24 @@ EpilogueGeometry = collections.namedtuple(
     'EpilogueGeometry', 'evict tiles body rest tail grid')
 
 
-def epilogue_geometry(n):
-    """Launch geometry of the stream kernels for ``n`` float32
-    elements, as an :class:`EpilogueGeometry`: ``tiles`` whole tiles of
-    :data:`EPI_TILE` floats (``body`` elements), one block each, and one
-    block more (``grid`` counts it) for the ``rest`` (whole 16-byte
-    vectors past the tiles, fewer than a tile) and the ``tail`` of
-    ``n % 4`` scalars; ``evict``: the output, 4n bytes, is at least
+def epilogue_geometry(n, itemsize=4):
+    """Launch geometry of the stream kernels for ``n`` elements of
+    ``itemsize`` bytes (4: float32, 2: bf16), as an
+    :class:`EpilogueGeometry`: a 16-byte vector holds ``vec = 16 //
+    itemsize`` elements (:data:`EPI_VEC` floats), a tile ``EPI_THREADS *
+    vec``; ``tiles`` whole tiles (``body`` elements), one block each, and
+    one block more (``grid`` counts it) for the ``rest`` (whole vectors
+    past the tiles, fewer than a tile) and the ``tail`` of ``n % vec``
+    scalars; ``evict``: the output, ``itemsize * n`` bytes, is at least
     :data:`EPI_EVICT_BYTES` and is stored evict-first."""
-    tiles = n // EPI_TILE
-    body = tiles * EPI_TILE
-    tail = n % EPI_VEC
+    vec = 16 // itemsize
+    tile = EPI_THREADS * vec
+    tiles = n // tile
+    body = tiles * tile
+    tail = n % vec
     rest = n - body - tail
-    return EpilogueGeometry(4 * n >= EPI_EVICT_BYTES, tiles, body, rest,
-                            tail, tiles + (1 if rest or tail else 0))
+    return EpilogueGeometry(itemsize * n >= EPI_EVICT_BYTES, tiles, body,
+                            rest, tail, tiles + (1 if rest or tail else 0))
 
 
 Divisor = collections.namedtuple('Divisor', 'd mul shift')
@@ -196,11 +211,13 @@ def bn_geometry(n, c, inner):
 
 
 def _launch(kernel, entry, argtypes, tensors, result, *scalars):
-    """Check ``tensors`` (name -> float32 input) and ``result``, launch
-    ``entry`` on the current stream and count it; returns ``result``."""
+    """Check ``tensors`` (name -> input of ``result``'s dtype, float32
+    unless an instance says otherwise) and ``result``, launch ``entry`` on
+    the current stream and count it under ``kernel``; returns
+    ``result``."""
     named = dict(tensors)
     named['result'] = result
-    _check_inputs(kernel, named, dict.fromkeys(named, torch.float32))
+    _check_inputs(kernel, named, dict.fromkeys(named, result.dtype))
     _require(result.numel() <= MAX_ELEMENTS, '%s: %d elements, more than '
              'the %d the kernel indexes' % (kernel, result.numel(),
                                             MAX_ELEMENTS))
@@ -213,8 +230,8 @@ def _launch(kernel, entry, argtypes, tensors, result, *scalars):
     return result
 
 
-def _empty(like):
-    return torch.empty(like.shape, dtype=torch.float32, device=like.device)
+def _empty(like, dtype=torch.float32):
+    return torch.empty(like.shape, dtype=dtype, device=like.device)
 
 
 def _same_shape(kernel, a, b):
@@ -231,14 +248,16 @@ def act_forward_reference(x, act_type, slope=0.0):
 
 
 def act_forward(x, act_type, slope=0.0):
-    """``act(x)``, any shape."""
+    """``act(x)``, any shape, float32 or bfloat16."""
     code = _code(act_type)
+    dt = _io_dtype('act_forward', {'x': x})
     if _on_cpu('act_forward', x):
         return act_forward_reference(x, act_type, slope)
     x = _dense(x)
-    geom = epilogue_geometry(x.numel())
-    return _launch('act_fwd', 'mx_act_fwd', [_P, _P, _N, _I, _F, _I, _N, _P],
-                   {'x': x}, _empty(x), x.numel(), code, float(slope),
+    name, entry = _instance('act_fwd', 'mx_act_fwd', dt)
+    geom = epilogue_geometry(x.numel(), x.element_size())
+    return _launch(name, entry, [_P, _P, _N, _I, _F, _I, _N, _P],
+                   {'x': x}, _empty(x, dt), x.numel(), code, float(slope),
                    int(geom.evict), geom.tiles)
 
 
@@ -249,16 +268,18 @@ def act_backward_reference(g, out, act_type, slope=0.0):
 
 
 def act_backward(g, out, act_type, slope=0.0):
-    """``g * act'(out)``, the gradient of ``act`` from its output."""
+    """``g * act'(out)``, the gradient of ``act`` from its output; ``g``
+    and ``out`` both float32 or both bfloat16."""
     code = _code(act_type)
+    dt = _io_dtype('act_backward', {'g': g, 'out': out})
     if _on_cpu('act_backward', out):
         return act_backward_reference(g, out, act_type, slope)
     _same_shape('act_backward', g, out)
     g, out = _dense(g), _dense(out)
-    geom = epilogue_geometry(out.numel())
-    return _launch('act_bwd', 'mx_act_bwd',
-                   [_P, _P, _P, _N, _I, _F, _I, _N, _P],
-                   {'g': g, 'out': out}, _empty(out), out.numel(), code,
+    name, entry = _instance('act_bwd', 'mx_act_bwd', dt)
+    geom = epilogue_geometry(out.numel(), out.element_size())
+    return _launch(name, entry, [_P, _P, _P, _N, _I, _F, _I, _N, _P],
+                   {'g': g, 'out': out}, _empty(out, dt), out.numel(), code,
                    float(slope), int(geom.evict), geom.tiles)
 
 

@@ -38,6 +38,16 @@ order of operations, so the CPU parity tests compare like with like:
 
 The kernel ops always go through ``ops/kernels``: the kernels on a CUDA
 tensor, their plain versions on a CPU tensor. There is no knob.
+
+AMP: each op recasts its inputs at entry by the active policy's class
+for the reference op name (``amp.cast_op_inputs``, as the JAX dispatch
+does at ``mxnet_tpu/ndarray/ndarray.py:662``): ``FullyConnected``,
+``Convolution`` and ``_contrib_flash_attention`` cast float32 down to
+the compute dtype; ``_contrib_fused_softmax_xent``,
+``softmax_cross_entropy`` and ``softmax`` widen low precision to float32;
+the rest pass the dtype through (LayerNorm and BatchNorm keep float32
+statistics and return their input's dtype). With no policy active the
+casts are the identity.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..amp import cast_op_inputs as _amp
 from .kernels import (bn_act_forward, flash_attention, fused_act,
                       fused_add_act, fused_bn_apply, fused_softmax_xent_rows)
 
@@ -60,6 +71,7 @@ __all__ = ['fully_connected', 'convolution', 'pooling', 'MaxPoolFunction',
 def fully_connected(data, weight, bias=None, flatten=True):
     """``data @ weight^T (+ bias)``; ``flatten`` folds all non-batch axes
     of ``data`` into one first."""
+    data, weight, bias = _amp('FullyConnected', data, weight, bias)
     x = data.reshape(data.shape[0], -1) if flatten else data
     out = torch.matmul(x, weight.t())
     if bias is not None:
@@ -81,6 +93,7 @@ def convolution(data, weight, bias=None, stride=1, pad=0, dilate=1,
     if data.dim() != 4:
         raise NotImplementedError('convolution: only the 2-D NCHW form is '
                                   'ported, got %d-D data' % data.dim())
+    data, weight, bias = _amp('Convolution', data, weight, bias)
     return F.conv2d(data, weight, bias, stride=_pair(stride, 'stride'),
                     padding=_pair(pad, 'pad'),
                     dilation=_pair(dilate, 'dilate'), groups=int(num_group))
@@ -197,6 +210,7 @@ def relu(data):
 def softmax(data, axis=-1, temperature=None):
     """Softmax over ``axis`` (of ``data / temperature``): ``exp(x -
     max)`` over its sum, as ``jax.nn.softmax`` computes it."""
+    data, = _amp('softmax', data)
     x = data if temperature in (None, 1.0) else data / temperature
     ax = -1 if axis is None else int(axis)
     e = torch.exp(x - torch.amax(x, dim=ax, keepdim=True))
@@ -211,6 +225,7 @@ def flash_attention_op(q, k, v, mask=None, *, num_heads, causal=False,
 
     The JAX op also takes a dense (B, Sq, Sk) mask, which it runs on its
     unfused path; the port has no such path and raises instead."""
+    q, k, v, mask = _amp('_contrib_flash_attention', q, k, v, mask)
     h = int(num_heads)
     bh, sq, d = q.shape
     b = bh // h
@@ -235,12 +250,14 @@ def flash_attention_op(q, k, v, mask=None, *, num_heads, causal=False,
 
 def softmax_cross_entropy(data, label):
     """Sum over rows of the softmax cross-entropy of (rows, V) logits."""
+    data, label = _amp('softmax_cross_entropy', data, label)
     return fused_softmax_xent_rows(data, label).sum()
 
 
 def fused_softmax_xent(pred, label):
     """Per-row softmax cross-entropy head: (..., V) logits and (...)
     labels -> (..., 1) nll in the logits' dtype."""
+    pred, label = _amp('_contrib_fused_softmax_xent', pred, label)
     v = pred.shape[-1]
     lead = pred.shape[:-1]
     nll = fused_softmax_xent_rows(pred.reshape(-1, v), label.reshape(-1))

@@ -23,12 +23,18 @@ every parameter, in place. What the JAX trainer does that the port keeps:
     forward writes the new moving averages in place, where the JAX step
     writes its aux outputs back after the update (train_step.py:573-637);
   * dropout masks come from a ``torch.Generator`` that the trainer owns
-    and seeds (``seed``); JAX's threefry masks cannot be reproduced.
+    and seeds (``seed``); JAX's threefry masks cannot be reproduced;
+  * AMP (``amp=``, train_step.py:170-196, 519-565): the forward and the
+    loss run under the policy's scope (``amp.scope``), so each op casts
+    its inputs by its class: the matmul family computes on bf16 copies
+    of the float32 masters, and the gradients widen back to float32 at
+    each parameter through the casts' backward. The loss widens to
+    float32 before the mean. Masters and optimizer state stay float32.
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh of more
 than one device, ZeRO and the numerical guardrail (ROADMAP: "multi-GPU,
-robustness layers and the tail") and AMP (ROADMAP: "AMP: bf16 compute
-over fp32 master weights").
+robustness layers and the tail"), and so the fp16 policy, whose dynamic
+loss scaling the reference runs through that guardrail.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import math
 
 import torch
 
+from .. import amp as _amp
 from ..gluon.nn import Dropout
 from ..optimizer import optimizer as _optmod
 
@@ -65,7 +72,9 @@ class ParallelTrainer:
 
     ``mesh`` may be None or a one-device mesh (a ``{axis: size}`` dict or
     a sequence of devices); ``guardrail`` and ``zero`` may be None or
-    False; ``amp`` must be None.
+    False. ``amp``: None reads the ``MXNET_TPU_AMP`` knob; False or
+    ``'off'`` is off; True, ``'bf16'`` or a ``Policy`` without loss
+    scaling turns it on (:func:`mxnet_tpu_torch.amp.resolve`).
     """
 
     def __init__(self, net, loss, optimizer='sgd', optimizer_params=None,
@@ -85,10 +94,13 @@ class ParallelTrainer:
                                       'guardrail is not ported yet (ROADMAP: '
                                       '"multi-GPU, robustness layers '
                                       'and the tail")')
-        if amp is not None:
-            raise NotImplementedError('ParallelTrainer: AMP is not ported '
-                                      'yet (ROADMAP: "AMP: bf16 compute '
-                                      'over fp32 master weights")')
+        self._amp_policy = _amp.resolve(amp)
+        if self._amp_policy is not None and self._amp_policy.loss_scaling:
+            raise NotImplementedError(
+                'ParallelTrainer: amp=%r needs dynamic loss scaling, which '
+                'the reference runs through the numerical guardrail; the '
+                'guardrail is not ported yet (ROADMAP: "multi-GPU, '
+                'robustness layers and the tail")' % self._amp_policy.name)
         self._net = net
         self._loss = loss
         if isinstance(optimizer, str):
@@ -108,6 +120,12 @@ class ParallelTrainer:
     @property
     def learning_rate(self):
         return self._opt.lr
+
+    @property
+    def amp(self):
+        """The active AMP policy's name ('bf16') or 'off'."""
+        return self._amp_policy.name if self._amp_policy is not None \
+            else 'off'
 
     def _build(self):
         named = list(self._net.collect_params().items())
@@ -137,12 +155,16 @@ class ParallelTrainer:
             p.grad = None
         net.train(True)
         try:
-            outs = _as_list(net(*xs))
-            if isinstance(self._loss, torch.nn.Module):
-                loss = self._loss(outs[0], ys[0])
-            else:
-                loss = self._loss(outs if len(outs) > 1 else outs[0],
-                                  ys if len(ys) > 1 else ys[0])
+            with _amp.scope(self._amp_policy):
+                outs = _as_list(net(*xs))
+                if isinstance(self._loss, torch.nn.Module):
+                    loss = self._loss(outs[0], ys[0])
+                else:
+                    loss = self._loss(outs if len(outs) > 1 else outs[0],
+                                      ys if len(ys) > 1 else ys[0])
+            if self._amp_policy is not None:
+                # the mean sums in float32 whatever the loss's dtype
+                loss = loss.to(torch.float32)
             loss = torch.mean(loss)
         finally:
             net.train(False)

@@ -629,12 +629,16 @@ class DecodeEngine:
 
     def _fail_step(self, active, exc, what):
         """A failed device call: fail the streams it carried, retire their
-        slots (and pages) and rebuild the cache at the next admission."""
+        slots (and pages), then rebuild the cache at once, as the
+        reference's except paths do: the pool's host state (free list,
+        refcounts, prefix registrations) resets with it, so ``stats()`` and
+        :meth:`cache_accounting` read the empty pool before any new
+        admission."""
         logging.exception('decode %s: %s failed', self.name, what)
         for slot, seq in active.items():
             seq.stream._finish('error', exc)
             self._retire(slot, seq, 'error')
-        self._cache = None
+        self._rebuild_cache()
 
     def _page_faults(self, active, lookahead=0):
         """Before a step: allocate pages at boundary crossings and copy

@@ -125,6 +125,121 @@ def test_backward_rejects_other_devices():
             fn(t, t, t, t, lse, t)
 
 
+BF16 = torch.bfloat16
+
+
+def _bf16_pair(a):
+    """``a`` rounded to bf16 once (to nearest even), as a torch tensor and
+    the same values as a JAX array."""
+    t = torch.tensor(a).to(BF16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def bf16_ulps(got, want, tier=0.0):
+    """chip_smoke's count of bf16 ULPs beyond ``tier`` (the card's check),
+    over a torch result and a JAX one."""
+    import chip_smoke
+    return chip_smoke.bf16_ulps(torch, got, torch.from_numpy(
+        np.asarray(want, dtype=np.float32)), tier)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_bf16_plain_versions_match_jax(causal):
+    """The bf16 plain versions of the forward, dq and dkv against the JAX
+    kernels' own bf16 calls in the interpreter (``_fwd_call`` through
+    ``_flash_fwd_impl``, ``_bwd_call``) on the same bf16 values, S 128
+    (no padding on either side), lengths 128, 77 and 1: out within one
+    bf16 ULP of each element, lse float32 within 1e-5; dq, dk and dv in
+    bf16 within one bf16 ULP of each element beyond the float32 tier
+    (RED): both sides sum in float32 in other orders, which moves an
+    element near 0 by up to RED, many of its own bf16 ULPs (measured 510
+    for dq without the tier). The backward is held on the JAX forward's
+    own out and lse, so it compares one function."""
+    from mxnet_tpu.ops.pallas import interpret_mode
+    b, h, s, d = 3, 2, 128, 64
+    scale = 1.0 / 8
+    lengths = np.array([128, 77, 1], 'int32')
+    (tq, jq), (tk, jk), (tv, jv), (tg, jg) = (
+        _bf16_pair(a) for a in _inputs(31 + causal, b, h, s, d))
+    bias = jnp.where(jnp.arange(s)[None, :] < jnp.asarray(lengths)[:, None],
+                     0.0, -jnp.inf).astype(jnp.float32)
+    jo, jlse = jax_attn._flash_fwd_impl(jq, jk, jv, bias, causal, scale,
+                                        interpret_mode())
+    jdq, jdk, jdv = jax_attn._bwd_call(
+        *(t.reshape(b * h, s, d) for t in (jq, jk, jv)), bias,
+        jo.reshape(b * h, s, d), jlse, jg.reshape(b * h, s, d), heads=h,
+        causal=causal, scale=scale, interpret=interpret_mode())
+    assert jo.dtype == jdq.dtype == jnp.bfloat16
+    lens = torch.tensor(lengths)
+    out, lse = kernels.flash_attention_with_lse(tq, tk, tv, lens, causal,
+                                                scale)
+    assert out.dtype == BF16 and lse.dtype == torch.float32
+    assert bf16_ulps(out.float(), np.asarray(jo.astype(jnp.float32))) <= 1
+    jl = np.asarray(jlse).reshape(b, h, s)
+    np.testing.assert_array_equal(np.isneginf(lse.numpy()), np.isneginf(jl))
+    fin = np.isfinite(jl)
+    np.testing.assert_allclose(lse.numpy()[fin], jl[fin], rtol=0, atol=1e-5)
+    to = torch.from_numpy(np.asarray(jo.astype(jnp.float32))).to(BF16)
+    tl = torch.from_numpy(jl)
+    dq = kernels.flash_attention_dq(tq, tk, tv, to, tl, tg, lens, causal,
+                                    scale)
+    dk, dv = kernels.flash_attention_dkv(tq, tk, tv, to, tl, tg, lens,
+                                         causal, scale)
+    for name, got, want in (('dq', dq, jdq), ('dk', dk, jdk),
+                            ('dv', dv, jdv)):
+        assert got.dtype == BF16, name
+        ulps = bf16_ulps(got.float(), np.asarray(
+            want.astype(jnp.float32)).reshape(b, h, s, d), RED)
+        assert ulps <= 1, (name, ulps)
+
+
+def test_wrappers_refuse_mixed_and_other_dtypes():
+    """All float32 or all bfloat16: mixed dtypes and fp16 raise TypeError
+    on either device's path (the CPU's here)."""
+    q = torch.zeros(1, 1, 4, 64)
+    lse = torch.zeros(1, 1, 4)
+    for bad in ((q, q.to(BF16), q), (q.half(), q.half(), q.half())):
+        with pytest.raises(TypeError):
+            kernels.flash_attention_with_lse(*bad)
+        with pytest.raises(TypeError):
+            kernels.flash_attention_dq(*bad, q, lse, q)
+        with pytest.raises(TypeError):
+            kernels.flash_attention_dkv(*bad, q, lse, q)
+    qb = q.to(BF16)
+    with pytest.raises(TypeError):      # out and do share q's dtype
+        kernels.flash_attention_dq(qb, qb, qb, q, lse, qb)
+
+
+@pytest.mark.cuda
+def test_bf16_instances_are_the_float32_kernels_rounded_on_card():
+    """The bf16 instances of the forward, dq and dkv kernels (AMP): bitwise
+    the float32 kernels on the widened inputs, rounded to bf16, with the
+    forward's lse equal, at the training shape and two odd cases."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels are CUDA C++ for '
+                    'sm_90a and have no CPU mode')
+    for b, s, causal, lengths in ((96, 128, False, None),
+                                  (2, 200, True, [200, 0]),
+                                  (3, 17, False, [17, 9, 1])):
+        q, k, v, g = (torch.tensor(a, device='cuda').to(BF16)
+                      for a in _inputs(s, b, 12, s, 64))
+        lens = torch.tensor(lengths or [s] * b, dtype=torch.int32,
+                            device='cuda')
+        out, lse = kernels.flash_attention_with_lse(q, k, v, lens, causal)
+        w = [t.float() for t in (q, k, v, g)]
+        out32, lse32 = kernels.flash_attention_with_lse(*w[:3], lens, causal)
+        assert torch.equal(out, out32.to(BF16)) and torch.equal(lse, lse32)
+        got = (kernels.flash_attention_dq(q, k, v, out, lse, g, lens, causal),
+               *kernels.flash_attention_dkv(q, k, v, out, lse, g, lens,
+                                            causal))
+        want = (kernels.flash_attention_dq(*w[:3], out.float(), lse, w[3],
+                                           lens, causal),
+                *kernels.flash_attention_dkv(*w[:3], out.float(), lse, w[3],
+                                             lens, causal))
+        for name, a, b32 in zip(('dq', 'dk', 'dv'), got, want):
+            assert torch.equal(a, b32.to(BF16)), (name, s, causal)
+
+
 @pytest.mark.cuda
 def test_training_kernels_match_plain_versions_on_card():
     """The four kernels of the training slice (flash dq and dkv,

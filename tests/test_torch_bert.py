@@ -235,7 +235,7 @@ def test_trainer_refuses_what_is_not_ported(ref):
     for kw, item in (({'mesh': {'dp': 2}}, 'mesh of 2 devices.*' + tail),
                      ({'zero': True}, 'ZeRO.*' + tail),
                      ({'guardrail': True}, 'guardrail.*' + tail),
-                     ({'amp': 'bf16'}, 'AMP: bf16 compute')):
+                     ({'amp': 'fp16'}, 'loss scaling.*guardrail.*' + tail)):
         with pytest.raises(NotImplementedError, match=item):
             port_parallel.ParallelTrainer(net, fn, 'adamw', dict(HYPER),
                                           **kw)

@@ -1,0 +1,51 @@
+"""Port parity: the port's knob parsing (``mxnet_tpu_torch/config.py``)
+against the JAX package's (``mxnet_tpu/config.py`` ``Knob.parse`` and
+``get``), for every knob the port lists, over a set variable that is
+empty, padded, false-like or true-like, and an unset one. One case a knob
+and a value: the two packages give the same value, or raise the same
+exception type."""
+import pytest
+
+from mxnet_tpu import config as jax_config
+from mxnet_tpu_torch import config as port_config
+
+UNSET = None
+VALUES = ('', ' 0', '0', 'false', '1', UNSET)
+
+
+def _read(get, name):
+    try:
+        return 'value', get(name)
+    except Exception as exc:  # the type is what is compared
+        return 'raises', type(exc).__name__
+
+
+@pytest.mark.parametrize('raw', VALUES, ids=repr)
+@pytest.mark.parametrize('name', sorted(port_config.KNOBS))
+def test_knob_parses_as_the_reference(monkeypatch, name, raw):
+    if raw is UNSET:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, raw)
+    assert name not in jax_config._values, 'a set() override would win'
+    assert _read(port_config.get, name) == _read(jax_config.get, name)
+
+
+@pytest.mark.parametrize('name', sorted(port_config.KNOBS))
+def test_knob_table_is_the_references(name):
+    typ, default, doc = port_config.KNOBS[name]
+    knob = jax_config.KNOBS[name]
+    assert (typ, default) == (knob.typ, knob.default)
+    if name == 'MXNET_TPU_AMP':
+        assert doc == knob.doc
+
+
+def test_empty_and_padded_bool_knobs(monkeypatch):
+    """ROADMAP C1's table: '' is False, ' 0' is True."""
+    for raw, want in (('', False), (' 0', True), ('0', False),
+                      ('false', False)):
+        monkeypatch.setenv('MXNET_TPU_SERVE_PAGED', raw)
+        assert port_config.get('MXNET_TPU_SERVE_PAGED') is want
+    monkeypatch.setenv('MXNET_TPU_SERVE_DECODE_SLOTS', '')
+    with pytest.raises(ValueError):
+        port_config.get('MXNET_TPU_SERVE_DECODE_SLOTS')

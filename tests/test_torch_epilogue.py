@@ -115,6 +115,58 @@ def test_fused_act_matches_jax(act):
     _assert_bwd(dx, dwant, act, act)
 
 
+BF16 = torch.bfloat16
+
+
+def _bf16_ulps(got, want):
+    """chip_smoke's count of bf16 ULPs (the card's check), over a torch
+    result and a JAX one."""
+    import chip_smoke
+    return chip_smoke.bf16_ulps(torch, got, torch.from_numpy(
+        np.asarray(want, dtype=np.float32)))
+
+
+@pytest.mark.parametrize('act', EXACT_ACTS + ULP_ACTS)
+def test_act_bf16_plain_versions_match_jax(act):
+    """bf16 (AMP): the act forward and backward plain versions against the
+    JAX kernels in bf16 (``mxnet_tpu_act_fwd`` / ``_bwd`` in the
+    interpreter: upcast, compute in float32, round to the input dtype) on
+    the same bf16 values, each element within one bf16 ULP; the backward
+    from the JAX forward's own output, so it compares one function."""
+    x, g = _arrays(7, SHAPE, SHAPE)
+    slope = _slope(act)
+    xt, gt = (torch.tensor(a).to(BF16) for a in (x, g))
+    jx, jg = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+              for t in (xt, gt))
+    jout, vjp = jax.vjp(lambda a: jax_epi.fused_act(a, act, slope), jx)
+    jdx, = vjp(jg)
+    assert jout.dtype == jdx.dtype == jnp.bfloat16
+    out = kernels.act_forward(xt, act, slope)
+    assert out.dtype == BF16
+    assert _bf16_ulps(out.float(), np.asarray(jout.astype(jnp.float32))) \
+        <= 1, act
+    jo = torch.from_numpy(np.asarray(jout.astype(jnp.float32))).to(BF16)
+    dx = kernels.act_backward(gt, jo, act, slope)
+    assert dx.dtype == BF16
+    assert _bf16_ulps(dx.float(), np.asarray(jdx.astype(jnp.float32))) \
+        <= 1, act
+    # the autograd Function carries bf16 through both directions
+    xr = xt.clone().requires_grad_(True)
+    y = kernels.fused_act(xr, act, slope)
+    y.backward(gt)
+    assert y.dtype == xr.grad.dtype == BF16
+
+
+def test_act_kernels_refuse_mixed_and_other_dtypes():
+    x = torch.zeros(5)
+    with pytest.raises(TypeError):
+        kernels.act_forward(x.half(), 'relu')
+    with pytest.raises(TypeError):
+        kernels.act_backward(x, x.to(BF16), 'relu')
+    with pytest.raises(TypeError):
+        kernels.act_backward(x.half(), x.half(), 'relu')
+
+
 @pytest.mark.parametrize('act', ('relu', 'leaky', 'tanh'))
 def test_fused_add_act_matches_jax(act):
     x, y, g = _arrays(1, SHAPE, SHAPE, SHAPE)
@@ -362,14 +414,14 @@ def test_launch_refuses_more_elements_than_the_kernels_index(monkeypatch):
     assert not any(kernels.launch_counts().values())
 
 
-def _stream_items(n, geom):
-    """(first element, width) of each vector (width 4) and scalar (width
-    1) the stream kernels visit for ``n`` elements at ``geom``, as
-    csrc/stream.cuh ``stream`` forms them (blocks, then threads: a
-    vector of a whole tile, or in the block past the tiles a vector of
-    the rest and a scalar of the tail)."""
-    threads, vec, tile = epilogue.EPI_THREADS, epilogue.EPI_VEC, \
-        epilogue.EPI_TILE
+def _stream_items(n, geom, itemsize=4):
+    """(first element, width) of each vector (width 16 / itemsize: 4
+    floats, 8 bf16) and scalar (width 1) the stream kernels visit for
+    ``n`` elements at ``geom``, as csrc/stream.cuh ``stream`` forms them
+    (blocks, then threads: a vector of a whole tile, or in the block past
+    the tiles a vector of the rest and a scalar of the tail)."""
+    threads, vec = epilogue.EPI_THREADS, 16 // itemsize
+    tile = threads * vec
     whole = n - n % vec
     for b in range(geom.grid):
         for t in range(threads):
@@ -383,21 +435,22 @@ def _stream_items(n, geom):
                 yield whole + t, 1
 
 
-def _stream_walk(n, geom):
+def _stream_walk(n, geom, itemsize=4):
     """The element indices the stream visits, in its order."""
-    for i, width in _stream_items(n, geom):
+    for i, width in _stream_items(n, geom, itemsize):
         yield from range(i, i + width)
 
 
-def _assert_partition(n, geom):
+def _assert_partition(n, geom, itemsize=4):
     """``geom`` partitions n elements as the stream walks them, checked
     from the geometry alone: whole tiles, one block each, then one block
-    for fewer than a tile of whole vectors and a tail of n % 4, every
+    for fewer than a tile of whole vectors and a tail of n % vec, every
     index in 32 bits; the C entry points' rule (tiles = n // tile, grid =
     tiles + (n % tile != 0)) holds."""
-    threads, vec, tile = epilogue.EPI_THREADS, epilogue.EPI_VEC, \
-        epilogue.EPI_TILE
-    assert tile == threads * vec
+    threads, vec = epilogue.EPI_THREADS, 16 // itemsize
+    tile = threads * vec
+    if itemsize == 4:
+        assert (vec, tile) == (epilogue.EPI_VEC, epilogue.EPI_TILE)
     assert geom.tiles == n // tile and geom.body == geom.tiles * tile
     assert geom.tail == n % vec and geom.rest % vec == 0
     assert 0 <= geom.rest < tile
@@ -433,6 +486,26 @@ def test_epilogue_geometry_covers_every_element_once(n):
         assert sorted(walked) == list(range(n))
 
 
+TILE_BF16 = epilogue.EPI_THREADS * 8
+
+
+@pytest.mark.parametrize('n', sorted({
+    0, 1, 5, 7, 8, 9, 15, 16, 3003, 9102, TILE_BF16 - 8, TILE_BF16 - 1,
+    TILE_BF16 + 1, TILE_BF16 + 7, TILE_BF16 + 8, 2 * TILE_BF16 + 2051,
+    96 * 768, 128 * 64 * 112 * 112 + 5, epilogue.MAX_ELEMENTS - 7,
+    epilogue.MAX_ELEMENTS}))
+def test_epilogue_geometry_bf16_covers_every_element_once(n):
+    """The bf16 stream (8 elements a 16-byte vector, the act kernels' AMP
+    instances): the body, rest and tail of ``epilogue_geometry(n, 2)``
+    cover the n elements exactly once, walked where n is small; the
+    output is evicted from ``EPI_EVICT_BYTES`` of bf16 on."""
+    geom = kernels.epilogue_geometry(n, 2)
+    _assert_partition(n, geom, 2)
+    if n <= 4 * TILE_BF16:
+        assert sorted(_stream_walk(n, geom, 2)) == list(range(n))
+    assert geom.evict is (2 * n >= epilogue.EPI_EVICT_BYTES)
+
+
 def test_epilogue_geometry_evicts_outputs_the_l2_cannot_hold():
     """Stores evict first from an output of EPI_EVICT_BYTES on: ResNet-50's
     28 x 28 relus (51.4 MB) and larger at batch 128, not its 14 x 14
@@ -464,6 +537,10 @@ def test_stream_constants_match_the_source():
     assert int(re.search(r'constexpr int VEC = (\d+);', src).group(1)) \
         == epilogue.EPI_VEC
     assert 'constexpr int TILE = THREADS * VEC;' in src
+    # the bf16 stream: 8 elements a 16-byte vector, as epilogue_geometry's
+    # itemsize 2
+    assert int(re.search(r'constexpr int VEC_BF16 = (\d+);', src).group(1)) \
+        == 16 // 2
 
 
 def _kernel_div(i, div):
@@ -616,6 +693,16 @@ PTXAS_LINES = [
     '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
     'ptxas info    : Used 30 registers, used 0 barriers',
     "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e728epilogue_act_fwd_bf16_kernelILi3ELb0EEEvPK13__nv_"
+    "bfloat16PS2_jjf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 32 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e728epilogue_act_bwd_bf16_kernelILi4ELb1EEEvPK13__nv_"
+    "bfloat16S3_PS2_jjf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 31 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
     "epilogue_cu_1878d3e727epilogue_add_act_fwd_kernelILi6EEEvPKfS2_Pfjf' "
     "for 'sm_90a'",
     'ptxas info    : Used 18 registers, used 0 barriers',
@@ -624,13 +711,14 @@ PTXAS_LINES = [
 
 def test_ptxas_report_of_the_act_kernels():
     """chip_smoke's phase-1 check reads the registers and spills of the
-    stream kernels' instances (act and BN apply) from ptxas's report,
-    keyed by store kind, and fails on a spill or when ptxas ran and did
-    not name all four kernels."""
+    stream kernels' instances (act and BN apply, and the act kernels' bf16
+    instances) from ptxas's report, keyed by store kind, and fails on a
+    spill or when ptxas ran and did not name all six kernels."""
     import chip_smoke
     assert chip_smoke.check_epilogue_build(PTXAS_LINES) == {
         'act_fwd': {'cs': 20}, 'act_bwd': {'st': 32},
-        'bn_act_fwd': {'cs': 26}, 'bn_act_bwd': {'st': 30}}
+        'bn_act_fwd': {'cs': 26}, 'bn_act_bwd': {'st': 30},
+        'act_fwd_bf16': {'st': 32}, 'act_bwd_bf16': {'cs': 31}}
     for line in (1, 7):
         spilled = list(PTXAS_LINES)
         spilled[line] = '    0 bytes stack frame, 8 bytes spill stores, ' \
@@ -638,11 +726,38 @@ def test_ptxas_report_of_the_act_kernels():
         with pytest.raises(AssertionError, match='spill'):
             chip_smoke.check_epilogue_build(spilled)
     with pytest.raises(AssertionError,
-                       match='no act_bwd / act_fwd / bn_act_bwd / bn_act_fwd'):
+                       match='no act_bwd / act_bwd_bf16 / act_fwd / '
+                       'act_fwd_bf16 / bn_act_bwd / bn_act_fwd'):
         chip_smoke.check_epilogue_build(PTXAS_LINES[-2:])
-    with pytest.raises(AssertionError, match='no bn_act_bwd / bn_act_fwd'):
+    with pytest.raises(AssertionError, match='no act_bwd_bf16 / act_fwd_bf16 '
+                       '/ bn_act_bwd / bn_act_fwd'):
         chip_smoke.check_epilogue_build(PTXAS_LINES[:6])
+    with pytest.raises(AssertionError, match='no act_bwd_bf16 / act_fwd_bf16'):
+        chip_smoke.check_epilogue_build(PTXAS_LINES[:12])
     assert chip_smoke.check_epilogue_build([]) == {}
+
+
+@pytest.mark.cuda
+def test_act_bf16_instances_are_the_float32_kernels_rounded_on_card():
+    """The act kernels' bf16 instances (AMP): bitwise the float32 kernels
+    on the widened inputs, rounded, for every act type, at sizes with
+    whole 2048-element tiles, a rest and tails (9102, 3003) and below a
+    tile (5)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels are CUDA C++ for '
+                    'sm_90a and have no CPU mode')
+    for n in (9102, 3003, 5):
+        x, g = (torch.tensor(a, device='cuda').to(BF16)
+                for a in _arrays(n, (n,), (n,)))
+        for act in EXACT_ACTS + ULP_ACTS:
+            slope = _slope(act)
+            out = kernels.act_forward(x, act, slope)
+            assert torch.equal(out, kernels.act_forward(
+                x.float(), act, slope).to(BF16)), (act, n)
+            assert torch.equal(
+                kernels.act_backward(g, out, act, slope),
+                kernels.act_backward(g.float(), out.float(), act,
+                                     slope).to(BF16)), (act, n)
 
 
 @pytest.mark.cuda

@@ -707,6 +707,36 @@ def test_failed_step_fails_streams_and_rebuilds_the_pool():
     assert st['pages']['pages_used'] == st['pages']['prefix_entries'] == 0
 
 
+def test_failed_step_empties_the_pool_before_any_admission():
+    """The pool's host state resets as the failed step is handled, as the
+    reference's except paths rebuild at once: ``stats()['pages']`` and
+    ``cache_accounting()`` read an empty pool before any new request (the
+    prompts' prefix registrations went with it)."""
+    model, params = _model(max_len=48)
+    prog = _FailingProgram(_paged(model, params, slots=2,
+                                  prefill_buckets=(8,), page_size=8), 2)
+    eng = DecodeEngine(prog, timeout_s=60.0)
+    try:
+        streams = [eng.generate([1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=5)
+                   for _ in range(2)]
+        for s in streams:
+            with pytest.raises(RuntimeError, match='device lost'):
+                s.result(60)
+        for _ in range(500):
+            st = eng.stats()
+            if st['free_slots'] == 2 and st['pages']['pages_used'] == 0:
+                break
+            threading.Event().wait(0.01)
+        acc = eng.cache_accounting()
+    finally:
+        eng.close()
+    assert st['free_slots'] == 2
+    assert st['counts']['retired'].get('error') == 2
+    assert st['pages']['pages_used'] == st['pages']['prefix_entries'] == 0
+    pool = acc['pool']
+    assert pool['pages_used'] == 0 and pool['pages_free'] == pool['pages_total']
+
+
 # -- speculative decoding -----------------------------------------------------
 
 
