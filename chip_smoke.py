@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero:
      and dk/dv kernels' HMMA (their 3xTF32 tensor-core products), or the
      run fails; the bf16 instances (AMP) of the flash forward, dq, dk/dv
      and the act kernels among them, each held apart: no spill, HMMA in
-     the bf16 dq and dk/dv;
+     the bf16 dq and dk/dv; the BN apply's, add+act's and the xent
+     kernels' bf16 instances spill nothing either;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -80,7 +81,21 @@ Phases, in order; any failure exits non-zero:
      the ResNet stem shape in relu) beside its float32 instance, its
      plain version and the library call on bf16 (SDPA and its backward,
      ``torch.tanh`` / ``tanh_backward``, ``torch.relu`` /
-     ``threshold_backward``), with bounds at bf16 bytes;
+     ``threshold_backward``), with bounds at bf16 bytes. Then the bf16
+     instances of the ResNet path (rows 5b, 6b, 9b, 10b, 11b): the BN
+     apply forward and backward at ResNet-50's nine BatchNorm shapes
+     (identity) and add+relu at its four join shapes, every act type at
+     the epilogue check shapes and the BN apply's odd inners, the xent
+     forward on bf16 logits at every ``XENT_SHAPES`` case (each of its
+     instances) and its backward writing bf16 on ``XENT_BWD_BF16_CASES``
+     (8-element vectors: below a tile, whole tiles, rests and tails),
+     each bitwise its float32 kernel on the widened inputs (rounded once)
+     and within one bf16 ULP of its plain version beyond the float32
+     tier; then each timed beside its float32 instance and the library
+     call on bf16 (``batch_norm``, ``torch.mul``, none for add+relu,
+     ``cross_entropy`` / ``log_softmax`` and ``cross_entropy``'s
+     backward; the xent head at ResNet's 128 x 1000 and the MLM's 1920 x
+     30522);
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -138,7 +153,23 @@ Phases, in order; any failure exits non-zero:
      trained net, its moving statistics recomputed for its weights, with
      every BatchNorm frozen (``use_global_stats``) fine-tunes 3 SGD steps
      (lr 0.01), which adds 53 BN apply backward launches a step; the
-     losses must be finite and the moving statistics must not move;
+     losses must be finite and the moving statistics must not move.
+     5a-amp: 5a's narrow ResNet on the card against the CPU under
+     ``amp='bf16'`` and after ``cast('bfloat16')`` on bf16 images: loss
+     within 1e-2 and step-0 gradients within 2e-2 of their max abs
+     (4a-amp's tiers), three SGD steps within 6e-2.
+     5d: 5b's net, weights and batch under ``amp='bf16'``, 2 + 10 steps:
+     per step exactly 53 float32 BN apply (training widens the data), 33
+     bf16 act, 16 bf16 add+act, 49 bf16 act backward, one float32 xent
+     each way; first loss within 6e-2 of 5b's, falling as 5b's; img/s,
+     step ms, the profile (casts apart) and peak memory beside 5b's; an
+     inference forward (53 bf16 BN apply, 33 / 16); then 5c's frozen-BN
+     fine-tuning under AMP (53 bf16 BN apply and 53 bf16 BN apply
+     backward a step, statistics unchanged). 5e: the same net after
+     ``cast('bfloat16')`` on bf16 images, SGD without ``multi_precision``
+     (``bench_resnet``): per step 53 float32 BN apply, 33 / 16 / 49 bf16,
+     one bf16 xent forward (bf16 logits) and backward (bf16 dlogits);
+     first loss within 6e-2 of 5b's, losses finite, the same metrics;
   6. the SSD detection serving slice. The nms kernel against its plain
      version on the card, keep masks bitwise equal: 16 x 7378 boxes
      class-aware at topk 400, 2 x 7378 class-agnostic with every box
@@ -1522,6 +1553,295 @@ def time_epilogue_kernels(torch, kernels, batch=RESNET['batch']):
     return rows
 
 
+# -- phase 2: the bf16 instances of the ResNet path (rows 5b-11b) -----------
+
+BF16_ROWS = ('bn_act_fwd.bf16', 'bn_act_bwd.bf16', 'add_act_fwd.bf16',
+             'softmax_xent_fwd.bf16', 'softmax_xent_bwd.bf16')
+# every BatchNorm shape of a ResNet-50 v1 step at batch 128 (the stem, the
+# three of each bottleneck at its stage's width, the projections) and its
+# four residual-join shapes
+RESNET_BN_SHAPES = ((128, 64, 112, 112), (128, 64, 56, 56),
+                    (128, 256, 56, 56), (128, 128, 28, 28),
+                    (128, 512, 28, 28), (128, 256, 14, 14),
+                    (128, 1024, 14, 14), (128, 512, 7, 7), (128, 2048, 7, 7))
+RESNET_JOIN_SHAPES = ((128, 256, 56, 56), (128, 512, 28, 28),
+                      (128, 1024, 14, 14), (128, 2048, 7, 7))
+# the backward writing bf16 (8 elements a vector, 2048 a tile): below a
+# tile with n % 8 of 3 and 7, whole tiles, a rest and a tail, ResNet's
+# head and the MLM head
+XENT_BWD_BF16_CASES = ((7, 5), (5, 3), (1024, 2), (128, 1000), (3, 30523),
+                       (6, 30523), (1920, 30522))
+
+
+def check_bf16_rows(torch, kernels, device, bn_shapes=RESNET_BN_SHAPES,
+                    join_shapes=RESNET_JOIN_SHAPES, epi_shapes=EPI_SHAPES,
+                    bn_cases=EPI_BN_CASES, xent_shapes=XENT_SHAPES,
+                    xent_bwd_cases=XENT_BWD_BF16_CASES):
+    """The bf16 instances of the BN apply forward and backward, add+act
+    and the xent head (rows 5b, 6b, 9b, 10b, 11b) against the float32
+    kernels on the widened inputs and their plain versions on ``device``:
+    the BN apply at ResNet-50's BatchNorm shapes (identity, as its step
+    runs it) and add+relu at its join shapes, then every act type at the
+    epilogue check shapes and the BN apply's odd-inner cases; the xent
+    forward on bf16 logits at ``xent_shapes`` (every instance), labels
+    out of range included; its backward writing bf16 on
+    ``xent_bwd_cases``, g per row and a scalar. Each result is bitwise
+    the float32 kernel's on the widened inputs (rounded once where it is
+    bf16) and within :data:`BF16_ULPS` bf16 ULPs of the plain version
+    beyond the float32 tier (0 for the exact acts, ULP of the max abs for
+    the transcendental ones, TOL of the max abs for dlogits; nll and logp
+    within TOL). Returns {kernel name: worst max abs error against the
+    plain version}."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device='cpu').manual_seed(8)
+    worst = dict.fromkeys(BF16_ROWS, 0.0)
+
+    def randn(*shape, scale=3.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device, bf)
+
+    def hold(name, got, f32, plain, act, where):
+        bitwise = torch.equal(got, f32.to(got.dtype))
+        tier = 0.0 if act in EPI_EXACT_ACTS else \
+            ULP * plain.float().abs().max().item()
+        ulps = bf16_ulps(torch, got, plain, tier)
+        if not bitwise or not ulps <= BF16_ULPS:
+            raise AssertionError('%s at %s: bitwise the float32 kernel %s, '
+                                 '%.3g bf16 ULPs beyond the tier from its '
+                                 'plain version' % (name, where, bitwise,
+                                                    ulps))
+        worst[name] = max(worst[name],
+                          (got.float() - plain.float()).abs().max().item())
+        return ulps
+
+    def bn_pair(x, g, coeffs, axis, act, where):
+        slope = 0.25 if act == 'leaky' else 0.0
+        scale, mean, beta = coeffs
+        out = kernels.bn_act_forward(x, scale, mean, beta, axis, act, slope)
+        u1 = hold('bn_act_fwd.bf16', out,
+                  kernels.bn_act_forward(x.float(), scale, mean, beta, axis,
+                                         act, slope),
+                  kernels.bn_act_forward_reference(x, scale, mean, beta,
+                                                   axis, act, slope),
+                  act, where)
+        dx = kernels.bn_act_backward(g, out, scale, axis, act, slope)
+        u2 = hold('bn_act_bwd.bf16', dx,
+                  kernels.bn_act_backward(g.float(), out.float(), scale,
+                                          axis, act, slope),
+                  kernels.bn_act_backward_reference(g, out, scale, axis,
+                                                    act, slope),
+                  act, where)
+        return u1, u2
+
+    def join(x, y, act, where):
+        slope = 0.25 if act == 'leaky' else 0.0
+        return hold('add_act_fwd.bf16', kernels.add_act_forward(x, y, act,
+                                                                slope),
+                    kernels.add_act_forward(x.float(), y.float(), act, slope),
+                    kernels.add_act_forward_reference(x, y, act, slope), act,
+                    where)
+
+    def coeffs(c):
+        c32 = _bn_coeffs(torch, c, torch.Generator(device='cpu').manual_seed(c),
+                         'cpu')
+        return [t.to(device) for t in c32]
+
+    for shape in bn_shapes:
+        x, g = randn(*shape), randn(*shape)
+        u = bn_pair(x, g, coeffs(shape[1]), 1, 'identity', shape)
+        log('check bf16 bn apply %s identity: fwd / bwd bitwise the float32 '
+            'kernel, %.3g / %.3g bf16 ULPs from the plain version'
+            % ((shape,) + u))
+        del x, g
+    for shape in join_shapes:
+        x, y = randn(*shape), randn(*shape)
+        log('check bf16 add+relu %s: bitwise the float32 kernel, %.3g bf16 '
+            'ULPs from the plain version' % (shape, join(x, y, 'relu',
+                                                        shape)))
+        del x, y
+    for shape in epi_shapes:
+        x, y, g = randn(*shape), randn(*shape), randn(*shape)
+        for act in EPI_EXACT_ACTS + EPI_ULP_ACTS:
+            where = '%s %s' % (shape, act)
+            u = bn_pair(x, g, coeffs(shape[1]), 1, act, where) + (
+                join(x, y, act, where),)
+            log('check bf16 epilogue %s act=%s: bn fwd / bn bwd / add+act '
+                'bitwise the float32 kernel, %s bf16 ULPs beyond the tier'
+                % (shape, act, ['%.3g' % v for v in u]))
+        del x, y, g
+    for shape, axis in bn_cases:
+        x, g = randn(*shape), randn(*shape)
+        for act in EPI_EXACT_ACTS + EPI_ULP_ACTS:
+            bn_pair(x, g, coeffs(shape[axis]), axis, act,
+                    '%s axis %d %s' % (shape, axis, act))
+        log('check bf16 bn apply %s axis=%d: every act bitwise the float32 '
+            'kernel, within the ULP bound' % (shape, axis))
+    for rows, v in xent_shapes:
+        x = randn(rows, v)
+        lab = torch.randint(0, v, (rows,), generator=gen, dtype=torch.int32)
+        lab[0] = -1
+        if rows > 1:
+            lab[1] = v
+        lab = lab.to(device)
+        nll, logp = kernels.softmax_xent_forward(x, lab)
+        n32, l32 = kernels.softmax_xent_forward(x.float(), lab)
+        nr, lr = kernels.softmax_xent_forward_reference(x, lab)
+        bitwise = torch.equal(nll, n32) and torch.equal(logp, l32)
+        err = max(_errs(nll, nr)[0], _errs(logp, lr)[0])
+        log('check bf16 softmax_xent_fwd rows=%d V=%d (%s): nll, logp '
+            'float32, bitwise the float32 kernel on the widened logits %s, '
+            'max_abs_err %.3g' % (rows, v, kernels.xent_geometry(
+                rows, v).instance, bitwise, err))
+        if nll.dtype != torch.float32 or logp.dtype != torch.float32 \
+                or not bitwise or not err <= TOL:
+            raise AssertionError('softmax_xent_fwd.bf16 at rows %d V %d: '
+                                 'bitwise %s, max_abs_err %.3g'
+                                 % (rows, v, bitwise, err))
+        worst['softmax_xent_fwd.bf16'] = max(worst['softmax_xent_fwd.bf16'],
+                                             err)
+        del x, nll, logp, n32, l32, nr, lr
+    for rows, v in xent_bwd_cases:
+        logp, lab = xent_bwd_inputs(torch, kernels, rows, v, gen, device)
+        for kind, g in (('row', torch.rand(rows, generator=gen).to(device)),
+                        ('scalar', XENT_BWD_G)):
+            dx = kernels.softmax_xent_backward(logp, lab, g, bf)
+            want = kernels.softmax_xent_backward_reference(logp, lab, g, bf)
+            f32 = kernels.softmax_xent_backward(logp, lab, g)
+            bitwise = torch.equal(dx, f32.to(bf))
+            ulps = bf16_ulps(torch, dx, want,
+                             TOL * want.float().abs().max().item())
+            geom = kernels.epilogue_geometry(rows * v, 2)
+            log('check bf16 softmax_xent_bwd rows=%d V=%d n=%d (%d tiles, '
+                'rest %d, tail %d) g %s: bitwise the float32 kernel rounded '
+                '%s, %.3g bf16 ULPs beyond the tier'
+                % (rows, v, rows * v, geom.tiles, geom.rest, geom.tail, kind,
+                   bitwise, ulps))
+            if dx.dtype != bf or not bitwise or not ulps <= BF16_ULPS:
+                raise AssertionError('softmax_xent_bwd.bf16 at rows %d V %d '
+                                     'g %s' % (rows, v, kind))
+            worst['softmax_xent_bwd.bf16'] = max(
+                worst['softmax_xent_bwd.bf16'],
+                (dx.float() - want.float()).abs().max().item())
+        del logp
+    return worst
+
+
+def time_bf16_rows(torch, kernels, batch=RESNET['batch'],
+                   classes=RESNET['classes'], mlm=(1920, TRAIN['vocab'])):
+    """Times of rows 5b, 6b, 9b, 10b and 11b at the shapes of the ResNet
+    path on bf16, each beside its float32 instance on the same inputs
+    widened (``f32_device_ms``), its plain version and the library call
+    on bf16: the BN apply and its backward at the stem (batch x 64 x 112
+    x 112, identity) against ``batch_norm(training=False)`` and
+    ``torch.mul`` (g by a bf16 copy of scale), add+relu at the first join
+    (batch x 256 x 56 x 56; no library call), the xent head at ResNet's
+    (batch x 1000) against ``cross_entropy`` / ``log_softmax`` and the
+    backward alone of ``cross_entropy``, both also at the MLM head (1920
+    x 30522, ``at_mlm``). Bounds at bf16 bytes (coefficients, logp, nll
+    and g float32) at 3.35 TB/s."""
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    stem, join_shape = (batch, 64, 112, 112), (batch, 256, 56, 56)
+    x, g = (torch.randn(stem, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    c, eps = stem[1], 1e-5
+    gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+    var = torch.rand(c, generator=gen, device=dev) + 0.5
+    mean, beta = (torch.randn(c, generator=gen, device=dev)
+                  for _ in range(2))
+    scale = torch.rsqrt(var + eps) * gamma
+    n = x.numel()
+    b_ms, b_by = bound(4 * n + 12 * c, 3 * n)
+    rows['bn_act_fwd.bf16'] = timings(
+        torch, (x, scale, mean, beta), kernels.bn_act_forward,
+        kernels.bn_act_forward_reference,
+        lambda x, mean, var, gamma, beta: F.batch_norm(
+            x, mean, var, gamma, beta, training=False, eps=eps),
+        library_inputs=(x, mean, var, gamma, beta),
+        bound_ms=b_ms, bound_by=b_by,
+        f32_device_ms=device_ms(torch, kernels.bn_act_forward,
+                                (x.float(), scale, mean, beta)),
+        shape='%s identity bf16, coefficients float32; library: '
+        'batch_norm(training=False) on bf16' % (stem,))
+    b_ms, b_by = bound(4 * n + 4 * c, n)
+    rows['bn_act_bwd.bf16'] = timings(
+        torch, (g, x, scale), kernels.bn_act_backward,
+        kernels.bn_act_backward_reference,
+        lambda g, s: torch.mul(g, s.view(1, -1, 1, 1)),
+        library_inputs=(g, scale.to(bf)), bound_ms=b_ms, bound_by=b_by,
+        f32_device_ms=device_ms(torch, kernels.bn_act_backward,
+                                (g.float(), x.float(), scale)),
+        shape='%s identity bf16; library: torch.mul(g, scale[c]) in bf16'
+        % (stem,))
+    del x, g
+    xj, yj = (torch.randn(join_shape, generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    nj = xj.numel()
+    b_ms, b_by = bound(6 * nj, 2 * nj)
+    rows['add_act_fwd.bf16'] = timings(
+        torch, (xj, yj), lambda x, y: kernels.add_act_forward(x, y, 'relu'),
+        lambda x, y: kernels.add_act_forward_reference(x, y, 'relu'),
+        bound_ms=b_ms, bound_by=b_by,
+        f32_device_ms=device_ms(torch, lambda x, y: kernels.add_act_forward(
+            x, y, 'relu'), (xj.float(), yj.float())),
+        shape='%s relu bf16; library: none (aten._add_relu has no CUDA '
+        'kernel)' % (join_shape,))
+    del xj, yj
+    for r, v, key in ((batch, classes, None), (mlm[0], mlm[1], 'at_mlm')):
+        x = (torch.randn(r, v, generator=gen, device=dev) * 3).to(bf)
+        lab = torch.randint(0, v, (r,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        lab64 = lab.long()
+        _, logp = kernels.softmax_xent_forward(x, lab)
+        gr = torch.full((r,), 1.0 / r, device=dev)
+        m = x.numel()
+        fwd = timings(
+            torch, (x, lab), kernels.softmax_xent_forward,
+            kernels.softmax_xent_forward_reference,
+            lambda x, lab: F.cross_entropy(x, lab, reduction='none'),
+            library_inputs=(x, lab64),
+            bound_ms=bound(2 * m + 4 * m + 3 * r * 4, 5 * m)[0],
+            bound_by=bound(2 * m + 4 * m + 3 * r * 4, 5 * m)[1],
+            f32_device_ms=device_ms(torch, kernels.softmax_xent_forward,
+                                    (x.float(), lab)),
+            log_softmax_device_ms=device_ms(
+                torch, lambda x: F.log_softmax(x, dim=-1), (x,)),
+            shape='rows %d V %d bf16 logits, nll and logp float32, %s; '
+            'library: cross_entropy(reduction=none) on bf16 (its logp '
+            'bf16)' % (r, v, kernels.xent_geometry(r, v).instance))
+        xs = x.detach().clone().requires_grad_(True)
+        ce = F.cross_entropy(xs, lab64, reduction='sum') / r
+
+        def ce_bwd(ce=ce, xs=xs):
+            return torch.autograd.grad(ce, xs, retain_graph=True)
+
+        bwd = timings(
+            torch, (logp, lab, gr),
+            lambda lp, lab, g: kernels.softmax_xent_backward(lp, lab, g, bf),
+            lambda lp, lab, g: kernels.softmax_xent_backward_reference(
+                lp, lab, g, bf), ce_bwd, library_inputs=(),
+            bound_ms=bound(4 * m + 2 * m + 2 * r * 4, 3 * m)[0],
+            bound_by=bound(4 * m + 2 * m + 2 * r * 4, 3 * m)[1],
+            f32_device_ms=device_ms(torch, kernels.softmax_xent_backward,
+                                    (logp, lab, gr)),
+            shape='rows %d V %d, logp float32, dx bf16; library: backward '
+            'alone of cross_entropy(reduction=sum) on bf16 logits' % (r, v))
+        if key is None:
+            rows['softmax_xent_fwd.bf16'], rows['softmax_xent_bwd.bf16'] = \
+                fwd, bwd
+        else:
+            for name, row in (('softmax_xent_fwd.bf16', fwd),
+                              ('softmax_xent_bwd.bf16', bwd)):
+                rows[name][key] = {k: row[k] for k in (
+                    'shape', 'device_ms', 'f32_device_ms', 'bound_ms',
+                    'library_device_ms')}
+        del x, xs, ce, logp
+        torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 3: the serving slice ----------------------------------------------
 
 
@@ -1983,6 +2303,10 @@ RESNET_GROUPS = (('epilogue kernels', ('epilogue_',), ()),
                  ('BN statistics/backward', (), ('BatchNormTrainFunction',)),
                  ('max pool', (), ('MaxPoolFunction',)),
                  ('copies', ('memcpy', 'memset'), ()))
+# 5d / 5e: 5b's groups and the casts apart (the bf16 copies of the
+# masters and the activations under AMP, the gradients widened)
+RESNET_AMP_GROUPS = RESNET_GROUPS[:5] + (
+    ('casts', (), ('aten::_to_copy', 'ToCopyBackward')),) + RESNET_GROUPS[5:]
 
 
 def _enclosing(ranges, launch):
@@ -2018,7 +2342,10 @@ def profile_step(torch, step, groups):
     spans, by_name, unlinked = [], {}, 0
     groups_ms = dict.fromkeys([g for g, _, _ in groups] + ['other'], 0.0)
     for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range also shows on the device timeline (a
+        # user annotation spanning the kernels it launched): not a kernel
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, 'is_user_annotation', False):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         ms = (e.time_range.end - e.time_range.start) / 1e3
@@ -2170,45 +2497,136 @@ def resnet_against_cpu(torch, resnet, gloss, gnn, parallel, kernels,
         raise AssertionError('phase 5a: the frozen BatchNorm disagrees')
 
 
+def resnet_bf16_against_cpu(torch, resnet, gloss, parallel, device, route,
+                            shape=NARROW_BATCH, steps=3, seed=0):
+    """Phase 5a-amp: the narrow ResNet under ``route`` ('amp':
+    ``amp='bf16'``; 'cast': ``cast('bfloat16')`` on bf16 images) on
+    ``device`` and on the CPU from the same weights: one forward and
+    backward, then ``steps`` SGD steps. The loss is held to
+    :data:`AMP_LOSS_RTOL`, each step-0 gradient to :data:`AMP_GRAD_REL`
+    of its max abs (phase 4a-amp's tiers; the conv biases feeding a
+    BatchNorm, whose exact gradient is 0, to that of the net's largest
+    gradient) and the step losses to :data:`AMP_FIRST_LOSS_RTOL`. Returns
+    (loss relative error, worst gradient relative error, step losses
+    relative error)."""
+    from mxnet_tpu_torch import amp as amp_mod
+    L = gloss.SoftmaxCrossEntropyLoss()
+    phase = 'phase 5a-amp (%s)' % route
+    import warnings
+    runs = {}
+    for dev in (device, torch.device('cpu')):
+        net = _narrow_resnet(resnet, dev, seed)
+        x, y = images(torch, dev, shape, NARROW['classes'], seed)
+        if route == 'cast':
+            net.cast('bfloat16')
+            x = x.to(torch.bfloat16)
+        net.train(True)
+        with amp_mod.scope(amp_mod.bf16() if route == 'amp' else None):
+            loss = L(net(x), y)
+        loss = loss.float().mean()
+        loss.backward()
+        net.train(False)
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in net.collect_params().items() if p.requires_grad}
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')     # bf16 weights, no master
+            pt = parallel.ParallelTrainer(net, L, 'sgd', dict(NARROW_HYPER),
+                                          amp='bf16' if route == 'amp'
+                                          else None)
+            losses = [pt.step(x, y).float().item() for _ in range(steps)]
+        runs[dev.type] = (loss.item(), grads, losses)
+    (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = runs[device.type], \
+        runs['cpu']
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    largest = max(g.abs().max().item() for g in g_cpu.values())
+    grad_err, noise_err = 0.0, 0.0
+    for name, want in g_cpu.items():
+        got = g_dev[name]
+        if 'conv' in name and name.endswith('_bias'):
+            noise_err = max(noise_err,
+                            (got - want).abs().max().item() / largest)
+            continue
+        grad_err = max(grad_err, _errs(got, want)[1])
+    step_err = max(abs(u - v) / abs(v) for u, v in zip(s_dev, s_cpu))
+    log('%s %s vs cpu: narrow ResNet %s; loss %.7g vs %.7g, rel_err %.3g; '
+        'worst gradient rel_err %.3g over %d parameters (conv biases '
+        'feeding a BatchNorm: %.3g of the largest gradient); %d SGD steps '
+        '%s vs %s, rel_err %.3g'
+        % (phase, device.type, shape, l_dev, l_cpu, loss_err, grad_err,
+           len(g_cpu), noise_err, steps, s_dev, s_cpu, step_err))
+    if not loss_err <= AMP_LOSS_RTOL or not grad_err <= AMP_GRAD_REL \
+            or not noise_err <= AMP_GRAD_REL \
+            or not step_err <= AMP_FIRST_LOSS_RTOL:
+        raise AssertionError('%s: the card disagrees with the CPU' % phase)
+    return loss_err, grad_err, step_err
+
+
 def resnet_launches(kernels, net, gnn, resnet, backward=True,
-                    frozen=False):
+                    frozen=False, route=None):
     """Kernel launches of one ResNet step (``backward``) or inference
     forward: one BN apply per BatchNorm, one act per relu, one add+act
     per cell; backward: one act_bwd per relu and per cell (the add+act's
     backward is the act_bwd kernel), the xent head once each way, and
     with the BatchNorm statistics ``frozen`` one BN apply backward per
-    BatchNorm."""
+    BatchNorm. ``route`` 'amp' (``amp='bf16'``) or 'cast'
+    (``cast('bfloat16')``): the act, add+act and BN apply backward
+    kernels run their bf16 instances, the BN apply too where it reads
+    the moving statistics (inference, frozen); training's BN apply runs
+    the float32 instance on the widened data; the xent head is float32
+    under 'amp' (the keep-fp32 class widens the logits), bf16 under
+    'cast'."""
     mods = list(net.modules())
     bns = sum(isinstance(m, gnn.BatchNorm) for m in mods)
     acts = sum(isinstance(m, gnn.Activation) for m in mods)
     cells = sum(isinstance(m, resnet.BottleneckV1) or
                 isinstance(m, resnet.BasicBlockV1) for m in mods)
+    bf = kernels.BF16 if route else ''
+    xent = kernels.BF16 if route == 'cast' else ''
+    apply = 'bn_act_fwd' + (bf if frozen or not backward else '')
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(bn_act_fwd=bns, act_fwd=acts, add_act_fwd=cells)
+    want.update({apply: bns, 'act_fwd' + bf: acts, 'add_act_fwd' + bf: cells})
     if backward:
-        want.update(act_bwd=acts + cells, softmax_xent_fwd=1,
-                    softmax_xent_bwd=1, bn_act_bwd=bns if frozen else 0)
+        want.update({'act_bwd' + bf: acts + cells,
+                     'softmax_xent_fwd' + xent: 1,
+                     'softmax_xent_bwd' + xent: 1,
+                     'bn_act_bwd' + bf: bns if frozen else 0})
     return want
 
 
 def train_resnet(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
                  device, net=None, shape=RESNET, warmup=RESNET_WARMUP,
-                 iters=RESNET_ITERS, seed=0):
-    """Phase 5b: ResNet v1 training steps through ``ParallelTrainer.step``
-    with SGD; launch counts zeroed after the warm-up and read after the
-    timed steps; a profiled step (SGD annotated); then one inference
-    forward. Returns a dict of results."""
+                 iters=RESNET_ITERS, seed=0, route=None):
+    """Phase 5b (``route`` None: float32), 5d (``route`` 'amp': the
+    float32 net under ``amp='bf16'``) or 5e (``route`` 'cast': the net
+    after ``cast('bfloat16')`` on bf16 images, SGD without
+    ``multi_precision``, as ``bench_resnet`` trains): ResNet v1 training
+    steps through ``ParallelTrainer.step`` with SGD; launch counts zeroed
+    after the warm-up and read after the timed steps; a profiled step
+    (SGD annotated); then one inference forward (under the policy's scope
+    for 'amp'). Returns a dict of results."""
+    import warnings
+    from mxnet_tpu_torch import amp as amp_mod
+    phase = {None: 'phase 5b', 'amp': 'phase 5d', 'cast': 'phase 5e'}[route]
     t0 = time.perf_counter()
     if net is None:
         net = resnet.get_resnet(1, shape['depth'], device=device)
     resnet.init_params(net, seed)
     x, y = images(torch, device, (shape['batch'], 3, shape['image'],
                                   shape['image']), shape['classes'], seed)
+    if route == 'cast':
+        net.cast('bfloat16')
+        x = x.to(torch.bfloat16)
     opt = optimizer.create('sgd', **RESNET_HYPER)
-    pt = parallel.ParallelTrainer(net, gloss.SoftmaxCrossEntropyLoss(), opt)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter('always')
+        pt = parallel.ParallelTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
+                                      opt, amp='bf16' if route == 'amp'
+                                      else None)
+        # the first step builds the states: it warns for bf16 weights
+        first = pt.step(x, y)
     setup_s = time.perf_counter() - t0
     cuda = device.type == 'cuda'
-    losses = [pt.step(x, y) for _ in range(warmup)]
+    losses = [first] + [pt.step(x, y) for _ in range(warmup - 1)]
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2230,54 +2648,71 @@ def train_resnet(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() if cuda else None
     losses = [float(l) for l in losses]
-    per_step = resnet_launches(kernels, net, gnn, resnet)
+    per_step = resnet_launches(kernels, net, gnn, resnet, route=route)
     if cuda and counts != {n: c * iters for n, c in per_step.items()}:
-        raise AssertionError('phase 5b: kernel launches %r in %d steps, '
-                             'expected %r per step' % (counts, iters,
+        raise AssertionError('%s: kernel launches %r in %d steps, '
+                             'expected %r per step' % (phase, counts, iters,
                                                        per_step))
     if not all(math.isfinite(l) for l in losses):
-        raise AssertionError('phase 5b: a loss is not finite: %r' % losses)
+        raise AssertionError('%s: a loss is not finite: %r' % (phase,
+                                                               losses))
     expect = math.log(shape['classes'])
     if not abs(losses[0] - expect) <= 1.5:
-        raise AssertionError('phase 5b: first loss %.4f is not within 1.5 '
-                             'of ln(classes) = %.4f' % (losses[0], expect))
+        raise AssertionError('%s: first loss %.4f is not within 1.5 '
+                             'of ln(classes) = %.4f' % (phase, losses[0],
+                                                        expect))
     # at the bench's lr 0.1 and momentum 0.9 on one fixed batch the loss
     # falls for the first steps and then overshoots, in the JAX package
     # too (tests/test_torch_resnet_sgd.py); it must fall for two steps
-    # and by 1 in all
-    if not (losses[0] > losses[1] > losses[2]
-            and min(losses) < losses[0] - 1.0):
-        raise AssertionError('phase 5b: the loss did not fall: %r' % losses)
+    # and by 1 in all (5e, bf16 weights without a float32 master, need
+    # only stay finite)
+    falls = losses[0] > losses[1] > losses[2] \
+        and min(losses) < losses[0] - 1.0
+    if route != 'cast' and not falls:
+        raise AssertionError('%s: the loss did not fall: %r' % (phase,
+                                                                losses))
     prof = None
     if cuda:
-        update = opt.update
+        update = opt.update_multi_precision
 
         def annotated(*args):
             with torch.profiler.record_function('sgd_update'):
                 return update(*args)
-        opt.update = annotated
+        opt.update_multi_precision = annotated
         try:
-            prof = profile_step(torch, lambda: pt.step(x, y), RESNET_GROUPS)
+            prof = profile_step(torch, lambda: pt.step(x, y),
+                                RESNET_AMP_GROUPS if route
+                                else RESNET_GROUPS)
         finally:
-            del opt.update
+            del opt.update_multi_precision
     # inference: the BN apply with the moving statistics, no backward
     kernels.reset_launch_counts()
-    with torch.no_grad():
+    with torch.no_grad(), amp_mod.scope(amp_mod.bf16() if route == 'amp'
+                                        else None):
         logits = net(x)
     infer = kernels.launch_counts()
-    want = resnet_launches(kernels, net, gnn, resnet, backward=False)
+    want = resnet_launches(kernels, net, gnn, resnet, backward=False,
+                           route=route)
     if tuple(logits.shape) != (shape['batch'], shape['classes']) or \
             not bool(torch.isfinite(logits).all()):
-        raise AssertionError('phase 5b: inference logits %r are not finite '
-                             'or not (batch, classes)' % (logits.shape,))
+        raise AssertionError('%s: inference logits %r are not finite '
+                             'or not (batch, classes)' % (phase,
+                                                          logits.shape))
     if cuda and infer != want:
-        raise AssertionError('phase 5b: inference launches %r, expected %r'
-                             % (infer, want))
+        raise AssertionError('%s: inference launches %r, expected %r'
+                             % (phase, infer, want))
     step_ms = [s.elapsed_time(e) for s, e in events]
+    params = net.collect_params().values()
+    states = [t for st in pt._states
+              for t in (st if isinstance(st, (tuple, list)) else (st,))
+              if t is not None]
     return {
         'setup_s': setup_s, 'losses': losses, 'launches': counts,
         'per_step': per_step, 'wall_s': wall, 'profile': prof,
-        'infer_launches': infer,
+        'infer_launches': infer, 'falls': falls, 'amp': pt.amp,
+        'param_dtypes': sorted({str(p.dtype) for p in params}),
+        'state_dtypes': sorted({str(t.dtype) for t in states}),
+        'warnings': len(warned),
         'img_per_s': shape['batch'] * iters / wall,
         'step_ms': statistics.mean(step_ms) if step_ms else None,
         'step_ms_each': step_ms, 'peak_mem_bytes': peak,
@@ -2286,14 +2721,19 @@ def train_resnet(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
 
 
 def finetune_frozen(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
-                    net, x, y, steps=FROZEN_STEPS):
+                    net, x, y, steps=FROZEN_STEPS, route=None):
     """Phase 5c: frozen-BN fine-tuning of the trained net of 5b, the
     path of the BN apply backward kernel: the moving statistics
     recomputed for the trained weights, every BatchNorm set to
     ``use_global_stats``, then ``steps`` SGD steps (``FROZEN_HYPER``) on
     the same batch, launch counts zeroed just before them and read just
     after. The moving statistics must not move and the losses must be
-    finite. Returns a dict of results."""
+    finite. With ``route`` 'amp' (phase 5d's net) the forwards run under
+    ``amp='bf16'``, so the BN apply and its backward take their bf16
+    instances. Returns a dict of results."""
+    from mxnet_tpu_torch import amp as amp_mod
+    policy = amp_mod.bf16() if route == 'amp' else None
+    phase = 'phase 5d frozen' if route else 'phase 5c'
     # 5b's moving statistics lag its weights (a quarter of them is still
     # the initial 0 / 1 after 13 steps at keep 0.9), and normalizing with
     # them overflows the logits; fine-tuning starts from converged ones,
@@ -2301,9 +2741,9 @@ def finetune_frozen(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
     # forwards without gradients, which leave 0.9 ** 44 < 1 % of the old
     loss_fn = gloss.SoftmaxCrossEntropyLoss()
     net.train(True)
-    with torch.no_grad():
+    with torch.no_grad(), amp_mod.scope(policy):
         for _ in range(FROZEN_CALIBRATE):
-            batch_loss = float(loss_fn(net(x), y).mean())
+            batch_loss = float(loss_fn(net(x), y).float().mean())
     net.train(False)
     bns = [m for m in net.modules() if isinstance(m, gnn.BatchNorm)]
     for m in bns:
@@ -2311,7 +2751,7 @@ def finetune_frozen(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
     stats = [(m.running_mean.detach().clone(), m.running_var.detach().clone())
              for m in bns]
     opt = optimizer.create('sgd', **FROZEN_HYPER)
-    pt = parallel.ParallelTrainer(net, loss_fn, opt)
+    pt = parallel.ParallelTrainer(net, loss_fn, opt, amp=policy)
     cuda = x.device.type == 'cuda'
     if cuda:
         torch.cuda.synchronize()
@@ -2320,16 +2760,18 @@ def finetune_frozen(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
     losses = [float(pt.step(x, y)) for _ in range(steps)]
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    per_step = resnet_launches(kernels, net, gnn, resnet, frozen=True)
+    per_step = resnet_launches(kernels, net, gnn, resnet, frozen=True,
+                               route=route)
     if cuda and counts != {n: c * steps for n, c in per_step.items()}:
-        raise AssertionError('phase 5c: kernel launches %r in %d steps, '
-                             'expected %r per step' % (counts, steps,
+        raise AssertionError('%s: kernel launches %r in %d steps, '
+                             'expected %r per step' % (phase, counts, steps,
                                                        per_step))
     if not all(math.isfinite(l) for l in losses):
-        raise AssertionError('phase 5c: a loss is not finite: %r' % losses)
+        raise AssertionError('%s: a loss is not finite: %r' % (phase,
+                                                               losses))
     if not all(torch.equal(m.running_mean, a) and torch.equal(m.running_var, b)
                for m, (a, b) in zip(bns, stats)):
-        raise AssertionError('phase 5c: a frozen moving statistic moved')
+        raise AssertionError('%s: a frozen moving statistic moved' % phase)
     return {'losses': losses, 'launches': counts, 'per_step': per_step,
             'wall_s': wall, 'batch_norms': len(bns),
             'batch_stat_loss': batch_loss}
@@ -3036,12 +3478,14 @@ def check_epilogue_build(ptxas):
     was current and not rebuilt). Raises when one spills, or when ptxas
     ran and reported not all four kernels. Returns {kernel: {'st' or
     'cs': most registers over the acts}} (``cs``: the evict-first
-    stores). The act kernels' bf16 instances count as ``act_fwd_bf16`` /
-    ``act_bwd_bf16``."""
+    stores). The bf16 instances count as ``act_fwd_bf16``,
+    ``act_bwd_bf16``, ``bn_act_fwd_bf16``, ``bn_act_bwd_bf16`` and
+    ``add_act_fwd_bf16`` (add+act's bf16 instance is a stream; its float32
+    one, a grid-stride loop, is not reported)."""
     regs, spills = {}, {}
     for fn, (n, spill) in ptxas_entries(ptxas).items():
-        m = re.search(r'epilogue_((?:bn_)?act_(?:fwd|bwd)(?:_bf16)?)_kernel'
-                      r'ILi\d+ELb([01])E', fn)
+        m = re.search(r'epilogue_((?:bn_|add_)?act_(?:fwd|bwd)(?:_bf16)?)'
+                      r'_kernelILi\d+ELb([01])E', fn)
         if not m:
             continue
         if spill:
@@ -3052,7 +3496,8 @@ def check_epilogue_build(ptxas):
     if spills:
         raise AssertionError('epilogue stream kernels spill: %s' % spills)
     want = {'act_fwd', 'act_bwd', 'bn_act_fwd', 'bn_act_bwd', 'act_fwd_bf16',
-            'act_bwd_bf16'}
+            'act_bwd_bf16', 'bn_act_fwd_bf16', 'bn_act_bwd_bf16',
+            'add_act_fwd_bf16'}
     if ptxas and set(regs) != want:
         raise AssertionError('ptxas reported no %s kernel of epilogue.cu: '
                              '%s' % (' / '.join(sorted(want - set(regs))),
@@ -3087,6 +3532,12 @@ def _check_mma_build(build, ptxas, kernel):
         raise AssertionError('%s SASS: an instance missing or without HMMA: '
                              '%s' % (kernel, counts))
     return {k: (regs.get(k), c) for k, c in counts.items()}
+
+
+# the xent kernels, each built for float32 and bf16 logits / dlogits
+XENT_KERNEL_KEYS = ('softmax_xent_fwd_warp_kernelI', 'softmax_xent_fwd_cluster'
+                    '_kernelI', 'softmax_xent_fwd_two_pass_kernelI',
+                    'softmax_xent_bwd_kernelI')
 
 
 def check_no_spills(ptxas, source, kernel_keys):
@@ -3178,13 +3629,25 @@ KERNELS = {
     'softmax_xent_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu',
         replaces='mxnet_tpu/ops/pallas/xent.py:37'),
+    'softmax_xent_fwd.bf16': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu',
+        replaces='mxnet_tpu/ops/pallas/xent.py:37'),
     'softmax_xent_bwd': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu',
+        replaces='mxnet_tpu/ops/pallas/xent.py:49'),
+    'softmax_xent_bwd.bf16': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu',
         replaces='mxnet_tpu/ops/pallas/xent.py:49'),
     'bn_act_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
         replaces='mxnet_tpu/ops/pallas/epilogue.py:124'),
+    'bn_act_fwd.bf16': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
+        replaces='mxnet_tpu/ops/pallas/epilogue.py:124'),
     'bn_act_bwd': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
+        replaces='mxnet_tpu/ops/pallas/epilogue.py:136'),
+    'bn_act_bwd.bf16': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
         replaces='mxnet_tpu/ops/pallas/epilogue.py:136'),
     'act_fwd': dict(
@@ -3200,6 +3663,9 @@ KERNELS = {
         source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
         replaces='mxnet_tpu/ops/pallas/epilogue.py:239'),
     'add_act_fwd': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
+        replaces='mxnet_tpu/ops/pallas/epilogue.py:297'),
+    'add_act_fwd.bf16': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/epilogue.cu',
         replaces='mxnet_tpu/ops/pallas/epilogue.py:297'),
     'nms': dict(
@@ -3292,7 +3758,7 @@ def kernel_rows(errs, times, train_times, launches_by_path):
         row.update({k: t[k] for k in ('floor_ms', 'at_batch_1', 'by_shape',
                                       'bound_share',
                                       'bound_cuda_core_ms', 'f32_device_ms',
-                                      'at_stem', 'log_softmax_ms',
+                                      'at_stem', 'at_mlm', 'log_softmax_ms',
                                       'log_softmax_device_ms',
                                       'pair_turns_device_ms',
                                       'device_ms_at_pos', 'slot_device_ms',
@@ -3378,6 +3844,12 @@ def main():
     log('epilogue stream kernels: registers by store kind (most over the '
         'acts) %s, no spills' % (regs or 'not reported: the library was '
                                  'current'))
+    regs = check_no_spills(reports.get('softmax_xent', ()), 'softmax_xent',
+                           XENT_KERNEL_KEYS)
+    log('softmax_xent kernels: registers %s, no spills' % ({
+        '%s %s' % (k, _instance(fn)): n for fn, n in regs.items()
+        for k in XENT_KERNEL_KEYS if k in fn} or 'not reported: the library '
+        'was current'))
 
     # phase 2: kernels against their plain versions, then times
     errs = check_kernels(torch, kernels, cuda)
@@ -3391,6 +3863,9 @@ def main():
                                    check_xent_backward_chunks(torch, kernels,
                                                               cuda))
     errs.update(check_epilogue_kernels(torch, kernels, cuda))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    errs.update(check_bf16_rows(torch, kernels, cuda))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     times = time_kernels(torch, kernels)
@@ -3408,6 +3883,18 @@ def main():
     log_times(epi_times)
     train_times.update(epi_times)
     del epi_times
+    torch.cuda.empty_cache()
+    row_times = time_bf16_rows(torch, kernels)
+    log_times(row_times)
+    for name, row in row_times.items():
+        log('time %s [%s]: device %.4f ms, float32 instance on the widened '
+            'inputs %.4f ms, bound %.4f ms, library %s ms%s'
+            % (name, card, row['device_ms'], row['f32_device_ms'],
+               row['bound_ms'], row['library_device_ms'],
+               '; at_mlm %s' % json.dumps(row['at_mlm'])
+               if 'at_mlm' in row else ''))
+    train_times.update(row_times)
+    del row_times
     torch.cuda.empty_cache()
 
     # phase 3: the serving slice
@@ -3558,6 +4045,62 @@ def main():
            fz['launches'], fz['per_step'], fz['losses']))
     torch.cuda.empty_cache()
 
+    # phase 5a-amp, 5d, 5e: ResNet in bf16 by the reference's two routes
+    for route in ('amp', 'cast'):
+        resnet_bf16_against_cpu(torch, resnet, gloss, parallel, cuda, route)
+    torch.cuda.empty_cache()
+    bf16_runs = {}
+    for route, phase in (('amp', 'phase 5d'), ('cast', 'phase 5e')):
+        rb = train_resnet(torch, resnet, gloss, gnn, parallel, optimizer,
+                          kernels, cuda, route=route)
+        first_rel = abs(rb['losses'][0] - rn['losses'][0]) / abs(
+            rn['losses'][0])
+        log('%s slice: resnet%d_v1 %s, batch %d x 3 x %d x %d, SGD %s, %d '
+            'warm-up + %d timed steps; launches in the timed steps %s (per '
+            'step %s); inference forward launches %s; parameters %s, SGD '
+            'state %s, %d optimizer warnings'
+            % (phase, RESNET['depth'], "under amp='bf16'" if route == 'amp'
+               else "after cast('bfloat16') on bf16 images",
+               RESNET['batch'], RESNET['image'], RESNET['image'],
+               RESNET_HYPER, RESNET_WARMUP, RESNET_ITERS, rb['launches'],
+               rb['per_step'], rb['infer_launches'], rb['param_dtypes'],
+               rb['state_dtypes'], rb['warnings']))
+        log('%s losses: %s (falling: %s); first loss %.6f against 5b\'s '
+            '%.6f, rel %.4g (limit %g)'
+            % (phase, rb['losses'], rb['falls'], rb['losses'][0],
+               rn['losses'][0], first_rel, AMP_FIRST_LOSS_RTOL))
+        if not first_rel <= AMP_FIRST_LOSS_RTOL:
+            raise AssertionError('%s: first loss %.6f is not within %g of '
+                                 '5b\'s %.6f' % (phase, rb['losses'][0],
+                                                  AMP_FIRST_LOSS_RTOL,
+                                                  rn['losses'][0]))
+        log('%s metrics [%s]: img/s %.2f (5b %.2f), mean step %.3f ms (5b '
+            '%.3f; CUDA events; each %s), wall %.3f s for %d steps, peak '
+            'memory %d B (5b %d B), setup %.1f s'
+            % (phase, card, rb['img_per_s'], rn['img_per_s'], rb['step_ms'],
+               rn['step_ms'], ['%.3f' % t for t in rb['step_ms_each']],
+               rb['wall_s'], RESNET_ITERS, rb['peak_mem_bytes'],
+               rn['peak_mem_bytes'], rb['setup_s']))
+        log_profile('%s (casts: aten::_to_copy and ToCopyBackward)' % phase,
+                    card, rb['profile'])
+        if route == 'amp':
+            fb = finetune_frozen(torch, resnet, gloss, gnn, parallel,
+                                 optimizer, kernels, rb.pop('net'),
+                                 *rb.pop('batch'), route='amp')
+            log('phase 5d frozen-BN fine-tuning under amp=\'bf16\': loss '
+                '%.4f with batch statistics after %d recomputing forwards, %d '
+                'BatchNorms with use_global_stats, SGD %s, %d steps in %.3f '
+                's; launches %s (per step %s); losses %s; moving statistics '
+                'unchanged'
+                % (fb['batch_stat_loss'], FROZEN_CALIBRATE,
+                   fb['batch_norms'], FROZEN_HYPER, FROZEN_STEPS,
+                   fb['wall_s'], fb['launches'], fb['per_step'],
+                   fb['losses']))
+        rb.pop('net', None)
+        rb.pop('batch', None)
+        bf16_runs[route] = rb
+        torch.cuda.empty_cache()
+
     # phase 6: the SSD detection serving slice
     errs.update(check_nms_kernel(torch, kernels, cuda))
     ssd_against_cpu(torch, ssd, ops, kernels, gnn, cuda)
@@ -3637,6 +4180,14 @@ def main():
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
                         'resnet frozen-BN fine-tuning': fz['launches'],
+                        'resnet amp training': bf16_runs['amp']['launches'],
+                        'resnet amp inference':
+                            bf16_runs['amp']['infer_launches'],
+                        'resnet amp frozen-BN fine-tuning': fb['launches'],
+                        'resnet bf16 training':
+                            bf16_runs['cast']['launches'],
+                        'resnet bf16 inference':
+                            bf16_runs['cast']['infer_launches'],
                         'ssd serving': det['launches'],
                         'matmul probe': probe_launches})
     log(json.dumps({'kernels': rows}))

@@ -10,6 +10,11 @@ weight) is one entry.
 As in gluon, a block computes in inference mode until a trainer switches
 it to training (``Module.train()``): a new block starts with
 ``training`` False, and dropout is the identity there.
+
+:meth:`Block.cast` casts every parameter in place, as ``Block.cast``
+(block.py:360-365) and ``Parameter.cast`` (parameter.py:334-339) do:
+``net.cast('bfloat16')`` then trains in bf16 on bf16 data, with the
+layers that keep float32 (``BatchNorm``) overriding it.
 """
 from __future__ import annotations
 
@@ -18,7 +23,22 @@ import re
 import numpy as onp
 import torch
 
-__all__ = ['Block', 'params_from_jax']
+__all__ = ['Block', 'params_from_jax', 'torch_dtype']
+
+_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+           'float16': torch.float16}
+
+
+def torch_dtype(dtype):
+    """The ``torch.dtype`` of ``dtype``: a ``torch.dtype``, or a name
+    ('float32', 'bfloat16', 'float16') as the JAX package takes them."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype)
+    if name not in _DTYPES:
+        raise TypeError('unknown dtype %r (have %s)'
+                        % (dtype, ', '.join(sorted(_DTYPES))))
+    return _DTYPES[name]
 
 
 class Block(torch.nn.Module):
@@ -34,6 +54,38 @@ class Block(torch.nn.Module):
         out = {}
         _collect(self, '', out)
         return out
+
+    @torch.no_grad()
+    def cast(self, dtype):
+        """Cast the parameters of this block and of its children to
+        ``dtype`` (a name such as ``'bfloat16'`` or a ``torch.dtype``), in
+        place: each stays the same ``Parameter``, with its
+        ``requires_grad``, and any gradient it holds is dropped (the JAX
+        ``Parameter.cast`` re-creates it). Returns ``self``."""
+        dt = torch_dtype(dtype)
+        for child in self._modules.values():
+            _cast_module(child, dt)
+        _cast_params(self._parameters.values(), dt)
+        return self
+
+
+def _cast_module(mod, dtype):
+    """A child's cast: a Block's own (``BatchNorm`` keeps float32); a
+    plain container (BERT's ``ModuleList`` of cells) casts its children
+    and parameters the same way."""
+    if isinstance(mod, Block):
+        mod.cast(dtype)
+    elif mod is not None:
+        for child in mod._modules.values():
+            _cast_module(child, dtype)
+        _cast_params(mod._parameters.values(), dtype)
+
+
+def _cast_params(params, dtype):
+    for p in params:
+        if p is not None:
+            p.data = p.data.to(dtype)
+            p.grad = None
 
 
 def _collect(mod, pre, out):
@@ -57,11 +109,15 @@ def params_from_jax(jax_params, net):
 
     ``jax_params`` maps each name of the JAX net's ``collect_params()``
     (e.g. ``bertmodel0_enc_layer0_attn_qkv_weight``,
-    ``resnetv10_stage1_batchnorm0_running_var``) to an array. The model's
+    ``resnetv10_stage1_batchnorm0_running_var``) to an array, float32 or
+    bfloat16 (a bf16 value widens to float32 exactly). The model's
     auto-numbered prefix is stripped; every remaining name must be a
     parameter of ``net`` with the same shape, and every parameter of
     ``net`` must be given, or this raises. Parameters that take no
-    gradient (moving statistics) are copied too. Returns ``net``."""
+    gradient (moving statistics) are copied too. Each value lands in the
+    dtype the parameter has: a float32 value into a bf16 parameter (a net
+    after ``cast('bfloat16')``) rounds to nearest even, as the JAX
+    package's ``astype`` does. Returns ``net``."""
     mine = net.collect_params()
     given = {}
     for name, value in jax_params.items():
@@ -76,7 +132,7 @@ def params_from_jax(jax_params, net):
         raise ValueError('params_from_jax: names do not match the net '
                          '(unknown %s, missing %s)' % (unknown, missing))
     for name, p in mine.items():
-        arr = onp.array(given[name], dtype=onp.float32)
+        arr = onp.asarray(given[name]).astype(onp.float32)
         if arr.shape != tuple(p.shape):
             raise ValueError('params_from_jax: %s has shape %r, the net %r'
                              % (name, arr.shape, tuple(p.shape)))

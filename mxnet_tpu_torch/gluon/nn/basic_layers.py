@@ -21,7 +21,7 @@ import torch
 
 from ...context import resolve_device
 from ...ops import nn as ops
-from ..block import Block
+from ..block import Block, torch_dtype
 
 __all__ = ['Activation', 'BatchNorm', 'Dense', 'Dropout', 'Embedding',
            'Flatten', 'HybridSequential', 'LayerNorm']
@@ -111,7 +111,13 @@ class BatchNorm(Block):
     ``keep * running + (1 - keep) * batch`` with ``keep = momentum``;
     otherwise the moving statistics normalize (``ops.nn.batch_norm``).
     ``use_global_stats`` may be set on a built net to fine-tune it with
-    its BatchNorm statistics frozen."""
+    its BatchNorm statistics frozen.
+
+    :meth:`cast` to float16 or bfloat16 keeps gamma, beta and the moving
+    statistics float32 (``BatchNorm.cast``, basic_layers.py:208-219): the
+    op mixes low-precision activations with them, returns the
+    activations' dtype and the batch statistics in the moving
+    statistics' dtype, so the moving averages accumulate in float32."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, in_channels=0,
@@ -131,6 +137,11 @@ class BatchNorm(Block):
                                    requires_grad=False)
         self.running_var = _param((in_channels,), device, 1.0,
                                   requires_grad=False)
+
+    def cast(self, dtype):
+        dt = torch_dtype(dtype)
+        return super().cast(torch.float32 if dt in (torch.float16,
+                                                     torch.bfloat16) else dt)
 
     def forward(self, x):
         train = self.training and not self.use_global_stats

@@ -6,9 +6,9 @@ Each TPU (Pallas) kernel on a ported path becomes a CUDA C++ kernel for
 bound with ``ctypes``. Beside each kernel sits its plain PyTorch version;
 a wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, and counts its launches (:func:`launch_counts`). The
-attention training kernels and the act kernels are built for bf16 too
-(AMP); their bf16 instances count under their kernel's name and
-:data:`BF16`.
+attention training kernels, the epilogue kernels and the softmax-xent
+kernels are built for bf16 too (AMP, ``net.cast('bfloat16')``); their
+bf16 instances count under their kernel's name and :data:`BF16`.
 """
 from ._launch import (BF16, KERNELS, instance_launches, launch_counts,
                       reset_launch_counts)

@@ -26,8 +26,10 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_fwd' + BF16,
            'flash_attention_dq', 'flash_attention_dq' + BF16,
            'flash_attention_dkv', 'flash_attention_dkv' + BF16,
            'flash_decode_fwd', 'flash_paged_decode_fwd', 'softmax_xent_fwd',
-           'softmax_xent_bwd', 'bn_act_fwd', 'bn_act_bwd', 'act_fwd',
-           'act_fwd' + BF16, 'act_bwd', 'act_bwd' + BF16, 'add_act_fwd',
+           'softmax_xent_fwd' + BF16, 'softmax_xent_bwd',
+           'softmax_xent_bwd' + BF16, 'bn_act_fwd', 'bn_act_fwd' + BF16,
+           'bn_act_bwd', 'bn_act_bwd' + BF16, 'act_fwd', 'act_fwd' + BF16,
+           'act_bwd', 'act_bwd' + BF16, 'add_act_fwd', 'add_act_fwd' + BF16,
            'nms', 'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep')
 
 _launches = dict.fromkeys(KERNELS, 0)

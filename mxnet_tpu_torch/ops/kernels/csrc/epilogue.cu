@@ -1,5 +1,4 @@
-// Elementwise epilogue kernels for Hopper (sm_90a), float32 (the activation
-// forward and backward also bf16): the BatchNorm
+// Elementwise epilogue kernels for Hopper (sm_90a), float32 and bf16: the BatchNorm
 // apply (+ activation) forward and backward, the activation forward and
 // its save-output backward, and the residual add (+ activation).
 //
@@ -36,16 +35,18 @@
 // (tools/probe_epilogue_variants.py per_elem): the loads in flight, not
 // the channel, set the time.
 //
-// The add+act kernel still walks the elements in one grid-stride loop of
-// coalesced 4-byte loads, 256 threads a block, on grid_for's grid.
+// The float32 add+act kernel still walks the elements in one grid-stride
+// loop of coalesced 4-byte loads, 256 threads a block, on grid_for's grid.
 //
-// The activation forward and backward also take bf16 (AMP; the reference
-// kernels' contract, epilogue.py:26-27, 234-244): each element widens to
-// float exactly, the activation and its gradient run in float32 with the
-// same expressions as the float32 instances, and the result rounds to bf16
-// once, to nearest even. So a bf16 instance is bitwise the float32
-// instance on the widened inputs, rounded. Their stream is the same with
-// 8 elements a 16-byte vector (stream<VEC_BF16>).
+// Every kernel also takes bf16 activations (AMP and net.cast('bfloat16');
+// the reference kernels' contract, epilogue.py:26-27, 124-142, 234-244,
+// 297-299): each element widens to float exactly, the activation, the BN
+// apply and their gradients run in float32 with the same expressions as
+// the float32 instances, and the result rounds to bf16 once, to nearest
+// even. So a bf16 instance is bitwise the float32 instance on the widened
+// inputs, rounded. The BN apply's per-channel scale, mean and beta stay
+// float32, as the reference passes them. The bf16 instances are streams
+// with 8 elements a 16-byte vector (stream<VEC_BF16>), add+act's too.
 //
 // The activation is a template parameter, so each instance is
 // straight-line code. Indices are 32-bit (Idx): a tensor of more than
@@ -381,6 +382,152 @@ epilogue_bn_act_bwd_kernel(const float* __restrict__ g,
   stream(BnBwd<A, EVICT>{g, out, scale, dx, chans, slope}, n, tiles);
 }
 
+// bf16: x (or g and out) and the result bf16, 8 elements a vector, the
+// coefficients float32; each further element of a vector steps from the
+// one before (inner < 8 crosses more than one run)
+template <int A, bool EVICT>
+struct BnFwdBf16 {
+  const __nv_bfloat16* x;
+  const float* scale;
+  const float* mean;
+  const float* beta;
+  __nv_bfloat16* out;
+  Channels chans;
+  float slope;
+  struct In {
+    float a[VEC_BF16];
+    Idx ch, r;
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    In v;
+    load8(x + i, v.a);
+    v.ch = chans.at(i, v.r);
+    return v;
+  }
+  __device__ __forceinline__ float one(float xi, Idx ch) const {
+    return bn_fwd<A>(xi, coef(scale, ch), coef(mean, ch), coef(beta, ch),
+                     slope);
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    float y[VEC_BF16];
+    Idx ch = v.ch, r = v.r;
+#pragma unroll
+    for (int e = 0; e < VEC_BF16; ++e) {
+      if (e) chans.step(ch, r);
+      y[e] = one(v.a[e], ch);
+    }
+    store8<EVICT>(out + i, y);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    Idx r;
+    out[i] = __float2bfloat16_rn(one(__bfloat162float(x[i]), chans.at(i, r)));
+  }
+};
+
+template <int A, bool EVICT>
+struct BnBwdBf16 {
+  const __nv_bfloat16* g;
+  const __nv_bfloat16* out;
+  const float* scale;
+  __nv_bfloat16* dx;
+  Channels chans;
+  float slope;
+  struct In {
+    float a[VEC_BF16], o[VEC_BF16];  // g, out
+    Idx ch, r;
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    In v;
+    load8(g + i, v.a);
+    // identity's derivative is 1: its backward never reads the output
+    if (A == IDENTITY) {
+#pragma unroll
+      for (int e = 0; e < VEC_BF16; ++e) v.o[e] = 0.f;
+    } else {
+      load8(out + i, v.o);
+    }
+    v.ch = chans.at(i, v.r);
+    return v;
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    float d[VEC_BF16];
+    Idx ch = v.ch, r = v.r;
+#pragma unroll
+    for (int e = 0; e < VEC_BF16; ++e) {
+      if (e) chans.step(ch, r);
+      d[e] = bn_bwd<A>(v.a[e], v.o[e], coef(scale, ch), slope);
+    }
+    store8<EVICT>(dx + i, d);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    Idx r;
+    dx[i] = __float2bfloat16_rn(bn_bwd<A>(
+        __bfloat162float(g[i]),
+        A == IDENTITY ? 0.f : __bfloat162float(out[i]),
+        coef(scale, chans.at(i, r)), slope));
+  }
+};
+
+template <int A, bool EVICT>
+struct AddActFwdBf16 {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* y;
+  __nv_bfloat16* out;
+  float slope;
+  struct In {
+    float a[VEC_BF16], b[VEC_BF16];
+  };
+  __device__ __forceinline__ In load(Idx i) const {
+    In v;
+    load8(x + i, v.a);
+    load8(y + i, v.b);
+    return v;
+  }
+  __device__ __forceinline__ void store(Idx i, const In& v) const {
+    float o[VEC_BF16];
+#pragma unroll
+    for (int e = 0; e < VEC_BF16; ++e)
+      o[e] = act_fwd<A>(__fadd_rn(v.a[e], v.b[e]), slope);
+    store8<EVICT>(out + i, o);
+  }
+  __device__ __forceinline__ void scalar(Idx i) const {
+    out[i] = __float2bfloat16_rn(act_fwd<A>(
+        __fadd_rn(__bfloat162float(x[i]), __bfloat162float(y[i])), slope));
+  }
+};
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_bn_act_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ mean,
+                                const float* __restrict__ beta,
+                                __nv_bfloat16* __restrict__ out, Idx n,
+                                Idx tiles, Channels chans, float slope) {
+  stream<VEC_BF16>(
+      BnFwdBf16<A, EVICT>{x, scale, mean, beta, out, chans, slope}, n, tiles);
+}
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_bn_act_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                                const __nv_bfloat16* __restrict__ out,
+                                const float* __restrict__ scale,
+                                __nv_bfloat16* __restrict__ dx, Idx n,
+                                Idx tiles, Channels chans, float slope) {
+  stream<VEC_BF16>(BnBwdBf16<A, EVICT>{g, out, scale, dx, chans, slope}, n,
+                   tiles);
+}
+
+template <int A, bool EVICT>
+__global__ void __launch_bounds__(THREADS)
+epilogue_add_act_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ y,
+                                 __nv_bfloat16* __restrict__ out, Idx n,
+                                 Idx tiles, float slope) {
+  stream<VEC_BF16>(AddActFwdBf16<A, EVICT>{x, y, out, slope}, n, tiles);
+}
+
 template <int A>
 __global__ void __launch_bounds__(THREADS)
 epilogue_add_act_fwd_kernel(const float* __restrict__ x,
@@ -432,21 +579,24 @@ unsigned grid_for(long long n) {
     __VA_ARGS__;                                                       \
   }
 
-// the BN apply's grid, the stream's, with chans filled from the divisors
-// of inner and c; 0 when one is refused, or `tiles` is not n's
+// the BN apply's grid, the stream's at V elements a vector, with chans
+// filled from the divisors of inner and c; 0 when one is refused, or
+// `tiles` is not n's
+template <int V = VEC>
 unsigned bn_grid(long long n, long long c, long long inner,
                  unsigned inner_mul, int inner_shift, unsigned c_mul,
                  int c_shift, long long tiles, Channels& chans) {
   if (!divisor(inner, inner_mul, inner_shift, chans.inner) ||
       !divisor(c, c_mul, c_shift, chans.c))
     return 0;
-  return stream_grid(n, tiles);
+  return stream_grid<V>(n, tiles);
 }
 
 }  // namespace
 
 // ---- host entry points ----
-// Every tensor is float32, contiguous, 16-byte aligned, on the device. n
+// Every tensor is float32 (the *_bf16 entries: see there), contiguous,
+// 16-byte aligned, on the device. n
 // is the element count, at most INT32_MAX; for the BN kernels x is
 // (outer, C, inner) around the BN axis and scale / mean / beta are (C,).
 // act is the Act code above, slope the leaky slope. Each returns the
@@ -586,5 +736,78 @@ extern "C" int mx_add_act_fwd(const void* x, const void* y, void* out,
   float* op = static_cast<float*>(out);
   MX_ACT_DISPATCH(act, epilogue_add_act_fwd_kernel<A><<<grid, THREADS, 0, s>>>(
                            xp, yp, op, (Idx)n, slope));
+  return cudaGetLastError();
+}
+
+// The bf16 instances of mx_bn_act_fwd / mx_bn_act_bwd / mx_add_act_fwd:
+// x, y, g, out and dx bf16, scale / mean / beta float32; tiles n /
+// (THREADS * VEC_BF16) (epilogue.py epilogue_geometry at 2 bytes an
+// element), evict from an output of the L2's size in bytes.
+extern "C" int mx_bn_act_fwd_bf16(const void* x, const void* scale,
+                                  const void* mean, const void* beta,
+                                  void* out, long long n, long long c,
+                                  long long inner, unsigned inner_mul,
+                                  int inner_shift, unsigned c_mul,
+                                  int c_shift, int act, float slope,
+                                  int evict, long long tiles, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  Channels ch;
+  const unsigned grid = bn_grid<VEC_BF16>(n, c, inner, inner_mul,
+                                          inner_shift, c_mul, c_shift, tiles,
+                                          ch);
+  if (grid == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const float* sp = static_cast<const float*>(scale);
+  const float* mp = static_cast<const float*>(mean);
+  const float* bp = static_cast<const float*>(beta);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_bn_act_fwd_bf16_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 xp, sp, mp, bp, op, (Idx)n, (Idx)tiles, ch, slope)));
+  return cudaGetLastError();
+}
+
+extern "C" int mx_bn_act_bwd_bf16(const void* g, const void* out,
+                                  const void* scale, void* dx, long long n,
+                                  long long c, long long inner,
+                                  unsigned inner_mul, int inner_shift,
+                                  unsigned c_mul, int c_shift, int act,
+                                  float slope, int evict, long long tiles,
+                                  void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  Channels ch;
+  const unsigned grid = bn_grid<VEC_BF16>(n, c, inner, inner_mul,
+                                          inner_shift, c_mul, c_shift, tiles,
+                                          ch);
+  if (grid == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const __nv_bfloat16*>(g);
+  const auto* op = static_cast<const __nv_bfloat16*>(out);
+  const float* sp = static_cast<const float*>(scale);
+  auto* dp = static_cast<__nv_bfloat16*>(dx);
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_bn_act_bwd_bf16_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 gp, op, sp, dp, (Idx)n, (Idx)tiles, ch, slope)));
+  return cudaGetLastError();
+}
+
+extern "C" int mx_add_act_fwd_bf16(const void* x, const void* y, void* out,
+                                   long long n, int act, float slope,
+                                   int evict, long long tiles,
+                                   void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || n > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned grid = stream_grid<VEC_BF16>(n, tiles);
+  if (grid == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* yp = static_cast<const __nv_bfloat16*>(y);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  MX_ACT_DISPATCH(act, MX_EVICT_DISPATCH(
+      evict, epilogue_add_act_fwd_bf16_kernel<A, E><<<grid, THREADS, 0, s>>>(
+                 xp, yp, op, (Idx)n, (Idx)tiles, slope)));
   return cudaGetLastError();
 }

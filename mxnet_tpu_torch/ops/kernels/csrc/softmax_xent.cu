@@ -1,5 +1,5 @@
-// Fused softmax + cross-entropy head for Hopper (sm_90a), float32:
-// forward and backward.
+// Fused softmax + cross-entropy head for Hopper (sm_90a), float32, and
+// bf16 logits and dlogits: forward and backward.
 //
 // Replaces: mxnet_tpu_softmax_xent_fwd (mxnet_tpu/ops/pallas/xent.py:37)
 // and mxnet_tpu_softmax_xent_bwd (xent.py:49), the loss head of every
@@ -54,6 +54,15 @@
 //     logp): the first form of this kernel, kept for such widths.
 // Every output element is written by one thread: no atomics.
 //
+// bf16 logits (net.cast('bfloat16'); the reference kernel widens them,
+// xent.py:37-47): every instance is a template over the logits' type T.
+// A logit widens to float exactly as it is loaded, and everything after
+// is the float32 instance's arithmetic, so nll and logp (float32, as the
+// reference writes them) are bitwise the float32 kernel's on the widened
+// logits. The cluster instance's bf16 rows are copied into the float
+// buffer by the threads, widened on the way (a bulk copy cannot widen);
+// the rest of its code is the float32 instance's.
+//
 // Backward design: no element needs another, so the (rows, V) tensor is
 // one flat stream of n = rows x V elements (csrc/stream.cuh, as the
 // epilogue kernels: one float4 of logp a thread, one block a tile, dx
@@ -75,7 +84,14 @@
 // first row starts off the boundary begins `lead` (< 4, < V) elements
 // earlier, with the end of the row before, which the chunk before it
 // leaves out. labels and g then point at that row.
+//
+// bf16 dlogits (xent.py:118-124 writes dx in the logits' dtype): the
+// stream at 8 elements a vector (two float4 loads of logp, one 16-byte
+// store of 8 bf16), each element the float32 expression rounded once to
+// nearest even, so bitwise the float32 kernel's result, rounded. Its
+// chunks start on 8-element (16-byte) boundaries, lead < 8.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -112,6 +128,19 @@ __host__ __device__ constexpr int cluster_smem_bytes(int chunk) {
   return HEADER + 4 * (chunk + 4);
 }
 
+// a logit as float: bf16 widens exactly (the top half of a float)
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// one logit read through the read-only path, as float
+__device__ __forceinline__ float ldg_logit(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_logit(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
 // merge (m2, z2) into (m, z): z sums exp(x - m) over its elements
 __device__ __forceinline__ void merge(float& m, float& z, float m2,
                                       float z2) {
@@ -136,8 +165,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---- WARP_ROW ----
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-softmax_xent_fwd_warp_kernel(const float* __restrict__ x,
+softmax_xent_fwd_warp_kernel(const T* __restrict__ x,
                              const int* __restrict__ labels,
                              float* __restrict__ nll,
                              float* __restrict__ logp,
@@ -145,12 +175,12 @@ softmax_xent_fwd_warp_kernel(const float* __restrict__ x,
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= rows) return;
-  const float* xr = x + (size_t)r * v;
+  const T* xr = x + (size_t)r * v;
   float e[PER_LANE];
 #pragma unroll
   for (int i = 0; i < PER_LANE; ++i) {
     const int c = lane + 32 * i;
-    e[i] = c < v ? __ldg(xr + c) : -CUDART_INF_F;
+    e[i] = c < v ? ldg_logit(xr + c) : -CUDART_INF_F;
   }
   float mc[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
                  -CUDART_INF_F};
@@ -282,8 +312,9 @@ __device__ __forceinline__ Chunk chunk_of(size_t row_start, int v, int chunk,
   return k;
 }
 
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-softmax_xent_fwd_cluster_kernel(const float* __restrict__ x,
+softmax_xent_fwd_cluster_kernel(const T* __restrict__ x,
                                 const int* __restrict__ labels,
                                 float* __restrict__ nll,
                                 float* __restrict__ logp,
@@ -304,26 +335,35 @@ softmax_xent_fwd_cluster_kernel(const float* __restrict__ x,
   const int w = t >> 5;
   const size_t row_start = (size_t)r * v;
   const Chunk k = chunk_of(row_start, v, chunk, rank);
-  const float* xc = x + row_start + k.c0 - k.h0;  // buffer position 0
+  const T* xc = x + row_start + k.c0 - k.h0;  // buffer position 0
   const uint32_t bar_a = smem_u32(bar);
+  // float32 rows come by one bulk copy; bf16 ones by the threads, widened
+  constexpr bool BULK = std::is_same<T, float>::value;
 
   if (t == 0) mbar_init(bar_a, 1);
   __syncthreads();
   if (t == 0) {
-    if (k.body > 0) {
+    if (BULK && k.body > 0) {
       mbar_expect_tx(bar_a, 4 * k.body);
       bulk_load(smem_u32(buf + k.lo), xc + k.lo, 4 * k.body, bar_a);
     } else {
       mbar_arrive(bar_a);
     }
   }
-  // the slots' other positions: head (below lo, at most 4) by threads
-  // 0-3, tail and pad (from lo + body, at most 6) by threads 4-11
-  if (t < 12) {
-    const int p = t < 4 ? t : k.lo + k.body + (t - 4);
-    if ((t < 4 ? p < k.lo : p < 4 * k.nq)) {
+  if (BULK) {
+    // the slots' other positions: head (below lo, at most 4) by threads
+    // 0-3, tail and pad (from lo + body, at most 6) by threads 4-11
+    if (t < 12) {
+      const int p = t < 4 ? t : k.lo + k.body + (t - 4);
+      if ((t < 4 ? p < k.lo : p < 4 * k.nq)) {
+        const bool in = p >= k.h0 && p < k.h0 + k.len;
+        buf[p] = in ? widen(xc[p]) : -CUDART_INF_F;
+      }
+    }
+  } else {
+    for (int p = t; p < 4 * k.nq; p += THREADS) {
       const bool in = p >= k.h0 && p < k.h0 + k.len;
-      buf[p] = in ? xc[p] : -CUDART_INF_F;
+      buf[p] = in ? ldg_logit(xc + p) : -CUDART_INF_F;
     }
   }
   mbar_wait(bar_a, 0);
@@ -415,8 +455,9 @@ softmax_xent_fwd_cluster_kernel(const float* __restrict__ x,
 }
 
 // ---- TWO_PASS ----
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-softmax_xent_fwd_two_pass_kernel(const float* __restrict__ x,
+softmax_xent_fwd_two_pass_kernel(const T* __restrict__ x,
                                  const int* __restrict__ labels,
                                  float* __restrict__ nll,
                                  float* __restrict__ logp,
@@ -424,12 +465,12 @@ softmax_xent_fwd_two_pass_kernel(const float* __restrict__ x,
   __shared__ float wm[WARPS], wz[WARPS];
   const int r = blockIdx.x;
   const int t = threadIdx.x;
-  const float* xr = x + (size_t)r * v;
+  const T* xr = x + (size_t)r * v;
   float* lr = logp + (size_t)r * v;
 
   float m = -CUDART_INF_F, z = 0.f;
   for (int c = t; c < v; c += THREADS) {
-    const float xv = xr[c];
+    const float xv = widen(xr[c]);
     if (xv > m) {
       z = z * expf(m - xv) + 1.f;  // exp(-inf) == 0 on the first element
       m = xv;
@@ -453,7 +494,7 @@ softmax_xent_fwd_two_pass_kernel(const float* __restrict__ x,
   const int lab = labels[r];
   const bool hit = lab >= 0 && lab < v;
   for (int c = t; c < v; c += THREADS) {
-    const float lp = (xr[c] - m) - logz;
+    const float lp = (widen(xr[c]) - m) - logz;
     lr[c] = lp;
     if (c == lab) nll[r] = -lp;
   }
@@ -464,19 +505,27 @@ softmax_xent_fwd_two_pass_kernel(const float* __restrict__ x,
 using mx_stream::Divisor;
 using mx_stream::Idx;
 
-// The backward's stream over a chunk of n elements: element i lies in row
-// `row` (of labels and g) at column `col`; the first `lead` elements end
-// the row before the chunk's first whole row.
-template <bool EVICT>
+// elements of dx a 16-byte vector: 4 floats, 8 bf16
+template <class T>
+__host__ __device__ constexpr int vec_of() {
+  return std::is_same<T, float>::value ? mx_stream::VEC : mx_stream::VEC_BF16;
+}
+
+// The backward's stream over a chunk of n elements, dx of type T (float
+// or bf16): element i lies in row `row` (of labels and g) at column
+// `col`; the first `lead` elements end the row before the chunk's first
+// whole row.
+template <bool EVICT, class T>
 struct XentBwd {
+  static constexpr int V = vec_of<T>();
   const float* logp;
   const int* labels;
   const float* g;
-  float* dx;
+  T* dx;
   Divisor v;
   Idx lead;
   struct In {
-    float4 a;
+    float a[V];
     Idx row, col;
   };
   __device__ __forceinline__ Idx at(Idx i, Idx& col) const {
@@ -503,55 +552,69 @@ struct XentBwd {
   }
   __device__ __forceinline__ In load(Idx i) const {
     In x;
-    x.a = mx_stream::load4(logp + i);
+#pragma unroll
+    for (int q = 0; q < V; q += 4) {
+      const float4 f = mx_stream::load4(logp + i + q);
+      x.a[q] = f.x;
+      x.a[q + 1] = f.y;
+      x.a[q + 2] = f.z;
+      x.a[q + 3] = f.w;
+    }
     x.row = at(i, x.col);
     return x;
   }
   __device__ __forceinline__ void store(Idx i, const In& x) const {
-    float4 d;
+    float d[V];
     Idx row = x.row, col = x.col;
-    d.x = one(x.a.x, row, col);
-    step(row, col);
-    d.y = one(x.a.y, row, col);
-    step(row, col);
-    d.z = one(x.a.z, row, col);
-    step(row, col);
-    d.w = one(x.a.w, row, col);
-    mx_stream::store4<EVICT>(dx + i, d);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      if (e) step(row, col);
+      d[e] = one(x.a[e], row, col);
+    }
+    if constexpr (std::is_same<T, float>::value)
+      mx_stream::store4<EVICT>(dx + i, make_float4(d[0], d[1], d[2], d[3]));
+    else
+      mx_stream::store8<EVICT>(dx + i, d);
   }
   __device__ __forceinline__ void scalar(Idx i) const {
     Idx col;
     const Idx row = at(i, col);
-    dx[i] = one(logp[i], row, col);
+    const float d = one(logp[i], row, col);
+    if constexpr (std::is_same<T, float>::value)
+      dx[i] = d;
+    else
+      dx[i] = __float2bfloat16_rn(d);
   }
 };
 
-template <bool EVICT>
+template <bool EVICT, class T>
 __global__ void __launch_bounds__(mx_stream::THREADS)
 softmax_xent_bwd_kernel(const float* __restrict__ logp,
                         const int* __restrict__ labels,
-                        const float* __restrict__ g, float* __restrict__ dx,
+                        const float* __restrict__ g, T* __restrict__ dx,
                         Idx n, Idx tiles, Divisor v, Idx lead) {
-  mx_stream::stream(XentBwd<EVICT>{logp, labels, g, dx, v, lead}, n, tiles);
+  mx_stream::stream<vec_of<T>()>(
+      XentBwd<EVICT, T>{logp, labels, g, dx, v, lead}, n, tiles);
 }
 
-cudaError_t launch_cluster(const float* x, const int* labels, float* nll,
+template <class T>
+cudaError_t launch_cluster(const T* x, const int* labels, float* nll,
                            float* logp, int rows, int v, int cluster,
                            int chunk, cudaStream_t stream) {
-  // the shared-memory attribute once per device
+  // the shared-memory attribute once per device and instance
   static bool attr_set[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(softmax_xent_fwd_cluster_kernel,
+    err = cudaFuncSetAttribute(softmax_xent_fwd_cluster_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                cluster_smem_bytes(MAX_CHUNK));
     if (err != cudaSuccess) return err;
     // the whole carveout as shared memory, so small chunks stack up to
     // seven CTAs an SM
-    err = cudaFuncSetAttribute(softmax_xent_fwd_cluster_kernel,
+    err = cudaFuncSetAttribute(softmax_xent_fwd_cluster_kernel<T>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
@@ -569,9 +632,74 @@ cudaError_t launch_cluster(const float* x, const int* labels, float* nll,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, softmax_xent_fwd_cluster_kernel, x,
+  err = cudaLaunchKernelEx(&cfg, softmax_xent_fwd_cluster_kernel<T>, x,
                            labels, nll, logp, v, chunk);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// the forward on logits of type T, by the instance the caller picked
+template <class T>
+int forward(const void* logits, const void* labels, void* nll, void* logp,
+            int rows, int v, int instance, int cluster, int chunk,
+            void* stream) {
+  const auto* x = static_cast<const T*>(logits);
+  const auto* lab = static_cast<const int*>(labels);
+  auto* n = static_cast<float*>(nll);
+  auto* lp = static_cast<float*>(logp);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (rows < 0 || v < 0 || instance < WARP_ROW || instance > TWO_PASS ||
+      cluster < 1 || cluster > INSTANCES[instance].most_cluster)
+    return cudaErrorInvalidValue;
+  switch (instance) {
+    case WARP_ROW:
+      if (v > INSTANCES[WARP_ROW].most_chunk) return cudaErrorInvalidValue;
+      if (rows == 0 || v == 0) return cudaSuccess;
+      softmax_xent_fwd_warp_kernel<T>
+          <<<(rows + WARPS - 1) / WARPS, THREADS, 0, st>>>(x, lab, n, lp,
+                                                           rows, v);
+      return cudaGetLastError();
+    case CLUSTER_ROW:
+      // every CTA of the cluster holds at least one column
+      if (chunk % 4 != 0 || chunk < 4 ||
+          chunk > INSTANCES[CLUSTER_ROW].most_chunk ||
+          (long long)chunk * cluster < v ||
+          (long long)chunk * (cluster - 1) >= v)
+        return cudaErrorInvalidValue;
+      if (rows == 0) return cudaSuccess;
+      return launch_cluster<T>(x, lab, n, lp, rows, v, cluster, chunk, st);
+    default:  // TWO_PASS
+      if (rows == 0 || v == 0) return cudaSuccess;
+      softmax_xent_fwd_two_pass_kernel<T><<<rows, THREADS, 0, st>>>(
+          x, lab, n, lp, v);
+      return cudaGetLastError();
+  }
+}
+
+// the backward over one chunk with dx of type T
+template <class T>
+int backward(const void* logp, const void* labels, const void* g, void* dx,
+             long long n, long long v, unsigned v_mul, int v_shift,
+             long long lead, int evict, long long tiles, void* stream) {
+  constexpr int V = vec_of<T>();
+  if (n == 0) return cudaSuccess;
+  Divisor vd;
+  if (n < 0 || n > INT32_MAX || !mx_stream::divisor(v, v_mul, v_shift, vd) ||
+      lead < 0 || lead >= V || lead >= v || lead > n)
+    return cudaErrorInvalidValue;
+  const unsigned grid = mx_stream::stream_grid<V>(n, tiles);
+  if (grid == 0) return cudaErrorInvalidValue;
+  const auto* lp = static_cast<const float*>(logp);
+  const auto* lab = static_cast<const int*>(labels);
+  const auto* gp = static_cast<const float*>(g);
+  auto* dp = static_cast<T*>(dx);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (evict)
+    softmax_xent_bwd_kernel<true, T><<<grid, mx_stream::THREADS, 0, st>>>(
+        lp, lab, gp, dp, (Idx)n, (Idx)tiles, vd, (Idx)lead);
+  else
+    softmax_xent_bwd_kernel<false, T><<<grid, mx_stream::THREADS, 0, st>>>(
+        lp, lab, gp, dp, (Idx)n, (Idx)tiles, vd, (Idx)lead);
   return cudaGetLastError();
 }
 
@@ -587,36 +715,18 @@ extern "C" int mx_softmax_xent_fwd(const void* logits, const void* labels,
                                    void* nll, void* logp, int rows, int v,
                                    int instance, int cluster, int chunk,
                                    void* stream) {
-  const auto* x = static_cast<const float*>(logits);
-  const auto* lab = static_cast<const int*>(labels);
-  auto* n = static_cast<float*>(nll);
-  auto* lp = static_cast<float*>(logp);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (rows < 0 || v < 0 || instance < WARP_ROW || instance > TWO_PASS ||
-      cluster < 1 || cluster > INSTANCES[instance].most_cluster)
-    return cudaErrorInvalidValue;
-  switch (instance) {
-    case WARP_ROW:
-      if (v > INSTANCES[WARP_ROW].most_chunk) return cudaErrorInvalidValue;
-      if (rows == 0 || v == 0) return cudaSuccess;
-      softmax_xent_fwd_warp_kernel<<<(rows + WARPS - 1) / WARPS, THREADS, 0,
-                                     st>>>(x, lab, n, lp, rows, v);
-      return cudaGetLastError();
-    case CLUSTER_ROW:
-      // every CTA of the cluster holds at least one column
-      if (chunk % 4 != 0 || chunk < 4 ||
-          chunk > INSTANCES[CLUSTER_ROW].most_chunk ||
-          (long long)chunk * cluster < v ||
-          (long long)chunk * (cluster - 1) >= v)
-        return cudaErrorInvalidValue;
-      if (rows == 0) return cudaSuccess;
-      return launch_cluster(x, lab, n, lp, rows, v, cluster, chunk, st);
-    default:  // TWO_PASS
-      if (rows == 0 || v == 0) return cudaSuccess;
-      softmax_xent_fwd_two_pass_kernel<<<rows, THREADS, 0, st>>>(x, lab, n,
-                                                                 lp, v);
-      return cudaGetLastError();
-  }
+  return forward<float>(logits, labels, nll, logp, rows, v, instance,
+                        cluster, chunk, stream);
+}
+
+// The same over bf16 logits; nll and logp float32.
+extern "C" int mx_softmax_xent_fwd_bf16(const void* logits,
+                                        const void* labels, void* nll,
+                                        void* logp, int rows, int v,
+                                        int instance, int cluster, int chunk,
+                                        void* stream) {
+  return forward<__nv_bfloat16>(logits, labels, nll, logp, rows, v, instance,
+                                cluster, chunk, stream);
 }
 
 // Dynamic shared memory of the forward's instance at `chunk` floats a CTA
@@ -646,23 +756,19 @@ extern "C" int mx_softmax_xent_bwd(const void* logp, const void* labels,
                                    long long v, unsigned v_mul, int v_shift,
                                    long long lead, int evict,
                                    long long tiles, void* stream) {
-  if (n == 0) return cudaSuccess;
-  Divisor vd;
-  if (n < 0 || n > INT32_MAX || !mx_stream::divisor(v, v_mul, v_shift, vd) ||
-      lead < 0 || lead >= mx_stream::VEC || lead >= v || lead > n)
-    return cudaErrorInvalidValue;
-  const unsigned grid = mx_stream::stream_grid(n, tiles);
-  if (grid == 0) return cudaErrorInvalidValue;
-  const auto* lp = static_cast<const float*>(logp);
-  const auto* lab = static_cast<const int*>(labels);
-  const auto* gp = static_cast<const float*>(g);
-  auto* dp = static_cast<float*>(dx);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (evict)
-    softmax_xent_bwd_kernel<true><<<grid, mx_stream::THREADS, 0, st>>>(
-        lp, lab, gp, dp, (Idx)n, (Idx)tiles, vd, (Idx)lead);
-  else
-    softmax_xent_bwd_kernel<false><<<grid, mx_stream::THREADS, 0, st>>>(
-        lp, lab, gp, dp, (Idx)n, (Idx)tiles, vd, (Idx)lead);
-  return cudaGetLastError();
+  return backward<float>(logp, labels, g, dx, n, v, v_mul, v_shift, lead,
+                         evict, tiles, stream);
+}
+
+// The same writing bf16 dx: the chunk starts on an 8-element boundary,
+// lead < 8, and evict and tiles are epilogue_geometry's at 2 bytes an
+// element.
+extern "C" int mx_softmax_xent_bwd_bf16(const void* logp, const void* labels,
+                                        const void* g, void* dx, long long n,
+                                        long long v, unsigned v_mul,
+                                        int v_shift, long long lead,
+                                        int evict, long long tiles,
+                                        void* stream) {
+  return backward<__nv_bfloat16>(logp, labels, g, dx, n, v, v_mul, v_shift,
+                                 lead, evict, tiles, stream);
 }

@@ -28,7 +28,8 @@
 //   void store(Idx i, const In&)   its output,
 //   void scalar(Idx i)             element i alone (the tail).
 //
-// bf16 (the AMP instances of the activation kernels): a 16-byte vector is
+// bf16 (the instances of the epilogue kernels on bf16 activations, and
+// the xent backward's bf16 dlogits): a 16-byte vector is
 // VEC_BF16 = 8 elements, so a tile is THREADS x 8 and the tail n % 8
 // (stream<VEC_BF16>, stream_grid<VEC_BF16>). load8 widens the 8 bf16 of a
 // vector to float exactly (a shift), store8 rounds 8 floats to bf16 once,

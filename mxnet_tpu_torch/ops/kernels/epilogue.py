@@ -2,8 +2,8 @@
 versions.
 
 The counterpart of ``mxnet_tpu/ops/pallas/epilogue.py``. Five kernels, all
-in ``csrc/epilogue.cu``, float32 (the activation forward and backward
-also bf16), over the tensor's elements unpadded:
+in ``csrc/epilogue.cu``, float32 and bf16, over the tensor's elements
+unpadded:
 
   * :func:`bn_act_forward` replaces ``mxnet_tpu_bn_act_fwd``
     (epilogue.py:124): ``act((x - mean) * scale + beta)`` with (C,)
@@ -23,14 +23,17 @@ by two multiply-high divisions (:func:`fast_divisor`,
   * :func:`add_act_forward` replaces ``mxnet_tpu_add_act_fwd`` (:297):
     ``act(x + y)``.
 
-bf16 (AMP): :func:`act_forward` and :func:`act_backward` take float32 or
-bfloat16 (``g`` and ``out`` alike) and launch that dtype's instance
-(counted as ``act_fwd.bf16`` / ``act_bwd.bf16``), whose stream has 8
-elements a 16-byte vector (``epilogue_geometry(n, 2)``); mixed dtypes,
-fp16 and other types raise ``TypeError``. The instance widens on load,
-computes in float32 as the float32 one and rounds once, so it is bitwise
-the float32 kernel on the widened input, rounded; the plain versions
-widen, compute in float32 and round to the input dtype.
+bf16 (AMP and ``net.cast('bfloat16')``): every entry point takes its
+activations (``x``, ``y``, ``g``, ``out``) all float32 or all bfloat16
+and launches that dtype's instance (counted as ``<kernel>.bf16``, e.g.
+``bn_act_fwd.bf16``), whose stream has 8 elements a 16-byte vector
+(``epilogue_geometry(n, 2)``); the BN apply's (C,) ``scale``, ``mean``
+and ``beta`` stay float32 at either dtype, as the reference passes them.
+Mixed activation dtypes, fp16 and other types raise ``TypeError``. An
+instance widens on load, computes in float32 as the float32 one and
+rounds once, so it is bitwise the float32 kernel on the widened input,
+rounded; the plain versions widen, compute in float32 and round to the
+input dtype.
 
 ``act'`` comes from the output alone (:func:`act_grad_from_out`), for the
 covered set :data:`ACT_TYPES`; ``None`` means identity. Three
@@ -200,24 +203,30 @@ BnGeometry = collections.namedtuple(
     'BnGeometry', EpilogueGeometry._fields + ('inner', 'c'))
 
 
-def bn_geometry(n, c, inner):
-    """Launch geometry of the BN apply kernels for ``n`` float32 elements
-    of a tensor (outer, ``c``, ``inner``) around the BN axis, as a
-    :class:`BnGeometry`: the stream's partition and store kind of
-    :func:`epilogue_geometry` and the :class:`Divisor` of ``inner`` and
-    of ``c``."""
-    return BnGeometry(*epilogue_geometry(n), fast_divisor(inner),
+def bn_geometry(n, c, inner, itemsize=4):
+    """Launch geometry of the BN apply kernels for ``n`` elements of
+    ``itemsize`` bytes (4: float32, 2: bf16) of a tensor (outer, ``c``,
+    ``inner``) around the BN axis, as a :class:`BnGeometry`: the stream's
+    partition and store kind of :func:`epilogue_geometry` and the
+    :class:`Divisor` of ``inner`` and of ``c``."""
+    return BnGeometry(*epilogue_geometry(n, itemsize), fast_divisor(inner),
                       fast_divisor(c))
 
 
-def _launch(kernel, entry, argtypes, tensors, result, *scalars):
-    """Check ``tensors`` (name -> input of ``result``'s dtype, float32
-    unless an instance says otherwise) and ``result``, launch ``entry`` on
-    the current stream and count it under ``kernel``; returns
-    ``result``."""
+def _launch(kernel, entry, argtypes, tensors, result, *scalars,
+            coeffs=None):
+    """Check ``tensors`` (name -> input of ``result``'s dtype), the
+    float32 per-channel vectors ``coeffs`` (name -> tensor) and
+    ``result``, launch ``entry`` with all of them in that order on the
+    current stream and count it under ``kernel``; returns ``result``."""
     named = dict(tensors)
+    dtypes = dict.fromkeys(named, result.dtype)
+    for label, t in (coeffs or {}).items():
+        named[label] = t
+        dtypes[label] = torch.float32
     named['result'] = result
-    _check_inputs(kernel, named, dict.fromkeys(named, result.dtype))
+    dtypes['result'] = result.dtype
+    _check_inputs(kernel, named, dtypes)
     _require(result.numel() <= MAX_ELEMENTS, '%s: %d elements, more than '
              'the %d the kernel indexes' % (kernel, result.numel(),
                                             MAX_ELEMENTS))
@@ -290,15 +299,23 @@ def add_act_forward_reference(x, y, act_type='relu', slope=0.0):
 
 
 def add_act_forward(x, y, act_type='relu', slope=0.0):
-    """``act(x + y)`` of two tensors of one shape."""
+    """``act(x + y)`` of two tensors of one shape, both float32 or both
+    bfloat16."""
     code = _code(act_type)
+    dt = _io_dtype('add_act_forward', {'x': x, 'y': y})
     if _on_cpu('add_act_forward', x):
         return add_act_forward_reference(x, y, act_type, slope)
     _same_shape('add_act_forward', x, y)
     x, y = _dense(x), _dense(y)
-    return _launch('add_act_fwd', 'mx_add_act_fwd',
-                   [_P, _P, _P, _N, _I, _F, _P], {'x': x, 'y': y}, _empty(x),
-                   x.numel(), code, float(slope))
+    name, entry = _instance('add_act_fwd', 'mx_add_act_fwd', dt)
+    if dt == torch.float32:
+        return _launch(name, entry, [_P, _P, _P, _N, _I, _F, _P],
+                       {'x': x, 'y': y}, _empty(x), x.numel(), code,
+                       float(slope))
+    geom = epilogue_geometry(x.numel(), x.element_size())
+    return _launch(name, entry, [_P, _P, _P, _N, _I, _F, _I, _N, _P],
+                   {'x': x, 'y': y}, _empty(x, dt), x.numel(), code,
+                   float(slope), int(geom.evict), geom.tiles)
 
 
 # -- BatchNorm apply forward / backward --------------------------------------
@@ -325,10 +342,10 @@ def _around(x, ax):
 _BN_ARGS = [_N, _N, _N, _U, _I, _U, _I, _I, _F, _I, _N, _P]
 
 
-def _bn_args(n, c, inner, code, slope):
+def _bn_args(n, c, inner, code, slope, itemsize=4):
     # an empty tensor launches nothing (the entry points return first),
     # and its C or inner may be 0, which no divisor takes
-    geom = bn_geometry(n, max(c, 1), max(inner, 1))
+    geom = bn_geometry(n, max(c, 1), max(inner, 1), itemsize)
     return (n, c, inner, geom.inner.mul, geom.inner.shift, geom.c.mul,
             geom.c.shift, code, float(slope), int(geom.evict), geom.tiles)
 
@@ -344,9 +361,10 @@ def bn_act_forward_reference(x, scale, mean, beta, axis=1, act_type=None,
 
 
 def bn_act_forward(x, scale, mean, beta, axis=1, act_type=None, slope=0.0):
-    """``act((x - mean) * scale + beta)`` with (C,) coefficients along
-    ``axis`` of ``x``."""
+    """``act((x - mean) * scale + beta)`` with (C,) float32 coefficients
+    along ``axis`` of ``x`` (float32 or bfloat16)."""
     code = _code(act_type)
+    dt = _io_dtype('bn_act_forward', {'x': x})
     if _on_cpu('bn_act_forward', x):
         return bn_act_forward_reference(x, scale, mean, beta, axis,
                                         act_type, slope)
@@ -356,9 +374,11 @@ def bn_act_forward(x, scale, mean, beta, axis=1, act_type=None, slope=0.0):
         _require(tuple(v.shape) == (c,), 'bn_act_forward: %s has shape %r, '
                  'expected (%d,)' % (label, tuple(v.shape), c))
     x, scale, mean, beta = (_dense(t) for t in (x, scale, mean, beta))
-    return _launch('bn_act_fwd', 'mx_bn_act_fwd', [_P] * 5 + _BN_ARGS,
-                   {'x': x, 'scale': scale, 'mean': mean, 'beta': beta},
-                   _empty(x), *_bn_args(x.numel(), c, inner, code, slope))
+    name, entry = _instance('bn_act_fwd', 'mx_bn_act_fwd', dt)
+    return _launch(name, entry, [_P] * 5 + _BN_ARGS, {'x': x}, _empty(x, dt),
+                   *_bn_args(x.numel(), c, inner, code, slope,
+                             x.element_size()),
+                   coeffs={'scale': scale, 'mean': mean, 'beta': beta})
 
 
 def bn_act_backward_reference(g, out, scale, axis=1, act_type=None,
@@ -372,8 +392,10 @@ def bn_act_backward_reference(g, out, scale, axis=1, act_type=None,
 
 
 def bn_act_backward(g, out, scale, axis=1, act_type=None, slope=0.0):
-    """``g * act'(out) * scale`` with (C,) ``scale`` along ``axis``."""
+    """``g * act'(out) * scale`` with (C,) float32 ``scale`` along
+    ``axis``; ``g`` and ``out`` both float32 or both bfloat16."""
     code = _code(act_type)
+    dt = _io_dtype('bn_act_backward', {'g': g, 'out': out})
     if _on_cpu('bn_act_backward', out):
         return bn_act_backward_reference(g, out, scale, axis, act_type,
                                          slope)
@@ -383,9 +405,12 @@ def bn_act_backward(g, out, scale, axis=1, act_type=None, slope=0.0):
     _require(tuple(scale.shape) == (c,), 'bn_act_backward: scale has shape '
              '%r, expected (%d,)' % (tuple(scale.shape), c))
     g, out, scale = _dense(g), _dense(out), _dense(scale)
-    return _launch('bn_act_bwd', 'mx_bn_act_bwd', [_P] * 4 + _BN_ARGS,
-                   {'g': g, 'out': out, 'scale': scale}, _empty(out),
-                   *_bn_args(out.numel(), c, inner, code, slope))
+    name, entry = _instance('bn_act_bwd', 'mx_bn_act_bwd', dt)
+    return _launch(name, entry, [_P] * 4 + _BN_ARGS, {'g': g, 'out': out},
+                   _empty(out, dt),
+                   *_bn_args(out.numel(), c, inner, code, slope,
+                             out.element_size()),
+                   coeffs={'scale': scale})
 
 
 # -- autograd wiring ----------------------------------------------------------

@@ -2,7 +2,7 @@
 PyTorch versions.
 
 The counterpart of ``mxnet_tpu/ops/pallas/xent.py``. Two kernels, both in
-``csrc/softmax_xent.cu``, float32:
+``csrc/softmax_xent.cu``, float32 and bf16:
 
   * :func:`softmax_xent_forward` replaces ``mxnet_tpu_softmax_xent_fwd``
     (xent.py:37): per row the max, the exp-sum, ``logp = x - m - log z``
@@ -15,6 +15,15 @@ The counterpart of ``mxnet_tpu/ops/pallas/xent.py``. Two kernels, both in
     stream over the rows x V elements as the epilogue kernels stream
     theirs, in chunks of whole rows past 2**31 - 1 elements
     (:func:`xent_bwd_geometry`).
+
+bf16 (``net.cast('bfloat16')``): the forward takes float32 or bfloat16
+logits and writes ``nll`` and ``logp`` float32 either way, as the
+reference kernel does (xent.py:85-93); the backward writes ``dx`` in
+float32 or bfloat16 (the logits' dtype, xent.py:118-124) from the float32
+``logp``. Their bf16 instances count as ``softmax_xent_fwd.bf16`` /
+``softmax_xent_bwd.bf16``; each is bitwise the float32 kernel on the
+widened logits (the backward: its result, rounded once). fp16 and other
+types raise ``TypeError``.
 
 :func:`fused_softmax_xent_rows` wires them through
 :class:`SoftmaxXentFunction`, which saves ``logp`` as ``_xent_fwd``
@@ -36,9 +45,9 @@ import ctypes
 import torch
 
 from .attention import SMEM_BLOCK_MAX
-from .epilogue import (EPI_VEC, MAX_ELEMENTS, epilogue_geometry,
-                       fast_divisor)
+from .epilogue import MAX_ELEMENTS, epilogue_geometry, fast_divisor
 from ._launch import (check_inputs as _check_inputs, count as _count,
+                      instance as _instance, io_dtype as _io_dtype,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
 
@@ -108,41 +117,46 @@ XentBwdChunk = collections.namedtuple(
     'XentBwdChunk', 'row start n lead geom')
 
 
-def xent_bwd_geometry(rows, v):
-    """The backward kernel's launches for (rows, V) ``logp``, as
-    ``(chunks, divisor)``: the :func:`fast_divisor` of V and one
+def xent_bwd_geometry(rows, v, itemsize=4):
+    """The backward kernel's launches for (rows, V) ``logp`` and a dx of
+    ``itemsize`` bytes an element (4: float32, 2: bf16), as ``(chunks,
+    divisor)``: the :func:`fast_divisor` of V and one
     :class:`XentBwdChunk` a launch. The kernel indexes a launch's
     elements in 32 bits, so a tensor of more than :data:`MAX_ELEMENTS`
-    elements goes in chunks of whole rows. A chunk's elements are
+    elements goes in chunks of whole rows. A 16-byte vector of dx holds
+    ``vec = 16 // itemsize`` elements (4 or 8). A chunk's elements are
     ``[start, start + n)`` of the flat (rows, V), ``start`` a multiple
-    of 4 (16-byte aligned: the stream loads whole vectors); its labels
-    and g start at row ``row``. Where the first whole row of a chunk
-    starts off the boundary, the chunk begins ``lead`` (< 4, < V)
-    elements earlier with the end of row ``row``, which the chunk before
-    it leaves out. ``geom`` is the chunk's :func:`epilogue_geometry`.
-    A chunk holds a multiple of 4 rows where that fits, and then no lead
-    is needed; a row wider than ``MAX_ELEMENTS - 3`` cannot be chunked
-    and is refused (ValueError), unless the whole tensor fits one
-    launch."""
+    of ``vec`` (16-byte aligned in dx and in logp: the stream loads and
+    stores whole vectors); its labels and g start at row ``row``. Where
+    the first whole row of a chunk starts off the boundary, the chunk
+    begins ``lead`` (< vec, < V) elements earlier with the end of row
+    ``row``, which the chunk before it leaves out. ``geom`` is the
+    chunk's :func:`epilogue_geometry` at ``itemsize``. A chunk holds a
+    multiple of ``vec`` rows where that fits, and then no lead is
+    needed; a row wider than ``MAX_ELEMENTS - (vec - 1)`` cannot be
+    chunked and is refused (ValueError), unless the whole tensor fits
+    one launch."""
     n = rows * v
     if n == 0:
         return (), None
+    vec = 16 // itemsize
     if n <= MAX_ELEMENTS:
-        return ((XentBwdChunk(0, 0, n, 0, epilogue_geometry(n)),),
+        return ((XentBwdChunk(0, 0, n, 0, epilogue_geometry(n, itemsize)),),
                 fast_divisor(v))
-    per = (MAX_ELEMENTS - (EPI_VEC - 1)) // v
+    per = (MAX_ELEMENTS - (vec - 1)) // v
     _require(per >= 1, 'softmax_xent_backward: a row of %d elements is '
-             'wider than the %d a launch indexes' % (v, MAX_ELEMENTS - 3))
-    if per >= EPI_VEC:
-        per -= per % EPI_VEC
+             'wider than the %d a launch indexes'
+             % (v, MAX_ELEMENTS - (vec - 1)))
+    if per >= vec:
+        per -= per % vec
     firsts = range(0, rows, per)
-    starts = [f * v & ~(EPI_VEC - 1) for f in firsts] + [n]
+    starts = [f * v & ~(vec - 1) for f in firsts] + [n]
     chunks = []
     for k, first in enumerate(firsts):
         lead = first * v - starts[k]
         size = starts[k + 1] - starts[k]
         chunks.append(XentBwdChunk(first - (lead != 0), starts[k], size,
-                                   lead, epilogue_geometry(size)))
+                                   lead, epilogue_geometry(size, itemsize)))
     return tuple(chunks), fast_divisor(v)
 
 
@@ -185,13 +199,13 @@ def _lib(entry):
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        if entry == 'mx_softmax_xent_bwd':
+        if entry.startswith('mx_softmax_xent_bwd'):
             fn.argtypes = [ctypes.c_void_p] * 4 + [
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_longlong, ctypes.c_void_p]
             return fn
-        if entry == 'mx_softmax_xent_fwd':
+        if entry.startswith('mx_softmax_xent_fwd'):
             # the kernel's layout against xent_geometry's
             smem = lib.mx_softmax_xent_fwd_smem
             smem.restype = ctypes.c_int
@@ -209,8 +223,9 @@ def _lib(entry):
 
 def softmax_xent_forward(logits, labels):
     """Per-row ``nll`` (rows,) and ``logp`` (rows, V), both float32, of
-    (rows, V) logits and (rows,) labels, by the instance
-    :func:`xent_geometry` picks."""
+    (rows, V) float32 or bfloat16 logits and (rows,) labels, by the
+    instance :func:`xent_geometry` picks."""
+    dt = _io_dtype('softmax_xent_forward', {'logits': logits})
     if _on_cpu('softmax_xent_forward', logits, '(rows, V)'):
         return softmax_xent_forward_reference(logits, labels)
     rows, v = logits.shape
@@ -219,28 +234,31 @@ def softmax_xent_forward(logits, labels):
     _require(lab.shape[0] == rows, 'softmax_xent_forward: %d labels for '
              '%d rows' % (lab.shape[0], rows))
     _check_inputs('softmax_xent_forward', {'logits': logits, 'labels': lab},
-                  {'logits': torch.float32, 'labels': torch.int32})
+                  {'logits': dt, 'labels': torch.int32})
     nll = torch.empty((rows,), dtype=torch.float32, device=logits.device)
-    logp = torch.empty_like(logits)
+    logp = torch.empty((rows, v), dtype=torch.float32, device=logits.device)
+    name, entry = _instance('softmax_xent_fwd', 'mx_softmax_xent_fwd', dt)
     with torch.cuda.device(logits.device):
-        err = _lib('mx_softmax_xent_fwd')(
+        err = _lib(entry)(
             _ptr(logits), _ptr(lab), _ptr(nll), _ptr(logp), rows, v,
             XENT_INSTANCES.index(geom.instance), geom.cluster, geom.chunk,
             _stream(logits.device))
-    _raise_on('softmax_xent_fwd', err)
-    _count('softmax_xent_fwd', geom.instance)
+    _raise_on(name, err)
+    _count(name, geom.instance)
     return nll, logp
 
 
 def softmax_xent_backward(logp, labels, g, dtype=torch.float32):
-    """dlogits (rows, V) in ``dtype`` from the saved ``logp``, the labels
-    and the cotangent ``g`` of ``nll`` (a scalar or (rows,)); one launch
-    a chunk of :func:`xent_bwd_geometry`, counted once a call."""
+    """dlogits (rows, V) in ``dtype`` (float32 or bfloat16) from the
+    saved float32 ``logp``, the labels and the cotangent ``g`` of
+    ``nll`` (a scalar or (rows,)); one launch a chunk of
+    :func:`xent_bwd_geometry`, counted once a call."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError('softmax_xent_backward: dx in %s is not built (have '
+                        'torch.float32, torch.bfloat16)' % (dtype,))
     if _on_cpu('softmax_xent_backward', logp, '(rows, V)'):
         return softmax_xent_backward_reference(logp, labels, g, dtype)
     rows, v = logp.shape
-    _require(dtype == torch.float32, 'softmax_xent_backward: the kernel '
-             'writes float32, got %s' % dtype)
     lab = labels.to(dtype=torch.int32).reshape(-1).contiguous()
     gr = _rows_g(g, rows, logp.device)
     _require(lab.shape[0] == rows, 'softmax_xent_backward: %d labels for '
@@ -249,19 +267,20 @@ def softmax_xent_backward(logp, labels, g, dtype=torch.float32):
                   {'logp': logp, 'labels': lab, 'g': gr},
                   {'logp': torch.float32, 'labels': torch.int32,
                    'g': torch.float32})
-    chunks, div = xent_bwd_geometry(rows, v)
-    dx = torch.empty_like(logp)
+    dx = torch.empty((rows, v), dtype=dtype, device=logp.device)
+    chunks, div = xent_bwd_geometry(rows, v, dx.element_size())
     if not chunks:
         return dx
-    fn = _lib('mx_softmax_xent_bwd')
+    name, entry = _instance('softmax_xent_bwd', 'mx_softmax_xent_bwd', dtype)
+    fn = _lib(entry)
     with torch.cuda.device(logp.device):
         for c in chunks:
             err = fn(_at(logp, c.start), _at(lab, c.row), _at(gr, c.row),
                      _at(dx, c.start), c.n,
                      v, div.mul, div.shift, c.lead, int(c.geom.evict),
                      c.geom.tiles, _stream(logp.device))
-            _raise_on('softmax_xent_bwd', err)
-    _count('softmax_xent_bwd')
+            _raise_on(name, err)
+    _count(name)
     return dx
 
 

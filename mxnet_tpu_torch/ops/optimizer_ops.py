@@ -1,18 +1,33 @@
 """Optimizer update ops, the counterpart of ``mxnet_tpu/ops/optimizer_ops.py``.
 
 Ported: AdamW (the BERT-pretraining optimizer) and SGD with and without
-momentum (the ResNet one), dense gradients only. The JAX package computes
-them outside any Pallas kernel, as plain elementwise XLA; here they are
-plain PyTorch. Unlike the JAX ops, which return new arrays, the port
-updates the weight and its state in place: the update then holds no
-second copy of the model and its optimizer state. The expressions and
-their order are the JAX ops'.
+momentum (the ResNet one), and SGD's float32-master forms for low-precision
+weights (``mp_sgd_update``, ``mp_sgd_mom_update``), dense gradients only.
+The JAX package computes them outside any Pallas kernel, as plain
+elementwise XLA; here they are plain PyTorch. Unlike the JAX ops, which
+return new arrays, the port updates the weight and its state in place:
+the update then holds no second copy of the model and its optimizer
+state. The expressions and their order are the JAX ops'.
+
+bf16 weights without a float32 master (``sgd_update`` / ``sgd_mom_update``
+on bf16 tensors, as ``bench_resnet`` trains a ``cast('bfloat16')`` net):
+the port computes what the JAX trainer's traced update computes
+(train_step.py:576, optimizer/fused.py:119-147), which the tests hold
+byte for byte. Its lr, wd and rescale_grad are float32 scalars, not weak
+Python floats, so they promote the bf16 math to float32: the gradient
+widens, ``momentum * mom`` multiplies the widened momentum by the
+momentum rounded to bf16 (a weak Python float takes the array's dtype),
+and XLA keeps that product in float32; the new weight and momentum round
+to bf16 once, at the end.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ['adamw_update', 'sgd_update', 'sgd_mom_update']
+__all__ = ['adamw_update', 'sgd_update', 'sgd_mom_update', 'mp_sgd_update',
+           'mp_sgd_mom_update']
+
+_LOW = (torch.float16, torch.bfloat16)
 
 
 @torch.no_grad()
@@ -55,7 +70,12 @@ def _rescale_clip(grad, rescale_grad, clip_gradient, wd, weight):
 def sgd_update(weight, grad, *, lr, wd=0.0, rescale_grad=1.0,
                clip_gradient=None):
     """Plain SGD (``sgd_update``, optimizer_ops.py:57), in place:
-    ``w = w - lr * g``. Returns ``weight``."""
+    ``w = w - lr * g``; a bf16 weight computes in float32 and rounds
+    once (see the module docstring). Returns ``weight``."""
+    if weight.dtype in _LOW:
+        g = _rescale_clip(grad.float(), rescale_grad, clip_gradient, wd,
+                          weight.float())
+        return weight.copy_(weight.float() - lr * g)
     g = _rescale_clip(grad, rescale_grad, clip_gradient, wd, weight)
     return weight.sub_(lr * g)
 
@@ -69,8 +89,53 @@ def sgd_mom_update(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
         mom = momentum * mom - lr * g
         w = w + mom
 
-    Returns (weight, mom), the tensors passed in."""
+    bf16 weight and momentum compute in float32 and round once each (see
+    the module docstring). Returns (weight, mom), the tensors passed
+    in."""
+    if weight.dtype in _LOW:
+        g = _rescale_clip(grad.float(), rescale_grad, clip_gradient, wd,
+                          weight.float())
+        m = torch.tensor(momentum, dtype=mom.dtype).item()
+        new_mom = mom.float() * m - lr * g
+        weight.copy_(weight.float() + new_mom)
+        mom.copy_(new_mom)
+        return weight, mom
     g = _rescale_clip(grad, rescale_grad, clip_gradient, wd, weight)
     mom.mul_(momentum).sub_(lr * g)
     weight.add_(mom)
     return weight, mom
+
+
+@torch.no_grad()
+def mp_sgd_update(weight, grad, weight32, *, lr, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=None):
+    """SGD on a low-precision weight with a float32 master
+    (``mp_sgd_update``, optimizer_ops.py:78-87), in place: the widened
+    gradient updates ``weight32``, ``w32 = w32 - lr * g`` with g the
+    float32 ``clip(grad * rescale_grad) + wd * w32``, and ``weight``
+    becomes ``w32`` rounded. Returns (weight, weight32)."""
+    g = _rescale_clip(grad.float(), rescale_grad, clip_gradient, wd,
+                      weight32)
+    weight32.sub_(lr * g)
+    weight.copy_(weight32)
+    return weight, weight32
+
+
+@torch.no_grad()
+def mp_sgd_mom_update(weight, grad, mom, weight32, *, lr, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=None):
+    """SGD with momentum on a low-precision weight with a float32 master
+    (``mp_sgd_mom_update``, optimizer_ops.py:90-105), in place, all in
+    float32::
+
+        mom = momentum * mom - lr * g
+        w32 = w32 + mom
+        weight = w32 (rounded)
+
+    Returns (weight, mom, weight32)."""
+    g = _rescale_clip(grad.float(), rescale_grad, clip_gradient, wd,
+                      weight32)
+    mom.mul_(momentum).sub_(lr * g)
+    weight32.add_(mom)
+    weight.copy_(weight32)
+    return weight, mom, weight32

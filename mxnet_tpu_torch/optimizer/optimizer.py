@@ -5,10 +5,16 @@ Ported: the ``Optimizer`` bookkeeping (optimizer.py:78-257) -- per-index
 update counts, lr / wd multiplier tables, ``rescale_grad``,
 ``clip_gradient``, the registry -- plus ``SGD`` (:259-305; PyTorch
 gradients are dense, so its row-sparse ``lazy_update`` has no
-counterpart), ``_AdamFamily`` (:423-437) and ``AdamW`` (:464-483). The
-JAX package's learning-rate schedulers, symbol attributes, ``param_dict``
-and fp16/bf16 master weights have no counterpart yet (no caller of the
-port needs them; there is no symbolic API and no AMP in the port).
+counterpart), ``_AdamFamily`` (:423-437) and ``AdamW`` (:464-483), and
+the low-precision protocol (:93-150, 278-300): ``multi_precision``,
+``create_state_multi_precision`` (a float32 master for a float16 or
+bfloat16 weight when ``multi_precision``, else a warning and state in the
+weight's dtype) and ``update_multi_precision`` (SGD: ``mp_sgd_update`` /
+``mp_sgd_mom_update`` on the master). AdamW refuses low-precision weights
+(``TypeError``): the port has no ``_mp_adamw_update`` yet. The JAX
+package's learning-rate schedulers, symbol attributes and ``param_dict``
+have no counterpart yet (no caller of the port needs them; there is no
+symbolic API in the port).
 
 Weight decay reaches every parameter, under SGD as under AdamW:
 ``set_wd_mult`` gives names not ending in ``_weight`` a multiplier of 0,
@@ -19,9 +25,12 @@ package: BatchNorm gamma / beta and conv biases decay too.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
-from ..ops.optimizer_ops import adamw_update, sgd_mom_update, sgd_update
+from ..ops.optimizer_ops import (adamw_update, mp_sgd_mom_update,
+                                 mp_sgd_update, sgd_mom_update, sgd_update)
 
 __all__ = ['Optimizer', 'SGD', 'AdamW', 'register', 'create',
            'opt_registry']
@@ -33,6 +42,16 @@ def register(klass):
     """Register an Optimizer subclass under its lowercase class name."""
     opt_registry[klass.__name__.lower()] = klass
     return klass
+
+
+def _is_low_precision(dtype):
+    """float16 and bfloat16: both need a float32 accumulator
+    (``_is_low_precision``, optimizer.py:64-76)."""
+    return dtype in (torch.float16, torch.bfloat16)
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace('torch.', '')
 
 
 def create(name, **kwargs):
@@ -51,9 +70,11 @@ class Optimizer:
     rescale/clip."""
 
     def __init__(self, rescale_grad=1., param_idx2name=None, wd=0.,
-                 clip_gradient=None, learning_rate=0.01):
+                 clip_gradient=None, learning_rate=0.01,
+                 multi_precision=False):
         self.rescale_grad, self.clip_gradient = rescale_grad, clip_gradient
         self.lr, self.wd = learning_rate, wd
+        self.multi_precision = multi_precision
         self.num_update = 0
         self._index_update_count = {}
         if param_idx2name is None:
@@ -69,8 +90,35 @@ class Optimizer:
         """Optimizer state for one weight; None if stateless."""
         return None
 
+    def create_state_multi_precision(self, index, weight):
+        """State for one weight under the low-precision protocol: for a
+        float16 / bfloat16 weight with ``multi_precision``, ``(master,
+        state)`` with a float32 master copy; without it, a warning and
+        :meth:`create_state` in the weight's dtype."""
+        if _is_low_precision(weight.dtype):
+            if self.multi_precision:
+                master = weight.detach().to(torch.float32)
+                return (master, self.create_state(index, master))
+            warnings.warn('Accumulating with %s in optimizer can lead '
+                          'to poor accuracy or slow convergence. '
+                          'Consider using multi_precision=True option '
+                          'of the optimizer' % _dtype_name(weight.dtype))
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update`, or for a low-precision weight under
+        ``multi_precision`` the update of its float32 master (state
+        ``(master, state)``) with the widened gradient, the weight then
+        the master rounded."""
+        if self.multi_precision and _is_low_precision(weight.dtype):
+            master, master_state = state
+            self.update(index, master, grad.to(torch.float32), master_state)
+            weight.copy_(master)
+        else:
+            self.update(index, weight, grad, state)
 
     def _begin(self, index):
         """Bump the update count and resolve (lr, wd) for one step."""
@@ -126,10 +174,24 @@ class SGD(Optimizer):
         return torch.zeros_like(weight) if self.momentum != 0.0 else None
 
     def update(self, index, weight, grad, state):
+        self._update_impl(index, weight, grad, state, multi_precision=False)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        use_mp = self.multi_precision and _is_low_precision(weight.dtype)
+        self._update_impl(index, weight, grad, state, multi_precision=use_mp)
+
+    def _update_impl(self, index, weight, grad, state, multi_precision=False):
         lr, wd = self._begin(index)
         kwargs = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
                       clip_gradient=self.clip_gradient)
-        if state is not None:
+        if multi_precision:
+            master, mom = state
+            if mom is not None:
+                mp_sgd_mom_update(weight, grad, mom, master,
+                                  momentum=self.momentum, **kwargs)
+            else:
+                mp_sgd_update(weight, grad, master, **kwargs)
+        elif state is not None:
             sgd_mom_update(weight, grad, state, momentum=self.momentum,
                            **kwargs)
         else:
@@ -145,7 +207,16 @@ class _AdamFamily(Optimizer):
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
     def create_state(self, index, weight):
+        if _is_low_precision(weight.dtype):
+            raise TypeError('%s: %s weights are not ported (no '
+                            '_mp_adamw_update yet; ROADMAP: "the rest of '
+                            'training"): train them float32, or under '
+                            "amp='bf16'" % (type(self).__name__,
+                                            _dtype_name(weight.dtype)))
         return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def create_state_multi_precision(self, index, weight):
+        return self.create_state(index, weight)
 
     def _bias_corrected(self, lr, t):
         """lr * sqrt(1 - beta2^t) / (1 - beta1^t)."""

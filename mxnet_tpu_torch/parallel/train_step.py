@@ -29,7 +29,13 @@ every parameter, in place. What the JAX trainer does that the port keeps:
     its inputs by its class: the matmul family computes on bf16 copies
     of the float32 masters, and the gradients widen back to float32 at
     each parameter through the casts' backward. The loss widens to
-    float32 before the mean. Masters and optimizer state stay float32.
+    float32 before the mean. Masters and optimizer state stay float32;
+  * low-precision parameters (a net after ``cast('bfloat16')``, with or
+    without ``amp``; train_step.py:519-580): their gradients come out in
+    their dtype, and the optimizer's low-precision protocol takes them:
+    states from ``create_state_multi_precision`` (a float32 master under
+    ``multi_precision``, else a warning and state in the weight's
+    dtype), updates through ``update_multi_precision``.
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh of more
 than one device, ZeRO and the numerical guardrail (ROADMAP: "multi-GPU,
@@ -137,7 +143,7 @@ class ParallelTrainer:
         # writes them in place
         self._params = [(i, p) for i, (_, p) in enumerate(named)
                         if p.requires_grad]
-        self._states = [opt.create_state(i, p.detach())
+        self._states = [opt.create_state_multi_precision(i, p.detach())
                         for i, p in self._params]
 
     def _to_device(self, a):
@@ -173,7 +179,7 @@ class ParallelTrainer:
         with torch.no_grad():
             for (i, p), state in zip(self._params, self._states):
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                opt.update(i, p.data, g, state)
+                opt.update_multi_precision(i, p.data, g, state)
         for _, p in self._params:
             p.grad = None
         self.num_update += 1

@@ -157,6 +157,27 @@ def test_act_bf16_plain_versions_match_jax(act):
     assert y.dtype == xr.grad.dtype == BF16
 
 
+def test_bn_and_add_act_take_bf16_and_refuse_fp16_and_mixed_dtypes():
+    """The BN apply forward and backward take bf16 activations with
+    float32 (C,) coefficients and return bf16, add+act two bf16 tensors;
+    fp16 and mixed activation dtypes raise ``TypeError``, and
+    coefficients of another dtype than float32 are refused on the card
+    by the launch check (the plain versions widen them)."""
+    x = torch.randn(2, 3, 4, 5).to(BF16)
+    c = torch.ones(3)
+    assert kernels.bn_act_forward(x, c, c, c).dtype == BF16
+    assert kernels.bn_act_backward(x, x, c).dtype == BF16
+    assert kernels.add_act_forward(x, x).dtype == BF16
+    h = x.half()
+    for call in (lambda: kernels.bn_act_forward(h, c, c, c),
+                 lambda: kernels.bn_act_backward(h, h, c),
+                 lambda: kernels.bn_act_backward(x, x.float(), c),
+                 lambda: kernels.add_act_forward(h, h),
+                 lambda: kernels.add_act_forward(x, x.float())):
+        with pytest.raises(TypeError):
+            call()
+
+
 def test_act_kernels_refuse_mixed_and_other_dtypes():
     x = torch.zeros(5)
     with pytest.raises(TypeError):
@@ -568,11 +589,12 @@ def _channel_step(ch, r, geom):
     return ch, r
 
 
-def _bn_walk(n, geom):
-    """(element, channel) as the BN kernels find them: a vector divides
-    its first index and each further element steps from the one before;
-    a scalar of the tail divides its own index."""
-    for i, width in _stream_items(n, geom):
+def _bn_walk(n, geom, itemsize=4):
+    """(element, channel) as the BN kernels find them: a vector (4
+    floats, 8 bf16) divides its first index and each further element
+    steps from the one before; a scalar of the tail divides its own
+    index."""
+    for i, width in _stream_items(n, geom, itemsize):
         ch, r = _channel_at(i, geom)
         yield i, ch
         for j in range(1, width):
@@ -629,17 +651,21 @@ def test_fast_divisor_refuses_what_the_kernel_cannot_divide_by():
                             div_c.mul, div_c.shift)
 
 
+@pytest.mark.parametrize('itemsize', (4, 2))
 @pytest.mark.parametrize('inner', (1, 2, 3, 4, 49, 63, 196))
 @pytest.mark.parametrize('c', (1, 3, 37))
-def test_bn_channel_walk_matches_the_channel_of_every_element(inner, c):
+def test_bn_channel_walk_matches_the_channel_of_every_element(inner, c,
+                                                              itemsize):
     """Every element's channel as the kernels walk it, ``(i // inner) %
     c``: a vector spanning two runs (inner 49, 63), or up to four (inner
-    1-3), and the channel wrapping from c - 1 to 0 inside a vector. Over
-    whole tiles, the rest and a tail."""
-    for outer in (1, 5, 2 * epilogue.EPI_TILE // (c * inner) + 3):
+    1-3; eight in a bf16 vector), and the channel wrapping from c - 1 to
+    0 inside a vector. Over whole tiles, the rest and a tail, for the
+    float32 stream and the bf16 one (8 elements a vector)."""
+    tile = epilogue.EPI_THREADS * 16 // itemsize
+    for outer in (1, 5, 2 * tile // (c * inner) + 3):
         n = outer * c * inner
-        geom = kernels.bn_geometry(n, c, inner)
-        walked = list(_bn_walk(n, geom))
+        geom = kernels.bn_geometry(n, c, inner, itemsize)
+        walked = list(_bn_walk(n, geom, itemsize))
         assert sorted(i for i, _ in walked) == list(range(n))
         assert [ch for _, ch in sorted(walked)] == \
             [(i // inner) % c for i in range(n)], (outer, c, inner)
@@ -656,14 +682,16 @@ BN_SHAPES = ((128, 64, 112, 112), (128, 64, 56, 56), (128, 256, 56, 56),
              (1, 1, 1, epilogue.MAX_ELEMENTS))
 
 
+@pytest.mark.parametrize('itemsize', (4, 2))
 @pytest.mark.parametrize('shape', BN_SHAPES)
-def test_bn_geometry_is_the_streams_with_the_divisors(shape):
+def test_bn_geometry_is_the_streams_with_the_divisors(shape, itemsize):
     """``bn_geometry`` partitions the elements as ``epilogue_geometry``
-    does and carries the divisors of inner and C."""
+    does at the element size (float32; bf16 x, 2 bytes) and carries the
+    divisors of inner and C."""
     n, c, inner = int(np.prod(shape)), shape[1], int(np.prod(shape[2:]))
-    geom = kernels.bn_geometry(n, c, inner)
-    assert tuple(geom[:6]) == tuple(kernels.epilogue_geometry(n))
-    _assert_partition(n, kernels.epilogue_geometry(n))
+    geom = kernels.bn_geometry(n, c, inner, itemsize)
+    assert tuple(geom[:6]) == tuple(kernels.epilogue_geometry(n, itemsize))
+    _assert_partition(n, kernels.epilogue_geometry(n, itemsize), itemsize)
     assert geom.inner == epilogue.fast_divisor(inner)
     assert geom.c == epilogue.fast_divisor(c)
     # the last element's channel, as the kernel finds it
@@ -706,20 +734,38 @@ PTXAS_LINES = [
     "epilogue_cu_1878d3e727epilogue_add_act_fwd_kernelILi6EEEvPKfS2_Pfjf' "
     "for 'sm_90a'",
     'ptxas info    : Used 18 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e731epilogue_bn_act_fwd_bf16_kernelILi0ELb1EEEvPK13__"
+    "nv_bfloat16PKfS5_S5_PS1_jjNS_8ChannelsEf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 32 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e731epilogue_bn_act_bwd_bf16_kernelILi0ELb0EEEvPK13__"
+    "nv_bfloat16S3_PKfPS1_jjNS_8ChannelsEf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 30 registers, used 0 barriers',
+    "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__54bd33e0_11_"
+    "epilogue_cu_1878d3e732epilogue_add_act_fwd_bf16_kernelILi1ELb1EEEvPK13__"
+    "nv_bfloat16S3_PS1_jjf' for 'sm_90a'",
+    '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+    'ptxas info    : Used 24 registers, used 0 barriers',
 ]
 
 
 def test_ptxas_report_of_the_act_kernels():
     """chip_smoke's phase-1 check reads the registers and spills of the
-    stream kernels' instances (act and BN apply, and the act kernels' bf16
-    instances) from ptxas's report, keyed by store kind, and fails on a
-    spill or when ptxas ran and did not name all six kernels."""
+    stream kernels' instances (act and BN apply, their bf16 instances and
+    add+act's bf16 one) from ptxas's report, keyed by store kind, and
+    fails on a spill or when ptxas ran and did not name all nine
+    kernels."""
     import chip_smoke
     assert chip_smoke.check_epilogue_build(PTXAS_LINES) == {
         'act_fwd': {'cs': 20}, 'act_bwd': {'st': 32},
         'bn_act_fwd': {'cs': 26}, 'bn_act_bwd': {'st': 30},
-        'act_fwd_bf16': {'st': 32}, 'act_bwd_bf16': {'cs': 31}}
-    for line in (1, 7):
+        'act_fwd_bf16': {'st': 32}, 'act_bwd_bf16': {'cs': 31},
+        'bn_act_fwd_bf16': {'cs': 32}, 'bn_act_bwd_bf16': {'st': 30},
+        'add_act_fwd_bf16': {'cs': 24}}
+    for line in (1, 7, 21):
         spilled = list(PTXAS_LINES)
         spilled[line] = '    0 bytes stack frame, 8 bytes spill stores, ' \
             '8 bytes spill loads'
@@ -727,13 +773,20 @@ def test_ptxas_report_of_the_act_kernels():
             chip_smoke.check_epilogue_build(spilled)
     with pytest.raises(AssertionError,
                        match='no act_bwd / act_bwd_bf16 / act_fwd / '
-                       'act_fwd_bf16 / bn_act_bwd / bn_act_fwd'):
-        chip_smoke.check_epilogue_build(PTXAS_LINES[-2:])
+                       'act_fwd_bf16 / add_act_fwd_bf16 / bn_act_bwd / '
+                       'bn_act_bwd_bf16 / bn_act_fwd / bn_act_fwd_bf16'):
+        chip_smoke.check_epilogue_build(PTXAS_LINES[18:20])
     with pytest.raises(AssertionError, match='no act_bwd_bf16 / act_fwd_bf16 '
-                       '/ bn_act_bwd / bn_act_fwd'):
+                       '/ add_act_fwd_bf16 / bn_act_bwd / bn_act_bwd_bf16 / '
+                       'bn_act_fwd / bn_act_fwd_bf16'):
         chip_smoke.check_epilogue_build(PTXAS_LINES[:6])
-    with pytest.raises(AssertionError, match='no act_bwd_bf16 / act_fwd_bf16'):
+    with pytest.raises(AssertionError, match='no act_bwd_bf16 / act_fwd_bf16 '
+                       '/ add_act_fwd_bf16 / bn_act_bwd_bf16 / '
+                       'bn_act_fwd_bf16'):
         chip_smoke.check_epilogue_build(PTXAS_LINES[:12])
+    with pytest.raises(AssertionError, match='no add_act_fwd_bf16 / '
+                       'bn_act_bwd_bf16 / bn_act_fwd_bf16'):
+        chip_smoke.check_epilogue_build(PTXAS_LINES[:20])
     assert chip_smoke.check_epilogue_build([]) == {}
 
 

@@ -164,6 +164,22 @@ def test_softmax_ce_loss_matches_jax(kw, pred_shape):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
 
 
+def test_wrappers_take_bf16_and_refuse_fp16():
+    """The forward takes bf16 logits and writes float32 nll and logp; the
+    backward writes float32 or bf16 dlogits from float32 logp; fp16
+    logits or dlogits raise ``TypeError``."""
+    bf = torch.bfloat16
+    logits = torch.randn(4, 7).to(bf)
+    lab = torch.tensor([0, 6, -1, 3])
+    nll, logp = kernels.softmax_xent_forward(logits, lab)
+    assert nll.dtype == logp.dtype == torch.float32
+    assert kernels.softmax_xent_backward(logp, lab, 1.0, bf).dtype == bf
+    with pytest.raises(TypeError):
+        kernels.softmax_xent_forward(logits.half(), lab)
+    with pytest.raises(TypeError):
+        kernels.softmax_xent_backward(logp, lab, 1.0, torch.float16)
+
+
 def test_wrappers_reject_other_devices_and_bad_shapes():
     x = torch.zeros(4, 3, device='meta')
     with pytest.raises(ValueError, match='unsupported device'):
@@ -466,19 +482,23 @@ def test_bwd_stepping_matches_divmod(v):
                                   for i in range(start, n)]
 
 
-def _assert_chunks(rows, v):
-    chunks, div = kernels.xent_bwd_geometry(rows, v)
+def _assert_chunks(rows, v, itemsize=4):
+    """``xent_bwd_geometry``'s chunks for a dx of ``itemsize`` bytes an
+    element: a vector of ``vec = 16 // itemsize`` elements (4 floats, 8
+    bf16) sets the alignment and the most a lead may be."""
+    vec = 16 // itemsize
+    chunks, div = kernels.xent_bwd_geometry(rows, v, itemsize)
     n = rows * v
     assert div == _epi.fast_divisor(v)
     assert chunks[0].start == 0 and chunks[0].lead == 0
     firsts = []
     end = 0
     for c in chunks:
-        assert c.start == end and c.start % 4 == 0     # 16-byte aligned
-        assert 1 <= c.n <= MAX and 0 <= c.lead < min(4, v)
+        assert c.start == end and c.start % vec == 0   # 16-byte aligned
+        assert 1 <= c.n <= MAX and 0 <= c.lead < min(vec, v)
         first = c.row + (c.lead != 0)                  # first whole row
         assert c.start + c.lead == first * v
-        assert c.geom == _epi.epilogue_geometry(c.n)
+        assert c.geom == _epi.epilogue_geometry(c.n, itemsize)
         firsts.append(first)
         end = c.start + c.n
     assert end == n
@@ -486,10 +506,10 @@ def _assert_chunks(rows, v):
     # first row: the rows are covered once, in order
     assert firsts == sorted(set(firsts)) and firsts[0] == 0
     for k, c in enumerate(chunks[:-1]):
-        assert c.start + c.n == firsts[k + 1] * v & ~3
-    if len(firsts) > 1 and firsts[1] >= 4:
+        assert c.start + c.n == firsts[k + 1] * v & ~(vec - 1)
+    if len(firsts) > 1 and firsts[1] >= vec:
         assert all(f % firsts[1] == 0 for f in firsts)
-        assert firsts[1] % 4 == 0 and all(c.lead == 0 for c in chunks)
+        assert firsts[1] % vec == 0 and all(c.lead == 0 for c in chunks)
     return chunks
 
 
@@ -499,13 +519,22 @@ def _assert_chunks(rows, v):
     (70356, 30522), (70360, 30523), (1920 * 40, 30522), (3, 2 ** 30 + 1),
     (5, 2 ** 29 + 3), (2, 2 ** 31 - 4), (7, 2 ** 30 - 2), (1, 2 ** 31 - 1),
     (9, 715827883)])
-def test_bwd_chunks_cover_every_row_once(rows, v):
-    """``xent_bwd_geometry`` around 2**31 elements: one launch up to
-    2**31 - 1 of them; past that chunks of whole rows, a multiple of 4
-    rows each where that fits (no lead), each chunk 16-byte aligned,
-    under 2**31 elements, starting where the one before ends, every row
-    in exactly one chunk's whole rows. Arithmetic only: no tensor."""
-    chunks = _assert_chunks(rows, v)
+@pytest.mark.parametrize('itemsize', (4, 2))
+def test_bwd_chunks_cover_every_row_once(rows, v, itemsize):
+    """``xent_bwd_geometry`` around 2**31 elements, for a float32 dx and
+    a bf16 one: one launch up to 2**31 - 1 of them; past that chunks of
+    whole rows, a multiple of 4 (bf16: 8) rows each where that fits (no
+    lead), each chunk 16-byte aligned in logp and dx, under 2**31
+    elements, starting where the one before ends, every row in exactly
+    one chunk's whole rows. A row wider than a launch less a vector's
+    tail is refused past one launch (bf16: 2**31 - 4 elements).
+    Arithmetic only: no tensor."""
+    vec = 16 // itemsize
+    if rows * v > MAX and v > MAX - (vec - 1):
+        with pytest.raises(ValueError, match='wider than'):
+            kernels.xent_bwd_geometry(rows, v, itemsize)
+        return
+    chunks = _assert_chunks(rows, v, itemsize)
     assert (len(chunks) == 1) == (rows * v <= MAX)
 
 
@@ -537,17 +566,19 @@ def test_bwd_stream_is_the_epilogue_stream():
                       'struct Divisor', 'void stream(', 'using Idx =',
                       'unsigned stream_grid('):
             assert piece in hdr and piece not in src, piece
-    assert 'mx_stream::stream(XentBwd<EVICT>{' in _source()
+    assert 'mx_stream::stream<vec_of<T>()>(\n      XentBwd<EVICT, T>{' \
+        in _source()
 
 
 def test_bwd_kernel_carries_the_profile_key():
-    """The backward kernel, one template over the store kind, is named
-    with 'softmax_xent', so phase 4b's and 5b's 'xent kernels' groups
-    count it."""
+    """The backward kernel, one template over the store kind and dx's
+    type (float32, bf16), is named with 'softmax_xent', so phase 4b's and
+    5b's 'xent kernels' groups count it."""
     names = [n for n in _KERNEL_NAME.findall(_source()) if 'bwd' in n]
     assert names == ['softmax_xent_bwd_kernel']
-    assert 'template <bool EVICT>\n__global__ void __launch_bounds__(' \
-        'mx_stream::THREADS)\nsoftmax_xent_bwd_kernel(' in _source()
+    assert 'template <bool EVICT, class T>\n__global__ void ' \
+        '__launch_bounds__(mx_stream::THREADS)\nsoftmax_xent_bwd_kernel(' \
+        in _source()
 
 
 def test_card_bwd_cases_reach_every_path_of_the_stream():
