@@ -18,10 +18,14 @@ Phases, in order; any failure exits non-zero:
      kernel's SASS (``cuobjdump -sass``) must hold HGMMA and UTMALDG
      (counted with UTMASTG, of which noacc's must hold none) and the dq
      and dk/dv kernels' HMMA (their 3xTF32 tensor-core products), or the
-     run fails; the bf16 instances (AMP) of the flash forward, dq, dk/dv
-     and the act kernels among them, each held apart: no spill, HMMA in
-     the bf16 dq and dk/dv; the BN apply's, add+act's and the xent
-     kernels' bf16 instances spill nothing either;
+     run fails; the bf16 kernels (AMP) of the flash forward and dk/dv
+     (their own sources, on the bf16 tensor cores) and the bf16 instances
+     of dq and the act kernels among them, each held apart: no spill
+     (the tensor-core forward and dk/dv: at most ``TC_SPILL_LIMIT`` bytes,
+     logged), HMMA in dq's bf16 instance and in the bf16 forward and
+     dk/dv; the BN
+     apply's, add+act's and the xent kernels' bf16 instances spill
+     nothing either;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -69,19 +73,27 @@ Phases, in order; any failure exits non-zero:
      position 127 and 511; the paged decode kernel's at page size 16
      beside the slot kernel over the same K/V, the page-table gather +
      the slot kernel and SDPA over the gathered view, at the decode case
-     and at phase 3's positions. Then the bf16 instances (AMP): the flash
-     forward, dq and dk/dv at the training slice's attention cases and
+     and at phase 3's positions. Then the bf16 kernels (AMP) at the
+     training slice's attention cases, the odd cases and Sq != Sk: the
+     tensor-core forward and dk/dv, which round p (and ds) to bf16
+     before their products, within two bf16 ULPs of their own plain
+     versions beyond the float32 tier and what a bf16 flip of p or ds
+     near a rounding midpoint can move (``slack=True`` of the plain
+     versions), within the reference's bf16 tier of the reference
+     function (0.02 absolute for out, 2e-2 of the max abs for dk and
+     dv), lse within 1e-5 of the float32 kernel's; dq's bf16 instance
+     bitwise its float32 kernel on the widened inputs, rounded, and
+     within one bf16 ULP of its plain version beyond the float32 tier;
      the act forward and backward for every act type at the epilogue
-     check sizes, each bitwise equal to its float32 kernel on the
-     widened inputs, rounded (lse equal), and within one bf16 ULP of
-     its plain version beyond the float32 tier (1e-5 absolute for out,
-     1e-5 of the max abs for the gradients; the act kernels plainly);
-     then each timed at the main path's shapes (attention at B 96 H 12
-     S 128 D 64, the act kernels at the pooler's 96 x 768 tanh, also at
-     the ResNet stem shape in relu) beside its float32 instance, its
-     plain version and the library call on bf16 (SDPA and its backward,
-     ``torch.tanh`` / ``tanh_backward``, ``torch.relu`` /
-     ``threshold_backward``), with bounds at bf16 bytes. Then the bf16
+     check sizes, likewise bitwise and within one ULP; then each timed
+     at the main path's shapes (attention at B 96 H 12 S 128 D 64, the
+     act kernels at the pooler's 96 x 768 tanh, also at the ResNet stem
+     shape in relu) beside its float32 instance, its plain version and
+     the library call on bf16 (SDPA and its backward, ``torch.tanh`` /
+     ``tanh_backward``, ``torch.relu`` / ``threshold_backward``), with
+     bounds at bf16 bytes (the forward's and dk/dv's against one bf16
+     product at 989 TFLOP/s), and forward + dq + dk/dv against SDPA's
+     forward + backward on bf16. Then the bf16
      instances of the ResNet path (rows 5b, 6b, 9b, 10b, 11b): the BN
      apply forward and backward at ResNet-50's nine BatchNorm shapes
      (identity) and add+relu at its four join shapes, every act type at
@@ -235,6 +247,7 @@ GRAD_REL = 1e-4            # phase 4a: gradients, relative to max abs
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12    # H100 SXM float32, CUDA cores (no tensor cores)
 PEAK_TF32_FLOP_S = 495e12  # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 SLICE = dict(vocab=30522, units=768, hidden=3072, layers=12, heads=12,
              max_len=512)
@@ -262,10 +275,17 @@ SMALL_BERT = dict(vocab_size=1000, max_length=128, units=256,
                   hidden_size=1024, num_layers=2, num_heads=4, dropout=0.0)
 SMALL_BATCH = dict(batch=4, seq=128, preds=8, lengths=(128, 97, 64, 1))
 # AMP (phases 2, 4a-amp, 4c): the bf16 instances within one bf16 ULP of
-# their plain versions beyond the float32 tier; the small BERT card vs CPU
-# at tests/test_torch_amp.py's tolerances; 4c's first loss against 4b's at
-# the reference's bf16 tier (tests/test_amp.py:152-164)
+# their plain versions beyond the float32 tier; the bf16 tensor-core flash
+# forward and dk/dv within two of theirs beyond the float32 tier and the
+# flips of p and ds, and within the reference's bf16 tier
+# (mxnet_tpu/ops/pallas/__main__.py:88-103) of the reference function; the
+# small BERT card vs CPU at tests/test_torch_amp.py's tolerances; 4c's
+# first loss against 4b's at the reference's bf16 tier
+# (tests/test_amp.py:152-164)
 BF16_ULPS = 1.0
+BF16_TC_ULPS = 2.0
+BF16_OUT_TOL = 0.02
+BF16_GRAD_REL = 2e-2
 AMP_LOSS_RTOL = 1e-2
 AMP_GRAD_REL = 2e-2
 AMP_FIRST_LOSS_RTOL = 6e-2
@@ -1156,11 +1176,12 @@ def bf16_ulps(torch, got, want, tier=0.0):
     in bf16 ULPs of the larger magnitude of the two (2^(e - 7) for a value
     in [2^e, 2^(e + 1))). ``tier`` is the float32 kernels' tolerance: two
     float32 sums in other orders move an element near 0 by up to it,
-    many of that element's bf16 ULPs."""
+    many of that element's bf16 ULPs (a number, or a tensor of
+    per-element tolerances such as the flip slack of the bf16 tensor-core
+    kernels' plain versions)."""
+    from mxnet_tpu_torch.ops.kernels.attention import bf16_ulp
     g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs())
-    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(mag, min=2.0 ** -126)))
-                     - 7)
+    ulp = bf16_ulp(torch.maximum(g.abs(), w.abs()))
     return (torch.clamp((g - w).abs() - tier, min=0) / ulp).max().item()
 
 
@@ -1170,17 +1191,40 @@ def _bitwise_rounded(torch, got, f32):
     return torch.equal(got, f32.to(torch.bfloat16))
 
 
+# the bf16 kernels' odd cases beyond training_attention_cases(): a row
+# set with no visible key at S 200, S 17 with lengths down to 1, and Sq !=
+# Sk both ways, (batch, Sq, Sk, causal, lengths)
+BF16_ODD_CASES = ((2, 200, 200, True, [200, 0]), (3, 17, 17, False, [17, 9, 1]),
+                  (2, 100, 300, False, [300, 250]), (2, 300, 100, True,
+                                                     [100, 37]))
+
+
 def check_bf16_kernels(torch, kernels, device, heads=TRAIN['heads'],
                        d=TRAIN['d'], cases=None, epi_shapes=EPI_SHAPES):
-    """The bf16 instances against the float32 kernels and their plain
-    versions on ``device``: the flash forward, dq and dk/dv on each
-    attention case and the act forward and backward for every act type at
-    each epilogue shape. Each is bitwise the float32 kernel on the widened
-    inputs, rounded (the forward's lse equal), and within
-    :data:`BF16_ULPS` bf16 ULPs of its plain version beyond the float32
-    tier (TOL absolute for out, TOL of the max abs for the gradients, 0
-    for the act kernels). Returns {kernel name: worst max abs error
-    against the plain version}."""
+    """The bf16 kernels (AMP) on ``device``: the flash forward, dq and
+    dk/dv on each attention case (``cases``: (batch, Sq, Sk, causal,
+    lengths); default every case of :func:`training_attention_cases` and
+    :data:`BF16_ODD_CASES`), the act forward and backward for every act
+    type at each epilogue shape.
+
+    The forward and dk/dv run on the bf16 tensor cores and round p (and
+    ds) to bf16 before their products, another function than the float32
+    kernels': each is held to its own plain version
+    (``flash_attention_bf16_reference``,
+    ``flash_attention_dkv_bf16_reference``) within :data:`BF16_TC_ULPS`
+    bf16 ULPs beyond the float32 tier (TOL absolute for out, TOL of the
+    max abs for dk and dv) and the plain version's ``slack`` (what a bf16
+    flip of a p or ds near a rounding midpoint can move: the card's sums
+    and exp2 differ from torch's in the last float32 bits), and to the
+    reference function (``flash_attention_reference``,
+    ``flash_attention_dkv_reference``) within the reference's bf16 tier
+    (:data:`BF16_OUT_TOL` absolute, :data:`BF16_GRAD_REL` of the max
+    abs); the forward's lse within TOL of the float32 kernel's on the
+    widened inputs. dq and the act kernels are bitwise their float32
+    kernels on the widened inputs, rounded, and within :data:`BF16_ULPS`
+    of their plain versions beyond the float32 tier (0 for the act
+    kernels). Returns {kernel name: worst max abs error against its plain
+    version}."""
     bf = torch.bfloat16
     gen = torch.Generator(device='cpu').manual_seed(6)
 
@@ -1196,52 +1240,84 @@ def check_bf16_kernels(torch, kernels, device, heads=TRAIN['heads'],
                                  % (name, where, bitwise, ulps))
         worst[name] = max(worst[name], err)
 
-    for b, sq, causal, lengths in cases or training_attention_cases():
-        q, k, v, do = (randn(b, heads, sq, d).to(bf) for _ in range(4))
+    def hold_tc(name, ulps, ref_err, limit, err, where):
+        if not (ulps <= BF16_TC_ULPS and ref_err <= limit):
+            raise AssertionError('%s at %s: %.3g bf16 ULPs from its plain '
+                                 'version beyond the tier and flips (limit '
+                                 '%g), %.3g from the reference function '
+                                 '(limit %g)' % (name, where, ulps,
+                                                 BF16_TC_ULPS, ref_err,
+                                                 limit))
+        worst[name] = max(worst[name], err)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    all_cases = cases or (
+        [(b, s, s, c, lens) for b, s, c, lens in training_attention_cases()]
+        + list(BF16_ODD_CASES))
+    for b, sq, sk, causal, lengths in all_cases:
+        q, do = (randn(b, heads, sq, d).to(bf) for _ in range(2))
+        k, v = (randn(b, heads, sk, d).to(bf) for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device=device)
         w = [t.float() for t in (q, k, v, do)]
+        where = 'B=%d Sq=%d Sk=%d causal=%s lengths %d..%d' % (
+            b, sq, sk, causal, min(lengths), max(lengths))
         out, lse = kernels.flash_attention_with_lse(q, k, v, lens, causal)
-        out32, lse32 = kernels.flash_attention_with_lse(*w[:3], lens, causal)
-        ref, lse_ref = kernels.flash_attention_reference(q, k, v, lens, causal)
-        fin = ~torch.isneginf(lse_ref)
-        where = 'B=%d S=%d causal=%s' % (b, sq, causal)
-        lse_ok = torch.equal(torch.isneginf(lse), ~fin) and (
-            not fin.any() or (lse[fin] - lse_ref[fin]).abs().max().item()
-            <= TOL)
-        fwd_ulps = bf16_ulps(torch, out, ref, TOL) if lse_ok else math.inf
-        hold('flash_attention_fwd.bf16', _bitwise_rounded(torch, out, out32)
-             and torch.equal(lse, lse32), fwd_ulps,
-             (out.float() - ref.float()).abs().max().item(), where)
+        _, lse32 = kernels.flash_attention_with_lse(*w[:3], lens, causal)
+        plain, _, flips = kernels.flash_attention_bf16_reference(
+            q, k, v, lens, causal, slack=True)
+        ref, _ = kernels.flash_attention_reference(q, k, v, lens, causal)
+        fin = ~torch.isneginf(lse32)
+        lse_err = (lse[fin] - lse32[fin]).abs().max().item() if fin.any() \
+            else 0.0
+        if not (torch.equal(torch.isneginf(lse), ~fin) and lse_err <= TOL):
+            raise AssertionError('flash_attention_fwd.bf16 at %s: lse %.3g '
+                                 'from the float32 kernel\'s (limit %g) or '
+                                 'its -inf rows differ' % (where, lse_err,
+                                                           TOL))
+        fwd_ulps = bf16_ulps(torch, out, plain, TOL + flips)
+        fwd_ref = err(out, ref)
+        hold_tc('flash_attention_fwd.bf16', fwd_ulps, fwd_ref, BF16_OUT_TOL,
+                err(out, plain), where)
         dq = kernels.flash_attention_dq(q, k, v, out, lse, do, lens, causal)
         dk, dv = kernels.flash_attention_dkv(q, k, v, out, lse, do, lens,
                                              causal)
-        wo = out.float()
-        dq32 = kernels.flash_attention_dq(*w[:3], wo, lse, w[3], lens, causal)
-        dk32, dv32 = kernels.flash_attention_dkv(*w[:3], wo, lse, w[3], lens,
-                                                 causal)
-        want = kernels.flash_attention_backward_reference(
-            q, k, v, out, lse, do, lens, causal)
-        ulps = [bf16_ulps(torch, a, r, TOL * r.float().abs().max().item())
-                for a, r in zip((dq, dk, dv), want)]
-        raw = [bf16_ulps(torch, a, r) for a, r in zip((dq, dk, dv), want)]
-        errs = [(a.float() - r.float()).abs().max().item()
-                for a, r in zip((dq, dk, dv), want)]
-        log('check bf16 flash %s lengths %d..%d: fwd bitwise, %.3g ULPs beyond '
-            'the tier (raw %.3g); dq/dk/dv bitwise the float32 kernel %s, '
-            'ULPs beyond the tier %s (raw %s), max_abs_err %s'
-            % (where, min(lengths), max(lengths), fwd_ulps,
-               bf16_ulps(torch, out, ref),
-               [_bitwise_rounded(torch, a, f) for a, f in
-                ((dq, dq32), (dk, dk32), (dv, dv32))],
-               ['%.3g' % u for u in ulps], ['%.3g' % u for u in raw],
-               ['%.3g' % e for e in errs]))
+        dq32 = kernels.flash_attention_dq(*w[:3], out.float(), lse, w[3],
+                                          lens, causal)
+        dq_plain = kernels.flash_attention_dq_reference(q, k, v, out, lse, do,
+                                                        lens, causal)
+        dq_ulps = bf16_ulps(torch, dq, dq_plain,
+                            TOL * dq_plain.float().abs().max().item())
         hold('flash_attention_dq.bf16', _bitwise_rounded(torch, dq, dq32),
-             ulps[0], errs[0], where)
-        for t, f, u, e in ((dk, dk32, ulps[1], errs[1]),
-                           (dv, dv32, ulps[2], errs[2])):
-            hold('flash_attention_dkv.bf16', _bitwise_rounded(torch, t, f),
-                 u, e, where)
-        del q, k, v, do, w, out, out32, ref, dq, dk, dv, want
+             dq_ulps, err(dq, dq_plain), where)
+        dk_plain, dv_plain, dk_flips, dv_flips = \
+            kernels.flash_attention_dkv_bf16_reference(
+                q, k, v, out, lse, do, lens, causal, slack=True)
+        dk_ref, dv_ref = kernels.flash_attention_dkv_reference(
+            q, k, v, out, lse, do, lens, causal)
+        dkv = []
+        for t, pl, fl, rf in ((dk, dk_plain, dk_flips, dk_ref),
+                              (dv, dv_plain, dv_flips, dv_ref)):
+            top = max(rf.float().abs().max().item(), 1e-30)
+            dkv.append((bf16_ulps(torch, t, pl,
+                                  TOL * pl.float().abs().max().item() + fl),
+                        err(t, rf) / top, err(t, pl)))
+        log('check bf16 flash %s: fwd %.3g ULPs from its plain version '
+            'beyond the tier and flips (%.3g without the flips), max abs '
+            '%.3g from it, %.3g from the reference function, lse %.3g from '
+            'the float32 kernel\'s; dq bitwise the float32 kernel, %.3g ULPs '
+            'beyond the tier; dk / dv %s ULPs beyond the tier and flips, %s '
+            'of the max abs from the reference function, max abs %s from '
+            'the plain version'
+            % (where, fwd_ulps, bf16_ulps(torch, out, plain, TOL),
+               err(out, plain), fwd_ref, lse_err, dq_ulps,
+               ['%.3g' % x[0] for x in dkv], ['%.3g' % x[1] for x in dkv],
+               ['%.3g' % x[2] for x in dkv]))
+        for u, r, e in dkv:
+            hold_tc('flash_attention_dkv.bf16', u, r, BF16_GRAD_REL, e, where)
+        del q, k, v, do, w, out, plain, ref, dq, dk, dv, flips
+        del dk_plain, dv_plain, dk_flips, dv_flips, dk_ref, dv_ref
     for shape in epi_shapes:
         x, g = (torch.randn(shape, generator=gen).mul(3).to(device, bf)
                 for _ in range(2))
@@ -1280,8 +1356,10 @@ def time_bf16_kernels(torch, kernels, batch=TRAIN['batch'],
     ``tanh_backward``, and at the ResNet stem shape in relu against
     ``torch.relu`` and ``threshold_backward`` (``at_stem``). Bounds: the
     bytes at bf16 widths (lse float32) at 3.35 TB/s against the
-    arithmetic each performs: the forward's float32 on the CUDA cores,
-    dq's and dk/dv's 3xTF32."""
+    arithmetic each performs: the forward's and dk/dv's one bf16 product
+    each at 989 TFLOP/s (the tensor-core kernels), dq's 3xTF32. The
+    forward's row also carries ``group``: forward + dq + dk/dv against
+    SDPA's forward + backward on bf16, device ms."""
     F = torch.nn.functional
     dev = torch.device('cuda')
     bf = torch.bfloat16
@@ -1309,32 +1387,45 @@ def time_bf16_kernels(torch, kernels, batch=TRAIN['batch'],
         return torch.autograd.grad(sdpa_out, (qs, ks, vs), dob,
                                    retain_graph=True)
 
-    b_ms, b_by = bound(4 * tensor_b + lse_b + lens_b, visible * 4 * d)
+    b_ms, b_by = bound(4 * tensor_b + lse_b + lens_b, visible * 4 * d,
+                       PEAK_BF16_FLOP_S)
     rows['flash_attention_fwd.bf16'] = timings(
         torch, (qb, kb, vb, lens), kernels.flash_attention_with_lse,
-        kernels.flash_attention_reference,
+        kernels.flash_attention_bf16_reference,
         lambda q, k, v, lens: F.scaled_dot_product_attention(q, k, v),
         bound_ms=b_ms, bound_by=b_by,
         f32_device_ms=device_ms(torch, kernels.flash_attention_with_lse,
                                 (q, k, v, lens)),
-        shape=shape + ', block_q %d, %d blocks; library: SDPA on bf16'
-        % kernels.fwd_geometry(batch, heads, seq)[:2])
+        shape=shape + ', block_q %d, %d blocks; bound: one bf16 product at '
+        '989 TFLOP/s; library: SDPA on bf16'
+        % kernels.fwd_bf16_geometry(batch, heads, seq)[:2])
     ins, ins32 = (qb, kb, vb, outb, lse, dob, lens), (q, k, v, out, lse, do,
                                                        lens)
-    for name, fn, nbytes, products in (
+    for name, fn, plain, nbytes, flops, peak, what in (
             ('flash_attention_dq.bf16', kernels.flash_attention_dq,
-             6 * tensor_b, 6), ('flash_attention_dkv.bf16',
-                                kernels.flash_attention_dkv, 7 * tensor_b, 8)):
-        plain = (kernels.flash_attention_dq_reference if 'dq' in name
-                 else kernels.flash_attention_dkv_reference)
-        b_ms, b_by = bound(nbytes + lse_b + lens_b, 3 * visible * products * d,
-                           PEAK_TF32_FLOP_S)
+             kernels.flash_attention_dq_reference, 6 * tensor_b,
+             3 * visible * 6 * d, PEAK_TF32_FLOP_S,
+             '3xTF32 at 495 TFLOP/s'),
+            ('flash_attention_dkv.bf16', kernels.flash_attention_dkv,
+             kernels.flash_attention_dkv_bf16_reference, 7 * tensor_b,
+             visible * 8 * d, PEAK_BF16_FLOP_S,
+             'one bf16 product at 989 TFLOP/s')):
+        b_ms, b_by = bound(nbytes + lse_b + lens_b, flops, peak)
         rows[name] = timings(
             torch, ins, fn, plain, sdpa_bwd, library_inputs=(),
             bound_ms=b_ms, bound_by=b_by,
             f32_device_ms=device_ms(torch, fn, ins32),
-            shape=shape + '; bound: 3xTF32 at 495 TFLOP/s; library: SDPA '
-            'backward on bf16 (dq, dk and dv together)')
+            shape=shape + '; bound: %s; library: SDPA backward on bf16 (dq, '
+            'dk and dv together)' % what)
+    # the attention group of a 4c layer: the three kernels against SDPA's
+    # forward + backward, device ms of this run
+    names = ('flash_attention_fwd.bf16', 'flash_attention_dq.bf16',
+             'flash_attention_dkv.bf16')
+    rows[names[0]]['group'] = dict(
+        kernels_device_ms=sum(rows[n]['device_ms'] for n in names),
+        sdpa_device_ms=(rows[names[0]]['library_device_ms']
+                        + rows[names[1]]['library_device_ms']),
+        bound_ms=sum(rows[n]['bound_ms'] for n in names))
     del q, k, v, do, qb, kb, vb, dob, outb, out, lse, qs, ks, vs, sdpa_out
     del ins, ins32
     torch.cuda.empty_cache()
@@ -3510,28 +3601,32 @@ def _instance(fn):
     return 'bf16' if '__nv_bfloat16' in fn else 'f32'
 
 
-def _check_mma_build(build, ptxas, kernel):
-    """``kernel``'s two instances (float32, bf16) in
-    ``csrc/flash_attention_bwd.cu`` as built: their registers and spills
-    from ptxas (``ptxas``: that source's lines; empty when the library was
-    current) and their tensor-core instructions (HMMA) in the SASS.
-    Raises when one spills or holds no HMMA, or an instance is missing.
-    Returns {'f32' / 'bf16': (registers or None, {instruction: count})}."""
-    regs = {}
+def _check_mma_build(build, ptxas, kernel, source='flash_attention_bwd',
+                     instances=('f32', 'bf16'), spill_limit=0):
+    """``kernel``'s ``instances`` (float32, bf16) in ``csrc/<source>.cu``
+    as built: their registers and spills from ptxas (``ptxas``: that
+    source's lines; empty when the library was current) and their
+    tensor-core instructions (HMMA) in the SASS. Raises when one spills
+    more than ``spill_limit`` bytes or holds no HMMA, or an instance is
+    missing. Returns {'f32' / 'bf16': (registers or None, {instruction:
+    count, 'spill bytes': n})}."""
+    regs, spills = {}, {}
     for fn, (n, spill) in ptxas_entries(ptxas).items():
         if kernel + '_kernel' in fn:
-            if spill:
-                raise AssertionError('%s (%s) spills %d bytes'
-                                     % (kernel, _instance(fn), spill))
+            if spill > spill_limit:
+                raise AssertionError('%s (%s) spills %d bytes (limit %d)'
+                                     % (kernel, _instance(fn), spill,
+                                        spill_limit))
             regs[_instance(fn)] = n
+            spills[_instance(fn)] = spill
     counts = {_instance(fn): c for fn, c in sass_counts(
-        build, 'flash_attention_bwd', (kernel + '_kernel',),
-        ('HMMA', 'LDS')).items()}
-    if set(counts) != {'f32', 'bf16'} or not all(
+        build, source, (kernel + '_kernel',), ('HMMA', 'LDS')).items()}
+    if set(counts) != set(instances) or not all(
             c['HMMA'] for c in counts.values()):
         raise AssertionError('%s SASS: an instance missing or without HMMA: '
                              '%s' % (kernel, counts))
-    return {k: (regs.get(k), c) for k, c in counts.items()}
+    return {k: (regs.get(k), dict(c, **{'spill bytes': spills.get(k)}))
+            for k, c in counts.items()}
 
 
 # the xent kernels, each built for float32 and bf16 logits / dlogits
@@ -3566,8 +3661,27 @@ def check_dq_build(build, ptxas):
 
 
 def check_dkv_build(build, ptxas):
-    """The dk/dv kernel: :func:`_check_mma_build`."""
-    return _check_mma_build(build, ptxas, 'flash_attention_dkv')
+    """The float32 dk/dv kernel: :func:`_check_mma_build`."""
+    return _check_mma_build(build, ptxas, 'flash_attention_dkv',
+                            instances=('f32',))
+
+
+# the bf16 tensor-core flash kernels run two blocks an SM, 128 registers a
+# thread, where ptxas spills a little (72 + 64 and 24 + 24 bytes of spill
+# stores + loads at their first build); one block an SM spills nothing but
+# ran slower (mxnet_tpu_torch/tools/probe_flash_bf16_variants.py)
+TC_SPILL_LIMIT = 256
+
+
+def check_bf16_tc_builds(build, reports):
+    """The bf16 tensor-core flash forward and dk/dv, each in its own
+    source: :func:`_check_mma_build` (HMMA in the SASS, at most
+    :data:`TC_SPILL_LIMIT` bytes of spill). ``reports``: ptxas's lines by
+    source."""
+    return {name: _check_mma_build(build, reports.get(name, ()), name, name,
+                                   ('bf16',), TC_SPILL_LIMIT)
+            for name in ('flash_attention_fwd_bf16',
+                         'flash_attention_dkv_bf16')}
 
 
 def matmul_rows(kernels, shapes):
@@ -3606,7 +3720,7 @@ KERNELS = {
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:111'),
     'flash_attention_fwd.bf16': dict(
-        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu',
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_fwd_bf16.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:111'),
     'flash_attention_dq': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
@@ -3618,7 +3732,7 @@ KERNELS = {
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:243'),
     'flash_attention_dkv.bf16': dict(
-        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_dkv_bf16.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:243'),
     'flash_decode_fwd': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_decode_fwd.cu',
@@ -3714,6 +3828,12 @@ def log_times(times):
         if 'log_softmax_ms' in row:
             log('time %s: log_softmax %.4f ms (device %.4f ms)'
                 % (name, row['log_softmax_ms'], row['log_softmax_device_ms']))
+        if 'group' in row:
+            gr = row['group']
+            log('time flash forward + dq + dk/dv (bf16) against SDPA forward + '
+                'backward on bf16: device %.4f ms against %.4f ms, bound %.4f '
+                'ms' % (gr['kernels_device_ms'], gr['sdpa_device_ms'],
+                        gr['bound_ms']))
         if 'pair_turns_device_ms' in row:
             log('time dq + dkv against SDPA backward, device ms in turns: %s'
                 % row['pair_turns_device_ms'])
@@ -3760,7 +3880,7 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'bound_cuda_core_ms', 'f32_device_ms',
                                       'at_stem', 'at_mlm', 'log_softmax_ms',
                                       'log_softmax_device_ms',
-                                      'pair_turns_device_ms',
+                                      'pair_turns_device_ms', 'group',
                                       'device_ms_at_pos', 'slot_device_ms',
                                       'gather_slot_device_ms', 'at_phase3',
                                       'mask_device_ms',
@@ -3828,6 +3948,9 @@ def main():
                 _build, reports.get('flash_attention_bwd', ())).items()):
             log('%s (%s): %s registers, no spills; SASS %s'
                 % (name, inst, regs, counts))
+    for name, built in check_bf16_tc_builds(_build, reports).items():
+        regs, counts = built['bf16']
+        log('%s: %s registers; SASS and spills %s' % (name, regs, counts))
     log('flash_attention_fwd instances: registers %s, no spills' % {
         '%s bq %s' % (_instance(fn), re.search(r'ILi(\d+)E', fn).group(1)): n
         for fn, (n, _) in ptxas_entries(

@@ -4,10 +4,12 @@ kernels and their plain PyTorch versions.
 The counterpart of ``mxnet_tpu/ops/pallas/attention.py``. Four kernels,
 float32, the training ones (forward, dq, dkv) also bf16:
 
-  * :func:`flash_attention_with_lse` -> ``csrc/flash_attention_fwd.cu``,
-    which replaces ``mxnet_tpu_flash_attention_fwd`` (attention.py:111);
+  * :func:`flash_attention_with_lse` -> ``csrc/flash_attention_fwd.cu``
+    (bf16: ``csrc/flash_attention_fwd_bf16.cu``), which replaces
+    ``mxnet_tpu_flash_attention_fwd`` (attention.py:111);
   * :func:`flash_attention_dq` and :func:`flash_attention_dkv` ->
-    ``csrc/flash_attention_bwd.cu``, which replace
+    ``csrc/flash_attention_bwd.cu`` (dk/dv in bf16:
+    ``csrc/flash_attention_dkv_bf16.cu``), which replace
     ``mxnet_tpu_flash_attention_dq`` (attention.py:208) and
     ``mxnet_tpu_flash_attention_dkv`` (attention.py:243);
   * :func:`flash_decode_attention` -> ``csrc/flash_decode_fwd.cu``,
@@ -38,11 +40,20 @@ masking and fully-masked-row guards. The wrapper rules:
 bf16 (AMP): the forward, dq and dkv take q, k, v, out and do all float32
 or all bfloat16 and launch that dtype's instance (counted as
 ``flash_attention_fwd.bf16`` and so on); ``lse`` stays float32; mixed
-dtypes, fp16 and other types raise ``TypeError``. The bf16 instances
-widen on load, compute as the float32 ones and round each output once,
-so on the card they are bitwise the float32 kernel on the widened
-inputs, rounded. The plain versions widen, compute as for float32 and
-round to the input dtype.
+dtypes, fp16 and other types raise ``TypeError``. Only dq's bf16
+instance is bitwise its float32 kernel on the widened inputs, rounded.
+The bf16 forward and dk/dv are kernels of their own on the bf16 tensor
+cores (``csrc/flash_attention_fwd_bf16.cu``,
+``csrc/flash_attention_dkv_bf16.cu``): they round p (and, for dk/dv, ds)
+to bf16 before the products that take them, so they compute another
+function, held by the reference's bf16 tier
+(``mxnet_tpu/ops/pallas/__main__.py:88-103``: 0.02 absolute of the
+float32 result on the same bf16 inputs) and, on the card, against their
+own plain versions (:func:`flash_attention_bf16_reference`,
+:func:`flash_attention_dkv_bf16_reference`), which round where the
+kernels round. A CPU tensor runs the reference's function, as for
+float32: the plain versions widen, compute in float32 and round to the
+input dtype.
 
 Decode bit-identity (the TPU kernels' contract, attention.py:18-26): both
 forward kernels walk the key axis from 0 in fixed ``K_BLOCK`` steps with
@@ -66,7 +77,10 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
 
-__all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry', 'online_softmax_block',
+__all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry', 'fwd_bf16_geometry',
+           'dkv_bf16_geometry', 'online_softmax_block',
+           'flash_attention_bf16_reference',
+           'flash_attention_dkv_bf16_reference',
            'flash_attention', 'FlashAttentionFunction',
            'flash_attention_reference', 'flash_attention_with_lse',
            'flash_attention_dq', 'flash_attention_dkv',
@@ -87,6 +101,14 @@ SMEM_BLOCK_MAX = 232448     # bytes of shared memory a block may take
 _D = 64                     # the head dim the kernels are built for
 _NEG_INF = float('-inf')
 _QKV = '(B, H, Sq, D)'
+# the bf16 tensor-core kernels' exp2 constants, as float32 (mma_bf16.cuh)
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+# the bf16 forward's query rows a work item, and dk/dv's keys a block and
+# queries a tile (csrc/flash_attention_{fwd,dkv}_bf16.cu)
+FWD_BF16_BLOCK_Q = 128
+DKV_BF16_BLOCK_K = 128
+DKV_BF16_BLOCK_Q = 32
 
 
 def online_softmax_block(scores, v_blk, m, l, o):
@@ -178,10 +200,10 @@ def fwd_geometry(batch, heads, sq, block_q=None):
     return block_q, min(items(block_q), SMS), 4 * floats
 
 
-def _fwd_lib(entry='mx_flash_attention_fwd'):
+def _fwd_lib():
     from . import _build
     lib = _build.load('flash_attention_fwd')
-    fn = getattr(lib, entry)
+    fn = lib.mx_flash_attention_fwd
     if fn.argtypes is None:
         for bq in FWD_BLOCK_Q:
             built = lib.mx_flash_attention_fwd_smem(bq)
@@ -196,6 +218,132 @@ def _fwd_lib(entry='mx_flash_attention_fwd'):
     return fn
 
 
+def _f32(x, device):
+    """``x`` as a 0-d float32 tensor: the kernels' float32 constants."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+# A value within FLIP_REL of its bf16 rounding midpoint (relative to
+# itself) may round the other way on the card: the kernels' float32 sums
+# run in another order than the plain versions' and their exp2 is
+# ex2.approx, which moves p by far less (about 2^-20 relative at the
+# training shape)
+FLIP_REL = 2.0 ** -14
+
+
+def bf16_ulp(x):
+    """One bf16 ULP of each element of float32 ``x`` (2^(e - 7) for |x| in
+    [2^e, 2^(e + 1)); the smallest normal's for 0)."""
+    return torch.exp2(torch.floor(torch.log2(torch.clamp(
+        x.abs(), min=2.0 ** -126))) - 7)
+
+
+def bf16_flips(x, reach):
+    """Where float32 ``x`` lies within ``reach`` (elementwise) of a bf16
+    rounding midpoint: where a value that close to ``x`` can round to the
+    other neighbour. The midpoint above |x|'s bf16 truncation is exact in
+    float32."""
+    a = x.abs()
+    lo = (a.view(torch.int32) & ~0xffff).view(torch.float32)
+    return (a - (lo + bf16_ulp(a) / 2)).abs() <= reach
+
+
+def flash_attention_bf16_reference(q, k, v, lengths=None, causal=False,
+                                   scale=None, slack=False):
+    """Plain PyTorch version of the bf16 tensor-core forward
+    (``csrc/flash_attention_fwd_bf16.cu``): (out (B, H, Sq, D) in q's
+    dtype, lse (B, H, Sq) float32). The reference's online softmax over
+    the same K_BLOCK-key tiles, in log2 units (x = (q k^T)(scale log2 e),
+    weights 2^(x - m)), with each weight rounded to bf16 before P.V as
+    the kernel rounds it; l sums the float32 weights; out = acc (1 /
+    max(l, 1e-20)), lse = m ln 2 + log l. Each step rounds in float32 as
+    the kernel's does (no fused multiply-add); the kernel's exp2 is
+    ex2.approx, so a weight near a bf16 rounding boundary can round the
+    other way on the card. ``slack=True`` also returns, per element of out
+    (float32), what such flips can move it by: the bf16 ULP of each weight
+    within :data:`FLIP_REL` of a rounding midpoint, times |v|, carried
+    through the rescales and divided by l."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    scale2 = _f32(scale, dev) * _f32(LOG2E, dev)
+    lens = _lengths_tensor(lengths, b, sk, dev).to(torch.int64)
+    qf = q.float()
+    q_pos = torch.arange(sq, device=dev)
+    m = torch.full((b, h, sq), _NEG_INF, device=dev)
+    l = torch.zeros((b, h, sq), device=dev)
+    acc = torch.zeros((b, h, sq, d), device=dev)
+    flips = torch.zeros((b, h, sq, d), device=dev) if slack else None
+    for j in range(0, sk, K_BLOCK):
+        kb = k[:, :, j:j + K_BLOCK].float()
+        vb = v[:, :, j:j + K_BLOCK].float()
+        k_pos = torch.arange(j, j + kb.shape[2], device=dev)
+        x = torch.matmul(qf, kb.transpose(-1, -2)) * scale2
+        valid = (k_pos[None, :] < lens[:, None])[:, None, None, :]
+        if causal:
+            valid = valid & (q_pos[:, None] >= k_pos[None, :])
+        x = torch.where(valid, x, _NEG_INF)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        corr = torch.exp2(m - safe)
+        p = torch.exp2(x - safe[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(
+            p.to(torch.bfloat16).float(), vb)
+        if slack:
+            flips = flips * corr[..., None] + torch.matmul(
+                torch.where(bf16_flips(p, FLIP_REL * p), bf16_ulp(p), 0.0),
+                vb.abs())
+        m = m_new
+    inv = 1.0 / torch.clamp(l, min=1e-20)
+    out = acc * inv[..., None]
+    lse = torch.where(l > 0, m * _f32(LN2, dev) + torch.log(l), _NEG_INF)
+    if slack:
+        return out.to(q.dtype), lse, flips * inv[..., None]
+    return out.to(q.dtype), lse
+
+
+def fwd_bf16_geometry(batch, heads, sq):
+    """Launch geometry of the bf16 forward kernel: (block_q, blocks,
+    shared memory bytes a block). One block a work item (batch * head,
+    query tile of :data:`FWD_BF16_BLOCK_Q` rows), two resident an SM; the
+    bytes follow the kernel's layout: the Q tile and two K and two V
+    tiles of K_BLOCK rows, bf16."""
+    bq = FWD_BF16_BLOCK_Q
+    return bq, batch * heads * -(-sq // bq), 2 * _D * (bq + 4 * K_BLOCK)
+
+
+def dkv_bf16_geometry(batch, heads, sk):
+    """Launch geometry of the bf16 dk/dv kernel: (block_k, block_q,
+    blocks, shared memory bytes a block). One block a (batch * head,
+    :data:`DKV_BF16_BLOCK_K`-key block); it walks query tiles of
+    :data:`DKV_BF16_BLOCK_Q` rows. The bytes follow the kernel's layout:
+    the K and V tiles, two buffers of the Q, dO and O tiles (bf16) and two
+    lse and two delta rows (float32)."""
+    bk, bq = DKV_BF16_BLOCK_K, DKV_BF16_BLOCK_Q
+    return (bk, bq, batch * heads * -(-sk // bk),
+            2 * _D * (2 * bk + 6 * bq) + 4 * 4 * bq)
+
+
+def _bf16_lib(source, entry, argtypes, geometry, block_entries):
+    """The ctypes entry of a bf16 tensor-core kernel, its geometry held
+    at first load to what the library reports (shared memory bytes and
+    block sizes)."""
+    from . import _build
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        built = tuple(getattr(lib, e)() for e in block_entries) + (
+            getattr(lib, entry + '_smem')(),)
+        _require(built == geometry, '%s: the geometry gives %r, the kernel '
+                 'is built for %r' % (entry, geometry, built))
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
 def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -204,9 +352,15 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
              % ((b, h, sk, d), tuple(k.shape), tuple(v.shape)))
     _require(d == _D, 'flash_attention: head dim %d not built (the '
              'kernel is instantiated for 64)' % d)
-    block_q, blocks, _ = fwd_geometry(b, h, sq, block_q)
-    lens = _lengths_tensor(lengths, b, sk, q.device)
     dt = q.dtype
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        _require(block_q in (None, FWD_BF16_BLOCK_Q), 'flash_attention: the '
+                 'bf16 kernel is built for block_q %d, not %r'
+                 % (FWD_BF16_BLOCK_Q, block_q))
+    else:
+        block_q, blocks, _ = fwd_geometry(b, h, sq, block_q)
+    lens = _lengths_tensor(lengths, b, sk, q.device)
     _check_inputs('flash_attention', {'q': q, 'k': k, 'v': v,
                                       'lengths': lens},
                   {'q': dt, 'k': dt, 'v': dt, 'lengths': torch.int32})
@@ -214,11 +368,21 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     name, entry = _instance('flash_attention_fwd', 'mx_flash_attention_fwd',
                             dt)
-    fn = _fwd_lib(entry)
     with torch.cuda.device(q.device):
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out),
-                 _ptr(lse), b, h, sq, sk, d, float(scale), int(bool(causal)),
-                 block_q, blocks, _stream(q.device))
+        if bf16:
+            fn = _bf16_lib('flash_attention_fwd_bf16', entry,
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+                               ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+                           (FWD_BF16_BLOCK_Q, fwd_bf16_geometry(1, 1, 1)[2]),
+                           ('mx_flash_attention_fwd_bf16_block_q',))
+            err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out),
+                     _ptr(lse), b, h, sq, sk, d, float(scale),
+                     int(bool(causal)), _stream(q.device))
+        else:
+            err = _fwd_lib()(
+                _ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out), _ptr(lse),
+                b, h, sq, sk, d, float(scale), int(bool(causal)), block_q,
+                blocks, _stream(q.device))
     _raise_on(name, err)
     _count(name)
     return out, lse
@@ -228,9 +392,10 @@ def flash_attention_with_lse(q, k, v, lengths=None, causal=False,
                              scale=None, block_q=None):
     """:func:`flash_attention` that also returns the log-sum-exp
     (B, H, Sq) float32 -- the forward half of the flash backward.
-    ``block_q`` picks the kernel's query rows a work item (one of
+    ``block_q`` picks the float32 kernel's query rows a work item (one of
     :data:`FWD_BLOCK_Q`; None: :func:`fwd_geometry` picks); every
-    instance gives the same bits."""
+    instance gives the same bits. The bf16 kernel is built for
+    :data:`FWD_BF16_BLOCK_Q` alone."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _io_dtype('flash_attention', {'q': q, 'k': k, 'v': v})
@@ -334,6 +499,61 @@ def flash_attention_dkv_reference(q, k, v, out, lse, do, lengths=None,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_dkv_bf16_reference(q, k, v, out, lse, do, lengths=None,
+                                       causal=False, scale=None,
+                                       slack=False):
+    """Plain PyTorch version of the bf16 tensor-core dk/dv kernel
+    (``csrc/flash_attention_dkv_bf16.cu``): (dk, dv), each (B, H, Sk, D) in
+    k's dtype. p = 2^(s (scale log2 e) - lse log2 e), 0 where masked or
+    lse == -inf; ds = (p (dp - delta)) scale; dv = bf16(p)^T do and dk =
+    bf16(ds)^T q with float32 sums: p and ds rounded to bf16 where the
+    kernel rounds them, each other step rounded in float32 as the kernel's
+    (no fused multiply-add). The kernel's exp2 is ex2.approx, so a p near
+    a bf16 rounding boundary can round the other way on the card.
+    ``slack=True`` also returns, per element of dk and dv (float32), what
+    such flips can move it by: the bf16 ULP of each p within
+    :data:`FLIP_REL` of a rounding midpoint times |do| for dv; for dk, of
+    each ds within FLIP_REL of one or within p scale E, E = 2^-16 (|do|
+    |v|^T + rowsum |do o|), the reach of float32 sums of dp and delta in
+    another order (which can also move ds by E itself), times |q|."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    sc = _f32(scale, dev)
+    log2e = _f32(LOG2E, dev)
+    lens = _lengths_tensor(lengths, b, sk, dev).to(torch.int64)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof, of = do.float(), out.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    k_pos = torch.arange(sk, device=dev)
+    valid = (k_pos[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        q_pos = torch.arange(sq, device=dev)
+        valid = valid & (q_pos[:, None] >= k_pos[None, :])
+    dead = ~valid | torch.isneginf(lse)[..., None]
+    p = torch.where(dead, 0.0, torch.exp2(
+        s * (sc * log2e) - (lse * log2e)[..., None]))
+    delta = torch.sum(dof * of, dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * sc
+    bf = torch.bfloat16
+    dk = torch.matmul(ds.to(bf).float().transpose(-1, -2), qf)
+    dv = torch.matmul(p.to(bf).float().transpose(-1, -2), dof)
+    if not slack:
+        return dk.to(k.dtype), dv.to(v.dtype)
+    near = p * sc * 2.0 ** -16 * (
+        torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+        + (dof * of).abs().sum(dim=-1)[..., None])
+    ds_flips = torch.where(bf16_flips(ds, FLIP_REL * ds.abs() + near),
+                           bf16_ulp(ds), 0.0) + near
+    p_flips = torch.where(bf16_flips(p, FLIP_REL * p), bf16_ulp(p), 0.0)
+    return (dk.to(k.dtype), dv.to(v.dtype),
+            torch.matmul(ds_flips.transpose(-1, -2), qf.abs()),
+            torch.matmul(p_flips.transpose(-1, -2), dof.abs()))
+
+
 def flash_attention_backward_reference(q, k, v, out, lse, do, lengths=None,
                                        causal=False, scale=None):
     """Plain PyTorch version of the flash backward: (dq, dk, dv)."""
@@ -344,14 +564,18 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, lengths=None,
     return dq, dk, dv
 
 
+def _bwd_lib_argtypes(outs):
+    return [ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
 def _bwd_lib(entry):
     from . import _build
     fn = getattr(_build.load('flash_attention_bwd'), entry)
     if fn.argtypes is None:
-        outs = 1 if entry.startswith('mx_flash_attention_dq') else 2
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _bwd_lib_argtypes(
+            1 if entry.startswith('mx_flash_attention_dq') else 2)
     return fn
 
 
@@ -429,8 +653,16 @@ def flash_attention_dkv(q, k, v, out, lse, do, lengths=None, causal=False,
     dv = torch.empty_like(v)
     name, entry = _instance('flash_attention_dkv', 'mx_flash_attention_dkv',
                             dt)
-    fn = _bwd_lib(entry)
     with torch.cuda.device(q.device):
+        if dt == torch.bfloat16:
+            geo = dkv_bf16_geometry(1, 1, 1)
+            fn = _bf16_lib('flash_attention_dkv_bf16', entry,
+                           _bwd_lib_argtypes(2),
+                           (geo[0], geo[1], geo[3]),
+                           ('mx_flash_attention_dkv_bf16_block_k',
+                            'mx_flash_attention_dkv_bf16_block_q'))
+        else:
+            fn = _bwd_lib(entry)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
                  _ptr(lens), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
                  float(scale), int(bool(causal)), _stream(q.device))

@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32 and bf16: dq, and
-// dk/dv.
+// Flash-attention backward for Hopper (sm_90a): dq (float32 and bf16),
+// and dk/dv (float32).
 //
 // Replaces: mxnet_tpu_flash_attention_dq (mxnet_tpu/ops/pallas/attention.py:208)
 // and mxnet_tpu_flash_attention_dkv (attention.py:243), the backward of
@@ -38,22 +38,20 @@
 //   * delta is recomputed by each kernel from do and o, as the TPU kernels
 //     do, so the two launches stay independent.
 //
-// bf16 (AMP, rows 2b and 3b): q, k, v, o, do and the gradients bf16, lse
-// float32, the reference kernels' contract (attention.py:212-240,
-// 248-281: upcast on load, compute in f32, store the input dtype). Each
-// kernel is instantiated for the element type: the staging reads 16-byte
-// vectors of 8 bf16 with plain loads, widens them in registers (exact) and
-// stores the float32 tiles of today's swizzled layout, dq's delta reads O
-// the same way, and each gradient rounds once, to nearest even. The
-// products stay 3xTF32 with the split kept: a bf16 value is exact in TF32
-// (its small part is 0), but p and ds are float32. So each bf16 instance
-// is bitwise the float32 instance on the widened inputs, rounded. The cost:
-// cp.async cannot convert, so dq's bf16 tiles and dk/dv's K and V (staged
-// once) are loaded, widened and stored by the threads, waited for where
-// they are issued; dk/dv's query tiles, walked in the loop, keep their
-// cp.async double-buffering as raw bf16 rows in the second half of each
-// float32 tile, widened in place after they land (two more block
-// barriers a tile): the converting loads there spilled at 255 registers.
+// bf16 (AMP): dq's instance (row 2b) takes q, k, v, o, do and dq bf16,
+// lse float32, the reference kernel's contract (attention.py:212-240:
+// upcast on load, compute in f32, store the input dtype): the staging reads
+// 16-byte vectors of 8 bf16 with plain loads, widens them in registers
+// (exact) and stores the float32 tiles of today's swizzled layout, delta
+// reads O the same way, and dq rounds once, to nearest even. The products
+// stay 3xTF32 with the split kept: a bf16 value is exact in TF32 (its
+// small part is 0), but p and ds are float32. So it is bitwise the float32
+// instance on the widened inputs, rounded. The cost: cp.async cannot
+// convert, so its tiles are loaded, widened and stored by the threads,
+// waited for where they are issued. dk/dv's bf16 instance (row 3b) is
+// another kernel, on the bf16 tensor cores
+// (csrc/flash_attention_dkv_bf16.cu): it rounds p and ds to bf16 before
+// their products, another function.
 #include <cstdint>
 #include <type_traits>
 
@@ -570,83 +568,19 @@ constexpr int QTILE = BQ * D;
 constexpr size_t SMEM_BYTES =
     (2 * KTILE + 6 * QTILE + 4 * BQ) * sizeof(float);
 
-// bf16: a query tile's BQ raw rows (BQ x 64 bf16, 4 KB) are copied by
-// cp.async into the second half of its float32 tile, RAW floats in, and
-// widened in place once they have landed (widen_queries), so the copies
-// still run while the tile before is computed
-constexpr int RAW = QTILE / 2;
-constexpr int RAW_VECS = BQ * D / 8 / THREADS;  // 16-byte vectors a thread
-
-// thread t's copies of the raw rows: vectors t + i THREADS (row idx / 8,
-// vector idx % 8), rows >= n zeros (src-size 0). Here and in
-// widen_queries an empty asm makes t opaque, so the per-thread offsets are
-// formed where they are used: hoisted out of the query loop they stayed
-// live across the products, and the kernel, at 255 registers, spilled 44
-// bytes (the float32 instance has no such offsets in the loop's tail)
-__device__ __forceinline__ void stage_raw(float* tile,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n, int t) {
-  asm volatile("" : "+r"(t));
-#pragma unroll
-  for (int i = 0; i < RAW_VECS; ++i) {
-    const int idx = t + i * THREADS;
-    const int r = idx / 8;
-    const bool valid = row0 + r < n;
-    cp_async16(tile + RAW + 4 * idx,
-               reinterpret_cast<const float*>(
-                   src + (size_t)(valid ? row0 + r : 0) * D + 8 * (idx % 8)),
-               valid);
-  }
-}
-
-// the three query tiles' raw rows widened into their float32 swizzled
-// layout, in place: each thread reads the vectors it copied (visible to it
-// after its cp.async wait), a block barrier (the float32 rows overlap the
-// raw ones), then writes them; the caller's barrier publishes them
-__device__ __forceinline__ void widen_queries(float* qt, float* dot,
-                                              float* ot, int t) {
-  asm volatile("" : "+r"(t));
-  float* const tiles[3] = {qt, dot, ot};
-  uint4 w[3][RAW_VECS];
-#pragma unroll
-  for (int x = 0; x < 3; ++x)
-#pragma unroll
-    for (int i = 0; i < RAW_VECS; ++i)
-      w[x][i] = *reinterpret_cast<const uint4*>(tiles[x] + RAW +
-                                                4 * (t + i * THREADS));
-  __syncthreads();
-#pragma unroll
-  for (int x = 0; x < 3; ++x)
-#pragma unroll
-    for (int i = 0; i < RAW_VECS; ++i) {
-      const int idx = t + i * THREADS;
-      float f[8];
-      mx_bf16::widen8(w[x][i], f);
-      float* g = tiles[x] + swz(idx / 8, 8 * (idx % 8));
-      *reinterpret_cast<float4*>(g) = make_float4(f[0], f[1], f[2], f[3]);
-      *reinterpret_cast<float4*>(g + 4) = make_float4(f[4], f[5], f[6], f[7]);
-    }
-}
-
-// the Q, dO and O tiles of query rows row0 .. row0 + BQ - 1 (float32: by
-// stage; bf16: their raw rows, stage_raw) and their lse, each lse by the
-// thread that copies its row's first chunk (rows >= n become zeros). The
-// caller commits the group.
-template <typename T>
+// the Q, dO and O tiles of query rows row0 .. row0 + BQ - 1 and their
+// lse, each lse by the thread that copies its row's first chunk (rows >= n
+// become zeros). The caller commits the group.
 __device__ __forceinline__ void stage_queries(float* qt, float* dot,
                                               float* ot, float* lse_t,
-                                              const T* q, const T* dout,
-                                              const T* o, const float* lse,
-                                              int row0, int n, int t) {
-  if constexpr (kBf16<T>) {
-    stage_raw(qt, q, row0, n, t);
-    stage_raw(dot, dout, row0, n, t);
-    stage_raw(ot, o, row0, n, t);
-  } else {
-    stage<BQ, THREADS>(qt, q, row0, n, t);
-    stage<BQ, THREADS>(dot, dout, row0, n, t);
-    stage<BQ, THREADS>(ot, o, row0, n, t);
-  }
+                                              const float* q,
+                                              const float* dout,
+                                              const float* o,
+                                              const float* lse, int row0,
+                                              int n, int t) {
+  stage<BQ, THREADS>(qt, q, row0, n, t);
+  stage<BQ, THREADS>(dot, dout, row0, n, t);
+  stage<BQ, THREADS>(ot, o, row0, n, t);
 #pragma unroll
   for (int i = 0; i < BQ * CHUNKS / THREADS; ++i) {
     const int idx = t + i * THREADS;
@@ -710,16 +644,15 @@ __device__ __forceinline__ void query_stats(float* lse_t, float* delta_t,
 // block starts at the first query tile that sees its keys; a block past
 // the length walks nothing and writes zeros; the masks are skipped where
 // a whole tile is visible to every key.
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_dkv_kernel(const T* __restrict__ q,
-                           const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const T* __restrict__ o,
+flash_attention_dkv_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ o,
                            const float* __restrict__ lse,
-                           const T* __restrict__ dout,
+                           const float* __restrict__ dout,
                            const int* __restrict__ lengths,
-                           T* __restrict__ dk, T* __restrict__ dv,
+                           float* __restrict__ dk, float* __restrict__ dv,
                            int heads, int sq, int sk, float scale,
                            int causal) {
   extern __shared__ __align__(16) float smem[];
@@ -743,9 +676,9 @@ flash_attention_dkv_kernel(const T* __restrict__ q,
   const int wrow = 16 * MT * w;  // keys k0 + wrow + 16m + 8h + g
   const size_t qoff = (size_t)bh * sq * D;
   const size_t koff = (size_t)bh * sk * D;
-  const T* qb = q + qoff;
-  const T* dob = dout + qoff;
-  const T* ob = o + qoff;
+  const float* qb = q + qoff;
+  const float* dob = dout + qoff;
+  const float* ob = o + qoff;
   const float* lseb = lse + (size_t)bh * sq;
 
   int xo[8], yo[2][8];
@@ -771,10 +704,6 @@ flash_attention_dkv_kernel(const T* __restrict__ q,
     stage_queries(qs, dos, os, lse_s, qb, dob, ob, lseb, qbegin, sq, t);
     cp_async_commit();
     cp_async_wait_all();
-    if constexpr (kBf16<T>) {
-      widen_queries(qs, dos, os, t);
-      __syncthreads();  // query_stats reads chunks others widened
-    }
     query_stats(lse_s, delta_s, dos, os, qbegin, sq, t);
   }
   // exp(x) = 2^(x log2 e): the scores and lse pre-scaled, one fma and
@@ -838,11 +767,6 @@ flash_attention_dkv_kernel(const T* __restrict__ q,
     product_pb(dka, dpt, qt, yo);  // dK += dS^T Q
     if (j + 1 < ntiles) {
       cp_async_wait_all();
-      if constexpr (kBf16<T>) {
-        widen_queries(qs + nxt * QTILE, dos + nxt * QTILE, os + nxt * QTILE,
-                      t);
-        __syncthreads();  // query_stats reads chunks others widened
-      }
       query_stats(lse_s + nxt * BQ, delta_s + nxt * BQ, dos + nxt * QTILE,
                   os + nxt * QTILE, q0 + BQ, sq, t);
     }
@@ -885,14 +809,13 @@ int dq_entry(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
 int dkv_entry(const void* q, const void* k, const void* v, const void* o,
               const void* lse, const void* dout, const void* lengths,
               void* dk, void* dv, int batch, int heads, int sq, int sk,
               int d, float scale, int causal, void* stream) {
   if (d != D) return cudaErrorInvalidValue;
   const size_t smem = dkvk::SMEM_BYTES;
-  cudaError_t err = set_smem(dkvk::flash_attention_dkv_kernel<T>, smem);
+  cudaError_t err = set_smem(dkvk::flash_attention_dkv_kernel, smem);
   if (err != cudaSuccess) return err;
   // one block an item: (batch*head, key tile), the tiles of a head
   // adjacent
@@ -900,13 +823,13 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* o,
       (long long)batch * heads * ((sk + dkvk::BK - 1) / dkvk::BK);
   if (items == 0) return cudaSuccess;
   const dim3 grid((unsigned)items);
-  dkvk::flash_attention_dkv_kernel<T><<<grid, dkvk::THREADS, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const float*>(lse), static_cast<const T*>(dout),
-      static_cast<const int*>(lengths), static_cast<T*>(dk),
-      static_cast<T*>(dv), heads, sq, sk, scale, causal);
+  dkvk::flash_attention_dkv_kernel<<<grid, dkvk::THREADS, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(lse), static_cast<const float*>(dout),
+      static_cast<const int*>(lengths), static_cast<float*>(dk),
+      static_cast<float*>(dv), heads, sq, sk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -916,8 +839,8 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* o,
 // q, o, do (B*H, Sq, D); k, v (B*H, Sk, D); lse (B*H, Sq) float32; lengths
 // (B,) int32; outputs dq (B*H, Sq, D) or dk, dv (B*H, Sk, D). All
 // contiguous on the device, 16-byte aligned; q, k, v, o, do and the
-// outputs float32, or bf16 for the _bf16 entries. Each returns the
-// cudaError_t of its launch.
+// outputs float32, or bf16 for mx_flash_attention_dq_bf16. Each returns
+// the cudaError_t of its launch.
 extern "C" int mx_flash_attention_dq(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* lse, const void* dout,
@@ -947,18 +870,6 @@ extern "C" int mx_flash_attention_dkv(const void* q, const void* k,
                                       void* dv, int batch, int heads, int sq,
                                       int sk, int d, float scale, int causal,
                                       void* stream) {
-  return dkv_entry<float>(q, k, v, o, lse, dout, lengths, dk, dv, batch,
-                          heads, sq, sk, d, scale, causal, stream);
-}
-
-extern "C" int mx_flash_attention_dkv_bf16(const void* q, const void* k,
-                                           const void* v, const void* o,
-                                           const void* lse, const void* dout,
-                                           const void* lengths, void* dk,
-                                           void* dv, int batch, int heads,
-                                           int sq, int sk, int d, float scale,
-                                           int causal, void* stream) {
-  return dkv_entry<__nv_bfloat16>(q, k, v, o, lse, dout, lengths, dk, dv,
-                                  batch, heads, sq, sk, d, scale, causal,
-                                  stream);
+  return dkv_entry(q, k, v, o, lse, dout, lengths, dk, dv, batch, heads, sq,
+                   sk, d, scale, causal, stream);
 }

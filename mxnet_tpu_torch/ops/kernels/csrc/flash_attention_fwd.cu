@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), float32 and bf16.
+// Flash-attention forward for Hopper (sm_90a), float32.
 //
 // Replaces: mxnet_tpu_flash_attention_fwd (mxnet_tpu/ops/pallas/attention.py:111),
 // the TPU kernel of every prefill, of the whole-sequence reference forward
@@ -55,33 +55,18 @@
 // position, for every BQ (only tiles a row cannot see differ, and they
 // change nothing).
 //
-// bf16 (AMP, row 1b): q, k, v and out bf16, lse float32, the reference
-// kernel's contract (attention.py:117-142: upcast on load, compute in f32,
-// store the input dtype). The instance is this kernel with its staging
-// converting: each thread reads 16-byte vectors of 8 bf16 with plain
-// loads, widens them in registers (exact) and stores the two float32
-// chunks of today's swizzled tiles, q scaled on the way (the same
-// __fmul_rn); the compute loops are unchanged, and each output rounds
-// once, to nearest even. So it is bitwise the float32 instance on the
-// widened inputs, rounded, and its lse that instance's. The cost: the
-// bf16 operands give up cp.async (it cannot convert), so a tile's loads
-// are waited for where they are issued. The shared-memory budget (230,912
-// bytes at BQ 128) leaves no room for bf16 staging buffers besides the
-// float32 tiles. A tensor-core (bf16 mma) form is another function: it
-// rounds p to bf16 before P.V.
+// bf16 (AMP, row 1b) is another kernel, on the bf16 tensor cores
+// (csrc/flash_attention_fwd_bf16.cu): it rounds p to bf16 before P.V, so
+// it computes another function, with no bit-identity contract (decode
+// stays float32).
 //
 // Tensor cores are deliberately not used for float32 inputs: TF32 keeps 10
 // mantissa bits and breaks the 1e-5 tier; 3xTF32 would hold the tier but
 // reorders every dot product inside the mma, which breaks bit identity with
 // the decode kernel unless that kernel moves to the same mma arithmetic.
-// The wgmma / TMA form, of this kernel and of the decode kernel with it,
-// comes with bf16 inputs under AMP, when the working type changes.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include <type_traits>
-
-#include "bf16.cuh"
 #include "online_softmax.cuh"
 
 namespace {
@@ -147,69 +132,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <typename T>
-constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// bf16: the 8 elements of 16-byte vector c8 of row r of an (n, D) matrix
-// (row0 + r >= n: zeros), times `mul`, into float32 chunks 2 c8 and 2 c8 +
-// 1 of dst at off(r, .)
-template <typename Off>
-__device__ __forceinline__ void convert8(float* dst,
-                                         const __nv_bfloat16* src, int row0,
-                                         int n, int r, int c8, Off off,
-                                         float mul) {
-  float f[8] = {};
-  if (row0 + r < n) mx_bf16::load8(src + (size_t)(row0 + r) * D + 8 * c8, f);
-  if (mul != 1.f) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(f[e], mul);
-  }
-  *reinterpret_cast<float4*>(dst + off(r, 2 * c8)) =
-      make_float4(f[0], f[1], f[2], f[3]);
-  *reinterpret_cast<float4*>(dst + off(r, 2 * c8 + 1)) =
-      make_float4(f[4], f[5], f[6], f[7]);
-}
-
 // Copy rows row0 .. row0 + ROWS - 1 of an (n, D) matrix into dst, chunk c
-// of row r at off(r, c); rows >= n become zeros. float32: 16-byte
-// cp.async, the caller commits the group; bf16: converting loads, 8
-// elements (two chunks) a copy, written when this returns.
-template <int ROWS, typename T, typename Off>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
+// of row r at off(r, c), by 16-byte cp.async; rows >= n become zeros. The
+// caller commits the group.
+template <int ROWS, typename Off>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
                                       int n, int t, Off off) {
-  if constexpr (kBf16<T>) {
-    static_assert(ROWS * CHUNKS / 2 % THREADS == 0, "whole vectors a thread");
+  static_assert(ROWS * CHUNKS % THREADS == 0, "whole chunks a thread");
 #pragma unroll
-    for (int i = 0; i < ROWS * CHUNKS / 2 / THREADS; ++i) {
-      const int idx = t + i * THREADS;
-      convert8(dst, src, row0, n, idx / (CHUNKS / 2), idx % (CHUNKS / 2), off,
-               1.f);
-    }
-  } else {
-    static_assert(ROWS * CHUNKS % THREADS == 0, "whole chunks a thread");
-#pragma unroll
-    for (int i = 0; i < ROWS * CHUNKS / THREADS; ++i) {
-      const int idx = t + i * THREADS;
-      const int r = idx / CHUNKS;
-      const int c = idx % CHUNKS;
-      const bool valid = row0 + r < n;
-      cp_async16(dst + off(r, c),
-                 src + (size_t)(valid ? row0 + r : 0) * D + 4 * c, valid);
-    }
+  for (int i = 0; i < ROWS * CHUNKS / THREADS; ++i) {
+    const int idx = t + i * THREADS;
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    const bool valid = row0 + r < n;
+    cp_async16(dst + off(r, c),
+               src + (size_t)(valid ? row0 + r : 0) * D + 4 * c, valid);
   }
 }
 
-// four outputs of a row, at o (float32: one 16-byte store; bf16: each
-// rounded to nearest even, one 8-byte store)
+// four outputs of a row, at o: one 16-byte store
 __device__ __forceinline__ void store4(float* o, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* o, float a, float b,
-                                       float c, float d) {
-  *reinterpret_cast<uint2*>(o) =
-      make_uint2(mx_bf16::pack2(a, b), mx_bf16::pack2(c, d));
 }
 
 // PM consecutive floats of P row j from row r (r % PM == 0)
@@ -226,13 +170,13 @@ __device__ __forceinline__ void load_p(float (&p)[PM], const float* ps,
   }
 }
 
-template <int BQ, typename T>
+template <int BQ>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_fwd_kernel(const T* __restrict__ q,
-                           const T* __restrict__ k,
-                           const T* __restrict__ v,
+flash_attention_fwd_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
                            const int* __restrict__ lengths,
-                           T* __restrict__ out,
+                           float* __restrict__ out,
                            float* __restrict__ lse,
                            int bhs, int heads, int sq, int sk, float scale,
                            int causal) {
@@ -287,27 +231,16 @@ flash_attention_fwd_kernel(const T* __restrict__ q,
                        j * mx::K_BLOCK, sk, t, v_at);
   };
   // the warp's own Q rows of an item; lane copies chunks lane + 32 i
-  // (bf16: converts vectors lane + 32 i, scaled as it stores them)
   auto stage_q = [&](int item) {
-    const T* qb = q + (size_t)(item / qtiles) * sq * D;
+    const float* qb = q + (size_t)(item / qtiles) * sq * D;
     const int q0 = (item % qtiles) * BQ;
-    if constexpr (kBf16<T>) {
 #pragma unroll
-      for (int i = 0; i < R * CHUNKS / 2 / 32; ++i) {
-        const int idx = lane + 32 * i;
-        convert8(qs, qb, q0, sq, wr0 + idx / (CHUNKS / 2),
-                 idx % (CHUNKS / 2),
-                 [](int r, int c) { return q_off<Layout<BQ>::TM>(r, c); }, scale);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < R * CHUNKS / 32; ++i) {
-        const int r = wr0 + (lane + 32 * i) / CHUNKS;
-        const int c = (lane + 32 * i) % CHUNKS;
-        const bool valid = q0 + r < sq;
-        cp_async16(qs + q_off<TM>(r, c),
-                   qb + (size_t)(valid ? q0 + r : 0) * D + 4 * c, valid);
-      }
+    for (int i = 0; i < R * CHUNKS / 32; ++i) {
+      const int r = wr0 + (lane + 32 * i) / CHUNKS;
+      const int c = (lane + 32 * i) % CHUNKS;
+      const bool valid = q0 + r < sq;
+      cp_async16(qs + q_off<TM>(r, c),
+                 qb + (size_t)(valid ? q0 + r : 0) * D + 4 * c, valid);
     }
   };
 
@@ -343,7 +276,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q,
     for (int j = 0; j < ntiles; ++j) {
       const int kbase = j * mx::K_BLOCK;
       cp_async_wait<0>();  // K(j), V(j) and (j == 0) Q have landed
-      if (!kBf16<T> && j == 0) {
+      if (j == 0) {
         // scale the Q chunks this lane copied
 #pragma unroll
         for (int i = 0; i < R * CHUNKS / 32; ++i) {
@@ -404,8 +337,6 @@ flash_attention_fwd_kernel(const T* __restrict__ q,
         __syncwarp();  // the warp's Q rows are read
         stage_q(next);
         cp_async_commit();
-        // bf16: the warp's lanes wrote each other's rows, which the next
-        // item's scores read after its first block barrier
       }
 
       // masks (none where the whole tile is visible to every row), the
@@ -510,7 +441,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q,
       const int qi = q0 + pr0 + i;
       if (qi < sq) {
         const float li = ls[pr0 + i];
-        T* orow = out + ((size_t)bh * sq + qi) * D;
+        float* orow = out + ((size_t)bh * sq + qi) * D;
         store4(orow + 4 * dx, mx::finish_out(acc[i][0], li),
                mx::finish_out(acc[i][1], li), mx::finish_out(acc[i][2], li),
                mx::finish_out(acc[i][3], li));
@@ -526,9 +457,9 @@ flash_attention_fwd_kernel(const T* __restrict__ q,
   }
 }
 
-template <int BQ, typename T>
-cudaError_t launch(const T* q, const T* k, const T* v,
-                   const int* lengths, T* out, float* lse, int batch,
+template <int BQ>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const int* lengths, float* out, float* lse, int batch,
                    int heads, int sq, int sk, float scale, int causal,
                    int blocks, cudaStream_t stream) {
   // the shared-memory attribute once per device
@@ -538,7 +469,7 @@ cudaError_t launch(const T* q, const T* k, const T* v,
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_fwd_kernel<BQ, T>,
+    err = cudaFuncSetAttribute(flash_attention_fwd_kernel<BQ>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Layout<BQ>::bytes);
     if (err != cudaSuccess) return err;
@@ -546,22 +477,31 @@ cudaError_t launch(const T* q, const T* k, const T* v,
   }
   if (batch * heads == 0 || sq == 0) return cudaSuccess;
   if (blocks <= 0) return cudaErrorInvalidValue;
-  flash_attention_fwd_kernel<BQ, T><<<blocks, THREADS, Layout<BQ>::bytes,
-                                      stream>>>(
+  flash_attention_fwd_kernel<BQ><<<blocks, THREADS, Layout<BQ>::bytes,
+                                   stream>>>(
       q, k, v, lengths, out, lse, batch * heads, heads, sq, sk, scale,
       causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-int entry(const void* q, const void* k, const void* v, const void* lengths,
-          void* out, void* lse, int batch, int heads, int sq, int sk, int d,
-          float scale, int causal, int bq, int blocks, void* stream) {
-  const auto* qt = static_cast<const T*>(q);
-  const auto* kt = static_cast<const T*>(k);
-  const auto* vt = static_cast<const T*>(v);
+}  // namespace
+
+// ---- host entry point ----
+// q (B*H, Sq, D), k/v (B*H, Sk, D), lengths (B,) int32, out (B*H, Sq, D),
+// lse (B*H, Sq) float32; all contiguous on the device, 16-byte aligned, all
+// float32 but lengths. bq (query rows a work item: 128 or 32) comes from
+// attention.py fwd_geometry. Returns the cudaError_t of the launch.
+extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
+                                      const void* v, const void* lengths,
+                                      void* out, void* lse, int batch,
+                                      int heads, int sq, int sk, int d,
+                                      float scale, int causal, int bq,
+                                      int blocks, void* stream) {
+  const auto* qt = static_cast<const float*>(q);
+  const auto* kt = static_cast<const float*>(k);
+  const auto* vt = static_cast<const float*>(v);
   const auto* lf = static_cast<const int*>(lengths);
-  auto* ot = static_cast<T*>(out);
+  auto* ot = static_cast<float*>(out);
   auto* sf = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
   if (d != D) return cudaErrorInvalidValue;  // the instance the port needs
@@ -577,36 +517,8 @@ int entry(const void* q, const void* k, const void* v, const void* lengths,
   }
 }
 
-}  // namespace
-
-// ---- host entry points ----
-// q (B*H, Sq, D), k/v (B*H, Sk, D), lengths (B,) int32, out (B*H, Sq, D),
-// lse (B*H, Sq) float32; all contiguous on the device, 16-byte aligned; q,
-// k, v and out float32 (mx_flash_attention_fwd) or bf16
-// (mx_flash_attention_fwd_bf16). bq (query rows a work item: 128 or 32)
-// comes from attention.py fwd_geometry. Returns the cudaError_t of the
-// launch.
-extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
-                                      const void* v, const void* lengths,
-                                      void* out, void* lse, int batch,
-                                      int heads, int sq, int sk, int d,
-                                      float scale, int causal, int bq,
-                                      int blocks, void* stream) {
-  return entry<float>(q, k, v, lengths, out, lse, batch, heads, sq, sk, d,
-                      scale, causal, bq, blocks, stream);
-}
-
-extern "C" int mx_flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* lse, int batch, int heads, int sq, int sk, int d,
-    float scale, int causal, int bq, int blocks, void* stream) {
-  return entry<__nv_bfloat16>(q, k, v, lengths, out, lse, batch, heads, sq,
-                              sk, d, scale, causal, bq, blocks, stream);
-}
-
 // Dynamic shared memory of the bq instance in bytes (0: not built), so the
-// wrapper can hold its geometry to the kernel's layout (the bf16 instance
-// stages the same float32 tiles).
+// wrapper can hold its geometry to the kernel's layout.
 extern "C" int mx_flash_attention_fwd_smem(int bq) {
   switch (bq) {
     case 128: return (int)Layout<128>::bytes;
