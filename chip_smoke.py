@@ -16,13 +16,13 @@ Phases, in order; any failure exits non-zero:
      register (``-Xptxas -v``; all but the first three log theirs), every
      matmul
      kernel's SASS (``cuobjdump -sass``) must hold HGMMA and UTMALDG
-     (counted with UTMASTG, of which noacc's must hold none) and the dq
-     and dk/dv kernels' HMMA (their 3xTF32 tensor-core products), or the
-     run fails; the bf16 kernels (AMP) of the flash forward and dk/dv
-     (their own sources, on the bf16 tensor cores) and the bf16 instances
-     of dq and the act kernels among them, each held apart: no spill
-     (the tensor-core forward and dk/dv: at most ``TC_SPILL_LIMIT`` bytes,
-     logged), HMMA in dq's bf16 instance and in the bf16 forward and
+     (counted with UTMASTG, of which noacc's must hold none) and the
+     float32 dq and dk/dv kernels' HMMA (their 3xTF32 tensor-core
+     products), or the run fails; the bf16 kernels (AMP) of the flash
+     forward, dq and dk/dv (their own sources, on the bf16 tensor cores)
+     and the bf16 instances of the act kernels among them, each held
+     apart: no spill (the tensor-core forward, dq and dk/dv: at most
+     ``TC_SPILL_LIMIT`` bytes, logged), HMMA in the bf16 forward, dq and
      dk/dv; the BN
      apply's, add+act's and the xent kernels' bf16 instances spill
      nothing either;
@@ -75,25 +75,25 @@ Phases, in order; any failure exits non-zero:
      the slot kernel and SDPA over the gathered view, at the decode case
      and at phase 3's positions. Then the bf16 kernels (AMP) at the
      training slice's attention cases, the odd cases and Sq != Sk: the
-     tensor-core forward and dk/dv, which round p (and ds) to bf16
+     tensor-core forward, dq and dk/dv, which round p (and ds) to bf16
      before their products, within two bf16 ULPs of their own plain
      versions beyond the float32 tier and what a bf16 flip of p or ds
      near a rounding midpoint can move (``slack=True`` of the plain
      versions), within the reference's bf16 tier of the reference
-     function (0.02 absolute for out, 2e-2 of the max abs for dk and
-     dv), lse within 1e-5 of the float32 kernel's; dq's bf16 instance
-     bitwise its float32 kernel on the widened inputs, rounded, and
-     within one bf16 ULP of its plain version beyond the float32 tier;
-     the act forward and backward for every act type at the epilogue
-     check sizes, likewise bitwise and within one ULP; then each timed
-     at the main path's shapes (attention at B 96 H 12 S 128 D 64, the
-     act kernels at the pooler's 96 x 768 tanh, also at the ResNet stem
-     shape in relu) beside its float32 instance, its plain version and
-     the library call on bf16 (SDPA and its backward, ``torch.tanh`` /
-     ``tanh_backward``, ``torch.relu`` / ``threshold_backward``), with
-     bounds at bf16 bytes (the forward's and dk/dv's against one bf16
-     product at 989 TFLOP/s), and forward + dq + dk/dv against SDPA's
-     forward + backward on bf16. Then the bf16
+     function (0.02 absolute for out, 2e-2 of the max abs for dq, dk and
+     dv), lse within 1e-5 of the float32 kernel's; the act forward and
+     backward for every act type at the epilogue check sizes, bitwise
+     their float32 kernels on the widened inputs, rounded, and within
+     one ULP of their plain versions; then each timed at the main path's
+     shapes (attention at B 96 H 12 S 128 D 64, the act kernels at the
+     pooler's 96 x 768 tanh, also at the ResNet stem shape in relu)
+     beside its float32 instance, its plain version and the library call
+     on bf16 (SDPA and its backward, ``torch.tanh`` / ``tanh_backward``,
+     ``torch.relu`` / ``threshold_backward``), with bounds at bf16 bytes
+     (the attention kernels' against one bf16 product at 989 TFLOP/s),
+     forward + dq + dk/dv against SDPA's forward + backward on bf16, and
+     in alternating turns dq + dk/dv against SDPA's backward and forward
+     + dq + dk/dv against SDPA's forward + backward. Then the bf16
      instances of the ResNet path (rows 5b, 6b, 9b, 10b, 11b): the BN
      apply forward and backward at ResNet-50's nine BatchNorm shapes
      (identity) and add+relu at its four join shapes, every act type at
@@ -107,7 +107,9 @@ Phases, in order; any failure exits non-zero:
      call on bf16 (``batch_norm``, ``torch.mul``, none for add+relu,
      ``cross_entropy`` / ``log_softmax`` and ``cross_entropy``'s
      backward; the xent head at ResNet's 128 x 1000 and the MLM's 1920 x
-     30522);
+     30522, where the xent forward's cluster instance is also timed at 1,
+     2, 4 and 8 CTAs a row on bf16 logits and on them widened, in
+     turns);
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -1207,23 +1209,24 @@ def check_bf16_kernels(torch, kernels, device, heads=TRAIN['heads'],
     :data:`BF16_ODD_CASES`), the act forward and backward for every act
     type at each epilogue shape.
 
-    The forward and dk/dv run on the bf16 tensor cores and round p (and
-    ds) to bf16 before their products, another function than the float32
-    kernels': each is held to its own plain version
+    The forward, dq and dk/dv run on the bf16 tensor cores and round p
+    (and ds) to bf16 before their products, another function than the
+    float32 kernels': each is held to its own plain version
     (``flash_attention_bf16_reference``,
+    ``flash_attention_dq_bf16_reference``,
     ``flash_attention_dkv_bf16_reference``) within :data:`BF16_TC_ULPS`
     bf16 ULPs beyond the float32 tier (TOL absolute for out, TOL of the
-    max abs for dk and dv) and the plain version's ``slack`` (what a bf16
-    flip of a p or ds near a rounding midpoint can move: the card's sums
-    and exp2 differ from torch's in the last float32 bits), and to the
-    reference function (``flash_attention_reference``,
-    ``flash_attention_dkv_reference``) within the reference's bf16 tier
-    (:data:`BF16_OUT_TOL` absolute, :data:`BF16_GRAD_REL` of the max
-    abs); the forward's lse within TOL of the float32 kernel's on the
-    widened inputs. dq and the act kernels are bitwise their float32
-    kernels on the widened inputs, rounded, and within :data:`BF16_ULPS`
-    of their plain versions beyond the float32 tier (0 for the act
-    kernels). Returns {kernel name: worst max abs error against its plain
+    max abs for dq, dk and dv) and the plain version's ``slack`` (what a
+    bf16 flip of a p or ds near a rounding midpoint can move: the card's
+    sums and exp2 differ from torch's in the last float32 bits), and to
+    the reference function (``flash_attention_reference``,
+    ``flash_attention_dq_reference``, ``flash_attention_dkv_reference``)
+    within the reference's bf16 tier (:data:`BF16_OUT_TOL` absolute,
+    :data:`BF16_GRAD_REL` of the max abs); the forward's lse within TOL of
+    the float32 kernel's on the widened inputs. The act kernels are
+    bitwise their float32 kernels on the widened inputs, rounded, and
+    within :data:`BF16_ULPS` of their plain versions beyond the float32
+    tier (0). Returns {kernel name: worst max abs error against its plain
     version}."""
     bf = torch.bfloat16
     gen = torch.Generator(device='cpu').manual_seed(6)
@@ -1283,40 +1286,41 @@ def check_bf16_kernels(torch, kernels, device, heads=TRAIN['heads'],
         dq = kernels.flash_attention_dq(q, k, v, out, lse, do, lens, causal)
         dk, dv = kernels.flash_attention_dkv(q, k, v, out, lse, do, lens,
                                              causal)
-        dq32 = kernels.flash_attention_dq(*w[:3], out.float(), lse, w[3],
-                                          lens, causal)
-        dq_plain = kernels.flash_attention_dq_reference(q, k, v, out, lse, do,
-                                                        lens, causal)
-        dq_ulps = bf16_ulps(torch, dq, dq_plain,
-                            TOL * dq_plain.float().abs().max().item())
-        hold('flash_attention_dq.bf16', _bitwise_rounded(torch, dq, dq32),
-             dq_ulps, err(dq, dq_plain), where)
+        dq_plain, dq_flips = kernels.flash_attention_dq_bf16_reference(
+            q, k, v, out, lse, do, lens, causal, slack=True)
+        dq_ref = kernels.flash_attention_dq_reference(q, k, v, out, lse, do,
+                                                      lens, causal)
         dk_plain, dv_plain, dk_flips, dv_flips = \
             kernels.flash_attention_dkv_bf16_reference(
                 q, k, v, out, lse, do, lens, causal, slack=True)
         dk_ref, dv_ref = kernels.flash_attention_dkv_reference(
             q, k, v, out, lse, do, lens, causal)
-        dkv = []
-        for t, pl, fl, rf in ((dk, dk_plain, dk_flips, dk_ref),
+        grads = []
+        for t, pl, fl, rf in ((dq, dq_plain, dq_flips, dq_ref),
+                              (dk, dk_plain, dk_flips, dk_ref),
                               (dv, dv_plain, dv_flips, dv_ref)):
             top = max(rf.float().abs().max().item(), 1e-30)
-            dkv.append((bf16_ulps(torch, t, pl,
-                                  TOL * pl.float().abs().max().item() + fl),
-                        err(t, rf) / top, err(t, pl)))
+            tier = TOL * pl.float().abs().max().item()
+            grads.append((bf16_ulps(torch, t, pl, tier + fl),
+                          err(t, rf) / top, err(t, pl),
+                          bf16_ulps(torch, t, pl, tier)))
         log('check bf16 flash %s: fwd %.3g ULPs from its plain version '
             'beyond the tier and flips (%.3g without the flips), max abs '
             '%.3g from it, %.3g from the reference function, lse %.3g from '
-            'the float32 kernel\'s; dq bitwise the float32 kernel, %.3g ULPs '
-            'beyond the tier; dk / dv %s ULPs beyond the tier and flips, %s '
-            'of the max abs from the reference function, max abs %s from '
-            'the plain version'
+            'the float32 kernel\'s; dq / dk / dv %s ULPs beyond the tier and '
+            'flips (%s without the flips), %s of the max abs from the '
+            'reference function, max abs %s from the plain version'
             % (where, fwd_ulps, bf16_ulps(torch, out, plain, TOL),
-               err(out, plain), fwd_ref, lse_err, dq_ulps,
-               ['%.3g' % x[0] for x in dkv], ['%.3g' % x[1] for x in dkv],
-               ['%.3g' % x[2] for x in dkv]))
-        for u, r, e in dkv:
-            hold_tc('flash_attention_dkv.bf16', u, r, BF16_GRAD_REL, e, where)
+               err(out, plain), fwd_ref, lse_err,
+               ['%.3g' % x[0] for x in grads], ['%.3g' % x[3] for x in grads],
+               ['%.3g' % x[1] for x in grads],
+               ['%.3g' % x[2] for x in grads]))
+        for name, (u, r, e, _) in zip(
+                ('flash_attention_dq.bf16', 'flash_attention_dkv.bf16',
+                 'flash_attention_dkv.bf16'), grads):
+            hold_tc(name, u, r, BF16_GRAD_REL, e, where)
         del q, k, v, do, w, out, plain, ref, dq, dk, dv, flips
+        del dq_plain, dq_flips, dq_ref
         del dk_plain, dv_plain, dk_flips, dv_flips, dk_ref, dv_ref
     for shape in epi_shapes:
         x, g = (torch.randn(shape, generator=gen).mul(3).to(device, bf)
@@ -1356,10 +1360,12 @@ def time_bf16_kernels(torch, kernels, batch=TRAIN['batch'],
     ``tanh_backward``, and at the ResNet stem shape in relu against
     ``torch.relu`` and ``threshold_backward`` (``at_stem``). Bounds: the
     bytes at bf16 widths (lse float32) at 3.35 TB/s against the
-    arithmetic each performs: the forward's and dk/dv's one bf16 product
-    each at 989 TFLOP/s (the tensor-core kernels), dq's 3xTF32. The
-    forward's row also carries ``group``: forward + dq + dk/dv against
-    SDPA's forward + backward on bf16, device ms."""
+    arithmetic each performs, one bf16 product each at 989 TFLOP/s (the
+    tensor-core kernels). The forward's row also carries ``group``:
+    forward + dq + dk/dv against SDPA's forward + backward on bf16, device
+    ms; dq's row ``pair_turns_device_ms``: dq + dk/dv against SDPA's
+    backward, and ``group_turns_device_ms``: forward + dq + dk/dv against
+    SDPA's forward + backward, each in alternating turns."""
     F = torch.nn.functional
     dev = torch.device('cuda')
     bf = torch.bfloat16
@@ -1403,9 +1409,9 @@ def time_bf16_kernels(torch, kernels, batch=TRAIN['batch'],
                                                        lens)
     for name, fn, plain, nbytes, flops, peak, what in (
             ('flash_attention_dq.bf16', kernels.flash_attention_dq,
-             kernels.flash_attention_dq_reference, 6 * tensor_b,
-             3 * visible * 6 * d, PEAK_TF32_FLOP_S,
-             '3xTF32 at 495 TFLOP/s'),
+             kernels.flash_attention_dq_bf16_reference, 6 * tensor_b,
+             visible * 6 * d, PEAK_BF16_FLOP_S,
+             'one bf16 product at 989 TFLOP/s'),
             ('flash_attention_dkv.bf16', kernels.flash_attention_dkv,
              kernels.flash_attention_dkv_bf16_reference, 7 * tensor_b,
              visible * 8 * d, PEAK_BF16_FLOP_S,
@@ -1426,6 +1432,33 @@ def time_bf16_kernels(torch, kernels, batch=TRAIN['batch'],
         sdpa_device_ms=(rows[names[0]]['library_device_ms']
                         + rows[names[1]]['library_device_ms']),
         bound_ms=sum(rows[n]['bound_ms'] for n in names))
+
+    # dq + dk/dv as a step runs them against SDPA's backward, and forward +
+    # dq + dk/dv against SDPA's forward + backward, in turns (kernels,
+    # SDPA, SDPA, kernels, kernels, SDPA): the spread of each comparison
+    # within this run
+    def pair(*t):
+        return kernels.flash_attention_dq(*t), kernels.flash_attention_dkv(*t)
+
+    def group(q, k, v, lens, dob):
+        o, l = kernels.flash_attention_with_lse(q, k, v, lens)
+        return pair(q, k, v, o, l, dob, lens)
+
+    def sdpa_group(q, k, v, dob):
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        return torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs),
+                                   (qs, ks, vs), dob)
+
+    order = ('kernels', 'sdpa', 'sdpa', 'kernels', 'kernels', 'sdpa')
+    for key, kern, kern_in, lib, lib_in in (
+            ('pair_turns_device_ms', pair, ins, sdpa_bwd, ()),
+            ('group_turns_device_ms', group, (qb, kb, vb, lens, dob),
+             sdpa_group, (qb, kb, vb, dob))):
+        turns = {'kernels': [], 'sdpa': []}
+        for who in order:
+            turns[who].append(device_ms(torch, kern, kern_in) if who ==
+                              'kernels' else device_ms(torch, lib, lib_in))
+        rows[names[1]][key] = turns
     del q, k, v, do, qb, kb, vb, dob, outb, out, lse, qs, ks, vs, sdpa_out
     del ins, ins32
     torch.cuda.empty_cache()
@@ -1778,10 +1811,11 @@ def check_bf16_rows(torch, kernels, device, bn_shapes=RESNET_BN_SHAPES,
         nr, lr = kernels.softmax_xent_forward_reference(x, lab)
         bitwise = torch.equal(nll, n32) and torch.equal(logp, l32)
         err = max(_errs(nll, nr)[0], _errs(logp, lr)[0])
-        log('check bf16 softmax_xent_fwd rows=%d V=%d (%s): nll, logp '
-            'float32, bitwise the float32 kernel on the widened logits %s, '
-            'max_abs_err %.3g' % (rows, v, kernels.xent_geometry(
-                rows, v).instance, bitwise, err))
+        geom = kernels.xent_geometry(rows, v, 2)
+        log('check bf16 softmax_xent_fwd rows=%d V=%d (%s, %d CTAs a row): '
+            'nll, logp float32, bitwise the float32 kernel on the widened '
+            'logits %s, max_abs_err %.3g'
+            % (rows, v, geom.instance, geom.cluster, bitwise, err))
         if nll.dtype != torch.float32 or logp.dtype != torch.float32 \
                 or not bitwise or not err <= TOL:
             raise AssertionError('softmax_xent_fwd.bf16 at rows %d V %d: '
@@ -1814,6 +1848,16 @@ def check_bf16_rows(torch, kernels, device, bn_shapes=RESNET_BN_SHAPES,
                 (dx.float() - want.float()).abs().max().item())
         del logp
     return worst
+
+
+def xent_cluster_turns(torch, x, lab):
+    """Device ms of the xent forward's cluster instance at each cluster
+    size that fits (1, 2, 4, 8) on bf16 logits ``x`` and on them widened,
+    each dtype's sizes in turns (``probe_xent_clusters.times_by_size``:
+    the C entry point at each size, launches not counted)."""
+    from mxnet_tpu_torch.tools.probe_xent_clusters import times_by_size
+    return {'bf16': times_by_size(torch, x, lab),
+            'f32': times_by_size(torch, x.float(), lab)}
 
 
 def time_bf16_rows(torch, kernels, batch=RESNET['batch'],
@@ -1928,6 +1972,10 @@ def time_bf16_rows(torch, kernels, batch=RESNET['batch'],
                 rows[name][key] = {k: row[k] for k in (
                     'shape', 'device_ms', 'f32_device_ms', 'bound_ms',
                     'library_device_ms')}
+            # the cluster instance at each size, in turns (1, 2, 4, 8, 8,
+            # 4, 2, 1), bf16 logits and the float32 instance on them widened
+            rows['softmax_xent_fwd.bf16'][key]['by_cluster'] = \
+                xent_cluster_turns(torch, x, lab)
         del x, xs, ce, logp
         torch.cuda.empty_cache()
     return rows
@@ -3656,8 +3704,9 @@ def check_no_spills(ptxas, source, kernel_keys):
 
 
 def check_dq_build(build, ptxas):
-    """The dq kernel: :func:`_check_mma_build`."""
-    return _check_mma_build(build, ptxas, 'flash_attention_dq')
+    """The float32 dq kernel: :func:`_check_mma_build`."""
+    return _check_mma_build(build, ptxas, 'flash_attention_dq',
+                            instances=('f32',))
 
 
 def check_dkv_build(build, ptxas):
@@ -3671,17 +3720,18 @@ def check_dkv_build(build, ptxas):
 # stores + loads at their first build); one block an SM spills nothing but
 # ran slower (mxnet_tpu_torch/tools/probe_flash_bf16_variants.py)
 TC_SPILL_LIMIT = 256
+TC_SOURCES = ('flash_attention_fwd_bf16', 'flash_attention_dq_bf16',
+              'flash_attention_dkv_bf16')
 
 
 def check_bf16_tc_builds(build, reports):
-    """The bf16 tensor-core flash forward and dk/dv, each in its own
+    """The bf16 tensor-core flash forward, dq and dk/dv, each in its own
     source: :func:`_check_mma_build` (HMMA in the SASS, at most
     :data:`TC_SPILL_LIMIT` bytes of spill). ``reports``: ptxas's lines by
     source."""
     return {name: _check_mma_build(build, reports.get(name, ()), name, name,
                                    ('bf16',), TC_SPILL_LIMIT)
-            for name in ('flash_attention_fwd_bf16',
-                         'flash_attention_dkv_bf16')}
+            for name in TC_SOURCES}
 
 
 def matmul_rows(kernels, shapes):
@@ -3726,7 +3776,7 @@ KERNELS = {
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:208'),
     'flash_attention_dq.bf16': dict(
-        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
+        source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_dq_bf16.cu',
         replaces='mxnet_tpu/ops/pallas/attention.py:208'),
     'flash_attention_dkv': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu',
@@ -3835,8 +3885,12 @@ def log_times(times):
                 'ms' % (gr['kernels_device_ms'], gr['sdpa_device_ms'],
                         gr['bound_ms']))
         if 'pair_turns_device_ms' in row:
-            log('time dq + dkv against SDPA backward, device ms in turns: %s'
-                % row['pair_turns_device_ms'])
+            log('time %s: dq + dkv against SDPA backward, device ms in '
+                'turns: %s' % (name, row['pair_turns_device_ms']))
+        if 'group_turns_device_ms' in row:
+            log('time %s: forward + dq + dkv against SDPA forward + '
+                'backward, device ms in turns: %s'
+                % (name, row['group_turns_device_ms']))
         if 'device_ms_at_pos' in row:
             log('time %s: device ms at one position for every slot %s'
                 % (name, row['device_ms_at_pos']))
@@ -3880,7 +3934,8 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'bound_cuda_core_ms', 'f32_device_ms',
                                       'at_stem', 'at_mlm', 'log_softmax_ms',
                                       'log_softmax_device_ms',
-                                      'pair_turns_device_ms', 'group',
+                                      'pair_turns_device_ms',
+                                      'group_turns_device_ms', 'group',
                                       'device_ms_at_pos', 'slot_device_ms',
                                       'gather_slot_device_ms', 'at_phase3',
                                       'mask_device_ms',
@@ -4000,7 +4055,6 @@ def main():
     bf16_times = time_bf16_kernels(torch, kernels)
     log_times(bf16_times)
     train_times.update(bf16_times)
-    del bf16_times
     torch.cuda.empty_cache()
     epi_times = time_epilogue_kernels(torch, kernels)
     log_times(epi_times)
@@ -4009,7 +4063,7 @@ def main():
     torch.cuda.empty_cache()
     row_times = time_bf16_rows(torch, kernels)
     log_times(row_times)
-    for name, row in row_times.items():
+    for name, row in list(bf16_times.items()) + list(row_times.items()):
         log('time %s [%s]: device %.4f ms, float32 instance on the widened '
             'inputs %.4f ms, bound %.4f ms, library %s ms%s'
             % (name, card, row['device_ms'], row['f32_device_ms'],
@@ -4017,7 +4071,7 @@ def main():
                '; at_mlm %s' % json.dumps(row['at_mlm'])
                if 'at_mlm' in row else ''))
     train_times.update(row_times)
-    del row_times
+    del bf16_times, row_times
     torch.cuda.empty_cache()
 
     # phase 3: the serving slice

@@ -13,13 +13,14 @@ bf16 instances count under their kernel's name and :data:`BF16`.
 from ._launch import (BF16, KERNELS, instance_launches, launch_counts,
                       reset_launch_counts)
 from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
-                        dkv_bf16_geometry, flash_attention,
+                        dkv_bf16_geometry, dq_bf16_geometry, flash_attention,
                         flash_attention_backward,
                         flash_attention_backward_reference,
                         flash_attention_bf16_reference, flash_attention_dkv,
                         flash_attention_dkv_bf16_reference,
                         flash_attention_dkv_reference,
-                        flash_attention_dq, flash_attention_dq_reference,
+                        flash_attention_dq, flash_attention_dq_bf16_reference,
+                        flash_attention_dq_reference,
                         flash_attention_reference, flash_attention_with_lse,
                         flash_decode_attention,
                         flash_decode_attention_reference,
@@ -50,8 +51,9 @@ from .xent import (XENT_INSTANCES, SoftmaxXentFunction, XentBwdChunk,
                    xent_geometry)
 
 __all__ = ['KERNELS', 'BF16', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
-           'fwd_bf16_geometry', 'dkv_bf16_geometry',
+           'fwd_bf16_geometry', 'dq_bf16_geometry', 'dkv_bf16_geometry',
            'flash_attention_bf16_reference',
+           'flash_attention_dq_bf16_reference',
            'flash_attention_dkv_bf16_reference',
            'online_softmax_block', 'flash_attention',
            'FlashAttentionFunction', 'flash_attention_reference',

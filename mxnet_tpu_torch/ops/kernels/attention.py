@@ -8,7 +8,8 @@ float32, the training ones (forward, dq, dkv) also bf16:
     (bf16: ``csrc/flash_attention_fwd_bf16.cu``), which replaces
     ``mxnet_tpu_flash_attention_fwd`` (attention.py:111);
   * :func:`flash_attention_dq` and :func:`flash_attention_dkv` ->
-    ``csrc/flash_attention_bwd.cu`` (dk/dv in bf16:
+    ``csrc/flash_attention_bwd.cu`` (in bf16:
+    ``csrc/flash_attention_dq_bf16.cu``,
     ``csrc/flash_attention_dkv_bf16.cu``), which replace
     ``mxnet_tpu_flash_attention_dq`` (attention.py:208) and
     ``mxnet_tpu_flash_attention_dkv`` (attention.py:243);
@@ -40,16 +41,16 @@ masking and fully-masked-row guards. The wrapper rules:
 bf16 (AMP): the forward, dq and dkv take q, k, v, out and do all float32
 or all bfloat16 and launch that dtype's instance (counted as
 ``flash_attention_fwd.bf16`` and so on); ``lse`` stays float32; mixed
-dtypes, fp16 and other types raise ``TypeError``. Only dq's bf16
-instance is bitwise its float32 kernel on the widened inputs, rounded.
-The bf16 forward and dk/dv are kernels of their own on the bf16 tensor
-cores (``csrc/flash_attention_fwd_bf16.cu``,
-``csrc/flash_attention_dkv_bf16.cu``): they round p (and, for dk/dv, ds)
-to bf16 before the products that take them, so they compute another
-function, held by the reference's bf16 tier
+dtypes, fp16 and other types raise ``TypeError``. The bf16 forward, dq
+and dk/dv are kernels of their own on the bf16 tensor cores
+(``csrc/flash_attention_fwd_bf16.cu``, ``csrc/flash_attention_dq_bf16.cu``,
+``csrc/flash_attention_dkv_bf16.cu``): they round p (and, for dq and
+dk/dv, ds) to bf16 before the products that take them, so they compute
+another function, held by the reference's bf16 tier
 (``mxnet_tpu/ops/pallas/__main__.py:88-103``: 0.02 absolute of the
 float32 result on the same bf16 inputs) and, on the card, against their
 own plain versions (:func:`flash_attention_bf16_reference`,
+:func:`flash_attention_dq_bf16_reference`,
 :func:`flash_attention_dkv_bf16_reference`), which round where the
 kernels round. A CPU tensor runs the reference's function, as for
 float32: the plain versions widen, compute in float32 and round to the
@@ -78,8 +79,9 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
                       require as _require, stream as _stream)
 
 __all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry', 'fwd_bf16_geometry',
-           'dkv_bf16_geometry', 'online_softmax_block',
+           'dq_bf16_geometry', 'dkv_bf16_geometry', 'online_softmax_block',
            'flash_attention_bf16_reference',
+           'flash_attention_dq_bf16_reference',
            'flash_attention_dkv_bf16_reference',
            'flash_attention', 'FlashAttentionFunction',
            'flash_attention_reference', 'flash_attention_with_lse',
@@ -104,9 +106,12 @@ _QKV = '(B, H, Sq, D)'
 # the bf16 tensor-core kernels' exp2 constants, as float32 (mma_bf16.cuh)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-# the bf16 forward's query rows a work item, and dk/dv's keys a block and
-# queries a tile (csrc/flash_attention_{fwd,dkv}_bf16.cu)
+# the bf16 forward's query rows a work item, dq's query rows a work item
+# and keys a tile, and dk/dv's keys a block and queries a tile
+# (csrc/flash_attention_{fwd,dq,dkv}_bf16.cu)
 FWD_BF16_BLOCK_Q = 128
+DQ_BF16_BLOCK_Q = 128
+DQ_BF16_BLOCK_K = 128
 DKV_BF16_BLOCK_K = 128
 DKV_BF16_BLOCK_Q = 32
 
@@ -315,6 +320,16 @@ def fwd_bf16_geometry(batch, heads, sq):
     return bq, batch * heads * -(-sq // bq), 2 * _D * (bq + 4 * K_BLOCK)
 
 
+def dq_bf16_geometry(batch, heads, sq):
+    """Launch geometry of the bf16 dq kernel: (block_q, block_k, blocks,
+    shared memory bytes a block). One block a work item (batch * head,
+    query tile of :data:`DQ_BF16_BLOCK_Q` rows), two resident an SM; it
+    walks key tiles of :data:`DQ_BF16_BLOCK_K` rows. The bytes follow the
+    kernel's layout: the Q and dO tiles and two K and two V tiles, bf16."""
+    bq, bk = DQ_BF16_BLOCK_Q, DQ_BF16_BLOCK_K
+    return bq, bk, batch * heads * -(-sq // bq), 2 * _D * (2 * bq + 4 * bk)
+
+
 def dkv_bf16_geometry(batch, heads, sk):
     """Launch geometry of the bf16 dk/dv kernel: (block_k, block_q,
     blocks, shared memory bytes a block). One block a (batch * head,
@@ -499,27 +514,15 @@ def flash_attention_dkv_reference(q, k, v, out, lse, do, lengths=None,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_dkv_bf16_reference(q, k, v, out, lse, do, lengths=None,
-                                       causal=False, scale=None,
-                                       slack=False):
-    """Plain PyTorch version of the bf16 tensor-core dk/dv kernel
-    (``csrc/flash_attention_dkv_bf16.cu``): (dk, dv), each (B, H, Sk, D) in
-    k's dtype. p = 2^(s (scale log2 e) - lse log2 e), 0 where masked or
-    lse == -inf; ds = (p (dp - delta)) scale; dv = bf16(p)^T do and dk =
-    bf16(ds)^T q with float32 sums: p and ds rounded to bf16 where the
-    kernel rounds them, each other step rounded in float32 as the kernel's
-    (no fused multiply-add). The kernel's exp2 is ex2.approx, so a p near
-    a bf16 rounding boundary can round the other way on the card.
-    ``slack=True`` also returns, per element of dk and dv (float32), what
-    such flips can move it by: the bf16 ULP of each p within
-    :data:`FLIP_REL` of a rounding midpoint times |do| for dv; for dk, of
-    each ds within FLIP_REL of one or within p scale E, E = 2^-16 (|do|
-    |v|^T + rowsum |do o|), the reach of float32 sums of dp and delta in
-    another order (which can also move ds by E itself), times |q|."""
+def _bf16_tc_terms(q, k, v, out, lse, do, lengths, causal, scale, slack):
+    """p, ds and the widened inputs as the bf16 tensor-core backward
+    kernels compute them: p = 2^(s (scale log2 e) - lse log2 e), 0 where
+    masked or lse == -inf; ds = (p (dp - delta)) scale, each step rounded
+    in float32 (no fused multiply-add); and with ``slack`` ``near``, the
+    reach of float32 sums of dp and delta in another order on ds:
+    p scale 2^-16 (|do| |v|^T + rowsum |do o|) (else None)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     dev = q.device
     sc = _f32(scale, dev)
     log2e = _f32(LOG2E, dev)
@@ -538,19 +541,76 @@ def flash_attention_dkv_bf16_reference(q, k, v, out, lse, do, lengths=None,
     delta = torch.sum(dof * of, dim=-1)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * sc
+    near = p * sc * 2.0 ** -16 * (
+        torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+        + (dof * of).abs().sum(dim=-1)[..., None]) if slack else None
+    return p, ds, near, qf, kf, dof
+
+
+def _ds_flips(ds, near):
+    """What a bf16 flip of each ds can move it by: its bf16 ULP where it
+    lies within FLIP_REL of a rounding midpoint or within ``near`` of one,
+    plus ``near``, which the sums' order can move it by itself."""
+    return torch.where(bf16_flips(ds, FLIP_REL * ds.abs() + near),
+                       bf16_ulp(ds), 0.0) + near
+
+
+def flash_attention_dq_bf16_reference(q, k, v, out, lse, do, lengths=None,
+                                      causal=False, scale=None,
+                                      slack=False):
+    """Plain PyTorch version of the bf16 tensor-core dq kernel
+    (``csrc/flash_attention_dq_bf16.cu``): dq (B, H, Sq, D) in q's dtype.
+    p = 2^(s (scale log2 e) - lse log2 e), 0 where masked or lse == -inf;
+    ds = (p (dp - delta)) scale; dq = bf16(ds) k with float32 sums: ds
+    rounded to bf16 where the kernel rounds it, each other step rounded
+    in float32 as the kernel's (no fused multiply-add). The kernel's exp2
+    is ex2.approx and its sums run in another order, so a ds near a bf16
+    rounding boundary can round the other way on the card. ``slack=True``
+    also returns, per element of dq (float32), what such flips can move
+    it by: the bf16 ULP of each ds within :data:`FLIP_REL` of a rounding
+    midpoint or within p scale E of one, E = 2^-16 (|do| |v|^T + rowsum
+    |do o|), plus that reach itself, times |k| (the rule of
+    :func:`flash_attention_dkv_bf16_reference` for dk, k in q's
+    place)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _, ds, near, _, kf, _ = _bf16_tc_terms(q, k, v, out, lse, do, lengths,
+                                           causal, scale, slack)
+    dq = torch.matmul(ds.to(torch.bfloat16).float(), kf)
+    if not slack:
+        return dq.to(q.dtype)
+    return dq.to(q.dtype), torch.matmul(_ds_flips(ds, near), kf.abs())
+
+
+def flash_attention_dkv_bf16_reference(q, k, v, out, lse, do, lengths=None,
+                                       causal=False, scale=None,
+                                       slack=False):
+    """Plain PyTorch version of the bf16 tensor-core dk/dv kernel
+    (``csrc/flash_attention_dkv_bf16.cu``): (dk, dv), each (B, H, Sk, D) in
+    k's dtype. p = 2^(s (scale log2 e) - lse log2 e), 0 where masked or
+    lse == -inf; ds = (p (dp - delta)) scale; dv = bf16(p)^T do and dk =
+    bf16(ds)^T q with float32 sums: p and ds rounded to bf16 where the
+    kernel rounds them, each other step rounded in float32 as the kernel's
+    (no fused multiply-add). The kernel's exp2 is ex2.approx, so a p near
+    a bf16 rounding boundary can round the other way on the card.
+    ``slack=True`` also returns, per element of dk and dv (float32), what
+    such flips can move it by: the bf16 ULP of each p within
+    :data:`FLIP_REL` of a rounding midpoint times |do| for dv; for dk, of
+    each ds within FLIP_REL of one or within p scale E, E = 2^-16 (|do|
+    |v|^T + rowsum |do o|), the reach of float32 sums of dp and delta in
+    another order (which can also move ds by E itself), times |q|."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds, near, qf, _, dof = _bf16_tc_terms(q, k, v, out, lse, do, lengths,
+                                             causal, scale, slack)
     bf = torch.bfloat16
     dk = torch.matmul(ds.to(bf).float().transpose(-1, -2), qf)
     dv = torch.matmul(p.to(bf).float().transpose(-1, -2), dof)
     if not slack:
         return dk.to(k.dtype), dv.to(v.dtype)
-    near = p * sc * 2.0 ** -16 * (
-        torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
-        + (dof * of).abs().sum(dim=-1)[..., None])
-    ds_flips = torch.where(bf16_flips(ds, FLIP_REL * ds.abs() + near),
-                           bf16_ulp(ds), 0.0) + near
     p_flips = torch.where(bf16_flips(p, FLIP_REL * p), bf16_ulp(p), 0.0)
     return (dk.to(k.dtype), dv.to(v.dtype),
-            torch.matmul(ds_flips.transpose(-1, -2), qf.abs()),
+            torch.matmul(_ds_flips(ds, near).transpose(-1, -2), qf.abs()),
             torch.matmul(p_flips.transpose(-1, -2), dof.abs()))
 
 
@@ -626,8 +686,15 @@ def flash_attention_dq(q, k, v, out, lse, do, lengths=None, causal=False,
     dq = torch.empty_like(q)
     name, entry = _instance('flash_attention_dq', 'mx_flash_attention_dq',
                             dt)
-    fn = _bwd_lib(entry)
     with torch.cuda.device(q.device):
+        if dt == torch.bfloat16:
+            geo = dq_bf16_geometry(1, 1, 1)
+            fn = _bf16_lib('flash_attention_dq_bf16', entry,
+                           _bwd_lib_argtypes(1), (geo[0], geo[1], geo[3]),
+                           ('mx_flash_attention_dq_bf16_block_q',
+                            'mx_flash_attention_dq_bf16_block_k'))
+        else:
+            fn = _bwd_lib(entry)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
                  _ptr(lens), _ptr(dq), b, h, sq, k.shape[2], d,
                  float(scale), int(bool(causal)), _stream(q.device))

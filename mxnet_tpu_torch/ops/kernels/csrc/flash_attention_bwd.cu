@@ -1,5 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a): dq (float32 and bf16),
-// and dk/dv (float32).
+// Flash-attention backward for Hopper (sm_90a), float32: dq and dk/dv.
 //
 // Replaces: mxnet_tpu_flash_attention_dq (mxnet_tpu/ops/pallas/attention.py:208)
 // and mxnet_tpu_flash_attention_dkv (attention.py:243), the backward of
@@ -38,34 +37,18 @@
 //   * delta is recomputed by each kernel from do and o, as the TPU kernels
 //     do, so the two launches stay independent.
 //
-// bf16 (AMP): dq's instance (row 2b) takes q, k, v, o, do and dq bf16,
-// lse float32, the reference kernel's contract (attention.py:212-240:
-// upcast on load, compute in f32, store the input dtype): the staging reads
-// 16-byte vectors of 8 bf16 with plain loads, widens them in registers
-// (exact) and stores the float32 tiles of today's swizzled layout, delta
-// reads O the same way, and dq rounds once, to nearest even. The products
-// stay 3xTF32 with the split kept: a bf16 value is exact in TF32 (its
-// small part is 0), but p and ds are float32. So it is bitwise the float32
-// instance on the widened inputs, rounded. The cost: cp.async cannot
-// convert, so its tiles are loaded, widened and stored by the threads,
-// waited for where they are issued. dk/dv's bf16 instance (row 3b) is
-// another kernel, on the bf16 tensor cores
-// (csrc/flash_attention_dkv_bf16.cu): it rounds p and ds to bf16 before
-// their products, another function.
+// bf16 (AMP): dq and dk/dv are kernels of their own on the bf16 tensor
+// cores (rows 2b and 3b: csrc/flash_attention_dq_bf16.cu,
+// csrc/flash_attention_dkv_bf16.cu); they round ds (and p) to bf16 before
+// the products that take them, another function.
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "bf16.cuh"
-
 namespace {
 
 constexpr int D = 64;         // head dim: the instance the slice needs
-
-template <typename T>
-constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 // ---- dq and dk/dv: the products on the tensor cores in 3xTF32 ----
 //
@@ -130,39 +113,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // rows row0 .. row0 + ROWS - 1 of an (n, D) matrix into a swizzled tile
-// by NT threads; rows >= n become zeros. float32: thread t copies chunk t %
-// CHUNKS of rows t / CHUNKS + i NT / CHUNKS by cp.async (src-size 0 for
-// the zeros), the caller commits the group; bf16: thread t converts the
-// 8-element vector t % 8 of rows t / 8 + i NT / 8 into one swizzled
-// 8-float group (swz keeps a group whole), written when this returns.
-template <int ROWS, int NT = THREADS, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
+// by NT threads: thread t copies chunk t % CHUNKS of rows t / CHUNKS + i
+// NT / CHUNKS by cp.async; rows >= n become zeros (src-size 0). The caller
+// commits the group.
+template <int ROWS, int NT = THREADS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
                                       int n, int t) {
-  if constexpr (kBf16<T>) {
-    constexpr int V8 = D / 8;  // 8-element vectors a row
-    static_assert(ROWS * V8 % NT == 0 && NT % V8 == 0, "stage");
+  static_assert(ROWS * CHUNKS % NT == 0 && NT % CHUNKS == 0, "stage");
 #pragma unroll
-    for (int i = 0; i < ROWS * V8 / NT; ++i) {
-      const int idx = t + i * NT;
-      const int r = idx / V8;
-      const int c = 8 * (idx % V8);
-      float f[8] = {};
-      if (row0 + r < n) mx_bf16::load8(src + (size_t)(row0 + r) * D + c, f);
-      float* g = dst + swz(r, c);
-      *reinterpret_cast<float4*>(g) = make_float4(f[0], f[1], f[2], f[3]);
-      *reinterpret_cast<float4*>(g + 4) = make_float4(f[4], f[5], f[6], f[7]);
-    }
-  } else {
-    static_assert(ROWS * CHUNKS % NT == 0 && NT % CHUNKS == 0, "stage");
-#pragma unroll
-    for (int i = 0; i < ROWS * CHUNKS / NT; ++i) {
-      const int idx = t + i * NT;
-      const int r = idx / CHUNKS;
-      const int c = idx % CHUNKS;
-      const bool valid = row0 + r < n;
-      cp_async16(dst + swz(r, 4 * c),
-                 src + (size_t)(valid ? row0 + r : 0) * D + 4 * c, valid);
-    }
+  for (int i = 0; i < ROWS * CHUNKS / NT; ++i) {
+    const int idx = t + i * NT;
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    const bool valid = row0 + r < n;
+    cp_async16(dst + swz(r, 4 * c),
+               src + (size_t)(valid ? row0 + r : 0) * D + 4 * c, valid);
   }
 }
 
@@ -305,21 +270,12 @@ __device__ __forceinline__ void product_pb(float (&acc)[M][8][4],
   }
 }
 
-// two adjacent outputs (float32: one 8-byte store; bf16: each rounded to
-// nearest even, one 4-byte store)
-__device__ __forceinline__ void store2(float* o, float a, float b) {
-  *reinterpret_cast<float2*>(o) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
-  *reinterpret_cast<uint32_t*>(o) = mx_bf16::pack2(a, b);
-}
-
 // acc[m][n] of product_pb into rows row0 + 16m + g (elements 0, 1) and
-// + 8 (2, 3), dims 8n + 2tq + 0/1, of an (n, D) matrix; rows >= n skipped
-template <int M, typename T>
+// + 8 (2, 3), dims 8n + 2tq + 0/1, of an (n, D) matrix, one 8-byte store
+// a pair; rows >= n skipped
+template <int M>
 __device__ __forceinline__ void store_rows(const float (&acc)[M][8][4],
-                                           T* out, int row0, int n,
+                                           float* out, int row0, int n,
                                            int g, int tq) {
 #pragma unroll
   for (int m = 0; m < M; ++m)
@@ -327,10 +283,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[M][8][4],
     for (int h = 0; h < 2; ++h) {
       const int r = row0 + 16 * m + 8 * h + g;
       if (r < n) {
-        T* row = out + (size_t)r * D + 2 * tq;
+        float* row = out + (size_t)r * D + 2 * tq;
 #pragma unroll
         for (int c = 0; c < 8; ++c)
-          store2(row + 8 * c, acc[m][c][2 * h], acc[m][c][2 * h + 1]);
+          *reinterpret_cast<float2*>(row + 8 * c) =
+              make_float2(acc[m][c][2 * h], acc[m][c][2 * h + 1]);
       }
     }
 }
@@ -354,37 +311,25 @@ __device__ __forceinline__ void lane_offsets(int g, int tq, int (&xo)[8],
 
 // lse and delta = rowsum(dO * O) of the thread's rows (element h of
 // m-tile m: row 32w + 16m + 8h + g), from the staged dO tile and O in
-// device memory (bf16: 8 elements a load, widened, the same fma order):
-// lane l sums row 32w + l, and shuffles hand each lane its rows
-template <typename T>
+// device memory: lane l sums row 32w + l, and shuffles hand each lane its
+// rows
 __device__ __forceinline__ void row_stats(float (&lse_r)[MT][2],
                                           float (&delta_r)[MT][2],
-                                          const float* lse, const T* o,
+                                          const float* lse, const float* o,
                                           const float* dos, int q0, int sq,
                                           int w, int lane, int g) {
   const int row = 32 * w + lane;
   float acc = 0.f;
   if (q0 + row < sq) {
-    const T* orow = o + (size_t)(q0 + row) * D;
-    if constexpr (kBf16<T>) {
+    const float* orow = o + (size_t)(q0 + row) * D;
 #pragma unroll
-      for (int c = 0; c < D; c += 8) {
-        float b[8];
-        mx_bf16::load8(orow + c, b);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          acc = fmaf(dos[swz(row, c + e)], b[e], acc);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(dos + swz(row, c));
-        const float4 b = *reinterpret_cast<const float4*>(orow + c);
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-        acc = fmaf(a.z, b.z, acc);
-        acc = fmaf(a.w, b.w, acc);
-      }
+    for (int c = 0; c < D; c += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(dos + swz(row, c));
+      const float4 b = *reinterpret_cast<const float4*>(orow + c);
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
     }
   }
 #pragma unroll
@@ -419,16 +364,15 @@ __device__ __forceinline__ void row_stats(float (&lse_r)[MT][2],
 // registers. Key tiles past the block's last visible key are not walked;
 // a block with none writes zeros; the masks are skipped where a whole
 // tile is visible to every row.
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_dq_kernel(const T* __restrict__ q,
-                          const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const T* __restrict__ o,
+flash_attention_dq_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ o,
                           const float* __restrict__ lse,
-                          const T* __restrict__ dout,
+                          const float* __restrict__ dout,
                           const int* __restrict__ lengths,
-                          T* __restrict__ dq, int heads, int sq, int sk,
+                          float* __restrict__ dq, int heads, int sq, int sk,
                           float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;            // [BQ][D] swizzled
@@ -447,8 +391,8 @@ flash_attention_dq_kernel(const T* __restrict__ q,
   const int tq = lane & 3;
   const int wrow = 32 * w;  // the thread's rows: wrow + 16m + 8h + g
   const size_t qoff = (size_t)bh * sq * D;
-  const T* kb = k + (size_t)bh * sk * D;
-  const T* vb = v + (size_t)bh * sk * D;
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
 
   int xo[8], yo[2][8];
   lane_offsets(g, tq, xo, yo);
@@ -784,14 +728,13 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
 int dq_entry(const void* q, const void* k, const void* v, const void* o,
              const void* lse, const void* dout, const void* lengths,
              void* dq, int batch, int heads, int sq, int sk, int d,
              float scale, int causal, void* stream) {
   if (d != D) return cudaErrorInvalidValue;
   const size_t smem = dqk::SMEM_BYTES;
-  cudaError_t err = set_smem(dqk::flash_attention_dq_kernel<T>, smem);
+  cudaError_t err = set_smem(dqk::flash_attention_dq_kernel, smem);
   if (err != cudaSuccess) return err;
   // one block an item: (batch*head, query tile), the tiles of a head
   // adjacent
@@ -799,13 +742,13 @@ int dq_entry(const void* q, const void* k, const void* v, const void* o,
       (long long)batch * heads * ((sq + dqk::BQ - 1) / dqk::BQ);
   if (items == 0) return cudaSuccess;
   const dim3 grid((unsigned)items);
-  dqk::flash_attention_dq_kernel<T><<<grid, dqk::THREADS, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const float*>(lse), static_cast<const T*>(dout),
-      static_cast<const int*>(lengths), static_cast<T*>(dq), heads, sq, sk,
-      scale, causal);
+  dqk::flash_attention_dq_kernel<<<grid, dqk::THREADS, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(lse), static_cast<const float*>(dout),
+      static_cast<const int*>(lengths), static_cast<float*>(dq), heads, sq,
+      sk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -838,9 +781,8 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* o,
 // ---- host entry points ----
 // q, o, do (B*H, Sq, D); k, v (B*H, Sk, D); lse (B*H, Sq) float32; lengths
 // (B,) int32; outputs dq (B*H, Sq, D) or dk, dv (B*H, Sk, D). All
-// contiguous on the device, 16-byte aligned; q, k, v, o, do and the
-// outputs float32, or bf16 for mx_flash_attention_dq_bf16. Each returns
-// the cudaError_t of its launch.
+// contiguous on the device, 16-byte aligned, float32. Each returns the
+// cudaError_t of its launch.
 extern "C" int mx_flash_attention_dq(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* lse, const void* dout,
@@ -848,19 +790,8 @@ extern "C" int mx_flash_attention_dq(const void* q, const void* k,
                                      int batch, int heads, int sq, int sk,
                                      int d, float scale, int causal,
                                      void* stream) {
-  return dq_entry<float>(q, k, v, o, lse, dout, lengths, dq, batch, heads,
-                         sq, sk, d, scale, causal, stream);
-}
-
-extern "C" int mx_flash_attention_dq_bf16(const void* q, const void* k,
-                                          const void* v, const void* o,
-                                          const void* lse, const void* dout,
-                                          const void* lengths, void* dq,
-                                          int batch, int heads, int sq,
-                                          int sk, int d, float scale,
-                                          int causal, void* stream) {
-  return dq_entry<__nv_bfloat16>(q, k, v, o, lse, dout, lengths, dq, batch,
-                                 heads, sq, sk, d, scale, causal, stream);
+  return dq_entry(q, k, v, o, lse, dout, lengths, dq, batch, heads, sq, sk,
+                  d, scale, causal, stream);
 }
 
 extern "C" int mx_flash_attention_dkv(const void* q, const void* k,

@@ -59,9 +59,18 @@
 // A logit widens to float exactly as it is loaded, and everything after
 // is the float32 instance's arithmetic, so nll and logp (float32, as the
 // reference writes them) are bitwise the float32 kernel's on the widened
-// logits. The cluster instance's bf16 rows are copied into the float
-// buffer by the threads, widened on the way (a bulk copy cannot widen);
-// the rest of its code is the float32 instance's.
+// logits. A bulk copy cannot widen, so the cluster instance's bf16 chunk
+// lands raw in a bf16 staging region in the float buffer's place: its
+// 16-byte-aligned middle by one bulk copy on the same mbarrier, the at
+// most 7 + 7 unaligned head and tail elements by scalar loads (Staged
+// below). Every pass then reads a float4 slot of the float32 instance's
+// buffer as 8 bytes of the staging region, widened (exact), so the
+// reductions and stores see the same values in the same order: 2 (chunk +
+// 8) bytes of shared memory a CTA, not 4 (chunk + 4), so more CTAs an SM.
+// Its geometry is the float32 instance's (the same cluster sizes and
+// chunks): at V 30522 two CTAs a row measured fastest for bf16 logits too
+// (chip_smoke.py times each size), and one geometry keeps the two
+// instances' bits equal at every V.
 //
 // Backward design: no element needs another, so the (rows, V) tensor is
 // one flat stream of n = rows x V elements (csrc/stream.cuh, as the
@@ -111,7 +120,8 @@ constexpr int PER_LANE = WARP_V / 32;     // values a lane
 constexpr int CLUSTER_MAX = 8;            // portable cluster size
 constexpr int HEADER = 128;               // mbarrier, partials, scratch
 constexpr int SMEM_MAX = 232448;          // a block's shared memory
-// floats of a CTA's chunk: a multiple of 4, buffer of chunk + 4 floats
+// columns of a CTA's chunk: a multiple of 4, buffer of chunk + 4 floats
+// (bf16 logits take the same chunks)
 constexpr int MAX_CHUNK = ((SMEM_MAX - HEADER) / 4 - 4) & ~3;
 constexpr int CHUNK_TARGET = 16384;
 
@@ -124,8 +134,12 @@ constexpr InstanceInfo INSTANCES[] = {
     {TWO_PASS, THREADS, 1, 0},
 };
 
-__host__ __device__ constexpr int cluster_smem_bytes(int chunk) {
-  return HEADER + 4 * (chunk + 4);
+// the cluster instance's dynamic shared memory at `chunk` columns a CTA
+// over logits of `itemsize` bytes: the float buffer, or for bf16 its
+// staging region (chunk + 8 bf16) in its place
+__host__ __device__ constexpr int cluster_smem_bytes(int chunk,
+                                                     int itemsize) {
+  return HEADER + (itemsize == 2 ? 2 * (chunk + 8) : 4 * (chunk + 4));
 }
 
 // a logit as float: bf16 widens exactly (the top half of a float)
@@ -312,6 +326,47 @@ __device__ __forceinline__ Chunk chunk_of(size_t row_start, int v, int chunk,
   return k;
 }
 
+// bf16 logits: the CTA's columns sit at staging indices [h8, h8 + len) of
+// a bf16 region (h8 = the chunk's start mod 8), so staging index 0 is
+// 16-byte aligned in x and in shared memory; the bulk copy takes indices
+// [lo, lo + body) (lo a multiple of 8), the threads the at most 7 + 7
+// before and after. h8 - h0 is 0 or 4, so buffer slot i (positions 4i ..
+// 4i + 3) holds staging indices 4 (i + off4) .. + 3 (tests/test_torch_
+// xent.py runs this arithmetic in Python).
+struct Staged {
+  int h8, lo, body, off4;
+};
+
+__device__ __forceinline__ Staged staged_of(size_t row_start,
+                                            const Chunk& k) {
+  Staged s;
+  s.h8 = (int)((row_start + k.c0) & 7);
+  const int head = min(k.len, (8 - s.h8) & 7);
+  s.lo = s.h8 + head;
+  s.body = (k.len - head) & ~7;
+  s.off4 = (s.h8 - k.h0) >> 2;
+  return s;
+}
+
+// buffer slot i from the staging region, widened (exact); positions
+// outside the chunk are -inf
+__device__ __forceinline__ float4 widen_slot(const unsigned short* stage,
+                                             const Staged& sg,
+                                             const Chunk& k, int i) {
+  const uint2 u = reinterpret_cast<const uint2*>(stage)[i + sg.off4];
+  float e[4] = {__uint_as_float(u.x << 16),
+                __uint_as_float(u.x & 0xffff0000u),
+                __uint_as_float(u.y << 16),
+                __uint_as_float(u.y & 0xffff0000u)};
+  const int p = 4 * i;
+  if (!(p >= k.h0 && p + 3 < k.h0 + k.len)) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (!(p + j >= k.h0 && p + j < k.h0 + k.len)) e[j] = -CUDART_INF_F;
+  }
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
 template <class T>
 __global__ void __launch_bounds__(THREADS)
 softmax_xent_fwd_cluster_kernel(const T* __restrict__ x,
@@ -335,22 +390,40 @@ softmax_xent_fwd_cluster_kernel(const T* __restrict__ x,
   const int w = t >> 5;
   const size_t row_start = (size_t)r * v;
   const Chunk k = chunk_of(row_start, v, chunk, rank);
-  const T* xc = x + row_start + k.c0 - k.h0;  // buffer position 0
   const uint32_t bar_a = smem_u32(bar);
-  // float32 rows come by one bulk copy; bf16 ones by the threads, widened
-  constexpr bool BULK = std::is_same<T, float>::value;
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  // bf16 rows: raw bf16 in place of the float buffer (chunk + 8 of them)
+  unsigned short* stage = reinterpret_cast<unsigned short*>(smem + HEADER);
+  const Staged sg = staged_of(row_start, k);
+  const float4* b4 = reinterpret_cast<const float4*>(buf);
+  // buffer slot i as the float32 instance holds it; bf16 widens it from
+  // the staging region wherever it is read
+  auto slot = [&](int i) {
+    if constexpr (BF16)
+      return widen_slot(stage, sg, k, i);
+    else
+      return b4[i];
+  };
+  // buffer position p (inside the chunk) likewise
+  auto slot_at = [&](int p) {
+    if constexpr (BF16)
+      return __uint_as_float((uint32_t)stage[p + 4 * sg.off4] << 16);
+    else
+      return buf[p];
+  };
 
   if (t == 0) mbar_init(bar_a, 1);
   __syncthreads();
-  if (t == 0) {
-    if (BULK && k.body > 0) {
-      mbar_expect_tx(bar_a, 4 * k.body);
-      bulk_load(smem_u32(buf + k.lo), xc + k.lo, 4 * k.body, bar_a);
-    } else {
-      mbar_arrive(bar_a);
+  if constexpr (!BF16) {
+    const T* xc = x + row_start + k.c0 - k.h0;  // buffer position 0
+    if (t == 0) {
+      if (k.body > 0) {
+        mbar_expect_tx(bar_a, 4 * k.body);
+        bulk_load(smem_u32(buf + k.lo), xc + k.lo, 4 * k.body, bar_a);
+      } else {
+        mbar_arrive(bar_a);
+      }
     }
-  }
-  if (BULK) {
     // the slots' other positions: head (below lo, at most 4) by threads
     // 0-3, tail and pad (from lo + body, at most 6) by threads 4-11
     if (t < 12) {
@@ -361,21 +434,32 @@ softmax_xent_fwd_cluster_kernel(const T* __restrict__ x,
       }
     }
   } else {
-    for (int p = t; p < 4 * k.nq; p += THREADS) {
-      const bool in = p >= k.h0 && p < k.h0 + k.len;
-      buf[p] = in ? ldg_logit(xc + p) : -CUDART_INF_F;
+    const unsigned short* xs = reinterpret_cast<const unsigned short*>(
+        x + row_start + k.c0 - sg.h8);  // staging index 0
+    if (t == 0) {
+      if (sg.body > 0) {
+        mbar_expect_tx(bar_a, 2 * sg.body);
+        bulk_load(smem_u32(stage + sg.lo), xs + sg.lo, 2 * sg.body, bar_a);
+      } else {
+        mbar_arrive(bar_a);
+      }
+    }
+    // the head (below lo, at most 7) by threads 0-7, the tail (from lo +
+    // body, at most 7) by threads 8-15, raw
+    if (t < 16) {
+      const int p = t < 8 ? sg.h8 + t : sg.lo + sg.body + (t - 8);
+      if (t < 8 ? p < sg.lo : p < sg.h8 + k.len) stage[p] = __ldg(xs + p);
     }
   }
   mbar_wait(bar_a, 0);
   __syncthreads();
 
   // the CTA's (max, exp-sum) over its slots, four chains a thread
-  const float4* b4 = reinterpret_cast<const float4*>(buf);
   float mc[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
                  -CUDART_INF_F};
 #pragma unroll 4
   for (int i = t; i < k.nq; i += THREADS) {
-    const float4 a = b4[i];
+    const float4 a = slot(i);
     mc[0] = fmaxf(mc[0], a.x);
     mc[1] = fmaxf(mc[1], a.y);
     mc[2] = fmaxf(mc[2], a.z);
@@ -391,7 +475,7 @@ softmax_xent_fwd_cluster_kernel(const T* __restrict__ x,
   float zc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
   for (int i = t; i < k.nq; i += THREADS) {
-    const float4 a = b4[i];
+    const float4 a = slot(i);
     zc[0] += expf(a.x - shift);
     zc[1] += expf(a.y - shift);
     zc[2] += expf(a.z - shift);
@@ -428,7 +512,7 @@ softmax_xent_fwd_cluster_kernel(const T* __restrict__ x,
   float* lc = logp + row_start + k.c0 - k.h0;
 #pragma unroll 4
   for (int i = t; i < k.nq; i += THREADS) {
-    const float4 a = b4[i];
+    const float4 a = slot(i);
     const int p = 4 * i;
     float4 o;
     o.x = (a.x - gm) - logz;
@@ -447,7 +531,7 @@ softmax_xent_fwd_cluster_kernel(const T* __restrict__ x,
   if (t == 0) {
     const int lab = labels[r];
     if (lab >= k.c0 && lab < k.c0 + k.len)
-      nll[r] = -((buf[lab - k.c0 + k.h0] - gm) - logz);
+      nll[r] = -((slot_at(lab - k.c0 + k.h0) - gm) - logz);
     else if (rank == 0 && !(lab >= 0 && lab < v))
       nll[r] = 0.f;
   }
@@ -610,7 +694,7 @@ cudaError_t launch_cluster(const T* x, const int* labels, float* nll,
   if (!attr_set[dev]) {
     err = cudaFuncSetAttribute(softmax_xent_fwd_cluster_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               cluster_smem_bytes(MAX_CHUNK));
+                               cluster_smem_bytes(MAX_CHUNK, (int)sizeof(T)));
     if (err != cudaSuccess) return err;
     // the whole carveout as shared memory, so small chunks stack up to
     // seven CTAs an SM
@@ -623,7 +707,7 @@ cudaError_t launch_cluster(const T* x, const int* labels, float* nll,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)rows * (unsigned)cluster);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = cluster_smem_bytes(chunk);
+  cfg.dynamicSmemBytes = cluster_smem_bytes(chunk, (int)sizeof(T));
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -729,17 +813,21 @@ extern "C" int mx_softmax_xent_fwd_bf16(const void* logits,
                                 cluster, chunk, stream);
 }
 
-// Dynamic shared memory of the forward's instance at `chunk` floats a CTA
-// in bytes (-1: no such instance), so the wrapper can hold xent_geometry
-// to the kernel's layout.
-extern "C" int mx_softmax_xent_fwd_smem(int instance, int chunk) {
+// Dynamic shared memory of the forward's instance at `chunk` columns a CTA
+// over logits of `itemsize` bytes (4: float32, 2: bf16) in bytes (-1: no
+// such instance), so the wrapper can hold xent_geometry to the kernel's
+// layout.
+extern "C" int mx_softmax_xent_fwd_smem(int instance, int chunk,
+                                        int itemsize) {
+  if (itemsize != 4 && itemsize != 2) return -1;
   switch (instance) {
     case WARP_ROW:
     case TWO_PASS:
       return 0;
     case CLUSTER_ROW:
-      return chunk >= 0 && chunk <= MAX_CHUNK ? cluster_smem_bytes(chunk)
-                                              : -1;
+      return chunk >= 0 && chunk <= MAX_CHUNK
+                 ? cluster_smem_bytes(chunk, itemsize)
+                 : -1;
     default:
       return -1;
   }

@@ -52,6 +52,7 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
                       require as _require, stream as _stream)
 
 __all__ = ['XENT_INSTANCES', 'XentGeometry', 'xent_geometry',
+           'xent_cluster_smem',
            'XentBwdChunk', 'xent_bwd_geometry',
            'fused_softmax_xent_rows',
            'fused_softmax_xent_rows_reference',
@@ -67,7 +68,8 @@ XENT_THREADS = 256
 XENT_WARP_V = 1024          # widest row one warp holds in registers
 XENT_CLUSTER_MAX = 8        # CTAs a cluster (the portable size)
 XENT_HEADER = 128           # bytes of mbarrier, partials and scratch
-# floats of a CTA's chunk (a multiple of 4; its buffer holds chunk + 4)
+# columns of a CTA's chunk (a multiple of 4; its float buffer holds chunk
+# + 4), for float32 and bf16 logits alike
 XENT_CHUNK_MAX = ((SMEM_BLOCK_MAX - XENT_HEADER) // 4 - 4) & ~3
 XENT_CHUNK_TARGET = 16384   # 64 KB a CTA: three CTAs an SM
 
@@ -80,29 +82,44 @@ def _chunk(v, cluster):
     return 4 * -(-per // 4)
 
 
-def _cluster_geometry(rows, v, cluster):
-    """The cluster instance's geometry at ``cluster`` CTAs a row; raises
-    where a CTA of it would hold no column or its chunk does not fit."""
+def xent_cluster_smem(chunk, itemsize=4):
+    """Dynamic shared memory bytes of a cluster CTA holding ``chunk``
+    columns of logits of ``itemsize`` bytes (4: float32, 2: bf16): the
+    header and a float buffer of chunk + 4, or for bf16 logits a bf16
+    staging region of chunk + 8 in its place."""
+    _require(itemsize in (4, 2), 'xent_geometry: logits of %r bytes an '
+             'element are not built (have 4, 2)' % (itemsize,))
+    return XENT_HEADER + (2 * (chunk + 8) if itemsize == 2
+                          else 4 * (chunk + 4))
+
+
+def _cluster_geometry(rows, v, cluster, itemsize=4):
+    """The cluster instance's geometry at ``cluster`` CTAs a row over
+    logits of ``itemsize`` bytes; raises where a CTA of it would hold no
+    column or its chunk does not fit."""
     chunk = _chunk(v, cluster)
     _require(1 <= cluster <= XENT_CLUSTER_MAX and chunk <= XENT_CHUNK_MAX
              and (cluster - 1) * chunk < v,
              'xent_geometry: no cluster instance of %r CTAs for V %d'
              % (cluster, v))
     return XentGeometry('cluster', cluster, chunk,
-                        XENT_HEADER + 4 * (chunk + 4), XENT_THREADS,
+                        xent_cluster_smem(chunk, itemsize), XENT_THREADS,
                         rows * cluster)
 
 
-def xent_geometry(rows, v):
-    """The forward kernel's instance for (rows, V) logits, as a
-    :class:`XentGeometry` (instance, CTAs a cluster, floats a CTA's chunk,
-    dynamic shared memory bytes a CTA, threads a block, blocks).
+def xent_geometry(rows, v, itemsize=4):
+    """The forward kernel's instance for (rows, V) logits of ``itemsize``
+    bytes an element (4: float32, 2: bf16), as a :class:`XentGeometry`
+    (instance, CTAs a cluster, columns a CTA's chunk, dynamic shared
+    memory bytes a CTA, threads a block, blocks).
 
     ``warp`` for V <= :data:`XENT_WARP_V` (eight rows a block); else
     ``cluster``, the fewest of 1, 2, 4, 8 CTAs a row whose chunk (V / CTAs
     rounded up to a multiple of 4) is at most :data:`XENT_CHUNK_TARGET`
-    floats, or 8 while the chunk fits a block's shared memory
-    (:data:`XENT_CHUNK_MAX`); past that ``two_pass``, a block a row."""
+    columns, or 8 while the chunk fits a block's float buffer
+    (:data:`XENT_CHUNK_MAX`); past that ``two_pass``, a block a row. Only
+    the shared memory depends on ``itemsize``: bf16 logits take the
+    float32 instance's cluster sizes and chunks, and so its bits."""
     if v <= XENT_WARP_V:
         return XentGeometry('warp', 1, v, 0, XENT_THREADS,
                             -(-rows // (XENT_THREADS // 32)))
@@ -110,7 +127,7 @@ def xent_geometry(rows, v):
                     if _chunk(v, c) <= XENT_CHUNK_TARGET), XENT_CLUSTER_MAX)
     if _chunk(v, cluster) > XENT_CHUNK_MAX:
         return XentGeometry('two_pass', 1, v, 0, XENT_THREADS, rows)
-    return _cluster_geometry(rows, v, cluster)
+    return _cluster_geometry(rows, v, cluster, itemsize)
 
 
 XentBwdChunk = collections.namedtuple(
@@ -209,13 +226,15 @@ def _lib(entry):
             # the kernel's layout against xent_geometry's
             smem = lib.mx_softmax_xent_fwd_smem
             smem.restype = ctypes.c_int
-            smem.argtypes = [ctypes.c_int] * 2
-            for chunk in (4, XENT_CHUNK_TARGET, XENT_CHUNK_MAX):
-                built = smem(XENT_INSTANCES.index('cluster'), chunk)
-                want = XENT_HEADER + 4 * (chunk + 4)
-                _require(built == want, 'softmax_xent_fwd: xent_geometry '
-                         'gives %d bytes at chunk %d, the kernel takes %d'
-                         % (want, chunk, built))
+            smem.argtypes = [ctypes.c_int] * 3
+            for item in (4, 2):
+                for chunk in (4, XENT_CHUNK_TARGET, XENT_CHUNK_MAX):
+                    built = smem(XENT_INSTANCES.index('cluster'), chunk, item)
+                    want = xent_cluster_smem(chunk, item)
+                    _require(built == want, 'softmax_xent_fwd: xent_geometry '
+                             'gives %d bytes at chunk %d (%d-byte logits), '
+                             'the kernel takes %d'
+                             % (want, chunk, item, built))
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
     return fn
@@ -229,7 +248,7 @@ def softmax_xent_forward(logits, labels):
     if _on_cpu('softmax_xent_forward', logits, '(rows, V)'):
         return softmax_xent_forward_reference(logits, labels)
     rows, v = logits.shape
-    geom = xent_geometry(rows, v)
+    geom = xent_geometry(rows, v, logits.element_size())
     lab = labels.to(dtype=torch.int32).reshape(-1).contiguous()
     _require(lab.shape[0] == rows, 'softmax_xent_forward: %d labels for '
              '%d rows' % (lab.shape[0], rows))

@@ -103,11 +103,11 @@ def _build_variant(build, family, name, subs):
 
 
 def _resources(log, kernel):
-    """(registers, spill bytes) of ``kernel``'s float32 instance (the
-    one the probe times) in ptxas's lines."""
+    """(registers, spill bytes) of ``kernel`` (float32, the one the
+    probe times) in ptxas's lines."""
     lines = log.splitlines()
     for i, ln in enumerate(lines):
-        if 'Compiling entry' in ln and kernel + '_kernelIfE' in ln:
+        if 'Compiling entry' in ln and re.search(kernel + '_kernelE', ln):
             rest = ' '.join(lines[i + 1:i + 4])
             regs = re.search(r'Used (\d+) registers', rest)
             spill = sum(int(n) for n in re.findall(

@@ -1,11 +1,11 @@
-"""Time the bf16 tensor-core flash kernels (the forward, dk/dv) beside
+"""Time the bf16 tensor-core flash kernels (the forward, dq, dk/dv) beside
 variants of their sources on the card, at AMP's training shape (B 96, H
 12, S 128, D 64, non-causal, bf16).
 
-    python -m mxnet_tpu_torch.tools.probe_flash_bf16_variants [fwd|dkv]
+    python -m mxnet_tpu_torch.tools.probe_flash_bf16_variants [fwd|dq|dkv]
 
-Without an argument both families run, the forward first. Each variant is
-``csrc/flash_attention_{fwd,dkv}_bf16.cu`` (``_build.source_text``: the
+Without an argument every family runs, the forward first. Each variant is
+``csrc/flash_attention_{fwd,dq,dkv}_bf16.cu`` (``_build.source_text``: the
 headers inlined) with exact text substitutions (each must occur once),
 built with the port's nvcc flags into the ignored
 ``ops/kernels/_build/variants/`` and called through the same C entry
@@ -15,7 +15,10 @@ no spill, against the built two blocks an SM that spill a little.
 ``vlate`` (the forward) commits the first V tile as a cp.async group of
 its own and waits for it only before P.V, so its copy runs under S and
 the softmax: whether the first tile's load latency is what the forward
-waits on. The
+waits on. dq's ``ks64`` takes 64 keys a step (S, dP and dQ in 32 + 32 +
+32 floats a thread, fewer ldmatrix of Q and dO), ``bk64`` 64-key tiles
+(64 KB of shared memory a block, two tiles at S 128, the second loading
+while the first is computed). The
 kernels run in turns (built, variants, variants reversed, built), each
 timed by the probe's ``slope_ms`` over inputs rotated past twice the L2
 (the library's time at this shape is chip_smoke.py's). A line a variant
@@ -41,6 +44,9 @@ FWD_KV0 = ('    stage_rows<BK, THREADS>(kv0 + TILE, vb, 0, sk, t);\n'
            '    cp_async_commit();')
 FWD_WAIT = '    cp_async_wait_all();  // K(j), V(j) and (j == 0) Q have landed'
 FWD_PV = '    product_pv<BK / 16>(o, s, kt + TILE, lane);'
+# dq's keys a step and keys a tile
+DQ_KS = 'constexpr int KS = 32;   // keys a step'
+DQ_BK = 'constexpr int BK = 128;  // keys a tile'
 # family -> (source, {variant: (what, [(text, replacement)])})
 FAMILIES = {
     'fwd': ('flash_attention_fwd_bf16', {
@@ -58,6 +64,13 @@ FAMILIES = {
                        '"memory");\n'
                        '      else\n        cp_async_wait_all();\n'
                        '      __syncthreads();\n    }\n' + FWD_PV)])}),
+    'dq': ('flash_attention_dq_bf16', {
+        'lb1': ('one block an SM, no register limit of 128',
+                [(LB, LB.replace('2)', '1)'))]),
+        'ks64': ('64 keys a step: one step a tile',
+                 [(DQ_KS, DQ_KS.replace('32', '64'))]),
+        'bk64': ('64-key tiles, 64 KB a block',
+                 [(DQ_BK, DQ_BK.replace('128', '64 '))])}),
     'dkv': ('flash_attention_dkv_bf16', {
         'lb1': ('one block an SM, no register limit of 128',
                 [(LB, LB.replace('2)', '1)'))])}),
@@ -93,13 +106,16 @@ def _resources(log):
     return int(regs.group(1)) if regs else None, spill
 
 
+# pointers of each family's entry: fwd q, k, v, lengths, out, lse; dq q,
+# k, v, out, lse, do, lengths, dq; dkv the same with dk, dv
+POINTERS = {'fwd': 6, 'dq': 8, 'dkv': 9}
+
+
 def _entry(lib, family):
     fn = getattr(lib, 'mx_flash_attention_%s_bf16' % family)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p] if family == 'fwd'
-        else [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * POINTERS[family] + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -148,11 +164,11 @@ def main(argv=None):
 
         def call(fn, family=family):
             def run(*t):
-                res = ([torch.empty_like(t[0]), torch.empty(
-                    t[0].shape[:3], device='cuda')] if family == 'fwd'
-                    else [torch.empty_like(t[1]), torch.empty_like(t[2])])
-                # fwd: q, k, v, lengths, out, lse; dkv: q, k, v, out, lse,
-                # do, lengths, dk, dv
+                res = {'fwd': [torch.empty_like(t[0]), torch.empty(
+                    t[0].shape[:3], device='cuda')],
+                    'dq': [torch.empty_like(t[0])],
+                    'dkv': [torch.empty_like(t[1]), torch.empty_like(t[2])]
+                }[family]
                 p = [ctypes.c_void_p(x.data_ptr()) for x in (*t, *res)]
                 err = fn(*p, b, h, s, s, d, 1.0 / 8, 0, stream)
                 if err:
@@ -161,8 +177,9 @@ def main(argv=None):
                 return tuple(res)
             return run
 
-        fns = {'built': (kernels.flash_attention_with_lse if family == 'fwd'
-                         else kernels.flash_attention_dkv)}
+        fns = {'built': {'fwd': kernels.flash_attention_with_lse,
+                         'dq': lambda *t: (kernels.flash_attention_dq(*t),),
+                         'dkv': kernels.flash_attention_dkv}[family]}
         fns.update((n, call(built[family, n][0])) for n in variants)
         times = {n: [] for n in fns}
         for name in list(fns) + list(fns)[::-1]:

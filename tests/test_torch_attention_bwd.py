@@ -213,15 +213,14 @@ def test_wrappers_refuse_mixed_and_other_dtypes():
 @pytest.mark.cuda
 def test_bf16_instances_are_the_float32_kernels_rounded_on_card():
     """The bf16 kernels of the forward, dq and dkv (AMP) at the training
-    shape and two odd cases. dq's instance is bitwise the float32 kernel on
-    the widened inputs, rounded to bf16. The forward and dk/dv run on the
-    bf16 tensor cores and round p (and ds) to bf16 before their products,
-    another function: each within two bf16 ULPs of its own plain version
-    beyond the float32 tier and what a flip of p or ds near a bf16
+    shape and two odd cases. All three run on the bf16 tensor cores and
+    round p (and ds) to bf16 before their products, another function than
+    the float32 kernels': each within two bf16 ULPs of its own plain
+    version beyond the float32 tier and what a flip of p or ds near a bf16
     rounding midpoint can move (the plain versions' ``slack``), and within
     the reference's bf16 tier of the reference function (0.02 absolute for
-    out, 2e-2 of the max abs for dk and dv); lse within 1e-5 of the float32
-    kernel's."""
+    out, 2e-2 of the max abs for dq, dk and dv); lse within 1e-5 of the
+    float32 kernel's."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels are CUDA C++ for '
                     'sm_90a and have no CPU mode')
@@ -244,17 +243,18 @@ def test_bf16_instances_are_the_float32_kernels_rounded_on_card():
         assert bf16_ulps(out.float().cpu(), plain.float().cpu().numpy(),
                          1e-5 + flips.cpu()) <= 2, (s, causal)
         assert (out.float() - ref.float()).abs().max().item() <= 0.02
-        dq = kernels.flash_attention_dq(q, k, v, out, lse, g, lens, causal)
-        dq32 = kernels.flash_attention_dq(*w[:3], out.float(), lse, w[3],
-                                          lens, causal)
-        assert torch.equal(dq, dq32.to(BF16)), ('dq', s, causal)
-        got = kernels.flash_attention_dkv(q, k, v, out, lse, g, lens, causal)
+        got = (kernels.flash_attention_dq(q, k, v, out, lse, g, lens, causal),
+               *kernels.flash_attention_dkv(q, k, v, out, lse, g, lens,
+                                            causal))
+        dq_want, dq_flips = kernels.flash_attention_dq_bf16_reference(
+            q, k, v, out, lse, g, lens, causal, slack=True)
         *want, dk_flips, dv_flips = kernels.flash_attention_dkv_bf16_reference(
             q, k, v, out, lse, g, lens, causal, slack=True)
-        refs = kernels.flash_attention_dkv_reference(q, k, v, out, lse, g,
-                                                     lens, causal)
-        for name, a, p, fl, r in zip(('dk', 'dv'), got, want,
-                                     (dk_flips, dv_flips), refs):
+        refs = kernels.flash_attention_backward_reference(
+            q, k, v, out, lse, g, lens, causal)
+        for name, a, p, fl, r in zip(('dq', 'dk', 'dv'), got,
+                                     [dq_want] + want,
+                                     (dq_flips, dk_flips, dv_flips), refs):
             top = p.float().abs().max().item()
             assert bf16_ulps(a.float().cpu(), p.float().cpu().numpy(),
                              1e-5 * top + fl.cpu()) <= 2, (name, s, causal)

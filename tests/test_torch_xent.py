@@ -213,7 +213,8 @@ def _const(src, name):
 
 def test_instance_table_mirrors_the_source():
     """``XENT_INSTANCES`` and the limits are the C enum, constants and
-    ``INSTANCES`` table; the shared-memory formula is the C one."""
+    ``INSTANCES`` table; the shared-memory formula is the C one, for
+    float32 and for bf16 logits."""
     src = _source()
     assert ('enum Instance { WARP_ROW = 0, CLUSTER_ROW = 1, TWO_PASS = 2 };'
             in src)
@@ -238,7 +239,13 @@ def test_instance_table_mirrors_the_source():
             int(values.get(k, k))) for i, t, c, k in rows]
     assert got == [('warp', 256, 1, 1024), ('cluster', 256, 8, 58076),
                    ('two_pass', 256, 1, 0)]
-    assert 'return HEADER + 4 * (chunk + 4);' in src
+    assert ('return HEADER + (itemsize == 2 ? 2 * (chunk + 8) : 4 * (chunk '
+            '+ 4));' in src)
+    for chunk in (4, 16384, 58076):
+        assert _xent.xent_cluster_smem(chunk) == 128 + 4 * (chunk + 4)
+        assert _xent.xent_cluster_smem(chunk, 2) == 128 + 2 * (chunk + 8)
+    with pytest.raises(ValueError):
+        _xent.xent_cluster_smem(16384, 8)
 
 
 def test_card_cases_reach_every_instance_and_cluster_size():
@@ -352,6 +359,76 @@ def test_cluster_chunks_cover_each_row_once_aligned(v, cluster):
                 p = 4 * i
                 if h0 <= p and p + 3 < h0 + n:
                     assert (row_start + c0 - h0 + p) % 4 == 0
+        assert cols == list(range(v))
+
+
+def _staged_of(row_start, v, chunk, rank):
+    """``staged_of`` of the source for bf16 logits: (h8, lo, body, off4)
+    beside the chunk's (c0, len, h0, nq)."""
+    c0, n, h0, _, _, nq = _chunk_of(row_start, v, chunk, rank)
+    h8 = (row_start + c0) & 7
+    head = min(n, (8 - h8) & 7)
+    return (c0, n, h0, nq), (h8, h8 + head, (n - head) & ~7, (h8 - h0) >> 2)
+
+
+@pytest.mark.parametrize('v', GEOMETRY_V)
+@pytest.mark.parametrize('rows', [1, 1920])
+def test_bf16_xent_geometry(rows, v):
+    """bf16 logits take the float32 instance's instance, cluster size and
+    chunks (so its bits, and the size that measured fastest for both at V
+    30522); only a cluster CTA's shared memory differs: the header and a
+    bf16 staging region of chunk + 8 in the float buffer's place, within
+    a block's 232,448 bytes."""
+    g = kernels.xent_geometry(rows, v, 2)
+    f = kernels.xent_geometry(rows, v)
+    assert g._replace(smem=f.smem) == f
+    if g.instance == 'cluster':
+        assert g.smem == 128 + 2 * (g.chunk + 8) <= 232448
+        assert g.smem < f.smem
+    else:
+        assert g.smem == f.smem == 0
+
+
+@pytest.mark.parametrize('v,cluster', [(30522, 2), (30522, 4), (30523, 2),
+                                       (30523, 8), (1025, 1), (8193, 2),
+                                       (1027, 8), (50000, 4), (200003, 8),
+                                       (464608, 8), (13, 1)])
+def test_bf16_staging_covers_each_chunk_once_aligned(v, cluster):
+    """bf16 logits, for rows starting at each offset mod 16 bytes: the bulk
+    copy reads whole 16-byte units of x inside the chunk into 16-byte
+    aligned staging positions; threads 0-7 and 8-15 take the rest of the
+    chunk; together each column of the chunk lands once, at staging index
+    c - c0 + h8, and nothing outside the row is read. Buffer slot i of the
+    float32 instance (positions 4i .. 4i + 3) reads staging indices 4 (i +
+    off4) .. + 3, which hold exactly the columns the float32 buffer holds
+    there, and stay inside the chunk + 8 bf16 allocated."""
+    chunk = _xent._chunk(v, cluster)
+    for r in range(8):
+        row_start = r * v
+        cols = []
+        for rank in range(cluster):
+            (c0, n, h0, nq), (h8, lo, body, off4) = _staged_of(
+                row_start, v, chunk, rank)
+            if n == 0:
+                continue
+            assert off4 in (0, 1) and lo % 8 == 0 and body % 8 == 0
+            assert h8 <= lo <= h8 + n and lo + body <= h8 + n
+            if body:
+                assert (row_start + c0 - h8 + lo) % 8 == 0   # 16 bytes in x
+            landed = list(range(lo, lo + body))
+            for t in range(16):
+                p = h8 + t if t < 8 else lo + body + (t - 8)
+                if p < lo if t < 8 else p < h8 + n:
+                    landed.append(p)
+            assert sorted(landed) == list(range(h8, h8 + n))
+            for i in range(nq):
+                for e in range(4):
+                    p = 4 * i + e
+                    idx = 4 * (i + off4) + e
+                    assert idx < chunk + 8
+                    if h0 <= p < h0 + n:
+                        assert idx - h8 == p - h0       # the same column
+                        cols.append(c0 + idx - h8)
         assert cols == list(range(v))
 
 
