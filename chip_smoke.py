@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero:
      ``TC_SPILL_LIMIT`` bytes, logged), HMMA in the bf16 forward, dq and
      dk/dv; the BN
      apply's, add+act's and the xent kernels' bf16 instances spill
-     nothing either;
+     nothing either, nor does any instance of the whole-model optimizer
+     update;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -109,7 +110,20 @@ Phases, in order; any failure exits non-zero:
      backward; the xent head at ResNet's 128 x 1000 and the MLM's 1920 x
      30522, where the xent forward's cluster instance is also timed at 1,
      2, 4 and 8 CTAs a row on bf16 logits and on them widened, in
-     turns);
+     turns). Then the whole-model optimizer update (row 17): every rule
+     (SGD, SGD + momentum, AdamW, with rescale, an lr and a wd
+     multiplier, and a clip that clamps at least a fifth of the
+     gradient) in every form (float32; bf16 without a master; bf16 with
+     float32 masters) through the trainer's ``FusedUpdate`` against its
+     plain version, the per-parameter loop of
+     ``update_multi_precision``, bitwise (weights, states, masters,
+     update counts) over 3 steps, with one launch of the form's instance
+     a step, at odd lengths (a misaligned view, a parameter without a
+     gradient) and at BERT-base's and ResNet-50's parameter lists; then
+     timed at the pairs the trainer phases run (BERT-base with AdamW in
+     every form, ResNet-50 with SGD + momentum in float32 and bf16)
+     beside its bound, the plain loop and the ``_foreach_`` chain of the
+     same expressions (not one call);
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -150,7 +164,21 @@ Phases, in order; any failure exits non-zero:
      2 float32 xent forward and backward, and nothing else; losses finite
      and falling, the first within rtol 6e-2 of 4b's; masters and AdamW
      state float32; step ms, samples/s, busy share, the profile groups
-     (casts apart) and peak memory beside 4b's;
+     (casts apart) and peak memory beside 4b's. Every trainer step also
+     launches the whole-model optimizer update once a form of
+     parameters (float32 here). 4a-cast: 4a's small BERT after
+     ``cast('bfloat16')``, AdamW without and with ``multi_precision``,
+     on the card against the CPU at 4a-amp's tolerances. 4d:
+     ``bench_bert``'s accelerator configuration, 4b's weights and batch
+     after ``cast('bfloat16')`` with AdamW on bf16 weights and state, 2
+     + 10 steps: per step exactly 12 bf16 flash forward, dq and dk/dv
+     launches, one bf16 act forward and backward, 2 bf16 xent forward
+     (the MLM's cluster and NSP's warp instance) and backward, one
+     ``multi_tensor_update.bf16``, nothing else; losses finite, the first
+     within rtol 6e-2 of 4b's, each of the last three below it;
+     parameters and state bf16; its metrics beside 4b's and 4c's. 4d-mp:
+     the same with ``multi_precision`` (float32 masters and state, one
+     ``multi_tensor_update.mp`` a step);
   5. the ResNet slice. 5a: a narrow v1 ResNet (``[2, 1, 1, 1]`` x ``[8,
      16, 32, 64, 128]``, 10 classes) takes one forward and backward and
      three SGD steps (lr 0.001) on the card and on the CPU from the same
@@ -161,7 +189,8 @@ Phases, in order; any failure exits non-zero:
      trains with SGD (lr 0.1, momentum 0.9, wd 1e-4) on a fixed batch of
      128 x 3 x 224 x 224 images, 1000 classes: 2 warm-up + 10 timed
      steps with exact launch counts per step (53 BN apply, 33 act, 16
-     add+act, 49 act backward, one xent each way), finite losses, the
+     add+act, 49 act backward, one xent each way, one whole-model SGD
+     update), finite losses, the
      first within 1.5 of ln(1000), falling for two steps and by 1 in
      all; a profiled step; an inference forward (53 / 33 / 16). 5c: the
      trained net, its moving statistics recomputed for its weights, with
@@ -182,7 +211,9 @@ Phases, in order; any failure exits non-zero:
      backward a step, statistics unchanged). 5e: the same net after
      ``cast('bfloat16')`` on bf16 images, SGD without ``multi_precision``
      (``bench_resnet``): per step 53 float32 BN apply, 33 / 16 / 49 bf16,
-     one bf16 xent forward (bf16 logits) and backward (bf16 dlogits);
+     one bf16 xent forward (bf16 logits) and backward (bf16 dlogits), one
+     whole-model update of the bf16 weights and one of BatchNorm's
+     float32 parameters;
      first loss within 6e-2 of 5b's, losses finite, the same metrics;
   6. the SSD detection serving slice. The nms kernel against its plain
      version on the card, keep masks bitwise equal: 16 x 7378 boxes
@@ -1981,6 +2012,319 @@ def time_bf16_rows(torch, kernels, batch=RESNET['batch'],
     return rows
 
 
+# -- phase 2: the whole-model optimizer update (row 17) ----------------------
+
+# odd lengths: below a vector, a vector and one more, whole chunks of
+# 8192 and one more, a tail; tensor 3 a view 4 bytes off 16 (no vector
+# loads), tensor 2 never given a gradient (it reads zeros)
+ODD_LENGTHS = (1, 7, 9, 8, 4097, 8192, 8193, 20001)
+# each rule with clip, rescale, an lr and a wd multiplier; AdamW at the
+# bench's lr and wd. fused_grads draws 0.01 x N(0, 1) gradients, so the
+# rescaled ones have a standard deviation near 3.7e-3 and the clip at
+# 3e-3 clamps about 40 % of the elements in every rule and form
+FUSED_CLIP = 3e-3
+FUSED_HYPER = {
+    'sgd': dict(learning_rate=0.1, wd=1e-4, clip_gradient=FUSED_CLIP,
+                rescale_grad=0.37),
+    'sgd_mom': dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                    clip_gradient=FUSED_CLIP, rescale_grad=0.37),
+    'adamw': dict(learning_rate=1e-4, wd=0.01, clip_gradient=FUSED_CLIP,
+                  rescale_grad=0.37)}
+# the least share of gradient elements the check must see clamped
+FUSED_CLAMPED = 0.2
+FUSED_STEPS = 3
+# (list, rule, form) timed: the pairs the trainer phases run, BERT-base
+# with AdamW in float32 (4b, 4c), .bf16 (4d) and .mp (4d-mp), ResNet-50
+# with SGD + momentum in float32 (5b, 5d; 5e's BatchNorm parameters) and
+# .bf16 (5e)
+FUSED_TIMED = (('bert', 'adamw', 'float32'), ('bert', 'adamw', 'low'),
+               ('bert', 'adamw', 'master'), ('resnet', 'sgd_mom', 'float32'),
+               ('resnet', 'sgd_mom', 'low'))
+
+
+def param_lists(torch, bert, resnet):
+    """The shapes of the tensors the trainer updates in BERT-base (206
+    tensors, 131.37 M elements) and ResNet-50 v1 (193, 25.58 M): the nets
+    allocated on the CPU, never filled."""
+    cpu = torch.device('cpu')
+    nets = {'bert': bert.bert_12_768_12(vocab_size=TRAIN['vocab'],
+                                        max_length=512, dropout=0.1,
+                                        device=cpu),
+            'resnet': resnet.get_resnet(1, RESNET['depth'], device=cpu)}
+    return {name: [tuple(p.shape) for p in net.collect_params().values()
+                   if p.requires_grad] for name, net in nets.items()}
+
+
+def fused_setup(torch, optimizer, rule, form, shapes, device, seed=0,
+                odd=False):
+    """(parameter pairs, optimizer, states) of one instance: weights of
+    ``shapes`` from a seed on ``device`` (bf16 for the bf16 forms), the
+    rule's optimizer (``multi_precision`` for 'master') with an lr and a
+    wd multiplier, its states; with ``odd`` tensor 3 a view 4 bytes off
+    16. The same arguments give the same values."""
+    import warnings
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.float32 if form == 'float32' else torch.bfloat16
+    pairs = []
+    for i, shape in enumerate(shapes):
+        n = math.prod(shape)
+        base = torch.randn(n + 1, generator=gen, device=device).to(dt)
+        w = base[1:] if odd and i == 3 else base[:n].clone()
+        pairs.append((i, torch.nn.Parameter(w.view(shape))))
+    hyper = dict(FUSED_HYPER[rule], multi_precision=form == 'master')
+    opt = optimizer.create('sgd' if rule.startswith('sgd') else rule,
+                           **hyper)
+    opt.idx2name = {i: 'p%d_weight' % i for i, _ in pairs}
+    opt.set_lr_mult({0: 0.5})
+    opt.set_wd_mult({'p1_weight': 0.0})
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')    # bf16 weights without a master
+        states = [opt.create_state_multi_precision(i, p.detach())
+                  for i, p in pairs]
+    return pairs, opt, states
+
+
+def fused_grads(torch, pairs, step, skip=2):
+    """Gradients of one step, from a seed, in each weight's dtype; the
+    parameter at ``skip`` gets none."""
+    gen = torch.Generator(device=pairs[0][1].device).manual_seed(100 + step)
+    for i, p in pairs:
+        p.grad = None if i == skip else (torch.randn(
+            p.shape, generator=gen, device=p.device) * 0.01).to(p.dtype)
+
+
+def clamped_share(pairs, opt):
+    """The share of the step's gradient elements that ``opt``'s clip
+    clamps, |g * rescale| > clip in float32 (the bf16 AdamW's rounding
+    of the rescaled gradient and the clip aside)."""
+    hit = total = 0
+    for _, p in pairs:
+        if p.grad is not None:
+            g = p.grad.float() * opt.rescale_grad
+            hit += int((g.abs() > opt.clip_gradient).sum())
+            total += g.numel()
+    return hit / total
+
+
+def _state_tensors(states):
+    out = []
+    for st in states:
+        if isinstance(st, (tuple, list)):
+            out += _state_tensors(st)
+        elif st is not None:
+            out.append(st)
+    return out
+
+
+def plain_update(torch, pairs, opt, states):
+    """The whole-model update's plain version: ``update_multi_precision``
+    parameter by parameter, a missing gradient as zeros."""
+    with torch.no_grad():
+        for (i, p), st in zip(pairs, states):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            opt.update_multi_precision(i, p.data, g, st)
+
+
+def check_fused_update(torch, kernels, optimizer, device, lists,
+                       steps=FUSED_STEPS):
+    """Every instance (rule x form) of ``multi_tensor_update`` through the
+    trainer's ``FusedUpdate`` against its plain version on the card, over
+    ``steps`` consecutive steps from the same weights and states, at each
+    list of ``lists`` (name -> shapes): weights, states, masters, update
+    counts bitwise equal, one launch of the instance a step and nothing
+    else; the clip clamps at least ``FUSED_CLAMPED`` of each step's
+    gradient elements. Returns {instance name: worst max abs error
+    (0.0)}."""
+    from mxnet_tpu_torch.ops.kernels import multi_tensor as mt
+    from mxnet_tpu_torch.optimizer import fused
+    errs = {}
+    for lname, shapes in lists.items():
+        shares = []
+        for rule in mt.RULES:
+            for form in mt.FORMS:
+                name = mt.instance_name(form)
+                odd = lname == 'odd'
+                mine = fused_setup(torch, optimizer, rule, form, shapes,
+                                   device, odd=odd)
+                want = fused_setup(torch, optimizer, rule, form, shapes,
+                                   device, odd=odd)
+                update = fused.FusedUpdate(mine[1], mine[0], mine[2], device)
+                if set(update.groups) != {form}:
+                    raise AssertionError('fused update: groups %r for %s'
+                                         % (update.groups, form))
+                for step in range(steps):
+                    fused_grads(torch, mine[0], step)
+                    fused_grads(torch, want[0], step)
+                    shares.append(clamped_share(mine[0], mine[1]))
+                    if shares[-1] < FUSED_CLAMPED:
+                        raise AssertionError(
+                            'fused update %s %s at %s, step %d: the clip '
+                            'clamps %.3f of the gradient, under %g'
+                            % (rule, form, lname, step, shares[-1],
+                               FUSED_CLAMPED))
+                    kernels.reset_launch_counts()
+                    update()
+                    counts = {k: c for k, c in kernels.launch_counts().items()
+                              if c}
+                    if device.type == 'cuda' and counts != {name: 1}:
+                        raise AssertionError('fused update %s %s: launches '
+                                             '%r, expected one %s'
+                                             % (rule, form, counts, name))
+                    plain_update(torch, *want)
+                    got = [p for _, p in mine[0]] + _state_tensors(mine[2])
+                    ref = [p for _, p in want[0]] + _state_tensors(want[2])
+                    for a, b in zip(got, ref):
+                        if a.dtype != b.dtype or not torch.equal(a, b):
+                            diff = (a.float() - b.float()).abs()
+                            raise AssertionError(
+                                'fused update %s %s at %s, step %d: not '
+                                'bitwise its plain version (%d elements '
+                                'differ, max abs %g)'
+                                % (rule, form, lname, step,
+                                   int((diff > 0).sum()),
+                                   diff.max().item()))
+                    if mine[1]._index_update_count != \
+                            want[1]._index_update_count:
+                        raise AssertionError('fused update: update counts '
+                                             'differ')
+                errs[name] = 0.0
+                del mine, want, update
+                torch.cuda.empty_cache()
+        log('phase 2 fused update at %s (%d tensors, %d elements): every '
+            'rule and form bitwise its plain version over %d steps, the '
+            'clip clamping %.3f-%.3f of the gradient elements'
+            % (lname, len(shapes), sum(math.prod(s) for s in shapes),
+               steps, min(shares), max(shares)))
+    return errs
+
+
+def fused_bytes(rule, form, n):
+    """Bytes one update of ``n`` elements must move: each input read
+    once, each output written once (a master form reads the master, not
+    the bf16 weight, and writes both)."""
+    w = 4 if form == 'float32' else 2
+    s = 2 if form == 'low' else 4
+    states = {'sgd': 0, 'sgd_mom': 1, 'adamw': 2}[rule]
+    reads = w + (4 if form == 'master' else w) + states * s
+    writes = (4 + w if form == 'master' else w) + states * s
+    return (reads + writes) * n
+
+
+FUSED_FLOPS = {'sgd': 5, 'sgd_mom': 7, 'adamw': 16}
+
+
+def foreach_chain(torch, rule, form, pairs, states, lrs, wds, opt):
+    """The update's expressions as a chain of ``torch._foreach_*`` calls
+    over the lists (the library yardstick: no one PyTorch call computes
+    the function), on the stored dtypes; the master form widens the
+    gradients into float32 buffers first and rounds the masters into the
+    weights last. Returns the callable."""
+    f = torch
+    weights = [p.data for _, p in pairs]
+    grads = [p.grad for _, p in pairs]
+    master = form == 'master'
+    if master:
+        ws = [s[0] for s in states]
+        sts = [s[1] for s in states]
+        g32 = [torch.empty_like(w) for w in ws]
+    else:
+        ws, sts = weights, states
+    clip = opt.clip_gradient
+
+    def call():
+        if master:
+            f._foreach_copy_(g32, grads)
+        g = f._foreach_mul(g32 if master else grads, opt.rescale_grad)
+        if clip is not None and clip > 0:
+            f._foreach_clamp_min_(g, -clip)
+            f._foreach_clamp_max_(g, clip)
+        if rule == 'adamw':
+            m, v = [s[0] for s in sts], [s[1] for s in sts]
+            f._foreach_mul_(m, opt.beta1)
+            f._foreach_add_(m, f._foreach_mul(g, 1 - opt.beta1))
+            f._foreach_mul_(v, opt.beta2)
+            f._foreach_add_(v, f._foreach_mul(f._foreach_mul(g, g),
+                                              1 - opt.beta2))
+            den = f._foreach_sqrt(v)
+            f._foreach_add_(den, opt.epsilon)
+            step = f._foreach_div(m, den)
+            f._foreach_add_(step, f._foreach_mul(ws, wds))
+            f._foreach_mul_(step, lrs)
+            f._foreach_sub_(ws, step)
+        else:
+            f._foreach_add_(g, f._foreach_mul(ws, wds))
+            if rule == 'sgd_mom':
+                f._foreach_mul_(sts, opt.momentum)
+                f._foreach_sub_(sts, f._foreach_mul(g, lrs))
+                f._foreach_add_(ws, sts)
+            else:
+                f._foreach_sub_(ws, f._foreach_mul(g, lrs))
+        if master:
+            f._foreach_copy_(weights, ws)
+    return call
+
+
+def time_fused_update(torch, kernels, optimizer, device, lists):
+    """Row 17 at the pairs the trainer phases run (``FUSED_TIMED``): the
+    trainer's ``FusedUpdate`` (one launch) timed one event pair a call
+    (``ms``) and by the probe's slope (``device_ms``; the host's cost a
+    call apart, ``host_ms``), beside its bound (bytes at 3.35 TB/s), the
+    plain loop of ``update_multi_precision`` and the ``_foreach_`` chain
+    of the same expressions (``chain_ms``; its device time the busy time
+    of one call's kernels in a ``torch.profiler`` trace: the slope
+    timer's host ran behind the card on it). No one PyTorch call
+    computes the update: ``library_ms`` is None. The row of a form is
+    BERT-base with AdamW; each timed pair of the form is under
+    ``by_list``."""
+    from mxnet_tpu_torch.ops.kernels import multi_tensor as mt
+    from mxnet_tpu_torch.optimizer import fused
+    from mxnet_tpu_torch.tools.probe_matmul_pipeline import slope_ms
+    by_form = {}
+    for lname, rule, form in FUSED_TIMED:
+        name = mt.instance_name(form)
+        shapes = lists[lname]
+        n = sum(math.prod(s) for s in shapes)
+        pairs, opt, states = fused_setup(torch, optimizer, rule, form,
+                                         shapes, device)
+        fused_grads(torch, pairs, 0, skip=-1)
+        update = fused.FusedUpdate(opt, pairs, states, device)
+        update()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            update()
+        host = (time.perf_counter() - t0) / 5 * 1e3
+        lrs, wds, _ = update._hypers()
+        chain = foreach_chain(torch, rule, form, pairs, states, lrs, wds,
+                              opt)
+        t_bytes, by = bound(fused_bytes(rule, form, n),
+                            FUSED_FLOPS[rule] * n)
+        row = dict(list=lname, rule=rule, tensors=len(shapes),
+                   elements=n, host_ms=host,
+                   ms=time_ms(torch, update),
+                   device_ms=slope_ms(torch, lambda i: update()),
+                   plain_ms=time_ms(torch, lambda: plain_update(
+                       torch, pairs, opt, states), iters=3, warmup=1),
+                   library_ms=None, library_device_ms=None,
+                   chain_ms=time_ms(torch, chain, iters=5, warmup=2),
+                   chain_device_ms=profile_step(torch, chain,
+                                                ())['busy_ms'],
+                   bound_ms=t_bytes, bound_by=by,
+                   shape='%s list, %s' % (lname, rule))
+        by_form.setdefault(name, []).append(row)
+        log('time %s [%s] at %s (%d tensors, %d elements), %s: kernel '
+            '%.4f ms (device %.4f ms, host %.4f ms a call), plain loop '
+            '%.4f ms, _foreach_ chain %.4f ms (device %.4f ms), bound '
+            '%.4f ms (%s)'
+            % (name, form, lname, len(shapes), n, rule, row['ms'],
+               row['device_ms'], host, row['plain_ms'],
+               row['chain_ms'], row['chain_device_ms'], t_bytes, by))
+        del pairs, opt, states, update, chain
+        torch.cuda.empty_cache()
+    return {name: dict(rows[0], by_list=rows)
+            for name, rows in by_form.items()}
+
+
 # -- phase 3: the serving slice ----------------------------------------------
 
 
@@ -2258,33 +2602,43 @@ def pretrain_loss_fn(gloss, vocab):
 
 
 def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
-                      shape=SMALL_BATCH, steps=3, seed=0, amp=None):
+                      shape=SMALL_BATCH, steps=3, seed=0, amp=None,
+                      route=None):
     """Phase 4a: one forward + backward, then ``steps`` trainer steps,
     on ``device`` and on the CPU from the same weights; with ``amp``
     ('bf16', phase 4a-amp) the forward runs under the policy's scope and
-    the trainer takes ``amp``, held to :data:`AMP_LOSS_RTOL` and
+    the trainer takes ``amp``; with ``route`` 'cast' or 'cast_mp' (phase
+    4a-cast) the net is cast to bf16 first and AdamW runs without or with
+    ``multi_precision``. Both held to :data:`AMP_LOSS_RTOL` and
     :data:`AMP_GRAD_REL`. Returns (loss relative error, worst gradient
     relative error, step losses relative error)."""
+    import warnings
     from mxnet_tpu_torch import amp as amp_mod
     vocab = cfg['vocab_size']
     loss_fn = pretrain_loss_fn(gloss, vocab)
-    phase = 'phase 4a' + ('-amp (%s)' % amp if amp else '')
+    phase = 'phase 4a' + ('-amp (%s)' % amp if amp else '') \
+        + ('-cast (%s)' % route if route else '')
+    hyper = dict(TRAIN_HYPER, multi_precision=route == 'cast_mp')
     runs = {}
     for dev in (device, torch.device('cpu')):
         net = bert.init_params(bert.get_bert(device=dev, **cfg), seed)
+        if route:
+            net.cast('bfloat16')
         xs, ys = pretrain_batch(torch, dev, vocab, shape['batch'],
                                 shape['seq'], shape['preds'],
                                 shape['lengths'], seed)
         with amp_mod.scope(amp_mod.resolve(amp) if amp else None):
             loss = loss_fn(net(*xs), ys)
         loss.backward()
-        grads = {n: None if p.grad is None else p.grad.detach().cpu()
+        grads = {n: None if p.grad is None else p.grad.detach().float().cpu()
                  for n, p in net.collect_params().items()}
-        pt = parallel.ParallelTrainer(net, loss_fn, 'adamw',
-                                      dict(TRAIN_HYPER), seed=seed,
-                                      amp=amp if amp else False)
-        losses = [pt.step(xs, ys).item() for _ in range(steps)]
-        runs[dev.type] = (loss.item(), grads, losses)
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')     # bf16 weights, no master
+            pt = parallel.ParallelTrainer(net, loss_fn, 'adamw', hyper,
+                                          seed=seed,
+                                          amp=amp if amp else False)
+            losses = [pt.step(xs, ys).float().item() for _ in range(steps)]
+        runs[dev.type] = (loss.float().item(), grads, losses)
     (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = runs[device.type], \
         runs['cpu']
     loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
@@ -2302,7 +2656,7 @@ def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
         'rel_err %.3g' % (phase, device.type, l_dev, l_cpu, loss_err,
                           grad_err, len(g_cpu), steps, s_dev, s_cpu,
                           step_err))
-    loss_tol, grad_tol = ((AMP_LOSS_RTOL, AMP_GRAD_REL) if amp
+    loss_tol, grad_tol = ((AMP_LOSS_RTOL, AMP_GRAD_REL) if amp or route
                           else (TOL, GRAD_REL))
     if not loss_err <= loss_tol or not grad_err <= grad_tol \
             or not step_err <= loss_tol:
@@ -2313,11 +2667,13 @@ def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
 def train_launches(kernels, layers):
     """Kernel launches of one training step: the flash forward, dq and
     dkv once per layer; the xent head once for MLM and once for NSP; the
-    act kernels once each for the pooler's tanh."""
+    act kernels once each for the pooler's tanh; the whole-model AdamW
+    update once."""
     want = dict.fromkeys(kernels.KERNELS, 0)
     want.update({'flash_attention_fwd': layers, 'flash_attention_dq': layers,
                  'flash_attention_dkv': layers, 'softmax_xent_fwd': 2,
-                 'softmax_xent_bwd': 2, 'act_fwd': 1, 'act_bwd': 1})
+                 'softmax_xent_bwd': 2, 'act_fwd': 1, 'act_bwd': 1,
+                 'multi_tensor_update': 1})
     return want
 
 
@@ -2325,26 +2681,49 @@ def amp_train_launches(kernels, layers):
     """Kernel launches of one training step under ``amp='bf16'``: the
     bf16 flash forward, dq and dkv once per layer, the bf16 act kernels
     once each for the pooler's tanh, the float32 xent head (its logits
-    widened by the keep-fp32 class) once for MLM and once for NSP; no
-    float32 attention or act launch."""
+    widened by the keep-fp32 class) once for MLM and once for NSP, the
+    float32 whole-model update of the masters once; no float32 attention
+    or act launch."""
     bf = kernels.BF16
     want = dict.fromkeys(kernels.KERNELS, 0)
     want.update({'flash_attention_fwd' + bf: layers,
                  'flash_attention_dq' + bf: layers,
                  'flash_attention_dkv' + bf: layers, 'softmax_xent_fwd': 2,
                  'softmax_xent_bwd': 2, 'act_fwd' + bf: 1,
-                 'act_bwd' + bf: 1})
+                 'act_bwd' + bf: 1, 'multi_tensor_update': 1})
+    return want
+
+
+def cast_train_launches(kernels, layers, mp=False):
+    """Kernel launches of one training step after ``cast('bfloat16')``
+    (no AMP): the bf16 flash forward, dq and dkv once per layer, the bf16
+    act kernels once each for the pooler's tanh, the bf16 xent head once
+    for MLM (its cluster instance) and once for NSP (its warp instance),
+    each way, and one whole-model update of the bf16 weights (``.bf16``)
+    or of their float32 masters (``.mp``); nothing else."""
+    bf = kernels.BF16
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({'flash_attention_fwd' + bf: layers,
+                 'flash_attention_dq' + bf: layers,
+                 'flash_attention_dkv' + bf: layers,
+                 'softmax_xent_fwd' + bf: 2, 'softmax_xent_bwd' + bf: 2,
+                 'act_fwd' + bf: 1, 'act_bwd' + bf: 1,
+                 'multi_tensor_update' + ('.mp' if mp else bf): 1})
     return want
 
 
 def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
                shape=TRAIN, warmup=TRAIN_WARMUP, iters=TRAIN_ITERS, seed=0,
-               amp=None):
-    """Phase 4b (``amp`` None: float32) or 4c (``amp='bf16'``): BERT
-    pretraining steps through ``ParallelTrainer.step``. The launch counts
-    are zeroed after the warm-up and read after the timed steps. Returns
-    a dict of results."""
-    phase = 'phase 4c' if amp else 'phase 4b'
+               amp=None, route=None):
+    """Phase 4b (``amp`` None: float32), 4c (``amp='bf16'``) or 4d
+    (``route`` 'cast': after ``cast('bfloat16')``, AdamW on bf16 weights
+    and state, as ``bench_bert`` trains on the accelerator; 'cast_mp',
+    4d-mp: with ``multi_precision``): BERT pretraining steps through
+    ``ParallelTrainer.step``. The launch counts are zeroed after the
+    warm-up and read after the timed steps. Returns a dict of results."""
+    import warnings
+    phase = {None: 'phase 4c' if amp else 'phase 4b', 'cast': 'phase 4d',
+             'cast_mp': 'phase 4d-mp'}[route]
     t0 = time.perf_counter()
     if cfg is None:
         net = bert.bert_12_768_12(vocab_size=shape['vocab'], max_length=512,
@@ -2352,16 +2731,22 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     else:
         net = bert.get_bert(device=device, **cfg)
     bert.init_params(net, seed)
+    if route:
+        net.cast('bfloat16')
     vocab = net.word_embed.weight.shape[0]
     layers = len(net.encoder.cells)
     xs, ys = pretrain_batch(torch, device, vocab, shape['batch'],
                             shape['seq'], shape['preds'], seed=seed)
-    pt = parallel.ParallelTrainer(net, pretrain_loss_fn(gloss, vocab),
-                                  'adamw', dict(TRAIN_HYPER), seed=seed,
-                                  amp=amp if amp else False)
+    pt = parallel.ParallelTrainer(
+        net, pretrain_loss_fn(gloss, vocab), 'adamw',
+        dict(TRAIN_HYPER, multi_precision=route == 'cast_mp'), seed=seed,
+        amp=amp if amp else False)
     setup_s = time.perf_counter() - t0
     cuda = device.type == 'cuda'
-    losses = [pt.step(xs, ys) for _ in range(warmup)]
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter('always')
+        # the first step builds the states: it warns for bf16 weights
+        losses = [pt.step(xs, ys) for _ in range(warmup)]
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2382,8 +2767,11 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     wall = time.perf_counter() - t1
     counts = kernels.launch_counts()
     losses = [float(l) for l in losses]
-    per_step = (amp_train_launches if amp else train_launches)(kernels,
-                                                               layers)
+    if route:
+        per_step = cast_train_launches(kernels, layers, route == 'cast_mp')
+    else:
+        per_step = (amp_train_launches if amp else train_launches)(kernels,
+                                                                   layers)
     if cuda and counts != {n: c * iters for n, c in per_step.items()}:
         raise AssertionError('%s: kernel launches %r in %d steps, '
                              'expected %r per step' % (phase, counts, iters,
@@ -2399,19 +2787,26 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     if not statistics.mean(losses[-3:]) < losses[0]:
         raise AssertionError('%s: the loss did not fall: %r' % (phase,
                                                                 losses))
-    # masters and optimizer state stay float32 under AMP
+    if route and not max(losses[-3:]) < losses[0]:
+        raise AssertionError('%s: one of the last three losses is not below '
+                             'the first: %r' % (phase, losses))
+    # masters and optimizer state stay float32 under AMP; after the cast
+    # the weights are bf16, their AdamW state bf16 without masters
     masters = sorted({str(p.dtype) for p in net.parameters()})
-    states = sorted({str(t.dtype) for st in pt._states
-                     for t in (st if isinstance(st, (tuple, list)) else (st,))
-                     if t is not None})
-    if masters != ['torch.float32'] or states != ['torch.float32']:
-        raise AssertionError('%s: masters %s, AdamW state %s: not float32'
-                             % (phase, masters, states))
+    states = sorted({str(t.dtype) for t in _state_tensors(pt._states)})
+    want = {None: (['torch.float32'], ['torch.float32']),
+            'cast': (['torch.bfloat16'], ['torch.bfloat16']),
+            'cast_mp': (['torch.bfloat16'], ['torch.float32'])}[route]
+    if (masters, states) != want:
+        raise AssertionError('%s: parameters %s, AdamW state %s; expected '
+                             '%s' % (phase, masters, states, want))
     step_ms = [s.elapsed_time(e) for s, e in events]
     return {
         'setup_s': setup_s, 'losses': losses, 'launches': counts,
         'per_step': per_step, 'wall_s': wall, 'amp': pt.amp,
         'master_dtypes': masters, 'state_dtypes': states,
+        'warnings': sum('Accumulating with bfloat16' in str(w.message)
+                        for w in warned),
         'profile': (profile_step(torch, lambda: pt.step(xs, ys),
                                  AMP_GROUPS if amp else BERT_GROUPS)
                     if cuda else None),
@@ -2430,14 +2825,15 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
 BERT_GROUPS = (('attention kernels', ('flash_attention',), ()),
                ('xent kernels', ('softmax_xent',), ()),
                ('GEMMs', ('gemm', 'xmma', 'cutlass', 'nvjet'), ()),
+               ('optimizer update', ('multi_tensor_update',), ()),
                ('copies', ('memcpy', 'memset'), ()))
 # 4c: 4b's groups and the AMP casts apart (the copies that make the bf16
 # compute copies of the masters and activations, and widen gradients)
-AMP_GROUPS = BERT_GROUPS[:3] + (
-    ('casts', (), ('aten::_to_copy', 'ToCopyBackward')),) + BERT_GROUPS[3:]
+AMP_GROUPS = BERT_GROUPS[:4] + (
+    ('casts', (), ('aten::_to_copy', 'ToCopyBackward')),) + BERT_GROUPS[4:]
 RESNET_GROUPS = (('epilogue kernels', ('epilogue_',), ()),
                  ('xent kernels', ('softmax_xent',), ()),
-                 ('SGD', (), ('sgd_update',)),
+                 ('SGD (optimizer update)', ('multi_tensor_update',), ()),
                  ('convs', (), ('aten::convolution', 'ConvolutionBackward')),
                  ('BN statistics/backward', (), ('BatchNormTrainFunction',)),
                  ('max pool', (), ('MaxPoolFunction',)),
@@ -2713,7 +3109,9 @@ def resnet_launches(kernels, net, gnn, resnet, backward=True,
     the moving statistics (inference, frozen); training's BN apply runs
     the float32 instance on the widened data; the xent head is float32
     under 'amp' (the keep-fp32 class widens the logits), bf16 under
-    'cast'."""
+    'cast'. A step updates every parameter in one launch a form: float32
+    (the masters under 'amp'), and under 'cast' also the bf16 weights
+    (``.bf16``; BatchNorm's stay float32)."""
     mods = list(net.modules())
     bns = sum(isinstance(m, gnn.BatchNorm) for m in mods)
     acts = sum(isinstance(m, gnn.Activation) for m in mods)
@@ -2728,7 +3126,10 @@ def resnet_launches(kernels, net, gnn, resnet, backward=True,
         want.update({'act_bwd' + bf: acts + cells,
                      'softmax_xent_fwd' + xent: 1,
                      'softmax_xent_bwd' + xent: 1,
-                     'bn_act_bwd' + bf: bns if frozen else 0})
+                     'bn_act_bwd' + bf: bns if frozen else 0,
+                     'multi_tensor_update': 1})
+        if route == 'cast':
+            want['multi_tensor_update' + kernels.BF16] = 1
     return want
 
 
@@ -2740,9 +3141,9 @@ def train_resnet(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
     after ``cast('bfloat16')`` on bf16 images, SGD without
     ``multi_precision``, as ``bench_resnet`` trains): ResNet v1 training
     steps through ``ParallelTrainer.step`` with SGD; launch counts zeroed
-    after the warm-up and read after the timed steps; a profiled step
-    (SGD annotated); then one inference forward (under the policy's scope
-    for 'amp'). Returns a dict of results."""
+    after the warm-up and read after the timed steps; a profiled step;
+    then one inference forward (under the policy's scope for 'amp').
+    Returns a dict of results."""
     import warnings
     from mxnet_tpu_torch import amp as amp_mod
     phase = {None: 'phase 5b', 'amp': 'phase 5d', 'cast': 'phase 5e'}[route]
@@ -2812,18 +3213,8 @@ def train_resnet(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
                                                                 losses))
     prof = None
     if cuda:
-        update = opt.update_multi_precision
-
-        def annotated(*args):
-            with torch.profiler.record_function('sgd_update'):
-                return update(*args)
-        opt.update_multi_precision = annotated
-        try:
-            prof = profile_step(torch, lambda: pt.step(x, y),
-                                RESNET_AMP_GROUPS if route
-                                else RESNET_GROUPS)
-        finally:
-            del opt.update_multi_precision
+        prof = profile_step(torch, lambda: pt.step(x, y),
+                            RESNET_AMP_GROUPS if route else RESNET_GROUPS)
     # inference: the BN apply with the moving statistics, no backward
     kernels.reset_launch_counts()
     with torch.no_grad(), amp_mod.scope(amp_mod.bf16() if route == 'amp'
@@ -3847,6 +4238,16 @@ KERNELS = {
     'matmul_ep': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/matmul_sm90.cu',
         replaces='tools/probe_matmul_pipeline.py:112'),
+    # no Pallas kernel: the XLA fusion of the traced update
+    'multi_tensor_update': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/multi_tensor_update.cu',
+        replaces='mxnet_tpu/optimizer/fused.py:119'),
+    'multi_tensor_update.bf16': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/multi_tensor_update.cu',
+        replaces='mxnet_tpu/optimizer/fused.py:119'),
+    'multi_tensor_update.mp': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/multi_tensor_update.cu',
+        replaces='mxnet_tpu/optimizer/fused.py:119'),
 }
 TIMING_KEYS = ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
                'library_ms', 'library_device_ms')
@@ -3939,7 +4340,9 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'device_ms_at_pos', 'slot_device_ms',
                                       'gather_slot_device_ms', 'at_phase3',
                                       'mask_device_ms',
-                                      'scan_device_ms', 'finish_device_ms')
+                                      'scan_device_ms', 'finish_device_ms',
+                                      'host_ms', 'chain_ms',
+                                      'chain_device_ms', 'by_list')
                     if k in t})
         row['shape'] = t['shape']
         if name in times and name in train_times:
@@ -4022,6 +4425,11 @@ def main():
     log('epilogue stream kernels: registers by store kind (most over the '
         'acts) %s, no spills' % (regs or 'not reported: the library was '
                                  'current'))
+    regs = check_no_spills(reports.get('multi_tensor_update', ()),
+                           'multi_tensor_update',
+                           ('multi_tensor_update_kernel',))
+    log('multi_tensor_update kernels: registers %s, no spills'
+        % (regs or 'not reported: the library was current'))
     regs = check_no_spills(reports.get('softmax_xent', ()), 'softmax_xent',
                            XENT_KERNEL_KEYS)
     log('softmax_xent kernels: registers %s, no spills' % ({
@@ -4045,6 +4453,10 @@ def main():
     torch.cuda.empty_cache()
     errs.update(check_bf16_rows(torch, kernels, cuda))
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lists = dict(odd=[(n,) for n in ODD_LENGTHS],
+                 **param_lists(torch, bert, resnet))
+    errs.update(check_fused_update(torch, kernels, optimizer, cuda, lists))
     torch.cuda.empty_cache()
     times = time_kernels(torch, kernels)
     times.update(time_paged_decode(torch, kernels))
@@ -4072,6 +4484,11 @@ def main():
                if 'at_mlm' in row else ''))
     train_times.update(row_times)
     del bf16_times, row_times
+    torch.cuda.empty_cache()
+    fused_times = time_fused_update(torch, kernels, optimizer, cuda, lists)
+    log_times(fused_times)
+    train_times.update(fused_times)
+    del fused_times
     torch.cuda.empty_cache()
 
     # phase 3: the serving slice
@@ -4190,6 +4607,48 @@ def main():
     log_profile('phase 4c (casts: aten::_to_copy and ToCopyBackward)', card,
                 tc['profile'])
     torch.cuda.empty_cache()
+
+    # phase 4a-cast, 4d, 4d-mp: bench_bert's accelerator configuration,
+    # after cast('bfloat16') with AdamW on bf16 weights, without and with
+    # float32 masters; first the small BERT on the card against the CPU
+    for route in ('cast', 'cast_mp'):
+        train_against_cpu(torch, bert, gloss, parallel, cuda, route=route)
+    torch.cuda.empty_cache()
+    cast_runs = {}
+    for route, phase in (('cast', 'phase 4d'), ('cast_mp', 'phase 4d-mp')):
+        td = train_full(torch, bert, gloss, parallel, kernels, cuda,
+                        route=route)
+        first_rel = abs(td['losses'][0] - tr['losses'][0]) / abs(
+            tr['losses'][0])
+        log('%s slice: BERT-base after cast(\'bfloat16\'), AdamW %s, batch '
+            '%d, S %d, %d predictions, %d warm-up + %d timed steps; launches '
+            'in the timed steps %s (per step %s); parameters %s, AdamW state '
+            '%s, %d optimizer warnings'
+            % (phase, 'with multi_precision' if route == 'cast_mp'
+               else 'on bf16 weights and state', TRAIN['batch'],
+               TRAIN['seq'], TRAIN['preds'], TRAIN_WARMUP, TRAIN_ITERS,
+               td['launches'], td['per_step'], td['master_dtypes'],
+               td['state_dtypes'], td['warnings']))
+        log('%s losses: %s; first loss %.6f against 4b\'s %.6f, rel %.4g '
+            '(limit %g)' % (phase, td['losses'], td['losses'][0],
+                            tr['losses'][0], first_rel,
+                            AMP_FIRST_LOSS_RTOL))
+        if not first_rel <= AMP_FIRST_LOSS_RTOL:
+            raise AssertionError('%s: first loss %.6f is not within %g of '
+                                 '4b\'s %.6f' % (phase, td['losses'][0],
+                                                  AMP_FIRST_LOSS_RTOL,
+                                                  tr['losses'][0]))
+        log('%s metrics [%s]: samples/s %.2f (4b %.2f, 4c %.2f), mean step '
+            '%.3f ms (4b %.3f, 4c %.3f; CUDA events; each %s), wall %.3f s '
+            'for %d steps, peak memory %d B (4b %d B, 4c %d B), setup %.1f s'
+            % (phase, card, td['samples_per_s'], tr['samples_per_s'],
+               tc['samples_per_s'], td['step_ms'], tr['step_ms'],
+               tc['step_ms'], ['%.3f' % t for t in td['step_ms_each']],
+               td['wall_s'], TRAIN_ITERS, td['peak_mem_bytes'],
+               tr['peak_mem_bytes'], tc['peak_mem_bytes'], td['setup_s']))
+        log_profile(phase, card, td['profile'])
+        cast_runs[route] = td
+        torch.cuda.empty_cache()
 
     # phase 5: the ResNet slice
     resnet_against_cpu(torch, resnet, gloss, gnn, parallel, kernels, cuda)
@@ -4354,6 +4813,9 @@ def main():
                         'speculative decoding': sh['spec']['launches'],
                         'training': tr['launches'],
                         'bert amp training': tc['launches'],
+                        'bert bf16 training': cast_runs['cast']['launches'],
+                        'bert bf16 training with masters':
+                            cast_runs['cast_mp']['launches'],
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
                         'resnet frozen-BN fine-tuning': fz['launches'],

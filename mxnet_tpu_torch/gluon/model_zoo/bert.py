@@ -140,10 +140,12 @@ def bert_12_768_12(**kwargs):
 @torch.no_grad()
 def init_params(net, seed=0, std=0.02):
     """Fill every parameter of ``net`` from a numpy seed: LayerNorm gamma
-    1, biases and beta 0, every other weight normal(0, ``std``) -- the
-    bench's initializer. Parameters are drawn in sorted name order, so
-    the values do not depend on the device or on the order of
-    construction. Returns ``net``."""
+    1, biases and beta 0, every other weight normal(0, ``std``), BERT's
+    usual initializer. (``bench_bert`` asks for ``TruncNorm(0.02)`` only
+    where the package has it, bench.py:283-284; the JAX package has
+    none, so the bench initializes with ``Xavier()``.) Parameters are
+    drawn in sorted name order, so the values do not depend on the device
+    or on the order of construction. Returns ``net``."""
     rng = onp.random.default_rng(seed)
     params = net.collect_params()
     for name in sorted(params):

@@ -6,7 +6,9 @@ and nowhere else, so a run can show that its main path went through the
 kernels (:func:`launch_counts`). A CPU tensor never counts: it runs the
 plain PyTorch version. A kernel built for bf16 too counts its bf16
 instance under its own name (``flash_attention_fwd.bf16``), so a run
-tells the AMP launches from the float32 ones.
+tells the AMP launches from the float32 ones; the whole-model optimizer
+update counts its instance with a float32 master as
+``multi_tensor_update.mp``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_fwd' + BF16,
            'softmax_xent_bwd' + BF16, 'bn_act_fwd', 'bn_act_fwd' + BF16,
            'bn_act_bwd', 'bn_act_bwd' + BF16, 'act_fwd', 'act_fwd' + BF16,
            'act_bwd', 'act_bwd' + BF16, 'add_act_fwd', 'add_act_fwd' + BF16,
-           'nms', 'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep')
+           'nms', 'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep',
+           'multi_tensor_update', 'multi_tensor_update' + BF16,
+           'multi_tensor_update.mp')
 
 _launches = dict.fromkeys(KERNELS, 0)
 _instances = {}

@@ -394,7 +394,9 @@ def dropout(data, p=0.5, generator=None, training=True):
     """Inverted dropout: ``data * mask / keep`` with a Bernoulli(keep)
     mask drawn from ``generator`` (which must live on ``data``'s device).
     Identity when not training or ``p <= 0``. The JAX package draws the
-    mask from a threefry key, which no PyTorch generator reproduces."""
+    mask from a threefry key, which no PyTorch generator reproduces. On
+    bf16 data ``keep`` is a weak Python float there, so it divides by
+    ``keep`` rounded to bf16 (0.9 -> 0.8984375); so does the port."""
     if not training or p <= 0:
         return data
     if generator is None:
@@ -404,7 +406,7 @@ def dropout(data, p=0.5, generator=None, training=True):
     keep = 1.0 - p
     mask = (torch.rand(data.shape, generator=generator, device=data.device)
             < keep).to(data.dtype)
-    return data * mask / keep
+    return data * mask / torch.tensor(keep, dtype=data.dtype).item()
 
 
 def embedding(data, weight):

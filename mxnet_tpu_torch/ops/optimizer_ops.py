@@ -1,8 +1,9 @@
 """Optimizer update ops, the counterpart of ``mxnet_tpu/ops/optimizer_ops.py``.
 
 Ported: AdamW (the BERT-pretraining optimizer) and SGD with and without
-momentum (the ResNet one), and SGD's float32-master forms for low-precision
-weights (``mp_sgd_update``, ``mp_sgd_mom_update``), dense gradients only.
+momentum (the ResNet one), and their float32-master forms for
+low-precision weights (``mp_adamw_update``, ``mp_sgd_update``,
+``mp_sgd_mom_update``), dense gradients only.
 The JAX package computes them outside any Pallas kernel, as plain
 elementwise XLA; here they are plain PyTorch. Unlike the JAX ops, which
 return new arrays, the port updates the weight and its state in place:
@@ -19,15 +20,39 @@ widens, ``momentum * mom`` multiplies the widened momentum by the
 momentum rounded to bf16 (a weak Python float takes the array's dtype),
 and XLA keeps that product in float32; the new weight and momentum round
 to bf16 once, at the end.
+
+AdamW on bf16 weights with bf16 state and no master (``adamw_update`` on
+bf16 tensors, as ``bench_bert`` trains a ``cast('bfloat16')`` net): the
+reference's ``AdamW.update`` (optimizer.py:474-483) hands the op its
+``rescale_grad`` as ``nd.full((1,), rescale_grad, dtype=weight.dtype)``,
+a bf16 array, ``eta`` and ``wd`` as float32 scalars and ``beta1``,
+``beta2``, ``epsilon`` and ``lr=1.0`` as weak Python floats, which take
+bf16. XLA on the CPU (read from its optimized HLO, and held byte for byte
+over 2M elements) computes every bf16 op of the op in float32 and rounds
+its result to bf16, with these exceptions: ``m / (sqrt(v) + eps)`` stays
+float32 (its bf16 result meets a float32 term, and XLA drops the round
+trip), and so do ``wd * w``, the sum and ``eta *`` it, which float32
+operands promote; the new weight rounds once at the end. So: ``g`` =
+``grad * rescale`` rounded, clipped to the clip rounded; ``m`` =
+``beta1 * m`` rounded + ``(1 - beta1) * g`` rounded, rounded; ``v`` the
+same over ``g * g`` rounded; the denominator ``sqrt(v)`` rounded +
+``eps``, rounded; the weight ``w - eta * (m / den + wd * w)`` in float32,
+rounded (each constant rounded to bf16 first).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ['adamw_update', 'sgd_update', 'sgd_mom_update', 'mp_sgd_update',
-           'mp_sgd_mom_update']
+__all__ = ['adamw_update', 'mp_adamw_update', 'sgd_update', 'sgd_mom_update',
+           'mp_sgd_update', 'mp_sgd_mom_update', 'low_scalar']
 
 _LOW = (torch.float16, torch.bfloat16)
+
+
+def low_scalar(x, dtype):
+    """The Python float ``x`` as a weak scalar of a ``dtype`` array takes
+    it: rounded to ``dtype``, as a Python float."""
+    return torch.tensor(x, dtype=dtype).item()
 
 
 @torch.no_grad()
@@ -42,8 +67,14 @@ def adamw_update(weight, grad, mean, var, rescale_grad=1.0, *, lr=1.0,
         v = beta2 * v + (1 - beta2) * g^2
         w = w - eta * (lr * m / (sqrt(v) + epsilon) + wd * w)
 
-    Returns (weight, mean, var), the tensors passed in.
+    On bf16 weight, gradient and state it rounds as the reference's traced
+    update does (see the module docstring). Returns (weight, mean, var),
+    the tensors passed in.
     """
+    if weight.dtype in _LOW:
+        return _adamw_low(weight, grad, mean, var, rescale_grad, lr=lr,
+                          beta1=beta1, beta2=beta2, epsilon=epsilon, wd=wd,
+                          eta=eta, clip_gradient=clip_gradient)
     g = grad * rescale_grad
     if clip_gradient is not None and clip_gradient > 0:
         g = torch.clamp(g, -clip_gradient, clip_gradient)
@@ -52,6 +83,47 @@ def adamw_update(weight, grad, mean, var, rescale_grad=1.0, *, lr=1.0,
     step = lr * mean / (torch.sqrt(var) + epsilon) + wd * weight
     weight.sub_(eta * step)
     return weight, mean, var
+
+
+def _adamw_low(weight, grad, mean, var, rescale_grad, *, lr, beta1, beta2,
+               epsilon, wd, eta, clip_gradient):
+    """:func:`adamw_update` on low-precision weight, gradient and state
+    without a master: float32 arithmetic, each bf16 op of the reference
+    rounded where XLA rounds it (the module docstring)."""
+    dt = weight.dtype
+
+    def r(x):
+        return x.to(dt).float()
+
+    def s(x):
+        return low_scalar(x, dt)
+    g = r(grad.float() * s(rescale_grad))
+    if clip_gradient is not None and clip_gradient > 0:
+        g = torch.clamp(g, -s(clip_gradient), s(clip_gradient))
+    m = r(r(mean.float() * s(beta1)) + r(g * s(1 - beta1)))
+    v = r(r(var.float() * s(beta2)) + r(r(g * g) * s(1 - beta2)))
+    den = r(r(torch.sqrt(v)) + s(epsilon))
+    w = weight.float()
+    weight.copy_(w - eta * (r(m * s(lr)) / den + wd * w))
+    mean.copy_(m)
+    var.copy_(v)
+    return weight, mean, var
+
+
+@torch.no_grad()
+def mp_adamw_update(weight, grad, mean, var, weight32, rescale_grad=1.0, *,
+                    lr=1.0, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
+                    eta=1.0, clip_gradient=None):
+    """AdamW on a low-precision weight with a float32 master
+    (``_mp_adamw_update``, optimizer_ops.py:155-168), in place: the
+    widened gradient updates the float32 ``mean``, ``var`` and
+    ``weight32`` as :func:`adamw_update` does, and ``weight`` becomes
+    ``weight32`` rounded. Returns (weight, mean, var, weight32)."""
+    adamw_update(weight32, grad.float(), mean, var, rescale_grad, lr=lr,
+                 beta1=beta1, beta2=beta2, epsilon=epsilon, wd=wd, eta=eta,
+                 clip_gradient=clip_gradient)
+    weight.copy_(weight32)
+    return weight, mean, var, weight32
 
 
 def _rescale_clip(grad, rescale_grad, clip_gradient, wd, weight):
@@ -95,7 +167,7 @@ def sgd_mom_update(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
     if weight.dtype in _LOW:
         g = _rescale_clip(grad.float(), rescale_grad, clip_gradient, wd,
                           weight.float())
-        m = torch.tensor(momentum, dtype=mom.dtype).item()
+        m = low_scalar(momentum, mom.dtype)
         new_mom = mom.float() * m - lr * g
         weight.copy_(weight.float() + new_mom)
         mom.copy_(new_mom)

@@ -1,6 +1,7 @@
 """Optimizers of the port (counterpart of ``mxnet_tpu/optimizer``)."""
+from .fused import FusedUpdate, FusedUpdateError
 from .optimizer import (SGD, AdamW, Optimizer, create, opt_registry,
                         register)
 
 __all__ = ['Optimizer', 'SGD', 'AdamW', 'create', 'register',
-           'opt_registry']
+           'opt_registry', 'FusedUpdate', 'FusedUpdateError']

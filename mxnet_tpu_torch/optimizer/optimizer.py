@@ -10,8 +10,11 @@ the low-precision protocol (:93-150, 278-300): ``multi_precision``,
 ``create_state_multi_precision`` (a float32 master for a float16 or
 bfloat16 weight when ``multi_precision``, else a warning and state in the
 weight's dtype) and ``update_multi_precision`` (SGD: ``mp_sgd_update`` /
-``mp_sgd_mom_update`` on the master). AdamW refuses low-precision weights
-(``TypeError``): the port has no ``_mp_adamw_update`` yet. The JAX
+``mp_sgd_mom_update`` on the master; AdamW: ``update`` on the master
+with the widened gradient, as the reference does, which is
+``mp_adamw_update``). Without ``multi_precision`` a bf16 weight keeps
+bf16 state and the ops round as the reference's traced update does
+(``ops/optimizer_ops.py``). The JAX
 package's learning-rate schedulers, symbol attributes and ``param_dict``
 have no counterpart yet (no caller of the port needs them; there is no
 symbolic API in the port).
@@ -207,16 +210,9 @@ class _AdamFamily(Optimizer):
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
     def create_state(self, index, weight):
-        if _is_low_precision(weight.dtype):
-            raise TypeError('%s: %s weights are not ported (no '
-                            '_mp_adamw_update yet; ROADMAP: "the rest of '
-                            'training"): train them float32, or under '
-                            "amp='bf16'" % (type(self).__name__,
-                                            _dtype_name(weight.dtype)))
+        """Zero (mean, var) in the weight's dtype (``_fresh``,
+        optimizer.py:63-65, 431-432)."""
         return (torch.zeros_like(weight), torch.zeros_like(weight))
-
-    def create_state_multi_precision(self, index, weight):
-        return self.create_state(index, weight)
 
     def _bias_corrected(self, lr, t):
         """lr * sqrt(1 - beta2^t) / (1 - beta1^t)."""

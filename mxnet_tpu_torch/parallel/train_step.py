@@ -3,11 +3,17 @@
 ``step`` :1157-1236), on one device.
 
 The JAX trainer compiles forward, backward and the optimizer update into
-one XLA program over a mesh. PyTorch runs eagerly, so the port's step is
-the same sequence of work issued in order on one device: the forward in
-training mode, ``mean(loss(outputs, labels))``, its backward (through the
-kernels' ``autograd.Function``s), then the optimizer's own ``update`` for
-every parameter, in place. What the JAX trainer does that the port keeps:
+one XLA program over a mesh (``_build`` :498-640), the update traced from
+the optimizer's own ``update_multi_precision`` for every parameter
+(``optimizer/fused.py``) and fused by XLA. PyTorch runs eagerly, so the
+port's step is the same sequence of work issued in order on one device:
+the forward in training mode, ``mean(loss(outputs, labels))``, its
+backward (through the kernels' ``autograd.Function``s), then the
+whole-model update of every parameter, in place
+(``optimizer/fused.py`` ``FusedUpdate``): on the card one launch of the
+multi-tensor kernel a group of parameters of one form, on the CPU its
+plain version, ``update_multi_precision`` parameter by parameter. What
+the JAX trainer does that the port keeps:
 
   * the loss is ``mean(loss_fn(outs, labels))``, differentiated as is
     (``rescale_grad`` stays the optimizer's, 1 by default);
@@ -35,7 +41,8 @@ every parameter, in place. What the JAX trainer does that the port keeps:
     their dtype, and the optimizer's low-precision protocol takes them:
     states from ``create_state_multi_precision`` (a float32 master under
     ``multi_precision``, else a warning and state in the weight's
-    dtype), updates through ``update_multi_precision``.
+    dtype), updates through ``update_multi_precision`` or the kernel's
+    bf16 forms (with or without a float32 master).
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh of more
 than one device, ZeRO and the numerical guardrail (ROADMAP: "multi-GPU,
@@ -50,6 +57,7 @@ import torch
 
 from .. import amp as _amp
 from ..gluon.nn import Dropout
+from ..optimizer import fused as _fused
 from ..optimizer import optimizer as _optmod
 
 __all__ = ['ParallelTrainer']
@@ -121,6 +129,7 @@ class ParallelTrainer:
                 m.generator = self._generator
         self._params = None
         self._states = None
+        self._update = None
         self.num_update = 0
 
     @property
@@ -145,6 +154,8 @@ class ParallelTrainer:
                         if p.requires_grad]
         self._states = [opt.create_state_multi_precision(i, p.detach())
                         for i, p in self._params]
+        self._update = _fused.FusedUpdate(opt, self._params, self._states,
+                                          self._device)
 
     def _to_device(self, a):
         return torch.as_tensor(a, device=self._device)
@@ -175,11 +186,7 @@ class ParallelTrainer:
         finally:
             net.train(False)
         loss.backward()
-        opt = self._opt
-        with torch.no_grad():
-            for (i, p), state in zip(self._params, self._states):
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                opt.update_multi_precision(i, p.data, g, state)
+        self._update()
         for _, p in self._params:
             p.grad = None
         self.num_update += 1

@@ -340,7 +340,9 @@ def test_bf16_master_weight_protocol_and_warning():
     weight gets a float32 master, the update runs on it and the weight
     mirrors it rounded, as in the JAX package; without it,
     ``create_state_multi_precision`` warns naming bfloat16 and keeps the
-    state in bf16. AdamW refuses bf16 weights."""
+    state in bf16. AdamW keeps bf16 (mean, var) for a bf16 weight without
+    it, warning as SGD does (``tests/test_torch_adamw_bf16.py`` holds its
+    update)."""
     w = np.linspace(-1, 1, 8).astype('float32')
     g = np.full((8,), 0.25, np.float32)
     jopt = JaxSGD(learning_rate=0.5, momentum=0.9, multi_precision=True)
@@ -364,8 +366,9 @@ def test_bf16_master_weight_protocol_and_warning():
     assert st.dtype == BF
     with pytest.warns(UserWarning, match='bfloat16'):
         JaxSGD(learning_rate=0.5).create_state_multi_precision(1, w16)
-    with pytest.raises(TypeError, match='bfloat16'):
-        port_optmod.AdamW().create_state_multi_precision(0, wt)
+    with pytest.warns(UserWarning, match='bfloat16'):
+        mean, var = port_optmod.AdamW().create_state_multi_precision(0, wt)
+    assert mean.dtype == var.dtype == BF
 
 
 # ---------------------------------------------------------------------------
