@@ -142,7 +142,15 @@ Phases, in order; any failure exits non-zero:
      speculative decoding of phase 3's prompts with 3 proposals a tick
      from a self-draft (acceptance >= 0.9, fewer ticks than tokens), exact
      launch counts, every token teacher-forced against ``full_forward``
-     (a mismatch only at a tie within 1e-4);
+     (a mismatch only at a tie within 1e-4). Every program of 3, 3p and
+     3s (and of the draft) is a CUDA graph that the session's engine
+     captures as it starts: the set must be the reference's (the ladder
+     and the step; the paged ones add the page copy, and the verify under
+     speculation), no request may build another, and each run is repeated
+     with the same bodies uncaptured (``capture = False``), whose tokens
+     and launch counts the captured run must equal; a replayed
+     ``run_step`` at phase 2's positions is timed with CUDA events and
+     profiled (its device busy share) beside the eager one;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -178,7 +186,17 @@ Phases, in order; any failure exits non-zero:
      within rtol 6e-2 of 4b's, each of the last three below it;
      parameters and state bf16; its metrics beside 4b's and 4c's. 4d-mp:
      the same with ``multi_precision`` (float32 masters and state, one
-     ``multi_tensor_update.mp`` a step);
+     ``multi_tensor_update.mp`` a step). Every trainer step here is one
+     captured program from the second step on (the launch counts count
+     its replays); at 4b's and 4d's configurations a captured trainer
+     and its eager twin (``capture = False``), both under deterministic
+     algorithms, take 12 steps that must agree bit for bit, losses and
+     every parameter. 4e: at the small BERT, ``step_n`` over 12 copies
+     of the batch bit for bit 12 steps (dropout 0.1), ``build`` /
+     ``snapshot`` / ``restore`` and ``step_accum(x, y, 2)`` within 1e-5
+     of one full-batch step with ``num_update`` 1 (eager, captured and
+     replayed), and a captured dropout draw's replays equal to the
+     eager draws of a generator seeded alike;
   5. the ResNet slice. 5a: a narrow v1 ResNet (``[2, 1, 1, 1]`` x ``[8,
      16, 32, 64, 128]``, 10 classes) takes one forward and backward and
      three SGD steps (lr 0.001) on the card and on the CPU from the same
@@ -214,7 +232,9 @@ Phases, in order; any failure exits non-zero:
      one bf16 xent forward (bf16 logits) and backward (bf16 dlogits), one
      whole-model update of the bf16 weights and one of BatchNorm's
      float32 parameters;
-     first loss within 6e-2 of 5b's, losses finite, the same metrics;
+     first loss within 6e-2 of 5b's, losses finite, the same metrics.
+     5f: ResNet-50 at 5b's configuration, a captured trainer and its
+     eager twin under deterministic algorithms, 12 steps bit for bit;
   6. the SSD detection serving slice. The nms kernel against its plain
      version on the card, keep masks bitwise equal: 16 x 7378 boxes
      class-aware at topk 400, 2 x 7378 class-agnostic with every box
@@ -2334,14 +2354,70 @@ def percentile(vals, p):
     return vals[i]
 
 
+def check_programs(phase, prog, want, capture):
+    """A decode program after the engine's ``warmup()``: its
+    ``compile_seconds`` keys are the reference's set ``want`` and, when
+    ``capture``, each is a CUDA graph. Returns the capture seconds."""
+    got = dict(prog.compile_seconds)
+    if sorted(got) != sorted(want) or prog.compile_count != len(want):
+        raise AssertionError('%s: warmup built %r (%d programs), expected '
+                             'the reference\'s set %r' % (
+                                 phase, sorted(got), prog.compile_count,
+                                 sorted(want)))
+    if capture and prog.device.type == 'cuda' and not all(
+            b.prog.graph is not None for b in prog._compiled.values()):
+        raise AssertionError('%s: a program is not a CUDA graph' % phase)
+    return got
+
+
+def program_set(buckets, paged=False, spec_k=0):
+    """The reference's warm-up set: the ladder and the step, for a paged
+    program the page copy and, under speculation, the verify."""
+    return (['prefill:%d' % b for b in buckets] + ['step']
+            + (['copy'] if paged else [])
+            + (['verify:%d' % (spec_k + 1)] if spec_k else []))
+
+
+# the captured decode step's profile groups
+DECODE_GROUPS = (('decode kernel', ('flash_decode', 'flash_paged'), ()),
+                 ('GEMMs', ('gemm', 'gemv', 'xmma', 'cutlass', 'nvjet'), ()),
+                 ('copies', ('memcpy', 'memset'), ()))
+
+
+def time_step(torch, prog, cache, args, iters=20):
+    """``prog.run_step`` on ``args`` (after 3 untimed calls): the mean
+    of ``iters`` CUDA-event pairs (host work, the copy in and the copy
+    back included), and a profiled call (:func:`profile_step`)."""
+    for _ in range(3):
+        prog.run_step(cache, *args)
+    ms = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        prog.run_step(cache, *args)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.mean(ms), profile_step(
+        torch, lambda: prog.run_step(cache, *args), DECODE_GROUPS)
+
+
 def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
           buckets=BUCKETS, requests=REQUESTS, new_tokens=NEW_TOKENS,
-          prompt_range=(8, 256), recheck=2, seed=0, paged=False):
+          prompt_range=(8, 256), recheck=2, seed=0, paged=False,
+          capture=True):
     """Drive the slice through its entry points and check it: over the
     slot cache (``paged=False``, phase 3) or over the default,
-    ``freeze_decode``'s paged cache at page size 16 (phase 3p). Returns a
-    dict of results (tokens and launch counts of the run included)."""
+    ``freeze_decode``'s paged cache at page size 16 (phase 3p). The
+    session's engine builds the reference's program set as it starts
+    (CUDA graphs; ``capture=False``: the same bodies uncaptured, the
+    eager reference), and no request may build another. Returns a dict
+    of results (tokens and launch counts of the run, the programs'
+    capture seconds, and for a captured run the step's time and
+    profile)."""
     import numpy as np
+    phase = 'phase 3p' if paged else 'phase 3'
     t0 = time.perf_counter()
     model, params = serving.init_transformer_lm(seed=seed, **cfg)
     if paged:
@@ -2355,13 +2431,18 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         prog = serving.freeze_decode(model, params, slots=slots,
                                      prefill_buckets=buckets, paged=False,
                                      device=device)
+    prog.capture = capture
     del params
     setup_s = time.perf_counter() - t0
     rs = np.random.RandomState(seed)
     lens = rs.randint(prompt_range[0], prompt_range[1] + 1, size=requests)
     prompts = [rs.randint(0, cfg['vocab'], size=n).tolist() for n in lens]
+    t0 = time.perf_counter()
     with serving.InferenceSession(prog, timeout_s=600,
                                   max_new_tokens=new_tokens) as sess:
+        warm_s = time.perf_counter() - t0
+        seconds = check_programs(phase, prog, program_set(buckets, paged),
+                                 capture)
         # warm-up request (library handles, allocator) before the run
         sess.generate(prompts[0][:8], max_new_tokens=2).result(600)
         before = sess.stats()['counts']
@@ -2376,6 +2457,10 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         launches = kernels.launch_counts()
         stats = sess.stats()
         after = stats['counts']
+    if prog.compile_count != len(seconds):
+        raise AssertionError('%s: a request built a program (%d after the '
+                             'run, %d after warmup)' % (
+                                 phase, prog.compile_count, len(seconds)))
     prefills = after['prefills'] - before['prefills']
     steps = after['steps'] - before['steps']
     step_s = after['step_seconds'] - before['step_seconds']
@@ -2421,8 +2506,20 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
                         'logit gap %.3g is no tie' % (r, t, out[t], best, gap))
                 ties.append((r, t, gap))
     ttft = [s.ttft_s for s in streams]
+    step_ms = step_prof = None
+    if device.type == 'cuda':
+        # one step at phase 2's positions, the slots' pages in order
+        cache = prog.new_cache()
+        args = [np.zeros(slots, 'int32'),
+                np.asarray(DECODE_POSITIONS[:slots], 'int32')]
+        if paged:
+            args.append(1 + np.arange(slots * prog.max_pages, dtype='int32')
+                        .reshape(slots, prog.max_pages))
+        step_ms, step_prof = time_step(torch, prog, cache, args)
     return {
         'setup_s': setup_s, 'wall_s': wall, 'prefills': prefills,
+        'warmup_s': warm_s, 'compile_seconds': seconds,
+        'replay_step_ms': step_ms, 'step_profile': step_prof,
         'steps': steps, 'launches': launches,
         'tokens': sum(len(o) for o in outs),
         'tokens_per_s': sum(len(o) for o in outs) / wall,
@@ -2470,7 +2567,8 @@ def teacher_forced(torch, model, params, prompts, outs, device):
 def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
                  buckets=BUCKETS, requests=REQUESTS, new_tokens=NEW_TOKENS,
                  seed=0, spec_k=SPEC_K, prefix_tokens=PREFIX_TOKENS,
-                 suffix_range=SUFFIX_RANGE, prompt_range=(8, 256)):
+                 suffix_range=SUFFIX_RANGE, prompt_range=(8, 256),
+                 capture=True, recheck=True):
     """Phase 3s at the slice's width, through ``freeze_decode``'s paged
     default. Prefix sharing: ``requests`` prompts of one
     ``prefix_tokens``-token prefix and a distinct suffix of
@@ -2483,7 +2581,11 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
     than tokens. Launch counts exact in both runs; every token
     teacher-forced against ``full_forward`` (:func:`teacher_forced`), since
     a suffix streamed through decode steps and the verify pass run other
-    GEMM shapes than the prefill and step they replace."""
+    GEMM shapes than the prefill and step they replace. The programs of
+    the target and the draft are built as the session starts (CUDA
+    graphs; ``capture=False``: uncaptured, the eager reference) and no
+    request builds another; ``recheck=False`` skips the teacher
+    forcing."""
     import numpy as np
     layers = cfg['layers']
     model, params = serving.init_transformer_lm(seed=seed, **cfg)
@@ -2502,13 +2604,22 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         prog = serving.freeze_decode(
             model, params, slots=slots, prefill_buckets=buckets,
             spec_k=spec_k if run == 'spec' else None, device=device)
+        prog.capture = capture
         draft = None
         if run == 'spec':
             draft = serving.freeze_decode(model, params, slots=slots,
                                           prefill_buckets=buckets,
                                           paged=False, device=device)
+            draft.capture = capture
         with serving.InferenceSession(prog, timeout_s=600, draft=draft,
                                       max_new_tokens=new_tokens) as sess:
+            seconds = check_programs(
+                'phase 3s %s' % run, prog, program_set(
+                    buckets, True, spec_k if run == 'spec' else 0), capture)
+            if draft is not None:
+                seconds.update({'draft ' + k: v for k, v in check_programs(
+                    'phase 3s draft', draft, program_set(buckets),
+                    capture).items()})
             sess.generate(rs.randint(0, cfg['vocab'], 8).tolist(),
                           max_new_tokens=2).result(600)
             before = sess.stats()['counts']
@@ -2519,6 +2630,10 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
             wall = time.perf_counter() - t1
             launches = kernels.launch_counts()
             stats = sess.stats()
+        if prog.compile_count + (draft.compile_count if draft else 0) \
+                != len(seconds):
+            raise AssertionError('phase 3s %s: a request built a program'
+                                 % run)
         c = {k: v - before[k] for k, v in stats['counts'].items()
              if k != 'retired'}
         if any(len(o) != new_tokens for o in outs):
@@ -2552,9 +2667,10 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
                                  '%d tokens' % (acceptance, c['steps'],
                                                 tokens))
         equal, ties = teacher_forced(torch, model, prog.params, prompts,
-                                     outs, device)
+                                     outs, device) if recheck else (0, [])
         ttft = [s.ttft_s for s in streams]
         out[run] = dict(
+            outs=outs, compile_seconds=seconds,
             counts=c, launches=launches, tokens=tokens, wall_s=wall,
             tokens_per_s=tokens / wall, acceptance=acceptance,
             ttft_p50_ms=percentile(ttft, 50) * 1e3,
@@ -2632,13 +2748,17 @@ def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
         loss.backward()
         grads = {n: None if p.grad is None else p.grad.detach().float().cpu()
                  for n, p in net.collect_params().items()}
+        # the graph goes before the trainer's steps: alive, it would hold
+        # the parameters' gradient accumulators on the default stream,
+        # which a captured step cannot wait on
+        loss = loss.float().item()
         with warnings.catch_warnings():
             warnings.simplefilter('ignore')     # bf16 weights, no master
             pt = parallel.ParallelTrainer(net, loss_fn, 'adamw', hyper,
                                           seed=seed,
                                           amp=amp if amp else False)
             losses = [pt.step(xs, ys).float().item() for _ in range(steps)]
-        runs[dev.type] = (loss.float().item(), grads, losses)
+        runs[dev.type] = (loss, grads, losses)
     (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = runs[device.type], \
         runs['cpu']
     loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
@@ -2719,8 +2839,9 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     (``route`` 'cast': after ``cast('bfloat16')``, AdamW on bf16 weights
     and state, as ``bench_bert`` trains on the accelerator; 'cast_mp',
     4d-mp: with ``multi_precision``): BERT pretraining steps through
-    ``ParallelTrainer.step``. The launch counts are zeroed after the
-    warm-up and read after the timed steps. Returns a dict of results."""
+    ``ParallelTrainer.step``, captured from the second step on (one
+    program). The launch counts are zeroed after the warm-up and read
+    after the timed steps. Returns a dict of results."""
     import warnings
     phase = {None: 'phase 4c' if amp else 'phase 4b', 'cast': 'phase 4d',
              'cast_mp': 'phase 4d-mp'}[route]
@@ -2767,6 +2888,9 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     wall = time.perf_counter() - t1
     counts = kernels.launch_counts()
     losses = [float(l) for l in losses]
+    if cuda and pt.compile_count != 1:
+        raise AssertionError('%s: %d step programs captured, expected 1'
+                             % (phase, pt.compile_count))
     if route:
         per_step = cast_train_launches(kernels, layers, route == 'cast_mp')
     else:
@@ -2810,12 +2934,205 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
         'profile': (profile_step(torch, lambda: pt.step(xs, ys),
                                  AMP_GROUPS if amp else BERT_GROUPS)
                     if cuda else None),
+        'compile_seconds': dict(pt.compile_seconds),
         'samples_per_s': shape['batch'] * iters / wall,
         'step_ms': statistics.mean(step_ms) if step_ms else None,
         'step_ms_each': step_ms,
         'peak_mem_bytes': (torch.cuda.max_memory_allocated() if cuda
                            else None),
     }
+
+
+class deterministic:
+    """Deterministic algorithms for a bitwise comparison of two runs:
+    ``torch.use_deterministic_algorithms`` (``warn_only``: the cuBLAS
+    workspace setting is the process's) and cuDNN's deterministic
+    algorithms. By default the gather of BERT's masked positions
+    scatter-adds its gradient with atomics, and cuDNN may pick algorithms
+    that sum in another order, so two eager runs differ too."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import warnings
+        t = self.torch
+        self._prev = (t.are_deterministic_algorithms_enabled(),
+                      t.is_deterministic_algorithms_warn_only_enabled(),
+                      t.backends.cudnn.deterministic)
+        self._warn = warnings.catch_warnings()
+        self._warn.__enter__()
+        warnings.simplefilter('ignore')
+        t.use_deterministic_algorithms(True, warn_only=True)
+        t.backends.cudnn.deterministic = True
+        return self
+
+    def __exit__(self, *exc):
+        t = self.torch
+        t.use_deterministic_algorithms(self._prev[0],
+                                       warn_only=self._prev[1])
+        t.backends.cudnn.deterministic = self._prev[2]
+        self._warn.__exit__(*exc)
+        return False
+
+
+def twin_steps(torch, phase, build, steps=TRAIN_WARMUP + TRAIN_ITERS):
+    """``build()`` -> (net, trainer, step args): ``steps`` steps of the
+    trainer captured (from its second step) and of its eager twin
+    (``capture=False``) from the same weights, seed and batch, both under
+    :class:`deterministic`; losses and parameters (moving statistics
+    among them) must agree bit for bit. Returns (captured, eager) mean
+    step ms past the first two (CUDA events)."""
+    runs = []
+    with deterministic(torch):
+        for capture in (True, False):
+            net, pt, args = build()
+            pt.capture = capture
+            losses, ms = [], []
+            for _ in range(steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(pt.step(*args))
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            runs.append((torch.stack(losses),
+                         [p.detach().clone() for p in net.parameters()],
+                         statistics.mean(ms[2:]), pt.compile_count))
+            del net, pt, args
+            torch.cuda.empty_cache()
+    (lc, pc, mc, nc), (le, pe, me, ne) = runs
+    if (nc, ne) != (1, 0) or not torch.equal(lc, le) or not all(
+            torch.equal(a, b) for a, b in zip(pc, pe)):
+        raise AssertionError('%s: %d captured steps (%d programs) differ '
+                             'from the eager body\'s: losses %s vs %s' % (
+                                 phase, steps, nc, lc.tolist(), le.tolist()))
+    return mc, me
+
+
+def bert_twins(torch, bert, gloss, parallel, device, route=None,
+               shape=TRAIN, seed=0):
+    """:func:`twin_steps` at 4b's configuration (``route`` 'cast': 4d's,
+    after ``cast('bfloat16')``)."""
+    import warnings
+
+    def build():
+        net = bert.init_params(bert.bert_12_768_12(
+            vocab_size=shape['vocab'], max_length=512, dropout=0.1,
+            device=device), seed)
+        if route:
+            net.cast('bfloat16')
+        xs, ys = pretrain_batch(torch, device, shape['vocab'],
+                                shape['batch'], shape['seq'],
+                                shape['preds'], seed=seed)
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')     # bf16 weights, no master
+            pt = parallel.ParallelTrainer(
+                net, pretrain_loss_fn(gloss, shape['vocab']), 'adamw',
+                dict(TRAIN_HYPER), seed=seed)
+        return net, pt, (xs, ys)
+    return twin_steps(torch, 'phase 4 twins (%s)' % (route or 'float32'),
+                      build)
+
+
+def resnet_twins(torch, resnet, gloss, parallel, optimizer, device,
+                 shape=RESNET, seed=0):
+    """:func:`twin_steps` for ResNet-50 v1 at 5b's configuration."""
+    def build():
+        net = resnet.init_params(resnet.get_resnet(1, shape['depth'],
+                                                   device=device), seed)
+        x, y = images(torch, device, (shape['batch'], 3, shape['image'],
+                                      shape['image']), shape['classes'],
+                      seed)
+        pt = parallel.ParallelTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
+                                      optimizer.create('sgd',
+                                                       **RESNET_HYPER))
+        return net, pt, (x, y)
+    return twin_steps(torch, 'phase 5 twins (resnet%d_v1)' % shape['depth'],
+                      build)
+
+
+def check_train_programs(torch, bert, gloss, parallel, capture, ops, device,
+                         cfg=SMALL_BERT, steps=TRAIN_WARMUP + TRAIN_ITERS,
+                         seed=0):
+    """Phase 4e, the trainer's other entry points on the card at the
+    small BERT (batch 8 x 128, 8 predictions, AdamW): ``step_n`` over
+    ``steps`` copies of the batch bitwise ``steps`` calls of ``step``
+    (dropout 0.1 from the trainer's generator; both under
+    :class:`deterministic`); ``build``, ``snapshot``,
+    one full-batch step, ``restore``, then ``step_accum(x, y, 2)``
+    (dropout 0) within 1e-5 of that step (loss absolute; parameters
+    rtol 1e-5, atol 1e-6: ``tests/test_elastic.py:295-305``) with
+    ``num_update`` 1, three times from the snapshot (the first eager, then
+    its capture, then a replay); and the dropout masks a captured draw
+    replays: replay k equal to eager draw k + 1 of a generator seeded
+    alike (the first draw is the warm-up step). Returns a dict."""
+    vocab = cfg['vocab_size']
+    xs, ys = pretrain_batch(torch, device, vocab, 8, 128, 8, None, seed)
+
+    def trainer(dropout):
+        net = bert.init_params(bert.get_bert(
+            device=device, **dict(cfg, dropout=dropout)), seed)
+        return net, parallel.ParallelTrainer(
+            net, pretrain_loss_fn(gloss, vocab), 'adamw', dict(TRAIN_HYPER),
+            seed=3)
+    out = {}
+    with deterministic(torch):
+        net_a, pt_a = trainer(0.1)
+        one = torch.stack([pt_a.step(xs, ys) for _ in range(steps)])
+        net_b, pt_b = trainer(0.1)
+        window = pt_b.step_n([torch.stack([a] * steps) for a in xs],
+                             [torch.stack([a] * steps) for a in ys])
+    if not torch.equal(one, window) or not all(
+            torch.equal(a, b) for a, b in zip(net_a.parameters(),
+                                              net_b.parameters())) \
+            or pt_b.num_update != steps:
+        raise AssertionError('phase 4e: step_n(%d) differs from %d steps: '
+                             '%s vs %s' % (steps, steps, window.tolist(),
+                                           one.tolist()))
+    out['step_n'] = window.tolist()
+    del net_a, pt_a, net_b, pt_b
+    net, pt = trainer(0.0)
+    pt.build(xs, ys)
+    if pt.compile_count != int(device.type == 'cuda') or pt.num_update != 0:
+        raise AssertionError('phase 4e: build left %d programs, num_update '
+                             '%d' % (pt.compile_count, pt.num_update))
+    snap = pt.snapshot()
+    full = pt.step(xs, ys).item()
+    want = [p.detach().clone() for p in net.parameters()]
+    worst = []
+    for _ in range(3):
+        pt.restore(snap)
+        acc = pt.step_accum(xs, ys, 2).item()
+        ratio = max(float(((a.detach() - b).abs()
+                           / (1e-6 + 1e-5 * b.abs())).max())
+                    for a, b in zip(net.parameters(), want))
+        if not (abs(acc - full) < 1e-5 and ratio <= 1
+                and pt.num_update == 1):
+            raise AssertionError('phase 4e: step_accum(2) loss %.9g vs the '
+                                 'full batch\'s %.9g, parameters at %.3g '
+                                 'of the tolerance, num_update %d' % (
+                                     acc, full, ratio, pt.num_update))
+        worst.append((abs(acc - full), ratio))
+    out.update(accum=worst, compile_seconds=dict(pt.compile_seconds),
+               programs=pt.compile_count)
+    del net, pt
+    g_eager = torch.Generator(device=device).manual_seed(5)
+    g_graph = torch.Generator(device=device).manual_seed(5)
+    x = torch.ones(1 << 20, device=device)
+    eager = [ops.dropout(x, 0.1, g_eager) for _ in range(steps)]
+    drawn = torch.zeros_like(x)
+    ops.dropout(x, 0.1, g_graph)
+    prog = capture.Program('dropout', lambda: drawn.copy_(
+        ops.dropout(x, 0.1, g_graph)), device, generators=(g_graph,))
+    for k in range(1, steps):
+        prog.run()
+        if not torch.equal(drawn, eager[k]):
+            raise AssertionError('phase 4e: the dropout mask of replay %d '
+                                 'differs from eager draw %d' % (k, k + 1))
+    out['masks'] = steps - 1
+    return out
 
 
 # profile groups: (group, kernel-name keys, launching-range keys). A
@@ -2965,10 +3282,11 @@ def resnet_against_cpu(torch, resnet, gloss, gnn, parallel, kernels,
         params = net.collect_params()
         grads = {n: p.grad.detach().cpu() for n, p in params.items()
                  if p.requires_grad}
+        loss = loss.item()      # the graph goes (see train_against_cpu)
         pt = parallel.ParallelTrainer(net, L, 'sgd', dict(NARROW_HYPER))
         losses = [pt.step(x, y).item() for _ in range(steps)]
         after = {n: p.detach().cpu() for n, p in params.items()}
-        runs[dev.type] = (loss.item(), grads, losses, after)
+        runs[dev.type] = (loss, grads, losses, after)
     (l_dev, g_dev, s_dev, a_dev), (l_cpu, g_cpu, s_cpu, a_cpu) = \
         runs[device.type], runs['cpu']
     loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
@@ -3063,13 +3381,14 @@ def resnet_bf16_against_cpu(torch, resnet, gloss, parallel, device, route,
         net.train(False)
         grads = {n: p.grad.detach().float().cpu()
                  for n, p in net.collect_params().items() if p.requires_grad}
+        loss = loss.item()      # the graph goes (see train_against_cpu)
         with warnings.catch_warnings():
             warnings.simplefilter('ignore')     # bf16 weights, no master
             pt = parallel.ParallelTrainer(net, L, 'sgd', dict(NARROW_HYPER),
                                           amp='bf16' if route == 'amp'
                                           else None)
             losses = [pt.step(x, y).float().item() for _ in range(steps)]
-        runs[dev.type] = (loss.item(), grads, losses)
+        runs[dev.type] = (loss, grads, losses)
     (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = runs[device.type], \
         runs['cpu']
     loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
@@ -3247,6 +3566,7 @@ def train_resnet(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
         'step_ms': statistics.mean(step_ms) if step_ms else None,
         'step_ms_each': step_ms, 'peak_mem_bytes': peak,
         'net': net, 'batch': (x, y),
+        'compile_seconds': dict(pt.compile_seconds),
     }
 
 
@@ -4353,6 +4673,37 @@ def kernel_rows(errs, times, train_times, launches_by_path):
     return rows
 
 
+def log_programs(phase, card, got, eager):
+    """The captured serving run against its eager twin: the same tokens,
+    the same launches; the capture seconds, the step's time and
+    profile."""
+    if got['outs'] != eager['outs']:
+        raise AssertionError('%s: the captured programs served other tokens '
+                             'than the eager bodies: requests %s' % (
+                                 phase, [i for i, (a, b) in enumerate(
+                                     zip(got['outs'], eager['outs']))
+                                     if a != b]))
+    if got['launches'] != eager['launches'] or \
+            (got['prefills'], got['steps']) != (eager['prefills'],
+                                                eager['steps']):
+        raise AssertionError('%s: replays launched %r, the eager bodies %r'
+                             % (phase, got['launches'], eager['launches']))
+    log('%s programs: the reference\'s set built as the session started '
+        '(%.3f s), none after; capture seconds %s; %d streams token for '
+        'token the eager bodies\', launches equal'
+        % (phase, got['warmup_s'], json.dumps(
+            {k: round(v, 4) for k, v in got['compile_seconds'].items()}),
+           len(got['outs'])))
+    log('%s decode step [%s]: captured %.4f ms a run_step (CUDA events, the '
+        'copy in and back included; engine mean %.3f ms), eager %.4f ms '
+        '(engine %.3f ms); tokens/s %.2f (eager %.2f)'
+        % (phase, card, got['replay_step_ms'], got['decode_step_ms'],
+           eager['replay_step_ms'], eager['decode_step_ms'],
+           got['tokens_per_s'], eager['tokens_per_s']))
+    log_profile('%s captured decode step' % phase, card, got['step_profile'])
+    log_profile('%s eager decode step' % phase, card, eager['step_profile'])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4364,6 +4715,7 @@ def main():
               'script', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from mxnet_tpu_torch import capture as capture_mod
     from mxnet_tpu_torch import gluon, optimizer, parallel, serving
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon import nn as gnn
@@ -4384,6 +4736,7 @@ def main():
                                         torch.__version__,
                                         torch.version.cuda))
     cuda = torch.device('cuda')
+    started = time.perf_counter()
     # phase 1: device and build
     card = probe.card()
     log(card)
@@ -4491,9 +4844,14 @@ def main():
     del fused_times
     torch.cuda.empty_cache()
 
-    # phase 3: the serving slice
+    # phase 3: the serving slice, through the captured programs, then
+    # the same requests through the same bodies uncaptured
     res = serve(torch, serving, kernels, cuda)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res_eager = serve(torch, serving, kernels, cuda, recheck=0,
+                      capture=False)
+    log_programs('phase 3', card, res, res_eager)
     log('phase 3 slice: %d requests, prompts %s, %d new tokens each'
         % (REQUESTS, res['prompt_lens'], NEW_TOKENS))
     log('phase 3 slice: %d prefills, %d steps, launches %s'
@@ -4513,6 +4871,10 @@ def main():
     # paged cache at page size 16
     rp = serve(torch, serving, kernels, cuda, paged=True, recheck=0)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log_programs('phase 3p', card, rp, serve(
+        torch, serving, kernels, cuda, paged=True, recheck=0,
+        capture=False))
     if rp['outs'] != res['outs']:
         raise AssertionError('phase 3p: paged tokens differ from phase 3\'s '
                              'slot-cache tokens: %s' % [
@@ -4538,6 +4900,19 @@ def main():
     # phase 3s: prefix sharing, then speculative decoding, at full width
     sh = serve_shared(torch, serving, kernels, cuda)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sh_eager = serve_shared(torch, serving, kernels, cuda, capture=False,
+                            recheck=False)
+    for run in ('prefix', 'spec'):
+        if sh[run]['outs'] != sh_eager[run]['outs']:
+            raise AssertionError('phase 3s %s: the captured programs served '
+                                 'other tokens than the eager bodies' % run)
+        log('phase 3s %s programs: %d streams token for token the eager '
+            'bodies\'; capture seconds %s; mean tick %.3f ms (eager %.3f)'
+            % (run, len(sh[run]['outs']), json.dumps(
+                {k: round(v, 4) for k, v in
+                 sh[run]['compile_seconds'].items()}),
+               sh[run]['step_ms'], sh_eager[run]['step_ms']))
     for run, r in sh.items():
         c = r['counts']
         log('phase 3s %s: %d prefills, %d ticks (%d speculative), prefix hits '
@@ -4576,6 +4951,16 @@ def main():
 
     log_profile('phase 4b', card, tr['profile'])
     torch.cuda.empty_cache()
+    cap_ms, eager_ms = bert_twins(torch, bert, gloss, parallel, cuda)
+    log('phase 4b program: captured at the second step in %s s; twins at '
+        '4b\'s configuration under deterministic algorithms: %d steps (2 + '
+        '10) captured bit for bit the eager body\'s, losses and every '
+        'parameter; mean step %.3f ms captured, %.3f ms eager (CUDA events, '
+        'deterministic algorithms) [%s]'
+        % (json.dumps({k: round(v, 4) for k, v in
+                       tr['compile_seconds'].items()}),
+           TRAIN_WARMUP + TRAIN_ITERS, cap_ms, eager_ms, card))
+    torch.cuda.empty_cache()
 
     # phase 4c: the same under amp='bf16' (bf16 compute over float32
     # masters), first its small BERT on the card against the CPU
@@ -4606,6 +4991,8 @@ def main():
            tr['peak_mem_bytes'], tc['setup_s']))
     log_profile('phase 4c (casts: aten::_to_copy and ToCopyBackward)', card,
                 tc['profile'])
+    log('phase 4c capture seconds %s' % json.dumps(
+        {k: round(v, 4) for k, v in tc['compile_seconds'].items()}))
     torch.cuda.empty_cache()
 
     # phase 4a-cast, 4d, 4d-mp: bench_bert's accelerator configuration,
@@ -4647,8 +5034,34 @@ def main():
                td['wall_s'], TRAIN_ITERS, td['peak_mem_bytes'],
                tr['peak_mem_bytes'], tc['peak_mem_bytes'], td['setup_s']))
         log_profile(phase, card, td['profile'])
+        torch.cuda.empty_cache()
+        if route == 'cast':
+            cap_ms, eager_ms = bert_twins(torch, bert, gloss, parallel, cuda,
+                                          route=route)
+            log('%s program: twins at its configuration under deterministic '
+                'algorithms: %d steps captured bit for bit the eager '
+                'body\'s; mean step %.3f ms captured, %.3f ms eager [%s]'
+                % (phase, TRAIN_WARMUP + TRAIN_ITERS, cap_ms, eager_ms,
+                   card))
+        log('%s capture seconds %s' % (phase, json.dumps(
+            {k: round(v, 4) for k, v in td['compile_seconds'].items()})))
         cast_runs[route] = td
         torch.cuda.empty_cache()
+
+    # phase 4e: step_n, build / snapshot / restore, step_accum and the
+    # dropout masks of replays
+    te = check_train_programs(torch, bert, gloss, parallel, capture_mod,
+                              ops, cuda)
+    log('phase 4e: step_n(%d) bit for bit %d steps, losses %s; step_accum(2) '
+        'against the full-batch step, three times from a snapshot (eager, '
+        'captured, replayed): |loss diff| and parameter error / tolerance '
+        '%s, num_update 1; %d programs, capture seconds %s; %d replayed '
+        'dropout masks equal to the eager draws'
+        % (TRAIN_WARMUP + TRAIN_ITERS, TRAIN_WARMUP + TRAIN_ITERS,
+           te['step_n'], te['accum'], te['programs'],
+           json.dumps({k: round(v, 4) for k, v in
+                       te['compile_seconds'].items()}), te['masks']))
+    torch.cuda.empty_cache()
 
     # phase 5: the ResNet slice
     resnet_against_cpu(torch, resnet, gloss, gnn, parallel, kernels, cuda)
@@ -4669,6 +5082,8 @@ def main():
            ['%.3f' % t for t in rn['step_ms_each']], rn['wall_s'],
            RESNET_ITERS, rn['peak_mem_bytes'], rn['setup_s']))
     log_profile('phase 5b', card, rn['profile'])
+    log('phase 5b capture seconds %s' % json.dumps(
+        {k: round(v, 4) for k, v in rn['compile_seconds'].items()}))
     fz = finetune_frozen(torch, resnet, gloss, gnn, parallel, optimizer,
                          kernels, rn.pop('net'), *rn.pop('batch'))
     log('phase 5c frozen-BN fine-tuning: the trained resnet%d_v1 (loss '
@@ -4734,8 +5149,23 @@ def main():
                    fb['losses']))
         rb.pop('net', None)
         rb.pop('batch', None)
+        log('%s capture seconds %s' % (phase, json.dumps(
+            {k: round(v, 4) for k, v in rb['compile_seconds'].items()})))
         bf16_runs[route] = rb
         torch.cuda.empty_cache()
+
+    # phase 5f: 5b's configuration captured against its eager body
+    cap_ms, eager_ms = resnet_twins(torch, resnet, gloss, parallel,
+                                    optimizer, cuda)
+    log('phase 5f: resnet%d_v1 at 5b\'s configuration (full depth), both '
+        'runs under deterministic algorithms (cuDNN\'s default ones may sum '
+        'in another order from run to run): %d steps captured from the '
+        'second on, bit for bit the eager body\'s, losses and every '
+        'parameter and moving statistic; mean step %.3f ms captured, %.3f '
+        'ms eager [%s]'
+        % (RESNET['depth'], TRAIN_WARMUP + TRAIN_ITERS, cap_ms, eager_ms,
+           card))
+    torch.cuda.empty_cache()
 
     # phase 6: the SSD detection serving slice
     errs.update(check_nms_kernel(torch, kernels, cuda))
@@ -4806,6 +5236,8 @@ def main():
     del shapes
     torch.cuda.empty_cache()
 
+    log('chip_smoke: all phases passed in %.1f s' % (time.perf_counter()
+                                                     - started))
     rows = kernel_rows(errs, times, train_times,
                        {'serving': res['launches'],
                         'paged serving': rp['launches'],

@@ -9,15 +9,23 @@ instance under its own name (``flash_attention_fwd.bf16``), so a run
 tells the AMP launches from the float32 ones; the whole-model optimizer
 update counts its instance with a float32 master as
 ``multi_tensor_update.mp``.
+
+A launch made while a CUDA graph captures runs nowhere yet: inside
+:class:`recording` the counts go to the capture's record instead (from
+every thread, the autograd engine's among them), and each replay of the
+graph adds that record (:func:`add_counts`), so a captured program counts
+what it launches, once a replay.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 __all__ = ['KERNELS', 'BF16', 'launch_counts', 'instance_launches',
-           'reset_launch_counts', 'count', 'io_dtype', 'instance',
+           'reset_launch_counts', 'count', 'recording', 'add_counts',
+           'io_dtype', 'instance',
            'on_cpu', 'dense', 'ptr', 'stream', 'require', 'check_inputs',
            'raise_on']
 
@@ -38,6 +46,8 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_fwd' + BF16,
 
 _launches = dict.fromkeys(KERNELS, 0)
 _instances = {}
+_record = None                 # the open capture's record, if any
+_record_lock = threading.Lock()
 
 
 def launch_counts():
@@ -57,11 +67,56 @@ def reset_launch_counts():
     _instances.clear()
 
 
-def count(kernel, instance=None):
-    _launches[kernel] += 1
+def _bump(launches, instances, kernel, instance):
+    launches[kernel] = launches.get(kernel, 0) + 1
     if instance is not None:
-        _instances[kernel, instance] = _instances.get((kernel, instance),
-                                                      0) + 1
+        instances[kernel, instance] = instances.get((kernel, instance),
+                                                    0) + 1
+
+
+def count(kernel, instance=None):
+    if kernel not in _launches:
+        raise KeyError(kernel)
+    rec = _record
+    if rec is not None:
+        _bump(rec.launches, rec.instances, kernel, instance)
+    else:
+        _bump(_launches, _instances, kernel, instance)
+
+
+class recording:
+    """``with recording() as rec:`` sends every count to ``rec``
+    (``rec.launches``, ``rec.instances``) instead of the totals: what a
+    CUDA graph capture, or a warm-up whose work is undone, launches. One
+    at a time."""
+
+    def __init__(self):
+        self.launches = {}
+        self.instances = {}
+
+    def __enter__(self):
+        global _record
+        with _record_lock:
+            if _record is not None:
+                raise RuntimeError('launch counts: a recording is open '
+                                   'already')
+            _record = self
+        return self
+
+    def __exit__(self, *exc):
+        global _record
+        with _record_lock:
+            _record = None
+        return False
+
+
+def add_counts(rec):
+    """Add a :class:`recording`'s counts to the totals (a replay of the
+    captured program)."""
+    for kernel, n in rec.launches.items():
+        _launches[kernel] += n
+    for key, n in rec.instances.items():
+        _instances[key] = _instances.get(key, 0) + n
 
 
 def io_dtype(kernel, named, allowed=(torch.float32, torch.bfloat16)):

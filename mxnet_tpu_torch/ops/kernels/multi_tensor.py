@@ -24,6 +24,13 @@ card from a pinned buffer in one asynchronous copy. :func:`table_layout`
 cuts each tensor into :data:`CHUNK`-element chunks, one block each, and
 :func:`chunk_of` is the kernel's chunk -> (tensor, offset) search.
 
+In a captured training step the gradients stay where the capture put
+them, so a plan's :class:`BoundLaunch` launches it there: its
+table's pointer columns packed and uploaded once, and only each record's
+lr / eta, wd and flags (:data:`COLUMNS`) written each step, from a device
+buffer that the host fills before the replay, by a copy the graph makes
+before the kernel.
+
 The launch counts as ``multi_tensor_update`` (float32), ``.bf16`` (no
 master) or ``.mp`` (a float32 master), its rule as the instance.
 """
@@ -42,7 +49,8 @@ from ._launch import (BF16, count as _count, ptr as _ptr,
 __all__ = ['RULES', 'FORMS', 'MP', 'KERNEL', 'THREADS', 'VEC', 'UNROLL',
            'CHUNK', 'ENTRY', 'FLAG_WD', 'FLAG_VECTOR', 'form_of',
            'instance_name', 'table_layout', 'chunk_of', 'pack_table',
-           'launch_scalars', 'MultiTensorPlan']
+           'launch_scalars', 'MultiTensorPlan', 'BoundLaunch', 'COLUMNS',
+           'COLUMN_WORD']
 
 RULES = ('sgd', 'sgd_mom', 'adamw')
 FORMS = ('float32', 'low', 'master')
@@ -61,6 +69,9 @@ ENTRY = np.dtype({'names': ['w', 'g', 's1', 's2', 'w32', 'n', 'chunk0', 'a',
                   'offsets': [0, 8, 16, 24, 32, 40, 48, 56, 60, 64, 68],
                   'itemsize': 72})
 _SUFFIX = {'float32': '', 'low': BF16, 'master': MP}
+# the record's fields a step writes (BoundLaunch), from this 4-byte word
+COLUMNS = ('a', 'wd', 'flags')
+COLUMN_WORD = ENTRY.fields['a'][1] // 4
 
 
 def form_of(weight_dtype, master):
@@ -260,12 +271,12 @@ class MultiTensorPlan:
                                                    FLAG_VECTOR, 0)))
         return tab
 
-    def launch(self, grads, lrs, wds, rescale_grad=1.0, clip_gradient=None,
-               momentum=0.0, beta1=0.9, beta2=0.999, epsilon=1e-8, lr=1.0):
+    def launch(self, grads, lrs, wds, **scalars):
         """One launch with the step's ``grads``, ``lrs`` and ``wds``
-        (:meth:`table`) and the launch's scalars
-        (:func:`launch_scalars`). CUDA tensors only: the kernel has no CPU
-        mode."""
+        (:meth:`table`) and the launch's scalars (``rescale_grad``,
+        ``clip_gradient``, ``momentum``, ``beta1``, ``beta2``,
+        ``epsilon``, ``lr``: :func:`launch_scalars`). CUDA tensors only:
+        the kernel has no CPU mode."""
         _require(self.device.type == 'cuda', '%s: the kernel runs on a CUDA '
                  'device, not %s' % (KERNEL, self.device))
         if not self.chunks:
@@ -274,13 +285,71 @@ class MultiTensorPlan:
         host = torch.empty(raw.size, dtype=torch.uint8, pin_memory=True)
         host.numpy()[:] = raw
         with torch.cuda.device(self.device):
-            table = host.to(self.device, non_blocking=True)
-            err = _lib()(RULES.index(self.rule), FORMS.index(self.form),
-                         _ptr(table), len(self._keep), self.chunks,
-                         *launch_scalars(self.rule, self.form, rescale_grad,
-                                         clip_gradient, momentum, beta1,
-                                         beta2, epsilon, lr),
-                         _stream(self.device))
+            self._call(host.to(self.device, non_blocking=True), scalars)
+
+    def _call(self, table, scalars):
+        """The kernel over the device ``table``, counted."""
+        err = _lib()(RULES.index(self.rule), FORMS.index(self.form),
+                     _ptr(table), len(self._keep), self.chunks,
+                     *launch_scalars(self.rule, self.form, **scalars),
+                     _stream(self.device))
         _raise_on(KERNEL, err)
         _count(instance_name(self.form), self.rule)
+
+
+class BoundLaunch:
+    """A plan's launch inside a captured training step, whose gradients
+    stay where the capture put them; its device table is made with it
+    (before the capture, outside the graph's pool). :meth:`launch` (in
+    the capture) checks the gradients and packs the table's pointer
+    columns once, and captures a copy of the step's columns
+    (:data:`COLUMNS` of each record: a, wd, flags) from a device buffer
+    into the table before the kernel; :meth:`upload` (after the capture)
+    writes the packed table to the card once. Before each replay the
+    host writes the step's :meth:`columns` into that buffer."""
+
+    def __init__(self, plan):
+        self.plan = plan
+        self.size = len(plan._keep)
+        self.table = torch.zeros(self.size * ENTRY.itemsize,
+                                 dtype=torch.uint8, device=plan.device)
+        self._packed = self._vector = None
+
+    def pack(self, grads):
+        """Check ``grads`` (the step's static gradients, None: zero) and
+        pack the table's columns that stay: the pointers, lengths, chunks
+        and the flag their alignment decides."""
+        zeros = [0.0] * len(grads)
+        self._packed = self.plan.table(grads, zeros, zeros)
+        self._vector = self._packed['flags'] & FLAG_VECTOR
+
+    def launch(self, grads, cols, **scalars):
+        """In the capture: :meth:`pack` ``grads``, then the captured copy
+        of ``cols`` ((size, 3) int32 on the card) into the table and the
+        kernel with the launch's scalars."""
+        self.pack(grads)
+        if not self.plan.chunks:
+            return
+        words = self.table.view(torch.int32).view(self.size,
+                                                  ENTRY.itemsize // 4)
+        words[:, COLUMN_WORD:COLUMN_WORD + len(COLUMNS)].copy_(cols)
+        self.plan._call(self.table, scalars)
+
+    def upload(self):
+        """After the capture: the packed table to the card, once."""
+        self.table.copy_(torch.from_numpy(self._packed.view(np.uint8)))
+
+    def columns(self, lrs, wds):
+        """The step's (size, 3) int32 columns for ``lrs`` / ``wds`` (each
+        tensor's, as :meth:`MultiTensorPlan.launch` takes them): the
+        float32 a and wd as bits, and the flags they decide, as
+        :meth:`MultiTensorPlan.table` packs them."""
+        keep = self.plan._keep
+        a = np.asarray([lrs[i] for i in keep], np.float32)
+        wd = np.asarray([wds[i] for i in keep], np.float32)
+        wd_on = np.asarray([self.plan.rule != 'adamw' and wds[i] != 0
+                            for i in keep], bool)
+        flags = np.where(wd_on, FLAG_WD, 0).astype(np.int32) | self._vector
+        return np.stack([a.view(np.int32), wd.view(np.int32),
+                         flags.astype(np.int32)], axis=1)
 

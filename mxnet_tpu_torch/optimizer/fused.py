@@ -27,9 +27,17 @@ device an optimizer other than the port's ``SGD`` and ``AdamW`` (a
 subclass among them: its ``update`` may differ), or a weight of a form the
 kernel has none for (float16), raises :class:`FusedUpdateError` when the
 update is built; nothing falls back to the loop there.
+
+Inside a captured training step (``parallel/train_step.py``) the update
+is :meth:`FusedUpdate.bind` (tables made before the capture),
+:meth:`FusedUpdate.launch_bound` (in it) and, before each replay, the
+step's ``_hypers`` packed by :meth:`FusedUpdate.columns`:
+the same per-parameter resolution, so the captured update stays bitwise
+the plain loop.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.kernels import multi_tensor
@@ -83,7 +91,8 @@ class FusedUpdate:
     def _hypers(self):
         """Advance the update counts; each parameter's lr (AdamW: its
         ``eta``) and wd, resolved as ``update_multi_precision`` resolves
-        them, parameter by parameter in order, and the launch's scalars."""
+        them, parameter by parameter in order, and the launch's scalars.
+        Called n times ahead, it gives n steps' (a captured window's)."""
         opt, rule = self._opt, self._rule
         a, wd = [], []
         for i, _ in self._params:
@@ -92,6 +101,12 @@ class FusedUpdate:
                 lr = opt._bias_corrected(lr, opt._step_of(i))
             a.append(lr)
             wd.append(d)
+        return a, wd, self.scalars()
+
+    def scalars(self):
+        """The launch's scalars (the same every step until the optimizer's
+        attributes change: a captured step bakes them in)."""
+        opt, rule = self._opt, self._rule
         scal = dict(rescale_grad=opt.rescale_grad,
                     clip_gradient=opt.clip_gradient)
         if rule == 'adamw':
@@ -99,7 +114,7 @@ class FusedUpdate:
                         epsilon=opt.epsilon, lr=1.0)
         elif rule == 'sgd_mom':
             scal['momentum'] = opt.momentum
-        return a, wd, scal
+        return scal
 
     def _group(self, poses):
         """(weights, states, masters) of the parameters at ``poses``."""
@@ -135,3 +150,32 @@ class FusedUpdate:
             plan.launch([self._params[k][1].grad for k in poses],
                         [a[k] for k in poses], [wd[k] for k in poses],
                         **scal)
+
+    # -- inside a captured step ----------------------------------------------
+
+    def bind(self):
+        """One :class:`~ops.kernels.multi_tensor.BoundLaunch` a group, for
+        a step about to be captured (their tables made before the
+        capture)."""
+        return [(poses, multi_tensor.BoundLaunch(plan))
+                for poses, plan in self._plans()]
+
+    @torch.no_grad()
+    def launch_bound(self, bindings, cols, scal):
+        """In the capture, after the backward: the update of each group
+        from the static gradients, the step's columns read from ``cols``
+        ((width, 3) int32 on the card)."""
+        at = 0
+        for poses, b in bindings:
+            b.launch([self._params[k][1].grad for k in poses],
+                     cols[at:at + b.size], **scal)
+            at += b.size
+
+    @staticmethod
+    def columns(bindings, a, wd):
+        """One step's (width, 3) int32 columns for its resolved ``a`` and
+        ``wd`` (``_hypers``)."""
+        return np.concatenate(
+            [b.columns([a[k] for k in poses], [wd[k] for k in poses])
+             for poses, b in bindings]) if bindings \
+            else np.zeros((0, 3), np.int32)

@@ -89,6 +89,11 @@ class Optimizer:
         self.set_lr_mult({})
         self.set_wd_mult({})
 
+    def set_learning_rate(self, lr):
+        """The base learning rate from the next update on (the port has no
+        lr scheduler to refuse it, ``optimizer.py:178-185``)."""
+        self.lr = lr
+
     def create_state(self, index, weight):
         """Optimizer state for one weight; None if stateless."""
         return None

@@ -1,19 +1,39 @@
 """The training step, the counterpart of ``mxnet_tpu/parallel/train_step.py``
-(``ParallelTrainer`` :119-236, ``_build`` :498-651, ``_hyper`` :1142-1155,
-``step`` :1157-1236), on one device.
+(``ParallelTrainer`` :119-236, ``_build`` :498-651, ``step_accum``
+:843-958, ``build`` :1020, ``step_n`` :1030-1115, ``_hyper`` :1142-1155,
+``step`` :1157-1236, ``snapshot`` / ``restore`` :1270-1318), on one
+device.
 
 The JAX trainer compiles forward, backward and the optimizer update into
 one XLA program over a mesh (``_build`` :498-640), the update traced from
 the optimizer's own ``update_multi_precision`` for every parameter
-(``optimizer/fused.py``) and fused by XLA. PyTorch runs eagerly, so the
-port's step is the same sequence of work issued in order on one device:
-the forward in training mode, ``mean(loss(outputs, labels))``, its
-backward (through the kernels' ``autograd.Function``s), then the
-whole-model update of every parameter, in place
-(``optimizer/fused.py`` ``FusedUpdate``): on the card one launch of the
-multi-tensor kernel a group of parameters of one form, on the CPU its
-plain version, ``update_multi_precision`` parameter by parameter. What
-the JAX trainer does that the port keeps:
+(``optimizer/fused.py``) and fused by XLA. The port's step body is the
+same sequence of work on one device: the forward in training mode,
+``mean(loss(outputs, labels))``, its backward (through the kernels'
+``autograd.Function``s), then the whole-model update of every parameter,
+in place (``optimizer/fused.py`` ``FusedUpdate``): on the card one launch
+of the multi-tensor kernel a group of parameters of one form, on the CPU
+its plain version, ``update_multi_precision`` parameter by parameter.
+
+On a card the step is one program, as the reference's is: the first
+:meth:`ParallelTrainer.step` of an input signature (shapes, dtypes and
+``None`` positions) runs the body eagerly, which builds the kernels, the
+library handles and the update's plans; the second captures forward,
+loss, backward and update into one CUDA graph
+(:class:`~mxnet_tpu_torch.capture.Program`) over static buffers, and
+every later call copies its inputs and the step's per-parameter lr / wd
+columns in with one host-to-device copy and replays. The gradients stay
+where the capture put them (the backward overwrites them each replay),
+the trainer's generator is registered with each graph (replay k draws
+eager step k's dropout masks), the step's hyperparameters are resolved on
+the host as before (``FusedUpdate``), and the returned loss is a copy.
+A new signature is captured again, as the reference retraces; a capture
+that fails raises (``CaptureError``), never falling back to eager steps.
+:meth:`ParallelTrainer.step_n` (n replays, no host sync between them),
+:meth:`ParallelTrainer.step_accum` (a graph a (signature, accum)) and
+:meth:`ParallelTrainer.build` (captured with the state rewound) run the
+same way; on the CPU every body runs uncaptured. What the JAX trainer
+does that the port keeps:
 
   * the loss is ``mean(loss_fn(outs, labels))``, differentiated as is
     (``rescale_grad`` stays the optimizer's, 1 by default);
@@ -44,10 +64,16 @@ the JAX trainer does that the port keeps:
     dtype), updates through ``update_multi_precision`` or the kernel's
     bf16 forms (with or without a float32 master).
 
+  * ``snapshot`` / ``restore`` cover the parameters, the optimizer state,
+    the update counts and ``num_update``, and the generator's state in
+    place of the reference's base key; ``restore`` copies into the
+    storage the graphs were captured against.
+
 Not ported yet, and refused with ``NotImplementedError``: a mesh of more
 than one device, ZeRO and the numerical guardrail (ROADMAP: "multi-GPU,
 robustness layers and the tail"), and so the fp16 policy, whose dynamic
-loss scaling the reference runs through that guardrail.
+loss scaling the reference runs through that guardrail; the reference's
+checkpoint, preemption and watchdog attachments and ``prefetch_iter``.
 """
 from __future__ import annotations
 
@@ -56,6 +82,7 @@ import math
 import torch
 
 from .. import amp as _amp
+from ..capture import Program
 from ..gluon.nn import Dropout
 from ..optimizer import fused as _fused
 from ..optimizer import optimizer as _optmod
@@ -73,23 +100,108 @@ def _mesh_devices(mesh):
     return len(mesh)
 
 
+def _host(a):
+    """``a`` as a tensor (a numpy array or a tensor passes through)."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
+
+
+def _state_tensors(state):
+    """The tensors of one optimizer state (None, a tensor, or nested
+    tuples of them), in order."""
+    if state is None:
+        return []
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for s in state for t in _state_tensors(s)]
+
+
+class _Staged:
+    """A captured step's static inputs: the update's (width, 3) int32
+    columns, then each data and label tensor, each 16-byte aligned in one
+    device buffer (``dev``) that the replay reads, filled by one copy from
+    one of two pinned staging buffers, each reused only once the copy out
+    of it ran."""
+
+    def __init__(self, device, width, specs):
+        at, self._at = 0, []
+        for shape, dtype in [((width, 3), torch.int32)] + list(specs):
+            self._at.append((at, shape, dtype))
+            at += -(-math.prod(shape) * dtype.itemsize // 16) * 16
+        self.nbytes = max(at, 16)
+        self.dev = torch.zeros(self.nbytes, dtype=torch.uint8, device=device)
+        self.views = [self._view(self.dev, *a) for a in self._at]
+        self._stage = [torch.zeros(self.nbytes, dtype=torch.uint8,
+                                   pin_memory=True) for _ in range(2)]
+        self._events = [torch.cuda.Event() for _ in range(2)]
+        self._turn = 0
+
+    @staticmethod
+    def _view(buf, at, shape, dtype):
+        n = math.prod(shape) * dtype.itemsize
+        return buf[at:at + n].view(dtype).view(shape)
+
+    def fill(self, host, cols, arrays):
+        """``cols`` (np) and each of ``arrays`` (a host tensor; a card
+        tensor is copied on the card after) into the host buffer
+        ``host``."""
+        views = [self._view(host, *a) for a in self._at]
+        views[0].copy_(torch.from_numpy(cols))
+        for v, a in zip(views[1:], arrays):
+            if a.device.type == 'cpu':
+                v.copy_(a)
+
+    def load(self, cols, arrays):
+        """One step's columns and inputs to the card: one host-to-device
+        copy (then a card-to-card copy of each input already there)."""
+        k = self._turn
+        self._turn ^= 1
+        self._events[k].synchronize()
+        self.fill(self._stage[k], cols, arrays)
+        self.dev.copy_(self._stage[k], non_blocking=True)
+        self._events[k].record()
+        for v, a in zip(self.views[1:], arrays):
+            if a.device.type != 'cpu':
+                v.copy_(a)
+
+
+class _StepProgram:
+    """One captured step: its staged inputs, static loss, update
+    bindings and graph."""
+
+    def __init__(self, trainer, specs):
+        self.bindings = trainer._update.bind()
+        self.staged = _Staged(trainer._device,
+                              sum(b.size for _, b in self.bindings), specs)
+        self.loss = torch.zeros((), dtype=trainer._loss_dtype,
+                                device=trainer._device)
+        self.scal = trainer._update.scalars()
+        self.graph = None
+        self.grads = []
+
+
 class ParallelTrainer:
     """Gluon-style trainer whose ``step`` runs forward, backward and the
-    update of every parameter of ``net`` on the net's device.
+    update of every parameter of ``net`` on the net's device, as one
+    captured program on a card.
 
     ``loss`` is a loss block, called as ``loss(outputs[0], labels[0])``,
     or a callable ``fn(outputs, labels)`` that receives the net's outputs
     and the labels (a list when there are several): multi-output models
     (BERT: MLM + NSP heads) compose their objective there. ``x`` / ``y``
     of :meth:`step` are one tensor (or numpy array) or a list; they are
-    moved to the net's device.
+    copied to the net's device.
 
     ``mesh`` may be None or a one-device mesh (a ``{axis: size}`` dict or
     a sequence of devices); ``guardrail`` and ``zero`` may be None or
     False. ``amp``: None reads the ``MXNET_TPU_AMP`` knob; False or
     ``'off'`` is off; True, ``'bf16'`` or a ``Policy`` without loss
     scaling turns it on (:func:`mxnet_tpu_torch.amp.resolve`).
+    ``capture`` (True) captures the step on a card; set it False to run
+    every step's body eagerly there (the reference the replays are held
+    to).
     """
+
+    capture = True
 
     def __init__(self, net, loss, optimizer='sgd', optimizer_params=None,
                  mesh=None, guardrail=None, zero=None, amp=None, seed=0):
@@ -130,17 +242,32 @@ class ParallelTrainer:
         self._params = None
         self._states = None
         self._update = None
+        self._sig = None
+        self._programs = {}       # key -> _StepProgram (None: warmed)
+        self._loss_dtype = torch.float32
+        self.compile_seconds = {}
         self.num_update = 0
 
     @property
     def learning_rate(self):
         return self._opt.lr
 
+    def set_learning_rate(self, lr):
+        """The optimizer's lr from the next step on (a captured step
+        reads it from its per-step columns)."""
+        self._opt.set_learning_rate(lr)
+
     @property
     def amp(self):
         """The active AMP policy's name ('bf16') or 'off'."""
         return self._amp_policy.name if self._amp_policy is not None \
             else 'off'
+
+    @property
+    def compile_count(self):
+        """Step programs captured so far (their capture seconds in
+        ``compile_seconds``, by kind and first input's shape)."""
+        return sum(p is not None for p in self._programs.values())
 
     def _build(self):
         named = list(self._net.collect_params().items())
@@ -150,26 +277,50 @@ class ParallelTrainer:
         # parameters that take no gradient (BatchNorm's moving statistics,
         # grad_req 'null' in the JAX net) are not updated: the forward
         # writes them in place
+        self._all = [p for _, p in named]
         self._params = [(i, p) for i, (_, p) in enumerate(named)
                         if p.requires_grad]
+        self._stats = [p for p in self._all if not p.requires_grad]
         self._states = [opt.create_state_multi_precision(i, p.detach())
                         for i, p in self._params]
         self._update = _fused.FusedUpdate(opt, self._params, self._states,
                                           self._device)
 
-    def _to_device(self, a):
-        return torch.as_tensor(a, device=self._device)
-
-    def step(self, x, y):
-        """One training step; returns the step's loss, a scalar tensor on
-        the net's device (reading it waits for the device)."""
+    def _check(self, what, xs, ys):
+        """The reference's signature rule: input / label arity and
+        ``None`` positions are fixed by the first call."""
         if self._params is None:
             self._build()
-        xs = [None if a is None else self._to_device(a) for a in _as_list(x)]
-        ys = [self._to_device(a) for a in _as_list(y)]
+        sig = (tuple(a is None for a in xs), len(ys))
+        if self._sig is None:
+            self._sig = sig
+        elif sig != self._sig:
+            raise ValueError(
+                '%s called with input signature %r but the compiled step '
+                'was built for %r -- input/label arity and None-positions '
+                'must match the first call' % (what, sig, self._sig))
+
+    @staticmethod
+    def _arrays(xs, ys):
+        """The step's live inputs, data then labels, as tensors."""
+        return [_host(a) for a in xs if a is not None] + \
+            [_host(a) for a in ys]
+
+    def _key(self, arrays, accum=1):
+        """A step program's key: its inputs' shapes and dtypes, ``accum``
+        and the launch scalars the capture bakes in."""
+        return (tuple((tuple(a.shape), a.dtype) for a in arrays), accum,
+                tuple(sorted(self._update.scalars().items())))
+
+    def _captures(self):
+        return self.capture and self._device.type == 'cuda'
+
+    # -- the step's bodies ---------------------------------------------------
+
+    def _forward_backward(self, xs, ys):
+        """Forward in training mode, ``mean(loss)``, backward; the
+        gradients accumulate into ``.grad``. Returns the loss."""
         net = self._net
-        for _, p in self._params:
-            p.grad = None
         net.train(True)
         try:
             with _amp.scope(self._amp_policy):
@@ -186,8 +337,246 @@ class ParallelTrainer:
         finally:
             net.train(False)
         loss.backward()
+        return loss.detach()
+
+    def _gradients(self, xs, ys, accum):
+        """The step's gradients in ``.grad`` (which starts at None) and
+        its loss: one pass, or ``accum`` microbatch passes over the
+        leading-dim split of ``xs`` / ``ys``, their gradients summed and
+        divided by ``accum`` and their losses averaged, the BatchNorm
+        moving statistics following the last microbatch (each pass starts
+        from the step's statistics), as the reference's accum step."""
+        if accum == 1:
+            return self._forward_backward(xs, ys)
+
+        def split(a, i):
+            return a.reshape((accum, a.shape[0] // accum)
+                             + tuple(a.shape[1:]))[i]
+        saved = [p.detach().clone() for p in self._stats]
+        losses = []
+        for i in range(accum):
+            if i:
+                with torch.no_grad():
+                    for p, s in zip(self._stats, saved):
+                        p.copy_(s)
+            losses.append(self._forward_backward(
+                [None if a is None else split(a, i) for a in xs],
+                [split(a, i) for a in ys]))
+        with torch.no_grad():
+            for _, p in self._params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        return torch.mean(torch.stack(losses))
+
+    def _eager(self, xs, ys, accum=1):
+        """The step's body, uncaptured (a CPU step, and the first step of
+        a signature on a card): inputs to the device, gradients, the
+        update."""
+        xs = [None if a is None else torch.as_tensor(a, device=self._device)
+              for a in xs]
+        ys = [torch.as_tensor(a, device=self._device) for a in ys]
+        for _, p in self._params:
+            p.grad = None
+        loss = self._gradients(xs, ys, accum)
+        self._loss_dtype = loss.dtype
         self._update()
         for _, p in self._params:
             p.grad = None
         self.num_update += 1
-        return loss.detach()
+        return loss
+
+    def _capture(self, key):
+        """Capture the step of ``key`` over new static buffers: forward,
+        loss, backward (into gradients the capture places) and the
+        update reading its columns from the staged buffer."""
+        specs, accum = key[:2]
+        prog = _StepProgram(self, specs)
+        views = prog.staged.views[1:]
+        nx = len(self._sig[0]) - sum(self._sig[0])
+        live = iter(views[:nx])
+        xs = [None if none else next(live) for none in self._sig[0]]
+        ys = views[nx:]
+        for _, p in self._params:
+            p.grad = None
+
+        def body():
+            prog.loss.copy_(self._gradients(xs, ys, accum))
+            self._update.launch_bound(prog.bindings, prog.staged.views[0],
+                                      prog.scal)
+        # a pool of its own: the gradients it places stay allocated
+        prog.graph = Program('ParallelTrainer step %r' % (key,), body,
+                             self._device, generators=(self._generator,))
+        for _, b in prog.bindings:
+            b.upload()
+        self.compile_seconds['%s %s' % (
+            'step' if accum == 1 else 'accum:%d' % accum,
+            'x'.join(map(str, specs[0][0])))] = prog.graph.seconds
+        # the graph's gradients stay allocated as long as it lives
+        prog.grads = [p.grad for _, p in self._params]
+        self._programs[key] = prog
+        return prog
+
+    def _program(self, arrays, accum=1):
+        """The captured program for these inputs, capturing it at the
+        second call of its key; None for an uncaptured step (the first
+        call of a key, or no capture)."""
+        if not self._captures():
+            return None
+        key = self._key(arrays, accum)
+        if key not in self._programs:
+            self._programs[key] = None          # this call warms it
+            return None
+        return self._programs[key] or self._capture(key)
+
+    def _replay(self, prog, arrays):
+        """One step through ``prog``: resolve the step's hypers, stage
+        its columns and inputs, replay. Returns a copy of the loss."""
+        a, wd, _ = self._update._hypers()
+        prog.staged.load(self._update.columns(prog.bindings, a, wd), arrays)
+        prog.graph.run()
+        self.num_update += 1
+        return prog.loss.clone()
+
+    # -- entry points --------------------------------------------------------
+
+    def step(self, x, y):
+        """One training step; returns the step's loss, a scalar tensor on
+        the net's device (a copy; reading it waits for the device)."""
+        xs, ys = _as_list(x), _as_list(y)
+        self._check('ParallelTrainer.step', xs, ys)
+        arrays = self._arrays(xs, ys)
+        prog = self._program(arrays)
+        if prog is None:
+            return self._eager(xs, ys)
+        return self._replay(prog, arrays)
+
+    def step_accum(self, x, y, accum):
+        """One optimizer update from ``accum`` microbatches, the leading
+        dim of ``x`` / ``y`` (the full batch) split into ``accum`` equal
+        parts: their gradients summed and divided by ``accum``, one
+        update, one ``num_update`` advance, the BatchNorm moving
+        statistics following the last microbatch; returns the mean loss.
+        ``accum <= 1`` is :meth:`step`. A graph a (signature, accum)."""
+        accum = int(accum)
+        if accum <= 1:
+            return self.step(x, y)
+        xs, ys = _as_list(x), _as_list(y)
+        self._check('step_accum', xs, ys)
+        arrays = self._arrays(xs, ys)
+        for a in arrays:
+            if a.shape[0] % accum:
+                raise ValueError('global batch %d does not split into %d '
+                                 'microbatches' % (a.shape[0], accum))
+        prog = self._program(arrays, accum)
+        if prog is None:
+            return self._eager(xs, ys, accum)
+        return self._replay(prog, arrays)
+
+    def step_n(self, x, y):
+        """One step per leading-dim slice of ``x`` / ``y``; returns the
+        (n,) losses, as n calls of :meth:`step` (bitwise). On a card the
+        inputs and all n steps' hypers (resolved ahead) cross to the card
+        in one copy, and the n steps are n replays with no host sync
+        between them."""
+        xs, ys = _as_list(x), _as_list(y)
+        live = [a for a in xs if a is not None]
+        if not live or not ys:
+            raise ValueError('step_n needs at least one data and one '
+                             'label array')
+        n = int(live[0].shape[0])
+        if n == 0:
+            raise ValueError('step_n called with a zero-length leading '
+                             '(steps) dimension')
+        self._check('step_n', xs, ys)
+        arrays = self._arrays(xs, ys)
+        losses = []
+        k = 0
+        while k < n and not self._ready(arrays):
+            losses.append(self.step([None if a is None else a[k]
+                                     for a in xs], [a[k] for a in ys]))
+            k += 1
+        if k < n:
+            losses.append(self._replay_n([a[k:] for a in arrays]))
+        return torch.cat([l.reshape(-1) for l in losses])
+
+    def _ready(self, arrays):
+        """True when a step on slice 0 of ``arrays`` replays a captured
+        program (and :meth:`_replay_n` can run the rest)."""
+        return self._captures() and self._programs.get(
+            self._key([a[0] for a in arrays])) is not None
+
+    def _replay_n(self, arrays):
+        """n replays of the captured step over the slices of ``arrays``:
+        every slice's inputs and columns staged in one host buffer and
+        copied in once, then per replay a copy on the card."""
+        n = int(arrays[0].shape[0])
+        prog = self._programs[self._key([a[0] for a in arrays])]
+        st = prog.staged
+        hypers = [self._update._hypers()[:2] for _ in range(n)]
+        host = torch.zeros((n, st.nbytes), dtype=torch.uint8,
+                           pin_memory=True)
+        for i, (a, wd) in enumerate(hypers):
+            st.fill(host[i], self._update.columns(prog.bindings, a, wd),
+                    [t[i] for t in arrays])
+        dev = host.to(self._device, non_blocking=True)
+        losses = torch.empty(n, dtype=prog.loss.dtype, device=self._device)
+        for i in range(n):
+            st.dev.copy_(dev[i])
+            for v, t in zip(st.views[1:], arrays):
+                if t.device.type != 'cpu':
+                    v.copy_(t[i])
+            prog.graph.run()
+            losses[i].copy_(prog.loss)
+        self.num_update += n
+        return losses
+
+    def build(self, x, y):
+        """Build the step for these inputs without running it: on a card
+        its program is captured after one warm-up step that the trainer's
+        state is rewound from (:meth:`snapshot` / :meth:`restore`)."""
+        xs, ys = _as_list(x), _as_list(y)
+        self._check('build', xs, ys)
+        key = self._key(self._arrays(xs, ys))
+        if self._captures() and self._programs.get(key) is None:
+            snap = self.snapshot()
+            self._eager(xs, ys)
+            self.restore(snap)
+            self._capture(key)
+        return self
+
+    # -- rollback (the reference's guardrail contract) -----------------------
+
+    def snapshot(self):
+        """Host copies of everything a step moves: the parameters (the
+        BatchNorm statistics among them), the optimizer state, the update
+        counts, ``num_update`` and the generator's state. Feed to
+        :meth:`restore` for a bit-exact rewind."""
+        if self._params is None:
+            raise RuntimeError('snapshot() before the step is built; call '
+                               'build(x, y) (or one step) first')
+        return {
+            'num_update': self.num_update,
+            'params': [p.detach().cpu().clone() for p in self._all],
+            'states': [t.detach().cpu().clone() for st in self._states
+                       for t in _state_tensors(st)],
+            'update_counts': dict(self._opt._index_update_count),
+            'opt_num_update': self._opt.num_update,
+            'generator': self._generator.get_state(),
+        }
+
+    @torch.no_grad()
+    def restore(self, state):
+        """Rewind to a :meth:`snapshot`, copying into the storage the
+        captured steps read and write."""
+        if self._params is None:
+            raise RuntimeError('restore() on an un-built trainer')
+        for p, v in zip(self._all, state['params']):
+            p.copy_(v)
+        for t, v in zip([t for st in self._states
+                         for t in _state_tensors(st)], state['states']):
+            t.copy_(v)
+        self.num_update = int(state['num_update'])
+        self._opt._index_update_count.clear()
+        self._opt._index_update_count.update(state['update_counts'])
+        self._opt.num_update = state['opt_num_update']
+        self._generator.set_state(state['generator'])

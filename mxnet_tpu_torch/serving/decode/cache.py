@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as onp
 import torch
+import torch.nn.functional as F
 
 __all__ = ['CacheSpec', 'cache_bytes', 'init_cache', 'write_slot',
            'write_position']
@@ -74,10 +75,15 @@ def write_slot(cache_arr, slot_state, slot):
     """Replace slot ``slot``'s state in place: ``slot_state`` (n, ...)
     lands in rows ``0..n-1`` and the rest of the slot is zeroed, so
     values from the slot's previous occupant never sit under a live
-    sequence. Returns ``cache_arr``."""
+    sequence. ``slot`` is an int or a one-element integer tensor on the
+    cache's device (a captured program's input: no host read). Returns
+    ``cache_arr``."""
     n = slot_state.shape[0]
-    cache_arr[slot, :n] = slot_state
-    cache_arr[slot, n:] = 0
+    row = F.pad(slot_state, (0, 0) * (slot_state.dim() - 1)
+                + (0, cache_arr.shape[1] - n))
+    slot = torch.as_tensor(slot, dtype=torch.int64,
+                           device=cache_arr.device).reshape(1)
+    cache_arr.index_copy_(0, slot, row[None].to(cache_arr.dtype))
     return cache_arr
 
 

@@ -36,8 +36,11 @@ first mismatch. Rejected K/V rows stay masked until overwritten.
 The scheduler is numpy + threading around a duck-typed program
 (``slots``, ``max_len``, ``max_prompt_len()``, ``new_cache()``,
 ``run_prefill``, ``run_step``; a paged one adds ``page_size``, ``pages``,
-``max_pages``, ``spec_k``, ``run_copy_page`` and ``run_verify``); the
-worker thread alone owns the device cache. The breaker, watchdog,
+``max_pages``, ``spec_k``, ``run_copy_page`` and ``run_verify``; a
+``warmup()``, where there is one, builds every program of the target and
+the draft as the engine starts); the worker thread alone owns the device
+cache, which the program hands out (``new_cache()``: its own storage,
+zeroed, since its captured programs are bound to it). The breaker, watchdog,
 degraded fallback, sampling, adapters, migration and tracing of the JAX
 engine are later slices (ROADMAP queue A): a failed device call fails
 the streams it carried and the cache is rebuilt.
@@ -224,6 +227,12 @@ class DecodeEngine:
                     '(it needs a position-addressed cache)' % (dm.family,))
             self._draft = draft
             self.spec_k = spec_k
+        # every program the engine can run is built before the first
+        # request, as the reference's server warms its program; no
+        # request builds one afterwards
+        for prog in (program, draft):
+            if callable(getattr(prog, 'warmup', None)):
+                prog.warmup()
         self._worker = threading.Thread(
             target=self._run, daemon=True,
             name='mxnet-tpu-torch-%s-decode' % name)
@@ -372,8 +381,9 @@ class DecodeEngine:
     # -- paged pool bookkeeping (worker thread only) ------------------------
 
     def _rebuild_cache(self):
-        """A fresh device cache: at first use, and after a failed device
-        call (the in-place updates may have left it half written). The
+        """The device cache zeroed: at first use, and after a failed
+        device call (the in-place updates may have left it half written;
+        the program zeroes its own storage, which its graphs write). The
         pool's host state describes the old pool, so it resets with it;
         callers retire (and release) their slots first."""
         self._cache = self.program.new_cache()

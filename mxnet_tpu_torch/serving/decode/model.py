@@ -216,17 +216,29 @@ class TransformerLM(DecodeModel):
             x = self._attn_out_ffn(params, i, x, ctx)
         return x, kvs
 
+    @staticmethod
+    def _lengths(length, device):
+        """``length`` (an int, or a one-element int tensor on ``device``,
+        as a captured program passes it) as a (1,) int32 tensor."""
+        return torch.as_tensor(length, dtype=torch.int32,
+                               device=device).reshape(1)
+
+    def _last(self, params, x, lengths):
+        """The head's logits (V,) at position ``lengths[0] - 1`` of
+        ``x`` (1, S, U), selected on the device."""
+        return self._head(params, x[0].index_select(0, lengths.long() - 1)[0])
+
     def prefill(self, params, cache, tokens, length, slot):
         """Run the padded prompt ``tokens`` (1, S), land its KV prefix
         in ``slot`` (in place, tail zeroed) and return (cache, logits
-        (V,)) at position ``length - 1``."""
-        lengths = torch.tensor([int(length)], dtype=torch.int32,
-                               device=tokens.device)
+        (V,)) at position ``length - 1``. ``length`` and ``slot`` are
+        ints or one-element int tensors on the device (no host read)."""
+        lengths = self._lengths(length, tokens.device)
         x, kvs = self._full_pass(params, tokens, lengths)
         for i, (k, v) in enumerate(kvs):
             write_slot(cache['l%d_k' % i], k[0], slot)
             write_slot(cache['l%d_v' % i], v[0], slot)
-        return cache, self._head(params, x[0, int(length) - 1])
+        return cache, self._last(params, x, lengths)
 
     def step(self, params, cache, tokens, positions):
         """Advance every slot one token: append each slot's K/V row at
@@ -271,9 +283,9 @@ class TransformerLM(DecodeModel):
         zero-padded to whole pages, written page by page to the
         host-allocated ``page_ids`` (npages,) int64 in place; trailing
         all-padding pages point at the trash page. Returns (pool, logits
-        (V,)) at position ``length - 1``."""
-        lengths = torch.tensor([int(length)], dtype=torch.int32,
-                               device=tokens.device)
+        (V,)) at position ``length - 1`` (``length``: as :meth:`prefill`
+        takes it)."""
+        lengths = self._lengths(length, tokens.device)
         x, kvs = self._full_pass(params, tokens, lengths)
         rows = page_ids.shape[0] * next(iter(pool.values())).shape[1]
         pad = rows - tokens.shape[1]
@@ -281,7 +293,7 @@ class TransformerLM(DecodeModel):
             for name, arr in (('k', k), ('v', v)):
                 write_prefill_pages(pool['l%d_%s' % (i, name)],
                                     F.pad(arr[0], (0, 0, 0, pad)), page_ids)
-        return pool, self._head(params, x[0, int(length) - 1])
+        return pool, self._last(params, x, lengths)
 
     def paged_step(self, params, pool, tokens, positions, tables):
         """One decode step over the pool: :meth:`step`'s math, with each

@@ -164,8 +164,12 @@ def write_prefill_pages(pool_arr, rows, page_ids):
 
 def copy_page(pool_arr, src, dst):
     """Copy page ``src`` over page ``dst`` in place (the copy-on-write
-    primitive, O(page)). Returns ``pool_arr``."""
-    pool_arr[int(dst)] = pool_arr[int(src)]
+    primitive, O(page)); each an int or a one-element integer tensor on
+    the pool's device (no host read). Returns ``pool_arr``."""
+    src, dst = (torch.as_tensor(i, dtype=torch.int64,
+                                device=pool_arr.device).reshape(1)
+                for i in (src, dst))
+    pool_arr.index_copy_(0, dst, pool_arr.index_select(0, src))
     return pool_arr
 
 

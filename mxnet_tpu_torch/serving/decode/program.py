@@ -15,16 +15,34 @@ place, and adds ``run_verify`` (speculative decoding) and
 ``run_copy_page`` (copy-on-write). ``freeze_decode`` pages a transformer
 by default, as the JAX package does.
 
-PyTorch runs eagerly, so there is nothing to trace or compile ahead of
-time: the JAX package's AOT compile, artifact save/load and CPU fallback
-have no counterpart here yet (ROADMAP queue A).
+Each call runs a *program*, as the reference's calls run its compiled
+executables: one a prefill bucket (``'prefill:<bucket>'``), ``'step'``,
+and for the paged program ``'verify:<spec_k + 1>'`` and ``'copy'``, the
+reference's keys. :meth:`~DecodeProgram.compile_prefill`,
+:meth:`~DecodeProgram.compile_step`, ``compile_verify`` and
+``compile_copy_page`` build one, :meth:`~DecodeProgram.warmup` the
+reference's set (the engine calls it at start), and a ``run_*`` builds its
+program on first use; ``compile_count`` and ``compile_seconds`` account
+for them as the reference does. On a card a program is a CUDA graph
+(:class:`~mxnet_tpu_torch.capture.Program`), captured after one eager
+warm-up call whose cache writes are undone, over static buffers: its
+host ints cross in one copy, its tokens and logits come back in one copy
+into pinned memory (the logits only with ``emit_logits``). All the
+graphs of a program share one memory pool, and they are bound to the
+cache the program owns: :meth:`~DecodeProgram.new_cache` hands out that
+storage, zeroed in place, never a new one. On the CPU the same bodies run
+uncaptured. The JAX package's artifact save / load and CPU fallback have
+no counterpart here yet (ROADMAP queue A).
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as onp
 import torch
 
 from ... import config as _config
+from ...capture import Program
 from ...context import resolve_device
 from ..bucket import BucketPolicy, default_buckets
 from .cache import cache_bytes, init_cache
@@ -41,6 +59,73 @@ def _as_param(value, device):
                            device=device)
 
 
+class _Buffers:
+    """One program's static buffers: ``inp`` (int32: one segment a host
+    input, of ``sizes`` elements each, every one starting on a 16-byte
+    boundary as the kernels ask of their int32 inputs; :meth:`arg`) and
+    ``out`` (float32: ``ntok`` tokens as int32 bits, padded to a 16-byte
+    boundary, then the logits of ``logit_shape``), their host mirrors
+    (pinned on a card) and the captured program (``prog``)."""
+
+    def __init__(self, device, sizes, ntok=0, logit_shape=()):
+        self.sizes = list(sizes)
+        self.starts = [0]
+        for n in self.sizes:
+            self.starts.append(self.starts[-1] + -(-n // 4) * 4)
+        self.ntok = ntok
+        self.logit_shape = tuple(logit_shape)
+        self.at = -(-ntok // 4) * 4
+        n_out = self.at + (int(onp.prod(logit_shape)) if logit_shape else 0)
+        pin = device.type == 'cuda'
+        n_in = self.starts[-1]
+        self.inp = torch.zeros(n_in, dtype=torch.int32, device=device)
+        self.out = torch.zeros(n_out, dtype=torch.float32, device=device)
+        self.inp_h = torch.zeros(n_in, dtype=torch.int32, pin_memory=pin)
+        self.out_h = torch.zeros(n_out, dtype=torch.float32, pin_memory=pin)
+        self.done = torch.cuda.Event() if pin else None
+        self.prog = None
+
+    def arg(self, i, shape=None):
+        """Input ``i``'s segment of ``inp`` (viewed as ``shape``)."""
+        seg = self.inp[self.starts[i]:self.starts[i] + self.sizes[i]]
+        return seg if shape is None else seg.view(shape)
+
+    def pack(self, host, arrays):
+        """``arrays``, one an input, into the int32 array ``host``."""
+        for at, a in zip(self.starts, arrays):
+            a = onp.asarray(a, 'int32').reshape(-1)
+            host[at:at + a.size] = a
+        return host
+
+    def put(self, tokens, logits):
+        """The body's results into ``out`` (on the device)."""
+        self.out[:self.ntok].view(torch.int32).copy_(tokens.reshape(-1))
+        self.out[self.at:].copy_(logits.reshape(-1))
+
+    def load(self, *arrays):
+        """Host ints into ``inp``, in one copy (the last call's
+        :meth:`fetch` waited for the copy out of ``inp_h`` before)."""
+        self.pack(self.inp_h.numpy(), arrays)
+        self.inp.copy_(self.inp_h, non_blocking=True)
+
+    def fetch(self, emit_logits):
+        """(tokens np int32 (ntok,), logits np | None) in one copy back,
+        after the program ran, waiting for the stream (without outputs it
+        only waits, so the next :meth:`load` may rewrite ``inp_h``)."""
+        m = self.out.numel() if emit_logits else self.ntok
+        if m:
+            self.out_h[:m].copy_(self.out[:m], non_blocking=True)
+        if self.done is not None:
+            self.done.record()
+            self.done.synchronize()
+        if not self.ntok:
+            return None, None
+        toks = self.out_h[:self.ntok].view(torch.int32).numpy().copy()
+        logits = self.out_h[self.at:].numpy().reshape(
+            self.logit_shape).copy() if emit_logits else None
+        return toks, logits
+
+
 class DecodeProgram:
     """Prefill/step over a slot cache for one decode model.
 
@@ -49,9 +134,13 @@ class DecodeProgram:
     defaults to ``cuda`` and raises without it; ``device='cpu'`` runs the
     plain PyTorch versions of the kernels. ``emit_logits`` returns each
     call's logits to the host beside the tokens, as the JAX default does.
+    ``capture`` (True) makes each program a CUDA graph on a card; set it
+    False before the first call to run the same bodies uncaptured there
+    (the eager reference the replays are held to).
     """
 
     paged = False
+    capture = True
 
     def __init__(self, model, params, slots=None, prefill_buckets=None,
                  name=None, emit_logits=True, device=None):
@@ -83,10 +172,21 @@ class DecodeProgram:
         model.check_params(self.params)
         self._spec = model.cache_spec()
         self.emit_logits = bool(emit_logits)
+        self._cache = None
+        self._compiled = {}           # key -> _Buffers
+        self._lock = threading.Lock()
+        self._pool = None             # the graphs' one pool: they never
+                                      # run concurrently
+        self.compile_seconds = {}
 
     @property
     def prefill_buckets(self):
         return self.policy.buckets
+
+    @property
+    def compile_count(self):
+        """Programs built (captured on a card) so far."""
+        return len(self._compiled)
 
     def cache_bytes(self):
         """Device bytes of the slot cache (slots x max_len rows)."""
@@ -98,47 +198,150 @@ class DecodeProgram:
         del seq_len
         return cache_bytes(self._spec, 1)
 
-    def new_cache(self):
-        """Fresh zero-filled cache for ``slots`` sequences."""
+    def _init_cache(self):
         return init_cache(self._spec, self.slots, self.device)
+
+    @torch.inference_mode()
+    def new_cache(self):
+        """The program's cache, zeroed in place: the storage its programs
+        were (or will be) captured against, made at first use."""
+        if self._cache is None:
+            self._cache = self._init_cache()
+        else:
+            for t in self._cache.values():
+                t.zero_()
+        return self._cache
+
+    def _owned(self, cache):
+        if self._cache is None:
+            self._cache = self._init_cache()
+        if cache is not None and cache is not self._cache:
+            raise ValueError('%s: the programs run on the cache the program '
+                             'owns (new_cache()), not another one'
+                             % self.name)
+        return self._cache
 
     def max_prompt_len(self):
         return self.policy.max_batch
 
+    # -- programs -----------------------------------------------------------
+
     @torch.inference_mode()
-    def run_prefill(self, cache, tokens, slot):
-        """Pad ``tokens`` (1-D int prompt) to its bucket and land the
-        prefix in ``slot``. Returns (cache, first_token int, logits np
-        (V,) | None)."""
+    def _build(self, key, buf, body, dummy):
+        """Program ``key``: ``body`` over ``buf`` captured on a card after
+        one warm-up call on the ``dummy`` inputs (one array an input)
+        whose cache writes are undone; on the CPU the body itself. The
+        reference's ``_build``."""
+        got = self._compiled.get(key)
+        if got is not None:
+            return got
+        with self._lock:
+            got = self._compiled.get(key)
+            if got is not None:
+                return got
+            cache = self._owned(None)
+            capture = self.capture and self.device.type == 'cuda'
+            if capture and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+
+            def warm():
+                saved = {k: t.clone() for k, t in cache.items()}
+                buf.inp.copy_(torch.as_tensor(buf.pack(
+                    onp.zeros(buf.inp.numel(), 'int32'), dummy),
+                    device=self.device))
+                body()
+                for k, t in cache.items():
+                    t.copy_(saved[k])
+            buf.prog = Program('%s %s' % (self.name, key), body,
+                               self.device if capture else None,
+                               pool=self._pool, warm=warm)
+            self.compile_seconds[key] = buf.prog.seconds
+            self._compiled[key] = buf
+        return buf
+
+    @torch.inference_mode()
+    def _run(self, key, compile_fn, cache, *arrays):
+        """Load ``arrays`` (one an input) into program ``key`` (built on
+        first use), run it and bring its tokens and logits back."""
+        self._owned(cache)
+        buf = self._compiled.get(key) or compile_fn()
+        buf.load(*arrays)
+        buf.prog.run()
+        return buf.fetch(self.emit_logits)
+
+    def _bucket(self, bucket):
+        bucket = int(bucket)
+        if bucket not in self.policy.buckets:
+            raise ValueError('%d is not a prefill bucket (%s)'
+                             % (bucket, list(self.policy.buckets)))
+        return bucket
+
+    def compile_prefill(self, bucket):
+        """Build the prefill program of ``bucket`` (a ladder bucket):
+        inputs the padded tokens, the length and the slot."""
+        bucket = self._bucket(bucket)
+        buf = _Buffers(self.device, (bucket, 1, 1), 1, (self.model.vocab,))
+        m, p = self.model, self.params
+
+        def body():
+            _, logits = m.prefill(p, self._cache,
+                                  buf.arg(0, (1, bucket)).long(), buf.arg(1),
+                                  buf.arg(2))
+            buf.put(torch.argmax(logits, dim=-1), logits)
+        return self._build('prefill:%d' % bucket, buf, body,
+                           [[0] * bucket, [1], [0]])
+
+    def compile_step(self):
+        """Build the step program: inputs each slot's token and
+        position."""
+        S = self.slots
+        buf = _Buffers(self.device, (S, S), S, (S, self.model.vocab))
+        m, p = self.model, self.params
+
+        def body():
+            _, logits = m.step(p, self._cache, buf.arg(0).long(), buf.arg(1))
+            buf.put(torch.argmax(logits, dim=-1), logits)
+        return self._build('step', buf, body, [[0] * S, [0] * S])
+
+    def warmup(self, buckets=None):
+        """Build the whole ladder + the step program (server start, not
+        first request): exactly ``len(ladder) + 1`` programs."""
+        for b in (buckets or self.policy.buckets):
+            self.compile_prefill(b)
+        self.compile_step()
+        return self
+
+    # -- execution ----------------------------------------------------------
+
+    def _prompt(self, tokens):
         tokens = onp.asarray(tokens, 'int64').reshape(-1)
         n = tokens.shape[0]
         if n < 1:
             raise ValueError('empty prompt')
         bucket = self.policy.bucket_for(n)   # ValueError when too long
-        padded = onp.zeros((1, bucket), 'int64')
-        padded[0, :n] = tokens
-        cache, logits = self.model.prefill(
-            self.params, cache, torch.as_tensor(padded, device=self.device),
-            n, int(slot))
-        tok = int(torch.argmax(logits))
-        return cache, tok, \
-            logits.cpu().numpy() if self.emit_logits else None
+        padded = onp.zeros(bucket, 'int32')
+        padded[:n] = tokens
+        return padded, n, bucket
 
-    @torch.inference_mode()
+    def run_prefill(self, cache, tokens, slot):
+        """Pad ``tokens`` (1-D int prompt) to its bucket and land the
+        prefix in ``slot``. Returns (cache, first_token int, logits np
+        (V,) | None)."""
+        padded, n, bucket = self._prompt(tokens)
+        toks, logits = self._run('prefill:%d' % bucket,
+                                 lambda: self.compile_prefill(bucket),
+                                 cache, padded, [n], [int(slot)])
+        return self._cache, int(toks[0]), \
+            None if logits is None else logits.reshape(-1)
+
     def run_step(self, cache, tokens, positions):
         """Advance every slot one token. Returns (cache, tokens np
         (slots,), logits np (slots, V) | None)."""
-        tokens = torch.as_tensor(
-            onp.asarray(tokens, 'int64').reshape(self.slots),
-            device=self.device)
-        positions = torch.as_tensor(
-            onp.asarray(positions, 'int32').reshape(self.slots),
-            device=self.device)
-        cache, logits = self.model.step(self.params, cache, tokens,
-                                        positions)
-        toks = torch.argmax(logits, dim=-1).cpu().numpy().astype('int32')
-        return cache, toks, \
-            logits.cpu().numpy() if self.emit_logits else None
+        S = self.slots
+        toks, logits = self._run(
+            'step', self.compile_step, cache,
+            onp.asarray(tokens).reshape(S), onp.asarray(positions).reshape(S))
+        return self._cache, toks, logits
 
 
 class PagedDecodeProgram(DecodeProgram):
@@ -158,7 +361,8 @@ class PagedDecodeProgram(DecodeProgram):
 
     Allocation, refcounts, prefix sharing and copy-on-write decisions
     live in the engine (:mod:`.paged`). ``pages`` defaults to the slot
-    cache's worst case, ``slots x max_pages + 1`` (the trash page)."""
+    cache's worst case, ``slots x max_pages + 1`` (the trash page). The
+    warm-ups write only the trash page."""
 
     paged = True
 
@@ -204,73 +408,114 @@ class PagedDecodeProgram(DecodeProgram):
         n = self.max_len if seq_len is None else int(seq_len)
         return pages_for(n, self.page_size) * self.page_bytes()
 
-    def new_cache(self):
-        """Fresh zero-filled page pool."""
+    def _init_cache(self):
         return init_pool(self._pspec, self.pages, self.device)
 
-    def _slot_ints(self, *arrays):
-        """Host int32 arrays -> device int32 tensors in ONE copy: each
-        array padded to a multiple of four elements (16-byte aligned
-        views of one buffer)."""
-        flat = [onp.asarray(a, 'int32').reshape(-1) for a in arrays]
-        sizes = [-(-f.size // 4) * 4 for f in flat]
-        buf = onp.zeros(sum(sizes), 'int32')
-        at = 0
-        for f, n in zip(flat, sizes):
-            buf[at:at + f.size] = f
-            at += n
-        dev = torch.as_tensor(buf, device=self.device)
-        out, at = [], 0
-        for a, f, n in zip(arrays, flat, sizes):
-            out.append(dev[at:at + f.size].view(onp.shape(a)))
-            at += n
-        return out
+    # -- programs -----------------------------------------------------------
 
-    @torch.inference_mode()
+    def compile_prefill(self, bucket):
+        """Build the prefill program of ``bucket``: inputs the padded
+        tokens, the length and the bucket's page ids."""
+        bucket = self._bucket(bucket)
+        npages = pages_for(bucket, self.page_size)
+        buf = _Buffers(self.device, (bucket, 1, npages), 1,
+                       (self.model.vocab,))
+        m, p = self.model, self.params
+
+        def body():
+            _, logits = m.paged_prefill(p, self._cache,
+                                        buf.arg(0, (1, bucket)).long(),
+                                        buf.arg(1), buf.arg(2).long())
+            buf.put(torch.argmax(logits, dim=-1), logits)
+        return self._build('prefill:%d' % bucket, buf, body,
+                           [[0] * bucket, [1], [TRASH_PAGE] * npages])
+
+    def compile_step(self):
+        """Build the paged step program: inputs each slot's token,
+        position and page table."""
+        S, P, V = self.slots, self.max_pages, self.model.vocab
+        buf = _Buffers(self.device, (S, S, S * P), S, (S, V))
+        m, p = self.model, self.params
+
+        def body():
+            _, logits = m.paged_step(p, self._cache, buf.arg(0).long(),
+                                     buf.arg(1), buf.arg(2, (S, P)))
+            buf.put(torch.argmax(logits, dim=-1), logits)
+        return self._build('step', buf, body, [[0] * S, [0] * S,
+                                               [TRASH_PAGE] * (S * P)])
+
+    def compile_verify(self):
+        """Build the speculative verify program (``spec_k > 0``): inputs
+        (slots, spec_k + 1) tokens, positions and tables."""
+        if not self.spec_k:
+            raise ValueError('verify program needs spec_k > 0')
+        S, P, V, C = self.slots, self.max_pages, self.model.vocab, \
+            self.spec_k + 1
+        buf = _Buffers(self.device, (S * C, S, S * P), S * C, (S, C, V))
+        m, p = self.model, self.params
+
+        def body():
+            _, logits = m.paged_verify(p, self._cache,
+                                       buf.arg(0, (S, C)).long(), buf.arg(1),
+                                       buf.arg(2, (S, P)))
+            buf.put(torch.argmax(logits, dim=-1), logits)
+        return self._build('verify:%d' % C, buf, body,
+                           [[0] * (S * C), [0] * S, [TRASH_PAGE] * (S * P)])
+
+    def compile_copy_page(self):
+        """Build the copy-on-write program: inputs the source and
+        destination pages."""
+        buf = _Buffers(self.device, (1, 1))
+
+        def body():
+            for arr in self._cache.values():
+                copy_page(arr, buf.arg(0), buf.arg(1))
+        return self._build('copy', buf, body, [[TRASH_PAGE], [TRASH_PAGE]])
+
+    def warmup(self, buckets=None):
+        """Ladder + step + copy_page (+ verify under speculation): every
+        program the engine can ever run, built up front."""
+        for b in (buckets or self.policy.buckets):
+            self.compile_prefill(b)
+        self.compile_step()
+        self.compile_copy_page()
+        if self.spec_k:
+            self.compile_verify()
+        return self
+
+    # -- execution ----------------------------------------------------------
+
     def run_prefill(self, pool, tokens, page_ids):
         """Pad ``tokens`` to its bucket and write its K/V into the
         host-allocated ``page_ids`` (padded with the trash page to the
         bucket's page count). Returns (pool, first_token int, logits np
         (V,) | None)."""
-        tokens = onp.asarray(tokens, 'int64').reshape(-1)
-        n = tokens.shape[0]
-        if n < 1:
-            raise ValueError('empty prompt')
-        bucket = self.policy.bucket_for(n)   # ValueError when too long
+        padded, n, bucket = self._prompt(tokens)
         npages = pages_for(bucket, self.page_size)
         ids = list(page_ids)
         if len(ids) > npages:
             raise ValueError('%d page ids for a %d-page bucket'
                              % (len(ids), npages))
-        padded = onp.zeros((1, bucket), 'int32')
-        padded[0, :n] = tokens
-        toks, ids_t = self._slot_ints(
-            padded, ids + [TRASH_PAGE] * (npages - len(ids)))
-        pool, logits = self.model.paged_prefill(
-            self.params, pool, toks.long(), n, ids_t.long())
-        tok = int(torch.argmax(logits))
-        return pool, tok, \
-            logits.cpu().numpy() if self.emit_logits else None
+        toks, logits = self._run(
+            'prefill:%d' % bucket, lambda: self.compile_prefill(bucket),
+            pool, padded, [n], ids + [TRASH_PAGE] * (npages - len(ids)))
+        return self._cache, int(toks[0]), \
+            None if logits is None else logits.reshape(-1)
 
     def _tables(self, tables):
         return onp.asarray(tables, 'int32').reshape(self.slots,
                                                     self.max_pages)
 
-    @torch.inference_mode()
     def run_step(self, pool, tokens, positions, tables):
         """Advance every slot one token through its page table (tokens,
         positions and tables cross to the device in one copy). Returns
         (pool, tokens np (slots,), logits np (slots, V) | None)."""
-        toks, pos, tabs = self._slot_ints(
+        toks, logits = self._run(
+            'step', self.compile_step, pool,
             onp.asarray(tokens).reshape(self.slots),
             onp.asarray(positions).reshape(self.slots), self._tables(tables))
-        pool, logits = self.model.paged_step(self.params, pool, toks.long(),
-                                             pos, tabs)
-        out = torch.argmax(logits, dim=-1).cpu().numpy().astype('int32')
-        return pool, out, \
-            logits.cpu().numpy() if self.emit_logits else None
+        return self._cache, toks, logits
 
-    @torch.inference_mode()
     def run_verify(self, pool, tokens, positions, tables):
         """The speculative verify: (slots, spec_k + 1) tokens in, the
         target's greedy token at each of them out, K/V rows written for
@@ -278,22 +523,19 @@ class PagedDecodeProgram(DecodeProgram):
         Returns (pool, tokens np (slots, spec_k + 1), logits | None)."""
         if not self.spec_k:
             raise ValueError('the verify pass needs spec_k > 0')
-        toks, pos, tabs = self._slot_ints(
-            onp.asarray(tokens).reshape(self.slots, self.spec_k + 1),
+        C = self.spec_k + 1
+        toks, logits = self._run(
+            'verify:%d' % C, self.compile_verify, pool,
+            onp.asarray(tokens).reshape(self.slots, C),
             onp.asarray(positions).reshape(self.slots), self._tables(tables))
-        pool, logits = self.model.paged_verify(self.params, pool,
-                                               toks.long(), pos, tabs)
-        out = torch.argmax(logits, dim=-1).cpu().numpy().astype('int32')
-        return pool, out, \
-            logits.cpu().numpy() if self.emit_logits else None
+        return self._cache, toks.reshape(self.slots, C), logits
 
-    @torch.inference_mode()
     def run_copy_page(self, pool, src, dst):
         """Copy-on-write: duplicate page ``src`` into ``dst`` in every
         pool. Returns the pool."""
-        for arr in pool.values():
-            copy_page(arr, src, dst)
-        return pool
+        self._run('copy', self.compile_copy_page, pool, [int(src)],
+                  [int(dst)])
+        return self._cache
 
 
 def freeze_decode(model, params=None, slots=None, prefill_buckets=None,

@@ -46,7 +46,8 @@ class InferenceSession:
     """Serve a :class:`FrozenProgram` (:meth:`submit`, :meth:`infer`,
     :meth:`infer_batch`) or a :class:`DecodeProgram` (:meth:`generate`).
     Warm a frozen program's buckets first with
-    :meth:`FrozenProgram.warmup`."""
+    :meth:`FrozenProgram.warmup`; a decode program's engine builds its
+    programs (and the draft's) as the session starts."""
 
     def __init__(self, program, max_batch=None, deadline_ms=None,
                  max_queue=None, timeout_s=None, name=None,
