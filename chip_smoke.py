@@ -26,7 +26,7 @@ Phases, in order; any failure exits non-zero:
      dk/dv; the BN
      apply's, add+act's and the xent kernels' bf16 instances spill
      nothing either, nor does any instance of the whole-model optimizer
-     update;
+     update, nor the sampler's noise kernel;
   2. kernels against their plain PyTorch versions on the card, float32:
      the serving kernels at the serving slice's shapes (max abs error
      <= 1e-5; the flash forward through every block size it is built
@@ -123,7 +123,13 @@ Phases, in order; any failure exits non-zero:
      timed at the pairs the trainer phases run (BERT-base with AdamW in
      every form, ResNet-50 with SGD + momentum in float32 and bf16)
      beside its bound, the plain loop and the ``_foreach_`` chain of the
-     same expressions (not one call);
+     same expressions (not one call). Then the sampler's noise kernel
+     (row 18, ``threefry_gumbel``) against its plain version at the
+     step's 8 x 30522 keys and draws, the verify's 32 rows, a prefill's
+     one and odd widths (1, 255, 257, 1000): the uniforms (its bits
+     through the uniform) bitwise, the gumbel values within one float32
+     ULP (``noise_ulps``); timed at the step's shape (no library call
+     computes JAX's threefry gumbel);
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -150,7 +156,26 @@ Phases, in order; any failure exits non-zero:
      with the same bodies uncaptured (``capture = False``), whose tokens
      and launch counts the captured run must equal; a replayed
      ``run_step`` at phase 2's positions is timed with CUDA events and
-     profiled (its device busy share) beside the eager one;
+     profiled (its device busy share) beside the eager one. These
+     programs are the knob's default, with sampling built in, so each
+     prefill, step and verify call (the draft's too) launches the noise
+     kernel once, and the counts must show it. 3a: sampled decoding and
+     adapters at the same width through the paged default with sampling
+     and an adapter pool of 8 rows of rank 8: 24
+     requests of 32 tokens (3p's 16 prompts and 8 more of 8-256 tokens)
+     in four kinds, greedy or sampled (temperature 0.8, top_p 0.9, seeds
+     0-23) on the base or on one of 8 adapters (scale 10), which the 7
+     rows must
+     evict: the program set built at start and no other, the greedy base
+     streams on 3p's prompts equal to 3p's, the whole mix uncaptured
+     token for token, every adapter stream unlike its base twin, exact
+     launches, no adapter reject; the sampled requests again with 3
+     proposals a tick from a self-draft (base traffic's acceptance >=
+     0.9), equal to the plain streams but where the plain run's top two
+     perturbed scores lie within 1e-4; a program with the logit mask
+     emitting no odd token id under a mask that forbids them; and the
+     replayed step without extras, with sampling and with sampling and
+     adapters, in turns;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -2345,6 +2370,92 @@ def time_fused_update(torch, kernels, optimizer, device, lists):
             for name, rows in by_form.items()}
 
 
+# -- phase 2: the sampler's noise (row 18) ------------------------------------
+
+# (rows, V): the step's 8 slots and the verify's 8 x 4 rows at BERT's vocab,
+# a prefill's one row, and odd widths (one element, below a block, one past
+# a block, a block and a tail)
+NOISE_CASES = ((SLOTS, 30522), (SLOTS * (SPEC_K + 1), 30522), (1, 30522),
+               (3, 1), (5, 255), (2, 257), (4, 1000))
+NOISE_ULP = 1              # the gumbel values against the plain version
+# operations an element: 2 key xors, 2 counter adds, 20 rounds of an add, a
+# rotate (two shifts and an or) and an xor, 5 key injections of 3 adds, the
+# words' xor, the uniform (shift, or, subtraction, addition, max) and the
+# gumbel (2 logarithms, one operation each, and 2 negations); counted at
+# the float32 CUDA-core rate, the table's one rate for such work
+THREEFRY_OPS = 2 + 2 + 20 * 5 + 5 * 3 + 1 + 5 + 4
+
+
+def noise_keys(torch, rows, device, seed):
+    """``rows`` random raw keys as (rows, 2) int32 bits on ``device``."""
+    import numpy as np
+    keys = np.random.RandomState(seed).randint(
+        0, 2 ** 32, size=(rows, 2), dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(keys.view(np.int32).copy()).to(device)
+
+
+def noise_ulps(got, want, u):
+    """The largest |got - want| in the gumbel's float32 ULPs, ulp(g) +
+    ulp(t) / t with t = -log(u): the output's own ULP plus an ULP of the
+    inner logarithm carried through the outer one (near g = 0 two
+    logarithms of a t near 1 part by many ULPs of g;
+    ``tests/test_torch_sampling.py``)."""
+    import numpy as np
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    t = (-np.log(u.cpu().numpy().astype(np.float64))).astype(np.float32)
+    ulp = np.spacing(np.abs(w)) + np.spacing(t) / t
+    return float((np.abs(g - w) / ulp).max())
+
+
+def check_noise_kernel(torch, noise, device, cases=NOISE_CASES):
+    """``threefry_gumbel`` against its plain version on the card: the
+    uniforms (its bits, through the uniform) bitwise, the gumbel values
+    within ``NOISE_ULP``. Returns the worst absolute gumbel difference."""
+    worst = 0.0
+    for i, (rows, v) in enumerate(cases):
+        keys = noise_keys(torch, rows, device, 18 + i)
+        u = noise.threefry_gumbel(keys, v, uniform=True)
+        g = noise.threefry_gumbel(keys, v)
+        u_ref = noise.threefry_gumbel_reference(keys, v, uniform=True)
+        g_ref = noise.threefry_gumbel_reference(keys, v)
+        torch.cuda.synchronize()
+        if not torch.equal(u, u_ref):
+            raise AssertionError('threefry_gumbel (%d, %d): %d uniforms '
+                                 'differ from the plain version\'s'
+                                 % (rows, v, int((u != u_ref).sum())))
+        ulps = noise_ulps(g, g_ref, u)
+        err = float((g - g_ref).abs().max())
+        if not ulps <= NOISE_ULP:
+            raise AssertionError('threefry_gumbel (%d, %d): gumbel %.3g ULPs '
+                                 'from the plain version (limit %d)'
+                                 % (rows, v, ulps, NOISE_ULP))
+        log('threefry_gumbel (%d, %d): uniforms bitwise the plain version\'s, '
+            'gumbel within %.3g ULPs (max abs %.3g)' % (rows, v, ulps, err))
+        worst = max(worst, err)
+    return worst
+
+
+def time_noise_kernel(torch, noise, device, rows=SLOTS, v=30522):
+    """The noise kernel at the decode step's (slots, V) and the verify's
+    rows: one event pair a call, the slope timer's device time (the keys
+    are 64 bytes: nothing to rotate), the plain version; no library call
+    computes JAX's threefry gumbel."""
+    keys = noise_keys(torch, rows, device, 1)
+    nbytes = keys.numel() * 4 + rows * v * 4
+    b_ms, b_by = bound(nbytes, rows * v * THREEFRY_OPS)
+    verify = noise_keys(torch, rows * (SPEC_K + 1), device, 2)
+    return {'threefry_gumbel': dict(
+        ms=time_ms(torch, lambda: noise.threefry_gumbel(keys, v)),
+        device_ms=device_ms(torch, lambda: noise.threefry_gumbel(keys, v),
+                            ()),
+        plain_ms=time_ms(torch,
+                         lambda: noise.threefry_gumbel_reference(keys, v)),
+        library_ms=None, library_device_ms=None, bound_ms=b_ms,
+        bound_by=b_by, shape='keys (%d, 2) V %d' % (rows, v),
+        by_shape={'verify (%d, %d)' % (verify.shape[0], v): device_ms(
+            torch, lambda: noise.threefry_gumbel(verify, v), ())})}
+
+
 # -- phase 3: the serving slice ----------------------------------------------
 
 
@@ -2380,6 +2491,8 @@ def program_set(buckets, paged=False, spec_k=0):
 
 # the captured decode step's profile groups
 DECODE_GROUPS = (('decode kernel', ('flash_decode', 'flash_paged'), ()),
+                 ('sampling noise kernel', ('threefry',), ()),
+                 ('sampling sort and scan', ('radix', 'sort', 'scan'), ()),
                  ('GEMMs', ('gemm', 'gemv', 'xmma', 'cutlass', 'nvjet'), ()),
                  ('copies', ('memcpy', 'memset'), ()))
 
@@ -2478,10 +2591,12 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         want['flash_attention_fwd'] = cfg['layers'] * prefills
         want['flash_paged_decode_fwd' if paged
              else 'flash_decode_fwd'] = cfg['layers'] * steps
+        # the knob's default programs sample: one noise launch a call
+        want['threefry_gumbel'] = prefills + steps
         if launches != want:
             raise AssertionError('kernel launches %r, expected %r '
-                                 '(layers x prefills, layers x steps)'
-                                 % (launches, want))
+                                 '(layers x prefills, layers x steps, a '
+                                 'noise launch a call)' % (launches, want))
     # cached tokens against the uncached forward after every token
     # (teacher-forced on the served stream, so a tie at one position
     # does not void the positions after it)
@@ -2647,6 +2762,10 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         want['flash_paged_decode_fwd'] = layers * plain_steps
         want['flash_decode_fwd'] = layers * (
             plain_steps + (spec_k + 1) * c['spec_rounds'] if draft else 0)
+        # one noise launch a call of the target's and the draft's programs
+        want['threefry_gumbel'] = c['prefills'] + c['steps'] + (
+            c['prefills'] + c['prefix_hits'] + plain_steps
+            + (spec_k + 1) * c['spec_rounds'] if draft else 0)
         if device.type == 'cuda' and launches != want:
             raise AssertionError('phase 3s %s: kernel launches %r, expected '
                                  '%r' % (run, launches, want))
@@ -2680,6 +2799,325 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
             cache_accounting=stats['cache'], pages=stats['pages'])
         del prog, draft
     return out
+
+
+# -- phase 3a: sampled decoding and adapters ---------------------------------
+
+ADAPTER_RANK = 8
+ADAPTER_SLOTS = 8          # 7 rows beside the base: 8 adapters evict
+ADAPTERS = 8
+# the delta's scale (init_adapter's is 1.0): at BERT-base width and 1.0 a
+# rank-8 adapter of 0.05-std A and B left one greedy 32-token stream equal
+# to its base twin; at 50 (tests/test_adapters.py's, for a tiny model) the
+# adapted model is so ill-conditioned that the verify pass's logits part
+# from the step's by 3e-4, where they part by 7e-6 on the base and 9.5e-6
+# at 10 (measured on an H100)
+ADAPTER_SCALE = 10.0
+SAMPLE_TEMP = 0.8
+SAMPLE_TOP_P = 0.9
+EXTRA_PROMPTS = 8
+# request i is of kind KINDS[i % 4], (adapter, sampled): greedy base,
+# greedy adapter, sampled base, sampled adapter
+KINDS = ((False, False), (True, False), (False, True), (True, True))
+SAMPLED_ACCEPTANCE = 0.9   # the self-draft's, on sampled base traffic
+
+
+def adapter_requests(cfg, requests=REQUESTS, extra=EXTRA_PROMPTS,
+                     prompt_range=(8, 256), seed=0):
+    """Phase 3p's prompts (drawn as :func:`serve` draws them) and ``extra``
+    more from the same range, request i of kind ``KINDS[i % 4]``: dicts of
+    prompt, adapter id (the adapter requests take ``ad0``, ``ad1``, ... in
+    turn) or None, temperature, top_p and seed i."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(prompt_range[0], prompt_range[1] + 1, size=requests)
+    prompts = [rs.randint(0, cfg['vocab'], size=n).tolist() for n in lens]
+    more = np.random.RandomState(seed + 3)
+    prompts += [more.randint(0, cfg['vocab'], size=n).tolist()
+                for n in more.randint(prompt_range[0], prompt_range[1] + 1,
+                                      size=extra)]
+    out, n_ad = [], 0
+    for i, prompt in enumerate(prompts):
+        adapted, sampled = KINDS[i % len(KINDS)]
+        aid = None
+        if adapted:
+            aid, n_ad = 'ad%d' % (n_ad % ADAPTERS), n_ad + 1
+        out.append(dict(prompt=prompt, adapter=aid,
+                        temperature=SAMPLE_TEMP if sampled else 0.0,
+                        top_p=SAMPLE_TOP_P if sampled else 1.0, seed=i))
+    return out
+
+
+def generate_all(sess, reqs, new_tokens):
+    """Every request of ``reqs`` through ``sess`` at once; their tokens."""
+    streams = [sess.generate(r['prompt'], max_new_tokens=new_tokens,
+                             adapter=r['adapter'],
+                             temperature=r['temperature'], top_p=r['top_p'],
+                             seed=r['seed']) for r in reqs]
+    return [s.result(600) for s in streams]
+
+
+def perturbed_margin(torch, model, params, registry, req, out, t, device):
+    """The gap between the two top perturbed scores at token ``t`` of the
+    sampled stream ``out`` of ``req``: ``full_forward`` over the prompt and
+    ``out[:t]`` (the request's adapter applied), then the sampler's scores
+    under the key of that position."""
+    import numpy as np
+    from mxnet_tpu_torch.serving.decode.sampling import (key_for,
+                                                         perturbed_scores)
+    ad = None
+    if req['adapter'] is not None:
+        ad = {k: (torch.from_numpy(a).to(device), torch.from_numpy(b)
+                  .to(device))
+              for k, (a, b) in registry.host_tree(req['adapter']).items()}
+    with torch.inference_mode():
+        toks = torch.tensor([req['prompt'] + out[:t]], device=device)
+        logits = model.full_forward(params, toks, ad)[0, -1:]
+        key = key_for(req['seed'], len(req['prompt']) - 1 + t)
+        scores = perturbed_scores(
+            logits, torch.tensor([req['temperature']], device=device),
+            torch.tensor([req['top_p']], device=device),
+            torch.from_numpy(key.view(np.int32)[None].copy()).to(device))
+        top2 = torch.topk(scores[0], 2).values
+    return float(top2[0] - top2[1])
+
+
+def step_turns(torch, progs, slots=SLOTS, turns=2):
+    """Each program's replayed ``run_step`` (:func:`time_step`) at phase
+    2's positions, in turns (first to last, then back): {name: (mean ms
+    over the turns, the profile of its first turn)}."""
+    import numpy as np
+    got = {name: ([], None) for name in progs}
+    order = list(progs) + list(progs)[::-1]
+    for name in order * (turns // 2):
+        prog = progs[name]
+        args = [np.zeros(slots, 'int32'),
+                np.asarray(DECODE_POSITIONS[:slots], 'int32'),
+                1 + np.arange(slots * prog.max_pages, dtype='int32')
+                .reshape(slots, prog.max_pages)]
+        ms, prof = time_step(torch, prog, prog.new_cache(), args)
+        times, first = got[name]
+        got[name] = (times + [ms], first or prof)
+    return {name: (statistics.mean(t), prof) for name, (t, prof) in
+            got.items()}
+
+
+def serve_adapters(torch, serving, kernels, device, base_outs, cfg=SLICE,
+                   slots=SLOTS, buckets=BUCKETS, new_tokens=NEW_TOKENS,
+                   seed=0, spec_k=SPEC_K):
+    """Phase 3a at the slice's width through ``freeze_decode``'s paged
+    default with sampling and an adapter pool of ``ADAPTER_SLOTS`` rows of
+    rank ``ADAPTER_RANK``: :func:`adapter_requests` (24 requests of four
+    kinds over 8 adapters) through the captured programs, then checked:
+    the program set built at start and no other; the greedy base streams
+    on phase 3p's prompts equal to ``base_outs``; the same requests
+    through the same bodies uncaptured, token for token; every adapter
+    stream unlike its base twin (the same request on the base); exact
+    launches; an eviction. Then the sampled requests through a
+    speculative session (``spec_k`` proposals from a self-draft, sampled
+    base traffic first, then sampled adapter traffic), equal to the plain
+    streams but at near-ties; a program with the logit mask; and the
+    replayed step without extras, with sampling and with sampling and
+    adapters, in turns."""
+    from mxnet_tpu_torch.serving import adapters as adapters_mod
+    layers = cfg['layers']
+    model, params = serving.init_transformer_lm(seed=seed, **cfg)
+    reqs = adapter_requests(cfg)
+    ads = {'ad%d' % i: adapters_mod.init_adapter(model, ADAPTER_RANK, seed=i,
+                                                 scale=ADAPTER_SCALE)
+           for i in range(ADAPTERS)}
+
+    def build(capture=True, spec=0, rank=ADAPTER_RANK, **kw):
+        prog = serving.freeze_decode(
+            model, params, slots=slots, prefill_buckets=buckets,
+            spec_k=spec, adapter_rank=rank, adapter_slots=ADAPTER_SLOTS,
+            device=device, **kw)
+        prog.capture = capture
+        return prog
+
+    def registry(prog):
+        reg = adapters_mod.AdapterRegistry(
+            adapters_mod.AdapterPool(prog.adapter_spec))
+        for name, ad in ads.items():
+            reg.register(name, ad)
+        return reg
+
+    runs = {}
+    for capture in (True, False):
+        prog = build(capture, sample_args=True)
+        reg = registry(prog)
+        with serving.InferenceSession(prog, timeout_s=600, adapters=reg,
+                                      max_new_tokens=new_tokens) as sess:
+            seconds = check_programs('phase 3a', prog,
+                                     program_set(buckets, True), capture)
+            sess.generate(reqs[0]['prompt'][:8], max_new_tokens=2).result(600)
+            before = sess.stats()['counts']
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            outs = generate_all(sess, reqs, new_tokens)
+            wall = time.perf_counter() - t1
+            launches = kernels.launch_counts()
+            after = sess.stats()['counts']
+            twins = generate_all(sess, [dict(r, adapter=None) for r in reqs
+                                        if r['adapter']], new_tokens) \
+                if capture else None
+        if prog.compile_count != len(seconds):
+            raise AssertionError('phase 3a: a request built a program (%d '
+                                 'after the mix, %d after warmup)'
+                                 % (prog.compile_count, len(seconds)))
+        c = {k: v - before[k] for k, v in after.items() if k != 'retired'}
+        runs[capture] = dict(outs=outs, launches=launches, counts=c,
+                             wall_s=wall, compile_seconds=seconds,
+                             pool=reg.pool.stats(), twins=twins)
+        del prog, reg
+        torch.cuda.empty_cache()
+    got, eager = runs[True], runs[False]
+    c = got['counts']
+    if got['outs'] != eager['outs'] or got['launches'] != eager['launches']:
+        raise AssertionError('phase 3a: the captured programs served other '
+                             'tokens (requests %s) or launches than the '
+                             'eager bodies' % [
+                                 i for i, (a, b) in enumerate(zip(
+                                     got['outs'], eager['outs'])) if a != b])
+    want = dict.fromkeys(got['launches'], 0)
+    want['flash_attention_fwd'] = layers * c['prefills']
+    want['flash_paged_decode_fwd'] = layers * c['steps']
+    want['threefry_gumbel'] = c['prefills'] + c['steps']
+    if device.type == 'cuda' and got['launches'] != want:
+        raise AssertionError('phase 3a: kernel launches %r, expected %r'
+                             % (got['launches'], want))
+    sampled = [i for i, r in enumerate(reqs) if r['temperature'] > 0]
+    if c['adapter_rejects'] or c['sampled_tokens'] != \
+            len(sampled) * new_tokens:
+        raise AssertionError('phase 3a: %d adapter rejects, %d sampled '
+                             'tokens' % (c['adapter_rejects'],
+                                         c['sampled_tokens']))
+    if any(len(o) != new_tokens for o in got['outs']):
+        raise AssertionError('phase 3a: a request ended early')
+    greedy_base = [i for i, r in enumerate(reqs)
+                   if i < len(base_outs) and r['adapter'] is None
+                   and r['temperature'] == 0]
+    if any(got['outs'][i] != base_outs[i] for i in greedy_base):
+        raise AssertionError('phase 3a: greedy base streams differ from '
+                             'phase 3p\'s on its prompts %s' % greedy_base)
+    adapted = [i for i, r in enumerate(reqs) if r['adapter']]
+    same = [i for i, twin in zip(adapted, got['twins'])
+            if got['outs'][i] == twin]
+    if same:
+        raise AssertionError('phase 3a: adapter streams equal to their base '
+                             'twins: requests %s' % same)
+    if got['pool']['evictions'] < 1:
+        raise AssertionError('phase 3a: no adapter was evicted: %r'
+                             % got['pool'])
+
+    # sampled speculation: sampled base traffic, then sampled adapters
+    prog = build(spec=spec_k, sample_args=True)
+    draft = serving.freeze_decode(model, params, slots=slots,
+                                  prefill_buckets=buckets, paged=False,
+                                  device=device)
+    reg = registry(prog)
+    spec, acceptance = {}, {}
+    with serving.InferenceSession(prog, timeout_s=600, adapters=reg,
+                                  draft=draft,
+                                  max_new_tokens=new_tokens) as sess:
+        built = check_programs('phase 3a spec', prog,
+                               program_set(buckets, True, spec_k), True)
+        check_programs('phase 3a draft', draft, program_set(buckets), True)
+        for kind in ('base', 'adapter'):
+            idx = [i for i in sampled
+                   if (reqs[i]['adapter'] is None) == (kind == 'base')]
+            before = sess.stats()['counts']
+            outs = generate_all(sess, [reqs[i] for i in idx], new_tokens)
+            after = sess.stats()['counts']
+            spec.update(zip(idx, outs))
+            proposed = after['spec_proposed'] - before['spec_proposed']
+            acceptance[kind] = ((after['spec_accepted']
+                                 - before['spec_accepted']) / proposed
+                                if proposed else None)
+    if prog.compile_count != len(built) or draft.compile_count != \
+            len(buckets) + 1:
+        raise AssertionError('phase 3a spec: a request built a program')
+    if not (acceptance['base'] or 0) >= SAMPLED_ACCEPTANCE:
+        raise AssertionError('phase 3a spec: sampled acceptance %r with the '
+                             'self-draft' % acceptance)
+    ties, differ = [], []
+    for i in sampled:
+        plain_out, spec_out = got['outs'][i], spec[i]
+        t = next((t for t, (a, b) in enumerate(zip(plain_out, spec_out))
+                  if a != b), None)
+        if t is None:
+            continue
+        gap = perturbed_margin(torch, model, prog.params, reg, reqs[i],
+                               plain_out, t, device)
+        if not gap < TIE:
+            differ.append((i, t, gap))
+        ties.append((i, t, gap))
+    if differ:
+        raise AssertionError('phase 3a spec: sampled speculation parts from '
+                             'plain sampling where the perturbed scores are '
+                             'no tie: %s' % differ)
+    del prog, draft, reg
+    torch.cuda.empty_cache()
+
+    # the logit mask, through the program: the odd token ids forbidden
+    import numpy as np
+    prog = build(rank=0, logit_mask=True).warmup()
+    n = prog.compile_count
+    V = cfg['vocab']
+    odd = np.where(np.arange(V) % 2 == 1, -np.inf, 0.0).astype('float32')
+    masks = np.stack([odd] * slots)
+    cache = prog.new_cache()
+    tables = 1 + np.arange(slots * prog.max_pages, dtype='int32') \
+        .reshape(slots, prog.max_pages)
+    temps = np.where(np.arange(slots) % 2, SAMPLE_TEMP, 0.0) \
+        .astype('float32')
+    from mxnet_tpu_torch.serving.decode.sampling import key_for
+    toks, pos = np.zeros(slots, 'int32'), np.zeros(slots, 'int32')
+    masked = []
+    for s in range(slots):
+        prompt = reqs[s]['prompt']
+        npages = -(-len(prompt) // prog.page_size)
+        _, toks[s], _ = prog.run_prefill(
+            cache, prompt, list(tables[s, :npages]), temps=temps[s:s + 1],
+            top_ps=[SAMPLE_TOP_P], keys=key_for(s, len(prompt) - 1)[None],
+            masks=odd[None])
+        pos[s] = len(prompt)
+    masked.append(toks.copy())
+    for _ in range(8):
+        keys = np.stack([key_for(s, pos[s]) for s in range(slots)])
+        _, out, _ = prog.run_step(cache, toks, pos, tables, temps=temps,
+                                  top_ps=np.full(slots, SAMPLE_TOP_P,
+                                                 'float32'),
+                                  keys=keys, masks=masks)
+        toks, pos = np.asarray(out, 'int32'), pos + 1
+        masked.append(toks.copy())
+    masked = np.stack(masked)
+    if (masked % 2).any() or prog.compile_count != n:
+        raise AssertionError('phase 3a mask: forbidden tokens %s, programs '
+                             '%d -> %d' % (masked[masked % 2 == 1].tolist(),
+                                           n, prog.compile_count))
+    del prog
+    torch.cuda.empty_cache()
+
+    # the replayed step without extras, with sampling, with sampling and
+    # adapters, in turns
+    step = step_turns(torch, {'no extras': build(rank=0, sample_args=False),
+                              'sampling': build(rank=0, sample_args=True),
+                              'sampling + adapters': build(
+                                  sample_args=True)})
+    torch.cuda.empty_cache()
+    tokens = sum(len(o) for o in got['outs'])
+    return dict(
+        outs=got['outs'], launches=got['launches'], counts=c,
+        compile_seconds=got['compile_seconds'], pool=got['pool'],
+        eager_pool=eager['pool'], tokens=tokens,
+        tokens_per_s=tokens / got['wall_s'], wall_s=got['wall_s'],
+        eager_tokens_per_s=tokens / eager['wall_s'],
+        kinds={k: sum(1 for r in reqs if (r['adapter'] is not None,
+                                          r['temperature'] > 0) == k)
+               for k in KINDS},
+        greedy_base=greedy_base, acceptance=acceptance, spec_ties=ties,
+        masked_tokens=int(masked.size), step=step)
 
 
 # -- phase 4: the training slice ---------------------------------------------
@@ -4568,6 +5006,10 @@ KERNELS = {
     'multi_tensor_update.mp': dict(
         source='mxnet_tpu_torch/ops/kernels/csrc/multi_tensor_update.cu',
         replaces='mxnet_tpu/optimizer/fused.py:119'),
+    # no Pallas kernel: the XLA fusion of the reference's gumbel noise
+    'threefry_gumbel': dict(
+        source='mxnet_tpu_torch/ops/kernels/csrc/sampling.cu',
+        replaces='mxnet_tpu/serving/decode/sampling.py:121'),
 }
 TIMING_KEYS = ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
                'library_ms', 'library_device_ms')
@@ -4723,6 +5165,7 @@ def main():
     from mxnet_tpu_torch.ops import contrib, kernels
     from mxnet_tpu_torch.ops import nn as ops
     from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import sampling as noise
     from mxnet_tpu_torch.tools import probe_matmul_pipeline as probe
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4783,6 +5226,10 @@ def main():
                            ('multi_tensor_update_kernel',))
     log('multi_tensor_update kernels: registers %s, no spills'
         % (regs or 'not reported: the library was current'))
+    regs = check_no_spills(reports.get('sampling', ()), 'sampling',
+                           ('threefry_gumbel_kernel',))
+    log('threefry_gumbel kernel: registers %s, no spills'
+        % (regs or 'not reported: the library was current'))
     regs = check_no_spills(reports.get('softmax_xent', ()), 'softmax_xent',
                            XENT_KERNEL_KEYS)
     log('softmax_xent kernels: registers %s, no spills' % ({
@@ -4811,8 +5258,10 @@ def main():
                  **param_lists(torch, bert, resnet))
     errs.update(check_fused_update(torch, kernels, optimizer, cuda, lists))
     torch.cuda.empty_cache()
+    errs['threefry_gumbel'] = check_noise_kernel(torch, noise, cuda)
     times = time_kernels(torch, kernels)
     times.update(time_paged_decode(torch, kernels))
+    times.update(time_noise_kernel(torch, noise, cuda))
     log_times(times)
     train_times = time_training_kernels(torch, kernels)
     log_times(train_times)
@@ -4930,6 +5379,44 @@ def main():
             % (run, card, r['tokens'], r['tokens_per_s'], r['ttft_p50_ms'],
                r['ttft_p99_ms'], r['step_ms'], r['wall_s'],
                json.dumps(r['cache_accounting'])))
+    torch.cuda.empty_cache()
+
+    # phase 3a: sampled decoding and adapters in the captured programs
+    ra = serve_adapters(torch, serving, kernels, cuda, rp['outs'])
+    log('phase 3a slice: %d requests (%s by (adapter, sampled)), %d new '
+        'tokens each, temperature %g, top_p %g, seeds 0-%d, %d adapters of '
+        'rank %d on a pool of %d rows; %d prefills, %d steps, launches %s; '
+        'the reference\'s program set built at start (capture seconds %s), '
+        'none after; the %d streams token for token the eager bodies\'; '
+        'greedy base requests %s token for token phase 3p\'s; every '
+        'adapter stream unlike its base twin'
+        % (len(ra['outs']), ra['kinds'], NEW_TOKENS, SAMPLE_TEMP,
+           SAMPLE_TOP_P, len(ra['outs']) - 1, ADAPTERS, ADAPTER_RANK,
+           ADAPTER_SLOTS, ra['counts']['prefills'], ra['counts']['steps'],
+           ra['launches'], json.dumps({k: round(v, 4) for k, v in
+                                       ra['compile_seconds'].items()}),
+           len(ra['outs']), ra['greedy_base']))
+    log('phase 3a metrics [%s]: tokens/s %.2f (eager %.2f), wall %.3f s, '
+        '%d sampled tokens; adapter pool %d B, %s (eager run %s)'
+        % (card, ra['tokens_per_s'], ra['eager_tokens_per_s'], ra['wall_s'],
+           ra['counts']['sampled_tokens'], ra['pool']['pool_bytes'],
+           json.dumps(ra['pool']), json.dumps(ra['eager_pool'])))
+    log('phase 3a speculation: sampled acceptance with the self-draft %s; '
+        'streams equal to the plain sampled ones but at %d near-tie '
+        'positions %s' % (json.dumps(ra['acceptance']), len(ra['spec_ties']),
+                          ra['spec_ties']))
+    log('phase 3a mask: %d tokens under a mask forbidding the odd ids, none '
+        'odd, no program built' % ra['masked_tokens'])
+    for name, (ms, prof) in ra['step'].items():
+        log('phase 3a replayed step, %s [%s]: %.4f ms a run_step (CUDA events, '
+            'the copy in and back included, mean of 2 turns)'
+            % (name, card, ms))
+        log_profile('phase 3a step, %s' % name, card, prof)
+    nrow = times['threefry_gumbel']
+    log('phase 3a noise kernel [%s]: threefry_gumbel device %.4f ms (slope '
+        'timer) at %s, bound %.5f ms (%s)'
+        % (card, nrow['device_ms'], nrow['shape'], nrow['bound_ms'],
+           nrow['bound_by']))
     torch.cuda.empty_cache()
 
     # phase 4: the training slice
@@ -5243,6 +5730,7 @@ def main():
                         'paged serving': rp['launches'],
                         'prefix sharing': sh['prefix']['launches'],
                         'speculative decoding': sh['spec']['launches'],
+                        'sampled adapter serving': ra['launches'],
                         'training': tr['launches'],
                         'bert amp training': tc['launches'],
                         'bert bf16 training': cast_runs['cast']['launches'],

@@ -18,7 +18,10 @@ The paged-cache knobs (``MXNET_TPU_SERVE_PAGED`` to
 ``MXNET_TPU_SERVE_SPEC_K``) are here; ``MXNET_TPU_SERVE_SPEC_DRAFT``, which
 loads a saved draft artifact, waits for the port of frozen-artifact
 persistence (ROADMAP: "Frozen-artifact persistence"): pass the draft to
-the session or engine as ``draft=``.
+the session or engine as ``draft=``. The sampling and adapter knobs
+(``MXNET_TPU_SERVE_SAMPLE_ARGS`` to ``MXNET_TPU_SERVE_ADAPTER_DIR``) carry
+the reference's defaults and help text: every decode program compiles the
+sampling inputs in unless told otherwise.
 """
 from __future__ import annotations
 
@@ -83,6 +86,35 @@ KNOBS = {
         'many tokens a tick and the target verifies them in one pass '
         '(greedy acceptance). 0 disables speculation; needs a paged '
         'target and a draft program.'),
+    'MXNET_TPU_SERVE_SAMPLE_ARGS': (
+        bool, True, 'Compile temperature/top-p/PRNG-key sampling as '
+        'fixed-shape ARRAY arguments of the one decode step: greedy and '
+        'sampled requests share the same executable (temperature 0 stays '
+        'byte-identical to the greedy-only program). 0 freezes the '
+        'pre-sampling signature -- old artifacts load either way.'),
+    'MXNET_TPU_SERVE_SAMPLE_MASK': (
+        bool, False, 'Also compile the per-request additive logit-mask '
+        'argument (grammar/JSON constrained decoding hook): a (rows, vocab) '
+        'float32 mask added to logits before sampling. Costs slots x vocab '
+        'of transfer per step when used; off by default.'),
+    'MXNET_TPU_SERVE_ADAPTER_RANK': (
+        int, 0, 'Low-rank adapter (LoRA) pool rank compiled into the decode '
+        'step: per-request A/B deltas gather from a device-resident pool '
+        'inside the ONE compiled program, so adapter switches are int32 '
+        'array-arg changes (zero retraces). 0 (default) freezes the '
+        'base-only signature.'),
+    'MXNET_TPU_SERVE_ADAPTER_SLOTS': (
+        int, 8, 'Device-resident adapter pool capacity (rows, incl. the '
+        'reserved all-zero base row 0): how many LoRA variants can serve '
+        'concurrently. Unpinned rows evict LRU on a cold load; with every '
+        'row pinned a new adapter admission rejects typed '
+        '(AdapterExhaustedError, shed/retry).'),
+    'MXNET_TPU_SERVE_ADAPTER_DIR': (
+        str, None, 'Artifact-directory root the decode engine\'s adapter '
+        'registry resolves unknown adapter ids against: <dir>/<id> must '
+        'hold a mxnet_tpu.adapter.v1 artifact (loaded lazily on first use, '
+        'digest-verified). Unset = only programmatically registered '
+        'adapters resolve.'),
     'MXNET_TPU_AMP': (
         str, None, "Default AMP policy ('bf16' | 'fp16' | 'off') for "
         'ParallelTrainer / Module.fit / gluon Trainer when no explicit '

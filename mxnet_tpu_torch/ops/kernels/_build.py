@@ -38,7 +38,8 @@ _BUILD_DIR = os.path.join(_HERE, '_build')
 SOURCES = ('flash_attention_fwd', 'flash_attention_bwd',
            'flash_attention_fwd_bf16', 'flash_attention_dq_bf16',
            'flash_attention_dkv_bf16', 'flash_decode_fwd', 'softmax_xent',
-           'epilogue', 'nms', 'matmul_sm90', 'multi_tensor_update')
+           'epilogue', 'nms', 'matmul_sm90', 'multi_tensor_update',
+           'sampling')
 # the CUDA runtime is linked shared: the library then binds to the
 # libcudart.so already loaded by torch, so one runtime serves the process
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and

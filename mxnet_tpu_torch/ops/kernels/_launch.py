@@ -42,7 +42,7 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_fwd' + BF16,
            'act_bwd', 'act_bwd' + BF16, 'add_act_fwd', 'add_act_fwd' + BF16,
            'nms', 'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep',
            'multi_tensor_update', 'multi_tensor_update' + BF16,
-           'multi_tensor_update.mp')
+           'multi_tensor_update.mp', 'threefry_gumbel')
 
 _launches = dict.fromkeys(KERNELS, 0)
 _instances = {}

@@ -33,6 +33,18 @@ target ``run_verify`` to score all ``spec_k + 1`` positions; the longest
 greedy-matching prefix is accepted, plus the target's own token at the
 first mismatch. Rejected K/V rows stay masked until overwritten.
 
+**Sampling and adapters**: a request carries its sampling law
+(``temperature`` 0 is greedy; ``top_p``; ``seed``) and its adapter id.
+Each call fills the program's extras a row a slot: the temperature, the
+top-p and the key :func:`~.sampling.key_for` of (seed, the position of the
+logits row), and the adapter's pool row, pinned from admission to
+retirement (an unknown id or a pool with every row pinned fails that
+request typed). A sampled speculative tick gives the draft the keys the
+verify pass uses at the same positions, so the draft proposes what the
+target would sample and the greedy acceptance walk is unchanged; every
+emitted token is the target's own draw. The prefix cache is namespaced by
+adapter id.
+
 The scheduler is numpy + threading around a duck-typed program
 (``slots``, ``max_len``, ``max_prompt_len()``, ``new_cache()``,
 ``run_prefill``, ``run_step``; a paged one adds ``page_size``, ``pages``,
@@ -41,9 +53,9 @@ The scheduler is numpy + threading around a duck-typed program
 the draft as the engine starts); the worker thread alone owns the device
 cache, which the program hands out (``new_cache()``: its own storage,
 zeroed, since its captured programs are bound to it). The breaker, watchdog,
-degraded fallback, sampling, adapters, migration and tracing of the JAX
-engine are later slices (ROADMAP queue A): a failed device call fails
-the streams it carried and the cache is rebuilt.
+degraded fallback, migration and tracing of the JAX engine are later
+slices (ROADMAP queue A): a failed device call fails the streams it
+carried and the cache is rebuilt.
 """
 from __future__ import annotations
 
@@ -55,8 +67,10 @@ import time
 import numpy as onp
 
 from ... import config as _config
+from ..adapters import AdapterPool, AdapterRegistry
 from ..batcher import BackpressureError, BatcherClosed, RequestTimeout
 from .paged import TRASH_PAGE, PageAllocator, PrefixCache, pages_for
+from .sampling import key_for
 
 __all__ = ['GenerateStream', 'DecodeEngine', 'DrainTimeout']
 
@@ -132,10 +146,12 @@ class _Seq:
 
     __slots__ = ('stream', 'prompt', 'max_new', 'eos_id', 'slot', 'pos',
                  'last_token', 'enqueued_at', 'deadline_at', 'table',
-                 'pages')
+                 'pages', 'adapter_id', 'adapter_idx', 'temperature',
+                 'top_p', 'seed')
 
     def __init__(self, stream, prompt, max_new, eos_id, enqueued_at,
-                 deadline_at):
+                 deadline_at, adapter_id=None, temperature=0.0, top_p=1.0,
+                 seed=0):
         self.stream = stream
         self.prompt = prompt
         self.max_new = max_new
@@ -149,6 +165,14 @@ class _Seq:
         # and the pool pages this sequence holds a ref on
         self.table = None
         self.pages = []
+        # the adapter it decodes under (its pool row pinned at admission)
+        # and its sampling law (temperature 0 is greedy; keys from (seed,
+        # absolute position))
+        self.adapter_id = adapter_id
+        self.adapter_idx = 0
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.seed = int(seed)
 
     @property
     def extending(self):
@@ -165,11 +189,14 @@ class DecodeEngine:
     ``prefix_cache`` (None: ``MXNET_TPU_SERVE_PREFIX_CACHE``) shares
     prompt prefixes on a paged program; ``draft`` (a slot
     :class:`~.program.DecodeProgram` with the target's slots) turns on
-    speculative decoding on a paged program with ``spec_k > 0``."""
+    speculative decoding on a paged program with ``spec_k > 0``;
+    ``adapters`` (an :class:`~..adapters.AdapterRegistry`, or an artifact
+    root; None: ``MXNET_TPU_SERVE_ADAPTER_DIR``) serves the adapter ids of
+    a program built with an adapter pool."""
 
     def __init__(self, program, max_queue=256, timeout_s=30.0,
                  max_new_tokens=64, prefill_interleave=1, name='decode',
-                 draft=None, prefix_cache=None):
+                 draft=None, prefix_cache=None, adapters=None):
         self.program = program
         self.slots = int(program.slots)
         self.max_queue = int(max_queue)
@@ -191,7 +218,8 @@ class DecodeEngine:
                         'prefix_tokens_saved': 0, 'spec_proposed': 0,
                         'spec_accepted': 0, 'spec_rounds': 0,
                         'cow_copies': 0, 'pool_exhausted': 0,
-                        'page_evictions': 0}
+                        'page_evictions': 0, 'sampled_tokens': 0,
+                        'adapter_rejects': 0}
         # paged scheduling: the host side of the page pool
         self.paged = bool(getattr(program, 'paged', False))
         self._allocator = self._prefix = None
@@ -227,6 +255,35 @@ class DecodeEngine:
                     '(it needs a position-addressed cache)' % (dm.family,))
             self._draft = draft
             self.spec_k = spec_k
+        # adapters: ids -> rows of the pool the program reads; a given
+        # registry's pool must have the program's geometry, and its
+        # storage becomes the program's pool tensors
+        self._adapters = None
+        aspec = getattr(program, 'adapter_spec', None)
+        if aspec is not None:
+            if adapters is None:
+                adapters = _config.get('MXNET_TPU_SERVE_ADAPTER_DIR')
+            if isinstance(adapters, AdapterRegistry):
+                ps = adapters.pool.spec
+                if ps != aspec:
+                    raise ValueError(
+                        'adapter registry pool (rank=%d capacity=%d) does not '
+                        'match the program\'s adapter_spec (rank=%d '
+                        'capacity=%d): the pool\'s shapes are the programs\''
+                        % (ps.rank, ps.capacity, aspec.rank, aspec.capacity))
+            else:
+                adapters = AdapterRegistry(AdapterPool(aspec),
+                                           root=adapters or None)
+            adapters.pool.bind(program.apool)
+            self._adapters = adapters
+        elif adapters is not None:
+            raise ValueError('adapters given but the program was frozen '
+                             'without an adapter_spec (freeze with '
+                             'adapter_rank > 0)')
+        self.sample_args = bool(getattr(program, 'sample_args', False))
+        # whether the programs carry extras at all (the per-slot arrays
+        # are not even built when not)
+        self._extras_on = self.sample_args or aspec is not None
         # every program the engine can run is built before the first
         # request, as the reference's server warms its program; no
         # request builds one afterwards
@@ -246,11 +303,19 @@ class DecodeEngine:
 
     # -- submission --------------------------------------------------------
 
-    def generate(self, tokens, max_new_tokens=None, eos_id=None):
+    def generate(self, tokens, max_new_tokens=None, eos_id=None,
+                 adapter=None, temperature=0.0, top_p=1.0, seed=0):
         """Admit one prompt; returns its :class:`GenerateStream`.
 
+        ``adapter`` picks the adapter (an id of the engine's registry;
+        None, '' or 'base' is the frozen base); ``temperature`` (0:
+        greedy, byte for byte the greedy program's tokens), ``top_p`` and
+        ``seed`` the sampling law. Both are values of the programs'
+        extras: any mix in one batch builds no program.
+
         Raises :class:`BackpressureError` when the pending queue is at
-        depth, ``ValueError`` for an empty or over-long prompt (typed at
+        depth, ``ValueError`` for an empty or over-long prompt, a bad
+        sampling law or an adapter this engine does not serve (typed at
         admission, not mid-decode), :class:`BatcherClosed` after
         :meth:`close`."""
         prompt = [int(t) for t in onp.asarray(tokens).reshape(-1)]
@@ -264,10 +329,29 @@ class DecodeEngine:
                       else self.default_max_new)
         if max_new < 1:
             raise ValueError('max_new_tokens must be >= 1')
+        temperature = float(temperature)
+        top_p = float(top_p)
+        if temperature < 0:
+            raise ValueError('temperature must be >= 0')
+        if not 0 < top_p <= 1:
+            raise ValueError('top_p must be in (0, 1]')
+        if temperature > 0 and not self.sample_args:
+            raise ValueError(
+                'sampled decoding requested (temperature=%g) but the program '
+                'was frozen without sampling args (freeze with '
+                'sample_args=True)' % temperature)
+        if adapter not in AdapterRegistry.BASE_IDS and self._adapters is None:
+            raise ValueError(
+                'adapter %r requested but this engine serves no adapters '
+                '(freeze with adapter_rank > 0 and point '
+                'MXNET_TPU_SERVE_ADAPTER_DIR at the artifacts)' % (adapter,))
         now = time.monotonic()
         stream = GenerateStream(len(prompt))
         seq = _Seq(stream, prompt, max_new, eos_id, now,
-                   now + self.timeout_s if self.timeout_s else None)
+                   now + self.timeout_s if self.timeout_s else None,
+                   adapter_id=(None if adapter in AdapterRegistry.BASE_IDS
+                               else str(adapter)),
+                   temperature=temperature, top_p=top_p, seed=seed)
         with self._lock:
             if self._closed:
                 raise BatcherClosed('decode engine %r is closed'
@@ -377,6 +461,8 @@ class DecodeEngine:
                 # drop the sequence's page holds; pages the prefix
                 # registry still holds stay for later hits
                 self._release_pages_locked(seq)
+        # the adapter row's pin goes outside the lock (the pool has its own)
+        self._release_adapter(seq)
 
     # -- paged pool bookkeeping (worker thread only) ------------------------
 
@@ -402,10 +488,12 @@ class DecodeEngine:
             seq.pages = []
 
     def _free_slot(self, seq, slot):
-        """Give back a slot that never went live, and its pages."""
+        """Give back a slot that never went live, its pages and its
+        adapter row's pin."""
         with self._lock:
             self._release_pages_locked(seq)
             self._free.append(slot)
+        self._release_adapter(seq)
 
     def _alloc_pages(self, n):
         """``n`` fresh pages, evicting LRU cached prefixes under pool
@@ -467,6 +555,91 @@ class DecodeEngine:
             seq.table[pi] = ids[0]
         return True
 
+    # -- the programs' sampling / adapter extras ----------------------------
+
+    def _release_adapter(self, seq):
+        if self._adapters is not None and seq.adapter_idx:
+            self._adapters.release(seq.adapter_idx)
+            seq.adapter_idx = 0
+
+    def _admit_adapter(self, seq, slot):
+        """Pin the sequence's adapter row at admission (a cold adapter is
+        written into the pool once, a warm one is a refcount). On failure
+        (an unknown id; every row pinned) this request fails typed and
+        its slot frees. Returns False when admission must stop."""
+        if seq.adapter_id is None or self._adapters is None:
+            return True
+        try:
+            seq.adapter_idx = self._adapters.acquire(seq.adapter_id)
+            return True
+        except (KeyError, ValueError, OSError, RuntimeError) as exc:
+            # an unknown id, a bad artifact, a full pool (a
+            # BackpressureError) or a failed write of the row
+            with self._lock:
+                self._free.append(slot)
+                self._counts['adapter_rejects'] += 1
+            seq.stream._finish('error', exc)
+            return False
+
+    def _prefill_extras(self, seq):
+        """The extras of one ``run_prefill``: the key of the logits row at
+        ``len(prompt) - 1``, the adapter row; {} without extras."""
+        if not self._extras_on:
+            return {}
+        kw = {}
+        if self.sample_args and seq.temperature > 0:
+            kw['temps'] = [seq.temperature]
+            kw['top_ps'] = [seq.top_p]
+            kw['keys'] = key_for(seq.seed, len(seq.prompt) - 1)[None]
+        if self._adapters is not None:
+            kw['aidx'] = [seq.adapter_idx]
+        return kw
+
+    def _step_extras(self, active, spec_c=0):
+        """The extras of one step a row a slot, or of one verify pass
+        (``spec_c`` keys a slot, at positions ``pos .. pos + spec_c - 1``:
+        the keys the plain path would use there); {} without extras."""
+        if not self._extras_on:
+            return {}
+        kw = {}
+        if self.sample_args:
+            temps = onp.zeros(self.slots, 'float32')
+            top_ps = onp.ones(self.slots, 'float32')
+            keys = onp.zeros((self.slots, spec_c, 2) if spec_c
+                             else (self.slots, 2), 'uint32')
+            for slot, seq in active.items():
+                if seq.temperature <= 0:
+                    continue
+                temps[slot] = seq.temperature
+                top_ps[slot] = seq.top_p
+                if spec_c:
+                    for c in range(spec_c):
+                        keys[slot, c] = key_for(seq.seed, seq.pos + c)
+                else:
+                    keys[slot] = key_for(seq.seed, seq.pos)
+            kw.update(temps=temps, top_ps=top_ps, keys=keys)
+        if self._adapters is not None:
+            aidx = onp.zeros(self.slots, 'int32')
+            for slot, seq in active.items():
+                aidx[slot] = seq.adapter_idx
+            kw['aidx'] = aidx
+        return kw
+
+    def _draft_step_extras(self, active, off):
+        """The draft's proposal for position ``pos + off`` drawn with the
+        key the verify pass uses there: when the draft agrees with the
+        target, it proposes the very token the target samples."""
+        temps = onp.zeros(self.slots, 'float32')
+        top_ps = onp.ones(self.slots, 'float32')
+        keys = onp.zeros((self.slots, 2), 'uint32')
+        for slot, seq in active.items():
+            if seq.temperature <= 0:
+                continue
+            temps[slot] = seq.temperature
+            top_ps[slot] = seq.top_p
+            keys[slot] = key_for(seq.seed, seq.pos + off)
+        return {'temps': temps, 'top_ps': top_ps, 'keys': keys}
+
     def _admit(self, seq, slot):
         """Prefill one pending request into ``slot`` (join)."""
         if seq.stream.done() or seq.stream._cancelled:
@@ -475,16 +648,18 @@ class DecodeEngine:
             with self._lock:
                 self._free.append(slot)
             return
+        if not self._admit_adapter(seq, slot):
+            return
         try:
             if self._cache is None:
                 self._cache = self.program.new_cache()
             self._cache, tok, _logits = self.program.run_prefill(
-                self._cache, onp.asarray(seq.prompt, 'int32'), slot)
+                self._cache, onp.asarray(seq.prompt, 'int32'), slot,
+                **self._prefill_extras(seq))
         except Exception as exc:
-            # fail THIS request with the error, never leak its slot or
-            # leave its stream blocking
-            with self._lock:
-                self._free.append(slot)
+            # fail THIS request with the error, never leak its slot, its
+            # adapter pin or leave its stream blocking
+            self._free_slot(seq, slot)
             seq.stream._finish('error', exc)
             logging.exception('decode %s: prefill failed', self.name)
             return
@@ -495,6 +670,8 @@ class DecodeEngine:
         with self._lock:
             self._counts['prefills'] += 1
             self._counts['tokens'] += 1
+            if seq.temperature > 0:
+                self._counts['sampled_tokens'] += 1
             # registered BEFORE the finish check so a first-token EOS /
             # max_new=1 retirement flows through _retire
             self._active[slot] = seq
@@ -519,6 +696,8 @@ class DecodeEngine:
             with self._lock:
                 self._free.append(slot)
             return
+        if not self._admit_adapter(seq, slot):
+            return
         prompt = seq.prompt
         n = len(prompt)
         seq.table = onp.full(self.program.max_pages, TRASH_PAGE, 'int32')
@@ -527,8 +706,11 @@ class DecodeEngine:
                 self._rebuild_cache()
             shared, covered = [], 0
             if self._prefix is not None:
+                # namespaced by adapter id: an adapter's K/V rows for the
+                # same tokens differ, so a hit never crosses adapters
                 with self._lock:
-                    shared, covered = self._prefix.lookup(prompt)
+                    shared, covered = self._prefix.lookup(
+                        prompt, namespace=seq.adapter_id)
                 # leave >= 1 prompt token to step on: its logits give
                 # the first generated token
                 covered = min(covered, n - 1)
@@ -560,13 +742,15 @@ class DecodeEngine:
                 seq.pages = list(ids)
             seq.table[:len(ids)] = ids
             self._cache, tok, _logits = self.program.run_prefill(
-                self._cache, onp.asarray(prompt, 'int32'), ids)
+                self._cache, onp.asarray(prompt, 'int32'), ids,
+                **self._prefill_extras(seq))
             if self._draft is not None:
                 self._draft_cache, _t, _l = self._draft.run_prefill(
                     self._draft_cache, onp.asarray(prompt, 'int32'), slot)
             if self._prefix is not None:
                 with self._lock:
-                    self._prefix.register(prompt, ids)
+                    self._prefix.register(prompt, ids,
+                                          namespace=seq.adapter_id)
         except Exception as exc:
             self._free_slot(seq, slot)
             seq.stream._finish('error', exc)
@@ -616,7 +800,7 @@ class DecodeEngine:
         t0 = time.monotonic()
         try:
             self._cache, toks, _logits = self.program.run_step(
-                self._cache, tokens, positions)
+                self._cache, tokens, positions, **self._step_extras(active))
         except Exception as exc:
             self._fail_step(active, exc, 'step')
             return
@@ -625,6 +809,7 @@ class DecodeEngine:
             self._counts['steps'] += 1
             self._counts['tokens'] += len(active)
             self._counts['step_seconds'] += dt
+        sampled = 0
         for slot, seq in active.items():
             if seq.stream.done() or seq.stream._cancelled:
                 continue            # retired at the next tick
@@ -632,10 +817,13 @@ class DecodeEngine:
             seq.pos += 1
             seq.last_token = tok
             self._emit_token(seq, tok)
+            sampled += seq.temperature > 0
             reason = self._finished_reason(seq, tok)
             if reason is not None:
                 seq.stream._finish(reason)
                 self._retire(slot, seq, reason)
+        with self._lock:
+            self._counts['sampled_tokens'] += sampled
 
     def _fail_step(self, active, exc, what):
         """A failed device call: fail the streams it carried, retire their
@@ -683,7 +871,8 @@ class DecodeEngine:
                 positions[slot] = seq.pos
                 tables[slot] = seq.table
             self._cache, toks, _logits = self.program.run_step(
-                self._cache, tokens, positions, tables)
+                self._cache, tokens, positions, tables,
+                **self._step_extras(active))
             if self._draft is not None:
                 self._draft_cache, _t, _l = self._draft.run_step(
                     self._draft_cache, tokens, positions)
@@ -691,7 +880,7 @@ class DecodeEngine:
             self._fail_step(active, exc, 'paged step')
             return
         dt = time.monotonic() - t0
-        emitted = 0
+        emitted = sampled = 0
         for slot, seq in active.items():
             if seq.stream.done() or seq.stream._cancelled:
                 continue            # retired at the next tick
@@ -705,6 +894,7 @@ class DecodeEngine:
             seq.last_token = tok
             self._emit_token(seq, tok)
             emitted += 1
+            sampled += seq.temperature > 0
             reason = self._finished_reason(seq, tok)
             if reason is not None:
                 seq.stream._finish(reason)
@@ -712,6 +902,7 @@ class DecodeEngine:
         with self._lock:
             self._counts['steps'] += 1
             self._counts['tokens'] += emitted
+            self._counts['sampled_tokens'] += sampled
             self._counts['step_seconds'] += dt
 
     def _spec_step(self, active):
@@ -734,10 +925,17 @@ class DecodeEngine:
                 inputs[slot, 0] = seq.last_token
                 positions[slot] = seq.pos
                 tables[slot] = seq.table
+            # coupled proposals when both programs sample; a greedy draft
+            # under sampled verify stays right (every emitted token is a
+            # target draw), it only accepts less
+            couple = self.sample_args and getattr(self._draft, 'sample_args',
+                                                  False)
             cur = inputs[:, 0].copy()
             for c in range(1, C):
                 self._draft_cache, dtoks, _l = self._draft.run_step(
-                    self._draft_cache, cur, positions + (c - 1))
+                    self._draft_cache, cur, positions + (c - 1),
+                    **(self._draft_step_extras(active, c - 1) if couple
+                       else {}))
                 cur = onp.asarray(dtoks, 'int32').copy()
                 inputs[:, c] = cur
             # feed the last proposal too (its output is dropped): a fully
@@ -747,12 +945,13 @@ class DecodeEngine:
             self._draft_cache, _t, _l = self._draft.run_step(
                 self._draft_cache, cur, positions + k)
             self._cache, vtoks, _logits = self.program.run_verify(
-                self._cache, inputs, positions, tables)
+                self._cache, inputs, positions, tables,
+                **self._step_extras(active, spec_c=C))
         except Exception as exc:
             self._fail_step(active, exc, 'speculative step')
             return
         dt = time.monotonic() - t0
-        emitted_total = accepted_total = proposed_total = 0
+        emitted_total = accepted_total = proposed_total = sampled_total = 0
         for slot, seq in active.items():
             if seq.stream.done() or seq.stream._cancelled:
                 continue            # its proposals were never judged
@@ -775,6 +974,7 @@ class DecodeEngine:
             for i, tok in enumerate(emitted):
                 self._emit_token(seq, tok)
                 emitted_total += 1
+                sampled_total += seq.temperature > 0
                 # each token's finish check at its own position p0 + i + 1
                 if seq.eos_id is not None and tok == seq.eos_id:
                     reason = 'eos'
@@ -793,6 +993,7 @@ class DecodeEngine:
             self._counts['spec_proposed'] += proposed_total
             self._counts['spec_accepted'] += accepted_total
             self._counts['tokens'] += emitted_total
+            self._counts['sampled_tokens'] += sampled_total
             self._counts['step_seconds'] += dt
 
     # -- introspection and shutdown ----------------------------------------
@@ -883,6 +1084,7 @@ class DecodeEngine:
                     self._release_pages_locked(seq)
                 self._counts['drain_timeouts'] += len(leftovers)
         for seq in leftovers:
+            self._release_adapter(seq)
             seq.stream._finish('error', DrainTimeout(
                 'stream unfinished after the %.1fs drain budget '
                 '(%d tokens emitted)' % (timeout, len(seq.stream.tokens))))

@@ -17,7 +17,10 @@ Parameters are a ``{name: tensor}`` dict under the JAX model's names and
 model's weights over without transposes. The JAX expressions that set
 rounding are kept: layer norm as mean / var / sqrt(var + eps), exact-erf
 GELU, the tied head ``x @ embed.T + out_bias``, and ``q * scale`` inside
-the attention function, as the kernels do.
+the attention function, as the kernels do. Every path takes an optional
+``ad``, the low-rank adapter deltas of its rows (``lora_targets``: the
+fused QKV and the two FFN projections); the deltas are plain
+``torch.einsum`` products, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -162,6 +165,39 @@ class TransformerLM(DecodeModel):
             })
         return params
 
+    # -- low-rank adapters (serving/adapters/) -------------------------------
+
+    def lora_targets(self):
+        """The projections an adapter may delta, with their (out, in):
+        the shapes ``serving.adapters`` sizes its pool rows to. Per-layer
+        names follow the params (``l{i}_qkv`` and so on)."""
+        U, H = self.units, self.hidden
+        return {'qkv': (3 * U, U), 'ffn1': (H, U), 'ffn2': (U, H)}
+
+    @staticmethod
+    def _lora_delta(x, a, b):
+        """The low-rank delta ``(x @ A^T) @ B^T`` (the scale is in B).
+        ``a`` / ``b`` 2-D is one adapter for the whole call (prefill: a (r,
+        in), b (out, r)); 3-D is one a slot (a (s, r, in), b (s, out, r))
+        applied to x (s, ..., in). Row 0 of the pool is zero, so the base
+        delta is 0.0 everywhere."""
+        if a.dim() == 2:
+            return torch.einsum('...r,or->...o',
+                                torch.einsum('...i,ri->...r', x, a), b)
+        h = torch.einsum('s...i,sri->s...r', x, a)
+        return torch.einsum('s...r,sor->s...o', h, b)
+
+    def _adapted(self, x, w, b, ad, key):
+        """The dense projection plus the adapter delta of ``ad`` (maps
+        ``l{i}_{target}`` -> (A, B) already selected for this call's
+        rows). With ``ad`` None the body is the plain projection, not the
+        same plus a zero."""
+        y = self._dense(x, w, b)
+        if ad is not None and key in ad:
+            la, lb = ad[key]
+            y = y + self._lora_delta(x, la, lb)
+        return y
+
     # -- shared block math --------------------------------------------------
 
     def _ln(self, x, g, b):
@@ -177,15 +213,22 @@ class TransformerLM(DecodeModel):
         return F.embedding(tokens, params['embed']) \
             + F.embedding(positions, params['pos'])
 
-    def _attn_out_ffn(self, params, i, x, ctx):
-        """Output projection + post-norm residual, then the FFN cell."""
+    def _attn_out_ffn(self, params, i, x, ctx, ad=None):
+        """Output projection + post-norm residual, then the FFN cell
+        (its two projections adapted by ``ad``)."""
         p = lambda n: params['l%d_%s' % (i, n)]           # noqa: E731
         x = self._ln(x + self._dense(ctx, p('out_w'), p('out_b')),
                      p('ln1_g'), p('ln1_b'))
-        h = F.gelu(self._dense(x, p('ffn1_w'), p('ffn1_b')),
-                   approximate='none')
-        return self._ln(x + self._dense(h, p('ffn2_w'), p('ffn2_b')),
+        h = F.gelu(self._adapted(x, p('ffn1_w'), p('ffn1_b'), ad,
+                                 'l%d_ffn1' % i), approximate='none')
+        return self._ln(x + self._adapted(h, p('ffn2_w'), p('ffn2_b'), ad,
+                                          'l%d_ffn2' % i),
                         p('ln2_g'), p('ln2_b'))
+
+    def _qkv(self, params, i, x, ad):
+        return self._adapted(x, params['l%d_qkv_w' % i],
+                             params['l%d_qkv_b' % i], ad, 'l%d_qkv' % i) \
+            .split(self.units, dim=-1)
 
     def _head(self, params, h):
         return torch.matmul(h, params['embed'].t()) + params['out_bias']
@@ -196,24 +239,24 @@ class TransformerLM(DecodeModel):
         return x.reshape(b, s, self.heads, self.units // self.heads) \
             .permute(0, 2, 1, 3).contiguous()
 
-    def _full_pass(self, params, tokens, lengths):
+    def _full_pass(self, params, tokens, lengths, ad=None):
         """Whole-sequence causal pass: tokens (B, S) -> (hidden (B, S,
         U), per-layer (k, v) each (B, S, U)). ``lengths`` (B,) int32
-        masks padded keys; the prefill AND reference path."""
+        masks padded keys; ``ad`` adapts the projections (2-D: one
+        adapter; 3-D: one a batch row); the prefill AND reference
+        path."""
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
         x = self._embed(params, tokens, positions[None, :])
         kvs = []
         for i in range(self.layers):
-            qkv = self._dense(x, params['l%d_qkv_w' % i],
-                              params['l%d_qkv_b' % i])
-            q, k, v = qkv.split(self.units, dim=-1)
+            q, k, v = self._qkv(params, i, x, ad)
             kvs.append((k, v))
             ctx = flash_attention(self._heads(q), self._heads(k),
                                   self._heads(v), lengths=lengths,
                                   causal=True, scale=self.scale)
             ctx = ctx.permute(0, 2, 1, 3).reshape(B, S, self.units)
-            x = self._attn_out_ffn(params, i, x, ctx)
+            x = self._attn_out_ffn(params, i, x, ctx, ad)
         return x, kvs
 
     @staticmethod
@@ -228,41 +271,42 @@ class TransformerLM(DecodeModel):
         ``x`` (1, S, U), selected on the device."""
         return self._head(params, x[0].index_select(0, lengths.long() - 1)[0])
 
-    def prefill(self, params, cache, tokens, length, slot):
+    def prefill(self, params, cache, tokens, length, slot, ad=None):
         """Run the padded prompt ``tokens`` (1, S), land its KV prefix
         in ``slot`` (in place, tail zeroed) and return (cache, logits
         (V,)) at position ``length - 1``. ``length`` and ``slot`` are
-        ints or one-element int tensors on the device (no host read)."""
+        ints or one-element int tensors on the device (no host read);
+        ``ad`` is one adapter's 2-D (A, B) a target, or None."""
         lengths = self._lengths(length, tokens.device)
-        x, kvs = self._full_pass(params, tokens, lengths)
+        x, kvs = self._full_pass(params, tokens, lengths, ad)
         for i, (k, v) in enumerate(kvs):
             write_slot(cache['l%d_k' % i], k[0], slot)
             write_slot(cache['l%d_v' % i], v[0], slot)
         return cache, self._last(params, x, lengths)
 
-    def step(self, params, cache, tokens, positions):
+    def step(self, params, cache, tokens, positions, ad=None):
         """Advance every slot one token: append each slot's K/V row at
-        its own position (in place) and attend its own prefix. Returns
+        its own position (in place) and attend its own prefix. ``ad`` is
+        a 3-D (A, B) stack a target, one adapter a slot, or None. Returns
         (cache, logits (slots, V))."""
         pos_idx = positions.long()
         x = self._embed(params, tokens, pos_idx)          # (slots, U)
         for i in range(self.layers):
-            qkv = self._dense(x, params['l%d_qkv_w' % i],
-                              params['l%d_qkv_b' % i])
-            q, k, v = qkv.split(self.units, dim=-1)
+            q, k, v = self._qkv(params, i, x, ad)
             ck = write_position(cache['l%d_k' % i], k, pos_idx)
             cv = write_position(cache['l%d_v' % i], v, pos_idx)
             ctx = flash_decode_attention(q.contiguous(), ck, cv, positions,
                                          heads=self.heads, scale=self.scale)
-            x = self._attn_out_ffn(params, i, x, ctx)
+            x = self._attn_out_ffn(params, i, x, ctx, ad)
         return cache, self._head(params, x)
 
-    def full_forward(self, params, tokens):
-        """Uncached reference: tokens (B, T) -> logits (B, T, V)."""
+    def full_forward(self, params, tokens, ad=None):
+        """Uncached reference: tokens (B, T) -> logits (B, T, V), adapted
+        by ``ad`` (2-D: one adapter; 3-D: one a batch row) when given."""
         B, T = tokens.shape
         lengths = torch.full((B,), T, dtype=torch.int32,
                              device=tokens.device)
-        x, _ = self._full_pass(params, tokens, lengths)
+        x, _ = self._full_pass(params, tokens, lengths, ad)
         return self._head(params, x)
 
     # -- the paged cache ----------------------------------------------------
@@ -277,16 +321,16 @@ class TransformerLM(DecodeModel):
              for i in range(self.layers) for kv in ('k', 'v')},
             page_size, self.max_len)
 
-    def paged_prefill(self, params, pool, tokens, length, page_ids):
+    def paged_prefill(self, params, pool, tokens, length, page_ids, ad=None):
         """The prefill through the page table: the same ``_full_pass`` as
         :meth:`prefill` (so the same logits), with the prompt's K/V,
         zero-padded to whole pages, written page by page to the
         host-allocated ``page_ids`` (npages,) int64 in place; trailing
         all-padding pages point at the trash page. Returns (pool, logits
-        (V,)) at position ``length - 1`` (``length``: as :meth:`prefill`
-        takes it)."""
+        (V,)) at position ``length - 1`` (``length`` and ``ad``: as
+        :meth:`prefill` takes them)."""
         lengths = self._lengths(length, tokens.device)
-        x, kvs = self._full_pass(params, tokens, lengths)
+        x, kvs = self._full_pass(params, tokens, lengths, ad)
         rows = page_ids.shape[0] * next(iter(pool.values())).shape[1]
         pad = rows - tokens.shape[1]
         for i, (k, v) in enumerate(kvs):
@@ -295,32 +339,30 @@ class TransformerLM(DecodeModel):
                                     F.pad(arr[0], (0, 0, 0, pad)), page_ids)
         return pool, self._last(params, x, lengths)
 
-    def paged_step(self, params, pool, tokens, positions, tables):
+    def paged_step(self, params, pool, tokens, positions, tables, ad=None):
         """One decode step over the pool: :meth:`step`'s math, with each
         slot's row written at ``(table[pos // ps], pos % ps)`` (in place)
         and the paged decode kernel reading its keys through its table
         (``tables`` (slots, max_pages) int32). Keys past a slot's position,
         trash-page rows among them, get weight 0, so the logits are
-        bitwise :meth:`step`'s over the same K/V. Returns (pool, logits
-        (slots, V))."""
+        bitwise :meth:`step`'s over the same K/V (``ad``: as :meth:`step`
+        takes it). Returns (pool, logits (slots, V))."""
         ps = next(iter(pool.values())).shape[1]
         pos_idx = positions.long()
         x = self._embed(params, tokens, pos_idx)          # (slots, U)
         page_ids = tables.gather(1, (pos_idx // ps)[:, None])[:, 0].long()
         offsets = pos_idx % ps
         for i in range(self.layers):
-            qkv = self._dense(x, params['l%d_qkv_w' % i],
-                              params['l%d_qkv_b' % i])
-            q, k, v = qkv.split(self.units, dim=-1)
+            q, k, v = self._qkv(params, i, x, ad)
             pk = write_paged_rows(pool['l%d_k' % i], k, page_ids, offsets)
             pv = write_paged_rows(pool['l%d_v' % i], v, page_ids, offsets)
             ctx = flash_paged_decode_attention(q.contiguous(), pk, pv, tables,
                                                positions, heads=self.heads,
                                                scale=self.scale)
-            x = self._attn_out_ffn(params, i, x, ctx)
+            x = self._attn_out_ffn(params, i, x, ctx, ad)
         return pool, self._head(params, x)
 
-    def paged_verify(self, params, pool, tokens, positions, tables):
+    def paged_verify(self, params, pool, tokens, positions, tables, ad=None):
         """The speculative verify: ``tokens`` (slots, C), the last accepted
         token and the draft's proposals, advance every slot C positions in
         one call, with logits at each. Causal within the chunk, each slot
@@ -328,7 +370,8 @@ class TransformerLM(DecodeModel):
         einsum and softmax, no kernel): its sums run in another order than
         the one-token step's, so its logits agree with the step's to
         float32 precision, not bitwise; rejected rows stay masked until
-        overwritten. Returns (pool, logits (slots, C, V))."""
+        overwritten. ``ad``: one adapter a slot, as :meth:`step` takes
+        it. Returns (pool, logits (slots, C, V))."""
         slots, C = tokens.shape
         ps = next(iter(pool.values())).shape[1]
         d = self.units // self.heads
@@ -342,9 +385,7 @@ class TransformerLM(DecodeModel):
         bias = torch.where(ar[None, None, :] <= qpos[:, :, None],
                            0.0, -1e9)[:, None]           # (S, 1, C, Lp)
         for i in range(self.layers):
-            qkv = self._dense(x, params['l%d_qkv_w' % i],
-                              params['l%d_qkv_b' % i])
-            q, k, v = qkv.split(self.units, dim=-1)
+            q, k, v = self._qkv(params, i, x, ad)
             write_paged_chunk(pool['l%d_k' % i], k, page_ids, offsets)
             write_paged_chunk(pool['l%d_v' % i], v, page_ids, offsets)
             ck = gather_pages(pool['l%d_k' % i], tables)  # (S, Lp, U)
@@ -358,7 +399,7 @@ class TransformerLM(DecodeModel):
             att = att / att.sum(dim=-1, keepdim=True)
             ctx = torch.matmul(att, vh).permute(0, 2, 1, 3) \
                 .reshape(slots, C, self.units)
-            x = self._attn_out_ffn(params, i, x, ctx)
+            x = self._attn_out_ffn(params, i, x, ctx, ad)
         return pool, self._head(params, x)                # (S, C, V)
 
 

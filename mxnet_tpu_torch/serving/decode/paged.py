@@ -280,7 +280,9 @@ class PrefixCache:
     retired owner's pages stay for later hits until :meth:`evict_lru`
     reclaims them under pool pressure (leaves first, least recently used
     first: a parent page is never freed while a child chains through
-    it). Adapter namespaces are not ported (ROADMAP: "LoRA adapters")."""
+    it). A ``namespace`` (the engine passes the adapter id) roots a
+    disjoint trie: one adapter's K/V rows for the same tokens differ from
+    another's and the base's, so a hit never crosses namespaces."""
 
     def __init__(self, page_size, allocator):
         self.page_size = int(page_size)
@@ -309,14 +311,20 @@ class PrefixCache:
         out = [tuple(prompt[i * ps:(i + 1) * ps]) for i in range(full)]
         return out, tuple(prompt[full * ps:])
 
-    def register(self, prompt, page_ids):
-        """Record ``prompt``'s pages (full chain + partial tail) for later
-        sharers, one allocator ref on each newly registered page.
-        ``page_ids[i]`` holds prompt positions ``[i * ps, (i + 1) *
-        ps)``."""
+    @staticmethod
+    def _root(namespace):
+        """The root parent key of ``namespace``: None keeps the keys of
+        the base; anything else roots a trie of its own."""
+        return None if namespace is None else ('ns', str(namespace))
+
+    def register(self, prompt, page_ids, namespace=None):
+        """Record ``prompt``'s pages (full chain + partial tail) in
+        ``namespace`` for later sharers, one allocator ref on each newly
+        registered page. ``page_ids[i]`` holds prompt positions ``[i * ps,
+        (i + 1) * ps)``."""
         now = self._tick()
         chunks, tail = self._chunks(prompt)
-        parent = None
+        parent = self._root(namespace)
         for i, chunk in enumerate(chunks + ([tail] if tail else [])):
             key = (parent, chunk)
             node = self._nodes.get(key)
@@ -333,15 +341,15 @@ class PrefixCache:
             node.last_used = now
             parent = key
 
-    def lookup(self, prompt):
-        """The longest registered chain covering ``prompt``'s head:
-        ``(page_ids, tokens_covered)``, without taking refs (the engine
-        refs the pages it uses). Full pages chain first; a partial tail
-        matches only the remaining tokens exactly."""
+    def lookup(self, prompt, namespace=None):
+        """The longest registered chain in ``namespace`` covering
+        ``prompt``'s head: ``(page_ids, tokens_covered)``, without taking
+        refs (the engine refs the pages it uses). Full pages chain first;
+        a partial tail matches only the remaining tokens exactly."""
         now = self._tick()
         chunks, tail = self._chunks(prompt)
         pages = []
-        parent = None
+        parent = self._root(namespace)
         covered = 0
         for chunk in chunks:
             node = self._nodes.get((parent, chunk))

@@ -1,14 +1,27 @@
 """DecodeProgram: a decode model bound to its weights, a prompt-length
 bucket ladder and a preallocated slot cache on one device, and
 PagedDecodeProgram over a page pool. The port of
-``mxnet_tpu/serving/decode/program.py`` (greedy decoding).
+``mxnet_tpu/serving/decode/program.py``.
 
 Two calls serve generation:
 
   * :meth:`DecodeProgram.run_prefill` pads a prompt to its bucket, runs
     the whole-prompt pass, lands the KV prefix in one cache slot and
-    returns the first generated token (greedy argmax);
+    returns the first generated token;
   * :meth:`DecodeProgram.run_step` advances every slot one token.
+
+``sample_args`` (default on, ``MXNET_TPU_SERVE_SAMPLE_ARGS``) builds
+temperature / top-p / key sampling (:mod:`.sampling`) into every program
+that emits tokens, as fixed-shape inputs beside its tokens (the
+reference's ``extras``); a row with temperature 0 takes the greedy argmax
+byte for byte. ``logit_mask`` (``MXNET_TPU_SERVE_SAMPLE_MASK``) adds an
+additive (rows, vocab) mask input. ``adapter_spec``
+(:class:`~..adapters.AdapterSpec`) gives the program a device-resident
+adapter pool (:attr:`DecodeProgram.apool`, which an
+:class:`~..adapters.AdapterPool` binds and writes in place) and one pool
+row a slot as an input, so one program serves every resident adapter.
+Greedy and sampled rows, temperatures and adapters change the values in
+the programs' static buffers, never the programs.
 
 :class:`PagedDecodeProgram` takes page ids and page tables in their
 place, and adds ``run_verify`` (speculative decoding) and
@@ -31,8 +44,11 @@ into pinned memory (the logits only with ``emit_logits``). All the
 graphs of a program share one memory pool, and they are bound to the
 cache the program owns: :meth:`~DecodeProgram.new_cache` hands out that
 storage, zeroed in place, never a new one. On the CPU the same bodies run
-uncaptured. The JAX package's artifact save / load and CPU fallback have
-no counterpart here yet (ROADMAP queue A).
+uncaptured. A call's extras (temperatures, top-ps and keys as int32
+bits, the mask, the adapter rows) cross in the same one copy as its ints;
+omitted ones take the neutral values (greedy, no mask, the base). The JAX
+package's artifact save / load and CPU fallback have no counterpart here
+yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -44,12 +60,20 @@ import torch
 from ... import config as _config
 from ...capture import Program
 from ...context import resolve_device
+from ..adapters import AdapterSpec
 from ..bucket import BucketPolicy, default_buckets
 from .cache import cache_bytes, init_cache
 from .model import DecodeModel
 from .paged import TRASH_PAGE, copy_page, init_pool, pages_for, pool_bytes
+from .sampling import sample_tokens
 
 __all__ = ['DecodeProgram', 'PagedDecodeProgram', 'freeze_decode']
+
+# the extras a program may carry: their dtype on the host (each crosses as
+# its int32 bits) and the neutral value an omitted one takes
+_EXTRAS = {'temps': ('float32', 0.0), 'top_ps': ('float32', 1.0),
+           'keys': ('uint32', 0), 'masks': ('float32', 0.0),
+           'aidx': ('int32', 0)}
 
 
 def _as_param(value, device):
@@ -65,10 +89,14 @@ class _Buffers:
     boundary as the kernels ask of their int32 inputs; :meth:`arg`) and
     ``out`` (float32: ``ntok`` tokens as int32 bits, padded to a 16-byte
     boundary, then the logits of ``logit_shape``), their host mirrors
-    (pinned on a card) and the captured program (``prog``)."""
+    (pinned on a card) and the captured program (``prog``). The last
+    inputs are the ``extras`` ((name, shape) each, after the ``len(sizes)
+    - len(extras)`` ints)."""
 
-    def __init__(self, device, sizes, ntok=0, logit_shape=()):
-        self.sizes = list(sizes)
+    def __init__(self, device, sizes, ntok=0, logit_shape=(), extras=()):
+        self.extras = list(extras)
+        self.sizes = list(sizes) + [int(onp.prod(shape))
+                                    for _, shape in extras]
         self.starts = [0]
         for n in self.sizes:
             self.starts.append(self.starts[-1] + -(-n // 4) * 4)
@@ -89,6 +117,17 @@ class _Buffers:
         """Input ``i``'s segment of ``inp`` (viewed as ``shape``)."""
         seg = self.inp[self.starts[i]:self.starts[i] + self.sizes[i]]
         return seg if shape is None else seg.view(shape)
+
+    def extra_args(self):
+        """The extras as tensors viewing ``inp``: float inputs as float32,
+        keys and pool rows as int32."""
+        base = len(self.sizes) - len(self.extras)
+        out = {}
+        for j, (name, shape) in enumerate(self.extras):
+            seg = self.arg(base + j, shape)
+            out[name] = seg.view(torch.float32) \
+                if _EXTRAS[name][0] == 'float32' else seg
+        return out
 
     def pack(self, host, arrays):
         """``arrays``, one an input, into the int32 array ``host``."""
@@ -136,14 +175,20 @@ class DecodeProgram:
     call's logits to the host beside the tokens, as the JAX default does.
     ``capture`` (True) makes each program a CUDA graph on a card; set it
     False before the first call to run the same bodies uncaptured there
-    (the eager reference the replays are held to).
+    (the eager reference the replays are held to). ``sample_args`` /
+    ``logit_mask`` (None: their knobs) and ``adapter_spec`` choose the
+    extras every token-emitting program carries (see the module).
     """
 
     paged = False
     capture = True
+    # verify programs exist on the paged subclass; the extras' key rows
+    # read it
+    spec_k = 0
 
     def __init__(self, model, params, slots=None, prefill_buckets=None,
-                 name=None, emit_logits=True, device=None):
+                 name=None, emit_logits=True, device=None, sample_args=None,
+                 logit_mask=None, adapter_spec=None):
         if not isinstance(model, DecodeModel):
             raise TypeError('DecodeProgram wraps a DecodeModel; got %s'
                             % type(model).__name__)
@@ -172,6 +217,19 @@ class DecodeProgram:
         model.check_params(self.params)
         self._spec = model.cache_spec()
         self.emit_logits = bool(emit_logits)
+        self.sample_args = bool(
+            sample_args if sample_args is not None
+            else _config.get('MXNET_TPU_SERVE_SAMPLE_ARGS'))
+        self.logit_mask = bool(
+            logit_mask if logit_mask is not None
+            else _config.get('MXNET_TPU_SERVE_SAMPLE_MASK'))
+        if self.logit_mask and not self.sample_args:
+            raise ValueError('logit_mask requires sample_args (the mask '
+                             'applies at the sampling point)')
+        self.adapter_spec = adapter_spec
+        # the pool the programs read: static tensors, rows written in place
+        self.apool = None if adapter_spec is None \
+            else adapter_spec.device_tree(self.device)
         self._cache = None
         self._compiled = {}           # key -> _Buffers
         self._lock = threading.Lock()
@@ -224,6 +282,74 @@ class DecodeProgram:
     def max_prompt_len(self):
         return self.policy.max_batch
 
+    # -- the extras: sampling and adapter inputs ----------------------------
+
+    def _extra_shapes(self, kind):
+        """(name, shape) of each extra of a program of ``kind``
+        ('prefill' | 'step' | 'verify'); none without sampling or
+        adapters, the programs then being the greedy ones."""
+        S, V = self.slots, self.model.vocab
+        rows = 1 if kind == 'prefill' else S
+        out = []
+        if self.sample_args:
+            krows = S * (self.spec_k + 1) if kind == 'verify' else rows
+            out += [('temps', (rows,)), ('top_ps', (rows,)),
+                    ('keys', (krows, 2))]
+            if self.logit_mask:
+                out.append(('masks', (rows, V)))
+        if self.adapter_spec is not None:
+            out.append(('aidx', (rows,)))
+        return out
+
+    def _extra_args(self, kind, temps=None, top_ps=None, keys=None,
+                    masks=None, aidx=None):
+        """A call's extras as int32 arrays (float32 and uint32 as their
+        bits), in the order of :meth:`_extra_shapes`; an omitted one takes
+        its neutral value (greedy, no mask, the base adapter)."""
+        given = dict(temps=temps, top_ps=top_ps, keys=keys, masks=masks,
+                     aidx=aidx)
+        out = []
+        for name, shape in self._extra_shapes(kind):
+            dtype, neutral = _EXTRAS[name]
+            v = given[name]
+            a = onp.full(shape, neutral, dtype) if v is None \
+                else onp.asarray(v, dtype).reshape(shape)
+            out.append(a.view('int32'))
+        return out
+
+    def _buffers(self, kind, sizes, ntok, logit_shape):
+        return _Buffers(self.device, sizes, ntok, logit_shape,
+                        self._extra_shapes(kind))
+
+    def _adapters(self, ex, prefill=False):
+        """The adapter view of a call: the pool rows its ``aidx`` selects
+        (2-D at prefill, one a slot after), or None without a pool."""
+        if self.apool is None:
+            return None
+        idx = ex['aidx'].long()
+        if prefill:
+            return {k: (a.index_select(0, idx)[0], b.index_select(0, idx)[0])
+                    for k, (a, b) in self.apool.items()}
+        return {k: (a.index_select(0, idx), b.index_select(0, idx))
+                for k, (a, b) in self.apool.items()}
+
+    def _tokens(self, logits, ex):
+        """The tokens of ``logits`` (..., V): the argmax, or with sampling
+        :func:`~.sampling.sample_tokens` over the rows, each extra's row
+        repeated across a verify chunk."""
+        if not self.sample_args:
+            return torch.argmax(logits, dim=-1)
+        V = logits.shape[-1]
+        rows = logits.reshape(-1, V)
+        rep = rows.shape[0] // ex['temps'].shape[0]
+        masks = ex.get('masks')
+        if masks is not None:
+            masks = masks.repeat_interleave(rep, dim=0)
+        toks = sample_tokens(rows, ex['temps'].repeat_interleave(rep),
+                             ex['top_ps'].repeat_interleave(rep),
+                             ex['keys'], masks)
+        return toks.reshape(logits.shape[:-1])
+
     # -- programs -----------------------------------------------------------
 
     @torch.inference_mode()
@@ -247,7 +373,8 @@ class DecodeProgram:
             def warm():
                 saved = {k: t.clone() for k, t in cache.items()}
                 buf.inp.copy_(torch.as_tensor(buf.pack(
-                    onp.zeros(buf.inp.numel(), 'int32'), dummy),
+                    onp.zeros(buf.inp.numel(), 'int32'),
+                    list(dummy) + [[0] * n for n in buf.sizes[len(dummy):]]),
                     device=self.device))
                 body()
                 for k, t in cache.items():
@@ -280,14 +407,15 @@ class DecodeProgram:
         """Build the prefill program of ``bucket`` (a ladder bucket):
         inputs the padded tokens, the length and the slot."""
         bucket = self._bucket(bucket)
-        buf = _Buffers(self.device, (bucket, 1, 1), 1, (self.model.vocab,))
+        buf = self._buffers('prefill', (bucket, 1, 1), 1, (self.model.vocab,))
         m, p = self.model, self.params
 
         def body():
+            ex = buf.extra_args()
             _, logits = m.prefill(p, self._cache,
                                   buf.arg(0, (1, bucket)).long(), buf.arg(1),
-                                  buf.arg(2))
-            buf.put(torch.argmax(logits, dim=-1), logits)
+                                  buf.arg(2), ad=self._adapters(ex, True))
+            buf.put(self._tokens(logits, ex), logits)
         return self._build('prefill:%d' % bucket, buf, body,
                            [[0] * bucket, [1], [0]])
 
@@ -295,12 +423,14 @@ class DecodeProgram:
         """Build the step program: inputs each slot's token and
         position."""
         S = self.slots
-        buf = _Buffers(self.device, (S, S), S, (S, self.model.vocab))
+        buf = self._buffers('step', (S, S), S, (S, self.model.vocab))
         m, p = self.model, self.params
 
         def body():
-            _, logits = m.step(p, self._cache, buf.arg(0).long(), buf.arg(1))
-            buf.put(torch.argmax(logits, dim=-1), logits)
+            ex = buf.extra_args()
+            _, logits = m.step(p, self._cache, buf.arg(0).long(), buf.arg(1),
+                               ad=self._adapters(ex))
+            buf.put(self._tokens(logits, ex), logits)
         return self._build('step', buf, body, [[0] * S, [0] * S])
 
     def warmup(self, buckets=None):
@@ -323,24 +453,29 @@ class DecodeProgram:
         padded[:n] = tokens
         return padded, n, bucket
 
-    def run_prefill(self, cache, tokens, slot):
+    def run_prefill(self, cache, tokens, slot, **extras):
         """Pad ``tokens`` (1-D int prompt) to its bucket and land the
-        prefix in ``slot``. Returns (cache, first_token int, logits np
-        (V,) | None)."""
+        prefix in ``slot``. The kwargs ``temps``, ``top_ps``, ``keys``,
+        ``masks`` and ``aidx`` are the values of the program's extras (one
+        row; an omitted one greedy, no mask, the base; a program without
+        an extra ignores its kwarg, as the reference's does).
+        Returns (cache, first_token int, logits np (V,) | None)."""
         padded, n, bucket = self._prompt(tokens)
-        toks, logits = self._run('prefill:%d' % bucket,
-                                 lambda: self.compile_prefill(bucket),
-                                 cache, padded, [n], [int(slot)])
+        toks, logits = self._run(
+            'prefill:%d' % bucket, lambda: self.compile_prefill(bucket),
+            cache, padded, [n], [int(slot)],
+            *self._extra_args('prefill', **extras))
         return self._cache, int(toks[0]), \
             None if logits is None else logits.reshape(-1)
 
-    def run_step(self, cache, tokens, positions):
-        """Advance every slot one token. Returns (cache, tokens np
-        (slots,), logits np (slots, V) | None)."""
+    def run_step(self, cache, tokens, positions, **extras):
+        """Advance every slot one token (the extras a row a slot). Returns
+        (cache, tokens np (slots,), logits np (slots, V) | None)."""
         S = self.slots
         toks, logits = self._run(
             'step', self.compile_step, cache,
-            onp.asarray(tokens).reshape(S), onp.asarray(positions).reshape(S))
+            onp.asarray(tokens).reshape(S), onp.asarray(positions).reshape(S),
+            *self._extra_args('step', **extras))
         return self._cache, toks, logits
 
 
@@ -368,13 +503,16 @@ class PagedDecodeProgram(DecodeProgram):
 
     def __init__(self, model, params, slots=None, prefill_buckets=None,
                  name=None, emit_logits=True, device=None, page_size=None,
-                 pages=None, spec_k=None):
+                 pages=None, spec_k=None, sample_args=None, logit_mask=None,
+                 adapter_spec=None):
         if not getattr(model, 'supports_paging', False):
             raise TypeError('family %r does not support a paged cache; use '
                             'DecodeProgram' % (model.family,))
         super().__init__(model, params, slots=slots,
                          prefill_buckets=prefill_buckets, name=name,
-                         emit_logits=emit_logits, device=device)
+                         emit_logits=emit_logits, device=device,
+                         sample_args=sample_args, logit_mask=logit_mask,
+                         adapter_spec=adapter_spec)
         self.page_size = int(
             page_size if page_size is not None
             else _config.get('MXNET_TPU_SERVE_PAGE_SIZE'))
@@ -418,15 +556,17 @@ class PagedDecodeProgram(DecodeProgram):
         tokens, the length and the bucket's page ids."""
         bucket = self._bucket(bucket)
         npages = pages_for(bucket, self.page_size)
-        buf = _Buffers(self.device, (bucket, 1, npages), 1,
-                       (self.model.vocab,))
+        buf = self._buffers('prefill', (bucket, 1, npages), 1,
+                            (self.model.vocab,))
         m, p = self.model, self.params
 
         def body():
+            ex = buf.extra_args()
             _, logits = m.paged_prefill(p, self._cache,
                                         buf.arg(0, (1, bucket)).long(),
-                                        buf.arg(1), buf.arg(2).long())
-            buf.put(torch.argmax(logits, dim=-1), logits)
+                                        buf.arg(1), buf.arg(2).long(),
+                                        ad=self._adapters(ex, True))
+            buf.put(self._tokens(logits, ex), logits)
         return self._build('prefill:%d' % bucket, buf, body,
                            [[0] * bucket, [1], [TRASH_PAGE] * npages])
 
@@ -434,13 +574,15 @@ class PagedDecodeProgram(DecodeProgram):
         """Build the paged step program: inputs each slot's token,
         position and page table."""
         S, P, V = self.slots, self.max_pages, self.model.vocab
-        buf = _Buffers(self.device, (S, S, S * P), S, (S, V))
+        buf = self._buffers('step', (S, S, S * P), S, (S, V))
         m, p = self.model, self.params
 
         def body():
+            ex = buf.extra_args()
             _, logits = m.paged_step(p, self._cache, buf.arg(0).long(),
-                                     buf.arg(1), buf.arg(2, (S, P)))
-            buf.put(torch.argmax(logits, dim=-1), logits)
+                                     buf.arg(1), buf.arg(2, (S, P)),
+                                     ad=self._adapters(ex))
+            buf.put(self._tokens(logits, ex), logits)
         return self._build('step', buf, body, [[0] * S, [0] * S,
                                                [TRASH_PAGE] * (S * P)])
 
@@ -451,14 +593,16 @@ class PagedDecodeProgram(DecodeProgram):
             raise ValueError('verify program needs spec_k > 0')
         S, P, V, C = self.slots, self.max_pages, self.model.vocab, \
             self.spec_k + 1
-        buf = _Buffers(self.device, (S * C, S, S * P), S * C, (S, C, V))
+        buf = self._buffers('verify', (S * C, S, S * P), S * C, (S, C, V))
         m, p = self.model, self.params
 
         def body():
+            ex = buf.extra_args()
             _, logits = m.paged_verify(p, self._cache,
                                        buf.arg(0, (S, C)).long(), buf.arg(1),
-                                       buf.arg(2, (S, P)))
-            buf.put(torch.argmax(logits, dim=-1), logits)
+                                       buf.arg(2, (S, P)),
+                                       ad=self._adapters(ex))
+            buf.put(self._tokens(logits, ex), logits)
         return self._build('verify:%d' % C, buf, body,
                            [[0] * (S * C), [0] * S, [TRASH_PAGE] * (S * P)])
 
@@ -485,11 +629,11 @@ class PagedDecodeProgram(DecodeProgram):
 
     # -- execution ----------------------------------------------------------
 
-    def run_prefill(self, pool, tokens, page_ids):
+    def run_prefill(self, pool, tokens, page_ids, **extras):
         """Pad ``tokens`` to its bucket and write its K/V into the
         host-allocated ``page_ids`` (padded with the trash page to the
-        bucket's page count). Returns (pool, first_token int, logits np
-        (V,) | None)."""
+        bucket's page count); the extras as the slot program takes them.
+        Returns (pool, first_token int, logits np (V,) | None)."""
         padded, n, bucket = self._prompt(tokens)
         npages = pages_for(bucket, self.page_size)
         ids = list(page_ids)
@@ -498,7 +642,8 @@ class PagedDecodeProgram(DecodeProgram):
                              % (len(ids), npages))
         toks, logits = self._run(
             'prefill:%d' % bucket, lambda: self.compile_prefill(bucket),
-            pool, padded, [n], ids + [TRASH_PAGE] * (npages - len(ids)))
+            pool, padded, [n], ids + [TRASH_PAGE] * (npages - len(ids)),
+            *self._extra_args('prefill', **extras))
         return self._cache, int(toks[0]), \
             None if logits is None else logits.reshape(-1)
 
@@ -506,28 +651,33 @@ class PagedDecodeProgram(DecodeProgram):
         return onp.asarray(tables, 'int32').reshape(self.slots,
                                                     self.max_pages)
 
-    def run_step(self, pool, tokens, positions, tables):
+    def run_step(self, pool, tokens, positions, tables, **extras):
         """Advance every slot one token through its page table (tokens,
-        positions and tables cross to the device in one copy). Returns
-        (pool, tokens np (slots,), logits np (slots, V) | None)."""
+        positions, tables and the extras cross to the device in one
+        copy). Returns (pool, tokens np (slots,), logits np (slots, V) |
+        None)."""
         toks, logits = self._run(
             'step', self.compile_step, pool,
             onp.asarray(tokens).reshape(self.slots),
-            onp.asarray(positions).reshape(self.slots), self._tables(tables))
+            onp.asarray(positions).reshape(self.slots), self._tables(tables),
+            *self._extra_args('step', **extras))
         return self._cache, toks, logits
 
-    def run_verify(self, pool, tokens, positions, tables):
+    def run_verify(self, pool, tokens, positions, tables, **extras):
         """The speculative verify: (slots, spec_k + 1) tokens in, the
-        target's greedy token at each of them out, K/V rows written for
-        every position (rejected rows stay masked until overwritten).
-        Returns (pool, tokens np (slots, spec_k + 1), logits | None)."""
+        target's token at each of them out, K/V rows written for every
+        position (rejected rows stay masked until overwritten). ``keys``
+        is (slots, spec_k + 1, 2), the keys of the chunk's positions; the
+        other extras are a row a slot, repeated across the chunk. Returns
+        (pool, tokens np (slots, spec_k + 1), logits | None)."""
         if not self.spec_k:
             raise ValueError('the verify pass needs spec_k > 0')
         C = self.spec_k + 1
         toks, logits = self._run(
             'verify:%d' % C, self.compile_verify, pool,
             onp.asarray(tokens).reshape(self.slots, C),
-            onp.asarray(positions).reshape(self.slots), self._tables(tables))
+            onp.asarray(positions).reshape(self.slots), self._tables(tables),
+            *self._extra_args('verify', **extras))
         return self._cache, toks.reshape(self.slots, C), logits
 
     def run_copy_page(self, pool, src, dst):
@@ -541,7 +691,8 @@ class PagedDecodeProgram(DecodeProgram):
 def freeze_decode(model, params=None, slots=None, prefill_buckets=None,
                   max_len=None, name=None, emit_logits=True, paged=None,
                   page_size=None, pages=None, spec_k=None, adapter_rank=None,
-                  sample_args=None, logit_mask=None, device=None):
+                  sample_args=None, logit_mask=None, adapter_slots=None,
+                  device=None):
     """Bind a :class:`~.model.DecodeModel` and its ``params`` into a
     program on ``device`` (default cuda): a :class:`PagedDecodeProgram`
     when ``paged`` (None: ``MXNET_TPU_SERVE_PAGED``, default True, for a
@@ -550,11 +701,13 @@ def freeze_decode(model, params=None, slots=None, prefill_buckets=None,
     configure the pool and the speculative verify
     (``MXNET_TPU_SERVE_PAGE_SIZE`` / ``_PAGES`` / ``_SPEC_K``).
 
-    The port decodes greedily. Asking for what it does not serve yet
-    raises ``NotImplementedError`` naming the ROADMAP item, rather than
-    serving another configuration: ``adapter_rank`` (LoRA adapters), or
-    ``sample_args`` / ``logit_mask`` (sampling). ``max_len``, if given,
-    must equal the model's (the cache length is the model's max_len).
+    ``adapter_rank`` > 0 (``MXNET_TPU_SERVE_ADAPTER_RANK``) builds an
+    adapter pool of ``adapter_slots`` rows (``MXNET_TPU_SERVE_ADAPTER_SLOTS``,
+    the base row included) into every program, for a family with
+    ``lora_targets``; ``sample_args`` / ``logit_mask`` (None: their knobs,
+    sampling on by default) choose the sampling inputs (see
+    :class:`DecodeProgram`). ``max_len``, if given, must equal the model's
+    (the cache length is the model's max_len).
     """
     if not isinstance(model, DecodeModel):
         raise TypeError('freeze_decode takes a DecodeModel + params; '
@@ -562,13 +715,18 @@ def freeze_decode(model, params=None, slots=None, prefill_buckets=None,
                         'family (ROADMAP)')
     if params is None:
         raise ValueError('params required when freezing a DecodeModel')
-    if adapter_rank:
-        raise NotImplementedError(
-            'LoRA adapters are not ported yet (ROADMAP: "LoRA adapters")')
-    if sample_args or logit_mask:
-        raise NotImplementedError(
-            'sampled decoding is not ported yet (ROADMAP: "sampling on a '
-            'torch.Generator"); the port decodes greedily')
+    if adapter_rank is None:
+        adapter_rank = _config.get('MXNET_TPU_SERVE_ADAPTER_RANK') or 0
+    adapter_spec = None
+    if adapter_rank > 0:
+        if not hasattr(model, 'lora_targets'):
+            raise TypeError('family %r has no LoRA targets: adapter_rank > 0 '
+                            'needs a model exposing lora_targets()'
+                            % (model.family,))
+        if adapter_slots is None:
+            adapter_slots = _config.get('MXNET_TPU_SERVE_ADAPTER_SLOTS')
+        adapter_spec = AdapterSpec.for_model(model, int(adapter_rank),
+                                             int(adapter_slots))
     if max_len is not None and int(max_len) != model.max_len:
         raise ValueError('max_len %d differs from the model\'s %d (the '
                          'slot cache length is the model\'s max_len)'
@@ -580,7 +738,11 @@ def freeze_decode(model, params=None, slots=None, prefill_buckets=None,
         return PagedDecodeProgram(
             model, params, slots=slots, prefill_buckets=prefill_buckets,
             name=name, emit_logits=emit_logits, device=device,
-            page_size=page_size, pages=pages, spec_k=spec_k)
+            page_size=page_size, pages=pages, spec_k=spec_k,
+            sample_args=sample_args, logit_mask=logit_mask,
+            adapter_spec=adapter_spec)
     return DecodeProgram(model, params, slots=slots,
                          prefill_buckets=prefill_buckets, name=name,
-                         emit_logits=emit_logits, device=device)
+                         emit_logits=emit_logits, device=device,
+                         sample_args=sample_args, logit_mask=logit_mask,
+                         adapter_spec=adapter_spec)

@@ -14,7 +14,9 @@ Two modes, chosen by the program:
   * a :class:`~.decode.DecodeProgram` (slot or paged) goes to the
     continuous-batching :class:`~.decode.engine.DecodeEngine`
     (:meth:`InferenceSession.generate`); ``draft=`` (a slot program)
-    turns on speculative decoding for a paged program with ``spec_k > 0``.
+    turns on speculative decoding for a paged program with ``spec_k > 0``,
+    and ``adapters=`` (an ``AdapterRegistry`` or an artifact root) backs the
+    adapter ids of a program built with an adapter pool.
 
 Knob defaults come from ``MXNET_TPU_SERVE_*`` (``mxnet_tpu_torch/config.py``);
 constructor arguments win. Arguments of the other mode are ignored, as in
@@ -51,7 +53,8 @@ class InferenceSession:
 
     def __init__(self, program, max_batch=None, deadline_ms=None,
                  max_queue=None, timeout_s=None, name=None,
-                 max_new_tokens=None, prefill_interleave=None, draft=None):
+                 max_new_tokens=None, prefill_interleave=None, draft=None,
+                 adapters=None):
         self.name = name or getattr(program, 'name', None)
         max_queue = int(_pick(max_queue, 'MXNET_TPU_SERVE_QUEUE_DEPTH'))
         timeout_s = float(_pick(timeout_s, 'MXNET_TPU_SERVE_TIMEOUT_S'))
@@ -64,7 +67,7 @@ class InferenceSession:
                 prefill_interleave=int(_pick(
                     prefill_interleave,
                     'MXNET_TPU_SERVE_PREFILL_INTERLEAVE')),
-                name=self.name, draft=draft)
+                name=self.name, draft=draft, adapters=adapters)
             self.program = program
             return
         if not isinstance(program, FrozenProgram):
@@ -123,15 +126,22 @@ class InferenceSession:
 
     # -- generation --------------------------------------------------------
 
-    def generate(self, tokens, max_new_tokens=None, eos_id=None):
+    def generate(self, tokens, max_new_tokens=None, eos_id=None,
+                 adapter=None, temperature=None, top_p=None, seed=None):
         """Stream a generation: returns a
         :class:`~.decode.engine.GenerateStream` (iterate per token, or
-        ``.result(timeout)`` for the whole sequence)."""
+        ``.result(timeout)`` for the whole sequence). ``adapter`` picks the
+        adapter and ``temperature`` / ``top_p`` / ``seed`` the sampling law
+        (the engine's defaults: the base, greedy)."""
         if self._engine is None:
             raise TypeError('generate() needs a DecodeProgram session (use '
                             'serving.freeze_decode)')
-        return self._engine.generate(tokens, max_new_tokens=max_new_tokens,
-                                     eos_id=eos_id)
+        kwargs = {'max_new_tokens': max_new_tokens, 'eos_id': eos_id}
+        for key, value in (('adapter', adapter), ('temperature', temperature),
+                           ('top_p', top_p), ('seed', seed)):
+            if value is not None:
+                kwargs[key] = value
+        return self._engine.generate(tokens, **kwargs)
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -124,9 +124,26 @@ def test_params_from_jax_checks_names_and_shapes(models):
                                     dict(sample_args=True),
                                     dict(logit_mask=True)])
 def test_freeze_decode_refuses_unported_configurations(models, kwargs):
-    _jm, np_params, pmodel, _pp = models
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        port.freeze_decode(pmodel, np_params, device='cpu', **kwargs)
+    """Adapters, sampling and the logit mask were refused until they were
+    ported; now each builds the program the JAX package's freeze_decode
+    builds (the other two read from their knobs), with the same extras."""
+    from mxnet_tpu.serving.decode.program import \
+        freeze_decode as jax_freeze_decode
+    jmodel, np_params, pmodel, _pp = models
+    args = dict(kwargs, prefill_buckets=(4, 8))
+    jprog = jax_freeze_decode(jmodel, np_params, **args)
+    pprog = port.freeze_decode(pmodel, np_params, device='cpu', **args)
+    assert (pprog.sample_args, pprog.logit_mask) == \
+        (jprog.sample_args, jprog.logit_mask)
+    if jprog.adapter_spec is None:
+        assert pprog.adapter_spec is None and pprog.apool is None
+        return
+    assert pprog.adapter_spec.to_manifest() == \
+        jprog.adapter_spec.to_manifest()
+    assert {k: (tuple(a.shape), tuple(b.shape))
+            for k, (a, b) in pprog.apool.items()} == \
+        {k: (a.shape, b.shape)
+         for k, (a, b) in jprog.adapter_spec.zero_tree().items()}
 
 
 @pytest.mark.parametrize('paged', [True, None, False])

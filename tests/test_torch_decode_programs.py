@@ -292,3 +292,42 @@ def test_captured_programs_equal_eager_bodies_on_card(kind):
     assert runs[True][1]['flash_attention_fwd'] == layers * (
         c['prefills'] + (c['prefills'] + c['prefix_hits']
                          if kind == 'spec' else 0))
+
+
+@pytest.mark.cuda
+def test_captured_sampling_and_adapters_equal_eager_on_card():
+    """A paged program with sampling and an adapter pool: a mix of greedy
+    and sampled requests on the base and on two adapters, captured and
+    uncaptured, the same tokens and launches; the noise kernel's uniforms
+    bitwise its plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the programs are CUDA graphs over '
+                    'kernels built for sm_90a')
+    from mxnet_tpu_torch.ops.kernels import sampling as noise
+    from mxnet_tpu_torch.serving import adapters
+    from mxnet_tpu_torch.serving.decode import init_transformer_lm
+    keys = torch.arange(16, dtype=torch.int32, device='cuda').view(8, 2)
+    assert torch.equal(noise.threefry_gumbel(keys, 30522, uniform=True),
+                       noise.threefry_gumbel_reference(keys, 30522,
+                                                       uniform=True))
+    pmodel, np_params = init_transformer_lm(**dict(CFG, units=128, heads=2))
+    runs = {}
+    for capture in (True, False):
+        prog = freeze_decode(pmodel, np_params, slots=2,
+                             prefill_buckets=BUCKETS, page_size=8,
+                             adapter_rank=4, adapter_slots=3)
+        prog.capture = capture
+        reg = adapters.AdapterRegistry(adapters.AdapterPool(
+            prog.adapter_spec))
+        for i in range(2):
+            reg.register('ad%d' % i, adapters.init_adapter(
+                pmodel, 4, seed=i, scale=50.0))
+        with DecodeEngine(prog, timeout_s=60, adapters=reg) as eng:
+            kernels.reset_launch_counts()
+            outs = [eng.generate([7, 2, 9, 4], max_new_tokens=6,
+                                 adapter=(None, 'ad0', 'ad1')[i % 3],
+                                 temperature=0.8 * (i % 2), top_p=0.9,
+                                 seed=i).result(60) for i in range(6)]
+            runs[capture] = (outs, kernels.launch_counts())
+    assert runs[True] == runs[False]
+    assert runs[True][1]['threefry_gumbel'] > 0

@@ -673,11 +673,11 @@ class _FailingProgram:
     def __getattr__(self, name):
         return getattr(self._prog, name)
 
-    def run_step(self, *args):
+    def run_step(self, *args, **extras):
         self._n += 1
         if self._n == self.fail_at:
             raise RuntimeError('device lost')
-        return self._prog.run_step(*args)
+        return self._prog.run_step(*args, **extras)
 
 
 def test_failed_step_fails_streams_and_rebuilds_the_pool():
