@@ -175,7 +175,38 @@ Phases, in order; any failure exits non-zero:
      perturbed scores lie within 1e-4; a program with the logit mask
      emitting no odd token id under a mask that forbids them; and the
      replayed step without extras, with sampling and with sampling and
-     adapters, in turns;
+     adapters, in turns. Every healthy serving run (3, 3p, 3s, 3a and 6b)
+     ends by asserting zero degradation: the session's breaker closed,
+     no token from the CPU fallback (one-shot: no fallback batch) and no
+     stream marked degraded. 3f: the degraded path on the card, at the
+     slice's width through the paged default with sampling: 8 requests
+     (3p's first 8 prompts; 4 greedy, 4 sampled at temperature 0.8,
+     top-p 0.95, seeds 0-7) of 16 tokens served healthy, then in a fresh
+     session each under a scripted fault (``MXNET_TPU_FAULT``, set only
+     here and unset in a ``finally`` that lets a failure through): (a)
+     ``device_loss@serving.decode.17`` once, after every prefill and at
+     least 2 steps: every stream completes degraded with the healthy
+     tokens (where one differs, at a near-tie of the teacher-forced
+     margin, counted), fallback tokens counted, ``retired['degraded']``
+     8, the pool all free, no program built, and a clean request on the
+     card after; (b) ``device_unavailable@serving.decode:3`` under a
+     breaker of 3 failures and a 2 s reset: the breaker opens, the
+     requests it refuses complete on the CPU, the half-open probe runs on
+     the card and closes it (the time from the trip to the first card
+     token printed); (c) ``worker_crash@serving.decode.17`` once: the
+     streams fail with ``WorkerCrashError``, their slots free, the next
+     request clean; (d) ``hang@serving.decode.17`` once: the stall
+     artifact (``mxnet_tpu.stall.v1``, phase ``decode``) written and the
+     streams degraded with the healthy tokens; after 6b, (e) 6b's frozen
+     SSD-300 serves 2 images under ``device_loss@serving:1``: the batch
+     re-served by ``run_fallback``, byte for byte its host block's
+     output, whose heads are the card's within 6a's tolerance; the host
+     detection of the card's heads and the served rows both keep the
+     card's rows, every one (6a's matching; no slack excuses a
+     difference), ``status()`` degraded, then ok after a clean batch. The
+     card-side launches of 3f are exact and listed as ``degraded
+     serving``; the CPU ms a degraded token and 3f's seconds are
+     printed;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -2516,6 +2547,24 @@ def time_step(torch, prog, cache, args, iters=20):
         torch, lambda: prog.run_step(cache, *args), DECODE_GROUPS)
 
 
+def assert_healthy(phase, sess, streams=()):
+    """A healthy serving run degraded nothing: the session reads ``ok``
+    with its breaker closed, no token came from the CPU fallback (a
+    one-shot session: no fallback batch) and no stream is marked
+    degraded. Returns the status record."""
+    st = sess.status()
+    fallback = st['decode']['counts']['fallback_tokens'] \
+        if st['mode'] == 'decode' else st['batches']['fallback']
+    degraded = [i for i, s in enumerate(streams) if s.degraded]
+    if st['status'] != 'ok' or st['breaker'] != 'closed' or fallback \
+            or degraded:
+        raise AssertionError('%s: a healthy run degraded: status %s, breaker '
+                             '%s, %d fallback, degraded streams %s, error %s'
+                             % (phase, st['status'], st['breaker'], fallback,
+                                degraded, st['error']))
+    return st
+
+
 def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
           buckets=BUCKETS, requests=REQUESTS, new_tokens=NEW_TOKENS,
           prompt_range=(8, 256), recheck=2, seed=0, paged=False,
@@ -2570,6 +2619,7 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         launches = kernels.launch_counts()
         stats = sess.stats()
         after = stats['counts']
+        assert_healthy(phase, sess, streams)
     if prog.compile_count != len(seconds):
         raise AssertionError('%s: a request built a program (%d after the '
                              'run, %d after warmup)' % (
@@ -2745,6 +2795,7 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
             wall = time.perf_counter() - t1
             launches = kernels.launch_counts()
             stats = sess.stats()
+            assert_healthy('phase 3s %s' % run, sess, streams)
         if prog.compile_count + (draft.compile_count if draft else 0) \
                 != len(seconds):
             raise AssertionError('phase 3s %s: a request built a program'
@@ -2849,12 +2900,15 @@ def adapter_requests(cfg, requests=REQUESTS, extra=EXTRA_PROMPTS,
 
 
 def generate_all(sess, reqs, new_tokens):
-    """Every request of ``reqs`` through ``sess`` at once; their tokens."""
+    """Every request of ``reqs`` through ``sess`` at once; their tokens.
+    A healthy run: no stream may come back degraded."""
     streams = [sess.generate(r['prompt'], max_new_tokens=new_tokens,
                              adapter=r['adapter'],
                              temperature=r['temperature'], top_p=r['top_p'],
                              seed=r['seed']) for r in reqs]
-    return [s.result(600) for s in streams]
+    outs = [s.result(600) for s in streams]
+    assert_healthy('phase 3a', sess, streams)
+    return outs
 
 
 def perturbed_margin(torch, model, params, registry, req, out, t, device):
@@ -3118,6 +3172,414 @@ def serve_adapters(torch, serving, kernels, device, base_outs, cfg=SLICE,
                for k in KINDS},
         greedy_base=greedy_base, acceptance=acceptance, spec_ties=ties,
         masked_tokens=int(masked.size), step=step)
+
+
+# -- phase 3f: the degraded path ----------------------------------------------
+
+DEGRADED_REQUESTS = 8
+DEGRADED_TOKENS = 16
+DEGRADED_TOP_P = 0.95
+# the device op the mid-stream faults fire at: after the 8 prefills and at
+# least 2 steps however the engine interleaves them (at worst one prefill
+# and one step a tick: the last prefill is op 14), before any stream ends
+# (a stream needs 15 steps)
+TRIP_OP = 2 * DEGRADED_REQUESTS + 1
+BREAKER_RESET_S = 2.0
+
+
+def degraded_requests(cfg, seed=0):
+    """Phase 3p's first 8 prompts (:func:`serve`'s draws), request i
+    greedy when i is even, else sampled at ``SAMPLE_TEMP`` / top-p
+    ``DEGRADED_TOP_P``; seed i."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(8, 257, size=REQUESTS)
+    prompts = [rs.randint(0, cfg['vocab'], size=n).tolist() for n in lens]
+    return [dict(prompt=p, adapter=None, seed=i,
+                 temperature=SAMPLE_TEMP if i % 2 else 0.0,
+                 top_p=DEGRADED_TOP_P if i % 2 else 1.0)
+            for i, p in enumerate(prompts[:DEGRADED_REQUESTS])]
+
+
+def submit(sess, reqs):
+    return [sess.generate(r['prompt'], max_new_tokens=DEGRADED_TOKENS,
+                          temperature=r['temperature'], top_p=r['top_p'],
+                          seed=r['seed']) for r in reqs]
+
+
+def near_ties(torch, model, params, reqs, outs, want, device, sub):
+    """Each stream of ``outs`` against its healthy tokens ``want``: at
+    the first token that differs, the teacher-forced margin over the
+    prompt and the healthy tokens before it (the top-2 logit gap of a
+    greedy stream, the top-2 perturbed scores of a sampled one,
+    :func:`perturbed_margin`) must lie below ``TIE``. Returns the near
+    ties [(request, token, gap)]."""
+    ties = []
+    for i, (req, got, ref) in enumerate(zip(reqs, outs, want)):
+        if len(got) != len(ref):
+            raise AssertionError('phase 3f %s: request %d has %d tokens, '
+                                 'healthy %d' % (sub, i, len(got), len(ref)))
+        t = next((t for t, (a, b) in enumerate(zip(got, ref)) if a != b),
+                 None)
+        if t is None:
+            continue
+        if req['temperature'] > 0:
+            gap = perturbed_margin(torch, model, params, None, req, ref, t,
+                                   device)
+        else:
+            with torch.inference_mode():
+                toks = torch.tensor([req['prompt'] + ref[:t]], device=device)
+                top2 = torch.topk(model.full_forward(params, toks)[0, -1],
+                                  2).values
+            gap = float(top2[0] - top2[1])
+        if not gap < TIE:
+            raise AssertionError('phase 3f %s: request %d token %d is %d '
+                                 'degraded, %d healthy, and the margin %.3g '
+                                 'is no tie' % (sub, i, t, got[t], ref[t],
+                                                gap))
+        ties.append((i, t, gap))
+    return ties
+
+
+def wait_until(cond, what, budget=120.0):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > budget:
+            raise AssertionError('phase 3f: %s not within %.0f s'
+                                 % (what, budget))
+        time.sleep(0.005)
+
+
+def serve_degraded(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
+                   buckets=BUCKETS):
+    """Phase 3f (a)-(d): the degraded path of the decode engine on the
+    card (see the module). Each sub-check runs in a fresh session over the
+    one program (the op numbering starts at 0) with ``MXNET_TPU_FAULT``
+    set, and unset in a ``finally`` that lets a failure through. Returns
+    a dict of results: per sub-check the degraded streams and tokens, the
+    near ties, the CPU seconds, the breaker's states; the card-side
+    launches; the CPU ms of a degraded token."""
+    import tempfile
+    from mxnet_tpu_torch.resilience import (CircuitBreaker, WorkerCrashError,
+                                            stall_record)
+    t_phase = time.perf_counter()
+    model, params = serving.init_transformer_lm(seed=0, **cfg)
+    prog = serving.freeze_decode(model, params, slots=slots,
+                                 prefill_buckets=buckets, sample_args=True,
+                                 device=device)
+    if not (prog.paged and prog.page_size == PAGE_SIZE and prog.capture):
+        raise AssertionError('phase 3f: not the captured paged default')
+    del params
+    reqs = degraded_requests(cfg)
+    res = {'subchecks': {}}
+    cards = []       # (counts before, counts after) of every session
+    # (row, outputs, sub-check): their near ties are looked for on the
+    # card after its launches are read, since a teacher-forced margin
+    # launches the attention kernel
+    tie_checks = []
+
+    def session(**kw):
+        return serving.InferenceSession(prog, timeout_s=600,
+                                        max_new_tokens=DEGRADED_TOKENS, **kw)
+
+    def counted(sess, before):
+        cards.append((before, sess.stats()['counts']))
+
+    kernels.reset_launch_counts()
+    with session() as sess:
+        built = check_programs('phase 3f', prog, program_set(buckets, True),
+                               True)
+        before = sess.stats()['counts']
+        streams = submit(sess, reqs)
+        healthy = [s.result(600) for s in streams]
+        assert_healthy('phase 3f healthy', sess, streams)
+        counted(sess, before)
+
+    def clean(sess, sub, i=0):
+        """A clean request after the fault: on the card, its healthy
+        tokens, not degraded."""
+        s = submit(sess, reqs[i:i + 1])[0]
+        if s.result(600) != healthy[i] or s.degraded:
+            raise AssertionError('phase 3f %s: the clean request after the '
+                                 'fault is not the healthy one on the card'
+                                 % sub)
+        return s
+
+    def degraded_run(sub, spec, **kw):
+        os.environ['MXNET_TPU_FAULT'] = spec
+        try:
+            with session(**kw) as sess:
+                before = sess.stats()['counts']
+                t0 = time.perf_counter()
+                streams = submit(sess, reqs)
+                outs = [s.result(600) for s in streams]
+                wall = time.perf_counter() - t0
+                st = sess.stats()
+                os.environ.pop('MXNET_TPU_FAULT')
+                if st['free_slots'] != slots or st['pages']['pages_used']:
+                    raise AssertionError('phase 3f %s: the pool is not all '
+                                         'free after the trip: %r'
+                                         % (sub, st['pages']))
+                clean(sess, sub)
+                counted(sess, before)
+                after = sess.status()
+        finally:
+            os.environ.pop('MXNET_TPU_FAULT', None)
+        if not all(s.degraded for s in streams):
+            raise AssertionError('phase 3f %s: streams %s not degraded'
+                                 % (sub, [i for i, s in enumerate(streams)
+                                          if not s.degraded]))
+        c = st['counts']
+        row = dict(spec=spec, fallback_tokens=c['fallback_tokens'],
+                   retired=c['retired'], wall_s=wall,
+                   breaker_after_trip=st['breaker'],
+                   status_after_clean=after['status'],
+                   breaker_after_clean=after['breaker'])
+        if not c['fallback_tokens'] > 0 or after['status'] != 'ok' \
+                or after['breaker'] != 'closed':
+            raise AssertionError('phase 3f %s: %r' % (sub, row))
+        tie_checks.append((row, outs, sub))
+        return row, st
+
+    # (a) a lost step: every in-flight stream completes on the CPU
+    spec = 'device_loss@serving.decode.%d:1' % TRIP_OP
+    row, st = degraded_run('(a)', spec)
+    if row['retired'].get('degraded') != DEGRADED_REQUESTS:
+        raise AssertionError('phase 3f (a): retired %r, expected %d degraded'
+                             % (row['retired'], DEGRADED_REQUESTS))
+    res['subchecks']['a'] = row
+
+    # (b) the breaker opens: refused calls complete on the CPU; the
+    # half-open probe runs on the card and closes it
+    breaker = CircuitBreaker(3, BREAKER_RESET_S)
+    states = [breaker.state]
+    os.environ['MXNET_TPU_FAULT'] = 'device_unavailable@serving.decode:3'
+    try:
+        with session(breaker=breaker) as sess:
+            before = sess.stats()['counts']
+            t_trip = time.perf_counter()
+            streams = submit(sess, reqs)
+            wait_until(lambda: breaker.state == 'open', 'the breaker open')
+            states.append(breaker.state)
+            wait_until(lambda: breaker.state == 'half-open',
+                       'the breaker half-open')
+            states.append(breaker.state)
+            t_rec = time.perf_counter()
+            probe = submit(sess, reqs[1:2])[0]
+            probe_out = probe.result(600)
+            first_card_s = t_rec + probe.ttft_s - t_trip
+            states.append(breaker.state)
+            outs = [s.result(600) for s in streams]
+            wall = time.perf_counter() - t_trip
+            st = sess.stats()
+            counted(sess, before)
+    finally:
+        os.environ.pop('MXNET_TPU_FAULT', None)
+    c = st['counts']
+    if states != ['closed', 'open', 'half-open', 'closed'] \
+            or probe.degraded or probe_out != healthy[1] \
+            or not all(s.degraded for s in streams) \
+            or c['fallback_tokens'] != sum(len(o) for o in outs):
+        raise AssertionError('phase 3f (b): breaker states %s, probe degraded '
+                             '%s, probe healthy %s, degraded %s, fallback '
+                             'tokens %d' % (states, probe.degraded,
+                                            probe_out == healthy[1],
+                                            [s.degraded for s in streams],
+                                            c['fallback_tokens']))
+    res['subchecks']['b'] = dict(
+        spec='device_unavailable@serving.decode:3', states=states,
+        fallback_tokens=c['fallback_tokens'], retired=c['retired'],
+        wall_s=wall, trip_to_card_token_s=first_card_s)
+    tie_checks.append((res['subchecks']['b'], outs, '(b)'))
+
+    # (c) a worker crash: the streams fail typed, their slots free
+    spec = 'worker_crash@serving.decode.%d:1' % TRIP_OP
+    os.environ['MXNET_TPU_FAULT'] = spec
+    try:
+        with session() as sess:
+            before = sess.stats()['counts']
+            streams = submit(sess, reqs)
+            errors = []
+            for s in streams:
+                try:
+                    s.result(600)
+                    errors.append(None)
+                except WorkerCrashError as exc:
+                    errors.append(type(exc).__name__)
+            os.environ.pop('MXNET_TPU_FAULT')
+            wait_until(lambda: sess.stats()['free_slots'] == slots,
+                       'the slots free after the crash')
+            st = sess.stats()
+            clean(sess, '(c)', 1)
+            counted(sess, before)
+    finally:
+        os.environ.pop('MXNET_TPU_FAULT', None)
+    c = st['counts']
+    if errors != ['WorkerCrashError'] * DEGRADED_REQUESTS \
+            or any(s.degraded for s in streams) or c['fallback_tokens'] \
+            or c['retired'].get('aborted') != DEGRADED_REQUESTS:
+        raise AssertionError('phase 3f (c): errors %s, retired %r, fallback '
+                             'tokens %d' % (errors, c['retired'],
+                                            c['fallback_tokens']))
+    res['subchecks']['c'] = dict(spec=spec, retired=c['retired'],
+                                 errors=errors, tokens_before=[
+                                     len(s.tokens) for s in streams])
+
+    # (d) a stall: the watchdog's artifact, the streams degraded
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_stall_')
+    artifact = os.path.join(tmp, 'STALL.json')
+    try:
+        spec = 'hang@serving.decode.%d:1' % TRIP_OP
+        row, st = degraded_run('(d)', spec, stall_artifact=artifact)
+        with open(artifact) as f:
+            art = json.load(f)
+    finally:
+        for name in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    if row['retired'].get('degraded') != DEGRADED_REQUESTS:
+        raise AssertionError('phase 3f (d): retired %r, expected %d degraded'
+                             % (row['retired'], DEGRADED_REQUESTS))
+    keys = sorted(stall_record('decode', 0, 0.0, 0.0))
+    if art['schema'] != 'mxnet_tpu.stall.v1' or art['phase'] != 'decode' \
+            or sorted(art) != keys or art['step'] != TRIP_OP:
+        raise AssertionError('phase 3f (d): the stall artifact %r'
+                             % {k: art.get(k) for k in keys
+                                if k != 'thread_stacks'})
+    row['artifact'] = {k: art[k] for k in ('schema', 'phase', 'step',
+                                           'waited_s', 'budget_s')}
+    res['subchecks']['d'] = row
+
+    # nothing degraded is launched: the card-side launches of 3f are those
+    # of the card's prefills and steps, exactly
+    launches = kernels.launch_counts()
+    prefills = sum(a['prefills'] - b['prefills'] for b, a in cards)
+    steps = sum(a['steps'] - b['steps'] for b, a in cards)
+    want = dict.fromkeys(launches, 0)
+    want['flash_attention_fwd'] = cfg['layers'] * prefills
+    want['flash_paged_decode_fwd'] = cfg['layers'] * steps
+    want['threefry_gumbel'] = prefills + steps
+    if device.type == 'cuda' and launches != want:
+        raise AssertionError('phase 3f: card launches %r, expected %r'
+                             % (launches, want))
+    if prog.compile_count != len(built):
+        raise AssertionError('phase 3f: a trip or a recovery built a '
+                             'program (%d, %d after warmup)'
+                             % (prog.compile_count, len(built)))
+    for row, outs, sub in tie_checks:
+        row['ties'] = near_ties(torch, model, prog.params, reqs, outs,
+                                healthy, device, sub)
+    # the CPU fallback alone: a prefill, then the tokens after it
+    t0 = time.perf_counter()
+    one = prog.fallback_generate(reqs[0]['prompt'], 1)
+    t1 = time.perf_counter()
+    full = prog.fallback_generate(reqs[0]['prompt'], DEGRADED_TOKENS)
+    t2 = time.perf_counter()
+    if full[:1] != one:
+        raise AssertionError('phase 3f: the CPU fallback alone differs from '
+                             'itself')
+    near_ties(torch, model, prog.params, reqs[:1], [full], healthy[:1],
+              device, 'fallback alone')
+    res.update(launches=launches, prefills=prefills, steps=steps,
+               programs=len(built), healthy_tokens=sum(map(len, healthy)),
+               cpu_prefill_ms=(t1 - t0) * 1e3,
+               cpu_token_ms=((t2 - t1) - (t1 - t0)) * 1e3
+               / (DEGRADED_TOKENS - 1),
+               prompt_len=len(reqs[0]['prompt']),
+               seconds=time.perf_counter() - t_phase)
+    del prog
+    torch.cuda.empty_cache()
+    return res
+
+
+def degraded_oneshot(torch, serving, kernels, frozen, images, device):
+    """Phase 3f (e): 6b's frozen SSD-300 serves one batch of 2 images
+    under ``device_loss@serving:1``: the batch is re-served by
+    ``run_fallback`` on the CPU; ``status()`` reads degraded, then ok
+    after a clean batch equal to ``frozen.run``. The fallback is held to
+    the card in steps that each decide: what it served is its host
+    block's output on these images, byte for byte (the CPU runs it
+    deterministically); the host block's heads are the card's within
+    SSD_HEAD_REL of each head's max abs, as in 6a; the host block's
+    detection, given the card's heads, keeps the card's rows (6a's
+    matching); and the served rows match the card's. Every kept row must
+    match: no decision slack excuses a difference. The smallest slack of
+    each detection comparison, over 4x its probability difference as in
+    6a, is reported: at full width, with random weights and thousands of
+    near-uniform rows, it can lie under 1, where 6a would call the
+    comparison undecided and this one still requires the match."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import nn as ops
+    kernels.reset_launch_counts()
+    os.environ['MXNET_TPU_FAULT'] = 'device_loss@serving:1'
+    try:
+        with serving.InferenceSession(frozen, max_batch=len(images),
+                                      timeout_s=600) as sess:
+            t0 = time.perf_counter()
+            fell = sess.infer_batch([images])[0]
+            cpu_s = time.perf_counter() - t0
+            degraded = sess.status()
+            os.environ.pop('MXNET_TPU_FAULT')
+            card = sess.infer_batch([images])[0]
+            ok = sess.status()
+    finally:
+        os.environ.pop('MXNET_TPU_FAULT', None)
+    launches = kernels.launch_counts()
+    if degraded['status'] != 'degraded' or ok['status'] != 'ok' or \
+            degraded['batches'] != {'accel': 0, 'fallback': 1} or \
+            ok['batches'] != {'accel': 1, 'fallback': 1}:
+        raise AssertionError('phase 3f (e): status %r then %r'
+                             % ({k: degraded[k] for k in ('status', 'batches',
+                                                          'error')},
+                                {k: ok[k] for k in ('status', 'batches')}))
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(nms=1, bn_act_fwd=SSD_BATCH_NORMS)
+    if device.type == 'cuda' and launches != want:
+        raise AssertionError('phase 3f (e): launches %r, expected %r (the '
+                             'clean batch only)' % (launches, want))
+    if not np.array_equal(card, frozen.run([images])[0]):
+        raise AssertionError('phase 3f (e): the clean batch is not the '
+                             'card\'s run')
+    host = frozen._host_block
+    with torch.inference_mode():
+        x = torch.from_numpy(images)
+        heads_t = frozen.block.net(x.to(device))
+        card_dets = frozen.block.det(*heads_t).cpu().numpy()
+        heads = [h.cpu().numpy() for h in heads_t]
+        cpu_heads = [h.numpy() for h in host.net(x)]
+        own = host.det(*map(torch.from_numpy, cpu_heads)).numpy()
+        via = host.det(*map(torch.from_numpy, heads)).numpy()
+        cls, cpu_cls = torch.from_numpy(heads[1]), torch.from_numpy(
+            cpu_heads[1])
+        d = {'card heads': (ops.softmax(cls.to(device)).cpu()
+                            - ops.softmax(cls)).abs().max().item(),
+             'served': (ops.softmax(cls) - ops.softmax(cpu_cls)).abs()
+             .max().item()}
+    if not np.array_equal(fell, own):
+        raise AssertionError('phase 3f (e): the served batch is not the '
+                             'host block\'s output on its images')
+    head_err = max(np.abs(a - b).max() / np.abs(b).max()
+                   for a, b in zip(heads, cpu_heads))
+    if not head_err <= SSD_HEAD_REL:
+        raise AssertionError('phase 3f (e): the host block\'s heads are '
+                             '%.3g of their max abs from the card\'s (> %g)'
+                             % (head_err, SSD_HEAD_REL))
+    cand = _decode64(*heads)
+    slack = {what: min(detection_margin(p, b, max(4 * diff, 1e-9))
+                       for p, b in cand) for what, diff in d.items()}
+    kept = {}
+    for what, got, ref in (('card heads', via, card_dets),
+                           ('served', fell, card)):
+        try:
+            kept[what] = [match_detections(a, b) for a, b in zip(got, ref)]
+        except AssertionError as exc:
+            raise AssertionError(
+                'phase 3f (e): %s: %s; the smallest decision slack is %.3g '
+                'of 4x the probability difference %.3g, and no slack '
+                'excuses a difference' % (what, exc, slack[what], d[what])) \
+                from None
+    return dict(kept=kept, slack=slack, prob_diff=d, head_err=head_err,
+                cpu_s=cpu_s, error=degraded['error'], launches=launches)
 
 
 # -- phase 4: the training slice ---------------------------------------------
@@ -4516,6 +4978,7 @@ def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
         launches = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated() if cuda else None
         stats = sess.stats()
+        assert_healthy('phase 6b', sess)
     del frozen.run
     if errors:
         raise errors[0]
@@ -4585,7 +5048,7 @@ def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
         'kept_min': min(kept), 'kept_max': max(kept), 'requests': total,
         'peak_mem_bytes': peak, 'profile': prof, 'compiled':
         stats['compiled'], 'nms_inputs': captured[0],
-        'bn_inputs': bn_captured,
+        'bn_inputs': bn_captured, 'frozen': frozen, 'images': x[:2],
     }
 
 
@@ -5015,6 +5478,49 @@ TIMING_KEYS = ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
                'library_ms', 'library_device_ms')
 
 
+def log_degraded(rf, card):
+    """Phase 3f (a)-(d)'s lines: each sub-check's degraded tokens, near
+    ties, seconds and the breaker's states; the CPU fallback's own
+    times; the card-side launches."""
+    sub = rf['subchecks']
+    for name in ('a', 'd'):
+        r = sub[name]
+        log('phase 3f (%s) [%s]: %s: %d streams degraded, %d fallback tokens '
+            '(%d from the card before the trip), retired %s, %d near ties %s;'
+            ' %.3f s to complete them, %.1f CPU ms a fallback token; breaker '
+            '%s after the trip, %s after a clean request on the card (status '
+            '%s)%s'
+            % (name, card, r['spec'], DEGRADED_REQUESTS, r['fallback_tokens'],
+               rf['healthy_tokens'] - r['fallback_tokens'], r['retired'],
+               len(r['ties']), r['ties'], r['wall_s'],
+               r['wall_s'] * 1e3 / r['fallback_tokens'],
+               r['breaker_after_trip'], r['breaker_after_clean'],
+               r['status_after_clean'],
+               '; artifact %s' % json.dumps(r['artifact'])
+               if 'artifact' in r else ''))
+    b = sub['b']
+    log('phase 3f (b) [%s]: %s under CircuitBreaker(3, %.1f): breaker %s; '
+        '%d fallback tokens, %d near ties %s, %.3f s for the degraded '
+        'streams; %.3f s from the trip to the first card token after the '
+        'half-open probe'
+        % (card, b['spec'], BREAKER_RESET_S, ' -> '.join(b['states']),
+           b['fallback_tokens'], len(b['ties']), b['ties'], b['wall_s'],
+           b['trip_to_card_token_s']))
+    c = sub['c']
+    log('phase 3f (c) [%s]: %s: every stream raised %s after %s tokens, '
+        'retired %s, slots free, the next request clean on the card'
+        % (card, c['spec'], c['errors'][0], c['tokens_before'],
+           c['retired']))
+    log('phase 3f [%s]: the CPU fallback alone at full width: prefill of %d '
+        'tokens %.1f ms, %.1f ms a token after it; card side %d prefills, %d '
+        'steps, launches %s, %d programs, none built by a trip; %.1f s for '
+        '(a)-(d)'
+        % (card, rf['prompt_len'], rf['cpu_prefill_ms'], rf['cpu_token_ms'],
+           rf['prefills'], rf['steps'],
+           {k: v for k, v in rf['launches'].items() if v}, rf['programs'],
+           rf['seconds']))
+
+
 def log_times(times):
     for name, row in times.items():
         lib = row['library_ms']
@@ -5157,6 +5663,9 @@ def main():
               'script', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    # scripted faults belong to phase 3f alone
+    if os.environ.pop('MXNET_TPU_FAULT', None) is not None:
+        log('MXNET_TPU_FAULT was set; unset: only phase 3f scripts faults')
     from mxnet_tpu_torch import capture as capture_mod
     from mxnet_tpu_torch import gluon, optimizer, parallel, serving
     from mxnet_tpu_torch.gluon import loss as gloss
@@ -5417,6 +5926,11 @@ def main():
         'timer) at %s, bound %.5f ms (%s)'
         % (card, nrow['device_ms'], nrow['shape'], nrow['bound_ms'],
            nrow['bound_by']))
+    torch.cuda.empty_cache()
+
+    # phase 3f (a)-(d): the degraded path of the decode engine on the card
+    rf = serve_degraded(torch, serving, kernels, cuda)
+    log_degraded(rf, card)
     torch.cuda.empty_cache()
 
     # phase 4: the training slice
@@ -5694,6 +6208,28 @@ def main():
     train_times.update(nms_times)
     torch.cuda.empty_cache()
 
+    # phase 3f (e): 6b's frozen SSD-300 degraded to its CPU fallback
+    t0 = time.perf_counter()
+    re_ = degraded_oneshot(torch, serving, kernels, det.pop('frozen'),
+                           det.pop('images'), cuda)
+    e_s = time.perf_counter() - t0
+    log('phase 3f (e) [%s]: device_loss@serving:1, a batch of 2 images '
+        're-served by run_fallback on the CPU in %.3f s (%s), byte for byte '
+        'its host block\'s output; heads rel_err %.3g against the card\'s; '
+        'kept rows matched to the card\'s (ids equal, scores and boxes '
+        'within %g): the card\'s heads through the host detection %s '
+        '(smallest decision slack %.3g of 4x the probability difference '
+        '%.3g), the served rows %s (slack %.3g of 4x %.3g); status degraded, '
+        'then ok after a clean batch on the card; launches %s; %.1f s in all'
+        % (card, re_['cpu_s'], re_['error'], re_['head_err'], DET_TOL,
+           re_['kept']['card heads'], re_['slack']['card heads'],
+           re_['prob_diff']['card heads'], re_['kept']['served'],
+           re_['slack']['served'], re_['prob_diff']['served'],
+           {k: v for k, v in re_['launches'].items() if v}, e_s))
+    rf['launches'] = {k: v + re_['launches'][k]
+                      for k, v in rf['launches'].items()}
+    torch.cuda.empty_cache()
+
     # phase 7: the matmul probe slice
     for m, k, n in probe.SHAPES:
         log('geometry M=%d K=%d N=%d: %s' % (m, k, n, {
@@ -5731,6 +6267,7 @@ def main():
                         'prefix sharing': sh['prefix']['launches'],
                         'speculative decoding': sh['spec']['launches'],
                         'sampled adapter serving': ra['launches'],
+                        'degraded serving': rf['launches'],
                         'training': tr['launches'],
                         'bert amp training': tc['launches'],
                         'bert bf16 training': cast_runs['cast']['launches'],

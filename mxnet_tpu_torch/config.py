@@ -22,6 +22,15 @@ the session or engine as ``draft=``. The sampling and adapter knobs
 (``MXNET_TPU_SERVE_SAMPLE_ARGS`` to ``MXNET_TPU_SERVE_ADAPTER_DIR``) carry
 the reference's defaults and help text: every decode program compiles the
 sampling inputs in unless told otherwise.
+
+The resilience knobs carry the reference's names, defaults and help:
+``MXNET_TPU_FAULT`` scripts faults (``resilience.policy.get_injector``
+re-parses it when it changes; the serving sites are ``serving.decode``,
+``serving`` and ``serving.infer``), ``MXNET_TPU_SERVE_BREAKER`` is the
+session breaker's failure threshold, and ``MXNET_TPU_WATCHDOG_COMPILE_S``,
+``_STEP_S``, ``_COLLECTIVE_S`` and ``_POLL_S`` are the stall watchdog's
+budgets and its monitor's poll (a serving session's watchdog holds each
+device call to ``_STEP_S``).
 """
 from __future__ import annotations
 
@@ -115,6 +124,29 @@ KNOBS = {
         'hold a mxnet_tpu.adapter.v1 artifact (loaded lazily on first use, '
         'digest-verified). Unset = only programmatically registered '
         'adapters resolve.'),
+    'MXNET_TPU_SERVE_BREAKER': (
+        int, 3, 'Consecutive device-side batch failures before the serving '
+        'circuit breaker opens and batches go straight to the CPU fallback '
+        'until the reset probe succeeds.'),
+    'MXNET_TPU_FAULT': (
+        str, None, 'Scripted fault injection: comma list of '
+        'kind[@site][:count] (device_unavailable, tunnel_stall, '
+        'worker_crash, preempt, hang, device_loss, and the value kinds '
+        'nan/inf, e.g. nan@grads:2 for the guardrail or '
+        'preempt@train.step.12:1 to preempt exactly at step 12). CI and '
+        'tests only; leave unset in production.'),
+    'MXNET_TPU_WATCHDOG_COMPILE_S': (
+        float, 1800.0, 'Watchdog stall budget (seconds) for the compile '
+        'phase (first-program XLA compiles legitimately take minutes).'),
+    'MXNET_TPU_WATCHDOG_STEP_S': (
+        float, 300.0, 'Watchdog stall budget for a dispatched compiled '
+        'step.'),
+    'MXNET_TPU_WATCHDOG_COLLECTIVE_S': (
+        float, 600.0, 'Watchdog stall budget for host-side collectives '
+        '(kvstore dist push/pull/barrier).'),
+    'MXNET_TPU_WATCHDOG_POLL_S': (
+        float, 10.0, 'Poll cadence of the background watchdog monitor '
+        'thread.'),
     'MXNET_TPU_AMP': (
         str, None, "Default AMP policy ('bf16' | 'fp16' | 'off') for "
         'ParallelTrainer / Module.fit / gluon Trainer when no explicit '

@@ -11,7 +11,10 @@ kernels are built for bf16 too (AMP, ``net.cast('bfloat16')``); their
 bf16 instances count under their kernel's name and :data:`BF16`. The
 whole-model optimizer update (``multi_tensor.MultiTensorPlan``, driven by
 ``optimizer/fused.py``) has no Pallas counterpart: it stands for the XLA
-fusion of the reference's traced update.
+fusion of the reference's traced update. A kernel that does not build
+raises :class:`KernelBuildFailure`, one that does not launch
+:class:`KernelLaunchFailure` (``errors.py``): never transient to the
+resilience layer.
 """
 from ._launch import (BF16, KERNELS, instance_launches, launch_counts,
                       reset_launch_counts)
@@ -41,6 +44,7 @@ from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
                        bn_act_forward_reference, bn_geometry,
                        epilogue_geometry,
                        fused_act, fused_add_act, fused_bn_apply)
+from .errors import KernelBuildFailure, KernelError, KernelLaunchFailure
 from .multi_tensor import MultiTensorPlan
 from .matmul import (VARIANTS as MATMUL_VARIANTS, MatmulGeometry, matmul,
                      matmul_cur, matmul_ep, matmul_geometry, matmul_noacc,
@@ -85,5 +89,6 @@ __all__ = ['KERNELS', 'BF16', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'nms_iterations', 'MATMUL_VARIANTS', 'MatmulGeometry',
            'matmul_geometry', 'matmul', 'matmul_reference',
            'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep',
-           'MultiTensorPlan',
+           'MultiTensorPlan', 'KernelError', 'KernelBuildFailure',
+           'KernelLaunchFailure',
            'launch_counts', 'instance_launches', 'reset_launch_counts']

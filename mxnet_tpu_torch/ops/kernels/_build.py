@@ -12,7 +12,8 @@ The file name carries a hash of the source, the shared headers and the
 flags, so a changed source rebuilds and a stale library is never
 loaded. The write goes through a per-process temporary file and an
 atomic rename, so concurrent builders cannot clobber each other. A
-build failure raises with nvcc's stderr; nothing here falls back.
+build failure raises :class:`~.errors.KernelBuildFailure` with nvcc's
+stderr; nothing here falls back.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns the ``cudaError_t`` of its launch, which the
@@ -27,6 +28,8 @@ import os
 import re
 import subprocess
 import threading
+
+from .errors import KernelBuildFailure
 
 __all__ = ['SOURCES', 'NVCC_FLAGS', 'library_path', 'source_text', 'build',
            'build_all', 'load']
@@ -55,7 +58,7 @@ _loaded = {}
 def _cuda_home():
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
-        raise RuntimeError('no CUDA toolkit found (set CUDA_HOME): the '
+        raise KernelBuildFailure('no CUDA toolkit found (set CUDA_HOME): the '
                            'port builds its kernels with nvcc')
     return CUDA_HOME
 
@@ -130,10 +133,10 @@ def _finish(name, started, timeout):
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise RuntimeError('nvcc timed out after %ss building %s'
+        raise KernelBuildFailure('nvcc timed out after %ss building %s'
                            % (timeout, name))
     if proc.returncode != 0:
-        raise RuntimeError('nvcc failed building %s (rc %d):\n%s'
+        raise KernelBuildFailure('nvcc failed building %s (rc %d):\n%s'
                            % (name, proc.returncode,
                               (err or out).decode('utf-8', 'replace')))
     os.replace(tmp, so)
@@ -159,14 +162,14 @@ def build_all(timeout=600):
         if s is not None:
             try:
                 log = _finish(n, s, timeout)
-            except RuntimeError as exc:
+            except KernelBuildFailure as exc:
                 errors.append(str(exc))
                 continue
             reports[n] = [ln.strip() for ln in log.splitlines()
                           if 'Compiling entry' in ln or 'registers' in ln
                           or 'spill' in ln]
     if errors:
-        raise RuntimeError('\n'.join(errors))
+        raise KernelBuildFailure('\n'.join(errors))
     return reports
 
 

@@ -23,6 +23,8 @@ import threading
 
 import torch
 
+from .errors import KernelLaunchFailure
+
 __all__ = ['KERNELS', 'BF16', 'launch_counts', 'instance_launches',
            'reset_launch_counts', 'count', 'recording', 'add_counts',
            'io_dtype', 'instance',
@@ -197,5 +199,5 @@ def check_inputs(kernel, named, dtypes):
 
 def raise_on(kernel, err):
     if err != 0:
-        raise RuntimeError('%s launch failed: cudaError_t %d'
+        raise KernelLaunchFailure('%s launch failed: cudaError_t %d'
                            % (kernel, err))

@@ -1,0 +1,26 @@
+"""The kernel layer's failures, typed.
+
+A kernel that does not build or does not launch is a fault of the port,
+never transient infrastructure trouble: the resilience layer
+(:func:`mxnet_tpu_torch.resilience.is_transient`) returns False for every
+:class:`KernelError` before it reads a message, so such a failure fails
+its requests loudly and is never completed on the CPU. Both classes stay
+``RuntimeError``s, as the errors they name were before.
+"""
+from __future__ import annotations
+
+__all__ = ['KernelError', 'KernelBuildFailure', 'KernelLaunchFailure']
+
+
+class KernelError(RuntimeError):
+    """Base of the kernel layer's own failures."""
+
+
+class KernelBuildFailure(KernelError):
+    """nvcc failed or timed out building a kernel source, or there is no
+    CUDA toolkit to build it with."""
+
+
+class KernelLaunchFailure(KernelError):
+    """A kernel's C entry point returned a ``cudaError_t`` other than
+    ``cudaSuccess``."""

@@ -52,13 +52,33 @@ The scheduler is numpy + threading around a duck-typed program
 ``warmup()``, where there is one, builds every program of the target and
 the draft as the engine starts); the worker thread alone owns the device
 cache, which the program hands out (``new_cache()``: its own storage,
-zeroed, since its captured programs are bound to it). The breaker, watchdog,
-degraded fallback, migration and tracing of the JAX engine are later
-slices (ROADMAP queue A): a failed device call fails the streams it
-carried and the cache is rebuilt.
+zeroed, since its captured programs are bound to it).
+
+**Resilience**: every device call (a prefill, a step, the draft's prefill
+and steps, verify, copy_page) runs under a circuit breaker and, when one
+is given, a stall watchdog, and fires the fault-injection site
+``serving.decode`` with the engine's device op index as its step
+(``MXNET_TPU_FAULT=device_loss@serving.decode.5:1``). A failure is sorted
+three ways. A transient fault (:func:`~...resilience.is_transient`: an
+injected fault, a stall, a connection or deadline error), or a call the
+open breaker refuses, completes the streams it carried on the CPU with the
+same tokens (the program's ``fallback_generate``, on one fallback worker
+that completes them in turn and checks the client's cancel and the
+request's budget between tokens), each marked ``degraded`` and its tokens
+counted in ``fallback_tokens``; ``stats()`` reads ``degraded`` until a
+device call succeeds again (the record is a :class:`~..health.Health`,
+as the one-shot session's is). The watchdog's heartbeat is armed only
+while a device call is in flight, so an idle engine never stalls. A worker
+crash or a preemption notice fails them with that typed error
+(``retired['aborted']``). Anything else, a kernel's build or launch
+failure among them, is a bug: it fails them loudly
+(``retired['error']``). After any failure the cache is rebuilt, which
+zeroes the program's own storage and builds no program. Migration and
+tracing of the JAX engine are later slices (ROADMAP queue A).
 """
 from __future__ import annotations
 
+import collections
 import logging
 import queue as _queue
 import threading
@@ -67,8 +87,12 @@ import time
 import numpy as onp
 
 from ... import config as _config
+from ...resilience.policy import (CircuitBreaker, CircuitOpenError,
+                                  PreemptionSignal, WorkerCrashError, inject,
+                                  is_transient)
 from ..adapters import AdapterPool, AdapterRegistry
 from ..batcher import BackpressureError, BatcherClosed, RequestTimeout
+from ..health import Health
 from .paged import TRASH_PAGE, PageAllocator, PrefixCache, pages_for
 from .sampling import key_for
 
@@ -87,13 +111,15 @@ class GenerateStream:
 
     A failed request raises its typed error from the iterator and from
     :meth:`result` alike. ``ttft_s`` is the seconds from admission to
-    the first token, once it exists."""
+    the first token, once it exists. ``degraded`` turns True when any
+    part of the generation ran on the CPU fallback."""
 
     def __init__(self, prompt_len):
         self.prompt_len = int(prompt_len)
         self.tokens = []
         self.finish_reason = None       # eos | length | error | closed
         self.ttft_s = None
+        self.degraded = False
         self._q = _queue.Queue()
         self._done = threading.Event()
         self._exc = None
@@ -139,6 +165,21 @@ class GenerateStream:
         self._exc = exc
         self._done.set()
         self._q.put(_DONE)
+
+
+class _DegradedPath(Exception):
+    """A device call failed transiently or the breaker is open: finish
+    the work on the CPU fallback."""
+
+
+class _AbortPath(Exception):
+    """A device call died in a way that kills the work itself (a worker
+    crash, a preemption notice): the streams fail with the typed error
+    ``exc`` instead of completing degraded."""
+
+    def __init__(self, exc):
+        super().__init__(str(exc))
+        self.exc = exc
 
 
 class _Seq:
@@ -192,11 +233,14 @@ class DecodeEngine:
     speculative decoding on a paged program with ``spec_k > 0``;
     ``adapters`` (an :class:`~..adapters.AdapterRegistry`, or an artifact
     root; None: ``MXNET_TPU_SERVE_ADAPTER_DIR``) serves the adapter ids of
-    a program built with an adapter pool."""
+    a program built with an adapter pool. ``breaker`` (default
+    ``CircuitBreaker(3, 30.0)``) guards the device calls and ``watchdog``
+    (a :class:`~...resilience.Watchdog`, or None) times them."""
 
     def __init__(self, program, max_queue=256, timeout_s=30.0,
                  max_new_tokens=64, prefill_interleave=1, name='decode',
-                 draft=None, prefix_cache=None, adapters=None):
+                 draft=None, prefix_cache=None, adapters=None, breaker=None,
+                 watchdog=None):
         self.program = program
         self.slots = int(program.slots)
         self.max_queue = int(max_queue)
@@ -204,15 +248,29 @@ class DecodeEngine:
         self.default_max_new = int(max_new_tokens)
         self.prefill_interleave = max(1, int(prefill_interleave))
         self.name = name
+        self._breaker = breaker if breaker is not None else \
+            CircuitBreaker(failure_threshold=3, reset_timeout=30.0)
+        self._watchdog = watchdog
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         self._pending = []                 # FIFO of _Seq
         self._active = {}                  # slot -> _Seq
         self._free = list(range(self.slots))
         self._cache = None                 # built lazily on the worker
+        self._cache_lost = False           # a rebuild after a fault failed
         self._closed = False
+        self._health = Health(self._breaker, 'decode %s' % name)
+        self._op_seq = 0                   # device calls, the fault steps
+        # degraded completions: one worker, started at the first trip,
+        # takes them in turn from the queue until close() lets it go
+        self._fallback_q = collections.deque()
+        self._fallback_cv = threading.Condition(self._lock)
+        self._fallback_worker = None
+        self._fallback_seq = None          # the one it is completing
+        self._fallback_exit = False
         self._counts = {'requests': 0, 'rejected': 0, 'tokens': 0,
                         'prefills': 0, 'steps': 0, 'timeouts': 0,
+                        'fallback_tokens': 0,
                         'drain_timeouts': 0, 'step_seconds': 0.0,
                         'retired': {}, 'prefix_hits': 0,
                         'prefix_tokens_saved': 0, 'spec_proposed': 0,
@@ -372,7 +430,7 @@ class DecodeEngine:
             time.sleep(min(0.05, max(self.timeout_s / 4.0, 0.005)))
             with self._lock:
                 if self._closed and not self._pending \
-                        and not self._active:
+                        and not self._active and not self._fallback_q:
                     return
                 now = time.monotonic()
                 kept = []
@@ -389,6 +447,21 @@ class DecodeEngine:
                     else:
                         kept.append(seq)
                 self._pending = kept
+                # degraded sequences still queued for the fallback worker
+                kept = collections.deque()
+                for seq in self._fallback_q:
+                    if seq.deadline_at is not None \
+                            and now >= seq.deadline_at:
+                        self._counts['timeouts'] += 1
+                        seq.stream._finish('error', RequestTimeout(
+                            'request waited %.3fs for the CPU fallback '
+                            '(budget %.3fs)' % (now - seq.enqueued_at,
+                                                self.timeout_s)))
+                    elif seq.stream._cancelled:
+                        seq.stream._finish('cancelled')
+                    else:
+                        kept.append(seq)
+                self._fallback_q = kept
                 # active sequences past budget: fail the stream now (the
                 # client unblocks even while the worker is inside a
                 # device call); the worker frees the slot at the next
@@ -469,17 +542,50 @@ class DecodeEngine:
     def _rebuild_cache(self):
         """The device cache zeroed: at first use, and after a failed
         device call (the in-place updates may have left it half written;
-        the program zeroes its own storage, which its graphs write). The
-        pool's host state describes the old pool, so it resets with it;
-        callers retire (and release) their slots first."""
-        self._cache = self.program.new_cache()
+        the program zeroes its own storage, which its graphs write, and
+        builds no program). The pool's host state describes the old pool,
+        so it resets with it; callers retire (and release) their slots
+        first."""
         if self._allocator is not None:
             with self._lock:
                 self._allocator.reset()
                 if self._prefix is not None:
                     self._prefix.clear()
+        self._cache = self._draft_cache = None
+        self._cache = self.program.new_cache()
         if self._draft is not None:
             self._draft_cache = self._draft.new_cache()
+
+    def _reset_cache(self):
+        """:meth:`_rebuild_cache` after a failed device call. After a
+        real fault the card's context may be unusable, and then the
+        rebuild raises: the engine is left without a cache, degraded, with
+        the breaker counting the failure, and the next admission tries
+        again (:meth:`_ensure_cache`); nothing here raises."""
+        try:
+            self._rebuild_cache()
+        except Exception as exc:
+            # admissions degrade until a rebuild succeeds
+            self._cache_lost = True
+            self._health.lost('cache rebuild', exc)
+
+    def _ensure_cache(self):
+        """The cache, built at first use. After a failed rebuild it is
+        rebuilt only when the breaker lets a call through; a refusal or
+        another failure degrades the request being admitted."""
+        if self._cache is not None:
+            return
+        if not self._cache_lost:
+            self._rebuild_cache()
+            return
+        if self._breaker.state == 'open':
+            raise _DegradedPath()
+        try:
+            self._rebuild_cache()
+        except Exception as exc:
+            self._health.lost('cache rebuild', exc)
+            raise _DegradedPath() from exc
+        self._cache_lost = False
 
     def _release_pages_locked(self, seq):
         if self._allocator is not None and seq.pages:
@@ -518,7 +624,8 @@ class DecodeEngine:
         """Make every page this tick writes (positions ``first_pos ..
         last_pos`` of ``seq``) private: allocate pages at boundary
         crossings, copy shared pages on write. Returns False when the
-        pool is exhausted (after LRU eviction); a failed copy raises."""
+        pool is exhausted (after LRU eviction); a failed copy raises as
+        :meth:`_device` sorts it."""
         ps = self.program.page_size
         for pi in range(int(first_pos) // ps, int(last_pos) // ps + 1):
             page = int(seq.table[pi])
@@ -545,8 +652,8 @@ class DecodeEngine:
             ids = self._alloc_pages(1)
             if ids is None:
                 return False
-            self._cache = self.program.run_copy_page(self._cache, page,
-                                                     ids[0])
+            self._cache = self._device(self.program.run_copy_page,
+                                       self._cache, page, ids[0])
             with self._lock:
                 self._allocator.release(page)
                 seq.pages.remove(page)
@@ -554,6 +661,62 @@ class DecodeEngine:
                 self._counts['cow_copies'] += 1
             seq.table[pi] = ids[0]
         return True
+
+    # -- device calls under the breaker and the watchdog --------------------
+
+    def _next_op(self):
+        with self._lock:
+            op = self._op_seq
+            self._op_seq += 1
+        return op
+
+    def _execute(self, fn, step, *args, **kwargs):
+        """One device call: the scripted faults of ``serving.decode`` fire
+        first (before a replay, so a captured program stays whole), then
+        the watchdog's check (a scripted ``hang`` aged the heartbeat at
+        :meth:`_device`'s beat)."""
+        inject('serving.decode',
+               ('device_loss', 'device_unavailable', 'tunnel_stall',
+                'worker_crash', 'preempt'), step=step)
+        if self._watchdog is not None:
+            self._watchdog.check()
+        return fn(*args, **kwargs)
+
+    def _device(self, fn, *args, **kwargs):
+        """Run one device call under the breaker. A transient failure or
+        an open breaker raises :class:`_DegradedPath` after recording the
+        trip; a worker crash or a preemption notice :class:`_AbortPath`;
+        anything else (a kernel's build or launch failure among them)
+        propagates as it is. The watchdog's heartbeat is armed for the
+        call only: an idle engine never reads as stalled."""
+        step = self._next_op()
+        if self._watchdog is not None:
+            self._watchdog.beat(step=step, phase='decode')
+        was_open = self._breaker.state == 'open'
+        try:
+            out = self._breaker.call(self._execute, fn, step, *args,
+                                     **kwargs)
+        except (WorkerCrashError, PreemptionSignal) as exc:
+            # the breaker counted the failure (breaker.call)
+            self._health.failed(exc, 'device call %s' % step, was_open)
+            raise _AbortPath(exc) from exc
+        except Exception as exc:
+            if not (is_transient(exc)
+                    or isinstance(exc, CircuitOpenError)):
+                raise               # bug-shaped: surface loudly
+            self._health.failed(exc, 'device call %s' % step, was_open)
+            raise _DegradedPath() from exc
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.idle()
+        self._health.recovered()
+        return out
+
+    def on_stall(self, record):
+        """The watchdog monitor's escalation (wired by the session): a
+        device call overran its budget with the worker still inside
+        it."""
+        self._health.stalled(record)
 
     # -- the programs' sampling / adapter extras ----------------------------
 
@@ -651,14 +814,24 @@ class DecodeEngine:
         if not self._admit_adapter(seq, slot):
             return
         try:
-            if self._cache is None:
-                self._cache = self.program.new_cache()
-            self._cache, tok, _logits = self.program.run_prefill(
-                self._cache, onp.asarray(seq.prompt, 'int32'), slot,
+            self._ensure_cache()
+            self._cache, tok, _logits = self._device(
+                self.program.run_prefill, self._cache,
+                onp.asarray(seq.prompt, 'int32'), slot,
                 **self._prefill_extras(seq))
+        except _DegradedPath:
+            self._free_slot(seq, slot)
+            self._spawn_fallback([seq])
+            return
+        except _AbortPath as ab:
+            # a worker crash / preemption at prefill fails THIS request
+            # typed; the client retries
+            self._free_slot(seq, slot)
+            seq.stream._finish('error', ab.exc)
+            return
         except Exception as exc:
-            # fail THIS request with the error, never leak its slot, its
-            # adapter pin or leave its stream blocking
+            # bug-shaped: fail THIS request loudly, never leak its slot,
+            # its adapter pin or leave its stream blocking
             self._free_slot(seq, slot)
             seq.stream._finish('error', exc)
             logging.exception('decode %s: prefill failed', self.name)
@@ -702,8 +875,7 @@ class DecodeEngine:
         n = len(prompt)
         seq.table = onp.full(self.program.max_pages, TRASH_PAGE, 'int32')
         try:
-            if self._cache is None:
-                self._rebuild_cache()
+            self._ensure_cache()
             shared, covered = [], 0
             if self._prefix is not None:
                 # namespaced by adapter id: an adapter's K/V rows for the
@@ -724,9 +896,9 @@ class DecodeEngine:
                 seq.table[:len(shared)] = shared
                 if self._draft is not None:
                     # the draft has no prefix cache: prefill it whole
-                    self._draft_cache, _t, _l = self._draft.run_prefill(
-                        self._draft_cache, onp.asarray(prompt, 'int32'),
-                        slot)
+                    self._draft_cache, _t, _l = self._device(
+                        self._draft.run_prefill, self._draft_cache,
+                        onp.asarray(prompt, 'int32'), slot)
                 seq.slot = slot
                 seq.pos = covered
                 seq.last_token = int(prompt[covered])
@@ -741,16 +913,26 @@ class DecodeEngine:
             with self._lock:
                 seq.pages = list(ids)
             seq.table[:len(ids)] = ids
-            self._cache, tok, _logits = self.program.run_prefill(
-                self._cache, onp.asarray(prompt, 'int32'), ids,
+            self._cache, tok, _logits = self._device(
+                self.program.run_prefill, self._cache,
+                onp.asarray(prompt, 'int32'), ids,
                 **self._prefill_extras(seq))
             if self._draft is not None:
-                self._draft_cache, _t, _l = self._draft.run_prefill(
-                    self._draft_cache, onp.asarray(prompt, 'int32'), slot)
+                self._draft_cache, _t, _l = self._device(
+                    self._draft.run_prefill, self._draft_cache,
+                    onp.asarray(prompt, 'int32'), slot)
             if self._prefix is not None:
                 with self._lock:
                     self._prefix.register(prompt, ids,
                                           namespace=seq.adapter_id)
+        except _DegradedPath:
+            self._free_slot(seq, slot)
+            self._spawn_fallback([seq])
+            return
+        except _AbortPath as ab:
+            self._free_slot(seq, slot)
+            seq.stream._finish('error', ab.exc)
+            return
         except Exception as exc:
             self._free_slot(seq, slot)
             seq.stream._finish('error', exc)
@@ -799,10 +981,18 @@ class DecodeEngine:
             positions[slot] = seq.pos
         t0 = time.monotonic()
         try:
-            self._cache, toks, _logits = self.program.run_step(
-                self._cache, tokens, positions, **self._step_extras(active))
+            self._cache, toks, _logits = self._device(
+                self.program.run_step, self._cache, tokens, positions,
+                **self._step_extras(active))
+        except _DegradedPath:
+            self._degrade_inflight(active)
+            return
+        except _AbortPath as ab:
+            self._fail_inflight(active, ab.exc, 'aborted')
+            return
         except Exception as exc:
-            self._fail_step(active, exc, 'step')
+            logging.exception('decode %s: step failed', self.name)
+            self._fail_inflight(active, exc, 'error')
             return
         dt = time.monotonic() - t0
         with self._lock:
@@ -825,18 +1015,19 @@ class DecodeEngine:
         with self._lock:
             self._counts['sampled_tokens'] += sampled
 
-    def _fail_step(self, active, exc, what):
-        """A failed device call: fail the streams it carried, retire their
-        slots (and pages), then rebuild the cache at once, as the
-        reference's except paths do: the pool's host state (free list,
-        refcounts, prefix registrations) resets with it, so ``stats()`` and
+    def _fail_inflight(self, active, exc, reason):
+        """A device call aborted (``reason`` 'aborted': a worker crash, a
+        preemption notice) or failed bug-shaped ('error'): fail the
+        streams it carried with ``exc``, retire their slots (and pages),
+        then rebuild the cache at once, as the reference's except paths
+        do: the pool's host state (free list, refcounts, prefix
+        registrations) resets with it, so ``stats()`` and
         :meth:`cache_accounting` read the empty pool before any new
         admission."""
-        logging.exception('decode %s: %s failed', self.name, what)
         for slot, seq in active.items():
             seq.stream._finish('error', exc)
-            self._retire(slot, seq, 'error')
-        self._rebuild_cache()
+            self._retire(slot, seq, reason)
+        self._reset_cache()
 
     def _page_faults(self, active, lookahead=0):
         """Before a step: allocate pages at boundary crossings and copy
@@ -870,14 +1061,22 @@ class DecodeEngine:
                 tokens[slot] = seq.last_token
                 positions[slot] = seq.pos
                 tables[slot] = seq.table
-            self._cache, toks, _logits = self.program.run_step(
-                self._cache, tokens, positions, tables,
-                **self._step_extras(active))
+            self._cache, toks, _logits = self._device(
+                self.program.run_step, self._cache, tokens, positions,
+                tables, **self._step_extras(active))
             if self._draft is not None:
-                self._draft_cache, _t, _l = self._draft.run_step(
-                    self._draft_cache, tokens, positions)
+                self._draft_cache, _t, _l = self._device(
+                    self._draft.run_step, self._draft_cache, tokens,
+                    positions)
+        except _DegradedPath:
+            self._degrade_inflight(active)
+            return
+        except _AbortPath as ab:
+            self._fail_inflight(active, ab.exc, 'aborted')
+            return
         except Exception as exc:
-            self._fail_step(active, exc, 'paged step')
+            logging.exception('decode %s: paged step failed', self.name)
+            self._fail_inflight(active, exc, 'error')
             return
         dt = time.monotonic() - t0
         emitted = sampled = 0
@@ -932,8 +1131,9 @@ class DecodeEngine:
                                                   False)
             cur = inputs[:, 0].copy()
             for c in range(1, C):
-                self._draft_cache, dtoks, _l = self._draft.run_step(
-                    self._draft_cache, cur, positions + (c - 1),
+                self._draft_cache, dtoks, _l = self._device(
+                    self._draft.run_step, self._draft_cache, cur,
+                    positions + (c - 1),
                     **(self._draft_step_extras(active, c - 1) if couple
                        else {}))
                 cur = onp.asarray(dtoks, 'int32').copy()
@@ -942,13 +1142,21 @@ class DecodeEngine:
             # accepted round moves past pos + k, and this is the only
             # write of that draft row; skipped, every later proposal
             # would attend a zero row there
-            self._draft_cache, _t, _l = self._draft.run_step(
-                self._draft_cache, cur, positions + k)
-            self._cache, vtoks, _logits = self.program.run_verify(
-                self._cache, inputs, positions, tables,
-                **self._step_extras(active, spec_c=C))
+            self._draft_cache, _t, _l = self._device(
+                self._draft.run_step, self._draft_cache, cur, positions + k)
+            self._cache, vtoks, _logits = self._device(
+                self.program.run_verify, self._cache, inputs, positions,
+                tables, **self._step_extras(active, spec_c=C))
+        except _DegradedPath:
+            self._degrade_inflight(active)
+            return
+        except _AbortPath as ab:
+            self._fail_inflight(active, ab.exc, 'aborted')
+            return
         except Exception as exc:
-            self._fail_step(active, exc, 'speculative step')
+            logging.exception('decode %s: speculative step failed',
+                              self.name)
+            self._fail_inflight(active, exc, 'error')
             return
         dt = time.monotonic() - t0
         emitted_total = accepted_total = proposed_total = sampled_total = 0
@@ -996,6 +1204,138 @@ class DecodeEngine:
             self._counts['sampled_tokens'] += sampled_total
             self._counts['step_seconds'] += dt
 
+    # -- degraded completion -----------------------------------------------
+
+    def _fallback_stop(self, seq):
+        """True when a degraded completion ends before its next token:
+        its stream is done (a close that does not drain), the client
+        cancelled it, or its budget ran out (the reaper watches the batch
+        and the fallback queue, not the completion in progress)."""
+        stream = seq.stream
+        if stream.done():
+            return True
+        if stream._cancelled:
+            stream._finish('cancelled')
+            return True
+        if seq.deadline_at is not None \
+                and time.monotonic() >= seq.deadline_at:
+            with self._lock:
+                self._counts['timeouts'] += 1
+            stream._finish('error', RequestTimeout(
+                'generation exceeded its %.3fs budget on the CPU fallback '
+                '(%d tokens emitted)' % (self.timeout_s, len(stream.tokens))))
+            return True
+        return False
+
+    def _fallback_complete(self, seq):
+        """Finish one sequence, from wherever it got to, on the CPU
+        fallback: the same math and the same emission rule (the argmax,
+        or the ``(seed, position)``-keyed sampler, the adapter's delta
+        applied on the host), so the same tokens, streamed as they
+        decode."""
+        if self._fallback_stop(seq):
+            return
+        stream = seq.stream
+        stream.degraded = True
+        remaining = seq.max_new - len(stream.tokens)
+        room = self.program.max_len - (len(seq.prompt)
+                                       + len(stream.tokens)) - 1
+        remaining = min(remaining, max(0, room) + 1)
+
+        def on_token(tok):
+            if self._fallback_stop(seq):
+                return False
+            with self._lock:
+                self._counts['fallback_tokens'] += 1
+                self._counts['tokens'] += 1
+            self._emit_token(seq, tok)
+            if seq.eos_id is not None and tok == seq.eos_id:
+                stream._finish('eos')
+                return False
+            return True
+
+        try:
+            ad = None
+            if self._adapters is not None and seq.adapter_id is not None:
+                ad = self._adapters.host_tree(seq.adapter_id)
+            self.program.fallback_generate(
+                seq.prompt + stream.tokens, remaining, seq.eos_id,
+                temperature=seq.temperature, top_p=seq.top_p,
+                seed=seq.seed, ad=ad, on_token=on_token)
+        except Exception as exc:     # the fallback itself failed: typed
+            stream._finish('error', exc)
+            return
+        stream._finish('length')     # unless it ended already
+
+    def _spawn_fallback(self, seqs):
+        """Queue degraded completions for the fallback worker, started at
+        the first trip. The CPU fallback decodes eagerly at tens of ms a
+        token at full width on torch's whole intra-op pool, so one worker
+        completes the sequences in turn, off the scheduler, which keeps
+        serving on the card meanwhile. The worker reads no CUDA tensor."""
+        with self._lock:
+            closed = self._fallback_exit
+            if not closed:
+                self._fallback_q.extend(seqs)
+                self._fallback_cv.notify()
+            start = not closed and self._fallback_worker is None
+            if start:
+                self._fallback_worker = threading.Thread(
+                    target=self._fallback_loop, daemon=True,
+                    name='mxnet-tpu-torch-%s-fallback' % self.name)
+        if closed:
+            # close() gave up on the scheduler mid-call: no worker is left
+            # to complete these
+            for seq in seqs:
+                seq.stream._finish('closed', BatcherClosed(
+                    'decode engine closed'))
+            return
+        if not start:
+            return
+        try:
+            self._fallback_worker.start()
+        except Exception as exc:     # never leave a stream waiting
+            with self._lock:
+                doomed = list(self._fallback_q)
+                self._fallback_q.clear()
+                self._fallback_worker = None
+            for seq in doomed:
+                seq.stream._finish('error', exc)
+            raise
+
+    def _fallback_loop(self):
+        """The fallback worker: one queued sequence at a time, until
+        :meth:`close` lets it go with the queue empty."""
+        while True:
+            with self._lock:
+                while not self._fallback_q and not self._fallback_exit:
+                    self._fallback_cv.wait()
+                if not self._fallback_q:
+                    return
+                seq = self._fallback_seq = self._fallback_q.popleft()
+            try:
+                self._fallback_complete(seq)
+            except Exception as exc:    # never leave a stream waiting
+                logging.exception('decode %s: degraded completion failed',
+                                  self.name)
+                seq.stream._finish('error', exc)
+            finally:
+                with self._lock:
+                    self._fallback_seq = None
+
+    def _degrade_inflight(self, active):
+        """A transient fault or an open breaker mid-decode: every
+        in-flight sequence retires (its pages and adapter pin released)
+        and completes degraded on the CPU fallback; the cache is rebuilt
+        for the card's next calls. The completion is spawned whatever the
+        rebuild does, so no stream is stranded."""
+        try:
+            for slot, seq in active.items():
+                self._retire(slot, seq, 'degraded')
+            self._reset_cache()
+        finally:
+            self._spawn_fallback(list(active.values()))
+
     # -- introspection and shutdown ----------------------------------------
 
     def cache_accounting(self):
@@ -1031,6 +1371,9 @@ class DecodeEngine:
                 'slots': self.slots,
                 'closed': self._closed,
                 'paged': self.paged,
+                'degraded': self._health.degraded,
+                'breaker': self._breaker.state,
+                'error': self._health.error,
                 'counts': {k: (dict(v) if isinstance(v, dict) else v)
                            for k, v in self._counts.items()},
             }
@@ -1052,9 +1395,10 @@ class DecodeEngine:
 
     def close(self, drain=True, timeout=30.0):
         """Stop admissions; ``drain=True`` lets in-flight AND queued
-        generations finish, ``drain=False`` fails them with
-        :class:`BatcherClosed`. A drain is bounded by ``timeout``: the
-        streams left then fail with :class:`DrainTimeout`."""
+        generations finish, the degraded completions on the CPU among
+        them, ``drain=False`` fails them with :class:`BatcherClosed`. A
+        drain is bounded by ``timeout``: the streams left then fail with
+        :class:`DrainTimeout`."""
         with self._lock:
             self._closed = True
             if not drain:
@@ -1089,6 +1433,28 @@ class DecodeEngine:
                 'stream unfinished after the %.1fs drain budget '
                 '(%d tokens emitted)' % (timeout, len(seq.stream.tokens))))
         self._worker.join(max(0.1, deadline - time.monotonic()))
+        # degraded completions run on the fallback worker: a drain waits
+        # for them within the same budget; what is left then ends typed
+        with self._lock:
+            self._fallback_exit = True
+            self._fallback_cv.notify_all()
+            worker = self._fallback_worker
+        if drain and worker is not None:
+            worker.join(max(0.1, deadline - time.monotonic()))
+        with self._lock:
+            left = [s for s in list(self._fallback_q) + [self._fallback_seq]
+                    if s is not None and not s.stream.done()]
+            self._fallback_q.clear()
+            if drain:
+                self._counts['drain_timeouts'] += len(left)
+        for seq in left:
+            if not drain:
+                seq.stream._finish('closed', BatcherClosed(
+                    'decode engine closed'))
+                continue
+            seq.stream._finish('error', DrainTimeout(
+                'degraded stream unfinished after the %.1fs drain budget '
+                '(%d tokens emitted)' % (timeout, len(seq.stream.tokens))))
         if self._reaper is not None:
             self._reaper.join(1.0)
 

@@ -46,9 +46,15 @@ cache the program owns: :meth:`~DecodeProgram.new_cache` hands out that
 storage, zeroed in place, never a new one. On the CPU the same bodies run
 uncaptured. A call's extras (temperatures, top-ps and keys as int32
 bits, the mask, the adapter rows) cross in the same one copy as its ints;
-omitted ones take the neutral values (greedy, no mask, the base). The JAX
-package's artifact save / load and CPU fallback have no counterpart here
-yet (ROADMAP queue A).
+omitted ones take the neutral values (greedy, no mask, the base).
+
+:meth:`DecodeProgram.fallback_generate` is the degraded path the engine
+completes a stream on after a transient device fault or while its breaker
+is open: the model's plain path on the CPU through a one-slot cache, from
+a host copy of the parameters taken when the program is made, with the
+card's emission rule, so a trip changes latency, not tokens. The JAX
+package's artifact save / load has no counterpart here yet (ROADMAP
+queue A).
 """
 from __future__ import annotations
 
@@ -65,7 +71,7 @@ from ..bucket import BucketPolicy, default_buckets
 from .cache import cache_bytes, init_cache
 from .model import DecodeModel
 from .paged import TRASH_PAGE, copy_page, init_pool, pages_for, pool_bytes
-from .sampling import sample_tokens
+from .sampling import key_for, sample_tokens
 
 __all__ = ['DecodeProgram', 'PagedDecodeProgram', 'freeze_decode']
 
@@ -81,6 +87,9 @@ def _as_param(value, device):
         return value.detach().to(device=device, dtype=torch.float32)
     return torch.as_tensor(onp.asarray(value, dtype='float32'),
                            device=device)
+
+
+_CPU = torch.device('cpu')
 
 
 class _Buffers:
@@ -212,9 +221,16 @@ class DecodeProgram:
                 'within max_len %d'
                 % (self.policy.max_batch, model.max_len))
         self.max_len = model.max_len
+        self._lock = threading.Lock()
         self.params = {k: _as_param(v, self.device)
                        for k, v in params.items()}
         model.check_params(self.params)
+        # the host copy the CPU fallback decodes from, taken once here from
+        # what the caller gave: after a real fault the CUDA context may be
+        # dead, so a fallback never reads the card's tensors
+        with self._lock:
+            self._params_host = self.params if self.device == _CPU else {
+                k: _as_param(v, _CPU) for k, v in params.items()}
         self._spec = model.cache_spec()
         self.emit_logits = bool(emit_logits)
         self.sample_args = bool(
@@ -232,7 +248,6 @@ class DecodeProgram:
             else adapter_spec.device_tree(self.device)
         self._cache = None
         self._compiled = {}           # key -> _Buffers
-        self._lock = threading.Lock()
         self._pool = None             # the graphs' one pool: they never
                                       # run concurrently
         self.compile_seconds = {}
@@ -478,6 +493,60 @@ class DecodeProgram:
             *self._extra_args('step', **extras))
         return self._cache, toks, logits
 
+    # -- the CPU fallback (degraded serving) --------------------------------
+
+    @torch.inference_mode()
+    def fallback_generate(self, tokens, max_new, eos_id=None,
+                          temperature=0.0, top_p=1.0, seed=0, ad=None,
+                          on_token=None):
+        """Decode ``tokens`` (the prompt and what was generated so far)
+        on the CPU through a one-slot cache: a prefill, then single
+        steps, through the model's plain path. The card's emission rule:
+        the argmax at ``temperature`` 0, else
+        :func:`~.sampling.sample_tokens` keyed by ``key_for(seed, pos)``
+        of each logits row's position. ``ad`` is an adapter's 2-D host
+        tree ``{target: (A, B)}`` (``AdapterRegistry.host_tree``) or None
+        for the base. Reads the host copy of the parameters only: no CUDA
+        tensor is touched. Returns up to ``max_new`` tokens, stopping at
+        ``eos_id`` or the cache's end, as the engine does. ``on_token``,
+        where given, is called with each token as it is decoded, and a
+        false return ends the decode there: the engine streams a degraded
+        completion through it and stops it at a cancel or a deadline."""
+        tokens = [int(t) for t in onp.asarray(tokens).reshape(-1)]
+        temperature = float(temperature)
+        params = self._params_host
+        if ad is not None:
+            ad = {k: (torch.as_tensor(onp.asarray(a, 'float32')),
+                      torch.as_tensor(onp.asarray(b, 'float32')))
+                  for k, (a, b) in ad.items()}
+
+        def pick(row, pos):
+            if temperature <= 0:
+                return int(torch.argmax(row))
+            return int(sample_tokens(row[None], [temperature], [top_p],
+                                     key_for(seed, pos)[None])[0])
+
+        cache = init_cache(self._spec, 1, _CPU)
+        cache, logits = self.model.prefill(
+            params, cache, torch.tensor([tokens], dtype=torch.int64),
+            len(tokens), 0, ad=ad)
+        tok = pick(logits, len(tokens) - 1)
+        pos = len(tokens)
+        out = []
+        while True:
+            out.append(tok)
+            if on_token is not None and not on_token(tok):
+                break
+            if (eos_id is not None and tok == eos_id) \
+                    or len(out) >= max_new or pos + 1 >= self.max_len:
+                break
+            cache, logits = self.model.step(
+                params, cache, torch.tensor([tok], dtype=torch.int64),
+                torch.tensor([pos], dtype=torch.int32), ad=ad)
+            tok = pick(logits[0], pos)
+            pos += 1
+        return out
+
 
 class PagedDecodeProgram(DecodeProgram):
     """Prefill / step / verify over a page pool plus per-sequence page
@@ -497,7 +566,9 @@ class PagedDecodeProgram(DecodeProgram):
     Allocation, refcounts, prefix sharing and copy-on-write decisions
     live in the engine (:mod:`.paged`). ``pages`` defaults to the slot
     cache's worst case, ``slots x max_pages + 1`` (the trash page). The
-    warm-ups write only the trash page."""
+    warm-ups write only the trash page. The CPU fallback
+    (``fallback_generate``) is the slot program's, as in the reference:
+    a degraded stream decodes through a one-slot cache, not the pool."""
 
     paged = True
 

@@ -12,14 +12,22 @@ compiled ahead of time, and :meth:`FrozenProgram.warmup` runs each bucket
 once so that the first request finds the card's libraries loaded and
 their algorithms chosen for every bucket.
 
+:meth:`FrozenProgram.run_fallback` runs the same block on the CPU, from a
+host copy of its parameters taken when the program is made (after a real
+fault the card's context may be dead, so the fallback never reads a CUDA
+tensor): the degraded path the session serves a batch on after a
+transient device fault or while its breaker is open.
+
 The JAX package's symbolic path (a ``Module``, a ``FeedForward``, a
-``(symbol, arg_params, aux_params)`` triple), the on-disk artifact
+``(symbol, arg_params, aux_params)`` triple) and the on-disk artifact
 (``save`` / ``load`` / ``load_frozen``, ROADMAP: "frozen-artifact
-persistence, then the HTTP server") and the CPU fallback
-(``run_fallback``, ROADMAP: "breaker / watchdog and the visible degraded
-path") are not ported.
+persistence, then the HTTP server") are not ported.
 """
 from __future__ import annotations
+
+import copy
+import itertools
+import threading
 
 import numpy as onp
 import torch
@@ -32,6 +40,18 @@ from .bucket import BucketPolicy, unpad_axis0
 __all__ = ['FrozenProgram', 'freeze']
 
 
+def _host_copy(block):
+    """``block`` with every parameter and buffer copied to the host, the
+    copies made straight from the originals (no second copy on the
+    card)."""
+    memo = {}
+    for t in itertools.chain(block.parameters(), block.buffers()):
+        host = t.detach().to('cpu', copy=True)
+        memo[id(t)] = torch.nn.Parameter(host, t.requires_grad) \
+            if isinstance(t, torch.nn.Parameter) else host
+    return copy.deepcopy(block, memo)
+
+
 class FrozenProgram:
     """Inference program: a Block over fixed parameters on one device,
     batched through a bucket ladder.
@@ -39,7 +59,8 @@ class FrozenProgram:
     ``data_descs`` is ``[(name, per_example_shape, dtype)]`` for the
     request inputs (no batch axis), in the order the block's ``forward``
     takes them. The block's outputs (a tensor or a tuple of tensors) come
-    back as a list of numpy arrays.
+    back as a list of numpy arrays. The parameters are fixed: the CPU
+    fallback's host copy of them is taken here.
     """
 
     def __init__(self, block, data_descs, policy=None, name='model'):
@@ -52,6 +73,10 @@ class FrozenProgram:
         self.data_descs = [(str(n), tuple(int(d) for d in s), str(dt))
                            for n, s, dt in data_descs]
         self._ran = set()   # buckets run at least once
+        self._lock = threading.Lock()
+        with self._lock:
+            self._host_block = block if self.device.type == 'cpu' \
+                else _host_copy(block)
 
     @property
     def compile_count(self):
@@ -92,6 +117,24 @@ class FrozenProgram:
                 outs = (outs,)
             host = [o.cpu().numpy() for o in outs]
         self._ran.add(padded[0].shape[0])
+        return [unpad_axis0(o, n) for o in host]
+
+    def run_fallback(self, arrays, n=None):
+        """The degraded path: :meth:`run`'s padding and block, run on the
+        CPU from the host copy of the parameters; no CUDA tensor is
+        touched. Returns the outputs as numpy, unpadded to ``n`` rows."""
+        arrays = [onp.asarray(a) for a in arrays]
+        if n is None:
+            n = arrays[0].shape[0]
+        padded, n = self.policy.pad(arrays, n)
+        with torch.inference_mode():
+            data = [torch.from_numpy(onp.ascontiguousarray(
+                a.astype(dt, copy=False)))
+                for (_n, _s, dt), a in zip(self.data_descs, padded)]
+            outs = self._host_block(*data)
+            if isinstance(outs, torch.Tensor):
+                outs = (outs,)
+            host = [o.numpy() for o in outs]
         return [unpad_axis0(o, n) for o in host]
 
 
