@@ -206,7 +206,33 @@ Phases, in order; any failure exits non-zero:
      difference), ``status()`` degraded, then ok after a clean batch. The
      card-side launches of 3f are exact and listed as ``degraded
      serving``; the CPU ms a degraded token and 3f's seconds are
-     printed;
+     printed. 3h, after 6b and 3f (e): (a) phase 3p's program with 3s's
+     speculation (``spec_k`` 3), its self-draft (the same weights frozen
+     ``paged=False``) and 6b's frozen SSD-300 saved as
+     ``mxnet_tpu.frozen.v1`` artifacts (seconds, bytes, manifest keys);
+     (b) a fresh ``sys.executable`` process, its environment stripped of
+     every ``MXNET_TPU_*`` variable but ``MXNET_TPU_SERVE_SPEC_K=3`` and
+     ``MXNET_TPU_SERVE_SPEC_DRAFT`` (the draft's artifact), imports only
+     the port, ``load_frozen``s both artifacts on the card, captures the
+     reference's program sets (the draft's through the knob), and serves
+     them behind one ``ServingHTTPServer`` (port 0; the decode session
+     mounted as ``decode_session``); (c) driven over HTTP: 3a's 17th
+     prompt alone to the cache's end (the first served token after the
+     spawn, split into imports, load, capture and first token), 3p's 16
+     greedy requests as NDJSON streams 8 at a time (token for token 3p's;
+     tokens/s and TTFT beside 3p's), 3a's sampled base requests as plain
+     bodies (equal to 3a's in-process streams at the same seeds), 6b's 8
+     one-by-one images to ``/predict`` (bitwise 6b's responses; latency),
+     ``/healthz`` 200, a malformed body 400 and a fleet key 400
+     ``NotPorted``; no request builds a program, speculation acceptance
+     with the loaded draft >= 0.9, and the child's launch counts, zeroed
+     before its first request, exact (3s's arithmetic over its engine's
+     counts, one nms and 14 BN applies a ``/predict``), with plain paged
+     steps among them; (d) a second child under
+     ``device_loss@serving.decode.9:1`` with a breaker of one failure: the
+     stream's done line ``degraded: true`` with the healthy tokens (a
+     difference only at a near tie), ``/healthz`` 503 while the breaker is
+     open. The children's launches join the ``kernels`` line;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -344,9 +370,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3207,7 +3235,8 @@ def submit(sess, reqs):
                           seed=r['seed']) for r in reqs]
 
 
-def near_ties(torch, model, params, reqs, outs, want, device, sub):
+def near_ties(torch, model, params, reqs, outs, want, device, sub,
+              phase='phase 3f'):
     """Each stream of ``outs`` against its healthy tokens ``want``: at
     the first token that differs, the teacher-forced margin over the
     prompt and the healthy tokens before it (the top-2 logit gap of a
@@ -3217,8 +3246,9 @@ def near_ties(torch, model, params, reqs, outs, want, device, sub):
     ties = []
     for i, (req, got, ref) in enumerate(zip(reqs, outs, want)):
         if len(got) != len(ref):
-            raise AssertionError('phase 3f %s: request %d has %d tokens, '
-                                 'healthy %d' % (sub, i, len(got), len(ref)))
+            raise AssertionError('%s %s: request %d has %d tokens, '
+                                 'healthy %d' % (phase, sub, i, len(got),
+                                                 len(ref)))
         t = next((t for t, (a, b) in enumerate(zip(got, ref)) if a != b),
                  None)
         if t is None:
@@ -3233,10 +3263,10 @@ def near_ties(torch, model, params, reqs, outs, want, device, sub):
                                   2).values
             gap = float(top2[0] - top2[1])
         if not gap < TIE:
-            raise AssertionError('phase 3f %s: request %d token %d is %d '
+            raise AssertionError('%s %s: request %d token %d is %d '
                                  'degraded, %d healthy, and the margin %.3g '
-                                 'is no tie' % (sub, i, t, got[t], ref[t],
-                                                gap))
+                                 'is no tie' % (phase, sub, i, t, got[t],
+                                                ref[t], gap))
         ties.append((i, t, gap))
     return ties
 
@@ -3580,6 +3610,498 @@ def degraded_oneshot(torch, serving, kernels, frozen, images, device):
                 from None
     return dict(kept=kept, slack=slack, prob_diff=d, head_err=head_err,
                 cpu_s=cpu_s, error=degraded['error'], launches=launches)
+
+
+# -- phase 3h: the artifacts in a fresh process, behind the HTTP endpoint ----
+
+HTTP_CLIENTS = 8           # requests in flight at once over HTTP
+HTTP_BUDGET_S = 300        # any one HTTP call
+CHILD_READY_S = 300        # a child's start to its READY line
+CHILD_DONE_S = 120         # a child's stop to its exit
+# the long request (3a's 17th prompt, greedy, served alone first): it runs
+# to the cache's end, where the speculative tick gives way to plain paged
+# steps, the only ones a self-drafted engine takes on prompts that share
+# no prefix
+LONG_REQUEST = 16
+# the fault child: one transient device loss after the prefills and a few
+# speculative ticks (a tick is spec_k + 1 draft steps and one verify), the
+# breaker opening at that one failure
+FAULT_SPEC = 'device_loss@serving.decode.9:1'
+
+# the child: loads the artifacts on the card, captures, serves them behind
+# one ServingHTTPServer; prints READY <json> (its port and its phase
+# times, on the wall clock) and, when its stdin closes, DONE <json> (its
+# launch counts from READY on, the programs, the sessions' stats)
+CHILD_3H = r'''
+import json, sys, time
+t_start = time.time()
+root, mode, lm_path, ssd_path = sys.argv[1:5]
+sys.path.insert(0, root)
+import torch
+from mxnet_tpu_torch import serving
+from mxnet_tpu_torch.ops import kernels
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t_import = time.time()
+lm = serving.load_frozen(lm_path)
+ssd = serving.load_frozen(ssd_path) if mode == 'main' else None
+torch.cuda.synchronize()
+t_load = time.time()
+lm.warmup()
+if ssd is not None:
+    ssd.warmup()
+sess = serving.InferenceSession(lm, timeout_s=600)
+osess = serving.InferenceSession(ssd, max_batch=ssd.policy.max_batch,
+                                 deadline_ms=5.0, timeout_s=600) \
+    if ssd is not None else None
+torch.cuda.synchronize()
+t_capture = time.time()
+srv = serving.ServingHTTPServer(osess if osess is not None else sess, 0,
+                                decode_session=sess if osess is not None
+                                else None).start()
+seconds = {'lm': dict(lm.load_seconds), 'draft': dict(sess.draft.load_seconds)}
+if ssd is not None:
+    seconds['ssd'] = dict(ssd.load_seconds)
+compiled = {'lm': dict(lm.compile_seconds),
+            'draft': dict(sess.draft.compile_seconds)}
+kernels.reset_launch_counts()
+print('READY ' + json.dumps({
+    'port': srv.port, 'start': t_start, 'imported': t_import,
+    'loaded': t_load, 'captured': t_capture, 'load_seconds': seconds,
+    'compile_seconds': compiled,
+    'ssd_compiled': ssd.compile_count if ssd is not None else None,
+    'draft': {'paged': sess.draft.paged, 'slots': sess.draft.slots},
+    'spec_k': lm.spec_k, 'modules': sorted(
+        m for m in sys.modules if m.split('.')[0] in ('jax', 'mxnet_tpu'))}),
+    flush=True)
+sys.stdin.read()
+launches = kernels.launch_counts()
+stats = sess.stats()
+doc = {'launches': launches, 'counts': stats['counts'],
+       'spec': stats.get('spec'), 'compiled': lm.compile_count,
+       'draft_compiled': sess.draft.compile_count,
+       'status': sess.status()['status']}
+if osess is not None:
+    ost = osess.stats()
+    doc.update(ssd_compiled=ssd.compile_count,
+               by_bucket={str(k): v for k, v in
+                          ost['batches_by_bucket'].items()},
+               oneshot_status=osess.status()['status'])
+srv.stop()
+sess.close()
+if osess is not None:
+    osess.close()
+print('DONE ' + json.dumps(doc), flush=True)
+'''
+
+
+def save_artifacts(torch, serving, frozen, device, root, cfg=SLICE,
+                   slots=SLOTS, buckets=BUCKETS, seed=0):
+    """Phase 3h (a): phase 3p's program with 3s's speculation (the paged
+    default at page size 16, sampling, ``spec_k`` 3), its self-draft (the
+    same weights frozen ``paged=False``, phase 3's program) and 6b's
+    frozen SSD-300, saved under ``root``. The loaded manifest's ``spec_k``
+    is what a reload serves with, as in the reference, so the target is
+    saved with it. Returns {name: path, seconds, bytes (params.npz and
+    all), manifest keys}."""
+    model, params = serving.init_transformer_lm(seed=seed, **cfg)
+    progs = {'lm': serving.freeze_decode(model, params, slots=slots,
+                                         prefill_buckets=buckets,
+                                         spec_k=SPEC_K, device=device),
+             'draft': serving.freeze_decode(model, params, slots=slots,
+                                            prefill_buckets=buckets,
+                                            paged=False, device=device),
+             'ssd': frozen}
+    del params
+    out = {}
+    for name, prog in progs.items():
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        prog.save(path)
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(path, 'MANIFEST.json')) as f:
+            keys = sorted(json.load(f))
+        out[name] = dict(path=path, seconds=seconds, keys=keys,
+                         npz_bytes=os.path.getsize(os.path.join(
+                             path, 'params.npz')),
+                         bytes=sum(os.path.getsize(os.path.join(path, f))
+                                   for f in os.listdir(path)))
+    del progs
+    torch.cuda.synchronize()
+    return out
+
+
+class _Child:
+    """A fresh ``sys.executable`` running :data:`CHILD_3H`: its stdout read
+    on a thread (lines into a queue), its stderr into a file; stopped by
+    closing its stdin, killed if it outlives its budget."""
+
+    def __init__(self, mode, arts, env, log_path):
+        import queue
+        import threading
+        self.lines = queue.Queue()
+        self.log_path = log_path
+        self._err = open(log_path, 'w')
+        self.spawned = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, '-c', CHILD_3H, HERE, mode, arts['lm']['path'],
+             arts['ssd']['path']], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self._err, env=env, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip('\n'))
+        self.lines.put(None)
+
+    def expect(self, tag, budget):
+        """The JSON after ``tag`` on the child's next tagged line."""
+        import queue
+        deadline = time.time() + budget
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.1, deadline - time.time()))
+            except queue.Empty:
+                line = None
+            if line is None or time.time() > deadline:
+                raise AssertionError('phase 3h: the %s child printed no %s '
+                                     '(rc %s); its stderr ends %s'
+                                     % (self.proc.args[4], tag,
+                                        self.proc.poll(), self.stderr_tail()))
+            if line.startswith(tag + ' '):
+                return json.loads(line[len(tag) + 1:])
+
+    def stop(self):
+        """Close its stdin (it then prints DONE and exits); returns DONE's
+        JSON."""
+        self.proc.stdin.close()
+        doc = self.expect('DONE', CHILD_DONE_S)
+        rc = self.proc.wait(CHILD_DONE_S)
+        if rc != 0:
+            raise AssertionError('phase 3h: the child exited %d: %s'
+                                 % (rc, self.stderr_tail()))
+        return doc
+
+    def stderr_tail(self, n=3000):
+        self._err.flush()
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self._err.close()
+
+
+def _http_stream(port, body):
+    """One NDJSON ``/generate`` over its own connection: (the token lines,
+    the done line, seconds to the first token line, the wall time of its
+    arrival)."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port,
+                                      timeout=HTTP_BUDGET_S)
+    try:
+        t0 = time.perf_counter()
+        conn.request('POST', '/generate', body=json.dumps(body).encode(),
+                     headers={'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError('phase 3h: /generate answered %d: %s'
+                                 % (resp.status, resp.read()[:500]))
+        lines, ttft, first_at = [], None, None
+        for raw in resp:
+            line = json.loads(raw)
+            if ttft is None and 'token' in line:
+                ttft, first_at = time.perf_counter() - t0, time.time()
+            lines.append(line)
+        return lines[:-1], lines[-1], ttft, first_at
+    finally:
+        conn.close()
+
+
+def _http_json(port, method, path, body=None, raw=None):
+    """(status, parsed body) of one request over its own connection."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port,
+                                      timeout=HTTP_BUDGET_S)
+    try:
+        data = raw if raw is not None else (
+            None if body is None else json.dumps(body).encode())
+        conn.request(method, path, body=data,
+                     headers={'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _stream_ok(what, toks, done, want):
+    if [ln['index'] for ln in toks] != list(range(len(toks))) or \
+            [ln['token'] for ln in toks] != done.get('tokens') or \
+            'error' in done or done.get('degraded') is not False:
+        raise AssertionError('phase 3h: %s: a malformed, failed or degraded '
+                             'stream: %s' % (what, done))
+    if want is not None and done['tokens'] != want:
+        raise AssertionError('phase 3h: %s: %s over HTTP, %s in process'
+                             % (what, done['tokens'], want))
+
+
+def http_launches(c, launches, layers, batches, k=SPEC_K):
+    """The child's launches its engine's counts ``c`` call for (3s's
+    arithmetic: the draft prefills every admission and steps with every
+    tick, one noise launch a call of either program) and its ``batches``
+    SSD batches (one nms and ``SSD_BATCH_NORMS`` BN applies each)."""
+    plain_steps = c['steps'] - c['spec_rounds']
+    want = dict.fromkeys(launches, 0)
+    want['flash_attention_fwd'] = layers * (2 * c['prefills']
+                                            + c['prefix_hits'])
+    want['flash_paged_decode_fwd'] = layers * plain_steps
+    want['flash_decode_fwd'] = layers * (plain_steps + (k + 1)
+                                         * c['spec_rounds'])
+    want['threefry_gumbel'] = 2 * c['prefills'] + c['prefix_hits'] \
+        + c['steps'] + plain_steps + (k + 1) * c['spec_rounds']
+    want['bn_act_fwd'] = SSD_BATCH_NORMS * batches
+    want['nms'] = batches
+    return want
+
+
+def serve_http(torch, serving, kernels, arts, greedy, sampled, long_req,
+               images, cfg=SLICE, new_tokens=NEW_TOKENS, buckets=BUCKETS):
+    """Phase 3h (b)-(c): a fresh process loads the LM and SSD-300
+    artifacts, its draft through ``MXNET_TPU_SERVE_SPEC_DRAFT`` (with
+    ``MXNET_TPU_SERVE_SPEC_K`` 3; no other ``MXNET_TPU_*`` variable of
+    this process reaches it), and serves them behind one HTTP endpoint.
+    Driven over HTTP: the long request alone (the cold start's first
+    token), phase 3p's 16 greedy requests as NDJSON streams,
+    ``HTTP_CLIENTS`` at a time (tokens/s, TTFT), 3a's sampled base
+    requests as plain bodies, 6b's one-by-one images to ``/predict``
+    (latency), and the endpoint's own answers. ``greedy`` and ``sampled``
+    are (request, in-process tokens) pairs, ``long_req`` one, ``images``
+    6b's (images, responses, buckets). Returns a dict of results."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('MXNET_TPU_')}
+    env.update(MXNET_TPU_SERVE_SPEC_K=str(SPEC_K),
+               MXNET_TPU_SERVE_SPEC_DRAFT=arts['draft']['path'])
+    child = _Child('main', arts, env, os.path.join(
+        os.path.dirname(arts['lm']['path']), 'child.log'))
+    try:
+        ready = child.expect('READY', CHILD_READY_S)
+        port = ready['port']
+        if ready['modules']:
+            raise AssertionError('phase 3h: the child imported %s'
+                                 % ready['modules'])
+        want_set = program_set(buckets, True, SPEC_K)
+        got_sets = {k: sorted(v) for k, v in ready['compile_seconds'].items()}
+        if got_sets != {'lm': sorted(want_set),
+                        'draft': sorted(program_set(buckets))} or \
+                ready['draft'] != {'paged': False, 'slots': SLOTS} or \
+                ready['spec_k'] != SPEC_K:
+            raise AssertionError('phase 3h: the reloaded programs %s, draft '
+                                 '%s, spec_k %s' % (got_sets, ready['draft'],
+                                                    ready['spec_k']))
+        # the long request alone: the first token the child ever serves
+        req, want = long_req
+        toks, done, long_ttft, first_at = _http_stream(port, {
+            'tokens': req['prompt'], 'max_new_tokens': cfg['max_len'],
+            'stream': True})
+        _stream_ok('the long request', toks, done, None)
+        if done['tokens'][:new_tokens] != want or \
+                len(req['prompt']) + len(done['tokens']) != cfg['max_len']:
+            raise AssertionError('phase 3h: the long request served %d '
+                                 'tokens, the first %d %s against %s'
+                                 % (len(done['tokens']), new_tokens,
+                                    done['tokens'][:new_tokens], want))
+        first_token_s = first_at - child.spawned
+        long_tokens = len(done['tokens'])
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            t0 = time.perf_counter()
+            runs = list(pool.map(lambda r: _http_stream(port, {
+                'tokens': r[0], 'max_new_tokens': new_tokens}), greedy))
+            wall = time.perf_counter() - t0
+            for i, ((toks, done, _t, _a), (_p, want)) in enumerate(
+                    zip(runs, greedy)):
+                _stream_ok('greedy request %d' % i, toks, done, want)
+            plain = list(pool.map(lambda r: _http_json(
+                port, 'POST', '/generate', {
+                    'tokens': r[0]['prompt'], 'max_new_tokens': new_tokens,
+                    'temperature': r[0]['temperature'],
+                    'top_p': r[0]['top_p'], 'seed': r[0]['seed'],
+                    'stream': False}), sampled))
+        for (code, body), (r, want) in zip(plain, sampled):
+            if code != 200 or body.get('degraded') is not False or \
+                    body.get('tokens') != want:
+                raise AssertionError('phase 3h: sampled request (seed %d) '
+                                     'answered %d %s, in process %s'
+                                     % (r['seed'], code, body, want))
+        x, outs, buckets_6b = images
+        if set(buckets_6b) != {1}:
+            raise AssertionError('phase 3h: 6b ran its one-by-one images at '
+                                 'buckets %s' % buckets_6b)
+        lat = []
+        for i, (img, want) in enumerate(zip(x, outs)):
+            t = time.perf_counter()
+            code, body = _http_json(port, 'POST', '/predict',
+                                    {'data': img.tolist()})
+            lat.append(time.perf_counter() - t)
+            got = np.asarray(body['outputs'][0], 'float32') \
+                if code == 200 else None
+            if got is None or not np.array_equal(got, want):
+                raise AssertionError('phase 3h: /predict image %d answered %d,'
+                                     ' not bitwise 6b\'s response' % (i, code))
+        checks = {
+            'healthz': _http_json(port, 'GET', '/healthz'),
+            'malformed': _http_json(port, 'POST', '/generate',
+                                    raw=b'{"tokens": [1, 2'),
+            'not ported': _http_json(port, 'POST', '/generate', {
+                'tokens': [1, 2], 'request_id': 'r1'}),
+            'status': _http_json(port, 'GET', '/status')}
+        if checks['healthz'] != (200, {'ok': True, 'status': 'ok'}) or \
+                checks['malformed'][0] != 400 or \
+                checks['not ported'][0] != 400 or \
+                checks['not ported'][1].get('error_class') != 'NotPorted' or \
+                checks['status'][1]['status'] != 'ok':
+            raise AssertionError('phase 3h: the endpoint answered %s'
+                                 % {k: v for k, v in checks.items()
+                                    if k != 'status'})
+        done_doc = child.stop()
+    finally:
+        child.close()
+    c = done_doc['counts']
+    if done_doc['compiled'] != len(want_set) or \
+            done_doc['draft_compiled'] != len(program_set(buckets)) or \
+            done_doc['ssd_compiled'] != ready['ssd_compiled'] or \
+            done_doc['by_bucket'] != {'1': len(x)} or \
+            done_doc['status'] != 'ok' or done_doc['oneshot_status'] != 'ok':
+        raise AssertionError('phase 3h: after the requests: %s'
+                             % {k: v for k, v in done_doc.items()
+                                if k != 'launches'})
+    acceptance = done_doc['spec']['acceptance_rate']
+    if acceptance is None or acceptance < SPEC_ACCEPTANCE or \
+            c['fallback_tokens']:
+        raise AssertionError('phase 3h: acceptance %r with the loaded draft, '
+                             '%d fallback tokens' % (acceptance,
+                                                     c['fallback_tokens']))
+    plain_steps = c['steps'] - c['spec_rounds']
+    launches = done_doc['launches']
+    want = http_launches(c, launches, cfg['layers'], len(x))
+    if launches != want or not plain_steps:
+        raise AssertionError('phase 3h: the child launched %r, expected %r '
+                             '(%d plain steps)' % (launches, want,
+                                                   plain_steps))
+    ttft = [r[2] for r in runs]
+    tokens = sum(len(r[1]['tokens']) for r in runs)
+    return {
+        'ready': ready, 'first_token_s': first_token_s,
+        'long_ttft_s': long_ttft, 'long_tokens': long_tokens,
+        'tokens_per_s': tokens / wall, 'wall_s': wall, 'tokens': tokens,
+        'ttft_p50_ms': percentile(ttft, 50) * 1e3,
+        'ttft_p99_ms': percentile(ttft, 99) * 1e3,
+        'predict_p50_ms': percentile(lat, 50) * 1e3,
+        'predict_p99_ms': percentile(lat, 99) * 1e3,
+        'acceptance': acceptance, 'counts': c, 'launches': launches,
+        'spawned': child.spawned, 'plain_steps': plain_steps,
+        'sampled': len(sampled), 'images': len(x),
+    }
+
+
+def serve_http_fault(torch, serving, arts, req, want):
+    """Phase 3h (d): a second, short child serves the LM artifact alone
+    under ``FAULT_SPEC`` with a breaker of one failure: the one stream
+    completes on the CPU, its done line ``degraded: true`` with the
+    healthy tokens (where one differs, at a near tie of the
+    teacher-forced margin, counted), and ``/healthz`` answers 503 while
+    the breaker is open. Returns a dict of results."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('MXNET_TPU_')}
+    env.update(MXNET_TPU_SERVE_SPEC_K=str(SPEC_K),
+               MXNET_TPU_SERVE_SPEC_DRAFT=arts['draft']['path'],
+               MXNET_TPU_FAULT=FAULT_SPEC, MXNET_TPU_SERVE_BREAKER='1')
+    child = _Child('fault', arts, env, os.path.join(
+        os.path.dirname(arts['lm']['path']), 'fault_child.log'))
+    try:
+        ready = child.expect('READY', CHILD_READY_S)
+        port = ready['port']
+        t0 = time.perf_counter()
+        toks, done, _ttft, _at = _http_stream(port, {
+            'tokens': req['prompt'], 'max_new_tokens': NEW_TOKENS})
+        wall = time.perf_counter() - t0
+        healthz = _http_json(port, 'GET', '/healthz')
+        status = _http_json(port, 'GET', '/status')[1]
+        done_doc = child.stop()
+    finally:
+        child.close()
+    if done.get('degraded') is not True or 'error' in done or \
+            [t['token'] for t in toks] != done['tokens']:
+        raise AssertionError('phase 3h (d): the done line %s' % done)
+    if healthz != (503, {'ok': False, 'status': 'degraded'}) or \
+            status['breaker'] != 'open':
+        raise AssertionError('phase 3h (d): /healthz %s, breaker %s while '
+                             'it is open' % (healthz, status['breaker']))
+    ties = []
+    if done['tokens'] != want:
+        model, np_params = serving.init_transformer_lm(seed=0, **SLICE)
+        cuda = torch.device('cuda')
+        ties = near_ties(torch, model, serving.params_from_jax(np_params,
+                                                               cuda),
+                         [req], [done['tokens']], [want], cuda, '(d)',
+                         phase='phase 3h')
+    c = done_doc['counts']
+    if not c['fallback_tokens'] or done_doc['status'] != 'degraded':
+        raise AssertionError('phase 3h (d): %d fallback tokens, status %s'
+                             % (c['fallback_tokens'], done_doc['status']))
+    return {'wall_s': wall, 'fallback_tokens': c['fallback_tokens'],
+            'ties': ties, 'launches': done_doc['launches'],
+            'retired': c['retired'], 'healthz': healthz}
+
+
+def log_http(h, hf, arts, rp, det, card):
+    """Phase 3h's lines: the artifacts, the cold start split, the HTTP
+    metrics beside 3p's in-process ones, the fault child."""
+    for name, a in arts.items():
+        log('phase 3h (a) [%s]: saved %s in %.3f s: %d B (params.npz %d B); '
+            'manifest keys %s' % (card, name, a['seconds'], a['bytes'],
+                                  a['npz_bytes'], a['keys']))
+    r = h['ready']
+    ls = r['load_seconds']
+    read = sum(v['read'] for v in ls.values())
+    h2d = sum(v['to_device'] for v in ls.values())
+    draft = sum(ls['draft'].values())
+    log('phase 3h (b) [%s]: a fresh process, spawn to its first served token '
+        '%.3f s: interpreter and imports %.3f s, load %.3f s (the three '
+        'artifacts read %.3f s, to the card %.3f s; the draft\'s %.3f s of '
+        'it through MXNET_TPU_SERVE_SPEC_DRAFT), capture %.3f s (LM %s, '
+        'draft %s programs; the SSD\'s %d buckets run), first token %.3f s '
+        'after the capture; imports of jax / mxnet_tpu: none'
+        % (card, h['first_token_s'], r['imported'] - h['spawned'],
+           r['loaded'] - r['imported'] + draft, read, h2d, draft,
+           r['captured'] - r['loaded'] - draft, len(r['compile_seconds']['lm']),
+           len(r['compile_seconds']['draft']), r['ssd_compiled'],
+           h['first_token_s'] - (r['captured'] - h['spawned'])))
+    log('phase 3h (c) [%s]: over HTTP, %d greedy NDJSON streams %d at a time '
+        'token for token 3p\'s, %d sampled plain bodies equal to 3a\'s in '
+        'process, %d /predict images bitwise 6b\'s; tokens/s %.2f (3p in '
+        'process %.2f), TTFT p50 %.2f ms (%.2f), p99 %.2f ms (%.2f), wall '
+        '%.3f s; /predict latency p50 %.2f ms p99 %.2f ms (6b one by one in '
+        'process p50 %.2f ms p99 %.2f ms); the long request %d tokens to '
+        'the cache\'s end; speculation acceptance %.4f with the loaded '
+        'draft, %d plain paged steps; no program built by a request; '
+        'launches %s'
+        % (card, len(rp['outs']), HTTP_CLIENTS, h['sampled'], h['images'],
+           h['tokens_per_s'], rp['tokens_per_s'], h['ttft_p50_ms'],
+           rp['ttft_p50_ms'], h['ttft_p99_ms'], rp['ttft_p99_ms'], h['wall_s'],
+           h['predict_p50_ms'], h['predict_p99_ms'], det['seq_p50_ms'],
+           det['seq_p99_ms'], h['long_tokens'], h['acceptance'],
+           h['plain_steps'], {k: v for k, v in h['launches'].items() if v}))
+    log('phase 3h (d) [%s]: %s in a second child: the stream done with '
+        'degraded true, %d fallback tokens, %d near ties %s, in %.3f s; '
+        '/healthz %s while the breaker is open; retired %s; launches %s'
+        % (card, FAULT_SPEC, hf['fallback_tokens'], len(hf['ties']),
+           hf['ties'], hf['wall_s'], hf['healthz'], hf['retired'],
+           {k: v for k, v in hf['launches'].items() if v}))
 
 
 # -- phase 4: the training slice ---------------------------------------------
@@ -4747,22 +5269,6 @@ def time_nms(torch, kernels, args):
     return {'nms': top}
 
 
-def _detector(gluon, ssd, net):
-    """The served block: SSD, then MultiBoxDetection (one image in, (N, 6)
-    detections out)."""
-
-    class Detector(gluon.Block):
-        def __init__(self):
-            super().__init__()
-            self.net = net
-            self.det = ssd.MultiBoxDetection()
-
-        def forward(self, x):
-            return self.det(*self.net(x))
-
-    return Detector()
-
-
 def _seed_moving_stats(torch, net, seed):
     import numpy as np
     rs = np.random.RandomState(seed)
@@ -4911,7 +5417,7 @@ def ssd_against_cpu(torch, ssd, ops, kernels, gnn, device,
                              % (launches, want))
 
 
-def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
+def serve_ssd(torch, serving, ssd, gnn, kernels, contrib, device,
               image=SSD_IMAGE, buckets=SSD_BUCKETS, clients=SSD_CLIENTS,
               per_client=SSD_PER_CLIENT, sequential=SSD_SEQUENTIAL, seed=0):
     """Phase 6b: ``ssd_300(20)`` from ``init_params(seed)`` behind
@@ -4927,7 +5433,7 @@ def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
     cuda = device.type == 'cuda'
     t0 = time.perf_counter()
     net = ssd.init_params(ssd.ssd_300(SSD_CLASSES, device=device), seed)
-    frozen = serving.freeze(_detector(gluon, ssd, net),
+    frozen = serving.freeze(ssd.ssd_detector(net),
                             data_shapes=[('data', (3, image, image))],
                             buckets=buckets)
     frozen.warmup()
@@ -4996,7 +5502,7 @@ def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
     if cuda and launches != want:
         raise AssertionError('phase 6b: launches %r in %d batches, expected '
                              '%r' % (launches, batches, want))
-    kept = []
+    kept, bucket_of = [], []
     for i, out in enumerate(outs):
         if out.shape != (SSD_ANCHORS, 6) or not np.isfinite(out).all() \
                 or not (out[:, 0] >= 0).any():
@@ -5012,6 +5518,7 @@ def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
             raise AssertionError('phase 6b: response %d differs from its '
                                  'image run at bucket %d' % (i, bucket))
         kept.append(int((out[:, 0] >= 0).sum()))
+        bucket_of.append(bucket)
     # the kernels' inputs of one batch at the top bucket, taken after the
     # served run so that holding them leaves its peak memory alone: nms
     # for phase 6's timing, the BN apply for its check at this path's
@@ -5049,6 +5556,10 @@ def serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, device,
         'peak_mem_bytes': peak, 'profile': prof, 'compiled':
         stats['compiled'], 'nms_inputs': captured[0],
         'bn_inputs': bn_captured, 'frozen': frozen, 'images': x[:2],
+        # the one-by-one requests: images, responses, the buckets they ran
+        # at (phase 3h sends the same images over HTTP)
+        'one_by_one': (x[clients * per_client:], outs[clients * per_client:],
+                       bucket_of[clients * per_client:]),
     }
 
 
@@ -5667,7 +6178,7 @@ def main():
     if os.environ.pop('MXNET_TPU_FAULT', None) is not None:
         log('MXNET_TPU_FAULT was set; unset: only phase 3f scripts faults')
     from mxnet_tpu_torch import capture as capture_mod
-    from mxnet_tpu_torch import gluon, optimizer, parallel, serving
+    from mxnet_tpu_torch import optimizer, parallel, serving
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon import nn as gnn
     from mxnet_tpu_torch.gluon.model_zoo import bert, resnet, ssd
@@ -6171,7 +6682,7 @@ def main():
     # phase 6: the SSD detection serving slice
     errs.update(check_nms_kernel(torch, kernels, cuda))
     ssd_against_cpu(torch, ssd, ops, kernels, gnn, cuda)
-    det = serve_ssd(torch, serving, ssd, gluon, gnn, kernels, contrib, cuda)
+    det = serve_ssd(torch, serving, ssd, gnn, kernels, contrib, cuda)
     for name, err in check_ssd_bn_apply(torch, kernels,
                                         det.pop('bn_inputs')).items():
         errs[name] = max(errs[name], err)
@@ -6210,7 +6721,8 @@ def main():
 
     # phase 3f (e): 6b's frozen SSD-300 degraded to its CPU fallback
     t0 = time.perf_counter()
-    re_ = degraded_oneshot(torch, serving, kernels, det.pop('frozen'),
+    frozen = det.pop('frozen')
+    re_ = degraded_oneshot(torch, serving, kernels, frozen,
                            det.pop('images'), cuda)
     e_s = time.perf_counter() - t0
     log('phase 3f (e) [%s]: device_loss@serving:1, a batch of 2 images '
@@ -6228,6 +6740,29 @@ def main():
            {k: v for k, v in re_['launches'].items() if v}, e_s))
     rf['launches'] = {k: v + re_['launches'][k]
                       for k, v in rf['launches'].items()}
+    torch.cuda.empty_cache()
+
+    # phase 3h: 3p's program (with 3s's speculation), its self-draft and
+    # 6b's SSD-300 saved, then reloaded by a fresh process and served over
+    # HTTP; the card's cached blocks freed before each child starts
+    root = tempfile.mkdtemp(prefix='chip_smoke_3h_')
+    try:
+        arts = save_artifacts(torch, serving, frozen, cuda, root)
+        del frozen
+        torch.cuda.empty_cache()
+        reqs = adapter_requests(SLICE)
+        hs = serve_http(
+            torch, serving, kernels, arts,
+            [(r['prompt'], out) for r, out in zip(reqs, rp['outs'])],
+            [(r, ra['outs'][i]) for i, r in enumerate(reqs)
+             if r['adapter'] is None and r['temperature'] > 0],
+            (reqs[LONG_REQUEST], ra['outs'][LONG_REQUEST]),
+            det.pop('one_by_one'))
+        torch.cuda.empty_cache()
+        hf = serve_http_fault(torch, serving, arts, reqs[0], rp['outs'][0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log_http(hs, hf, arts, rp, det, card)
     torch.cuda.empty_cache()
 
     # phase 7: the matmul probe slice
@@ -6285,6 +6820,9 @@ def main():
                         'resnet bf16 inference':
                             bf16_runs['cast']['infer_launches'],
                         'ssd serving': det['launches'],
+                        'http serving (fresh process)': hs['launches'],
+                        'http degraded serving (fresh process)':
+                            hf['launches'],
                         'matmul probe': probe_launches})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -15,10 +15,10 @@ anything else (``' 0'`` is True); an int or float knob raises
 ``ValueError`` on ``''``.
 
 The paged-cache knobs (``MXNET_TPU_SERVE_PAGED`` to
-``MXNET_TPU_SERVE_SPEC_K``) are here; ``MXNET_TPU_SERVE_SPEC_DRAFT``, which
-loads a saved draft artifact, waits for the port of frozen-artifact
-persistence (ROADMAP: "Frozen-artifact persistence"): pass the draft to
-the session or engine as ``draft=``. The sampling and adapter knobs
+``MXNET_TPU_SERVE_SPEC_DRAFT``, the path of a saved decode artifact a
+session loads as its speculative draft) are here, and the HTTP
+endpoint's: ``MXNET_TPU_SERVE_HTTP_PORT`` (0, the default, keeps it off)
+and ``MXNET_TPU_SERVE_MAX_CONCURRENT``. The sampling and adapter knobs
 (``MXNET_TPU_SERVE_SAMPLE_ARGS`` to ``MXNET_TPU_SERVE_ADAPTER_DIR``) carry
 the reference's defaults and help text: every decode program compiles the
 sampling inputs in unless told otherwise.
@@ -95,6 +95,25 @@ KNOBS = {
         'many tokens a tick and the target verifies them in one pass '
         '(greedy acceptance). 0 disables speculation; needs a paged '
         'target and a draft program.'),
+    'MXNET_TPU_SERVE_SPEC_DRAFT': (
+        str, None, 'Path to a frozen decode artifact to load as the'
+        ' speculative-decoding draft model (same vocab as the target;'
+        ' transformer family, so rejected proposals roll back for free;'
+        ' frozen SLOT-addressed, paged=False \u2014 a draft-sized cache has'
+        ' no memory wall to page). Unset = no speculation unless a draft'
+        ' is passed programmatically.'),
+    'MXNET_TPU_SERVE_HTTP_PORT': (
+        int, 0, 'Port for the stdlib JSON inference endpoint (/predict,'
+        ' /generate, /status, /healthz; binds 127.0.0.1). 0 (default)'
+        ' keeps the server off \u2014 production fronts the engine with a'
+        ' real gateway.'),
+    'MXNET_TPU_SERVE_MAX_CONCURRENT': (
+        int, 0, 'Cap on in-flight HTTP POST handlers (one thread per'
+        ' connection): past it requests shed instantly with 429 +'
+        ' Retry-After instead of piling scheduling contention onto'
+        ' admitted requests. 0 (default) = unbounded, the pre-harness'
+        ' behavior; production fronts set it to a small multiple of the'
+        ' batch/slot capacity.'),
     'MXNET_TPU_SERVE_SAMPLE_ARGS': (
         bool, True, 'Compile temperature/top-p/PRNG-key sampling as '
         'fixed-shape ARRAY arguments of the one decode step: greedy and '

@@ -25,6 +25,7 @@ from ...context import resolve_device
 from ...ops import nn as ops
 from ..block import Block, params_from_jax
 from ..nn import Dense, Dropout, Embedding, LayerNorm, TransformerEncoder
+from .stamp import zoo_constructor
 
 __all__ = ['BERTModel', 'get_bert', 'bert_12_768_12', 'init_params',
            'params_from_jax']
@@ -119,6 +120,7 @@ _BERT_CONFIGS = {
 }
 
 
+@zoo_constructor
 def get_bert(model_name='bert_12_768_12', vocab_size=30522, max_length=512,
              dropout=0.1, use_pooler=True, use_decoder=True,
              use_classifier=True, device=None, **kwargs):
@@ -133,6 +135,7 @@ def get_bert(model_name='bert_12_768_12', vocab_size=30522, max_length=512,
                      device=device, **cfg)
 
 
+@zoo_constructor
 def bert_12_768_12(**kwargs):
     return get_bert('bert_12_768_12', **kwargs)
 

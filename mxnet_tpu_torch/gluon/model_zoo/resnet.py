@@ -33,6 +33,7 @@ from ...ops import nn as ops
 from ..block import Block, params_from_jax
 from ..nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
                   HybridSequential, MaxPool2D)
+from .stamp import zoo_constructor
 
 __all__ = ['ResNetV1', 'BasicBlockV1', 'BottleneckV1', 'resnet_spec',
            'get_resnet', 'resnet18_v1', 'resnet34_v1', 'resnet50_v1',
@@ -174,6 +175,7 @@ resnet_spec = {
 }
 
 
+@zoo_constructor
 def get_resnet(version, num_layers, pretrained=False, device=None,
                **kwargs):
     """A ResNet v1 of ``num_layers`` (18, 34, 50, 101 or 152). The weights
@@ -200,7 +202,7 @@ def _variant(depth):
         return get_resnet(1, depth, **kwargs)
     build.__name__ = 'resnet%d_v1' % depth
     build.__doc__ = 'ResNet-%d v1 model.' % depth
-    return build
+    return zoo_constructor(build)
 
 
 resnet18_v1 = _variant(18)

@@ -36,9 +36,10 @@ from ...ops import nn as ops
 from ..block import Block, params_from_jax
 from ..nn import BatchNorm, Conv2D, HybridSequential, MaxPool2D
 from .resnet import _Names, init_params
+from .stamp import zoo_constructor
 
-__all__ = ['SSD', 'ssd_300', 'MultiBoxDetection', 'init_params',
-           'params_from_jax']
+__all__ = ['SSD', 'ssd_300', 'MultiBoxDetection', 'SSDDetector',
+           'ssd_detector', 'init_params', 'params_from_jax']
 
 
 class _Act(Block):
@@ -148,6 +149,7 @@ class MultiBoxDetection(Block):
                                           **self._kw)
 
 
+@zoo_constructor
 def ssd_300(num_classes=20, **kwargs):
     """SSD-300's anchor configuration (``example/ssd/symbol_factory.py``
     ``get_config('vgg16_reduced', 300)``): five scales with the standard
@@ -157,3 +159,29 @@ def ssd_300(num_classes=20, **kwargs):
              (0.71, 0.79)]
     ratios = [(1.0, 2.0, 0.5)] * 2 + [(1.0, 2.0, 0.5, 3.0, 1.0 / 3)] * 3
     return SSD(num_classes, sizes, ratios, **kwargs)
+
+
+class SSDDetector(Block):
+    """An SSD and its :class:`MultiBoxDetection` as one block, the block
+    detection serving freezes: images (B, 3, H, W) in, detections (B, N,
+    6) out. Its parameters are the SSD's, under the SSD's names."""
+
+    def __init__(self, net, **kwargs):
+        super().__init__()
+        self.net = net
+        self.det = MultiBoxDetection(**kwargs)
+
+    def forward(self, x):
+        return self.det(*self.net(x))
+
+
+@zoo_constructor
+def ssd_detector(net, nms_threshold=0.45, threshold=0.01, nms_topk=400,
+                 variances=(0.1, 0.1, 0.2, 0.2), device=None):
+    """:class:`SSDDetector` over ``net`` (a zoo SSD such as
+    :func:`ssd_300`'s, which it keeps, weights and all). ``device`` is
+    ``net``'s: the detection head holds no parameters."""
+    del device
+    return SSDDetector(net, nms_threshold=nms_threshold,
+                       threshold=threshold, nms_topk=nms_topk,
+                       variances=variances)

@@ -2,11 +2,13 @@
 ``mxnet_tpu/serving/decode``)."""
 from .engine import DecodeEngine, DrainTimeout, GenerateStream
 from .model import (DecodeModel, TransformerLM, init_transformer_lm,
-                    params_from_jax)
+                    model_from_config, params_from_jax)
 from .paged import PageAllocator, PagedCacheSpec, PrefixCache
-from .program import DecodeProgram, PagedDecodeProgram, freeze_decode
+from .program import (DecodeProgram, PagedDecodeProgram, freeze_decode,
+                      load_decode)
 
 __all__ = ['DecodeEngine', 'DrainTimeout', 'GenerateStream', 'DecodeModel',
-           'TransformerLM', 'init_transformer_lm', 'params_from_jax',
-           'PageAllocator', 'PagedCacheSpec', 'PrefixCache',
-           'DecodeProgram', 'PagedDecodeProgram', 'freeze_decode']
+           'TransformerLM', 'init_transformer_lm', 'model_from_config',
+           'params_from_jax', 'PageAllocator', 'PagedCacheSpec',
+           'PrefixCache', 'DecodeProgram', 'PagedDecodeProgram',
+           'freeze_decode', 'load_decode']

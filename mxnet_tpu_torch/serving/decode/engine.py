@@ -261,6 +261,7 @@ class DecodeEngine:
         self._closed = False
         self._health = Health(self._breaker, 'decode %s' % name)
         self._op_seq = 0                   # device calls, the fault steps
+        self._ema_step_s = None            # recent step latency (hints)
         # degraded completions: one worker, started at the first trip,
         # takes them in turn from the queue until close() lets it go
         self._fallback_q = collections.deque()
@@ -998,7 +999,7 @@ class DecodeEngine:
         with self._lock:
             self._counts['steps'] += 1
             self._counts['tokens'] += len(active)
-            self._counts['step_seconds'] += dt
+            self._note_step_locked(dt)
         sampled = 0
         for slot, seq in active.items():
             if seq.stream.done() or seq.stream._cancelled:
@@ -1102,7 +1103,7 @@ class DecodeEngine:
             self._counts['steps'] += 1
             self._counts['tokens'] += emitted
             self._counts['sampled_tokens'] += sampled
-            self._counts['step_seconds'] += dt
+            self._note_step_locked(dt)
 
     def _spec_step(self, active):
         """Speculative tick: the draft proposes ``spec_k`` tokens (that
@@ -1202,7 +1203,7 @@ class DecodeEngine:
             self._counts['spec_accepted'] += accepted_total
             self._counts['tokens'] += emitted_total
             self._counts['sampled_tokens'] += sampled_total
-            self._counts['step_seconds'] += dt
+            self._note_step_locked(dt)
 
     # -- degraded completion -----------------------------------------------
 
@@ -1337,6 +1338,28 @@ class DecodeEngine:
             self._spawn_fallback(list(active.values()))
 
     # -- introspection and shutdown ----------------------------------------
+
+    def _note_step_locked(self, dt):
+        """Count a step's seconds and fold them into the recent step
+        latency that :meth:`retry_after_hint` reads (under the lock)."""
+        self._counts['step_seconds'] += dt
+        self._ema_step_s = dt if self._ema_step_s is None \
+            else 0.7 * self._ema_step_s + 0.3 * dt
+
+    def retry_after_hint(self):
+        """Estimated seconds until a newly admitted generation could get a
+        slot: the pending requests ahead (and this one) times a
+        sequence's service time (the default budget times the recent step
+        latency, 0.02 s before the first step) over the slots; at least
+        0.05. The ``Retry-After`` of an HTTP 429 (the reference's,
+        ``engine.py:2081``)."""
+        with self._lock:
+            pending = len(self._pending)
+            est = self._ema_step_s
+        if est is None:
+            est = 0.02
+        per_seq = est * max(1, self.default_max_new)
+        return max(0.05, (pending + 1) * per_seq / float(max(1, self.slots)))
 
     def cache_accounting(self):
         """The cache's device bytes and what a sequence holds of them: for

@@ -36,7 +36,7 @@ from .paged import (PagedCacheSpec, gather_pages, write_paged_chunk,
                     write_paged_rows, write_prefill_pages)
 
 __all__ = ['DecodeModel', 'TransformerLM', 'init_transformer_lm',
-           'params_from_jax']
+           'model_from_config', 'params_from_jax']
 
 _LAYER_PARAMS = ('qkv_w', 'qkv_b', 'out_w', 'out_b', 'ln1_g', 'ln1_b',
                  'ffn1_w', 'ffn1_b', 'ffn2_w', 'ffn2_b', 'ln2_g', 'ln2_b')
@@ -401,6 +401,26 @@ class TransformerLM(DecodeModel):
                 .reshape(slots, C, self.units)
             x = self._attn_out_ffn(params, i, x, ctx, ad)
         return pool, self._head(params, x)                # (S, C, V)
+
+
+_FAMILIES = {TransformerLM.family: TransformerLM}
+
+
+def model_from_config(family, config):
+    """The decode model of ``family`` over ``config``: the factory a
+    saved decode artifact's loader rebuilds its model through (the
+    reference's ``model_from_config``, ``decode/model.py:669``). The
+    port has ``transformer_lm``; ``rnn_lm`` raises NotImplementedError
+    (ROADMAP A9), any other family ValueError."""
+    if family == 'rnn_lm':
+        raise NotImplementedError(
+            'decode family rnn_lm is not ported yet (ROADMAP A9: the '
+            'RNN-LM family); the port serves transformer_lm')
+    cls = _FAMILIES.get(family)
+    if cls is None:
+        raise ValueError('unknown decode family %r (have %s)'
+                         % (family, sorted(_FAMILIES)))
+    return cls(config)
 
 
 def init_transformer_lm(vocab, units=32, hidden=64, layers=2, heads=4,

@@ -52,13 +52,22 @@ omitted ones take the neutral values (greedy, no mask, the base).
 completes a stream on after a transient device fault or while its breaker
 is open: the model's plain path on the CPU through a one-slot cache, from
 a host copy of the parameters taken when the program is made, with the
-card's emission rule, so a trip changes latency, not tokens. The JAX
-package's artifact save / load has no counterpart here yet (ROADMAP
-queue A).
+card's emission rule, so a trip changes latency, not tokens.
+
+:meth:`DecodeProgram.save` writes the reference's decode artifact
+(``mxnet_tpu.frozen.v1``, ``kind: decode``: ``MANIFEST.json`` and
+``params.npz``) and :meth:`DecodeProgram.load` (``load_decode``) reads
+it back, whichever package wrote it: a paged manifest reloads as a
+:class:`PagedDecodeProgram`, and the extras (sampling, mask, adapter
+pool) are rebuilt from the manifest.
 """
 from __future__ import annotations
 
+import io
+import json
+import os
 import threading
+import time
 
 import numpy as onp
 import torch
@@ -66,14 +75,19 @@ import torch
 from ... import config as _config
 from ...capture import Program
 from ...context import resolve_device
+from ...resilience.checkpoint import atomic_write_bytes
 from ..adapters import AdapterSpec
 from ..bucket import BucketPolicy, default_buckets
+from ..freeze import FROZEN_SCHEMA
 from .cache import cache_bytes, init_cache
-from .model import DecodeModel
+from .model import DecodeModel, model_from_config
 from .paged import TRASH_PAGE, copy_page, init_pool, pages_for, pool_bytes
 from .sampling import key_for, sample_tokens
 
-__all__ = ['DecodeProgram', 'PagedDecodeProgram', 'freeze_decode']
+__all__ = ['DecodeProgram', 'PagedDecodeProgram', 'freeze_decode',
+           'load_decode']
+
+_DECODE_KIND = 'decode'
 
 # the extras a program may carry: their dtype on the host (each crosses as
 # its int32 bits) and the neutral value an omitted one takes
@@ -251,6 +265,10 @@ class DecodeProgram:
         self._pool = None             # the graphs' one pool: they never
                                       # run concurrently
         self.compile_seconds = {}
+        # the keys a loaded artifact listed as serialized programs: none
+        # deserializes here, warmup() builds them (the reference's list
+        # of the keys it re-traced)
+        self.retraced_buckets = []
 
     @property
     def prefill_buckets(self):
@@ -548,6 +566,116 @@ class DecodeProgram:
         return out
 
 
+    # -- persistence (mxnet_tpu.frozen.v1, kind=decode) ---------------------
+
+    def save(self, path, include_programs=True):
+        """Write the decode artifact, the reference's layout and manifest
+        (``mxnet_tpu/serving/decode/program.py:575-639``)::
+
+            <path>/params.npz       the parameters, float32, under the
+                                    model's names
+            <path>/MANIFEST.json    schema, kind=decode, the family and
+                                    config, the ladder, the extras
+                                    (sample_args, logit_mask, adapter),
+                                    cache_bytes; a paged program its
+                                    page geometry
+
+        The parameters come from the host copy the program keeps, never
+        off the card. A captured CUDA graph cannot be serialized, so
+        ``include_programs`` writes nothing and ``programs`` is empty (a
+        reload captures its programs at ``warmup()``); the reference's
+        ``jax_version``, ``platform``, ``pallas`` and ``donate`` are left
+        out, and ``torch_version`` and ``device`` (the card's name) say
+        who wrote it. Every file is written atomically, the manifest
+        last. Returns ``path``."""
+        del include_programs
+        os.makedirs(path, exist_ok=True)
+        buf = io.BytesIO()
+        onp.savez(buf, **{k: v.numpy() for k, v in self._params_host.items()})
+        # the buffer's own bytes, not a second copy of them
+        with buf.getbuffer() as view:
+            atomic_write_bytes(os.path.join(path, 'params.npz'), view)
+        del buf
+        manifest = {
+            'schema': FROZEN_SCHEMA,
+            'kind': _DECODE_KIND,
+            'name': self.name,
+            'family': self.model.family,
+            'config': self.model.config,
+            'slots': self.slots,
+            'prefill_buckets': list(self.policy.buckets),
+            'emit_logits': self.emit_logits,
+            'sample_args': self.sample_args,
+            'logit_mask': self.logit_mask,
+            'adapter': (None if self.adapter_spec is None
+                        else self.adapter_spec.to_manifest()),
+            'cache_bytes': self.cache_bytes(),
+            'torch_version': torch.__version__,
+            'device': (torch.cuda.get_device_name(self.device)
+                       if self.device.type == 'cuda' else 'cpu'),
+            'programs': {},
+        }
+        manifest.update(self._manifest_extra())
+        atomic_write_bytes(
+            os.path.join(path, 'MANIFEST.json'),
+            (json.dumps(manifest, indent=1, sort_keys=True) + '\n').encode())
+        return path
+
+    def _manifest_extra(self):
+        """The layout's own manifest keys (a paged program's geometry, by
+        which :meth:`load` dispatches)."""
+        return {}
+
+    @classmethod
+    def load(cls, path, device=None):
+        """Reload a decode artifact written by either package on
+        ``device`` (default cuda): a ``paged`` manifest as a
+        :class:`PagedDecodeProgram`, its extras and ladders as saved. The
+        weights go from the file to the device once; the CPU fallback's
+        host copy is the loaded arrays themselves. Nothing is captured
+        here: ``warmup()`` (the engine's start) builds the programs, and
+        every key of a JAX-written ``programs`` table lands in
+        ``retraced_buckets``. ``load_seconds`` on the program: ``read``
+        (the manifest and the arrays into host memory) and ``to_device``
+        (the program built, the weights copied to the device). Raises
+        ValueError on another schema or kind."""
+        t0 = time.perf_counter()
+        with open(os.path.join(path, 'MANIFEST.json')) as f:
+            manifest = json.load(f)
+        if manifest.get('schema') != FROZEN_SCHEMA or \
+                manifest.get('kind') != _DECODE_KIND:
+            raise ValueError(
+                'not a %s decode artifact: schema=%r kind=%r at %s'
+                % (FROZEN_SCHEMA, manifest.get('schema'),
+                   manifest.get('kind'), path))
+        model = model_from_config(manifest['family'], manifest['config'])
+        with onp.load(os.path.join(path, 'params.npz')) as z:
+            params = {k: z[k] for k in z.files}
+        kwargs = {}
+        target = DecodeProgram
+        if manifest.get('paged'):
+            target = PagedDecodeProgram
+            kwargs = {'page_size': manifest['page_size'],
+                      'pages': manifest['pages'],
+                      'spec_k': manifest.get('spec_k', 0)}
+        aspec = None
+        if manifest.get('adapter'):
+            aspec = AdapterSpec.from_manifest(manifest['adapter'])
+        t1 = time.perf_counter()
+        prog = target(model, params, slots=manifest['slots'],
+                      prefill_buckets=manifest['prefill_buckets'],
+                      name=manifest.get('name'),
+                      emit_logits=manifest.get('emit_logits', True),
+                      device=device,
+                      sample_args=manifest.get('sample_args', False),
+                      logit_mask=manifest.get('logit_mask', False),
+                      adapter_spec=aspec, **kwargs)
+        prog.retraced_buckets.extend(sorted(manifest.get('programs') or {}))
+        prog.load_seconds = {'read': t1 - t0,
+                             'to_device': time.perf_counter() - t1}
+        return prog
+
+
 class PagedDecodeProgram(DecodeProgram):
     """Prefill / step / verify over a page pool plus per-sequence page
     tables (the JAX ``PagedDecodeProgram``, ``program.py:706-1046``).
@@ -610,6 +738,12 @@ class PagedDecodeProgram(DecodeProgram):
     def page_bytes(self):
         """Bytes one page holds across every cache entry."""
         return pool_bytes(self._pspec, 1)
+
+    def _manifest_extra(self):
+        return {'paged': True, 'page_size': self.page_size,
+                'pages': self.pages, 'spec_k': self.spec_k,
+                'max_pages': self.max_pages,
+                'page_bytes': self.page_bytes()}
 
     def per_sequence_bytes(self, seq_len=None):
         """Cache bytes a sequence of ``seq_len`` tokens holds (default
@@ -817,3 +951,8 @@ def freeze_decode(model, params=None, slots=None, prefill_buckets=None,
                          emit_logits=emit_logits, device=device,
                          sample_args=sample_args, logit_mask=logit_mask,
                          adapter_spec=adapter_spec)
+
+
+def load_decode(path, device=None):
+    """:meth:`DecodeProgram.load` (the reference's module-level alias)."""
+    return DecodeProgram.load(path, device=device)

@@ -1,5 +1,6 @@
-"""InferenceSession, the port of ``mxnet_tpu/serving/server.py``
-(:64-157, 224-449): the request path a serving frontend talks to.
+"""InferenceSession and ServingHTTPServer, the port of
+``mxnet_tpu/serving/server.py`` (:64-157, 224-1200): the request path a
+serving frontend talks to, and the JSON endpoint over it.
 
 Two modes, chosen by the program:
 
@@ -38,13 +39,28 @@ card, so an idle session stays ``ok``. The degraded / error record is a
 
 Knob defaults come from ``MXNET_TPU_SERVE_*`` (``mxnet_tpu_torch/config.py``);
 constructor arguments win. Arguments of the other mode are ignored, as in
-the JAX session. Not ported: the HTTP endpoint, and loading the draft from
-the ``MXNET_TPU_SERVE_SPEC_DRAFT`` artifact (ROADMAP: "Frozen-artifact
-persistence").
+the JAX session. A paged program with ``spec_k > 0`` and no ``draft=``
+loads its draft from the ``MXNET_TPU_SERVE_SPEC_DRAFT`` artifact, when the
+knob names one, on the program's device.
+
+:class:`ServingHTTPServer` is the reference's stdlib endpoint, off by
+default (:func:`maybe_start_http_server` starts it only for a nonzero
+``MXNET_TPU_SERVE_HTTP_PORT``), bound to 127.0.0.1: ``GET /status`` and
+``/healthz``, ``POST /predict`` and ``/generate`` (chunked NDJSON or one
+JSON body), with the reference's bodies and status codes. Its handler
+threads only call the sessions' ``infer`` / ``submit`` / ``generate``:
+the decode engine's worker alone touches the card. The fleet's parts
+(``/drain``, ``/import``, ``/trace``, and a ``/generate`` body's
+``prefill_only``, ``request_id`` and ``start_index``) wait for ROADMAP A7:
+the routes answer 404 and the keys 400 ``NotPorted``.
 """
 from __future__ import annotations
 
+import json
 import threading
+from concurrent.futures import TimeoutError as _FutureTimeout
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import urlparse
 
 import numpy as onp
 
@@ -53,13 +69,20 @@ from ..resilience.policy import (CircuitBreaker, CircuitOpenError,
                                  PreemptionSignal, WorkerCrashError, inject,
                                  is_transient)
 from ..resilience.watchdog import Watchdog
-from .batcher import MicroBatcher
+from .batcher import (BackpressureError, BatcherClosed, MicroBatcher,
+                      RequestTimeout)
 from .decode.engine import DecodeEngine
-from .decode.program import DecodeProgram
+from .decode.program import DecodeProgram, load_decode
 from .freeze import FrozenProgram
 from .health import Health
 
-__all__ = ['InferenceSession']
+__all__ = ['InferenceSession', 'ServingHTTPServer', 'maybe_start_http_server']
+
+# an HTTP handler's longest wait when MXNET_TPU_SERVE_TIMEOUT_S=0 disables
+# the per-request budget: a handler thread never blocks for ever
+_HTTP_MAX_WAIT_S = 300.0
+# /generate keys of the fleet's resume and disaggregation plumbing
+_FLEET_KEYS = ('prefill_only', 'request_id', 'start_index')
 
 
 def _pick(value, knob):
@@ -96,6 +119,7 @@ class InferenceSession:
         self.program = program
         self._lock = threading.Lock()
         self._engine = self._batcher = None
+        self.draft = None
         self._breaker = breaker if breaker is not None else CircuitBreaker(
             failure_threshold=max(1, int(_config.get(
                 'MXNET_TPU_SERVE_BREAKER'))), reset_timeout=30.0)
@@ -113,6 +137,12 @@ class InferenceSession:
             # the monitor thread can see the stale heartbeat
             self._watchdog.start()
         if decode:
+            if draft is None and program.paged and int(program.spec_k) > 0:
+                draft_path = _config.get('MXNET_TPU_SERVE_SPEC_DRAFT')
+                if draft_path:
+                    draft = load_decode(str(draft_path),
+                                        device=program.device)
+            self.draft = draft
             self._engine = DecodeEngine(
                 program, max_queue=max_queue, timeout_s=timeout_s,
                 max_new_tokens=int(_pick(max_new_tokens,
@@ -255,6 +285,14 @@ class InferenceSession:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def retry_after_hint(self):
+        """Estimated seconds until a newly admitted request could be
+        served: the engine's or the batcher's estimate, the
+        ``Retry-After`` of an HTTP 429."""
+        if self._engine is not None:
+            return self._engine.retry_after_hint()
+        return self._batcher.retry_after_hint()
+
     def stats(self):
         """The decode engine's stats, or for a one-shot session the
         batcher's queue stats, the bucket ladder, the buckets run and the
@@ -325,3 +363,322 @@ class InferenceSession:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _wait_s(session):
+    """A handler's wait for ``session``'s result: its per-request budget,
+    else :data:`_HTTP_MAX_WAIT_S`."""
+    src = session._batcher if session._batcher is not None \
+        else session._engine
+    return src.timeout_s or _HTTP_MAX_WAIT_S
+
+
+class ServingHTTPServer:
+    """Stdlib JSON endpoint over an :class:`InferenceSession`, the
+    reference's (``mxnet_tpu/serving/server.py:465-1012``) without the
+    fleet's routes. Routes::
+
+        GET  /status    the session's status() (with a decode_session:
+                        {"status": worst, "predict": ..., "generate": ...})
+        GET  /healthz   {"ok": true|false, "status": ...}: 200 when every
+                        session reads ok, 503 otherwise (breaker open,
+                        degraded)
+        POST /predict   {"data": [...]} one example, or
+                        {"instances": [[...], ...]} many
+                        -> {"outputs": ...}
+        POST /generate  {"tokens": [...], "max_new_tokens", "eos_id",
+                         "stream", "adapter" (or the X-Mxnet-Adapter
+                         header), "temperature", "top_p", "seed"}:
+                        stream true (the default) answers chunked NDJSON,
+                        a {"token", "index"} line a token, then {"done":
+                        true, "tokens", "finish_reason", "degraded"} (a
+                        failure mid-stream: "error" / "error_class" on it);
+                        stream false one {"tokens", "finish_reason",
+                        "degraded"} body
+
+    ``decode_session`` mounts a second, decode session behind
+    ``/generate``. Status codes: 200 served (``degraded`` when the CPU
+    did the work), 429 shed by a full queue or past ``max_concurrent``
+    in-flight POSTs (default ``MXNET_TPU_SERVE_MAX_CONCURRENT``, 0:
+    unbounded), both with ``Retry-After``, 504 the per-request budget
+    lapsed, 503 the session closed, 500 typed (``error_class``) on an
+    aborted request or a bug, 400 a caller's error (bad JSON, shapes, a
+    prompt past the ladder, the fleet's keys: ``NotPorted``), 404 any
+    other path. Binds ``host`` (127.0.0.1); port 0 picks a free one,
+    read back from :attr:`port` after :meth:`start`."""
+
+    def __init__(self, session, port, host='127.0.0.1', decode_session=None,
+                 max_concurrent=None):
+        self.session = session
+        self.decode_session = decode_session
+        self.host = host
+        self.port = int(port)
+        self.max_concurrent = int(
+            max_concurrent if max_concurrent is not None
+            else _config.get('MXNET_TPU_SERVE_MAX_CONCURRENT'))
+        self._httpd = None
+        self._thread = None
+
+    def _statuses(self):
+        st = self.session.status()
+        if self.decode_session is None:
+            return st, st['status']
+        dst = self.decode_session.status()
+        worst = st['status'] if st['status'] != 'ok' else dst['status']
+        return {'status': worst, 'predict': st, 'generate': dst}, worst
+
+    def _retry_after(self, path):
+        src = self.decode_session if (path == '/generate' and
+                                      self.decode_session is not None) \
+            else self.session
+        try:
+            return float(src.retry_after_hint())
+        except Exception:  # noqa: BLE001 - a hint, never a failure
+            return 1.0
+
+    def start(self):
+        if self._httpd is not None:
+            return self
+        srv = self
+        gate = threading.BoundedSemaphore(self.max_concurrent) \
+            if self.max_concurrent > 0 else None
+
+        class Handler(BaseHTTPRequestHandler):
+            # HTTP/1.1 so /generate can stream chunked NDJSON; every other
+            # response carries its Content-Length
+            protocol_version = 'HTTP/1.1'
+
+            def _json(self, code, payload, headers=None):
+                body = (json.dumps(payload, sort_keys=True) + '\n').encode()
+                self.send_response(code)
+                self.send_header('Content-Type', 'application/json')
+                self.send_header('Content-Length', str(len(body)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _shed(self, path, payload):
+                hint = srv._retry_after(path)
+                payload['retry_after_s'] = hint
+                self._json(429, payload, headers={
+                    'Retry-After': str(max(1, int(hint + 0.999)))})
+
+            def _drain_body(self):
+                # an unread body on a keep-alive connection would be parsed
+                # as the next request line
+                try:
+                    length = int(self.headers.get('Content-Length', 0) or 0)
+                    if length:
+                        self.rfile.read(length)
+                except (ValueError, OSError):
+                    pass
+
+            def do_GET(self):
+                path = urlparse(self.path).path.rstrip('/')
+                if path == '/status':
+                    self._json(200, srv._statuses()[0])
+                elif path == '/healthz':
+                    # a load balancer keys on the code: an unhealthy
+                    # replica answers 503, the body keeps the detail
+                    worst = srv._statuses()[1]
+                    ok = worst == 'ok'
+                    self._json(200 if ok else 503,
+                               {'ok': ok, 'status': worst})
+                else:
+                    self.send_error(404)
+
+            def do_POST(self):
+                path = self.path.rstrip('/')
+                if path not in ('/predict', '/generate'):
+                    self._drain_body()
+                    self.send_error(404)
+                    return
+                if gate is not None and not gate.acquire(blocking=False):
+                    self._drain_body()
+                    self._shed(path, {
+                        'error': 'serving concurrency limit reached; shed '
+                                 'load or retry with backoff',
+                        'limit': srv.max_concurrent})
+                    return
+                try:
+                    self._admitted(path)
+                finally:
+                    if gate is not None:
+                        gate.release()
+
+            def _admitted(self, path):
+                try:
+                    length = int(self.headers.get('Content-Length', 0))
+                    req = json.loads(self.rfile.read(length) or b'{}')
+                    if not isinstance(req, dict):
+                        raise ValueError('not a JSON object')
+                except ValueError:
+                    self._json(400, {'error': 'bad JSON'})
+                    return
+                session = srv.session
+                try:
+                    if path == '/generate':
+                        self._generate(req)
+                    elif 'instances' in req:
+                        wait_s = _wait_s(session)
+                        futs = [session.submit(onp.asarray(x))
+                                for x in req['instances']]
+                        outs = [[o.tolist() for o in f.result(wait_s)]
+                                for f in futs]
+                        self._json(200, {'outputs': outs})
+                    elif 'data' in req:
+                        outs = session.infer(onp.asarray(req['data']),
+                                             timeout=_wait_s(session))
+                        self._json(200, {'outputs': [o.tolist()
+                                                     for o in outs]})
+                    else:
+                        self._json(400, {'error': "need 'data' or "
+                                                  "'instances'"})
+                except BackpressureError as exc:
+                    self._shed(path, {'error': str(exc), 'depth': exc.depth,
+                                      'limit': exc.limit})
+                except (RequestTimeout, _FutureTimeout) as exc:
+                    self._json(504, {'error': str(exc)
+                                     or 'request timed out'})
+                except BatcherClosed as exc:
+                    self._json(503, {'error': str(exc)})
+                except (ValueError, TypeError) as exc:
+                    # admission-time validation: shapes, arity, a prompt
+                    # past the ladder, the wrong route for the session
+                    self._json(400, {'error': str(exc)})
+                except Exception as exc:  # noqa: BLE001 - a typed 500
+                    self._json(500, {'error': '%s: %s'
+                                     % (type(exc).__name__, exc),
+                                     'error_class': type(exc).__name__})
+
+            def _generate(self, req):
+                gen = srv.decode_session if srv.decode_session is not None \
+                    else srv.session
+                fleet = [k for k in _FLEET_KEYS if k in req]
+                if fleet:
+                    self._json(400, {
+                        'error': '%s: the serving fleet\'s resume and '
+                                 'disaggregation keys are not ported '
+                                 '(ROADMAP A7)' % ', '.join(fleet),
+                        'error_class': 'NotPorted'})
+                    return
+                tokens = req.get('tokens')
+                if not tokens:
+                    self._json(400, {'error': "need 'tokens'"})
+                    return
+                kwargs = {'max_new_tokens': req.get('max_new_tokens'),
+                          'eos_id': req.get('eos_id')}
+                # the body wins over the header (the gateway's relay)
+                adapter = req.get('adapter')
+                if adapter is None:
+                    adapter = self.headers.get('X-Mxnet-Adapter')
+                if adapter is not None:
+                    kwargs['adapter'] = adapter
+                try:
+                    for key, cast in (('temperature', float),
+                                      ('top_p', float), ('seed', int)):
+                        val = req.get(key)
+                        if val is not None:
+                            kwargs[key] = cast(val)
+                except (TypeError, ValueError):
+                    self._json(400, {'error': 'bad sampling parameters'})
+                    return
+                stream = gen.generate(tokens, **kwargs)
+                if not req.get('stream', True):
+                    toks = stream.result(_wait_s(gen))
+                    self._json(200, {'tokens': toks,
+                                     'finish_reason': stream.finish_reason,
+                                     'degraded': stream.degraded})
+                    return
+                self._stream_ndjson(stream)
+
+            def _chunk(self, obj):
+                data = (json.dumps(obj, sort_keys=True) + '\n').encode()
+                self.wfile.write(b'%x\r\n%s\r\n' % (len(data), data))
+                # each token leaves now, not in a burst at the end
+                self.wfile.flush()
+
+            def _stream_ndjson(self, stream):
+                self.send_response(200)
+                self.send_header('Content-Type', 'application/x-ndjson')
+                self.send_header('Transfer-Encoding', 'chunked')
+                self.end_headers()
+                try:
+                    for i, tok in enumerate(stream):
+                        self._chunk({'token': tok, 'index': i})
+                    self._chunk({'done': True, 'tokens': stream.tokens,
+                                 'finish_reason': stream.finish_reason,
+                                 'degraded': stream.degraded})
+                except OSError:
+                    # the client went away: free its slot, and never write
+                    # to the dead socket again
+                    stream.cancel()
+                    return
+                except Exception as exc:  # noqa: BLE001 - on the last line
+                    # a failure mid-stream: the headers are gone, the
+                    # error rides the last line
+                    stream.cancel()
+                    try:
+                        self._chunk({'done': True,
+                                     'error': '%s: %s'
+                                     % (type(exc).__name__, exc),
+                                     'error_class': type(exc).__name__,
+                                     'tokens': stream.tokens})
+                    except OSError:
+                        return
+                try:
+                    self.wfile.write(b'0\r\n\r\n')
+                    self.wfile.flush()
+                except OSError:
+                    pass
+
+            def log_message(self, *args):
+                pass            # no line on stderr a request
+
+        class _Server(ThreadingHTTPServer):
+            daemon_threads = True
+            # a deep listen backlog: a burst of connections queues in the
+            # kernel instead of stalling in TCP retransmits
+            request_queue_size = 128
+
+            def handle_error(self, request, client_address):
+                import sys
+                # a client hanging up is normal serving weather
+                if isinstance(sys.exc_info()[1],
+                              (ConnectionError, TimeoutError)):
+                    return
+                ThreadingHTTPServer.handle_error(self, request,
+                                                 client_address)
+
+        self._httpd = _Server((self.host, self.port), Handler)
+        self.port = self._httpd.server_address[1]     # port 0 resolved
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name='mxnet-tpu-torch-serving-http')
+        self._thread.start()
+        return self
+
+    def stop(self):
+        if self._httpd is None:
+            return
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5.0)
+        self._httpd = self._thread = None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+def maybe_start_http_server(session):
+    """Start the endpoint over ``session`` when
+    ``MXNET_TPU_SERVE_HTTP_PORT`` is a nonzero port; returns the started
+    server, or None (the default: the server is off)."""
+    port = int(_config.get('MXNET_TPU_SERVE_HTTP_PORT') or 0)
+    if not port:
+        return None
+    return ServingHTTPServer(session, port).start()

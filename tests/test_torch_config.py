@@ -49,3 +49,26 @@ def test_empty_and_padded_bool_knobs(monkeypatch):
     monkeypatch.setenv('MXNET_TPU_SERVE_DECODE_SLOTS', '')
     with pytest.raises(ValueError):
         port_config.get('MXNET_TPU_SERVE_DECODE_SLOTS')
+
+
+# the endpoint's and the draft's knobs: name -> values to parse, each the
+# reference's way
+ENDPOINT_KNOBS = {
+    'MXNET_TPU_SERVE_HTTP_PORT': ('8080', '0', ' 7'),
+    'MXNET_TPU_SERVE_MAX_CONCURRENT': ('4', '0', '-1'),
+    'MXNET_TPU_SERVE_SPEC_DRAFT': ('/tmp/draft.frozen', ' x ', '0'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(ENDPOINT_KNOBS))
+def test_endpoint_and_draft_knobs_are_the_references(monkeypatch, name):
+    """Default, type, help text and parsing of the HTTP port, the
+    concurrency cap and the speculative draft's path."""
+    typ, default, doc = port_config.KNOBS[name]
+    knob = jax_config.KNOBS[name]
+    assert (typ, default, doc) == (knob.typ, knob.default, knob.doc)
+    monkeypatch.delenv(name, raising=False)
+    assert port_config.get(name) == jax_config.get(name) == default
+    for raw in ENDPOINT_KNOBS[name]:
+        monkeypatch.setenv(name, raw)
+        assert port_config.get(name) == jax_config.get(name) == typ(raw)
