@@ -129,7 +129,10 @@ Phases, in order; any failure exits non-zero:
      one and odd widths (1, 255, 257, 1000): the uniforms (its bits
      through the uniform) bitwise, the gumbel values within one float32
      ULP (``noise_ulps``); timed at the step's shape (no library call
-     computes JAX's threefry gumbel);
+     computes JAX's threefry gumbel), its bound counted from its SASS mix
+     (``cuobjdump -sass``: float32, integer and special-function
+     instructions a thread at each pipe's rate, all of them at the issue
+     rate; ``sass_bound``);
   3. the serving slice: a BERT-base-width causal TransformerLM (vocab
      30522, units 768, hidden 3072, 12 layers, 12 heads, max_len 512,
      random weights from seed 0) frozen with the slot cache and served
@@ -223,8 +226,8 @@ Phases, in order; any failure exits non-zero:
      tokens/s and TTFT beside 3p's), 3a's sampled base requests as plain
      bodies (equal to 3a's in-process streams at the same seeds), 6b's 8
      one-by-one images to ``/predict`` (bitwise 6b's responses; latency),
-     ``/healthz`` 200, a malformed body 400 and a fleet key 400
-     ``NotPorted``; no request builds a program, speculation acceptance
+     ``/healthz`` 200, a malformed body 400 and a ``request_id`` echoed on
+     a plain body; no request builds a program, speculation acceptance
      with the loaded draft >= 0.9, and the child's launch counts, zeroed
      before its first request, exact (3s's arithmetic over its engine's
      counts, one nms and 14 BN applies a ``/predict``), with plain paged
@@ -232,7 +235,34 @@ Phases, in order; any failure exits non-zero:
      ``device_loss@serving.decode.9:1`` with a breaker of one failure: the
      stream's done line ``degraded: true`` with the healthy tokens (a
      difference only at a near tie), ``/healthz`` 503 while the breaker is
-     open. The children's launches join the ``kernels`` line;
+     open. The children's launches join the ``kernels`` line. 3m, live
+     migration at the slice's width (after 3a, and (c)-(d) with 3h's main
+     child): (a) source A, 3a's program (page size 16, sampling, 8 rank-8
+     adapters over 7 pool rows), serves 3a's 24 requests; once 8 streams
+     have 8 tokens each, ``export_all`` gives 8 ``paged`` and 16 ``cold``
+     payloads, which B (the same weights and adapters at page size 128)
+     imports: each spliced stream equal to 3a's (a sampled one but at a
+     near tie of the perturbed scores, < 1e-4), B's prefills the cold
+     payloads, 24 in, the handoff pages each live payload's at each page
+     size; (b) 3s's 16 shared-prefix prompts ``prefill_only`` on A (15
+     prefix hits exported extending, before any token), imported by B
+     with no prefill, equal to 3s's greedy streams; exact launches for (a)
+     and (b), neither pool's storage replaced; each live payload alone
+     on B with an empty trie: import ms and its first continuation token
+     beside a fresh ``generate(prompt + emitted)``'s TTFT; the export's
+     gather + D2H and payload build apart, raw and JSON bytes; (c) 3h's
+     main child (its endpoint's preemption hook armed, blocked in
+     ``serve_until_drained``) streams 8 of 3p's greedy requests (128
+     tokens, request ids), SIGTERM after 4 tokens each: done lines
+     ``migrated``, ``/healthz`` 503 ``draining``, ``/generate`` and
+     ``/import`` 503 ``Draining``, each payload from ``GET
+     /drain?request_id=``, ``POST /import`` into B' (page 128, no draft)
+     continuing each with unbroken indices, the first 32 tokens 3p's and
+     every token teacher-forced, B' running no prefill, exact launches
+     in the child and in B', the child printing ``handed_off`` 8 and
+     exiting 75 within the 30 s drain budget; (d) ``/import`` of a
+     payload with one base64 character changed, and of an
+     adapter-pinned payload into B' (no adapters), 400;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -2445,6 +2475,61 @@ NOISE_ULP = 1              # the gumbel values against the plain version
 THREEFRY_OPS = 2 + 2 + 20 * 5 + 5 * 3 + 1 + 5 + 4
 
 
+# the SM's rates a clock at compute capability 9.0 (the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput): 128
+# float32 adds, multiplies and FMAs; 64 32-bit integer adds,
+# multiply-adds, shifts, compares, selects and logical operations; 16
+# special-function (MUFU) operations; and one warp instruction a clock
+# from each of the 4 schedulers, 128 thread instructions
+H100_SMS = 132
+H100_CLOCK_HZ = 1.98e9     # the boost clock the 67 TFLOP/s peak assumes
+SASS_RATES = {'fp32': 128, 'int': 64, 'mufu': 16, 'issue': 128}
+SASS_CLASSES = {
+    'fp32': ('FADD', 'FMUL', 'FFMA', 'FMNMX', 'FSETP', 'FSEL', 'FCHK'),
+    'int': ('IADD3', 'IADD', 'IMAD', 'LOP3', 'SHF', 'SHL', 'SHR', 'LEA',
+            'ISETP', 'SEL', 'IMNMX', 'PRMT', 'IABS', 'FLO', 'POPC', 'BMSK',
+            'ISCADD'),
+    'mufu': ('MUFU',)}
+
+
+def sass_mix(build, source, kernel_key):
+    """The instruction mix of the kernel whose name holds ``kernel_key``
+    in ``source``'s library (:func:`sass_text`): {class: count} over
+    'fp32', 'int', 'mufu' and 'other', NOPs left out. A static count: a
+    branch not taken (``logf``'s special cases) counts too."""
+    mix, inside = dict.fromkeys(list(SASS_CLASSES) + ['other'], 0), False
+    for line in sass_text(build, source).splitlines():
+        head = re.search(r'Function : (\S+)', line)
+        if head:
+            inside = kernel_key in head.group(1)
+            continue
+        m = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?'
+                     r'([A-Z][A-Z0-9]*)', line)
+        if not inside or not m or m.group(1) == 'NOP':
+            continue
+        cls = next((c for c, ops in SASS_CLASSES.items()
+                    if m.group(1) in ops), 'other')
+        mix[cls] += 1
+    if not sum(mix.values()):
+        raise AssertionError('no SASS found for %s in %s' % (kernel_key,
+                                                             source))
+    return mix
+
+
+def sass_bound(mix, elements, nbytes):
+    """(the least ms, the limit that sets it): each class's instructions
+    for ``elements`` threads at its rate, every instruction at the issue
+    rate, and ``nbytes`` at 3.35 TB/s."""
+    per_s = H100_SMS * H100_CLOCK_HZ
+    ms = {c: mix[c] * elements / (SASS_RATES[c] * per_s) * 1e3
+          for c in SASS_CLASSES}
+    ms['issue'] = sum(mix.values()) * elements / (SASS_RATES['issue']
+                                                  * per_s) * 1e3
+    ms['bytes'] = nbytes / PEAK_BYTES_S * 1e3
+    limit = max(ms, key=ms.get)
+    return ms[limit], limit, ms
+
+
 def noise_keys(torch, rows, device, seed):
     """``rows`` random raw keys as (rows, 2) int32 bits on ``device``."""
     import numpy as np
@@ -2494,14 +2579,19 @@ def check_noise_kernel(torch, noise, device, cases=NOISE_CASES):
     return worst
 
 
-def time_noise_kernel(torch, noise, device, rows=SLOTS, v=30522):
+def time_noise_kernel(torch, noise, device, build, rows=SLOTS, v=30522):
     """The noise kernel at the decode step's (slots, V) and the verify's
     rows: one event pair a call, the slope timer's device time (the keys
     are 64 bytes: nothing to rotate), the plain version; no library call
-    computes JAX's threefry gumbel."""
+    computes JAX's threefry gumbel. Its bound counts its SASS (a thread an
+    element) at each pipe's rate (:func:`sass_bound`); the float32-rate
+    bound of ``THREEFRY_OPS`` an element rides beside it."""
     keys = noise_keys(torch, rows, device, 1)
     nbytes = keys.numel() * 4 + rows * v * 4
-    b_ms, b_by = bound(nbytes, rows * v * THREEFRY_OPS)
+    f32_ms, _by = bound(nbytes, rows * v * THREEFRY_OPS)
+    mix = sass_mix(build, 'sampling', 'threefry_gumbel_kernel')
+    b_ms, limit, by_pipe = sass_bound(mix, rows * v, nbytes)
+    b_by = 'bytes' if limit == 'bytes' else 'operations'
     verify = noise_keys(torch, rows * (SPEC_K + 1), device, 2)
     return {'threefry_gumbel': dict(
         ms=time_ms(torch, lambda: noise.threefry_gumbel(keys, v)),
@@ -2510,7 +2600,9 @@ def time_noise_kernel(torch, noise, device, rows=SLOTS, v=30522):
         plain_ms=time_ms(torch,
                          lambda: noise.threefry_gumbel_reference(keys, v)),
         library_ms=None, library_device_ms=None, bound_ms=b_ms,
-        bound_by=b_by, shape='keys (%d, 2) V %d' % (rows, v),
+        bound_by=b_by, bound_pipe=limit, bound_by_pipe_ms=by_pipe,
+        sass_mix=mix, bound_f32_rate_ms=f32_ms,
+        shape='keys (%d, 2) V %d' % (rows, v),
         by_shape={'verify (%d, %d)' % (verify.shape[0], v): device_ms(
             torch, lambda: noise.threefry_gumbel(verify, v), ())})}
 
@@ -2757,6 +2849,21 @@ def teacher_forced(torch, model, params, prompts, outs, device):
     return equal, ties
 
 
+def shared_prompts(cfg, requests=REQUESTS, slots=SLOTS, seed=0,
+                   prefix_tokens=PREFIX_TOKENS, suffix_range=SUFFIX_RANGE):
+    """Phase 3s's prefix-sharing prompts: ``requests`` prompts of one
+    ``prefix_tokens``-token prefix and a suffix each, the prefix alone
+    twice after the first ``slots`` of them; and the generator, drawn
+    that far (3s's warm-up prompt comes from it)."""
+    import numpy as np
+    rs = np.random.RandomState(seed + 1)
+    prefix = rs.randint(0, cfg['vocab'], prefix_tokens).tolist()
+    shared = [prefix + rs.randint(0, cfg['vocab'], n).tolist()
+              for n in rs.randint(suffix_range[0], suffix_range[1] + 1,
+                                  requests)]
+    return shared[:slots] + [prefix, prefix] + shared[slots:], rs
+
+
 def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
                  buckets=BUCKETS, requests=REQUESTS, new_tokens=NEW_TOKENS,
                  seed=0, spec_k=SPEC_K, prefix_tokens=PREFIX_TOKENS,
@@ -2782,12 +2889,8 @@ def serve_shared(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
     import numpy as np
     layers = cfg['layers']
     model, params = serving.init_transformer_lm(seed=seed, **cfg)
-    rs = np.random.RandomState(seed + 1)
-    prefix = rs.randint(0, cfg['vocab'], prefix_tokens).tolist()
-    shared = [prefix + rs.randint(0, cfg['vocab'], n).tolist()
-              for n in rs.randint(suffix_range[0], suffix_range[1] + 1,
-                                  requests)]
-    shared = shared[:slots] + [prefix, prefix] + shared[slots:]
+    shared, rs = shared_prompts(cfg, requests, slots, seed, prefix_tokens,
+                                suffix_range)
     phase3 = np.random.RandomState(seed)     # phase 3's prompts
     lens = phase3.randint(prompt_range[0], prompt_range[1] + 1,
                           size=requests)
@@ -2927,6 +3030,24 @@ def adapter_requests(cfg, requests=REQUESTS, extra=EXTRA_PROMPTS,
     return out
 
 
+def phase3a_adapters(adapters_mod, model):
+    """3a's ``ADAPTERS`` adapters of rank ``ADAPTER_RANK``, ids ``ad0``,
+    ``ad1``, ..., from seeds 0, 1, ..."""
+    return {'ad%d' % i: adapters_mod.init_adapter(model, ADAPTER_RANK, seed=i,
+                                                  scale=ADAPTER_SCALE)
+            for i in range(ADAPTERS)}
+
+
+def adapter_registry(adapters_mod, prog, ads):
+    """A registry of the adapters ``ads`` over a pool of ``prog``'s
+    geometry (the engine binds the pool to the program's)."""
+    reg = adapters_mod.AdapterRegistry(
+        adapters_mod.AdapterPool(prog.adapter_spec))
+    for name, ad in ads.items():
+        reg.register(name, ad)
+    return reg
+
+
 def generate_all(sess, reqs, new_tokens):
     """Every request of ``reqs`` through ``sess`` at once; their tokens.
     A healthy run: no stream may come back degraded."""
@@ -3005,9 +3126,7 @@ def serve_adapters(torch, serving, kernels, device, base_outs, cfg=SLICE,
     layers = cfg['layers']
     model, params = serving.init_transformer_lm(seed=seed, **cfg)
     reqs = adapter_requests(cfg)
-    ads = {'ad%d' % i: adapters_mod.init_adapter(model, ADAPTER_RANK, seed=i,
-                                                 scale=ADAPTER_SCALE)
-           for i in range(ADAPTERS)}
+    ads = phase3a_adapters(adapters_mod, model)
 
     def build(capture=True, spec=0, rank=ADAPTER_RANK, **kw):
         prog = serving.freeze_decode(
@@ -3018,11 +3137,7 @@ def serve_adapters(torch, serving, kernels, device, base_outs, cfg=SLICE,
         return prog
 
     def registry(prog):
-        reg = adapters_mod.AdapterRegistry(
-            adapters_mod.AdapterPool(prog.adapter_spec))
-        for name, ad in ads.items():
-            reg.register(name, ad)
-        return reg
+        return adapter_registry(adapters_mod, prog, ads)
 
     runs = {}
     for capture in (True, False):
@@ -3630,10 +3745,15 @@ FAULT_SPEC = 'device_loss@serving.decode.9:1'
 
 # the child: loads the artifacts on the card, captures, serves them behind
 # one ServingHTTPServer; prints READY <json> (its port and its phase
-# times, on the wall clock) and, when its stdin closes, DONE <json> (its
-# launch counts from READY on, the programs, the sessions' stats)
+# times, on the wall clock). The fault child prints DONE <json> (its
+# launch counts from READY on, the programs, the sessions' stats) when its
+# stdin closes. The main child arms the endpoint's preemption hook and
+# blocks in serve_until_drained: a STATS line on its stdin prints STATS
+# <json> (DONE's fields), and SIGTERM drains it: it prints DRAINED <json>
+# (the same fields and the drain's result) and exits with the resumable
+# code
 CHILD_3H = r'''
-import json, sys, time
+import json, sys, threading, time
 t_start = time.time()
 root, mode, lm_path, ssd_path = sys.argv[1:5]
 sys.path.insert(0, root)
@@ -3659,11 +3779,30 @@ t_capture = time.time()
 srv = serving.ServingHTTPServer(osess if osess is not None else sess, 0,
                                 decode_session=sess if osess is not None
                                 else None).start()
+if mode == 'main':
+    srv.install_preempt_hook(poll_s=0.005)
 seconds = {'lm': dict(lm.load_seconds), 'draft': dict(sess.draft.load_seconds)}
 if ssd is not None:
     seconds['ssd'] = dict(ssd.load_seconds)
 compiled = {'lm': dict(lm.compile_seconds),
             'draft': dict(sess.draft.compile_seconds)}
+
+
+def snapshot():
+    stats = sess.stats()
+    doc = {'launches': kernels.launch_counts(), 'counts': stats['counts'],
+           'spec': stats.get('spec'), 'compiled': lm.compile_count,
+           'draft_compiled': sess.draft.compile_count,
+           'status': sess.status()['status']}
+    if osess is not None:
+        ost = osess.stats()
+        doc.update(ssd_compiled=ssd.compile_count,
+                   by_bucket={str(k): v for k, v in
+                              ost['batches_by_bucket'].items()},
+                   oneshot_status=osess.status()['status'])
+    return doc
+
+
 kernels.reset_launch_counts()
 print('READY ' + json.dumps({
     'port': srv.port, 'start': t_start, 'imported': t_import,
@@ -3674,19 +3813,23 @@ print('READY ' + json.dumps({
     'spec_k': lm.spec_k, 'modules': sorted(
         m for m in sys.modules if m.split('.')[0] in ('jax', 'mxnet_tpu'))}),
     flush=True)
+if mode == 'main':
+    def stats_lines():
+        for line in sys.stdin:
+            if line.strip() == 'STATS':
+                print('STATS ' + json.dumps(snapshot()), flush=True)
+    threading.Thread(target=stats_lines, daemon=True).start()
+    try:
+        srv.serve_until_drained(timeout=1200)
+    finally:
+        doc = snapshot()
+        doc['drain'] = srv.drain_result
+        print('DRAINED ' + json.dumps(doc), flush=True)
+        srv.stop()
+        if osess is not None:
+            osess.close()
 sys.stdin.read()
-launches = kernels.launch_counts()
-stats = sess.stats()
-doc = {'launches': launches, 'counts': stats['counts'],
-       'spec': stats.get('spec'), 'compiled': lm.compile_count,
-       'draft_compiled': sess.draft.compile_count,
-       'status': sess.status()['status']}
-if osess is not None:
-    ost = osess.stats()
-    doc.update(ssd_compiled=ssd.compile_count,
-               by_bucket={str(k): v for k, v in
-                          ost['batches_by_bucket'].items()},
-               oneshot_status=osess.status()['status'])
+doc = snapshot()
 srv.stop()
 sess.close()
 if osess is not None:
@@ -3772,6 +3915,13 @@ class _Child:
             if line.startswith(tag + ' '):
                 return json.loads(line[len(tag) + 1:])
 
+    def stats(self):
+        """The main child's STATS JSON (DONE's fields), asked for on its
+        stdin."""
+        self.proc.stdin.write('STATS\n')
+        self.proc.stdin.flush()
+        return self.expect('STATS', CHILD_DONE_S)
+
     def stop(self):
         """Close its stdin (it then prints DONE and exits); returns DONE's
         JSON."""
@@ -3795,21 +3945,21 @@ class _Child:
         self._err.close()
 
 
-def _http_stream(port, body):
-    """One NDJSON ``/generate`` over its own connection: (the token lines,
-    the done line, seconds to the first token line, the wall time of its
-    arrival)."""
+def _http_stream(port, body, path='/generate'):
+    """One NDJSON ``/generate`` (or ``path``) over its own connection:
+    (the token lines, the done line, seconds to the first token line, the
+    wall time of its arrival)."""
     import http.client
     conn = http.client.HTTPConnection('127.0.0.1', port,
                                       timeout=HTTP_BUDGET_S)
     try:
         t0 = time.perf_counter()
-        conn.request('POST', '/generate', body=json.dumps(body).encode(),
+        conn.request('POST', path, body=json.dumps(body).encode(),
                      headers={'Content-Type': 'application/json'})
         resp = conn.getresponse()
         if resp.status != 200:
-            raise AssertionError('phase 3h: /generate answered %d: %s'
-                                 % (resp.status, resp.read()[:500]))
+            raise AssertionError('phase 3h: %s answered %d: %s'
+                                 % (path, resp.status, resp.read()[:500]))
         lines, ttft, first_at = [], None, None
         for raw in resp:
             line = json.loads(raw)
@@ -3868,7 +4018,8 @@ def http_launches(c, launches, layers, batches, k=SPEC_K):
 
 
 def serve_http(torch, serving, kernels, arts, greedy, sampled, long_req,
-               images, cfg=SLICE, new_tokens=NEW_TOKENS, buckets=BUCKETS):
+               images, refused, cfg=SLICE, new_tokens=NEW_TOKENS,
+               buckets=BUCKETS):
     """Phase 3h (b)-(c): a fresh process loads the LM and SSD-300
     artifacts, its draft through ``MXNET_TPU_SERVE_SPEC_DRAFT`` (with
     ``MXNET_TPU_SERVE_SPEC_K`` 3; no other ``MXNET_TPU_*`` variable of
@@ -3879,7 +4030,9 @@ def serve_http(torch, serving, kernels, arts, greedy, sampled, long_req,
     requests as plain bodies, 6b's one-by-one images to ``/predict``
     (latency), and the endpoint's own answers. ``greedy`` and ``sampled``
     are (request, in-process tokens) pairs, ``long_req`` one, ``images``
-    6b's (images, responses, buckets). Returns a dict of results."""
+    6b's (images, responses, buckets). Then phase 3m (c)-(d) with the same
+    child (:func:`drain_http`; ``refused`` is an adapter-pinned payload of
+    3m (a)). Returns a dict of results."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
     env = {k: v for k, v in os.environ.items()
@@ -3956,18 +4109,23 @@ def serve_http(torch, serving, kernels, arts, greedy, sampled, long_req,
             'healthz': _http_json(port, 'GET', '/healthz'),
             'malformed': _http_json(port, 'POST', '/generate',
                                     raw=b'{"tokens": [1, 2'),
-            'not ported': _http_json(port, 'POST', '/generate', {
-                'tokens': [1, 2], 'request_id': 'r1'}),
+            'request_id': _http_json(port, 'POST', '/generate', {
+                'tokens': greedy[0][0], 'max_new_tokens': 2, 'stream': False,
+                'request_id': 'r1'}),
             'status': _http_json(port, 'GET', '/status')}
         if checks['healthz'] != (200, {'ok': True, 'status': 'ok'}) or \
                 checks['malformed'][0] != 400 or \
-                checks['not ported'][0] != 400 or \
-                checks['not ported'][1].get('error_class') != 'NotPorted' or \
+                checks['request_id'] != (200, {
+                    'tokens': greedy[0][1][:2], 'finish_reason': 'length',
+                    'degraded': False, 'request_id': 'r1'}) or \
                 checks['status'][1]['status'] != 'ok':
             raise AssertionError('phase 3h: the endpoint answered %s'
                                  % {k: v for k, v in checks.items()
                                     if k != 'status'})
-        done_doc = child.stop()
+        done_doc = child.stats()
+        drain = drain_http(torch, serving, kernels, child, port, greedy,
+                           refused, cfg=cfg, new_tokens=new_tokens,
+                           buckets=buckets)
     finally:
         child.close()
     c = done_doc['counts']
@@ -3992,6 +4150,15 @@ def serve_http(torch, serving, kernels, arts, greedy, sampled, long_req,
         raise AssertionError('phase 3h: the child launched %r, expected %r '
                              '(%d plain steps)' % (launches, want,
                                                    plain_steps))
+    # the drained child's launches, the 3m streams' among them, as exact;
+    # the path's: those streams' in the child and B''s continuations
+    dd = drain['drained']
+    want = http_launches(dd['counts'], dd['launches'], cfg['layers'], len(x))
+    if dd['launches'] != want:
+        raise AssertionError('phase 3m (c): the drained child launched %r, '
+                             'expected %r' % (dd['launches'], want))
+    drain['launches'] = {k: v + dd['launches'][k] - launches[k]
+                         for k, v in drain['launches'].items()}
     ttft = [r[2] for r in runs]
     tokens = sum(len(r[1]['tokens']) for r in runs)
     return {
@@ -4004,7 +4171,7 @@ def serve_http(torch, serving, kernels, arts, greedy, sampled, long_req,
         'predict_p99_ms': percentile(lat, 99) * 1e3,
         'acceptance': acceptance, 'counts': c, 'launches': launches,
         'spawned': child.spawned, 'plain_steps': plain_steps,
-        'sampled': len(sampled), 'images': len(x),
+        'sampled': len(sampled), 'images': len(x), 'drain': drain,
     }
 
 
@@ -4102,6 +4269,543 @@ def log_http(h, hf, arts, rp, det, card):
         % (card, FAULT_SPEC, hf['fallback_tokens'], len(hf['ties']),
            hf['ties'], hf['wall_s'], hf['healthz'], hf['retired'],
            {k: v for k, v in hf['launches'].items() if v}))
+
+
+# -- phase 3m: live migration, prefill_only and the drain ---------------------
+
+MIGRATE_PAGE = 128         # the destination's page size (the source's: 16)
+MIGRATE_AFTER = 8          # tokens each live stream has when export_all runs
+DRAIN_STREAMS = 8          # 3p's requests streamed to 3h's child, drained
+DRAIN_AFTER = 4            # tokens each has streamed when SIGTERM is sent
+# their budget: 4 tokens in, the drain lands mid-stream with room to spare;
+# the first NEW_TOKENS of each spliced stream are held to 3p's
+DRAIN_TOKENS = 128
+DRAIN_BUDGET_S = 30.0      # MXNET_TPU_SERVE_DRAIN_TIMEOUT_S's default
+
+
+def payload_bytes(payload):
+    """(the rows' raw bytes, the document's JSON bytes) of a payload."""
+    import numpy as np
+    raw = sum(int(np.prod(e['shape'])) * np.dtype(e['dtype']).itemsize
+              for e in payload['entries'].values())
+    return raw, len(json.dumps(payload))
+
+
+def import_when_free(serving, eng, payload, budget=600.0):
+    """``eng.import_sequence(payload)``, retried while the engine has no
+    free slot (``BackpressureError``). Returns (the stream, the seconds of
+    the call that landed it)."""
+    deadline = time.monotonic() + budget
+    while True:
+        t0 = time.perf_counter()
+        try:
+            stream = eng.import_sequence(payload, timeout=budget)
+            return stream, time.perf_counter() - t0
+        except serving.BackpressureError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.002)
+
+
+def _count_delta(after, before):
+    return {k: v - before[k] for k, v in after.items() if k != 'retired'}
+
+
+def _first_difference(got, want):
+    return next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def serve_migration(torch, serving, kernels, device, want_3a, want_3s,
+                    cfg=SLICE, slots=SLOTS, buckets=BUCKETS,
+                    new_tokens=NEW_TOKENS, seed=0):
+    """Phase 3m (a)-(b) at the slice's width. Source A is 3a's program
+    (page size 16, sampling, an adapter pool of ``ADAPTER_SLOTS`` rows over
+    3a's 8 adapters), destination B the same weights frozen again at page
+    size ``MIGRATE_PAGE`` with its own registry of the same adapters.
+    (a): A serves 3a's 24 requests; once ``slots`` streams have
+    ``MIGRATE_AFTER`` tokens each, ``export_all`` gives 8 ``paged`` and 16
+    ``cold`` payloads, which B imports (the live ones first): every
+    spliced stream equal to 3a's (``want_3a``), sampled ones but at a near
+    tie of the plain stream's perturbed scores; B's prefills the cold
+    payloads, 24 in, the handoff pages every live payload's. (b): A serves
+    3s's 16 shared-prefix prompts ``prefill_only`` (the later ones export
+    the extending state of a prefix hit, before any token), B imports
+    them: equal to 3s's greedy streams (``want_3s``), no prefill on B.
+    The launches of (a) and (b) exact; neither pool's storage replaced.
+    Then, on B with an empty trie, each live payload of (a) alone: the
+    TTFT of a fresh ``generate(prompt + emitted)``, then the import, its
+    first continuation token (from the import call, and from the rows'
+    landing) and the continuation exported again, alone (its gather and
+    build with nothing else running). Returns a dict of results."""
+    from mxnet_tpu_torch.serving import adapters as adapters_mod
+    from mxnet_tpu_torch.serving.decode.paged import pages_for
+    layers = cfg['layers']
+    model, params = serving.init_transformer_lm(seed=seed, **cfg)
+    reqs = adapter_requests(cfg)
+    ads = phase3a_adapters(adapters_mod, model)
+
+    def build(page_size):
+        return serving.freeze_decode(
+            model, params, slots=slots, prefill_buckets=buckets,
+            page_size=page_size, adapter_rank=ADAPTER_RANK,
+            adapter_slots=ADAPTER_SLOTS, sample_args=True, device=device)
+
+    def session(prog):
+        return serving.InferenceSession(
+            prog, timeout_s=600, max_new_tokens=new_tokens,
+            adapters=adapter_registry(adapters_mod, prog, ads))
+
+    def storage(prog):
+        return {k: t.data_ptr() for k, t in prog._cache.items()}
+
+    src, dst = build(PAGE_SIZE), build(MIGRATE_PAGE)
+    del params
+    sess_a, sess_b = session(src), session(dst)
+    eng_a, eng_b = sess_a._engine, sess_b._engine
+    held = (storage(src), storage(dst))
+    try:
+        before_a = eng_a.stats()['counts']
+        before_b = eng_b.stats()['counts']
+        kernels.reset_launch_counts()
+        # (a) mid-stream, across page sizes
+        streams = [sess_a.generate(
+            r['prompt'], max_new_tokens=new_tokens, adapter=r['adapter'],
+            temperature=r['temperature'], top_p=r['top_p'], seed=r['seed'],
+            request_id='m%d' % i) for i, r in enumerate(reqs)]
+        wait_until(lambda: sum(len(s.tokens) >= MIGRATE_AFTER
+                               for s in streams) >= slots,
+                   'phase 3m (a): %d streams of %d tokens'
+                   % (slots, MIGRATE_AFTER))
+        t0 = time.perf_counter()
+        payloads = eng_a.export_all(timeout=600)
+        export_all_s = time.perf_counter() - t0
+        live = [p for p in payloads if p['kind'] == 'paged']
+        cold = [p for p in payloads if p['kind'] == 'cold']
+        if len(live) != slots or len(cold) != len(reqs) - slots or \
+                any(s.finish_reason != 'migrated' for s in streams):
+            raise AssertionError('phase 3m (a): export_all gave %s, streams '
+                                 'finished %s' % (
+                                     [p['kind'] for p in payloads],
+                                     [s.finish_reason for s in streams]))
+        exports = []
+        for p in live:
+            i = int(p['request_id'][1:])
+            if p['emitted'] != streams[i].tokens or \
+                    p['pos'] != len(reqs[i]['prompt']) + len(p['emitted']) - 1:
+                raise AssertionError('phase 3m (a): request %d exported %d '
+                                     'tokens at pos %d, streamed %d'
+                                     % (i, len(p['emitted']), p['pos'],
+                                        len(streams[i].tokens)))
+            raw, js = payload_bytes(p)
+            sec = streams[i].export_seconds
+            exports.append(dict(request=i, pos=p['pos'],
+                                emitted=len(p['emitted']),
+                                gather_ms=sec['gather_s'] * 1e3,
+                                build_ms=sec['build_s'] * 1e3,
+                                raw_bytes=raw, json_bytes=js))
+        conts, import_ms = {}, {}
+        for p in live + cold:
+            stream, secs = import_when_free(serving, eng_b, p)
+            conts[int(p['request_id'][1:])] = stream
+            import_ms[int(p['request_id'][1:])] = secs * 1e3
+        outs = [conts[i].result(600) for i in range(len(reqs))]
+        ties, differ = [], []
+        for i, (r, got, want) in enumerate(zip(reqs, outs, want_3a)):
+            if got == want:
+                continue
+            t = _first_difference(got, want)
+            gap = perturbed_margin(torch, model, dst.params,
+                                   eng_b._adapters, r, want, t, device) \
+                if r['temperature'] > 0 and len(got) == len(want) else None
+            (ties if gap is not None and gap < TIE else differ).append(
+                (i, t, gap))
+        if differ:
+            raise AssertionError('phase 3m (a): spliced streams differ from '
+                                 '3a\'s where no near tie excuses it '
+                                 '(request, token, perturbed margin): %s'
+                                 % differ)
+        mid_a = eng_a.stats()['counts']
+        mid_b = eng_b.stats()['counts']
+        da, db = _count_delta(mid_a, before_a), _count_delta(mid_b, before_b)
+        want_pages = (sum(pages_for(p['pos'], PAGE_SIZE) for p in live),
+                      sum(pages_for(p['pos'], MIGRATE_PAGE) for p in live))
+        if db['prefills'] != len(cold) or db['migrated_in'] != len(reqs) or \
+                da['migrated_out'] != len(reqs) or \
+                (da['handoff_pages'], db['handoff_pages']) != want_pages:
+            raise AssertionError('phase 3m (a): A %s, B %s, handoff pages '
+                                 'expected %s' % (da, db, want_pages))
+
+        # (b) prefill_only, the extending export of a prefix hit
+        shared, _rs = shared_prompts(cfg, slots=slots, seed=seed)
+        picks = [i for i in range(len(shared)) if i not in (slots, slots + 1)]
+        po = [sess_a.generate(shared[i], max_new_tokens=new_tokens,
+                              prefill_only=True, request_id='p%d' % i)
+              for i in picks]
+        for s in po:
+            s.result(600)
+        if any(s.finish_reason != 'migrated' or s.seqstate is None
+               for s in po):
+            raise AssertionError('phase 3m (b): prefill_only streams finished '
+                                 '%s' % [s.finish_reason for s in po])
+        staged = [s.seqstate for s in po]
+        extending = sum(1 for p in staged if not p['emitted'])
+        conts_b = [import_when_free(serving, eng_b, p)[0] for p in staged]
+        outs_b = [c.result(600) for c in conts_b]
+        wrong = [i for i, got in zip(picks, outs_b) if got != want_3s[i]]
+        end_a = eng_a.stats()['counts']
+        end_b = eng_b.stats()['counts']
+        pa, pb = _count_delta(end_a, mid_a), _count_delta(end_b, mid_b)
+        if wrong or pa['prefill_exports'] != len(picks) or pb['prefills'] or \
+                extending != len(picks) - 1 or \
+                pa['prefix_hits'] != len(picks) - 1:
+            raise AssertionError('phase 3m (b): streams %s differ from 3s\'s; '
+                                 'A %s, B %s, %d extending exports'
+                                 % (wrong, pa, pb, extending))
+        launches = kernels.launch_counts()
+        ta, tb = _count_delta(end_a, before_a), _count_delta(end_b, before_b)
+        prefills = ta['prefills'] + tb['prefills']
+        steps = ta['steps'] + tb['steps']
+        want = dict.fromkeys(launches, 0)
+        want['flash_attention_fwd'] = layers * prefills
+        want['flash_paged_decode_fwd'] = layers * steps
+        want['threefry_gumbel'] = prefills + steps
+        if device.type == 'cuda' and launches != want:
+            raise AssertionError('phase 3m: kernel launches %r, expected %r'
+                                 % (launches, want))
+        refused = next(p for p in live if p.get('adapter_id'))
+    finally:
+        sess_a.close()
+        sess_b.close()
+    if (storage(src), storage(dst)) != held:
+        raise AssertionError('phase 3m: an export or import replaced a pool '
+                             'tensor the captured programs hold')
+    del src, sess_a, eng_a
+    # each live payload alone on B, its trie empty: a fresh generate of the
+    # same context first (so that it hits nothing the import registered),
+    # then the import
+    sess_c = session(dst)
+    solo = []
+    try:
+        eng_c = sess_c._engine
+        for p in live:
+            i = int(p['request_id'][1:])
+            r = reqs[i]
+            context = p['prompt'] + p['emitted']
+            if len(context) > dst.max_prompt_len():
+                solo.append(dict(request=i, context=len(context)))
+                continue
+            fresh = sess_c.generate(context, max_new_tokens=1,
+                                    adapter=r['adapter'],
+                                    temperature=r['temperature'],
+                                    top_p=r['top_p'], seed=r['seed'])
+            fresh_tok = fresh.result(600)
+            t0 = time.perf_counter()
+            stream = eng_c.import_sequence(p, timeout=600)
+            imp_ms = (time.perf_counter() - t0) * 1e3
+            first = next(iter(stream))
+            first_ms = (time.perf_counter() - t0) * 1e3
+            again = eng_c.export_sequence(stream, timeout=600)
+            sec = stream.export_seconds
+            raw, js = payload_bytes(again)
+            solo.append(dict(request=i, context=len(context),
+                             import_ms=imp_ms, first_token_ms=first_ms,
+                             landed_ms=stream.ttft_s * 1e3,
+                             fresh_ttft_ms=fresh.ttft_s * 1e3,
+                             same_token=fresh_tok == [first],
+                             export_pos=again['pos'],
+                             gather_ms=sec['gather_s'] * 1e3,
+                             build_ms=sec['build_s'] * 1e3,
+                             raw_bytes=raw, json_bytes=js))
+        if eng_c.stats()['counts']['prefix_hits']:
+            raise AssertionError('phase 3m: the solo generates hit the trie')
+    finally:
+        sess_c.close()
+    return dict(exports=exports, import_ms=import_ms, ties=ties,
+                export_all_s=export_all_s, live=len(live), cold=len(cold),
+                handoff_pages=want_pages, a=da, b=db, prefill_only=pa,
+                extending=extending, launches=launches, solo=solo,
+                refused=refused)
+
+
+def drain_http(torch, serving, kernels, child, port, greedy, refused,
+               cfg=SLICE, slots=SLOTS, buckets=BUCKETS,
+               new_tokens=NEW_TOKENS, seed=0, device=None):
+    """Phase 3m (c)-(d) with 3h's main child (the reloaded 3p program,
+    ``spec_k`` 3 and its draft), whose endpoint's preemption hook is
+    armed. In process, destination B' (the same weights at page size
+    ``MIGRATE_PAGE``, no draft: a speculative source into a plain
+    destination) behind an endpoint. (d): ``/import`` of ``refused`` (an
+    adapter-pinned payload of 3m (a)) with one base64 character of an
+    entry changed answers 400 (torn), and unchanged also 400 (B' serves
+    no adapters). (c): ``DRAIN_STREAMS`` of 3p's greedy requests stream
+    from the child with request ids; once each has ``DRAIN_AFTER`` tokens
+    the child gets SIGTERM: every done line ``migrated`` with its request
+    id, ``/healthz`` 503 ``draining``, a ``/generate`` and an ``/import``
+    shed 503 ``Draining``, ``GET /drain?request_id=`` serves each payload,
+    ``POST /import`` into B' with ``start_index`` continues each (no
+    prefill, indices 0..n-1 unbroken, the first ``NEW_TOKENS`` 3p's, every
+    token teacher-forced), and the child exits 75 within the drain budget
+    after printing ``handed_off`` 8. Returns a dict of results."""
+    import signal
+    import threading
+    device = device or torch.device('cuda')
+    layers = cfg['layers']
+    model, params = serving.init_transformer_lm(seed=seed, **cfg)
+    prog = serving.freeze_decode(model, params, slots=slots,
+                                 prefill_buckets=buckets,
+                                 page_size=MIGRATE_PAGE, device=device)
+    del params
+    sess = serving.InferenceSession(prog, timeout_s=600,
+                                    max_new_tokens=new_tokens)
+    srv = serving.ServingHTTPServer(sess, 0).start()
+    try:
+        # (d) typed refusals
+        torn = json.loads(json.dumps(refused))
+        blk = torn['entries'][sorted(torn['entries'])[0]]
+        mid = len(blk['data']) // 2
+        blk['data'] = blk['data'][:mid] + (
+            'B' if blk['data'][mid] != 'B' else 'C') + blk['data'][mid + 1:]
+        refusals = {'torn': _http_json(srv.port, 'POST', '/import',
+                                       {'seqstate': torn}),
+                    'adapter': _http_json(srv.port, 'POST', '/import',
+                                          {'seqstate': refused})}
+        if refusals['torn'][0] != 400 or \
+                'torn' not in refusals['torn'][1]['error'] or \
+                refusals['adapter'][0] != 400 or \
+                'adapter' not in refusals['adapter'][1]['error']:
+            raise AssertionError('phase 3m (d): /import answered %s'
+                                 % refusals)
+        del torn
+
+        # (c) the drain of a real process over HTTP
+        reqs = greedy[:DRAIN_STREAMS]
+        lines = [[] for _ in reqs]
+        done = [None] * len(reqs)
+        cv = threading.Condition()
+
+        def run(i):
+            import http.client
+            conn = http.client.HTTPConnection('127.0.0.1', port,
+                                              timeout=HTTP_BUDGET_S)
+            try:
+                conn.request('POST', '/generate', body=json.dumps({
+                    'tokens': reqs[i][0], 'max_new_tokens': DRAIN_TOKENS,
+                    'request_id': 'drain-%d' % i}).encode(),
+                    headers={'Content-Type': 'application/json'})
+                resp = conn.getresponse()
+                for raw in resp:
+                    line = json.loads(raw)
+                    with cv:
+                        if 'token' in line:
+                            lines[i].append(line)
+                        else:
+                            done[i] = line
+                        cv.notify_all()
+            finally:
+                conn.close()
+                with cv:
+                    if done[i] is None:
+                        done[i] = {'error': 'no done line'}
+                    cv.notify_all()
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        with cv:
+            ready = cv.wait_for(lambda: all(
+                len(ln) >= DRAIN_AFTER for ln in lines)
+                or any(d is not None for d in done), HTTP_BUDGET_S)
+        if not ready or any(d is not None for d in done):
+            raise AssertionError('phase 3m (c): the streams before SIGTERM: '
+                                 '%s tokens, done %s' % (
+                                     [len(ln) for ln in lines], done))
+        exited = {}
+
+        def wait_exit():
+            rc = child.proc.wait(HTTP_BUDGET_S)
+            exited.update(rc=rc, s=time.perf_counter() - t_term)
+
+        t_term = time.perf_counter()
+        child.proc.send_signal(signal.SIGTERM)
+        waiter = threading.Thread(target=wait_exit, daemon=True)
+        waiter.start()
+        for t in threads:
+            t.join(HTTP_BUDGET_S)
+        bad = [(i, d) for i, d in enumerate(done)
+               if d is None or 'error' in d
+               or d.get('finish_reason') != 'migrated'
+               or d.get('request_id') != 'drain-%d' % i
+               or d.get('tokens') != [ln['token'] for ln in lines[i]]
+               or [ln['index'] for ln in lines[i]] != list(range(len(
+                   lines[i])))]
+        if bad:
+            raise AssertionError('phase 3m (c): done lines %s' % bad)
+        shed = {'healthz': _http_json(port, 'GET', '/healthz'),
+                'generate': _http_json(port, 'POST', '/generate', {
+                    'tokens': reqs[0][0]}),
+                'import': _http_json(port, 'POST', '/import', {
+                    'seqstate': {}})}
+        if shed['healthz'] != (503, {'ok': False, 'status': 'draining'}) or \
+                any(shed[k][0] != 503 or shed[k][1].get('error_class')
+                    != 'Draining' for k in ('generate', 'import')):
+            raise AssertionError('phase 3m (c): while draining %s' % shed)
+        payloads, drain_ms = [], []
+        for i in range(len(reqs)):
+            deadline = time.monotonic() + HTTP_BUDGET_S
+            while True:
+                t0 = time.perf_counter()
+                code, snap = _http_json(port, 'GET',
+                                        '/drain?request_id=drain-%d' % i)
+                ms = (time.perf_counter() - t0) * 1e3
+                if code != 200 or snap['schema'] != 'mxnet_tpu.drain.v1':
+                    raise AssertionError('phase 3m (c): /drain answered %d '
+                                         '%s' % (code, snap))
+                if snap['sequences']:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError('phase 3m (c): no payload for '
+                                         'drain-%d' % i)
+                time.sleep(0.01)
+            p = snap['sequences'][0]
+            if p['request_id'] != 'drain-%d' % i or \
+                    p['emitted'] != done[i]['tokens']:
+                raise AssertionError('phase 3m (c): /drain served %s for '
+                                     'drain-%d' % (p['request_id'], i))
+            payloads.append(p)
+            drain_ms.append(ms)
+        before = sess.stats()['counts']
+        kernels.reset_launch_counts()
+
+        def land(p):
+            t0 = time.perf_counter()
+            got = _http_stream(srv.port, {'seqstate': p,
+                                          'start_index': len(p['emitted'])},
+                               path='/import')
+            return got, (time.perf_counter() - t0) * 1e3
+
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(len(payloads)) as pool:
+            landed = list(pool.map(land, payloads))
+        spliced, import_ms = [], []
+        for i, ((toks, dl, _ttft, _at), ms) in enumerate(landed):
+            import_ms.append(ms)
+            idx = [ln['index'] for ln in lines[i]] + [t['index']
+                                                       for t in toks]
+            got = [ln['token'] for ln in lines[i]] + [t['token'] for t in toks]
+            if idx != list(range(DRAIN_TOKENS)) or got != dl.get('tokens') \
+                    or dl.get('request_id') != 'drain-%d' % i \
+                    or dl.get('finish_reason') != 'length' \
+                    or got[:new_tokens] != reqs[i][1]:
+                raise AssertionError('phase 3m (c): drain-%d spliced %d '
+                                     'tokens, indices %s, done %s' % (
+                                         i, len(got), idx[:8] + ['...'],
+                                         {k: v for k, v in dl.items()
+                                          if k != 'tokens'}))
+            spliced.append(got)
+        launches = kernels.launch_counts()
+        c = _count_delta(sess.stats()['counts'], before)
+        want = dict.fromkeys(launches, 0)
+        want['flash_paged_decode_fwd'] = layers * c['steps']
+        want['threefry_gumbel'] = c['steps']
+        if c['prefills'] or c['migrated_in'] != len(reqs) or \
+                (device.type == 'cuda' and launches != want):
+            raise AssertionError('phase 3m (c): B\' %s, launches %r, '
+                                 'expected %r' % (c, launches, want))
+        drained = child.expect('DRAINED', CHILD_DONE_S)
+        waiter.join(CHILD_DONE_S)
+        rc, exit_s = exited.get('rc'), exited.get('s', float('inf'))
+        res = drained['drain'] or {}
+        if rc != 75 or res.get('rc') != 75 or \
+                res.get('sequences') != len(reqs) or \
+                res.get('handed_off') != len(reqs) or \
+                not exit_s < DRAIN_BUDGET_S:
+            raise AssertionError('phase 3m (c): the child exited %s after '
+                                 '%.3f s, drain %s' % (rc, exit_s, res))
+        equal, ties = teacher_forced(torch, model, prog.params,
+                                     [r[0] for r in reqs], spliced, device)
+    finally:
+        srv.stop()
+        sess.close()
+    return dict(refusals={k: v[0] for k, v in refusals.items()},
+                drain_ms=drain_ms, import_ms=import_ms, exit_s=exit_s,
+                drained=drained, result=res, launches=launches,
+                streamed=[len(ln) for ln in lines], counts=c,
+                recheck_equal=equal, recheck_ties=ties)
+
+
+
+def log_migration(rm, card):
+    """Phase 3m (a)-(b)'s lines: each live sequence's export (the gather
+    and the copy on the worker, the document's build apart, its bytes),
+    the imports, the solo continuation against a fresh prefill."""
+    for e in rm['exports']:
+        log('phase 3m (a) export [%s]: request %d at pos %d (%d tokens '
+            'emitted): gather + D2H %.3f ms, payload build %.3f ms, rows %d '
+            'B raw, %d B of JSON; import %.3f ms'
+            % (card, e['request'], e['pos'], e['emitted'], e['gather_ms'],
+               e['build_ms'], e['raw_bytes'], e['json_bytes'],
+               rm['import_ms'][e['request']]))
+    cold_ms = [ms for i, ms in rm['import_ms'].items()
+               if i not in {e['request'] for e in rm['exports']}]
+    log('phase 3m (a) [%s]: export_all of %d live and %d cold sequences in '
+        '%.3f s; the %d spliced streams equal to 3a\'s but at %d near ties '
+        '%s; A %s; B %s (cold imports %.3f ms mean); handoff pages (16, 128) '
+        '%s' % (card, rm['live'], rm['cold'], rm['export_all_s'],
+                rm['live'] + rm['cold'], len(rm['ties']), rm['ties'],
+                {k: rm['a'][k] for k in ('migrated_out', 'handoff_pages',
+                                         'prefills', 'steps')},
+                {k: rm['b'][k] for k in ('migrated_in', 'handoff_pages',
+                                         'prefills', 'steps')},
+                statistics.mean(cold_ms), rm['handoff_pages']))
+    log('phase 3m (b) [%s]: %d prefill_only requests of 3s\'s prefix, %d of '
+        'them exported extending (a prefix hit, no token); B\'s streams '
+        'token for token 3s\'s with no prefill; A %s; launches of (a) and (b) '
+        '%s' % (card, rm['prefill_only']['prefill_exports'], rm['extending'],
+                {k: rm['prefill_only'][k] for k in (
+                    'prefill_exports', 'prefix_hits', 'prefills')},
+                {k: v for k, v in rm['launches'].items() if v}))
+    for s in rm['solo']:
+        if 'import_ms' not in s:
+            log('phase 3m solo [%s]: request %d: context %d past the top '
+                'bucket, no fresh prefill to compare' % (card, s['request'],
+                                                         s['context']))
+            continue
+        log('phase 3m solo [%s]: request %d, context %d: import %.3f ms, '
+            'first continuation token %.3f ms after the import call (%.3f '
+            'ms after the rows landed); a fresh generate(prompt + emitted) '
+            'TTFT %.3f ms; same token %s; exported again alone at pos %d: '
+            'gather + D2H %.3f ms, payload build %.3f ms, %d B raw, %d B of '
+            'JSON' % (card, s['request'], s['context'], s['import_ms'],
+                      s['first_token_ms'], s['landed_ms'],
+                      s['fresh_ttft_ms'], s['same_token'], s['export_pos'],
+                      s['gather_ms'], s['build_ms'], s['raw_bytes'],
+                      s['json_bytes']))
+    log('phase 3m (a)-(b): %.1f s in all' % rm['seconds'])
+
+
+def log_drain(d, card):
+    """Phase 3m (c)-(d)'s lines."""
+    log('phase 3m (d) [%s]: /import of a payload with one base64 character '
+        'changed %d, of an adapter-pinned payload into an engine without '
+        'adapters %d' % (card, d['refusals']['torn'],
+                         d['refusals']['adapter']))
+    log('phase 3m (c) [%s]: %d streams of 3p\'s prompts, SIGTERM after %d '
+        'tokens each (streamed %s at the drain); every done line migrated '
+        'with its request id; /healthz 503 draining, /generate and /import '
+        '503 Draining; GET /drain?request_id= %s ms; POST /import into B\' '
+        '(page %d, no draft), the 8 at once, %s ms a stream (its whole '
+        'continuation); '
+        'indices unbroken, the first %d tokens 3p\'s, %d tokens '
+        'teacher-forced equal, %d ties %s; B\' %s; drain %s; SIGTERM to '
+        'exit %.3f s, rc 75'
+        % (card, len(d['drain_ms']), DRAIN_AFTER, d['streamed'],
+           [round(x, 3) for x in d['drain_ms']], MIGRATE_PAGE,
+           [round(x, 3) for x in d['import_ms']], NEW_TOKENS,
+           d['recheck_equal'], len(d['recheck_ties']), d['recheck_ties'],
+           {k: d['counts'][k] for k in ('migrated_in', 'prefills', 'steps')},
+           d['result'], d['exit_s']))
 
 
 # -- phase 4: the training slice ---------------------------------------------
@@ -5687,16 +6391,19 @@ def ptxas_entries(ptxas):
     return {f: tuple(v) for f, v in entries.items()}
 
 
-def sass_counts(build, source, kernel_keys, ops):
-    """{kernel: {instruction: count}} of the kernels of ``source`` whose
-    names hold one of ``kernel_keys``, from ``cuobjdump -sass`` (nvcc's
-    toolkit) of its library."""
+def sass_text(build, source):
+    """``cuobjdump -sass`` (nvcc's toolkit) of ``source``'s library."""
     tool = os.path.join(build._cuda_home(), 'bin', 'cuobjdump')
-    sass = subprocess.run([tool, '-sass', build.library_path(source)],
+    return subprocess.run([tool, '-sass', build.library_path(source)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
+
+
+def sass_counts(build, source, kernel_keys, ops):
+    """{kernel: {instruction: count}} of the kernels of ``source`` whose
+    names hold one of ``kernel_keys``, from its SASS."""
     counts, fn = {}, None
-    for line in sass.splitlines():
+    for line in sass_text(build, source).splitlines():
         head = re.search(r'Function : (\S+)', line)
         if head:
             fn = head.group(1)
@@ -6118,7 +6825,9 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'group_turns_device_ms', 'group',
                                       'device_ms_at_pos', 'slot_device_ms',
                                       'gather_slot_device_ms', 'at_phase3',
-                                      'mask_device_ms',
+                                      'mask_device_ms', 'sass_mix',
+                                      'bound_pipe', 'bound_by_pipe_ms',
+                                      'bound_f32_rate_ms',
                                       'scan_device_ms', 'finish_device_ms',
                                       'host_ms', 'chain_ms',
                                       'chain_device_ms', 'by_list')
@@ -6281,7 +6990,7 @@ def main():
     errs['threefry_gumbel'] = check_noise_kernel(torch, noise, cuda)
     times = time_kernels(torch, kernels)
     times.update(time_paged_decode(torch, kernels))
-    times.update(time_noise_kernel(torch, noise, cuda))
+    times.update(time_noise_kernel(torch, noise, cuda, _build))
     log_times(times)
     train_times = time_training_kernels(torch, kernels)
     log_times(train_times)
@@ -6434,9 +7143,21 @@ def main():
         log_profile('phase 3a step, %s' % name, card, prof)
     nrow = times['threefry_gumbel']
     log('phase 3a noise kernel [%s]: threefry_gumbel device %.4f ms (slope '
-        'timer) at %s, bound %.5f ms (%s)'
+        'timer) at %s, bound %.5f ms (%s: %s; SASS mix %s a thread, the '
+        'pipes\' ms %s; at the float32 rate of %d operations an element '
+        '%.5f ms)'
         % (card, nrow['device_ms'], nrow['shape'], nrow['bound_ms'],
-           nrow['bound_by']))
+           nrow['bound_by'], nrow['bound_pipe'], nrow['sass_mix'],
+           {k: round(v, 6) for k, v in nrow['bound_by_pipe_ms'].items()},
+           THREEFRY_OPS, nrow['bound_f32_rate_ms']))
+    torch.cuda.empty_cache()
+
+    # phase 3m (a)-(b): live migration across page sizes, prefill_only
+    t0 = time.perf_counter()
+    rm = serve_migration(torch, serving, kernels, cuda, ra['outs'],
+                         sh['prefix']['outs'])
+    rm['seconds'] = time.perf_counter() - t0
+    log_migration(rm, card)
     torch.cuda.empty_cache()
 
     # phase 3f (a)-(d): the degraded path of the decode engine on the card
@@ -6757,12 +7478,13 @@ def main():
             [(r, ra['outs'][i]) for i, r in enumerate(reqs)
              if r['adapter'] is None and r['temperature'] > 0],
             (reqs[LONG_REQUEST], ra['outs'][LONG_REQUEST]),
-            det.pop('one_by_one'))
+            det.pop('one_by_one'), rm.pop('refused'))
         torch.cuda.empty_cache()
         hf = serve_http_fault(torch, serving, arts, reqs[0], rp['outs'][0])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_http(hs, hf, arts, rp, det, card)
+    log_drain(hs['drain'], card)
     torch.cuda.empty_cache()
 
     # phase 7: the matmul probe slice
@@ -6802,6 +7524,9 @@ def main():
                         'prefix sharing': sh['prefix']['launches'],
                         'speculative decoding': sh['spec']['launches'],
                         'sampled adapter serving': ra['launches'],
+                        'live migration': rm['launches'],
+                        'drain and import over http':
+                            hs['drain']['launches'],
                         'degraded serving': rf['launches'],
                         'training': tr['launches'],
                         'bert amp training': tc['launches'],

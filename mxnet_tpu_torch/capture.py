@@ -20,6 +20,7 @@ and the caller never runs the body eagerly on the card in its place.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -96,6 +97,13 @@ def _capture(name, body, pool, generators):
                 'with a CUDA graph (CUDAGraph.register_generator_state), '
                 'so replays would repeat one draw' % (name, torch.__version__))
         register(gen)
+    # no garbage collection while capturing: a dead reference cycle that
+    # still holds an earlier program's graph, collected mid-capture, would
+    # destroy that graph inside this capture and invalidate it
+    # (cudaErrorStreamCaptureInvalidated); torch.cuda.graph no longer
+    # collects before it begins
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with recording() as rec:
             with torch.cuda.graph(graph, pool=pool):
@@ -111,4 +119,7 @@ def _capture(name, body, pool, generators):
                     'accumulators on that stream; free it first)')
         raise CaptureError('%s: the capture failed: %s: %s%s'
                            % (name, type(exc).__name__, exc, hint)) from exc
+    finally:
+        if collecting:
+            gc.enable()
     return graph, rec

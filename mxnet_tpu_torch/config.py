@@ -30,7 +30,10 @@ re-parses it when it changes; the serving sites are ``serving.decode``,
 session breaker's failure threshold, and ``MXNET_TPU_WATCHDOG_COMPILE_S``,
 ``_STEP_S``, ``_COLLECTIVE_S`` and ``_POLL_S`` are the stall watchdog's
 budgets and its monitor's poll (a serving session's watchdog holds each
-device call to ``_STEP_S``).
+device call to ``_STEP_S``). The drain and preemption knobs are the reference's too:
+``MXNET_TPU_SERVE_DRAIN_TIMEOUT_S`` bounds a draining endpoint's handoff
+window, ``MXNET_TPU_PREEMPT_EXIT_CODE`` is the resumable exit code (75)
+and ``MXNET_TPU_PREEMPT_GRACE_S`` a preemption drain's budget.
 """
 from __future__ import annotations
 
@@ -56,6 +59,10 @@ KNOBS = {
     'MXNET_TPU_SERVE_TIMEOUT_S': (
         float, 30.0, 'Per-request budget: older requests fail with '
         'RequestTimeout; 0 disables.'),
+    'MXNET_TPU_SERVE_DRAIN_TIMEOUT_S': (
+        float, 30.0, 'Graceful-drain handoff budget: a draining replica '
+        'waits this long for every exported seqstate payload to be fetched '
+        '(or readmitted) before the drain result records expired.'),
     'MXNET_TPU_SERVE_DECODE_SLOTS': (
         int, 8, 'In-flight sequence slots of the continuous decode '
         'batch; the slot KV cache is slots x max_len.'),
@@ -154,6 +161,14 @@ KNOBS = {
         'nan/inf, e.g. nan@grads:2 for the guardrail or '
         'preempt@train.step.12:1 to preempt exactly at step 12). CI and '
         'tests only; leave unset in production.'),
+    'MXNET_TPU_PREEMPT_EXIT_CODE': (
+        int, 75, 'Process exit code marking a preempted-but-resumable run '
+        '(75 = BSD EX_TEMPFAIL). Launchers restart the same command on this '
+        'rc; any other non-zero rc is a real failure.'),
+    'MXNET_TPU_PREEMPT_GRACE_S': (
+        float, 30.0, 'Drain budget after a SIGTERM/SIGINT: the emergency '
+        'checkpoint must finish within this many seconds (the preemption '
+        'notice-to-reclaim window).'),
     'MXNET_TPU_WATCHDOG_COMPILE_S': (
         float, 1800.0, 'Watchdog stall budget (seconds) for the compile '
         'phase (first-program XLA compiles legitimately take minutes).'),

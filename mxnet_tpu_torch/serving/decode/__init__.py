@@ -6,9 +6,11 @@ from .model import (DecodeModel, TransformerLM, init_transformer_lm,
 from .paged import PageAllocator, PagedCacheSpec, PrefixCache
 from .program import (DecodeProgram, PagedDecodeProgram, freeze_decode,
                       load_decode)
+from .seqstate import SEQSTATE_SCHEMA, SeqStateError
 
 __all__ = ['DecodeEngine', 'DrainTimeout', 'GenerateStream', 'DecodeModel',
            'TransformerLM', 'init_transformer_lm', 'model_from_config',
            'params_from_jax', 'PageAllocator', 'PagedCacheSpec',
            'PrefixCache', 'DecodeProgram', 'PagedDecodeProgram',
-           'freeze_decode', 'load_decode']
+           'freeze_decode', 'load_decode', 'SEQSTATE_SCHEMA',
+           'SeqStateError']

@@ -73,8 +73,28 @@ crash or a preemption notice fails them with that typed error
 (``retired['aborted']``). Anything else, a kernel's build or launch
 failure among them, is a bug: it fails them loudly
 (``retired['error']``). After any failure the cache is rebuilt, which
-zeroes the program's own storage and builds no program. Migration and
-tracing of the JAX engine are later slices (ROADMAP queue A).
+zeroes the program's own storage and builds no program.
+
+**Live migration** (the reference's ``engine.py:1613-2003``): a sequence's
+state is a portable ``mxnet_tpu.seqstate.v1`` payload (:mod:`.seqstate`).
+:meth:`DecodeEngine.export_sequence` retires a sequence here (its stream
+finishes ``'migrated'``) and returns its payload: ``cold`` while it is
+queued, else ``paged`` (its ``pos`` K/V rows through its page table) or
+``slot``; :meth:`DecodeEngine.export_all` exports everything in flight,
+the live sequences at one tick boundary. :meth:`DecodeEngine.import_sequence`
+lands a payload and continues it with no prefill: the rows re-chunk to
+this engine's page size, the same adapter is pinned again, the draft is
+re-synced by its prefill, and the returned stream's iterator yields only
+the continuation. Export and import run on the worker between ticks (it
+alone owns the cache); the worker only gathers and copies the rows, and
+the document (base64 and the digest) is built on the calling thread.
+``generate(request_id=)`` keeps at most one stream a request id (a second
+admission cancels the first), and ``generate(prefill_only=True)`` exports
+at the prefill boundary: the stream finishes ``'migrated'`` with the
+payload on ``stream.seqstate`` (a prefix hit exports the extending state
+before any token). Unlike the reference, a ``cold`` import counts in
+``migrated_in`` too, as a cold export counts in ``migrated_out`` there.
+Tracing is a later slice (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -95,6 +115,7 @@ from ..batcher import BackpressureError, BatcherClosed, RequestTimeout
 from ..health import Health
 from .paged import TRASH_PAGE, PageAllocator, PrefixCache, pages_for
 from .sampling import key_for
+from .seqstate import SeqStateError, build_payload, decode_payload
 
 __all__ = ['GenerateStream', 'DecodeEngine', 'DrainTimeout']
 
@@ -111,19 +132,40 @@ class GenerateStream:
 
     A failed request raises its typed error from the iterator and from
     :meth:`result` alike. ``ttft_s`` is the seconds from admission to
-    the first token, once it exists. ``degraded`` turns True when any
-    part of the generation ran on the CPU fallback."""
+    the first token, once it exists (for an imported stream, from its
+    import to its first continuation token). ``degraded`` turns True when
+    any part of the generation ran on the CPU fallback. A
+    ``prefill_only`` stream that finished ``'migrated'`` carries its
+    payload in :attr:`seqstate`; ``export_seconds`` holds an exported
+    stream's ``{'gather_s', 'build_s'}``: the rows' gather and copy on the
+    worker, and the document's build."""
 
     def __init__(self, prompt_len):
         self.prompt_len = int(prompt_len)
         self.tokens = []
-        self.finish_reason = None       # eos | length | error | closed
+        self.finish_reason = None   # eos | length | error | closed | migrated
         self.ttft_s = None
         self.degraded = False
+        self.export_seconds = None
         self._q = _queue.Queue()
         self._done = threading.Event()
         self._exc = None
         self._cancelled = False
+        # a prefill_only export: the payload's fields, set before the
+        # finish, built into the document at the first read
+        self._seqstate_lock = threading.Lock()
+        self._seqstate_spec = None
+        self._seqstate = None
+
+    @property
+    def seqstate(self):
+        """The payload a ``prefill_only`` export left, else None; built
+        on the reading thread (once), not on the engine's worker."""
+        with self._seqstate_lock:
+            if self._seqstate is None and self._seqstate_spec is not None:
+                self._seqstate = _build(self._seqstate_spec, self)
+                self._seqstate_spec = None
+            return self._seqstate
 
     def __iter__(self):
         while True:
@@ -167,6 +209,17 @@ class GenerateStream:
         self._q.put(_DONE)
 
 
+def _build(spec, stream):
+    """The document of an export's fields ``spec``; its build time joins
+    the gather's on ``stream.export_seconds``."""
+    t0 = time.perf_counter()
+    payload = build_payload(**spec)
+    seconds = dict(stream.export_seconds or {})
+    seconds['build_s'] = time.perf_counter() - t0
+    stream.export_seconds = seconds
+    return payload
+
+
 class _DegradedPath(Exception):
     """A device call failed transiently or the breaker is open: finish
     the work on the CPU fallback."""
@@ -188,12 +241,14 @@ class _Seq:
     __slots__ = ('stream', 'prompt', 'max_new', 'eos_id', 'slot', 'pos',
                  'last_token', 'enqueued_at', 'deadline_at', 'table',
                  'pages', 'adapter_id', 'adapter_idx', 'temperature',
-                 'top_p', 'seed')
+                 'top_p', 'seed', 'prefill_only')
 
     def __init__(self, stream, prompt, max_new, eos_id, enqueued_at,
                  deadline_at, adapter_id=None, temperature=0.0, top_p=1.0,
-                 seed=0):
+                 seed=0, prefill_only=False):
         self.stream = stream
+        # export at the prefill boundary instead of entering the steps
+        self.prefill_only = bool(prefill_only)
         self.prompt = prompt
         self.max_new = max_new
         self.eos_id = eos_id
@@ -278,7 +333,15 @@ class DecodeEngine:
                         'spec_accepted': 0, 'spec_rounds': 0,
                         'cow_copies': 0, 'pool_exhausted': 0,
                         'page_evictions': 0, 'sampled_tokens': 0,
-                        'adapter_rejects': 0}
+                        'adapter_rejects': 0, 'migrated_out': 0,
+                        'migrated_in': 0, 'prefill_exports': 0,
+                        'handoff_pages': 0}
+        # request_id -> its newest stream: a second admission under the
+        # same id cancels the older stream (at most one decode a request)
+        self._requests = {}
+        # export / import requests the worker services between ticks:
+        # (op, arg, result box, done event)
+        self._migrations = []
         # paged scheduling: the host side of the page pool
         self.paged = bool(getattr(program, 'paged', False))
         self._allocator = self._prefix = None
@@ -363,8 +426,18 @@ class DecodeEngine:
     # -- submission --------------------------------------------------------
 
     def generate(self, tokens, max_new_tokens=None, eos_id=None,
-                 adapter=None, temperature=0.0, top_p=1.0, seed=0):
+                 adapter=None, temperature=0.0, top_p=1.0, seed=0,
+                 request_id=None, prefill_only=False):
         """Admit one prompt; returns its :class:`GenerateStream`.
+
+        ``request_id`` makes the admission idempotent: a second admission
+        under the same id (a gateway re-admitting after a failover)
+        cancels the older stream at its next token boundary.
+        ``prefill_only`` runs the prefill (its first token streamed as
+        usual), then exports the sequence instead of stepping it: the
+        stream finishes ``'migrated'`` with the payload on
+        ``stream.seqstate``; a first-token EOS or ``max_new_tokens=1``
+        finishes normally.
 
         ``adapter`` picks the adapter (an id of the engine's registry;
         None, '' or 'base' is the frozen base); ``temperature`` (0:
@@ -410,7 +483,8 @@ class DecodeEngine:
                    now + self.timeout_s if self.timeout_s else None,
                    adapter_id=(None if adapter in AdapterRegistry.BASE_IDS
                                else str(adapter)),
-                   temperature=temperature, top_p=top_p, seed=seed)
+                   temperature=temperature, top_p=top_p, seed=seed,
+                   prefill_only=prefill_only)
         with self._lock:
             if self._closed:
                 raise BatcherClosed('decode engine %r is closed'
@@ -421,8 +495,24 @@ class DecodeEngine:
                 raise BackpressureError(depth, self.max_queue)
             self._pending.append(seq)
             self._counts['requests'] += 1
+            superseded = self._note_request_locked(request_id, stream)
             self._wake.notify()
+        if superseded is not None and not superseded.done():
+            superseded.cancel()
         return stream
+
+    def _note_request_locked(self, request_id, stream):
+        """Map ``request_id`` to ``stream`` (under the lock); returns the
+        stream it supersedes, if any. Finished streams leave the map once
+        it outgrows everything that can be in flight."""
+        if request_id is None:
+            return None
+        superseded = self._requests.get(request_id)
+        self._requests[request_id] = stream
+        if len(self._requests) > 4 * (self.max_queue + self.slots):
+            self._requests = {k: s for k, s in self._requests.items()
+                              if not s.done()}
+        return superseded
 
     # -- reaper (budget enforcement independent of the worker) -------------
 
@@ -483,7 +573,8 @@ class DecodeEngine:
     def _run(self):
         while True:
             with self._lock:
-                while not self._pending and not self._active:
+                while not self._pending and not self._active \
+                        and not self._migrations:
                     if self._closed:
                         return
                     self._wake.wait(0.05)
@@ -496,8 +587,10 @@ class DecodeEngine:
 
     def _tick(self):
         """One scheduler iteration: retire abandoned slots, admit
-        prefills, advance the live batch one token."""
+        prefills, advance the live batch one token; migrations are
+        serviced first, at the token boundary."""
         self._retire_abandoned()
+        self._service_migrations()
         budget = self.prefill_interleave if self._active else self.slots
         while budget > 0:
             with self._lock:
@@ -857,6 +950,24 @@ class DecodeEngine:
         if reason is not None:
             seq.stream._finish(reason)
             self._retire(slot, seq, reason)
+        elif seq.prefill_only:
+            self._export_at_boundary(seq, slot)
+
+    def _export_at_boundary(self, seq, slot):
+        """A ``prefill_only`` sequence at its prefill boundary: export it
+        (the payload's fields stashed on the stream, the document built
+        where it is read) and finish ``'migrated'``. A failed export fails
+        this request typed and frees its slot and pages."""
+        try:
+            self._do_export(seq.stream, stash=True)
+            with self._lock:
+                self._counts['prefill_exports'] += 1
+        except BaseException as exc:
+            if not seq.stream.done():
+                seq.stream._finish('error', exc)
+                self._retire(slot, seq, 'error')
+            logging.exception('decode %s: prefill-boundary export failed',
+                              self.name)
 
     def _admit_paged(self, seq, slot):
         """Paged join: a prefix-cache hit references the registered pages
@@ -905,6 +1016,10 @@ class DecodeEngine:
                 seq.last_token = int(prompt[covered])
                 with self._lock:
                     self._active[slot] = seq
+                if seq.prefill_only:
+                    # the extending state, before any token: the importer
+                    # streams the unshared suffix through its own steps
+                    self._export_at_boundary(seq, slot)
                 return
             ids = self._alloc_pages(pages_for(n, self.program.page_size))
             if ids is None:
@@ -1205,6 +1320,340 @@ class DecodeEngine:
             self._counts['sampled_tokens'] += sampled_total
             self._note_step_locked(dt)
 
+    # -- live migration (seqstate export / import) --------------------------
+
+    def _submit_migration(self, op, arg):
+        """Queue an export or import for the worker; returns its (result
+        box, done event)."""
+        box, ev = {}, threading.Event()
+        with self._wake:
+            if self._closed:
+                raise BatcherClosed('decode engine %r is closed' % self.name)
+            self._migrations.append((op, arg, box, ev))
+            self._wake.notify()
+        return box, ev
+
+    @staticmethod
+    def _await_migration(op, box, ev, timeout):
+        if not ev.wait(timeout):
+            raise RequestTimeout('sequence %s not serviced within %r s '
+                                 '(worker wedged?)' % (op, timeout))
+        if 'error' in box:
+            raise box['error']
+        return box['result']
+
+    def _service_migrations(self):
+        """The worker, at the tick boundary: every queued export and
+        import (the sequences sit on a token boundary, the cache is
+        still)."""
+        while True:
+            with self._lock:
+                if not self._migrations:
+                    return
+                op, arg, box, ev = self._migrations.pop(0)
+            try:
+                if op == 'export':
+                    box['result'] = self._do_export(arg)
+                else:
+                    box['result'] = self._do_import(arg)
+            except Exception as exc:
+                box['error'] = exc
+            ev.set()
+
+    @staticmethod
+    def _sampling_of(seq):
+        """The payload's sampling block: None for a greedy sequence."""
+        if seq.temperature <= 0:
+            return None
+        return {'temperature': seq.temperature, 'top_p': seq.top_p,
+                'seed': seq.seed}
+
+    def _request_id_for_locked(self, stream):
+        for rid, s in self._requests.items():
+            if s is stream:
+                return rid
+        return None
+
+    def _export_cold(self, seq, rid):
+        """The payload of a sequence taken off the queue; its stream
+        finishes ``'migrated'``."""
+        seq.stream.export_seconds = {'gather_s': 0.0}
+        payload = _build(dict(
+            kind='cold', prompt=seq.prompt, emitted=[], pos=0,
+            last_token=None, max_new=seq.max_new, eos_id=seq.eos_id,
+            request_id=rid, adapter_id=seq.adapter_id,
+            sampling=self._sampling_of(seq)), seq.stream)
+        seq.stream._finish('migrated')
+        with self._lock:
+            self._counts['migrated_out'] += 1
+        return payload
+
+    def export_sequence(self, stream, timeout=30.0):
+        """Snapshot one sequence into a ``mxnet_tpu.seqstate.v1`` payload
+        and retire it here: its stream finishes ``'migrated'`` (no error;
+        the importer continues it). A queued sequence exports ``cold``; a
+        live one ``paged`` or ``slot``, gathered on the worker at the
+        next tick boundary. Raises :class:`SeqStateError` for a finished
+        or unknown stream (one completing on the CPU fallback among
+        them), :class:`BatcherClosed` after :meth:`close`."""
+        cold = None
+        with self._lock:
+            if self._closed:
+                raise BatcherClosed('decode engine %r is closed' % self.name)
+            for i, seq in enumerate(self._pending):
+                if seq.stream is stream:
+                    cold = self._pending.pop(i)
+                    break
+            rid = self._request_id_for_locked(stream)
+        if cold is not None:
+            return self._export_cold(cold, rid)
+        spec = self._await_migration(
+            'export', *self._submit_migration('export', stream), timeout)
+        return _build(spec, stream)
+
+    def export_all(self, timeout=30.0):
+        """Export every sequence in flight (a drain): the queued ones
+        ``cold``, the live ones at one tick boundary, so that the snapshot
+        is of one moment. A sequence that finished before its export ran
+        is skipped. Returns the payloads, the queued ones first."""
+        with self._lock:
+            if self._closed:
+                return []
+            cold = [s for s in self._pending if not s.stream.done()]
+            self._pending = []
+            rids = [self._request_id_for_locked(s.stream) for s in cold]
+            live = [s.stream for s in self._active.values()]
+        payloads = [self._export_cold(seq, rid)
+                    for seq, rid in zip(cold, rids)]
+        queued = []
+        for stream in live:
+            try:
+                queued.append((stream, self._submit_migration('export',
+                                                              stream)))
+            except BatcherClosed:
+                break
+        # every gather first, then the documents: a build holds the
+        # interpreter lock for most of its time, and would slow the
+        # worker's gathers down if they overlapped
+        specs = []
+        for stream, (box, ev) in queued:
+            try:
+                specs.append((stream, self._await_migration(
+                    'export', box, ev, timeout)))
+            except (SeqStateError, BatcherClosed):
+                continue            # finished before its export ran
+        return payloads + [_build(spec, stream) for stream, spec in specs]
+
+    def _do_export(self, stream, stash=False):
+        """The worker's half of an export: the rows gathered and copied
+        to the host, the sequence retired (its stream finished
+        ``'migrated'``). Returns the payload's fields; ``stash`` leaves
+        them on the stream (``prefill_only``)."""
+        with self._lock:
+            found = None
+            for slot, seq in self._active.items():
+                if seq.stream is stream:
+                    found = (slot, seq)
+                    break
+            rid = self._request_id_for_locked(stream)
+        if found is None or stream.done():
+            raise SeqStateError(
+                'sequence is not live in this engine (finished with %r or '
+                'never admitted)' % (stream.finish_reason,))
+        slot, seq = found
+        t0 = time.perf_counter()
+        npages = 0
+        spec = dict(prompt=seq.prompt, emitted=list(stream.tokens),
+                    pos=seq.pos, last_token=seq.last_token,
+                    max_new=seq.max_new, eos_id=seq.eos_id, request_id=rid,
+                    adapter_id=seq.adapter_id,
+                    sampling=self._sampling_of(seq))
+        if self.paged:
+            ps = self.program.page_size
+            npages = pages_for(seq.pos, ps)
+            entries = self.program.export_pages(
+                self._cache, [int(p) for p in seq.table[:npages]])
+            spec.update(kind='paged', page_size=ps,
+                        entries={k: v[:seq.pos] for k, v in entries.items()})
+        else:
+            spec.update(kind='slot', entries=self.program.export_slot_state(
+                self._cache, slot))
+        stream.export_seconds = {'gather_s': time.perf_counter() - t0}
+        if stash:
+            # before the finish: the done event wakes a reader of seqstate
+            with stream._seqstate_lock:
+                stream._seqstate_spec = spec
+        stream._finish('migrated')
+        self._retire(slot, seq, 'migrated')
+        with self._lock:
+            self._counts['migrated_out'] += 1
+            self._counts['handoff_pages'] += npages
+        return spec
+
+    def import_sequence(self, payload, timeout=30.0):
+        """Land an exported sequence in this engine and continue it with
+        no prefill (``prefills`` unchanged): K/V rows re-chunked to this
+        engine's page size and written into its pool, or the slot's rows
+        into a free slot. Returns the continuation's
+        :class:`GenerateStream`: ``tokens`` holds the whole sequence, the
+        handed-off prefix included, and the iterator yields only the new
+        tokens. A ``cold`` payload is an ordinary admission.
+
+        Raises :class:`SeqStateError` for a torn, version-mismatched or
+        incompatible payload (an adapter pinned into an engine without a
+        pool, sampling into one without sampling args, a paged payload
+        into a slot engine or the reverse, a sequence past ``max_len`` or
+        ``max_pages``), :class:`BackpressureError` when no slot or no
+        pages are free (everything given back), ``CircuitOpenError`` when
+        the cache was lost and the breaker is open, :class:`BatcherClosed`
+        after :meth:`close`."""
+        state = decode_payload(payload)
+        if state['adapter_id'] is not None and self._adapters is None:
+            raise SeqStateError('payload pins adapter %r but this engine '
+                                'serves no adapter pool'
+                                % (state['adapter_id'],))
+        if state['sampling'] is not None and not self.sample_args:
+            raise SeqStateError('payload carries sampling state but this '
+                                'engine\'s programs have no sampling args')
+        if state['kind'] == 'cold':
+            samp = state['sampling'] or {}
+            stream = self.generate(
+                state['prompt'], max_new_tokens=state['max_new'],
+                eos_id=state['eos_id'], request_id=state['request_id'],
+                adapter=state['adapter_id'],
+                temperature=samp.get('temperature', 0.0),
+                top_p=samp.get('top_p', 1.0), seed=samp.get('seed', 0))
+            with self._lock:
+                self._counts['migrated_in'] += 1
+            return stream
+        if state['kind'] == 'paged' and not self.paged:
+            raise SeqStateError('paged seqstate cannot land in a slot-cache '
+                                'engine')
+        if state['kind'] == 'slot' and self.paged:
+            raise SeqStateError('slot seqstate cannot land in a paged engine')
+        if state['pos'] + 1 >= self.program.max_len:
+            raise SeqStateError('sequence at pos=%d does not fit this engine '
+                                '(max_len=%d)' % (state['pos'],
+                                                  self.program.max_len))
+        if self.paged and pages_for(state['pos'] + 1,
+                                    self.program.page_size) \
+                > self.program.max_pages:
+            raise SeqStateError('sequence needs more pages than this engine '
+                                'maps a sequence (max_pages=%d)'
+                                % self.program.max_pages)
+        return self._await_migration(
+            'import', *self._submit_migration('import', state), timeout)
+
+    def _do_import(self, state):
+        """The worker's half of an import: a slot, the adapter pinned
+        again, the rows written, the sequence live."""
+        prompt, emitted, pos = state['prompt'], state['emitted'], state['pos']
+        with self._lock:
+            if not self._free:
+                raise BackpressureError(len(self._pending), self.max_queue)
+            slot = self._free.pop(0)
+        ids, aidx = [], 0
+        try:
+            if state['adapter_id'] is not None:
+                # the same adapter before any write: a warm row is a
+                # refcount, a cold one is written into the pool
+                try:
+                    aidx = self._adapters.acquire(state['adapter_id'])
+                except BackpressureError:
+                    raise
+                except Exception as exc:
+                    raise SeqStateError('cannot re-pin adapter %r at import: '
+                                        '%s' % (state['adapter_id'], exc))
+            try:
+                self._ensure_cache()
+            except _DegradedPath:
+                raise CircuitOpenError(
+                    'decode engine %r lost its cache and its breaker is '
+                    'open: no import until a rebuild succeeds' % self.name)
+            if self.paged:
+                ps = self.program.page_size
+                ids = self._alloc_pages(pages_for(pos, ps)) or []
+                if not ids:
+                    with self._lock:
+                        self._counts['pool_exhausted'] += 1
+                        depth = len(self._pending)
+                    raise BackpressureError(depth, self.max_queue)
+                # the rows are free of page geometry: pad the tail page with
+                # zeros (the pool's initial state, masked until overwritten)
+                rows = {}
+                for name, arr in state['arrays'].items():
+                    pad = onp.zeros((len(ids) * ps - pos,) + arr.shape[1:],
+                                    arr.dtype)
+                    rows[name] = onp.concatenate([arr, pad], axis=0)
+                try:
+                    self._cache = self.program.import_pages(self._cache,
+                                                            rows, ids)
+                except ValueError as exc:
+                    raise SeqStateError('seqstate incompatible with this '
+                                        'engine: %s' % (exc,))
+            else:
+                try:
+                    self._cache = self.program.import_slot_state(
+                        self._cache, state['arrays'], slot)
+                except ValueError as exc:
+                    raise SeqStateError('seqstate incompatible with this '
+                                        'engine: %s' % (exc,))
+        except BaseException:
+            with self._lock:
+                if self._allocator is not None:
+                    for p in ids:
+                        self._allocator.release(p)
+                self._free.append(slot)
+            if aidx:
+                self._adapters.release(aidx)
+            raise
+        now = time.monotonic()
+        stream = GenerateStream(len(prompt))
+        # the source streamed these: the full list stays (budgets, done
+        # lines), the iterator yields the continuation only
+        stream.tokens = list(emitted)
+        samp = state['sampling'] or {}
+        seq = _Seq(stream, prompt, state['max_new'], state['eos_id'], now,
+                   now + self.timeout_s if self.timeout_s else None,
+                   adapter_id=state['adapter_id'],
+                   temperature=samp.get('temperature', 0.0),
+                   top_p=samp.get('top_p', 1.0), seed=samp.get('seed', 0))
+        seq.adapter_idx = aidx
+        seq.slot = slot
+        seq.pos = pos
+        seq.last_token = state['last_token']
+        if self.paged:
+            seq.table = onp.full(self.program.max_pages, TRASH_PAGE, 'int32')
+            seq.table[:len(ids)] = ids
+            seq.pages = list(ids)
+            if self._prefix is not None and pos >= len(prompt):
+                # later prompts sharing it hit, as after an admission
+                with self._lock:
+                    self._prefix.register(prompt, ids,
+                                          namespace=seq.adapter_id)
+            if self._draft is not None:
+                # re-sync the draft from the fed context; a failure (a
+                # context past its top bucket among them) only lowers
+                # acceptance: every emitted token is the target's
+                try:
+                    self._draft_cache, _t, _l = self._draft.run_prefill(
+                        self._draft_cache,
+                        onp.asarray((prompt + emitted)[:pos], 'int32'), slot)
+                except Exception:
+                    logging.warning('decode %s: draft re-sync failed on '
+                                    'import; speculation accepts less',
+                                    self.name, exc_info=True)
+        with self._lock:
+            self._counts['requests'] += 1
+            self._counts['migrated_in'] += 1
+            self._counts['handoff_pages'] += len(ids)
+            superseded = self._note_request_locked(state['request_id'],
+                                                   stream)
+            self._active[slot] = seq
+        if superseded is not None and not superseded.done():
+            superseded.cancel()
+        return stream
+
     # -- degraded completion -----------------------------------------------
 
     def _fallback_stop(self, seq):
@@ -1450,6 +1899,14 @@ class DecodeEngine:
                     self._free.append(slot)
                     self._release_pages_locked(seq)
                 self._counts['drain_timeouts'] += len(leftovers)
+            # migrations the worker will never service now
+            orphans = list(self._migrations)
+            self._migrations = []
+        for _op, _arg, box, ev in orphans:
+            box['error'] = BatcherClosed(
+                'decode engine %r closed before the migration was serviced'
+                % self.name)
+            ev.set()
         for seq in leftovers:
             self._release_adapter(seq)
             seq.stream._finish('error', DrainTimeout(

@@ -48,6 +48,15 @@ uncaptured. A call's extras (temperatures, top-ps and keys as int32
 bits, the mask, the adapter rows) cross in the same one copy as its ints;
 omitted ones take the neutral values (greedy, no mask, the base).
 
+Live migration reads and writes the program's own storage in place:
+:meth:`DecodeProgram.export_slot_state` / ``import_slot_state`` one slot's
+rows, :meth:`PagedDecodeProgram.export_pages` / ``import_pages`` the pages
+of one sequence (gathered on the card, one copy to the host; one copy to
+the card, written into the pool). They run on the caller's current
+stream, the stream the programs replay on, so a write lands before the
+next replay reads the pool and a read follows the last replay that wrote
+it; the captured programs keep their addresses.
+
 :meth:`DecodeProgram.fallback_generate` is the degraded path the engine
 completes a stream on after a transient device fault or while its breaker
 is open: the model's plain path on the CPU through a one-slot cache, from
@@ -79,9 +88,10 @@ from ...resilience.checkpoint import atomic_write_bytes
 from ..adapters import AdapterSpec
 from ..bucket import BucketPolicy, default_buckets
 from ..freeze import FROZEN_SCHEMA
-from .cache import cache_bytes, init_cache
+from .cache import cache_bytes, init_cache, write_slot
 from .model import DecodeModel, model_from_config
-from .paged import TRASH_PAGE, copy_page, init_pool, pages_for, pool_bytes
+from .paged import (TRASH_PAGE, copy_page, init_pool, pages_for, pool_bytes,
+                    write_prefill_pages)
 from .sampling import key_for, sample_tokens
 
 __all__ = ['DecodeProgram', 'PagedDecodeProgram', 'freeze_decode',
@@ -511,6 +521,42 @@ class DecodeProgram:
             *self._extra_args('step', **extras))
         return self._cache, toks, logits
 
+    # -- live migration (seqstate export / import) -------------------------
+
+    @torch.inference_mode()
+    def export_slot_state(self, cache, slot):
+        """Host copy of slot ``slot``'s rows, keyed by cache entry name
+        (one gather on the card, one copy back)."""
+        cache = self._owned(cache)
+        idx = torch.tensor([int(slot)], dtype=torch.int64, device=self.device)
+        names = list(cache)
+        rows = torch.stack([cache[k].index_select(0, idx)[0] for k in names])
+        host = rows.cpu().numpy()
+        return {k: host[i] for i, k in enumerate(names)}
+
+    @torch.inference_mode()
+    def import_slot_state(self, cache, state, slot):
+        """Write host rows from :meth:`export_slot_state` into slot
+        ``slot`` of the program's cache, in place (``cache.write_slot``).
+        Raises ``ValueError`` for a missing entry or a wrong shape, before
+        any write. Returns the cache."""
+        cache = self._owned(cache)
+        rows = []
+        for name, arr in cache.items():
+            if name not in state:
+                raise ValueError('slot state missing cache entry %r'
+                                 % (name,))
+            row = onp.asarray(state[name])
+            if tuple(row.shape) != tuple(arr.shape[1:]):
+                raise ValueError(
+                    'slot state entry %r shape %r != per-slot shape %r'
+                    % (name, tuple(row.shape), tuple(arr.shape[1:])))
+            rows.append(row.astype('float32', copy=False))
+        dev = torch.from_numpy(onp.stack(rows)).to(self.device)
+        for i, arr in enumerate(cache.values()):
+            write_slot(arr, dev[i], int(slot))
+        return cache
+
     # -- the CPU fallback (degraded serving) --------------------------------
 
     @torch.inference_mode()
@@ -891,6 +937,52 @@ class PagedDecodeProgram(DecodeProgram):
         self._run('copy', self.compile_copy_page, pool, [int(src)],
                   [int(dst)])
         return self._cache
+
+    # -- live migration (seqstate export / import) -------------------------
+
+    @torch.inference_mode()
+    def export_pages(self, pool, page_ids):
+        """Host rows of ``page_ids``, keyed by cache entry name: ``{name:
+        (len(page_ids) * page_size, *row)}`` float32. The pages are
+        gathered on the card and only they cross to the host, in one
+        copy."""
+        pool = self._owned(pool)
+        ids = torch.as_tensor(onp.asarray(list(page_ids), 'int64'),
+                              device=self.device)
+        names = list(pool)
+        rows = torch.stack([pool[k].index_select(0, ids) for k in names])
+        host = rows.cpu().numpy()
+        n = host.shape[1] * host.shape[2]
+        return {k: host[i].reshape((n,) + host.shape[3:])
+                for i, k in enumerate(names)}
+
+    @torch.inference_mode()
+    def import_pages(self, pool, rows, page_ids):
+        """Write host rows from :meth:`export_pages` (re-chunked to this
+        program's page size, the tail page zero-padded) into ``page_ids``
+        of the program's own pool, in place (``paged.write_prefill_pages``:
+        the captured programs keep their addresses). ``rows[name]`` must
+        be ``(len(page_ids) * page_size, *row)``; ``ValueError`` otherwise,
+        before any write. Returns the pool."""
+        pool = self._owned(pool)
+        ids = onp.asarray(list(page_ids), 'int64')
+        want = ids.shape[0] * self.page_size
+        chunks = []
+        for name, arr in pool.items():
+            if name not in rows:
+                raise ValueError('page rows missing cache entry %r' % (name,))
+            chunk = onp.asarray(rows[name])
+            if chunk.shape[0] != want or \
+                    tuple(chunk.shape[1:]) != tuple(arr.shape[2:]):
+                raise ValueError('page rows for %r are %r, want (%d, *%r)'
+                                 % (name, tuple(chunk.shape), want,
+                                    tuple(arr.shape[2:])))
+            chunks.append(chunk.astype('float32', copy=False))
+        dev = torch.from_numpy(onp.stack(chunks)).to(self.device)
+        tid = torch.from_numpy(ids).to(self.device)
+        for i, arr in enumerate(pool.values()):
+            write_prefill_pages(arr, dev[i], tid)
+        return pool
 
 
 def freeze_decode(model, params=None, slots=None, prefill_buckets=None,

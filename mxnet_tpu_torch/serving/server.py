@@ -47,20 +47,28 @@ knob names one, on the program's device.
 default (:func:`maybe_start_http_server` starts it only for a nonzero
 ``MXNET_TPU_SERVE_HTTP_PORT``), bound to 127.0.0.1: ``GET /status`` and
 ``/healthz``, ``POST /predict`` and ``/generate`` (chunked NDJSON or one
-JSON body), with the reference's bodies and status codes. Its handler
-threads only call the sessions' ``infer`` / ``submit`` / ``generate``:
-the decode engine's worker alone touches the card. The fleet's parts
-(``/drain``, ``/import``, ``/trace``, and a ``/generate`` body's
-``prefill_only``, ``request_id`` and ``start_index``) wait for ROADMAP A7:
-the routes answer 404 and the keys 400 ``NotPorted``.
+JSON body), with the reference's bodies and status codes, and the
+replica's half of the serving fleet: a ``/generate`` body's
+``request_id`` (echoed on the done line), ``start_index`` (offsets the
+streamed indices) and ``prefill_only`` (the ``seqstate`` payload on the
+done line), ``POST /import`` (continue a payload here) and ``GET
+/drain`` (the payloads of a drain), with the drain lifecycle
+(:meth:`ServingHTTPServer.begin_drain`, ``serve_until_drained``,
+``install_preempt_hook``: SIGTERM drains and the process exits 75). Its
+handler threads only call the sessions' ``infer`` / ``submit`` /
+``generate`` and the engine's export / import, which its worker services:
+the decode engine's worker alone touches the card. ``/trace`` answers 404
+until request tracing is ported (ROADMAP A7).
 """
 from __future__ import annotations
 
 import json
+import logging
 import threading
+import time
 from concurrent.futures import TimeoutError as _FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 import numpy as onp
 
@@ -68,6 +76,8 @@ from .. import config as _config
 from ..resilience.policy import (CircuitBreaker, CircuitOpenError,
                                  PreemptionSignal, WorkerCrashError, inject,
                                  is_transient)
+from ..resilience.preempt import (Preempted, PreemptionHandler,
+                                  resumable_exit_code)
 from ..resilience.watchdog import Watchdog
 from .batcher import (BackpressureError, BatcherClosed, MicroBatcher,
                       RequestTimeout)
@@ -81,8 +91,7 @@ __all__ = ['InferenceSession', 'ServingHTTPServer', 'maybe_start_http_server']
 # an HTTP handler's longest wait when MXNET_TPU_SERVE_TIMEOUT_S=0 disables
 # the per-request budget: a handler thread never blocks for ever
 _HTTP_MAX_WAIT_S = 300.0
-# /generate keys of the fleet's resume and disaggregation plumbing
-_FLEET_KEYS = ('prefill_only', 'request_id', 'start_index')
+DRAIN_SCHEMA = 'mxnet_tpu.drain.v1'
 
 
 def _pick(value, knob):
@@ -267,17 +276,23 @@ class InferenceSession:
     # -- generation --------------------------------------------------------
 
     def generate(self, tokens, max_new_tokens=None, eos_id=None,
-                 adapter=None, temperature=None, top_p=None, seed=None):
+                 request_id=None, prefill_only=False, adapter=None,
+                 temperature=None, top_p=None, seed=None):
         """Stream a generation: returns a
         :class:`~.decode.engine.GenerateStream` (iterate per token, or
-        ``.result(timeout)`` for the whole sequence). ``adapter`` picks the
+        ``.result(timeout)`` for the whole sequence). ``request_id`` keeps
+        one stream a request (a second admission cancels the first);
+        ``prefill_only`` finishes ``'migrated'`` at the prefill boundary
+        with the payload on ``stream.seqstate``. ``adapter`` picks the
         adapter and ``temperature`` / ``top_p`` / ``seed`` the sampling law
         (the engine's defaults: the base, greedy)."""
         if self._engine is None:
             raise TypeError('generate() needs a DecodeProgram session (use '
                             'serving.freeze_decode)')
         kwargs = {'max_new_tokens': max_new_tokens, 'eos_id': eos_id}
-        for key, value in (('adapter', adapter), ('temperature', temperature),
+        for key, value in (('request_id', request_id),
+                           ('prefill_only', prefill_only or None),
+                           ('adapter', adapter), ('temperature', temperature),
                            ('top_p', top_p), ('seed', seed)):
             if value is not None:
                 kwargs[key] = value
@@ -375,37 +390,56 @@ def _wait_s(session):
 
 class ServingHTTPServer:
     """Stdlib JSON endpoint over an :class:`InferenceSession`, the
-    reference's (``mxnet_tpu/serving/server.py:465-1012``) without the
-    fleet's routes. Routes::
+    reference's (``mxnet_tpu/serving/server.py:465-1200``) without
+    ``/trace``. Routes::
 
         GET  /status    the session's status() (with a decode_session:
                         {"status": worst, "predict": ..., "generate": ...})
         GET  /healthz   {"ok": true|false, "status": ...}: 200 when every
                         session reads ok, 503 otherwise (breaker open,
-                        degraded)
+                        degraded, or "draining")
+        GET  /drain     the mxnet_tpu.drain.v1 snapshot: the payloads a
+                        drain exported (?request_id= picks one); serving a
+                        payload marks it handed off
         POST /predict   {"data": [...]} one example, or
                         {"instances": [[...], ...]} many
                         -> {"outputs": ...}
         POST /generate  {"tokens": [...], "max_new_tokens", "eos_id",
                          "stream", "adapter" (or the X-Mxnet-Adapter
-                         header), "temperature", "top_p", "seed"}:
+                         header), "temperature", "top_p", "seed",
+                         "request_id", "start_index", "prefill_only"}:
                         stream true (the default) answers chunked NDJSON,
-                        a {"token", "index"} line a token, then {"done":
-                        true, "tokens", "finish_reason", "degraded"} (a
-                        failure mid-stream: "error" / "error_class" on it);
-                        stream false one {"tokens", "finish_reason",
-                        "degraded"} body
+                        a {"token", "index"} line a token (the index from
+                        start_index on), then {"done": true, "tokens",
+                        "finish_reason", "degraded"} with "request_id"
+                        and, after prefill_only, "seqstate" on it (a
+                        failure mid-stream: "error" / "error_class"; a
+                        "migrated" finish is no error); stream false one
+                        {"tokens", "finish_reason", "degraded", ...} body
+        POST /import    {"seqstate": {...}, "stream", "start_index"}:
+                        continue a payload here, answered as /generate;
+                        the indices continue at len(emitted) unless
+                        start_index says otherwise
 
     ``decode_session`` mounts a second, decode session behind
-    ``/generate``. Status codes: 200 served (``degraded`` when the CPU
-    did the work), 429 shed by a full queue or past ``max_concurrent``
-    in-flight POSTs (default ``MXNET_TPU_SERVE_MAX_CONCURRENT``, 0:
-    unbounded), both with ``Retry-After``, 504 the per-request budget
-    lapsed, 503 the session closed, 500 typed (``error_class``) on an
-    aborted request or a bug, 400 a caller's error (bad JSON, shapes, a
-    prompt past the ladder, the fleet's keys: ``NotPorted``), 404 any
-    other path. Binds ``host`` (127.0.0.1); port 0 picks a free one,
-    read back from :attr:`port` after :meth:`start`."""
+    ``/generate`` and ``/import``. Status codes: 200 served (``degraded``
+    when the CPU did the work), 429 shed by a full queue, a full pool at
+    import or past ``max_concurrent`` in-flight POSTs (default
+    ``MXNET_TPU_SERVE_MAX_CONCURRENT``, 0: unbounded), each with
+    ``Retry-After``, 504 the per-request budget lapsed, 503 the session
+    closed or the replica draining (``error_class`` ``Draining``,
+    ``Retry-After: 1``), 500 typed (``error_class``) on an aborted request
+    or a bug, 400 a caller's error (bad JSON, shapes, a prompt past the
+    ladder, a bad ``start_index``, a refused payload), 404 any other path.
+    Binds ``host`` (127.0.0.1); port 0 picks a free one, read back from
+    :attr:`port` after :meth:`start`.
+
+    The drain (:meth:`begin_drain`): ``/healthz`` answers 503 ``draining``,
+    every POST sheds 503 ``Draining`` after its body is read, every
+    sequence in flight is exported and served over ``GET /drain``, and
+    once every payload is fetched (or ``MXNET_TPU_SERVE_DRAIN_TIMEOUT_S``
+    passes) the sessions close and :attr:`drain_result` records the
+    resumable exit code."""
 
     def __init__(self, session, port, host='127.0.0.1', decode_session=None,
                  max_concurrent=None):
@@ -418,6 +452,16 @@ class ServingHTTPServer:
             else _config.get('MXNET_TPU_SERVE_MAX_CONCURRENT'))
         self._httpd = None
         self._thread = None
+        self._draining = False
+        self._drain_lock = threading.Lock()
+        self._drain_payloads = []
+        self._drain_unserved = set()
+        self._drain_result = None
+        self._drain_done = threading.Event()
+        self._drain_thread = None
+        self._preempt = None
+        self._preempt_stop = threading.Event()
+        self._preempt_thread = None
 
     def _statuses(self):
         st = self.session.status()
@@ -427,9 +471,12 @@ class ServingHTTPServer:
         worst = st['status'] if st['status'] != 'ok' else dst['status']
         return {'status': worst, 'predict': st, 'generate': dst}, worst
 
+    def _gen_session(self):
+        return self.decode_session if self.decode_session is not None \
+            else self.session
+
     def _retry_after(self, path):
-        src = self.decode_session if (path == '/generate' and
-                                      self.decode_session is not None) \
+        src = self._gen_session() if path in ('/generate', '/import') \
             else self.session
         try:
             return float(src.retry_after_hint())
@@ -475,24 +522,41 @@ class ServingHTTPServer:
                     pass
 
             def do_GET(self):
-                path = urlparse(self.path).path.rstrip('/')
+                parsed = urlparse(self.path)
+                path = parsed.path.rstrip('/')
                 if path == '/status':
                     self._json(200, srv._statuses()[0])
                 elif path == '/healthz':
-                    # a load balancer keys on the code: an unhealthy
-                    # replica answers 503, the body keeps the detail
+                    # a load balancer keys on the code: an unhealthy or
+                    # draining replica answers 503, the body keeps the detail
+                    if srv._draining:
+                        self._json(503, {'ok': False, 'status': 'draining'})
+                        return
                     worst = srv._statuses()[1]
                     ok = worst == 'ok'
                     self._json(200 if ok else 503,
                                {'ok': ok, 'status': worst})
+                elif path == '/drain':
+                    rid = (parse_qs(parsed.query).get('request_id')
+                           or [None])[0]
+                    self._json(200, srv._drain_snapshot(rid))
                 else:
                     self.send_error(404)
 
             def do_POST(self):
                 path = self.path.rstrip('/')
-                if path not in ('/predict', '/generate'):
+                if path not in ('/predict', '/generate', '/import'):
                     self._drain_body()
                     self.send_error(404)
+                    return
+                if srv._draining:
+                    # this replica is leaving: new work and imports alike
+                    # shed typed before any byte streams
+                    self._drain_body()
+                    self._json(503, {'error': 'replica draining (sequences '
+                                              'are being handed off)',
+                                     'error_class': 'Draining'},
+                               headers={'Retry-After': '1'})
                     return
                 if gate is not None and not gate.acquire(blocking=False):
                     self._drain_body()
@@ -520,6 +584,8 @@ class ServingHTTPServer:
                 try:
                     if path == '/generate':
                         self._generate(req)
+                    elif path == '/import':
+                        self._import(req)
                     elif 'instances' in req:
                         wait_s = _wait_s(session)
                         futs = [session.submit(onp.asarray(x))
@@ -545,7 +611,8 @@ class ServingHTTPServer:
                     self._json(503, {'error': str(exc)})
                 except (ValueError, TypeError) as exc:
                     # admission-time validation: shapes, arity, a prompt
-                    # past the ladder, the wrong route for the session
+                    # past the ladder, the wrong route for the session, a
+                    # refused payload (SeqStateError is a ValueError)
                     self._json(400, {'error': str(exc)})
                 except Exception as exc:  # noqa: BLE001 - a typed 500
                     self._json(500, {'error': '%s: %s'
@@ -553,22 +620,26 @@ class ServingHTTPServer:
                                      'error_class': type(exc).__name__})
 
             def _generate(self, req):
-                gen = srv.decode_session if srv.decode_session is not None \
-                    else srv.session
-                fleet = [k for k in _FLEET_KEYS if k in req]
-                if fleet:
-                    self._json(400, {
-                        'error': '%s: the serving fleet\'s resume and '
-                                 'disaggregation keys are not ported '
-                                 '(ROADMAP A7)' % ', '.join(fleet),
-                        'error_class': 'NotPorted'})
-                    return
+                gen = srv._gen_session()
                 tokens = req.get('tokens')
                 if not tokens:
                     self._json(400, {'error': "need 'tokens'"})
                     return
+                # the fleet's resume plumbing: start_index offsets the
+                # streamed indices of a spliced continuation, request_id
+                # dedups re-admissions and rides the done line
+                try:
+                    start_index = int(req.get('start_index', 0) or 0)
+                except (TypeError, ValueError):
+                    self._json(400, {'error': "bad 'start_index'"})
+                    return
+                request_id = req.get('request_id')
                 kwargs = {'max_new_tokens': req.get('max_new_tokens'),
                           'eos_id': req.get('eos_id')}
+                if request_id is not None:
+                    kwargs['request_id'] = request_id
+                if req.get('prefill_only'):
+                    kwargs['prefill_only'] = True
                 # the body wins over the header (the gateway's relay)
                 adapter = req.get('adapter')
                 if adapter is None:
@@ -585,13 +656,37 @@ class ServingHTTPServer:
                     self._json(400, {'error': 'bad sampling parameters'})
                     return
                 stream = gen.generate(tokens, **kwargs)
-                if not req.get('stream', True):
-                    toks = stream.result(_wait_s(gen))
-                    self._json(200, {'tokens': toks,
-                                     'finish_reason': stream.finish_reason,
-                                     'degraded': stream.degraded})
+                self._answer(gen, req, stream, start_index, request_id)
+
+            def _import(self, req):
+                gen = srv._gen_session()
+                if getattr(gen, '_engine', None) is None:
+                    self._json(400, {'error': '/import needs a decode-mode '
+                                              'session'})
                     return
-                self._stream_ndjson(stream)
+                payload = req.get('seqstate')
+                if not isinstance(payload, dict):
+                    self._json(400, {'error': "need 'seqstate' (a "
+                                              "mxnet_tpu.seqstate.v1 object)"})
+                    return
+                stream = gen._engine.import_sequence(payload)
+                # numbering continues after the handed-off prefix, unless
+                # the caller (a gateway's relayed watermark) says otherwise
+                start_index = len(payload.get('emitted') or [])
+                if req.get('start_index') is not None:
+                    try:
+                        start_index = int(req['start_index'])
+                    except (TypeError, ValueError):
+                        pass
+                self._answer(gen, req, stream, start_index,
+                             payload.get('request_id'))
+
+            def _answer(self, gen, req, stream, start_index, request_id):
+                if req.get('stream', True):
+                    self._stream_ndjson(stream, start_index, request_id)
+                    return
+                toks = stream.result(_wait_s(gen))
+                self._json(200, _done(stream, toks, request_id))
 
             def _chunk(self, obj):
                 data = (json.dumps(obj, sort_keys=True) + '\n').encode()
@@ -599,17 +694,17 @@ class ServingHTTPServer:
                 # each token leaves now, not in a burst at the end
                 self.wfile.flush()
 
-            def _stream_ndjson(self, stream):
+            def _stream_ndjson(self, stream, start_index, request_id):
                 self.send_response(200)
                 self.send_header('Content-Type', 'application/x-ndjson')
                 self.send_header('Transfer-Encoding', 'chunked')
                 self.end_headers()
                 try:
                     for i, tok in enumerate(stream):
-                        self._chunk({'token': tok, 'index': i})
-                    self._chunk({'done': True, 'tokens': stream.tokens,
-                                 'finish_reason': stream.finish_reason,
-                                 'degraded': stream.degraded})
+                        self._chunk({'token': tok, 'index': start_index + i})
+                    done = _done(stream, stream.tokens, request_id)
+                    done['done'] = True
+                    self._chunk(done)
                 except OSError:
                     # the client went away: free its slot, and never write
                     # to the dead socket again
@@ -659,7 +754,133 @@ class ServingHTTPServer:
         self._thread.start()
         return self
 
+    # -- the drain (a fleet's graceful handoff) ------------------------------
+
+    @property
+    def draining(self):
+        return self._draining
+
+    @property
+    def drain_result(self):
+        """``{'rc', 'reason', 'sequences', 'handed_off', 'duration_s'}``
+        once the drain completed (``rc`` the resumable exit code), else
+        None."""
+        with self._drain_lock:
+            return dict(self._drain_result) if self._drain_result else None
+
+    def install_preempt_hook(self, handler=None, poll_s=0.05):
+        """SIGTERM / SIGINT drain this endpoint: the signal only sets the
+        handler's flag, a watcher thread sees it (every ``poll_s``) and
+        calls :meth:`begin_drain`. ``handler`` shares a
+        :class:`~..resilience.preempt.PreemptionHandler`; by default one is
+        made and installed (from the main thread). Pair it with
+        :meth:`serve_until_drained` on the main thread. Returns the
+        handler."""
+        if self._preempt is not None:
+            return self._preempt
+        if handler is None:
+            handler = PreemptionHandler().install()
+        self._preempt = handler
+
+        def watch():
+            while not self._preempt_stop.wait(poll_s):
+                if handler.stop_requested:
+                    self.begin_drain(reason=handler.reason or 'preempted')
+                    return
+
+        self._preempt_thread = threading.Thread(
+            target=watch, daemon=True, name='mxnet-tpu-torch-serving-preempt')
+        self._preempt_thread.start()
+        return handler
+
+    def begin_drain(self, reason='requested', handoff_timeout_s=None):
+        """Start a graceful drain (idempotent): ``/healthz`` answers 503
+        ``draining``, every POST sheds 503 ``Draining``, every sequence in
+        flight is exported and served over ``GET /drain``, and the drain's
+        result records once the payloads are handed off or
+        ``handoff_timeout_s`` (``MXNET_TPU_SERVE_DRAIN_TIMEOUT_S``)
+        passes. Returns the server."""
+        with self._drain_lock:
+            if self._draining:
+                return self
+            self._draining = True
+        if handoff_timeout_s is None:
+            handoff_timeout_s = _config.get('MXNET_TPU_SERVE_DRAIN_TIMEOUT_S')
+        self._drain_thread = threading.Thread(
+            target=self._drain_worker,
+            args=(reason, time.monotonic(), float(handoff_timeout_s)),
+            daemon=True, name='mxnet-tpu-torch-serving-drain')
+        self._drain_thread.start()
+        return self
+
+    def wait_drained(self, timeout=None):
+        """Block until the drain completed; True when it has."""
+        return self._drain_done.wait(timeout)
+
+    def serve_until_drained(self, timeout=None):
+        """A serving process's main thread: block until a drain
+        completes, then raise :class:`~..resilience.preempt.Preempted`,
+        so that the process exits with the resumable code (75) a
+        scheduler restarts."""
+        self._drain_done.wait(timeout)
+        res = self.drain_result or {}
+        raise Preempted(res.get('rc', resumable_exit_code()),
+                        reason=res.get('reason', 'drained'))
+
+    def _drain_snapshot(self, request_id=None):
+        """The ``GET /drain`` body; a payload served is handed off."""
+        with self._drain_lock:
+            picked = [i for i, p in enumerate(self._drain_payloads)
+                      if request_id is None
+                      or p.get('request_id') == request_id]
+            self._drain_unserved.difference_update(picked)
+            return {'schema': DRAIN_SCHEMA,
+                    'draining': self._draining,
+                    'complete': self._drain_done.is_set(),
+                    'pending': len(self._drain_unserved),
+                    'sequences': [self._drain_payloads[i] for i in picked]}
+
+    def _drain_worker(self, reason, t0, handoff_timeout_s):
+        sessions = [s for s in (self.session, self.decode_session)
+                    if s is not None
+                    and getattr(s, '_engine', None) is not None]
+        payloads = []
+        for s in sessions:
+            try:
+                payloads.extend(s._engine.export_all())
+            except Exception:
+                logging.exception('drain: export_all failed on session %r',
+                                  getattr(s, 'name', s))
+        with self._drain_lock:
+            self._drain_payloads = payloads
+            self._drain_unserved = set(range(len(payloads)))
+        # the handoff window: a gateway fetches the payloads over GET
+        # /drain; with no consumer the replica moves on when it closes
+        deadline = t0 + handoff_timeout_s
+        while payloads and time.monotonic() < deadline:
+            with self._drain_lock:
+                if not self._drain_unserved:
+                    break
+            time.sleep(0.02)
+        for s in sessions:
+            try:
+                s.close(drain=True)
+            except Exception:
+                logging.exception('drain: close failed on session %r',
+                                  getattr(s, 'name', s))
+        with self._drain_lock:
+            self._drain_result = {
+                'rc': resumable_exit_code(), 'reason': reason,
+                'sequences': len(payloads),
+                'handed_off': len(payloads) - len(self._drain_unserved),
+                'duration_s': round(time.monotonic() - t0, 3)}
+        self._drain_done.set()
+
     def stop(self):
+        self._preempt_stop.set()
+        if self._preempt_thread is not None:
+            self._preempt_thread.join(timeout=2.0)
+            self._preempt_thread = None
         if self._httpd is None:
             return
         self._httpd.shutdown()
@@ -672,6 +893,20 @@ class ServingHTTPServer:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+def _done(stream, tokens, request_id):
+    """A generation's last line (or plain body): the tokens, the finish,
+    whether the CPU served, and the request id and a ``prefill_only``
+    payload where there are."""
+    out = {'tokens': tokens, 'finish_reason': stream.finish_reason,
+           'degraded': stream.degraded}
+    seqstate = getattr(stream, 'seqstate', None)
+    if seqstate is not None:
+        out['seqstate'] = seqstate
+    if request_id is not None:
+        out['request_id'] = request_id
+    return out
 
 
 def maybe_start_http_server(session):

@@ -15,9 +15,12 @@ from a numpy seed and a small one-shot net of the port. What is held:
     ``tests/test_decode.py:692``): 200 (``degraded`` when the CPU served),
     429 with ``Retry-After`` from a full queue and past ``max_concurrent``,
     504, 503 on a closed session, 500 typed, 400, 404, and ``/healthz``
-    503 while the breaker is open; the fleet's routes are 404 and its
-    ``/generate`` keys 400 ``NotPorted``; a client that goes away cancels
-    its stream;
+    503 while the breaker is open; ``GET /drain`` on a one-shot session
+    is an empty snapshot and ``POST /import`` a 400, ``/trace`` 404; the
+    fleet's ``/generate`` keys are served (``request_id`` echoed,
+    ``start_index`` offsetting the indices, ``seqstate`` on a
+    ``prefill_only`` done line); a client that goes away cancels its
+    stream;
   * the server is off by default and on with ``MXNET_TPU_SERVE_HTTP_PORT``;
     ``MXNET_TPU_SERVE_SPEC_DRAFT`` loads a session's draft.
 
@@ -352,9 +355,18 @@ def test_http_400_and_404():
         assert _post(srv.port, '/predict', {'x': 1})[::2] == \
             (400, {'error': "need 'data' or 'instances'"})
         assert _post(srv.port, '/predict', [1, 2])[0] == 400
-        for path in ('/nope', '/drain', '/trace', '/import'):
+        for path in ('/nope', '/trace'):
             assert _get(srv.port, path)[0] == 404, path
             assert _post(srv.port, path, {'data': [0.0]})[0] == 404, path
+        # the drain routes: an empty snapshot, and no import without a
+        # decode session; their other method is no route
+        assert _get(srv.port, '/drain') == (200, {
+            'schema': 'mxnet_tpu.drain.v1', 'draining': False,
+            'complete': False, 'pending': 0, 'sequences': []})
+        code, _h, body = _post(srv.port, '/import', {'seqstate': {}})
+        assert code == 400 and 'decode-mode' in body['error']
+        assert _post(srv.port, '/drain', {'data': [0.0]})[0] == 404
+        assert _get(srv.port, '/import')[0] == 404
         # the 404s left the keep-alive state intact for the next request
         assert _post(srv.port, '/predict', {'data': [0.0]})[0] == 200
 
@@ -561,16 +573,34 @@ def test_degraded_stream_and_healthz_503_while_the_breaker_is_open(
 
 
 def test_fleet_keys_answer_400_not_ported(weights):
+    """The fleet's ``/generate`` keys, once refused ``NotPorted``, are
+    served: ``request_id`` is echoed on the done line, ``start_index``
+    offsets the streamed indices, and a ``prefill_only`` done line carries
+    the ``seqstate``; a bad ``start_index`` and the other bad bodies are
+    still 400."""
     prog = _program(weights)
     with serving.InferenceSession(prog, timeout_s=WAIT) as sess, \
             serving.ServingHTTPServer(sess, 0) as srv:
-        for key, value in (('prefill_only', True), ('request_id', 'r1'),
-                           ('start_index', 0)):
-            code, _h, body = _post(srv.port, '/generate',
-                                   {'tokens': [1, 2], key: value})
-            assert code == 400 and body['error_class'] == 'NotPorted'
-            assert key in body['error'] and 'A7' in body['error']
-        assert sess.stats()['counts']['requests'] == 0
+        want = sess.generate(PROMPTS[0], max_new_tokens=5).result(WAIT)
+        code, _ct, lines = _stream(srv.port, {
+            'tokens': PROMPTS[0], 'max_new_tokens': 5, 'request_id': 'r1',
+            'start_index': 7})
+        assert code == 200
+        assert [ln['index'] for ln in lines[:-1]] == list(range(7, 12))
+        assert lines[-1] == {'done': True, 'tokens': want,
+                             'finish_reason': 'length', 'degraded': False,
+                             'request_id': 'r1'}
+        code, _h, body = _post(srv.port, '/generate', {
+            'tokens': PROMPTS[0], 'max_new_tokens': 5, 'stream': False,
+            'prefill_only': True, 'request_id': 'r2'})
+        assert code == 200 and body['finish_reason'] == 'migrated'
+        assert body['tokens'] == want[:1] and body['request_id'] == 'r2'
+        assert body['seqstate']['kind'] == 'paged'
+        assert body['seqstate']['request_id'] == 'r2'
+        assert body['seqstate']['emitted'] == want[:1]
+        assert sess.stats()['counts']['prefill_exports'] == 1
+        assert _post(srv.port, '/generate', {'tokens': [1, 2],
+                                             'start_index': 'x'})[0] == 400
         for bad in ({'tokens': [1, 2], 'temperature': 'hot'},
                     {'tokens': [1, 2], 'temperature': -1.0},
                     {'tokens': []}, {'tokens': list(range(40))},
