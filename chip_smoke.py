@@ -243,8 +243,8 @@ Phases, in order; any failure exits non-zero:
      payloads, which B (the same weights and adapters at page size 128)
      imports: each spliced stream equal to 3a's (a sampled one but at a
      near tie of the perturbed scores, < 1e-4), B's prefills the cold
-     payloads, 24 in, the handoff pages each live payload's at each page
-     size; (b) 3s's 16 shared-prefix prompts ``prefill_only`` on A (15
+     payloads, 8 in (the live imports), the handoff pages each live
+     payload's at each page size; (b) 3s's 16 shared-prefix prompts ``prefill_only`` on A (15
      prefix hits exported extending, before any token), imported by B
      with no prefill, equal to 3s's greedy streams; exact launches for (a)
      and (b), neither pool's storage replaced; each live payload alone
@@ -262,7 +262,47 @@ Phases, in order; any failure exits non-zero:
      in the child and in B', the child printing ``handed_off`` 8 and
      exiting 75 within the 30 s drain budget; (d) ``/import`` of a
      payload with one base64 character changed, and of an
-     adapter-pinned payload into B' (no adapters), 400;
+     adapter-pinned payload into B' (no adapters), 400. 3g, the port's
+     ``ServingGateway`` (health period 0.25 s, resume and affinity on)
+     over 3p's program, inside 3h after its children: a child process
+     spawned as 3h's main child (3h's LM artifact and its draft) and six
+     replicas in process (``relay``, ``pre``, ``first`` with the ladder
+     to 384, ``second``, ``b128`` at page size 128, ``small`` with a
+     4-page pool). The relay's cost: 3p's 16 requests 8 at a time straight to
+     ``relay`` (cold), through a gateway and straight again (warm):
+     TTFT p50 / p99 and tokens/s. (a) 3p's 16 streams through a gateway
+     over the child and ``first``; once every stream on the child has 4
+     tokens, SIGKILL: every stream ends with a done line and no error
+     line, indices 0..31, ``resumed`` 1 on the moved ones (re-prefilled
+     prompt + emitted on ``first``), 3p's tokens (a moved stream: but at
+     a near tie, teacher-forced top-2 margin < 1e-4), ``/healthz``
+     ``degraded``, ``resumes`` the moved streams. (d) tenant admission
+     (rps 2, burst 2, 8 in flight) on ``first``: one tenant bursts 16,
+     the other sends 1 every 0.5 s: the steady one only 200s, the burst
+     typed 429s naming its tenant with ``Retry-After`` from its bucket,
+     as many as ``mxnet_tpu_gateway_tenant_rejected_total`` on
+     ``/metrics``. (c) ``pre`` the prefill class, ``b128`` and
+     ``second`` the decode class: 3p's 16 greedy and 3a's 6 sampled base
+     requests 8 at a time, then 3 fresh prompts (64, 128, 250 tokens) one
+     at a time, each ``prefill_only`` then imported: spliced as many, no
+     prefill on the decode side, ``migrated_out`` the sum of the
+     ``migrated_in``, both decode replicas used, greedy 3p's, sampled
+     3a's but at near ties, the fresh ones the tokens ``relay`` serves
+     them monolithically (their TTFT beside); (e) one request with a
+     client-minted
+     ``X-Mxnet-Trace`` root: ``gw.request``, ``gw.route``, ``gw.relay``,
+     ``gw.handoff``, ``gw.splice`` on the gateway's ``GET /trace``, one
+     tree (``tree_verdict``), the replicas sent child headers of the same
+     trace; then ``small`` refuses a 250-token prompt's payload (429, its
+     pool) and the next decode replica takes it (``handoff.retries`` >=
+     1). (b) ``first`` drains under 8 of 3p's streams (128 tokens) while
+     ``b128``'s endpoint comes back: each payload from ``GET
+     /drain?request_id=`` into ``b128`` by ``POST /import``, no prefill,
+     ``migrations.spliced`` 8, ``migrated_in`` 8, the first 32 tokens
+     3p's and every token teacher-forced. The in-process launches exact
+     against the engines' counts (rows 1, 4p, 18), no program built by a
+     request; the child's launches, read just before the kill, join the
+     ``kernels`` line;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -3751,7 +3791,8 @@ FAULT_SPEC = 'device_loss@serving.decode.9:1'
 # blocks in serve_until_drained: a STATS line on its stdin prints STATS
 # <json> (DONE's fields), and SIGTERM drains it: it prints DRAINED <json>
 # (the same fields and the drain's result) and exits with the resumable
-# code
+# code. The fleet child (phase 3g) serves the LM alone, answers STATS
+# lines until its stdin closes, and is killed by SIGKILL
 CHILD_3H = r'''
 import json, sys, threading, time
 t_start = time.time()
@@ -3828,6 +3869,10 @@ if mode == 'main':
         srv.stop()
         if osess is not None:
             osess.close()
+elif mode == 'fleet':
+    for line in sys.stdin:
+        if line.strip() == 'STATS':
+            print('STATS ' + json.dumps(snapshot()), flush=True)
 sys.stdin.read()
 doc = snapshot()
 srv.stop()
@@ -4328,7 +4373,8 @@ def serve_migration(torch, serving, kernels, device, want_3a, want_3s,
     ``cold`` payloads, which B imports (the live ones first): every
     spliced stream equal to 3a's (``want_3a``), sampled ones but at a near
     tie of the plain stream's perturbed scores; B's prefills the cold
-    payloads, 24 in, the handoff pages every live payload's. (b): A serves
+    payloads (ordinary admissions), 8 in (the live imports), the handoff
+    pages every live payload's. (b): A serves
     3s's 16 shared-prefix prompts ``prefill_only`` (the later ones export
     the extending state of a prefix hit, before any token), B imports
     them: equal to 3s's greedy streams (``want_3s``), no prefill on B.
@@ -4430,7 +4476,7 @@ def serve_migration(torch, serving, kernels, device, want_3a, want_3s,
         da, db = _count_delta(mid_a, before_a), _count_delta(mid_b, before_b)
         want_pages = (sum(pages_for(p['pos'], PAGE_SIZE) for p in live),
                       sum(pages_for(p['pos'], MIGRATE_PAGE) for p in live))
-        if db['prefills'] != len(cold) or db['migrated_in'] != len(reqs) or \
+        if db['prefills'] != len(cold) or db['migrated_in'] != len(live) or \
                 da['migrated_out'] != len(reqs) or \
                 (da['handoff_pages'], db['handoff_pages']) != want_pages:
             raise AssertionError('phase 3m (a): A %s, B %s, handoff pages '
@@ -4806,6 +4852,751 @@ def log_drain(d, card):
            d['recheck_equal'], len(d['recheck_ties']), d['recheck_ties'],
            {k: d['counts'][k] for k in ('migrated_in', 'prefills', 'steps')},
            d['result'], d['exit_s']))
+
+
+# -- phase 3g: the serving gateway over a fleet of the port's replicas -------
+
+FLEET_HEALTH_S = 0.25      # the gateway's probe period
+FLEET_BUDGET_S = 120.0     # any one part's waits
+FLEET_KILL_AFTER = 4       # tokens each child stream has before SIGKILL
+# (a)'s in-process replica also prefills at 384: a moved stream re-admits
+# prompt + emitted, which passes 256 for 3p's longer prompts
+FLEET_LADDER = BUCKETS + (384,)
+FLEET_TENANT = dict(tenant_rps=2.0, tenant_burst=2.0, tenant_max_inflight=8)
+TENANT_BURST = 16          # requests the bursting tenant sends at once
+TENANT_STEADY = 3          # the steady tenant's, one every 0.5 s
+TENANT_TOKENS = 8
+SMALL_POOL = 4             # pages of (c)'s refusing decode replica: 48 tokens
+SOLO_PROMPTS = (64, 128, 250)   # (c)'s fresh prompts, one at a time
+STATUS_CALLS = 20          # GET /status calls timed on a decode replica
+
+
+class _FleetReplica:
+    """An in-process replica of phase 3g: a decode session over ``prog``
+    behind its own ``ServingHTTPServer`` (at ``port``, 0 for a free one).
+    Each prefill call is timed (start, seconds, its tokens), and each payload
+    its engine imports recorded (call time, request id, emitted tokens,
+    the payload)."""
+
+    def __init__(self, serving, prog, name, port=0):
+        self.name, self.prog = name, prog
+        self.sess = serving.InferenceSession(prog, timeout_s=600,
+                                             max_new_tokens=NEW_TOKENS)
+        self.eng = self.sess._engine
+        self.prefills, self.imports = [], []
+        run_prefill, import_sequence = prog.run_prefill, \
+            self.eng.import_sequence
+
+        def timed(pool, tokens, page_ids, **extras):
+            t0 = time.perf_counter()
+            out = run_prefill(pool, tokens, page_ids, **extras)
+            self.prefills.append((t0, time.perf_counter() - t0, tokens))
+            return out
+
+        def recorded(payload, timeout=30.0):
+            t0 = time.perf_counter()
+            stream = import_sequence(payload, timeout)
+            self.imports.append(dict(t=t0, rid=payload.get('request_id'),
+                                     emitted=len(payload.get('emitted')
+                                                 or ()), payload=payload))
+            return stream
+
+        prog.run_prefill = timed
+        self.eng.import_sequence = recorded
+        self.srv = serving.ServingHTTPServer(self.sess, port).start()
+        self.port = self.srv.port
+        self.url = 'http://127.0.0.1:%d' % self.port
+
+    def counts(self):
+        return self.eng.stats()['counts']
+
+    def restart(self, serving):
+        """A new endpoint over the same session, on the same port."""
+        self.srv = serving.ServingHTTPServer(self.sess, self.port).start()
+
+    def close(self):
+        self.srv.stop()
+        self.sess.close()
+
+
+def _fleet_rec():
+    return {'status': None, 'tokens': [], 'indices': [], 'times': [],
+            'done': None, 'error': None, 'finished': False, 'body': None,
+            'headers': {}}
+
+
+def _fleet_stream(port, body, rec, cv, headers=None):
+    """One ``/generate`` through ``port`` (a gateway or a replica),
+    recorded into ``rec`` under ``cv`` line by line: the status, token
+    values, indices and arrival times, the done line, a refusal's body and
+    headers, or the error that cut it."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port,
+                                      timeout=HTTP_BUDGET_S)
+    try:
+        hdrs = {'Content-Type': 'application/json'}
+        hdrs.update(headers or {})
+        rec['t0'] = time.perf_counter()
+        conn.request('POST', '/generate', body=json.dumps(body).encode(),
+                     headers=hdrs)
+        resp = conn.getresponse()
+        rec['status'], rec['headers'] = resp.status, dict(resp.headers)
+        if resp.status != 200:
+            rec['body'] = json.loads(resp.read() or b'{}')
+            return rec
+        for raw in resp:
+            line = json.loads(raw)
+            with cv:
+                if 'token' in line:
+                    rec['tokens'].append(line['token'])
+                    rec['indices'].append(line['index'])
+                    rec['times'].append(time.perf_counter())
+                elif line.get('done'):
+                    rec['done'] = line
+                cv.notify_all()
+    except Exception as exc:  # noqa: BLE001 - recorded, then checked
+        rec['error'] = '%s: %s' % (type(exc).__name__, exc)
+    finally:
+        conn.close()
+        with cv:
+            rec['finished'] = True
+            cv.notify_all()
+    return rec
+
+
+def _fleet_start(port, bodies, cv, headers=None):
+    """Every body through ``port`` at once, a thread each."""
+    import threading
+    recs = [_fleet_rec() for _ in bodies]
+    threads = [threading.Thread(target=_fleet_stream,
+                                args=(port, b, r, cv, headers), daemon=True)
+               for b, r in zip(bodies, recs)]
+    for t in threads:
+        t.start()
+    return recs, threads
+
+
+def _fleet_map(port, bodies, cv, clients=HTTP_CLIENTS):
+    """Every body through ``port``, ``clients`` at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(clients) as pool:
+        return list(pool.map(lambda b: _fleet_stream(port, b, _fleet_rec(),
+                                                      cv), bodies))
+
+
+def _fleet_join(part, threads, budget=FLEET_BUDGET_S):
+    deadline = time.monotonic() + budget
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+        if t.is_alive():
+            raise AssertionError('phase 3g %s: a stream outlived %.0f s'
+                                 % (part, budget))
+
+
+def _fleet_wait(part, cv, cond, budget=FLEET_BUDGET_S):
+    with cv:
+        if not cv.wait_for(cond, budget):
+            raise AssertionError('phase 3g %s: not within %.0f s'
+                                 % (part, budget))
+
+
+def _fleet_ok(part, i, rec, n, want=None):
+    """A whole stream: 200, ``n`` tokens, indices 0..n-1, a done line
+    with no error whose tokens are the streamed ones (and ``want``, when
+    given)."""
+    d = rec['done']
+    if rec['error'] or rec['status'] != 200 or d is None or 'error' in d \
+            or rec['indices'] != list(range(n)) \
+            or d.get('tokens') != rec['tokens'] \
+            or (want is not None and rec['tokens'] != want):
+        raise AssertionError(
+            'phase 3g %s: stream %d: status %s, error %s, %d tokens, '
+            'indices %s, done %s%s' % (
+                part, i, rec['status'], rec['error'], len(rec['tokens']),
+                rec['indices'][:8] + ['...'],
+                d if d is None else {k: v for k, v in d.items()
+                                     if k not in ('tokens', 'seqstate')},
+                '' if want is None or rec['tokens'] == want
+                else '; tokens %s, wanted %s' % (rec['tokens'], want)))
+
+
+def _ttft(recs):
+    return [r['times'][0] - r['t0'] for r in recs]
+
+
+def _tenant_rejected(port, tenant):
+    """The ``mxnet_tpu_gateway_tenant_rejected_total`` samples of
+    ``tenant`` on the gateway's ``GET /metrics``, summed over reasons."""
+    import urllib.request
+    from mxnet_tpu_torch import observability
+    text = urllib.request.urlopen('http://127.0.0.1:%d/metrics' % port,
+                                  timeout=HTTP_BUDGET_S).read().decode()
+    _types, samples = observability.parse_prometheus(text)
+    return sum(v for name, labels, v in samples
+               if name == 'mxnet_tpu_gateway_tenant_rejected_total'
+               and labels.get('tenant') == tenant)
+
+
+def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
+                cfg=SLICE, slots=SLOTS, buckets=BUCKETS,
+                new_tokens=NEW_TOKENS, seed=0, device=None):
+    """Phase 3g: 3p's program behind the port's ``ServingGateway``
+    (health period 0.25 s, resume and affinity on), at full width.
+    ``want_3p`` are 3p's 16 greedy streams, ``sampled`` (request, stream)
+    pairs of 3a's sampled base requests, ``arts`` 3h's artifacts. The
+    replicas: a child process loading 3h's LM artifact (as 3h spawns its
+    main child: its draft through ``MXNET_TPU_SERVE_SPEC_DRAFT``), and in
+    process ``relay``, ``pre``, ``first`` (the ladder to 384) and
+    ``second`` (page 16), ``b128`` (page 128) and ``small`` (page 16,
+    ``SMALL_POOL`` pages).
+    Parts, each with its own waits: the relay's cost (3p's 16 requests 8
+    at a time straight to ``relay`` with its trie cold, then through a
+    gateway and straight again, both warm); (a) failover by a process
+    death; (d) tenant admission; (c) disaggregated prefill / decode with (e) a traced request and a
+    typed refusal; (b) the drain of ``first`` through the gateway into
+    ``b128``. Then the in-process launches against the engines'
+    arithmetic, the programs, the near ties. Returns a dict of results.
+    """
+    import threading
+    import numpy as np
+    from mxnet_tpu_torch import observability
+    from mxnet_tpu_torch.observability import trace
+    device = device or torch.device('cuda')
+    layers = cfg['layers']
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(8, 257, size=REQUESTS)
+    prompts = [rs.randint(0, cfg['vocab'], size=n).tolist() for n in lens]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('MXNET_TPU_')}
+    env.update(MXNET_TPU_SERVE_SPEC_K=str(SPEC_K),
+               MXNET_TPU_SERVE_SPEC_DRAFT=arts['draft']['path'])
+    child = _Child('fleet', arts, env, os.path.join(
+        os.path.dirname(arts['lm']['path']), 'fleet.log'))
+    reps, gws = [], []
+    observability.set_enabled(True)
+    cv = threading.Condition()
+    res = {}
+    try:
+        # the in-process replicas while the child loads and captures
+        t0 = time.perf_counter()
+        model, params = serving.init_transformer_lm(seed=seed, **cfg)
+
+        def replica(name, ladder=buckets, **kw):
+            prog = serving.freeze_decode(model, params, slots=slots,
+                                         prefill_buckets=ladder,
+                                         device=device, **kw)
+            rep = _FleetReplica(serving, prog, name)
+            check_programs('phase 3g %s' % name, prog,
+                           program_set(ladder, True), True)
+            reps.append(rep)
+            return rep
+
+        relay = replica('relay')
+        pre = replica('pre')
+        first = replica('first', FLEET_LADDER)
+        second = replica('second')
+        b128 = replica('b128', page_size=MIGRATE_PAGE)
+        small = replica('small', pages=SMALL_POOL)
+        del params
+        for rep in (relay, first, second):
+            # library handles and the allocator before anything is timed
+            rep.sess.generate(prompts[0][:8], max_new_tokens=2).result(600)
+        res['build_s'] = time.perf_counter() - t0
+        ready = child.expect('READY', CHILD_READY_S)
+        if ready['modules']:
+            raise AssertionError('phase 3g: the child imported %s'
+                                 % ready['modules'])
+        child_url = 'http://127.0.0.1:%d' % ready['port']
+        res['child_ready_s'] = ready['captured'] - child.spawned
+        programs = {r.name: r.prog.compile_count for r in reps}
+        before = {r.name: r.counts() for r in reps}
+        kernels.reset_launch_counts()
+        t_traffic = time.perf_counter()
+
+        def gateway(replicas, **kw):
+            gw = serving.ServingGateway(
+                replicas, port=0, health_period_s=FLEET_HEALTH_S,
+                timeout_s=HTTP_BUDGET_S, resume=True, affinity=True,
+                **kw).start()
+            gws.append(gw)
+            return gw
+
+        greedy = [{'tokens': p, 'max_new_tokens': new_tokens}
+                  for p in prompts]
+
+        # the relay's cost, on a replica of its own (the others keep empty
+        # tries): straight to it cold, then through a gateway and straight
+        # to it again, both over its warm trie
+        gw = gateway([relay.url])
+        runs = {}
+        for part, port in (('cold', relay.port), ('gateway', gw.port),
+                           ('direct', relay.port)):
+            t0 = time.perf_counter()
+            recs = _fleet_map(port, greedy, cv)
+            wall = time.perf_counter() - t0
+            for i, (rec, want) in enumerate(zip(recs, want_3p)):
+                _fleet_ok('relay ' + part, i, rec, new_tokens, want)
+            runs[part] = dict(ttft_p50_ms=percentile(_ttft(recs), 50) * 1e3,
+                              ttft_p99_ms=percentile(_ttft(recs), 99) * 1e3,
+                              tokens_per_s=len(recs) * new_tokens / wall,
+                              wall_s=wall)
+        res['relay'] = runs
+        gw.stop()
+
+        # (a) failover by a process death
+        gw = gateway([child_url, first.url])
+        on_child = [gw.affinity_target(p) == child_url for p in prompts]
+        recs, threads = _fleet_start(gw.port, greedy, cv)
+        _fleet_wait('(a)', cv, lambda: all(
+            len(r['tokens']) >= FLEET_KILL_AFTER or r['finished']
+            for r, c in zip(recs, on_child) if c))
+        child_doc = child.stats()   # its launches just before the kill
+        t_kill = time.perf_counter()
+        child.proc.kill()
+        child.proc.wait(CHILD_DONE_S)
+        exit_ms = (time.perf_counter() - t_kill) * 1e3
+        _fleet_join('(a)', threads)
+        moved = [i for i, r in enumerate(recs)
+                 if r['done'] is not None and r['done'].get('resumed')]
+        for i, rec in enumerate(recs):
+            _fleet_ok('(a)', i, rec, new_tokens,
+                      None if i in moved else want_3p[i])
+        health = _http_json(gw.port, 'GET', '/healthz')
+        st = gw.stats()
+        if not moved or any(not on_child[i] or recs[i]['done']['resumed'] != 1
+                            for i in moved) \
+                or st['resumes'] != len(moved) or st['resume_failures'] \
+                or health[0] != 200 or health[1]['status'] != 'degraded' \
+                or health[1]['healthy'] != 1:
+            raise AssertionError('phase 3g (a): moved %s (on the child %s), '
+                                 'gateway %s, /healthz %s'
+                                 % (moved, [i for i, c in enumerate(on_child)
+                                            if c], st, health))
+        gaps = {i: max(b - a for a, b in zip(recs[i]['times'],
+                                              recs[i]['times'][1:])) * 1e3
+                for i in moved}
+
+        def readmits(tokens):
+            # a moved prompt and the tokens emitted before the kill
+            return any(len(tokens) > len(prompts[i])
+                       and list(tokens[:len(prompts[i])]) == prompts[i]
+                       for i in moved)
+        res['a'] = dict(
+            on_child=sum(on_child), moved=moved, exit_ms=exit_ms,
+            moved_tokens=[recs[i]['tokens'] for i in moved],
+            emitted_at_kill=[sum(t <= t_kill for t in recs[i]['times'])
+                             for i in moved],
+            gap_ms=gaps, readmit_ms=[(round(s * 1e3, 3), len(toks))
+                                     for t, s, toks in first.prefills
+                                     if t >= t_kill and readmits(toks)],
+            child_counts=child_doc['counts'],
+            child_launches=child_doc['launches'], health=health[1],
+            stats={k: st[k] for k in ('resumes', 'failovers',
+                                      'resume_failures')})
+        gw.stop()
+
+        # (d) tenant admission
+        gw = gateway([first.url], **FLEET_TENANT)
+        rejected0 = _tenant_rejected(gw.port, 'burst')
+        short = [{'tokens': p, 'max_new_tokens': TENANT_TOKENS}
+                 for p in prompts]
+        burst, threads = _fleet_start(gw.port, short[:TENANT_BURST], cv,
+                                      headers={'X-Tenant': 'burst'})
+        steady = []
+        for i in range(TENANT_STEADY):
+            got, more = _fleet_start(gw.port, [short[i]], cv,
+                                     headers={'X-Tenant': 'steady'})
+            steady += got
+            threads += more
+            time.sleep(0.5)
+        _fleet_join('(d)', threads)
+        for i, rec in enumerate(steady):
+            _fleet_ok('(d) steady', i, rec, TENANT_TOKENS,
+                      want_3p[i][:TENANT_TOKENS])
+        shed = [r for r in burst if r['status'] == 429]
+        for i, rec in enumerate(burst):
+            if rec['status'] == 200:
+                _fleet_ok('(d) burst', i, rec, TENANT_TOKENS,
+                          want_3p[i][:TENANT_TOKENS])
+        hint_max = 1.0 / FLEET_TENANT['tenant_rps']
+        bad = [r for r in shed if r['body'].get('tenant') != 'burst'
+               or 'rate_limit' not in r['body'].get('error', '')
+               or not 0 < r['body'].get('retry_after_s', 0) <= hint_max
+               or r['headers'].get('Retry-After') != '1']
+        rejected = _tenant_rejected(gw.port, 'burst') - rejected0
+        st = gw.stats()
+        if bad or not shed or len(shed) + sum(
+                r['status'] == 200 for r in burst) != TENANT_BURST \
+                or rejected != len(shed) or st['tenant_shed'] != len(shed) \
+                or st['tenants']['steady']['shed']:
+            raise AssertionError('phase 3g (d): %d 429s (%d malformed: %s), '
+                                 '%s on /metrics, gateway %s'
+                                 % (len(shed), len(bad),
+                                    [r['body'] for r in bad[:2]], rejected,
+                                    st))
+        res['d'] = dict(shed=len(shed), admitted=TENANT_BURST - len(shed),
+                        steady=len(steady), metrics=rejected,
+                        retry_after_s=[r['body']['retry_after_s']
+                                       for r in shed],
+                        tenants=st['tenants'])
+        gw.stop()
+
+        # (c) disaggregated prefill / decode, pre (an empty trie) the
+        # prefill class
+        gw = gateway([(pre.url, 'prefill'), (b128.url, 'decode'),
+                      (second.url, 'decode')])
+        c0 = {r.name: r.counts() for r in (pre, b128, second)}
+        bodies = [dict(g, request_id='c%d' % i) for i, g in enumerate(greedy)]
+        bodies += [{'tokens': r['prompt'], 'max_new_tokens': new_tokens,
+                    'temperature': r['temperature'], 'top_p': r['top_p'],
+                    'seed': r['seed'], 'request_id': 'c%d' % (len(greedy) + i)}
+                   for i, (r, _out) in enumerate(sampled)]
+        # then one at a time, prompts no trie holds: the handoff alone,
+        # beside the same prompts' monolithic TTFT on relay
+        fresh = np.random.RandomState(seed + 5)
+        solo = [fresh.randint(0, cfg['vocab'], size=n).tolist()
+                for n in SOLO_PROMPTS]
+        mono = [_fleet_stream(relay.port, {'tokens': p, 'max_new_tokens':
+                                           new_tokens}, _fleet_rec(), cv)
+                for p in solo]
+        n_imp = {r.name: len(r.imports) for r in (b128, second)}
+        recs = _fleet_map(gw.port, bodies, cv)
+        recs += [_fleet_stream(gw.port, {'tokens': p, 'max_new_tokens':
+                                         new_tokens, 'request_id': 's%d' % i},
+                               _fleet_rec(), cv) for i, p in enumerate(solo)]
+        for i, rec in enumerate(recs):
+            _fleet_ok('(c)', i, rec, new_tokens,
+                      want_3p[i] if i < len(greedy) else None)
+        for i, (rec, m) in enumerate(zip(recs[len(bodies):], mono)):
+            _fleet_ok('(c) monolithic', i, m, new_tokens, rec['tokens'])
+        st = gw.stats()
+        c1 = {r.name: r.counts() for r in (pre, b128, second)}
+        dc = {n: _count_delta(c1[n], c0[n]) for n in c1}
+        landed = {n: dc[n]['migrated_in'] for n in ('b128', 'second')}
+        if st['handoff']['spliced'] != len(recs) \
+                or st['handoff']['fallbacks'] \
+                or dc['b128']['prefills'] or dc['second']['prefills'] \
+                or dc['pre']['prefill_exports'] != len(recs) \
+                or dc['pre']['migrated_out'] != sum(landed.values()) \
+                or sum(landed.values()) != len(recs) \
+                or not all(landed.values()):
+            raise AssertionError('phase 3g (c): gateway %s; prefill %s; '
+                                 'decode %s' % (st['handoff'], dc['pre'],
+                                                {n: dc[n] for n in landed}))
+        imports = {imp['rid']: imp for r in (b128, second)
+                   for imp in r.imports[n_imp[r.name]:]}
+        rids = ['c%d' % i for i in range(len(bodies))] + [
+            's%d' % i for i in range(len(solo))]
+        rows = []
+        for rid, rec in zip(rids, recs):
+            imp = imports[rid]
+            # a payload with a token: the prefill's; the gap to the next
+            # one is the handoff (the done line, its parse, the pick, the
+            # POST, the import, a first step); an extending payload (a
+            # prefix hit) carries none, and the first token is the decode
+            # replica's
+            rows.append(dict(
+                rid=rid, emitted=imp['emitted'],
+                ttft_ms=(rec['times'][0] - rec['t0']) * 1e3,
+                handoff_ms=(rec['times'][1] - rec['times'][0]) * 1e3
+                if imp['emitted'] else None,
+                json_bytes=payload_bytes(imp['payload'])[1]))
+        for imp in imports.values():
+            imp.pop('payload')
+        res['c'] = dict(
+            handoff=st['handoff'], landed=landed, prefill=dc['pre'],
+            pool=st['classes']['decode']['pool'], rows=rows,
+            mono_ttft_ms=[(m['times'][0] - m['t0']) * 1e3 for m in mono],
+            sampled_tokens=[r['tokens']
+                            for r in recs[len(greedy):len(bodies)]],
+            solo=solo, solo_tokens=[r['tokens'] for r in recs[len(bodies):]])
+        # the least-loaded pick's cost: one decode replica's GET /status
+        status_ms = []
+        for _ in range(STATUS_CALLS):
+            t0 = time.perf_counter()
+            _http_json(second.port, 'GET', '/status')
+            status_ms.append((time.perf_counter() - t0) * 1e3)
+        res['c']['status_ms'] = status_ms
+
+        # (e) a traced request through (c)'s path
+        # each replica's handler notes the trace header it was sent
+        seen = []
+        handlers = {r.name: r.srv._httpd.RequestHandlerClass
+                    for r in (pre, b128, second)}
+        posts = {n: h.do_POST for n, h in handlers.items()}
+        for name, h in handlers.items():
+            def do_post(self, _orig=posts[name], _name=name):
+                seen.append((_name, self.path,
+                             self.headers.get(trace.TRACE_HEADER)))
+                return _orig(self)
+            h.do_POST = do_post
+        trace.set_enabled(True)
+        try:
+            ctx = trace.TraceContext.new()
+            rec = _fleet_stream(gw.port, {'tokens': prompts[1],
+                                          'max_new_tokens': TENANT_TOKENS},
+                                _fleet_rec(), cv,
+                                headers={trace.TRACE_HEADER: ctx.to_header()})
+            _fleet_ok('(e)', 0, rec, TENANT_TOKENS,
+                      want_3p[1][:TENANT_TOKENS])
+            want_names = {'gw.request', 'gw.route', 'gw.relay', 'gw.handoff',
+                          'gw.splice'}
+            import urllib.request
+            deadline = time.monotonic() + FLEET_BUDGET_S
+            while True:
+                spans = [r for r in trace.read_ndjson(urllib.request.urlopen(
+                    gw.base_url + '/trace', timeout=HTTP_BUDGET_S).read())
+                    if r['trace'] == ctx.trace_id]
+                if want_names <= {r['name'] for r in spans} \
+                        or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+        finally:
+            trace.set_enabled(None)
+            for name, h in handlers.items():
+                h.do_POST = posts[name]
+        tree = trace.stitch(spans).get(ctx.trace_id)
+        hops = [(name, path, trace.parse_header(hdr).trace_id
+                 if hdr else None) for name, path, hdr in seen]
+        if not want_names <= {r['name'] for r in spans} or tree is None \
+                or trace.tree_verdict(tree) is not True \
+                or sorted(p for _n, p, t in hops if t == ctx.trace_id) \
+                != ['/generate', '/import'] \
+                or any(t not in (None, ctx.trace_id) for _n, _p, t in hops):
+            raise AssertionError('phase 3g (e): spans %s, replica hops %s'
+                                 % (sorted(r['name'] for r in spans), hops))
+        res['e'] = dict(spans=sorted(r['name'] for r in spans), hops=hops,
+                        verdict=True, waterfall=trace.waterfall(tree))
+        gw.stop()
+
+        # (c) a decode replica whose pool is too small: its typed refusal
+        # moves the payload on
+        gw = gateway([(pre.url, 'prefill'), (small.url, 'decode'),
+                      (second.url, 'decode')])
+        longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+        hog = second.sess.generate([1, 2, 3, 4, 5, 6, 7, 8],
+                                   max_new_tokens=cfg['max_len'] - 16)
+        next(iter(hog))         # live: second's pool is not empty
+        pre = {r.name: r.counts() for r in (small, second)}
+        rec = _fleet_stream(gw.port, greedy[longest], _fleet_rec(), cv)
+        hog.cancel()
+        _fleet_ok('(c) refusal', longest, rec, new_tokens, want_3p[longest])
+        st = gw.stats()
+        dr = {r.name: _count_delta(r.counts(), pre[r.name])
+              for r in (small, second)}
+        if st['handoff']['retries'] < 1 or st['handoff']['spliced'] != 1 \
+                or st['handoff']['fallbacks'] \
+                or dr['small']['pool_exhausted'] < 1 \
+                or dr['small']['migrated_in'] or dr['second']['migrated_in'] \
+                != 1:
+            raise AssertionError('phase 3g (c) refusal: gateway %s, small %s,'
+                                 ' second %s' % (st['handoff'], dr['small'],
+                                                 dr['second']))
+        res['c']['refusal'] = dict(handoff=st['handoff'],
+                                   pool=st['classes']['decode']['pool'],
+                                   prompt=len(prompts[longest]))
+        gw.stop()
+
+        # (b) the drain of first through the gateway into b128
+        b128.srv.stop()         # down: every stream lands on first
+        gw = gateway([first.url, b128.url])
+        if gw.replicas[1].healthy:
+            raise AssertionError('phase 3g (b): b128 read healthy while down')
+        pre = b128.counts()
+        n_imp = len(b128.imports)
+        drain_bodies = [{'tokens': p, 'max_new_tokens': DRAIN_TOKENS,
+                         'request_id': 'drain-%d' % i}
+                        for i, p in enumerate(prompts[:DRAIN_STREAMS])]
+        recs, threads = _fleet_start(gw.port, drain_bodies, cv)
+        _fleet_wait('(b)', cv, lambda: all(
+            len(r['tokens']) >= DRAIN_AFTER or r['finished'] for r in recs))
+        b128.restart(serving)
+        if gw.probe_once() != 2:
+            raise AssertionError('phase 3g (b): b128 did not come back')
+        t_drain = time.perf_counter()
+        first.srv.begin_drain(reason='phase 3g')
+        _fleet_join('(b)', threads)
+        for i, rec in enumerate(recs):
+            _fleet_ok('(b)', i, rec, DRAIN_TOKENS)
+            if rec['done'].get('migrated') != 1 or rec['done'].get('resumed') \
+                    or rec['tokens'][:new_tokens] != want_3p[i]:
+                raise AssertionError('phase 3g (b): stream %d: done %s, the '
+                                     'first %d tokens %s, 3p\'s %s' % (
+                                         i, {k: v for k, v in
+                                             rec['done'].items()
+                                             if k != 'tokens'}, new_tokens,
+                                         rec['tokens'][:new_tokens],
+                                         want_3p[i]))
+        st = gw.stats()
+        db = _count_delta(b128.counts(), pre)
+        if not first.srv.wait_drained(FLEET_BUDGET_S):
+            raise AssertionError('phase 3g (b): the drain did not complete')
+        drained = first.srv.drain_result
+        if st['migrations']['spliced'] != len(recs) \
+                or st['migrations']['failures'] or db['prefills'] \
+                or db['migrated_in'] != len(recs) \
+                or drained['handed_off'] != len(recs):
+            raise AssertionError('phase 3g (b): gateway %s, b128 %s, drain %s'
+                                 % (st['migrations'], db, drained))
+        at = {imp['rid']: imp['emitted'] for imp in b128.imports[n_imp:]}
+        first_token = {}
+        for i, rec in enumerate(recs):
+            k = at['drain-%d' % i]
+            first_token[i] = (rec['times'][k] - t_drain) * 1e3
+        for imp in b128.imports[n_imp:]:
+            imp.pop('payload')
+        res['b'] = dict(first_token_ms=first_token, drain=drained,
+                        emitted=[at['drain-%d' % i] for i in range(len(recs))],
+                        b128=db, migrations=st['migrations'],
+                        spliced=[r['tokens'] for r in recs])
+        gw.stop()
+        res['traffic_s'] = time.perf_counter() - t_traffic
+
+        # the launches of the in-process replicas against their engines'
+        # counts; no request built a program
+        launches = kernels.launch_counts()
+        after = {r.name: r.counts() for r in reps}
+        eng = {n: _count_delta(after[n], before[n]) for n in after}
+        prefills = sum(e['prefills'] for e in eng.values())
+        steps = sum(e['steps'] for e in eng.values())
+        want = dict.fromkeys(launches, 0)
+        want['flash_attention_fwd'] = layers * prefills
+        want['flash_paged_decode_fwd'] = layers * steps
+        want['threefry_gumbel'] = prefills + steps
+        if device.type == 'cuda' and launches != want:
+            raise AssertionError('phase 3g: kernel launches %r, expected %r'
+                                 % (launches, want))
+        built = {r.name: r.prog.compile_count for r in reps}
+        if built != programs:
+            raise AssertionError('phase 3g: a request built a program: %s, '
+                                 'after warmup %s' % (built, programs))
+        for r in reps:
+            if r is not first:
+                assert_healthy('phase 3g %s' % r.name, r.sess)
+        res.update(launches=launches, engines=eng, child_url=child_url)
+        # the moved streams of (a) and the sampled ones of (c): 3p's and
+        # 3a's but at near ties; every token of (b) teacher-forced
+        res['a']['ties'] = near_ties(
+            torch, model, first.prog.params,
+            [{'prompt': prompts[i], 'temperature': 0.0} for i in moved],
+            res['a']['moved_tokens'], [want_3p[i] for i in moved], device,
+            '(a)', phase='phase 3g')
+        res['c']['ties'] = near_ties(
+            torch, model, first.prog.params, [r for r, _o in sampled],
+            res['c']['sampled_tokens'], [o for _r, o in sampled], device,
+            '(c)', phase='phase 3g')
+        res['b']['recheck'] = teacher_forced(
+            torch, model, b128.prog.params, prompts[:DRAIN_STREAMS],
+            res['b']['spliced'], device)
+    finally:
+        observability.set_enabled(None)
+        for gw in gws:
+            gw.stop()
+        child.close()
+        for r in reps:
+            r.close()
+    return res
+
+
+def log_fleet(fl, card):
+    """Phase 3g's lines, each number with the card's name and power
+    limit."""
+    rel = fl['relay']
+    log('phase 3g relay [%s]: 3p\'s 16 greedy requests 8 at a time to one '
+        'replica: straight to it, its trie cold: TTFT p50 %.2f ms p99 %.2f '
+        'ms, %.2f tokens/s; over its warm trie through the gateway: TTFT '
+        'p50 %.2f ms p99 %.2f ms, %.2f tokens/s; straight to it again: TTFT '
+        'p50 %.2f ms p99 %.2f ms, %.2f tokens/s; build of six replicas '
+        '%.1f s, the child captured %.1f s after its spawn'
+        % (card, rel['cold']['ttft_p50_ms'], rel['cold']['ttft_p99_ms'],
+           rel['cold']['tokens_per_s'], rel['gateway']['ttft_p50_ms'],
+           rel['gateway']['ttft_p99_ms'], rel['gateway']['tokens_per_s'],
+           rel['direct']['ttft_p50_ms'], rel['direct']['ttft_p99_ms'],
+           rel['direct']['tokens_per_s'], fl['build_s'],
+           fl['child_ready_s']))
+    a = fl['a']
+    log('phase 3g (a) [%s]: %d of 16 streams on the child, SIGKILL once each '
+        'had %d tokens; %d moved %s (%s tokens relayed at the kill), '
+        'resumed 1 each, no error line, indices unbroken; the rest 3p\'s '
+        'exactly; the moved ones 3p\'s but at %d near ties %s; SIGKILL to '
+        'the child\'s exit %.3f ms; longest '
+        'inter-token gap of a moved stream %s ms; re-admission prefills on '
+        'the survivor (ms, tokens) %s; /healthz %s; gateway %s; the child\'s '
+        'counts at the kill %s'
+        % (card, a['on_child'], FLEET_KILL_AFTER, len(a['moved']), a['moved'],
+           a['emitted_at_kill'], len(a['ties']), a['ties'], a['exit_ms'],
+           {i: round(v, 3) for i, v in a['gap_ms'].items()}, a['readmit_ms'],
+           a['health'], a['stats'],
+           {k: a['child_counts'][k] for k in ('prefills', 'steps',
+                                              'spec_rounds', 'requests')}))
+    d = fl['d']
+    log('phase 3g (d) [%s]: tenant_rps %g, burst %g, max_inflight %d: the '
+        'bursting tenant sent %d at once: %d admitted, %d typed 429s naming '
+        'it (Retry-After 1, retry_after_s %s), %s on /metrics; the steady '
+        'tenant %d of %d 200s; tenants %s'
+        % (card, FLEET_TENANT['tenant_rps'], FLEET_TENANT['tenant_burst'],
+           FLEET_TENANT['tenant_max_inflight'], TENANT_BURST, d['admitted'],
+           d['shed'], d['retry_after_s'], d['metrics'], d['steady'],
+           TENANT_STEADY, json.dumps(d['tenants'])))
+    c = fl['c']
+    rows = c['rows']
+    n = len(rows) - len(c['solo'])
+    log('phase 3g (c) [%s]: 16 greedy (3p\'s exactly) and %d sampled (3a\'s '
+        'but at %d near ties %s) requests, 8 at a time, prefill_only on the '
+        'prefill replica, each payload on a decode replica: handoff %s, '
+        'landed %s, no prefill on the decode side; prefill %s; pool loads '
+        '%s; (request, tokens in the payload, TTFT ms, the prefill\'s token '
+        'to the first decode token ms, payload JSON B through the gateway) '
+        '%s; GET /status of a decode replica %s ms'
+        % (card, len(c['sampled_tokens']), len(c['ties']), c['ties'],
+           c['handoff'], c['landed'],
+           {k: c['prefill'][k] for k in ('prefill_exports', 'migrated_out',
+                                         'prefills', 'prefix_hits')},
+           c['pool'], [(r['rid'], r['emitted'], round(r['ttft_ms'], 3),
+                        None if r['handoff_ms'] is None
+                        else round(r['handoff_ms'], 3), r['json_bytes'])
+                       for r in rows[:n]],
+           [round(x, 3) for x in c['status_ms']]))
+    log('phase 3g (c) solo [%s]: fresh prompts of %s tokens one at a time: '
+        'disaggregated TTFT %s ms, the prefill\'s token to the first decode '
+        'token %s ms, payload JSON %s B; the same prompts monolithic on one '
+        'replica: TTFT %s ms, the same tokens'
+        % (card, [len(p) for p in c['solo']],
+           [round(r['ttft_ms'], 3) for r in rows[n:]],
+           [round(r['handoff_ms'], 3) for r in rows[n:]],
+           [r['json_bytes'] for r in rows[n:]],
+           [round(x, 3) for x in c['mono_ttft_ms']]))
+    log('phase 3g (c) refusal [%s]: a %d-token prompt, the decode replica of '
+        '%d pages refused its payload (429, pool exhausted), the next took '
+        'it: handoff %s; pool loads %s'
+        % (card, c['refusal']['prompt'], SMALL_POOL, c['refusal']['handoff'],
+           c['refusal']['pool']))
+    e = fl['e']
+    log('phase 3g (e) [%s]: one traced request through (c)\'s path: the '
+        'gateway\'s spans %s under the client\'s trace id, one tree '
+        '(tree_verdict True); replica hops (replica, path, trace id) %s; '
+        'waterfall %s' % (card, e['spans'], e['hops'],
+                          json.dumps(e['waterfall'])))
+    b = fl['b']
+    log('phase 3g (b) [%s]: 8 of 3p\'s requests (%d tokens) through the '
+        'gateway, begin_drain on the serving replica after %d tokens each '
+        '(%s at the export): every stream spliced into the page-%d replica '
+        'with no prefill (%s), migrations %s, the first %d tokens 3p\'s, %d '
+        'tokens teacher-forced equal, %d ties %s; begin_drain to each first '
+        'imported token %s ms; drain %s'
+        % (card, DRAIN_TOKENS, DRAIN_AFTER, b['emitted'], MIGRATE_PAGE,
+           {k: b['b128'][k] for k in ('prefills', 'migrated_in', 'steps')},
+           b['migrations'], NEW_TOKENS, b['recheck'][0], len(b['recheck'][1]),
+           b['recheck'][1], {i: round(v, 3)
+                             for i, v in b['first_token_ms'].items()},
+           b['drain']))
+    log('phase 3g [%s]: in-process launches %s (the engines\' arithmetic: '
+        '%s); the child\'s before the kill %s; traffic %.1f s, 3g %.1f s in '
+        'all' % (card, {k: v for k, v in fl['launches'].items() if v},
+                 {n: {k: e[k] for k in ('prefills', 'steps')}
+                  for n, e in fl['engines'].items()},
+                 {k: v for k, v in fl['a']['child_launches'].items() if v},
+                 fl['traffic_s'], fl['seconds']))
 
 
 # -- phase 4: the training slice ---------------------------------------------
@@ -7481,10 +8272,20 @@ def main():
             det.pop('one_by_one'), rm.pop('refused'))
         torch.cuda.empty_cache()
         hf = serve_http_fault(torch, serving, arts, reqs[0], rp['outs'][0])
+        torch.cuda.empty_cache()
+        # phase 3g: the serving gateway over a fleet of replicas, a child
+        # process on 3h's LM artifact among them
+        t0 = time.perf_counter()
+        fl = serve_fleet(torch, serving, kernels, arts, rp['outs'],
+                         [(r, ra['outs'][i]) for i, r in enumerate(reqs)
+                          if r['adapter'] is None and r['temperature'] > 0],
+                         card)
+        fl['seconds'] = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log_http(hs, hf, arts, rp, det, card)
     log_drain(hs['drain'], card)
+    log_fleet(fl, card)
     torch.cuda.empty_cache()
 
     # phase 7: the matmul probe slice
@@ -7548,6 +8349,9 @@ def main():
                         'http serving (fresh process)': hs['launches'],
                         'http degraded serving (fresh process)':
                             hf['launches'],
+                        'serving gateway fleet': {
+                            k: v + fl['a']['child_launches'][k]
+                            for k, v in fl['launches'].items()},
                         'matmul probe': probe_launches})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -34,6 +34,12 @@ device call to ``_STEP_S``). The drain and preemption knobs are the reference's 
 ``MXNET_TPU_SERVE_DRAIN_TIMEOUT_S`` bounds a draining endpoint's handoff
 window, ``MXNET_TPU_PREEMPT_EXIT_CODE`` is the resumable exit code (75)
 and ``MXNET_TPU_PREEMPT_GRACE_S`` a preemption drain's budget.
+
+The observability knobs (``MXNET_TPU_TELEMETRY``, the metrics registry's
+switch, on by default; ``MXNET_TPU_TRACE`` and ``MXNET_TPU_TRACE_BUFFER``,
+request tracing and its span buffer) and the serving gateway's fifteen
+``MXNET_TPU_GATEWAY_*`` knobs carry the reference's names, types,
+defaults and help.
 """
 from __future__ import annotations
 
@@ -181,6 +187,109 @@ KNOBS = {
     'MXNET_TPU_WATCHDOG_POLL_S': (
         float, 10.0, 'Poll cadence of the background watchdog monitor '
         'thread.'),
+    'MXNET_TPU_TELEMETRY': (
+        bool, True,
+        'Master switch for the unified telemetry layer (metrics registry + '
+        'step-phase spans + flight recorder). 0 turns every instrument into'
+        ' a flag-check no-op with no per-step allocation.'),
+    'MXNET_TPU_TRACE': (
+        bool, False,
+        'Distributed request tracing enable (off by default): carry a trace'
+        ' context across gateway/replica hops in the X-Mxnet-Trace header '
+        'and emit mxnet_tpu.trace.v1 span records into the bounded '
+        'per-process span buffer served at GET /trace.'),
+    'MXNET_TPU_TRACE_BUFFER': (
+        int, 4096,
+        'Span-buffer capacity per process (records); the oldest spans drop '
+        'when full.'),
+    'MXNET_TPU_GATEWAY_PORT': (
+        int, 0,
+        'Default port for the multi-replica serving gateway when '
+        'ServingGateway(port=None) (binds 127.0.0.1; 0 picks a free port).'),
+    'MXNET_TPU_GATEWAY_HEALTH_S': (
+        float, 1.0,
+        "Gateway health-probe cadence: each replica's /healthz is polled "
+        'this often; non-200 (or unreachable) replicas leave the routing '
+        'rotation until they recover.'),
+    'MXNET_TPU_GATEWAY_TIMEOUT_S': (
+        float, 30.0,
+        'Per-request budget for a gateway-forwarded upstream call; an '
+        'unreachable replica fails over to the next healthy one, and an '
+        'all-replicas-down gateway answers typed 503.'),
+    'MXNET_TPU_GATEWAY_RESUME': (
+        bool, True,
+        'Mid-stream failover for /generate: the gateway journals every '
+        'streamed token and, when a replica dies mid-stream, re-admits the '
+        'request on a healthy replica with prompt+emitted-tokens as the new'
+        ' prefix, splicing the resumed tokens into the SAME client NDJSON '
+        'stream (at-most-once per token index). 0 restores the pre-resume '
+        'behavior: typed abort line / cut connection.'),
+    'MXNET_TPU_GATEWAY_RESUME_MAX': (
+        int, 2,
+        'Bounded resume attempts per stream: after this many mid-stream '
+        'failovers the gateway stops retrying and emits the typed '
+        'ReplicaLost abort line (partial tokens attached), ending the '
+        'chunked stream cleanly.'),
+    'MXNET_TPU_GATEWAY_AFFINITY': (
+        bool, True,
+        'Prefix-affine /generate routing: rendezvous-hash the prompt-prefix'
+        ' fingerprint over the healthy replica set so a shared system '
+        'prompt keeps landing on the replica whose PrefixCache already '
+        'holds it (resume targets prefer the prefix owner too). 0 = plain '
+        'round-robin.'),
+    'MXNET_TPU_GATEWAY_TENANT_HEADER': (
+        str, 'X-Tenant',
+        'Request header naming the tenant for per-tenant admission at the '
+        'gateway; requests without it share the "default" tenant bucket.'),
+    'MXNET_TPU_GATEWAY_TENANT_RPS': (
+        float, 0.0,
+        'Per-tenant token-bucket refill rate (requests/second) at the '
+        'gateway: past it a tenant sheds typed 429s with a Retry-After '
+        "naming when its bucket refills, so one tenant's burst cannot "
+        'starve the pool. 0 (default) disables rate admission.'),
+    'MXNET_TPU_GATEWAY_TENANT_BURST': (
+        float, 0.0,
+        'Per-tenant token-bucket depth (burst allowance). 0 derives it as '
+        'max(1, 2x MXNET_TPU_GATEWAY_TENANT_RPS).'),
+    'MXNET_TPU_GATEWAY_TENANT_MAX_INFLIGHT': (
+        int, 0,
+        'Gateway-wide in-flight request cap shared weighted-fair across '
+        'active tenants: a tenant may exceed its 1/k share only while the '
+        'pool has slack, so a burst queues behind its own share, not '
+        "everyone's. 0 = unbounded."),
+    'MXNET_TPU_GATEWAY_JOURNAL_MAX': (
+        int, 0,
+        'Per-stream resume-journal cap (tokens): past it the journal '
+        'degrades to the relayed COUNT — a later resume re-admits the '
+        'ORIGINAL prompt and greedy determinism + index dedup re-derive the'
+        ' delivered prefix. 0 = unbounded journal.'),
+    'MXNET_TPU_GATEWAY_CLASS_MAP': (
+        str, '',
+        'Disaggregated replica classes as "url=class,url=class" (class in '
+        'prefill|decode|both): a prefill replica takes /generate admissions'
+        ' and exports seqstate at the prefill boundary, a decode replica '
+        'takes the POST /import step loop. Any replica declaring a role '
+        'makes the gateway disaggregated; unlisted replicas stay "both". '
+        'Explicit ServingGateway(classes=...) entries override this map.'),
+    'MXNET_TPU_GATEWAY_HANDOFF_TIMEOUT_S': (
+        float, 10.0,
+        'Per-attempt budget for the prefill->decode seqstate handoff POST '
+        '/import: past it the attempt counts against '
+        'MXNET_TPU_GATEWAY_HANDOFF_RETRIES and the payload goes to the next'
+        ' decode-class member.'),
+    'MXNET_TPU_GATEWAY_HANDOFF_RETRIES': (
+        int, 2,
+        'Bounded handoff retries per prefill-boundary export: refusals '
+        '(pool pressure, geometry/version checks) and dead decode targets '
+        'each consume one; past the budget the request falls back '
+        'MONOLITHIC on the prefill class — never dropped.'),
+    'MXNET_TPU_GATEWAY_DISAGG_MIN_PROMPT': (
+        int, 0,
+        'Prompt-length threshold (tokens) for the disaggregated path: '
+        'prompts at/above it admit prefill_only on the prefill class and '
+        'hand their seqstate to the decode class; shorter prompts run '
+        'monolithically ON the prefill class (the decode class only ever '
+        'imports). 0 disaggregates every streamed /generate.'),
     'MXNET_TPU_AMP': (
         str, None, "Default AMP policy ('bf16' | 'fp16' | 'off') for "
         'ParallelTrainer / Module.fit / gluon Trainer when no explicit '

@@ -2,8 +2,9 @@
 (``freeze`` -> ``FrozenProgram`` -> ``InferenceSession.infer`` / ``submit``
 through the micro-batcher) and generation (``freeze_decode`` ->
 ``PagedDecodeProgram`` or ``DecodeProgram`` -> ``InferenceSession.generate``);
-their artifacts (``save``, ``load_frozen``, ``load_decode``) and the JSON
-endpoint (``ServingHTTPServer``, ``maybe_start_http_server``).
+their artifacts (``save``, ``load_frozen``, ``load_decode``), the JSON
+endpoint (``ServingHTTPServer``, ``maybe_start_http_server``) and the
+gateway over a fleet of endpoints (``ServingGateway``).
 """
 from .batcher import (BackpressureError, BatcherClosed, MicroBatcher,
                       RequestTimeout)
@@ -12,6 +13,7 @@ from .decode import (DecodeProgram, PagedDecodeProgram, TransformerLM,
                      freeze_decode, init_transformer_lm, load_decode,
                      params_from_jax)
 from .freeze import FROZEN_SCHEMA, FrozenProgram, freeze, load_frozen
+from .gateway import ServingGateway
 from .server import (InferenceSession, ServingHTTPServer,
                      maybe_start_http_server)
 
@@ -21,4 +23,4 @@ __all__ = ['BackpressureError', 'BatcherClosed', 'MicroBatcher',
            'TransformerLM', 'freeze_decode', 'init_transformer_lm',
            'load_decode', 'params_from_jax', 'FROZEN_SCHEMA', 'FrozenProgram',
            'freeze', 'load_frozen', 'InferenceSession', 'ServingHTTPServer',
-           'maybe_start_http_server']
+           'maybe_start_http_server', 'ServingGateway']

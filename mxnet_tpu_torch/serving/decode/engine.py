@@ -92,8 +92,9 @@ the document (base64 and the digest) is built on the calling thread.
 admission cancels the first), and ``generate(prefill_only=True)`` exports
 at the prefill boundary: the stream finishes ``'migrated'`` with the
 payload on ``stream.seqstate`` (a prefix hit exports the extending state
-before any token). Unlike the reference, a ``cold`` import counts in
-``migrated_in`` too, as a cold export counts in ``migrated_out`` there.
+before any token). A ``cold`` import is an ordinary admission: as in the
+reference, only a live import counts in ``migrated_in`` (a cold export
+counts in ``migrated_out``).
 Tracing is a later slice (ROADMAP queue A).
 """
 from __future__ import annotations
@@ -1517,15 +1518,14 @@ class DecodeEngine:
                                 'engine\'s programs have no sampling args')
         if state['kind'] == 'cold':
             samp = state['sampling'] or {}
-            stream = self.generate(
+            # never prefilled at the source: an ordinary admission, which
+            # counts as a request, not in migrated_in
+            return self.generate(
                 state['prompt'], max_new_tokens=state['max_new'],
                 eos_id=state['eos_id'], request_id=state['request_id'],
                 adapter=state['adapter_id'],
                 temperature=samp.get('temperature', 0.0),
                 top_p=samp.get('top_p', 1.0), seed=samp.get('seed', 0))
-            with self._lock:
-                self._counts['migrated_in'] += 1
-            return stream
         if state['kind'] == 'paged' and not self.paged:
             raise SeqStateError('paged seqstate cannot land in a slot-cache '
                                 'engine')

@@ -72,3 +72,27 @@ def test_endpoint_and_draft_knobs_are_the_references(monkeypatch, name):
     for raw in ENDPOINT_KNOBS[name]:
         monkeypatch.setenv(name, raw)
         assert port_config.get(name) == jax_config.get(name) == typ(raw)
+
+
+# the observability core's and the serving gateway's knobs
+GATEWAY_KNOBS = ('MXNET_TPU_TELEMETRY', 'MXNET_TPU_TRACE',
+                 'MXNET_TPU_TRACE_BUFFER') + tuple(
+    n for n in sorted(jax_config.KNOBS) if n.startswith('MXNET_TPU_GATEWAY_'))
+
+
+def test_gateway_and_observability_knob_set():
+    """Every gateway knob of the reference is in the port, fifteen of
+    them, beside the three observability knobs."""
+    assert len(GATEWAY_KNOBS) == 18
+    assert set(GATEWAY_KNOBS) <= set(port_config.KNOBS)
+
+
+@pytest.mark.parametrize('name', GATEWAY_KNOBS)
+def test_gateway_knobs_are_the_references(monkeypatch, name):
+    """Name, type, default and help text of each new knob, and its
+    unset value, are ``mxnet_tpu/config.py``'s."""
+    typ, default, doc = port_config.KNOBS[name]
+    knob = jax_config.KNOBS[name]
+    assert (typ, default, doc) == (knob.typ, knob.default, knob.doc)
+    monkeypatch.delenv(name, raising=False)
+    assert port_config.get(name) == jax_config.get(name) == default

@@ -155,7 +155,7 @@ def test_queued_sequence_exports_cold_and_readmits():
         assert queued.finish_reason == 'migrated'
         assert dst.import_sequence(payload, timeout=30).result(WAIT) == want
         dc = dst.stats()['counts']
-        assert dc['prefills'] == 1 and dc['migrated_in'] == 1
+        assert dc['prefills'] == 1 and dc['migrated_in'] == 0
         hog.cancel()
     finally:
         src.close()
@@ -271,7 +271,7 @@ def test_export_all_drains_queued_and_live_at_one_boundary():
             assert _continue_on(dst, p) == wants[i]
         assert dst.import_sequence(by_rid['r2']).result(WAIT) == wants[2]
         dc = dst.stats()['counts']
-        assert dc['prefills'] == 1 and dc['migrated_in'] == 3
+        assert dc['prefills'] == 1 and dc['migrated_in'] == 2
     finally:
         src.close()
         dst.close()
@@ -704,3 +704,42 @@ def test_cold_and_sampled_payloads_continue_across_packages(jax_weights):
     finally:
         src.close()
         dst.close()
+
+
+def test_import_counts_are_the_references(jax_weights):
+    """ROADMAP C5: one ``cold`` and two ``paged`` payloads of the JAX
+    engine's ``export_all`` go into a JAX engine and a port engine; the
+    two destinations count alike: a live import counts in
+    ``migrated_in`` and ``handoff_pages``, a cold one is an ordinary
+    admission (a request and a prefill, no ``migrated_in``)."""
+    jmodel, pmodel, np_params = jax_weights
+    n = 8
+    src = JaxEngine(_jax_paged(jmodel, np_params, 8, 32), timeout_s=WAIT)
+    try:
+        streams = [src.generate(p, max_new_tokens=n, request_id='r%d' % i)
+                   for i, p in enumerate((PROMPT, [1, 2, 3, 4], [5, 6, 7]))]
+        for s in streams[:2]:
+            next(iter(s))
+        payloads = src.export_all(timeout=30)
+    finally:
+        src.close()
+    assert sorted(p['kind'] for p in payloads) == ['cold', 'paged', 'paged']
+    dsts = {'jax': JaxEngine(_jax_paged(jmodel, np_params, 16, 16),
+                             timeout_s=WAIT),
+            'port': DecodeEngine(_paged(pmodel, np_params, 16, 16),
+                                 timeout_s=WAIT)}
+    counts, outs = {}, {}
+    try:
+        for name, eng in dsts.items():
+            outs[name] = [eng.import_sequence(p, timeout=30).result(WAIT)
+                          for p in payloads]
+            c = eng.stats()['counts']
+            counts[name] = {k: c[k] for k in ('migrated_in', 'requests',
+                                              'prefills', 'handoff_pages')}
+    finally:
+        for eng in dsts.values():
+            eng.close()
+    assert counts['port'] == counts['jax']
+    assert counts['port']['migrated_in'] == 2
+    assert counts['port']['prefills'] == 1
+    assert outs['port'] == outs['jax']
