@@ -302,7 +302,22 @@ Phases, in order; any failure exits non-zero:
      3p's and every token teacher-forced. The in-process launches exact
      against the engines' counts (rows 1, 4p, 18), no program built by a
      request; the child's launches, read just before the kill, join the
-     ``kernels`` line;
+     ``kernels`` line. 3l, after 3g: the port's load and chaos harness
+     (``mxnet_tpu_torch.loadgen``) over rigs of 3p's program
+     (``LOADGEN_RIG``: BERT-base widths, page size 16, 257 pages, 8
+     slots, sampling). One replica (``ServingRig``; the loadgen MLP's
+     relu, row 7, held bitwise to its plain version at every bucket):
+     capacity search, overload at 2.5x the measured capacity, the full
+     chaos script with the pool squeeze, the shared-prefix workload;
+     3a's geometry (8 rank-8 adapters, 7 pool rows) for the adapter
+     workload; gateway rigs of two replicas for the traced failover, the
+     drain and the tenants (one traced request first: its tree and
+     ``decompose_ttft`` printed), four (two a class) for the traced
+     disaggregated drill. Every verdict holds but the latency budgets and
+     what this geometry cannot reach (``LOADGEN_PRINTED``, printed);
+     every drill tree holds the replicas' ``eng.*`` spans; each rig's
+     launches (rows 1, 4p, 7, 18) exact against its engines' and
+     sessions' counts, joining the ``kernels`` line;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -4893,9 +4908,9 @@ class _FleetReplica:
             self.prefills.append((t0, time.perf_counter() - t0, tokens))
             return out
 
-        def recorded(payload, timeout=30.0):
+        def recorded(payload, timeout=30.0, **kw):
             t0 = time.perf_counter()
-            stream = import_sequence(payload, timeout)
+            stream = import_sequence(payload, timeout, **kw)
             self.imports.append(dict(t=t0, rid=payload.get('request_id'),
                                      emitted=len(payload.get('emitted')
                                                  or ()), payload=payload))
@@ -5598,6 +5613,388 @@ def log_fleet(fl, card):
                  {k: v for k, v in fl['a']['child_launches'].items() if v},
                  fl['traffic_s'], fl['seconds']))
 
+
+# -- phase 3l: the load and chaos harness over the port's replicas -----------
+
+# 3p's program behind every rig of 3l: BERT-base widths, page size 16, 257
+# pages, 8 slots, 3's prefill ladder (the programs sample by default)
+LOADGEN_RIG = dict(lm={k: SLICE[k] for k in ('vocab', 'units', 'hidden',
+                                            'layers', 'heads')},
+                   decode_max_len=SLICE['max_len'], decode_page_size=PAGE_SIZE,
+                   decode_pages=SLOTS * SLICE['max_len'] // PAGE_SIZE + 1,
+                   slots=SLOTS, decode_prefill_buckets=BUCKETS)
+LOADGEN_WINDOW_S = 1.0     # a capacity probe's window
+LOADGEN_BISECT = 2
+LOADGEN_FACTOR = 2.5       # overload: offered rate / measured capacity
+LOADGEN_ADAPTERS = dict(adapter_fleet=ADAPTERS, adapter_rank=ADAPTER_RANK,
+                        adapter_slots=ADAPTER_SLOTS)
+# per mode, the verdicts printed and not enforced: latency budgets, and
+# what this configuration cannot reach (a 257-page pool holds 8 sequences
+# of 512 tokens, so the squeeze cannot exhaust it; 7 adapter rows hold 7
+# of the 8 adapters at once); every other verdict fails the phase
+LOADGEN_PRINTED = {
+    'capacity': ('capacity_found',),
+    'overload': ('admitted_p99_within_slo', 'sheds_are_fast_429s'),
+    'chaos': ('availability_above_floor', 'all_faults_recovered',
+              'pool_exhaustion_typed'),
+    'prefix': ('prefix_ttft_within_budget',),
+    'adapters': ('adapter_ttft_within_budget', 'fleet_resident'),
+    'gateway-failover': (),
+    'drain': (),
+    'disagg': ('mixed_ttft_within_budget',),
+    'tenants': ('steady_ttft_within_budget', 'steady_tpot_within_budget'),
+}
+
+
+def _rig_counts(rig):
+    """(prefills, steps, one-shot batches on the card) of a rig so far,
+    over every replica of a gateway rig, a killed one among them: the
+    engines' and sessions' own counters."""
+    prefills = steps = batches = 0
+    for rep in getattr(rig, 'replicas', None) or [rig]:
+        if rep.decode_session is not None:
+            eng = rep.decode_session._engine
+            with eng._lock:
+                prefills += eng._counts['prefills']
+                steps += eng._counts['steps']
+        if rep.predict_session is not None:
+            batches += rep.predict_session._accel_batches
+    return prefills, steps, batches
+
+
+def _trace_trees(rig, trace):
+    """Every stitched tree of the rig's span buffers (the gateway's and
+    each replica's), by trace id."""
+    recs = list(rig.gateway._trace_buf.read())
+    for rep in rig.replicas:
+        recs.extend(rep.server._trace_buf.read())
+    return trace.stitch(recs)
+
+
+def _eng_in_every_tree(mode, rig, trace):
+    """Each drill tree holds the replicas' ``eng.*`` spans; returns the
+    number of trees."""
+    trees = [t for t in _trace_trees(rig, trace).values()
+             if any(s['name'] == 'gw.request' for s in t['spans'].values())]
+    bad = [tid for t in trees for tid in [next(iter(t['spans'].values()))
+                                           ['trace']]
+           if not {'srv.generate', 'eng.first_token'} <= {
+               s['name'] for s in t['spans'].values()}]
+    if not trees or bad:
+        raise AssertionError('phase 3l %s: %d traced trees, %d without the '
+                             'replicas\' srv.* / eng.* spans'
+                             % (mode, len(trees), len(bad)))
+    return len(trees)
+
+
+def traced_request(rig, trace, tokens, new_tokens):
+    """One request through the gateway of ``rig`` under a client-minted
+    root: its stitched tree (the gateway's and the replica's spans),
+    checked whole, and ``decompose_ttft`` of it."""
+    import urllib.request
+    trace.set_enabled(True)
+    try:
+        ctx = trace.TraceContext.new()
+        req = urllib.request.Request(
+            'http://127.0.0.1:%d/generate' % rig.port,
+            data=json.dumps({'tokens': tokens,
+                             'max_new_tokens': new_tokens}).encode(),
+            headers={'Content-Type': 'application/json',
+                     trace.TRACE_HEADER: ctx.to_header()})
+        with urllib.request.urlopen(req, timeout=HTTP_BUDGET_S) as resp:
+            lines = [json.loads(x) for x in resp.read().splitlines() if x]
+        want = {'gw.request', 'gw.route', 'gw.relay', 'srv.generate',
+                'eng.queue_wait', 'eng.prefill', 'eng.first_token',
+                'eng.steps'}
+        deadline = time.monotonic() + FLEET_BUDGET_S
+        while True:
+            tree = _trace_trees(rig, trace).get(ctx.trace_id)
+            names = set() if tree is None else {
+                s['name'] for s in tree['spans'].values()}
+            if (want <= names and trace.tree_verdict(tree)) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
+    finally:
+        trace.set_enabled(None)
+    if not lines or not lines[-1].get('done') or 'error' in lines[-1] \
+            or len(lines) != new_tokens + 1 or not want <= names \
+            or trace.tree_verdict(tree) is not True or tree['orphans']:
+        raise AssertionError('phase 3l traced request: %d lines, last %s; '
+                             'spans %s' % (len(lines), lines[-1:],
+                                           sorted(names)))
+    trace.normalize_skew(tree)
+    ttft, parts = trace.decompose_ttft(tree)
+    return dict(spans=sorted(names), sites=sorted(
+        {s['site'] for s in tree['spans'].values()}),
+        ttft_ms=round(ttft * 1e3, 3),
+        parts_ms={k: round(v * 1e3, 3) for k, v in parts.items()},
+        waterfall=trace.waterfall(tree))
+
+
+def serve_loadgen(torch, kernels, loadgen, device, rig_kw=None,
+                  capacity_kw=None, durations=None):
+    """Phase 3l: the port's ``loadgen`` modes over its replicas on the
+    card, every rig 3p's program (``LOADGEN_RIG``; ``rig_kw`` replaces
+    it for a rehearsal). One replica (``ServingRig``: the loadgen MLP
+    behind ``/predict``, the LM behind ``/generate``; its relu, row 7,
+    first held bitwise to its plain version at every bucket): capacity,
+    overload at ``LOADGEN_FACTOR`` x the measured capacity (the overload
+    ceiling knob raised to it), the full chaos script, the shared-prefix
+    workload; then a replica of 3a's geometry (8 rank-8 adapters, 7 pool
+    rows) for the adapter workload. Then gateway rigs: two replicas for
+    the failover (traced), the drain and the tenants (a traced request
+    first: its tree and ``decompose_ttft``), four (two of each class) for
+    the disaggregated drill (traced). Each rig's launches are read with
+    the counts zeroed after it is built; they must be its engines' and
+    sessions' arithmetic exactly. Every verdict but ``LOADGEN_PRINTED``'s
+    must hold. Returns the artifacts, counts and seconds."""
+    import gc
+    from mxnet_tpu_torch.gluon.nn import Dense
+    harness = loadgen.harness
+    from mxnet_tpu_torch.observability import trace
+    rig_kw = dict(LOADGEN_RIG if rig_kw is None else rig_kw, device=device)
+    dur = dict(dict(overload=3.0, chaos=12.0, prefix=4.0, adapters=4.0,
+                    tenants=4.0), **(durations or {}))
+    layers = rig_kw['lm']['layers']
+    res = {'modes': {}, 'seconds': {}, 'counts': {}, 'launches': None}
+
+    def timed(mode, fn):
+        t0 = time.perf_counter()
+        doc = fn()
+        res['seconds'][mode] = time.perf_counter() - t0
+        res['modes'][mode] = doc
+        failed = sorted(k for k, ok in doc.get('verdicts', {}).items()
+                        if not ok and k not in LOADGEN_PRINTED[mode])
+        if failed:
+            raise AssertionError('phase 3l %s: verdicts %s failed: %s'
+                                 % (mode, failed, json.dumps(
+                                     doc.get('metrics'), default=str)[:4000]))
+        return doc
+
+    def run(label, build, drive):
+        t0 = time.perf_counter()
+        rig = build()
+        try:
+            res['seconds'][label + ' build'] = time.perf_counter() - t0
+            before = _rig_counts(rig)
+            kernels.reset_launch_counts()
+            drive(rig)
+            launches = kernels.launch_counts()
+            prefills, steps, batches = (
+                a - b for a, b in zip(_rig_counts(rig), before))
+        finally:
+            rig.close()
+            del rig
+            gc.collect()
+            torch.cuda.empty_cache()
+        want = dict.fromkeys(launches, 0)
+        want['flash_attention_fwd'] = layers * prefills
+        want['flash_paged_decode_fwd'] = layers * steps
+        want['threefry_gumbel'] = prefills + steps
+        want['act_fwd'] = batches
+        if device.type == 'cuda' and launches != want:
+            raise AssertionError('phase 3l %s: kernel launches %r, the '
+                                 'arithmetic %r' % (label, launches, want))
+        res['launches'] = launches if res['launches'] is None else {
+            k: v + launches[k] for k, v in res['launches'].items()}
+        res['counts'][label] = dict(prefills=prefills, steps=steps,
+                                    batches=batches)
+
+    def one_replica():
+        rig = harness.ServingRig(**rig_kw)
+        # the relu of the /predict MLP (row 7) on the card at every
+        # bucket, on the first Dense's outputs of the harness's examples
+        block = rig.predict_session.frozen.block
+        first = next(m for m in block.modules() if isinstance(m, Dense))
+        worst = 0.0
+        with torch.inference_mode():
+            for b in rig.predict_session.frozen.policy.buckets:
+                h = first(torch.tensor(
+                    [harness.Dispatcher._predict_payload(r)
+                     for r in range(b)], device=device))
+                got = kernels.act_forward(h, 'relu')
+                ref = kernels.act_forward_reference(h, 'relu')
+                if not torch.equal(got, ref):
+                    raise AssertionError('phase 3l: act_fwd at %s is not '
+                                         'its plain version'
+                                         % (tuple(h.shape),))
+                worst = max(worst, float((got - ref).abs().max()))
+        res['act_fwd_err'] = worst
+        return rig
+
+    def overload(rig):
+        qps = res['modes']['capacity']['metrics']['max_qps'] or 16.0
+        # the overload ceiling knob up to 2.5 x capacity, the mode's
+        # point: the endpoint here fronts a fast card
+        knob = os.environ.get('MXNET_TPU_LOADGEN_MAX_QPS')
+        os.environ['MXNET_TPU_LOADGEN_MAX_QPS'] = repr(
+            max(100.0, qps * LOADGEN_FACTOR))
+        try:
+            return harness.run_overload(rig, factor=LOADGEN_FACTOR,
+                                        duration_s=dur['overload'], seed=0,
+                                        capacity_qps=qps)
+        finally:
+            if knob is None:
+                os.environ.pop('MXNET_TPU_LOADGEN_MAX_QPS', None)
+            else:
+                os.environ['MXNET_TPU_LOADGEN_MAX_QPS'] = knob
+
+    def one_replica_modes(rig):
+        timed('capacity', lambda: harness.run_capacity(rig, seed=0, **dict(
+            dict(start_qps=16.0, window_s=LOADGEN_WINDOW_S,
+                 bisect_iters=LOADGEN_BISECT), **(capacity_kw or {}))))
+        over = timed('overload', lambda: overload(rig))
+        if over['server']['generate']['leaked_slots']:
+            raise AssertionError('phase 3l overload: %s' % over['server'])
+        chaos = timed('chaos', lambda: harness.run_chaos(
+            rig, duration_s=dur['chaos'], seed=0))
+        sq = chaos['metrics'].get('pool_squeeze')
+        if sq is None or sq['unresolved'] or sq['untyped_failures'] \
+                or not all(f['consumed'] for f in chaos['faults']):
+            raise AssertionError('phase 3l chaos: faults %s, squeeze %s'
+                                 % (chaos['faults'], sq))
+        timed('prefix', lambda: harness.run_prefix(
+            rig, duration_s=dur['prefix'], seed=0))
+
+    run('one replica', one_replica, one_replica_modes)
+    run('adapters', lambda: harness.ServingRig(
+        predict=False, decode_max_queue=16,
+        **dict(rig_kw, **LOADGEN_ADAPTERS)),
+        lambda rig: timed('adapters', lambda: harness.run_adapters(
+            rig, duration_s=dur['adapters'], seed=0)))
+    gw_kw = dict(rig_kw, replicas=2, health_period_s=0.25, predict=False,
+                 decode_max_queue=16)
+
+    def failover(rig):
+        timed('gateway-failover', lambda: harness.run_gateway_failover(
+            rig, streams=8, seed=0))
+        res['failover_trees'] = _eng_in_every_tree('gateway-failover', rig,
+                                                   trace)
+
+    run('gateway-failover', lambda: harness.GatewayRig(
+        **dict(gw_kw, max_new_tokens=48)), failover)
+    run('drain', lambda: harness.GatewayRig(**dict(gw_kw, max_new_tokens=48)),
+        lambda rig: timed('drain', lambda: harness.run_drain(
+            rig, streams=8, seed=0)))
+
+    def disagg(rig):
+        timed('disagg', lambda: harness.run_disagg(rig, streams=8, seed=0))
+        res['disagg_trees'] = _eng_in_every_tree('disagg', rig, trace)
+
+    run('disagg', lambda: harness.GatewayRig(**dict(
+        gw_kw, replicas=4, classes=('prefill', 'prefill', 'decode',
+                                    'decode'), max_new_tokens=24,
+        gateway_kwargs=dict(handoff_timeout_s=10.0, handoff_retries=2))),
+        disagg)
+
+    def tenants(rig):
+        res['traced'] = traced_request(rig, trace, [2, 7, 1, 8, 2, 8], 8)
+        timed('tenants', lambda: harness.run_tenants(
+            rig, duration_s=dur['tenants'], seed=0))
+
+    run('tenants', lambda: harness.GatewayRig(**dict(
+        gw_kw, gateway_kwargs=dict(tenant_rps=8.0, tenant_burst=8.0,
+                                   tenant_max_inflight=32))), tenants)
+    return res
+
+
+def log_loadgen(lg, card):
+    """Phase 3l's lines: each mode's numbers and verdicts (the printed
+    ones marked), the traced request's TTFT split, the launches."""
+    m = lg['modes']
+    cap = m['capacity']
+    log('phase 3l capacity [%s]: max QPS at admitted p99 < %.0f ms and '
+        'goodput >= %s: %s; probes (qps, good, p99 ms, goodput) %s'
+        % (card, cap['config']['slo_p99_ms'], cap['config']['goodput_floor'],
+           cap['metrics']['max_qps'],
+           [(round(p['qps'], 2), p['good'], p['p99_ms'],
+             None if p['goodput'] is None else round(p['goodput'], 3))
+            for p in cap['metrics']['probes']]))
+    for mode in ('overload', 'chaos', 'prefix', 'adapters', 'tenants'):
+        doc = m[mode]
+        mt = doc['metrics']
+        if mode == 'tenants':
+            parts = {t: mt[t] for t in ('steady', 'burst')}
+        else:
+            parts = {'': mt}
+        for name, x in parts.items():
+            lat = x['admitted_latency']
+            gen = x.get('generate') or {}
+            log('phase 3l %s%s [%s]: offered %d, admitted %d, served ok %d, '
+                'shed %d, degraded %d, unresolved %d, goodput %s, '
+                'availability %s; admitted p50 %s ms p99 %s ms; TTFT p50 %s '
+                'ms p99 %s ms, TPOT p99 %s ms; errors %s'
+                % (mode, ' ' + name if name else '', card, x['offered'],
+                   x['admitted'], x['served_ok'], x['shed'], x['degraded'],
+                   x['unresolved'], x['goodput'], x['availability'],
+                   lat['p50_ms'], lat['p99_ms'],
+                   (gen.get('ttft') or {}).get('p50_ms'),
+                   (gen.get('ttft') or {}).get('p99_ms'),
+                   (gen.get('tpot') or {}).get('p99_ms'), x['errors']))
+    over = m['overload']
+    log('phase 3l overload: offered %.2f QPS (%.1f x capacity %s), shed '
+        'p99 %s ms, 429 share of failures %s, Retry-After on %d'
+        % (over['config']['offered_qps'], LOADGEN_FACTOR,
+           over['config']['capacity_qps'],
+           over['metrics']['shed_latency']['p99_ms'],
+           over['metrics']['shed_429_frac'],
+           over['metrics']['retry_after']['n']))
+    chaos = m['chaos']
+    for f in chaos['faults']:
+        log('phase 3l chaos fault %s [%s]: injected at %.3f s, cleared at '
+            '%.3f s, consumed %s, recovery %s s (ceiling %s s)'
+            % (f['kind'], card, f['injected_at_s'], f['cleared_at_s'],
+               f['consumed'], f['recovery_s'],
+               chaos['config']['recovery_ceiling_s']))
+    log('phase 3l chaos: aborted typed %d; pool squeeze %s; server %s'
+        % (chaos['metrics']['aborted_typed'], chaos['metrics']['pool_squeeze'],
+           json.dumps(chaos['server'])))
+    ad = m['adapters']
+    log('phase 3l adapters: pool %s, sampled tokens %s, programs built '
+        'after warm-up %s' % (ad['server']['generate'].get('adapters'),
+                              ad['server']['generate'].get('sampled_tokens'),
+                              ad['metrics']['retraced_programs'] or 'none'))
+    for mode in ('gateway-failover', 'drain', 'disagg'):
+        mt = m[mode]['metrics']
+        tr = mt.get('trace') or {}
+        log('phase 3l %s [%s]: %d streams, served ok %d, error lines %d, '
+            'unresolved %d%s%s%s%s'
+            % (mode, card, mt['offered'], mt['served_ok'], mt['error_lines'],
+               mt['unresolved'],
+               ', resumed %d' % mt['resumed_streams']
+               if 'resumed_streams' in mt else '',
+               ', migrated %d, survivor prefills %d, imports %d, drain %s'
+               % (mt['migrated_streams'], mt['dest_prefill_delta'],
+                  mt['dest_imports'], mt['drain_result'])
+               if mode == 'drain' else '',
+               ', handoff %s, decode-side prefills %d, imports %d, TTFT p99 '
+               '%s ms' % (mt['handoff'], mt['dest_prefill_delta'],
+                          mt['dest_imports'], mt['ttft_p99_ms'])
+               if mode == 'disagg' else '',
+               '; trace: %d of %d trees complete, %d orphans, %d spans, '
+               'classes %s, critical path %s' % (
+                   tr['stitched_complete'], tr['requests'], tr['orphan_spans'],
+                   tr['spans'], tr['classes_seen'],
+                   json.dumps(tr['critical_path'])) if tr else ''))
+    t = lg['traced']
+    log('phase 3l traced request [%s]: spans %s over sites %s; '
+        'decompose_ttft: TTFT %.3f ms = %s ms; waterfall %s'
+        % (card, t['spans'], t['sites'], t['ttft_ms'], t['parts_ms'],
+           json.dumps(t['waterfall'])))
+    for mode, doc in m.items():
+        v = doc.get('verdicts', {})
+        log('phase 3l %s verdicts: %s' % (mode, ', '.join(
+            '%s %s%s' % (k, 'OK' if ok else 'FAIL',
+                         ' (printed, not enforced)'
+                         if k in LOADGEN_PRINTED[mode] else '')
+            for k, ok in sorted(v.items()))))
+    log('phase 3l [%s]: seconds %s, %.1f s in all; engine and session '
+        'counts by rig %s; launches %s (exact); act_fwd at the MLP\'s '
+        'buckets bitwise its plain version'
+        % (card, {k: round(v, 3) for k, v in lg['seconds'].items()},
+           lg['seconds_all'], lg['counts'],
+           {k: v for k, v in lg['launches'].items() if v}))
 
 # -- phase 4: the training slice ---------------------------------------------
 
@@ -7679,6 +8076,7 @@ def main():
         log('MXNET_TPU_FAULT was set; unset: only phase 3f scripts faults')
     from mxnet_tpu_torch import capture as capture_mod
     from mxnet_tpu_torch import optimizer, parallel, serving
+    from mxnet_tpu_torch import loadgen
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon import nn as gnn
     from mxnet_tpu_torch.gluon.model_zoo import bert, resnet, ssd
@@ -8288,6 +8686,15 @@ def main():
     log_fleet(fl, card)
     torch.cuda.empty_cache()
 
+    # phase 3l: the load and chaos harness over the port's replicas and
+    # gateway, every rig 3p's program
+    t0 = time.perf_counter()
+    lg = serve_loadgen(torch, kernels, loadgen, cuda)
+    lg['seconds_all'] = time.perf_counter() - t0
+    log_loadgen(lg, card)
+    errs['act_fwd'] = max(errs['act_fwd'], lg['act_fwd_err'])
+    torch.cuda.empty_cache()
+
     # phase 7: the matmul probe slice
     for m, k, n in probe.SHAPES:
         log('geometry M=%d K=%d N=%d: %s' % (m, k, n, {
@@ -8352,6 +8759,7 @@ def main():
                         'serving gateway fleet': {
                             k: v + fl['a']['child_launches'][k]
                             for k, v in fl['launches'].items()},
+                        'loadgen modes': lg['launches'],
                         'matmul probe': probe_launches})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

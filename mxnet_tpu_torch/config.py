@@ -39,7 +39,10 @@ The observability knobs (``MXNET_TPU_TELEMETRY``, the metrics registry's
 switch, on by default; ``MXNET_TPU_TRACE`` and ``MXNET_TPU_TRACE_BUFFER``,
 request tracing and its span buffer) and the serving gateway's fifteen
 ``MXNET_TPU_GATEWAY_*`` knobs carry the reference's names, types,
-defaults and help.
+defaults and help, as do the load harness's (``mxnet_tpu_torch.loadgen``):
+the thirteen ``MXNET_TPU_SLO_*`` budgets its modes judge by and the five
+``MXNET_TPU_LOADGEN_*`` knobs (the schedule's seed, the overload rate's
+ceiling, the client's in-flight bound, its retries and their cap).
 """
 from __future__ import annotations
 
@@ -290,6 +293,112 @@ KNOBS = {
         'hand their seqstate to the decode class; shorter prompts run '
         'monolithically ON the prefill class (the decode class only ever '
         'imports). 0 disaggregates every streamed /generate.'),
+    'MXNET_TPU_SLO_P99_MS': (
+        float, 500.0,
+        'Admitted-request p99 latency budget (ms) the load harness gates '
+        'on: capacity search bisects the max QPS holding it, overload '
+        'mode asserts admission control protects it at 2.5x capacity. '
+        'SLO_BASELINE.json overrides it in CI.'),
+    'MXNET_TPU_SLO_SHED_P99_MS': (
+        float, 250.0,
+        'p99 budget (ms) for SHED responses: a 429 must be a fast '
+        'rejection, not a slow timeout — overload mode fails when '
+        'shedding itself is slow.'),
+    'MXNET_TPU_SLO_AVAILABILITY': (
+        float, 0.85,
+        'Chaos-soak availability floor: fraction of offered requests that'
+        ' must be ADMITTED (2xx, degraded allowed) while scripted faults '
+        'fire. Sheds (429) count as unavailable — the floor prices how '
+        'much shedding the degraded paths are allowed to need.'),
+    'MXNET_TPU_SLO_RECOVERY_S': (
+        float, 12.0,
+        'Per-fault recovery ceiling (seconds): after a scripted fault '
+        'burst clears, /status must report every session ok with its '
+        'breaker closed within this budget.'),
+    'MXNET_TPU_SLO_PREFIX_TTFT_P99_MS': (
+        float, 400.0,
+        'TTFT p99 budget (ms) for the shared-prefix loadgen workload '
+        '(mxnet_tpu.loadgen --mode prefix): Zipf-distributed system '
+        'prompts + one-token suffixes against the paged decode engine '
+        'with prefix sharing on. SLO_BASELINE.json prefix_ttft_p99_ms '
+        'overrides it in the slo CI stage.'),
+    'MXNET_TPU_SLO_GOODPUT': (
+        float, 0.9,
+        'Capacity-search goodput floor: fraction of offered requests '
+        'served clean (200, no typed error) a rate must sustain to count '
+        'as within capacity.'),
+    'MXNET_TPU_SLO_GATEWAY_AVAILABILITY': (
+        float, 0.99,
+        'Availability floor for the gateway-failover drill '
+        '(mxnet_tpu.loadgen --mode gateway-failover): fraction of streams'
+        ' that must complete CLEAN — zero error lines — while a replica '
+        'is killed mid-stream and the gateway resumes them on the '
+        'survivors.'),
+    'MXNET_TPU_SLO_TENANT_TTFT_P99_MS': (
+        float, 400.0,
+        'Steady-tenant TTFT p99 budget (ms) for the two-tenant burst '
+        'phase (--mode tenants): while another tenant bursts past its '
+        "bucket, the steady tenant's time to first token must stay inside"
+        ' this budget (zero cross-tenant SLO bleed).'),
+    'MXNET_TPU_SLO_TENANT_TPOT_P99_MS': (
+        float, 250.0,
+        'Steady-tenant TPOT p99 budget (ms) for the two-tenant burst '
+        "phase: per-output-token latency of the steady tenant's admitted "
+        "streams under a neighbor's burst."),
+    'MXNET_TPU_SLO_DRAIN_AVAILABILITY': (
+        float, 1.0,
+        'Availability floor for the drain drill (--mode drain): a '
+        'GRACEFUL preemption loses nothing, so the default demands every '
+        'stream completes clean.'),
+    'MXNET_TPU_SLO_DISAGG_AVAILABILITY': (
+        float, 0.99,
+        'Availability floor for the disaggregated prefill/decode drill '
+        '(--mode disagg): fraction of mixed long/short streams that must '
+        'complete CLEAN while one replica of EACH class is hard-killed '
+        'mid-run.'),
+    'MXNET_TPU_SLO_DISAGG_TTFT_P99_MS': (
+        float, 2500.0,
+        "TTFT p99 budget (ms) for the disagg drill's mixed workload: time"
+        ' to first token INCLUDING the prefill-class admission (the '
+        'boundary token streams from the prefill replica before the '
+        'handoff completes).'),
+    'MXNET_TPU_SLO_ADAPTER_TTFT_P99_MS': (
+        float, 600.0,
+        'TTFT p99 budget (ms) for the multi-adapter loadgen workload '
+        '(--mode adapters): Zipf-distributed adapter ids + sampled/greedy'
+        ' mix against one engine — admissions pay at most one adapter '
+        'pool upload, never a retrace. SLO_BASELINE.json '
+        'adapter_ttft_p99_ms overrides it in the slo CI stage.'),
+    'MXNET_TPU_LOADGEN_SEED': (
+        int, 0,
+        'Default seed for the open-loop arrival schedule '
+        '(mxnet_tpu.loadgen): same seed, same arrival times and request '
+        'kinds — load runs are replayable.'),
+    'MXNET_TPU_LOADGEN_MAX_QPS': (
+        float, 100.0,
+        'Ceiling on the offered rate overload mode will drive: past '
+        "O(100) connections/s the stdlib endpoint's accept loop (kernel "
+        'SYN queue) owns the latency on a small host, and the harness '
+        'gates admission control, not the accept path. Raise it when '
+        'fronting with a real gateway.'),
+    'MXNET_TPU_LOADGEN_MAX_INFLIGHT': (
+        int, 512,
+        'Client-side bound on concurrently in-flight harness requests '
+        '(one thread each). An arrival above the bound resolves as '
+        'client_saturated — counted against goodput, never silently '
+        'dropped.'),
+    'MXNET_TPU_LOADGEN_RETRIES': (
+        int, 0,
+        'Loadgen client retry budget on 429/503: each retry honors the '
+        "server's Retry-After (capped by MXNET_TPU_LOADGEN_RETRY_CAP_S) "
+        'before re-firing, and the record counts its retries in the '
+        'taxonomy. 0 (default) keeps the one-shot open-loop behavior the '
+        'overload verdicts are calibrated on.'),
+    'MXNET_TPU_LOADGEN_RETRY_CAP_S': (
+        float, 2.0,
+        'Ceiling on a single loadgen retry backoff sleep: a Retry-After '
+        'above it is clamped so a mis-advertised hint cannot stall the '
+        'harness.'),
     'MXNET_TPU_AMP': (
         str, None, "Default AMP policy ('bf16' | 'fp16' | 'off') for "
         'ParallelTrainer / Module.fit / gluon Trainer when no explicit '

@@ -95,7 +95,17 @@ payload on ``stream.seqstate`` (a prefix hit exports the extending state
 before any token). A ``cold`` import is an ordinary admission: as in the
 reference, only a live import counts in ``migrated_in`` (a cold export
 counts in ``migrated_out``).
-Tracing is a later slice (ROADMAP queue A).
+
+**Request tracing** (the reference's ``engine.py:422-437``): an admission
+or an import given ``trace=`` (an ``observability.trace.TraceContext``,
+the HTTP handler's ``srv.*`` span) emits the reference's ``eng.*`` spans
+under it into :attr:`DecodeEngine.trace_sink` (the server's span buffer;
+None: the process buffer), with wall-clock times taken on the worker:
+``eng.queue_wait`` at admission, ``eng.prefill`` and ``eng.first_token``
+after a prefill (a prefix hit's first token from a step), ``eng.steps``
+when the sequence retires, ``eng.export`` (``kind='cold'`` for a queued
+one) and ``eng.import``. An untraced sequence pays one None check a site;
+an emit never raises into the scheduler.
 """
 from __future__ import annotations
 
@@ -242,7 +252,7 @@ class _Seq:
     __slots__ = ('stream', 'prompt', 'max_new', 'eos_id', 'slot', 'pos',
                  'last_token', 'enqueued_at', 'deadline_at', 'table',
                  'pages', 'adapter_id', 'adapter_idx', 'temperature',
-                 'top_p', 'seed', 'prefill_only')
+                 'top_p', 'seed', 'prefill_only', 'trace')
 
     def __init__(self, stream, prompt, max_new, eos_id, enqueued_at,
                  deadline_at, adapter_id=None, temperature=0.0, top_p=1.0,
@@ -270,6 +280,10 @@ class _Seq:
         self.temperature = float(temperature)
         self.top_p = float(top_p)
         self.seed = int(seed)
+        # request tracing: {'ctx', 'enq' (wall s), 'last' (the last phase
+        # boundary), 'first_w' (the first token's, None once the steps
+        # are emitted), 'tok0' (tokens present at attach)}, or None
+        self.trace = None
 
     @property
     def extending(self):
@@ -304,6 +318,9 @@ class DecodeEngine:
         self.default_max_new = int(max_new_tokens)
         self.prefill_interleave = max(1, int(prefill_interleave))
         self.name = name
+        # the span buffer the eng.* spans go to: the HTTP server points
+        # it at its own (one site a replica); None is the process buffer
+        self.trace_sink = None
         self._breaker = breaker if breaker is not None else \
             CircuitBreaker(failure_threshold=3, reset_timeout=30.0)
         self._watchdog = watchdog
@@ -424,11 +441,39 @@ class DecodeEngine:
                 name='mxnet-tpu-torch-%s-decode-reaper' % name)
             self._reaper.start()
 
+    # -- request tracing ---------------------------------------------------
+
+    def _trace_span(self, seq, name, t0, t1, **attrs):
+        """One ``eng.*`` span under the sequence's trace context, with
+        explicit wall times (the worker has no ambient context). A no-op
+        for an untraced sequence; never raises into the scheduler."""
+        tr = seq.trace
+        if tr is None:
+            return
+        sink = self.trace_sink
+        try:
+            if sink is None:
+                from ...observability import trace as _tr
+                sink = _tr.get_buffer()
+            sink.emit(name, tr['ctx'].child(), t0, t1, **attrs)
+        except Exception:  # noqa: BLE001 - tracing never fails a request
+            pass
+
+    def _trace_first_token(self, seq):
+        """``eng.first_token`` of a sequence whose first token comes from
+        a step (a prefix hit, an extending import)."""
+        tr = seq.trace
+        if tr is not None and not seq.stream.tokens:
+            w = time.time()
+            self._trace_span(seq, 'eng.first_token', tr['last'], w,
+                             ttft_s=round(w - tr['enq'], 6))
+            tr['first_w'] = w
+
     # -- submission --------------------------------------------------------
 
     def generate(self, tokens, max_new_tokens=None, eos_id=None,
                  adapter=None, temperature=0.0, top_p=1.0, seed=0,
-                 request_id=None, prefill_only=False):
+                 request_id=None, prefill_only=False, trace=None):
         """Admit one prompt; returns its :class:`GenerateStream`.
 
         ``request_id`` makes the admission idempotent: a second admission
@@ -438,7 +483,8 @@ class DecodeEngine:
         usual), then exports the sequence instead of stepping it: the
         stream finishes ``'migrated'`` with the payload on
         ``stream.seqstate``; a first-token EOS or ``max_new_tokens=1``
-        finishes normally.
+        finishes normally. ``trace`` (a ``TraceContext``) attaches the
+        request's trace: the engine emits its ``eng.*`` spans under it.
 
         ``adapter`` picks the adapter (an id of the engine's registry;
         None, '' or 'base' is the frozen base); ``temperature`` (0:
@@ -486,6 +532,10 @@ class DecodeEngine:
                                else str(adapter)),
                    temperature=temperature, top_p=top_p, seed=seed,
                    prefill_only=prefill_only)
+        if trace is not None:
+            w = time.time()
+            seq.trace = {'ctx': trace, 'enq': w, 'last': w, 'first_w': None,
+                         'tok0': 0}
         with self._lock:
             if self._closed:
                 raise BatcherClosed('decode engine %r is closed'
@@ -631,6 +681,17 @@ class DecodeEngine:
                 self._release_pages_locked(seq)
         # the adapter row's pin goes outside the lock (the pool has its own)
         self._release_adapter(seq)
+        tr = seq.trace
+        if tr is not None and tr['first_w'] is not None:
+            # this engine's segment of the request's step loop (a migrated
+            # sequence closes its segment here, the importer opens its own)
+            w = time.time()
+            ntok = len(seq.stream.tokens) - tr['tok0']
+            steps = max(0, ntok - 1)
+            if steps and w > tr['first_w']:
+                self._trace_span(seq, 'eng.steps', tr['first_w'], w,
+                                 tokens=ntok, steps=steps, reason=reason)
+            tr['first_w'] = None
 
     # -- paged pool bookkeeping (worker thread only) ------------------------
 
@@ -906,6 +967,7 @@ class DecodeEngine:
             with self._lock:
                 self._free.append(slot)
             return
+        self._trace_queue_wait(seq)
         if not self._admit_adapter(seq, slot):
             return
         try:
@@ -933,8 +995,23 @@ class DecodeEngine:
             return
         self._join(seq, slot, tok)
 
+    def _trace_queue_wait(self, seq):
+        tr = seq.trace
+        if tr is not None:
+            w0 = time.time()
+            self._trace_span(seq, 'eng.queue_wait', tr['enq'], w0)
+            tr['last'] = w0
+
     def _join(self, seq, slot, tok):
         """A prefilled sequence joins the batch with its first token."""
+        tr = seq.trace
+        if tr is not None:
+            w1 = time.time()
+            self._trace_span(seq, 'eng.prefill', tr['last'], w1,
+                             tokens=len(seq.prompt))
+            self._trace_span(seq, 'eng.first_token', tr['last'], w1,
+                             ttft_s=round(w1 - tr['enq'], 6))
+            tr['last'] = tr['first_w'] = w1
         with self._lock:
             self._counts['prefills'] += 1
             self._counts['tokens'] += 1
@@ -982,6 +1059,7 @@ class DecodeEngine:
             with self._lock:
                 self._free.append(slot)
             return
+        self._trace_queue_wait(seq)
         if not self._admit_adapter(seq, slot):
             return
         prompt = seq.prompt
@@ -1208,6 +1286,7 @@ class DecodeEngine:
                 continue
             tok = int(toks[slot])
             seq.last_token = tok
+            self._trace_first_token(seq)
             self._emit_token(seq, tok)
             emitted += 1
             sampled += seq.temperature > 0
@@ -1297,6 +1376,7 @@ class DecodeEngine:
             accepted_total += adv - 1
             reason = None
             for i, tok in enumerate(emitted):
+                self._trace_first_token(seq)
                 self._emit_token(seq, tok)
                 emitted_total += 1
                 sampled_total += seq.temperature > 0
@@ -1387,6 +1467,8 @@ class DecodeEngine:
         seq.stream._finish('migrated')
         with self._lock:
             self._counts['migrated_out'] += 1
+        w = time.time()
+        self._trace_span(seq, 'eng.export', w, w, kind='cold')
         return payload
 
     def export_sequence(self, stream, timeout=30.0):
@@ -1463,6 +1545,7 @@ class DecodeEngine:
                 'never admitted)' % (stream.finish_reason,))
         slot, seq = found
         t0 = time.perf_counter()
+        w0 = time.time()
         npages = 0
         spec = dict(prompt=seq.prompt, emitted=list(stream.tokens),
                     pos=seq.pos, last_token=seq.last_token,
@@ -1489,16 +1572,20 @@ class DecodeEngine:
         with self._lock:
             self._counts['migrated_out'] += 1
             self._counts['handoff_pages'] += npages
+        self._trace_span(seq, 'eng.export', w0, time.time(), pages=npages,
+                         kind=spec['kind'])
         return spec
 
-    def import_sequence(self, payload, timeout=30.0):
+    def import_sequence(self, payload, timeout=30.0, trace=None):
         """Land an exported sequence in this engine and continue it with
         no prefill (``prefills`` unchanged): K/V rows re-chunked to this
         engine's page size and written into its pool, or the slot's rows
         into a free slot. Returns the continuation's
         :class:`GenerateStream`: ``tokens`` holds the whole sequence, the
         handed-off prefix included, and the iterator yields only the new
-        tokens. A ``cold`` payload is an ordinary admission.
+        tokens. A ``cold`` payload is an ordinary admission. ``trace``
+        attaches the request's trace (``eng.import``, then the
+        continuation's spans).
 
         Raises :class:`SeqStateError` for a torn, version-mismatched or
         incompatible payload (an adapter pinned into an engine without a
@@ -1509,6 +1596,7 @@ class DecodeEngine:
         the cache was lost and the breaker is open, :class:`BatcherClosed`
         after :meth:`close`."""
         state = decode_payload(payload)
+        state['trace'] = trace
         if state['adapter_id'] is not None and self._adapters is None:
             raise SeqStateError('payload pins adapter %r but this engine '
                                 'serves no adapter pool'
@@ -1525,7 +1613,8 @@ class DecodeEngine:
                 eos_id=state['eos_id'], request_id=state['request_id'],
                 adapter=state['adapter_id'],
                 temperature=samp.get('temperature', 0.0),
-                top_p=samp.get('top_p', 1.0), seed=samp.get('seed', 0))
+                top_p=samp.get('top_p', 1.0), seed=samp.get('seed', 0),
+                trace=trace)
         if state['kind'] == 'paged' and not self.paged:
             raise SeqStateError('paged seqstate cannot land in a slot-cache '
                                 'engine')
@@ -1547,6 +1636,7 @@ class DecodeEngine:
     def _do_import(self, state):
         """The worker's half of an import: a slot, the adapter pinned
         again, the rows written, the sequence live."""
+        w0 = time.time()
         prompt, emitted, pos = state['prompt'], state['emitted'], state['pos']
         with self._lock:
             if not self._free:
@@ -1643,6 +1733,13 @@ class DecodeEngine:
                     logging.warning('decode %s: draft re-sync failed on '
                                     'import; speculation accepts less',
                                     self.name, exc_info=True)
+        if state['trace'] is not None:
+            w1 = time.time()
+            seq.trace = {'ctx': state['trace'], 'enq': w0, 'last': w1,
+                         'first_w': w1 if emitted else None,
+                         'tok0': len(emitted)}
+            self._trace_span(seq, 'eng.import', w0, w1, pages=len(ids),
+                             kind=state['kind'], tokens=len(emitted))
         with self._lock:
             self._counts['requests'] += 1
             self._counts['migrated_in'] += 1
@@ -1861,6 +1958,8 @@ class DecodeEngine:
                     'acceptance_rate': round(
                         self._counts['spec_accepted'] / proposed, 4)
                     if proposed else None}
+        if self._adapters is not None:
+            out['adapters'] = self._adapters.pool.stats()
         out['cache_bytes'] = int(self.program.cache_bytes())
         out['cache'] = self.cache_accounting()
         return out

@@ -57,8 +57,17 @@ done line), ``POST /import`` (continue a payload here) and ``GET
 ``install_preempt_hook``: SIGTERM drains and the process exits 75). Its
 handler threads only call the sessions' ``infer`` / ``submit`` /
 ``generate`` and the engine's export / import, which its worker services:
-the decode engine's worker alone touches the card. ``/trace`` answers 404
-until request tracing is ported (ROADMAP A7).
+the decode engine's worker alone touches the card.
+
+Request tracing (``MXNET_TPU_TRACE``, the reference's
+``server.py:538-541, 603-626, 880-900``): each endpoint has its own
+``SpanBuffer`` (site ``replica:<port>``), which its engines'
+``trace_sink`` points at. An admitted POST opens ``srv.generate``,
+``srv.predict`` or ``srv.import`` under the ``X-Mxnet-Trace`` header's
+context and activates it on the handler thread, so the engine's ``eng.*``
+spans nest under it; ``GET /drain`` opens ``srv.drain``, and ``GET
+/trace?since=N`` answers the buffer's NDJSON. With tracing off nothing is
+parsed or allocated: the shared null span.
 """
 from __future__ import annotations
 
@@ -73,6 +82,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as onp
 
 from .. import config as _config
+from ..observability import trace as _trace
 from ..resilience.policy import (CircuitBreaker, CircuitOpenError,
                                  PreemptionSignal, WorkerCrashError, inject,
                                  is_transient)
@@ -276,24 +286,26 @@ class InferenceSession:
     # -- generation --------------------------------------------------------
 
     def generate(self, tokens, max_new_tokens=None, eos_id=None,
-                 request_id=None, prefill_only=False, adapter=None,
-                 temperature=None, top_p=None, seed=None):
+                 request_id=None, prefill_only=False, trace=None,
+                 adapter=None, temperature=None, top_p=None, seed=None):
         """Stream a generation: returns a
         :class:`~.decode.engine.GenerateStream` (iterate per token, or
         ``.result(timeout)`` for the whole sequence). ``request_id`` keeps
         one stream a request (a second admission cancels the first);
         ``prefill_only`` finishes ``'migrated'`` at the prefill boundary
-        with the payload on ``stream.seqstate``. ``adapter`` picks the
-        adapter and ``temperature`` / ``top_p`` / ``seed`` the sampling law
-        (the engine's defaults: the base, greedy)."""
+        with the payload on ``stream.seqstate``; ``trace`` (a
+        ``TraceContext``) nests the engine's spans under it. ``adapter``
+        picks the adapter and ``temperature`` / ``top_p`` / ``seed`` the
+        sampling law (the engine's defaults: the base, greedy)."""
         if self._engine is None:
             raise TypeError('generate() needs a DecodeProgram session (use '
                             'serving.freeze_decode)')
         kwargs = {'max_new_tokens': max_new_tokens, 'eos_id': eos_id}
         for key, value in (('request_id', request_id),
                            ('prefill_only', prefill_only or None),
-                           ('adapter', adapter), ('temperature', temperature),
-                           ('top_p', top_p), ('seed', seed)):
+                           ('trace', trace), ('adapter', adapter),
+                           ('temperature', temperature), ('top_p', top_p),
+                           ('seed', seed)):
             if value is not None:
                 kwargs[key] = value
         return self._engine.generate(tokens, **kwargs)
@@ -390,8 +402,7 @@ def _wait_s(session):
 
 class ServingHTTPServer:
     """Stdlib JSON endpoint over an :class:`InferenceSession`, the
-    reference's (``mxnet_tpu/serving/server.py:465-1200``) without
-    ``/trace``. Routes::
+    reference's (``mxnet_tpu/serving/server.py:465-1200``). Routes::
 
         GET  /status    the session's status() (with a decode_session:
                         {"status": worst, "predict": ..., "generate": ...})
@@ -401,6 +412,9 @@ class ServingHTTPServer:
         GET  /drain     the mxnet_tpu.drain.v1 snapshot: the payloads a
                         drain exported (?request_id= picks one); serving a
                         payload marks it handed off
+        GET  /trace     mxnet_tpu.trace.v1 span records as NDJSON: a
+                        header line {"schema", "site", "cursor", "count"},
+                        then each record with seq > ?since= (default 0)
         POST /predict   {"data": [...]} one example, or
                         {"instances": [[...], ...]} many
                         -> {"outputs": ...}
@@ -462,6 +476,9 @@ class ServingHTTPServer:
         self._preempt = None
         self._preempt_stop = threading.Event()
         self._preempt_thread = None
+        # one buffer an endpoint, not the process's: a process hosting a
+        # fleet keeps a site a replica (the bound port, set at start)
+        self._trace_buf = _trace.SpanBuffer(site='replica:%d' % self.port)
 
     def _statuses(self):
         st = self.session.status()
@@ -511,6 +528,14 @@ class ServingHTTPServer:
                 self._json(429, payload, headers={
                     'Retry-After': str(max(1, int(hint + 0.999)))})
 
+            def _sender(self):
+                # the X-Mxnet-Trace context; with tracing off nothing is
+                # parsed, and a None context opens the shared null span
+                if not _trace.enabled():
+                    return None
+                return _trace.parse_header(
+                    self.headers.get(_trace.TRACE_HEADER))
+
             def _drain_body(self):
                 # an unread body on a keep-alive connection would be parsed
                 # as the next request line
@@ -539,7 +564,23 @@ class ServingHTTPServer:
                 elif path == '/drain':
                     rid = (parse_qs(parsed.query).get('request_id')
                            or [None])[0]
-                    self._json(200, srv._drain_snapshot(rid))
+                    with srv._trace_buf.span('srv.drain', self._sender(),
+                                             request_id=rid):
+                        self._json(200, srv._drain_snapshot(rid))
+                elif path == '/trace':
+                    # the records after the caller's cursor, which it
+                    # advances to the header line's
+                    try:
+                        since = int((parse_qs(parsed.query).get('since')
+                                     or ['0'])[0] or 0)
+                    except (TypeError, ValueError):
+                        since = 0
+                    body = srv._trace_buf.ndjson(since)
+                    self.send_response(200)
+                    self.send_header('Content-Type', 'application/x-ndjson')
+                    self.send_header('Content-Length', str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
                 else:
                     self.send_error(404)
 
@@ -565,8 +606,14 @@ class ServingHTTPServer:
                                  'load or retry with backoff',
                         'limit': srv.max_concurrent})
                     return
+                # the request's span, a child of the sender's, over the
+                # parse, the admission and the whole streamed answer
+                name = {'/generate': 'srv.generate',
+                        '/import': 'srv.import'}.get(path, 'srv.predict')
                 try:
-                    self._admitted(path)
+                    with srv._trace_buf.span(name, self._sender()) as sp, \
+                            _trace.activate(sp.ctx):
+                        self._admitted(path)
                 finally:
                     if gate is not None:
                         gate.release()
@@ -655,6 +702,11 @@ class ServingHTTPServer:
                 except (TypeError, ValueError):
                     self._json(400, {'error': 'bad sampling parameters'})
                     return
+                # the engine's eng.* spans nest under this handler's span
+                # (the context rides the sequence to the worker)
+                tctx = _trace.current()
+                if tctx is not None:
+                    kwargs['trace'] = tctx
                 stream = gen.generate(tokens, **kwargs)
                 self._answer(gen, req, stream, start_index, request_id)
 
@@ -669,7 +721,10 @@ class ServingHTTPServer:
                     self._json(400, {'error': "need 'seqstate' (a "
                                               "mxnet_tpu.seqstate.v1 object)"})
                     return
-                stream = gen._engine.import_sequence(payload)
+                tctx = _trace.current()
+                stream = gen._engine.import_sequence(payload, trace=tctx) \
+                    if tctx is not None else gen._engine.import_sequence(
+                        payload)
                 # numbering continues after the handed-off prefix, unless
                 # the caller (a gateway's relayed watermark) says otherwise
                 start_index = len(payload.get('emitted') or [])
@@ -748,6 +803,13 @@ class ServingHTTPServer:
 
         self._httpd = _Server((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]     # port 0 resolved
+        # the site names the bound port; the engines' spans land here, so
+        # that GET /trace serves them
+        self._trace_buf.site = 'replica:%d' % self.port
+        for sess in (self.session, self.decode_session):
+            eng = getattr(sess, '_engine', None)
+            if eng is not None:
+                eng.trace_sink = self._trace_buf
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True,
             name='mxnet-tpu-torch-serving-http')

@@ -96,3 +96,28 @@ def test_gateway_knobs_are_the_references(monkeypatch, name):
     assert (typ, default, doc) == (knob.typ, knob.default, knob.doc)
     monkeypatch.delenv(name, raising=False)
     assert port_config.get(name) == jax_config.get(name) == default
+
+
+# the load harness's knobs: thirteen SLO budgets, five of its own
+LOADGEN_KNOBS = tuple(n for n in sorted(jax_config.KNOBS) if n.startswith(
+    ('MXNET_TPU_SLO_', 'MXNET_TPU_LOADGEN_')))
+
+
+def test_loadgen_knob_set():
+    """Every SLO and loadgen knob of the reference is in the port."""
+    assert len(LOADGEN_KNOBS) == 18
+    assert sum(n.startswith('MXNET_TPU_SLO_') for n in LOADGEN_KNOBS) == 13
+    assert set(LOADGEN_KNOBS) <= set(port_config.KNOBS)
+
+
+@pytest.mark.parametrize('name', LOADGEN_KNOBS)
+def test_loadgen_knobs_are_the_references(monkeypatch, name):
+    """Name, type, default and help text of each knob, its unset value,
+    and a set one parsed the reference's way."""
+    typ, default, doc = port_config.KNOBS[name]
+    knob = jax_config.KNOBS[name]
+    assert (typ, default, doc) == (knob.typ, knob.default, knob.doc)
+    monkeypatch.delenv(name, raising=False)
+    assert port_config.get(name) == jax_config.get(name) == default
+    monkeypatch.setenv(name, '7')
+    assert port_config.get(name) == jax_config.get(name) == typ('7')

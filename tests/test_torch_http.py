@@ -16,7 +16,8 @@ from a numpy seed and a small one-shot net of the port. What is held:
     429 with ``Retry-After`` from a full queue and past ``max_concurrent``,
     504, 503 on a closed session, 500 typed, 400, 404, and ``/healthz``
     503 while the breaker is open; ``GET /drain`` on a one-shot session
-    is an empty snapshot and ``POST /import`` a 400, ``/trace`` 404; the
+    is an empty snapshot and ``POST /import`` a 400, ``GET /trace`` the
+    span buffer's header line (``POST /trace`` 404); the
     fleet's ``/generate`` keys are served (``request_id`` echoed,
     ``start_index`` offsetting the indices, ``seqstate`` on a
     ``prefill_only`` done line); a client that goes away cancels its
@@ -355,8 +356,13 @@ def test_http_400_and_404():
         assert _post(srv.port, '/predict', {'x': 1})[::2] == \
             (400, {'error': "need 'data' or 'instances'"})
         assert _post(srv.port, '/predict', [1, 2])[0] == 400
+        assert _get(srv.port, '/nope')[0] == 404
+        # GET /trace answers the span buffer's NDJSON: untraced, its header
+        # line alone; no route takes a POST there
+        assert _get(srv.port, '/trace') == (200, {
+            'schema': 'mxnet_tpu.trace.v1', 'site': 'replica:%d' % srv.port,
+            'cursor': 0, 'count': 0})
         for path in ('/nope', '/trace'):
-            assert _get(srv.port, path)[0] == 404, path
             assert _post(srv.port, path, {'data': [0.0]})[0] == 404, path
         # the drain routes: an empty snapshot, and no import without a
         # decode session; their other method is no route
