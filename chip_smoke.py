@@ -145,7 +145,26 @@ Phases, in order; any failure exits non-zero:
      (257 pages): the tokens must equal phase 3's token for token, with
      12 flash forward launches a prefill, 12 paged decode launches a step
      and no slot decode launch; its metrics beside phase 3's and
-     ``cache_accounting()``. 3s: prefix sharing (16 prompts of one
+     ``cache_accounting()``; 3p runs with telemetry off
+     (``observability.set_enabled(False)``). 3o: 3p's run again with
+     telemetry on (every flight dump of the script and of its children
+     goes to a temporary directory, ``MXNET_TPU_FLIGHT_PATH``): (a) the
+     tokens 3p's; ``mxnet_tpu_serve_tokens_total``, ``_prefills_total``,
+     ``_decode_steps_total``, ``_prefix_hits_total`` and the
+     ``_tpot_seconds`` count moved as the engine's ``stats()`` counts,
+     ``_ttft_seconds`` by 16, ``_compiles_total`` by the programs
+     ``warmup`` built and by none during the run; exact launches (rows
+     1, 4p and 18, listed as ``serving telemetry``); (b) the same 16
+     requests through a session without prefix sharing in 6 turns,
+     telemetry on and off alternately, after one untimed turn: the ms a
+     decode step (the run's wall over its steps), the engine's own step
+     seconds and the worker's host ms a step (its ticks less their
+     program calls), the telemetry's host cost a step printed; (c) two scrapes of a
+     ``PrometheusServer(0)``'s ``/metrics`` (after (a) and after (b)):
+     the serve series of the first the registry's after (a), counters
+     never falling, histogram buckets cumulative to their counts; (d)
+     ``python -m mxnet_tpu_torch.observability`` in a child: legs 1-4
+     pass. 3s: prefix sharing (16 prompts of one
      192-token prefix and 8-64-token suffixes, the prefix alone twice
      amid them: one prefill, >= 15 hits, >= 1 copy on write) and then
      speculative decoding of phase 3's prompts with 3 proposals a tick
@@ -200,7 +219,13 @@ Phases, in order; any failure exits non-zero:
      streams fail with ``WorkerCrashError``, their slots free, the next
      request clean; (d) ``hang@serving.decode.17`` once: the stall
      artifact (``mxnet_tpu.stall.v1``, phase ``decode``) written and the
-     streams degraded with the healthy tokens; after 6b, (e) 6b's frozen
+     streams degraded with the healthy tokens. The flight recorder of
+     each: (a) one ``serve_fallback`` at op 17 and no dump; (b) the
+     trip's dump (reason ``breaker``) read back with ``read_flight``:
+     ``serve_fallback`` at ops 0 and 1, then ``breaker_open`` at op 2,
+     last; (c) one ``serve_fallback`` (``WorkerCrashError``); (d) the
+     stall's dump (reason ``stall``): a ``watchdog_heartbeat`` for each
+     of ops 0-16, then the ``stall`` at op 17, last. After 6b, (e) 6b's frozen
      SSD-300 serves 2 images under ``device_loss@serving:1``: the batch
      re-served by ``run_fallback``, byte for byte its host block's
      output, whose heads are the card's within 6a's tolerance; the host
@@ -235,7 +260,9 @@ Phases, in order; any failure exits non-zero:
      ``device_loss@serving.decode.9:1`` with a breaker of one failure: the
      stream's done line ``degraded: true`` with the healthy tokens (a
      difference only at a near tie), ``/healthz`` 503 while the breaker is
-     open. The children's launches join the ``kernels`` line. 3m, live
+     open, and its own flight dump (reason ``breaker``) ending in the
+     ``breaker_open`` of op 9. The children's launches join the ``kernels``
+     line. 3m, live
      migration at the slice's width (after 3a, and (c)-(d) with 3h's main
      child): (a) source A, 3a's program (page size 16, sampling, 8 rank-8
      adapters over 7 pool rows), serves 3a's 24 requests; once 8 streams
@@ -260,7 +287,11 @@ Phases, in order; any failure exits non-zero:
      continuing each with unbroken indices, the first 32 tokens 3p's and
      every token teacher-forced, B' running no prefill, exact launches
      in the child and in B', the child printing ``handed_off`` 8 and
-     exiting 75 within the 30 s drain budget; (d) ``/import`` of a
+     exiting 75 within the 30 s drain budget, its flight ring dumped as
+     it exits (reason ``preempt``) holding ``drain_begin``, the 8
+     ``seq_export`` and ``drain_complete`` (8 handed off, reason ``signal
+     SIGTERM``); no ``preempt`` event, as in the reference, whose
+     endpoint's hook reads the handler's flag; (d) ``/import`` of a
      payload with one base64 character changed, and of an
      adapter-pinned payload into B' (no adapters), 400. 3g, the port's
      ``ServingGateway`` (health period 0.25 s, resume and affinity on)
@@ -302,7 +333,14 @@ Phases, in order; any failure exits non-zero:
      3p's and every token teacher-forced. The in-process launches exact
      against the engines' counts (rows 1, 4p, 18), no program built by a
      request; the child's launches, read just before the kill, join the
-     ``kernels`` line. 3l, after 3g: the port's load and chaos harness
+     ``kernels`` line. The process's flight ring (one of 131072 events
+     for the phase, emptied before each part) holds one
+     ``gateway_resume`` a moved stream of (a), after the kill, cause
+     ``transport``; as many ``tenant_reject`` in (d) as ``/metrics``
+     counts 429s; ``seq_handoff`` ``export`` then ``spliced`` for every
+     stream of (c), ``export``, a ``retry`` a refusal, ``spliced`` for
+     the refused one; one ``gateway_migrate`` into ``b128`` a drained
+     stream of (b). 3l, after 3g: the port's load and chaos harness
      (``mxnet_tpu_torch.loadgen``) over rigs of 3p's program
      (``LOADGEN_RIG``: BERT-base widths, page size 16, 257 pages, 8
      slots, sampling). One replica (``ServingRig``; the loadgen MLP's
@@ -2877,6 +2915,346 @@ def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
     }
 
 
+
+# phase 3o: the serving telemetry on 3p's run
+TELEMETRY_TURNS = 6        # (b): alternating on / off turns, on first
+SERVE = 'mxnet_tpu_serve_'
+
+
+def serve_series(obs):
+    """{(name, labels): (type, value, or count for a histogram)} of every
+    ``mxnet_tpu_serve_*`` series in the registry."""
+    out = {}
+    for name, fam in obs.snapshot().items():
+        if name.startswith(SERVE):
+            for s in fam['series']:
+                out[(name, tuple(sorted(s['labels'].items())))] = (
+                    fam['type'], s['count'] if fam['type'] == 'histogram'
+                    else s['value'])
+    return out
+
+
+def series_delta(after, before, name, labels=()):
+    """The change of one serve counter (or histogram count)."""
+    key = (SERVE + name, tuple(labels))
+    return after.get(key, (None, 0))[1] - before.get(key, (None, 0))[1]
+
+
+def settle(eng, budget=120.0):
+    """Wait until ``eng`` is idle: nothing queued or live and its counts
+    unchanged over 50 ms (a tick counts its step, and emits it, after the
+    streams it finished have their results). Returns its stats."""
+    deadline = time.monotonic() + budget
+    last = None
+    while time.monotonic() < deadline:
+        st = eng.stats()
+        cur = (st['pending'], st['active'], json.dumps(st['counts'],
+                                                       sort_keys=True))
+        if cur == last and not cur[0] and not cur[1]:
+            return st
+        last = cur
+        time.sleep(0.05)
+    raise AssertionError('the engine did not settle within %.0f s' % budget)
+
+
+def scrape(port):
+    """``GET /metrics`` of a ``PrometheusServer``: (types, samples)."""
+    import urllib.request
+    from mxnet_tpu_torch.observability import export
+    body = urllib.request.urlopen('http://127.0.0.1:%d/metrics' % port,
+                                  timeout=HTTP_BUDGET_S).read().decode()
+    return export.parse_prometheus(body)
+
+
+def check_scrape(types, samples, earlier=None):
+    """Every histogram's buckets cumulative and ending at its count; with
+    ``earlier`` (an older scrape's samples), every counter at least its
+    value there. Returns {(name, labels): value}."""
+    got = {(n, tuple(sorted(lab.items()))): v for n, lab, v in samples}
+    for name, typ in types.items():
+        if typ != 'histogram':
+            continue
+        series = {}
+        for (n, lab), v in got.items():
+            if n == name + '_bucket':
+                series.setdefault(tuple(x for x in lab if x[0] != 'le'),
+                                  []).append((dict(lab)['le'], v))
+        for lab, buckets in series.items():
+            vals = [v for _le, v in buckets]
+            count = got[(name + '_count', lab)]
+            if vals != sorted(vals) or buckets[-1][0] != '+Inf' \
+                    or vals[-1] != count:
+                raise AssertionError('phase 3o (c): %s%s buckets %s, count '
+                                     '%s' % (name, lab, buckets, count))
+    if earlier is not None:
+        old = {(n, tuple(sorted(lab.items()))): v for n, lab, v in earlier}
+        for (n, lab), v in old.items():
+            if types.get(n) == 'counter' and got.get((n, lab), -1) < v:
+                raise AssertionError('phase 3o (c): counter %s%s went from '
+                                     '%s to %s' % (n, lab, v,
+                                                   got.get((n, lab))))
+    return got
+
+
+def serve_telemetry(torch, serving, kernels, device, want, cfg=SLICE,
+                    slots=SLOTS, buckets=BUCKETS, requests=REQUESTS,
+                    new_tokens=NEW_TOKENS, prompt_range=(8, 256), seed=0,
+                    turns=TELEMETRY_TURNS, child=True):
+    """Phase 3o: phase 3p's run (:func:`serve`'s model, prompts and
+    session) with telemetry on. (a) the tokens are ``want`` (3p's, run
+    with telemetry off); the registry's tokens, prefills, decode steps and
+    prefix hits moved as the engine's ``stats()`` counts did, the TTFT
+    histogram by one a request, ``compiles_total`` by the programs
+    ``warmup`` built, and no request built one; the card's launches are
+    3p's arithmetic. (b) the same 16 requests through a session without
+    prefix sharing (each turn the same work), after one untimed turn,
+    ``turns`` turns alternating telemetry on and off: per decode step the
+    run's wall, the engine's own step seconds and the worker's host time
+    (its ticks less their program calls). (c) two scrapes of a ``PrometheusServer(0)``'s
+    ``/metrics``, after (a) and after (b): the serve series of the first
+    are (a)'s registry, counters never fall, histogram buckets are
+    cumulative and end at the count. (d) ``python -m
+    mxnet_tpu_torch.observability`` in a child: legs 1-4 pass. Returns a
+    dict of results."""
+    import numpy as np
+    from mxnet_tpu_torch import observability as obs
+    from mxnet_tpu_torch.observability import export
+    t_phase = time.perf_counter()
+    model, params = serving.init_transformer_lm(seed=seed, **cfg)
+    prog = serving.freeze_decode(model, params, slots=slots,
+                                 prefill_buckets=buckets, device=device)
+    del params
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(prompt_range[0], prompt_range[1] + 1, size=requests)
+    prompts = [rs.randint(0, cfg['vocab'], size=n).tolist() for n in lens]
+    res = {}
+    obs.set_enabled(True)
+    srv = None
+    try:
+        # (a)
+        s0 = serve_series(obs)
+        with serving.InferenceSession(prog, timeout_s=600,
+                                      max_new_tokens=new_tokens) as sess:
+            eng = sess._engine
+            seconds = check_programs('phase 3o', prog,
+                                     program_set(buckets, True), True)
+            s1 = serve_series(obs)
+            sess.generate(prompts[0][:8], max_new_tokens=2).result(600)
+            before = settle(eng)['counts']
+            sb = serve_series(obs)
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            streams = [sess.generate(p) for p in prompts]
+            outs = [s.result(600) for s in streams]
+            wall = time.perf_counter() - t1
+            after = settle(eng)['counts']
+            launches = kernels.launch_counts()
+            sa = serve_series(obs)
+            assert_healthy('phase 3o', sess, streams)
+        if outs != want:
+            raise AssertionError('phase 3o (a): with telemetry on, streams '
+                                 '%s differ from 3p\'s (telemetry off)'
+                                 % [i for i, (a, b) in enumerate(
+                                     zip(outs, want)) if a != b])
+        c = _count_delta(after, before)
+        reg = {k: series_delta(sa, sb, k) for k in (
+            'tokens_total', 'prefills_total', 'decode_steps_total',
+            'prefix_hits_total', 'compiles_total', 'ttft_seconds',
+            'tpot_seconds')}
+        eng_counts = {'tokens_total': c['tokens'],
+                      'prefills_total': c['prefills'],
+                      'decode_steps_total': c['steps'],
+                      'prefix_hits_total': c['prefix_hits'],
+                      'compiles_total': 0, 'ttft_seconds': requests,
+                      'tpot_seconds': c['steps']}
+        built = series_delta(s1, s0, 'compiles_total')
+        if reg != eng_counts or built != len(seconds) \
+                or prog.compile_count != len(seconds) \
+                or c['tokens'] != requests * new_tokens:
+            raise AssertionError('phase 3o (a): the registry moved %s, the '
+                                 'engine %s; compiles at warmup %s for %d '
+                                 'programs (%d after the run)'
+                                 % (reg, eng_counts, built, len(seconds),
+                                    prog.compile_count))
+        want_l = dict.fromkeys(launches, 0)
+        want_l['flash_attention_fwd'] = cfg['layers'] * c['prefills']
+        want_l['flash_paged_decode_fwd'] = cfg['layers'] * c['steps']
+        want_l['threefry_gumbel'] = c['prefills'] + c['steps']
+        if device.type == 'cuda' and launches != want_l:
+            raise AssertionError('phase 3o (a): launches %r, expected %r'
+                                 % (launches, want_l))
+        res['a'] = dict(registry=reg, compiles=built, wall_s=wall,
+                        prefills=c['prefills'], steps=c['steps'])
+        res['launches'] = launches
+        # (c) the first scrape: (a)'s registry
+        srv = export.PrometheusServer(0).start()
+        types, first = scrape(srv.port)
+        got = check_scrape(types, first)
+        now = serve_series(obs)
+        for (name, lab), (typ, v) in now.items():
+            key = (name + '_count' if typ == 'histogram' else name, lab)
+            if got.get(key) != v or now != sa:
+                raise AssertionError('phase 3o (c): /metrics %s=%s, the '
+                                     'registry %s (after (a) %s)'
+                                     % (key, got.get(key), v,
+                                        sa.get((name, lab))))
+        # (b) on / off turns over the same work
+        knob = os.environ.get('MXNET_TPU_SERVE_PREFIX_CACHE')
+        os.environ['MXNET_TPU_SERVE_PREFIX_CACHE'] = '0'
+        try:
+            sess = serving.InferenceSession(prog, timeout_s=600,
+                                            max_new_tokens=new_tokens)
+        finally:
+            if knob is None:
+                os.environ.pop('MXNET_TPU_SERVE_PREFIX_CACHE')
+            else:
+                os.environ['MXNET_TPU_SERVE_PREFIX_CACHE'] = knob
+        rows = []
+        # the worker's ticks and the program calls inside them, timed: a
+        # tick's host time is its wall less its program calls' (the
+        # replay, its copies and their wait), so the device's own
+        # variation drops out of the on / off difference
+        timer = dict(tick=0.0, program=0.0)
+        eng = sess._engine
+        tick = eng._tick
+
+        def timed_tick():
+            t = time.perf_counter()
+            try:
+                tick()
+            finally:
+                timer['tick'] += time.perf_counter() - t
+
+        def timed(fn):
+            def call(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    timer['program'] += time.perf_counter() - t
+            return call
+
+        calls = ('run_prefill', 'run_step', 'run_copy_page')
+        eng._tick = timed_tick
+        for name in calls:
+            setattr(prog, name, timed(getattr(prog, name)))
+        try:
+            # one untimed turn first: without it the first timed turn read
+            # high (4.01 ms a step against 3.24-3.47 on an H100)
+            for stream in [sess.generate(p) for p in prompts]:
+                stream.result(600)
+            for turn in range(turns):
+                on = turn % 2 == 0
+                obs.set_enabled(on)
+                c0 = settle(eng)['counts']
+                timer.update(tick=0.0, program=0.0)
+                t0 = time.perf_counter()
+                got_t = [s.result(600) for s in
+                         [sess.generate(p) for p in prompts]]
+                wall_t = time.perf_counter() - t0
+                c1 = settle(eng)['counts']
+                d = _count_delta(c1, c0)
+                if got_t != want:
+                    raise AssertionError('phase 3o (b): turn %d (telemetry '
+                                         '%s) served other tokens'
+                                         % (turn, on))
+                rows.append(dict(on=on, wall_s=wall_t, steps=d['steps'],
+                                 ms_per_step=wall_t / d['steps'] * 1e3,
+                                 engine_step_ms=d['step_seconds']
+                                 / d['steps'] * 1e3,
+                                 host_ms=(timer['tick'] - timer['program'])
+                                 / d['steps'] * 1e3))
+        finally:
+            obs.set_enabled(True)
+            sess.close()
+            for name in calls:
+                delattr(prog, name)
+        mean = {on: statistics.mean(r['ms_per_step'] for r in rows
+                                    if r['on'] == on) for on in (True, False)}
+        host = {on: statistics.mean(r['host_ms'] for r in rows
+                                    if r['on'] == on) for on in (True, False)}
+        res['b'] = dict(turns=rows, on_ms=mean[True], off_ms=mean[False],
+                        host_ms_per_step=mean[True] - mean[False],
+                        host_on_ms=host[True], host_off_ms=host[False],
+                        engine_on_ms=statistics.mean(
+                            r['engine_step_ms'] for r in rows if r['on']),
+                        engine_off_ms=statistics.mean(
+                            r['engine_step_ms'] for r in rows
+                            if not r['on']))
+        # (c) the second scrape: counters never fall
+        types, second = scrape(srv.port)
+        check_scrape(types, second, earlier=first)
+        res['c'] = dict(samples=[len(first), len(second)],
+                        serve_series=len(sa))
+        # (d) the self-test's legs in a child
+        if child:
+            tmp = tempfile.mkdtemp(prefix='chip_smoke_3o_')
+            try:
+                out = os.path.join(tmp, 'OBS_SELFTEST.json')
+                t0 = time.perf_counter()
+                run = subprocess.run(
+                    [sys.executable, '-m', 'mxnet_tpu_torch.observability',
+                     '--out', out], cwd=HERE, capture_output=True, text=True,
+                    timeout=CHILD_DONE_S)
+                child_s = time.perf_counter() - t0
+                with open(out) as f:
+                    verdict = json.load(f)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            legs = verdict['checks']
+            if run.returncode != 0 or verdict['ok'] is not True or any(
+                    legs[k] != 'ok' for k in ('registry', 'disabled',
+                                              'trace', 'flight',
+                                              'exporters')):
+                raise AssertionError('phase 3o (d): rc %d, verdict %s, '
+                                     'stderr %s' % (run.returncode, verdict,
+                                                    run.stderr[-2000:]))
+            res['d'] = dict(checks=legs, seconds=child_s)
+    finally:
+        if srv is not None:
+            srv.stop()
+        obs.set_enabled(None)
+    del prog
+    res['seconds'] = time.perf_counter() - t_phase
+    return res
+
+
+def log_telemetry(ro, card):
+    a, b = ro['a'], ro['b']
+    log('phase 3o (a) [%s]: telemetry on, 3p\'s %d requests token for token '
+        '3p\'s (telemetry off); the registry moved %s, the engine\'s '
+        'counts alike; %d compiles at warmup, none after; launches %s; '
+        'wall %.3f s' % (card, a['registry']['ttft_seconds'],
+                         json.dumps(a['registry'], sort_keys=True),
+                         a['compiles'],
+                         {k: v for k, v in ro['launches'].items() if v},
+                         a['wall_s']))
+    log('phase 3o (b) [%s]: %d turns alternating telemetry on / off over the '
+        'same %d steps, ms a decode step (the run\'s wall over its steps) %s; '
+        'mean on %.4f ms, off %.4f ms: the telemetry\'s host cost %.4f ms a '
+        'step; the engine\'s own step seconds (device call and page faults, '
+        'before the emits) on %.4f ms, off %.4f ms; the worker\'s host ms a '
+        'step (its ticks less their program calls) %s: mean on %.4f, off '
+        '%.4f, the telemetry\'s %.4f ms a step'
+        % (card, len(b['turns']), b['turns'][0]['steps'],
+           ['%s %.4f' % ('on' if r['on'] else 'off', r['ms_per_step'])
+            for r in b['turns']], b['on_ms'], b['off_ms'],
+           b['host_ms_per_step'], b['engine_on_ms'], b['engine_off_ms'],
+           ['%s %.4f' % ('on' if r['on'] else 'off', r['host_ms'])
+            for r in b['turns']], b['host_on_ms'], b['host_off_ms'],
+           b['host_on_ms'] - b['host_off_ms']))
+    log('phase 3o (c): two /metrics scrapes (%s samples), %d serve series '
+        'equal to the registry after (a), counters monotonic, histogram '
+        'buckets cumulative to their counts' % (ro['c']['samples'],
+                                                 ro['c']['serve_series']))
+    if 'd' in ro:
+        log('phase 3o (d): python -m mxnet_tpu_torch.observability in a '
+            'child (%.1f s): %s' % (ro['d']['seconds'],
+                                   json.dumps(ro['d']['checks'],
+                                              sort_keys=True)))
+    log('phase 3o wall [%s]: %.1f s' % (card, ro['seconds']))
+
+
 def teacher_forced(torch, model, params, prompts, outs, device):
     """Each served token against ``full_forward`` over the prompt and
     the served tokens before it (one forward a request; causal, so
@@ -3460,9 +3838,23 @@ def serve_degraded(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
     near ties, the CPU seconds, the breaker's states; the card-side
     launches; the CPU ms of a degraded token."""
     import tempfile
+    from mxnet_tpu_torch import observability as obs
     from mxnet_tpu_torch.resilience import (CircuitBreaker, WorkerCrashError,
                                             stall_record)
     t_phase = time.perf_counter()
+    rec = obs.get_recorder()
+    flights = {}
+
+    def flight(sub):
+        """The ring emptied and the dumps pointed at ``sub``'s file."""
+        rec.clear()
+        path = flights[sub] = flight_path('3f_' + sub.strip('()'))
+        obs.configure_flight(path=path)
+
+    def trips(events):
+        return [(e['kind'], e.get('step'), str(e.get('error')).split(':')[0])
+                for e in events
+                if e['kind'] in ('serve_fallback', 'breaker_open')]
     model, params = serving.init_transformer_lm(seed=0, **cfg)
     prog = serving.freeze_decode(model, params, slots=slots,
                                  prefill_buckets=buckets, sample_args=True,
@@ -3543,16 +3935,25 @@ def serve_degraded(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
 
     # (a) a lost step: every in-flight stream completes on the CPU
     spec = 'device_loss@serving.decode.%d:1' % TRIP_OP
+    flight('(a)')
     row, st = degraded_run('(a)', spec)
     if row['retired'].get('degraded') != DEGRADED_REQUESTS:
         raise AssertionError('phase 3f (a): retired %r, expected %d degraded'
                              % (row['retired'], DEGRADED_REQUESTS))
+    # the ring: one fallback at the lost op, the breaker never open
+    row['flight'] = trips(rec.events())
+    if row['flight'] != [('serve_fallback', TRIP_OP, 'DeviceLossError')] \
+            or os.path.exists(flights['(a)']):
+        raise AssertionError('phase 3f (a): the ring\'s trips %s, a dump %s'
+                             % (row['flight'],
+                                os.path.exists(flights['(a)'])))
     res['subchecks']['a'] = row
 
     # (b) the breaker opens: refused calls complete on the CPU; the
     # half-open probe runs on the card and closes it
     breaker = CircuitBreaker(3, BREAKER_RESET_S)
     states = [breaker.state]
+    flight('(b)')
     os.environ['MXNET_TPU_FAULT'] = 'device_unavailable@serving.decode:3'
     try:
         with session(breaker=breaker) as sess:
@@ -3590,10 +3991,24 @@ def serve_degraded(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         spec='device_unavailable@serving.decode:3', states=states,
         fallback_tokens=c['fallback_tokens'], retired=c['retired'],
         wall_s=wall, trip_to_card_token_s=first_card_s)
+    # the dump the trip wrote: two fallbacks, then the breaker open, last
+    header, events = obs.read_flight(flights['(b)'])
+    got = trips(events)
+    want = [('serve_fallback', 0, 'DeviceUnavailableError'),
+            ('serve_fallback', 1, 'DeviceUnavailableError'),
+            ('breaker_open', 2, 'DeviceUnavailableError')]
+    if header['reason'] != 'breaker' or got != want \
+            or events[-1]['kind'] != 'breaker_open':
+        raise AssertionError('phase 3f (b): the dump (reason %s) trips %s, '
+                             'last %s' % (header['reason'], got,
+                                          events[-1]['kind']))
+    res['subchecks']['b']['flight'] = dict(reason=header['reason'],
+                                           events=len(events), trips=got)
     tie_checks.append((res['subchecks']['b'], outs, '(b)'))
 
     # (c) a worker crash: the streams fail typed, their slots free
     spec = 'worker_crash@serving.decode.%d:1' % TRIP_OP
+    flight('(c)')
     os.environ['MXNET_TPU_FAULT'] = spec
     try:
         with session() as sess:
@@ -3624,12 +4039,19 @@ def serve_degraded(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
     res['subchecks']['c'] = dict(spec=spec, retired=c['retired'],
                                  errors=errors, tokens_before=[
                                      len(s.tokens) for s in streams])
+    # the ring: the crash recorded as the reference records it (a fallback
+    # event, though the streams abort)
+    got = trips(rec.events())
+    if got != [('serve_fallback', TRIP_OP, 'WorkerCrashError')]:
+        raise AssertionError('phase 3f (c): the ring\'s trips %s' % got)
+    res['subchecks']['c']['flight'] = got
 
     # (d) a stall: the watchdog's artifact, the streams degraded
     tmp = tempfile.mkdtemp(prefix='chip_smoke_stall_')
     artifact = os.path.join(tmp, 'STALL.json')
     try:
         spec = 'hang@serving.decode.%d:1' % TRIP_OP
+        flight('(d)')
         row, st = degraded_run('(d)', spec, stall_artifact=artifact)
         with open(artifact) as f:
             art = json.load(f)
@@ -3637,6 +4059,22 @@ def serve_degraded(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
         for name in os.listdir(tmp):
             os.unlink(os.path.join(tmp, name))
         os.rmdir(tmp)
+        obs.configure_flight(path=flight_path('3f'))
+    # the dump the stall wrote: the heartbeats up to the hung op, then
+    # the stall, last
+    header, events = obs.read_flight(flights['(d)'])
+    kinds = [e['kind'] for e in events]
+    beats = [e['step'] for e in events if e['kind'] == 'watchdog_heartbeat']
+    stall = events[-1]
+    if header['reason'] != 'stall' or stall['kind'] != 'stall' \
+            or stall['step'] != TRIP_OP or stall['phase'] != 'decode' \
+            or kinds.count('stall') != 1 or beats != list(range(TRIP_OP)):
+        raise AssertionError('phase 3f (d): the dump (reason %s) ends %s, '
+                             'heartbeats at %s' % (header['reason'], stall,
+                                                   beats))
+    row['flight'] = dict(reason=header['reason'], heartbeats=len(beats),
+                         stall={k: stall[k] for k in (
+                             'phase', 'step', 'waited_s', 'budget_s')})
     if row['retired'].get('degraded') != DEGRADED_REQUESTS:
         raise AssertionError('phase 3f (d): retired %r, expected %d degraded'
                              % (row['retired'], DEGRADED_REQUESTS))
@@ -3880,6 +4318,8 @@ if mode == 'main':
     finally:
         doc = snapshot()
         doc['drain'] = srv.drain_result
+        from mxnet_tpu_torch import observability
+        doc['flight'] = observability.flight_dump(reason='preempt')
         print('DRAINED ' + json.dumps(doc), flush=True)
         srv.stop()
         if osess is not None:
@@ -3946,6 +4386,9 @@ class _Child:
         self.log_path = log_path
         self._err = open(log_path, 'w')
         self.spawned = time.time()
+        # its flight dumps in a file of its own
+        self.flight_path = flight_path('%s.%d' % (mode, id(self)))
+        env = dict(env, MXNET_TPU_FLIGHT_PATH=self.flight_path)
         self.proc = subprocess.Popen(
             [sys.executable, '-c', CHILD_3H, HERE, mode, arts['lm']['path'],
              arts['ssd']['path']], stdin=subprocess.PIPE,
@@ -4280,9 +4723,19 @@ def serve_http_fault(torch, serving, arts, req, want):
     if not c['fallback_tokens'] or done_doc['status'] != 'degraded':
         raise AssertionError('phase 3h (d): %d fallback tokens, status %s'
                              % (c['fallback_tokens'], done_doc['status']))
+    # the child's dump: its one failure opened the breaker
+    from mxnet_tpu_torch.observability import read_flight
+    header, events = read_flight(child.flight_path)
+    os.unlink(child.flight_path)
+    if header['reason'] != 'breaker' or events[-1]['kind'] != 'breaker_open' \
+            or events[-1]['step'] != 9:
+        raise AssertionError('phase 3h (d): the child\'s dump (reason %s) '
+                             'ends %s' % (header['reason'], events[-1]))
     return {'wall_s': wall, 'fallback_tokens': c['fallback_tokens'],
             'ties': ties, 'launches': done_doc['launches'],
-            'retired': c['retired'], 'healthz': healthz}
+            'retired': c['retired'], 'healthz': healthz,
+            'flight': dict(reason=header['reason'], events=len(events),
+                           last=events[-1]['kind'])}
 
 
 def log_http(h, hf, arts, rp, det, card):
@@ -4325,10 +4778,12 @@ def log_http(h, hf, arts, rp, det, card):
            h['plain_steps'], {k: v for k, v in h['launches'].items() if v}))
     log('phase 3h (d) [%s]: %s in a second child: the stream done with '
         'degraded true, %d fallback tokens, %d near ties %s, in %.3f s; '
-        '/healthz %s while the breaker is open; retired %s; launches %s'
+        '/healthz %s while the breaker is open; retired %s; launches %s; '
+        'its flight dump %s'
         % (card, FAULT_SPEC, hf['fallback_tokens'], len(hf['ties']),
            hf['ties'], hf['wall_s'], hf['healthz'], hf['retired'],
-           {k: v for k, v in hf['launches'].items() if v}))
+           {k: v for k, v in hf['launches'].items() if v},
+           json.dumps(hf['flight'])))
 
 
 # -- phase 3m: live migration, prefill_only and the drain ---------------------
@@ -4786,15 +5241,43 @@ def drain_http(torch, serving, kernels, child, port, greedy, refused,
                                  '%.3f s, drain %s' % (rc, exit_s, res))
         equal, ties = teacher_forced(torch, model, prog.params,
                                      [r[0] for r in reqs], spliced, device)
+        flight = drained_flight(drained, len(reqs))
     finally:
         srv.stop()
         sess.close()
     return dict(refusals={k: v[0] for k, v in refusals.items()},
+                flight=flight,
                 drain_ms=drain_ms, import_ms=import_ms, exit_s=exit_s,
                 drained=drained, result=res, launches=launches,
                 streamed=[len(ln) for ln in lines], counts=c,
                 recheck_equal=equal, recheck_ties=ties)
 
+
+
+def drained_flight(drained, n):
+    """Phase 3m (c): the drained child's dump (reason ``preempt``, written
+    as it exits) holds ``drain_begin``, its ``n`` live exports
+    (``seq_export``) and then ``drain_complete`` with ``n`` sequences
+    handed off. The serving path's preemption hook reads the handler's
+    flag, as the reference's does, so no ``preempt`` event is expected.
+    Returns the kinds' counts."""
+    from collections import Counter
+    from mxnet_tpu_torch.observability import read_flight
+    header, events = read_flight(drained['flight'])
+    kinds = [e['kind'] for e in events]
+    if header['reason'] != 'preempt' or 'drain_begin' not in kinds \
+            or 'drain_complete' not in kinds:
+        raise AssertionError('phase 3m (c): the child\'s dump (reason %s) '
+                             'holds %s' % (header['reason'], Counter(kinds)))
+    begin, end = kinds.index('drain_begin'), kinds.index('drain_complete')
+    done = events[end]
+    exports = [e for e in events[begin:end] if e['kind'] == 'seq_export']
+    if not begin < end or len(exports) != n or done['sequences'] != n \
+            or done['handed_off'] != n or done['reason'] != 'signal SIGTERM':
+        raise AssertionError('phase 3m (c): the drain\'s events: %d exports '
+                             'between begin and %s' % (len(exports), done))
+    os.unlink(drained['flight'])
+    return dict(reason=header['reason'], kinds=dict(Counter(kinds)))
 
 
 def log_migration(rm, card):
@@ -4867,6 +5350,9 @@ def log_drain(d, card):
            d['recheck_equal'], len(d['recheck_ties']), d['recheck_ties'],
            {k: d['counts'][k] for k in ('migrated_in', 'prefills', 'steps')},
            d['result'], d['exit_s']))
+    log('phase 3m (c) flight: the drained child\'s dump, reason %s: %s'
+        % (d['flight']['reason'], json.dumps(d['flight']['kinds'],
+                                             sort_keys=True)))
 
 
 # -- phase 3g: the serving gateway over a fleet of the port's replicas -------
@@ -5089,6 +5575,11 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
         os.path.dirname(arts['lm']['path']), 'fleet.log'))
     reps, gws = [], []
     observability.set_enabled(True)
+    # the ring keeps each part's events whole (the replicas' heartbeats
+    # and page events run to thousands a part)
+    ring = observability.get_recorder()
+    capacity = ring.capacity
+    observability.configure_flight(capacity=1 << 17)
     cv = threading.Condition()
     res = {}
     try:
@@ -5161,11 +5652,13 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
         # (a) failover by a process death
         gw = gateway([child_url, first.url])
         on_child = [gw.affinity_target(p) == child_url for p in prompts]
+        ring.clear()
         recs, threads = _fleet_start(gw.port, greedy, cv)
         _fleet_wait('(a)', cv, lambda: all(
             len(r['tokens']) >= FLEET_KILL_AFTER or r['finished']
             for r, c in zip(recs, on_child) if c))
         child_doc = child.stats()   # its launches just before the kill
+        t_kill_wall = time.time()
         t_kill = time.perf_counter()
         child.proc.kill()
         child.proc.wait(CHILD_DONE_S)
@@ -5190,6 +5683,15 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
         gaps = {i: max(b - a for a, b in zip(recs[i]['times'],
                                               recs[i]['times'][1:])) * 1e3
                 for i in moved}
+        # the ring: one gateway_resume a moved stream, after the kill, off
+        # the child by a transport death
+        resumed = [e for e in ring.events() if e['kind'] == 'gateway_resume']
+        if len(resumed) != len(moved) or any(
+                e['ts'] < t_kill_wall or e['cause'] != 'transport'
+                or e['from_url'] != child_url or e['attempt'] != 1
+                for e in resumed):
+            raise AssertionError('phase 3g (a): gateway_resume events %s for '
+                                 '%d moved streams' % (resumed, len(moved)))
 
         def readmits(tokens):
             # a moved prompt and the tokens emitted before the kill
@@ -5207,12 +5709,14 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
             child_counts=child_doc['counts'],
             child_launches=child_doc['launches'], health=health[1],
             stats={k: st[k] for k in ('resumes', 'failovers',
-                                      'resume_failures')})
+                                      'resume_failures')},
+            flight=len(resumed))
         gw.stop()
 
         # (d) tenant admission
         gw = gateway([first.url], **FLEET_TENANT)
         rejected0 = _tenant_rejected(gw.port, 'burst')
+        ring.clear()
         short = [{'tokens': p, 'max_new_tokens': TENANT_TOKENS}
                  for p in prompts]
         burst, threads = _fleet_start(gw.port, short[:TENANT_BURST], cv,
@@ -5249,8 +5753,16 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
                                  % (len(shed), len(bad),
                                     [r['body'] for r in bad[:2]], rejected,
                                     st))
+        rejects = [e for e in ring.events() if e['kind'] == 'tenant_reject']
+        if len(rejects) != rejected or any(
+                e['tenant'] != 'burst' or e['reason'] != 'rate_limit'
+                for e in rejects):
+            raise AssertionError('phase 3g (d): %d tenant_reject events for '
+                                 '%d 429s on /metrics: %s'
+                                 % (len(rejects), rejected, rejects[:2]))
         res['d'] = dict(shed=len(shed), admitted=TENANT_BURST - len(shed),
                         steady=len(steady), metrics=rejected,
+                        flight=len(rejects),
                         retry_after_s=[r['body']['retry_after_s']
                                        for r in shed],
                         tenants=st['tenants'])
@@ -5275,6 +5787,7 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
                                            new_tokens}, _fleet_rec(), cv)
                 for p in solo]
         n_imp = {r.name: len(r.imports) for r in (b128, second)}
+        ring.clear()
         recs = _fleet_map(gw.port, bodies, cv)
         recs += [_fleet_stream(gw.port, {'tokens': p, 'max_new_tokens':
                                          new_tokens, 'request_id': 's%d' % i},
@@ -5298,6 +5811,11 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
             raise AssertionError('phase 3g (c): gateway %s; prefill %s; '
                                  'decode %s' % (st['handoff'], dc['pre'],
                                                 {n: dc[n] for n in landed}))
+        stages = handoff_stages(ring.events())
+        if len(stages) != len(recs) or any(
+                v != ['export', 'spliced'] for v in stages.values()):
+            raise AssertionError('phase 3g (c): seq_handoff stages %s for %d '
+                                 'streams' % (stages, len(recs)))
         imports = {imp['rid']: imp for r in (b128, second)
                    for imp in r.imports[n_imp[r.name]:]}
         rids = ['c%d' % i for i in range(len(bodies))] + [
@@ -5393,9 +5911,10 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
                                    max_new_tokens=cfg['max_len'] - 16)
         next(iter(hog))         # live: second's pool is not empty
         pre = {r.name: r.counts() for r in (small, second)}
-        rec = _fleet_stream(gw.port, greedy[longest], _fleet_rec(), cv)
+        ring.clear()
+        got = _fleet_stream(gw.port, greedy[longest], _fleet_rec(), cv)
         hog.cancel()
-        _fleet_ok('(c) refusal', longest, rec, new_tokens, want_3p[longest])
+        _fleet_ok('(c) refusal', longest, got, new_tokens, want_3p[longest])
         st = gw.stats()
         dr = {r.name: _count_delta(r.counts(), pre[r.name])
               for r in (small, second)}
@@ -5407,9 +5926,16 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
             raise AssertionError('phase 3g (c) refusal: gateway %s, small %s,'
                                  ' second %s' % (st['handoff'], dr['small'],
                                                  dr['second']))
+        stages = list(handoff_stages(ring.events()).values())
+        if stages != [['export'] + ['retry'] * st['handoff']['retries']
+                      + ['spliced']]:
+            raise AssertionError('phase 3g (c) refusal: seq_handoff stages '
+                                 '%s, %d retries' % (stages,
+                                                     st['handoff']['retries']))
         res['c']['refusal'] = dict(handoff=st['handoff'],
                                    pool=st['classes']['decode']['pool'],
-                                   prompt=len(prompts[longest]))
+                                   prompt=len(prompts[longest]),
+                                   stages=stages[0])
         gw.stop()
 
         # (b) the drain of first through the gateway into b128
@@ -5422,6 +5948,7 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
         drain_bodies = [{'tokens': p, 'max_new_tokens': DRAIN_TOKENS,
                          'request_id': 'drain-%d' % i}
                         for i, p in enumerate(prompts[:DRAIN_STREAMS])]
+        ring.clear()
         recs, threads = _fleet_start(gw.port, drain_bodies, cv)
         _fleet_wait('(b)', cv, lambda: all(
             len(r['tokens']) >= DRAIN_AFTER or r['finished'] for r in recs))
@@ -5453,6 +5980,13 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
                 or drained['handed_off'] != len(recs):
             raise AssertionError('phase 3g (b): gateway %s, b128 %s, drain %s'
                                  % (st['migrations'], db, drained))
+        migrated = sorted(e['request_id'] for e in ring.events()
+                          if e['kind'] == 'gateway_migrate'
+                          and e['to_url'] == b128.url)
+        if migrated != sorted(b['request_id'] for b in drain_bodies) or any(
+                e['kind'] == 'gateway_migrate_failed' for e in ring.events()):
+            raise AssertionError('phase 3g (b): gateway_migrate for %s'
+                                 % migrated)
         at = {imp['rid']: imp['emitted'] for imp in b128.imports[n_imp:]}
         first_token = {}
         for i, rec in enumerate(recs):
@@ -5461,6 +5995,7 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
         for imp in b128.imports[n_imp:]:
             imp.pop('payload')
         res['b'] = dict(first_token_ms=first_token, drain=drained,
+                        flight=len(migrated),
                         emitted=[at['drain-%d' % i] for i in range(len(recs))],
                         b128=db, migrations=st['migrations'],
                         spliced=[r['tokens'] for r in recs])
@@ -5504,6 +6039,7 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
             torch, model, b128.prog.params, prompts[:DRAIN_STREAMS],
             res['b']['spliced'], device)
     finally:
+        observability.configure_flight(capacity=capacity)
         observability.set_enabled(None)
         for gw in gws:
             gw.stop()
@@ -5513,9 +6049,24 @@ def serve_fleet(torch, serving, kernels, arts, want_3p, sampled, card,
     return res
 
 
+def handoff_stages(events):
+    """{request id: [the stages of its seq_handoff events, in order]}."""
+    out = {}
+    for e in events:
+        if e['kind'] == 'seq_handoff':
+            out.setdefault(e['request_id'], []).append(e['stage'])
+    return out
+
+
 def log_fleet(fl, card):
     """Phase 3g's lines, each number with the card's name and power
     limit."""
+    log('phase 3g flight: the ring held %d gateway_resume (a), %d '
+        'tenant_reject (d, as many as /metrics\' 429s), seq_handoff export '
+        '-> spliced for every (c) stream, %s for the refusal, %d '
+        'gateway_migrate (b)'
+        % (fl['a']['flight'], fl['d']['flight'],
+           ' -> '.join(fl['c']['refusal']['stages']), fl['b']['flight']))
     rel = fl['relay']
     log('phase 3g relay [%s]: 3p\'s 16 greedy requests 8 at a time to one '
         'replica: straight to it, its trie cold: TTFT p50 %.2f ms p99 %.2f '
@@ -7925,6 +8476,10 @@ def log_degraded(rf, card):
            rf['prefills'], rf['steps'],
            {k: v for k, v in rf['launches'].items() if v}, rf['programs'],
            rf['seconds']))
+    log('phase 3f flight: (a) the ring\'s trips %s; (b) the breaker\'s dump '
+        '%s; (c) the ring\'s trips %s; (d) the stall\'s dump %s'
+        % (sub['a']['flight'], json.dumps(sub['b']['flight']),
+           sub['c']['flight'], json.dumps(sub['d']['flight'])))
 
 
 def log_times(times):
@@ -8074,7 +8629,31 @@ def main():
     # scripted faults belong to phase 3f alone
     if os.environ.pop('MXNET_TPU_FAULT', None) is not None:
         log('MXNET_TPU_FAULT was set; unset: only phase 3f scripts faults')
+    # every flight dump of this process and of the children it spawns
+    # lands in a directory of its own, never in the checkout
+    flight_dir = tempfile.mkdtemp(prefix='chip_smoke_flight_')
+    os.environ['MXNET_TPU_FLIGHT_PATH'] = os.path.join(flight_dir,
+                                                       'FLIGHT.jsonl')
+    try:
+        return _main()
+    finally:
+        shutil.rmtree(flight_dir, ignore_errors=True)
+
+
+def flight_path(tag):
+    """A flight artifact's path beside this process's own
+    (``MXNET_TPU_FLIGHT_PATH``, set by :func:`main`; the temp directory
+    otherwise), tagged: ``FLIGHT.<tag>.jsonl``."""
+    base = os.environ.get('MXNET_TPU_FLIGHT_PATH') or os.path.join(
+        tempfile.gettempdir(), 'FLIGHT.jsonl')
+    root, ext = os.path.splitext(base)
+    return '%s.%s%s' % (root, tag, ext)
+
+
+def _main():
+    import torch
     from mxnet_tpu_torch import capture as capture_mod
+    from mxnet_tpu_torch import observability
     from mxnet_tpu_torch import optimizer, parallel, serving
     from mxnet_tpu_torch import loadgen
     from mxnet_tpu_torch.gluon import loss as gloss
@@ -8235,13 +8814,18 @@ def main():
     torch.cuda.empty_cache()
 
     # phase 3p: the same requests through freeze_decode's default, the
-    # paged cache at page size 16
-    rp = serve(torch, serving, kernels, cuda, paged=True, recheck=0)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    log_programs('phase 3p', card, rp, serve(
-        torch, serving, kernels, cuda, paged=True, recheck=0,
-        capture=False))
+    # paged cache at page size 16, with telemetry off (3o's reference)
+    observability.set_enabled(False)
+    try:
+        rp = serve(torch, serving, kernels, cuda, paged=True, recheck=0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rp_eager = serve(torch, serving, kernels, cuda, paged=True, recheck=0,
+                         capture=False)
+    finally:
+        observability.set_enabled(None)
+    log_programs('phase 3p', card, rp, rp_eager)
+    del rp_eager
     if rp['outs'] != res['outs']:
         raise AssertionError('phase 3p: paged tokens differ from phase 3\'s '
                              'slot-cache tokens: %s' % [
@@ -8262,6 +8846,13 @@ def main():
            rp['peak_mem_bytes'], rp['cache_bytes'], res['cache_bytes']))
     log('phase 3p cache_accounting (idle, after the run): %s; pool %s'
         % (json.dumps(rp['cache_accounting']), rp['pages']))
+    torch.cuda.empty_cache()
+
+    # phase 3o: 3p's run again with telemetry on: the registry against the
+    # engine, the telemetry's host cost a step, the exporters, the
+    # self-test
+    ro = serve_telemetry(torch, serving, kernels, cuda, rp['outs'])
+    log_telemetry(ro, card)
     torch.cuda.empty_cache()
 
     # phase 3s: prefix sharing, then speculative decoding, at full width
@@ -8729,6 +9320,7 @@ def main():
     rows = kernel_rows(errs, times, train_times,
                        {'serving': res['launches'],
                         'paged serving': rp['launches'],
+                        'serving telemetry': ro['launches'],
                         'prefix sharing': sh['prefix']['launches'],
                         'speculative decoding': sh['spec']['launches'],
                         'sampled adapter serving': ra['launches'],

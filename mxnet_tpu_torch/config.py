@@ -36,8 +36,11 @@ window, ``MXNET_TPU_PREEMPT_EXIT_CODE`` is the resumable exit code (75)
 and ``MXNET_TPU_PREEMPT_GRACE_S`` a preemption drain's budget.
 
 The observability knobs (``MXNET_TPU_TELEMETRY``, the metrics registry's
-switch, on by default; ``MXNET_TPU_TRACE`` and ``MXNET_TPU_TRACE_BUFFER``,
-request tracing and its span buffer) and the serving gateway's fifteen
+switch, on by default; ``MXNET_TPU_TELEMETRY_HTTP_PORT``, the ``/metrics``
+server's port, 0 for none; ``MXNET_TPU_FLIGHT``, ``_CAPACITY`` and
+``_PATH``, the flight recorder's switch, ring size and dump path;
+``MXNET_TPU_TRACE`` and ``MXNET_TPU_TRACE_BUFFER``, request tracing and its
+span buffer) and the serving gateway's fifteen
 ``MXNET_TPU_GATEWAY_*`` knobs carry the reference's names, types,
 defaults and help, as do the load harness's (``mxnet_tpu_torch.loadgen``):
 the thirteen ``MXNET_TPU_SLO_*`` budgets its modes judge by and the five
@@ -195,6 +198,23 @@ KNOBS = {
         'Master switch for the unified telemetry layer (metrics registry + '
         'step-phase spans + flight recorder). 0 turns every instrument into'
         ' a flag-check no-op with no per-step allocation.'),
+    'MXNET_TPU_TELEMETRY_HTTP_PORT': (
+        int, 0,
+        'Port for the stdlib Prometheus /metrics HTTP endpoint (binds '
+        '127.0.0.1). 0 (default) keeps the server off; production scrapes '
+        'tail the file exporter instead.'),
+    'MXNET_TPU_FLIGHT': (
+        bool, True,
+        'Flight recorder enable (subordinate to MXNET_TPU_TELEMETRY): keep a'
+        ' bounded ring of structured run events and dump a '
+        'mxnet_tpu.flight.v1 JSONL artifact on crash / stall / preemption.'),
+    'MXNET_TPU_FLIGHT_CAPACITY': (
+        int, 2048,
+        'Flight recorder ring size (events); the oldest events drop when '
+        'full.'),
+    'MXNET_TPU_FLIGHT_PATH': (
+        str, 'FLIGHT.jsonl',
+        'Default dump path for the flight-recorder artifact.'),
     'MXNET_TPU_TRACE': (
         bool, False,
         'Distributed request tracing enable (off by default): carry a trace'

@@ -20,9 +20,20 @@ contract:
 
 The scripted fault kind ``preempt`` fires through :meth:`check`'s site
 (``MXNET_TPU_FAULT=preempt@train.step.12:1``), so the protocol runs on the
-CPU with no real signal. The trainer's ``attach_preemption`` waits for
-ROADMAP A11; the port has no flight recorder, so nothing is recorded
-beside the handler's own fields.
+CPU with no real signal.
+
+The flight recorder gets the reference's events: ``preempt`` (step,
+reason) at the first boundary that sees the stop (recorded on the
+polling thread, never in the signal frame) and ``preempt_exit`` (step,
+checkpoint, reason, exit code) before :meth:`PreemptionHandler.exit` dumps
+the ring (reason ``preempt``) and raises. The reference's ``drain`` also
+calls ``record_event('checkpoint', kind='emergency', ...)``, which its
+recorder's own ``kind`` parameter refuses (a TypeError its ``except``
+swallows), so it records nothing there, and neither does the port. A serving endpoint drains
+through its own watcher (``ServingHTTPServer.install_preempt_hook`` reads
+``stop_requested``), as the reference's does, so it records the drain's
+events instead. The trainer's ``attach_preemption`` waits for ROADMAP
+A11.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import time
 import warnings
 
 from .. import config as _config
+from ..observability import emit as _emit
 from .policy import Deadline, PreemptionSignal, TimeoutExpired, inject
 
 __all__ = ['Preempted', 'PreemptionHandler', 'resumable_exit_code']
@@ -86,6 +98,7 @@ class PreemptionHandler:
         self._stop = False
         self.reason = None
         self.checkpoint_path = None
+        self._announced = False
         self._previous = {}
         self._installed = False
 
@@ -160,6 +173,11 @@ class PreemptionHandler:
             inject(site, ('preempt',), injector=self._injector, step=step)
         except PreemptionSignal as sig:
             self.request_stop(str(sig))
+        if self._stop and not self._announced:
+            # recorded here, on the polling thread: the signal frame
+            # never takes the recorder's lock
+            self._announced = True
+            _emit.event('preempt', step=step, reason=self.reason)
         return self._stop
 
     def drain(self, save):
@@ -181,7 +199,12 @@ class PreemptionHandler:
         return self.checkpoint_path
 
     def exit(self, step=None):
-        """Raise :class:`Preempted` with the resumable exit code."""
+        """Raise :class:`Preempted` with the resumable exit code, after
+        the flight ring is dumped (reason ``preempt``)."""
+        _emit.event('preempt_exit', step=step, checkpoint=self.checkpoint_path,
+                    reason=self.reason or 'preempted',
+                    exit_code=self.exit_code)
+        _emit.dump('preempt')
         raise Preempted(self.exit_code, step=step,
                         checkpoint=self.checkpoint_path,
                         reason=self.reason or 'preempted')

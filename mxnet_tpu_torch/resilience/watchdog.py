@@ -29,11 +29,17 @@ says (the reference defaults to ``STALL.json`` in the working directory):
 without one the record stays in ``last_record`` and the log.
 
 One lock, ``self._lock``, guards only the heartbeat, phase and step
-fields; the injector, the ``on_stall`` callback and the artifact write
-run outside it, on copies taken under it.
+fields; the injector, the ``on_stall`` callback, the artifact write and
+the telemetry run outside it, on copies taken under it.
 
-The reference's heartbeat telemetry and its flight-recorder emits at a
-stall have no counterpart until observability is ported (ROADMAP A11).
+Telemetry, the reference's (``watchdog.py:172-200, 232-247``): a beat
+records ``watchdog_heartbeat`` (step, phase) and sets
+``mxnet_tpu_watchdog_heartbeat_age_seconds`` to 0, a check sets it to the
+heartbeat's age, and a stall records ``stall`` (phase, step, waited and
+budget seconds) and dumps the flight ring (reason ``stall``), after the
+artifact is written: telemetry never hides the stall. Under the idle rule
+above, :meth:`Watchdog.idle` sets the gauge to 0 too, so an idle path
+reads 0 and only an armed heartbeat ages.
 """
 from __future__ import annotations
 
@@ -46,6 +52,9 @@ import time
 import traceback
 
 from .. import config as _config
+from ..observability import emit as _emit
+from ..observability import metrics as _metrics
+from ..observability import trainer_instruments
 from .checkpoint import atomic_write_bytes
 from .policy import HangError, TunnelStallError, inject
 
@@ -84,6 +93,17 @@ def stall_record(phase, step, waited_s, budget_s, name='train'):
         'pid': os.getpid(),
         'thread_stacks': _thread_stacks(),
     }
+
+
+def _set_age(seconds):
+    """``mxnet_tpu_watchdog_heartbeat_age_seconds`` (a telemetry emit:
+    never raises)."""
+    if not _metrics.enabled():
+        return
+    try:
+        trainer_instruments().heartbeat_age.set(seconds)
+    except Exception:
+        pass
 
 
 class Watchdog:
@@ -147,12 +167,25 @@ class Watchdog:
             self._step = step
             self._last = (now - self.budget_for(cur_phase) - 1.0) \
                 if hang else now
+        if not hang:
+            self._telemetry_beat(step, cur_phase)
 
     def idle(self):
         """Disarm the heartbeat after a call returns: nothing is in
-        flight, so nothing can stall until the next :meth:`beat`."""
+        flight, so nothing can stall until the next :meth:`beat`, and the
+        age gauge reads 0."""
         with self._lock:
             self._last = None
+        _set_age(0.0)
+
+    @staticmethod
+    def _telemetry_beat(step, phase):
+        """The age gauge back to 0 and a heartbeat event, so a dump after
+        a stall shows where the beats stopped. ``phase`` is the caller's
+        copy taken under the lock."""
+        if _metrics.enabled():
+            _set_age(0.0)
+            _emit.event('watchdog_heartbeat', step=step, phase=phase)
 
     def phase(self, phase):
         """Switch phase (``compile`` / ``step`` / ``collective``, or a
@@ -172,6 +205,7 @@ class Watchdog:
             waited = self._clock() - self._last
             budget = self.budget_for(self._phase)
             phase, step = self._phase, self._step
+        _set_age(waited)
         if waited <= budget:
             return None
         return waited, budget, phase, step
@@ -204,6 +238,13 @@ class Watchdog:
             except OSError as exc:   # diagnostics must not mask the stall
                 logging.error('watchdog: could not write stall artifact '
                               '%s: %s', self.artifact_path, exc)
+        # the stall lands in the flight ring, then the ring dumps: the
+        # last events of the run beside the stall record
+        _emit.event('stall', phase=phase,
+                    step=None if step is None else int(step),
+                    waited_s=round(float(waited), 3),
+                    budget_s=round(float(budget), 3))
+        _emit.dump('stall')
         logging.error('watchdog: %s phase stalled %.1fs (budget %.1fs) '
                       'at step %s; artifact: %s', phase, waited, budget,
                       step, self.artifact_path)

@@ -25,9 +25,12 @@ pool the programs read:
     from registered adapters or lazily from artifact directories.
 
 Loading, evicting and switching adapters never builds a program: the
-pool's shapes are fixed when the program is. The reference's telemetry
-events (``adapter_load``, ``adapter_evict``) wait for the port of
-observability (ROADMAP A11).
+pool's shapes are fixed when the program is. A cold load counts
+``mxnet_tpu_serve_adapter_loads_total``, sets
+``mxnet_tpu_serve_active_adapters`` to the resident rows and records
+``adapter_load``; a load that evicted a row first counts
+``mxnet_tpu_serve_adapter_evictions_total`` and records ``adapter_evict``
+(the reference's ``adapters/__init__.py:435-447``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import numpy as onp
 import torch
 
 from ...context import resolve_device
+from ...observability import emit as _emit
 from ..batcher import BackpressureError
 
 __all__ = ['ADAPTER_SCHEMA', 'Adapter', 'AdapterSpec', 'AdapterPool',
@@ -364,6 +368,7 @@ class AdapterPool:
                 ent.refs += 1
                 ent.last_used = self._tick
                 return idx
+            ev0 = self._evictions
             idx = self._claim_row_locked()
             dev = self._ensure_device_locked()
             with torch.no_grad():
@@ -377,6 +382,18 @@ class AdapterPool:
             self._entries[idx] = ent
             self._by_digest[adapter.digest] = idx
             self._loads += 1
+            evicted = self._evictions - ev0
+            resident = sum(1 for e in self._entries[1:] if e is not None)
+        inst = _emit.serving()
+        if evicted:
+            if inst is not None:
+                inst.adapter_evictions.inc()
+            _emit.event('adapter_evict', index=idx)
+        if inst is not None:
+            inst.adapter_loads.inc()
+            inst.active_adapters.set(float(resident))
+        _emit.event('adapter_load', adapter=adapter.name, index=idx,
+                    resident=resident)
         return idx
 
     def _claim_row_locked(self):

@@ -24,8 +24,15 @@ The runner runs on the single worker thread. One lock (``self._lock``,
 with ``self._wake`` a Condition over it) guards the queue, the in-flight
 list and the counters; nothing that can run user code (the runner,
 ``Future.set_result`` / ``set_exception``, whose done-callbacks fire
-inline) runs under it. The JAX batcher's metrics and flight-recorder
-hooks are not ported (the port has no observability layer yet).
+inline) runs under it, and neither does a telemetry emit.
+
+Telemetry (the reference's, ``batcher.py:228-236, 383-387, 444-451``):
+``mxnet_tpu_serve_requests_total`` and ``_queue_depth`` at admission; a
+full queue counts ``mxnet_tpu_serve_rejected_total{reason="queue_full"}``
+and records ``serve_reject``; a doomed request shed at dequeue counts
+``{reason="shed_doomed"}`` and records ``serve_shed_doomed``; each batch
+served counts ``mxnet_tpu_serve_batches_total`` and observes
+``_batch_size`` and each request's ``_request_seconds``.
 
 numpy + stdlib only: the queue math is testable with a fake runner and
 a fake clock.
@@ -38,6 +45,8 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FutTimeout
 
 import numpy as onp
+
+from ..observability import emit as _emit
 
 __all__ = ['BackpressureError', 'RequestTimeout', 'BatcherClosed',
            'MicroBatcher']
@@ -166,17 +175,33 @@ class MicroBatcher:
         arrays = self._normalize([onp.asarray(a) for a in arrays])
         now = self._clock()
         fut = Future()
+        rejected_depth = None
         with self._lock:
             if self._closed:
                 raise BatcherClosed('batcher %r is closed' % self.name)
             depth = len(self._queue)
             if depth >= self.max_queue:
                 self._rejected += 1
-                raise BackpressureError(depth, self.max_queue)
-            deadline_at = now + self.timeout_s if self.timeout_s else None
-            self._queue.append(_Request(arrays, fut, now, deadline_at))
-            self._submitted += 1
-            self._wake.notify()
+                rejected_depth = depth
+            else:
+                deadline_at = now + self.timeout_s if self.timeout_s \
+                    else None
+                self._queue.append(_Request(arrays, fut, now, deadline_at))
+                self._submitted += 1
+                depth = len(self._queue)
+                self._wake.notify()
+        # admission telemetry outside the lock
+        inst = _emit.serving()
+        if rejected_depth is not None:
+            if inst is not None:
+                inst.rejected.labels(reason='queue_full').inc()
+                inst.queue_depth.set(rejected_depth)
+            _emit.event('serve_reject', reason='queue_full',
+                        depth=rejected_depth, limit=self.max_queue)
+            raise BackpressureError(rejected_depth, self.max_queue)
+        if inst is not None:
+            inst.requests.inc()
+            inst.queue_depth.set(depth)
         return fut
 
     def infer(self, *arrays, timeout=None):
@@ -273,6 +298,7 @@ class MicroBatcher:
         while True:
             fails = []
             result = None
+            shed = 0
             with self._lock:
                 if self._queue:
                     self._collect_expired_locked(self._clock(), fails)
@@ -297,11 +323,20 @@ class MicroBatcher:
                     else:
                         batch = self._queue[:self.max_batch]
                         del self._queue[:len(batch)]
+                        taken = len(batch)
                         batch = self._shed_doomed_locked(batch, now, fails)
+                        shed = taken - len(batch)
+                        est_ms = (self._ema_batch_s or 0.0) * 1e3
                         self._inflight = batch
                         self._flushes[cause] += 1
                         result = (batch, cause)
             self._fail_expired(fails)
+            if shed:
+                inst = _emit.serving()
+                if inst is not None:
+                    inst.rejected.labels(reason='shed_doomed').inc(shed)
+                _emit.event('serve_shed_doomed', count=shed,
+                            est_batch_ms=est_ms)
             if result is not None:
                 return result
 
@@ -346,10 +381,18 @@ class MicroBatcher:
             self._completed += n
             self._ema_batch_s = dt if self._ema_batch_s is None \
                 else 0.7 * self._ema_batch_s + 0.3 * dt
+            depth = len(self._queue)
         for i, req in enumerate(batch):
             if not req.future.done():
                 req.future.set_result([onp.asarray(out)[i]
                                        for out in outputs])
+        inst = _emit.serving()
+        if inst is not None:
+            inst.batches.inc()
+            inst.batch_size.observe(n)
+            inst.queue_depth.set(depth)
+            for req in batch:
+                inst.latency.observe(max(0.0, (t0 + dt) - req.enqueued_at))
 
     # -- lifecycle / introspection ----------------------------------------
 

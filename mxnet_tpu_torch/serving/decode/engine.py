@@ -106,6 +106,21 @@ after a prefill (a prefix hit's first token from a step), ``eng.steps``
 when the sequence retires, ``eng.export`` (``kind='cold'`` for a queued
 one) and ``eng.import``. An untraced sequence pays one None check a site;
 an emit never raises into the scheduler.
+
+**Telemetry** (``MXNET_TPU_TELEMETRY``, the reference's ``engine.py:84-108``
+and its callers): the ``mxnet_tpu_serve_*`` series and the flight events
+of the reference, at its sites and with its fields: ``serve_reject``
+(``queue_full`` at admission, ``pool_exhausted`` at admission or a step),
+``adapter_reject``, ``decode_admit``, ``prefix_hit``, ``page_alloc``,
+``page_evict``, ``decode_retire``, ``seq_export``, ``seq_import`` and
+``drain_timeout``; a trip's ``breaker_open`` / ``serve_fallback`` come
+from the :class:`~..health.Health`. Every value is a host value the
+scheduler already holds (the tokens its pinned copies brought back, its
+clocks, its counts): no emit runs inside a captured program or reads a
+device tensor, and each costs one flag read while telemetry is off. The
+counters move with ``stats()['counts']``: ``tokens_total`` with
+``tokens``, ``prefills_total`` with ``prefills``, ``decode_steps_total``
+with ``steps``, ``prefix_hits_total`` with ``prefix_hits``.
 """
 from __future__ import annotations
 
@@ -118,6 +133,7 @@ import time
 import numpy as onp
 
 from ... import config as _config
+from ...observability import emit as _emit
 from ...resilience.policy import (CircuitBreaker, CircuitOpenError,
                                   PreemptionSignal, WorkerCrashError, inject,
                                   is_transient)
@@ -536,6 +552,7 @@ class DecodeEngine:
             w = time.time()
             seq.trace = {'ctx': trace, 'enq': w, 'last': w, 'first_w': None,
                          'tok0': 0}
+        rejected = superseded = None
         with self._lock:
             if self._closed:
                 raise BatcherClosed('decode engine %r is closed'
@@ -543,13 +560,25 @@ class DecodeEngine:
             depth = len(self._pending)
             if depth >= self.max_queue:
                 self._counts['rejected'] += 1
-                raise BackpressureError(depth, self.max_queue)
-            self._pending.append(seq)
-            self._counts['requests'] += 1
-            superseded = self._note_request_locked(request_id, stream)
-            self._wake.notify()
+                rejected = depth
+            else:
+                self._pending.append(seq)
+                self._counts['requests'] += 1
+                superseded = self._note_request_locked(request_id, stream)
+                self._wake.notify()
+        # admission telemetry outside the lock
+        inst = _emit.serving()
+        if rejected is not None:
+            if inst is not None:
+                inst.rejected.labels(reason='queue_full').inc()
+            _emit.event('serve_reject', reason='queue_full', depth=rejected,
+                        limit=self.max_queue)
+            raise BackpressureError(rejected, self.max_queue)
         if superseded is not None and not superseded.done():
             superseded.cancel()
+        if inst is not None:
+            inst.requests.inc()
+            inst.queue_depth.set(depth + 1)
         return stream
 
     def _note_request_locked(self, request_id, stream):
@@ -656,6 +685,16 @@ class DecodeEngine:
             budget -= 1
         if self._active:
             self._step()
+        inst = _emit.serving()
+        if inst is not None:
+            with self._lock:
+                inst.active_slots.set(len(self._active))
+                inst.queue_depth.set(len(self._pending))
+                if self._allocator is not None:
+                    pool = self._allocator.stats()
+                    inst.pages_total.set(pool['pages_total'])
+                    inst.pages_free.set(pool['pages_free'])
+                    inst.page_occupancy.set(pool['occupancy_pct'])
 
     def _retire_abandoned(self):
         """Free slots whose stream is already done (reaper timeout or
@@ -681,6 +720,8 @@ class DecodeEngine:
                 self._release_pages_locked(seq)
         # the adapter row's pin goes outside the lock (the pool has its own)
         self._release_adapter(seq)
+        _emit.event('decode_retire', slot=slot, reason=reason,
+                    tokens=len(seq.stream.tokens))
         tr = seq.trace
         if tr is not None and tr['first_w'] is not None:
             # this engine's segment of the request's step loop (a migrated
@@ -757,23 +798,35 @@ class DecodeEngine:
             self._free.append(slot)
         self._release_adapter(seq)
 
-    def _alloc_pages(self, n):
-        """``n`` fresh pages, evicting LRU cached prefixes under pool
-        pressure; None when the pool is exhausted."""
+    def _alloc_pages(self, n, slot):
+        """``n`` fresh pages for ``slot``, evicting LRU cached prefixes
+        under pool pressure; None when the pool is exhausted."""
+        evicted = ()
         with self._lock:
             ids = self._allocator.alloc(n)
             if ids is None and self._prefix is not None:
                 evicted = self._prefix.evict_lru(n)
                 self._counts['page_evictions'] += len(evicted)
                 ids = self._allocator.alloc(n)
+        for p in evicted:
+            _emit.event('page_evict', page=p, slot=slot)
+        if ids is not None and slot is not None:
+            _emit.event('page_alloc', pages=len(ids), slot=slot)
         return ids
 
-    def _fail_pool_exhausted(self, seq):
+    def _fail_pool_exhausted(self, seq, slot, where):
         """An exhausted pool is typed backpressure, never a stall: the
-        stream fails with BackpressureError and the client backs off."""
+        stream fails with BackpressureError and the client backs off (the
+        flight event explains the rejection)."""
         with self._lock:
             self._counts['pool_exhausted'] += 1
             depth = len(self._pending)
+            free = self._allocator.free_pages
+        inst = _emit.serving()
+        if inst is not None:
+            inst.rejected.labels(reason='pool_exhausted').inc()
+        _emit.event('serve_reject', reason='pool_exhausted', slot=slot,
+                    where=where, pages_free=free, depth=depth)
         seq.stream._finish('error', BackpressureError(depth, self.max_queue))
 
     def _ensure_writable(self, seq, first_pos, last_pos):
@@ -786,7 +839,7 @@ class DecodeEngine:
         for pi in range(int(first_pos) // ps, int(last_pos) // ps + 1):
             page = int(seq.table[pi])
             if page == TRASH_PAGE:
-                ids = self._alloc_pages(1)
+                ids = self._alloc_pages(1, seq.slot)
                 if ids is None:
                     return False
                 seq.table[pi] = ids[0]
@@ -805,7 +858,7 @@ class DecodeEngine:
                 continue
             # copy-on-write: the first divergent write into a shared
             # page lands in this sequence's own copy
-            ids = self._alloc_pages(1)
+            ids = self._alloc_pages(1, seq.slot)
             if ids is None:
                 return False
             self._cache = self._device(self.program.run_copy_page,
@@ -854,13 +907,15 @@ class DecodeEngine:
                                      **kwargs)
         except (WorkerCrashError, PreemptionSignal) as exc:
             # the breaker counted the failure (breaker.call)
-            self._health.failed(exc, 'device call %s' % step, was_open)
+            self._health.failed(exc, 'device call %s' % step, was_open,
+                                step=step)
             raise _AbortPath(exc) from exc
         except Exception as exc:
             if not (is_transient(exc)
                     or isinstance(exc, CircuitOpenError)):
                 raise               # bug-shaped: surface loudly
-            self._health.failed(exc, 'device call %s' % step, was_open)
+            self._health.failed(exc, 'device call %s' % step, was_open,
+                                step=step)
             raise _DegradedPath() from exc
         finally:
             if self._watchdog is not None:
@@ -898,6 +953,11 @@ class DecodeEngine:
                 self._free.append(slot)
                 self._counts['adapter_rejects'] += 1
             seq.stream._finish('error', exc)
+            inst = _emit.serving()
+            if inst is not None:
+                inst.rejected.labels(reason='adapter_pool').inc()
+            _emit.event('adapter_reject', adapter=seq.adapter_id,
+                        error=str(exc))
             return False
 
     def _prefill_extras(self, seq):
@@ -1023,7 +1083,18 @@ class DecodeEngine:
         seq.slot = slot
         seq.pos = len(seq.prompt)
         seq.last_token = int(tok)
-        self._emit_token(seq, tok)
+        inst = _emit.serving()
+        if inst is not None:
+            inst.prefills.inc()
+            inst.tokens.inc()
+            if seq.temperature > 0:
+                inst.sampled_tokens.inc()
+        if self.paged:
+            _emit.event('decode_admit', slot=slot, prompt_len=len(seq.prompt),
+                        prefix_tokens=0)
+        else:
+            _emit.event('decode_admit', slot=slot, prompt_len=len(seq.prompt))
+        self._emit_token(seq, tok, inst)
         reason = self._finished_reason(seq, int(tok))
         if reason is not None:
             seq.stream._finish(reason)
@@ -1090,6 +1161,14 @@ class DecodeEngine:
                     self._draft_cache, _t, _l = self._device(
                         self._draft.run_prefill, self._draft_cache,
                         onp.asarray(prompt, 'int32'), slot)
+                inst = _emit.serving()
+                if inst is not None:
+                    inst.prefix_hits.inc()
+                    inst.prefix_tokens_saved.inc(covered)
+                _emit.event('prefix_hit', slot=slot, prompt_len=n,
+                            tokens_shared=covered, pages_shared=len(shared))
+                _emit.event('decode_admit', slot=slot, prompt_len=n,
+                            prefix_tokens=covered)
                 seq.slot = slot
                 seq.pos = covered
                 seq.last_token = int(prompt[covered])
@@ -1100,10 +1179,11 @@ class DecodeEngine:
                     # streams the unshared suffix through its own steps
                     self._export_at_boundary(seq, slot)
                 return
-            ids = self._alloc_pages(pages_for(n, self.program.page_size))
+            ids = self._alloc_pages(pages_for(n, self.program.page_size),
+                                    slot)
             if ids is None:
+                self._fail_pool_exhausted(seq, slot, where='admit')
                 self._free_slot(seq, slot)
-                self._fail_pool_exhausted(seq)
                 return
             with self._lock:
                 seq.pages = list(ids)
@@ -1136,12 +1216,18 @@ class DecodeEngine:
         self._join(seq, slot, tok)
 
     @staticmethod
-    def _emit_token(seq, tok):
+    def _emit_token(seq, tok, inst):
         """Stream one generated token; the first sets the TTFT (a
-        prefix-hit sequence earns its first token from a decode step)."""
-        if seq.stream.ttft_s is None:
-            seq.stream.ttft_s = max(0.0, time.monotonic() - seq.enqueued_at)
-        seq.stream._emit(tok)
+        prefix-hit sequence earns its first token from a decode step) and,
+        when it is the sequence's first token at all (not an imported
+        stream's continuation), observes it on ``inst`` (the serving
+        instruments, or None)."""
+        stream = seq.stream
+        if stream.ttft_s is None:
+            stream.ttft_s = max(0.0, time.monotonic() - seq.enqueued_at)
+            if inst is not None and not stream.tokens:
+                inst.ttft.observe(stream.ttft_s)
+        stream._emit(tok)
 
     def _finished_reason(self, seq, tok):
         if seq.eos_id is not None and tok == seq.eos_id:
@@ -1194,6 +1280,11 @@ class DecodeEngine:
             self._counts['steps'] += 1
             self._counts['tokens'] += len(active)
             self._note_step_locked(dt)
+        inst = _emit.serving()
+        if inst is not None:
+            inst.decode_steps.inc()
+            inst.tokens.inc(len(active))
+            inst.tpot.observe(dt)
         sampled = 0
         for slot, seq in active.items():
             if seq.stream.done() or seq.stream._cancelled:
@@ -1201,7 +1292,7 @@ class DecodeEngine:
             tok = int(toks[slot])
             seq.pos += 1
             seq.last_token = tok
-            self._emit_token(seq, tok)
+            self._emit_token(seq, tok, inst)
             sampled += seq.temperature > 0
             reason = self._finished_reason(seq, tok)
             if reason is not None:
@@ -1209,6 +1300,8 @@ class DecodeEngine:
                 self._retire(slot, seq, reason)
         with self._lock:
             self._counts['sampled_tokens'] += sampled
+        if sampled and inst is not None:
+            inst.sampled_tokens.inc(sampled)
 
     def _fail_inflight(self, active, exc, reason):
         """A device call aborted (``reason`` 'aborted': a worker crash, a
@@ -1233,7 +1326,7 @@ class DecodeEngine:
             if seq.stream.done() or seq.stream._cancelled:
                 continue
             if not self._ensure_writable(seq, seq.pos, seq.pos + lookahead):
-                self._fail_pool_exhausted(seq)
+                self._fail_pool_exhausted(seq, slot, where='step')
                 self._retire(slot, seq, 'error')
                 del active[slot]
         return active
@@ -1274,6 +1367,7 @@ class DecodeEngine:
             self._fail_inflight(active, exc, 'error')
             return
         dt = time.monotonic() - t0
+        inst = _emit.serving()
         emitted = sampled = 0
         for slot, seq in active.items():
             if seq.stream.done() or seq.stream._cancelled:
@@ -1287,7 +1381,7 @@ class DecodeEngine:
             tok = int(toks[slot])
             seq.last_token = tok
             self._trace_first_token(seq)
-            self._emit_token(seq, tok)
+            self._emit_token(seq, tok, inst)
             emitted += 1
             sampled += seq.temperature > 0
             reason = self._finished_reason(seq, tok)
@@ -1299,6 +1393,12 @@ class DecodeEngine:
             self._counts['tokens'] += emitted
             self._counts['sampled_tokens'] += sampled
             self._note_step_locked(dt)
+        if inst is not None:
+            inst.decode_steps.inc()
+            inst.tokens.inc(emitted)
+            inst.tpot.observe(dt)
+            if sampled:
+                inst.sampled_tokens.inc(sampled)
 
     def _spec_step(self, active):
         """Speculative tick: the draft proposes ``spec_k`` tokens (that
@@ -1355,6 +1455,7 @@ class DecodeEngine:
             self._fail_inflight(active, exc, 'error')
             return
         dt = time.monotonic() - t0
+        inst = _emit.serving()
         emitted_total = accepted_total = proposed_total = sampled_total = 0
         for slot, seq in active.items():
             if seq.stream.done() or seq.stream._cancelled:
@@ -1377,7 +1478,7 @@ class DecodeEngine:
             reason = None
             for i, tok in enumerate(emitted):
                 self._trace_first_token(seq)
-                self._emit_token(seq, tok)
+                self._emit_token(seq, tok, inst)
                 emitted_total += 1
                 sampled_total += seq.temperature > 0
                 # each token's finish check at its own position p0 + i + 1
@@ -1400,6 +1501,14 @@ class DecodeEngine:
             self._counts['tokens'] += emitted_total
             self._counts['sampled_tokens'] += sampled_total
             self._note_step_locked(dt)
+        if inst is not None:
+            inst.decode_steps.inc()
+            inst.tokens.inc(emitted_total)
+            inst.tpot.observe(dt)
+            inst.spec_proposed.inc(proposed_total)
+            inst.spec_accepted.inc(accepted_total)
+            if sampled_total:
+                inst.sampled_tokens.inc(sampled_total)
 
     # -- live migration (seqstate export / import) --------------------------
 
@@ -1467,8 +1576,13 @@ class DecodeEngine:
         seq.stream._finish('migrated')
         with self._lock:
             self._counts['migrated_out'] += 1
+        _emit.event('seq_export', seq_kind='cold', prompt_len=len(seq.prompt),
+                    request_id=rid)
         w = time.time()
         self._trace_span(seq, 'eng.export', w, w, kind='cold')
+        inst = _emit.serving()
+        if inst is not None:
+            inst.sequences_migrated.inc()
         return payload
 
     def export_sequence(self, stream, timeout=30.0):
@@ -1572,6 +1686,15 @@ class DecodeEngine:
         with self._lock:
             self._counts['migrated_out'] += 1
             self._counts['handoff_pages'] += npages
+        inst = _emit.serving()
+        if inst is not None:
+            inst.sequences_migrated.inc()
+            inst.migration_seconds.observe(time.perf_counter() - t0)
+            if npages:
+                inst.handoff_pages.inc(npages)
+        _emit.event('seq_export', seq_kind=spec['kind'], slot=slot,
+                    pos=int(seq.pos), tokens=len(stream.tokens), pages=npages,
+                    request_id=rid)
         self._trace_span(seq, 'eng.export', w0, time.time(), pages=npages,
                          kind=spec['kind'])
         return spec
@@ -1636,6 +1759,7 @@ class DecodeEngine:
     def _do_import(self, state):
         """The worker's half of an import: a slot, the adapter pinned
         again, the rows written, the sequence live."""
+        t0 = time.perf_counter()
         w0 = time.time()
         prompt, emitted, pos = state['prompt'], state['emitted'], state['pos']
         with self._lock:
@@ -1662,7 +1786,7 @@ class DecodeEngine:
                     'open: no import until a rebuild succeeds' % self.name)
             if self.paged:
                 ps = self.program.page_size
-                ids = self._alloc_pages(pages_for(pos, ps)) or []
+                ids = self._alloc_pages(pages_for(pos, ps), slot) or []
                 if not ids:
                     with self._lock:
                         self._counts['pool_exhausted'] += 1
@@ -1749,6 +1873,14 @@ class DecodeEngine:
             self._active[slot] = seq
         if superseded is not None and not superseded.done():
             superseded.cancel()
+        inst = _emit.serving()
+        if inst is not None:
+            inst.migration_seconds.observe(time.perf_counter() - t0)
+            if ids:
+                inst.handoff_pages.inc(len(ids))
+        _emit.event('seq_import', seq_kind=state['kind'], slot=slot,
+                    pos=int(pos), tokens=len(emitted), pages=len(ids),
+                    request_id=state['request_id'])
         return stream
 
     # -- degraded completion -----------------------------------------------
@@ -1789,13 +1921,17 @@ class DecodeEngine:
                                        + len(stream.tokens)) - 1
         remaining = min(remaining, max(0, room) + 1)
 
+        inst = _emit.serving()
+
         def on_token(tok):
             if self._fallback_stop(seq):
                 return False
             with self._lock:
                 self._counts['fallback_tokens'] += 1
                 self._counts['tokens'] += 1
-            self._emit_token(seq, tok)
+            if inst is not None:
+                inst.tokens.inc()
+            self._emit_token(seq, tok, inst)
             if seq.eos_id is not None and tok == seq.eos_id:
                 stream._finish('eos')
                 return False
@@ -1812,6 +1948,8 @@ class DecodeEngine:
         except Exception as exc:     # the fallback itself failed: typed
             stream._finish('error', exc)
             return
+        if inst is not None:
+            inst.fallbacks.inc()
         stream._finish('length')     # unless it ended already
 
     def _spawn_fallback(self, seqs):
@@ -2011,6 +2149,7 @@ class DecodeEngine:
             seq.stream._finish('error', DrainTimeout(
                 'stream unfinished after the %.1fs drain budget '
                 '(%d tokens emitted)' % (timeout, len(seq.stream.tokens))))
+            _emit.event('drain_timeout', tokens=len(seq.stream.tokens))
         self._worker.join(max(0.1, deadline - time.monotonic()))
         # degraded completions run on the fallback worker: a drain waits
         # for them within the same budget; what is left then ends typed
@@ -2034,6 +2173,7 @@ class DecodeEngine:
             seq.stream._finish('error', DrainTimeout(
                 'degraded stream unfinished after the %.1fs drain budget '
                 '(%d tokens emitted)' % (timeout, len(seq.stream.tokens))))
+            _emit.event('drain_timeout', tokens=len(seq.stream.tokens))
         if self._reaper is not None:
             self._reaper.join(1.0)
 

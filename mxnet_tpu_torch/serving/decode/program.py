@@ -36,7 +36,9 @@ reference's keys. :meth:`~DecodeProgram.compile_prefill`,
 ``compile_copy_page`` build one, :meth:`~DecodeProgram.warmup` the
 reference's set (the engine calls it at start), and a ``run_*`` builds its
 program on first use; ``compile_count`` and ``compile_seconds`` account
-for them as the reference does. On a card a program is a CUDA graph
+for them as the reference does, and each program built counts one
+``mxnet_tpu_serve_compiles_total`` and records ``serve_compile`` with its
+key and seconds. On a card a program is a CUDA graph
 (:class:`~mxnet_tpu_torch.capture.Program`), captured after one eager
 warm-up call whose cache writes are undone, over static buffers: its
 host ints cross in one copy, its tokens and logits come back in one copy
@@ -84,6 +86,7 @@ import torch
 from ... import config as _config
 from ...capture import Program
 from ...context import resolve_device
+from ...observability import emit as _emit
 from ...resilience.checkpoint import atomic_write_bytes
 from ..adapters import AdapterSpec
 from ..bucket import BucketPolicy, default_buckets
@@ -427,6 +430,11 @@ class DecodeProgram:
                                pool=self._pool, warm=warm)
             self.compile_seconds[key] = buf.prog.seconds
             self._compiled[key] = buf
+        inst = _emit.serving()
+        if inst is not None:
+            inst.compiles.inc()
+        _emit.event('serve_compile', bucket=key,
+                    seconds=round(self.compile_seconds[key], 4))
         return buf
 
     @torch.inference_mode()

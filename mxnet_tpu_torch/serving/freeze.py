@@ -10,7 +10,10 @@ outputs with the padding stripped, so the batch shapes the card ever sees
 are bounded by the ladder. PyTorch runs eagerly: nothing is traced or
 compiled ahead of time, and :meth:`FrozenProgram.warmup` runs each bucket
 once so that the first request finds the card's libraries loaded and
-their algorithms chosen for every bucket.
+their algorithms chosen for every bucket. A bucket's first run is its
+build: it counts one ``mxnet_tpu_serve_compiles_total`` and records
+``serve_compile`` with the bucket and the run's seconds, as the
+reference's ``compile`` does.
 
 :meth:`FrozenProgram.run_fallback` runs the same block on the CPU, from a
 host copy of its parameters taken when the program is made (after a real
@@ -48,6 +51,7 @@ import torch
 from .. import config as _config
 from ..context import resolve_device
 from ..gluon.block import Block
+from ..observability import emit as _emit
 from ..resilience.checkpoint import atomic_write_bytes
 from .bucket import BucketPolicy, unpad_axis0
 
@@ -132,6 +136,7 @@ class FrozenProgram:
             return [onp.concatenate([c[j] for c in chunks], axis=0)
                     for j in range(len(chunks[0]))]
         padded, n = self.policy.pad(arrays, n)
+        t0 = time.perf_counter()
         with torch.inference_mode():
             data = [torch.from_numpy(onp.ascontiguousarray(
                 a.astype(dt, copy=False))).to(self.device)
@@ -140,8 +145,17 @@ class FrozenProgram:
             if isinstance(outs, torch.Tensor):
                 outs = (outs,)
             host = [o.cpu().numpy() for o in outs]
-        self._ran.add(padded[0].shape[0])
+        bucket = padded[0].shape[0]
+        with self._lock:
+            first = bucket not in self._ran
+            self._ran.add(bucket)
         self._n_outputs = len(host)
+        if first:
+            inst = _emit.serving()
+            if inst is not None:
+                inst.compiles.inc()
+            _emit.event('serve_compile', bucket=bucket,
+                        seconds=round(time.perf_counter() - t0, 4))
         return [unpad_axis0(o, n) for o in host]
 
     def run_fallback(self, arrays, n=None):

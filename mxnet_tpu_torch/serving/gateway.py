@@ -52,10 +52,13 @@ gateway's span buffer (``gw.request`` / ``gw.admit`` / ``gw.route`` /
 unless ``MXNET_TPU_TRACE`` is on) and every hop carries its child context
 in ``X-Mxnet-Trace``; ``GET /metrics`` the gateway's series and, with
 ``MXNET_TPU_TELEMETRY`` on (the default), the metrics registry. The
-reference's flight-recorder events (``gateway_resume``,
-``tenant_reject``, ``seq_handoff``, ...) are not recorded until the
-recorder is ported (ROADMAP C3). Stdlib only: the gateway touches no
-tensor. Binds 127.0.0.1 by default.
+flight recorder gets the reference's events with its fields:
+``gateway_resume`` / ``gateway_resume_failed`` on a failover,
+``gateway_migrate`` / ``gateway_migrate_failed`` on a drain's handoff,
+``gateway_journal_capped``, ``seq_handoff`` (stage ``export``, ``retry``,
+``spliced`` or ``fallback``) on a prefill/decode handoff and
+``tenant_reject`` on a 429 of admission. Stdlib only: the gateway touches
+no tensor. Binds 127.0.0.1 by default.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ import urllib.parse
 import urllib.request
 
 from ..observability import trace as _trace
+from ..observability.emit import event as _record_event
 
 __all__ = ['ReplicaState', 'ServingGateway', 'TokenBucket',
            'TenantAdmission', 'prefix_fingerprint', 'rendezvous_rank',
@@ -1037,6 +1041,11 @@ class ServingGateway:
                                 inst.handoffs.labels(
                                     **{'class': 'decode',
                                        'outcome': 'fallback'}).inc()
+                            _record_event(
+                                'seq_handoff', stage='fallback',
+                                request_id=request_id,
+                                attempts=handoff_attempts,
+                                tokens=relayed)
                             if handoff_ctx is not None:
                                 gw._trace_buf.emit(
                                     'gw.handoff', handoff_ctx,
@@ -1090,6 +1099,12 @@ class ServingGateway:
                             inst = _instruments()
                             if inst is not None:
                                 inst.resume_failures.inc()
+                            _record_event(
+                                'gateway_resume_failed',
+                                request_id=request_id,
+                                attempts=attempts,
+                                reason='no_healthy_replica',
+                                tokens=relayed)
                             out = {
                                 'done': True,
                                 'error': 'no healthy serving '
@@ -1178,6 +1193,12 @@ class ServingGateway:
                                 inst = _instruments()
                                 if inst is not None:
                                     inst.handoff_retries.inc()
+                                _record_event(
+                                    'seq_handoff', stage='retry',
+                                    request_id=request_id,
+                                    to_url=rep.base_url,
+                                    reason='import %d' % exc.code,
+                                    attempt=handoff_attempts)
                                 time.sleep(gw._handoff_delay(
                                     handoff_attempts))
                                 continue
@@ -1190,6 +1211,11 @@ class ServingGateway:
                             inst = _instruments()
                             if inst is not None:
                                 inst.migration_failures.inc()
+                            _record_event('gateway_migrate_failed',
+                                          request_id=request_id,
+                                          reason='import %d'
+                                                 % exc.code,
+                                          tokens=relayed)
                             migrate = None
                             continue
                         if not started:
@@ -1287,6 +1313,13 @@ class ServingGateway:
                                     **{'class': rep.cls,
                                        'outcome': 'spliced'}).inc()
                                 inst.handoff_seconds.observe(dt)
+                            _record_event(
+                                'seq_handoff', stage='spliced',
+                                request_id=request_id,
+                                to_url=rep.base_url,
+                                attempts=handoff_attempts,
+                                seconds=round(dt, 6),
+                                tokens=relayed)
                             handoff_live = False
                         else:
                             spliced += 1
@@ -1294,6 +1327,10 @@ class ServingGateway:
                             inst = _instruments()
                             if inst is not None:
                                 inst.migrations.inc()
+                            _record_event('gateway_migrate',
+                                          request_id=request_id,
+                                          to_url=rep.base_url,
+                                          tokens=relayed)
                         migrate = None
                     segment_tokens = 0
                     abort_line = None       # typed upstream abort obj
@@ -1334,6 +1371,11 @@ class ServingGateway:
                                             if inst is not None:
                                                 inst.journal_capped \
                                                     .inc()
+                                            _record_event(
+                                                'gateway_journal'
+                                                '_capped',
+                                                request_id=request_id,
+                                                tokens=relayed)
                                     segment_tokens += 1
                                     handler._chunk_line(
                                         line.rstrip(b'\n') + b'\n')
@@ -1413,6 +1455,10 @@ class ServingGateway:
                         if tctx is not None:
                             handoff_ctx = tctx.child()
                             handoff_w0 = time.time()
+                        _record_event('seq_handoff', stage='export',
+                                      request_id=request_id,
+                                      from_url=rep.base_url,
+                                      tokens=relayed)
                         continue
                     if migrating:
                         # the replica drained under us: pull the
@@ -1468,6 +1514,10 @@ class ServingGateway:
                         inst = _instruments()
                         if inst is not None:
                             inst.migration_failures.inc()
+                        _record_event('gateway_migrate_failed',
+                                      request_id=request_id,
+                                      reason='no_payload',
+                                      tokens=relayed)
                         dead = True
                     if not dead and abort_line is None:
                         # stream ended without a done line: the
@@ -1494,12 +1544,27 @@ class ServingGateway:
                                 cause=('transport' if dead else
                                        'abort'),
                                 tokens=relayed)
+                        _record_event(
+                            'gateway_resume',
+                            request_id=request_id,
+                            attempt=attempts,
+                            from_url=rep.base_url,
+                            cause='transport' if dead else str(
+                                abort_line.get('error_class')
+                                or 'error'),
+                            tokens=relayed,
+                            journal_capped=capped)
                         tried = [rep]
                         continue
                     gw._bump('resume_failures')
                     inst = _instruments()
                     if inst is not None:
                         inst.resume_failures.inc()
+                    _record_event('gateway_resume_failed',
+                                  request_id=request_id,
+                                  attempts=attempts,
+                                  reason='budget_exhausted',
+                                  tokens=relayed)
                     out = dict(abort_line) if abort_line is not None \
                         else {'done': True,
                               'error': 'replica lost mid-stream '
@@ -1559,6 +1624,11 @@ class ServingGateway:
                                 inst.tenant_rejected.labels(
                                     tenant=tenant,
                                     reason=reason).inc()
+                            _record_event('tenant_reject',
+                                          tenant=tenant,
+                                          reason=reason,
+                                          retry_after_s=round(hint,
+                                                              3))
                             handler._json(
                                 429,
                                 {'error': 'tenant admission: %s'

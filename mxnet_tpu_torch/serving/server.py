@@ -68,6 +68,14 @@ context and activates it on the handler thread, so the engine's ``eng.*``
 spans nest under it; ``GET /drain`` opens ``srv.drain``, and ``GET
 /trace?since=N`` answers the buffer's NDJSON. With tracing off nothing is
 parsed or allocated: the shared null span.
+
+Telemetry (``MXNET_TPU_TELEMETRY``, the reference's ``server.py:304-396,
+1072-1166``): a trip sets ``mxnet_tpu_serve_degraded`` and records
+``breaker_open`` (dumping the flight ring) or ``serve_fallback``
+(:class:`~.health.Health`), a fallback batch counts
+``mxnet_tpu_serve_fallback_batches_total``, and a drain counts
+``mxnet_tpu_serve_drains_total``, records ``drain_begin`` and, when it
+completes, ``drain_complete`` and ``mxnet_tpu_serve_drain_seconds``.
 """
 from __future__ import annotations
 
@@ -82,6 +90,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as onp
 
 from .. import config as _config
+from ..observability import emit as _emit
 from ..observability import trace as _trace
 from ..resilience.policy import (CircuitBreaker, CircuitOpenError,
                                  PreemptionSignal, WorkerCrashError, inject,
@@ -268,15 +277,18 @@ class InferenceSession:
         except (WorkerCrashError, PreemptionSignal) as exc:
             # the work itself died: fail the batch typed (the breaker
             # counted the failure, so repeated crashes still open it)
-            self._health.failed(exc, 'batch %d' % seq, was_open)
+            self._health.failed(exc, 'batch %d' % seq, was_open, step=seq)
             raise
         except Exception as exc:
             if not (is_transient(exc) or isinstance(exc, CircuitOpenError)):
                 raise               # bug-shaped: fail the requests loudly
-            self._health.failed(exc, 'batch %d' % seq, was_open)
+            self._health.failed(exc, 'batch %d' % seq, was_open, step=seq)
             outs = self.frozen.run_fallback(stacked, n)
             with self._lock:
                 self._fallback_batches += 1
+            inst = _emit.serving()
+            if inst is not None:
+                inst.fallbacks.inc()
             return outs
         self._health.recovered()
         with self._lock:
@@ -868,9 +880,14 @@ class ServingHTTPServer:
             self._draining = True
         if handoff_timeout_s is None:
             handoff_timeout_s = _config.get('MXNET_TPU_SERVE_DRAIN_TIMEOUT_S')
+        t0 = time.monotonic()
+        inst = _emit.serving()
+        if inst is not None:
+            inst.drains.inc()
+        _emit.event('drain_begin', reason=reason)
         self._drain_thread = threading.Thread(
             target=self._drain_worker,
-            args=(reason, time.monotonic(), float(handoff_timeout_s)),
+            args=(reason, t0, float(handoff_timeout_s)),
             daemon=True, name='mxnet-tpu-torch-serving-drain')
         self._drain_thread.start()
         return self
@@ -930,13 +947,19 @@ class ServingHTTPServer:
             except Exception:
                 logging.exception('drain: close failed on session %r',
                                   getattr(s, 'name', s))
+        dt = time.monotonic() - t0
         with self._drain_lock:
+            handed = len(payloads) - len(self._drain_unserved)
             self._drain_result = {
                 'rc': resumable_exit_code(), 'reason': reason,
-                'sequences': len(payloads),
-                'handed_off': len(payloads) - len(self._drain_unserved),
-                'duration_s': round(time.monotonic() - t0, 3)}
+                'sequences': len(payloads), 'handed_off': handed,
+                'duration_s': round(dt, 3)}
         self._drain_done.set()
+        inst = _emit.serving()
+        if inst is not None:
+            inst.drain_seconds.observe(dt)
+        _emit.event('drain_complete', reason=reason, sequences=len(payloads),
+                    handed_off=handed, duration_s=round(dt, 3))
 
     def stop(self):
         self._preempt_stop.set()
