@@ -162,9 +162,8 @@ Phases, in order; any failure exits non-zero:
      program calls), the telemetry's host cost a step printed; (c) two scrapes of a
      ``PrometheusServer(0)``'s ``/metrics`` (after (a) and after (b)):
      the serve series of the first the registry's after (a), counters
-     never falling, histogram buckets cumulative to their counts; (d)
-     ``python -m mxnet_tpu_torch.observability`` in a child: legs 1-4
-     pass. 3s: prefix sharing (16 prompts of one
+     never falling, histogram buckets cumulative to their counts (its
+     self-test child runs in 4t (e)). 3s: prefix sharing (16 prompts of one
      192-token prefix and 8-64-token suffixes, the prefix alone twice
      amid them: one prefill, >= 15 hits, >= 1 copy on write) and then
      speculative decoding of phase 3's prompts with 3 proposals a tick
@@ -439,7 +438,30 @@ Phases, in order; any failure exits non-zero:
      float32 parameters;
      first loss within 6e-2 of 5b's, losses finite, the same metrics.
      5f: ResNet-50 at 5b's configuration, a captured trainer and its
-     eager twin under deterministic algorithms, 12 steps bit for bit;
+     eager twin under deterministic algorithms, 12 steps bit for bit.
+     4t: the trainer's telemetry and resilience at 4b's and 5b's
+     configurations, under deterministic algorithms: (a) two BERT-base
+     trainers from one seed, telemetry on and off, 8 steps each,
+     bitwise equal; the train series moved by exactly the steps,
+     examples, builds (the first, then the capture) and phases, the ring
+     holding the ``compile`` and ``step`` events; 6 turns alternating
+     the twins for the telemetry's host ms a step; (b) the profiler over
+     3 replayed steps: a chrome trace with 3 ``fused_train_step`` spans,
+     each at least a step's CUDA-event time, a torch trace naming the
+     step's kernels (rows 1-3, 10, 11, 17), the twins still bitwise
+     equal; whether a capture succeeds while ``torch.profiler`` runs
+     (logged; a failure must be ``ProfilerCaptureError``); (c) for
+     BERT-base and ResNet-50: trainer A 6 steps; B, checkpointing every
+     2 and preempted by a scripted fault at step 4, raises ``Preempted``
+     with ``path_for(4)``; a fresh C builds, resumes (4, no plan) and
+     takes steps 4-5: bitwise A's parameters (and moving statistics); the
+     checkpoint's bytes and the save and load seconds logged, the files
+     removed; (d) a scripted hang at BERT's step 3 raising
+     ``TunnelStallError`` with the stall artifact and the flight dump;
+     every kernel of the path launched; (e) children on the card: ``python
+     -m mxnet_tpu_torch.observability`` (8 legs ok), ``python -m
+     mxnet_tpu_torch.resilience --train`` uninterrupted, preempted (rc 75)
+     and restarted (the same ``param_hash``), and ``--watchdog-smoke``;
   6. the SSD detection serving slice. The nms kernel against its plain
      version on the card, keep masks bitwise equal: 16 x 7378 boxes
      class-aware at topk 400, 2 x 7378 class-agnostic with every box
@@ -2999,7 +3021,7 @@ def check_scrape(types, samples, earlier=None):
 def serve_telemetry(torch, serving, kernels, device, want, cfg=SLICE,
                     slots=SLOTS, buckets=BUCKETS, requests=REQUESTS,
                     new_tokens=NEW_TOKENS, prompt_range=(8, 256), seed=0,
-                    turns=TELEMETRY_TURNS, child=True):
+                    turns=TELEMETRY_TURNS):
     """Phase 3o: phase 3p's run (:func:`serve`'s model, prompts and
     session) with telemetry on. (a) the tokens are ``want`` (3p's, run
     with telemetry off); the registry's tokens, prefills, decode steps and
@@ -3013,9 +3035,9 @@ def serve_telemetry(torch, serving, kernels, device, want, cfg=SLICE,
     (its ticks less their program calls). (c) two scrapes of a ``PrometheusServer(0)``'s
     ``/metrics``, after (a) and after (b): the serve series of the first
     are (a)'s registry, counters never fall, histogram buckets are
-    cumulative and end at the count. (d) ``python -m
-    mxnet_tpu_torch.observability`` in a child: legs 1-4 pass. Returns a
-    dict of results."""
+    cumulative and end at the count. (The self-test's child, 3o (d) until
+    the training telemetry landed, runs with its eight legs in phase 4t
+    (e).) Returns a dict of results."""
     import numpy as np
     from mxnet_tpu_torch import observability as obs
     from mxnet_tpu_torch.observability import export
@@ -3186,30 +3208,6 @@ def serve_telemetry(torch, serving, kernels, device, want, cfg=SLICE,
         check_scrape(types, second, earlier=first)
         res['c'] = dict(samples=[len(first), len(second)],
                         serve_series=len(sa))
-        # (d) the self-test's legs in a child
-        if child:
-            tmp = tempfile.mkdtemp(prefix='chip_smoke_3o_')
-            try:
-                out = os.path.join(tmp, 'OBS_SELFTEST.json')
-                t0 = time.perf_counter()
-                run = subprocess.run(
-                    [sys.executable, '-m', 'mxnet_tpu_torch.observability',
-                     '--out', out], cwd=HERE, capture_output=True, text=True,
-                    timeout=CHILD_DONE_S)
-                child_s = time.perf_counter() - t0
-                with open(out) as f:
-                    verdict = json.load(f)
-            finally:
-                shutil.rmtree(tmp, ignore_errors=True)
-            legs = verdict['checks']
-            if run.returncode != 0 or verdict['ok'] is not True or any(
-                    legs[k] != 'ok' for k in ('registry', 'disabled',
-                                              'trace', 'flight',
-                                              'exporters')):
-                raise AssertionError('phase 3o (d): rc %d, verdict %s, '
-                                     'stderr %s' % (run.returncode, verdict,
-                                                    run.stderr[-2000:]))
-            res['d'] = dict(checks=legs, seconds=child_s)
     finally:
         if srv is not None:
             srv.stop()
@@ -3247,11 +3245,6 @@ def log_telemetry(ro, card):
         'equal to the registry after (a), counters monotonic, histogram '
         'buckets cumulative to their counts' % (ro['c']['samples'],
                                                  ro['c']['serve_series']))
-    if 'd' in ro:
-        log('phase 3o (d): python -m mxnet_tpu_torch.observability in a '
-            'child (%.1f s): %s' % (ro['d']['seconds'],
-                                   json.dumps(ro['d']['checks'],
-                                              sort_keys=True)))
     log('phase 3o wall [%s]: %.1f s' % (card, ro['seconds']))
 
 
@@ -6876,46 +6869,608 @@ def twin_steps(torch, phase, build, steps=TRAIN_WARMUP + TRAIN_ITERS):
     return mc, me
 
 
+def bert_base_trainer(torch, bert, gloss, parallel, device, route=None,
+                      shape=TRAIN, seed=0):
+    """4b's configuration (``route`` 'cast': 4d's, after
+    ``cast('bfloat16')``): BERT-base with dropout 0.1, its batch, AdamW,
+    the trainer's generator seeded by ``seed``. Returns (net, trainer,
+    step args)."""
+    import warnings
+    net = bert.init_params(bert.bert_12_768_12(
+        vocab_size=shape['vocab'], max_length=512, dropout=0.1,
+        device=device), seed)
+    if route:
+        net.cast('bfloat16')
+    xs, ys = pretrain_batch(torch, device, shape['vocab'], shape['batch'],
+                            shape['seq'], shape['preds'], seed=seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')     # bf16 weights, no master
+        pt = parallel.ParallelTrainer(
+            net, pretrain_loss_fn(gloss, shape['vocab']), 'adamw',
+            dict(TRAIN_HYPER), seed=seed)
+    return net, pt, (xs, ys)
+
+
+def resnet50_trainer(torch, resnet, gloss, parallel, optimizer, device,
+                     shape=RESNET, seed=0):
+    """5b's configuration: ResNet-50 v1, its batch, SGD with momentum.
+    Returns (net, trainer, step args)."""
+    net = resnet.init_params(resnet.get_resnet(1, shape['depth'],
+                                               device=device), seed)
+    x, y = images(torch, device, (shape['batch'], 3, shape['image'],
+                                  shape['image']), shape['classes'], seed)
+    pt = parallel.ParallelTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
+                                  optimizer.create('sgd', **RESNET_HYPER))
+    return net, pt, (x, y)
+
+
 def bert_twins(torch, bert, gloss, parallel, device, route=None,
                shape=TRAIN, seed=0):
     """:func:`twin_steps` at 4b's configuration (``route`` 'cast': 4d's,
     after ``cast('bfloat16')``)."""
-    import warnings
-
-    def build():
-        net = bert.init_params(bert.bert_12_768_12(
-            vocab_size=shape['vocab'], max_length=512, dropout=0.1,
-            device=device), seed)
-        if route:
-            net.cast('bfloat16')
-        xs, ys = pretrain_batch(torch, device, shape['vocab'],
-                                shape['batch'], shape['seq'],
-                                shape['preds'], seed=seed)
-        with warnings.catch_warnings():
-            warnings.simplefilter('ignore')     # bf16 weights, no master
-            pt = parallel.ParallelTrainer(
-                net, pretrain_loss_fn(gloss, shape['vocab']), 'adamw',
-                dict(TRAIN_HYPER), seed=seed)
-        return net, pt, (xs, ys)
     return twin_steps(torch, 'phase 4 twins (%s)' % (route or 'float32'),
-                      build)
+                      lambda: bert_base_trainer(torch, bert, gloss, parallel,
+                                                device, route, shape, seed))
 
 
 def resnet_twins(torch, resnet, gloss, parallel, optimizer, device,
                  shape=RESNET, seed=0):
     """:func:`twin_steps` for ResNet-50 v1 at 5b's configuration."""
-    def build():
-        net = resnet.init_params(resnet.get_resnet(1, shape['depth'],
-                                                   device=device), seed)
-        x, y = images(torch, device, (shape['batch'], 3, shape['image'],
-                                      shape['image']), shape['classes'],
-                      seed)
-        pt = parallel.ParallelTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
-                                      optimizer.create('sgd',
-                                                       **RESNET_HYPER))
-        return net, pt, (x, y)
     return twin_steps(torch, 'phase 5 twins (resnet%d_v1)' % shape['depth'],
-                      build)
+                      lambda: resnet50_trainer(torch, resnet, gloss, parallel,
+                                               optimizer, device, shape,
+                                               seed))
+
+
+# -- phase 4t: the trainer's telemetry and resilience -------------------------
+
+TELEMETRY_STEPS = 8             # (a): each twin
+TRAIN_TURNS, TURN_STEPS = 6, 4  # (a): the telemetry's alternating turns
+PROFILED_STEPS = 3              # (b)
+CKPT_STEPS, CKPT_EVERY = 6, 2   # (c): the uninterrupted run, the cadence
+PREEMPT_AT, HANG_AT = 4, 3      # (c), (d): the scripted faults' steps
+TRAIN_SERIES = ('mxnet_tpu_steps_total', 'mxnet_tpu_examples_total',
+                'mxnet_tpu_step_seconds', 'mxnet_tpu_compile_seconds',
+                'mxnet_tpu_global_step', 'mxnet_tpu_checkpoints_total',
+                'mxnet_tpu_phase_seconds')
+# the step's kernels as the torch device trace names them (rows 1-3, 10,
+# 11, 17)
+TRACE_KERNELS = {
+    'flash_attention_fwd': 'flash_attention_fwd_kernel',
+    'flash_attention_dq': 'flash_attention_dq_kernel',
+    'flash_attention_dkv': 'flash_attention_dkv_kernel',
+    'softmax_xent_fwd': 'softmax_xent_fwd_',
+    'softmax_xent_bwd': 'softmax_xent_bwd_kernel',
+    'multi_tensor_update': 'multi_tensor_update_kernel'}
+# 4t's kernels that must launch: BERT's rows, ResNet-50's training rows
+# (the BN apply backward, row 6, runs only under frozen statistics: 5c)
+TRAIN_4T_KERNELS = tuple(TRACE_KERNELS) + ('bn_act_fwd', 'act_fwd',
+                                           'act_bwd', 'add_act_fwd')
+
+
+def train_series(obs):
+    """{(name, labels): value or (count, sum)} of the training series."""
+    out = {}
+    for name, fam in obs.snapshot().items():
+        if name in TRAIN_SERIES:
+            for s in fam['series']:
+                key = (name, tuple(sorted(s['labels'].items())))
+                out[key] = (s['count'], s['sum']) if fam['type'] == \
+                    'histogram' else s['value']
+    return out
+
+
+def series_moved(after, before):
+    """Counters and histogram counts as deltas, gauges as they end; the
+    series that moved."""
+    out = {}
+    for key, v in after.items():
+        if key[0] == 'mxnet_tpu_global_step':
+            out[key] = v
+            continue
+        was = before.get(key, (0, 0.0) if isinstance(v, tuple) else 0)
+        d = v[0] - was[0] if isinstance(v, tuple) else v - was
+        if d:
+            out[key] = d
+    return out
+
+
+def _phase_seconds(after, before, phase):
+    key = ('mxnet_tpu_phase_seconds', (('phase', phase),))
+    a, b = after.get(key, (0, 0.0)), before.get(key, (0, 0.0))
+    return a[0] - b[0], a[1] - b[1]
+
+
+def _host_overhead(pt):
+    """Wrap ``pt``'s dispatch to add its seconds into the returned box:
+    what a step call spends outside it is the host's boundary and
+    telemetry work."""
+    box = [0.0]
+    dispatch = pt._dispatch
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return dispatch(*a, **kw)
+        finally:
+            box[0] += time.perf_counter() - t0
+    pt._dispatch = timed
+    return box
+
+
+def _equal_params(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def telemetry_and_profiler(torch, bert, gloss, parallel, obs, profiler,
+                           capture, device, root):
+    """Phase 4t (a) and (b) at 4b's configuration, under
+    :class:`deterministic`. (a) two BERT-base trainers from one seed,
+    telemetry on and off, take :data:`TELEMETRY_STEPS` steps each: bitwise
+    equal parameters; the on twin moved the train series by exactly its
+    steps, examples, builds (1 + its captures) and phases, the off twin
+    moved nothing; the ring holds the ``compile`` and ``step`` events.
+    Then :data:`TRAIN_TURNS` turns of :data:`TURN_STEPS` steps alternate
+    the on and the off twin: per step the wall (ended by a sync) and the
+    host's time outside the dispatch. (b) the profiler over
+    :data:`PROFILED_STEPS` replayed steps of the on twin: the chrome trace
+    parses with one ``fused_train_step`` span a step, each at least the
+    step's device time (CUDA events around the off twin's same steps, back
+    to back), the torch trace names the step's kernels, and the twins stay
+    bitwise equal. Last, whether a capture succeeds while the profiler
+    runs (the small BERT's second step). Returns a dict of results."""
+    res = {}
+    twins = {}
+    with deterministic(torch):
+        for on in (True, False):
+            obs.set_enabled(on)
+            try:
+                net, pt, args = bert_base_trainer(torch, bert, gloss,
+                                                  parallel, device)
+                obs.get_recorder().clear()
+                before = train_series(obs)
+                for _ in range(TELEMETRY_STEPS):
+                    pt.step(*args)
+                torch.cuda.synchronize()
+                moved = series_moved(train_series(obs), before)
+                events = [e for e in obs.get_recorder().events()
+                          if e['kind'] in ('compile', 'step')]
+            finally:
+                obs.set_enabled(None)
+            twins[on] = dict(net=net, pt=pt, args=args, moved=moved,
+                             events=events)
+        on, off = twins[True], twins[False]
+        if not _equal_params(torch, list(on['net'].parameters()),
+                             list(off['net'].parameters())):
+            raise AssertionError('phase 4t (a): telemetry on and off trained '
+                                 'to different parameters')
+        captures = int(device.type == 'cuda')      # the second step's
+        builds = 1 + captures
+        n = TELEMETRY_STEPS
+        want = {('mxnet_tpu_steps_total', ()): n,
+                ('mxnet_tpu_examples_total', ()): n * TRAIN['batch'],
+                ('mxnet_tpu_compile_seconds', ()): builds,
+                ('mxnet_tpu_step_seconds', ()): n - builds,
+                ('mxnet_tpu_global_step', ()): n,
+                ('mxnet_tpu_phase_seconds', (('phase', 'compile'),)):
+                    builds}
+        if on['pt'].compile_count != captures or on['moved'] != want:
+            raise AssertionError('phase 4t (a): the series moved %r with %d '
+                                 'captures; expected %r' % (
+                                     on['moved'], on['pt'].compile_count,
+                                     want))
+        if off['moved'] not in ({}, {('mxnet_tpu_global_step', ()): n}):
+            raise AssertionError('phase 4t (a): telemetry off moved %r'
+                                 % off['moved'])
+        kinds = [e['kind'] for e in on['events']]
+        compiles = [e for e in on['events'] if e['kind'] == 'compile']
+        if kinds.count('step') != n or len(compiles) != builds or any(
+                e['program'] != 'fused_step' for e in compiles) or \
+                [e['step'] for e in compiles] != list(range(builds)):
+            raise AssertionError('phase 4t (a): flight events %r' % kinds)
+        res['a'] = dict(moved={'%s%s' % (k[0], dict(k[1]) or ''): v
+                               for k, v in on['moved'].items()},
+                        compile_events=[e['seconds'] for e in compiles],
+                        capture_seconds=dict(on['pt'].compile_seconds),
+                        events=len(on['events']))
+        # the host's telemetry cost: alternating turns of the two twins
+        turns = []
+        for turn in range(TRAIN_TURNS):
+            tw = twins[turn % 2 == 0]
+            obs.set_enabled(tw is on)
+            box = _host_overhead(tw['pt'])
+            try:
+                host = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TURN_STEPS):
+                    t1 = time.perf_counter()
+                    tw['pt'].step(*tw['args'])
+                    host += time.perf_counter() - t1
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                del tw['pt']._dispatch
+                obs.set_enabled(None)
+            turns.append(dict(on=tw is on,
+                              ms_per_step=1e3 * wall / TURN_STEPS,
+                              host_ms=1e3 * (host - box[0]) / TURN_STEPS))
+        res['turns'] = turns
+        for key, flag in (('on', True), ('off', False)):
+            sel = [t for t in turns if t['on'] is flag]
+            res['%s_ms' % key] = statistics.mean(t['ms_per_step']
+                                                 for t in sel)
+            res['host_%s_ms' % key] = statistics.mean(t['host_ms']
+                                                      for t in sel)
+        # (b) the off twin's steps by CUDA events, then the on twin's
+        # under the profiler
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(PROFILED_STEPS + 1)]
+        evs[0].record()
+        for i in range(PROFILED_STEPS):
+            off['pt'].step(*off['args'])
+            evs[i + 1].record()
+        torch.cuda.synchronize()
+        step_ms = [evs[i].elapsed_time(evs[i + 1])
+                   for i in range(PROFILED_STEPS)]
+        profiler.set_config(filename=os.path.join(root, 'PROFILE.json'))
+        profiler.set_state('run')
+        for _ in range(PROFILED_STEPS):
+            on['pt'].step(*on['args'])
+        chrome = profiler.dump()
+        with open(chrome) as f:
+            spans = [e for e in json.load(f)['traceEvents']
+                     if e['name'] == 'fused_train_step' and e['ph'] == 'X']
+        with open(profiler.torch_trace_path()) as f:
+            trace = json.load(f)['traceEvents']
+        kernels_seen = {}
+        for e in trace:
+            if e.get('cat') == 'kernel':
+                for row, key in TRACE_KERNELS.items():
+                    if key in e.get('name', ''):
+                        kernels_seen[row] = kernels_seen.get(row, 0) + 1
+        floor = statistics.median(step_ms)
+        span_ms = [e['dur'] / 1e3 for e in spans]
+        if len(spans) != PROFILED_STEPS or min(span_ms) < floor:
+            raise AssertionError('phase 4t (b): fused_train_step spans %s ms, '
+                                 'a step by CUDA events %s ms' % (span_ms,
+                                                                  step_ms))
+        if set(kernels_seen) != set(TRACE_KERNELS):
+            raise AssertionError('phase 4t (b): the torch trace names %r of '
+                                 'the step\'s kernels %r' % (
+                                     kernels_seen, sorted(TRACE_KERNELS)))
+        if not _equal_params(torch, list(on['net'].parameters()),
+                             list(off['net'].parameters())):
+            raise AssertionError('phase 4t (b): the profiled twin parted '
+                                 'from the unprofiled one')
+        res['b'] = dict(span_ms=span_ms, step_ms=step_ms,
+                        kernels=kernels_seen, trace_events=len(trace),
+                        trace_bytes=os.path.getsize(
+                            profiler.torch_trace_path()))
+    del twins, on, off
+    torch.cuda.empty_cache()
+    # does a capture succeed while torch.profiler runs? (the small BERT)
+    net = bert.init_params(bert.get_bert(device=device, **SMALL_BERT), 0)
+    xs, ys = pretrain_batch(torch, device, SMALL_BERT['vocab_size'],
+                            SMALL_BATCH['batch'], SMALL_BATCH['seq'],
+                            SMALL_BATCH['preds'], SMALL_BATCH['lengths'])
+    pt = parallel.ParallelTrainer(
+        net, pretrain_loss_fn(gloss, SMALL_BERT['vocab_size']), 'adamw',
+        dict(TRAIN_HYPER))
+    pt.step(xs, ys)
+    profiler.set_config(filename=os.path.join(root, 'CAPTURE.json'))
+    profiler.set_state('run')
+    try:
+        loss = pt.step(xs, ys)              # the capture
+        pt.step(xs, ys)
+        res['capture'] = dict(ok=True, programs=pt.compile_count,
+                              loss=float(loss))
+    except capture.ProfilerCaptureError as exc:
+        res['capture'] = dict(ok=False, error=str(exc)[:300])
+    finally:
+        profiler.set_state('stop')
+    if res['capture']['ok'] and (pt.compile_count != int(
+            device.type == 'cuda') or not math.isfinite(
+            res['capture']['loss'])):
+        raise AssertionError('phase 4t (b): the capture under the profiler '
+                             '%r' % res['capture'])
+    del net, pt, xs, ys
+    torch.cuda.empty_cache()
+    return res
+
+
+def resume_bitwise(torch, make, resilience, obs, root, tag):
+    """Phase 4t (c) for one configuration (``make()`` -> (net, trainer,
+    step args)), with (d) on BERT: trainer A takes :data:`CKPT_STEPS`
+    steps (for BERT with a watchdog whose scripted hang at step
+    :data:`HANG_AT` raises ``TunnelStallError`` after that step: the stall
+    artifact and the flight dump are checked, and A goes on); trainer B,
+    checkpointing every :data:`CKPT_EVERY` and preempted by a scripted
+    fault at step :data:`PREEMPT_AT`, raises ``Preempted`` there with
+    ``path_for(PREEMPT_AT)``; a fresh trainer C builds, resumes
+    (PREEMPT_AT, plan None) and takes the steps left: bitwise A's
+    parameters (moving statistics among them). Under
+    :class:`deterministic`. Returns the checkpoint's bytes, the saves' and
+    the load's seconds."""
+    from mxnet_tpu_torch.observability import read_flight
+    res = {}
+    ckpt = os.path.join(root, tag)
+    with deterministic(torch):
+        net, pt, args = make()
+        stall = os.path.join(root, 'STALL.%s.json' % tag)
+        if tag == 'bert':
+            flight = flight_path('4t')
+            obs.configure_flight(path=flight)
+            pt.attach_watchdog(resilience.Watchdog(
+                artifact_path=stall, name='phase-4t',
+                injector=resilience.FaultInjector('hang@train.step.%d:1'
+                                                  % HANG_AT)))
+        for step in range(CKPT_STEPS):
+            try:
+                pt.step(*args)
+            except resilience.TunnelStallError as exc:
+                if tag != 'bert' or step != HANG_AT:
+                    raise
+                res['d'] = dict(step=step, error=str(exc)[:200])
+        if tag == 'bert':
+            with open(stall) as f:
+                record = json.load(f)
+            header, events = read_flight(flight)
+            if 'd' not in res or record['schema'] != 'mxnet_tpu.stall.v1' \
+                    or record['step'] != HANG_AT or header['reason'] != \
+                    'stall' or events[-1]['kind'] != 'stall':
+                raise AssertionError('phase 4t (d): the hang at step %d gave '
+                                     '%r, artifact %r, flight %r' % (
+                                         HANG_AT, res.get('d'), record,
+                                         header))
+            res['d'].update(phase=record['phase'],
+                            waited_s=record['waited_s'],
+                            flight_events=header['events'])
+        want = [p.detach().clone() for p in net.parameters()]
+        del net, pt, args
+        torch.cuda.empty_cache()
+        net, pt, args = make()
+        mgr = resilience.CheckpointManager(ckpt, prefix='pt')
+        pt.attach_preemption(resilience.PreemptionHandler(
+            injector=resilience.FaultInjector('preempt@train.step.%d:1'
+                                              % PREEMPT_AT)))
+        pt.attach_checkpointing(mgr, every_n=CKPT_EVERY)
+        before = train_series(obs)
+        try:
+            for _ in range(CKPT_STEPS):
+                pt.step(*args)
+            raise AssertionError('phase 4t (c) %s: no preemption' % tag)
+        except resilience.Preempted as exc:
+            if (exc.step, exc.checkpoint, exc.code) != (
+                    PREEMPT_AT, mgr.path_for(PREEMPT_AT), 75):
+                raise AssertionError('phase 4t (c) %s: preempted %r at %s, '
+                                     'checkpoint %s' % (tag, exc.code,
+                                                        exc.step,
+                                                        exc.checkpoint))
+        saves, save_s = _phase_seconds(train_series(obs), before,
+                                       'checkpoint')
+        res['bytes'] = os.path.getsize(mgr.path_for(PREEMPT_AT))
+        res['saves'], res['save_s'] = saves, save_s / max(saves, 1)
+        res['files'] = sorted(os.listdir(ckpt))
+        del net, pt, args
+        torch.cuda.empty_cache()
+        net, pt, args = make()
+        pt.build(*args)
+        t0 = time.perf_counter()
+        got = pt.resume(resilience.CheckpointManager(ckpt, prefix='pt'))
+        res['load_s'] = time.perf_counter() - t0
+        if got != (PREEMPT_AT, None):
+            raise AssertionError('phase 4t (c) %s: resumed %r' % (tag, got))
+        for _ in range(PREEMPT_AT, CKPT_STEPS):
+            pt.step(*args)
+        if not _equal_params(torch, list(net.parameters()), want):
+            raise AssertionError('phase 4t (c) %s: the resumed run parted '
+                                 'from the uninterrupted one' % tag)
+        res['programs'] = pt.compile_count
+        del net, pt, args, want
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def selftest_children(root, device='cuda'):
+    """Phase 4t (e): ``python -m mxnet_tpu_torch.observability`` (eight
+    legs), ``python -m mxnet_tpu_torch.resilience --train`` uninterrupted
+    and preempted at step 9 (rc 75), and ``--watchdog-smoke`` (a hang at
+    step 3), as children on the card at once; then the preempted run
+    restarted with the same command: its ``param_hash`` the uninterrupted
+    run's. Returns the verdicts and seconds."""
+    def start(args, fault=None, tag=''):
+        env = dict(os.environ)
+        env.pop('MXNET_TPU_FAULT', None)
+        if fault:
+            env['MXNET_TPU_FAULT'] = fault
+        env['MXNET_TPU_FLIGHT_PATH'] = os.path.join(root, 'F%s.jsonl' % tag)
+        return subprocess.Popen([sys.executable, '-m'] + args, cwd=HERE,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def train(ckpt, out, tag):
+        return ['mxnet_tpu_torch.resilience', '--train', '--device', device,
+                '--ckpt-dir',
+                os.path.join(root, ckpt), '--out', os.path.join(root, out),
+                '--flight-artifact', os.path.join(root, 'f%s.jsonl' % tag),
+                '--stall-artifact', os.path.join(root, 's%s.json' % tag)]
+
+    def wait(proc, what):
+        try:
+            out, err = proc.communicate(timeout=CHILD_DONE_S * 2)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError('phase 4t (e): %s did not finish' % what)
+        return proc.returncode, out, err
+
+    t0 = time.perf_counter()
+    procs = {
+        'observability': start(['mxnet_tpu_torch.observability', '--device',
+                                device, '--out',
+                                os.path.join(root, 'OBS.json')], tag='o'),
+        'uninterrupted': start(train('d0', 'ref.json', 0), tag='0'),
+        'preempted': start(train('d1', 'a.json', 1),
+                           'preempt@train.step.9:1', tag='1'),
+        'watchdog': start(['mxnet_tpu_torch.resilience', '--watchdog-smoke',
+                           '--device', device, '--stall-artifact',
+                           os.path.join(root, 'STALL.json'), '--out',
+                           os.path.join(root, 'w.json'), '--flight-artifact',
+                           os.path.join(root, 'fw.jsonl')],
+                          'hang@train.step.3:1', tag='w')}
+    done = {}
+    try:
+        for name, proc in procs.items():
+            done[name] = wait(proc, name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    first_s = time.perf_counter() - t0
+    rcs = {name: d[0] for name, d in done.items()}
+    if rcs != {'observability': 0, 'uninterrupted': 0, 'preempted': 75,
+               'watchdog': 0}:
+        raise AssertionError('phase 4t (e): exit codes %r; stderr %s' % (
+            rcs, {n: d[2][-1500:] for n, d in done.items()}))
+    t1 = time.perf_counter()
+    rc, out, err = wait(start(train('d1', 'b.json', 2), tag='2'),
+                        'the restart')
+    restart_s = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError('phase 4t (e): the restart exited %d: %s'
+                             % (rc, err[-2000:]))
+    docs = {}
+    for name in ('OBS', 'ref', 'b', 'w'):
+        with open(os.path.join(root, name + '.json')) as f:
+            docs[name] = json.load(f)
+    legs = docs['OBS']['checks']
+    if docs['OBS']['ok'] is not True or len(legs) != 8 or any(
+            v != 'ok' for v in legs.values()):
+        raise AssertionError('phase 4t (e): the observability self-test %r'
+                             % docs['OBS'])
+    if docs['b']['start_step'] != 9 or \
+            docs['b']['param_hash'] != docs['ref']['param_hash'] or \
+            not docs['b']['device'].startswith(device):
+        raise AssertionError('phase 4t (e): the restart %r against %r'
+                             % (docs['b'], docs['ref']))
+    if not docs['w']['detected'] or docs['w']['schema'] != \
+            'mxnet_tpu.stall.v1':
+        raise AssertionError('phase 4t (e): the watchdog smoke %r'
+                             % docs['w'])
+    return dict(legs=legs, param_hash=docs['b']['param_hash'][:16],
+                resumed_at=docs['b']['start_step'],
+                losses_equal=docs['b']['losses'] == docs['ref']['losses'][9:],
+                watchdog=dict(step=docs['w']['detail']['step'],
+                              phase=docs['w']['phase']),
+                first_s=first_s, restart_s=restart_s)
+
+
+def train_resilience(torch, bert, gloss, resnet, parallel, optimizer,
+                     kernels, obs, profiler, capture, resilience, device):
+    """Phase 4t: (a)-(b) :func:`telemetry_and_profiler`, (c)-(d)
+    :func:`resume_bitwise` for BERT-base and ResNet-50, the kernels'
+    launches counted over them (every one of :data:`TRAIN_4T_KERNELS`
+    launched), then (e) :func:`selftest_children`. Returns a dict of
+    results."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='chip_smoke_4t_')
+    saved_flight = obs.get_recorder().path
+    try:
+        kernels.reset_launch_counts()
+        res = telemetry_and_profiler(torch, bert, gloss, parallel, obs,
+                                     profiler, capture, device, root)
+        res['bert'] = resume_bitwise(
+            torch, lambda: bert_base_trainer(torch, bert, gloss, parallel,
+                                             device),
+            resilience, obs, root, 'bert')
+        res['resnet'] = resume_bitwise(
+            torch, lambda: resnet50_trainer(torch, resnet, gloss, parallel,
+                                            optimizer, device),
+            resilience, obs, root, 'resnet')
+        res['launches'] = kernels.launch_counts()
+        idle = [k for k in TRAIN_4T_KERNELS if not res['launches'][k]]
+        if idle:
+            raise AssertionError('phase 4t: kernels never launched: %s'
+                                 % idle)
+        res['main_s'] = time.perf_counter() - t_phase
+        res['e'] = selftest_children(root, device.type)
+    finally:
+        obs.configure_flight(path=saved_flight)
+        shutil.rmtree(root, ignore_errors=True)
+    res['seconds'] = time.perf_counter() - t_phase
+    return res
+
+
+def log_train_resilience(rt, card):
+    a, b, c = rt['a'], rt['b'], rt['capture']
+    log('phase 4t (a) [%s]: BERT-base at 4b\'s configuration, telemetry on '
+        'and off, %d steps each under deterministic algorithms: parameters '
+        'bitwise equal; the series moved %s; compile events %s s (the first '
+        'build, then the capture; capture seconds %s); %d compile + step '
+        'events in the ring' % (card, TELEMETRY_STEPS,
+                                json.dumps(a['moved'], sort_keys=True),
+                                a['compile_events'],
+                                json.dumps({k: round(v, 4) for k, v in
+                                            a['capture_seconds'].items()}),
+                                a['events']))
+    log('phase 4t (a) turns [%s]: %d turns of %d steps alternating the on '
+        'and the off twin, ms a step (wall, synced) %s, host ms a step '
+        'outside the dispatch %s; mean on %.4f / off %.4f ms a step, host '
+        'on %.4f / off %.4f: the telemetry\'s host cost %.4f ms a step'
+        % (card, TRAIN_TURNS, TURN_STEPS,
+           ['%s %.4f' % ('on' if t['on'] else 'off', t['ms_per_step'])
+            for t in rt['turns']],
+           ['%s %.4f' % ('on' if t['on'] else 'off', t['host_ms'])
+            for t in rt['turns']], rt['on_ms'], rt['off_ms'],
+           rt['host_on_ms'], rt['host_off_ms'],
+           rt['host_on_ms'] - rt['host_off_ms']))
+    log('phase 4t (b) [%s]: the profiler over %d replayed steps: '
+        'fused_train_step spans %s ms, each at least a step\'s CUDA-event '
+        'time %s ms (the unprofiled twin\'s, back to back); the torch trace '
+        '(%d events, %d B) names the step\'s kernels %s; the twins still '
+        'bitwise equal' % (card, PROFILED_STEPS,
+                           ['%.3f' % v for v in b['span_ms']],
+                           ['%.3f' % v for v in b['step_ms']],
+                           b['trace_events'], b['trace_bytes'],
+                           json.dumps(b['kernels'], sort_keys=True)))
+    log('phase 4t (b) capture under torch.profiler (the small BERT\'s second '
+        'step): %s' % ('captured, %d program, the step replays (loss %.6f)'
+                       % (c['programs'], c['loss']) if c['ok'] else
+                       'ProfilerCaptureError: %s' % c['error']))
+    for tag, name in (('bert', 'BERT-base'), ('resnet', 'ResNet-50')):
+        r = rt[tag]
+        log('phase 4t (c) %s [%s]: preempted at step %d with its checkpoint '
+            '(%d B; files %s), %d saves at %.3f s each (snapshot, pickle, '
+            'CRC, write, fsync), a fresh trainer built (%d program), resumed '
+            'in %.3f s (read, CRC, unpickle, restore) and took steps %d-%d: '
+            'bitwise the uninterrupted run\'s parameters%s'
+            % (name, card, PREEMPT_AT, r['bytes'], r['files'], r['saves'],
+               r['save_s'], r['programs'], r['load_s'], PREEMPT_AT,
+               CKPT_STEPS - 1, ' and moving statistics' if tag == 'resnet'
+               else ''))
+    d = rt['bert']['d']
+    log('phase 4t (d): hang@train.step.%d:1 on BERT-base: TunnelStallError '
+        'after step %d (phase %s, waited %.1f s of the budget), the '
+        'mxnet_tpu.stall.v1 artifact and the flight dump (%d events, reason '
+        'stall) written' % (HANG_AT, d['step'], d['phase'], d['waited_s'],
+                            d['flight_events']))
+    e = rt['e']
+    log('phase 4t (e) [%s]: children on the card, four at once in %.1f s: '
+        'python -m mxnet_tpu_torch.observability %s; python -m '
+        'mxnet_tpu_torch.resilience --train uninterrupted, preempted (rc 75) '
+        'and restarted (%.1f s): resumed at step %d, param_hash %s equal, '
+        'losses equal %s; --watchdog-smoke detected the hang at step %d '
+        '(phase %s)' % (card, e['first_s'], json.dumps(e['legs'],
+                                                       sort_keys=True),
+                        e['restart_s'], e['resumed_at'], e['param_hash'],
+                        e['losses_equal'], e['watchdog']['step'],
+                        e['watchdog']['phase']))
+    log('phase 4t launches %s; main path %.1f s, all %.1f s [%s]'
+        % ({k: v for k, v in rt['launches'].items() if v}, rt['main_s'],
+           rt['seconds'], card))
 
 
 def check_train_programs(torch, bert, gloss, parallel, capture, ops, device,
@@ -8654,7 +9209,8 @@ def _main():
     import torch
     from mxnet_tpu_torch import capture as capture_mod
     from mxnet_tpu_torch import observability
-    from mxnet_tpu_torch import optimizer, parallel, serving
+    from mxnet_tpu_torch import optimizer, parallel, profiler, resilience
+    from mxnet_tpu_torch import serving
     from mxnet_tpu_torch import loadgen
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon import nn as gnn
@@ -9180,6 +9736,14 @@ def _main():
            card))
     torch.cuda.empty_cache()
 
+    # phase 4t: the trainer's telemetry and resilience, BERT-base and
+    # ResNet-50 at 4b's and 5b's configurations
+    rt = train_resilience(torch, bert, gloss, resnet, parallel, optimizer,
+                          kernels, observability, profiler, capture_mod,
+                          resilience, cuda)
+    log_train_resilience(rt, card)
+    torch.cuda.empty_cache()
+
     # phase 6: the SSD detection serving slice
     errs.update(check_nms_kernel(torch, kernels, cuda))
     ssd_against_cpu(torch, ssd, ops, kernels, gnn, cuda)
@@ -9336,6 +9900,7 @@ def _main():
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
                         'resnet frozen-BN fine-tuning': fz['launches'],
+                        'trainer telemetry and resilience': rt['launches'],
                         'resnet amp training': bf16_runs['amp']['launches'],
                         'resnet amp inference':
                             bf16_runs['amp']['infer_launches'],

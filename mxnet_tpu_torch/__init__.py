@@ -24,7 +24,14 @@ apply kernel.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 on a host without CUDA they raise instead of falling back.
+``MXNET_PROFILER_AUTOSTART`` starts :mod:`~mxnet_tpu_torch.profiler` at
+import, as the reference's package does.
 """
+from . import config
 from .context import resolve_device
 
 __all__ = ['resolve_device']
+
+if config.get('MXNET_PROFILER_AUTOSTART'):
+    from . import profiler as _profiler
+    _profiler.set_state('run')

@@ -16,7 +16,10 @@ recorded (``ops/kernels/_launch.py`` :class:`recording`) and added once a
 replay; a warm-up whose work the caller undoes counts nothing.
 
 Nothing falls back: a capture that fails raises :class:`CaptureError`,
-and the caller never runs the body eagerly on the card in its place.
+and the caller never runs the body eagerly on the card in its place; one
+that fails while the profiler's ``torch.profiler`` session runs
+(``mxnet_tpu_torch/profiler.py``) raises :class:`ProfilerCaptureError`,
+which names it.
 """
 from __future__ import annotations
 
@@ -25,13 +28,19 @@ import time
 
 import torch
 
+from . import profiler as _profiler
 from .ops.kernels._launch import add_counts, recording
 
-__all__ = ['CaptureError', 'Program']
+__all__ = ['CaptureError', 'ProfilerCaptureError', 'Program']
 
 
 class CaptureError(RuntimeError):
     """A program could not be captured as a CUDA graph."""
+
+
+class ProfilerCaptureError(CaptureError):
+    """A program could not be captured as a CUDA graph while the
+    profiler's ``torch.profiler`` session ran."""
 
 
 class Program:
@@ -117,8 +126,14 @@ def _capture(name, body, pool, generators):
                     'training step, an autograd graph of an earlier backward '
                     'that is still alive holds the parameters\' gradient '
                     'accumulators on that stream; free it first)')
-        raise CaptureError('%s: the capture failed: %s: %s%s'
-                           % (name, type(exc).__name__, exc, hint)) from exc
+        cls = CaptureError
+        if _profiler.torch_session() is not None:
+            cls = ProfilerCaptureError
+            hint += (' (the profiler\'s torch.profiler session was running: '
+                     'capture before mxnet_tpu_torch.profiler.set_state'
+                     '(\'run\'), or stop it first)')
+        raise cls('%s: the capture failed: %s: %s%s'
+                  % (name, type(exc).__name__, exc, hint)) from exc
     finally:
         if collecting:
             gc.enable()

@@ -33,7 +33,13 @@ budgets and its monitor's poll (a serving session's watchdog holds each
 device call to ``_STEP_S``). The drain and preemption knobs are the reference's too:
 ``MXNET_TPU_SERVE_DRAIN_TIMEOUT_S`` bounds a draining endpoint's handoff
 window, ``MXNET_TPU_PREEMPT_EXIT_CODE`` is the resumable exit code (75)
-and ``MXNET_TPU_PREEMPT_GRACE_S`` a preemption drain's budget.
+and ``MXNET_TPU_PREEMPT_GRACE_S`` a preemption drain's budget. The
+trainer's: ``MXNET_TPU_CKPT_EVERY_N_STEPS`` (the checkpoint cadence of
+``attach_checkpointing``), ``MXNET_TPU_CKPT_KEEP`` (what a
+``CheckpointManager`` keeps when not told), ``MXNET_TPU_ELASTIC`` (a resume
+from a larger mesh's checkpoint by accumulation, or a refusal) and
+``MXNET_PROFILER_AUTOSTART`` (the profiler started when the package is
+imported).
 
 The observability knobs (``MXNET_TPU_TELEMETRY``, the metrics registry's
 switch, on by default; ``MXNET_TPU_TELEMETRY_HTTP_PORT``, the ``/metrics``
@@ -181,6 +187,21 @@ KNOBS = {
         float, 30.0, 'Drain budget after a SIGTERM/SIGINT: the emergency '
         'checkpoint must finish within this many seconds (the preemption '
         'notice-to-reclaim window).'),
+    'MXNET_TPU_CKPT_EVERY_N_STEPS': (
+        int, 0, 'Step-granular checkpoint cadence for ParallelTrainer when '
+        'a CheckpointManager is attached without every_n; 0 checkpoints '
+        'only when asked (and at a preemption drain).'),
+    'MXNET_TPU_CKPT_KEEP': (
+        int, 2, 'How many step-granular checkpoints CheckpointManager '
+        'retains when built without keep= (keep=N pruning; the newest that '
+        'validates wins at resume).'),
+    'MXNET_TPU_ELASTIC': (
+        bool, True, 'Allow a restart that sees fewer devices than the '
+        'checkpoint mesh to shrink the dp axis and preserve the global '
+        'batch via gradient accumulation; 0 makes a device-count mismatch '
+        'a hard error.'),
+    'MXNET_PROFILER_AUTOSTART': (
+        bool, False, 'Start the profiler at import.'),
     'MXNET_TPU_WATCHDOG_COMPILE_S': (
         float, 1800.0, 'Watchdog stall budget (seconds) for the compile '
         'phase (first-program XLA compiles legitimately take minutes).'),

@@ -13,21 +13,24 @@ serving and resilience paths:
                     ``/metrics`` server off by default) and JSONL.
   * ``trace``    -- request tracing: the ``X-Mxnet-Trace`` context, the
                     bounded span buffer and the stitcher.
+  * ``spans``    -- step-phase spans (data-wait / step / sync / checkpoint
+                    / compile) into ``mxnet_tpu_phase_seconds``, unified
+                    with the profiler's scopes and ``torch.profiler``.
 
 :func:`serving_instruments`, :func:`trainer_instruments` and
 :func:`gateway_instruments` declare the reference's series (names, help,
 labels); the decode engine, the one-shot session, the micro-batcher, the
-programs' builds, the adapter pool, the gateway and the watchdog feed
-them, from host values only. :func:`summary` folds the registry and the
-recorder's stats into one small dict. ``python -m
-mxnet_tpu_torch.observability`` runs the self-test's legs 1-4. The
-training half (step-phase spans, the profiler, the trainer's emits, the
-HLO and roofline readers, the TensorBoard export) is not ported
-(ROADMAP A11). Stdlib only.
+programs' builds, the adapter pool, the gateway, the watchdog, the
+trainer (``ParallelTrainer``'s step, compile and checkpoint emits) and
+the checkpoint manager feed them, from host values only. :func:`summary`
+folds the registry and the recorder's stats into one small dict.
+``python -m mxnet_tpu_torch.observability`` runs the self-test's eight
+legs. The HLO and roofline readers and the TensorBoard export are not
+ported (ROADMAP A11). Stdlib only at import.
 """
 from __future__ import annotations
 
-from . import export, metrics, recorder, trace
+from . import export, metrics, recorder, spans, trace
 from .export import (PrometheusServer, maybe_start_http_server,
                      parse_prometheus, prometheus_text, write_jsonl,
                      write_prometheus)
@@ -37,16 +40,17 @@ from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, counter,
 from .recorder import (FLIGHT_SCHEMA, FlightRecorder, configure_flight,
                        flight_dump, get_recorder, install_excepthook,
                        read_flight, record_event, uninstall_excepthook)
+from .spans import PHASES, span
 from .trace import TRACE_HEADER, TRACE_SCHEMA, SpanBuffer, TraceContext
 
 __all__ = [
-    'metrics', 'recorder', 'export', 'trace', 'TRACE_SCHEMA',
+    'metrics', 'recorder', 'spans', 'export', 'trace', 'TRACE_SCHEMA',
     'TRACE_HEADER', 'TraceContext', 'SpanBuffer', 'Counter', 'Gauge',
     'Histogram', 'MetricsRegistry', 'counter', 'gauge', 'histogram',
     'get_registry', 'enabled', 'set_enabled', 'snapshot', 'FLIGHT_SCHEMA',
     'FlightRecorder', 'get_recorder', 'record_event', 'flight_dump',
     'configure_flight', 'install_excepthook', 'uninstall_excepthook',
-    'read_flight', 'prometheus_text', 'write_prometheus', 'write_jsonl',
+    'read_flight', 'PHASES', 'span', 'prometheus_text', 'write_prometheus', 'write_jsonl',
     'PrometheusServer', 'maybe_start_http_server', 'parse_prometheus',
     'trainer_instruments', 'serving_instruments', 'gateway_instruments',
     'summary',
@@ -67,9 +71,11 @@ _serving_inst = None
 
 def trainer_instruments():
     """Fused-step / fit-loop instruments, declared whole as the
-    reference declares them. The port's watchdog sets
-    ``heartbeat_age``; the trainer's own emits are not ported (ROADMAP
-    A11)."""
+    reference declares them. ``ParallelTrainer`` moves the step, example,
+    step / compile seconds and global-step series, the checkpoint manager
+    ``checkpoints``, the watchdog ``heartbeat_age``; the guardrail's,
+    ``Module.fit``'s and the Speedometer's series wait for those
+    modules."""
     global _trainer_inst
     if _trainer_inst is None:
         # first instrumented training activity: honor the HTTP-export

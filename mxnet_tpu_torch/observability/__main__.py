@@ -1,14 +1,13 @@
 """Observability self-test of the port, the port of
-``mxnet_tpu/observability/__main__.py`` legs 1-4, on the CPU or the card
-alike (no leg touches a tensor):
+``mxnet_tpu/observability/__main__.py``, in eight legs:
 
   1. registry  -- counter / gauge / histogram math, label children,
                   power-of-two bucket placement, snapshot shape,
                   redeclaration-mismatch rejection.
   2. disabled  -- with telemetry off, mutators change nothing and
                   allocate nothing a call (tracemalloc), nor do the flight
-                  recorder's ``record`` and the serving paths' emit
-                  helpers.
+                  recorder's ``record``, the serving paths' emit helpers
+                  and a step-phase span with the profiler idle.
   2b. trace    -- the request-tracing header round trip, the span
                   buffer's bound and NDJSON drain, and the disabled path
                   allocating nothing a span.
@@ -20,16 +19,27 @@ alike (no leg touches a tensor):
                   ending at the count); the file and JSONL writers; the
                   HTTP server is off by default and serves when asked.
 
-Legs 5-7 of the reference (spans, a trainer run, bit identity with
-telemetry on and off) read the training half, which is not ported: they
-print ``skipped (ROADMAP A11: training telemetry)`` and are not counted
-as passed. The verdict is the reference's, ``{"ok": ..., "checks":
-{leg: "ok" | problem | "skipped (...)"}}``, written to ``--out``; the
-exit code is 0 when every leg that ran passed, else 1.
+  5. spans     -- a phase span lands in the phase histogram.
+  6. train     -- a small ``ParallelTrainer`` run (a 16-16-4 MLP, SGD,
+                  4 steps of batch 8, weights drawn with numpy) moves the
+                  step, example and compile / step seconds series and
+                  records ``step`` flight events. On a card its steps are
+                  captured programs: the ``compile`` events are 1 +
+                  ``compile_count`` (the first build, then each capture)
+                  and ``step_seconds`` counts the rest. The reference's
+                  collective-bytes check is its ``dp > 1`` branch, which
+                  the one-device port never reaches.
+  7. bit_identical -- telemetry on and off train to bit-identical
+                  parameters (the instruments live on the host).
+
+Legs 1-5 touch no tensor; legs 6-7 run on ``--device`` (``cuda``, the
+default, or ``cpu``). The verdict is the reference's, ``{"ok": ...,
+"checks": {leg: "ok" | problem}}``, written to ``--out``; the exit code
+is 0 when all eight legs passed, else 1.
 
 Usage::
 
-    python -m mxnet_tpu_torch.observability --out OBS_SELFTEST.json
+    python -m mxnet_tpu_torch.observability --device cpu --out OBS.json
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ import os
 import sys
 import tracemalloc
 
-SKIPPED = 'skipped (ROADMAP A11: training telemetry)'
+FEATURES = 16
+CLASSES = 4
 
 
 def _grew(before, after, impl_files):
@@ -98,7 +109,8 @@ def check_registry():
 
 
 def check_disabled():
-    from . import emit, metrics, recorder
+    from . import emit, metrics, recorder, spans
+    from .. import profiler
     reg = metrics.MetricsRegistry()
     c = reg.counter('d_total')
     g = reg.gauge('d_gauge')
@@ -115,6 +127,8 @@ def check_disabled():
             rec.record('step')
             emit.event('step')
             emit.serving()
+            with spans.span('step'):
+                pass
 
         for _ in range(4):          # warm any lazy state
             calls()
@@ -128,10 +142,11 @@ def check_disabled():
         # frame or two (O(1)), never O(calls)
         grew, nalloc = _grew(before, after, (metrics.__file__,
                                              recorder.__file__,
-                                             emit.__file__))
+                                             emit.__file__, spans.__file__,
+                                             profiler.__file__))
         if nalloc > 100 or grew > 4096:
             return ('disabled-path mutators allocated %d bytes / %d blocks '
-                    'over 6000 calls (per-call allocation)' % (grew, nalloc))
+                    'over 7000 calls (per-call allocation)' % (grew, nalloc))
         if c.value != prev_counter or g.value != 0.0 or h.count != 0:
             return 'disabled-path mutators changed metric state'
         if rec.events() or rec.stats()['recorded']:
@@ -263,26 +278,118 @@ def check_exporters(tmpdir):
     return None
 
 
-def run_legs(tmpdir):
-    """``{leg: 'ok' | problem | SKIPPED}``, each leg printed as it ends."""
+def check_spans():
+    from . import spans
+    child = spans.phase_histogram('sync')
+    before = child.count
+    with spans.span('sync'):
+        pass
+    assert child.count == before + 1, 'span did not record'
+    return None
+
+
+def _mlp_trainer(device, seed):
+    """A Dense(16, relu) -> Dense(4) MLP over 16 features, its weights
+    drawn with numpy from ``seed`` (Xavier's uniform range), behind a
+    one-device ``ParallelTrainer`` (softmax cross-entropy, SGD lr 0.1);
+    and a batch of 8 from the same seed."""
+    import numpy as np
+    import torch
+    from ..gluon import loss as gloss
+    from ..gluon import nn
+    from ..parallel import ParallelTrainer
+    rs = np.random.RandomState(seed)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(16, activation='relu', in_units=FEATURES,
+                     prefix='dense0_', device=device),
+            nn.Dense(CLASSES, in_units=16, prefix='dense1_', device=device))
+    with torch.no_grad():
+        for name, p in net.collect_params().items():
+            if name.endswith('weight'):
+                s = np.sqrt(6.0 / sum(p.shape))
+                p.copy_(torch.from_numpy(
+                    rs.uniform(-s, s, p.shape).astype('float32')))
+    pt = ParallelTrainer(net, gloss.SoftmaxCrossEntropyLoss(), 'sgd',
+                         {'learning_rate': 0.1}, seed=seed)
+    x = torch.tensor(rs.randn(8, FEATURES).astype('float32'), device=device)
+    y = torch.tensor(rs.randint(0, CLASSES, (8,)).astype('float32'),
+                     device=device)
+    return net, pt, x, y
+
+
+def check_train(device):
+    from . import get_recorder, trainer_instruments
+    net, pt, x, y = _mlp_trainer(device, 7)
+    inst = trainer_instruments()
+    steps0, examples0 = inst.steps.value, inst.examples.value
+    compile0, step0 = inst.compile_seconds.count, inst.step_seconds.count
+    get_recorder().clear()
+    nsteps = 4
+    for _ in range(nsteps):
+        pt.step(x, y)
+    assert inst.steps.value == steps0 + nsteps
+    assert inst.examples.value == examples0 + nsteps * 8
+    assert inst.compile_seconds.count > compile0, \
+        'first-step compile not recorded'
+    assert inst.step_seconds.count - step0 >= nsteps - 1 - pt.compile_count
+    kinds = [e['kind'] for e in get_recorder().events()]
+    assert kinds.count('step') >= nsteps, kinds[-10:]
+    # the port's own counts: the first build, then a capture a signature
+    # on a card (none on the CPU)
+    builds = 1 + pt.compile_count
+    assert kinds.count('compile') == builds, (kinds, pt.compile_count)
+    assert inst.compile_seconds.count - compile0 == builds
+    assert inst.step_seconds.count - step0 == nsteps - builds
+    return None
+
+
+def check_bit_identical(device):
+    """Telemetry on and off train to bit-identical parameters: the
+    instruments live on the host dispatch path, the step is the same."""
+    import hashlib
+    import numpy as np
+    from . import metrics as _metrics
+
+    def run(enabled):
+        _metrics.set_enabled(enabled)
+        try:
+            net, pt, x, y = _mlp_trainer(device, 5)
+            for _ in range(5):
+                pt.step(x, y)
+            h = hashlib.sha256()
+            for name, p in sorted(net.collect_params().items()):
+                h.update(np.ascontiguousarray(
+                    p.detach().cpu().numpy(), dtype='<f4').tobytes())
+            return h.hexdigest()
+        finally:
+            _metrics.set_enabled(None)
+
+    on, off = run(True), run(False)
+    if on != off:
+        return ('telemetry changed training numerics: on=%s off=%s'
+                % (on[:12], off[:12]))
+    return None
+
+
+def run_legs(tmpdir, device):
+    """``{leg: 'ok' | problem}``, each leg printed as it ends."""
     checks = {}
     legs = [('registry', check_registry),
             ('disabled', check_disabled),
             ('trace', check_trace),
             ('flight', lambda: check_flight(tmpdir)),
             ('exporters', lambda: check_exporters(tmpdir)),
-            ('spans', None), ('train', None), ('bit_identical', None)]
+            ('spans', check_spans),
+            ('train', lambda: check_train(device)),
+            ('bit_identical', lambda: check_bit_identical(device))]
     for name, fn in legs:
-        if fn is None:
-            checks[name] = SKIPPED
-        else:
-            try:
-                problem = fn()
-            except Exception as exc:
-                import traceback
-                traceback.print_exc()
-                problem = '%s: %s' % (type(exc).__name__, exc)
-            checks[name] = problem or 'ok'
+        try:
+            problem = fn()
+        except Exception as exc:
+            import traceback
+            traceback.print_exc()
+            problem = '%s: %s' % (type(exc).__name__, exc)
+        checks[name] = problem or 'ok'
         print('selftest %-13s %s' % (name, checks[name]), flush=True)
     return checks
 
@@ -293,12 +400,16 @@ def main(argv=None):
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument('--out', default='OBS_SELFTEST.json')
+    p.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
+                   help='where the train and bit_identical legs run')
     args = p.parse_args(argv)
+    from ..context import resolve_device
+    device = resolve_device(args.device)
 
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        checks = run_legs(tmp)
-    ok = all(v == 'ok' for v in checks.values() if v != SKIPPED)
+        checks = run_legs(tmp, device)
+    ok = all(v == 'ok' for v in checks.values())
     verdict = {'ok': ok, 'checks': checks}
     from ..resilience.checkpoint import atomic_write_bytes
     atomic_write_bytes(args.out, (json.dumps(

@@ -64,26 +64,79 @@ does that the port keeps:
     dtype), updates through ``update_multi_precision`` or the kernel's
     bf16 forms (with or without a float32 master).
 
-  * ``snapshot`` / ``restore`` cover the parameters, the optimizer state,
-    the update counts and ``num_update``, and the generator's state in
-    place of the reference's base key; ``restore`` copies into the
-    storage the graphs were captured against.
+  * ``snapshot`` / ``restore`` cover the parameters, the optimizer state
+    (``leaves``, in the reference's order: each parameter that takes a
+    gradient, its state's tensors depth first, as ``_flatten_state``
+    walks them; SGD's momentum, AdamW's mean then variance, a master
+    before its state), the update counts and ``num_update``, and the
+    generator's state in place of the reference's base key; ``restore``
+    copies into the storage the graphs were captured against, so a fresh
+    trainer builds (captures) first and restores after.
+
+The step-boundary protocol of the reference (train_step.py:278-436):
+``attach_preemption`` (a pending stop drains an emergency checkpoint
+through the attached manager and raises ``Preempted``),
+``attach_watchdog`` (a heartbeat before the dispatch, phase ``compile``
+on a step that builds, else ``step``; the stall check after it) and
+``attach_checkpointing(manager, every_n)`` (a checkpoint every ``every_n``
+updates, ``MXNET_TPU_CKPT_EVERY_N_STEPS``) run around every entry point;
+``step_n`` is one window, one boundary. :meth:`ParallelTrainer.
+save_checkpoint` writes the reference's keys (``params``, ``leaves``,
+``num_update``, ``update_counts``, ``opt_num_update``, ``base_key``,
+``mesh``, ``zero``, ``amp``, ``rng``, ``process_count``, ``step``) with
+numpy values, bf16 widened to float32 (exact) and narrowed back on
+restore, plus ``generator``, the trainer's generator state as uint8; the
+port has no base key and no global key chain, so ``base_key`` and ``rng``
+are None. :meth:`ParallelTrainer.resume` restores the newest valid
+checkpoint and returns ``(step, plan)``: a checkpoint of a larger mesh
+(the JAX package's ``dp=2``) resumes under ``MXNET_TPU_ELASTIC`` with
+``plan.accum_steps`` for :meth:`ParallelTrainer.step_accum`, and raises
+``MeshShrinkError`` with elasticity off. A checkpoint without
+``generator`` (the JAX package's) keeps the trainer's own stream, and
+says so in the log: dropout draws differ across the packages.
+
+Telemetry (the reference's ``_record_step_telemetry``,
+train_step.py:1238-1270): each entry point records the host wall time of
+its call, ``mxnet_tpu_compile_seconds`` and a ``compile`` flight event
+(``program='fused_step'``) on a call that builds, else
+``mxnet_tpu_step_seconds``; ``mxnet_tpu_steps_total``,
+``mxnet_tpu_examples_total``, ``mxnet_tpu_global_step`` and a ``step``
+event with ``n``. No sync is added. The first build and every capture run
+under ``span('compile')``, the checkpoint writes under
+``span('checkpoint')``, and ``step``'s dispatch under the profiler's
+``op_span('fused_train_step')``, which fences on the step's loss while
+the profiler runs. On the CPU (no capture) the series and events are the
+JAX trainer's call for call. On a card a captured signature builds twice,
+at its first call (the eager build) and at its second (the capture), so
+it records one more ``compile``; the capture's own seconds are also in
+:attr:`ParallelTrainer.compile_seconds`. A capture that fails while the
+profiler runs raises ``ProfilerCaptureError`` (``capture.py``), never an
+uncaptured step.
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh of more
 than one device, ZeRO and the numerical guardrail (ROADMAP: "multi-GPU,
 robustness layers and the tail"), and so the fp16 policy, whose dynamic
-loss scaling the reference runs through that guardrail; the reference's
-checkpoint, preemption and watchdog attachments and ``prefetch_iter``.
+loss scaling the reference runs through that guardrail;
+``prefetch_iter``, and the HLO collective accounting
+(``MXNET_TPU_TELEMETRY_HLO``: one device has no collectives).
 """
 from __future__ import annotations
 
+import logging
 import math
+import time
 
+import numpy as np
 import torch
 
 from .. import amp as _amp
+from .. import config as _config
+from .. import observability as _obs
+from .. import profiler as _profiler
 from ..capture import Program
 from ..gluon.nn import Dropout
+from ..observability import metrics as _metrics
+from ..observability.spans import span as _span
 from ..optimizer import fused as _fused
 from ..optimizer import optimizer as _optmod
 
@@ -113,6 +166,33 @@ def _state_tensors(state):
     if isinstance(state, torch.Tensor):
         return [state]
     return [t for s in state for t in _state_tensors(s)]
+
+
+def _numpy(t):
+    """A host tensor as numpy for a checkpoint: bf16 widened to float32
+    (exact; narrowed back on restore)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _fence(t):
+    """Wait for the device work that produces ``t`` (the profiler's fence
+    on a step's loss); nothing for a CPU tensor."""
+    if t is not None and t.device.type == 'cuda':
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def _copy_in(what, dst, values):
+    """Copy each of ``values`` (tensors or numpy arrays) into the tensor
+    of ``dst`` at its position, in its dtype; shapes must match."""
+    if len(values) != len(dst):
+        raise ValueError('restore: the state holds %d %s, this trainer %d'
+                         % (len(values), what, len(dst)))
+    for i, (t, v) in enumerate(zip(dst, values)):
+        v = torch.as_tensor(v)
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError('restore: %s %d has shape %s, this trainer %s'
+                             % (what, i, tuple(v.shape), tuple(t.shape)))
+        t.copy_(v)
 
 
 class _Staged:
@@ -239,12 +319,17 @@ class ParallelTrainer:
         for m in net.modules():
             if isinstance(m, Dropout):
                 m.generator = self._generator
+        self._mesh = mesh
         self._params = None
         self._states = None
         self._update = None
         self._sig = None
         self._programs = {}       # key -> _StepProgram (None: warmed)
         self._loss_dtype = torch.float32
+        self._preempt = None
+        self._watchdog = None
+        self._ckpt_mgr = None
+        self._ckpt_every = 0
         self.compile_seconds = {}
         self.num_update = 0
 
@@ -288,9 +373,11 @@ class ParallelTrainer:
 
     def _check(self, what, xs, ys):
         """The reference's signature rule: input / label arity and
-        ``None`` positions are fixed by the first call."""
+        ``None`` positions are fixed by the first call, which builds the
+        step (under ``span('compile')``)."""
         if self._params is None:
-            self._build()
+            with _span('compile'):
+                self._build()
         sig = (tuple(a is None for a in xs), len(ys))
         if self._sig is None:
             self._sig = sig
@@ -404,8 +491,9 @@ class ParallelTrainer:
             self._update.launch_bound(prog.bindings, prog.staged.views[0],
                                       prog.scal)
         # a pool of its own: the gradients it places stay allocated
-        prog.graph = Program('ParallelTrainer step %r' % (key,), body,
-                             self._device, generators=(self._generator,))
+        with _span('compile'):
+            prog.graph = Program('ParallelTrainer step %r' % (key,), body,
+                                 self._device, generators=(self._generator,))
         for _, b in prog.bindings:
             b.upload()
         self.compile_seconds['%s %s' % (
@@ -437,18 +525,194 @@ class ParallelTrainer:
         self.num_update += 1
         return prog.loss.clone()
 
+    # -- resilience attachments (the reference's step-boundary protocol) -----
+
+    def attach_preemption(self, handler):
+        """Attach a :class:`~mxnet_tpu_torch.resilience.PreemptionHandler`:
+        every step boundary polls it; a pending stop (a signal or a
+        scripted ``preempt`` fault) drains an emergency checkpoint through
+        the attached manager and raises
+        :class:`~mxnet_tpu_torch.resilience.Preempted` (the resumable
+        rc)."""
+        self._preempt = handler
+        return self
+
+    def attach_watchdog(self, watchdog):
+        """Attach a :class:`~mxnet_tpu_torch.resilience.Watchdog`: each
+        entry point heartbeats before its dispatch (phase ``compile`` on a
+        call that builds, ``step`` after) and checks the stall budget after
+        it: a stalled step (a scripted ``hang`` fault, or an overrun seen
+        by the monitor) surfaces as the stall artifact and
+        ``TunnelStallError``."""
+        self._watchdog = watchdog
+        return self
+
+    def attach_checkpointing(self, manager, every_n=None):
+        """Attach a ``CheckpointManager``: the trainer checkpoints itself
+        every ``every_n`` updates (None: ``MXNET_TPU_CKPT_EVERY_N_STEPS``,
+        0 for never) and is the drain target of an attached preemption
+        handler."""
+        if every_n is None:
+            every_n = int(_config.get('MXNET_TPU_CKPT_EVERY_N_STEPS') or 0)
+        self._ckpt_mgr = manager
+        self._ckpt_every = int(every_n)
+        return self
+
+    def _boundary_pre(self, building):
+        """Before any build or dispatch: the preemption drain first (a
+        preempted process starts no other step), then the heartbeat
+        arming the coming phase."""
+        if self._preempt is not None and \
+                self._preempt.check(self.num_update):
+            if self._ckpt_mgr is not None and self._params is not None:
+                self._preempt.drain(
+                    lambda: self.save_checkpoint(self._ckpt_mgr))
+            self._preempt.exit(step=self.num_update)
+        if self._watchdog is not None:
+            self._watchdog.beat(self.num_update,
+                                phase='compile' if building else 'step')
+
+    def _boundary_post(self):
+        if self._watchdog is not None:
+            self._watchdog.check()
+        if self._ckpt_mgr is not None and self._ckpt_every and \
+                self.num_update % self._ckpt_every == 0:
+            self.save_checkpoint(self._ckpt_mgr)
+
+    def _builds(self, arrays, accum=1):
+        """True when a call on ``arrays`` builds: the trainer's first, or
+        on a card the one that captures their signature."""
+        if self._params is None:
+            return True
+        if not self._captures():
+            return False
+        key = self._key(arrays, accum)
+        return key in self._programs and self._programs[key] is None
+
+    def save_checkpoint(self, manager=None, extra=None):
+        """Atomic step-granular checkpoint, numbered by ``num_update``:
+        :meth:`snapshot` as numpy under the reference's keys, plus the
+        mesh, ``zero``, ``amp`` and ``process_count``: what a restarted
+        process needs for a deterministic resume. Returns the path."""
+        from ..resilience.elastic import mesh_meta
+        manager = manager or self._ckpt_mgr
+        if manager is None:
+            raise ValueError('no CheckpointManager attached or given')
+        state = self.snapshot()
+        state['params'] = [_numpy(t) for t in state['params']]
+        state['leaves'] = [_numpy(t) for t in state['leaves']]
+        state['generator'] = state['generator'].numpy()
+        state.update(mesh=mesh_meta(self._mesh), zero=False, amp=self.amp,
+                     rng=None, process_count=1)
+        if extra:
+            state.update(extra)
+        # CheckpointManager.save counts the write and records its event;
+        # the span gives the wall time to this phase
+        with _span('checkpoint'):
+            return manager.save(self.num_update, state)
+
+    def resume(self, manager=None, elastic=None):
+        """Restore the newest valid checkpoint into this built trainer;
+        returns ``(step, plan)``, or None when there is none.
+
+        A checkpoint of a mesh with more devices than this trainer's
+        (one) resumes when elasticity is on (``elastic``, else
+        ``MXNET_TPU_ELASTIC``): the returned
+        :class:`~mxnet_tpu_torch.resilience.ElasticPlan` says how many
+        microbatches a step accumulates (:meth:`step_accum`) to keep the
+        global batch. With elasticity off, or for a shrink that cannot
+        keep the semantics, it raises
+        :class:`~mxnet_tpu_torch.resilience.MeshShrinkError`."""
+        from ..resilience import elastic as _elastic
+        manager = manager or self._ckpt_mgr
+        if manager is None:
+            raise ValueError('no CheckpointManager attached or given')
+        latest = manager.latest()
+        if latest is None:
+            return None
+        step, state = latest
+        plan = None
+        meta = state.get('mesh')
+        here = _elastic.mesh_meta(self._mesh)
+        if meta is not None and meta['device_count'] != \
+                here['device_count']:
+            if elastic is None:
+                elastic = bool(_config.get('MXNET_TPU_ELASTIC'))
+            if not elastic:
+                raise _elastic.MeshShrinkError(
+                    'checkpoint mesh %s != trainer mesh %s and elastic '
+                    'resume is disabled (MXNET_TPU_ELASTIC=0)'
+                    % (meta, here))
+            plan = _elastic.shrink_plan(meta, here['device_count'])
+            if plan.new_axes != here['axes']:
+                raise _elastic.MeshShrinkError(
+                    'elastic plan wants mesh axes %s but the trainer '
+                    'was built on %s -- rebuild the mesh from the plan'
+                    % (plan.new_axes, here['axes']))
+        if state.get('zero'):
+            # checkpoints hold logical arrays: a ZeRO checkpoint restores
+            # onto the one-device trainer with its values unchanged
+            logging.warning('resume: checkpoint was written with zero=True, '
+                            'the trainer has one device -- state re-placed '
+                            'unsharded (values unchanged)')
+        if state.get('amp') is not None and state['amp'] != self.amp:
+            logging.info('resume: checkpoint was written with amp=%s, '
+                         'trainer runs amp=%s -- masters restored unchanged',
+                         state['amp'], self.amp)
+        self.restore(state)
+        return step, plan
+
     # -- entry points --------------------------------------------------------
+
+    def _dispatch(self, what, xs, ys, accum=1):
+        """One step, no boundary and no telemetry: the signature checked
+        (the first call builds), the program for these inputs, the step;
+        returns its loss."""
+        self._check(what, xs, ys)
+        arrays = self._arrays(xs, ys)
+        prog = self._program(arrays, accum)
+        if prog is None:
+            return self._eager(xs, ys, accum)
+        return self._replay(prog, arrays)
+
+    def _record_step_telemetry(self, built, t0, examples, nsteps=1):
+        """The reference's per-dispatch telemetry: the compile or step
+        seconds histogram, the step and example counters, the cursor
+        gauge and a flight event. Host wall time only: no device sync."""
+        dt = time.perf_counter() - t0
+        inst = _obs.trainer_instruments()
+        step = self.num_update - nsteps
+        if built:
+            inst.compile_seconds.observe(dt)
+            _obs.record_event('compile', program='fused_step', step=step,
+                              seconds=round(dt, 6))
+        else:
+            inst.step_seconds.observe(dt)
+        inst.steps.inc(nsteps)
+        if examples:
+            inst.examples.inc(examples)
+        inst.global_step.set(self.num_update)
+        _obs.record_event('step', step=step, n=nsteps, seconds=round(dt, 6))
 
     def step(self, x, y):
         """One training step; returns the step's loss, a scalar tensor on
-        the net's device (a copy; reading it waits for the device)."""
+        the net's device (a copy; reading it waits for the device). With
+        attachments, the step-boundary protocol runs around it:
+        preemption drain, heartbeat, dispatch, stall check, periodic
+        checkpoint."""
         xs, ys = _as_list(x), _as_list(y)
-        self._check('ParallelTrainer.step', xs, ys)
-        arrays = self._arrays(xs, ys)
-        prog = self._program(arrays)
-        if prog is None:
-            return self._eager(xs, ys)
-        return self._replay(prog, arrays)
+        building = self._builds(self._arrays(xs, ys))
+        self._boundary_pre(building)
+        tel = _metrics.enabled()
+        t0 = time.perf_counter() if tel else 0.0
+        loss = None
+        with _profiler.op_span('fused_train_step', lambda: _fence(loss)):
+            loss = self._dispatch('ParallelTrainer.step', xs, ys)
+        if tel:
+            self._record_step_telemetry(building, t0,
+                                        int(ys[0].shape[0]) if ys else 0)
+        self._boundary_post()
+        return loss
 
     def step_accum(self, x, y, accum):
         """One optimizer update from ``accum`` microbatches, the leading
@@ -461,25 +725,35 @@ class ParallelTrainer:
         if accum <= 1:
             return self.step(x, y)
         xs, ys = _as_list(x), _as_list(y)
-        self._check('step_accum', xs, ys)
         arrays = self._arrays(xs, ys)
+        building = self._builds(arrays, accum)
+        self._boundary_pre(building)
         for a in arrays:
             if a.shape[0] % accum:
                 raise ValueError('global batch %d does not split into %d '
                                  'microbatches' % (a.shape[0], accum))
-        prog = self._program(arrays, accum)
-        if prog is None:
-            return self._eager(xs, ys, accum)
-        return self._replay(prog, arrays)
+        tel = _metrics.enabled()
+        t0 = time.perf_counter() if tel else 0.0
+        loss = self._dispatch('step_accum', xs, ys, accum)
+        if tel:
+            self._record_step_telemetry(building, t0,
+                                        int(ys[0].shape[0]) if ys else 0)
+        self._boundary_post()
+        return loss
 
     def step_n(self, x, y):
         """One step per leading-dim slice of ``x`` / ``y``; returns the
         (n,) losses, as n calls of :meth:`step` (bitwise). On a card the
         inputs and all n steps' hypers (resolved ahead) cross to the card
         in one copy, and the n steps are n replays with no host sync
-        between them."""
+        between them. The step-boundary protocol runs once a window, as
+        in the reference."""
         xs, ys = _as_list(x), _as_list(y)
         live = [a for a in xs if a is not None]
+        arrays = self._arrays(xs, ys) if live and ys else []
+        building = self._params is None or (
+            bool(arrays) and self._captures() and not self._ready(arrays))
+        self._boundary_pre(building)
         if not live or not ys:
             raise ValueError('step_n needs at least one data and one '
                              'label array')
@@ -487,16 +761,22 @@ class ParallelTrainer:
         if n == 0:
             raise ValueError('step_n called with a zero-length leading '
                              '(steps) dimension')
+        tel = _metrics.enabled()
+        t0 = time.perf_counter() if tel else 0.0
         self._check('step_n', xs, ys)
-        arrays = self._arrays(xs, ys)
         losses = []
         k = 0
         while k < n and not self._ready(arrays):
-            losses.append(self.step([None if a is None else a[k]
-                                     for a in xs], [a[k] for a in ys]))
+            losses.append(self._dispatch('step_n', [None if a is None
+                                                    else a[k] for a in xs],
+                                         [a[k] for a in ys]))
             k += 1
         if k < n:
             losses.append(self._replay_n([a[k:] for a in arrays]))
+        if tel:
+            self._record_step_telemetry(building, t0,
+                                        n * int(ys[0].shape[1]), nsteps=n)
+        self._boundary_post()
         return torch.cat([l.reshape(-1) for l in losses])
 
     def _ready(self, arrays):
@@ -535,6 +815,8 @@ class ParallelTrainer:
         its program is captured after one warm-up step that the trainer's
         state is rewound from (:meth:`snapshot` / :meth:`restore`)."""
         xs, ys = _as_list(x), _as_list(y)
+        if self._params is None:
+            self._build()           # the reference's build has no span
         self._check('build', xs, ys)
         key = self._key(self._arrays(xs, ys))
         if self._captures() and self._programs.get(key) is None:
@@ -547,18 +829,21 @@ class ParallelTrainer:
     # -- rollback (the reference's guardrail contract) -----------------------
 
     def snapshot(self):
-        """Host copies of everything a step moves: the parameters (the
-        BatchNorm statistics among them), the optimizer state, the update
-        counts, ``num_update`` and the generator's state. Feed to
-        :meth:`restore` for a bit-exact rewind."""
+        """Host copies of everything a step moves, under the reference's
+        keys: the parameters (the BatchNorm statistics among them), the
+        optimizer state (``leaves``), the update counts, ``num_update``,
+        and the generator's state in place of the base key
+        (``base_key`` None). Feed to :meth:`restore` for a bit-exact
+        rewind."""
         if self._params is None:
             raise RuntimeError('snapshot() before the step is built; call '
                                'build(x, y) (or one step) first')
         return {
             'num_update': self.num_update,
-            'params': [p.detach().cpu().clone() for p in self._all],
-            'states': [t.detach().cpu().clone() for st in self._states
+            'params': [p.detach().to('cpu', copy=True) for p in self._all],
+            'leaves': [t.detach().to('cpu', copy=True) for st in self._states
                        for t in _state_tensors(st)],
+            'base_key': None,
             'update_counts': dict(self._opt._index_update_count),
             'opt_num_update': self._opt.num_update,
             'generator': self._generator.get_state(),
@@ -566,17 +851,27 @@ class ParallelTrainer:
 
     @torch.no_grad()
     def restore(self, state):
-        """Rewind to a :meth:`snapshot`, copying into the storage the
-        captured steps read and write."""
+        """Rewind to a :meth:`snapshot` or a loaded checkpoint (numpy
+        values; bf16 parameters narrowed back from their float32 copies),
+        copying into the storage the captured steps read and write. A
+        state without ``generator`` (a checkpoint of the JAX package)
+        leaves the trainer's generator as it is, and says so."""
         if self._params is None:
             raise RuntimeError('restore() on an un-built trainer')
-        for p, v in zip(self._all, state['params']):
-            p.copy_(v)
-        for t, v in zip([t for st in self._states
-                         for t in _state_tensors(st)], state['states']):
-            t.copy_(v)
+        _copy_in('parameters', self._all, state['params'])
+        _copy_in('optimizer-state tensors', [
+            t for st in self._states for t in _state_tensors(st)],
+            state['leaves'])
         self.num_update = int(state['num_update'])
         self._opt._index_update_count.clear()
         self._opt._index_update_count.update(state['update_counts'])
-        self._opt.num_update = state['opt_num_update']
-        self._generator.set_state(state['generator'])
+        self._opt.num_update = state.get('opt_num_update', 0)
+        gen = state.get('generator')
+        if gen is None:
+            logging.warning('restore: the state has no generator state (a '
+                            'checkpoint of the JAX package has a base key '
+                            'instead): the trainer keeps its own dropout '
+                            'stream')
+        else:
+            self._generator.set_state(torch.as_tensor(
+                np.asarray(gen, dtype=np.uint8)).clone())

@@ -32,8 +32,9 @@ recorder's own ``kind`` parameter refuses (a TypeError its ``except``
 swallows), so it records nothing there, and neither does the port. A serving endpoint drains
 through its own watcher (``ServingHTTPServer.install_preempt_hook`` reads
 ``stop_requested``), as the reference's does, so it records the drain's
-events instead. The trainer's ``attach_preemption`` waits for ROADMAP
-A11.
+events instead. ``ParallelTrainer.attach_preemption`` polls it at every
+step boundary and drains through the trainer's checkpoint manager
+(``parallel/train_step.py``).
 """
 from __future__ import annotations
 

@@ -12,8 +12,8 @@ labels; the same events dumped by both recorders under one clock are the
 same bytes; a scripted watchdog stall and a preemption exit record the
 same events through both packages and dump the ring with the reference's
 reason; the heartbeat gauge follows the port's idle rule (an idle
-watchdog reads 0, only an armed heartbeat ages); the self-test's legs 1-4
-pass and 5-7 report skipped.
+watchdog reads 0, only an armed heartbeat ages); the self-test's eight
+legs pass on the CPU.
 """
 import json
 import os
@@ -308,8 +308,11 @@ def test_write_prometheus_and_jsonl(tmp_path):
 # -- the self-test ---------------------------------------------------------------------
 
 def test_selftest_legs_one_to_four_pass(tmp_path, capsys):
+    """Legs 1-4 pass, and since the training telemetry was ported so do
+    5-7 (spans, train, bit_identical), on the CPU: eight legs, none
+    skipped."""
     out = str(tmp_path / 'OBS.json')
-    assert cli.main(['--out', out]) == 0
+    assert cli.main(['--out', out, '--device', 'cpu']) == 0
     with open(out) as f:
         verdict = json.load(f)
     assert verdict['ok'] is True
@@ -317,7 +320,8 @@ def test_selftest_legs_one_to_four_pass(tmp_path, capsys):
     for leg in ('registry', 'disabled', 'trace', 'flight', 'exporters'):
         assert checks[leg] == 'ok', (leg, checks[leg])
     for leg in ('spans', 'train', 'bit_identical'):
-        assert checks[leg] == cli.SKIPPED
+        assert checks[leg] == 'ok', (leg, checks[leg])
+    assert len(checks) == 8
     assert 'selftest: OK' in capsys.readouterr().out
 
 

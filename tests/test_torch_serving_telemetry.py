@@ -502,10 +502,34 @@ def test_gateway_events_equal_the_jax_gateways(test, monkeypatch):
         assert [e['stage'] for e in events] == STAGES[test]
 
 
+def _hold_step_for_export(rep, step):
+    """Hold decode step number ``step`` of ``rep`` until an export is
+    queued at its engine (the drain's), so that the drain lands after
+    exactly ``step`` tokens of the stream, however the host is loaded:
+    the held step then emits token ``step`` + 1 and the next tick
+    services the export first. ``gateway_migrate`` records how many
+    tokens the gateway relayed before the move, which is compared."""
+    eng = rep.sess._engine
+    run_step = eng.program.run_step
+    calls = [0]
+
+    def held(*a, **kw):
+        calls[0] += 1
+        if calls[0] == step:
+            deadline = time.monotonic() + WAIT
+            while not eng._migrations:
+                assert time.monotonic() < deadline, 'no export was queued'
+                time.sleep(0.002)
+        return run_step(*a, **kw)
+    eng.program.run_step = held
+
+
 def test_gateway_migrate_event_through_both_gateways(monkeypatch):
     """A replica drains mid-stream behind each gateway: the stream lands
     by ``/import`` on the other replica, and each gateway records
-    ``gateway_migrate`` once (port replicas both times)."""
+    ``gateway_migrate`` once (port replicas both times). The drained
+    replica's step 4 waits for the drain's export, so both gateways relay
+    the same 5 tokens before the move."""
     jmodel, np_params = jax_init_lm(**ttg.CFG)
     weights = (jmodel, serving.init_transformer_lm(**ttg.CFG)[0],
                {k: np.asarray(v) for k, v in np_params.items()})
@@ -519,6 +543,7 @@ def test_gateway_migrate_event_through_both_gateways(monkeypatch):
             target = next(r for r in reps
                           if r.url == gw.affinity_target(ttg.PROMPT))
             dest = next(r for r in reps if r is not target)
+            _hold_step_for_export(target, 4)
             import http.client
             conn = http.client.HTTPConnection('127.0.0.1', gw.port,
                                               timeout=WAIT)
@@ -545,3 +570,4 @@ def test_gateway_migrate_event_through_both_gateways(monkeypatch):
     assert runs['port'] == runs['jax']
     assert [e['kind'] for e in runs['port']] == ['gateway_migrate']
     assert runs['port'][0]['to_url'] == 'url0'
+    assert runs['port'][0]['tokens'] == 5
