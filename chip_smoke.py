@@ -354,7 +354,28 @@ Phases, in order; any failure exits non-zero:
      what this geometry cannot reach (``LOADGEN_PRINTED``, printed);
      every drill tree holds the replicas' ``eng.*`` spans; each rig's
      launches (rows 1, 4p, 7, 18) exact against its engines' and
-     sessions' counts, joining the ``kernels`` line;
+     sessions' counts, joining the ``kernels`` line. 3w, after 3l: (a)
+     rows 1, 4 and 4p at head dims 1, 6, 8, 20, 32, 64, 80, 96 and 128
+     (3 heads, so slot rows start off 16 bytes at odd D), the forward
+     also at 16 heads and S 1152 (more items than SMs, so every block
+     walks several), and the same at 3w's 16 heads of 128, against their
+     plain versions at phase 2's tiers, every call a launch, and a head
+     dim of 129 refused by each wrapper, typed and naming ROADMAP B1,
+     before any launch; meanwhile, as children on the card, ``python -m
+     mxnet_tpu_torch.serving.adapters`` (the reference's self-test, head
+     dim 8: rc 0, six legs ok) and ``python -m mxnet_tpu_torch.loadgen
+     --mode prefix`` with its default tiny LM (head dim 8: rc 0, every
+     verdict); then the repo's ``TransformerLM`` at GPT-Neo 1.3B's
+     widths (``NEO``: 24 layers, units 2048, 16 heads, head dim 128, FFN
+     8192, vocabulary 50257; max_len cut to 512), weights drawn on the
+     card from seed 0, serving phase 3's 16 requests through the paged
+     cache and then the slot cache (the reference's program set at
+     start, none built by a request, launches exact, the slot run's
+     tokens re-checked against ``full_forward``, the paged tokens the
+     slot tokens), its replayed step beside its weight-read bound; (b)
+     rows 1, 4 and 4p at head dim 128 timed at phase 2's shapes and at
+     3w's beside their bounds and SDPA, and the head-dim-64 device times
+     beside ``PERF.md``'s;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -727,11 +748,11 @@ def check_paged_kernel(torch, kernels, device, heads=12, d=64,
             slot = kernels.flash_decode_attention(q, keys, values, pos, heads)
             err = (out - ref).abs().max().item()
             equal = [torch.equal(out[i], slot[i]) for i in range(len(pos))]
-            log('check flash_paged_decode_attention page_size=%d max_len=%d '
+            log('check flash_paged_decode_attention%s page_size=%d max_len=%d '
                 '(view %d, %d pages) positions=%s: max_abs_err=%.3g against '
                 'the plain version; bitwise the slot kernel: %s'
-                % (ps, max_len, view, kp.shape[0], list(checked), err,
-                   all(equal)))
+                % ('' if d == 64 else ' D=%d' % d, ps, max_len, view,
+                   kp.shape[0], list(checked), err, all(equal)))
             if not err <= TOL:
                 raise AssertionError('flash_paged_decode_attention disagrees '
                                      'with its plain version: %g > %g'
@@ -745,25 +766,22 @@ def check_paged_kernel(torch, kernels, device, heads=12, d=64,
     return worst
 
 
-def check_kernels(torch, kernels, device, heads=12, d=64, max_len=512,
-                  positions=DECODE_POSITIONS):
-    """Each kernel against its plain version on ``device``; returns
-    {kernel name: max abs error}."""
-    gen = torch.Generator(device='cpu').manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen).to(device)
-
-    worst = {'flash_attention_fwd': 0.0, 'flash_decode_fwd': 0.0}
-    for s, causal, length in attention_cases():
+def check_forward(torch, kernels, randn, device, heads, d, cases,
+                  block_qs):
+    """The float32 forward kernel against its plain version (``TOL``, out
+    and the finite lse; masked rows -inf alike, fully masked rows 0) for
+    each (seq, causal, length) of ``cases`` at ``heads`` heads of head dim
+    ``d``, one launch a block size of ``block_qs`` (None: the wrapper
+    picks); returns the worst error."""
+    worst = 0.0
+    for s, causal, length in cases:
         q, k, v = (randn(1, heads, s, d) for _ in range(3))
         lengths = None if length is None else torch.tensor(
             [length], dtype=torch.int32, device=device)
         ref, lse_ref = kernels.flash_attention_reference(q, k, v, lengths,
                                                          causal=causal)
         fin = ~torch.isneginf(lse_ref)
-        # the block size the wrapper picks, then every one it is built for
-        for bq in (None,) + kernels.FWD_BLOCK_Q:
+        for bq in block_qs:
             out, lse = kernels.flash_attention_with_lse(
                 q, k, v, lengths, causal=causal, block_q=bq)
             if not torch.equal(torch.isneginf(lse),
@@ -777,24 +795,40 @@ def check_kernels(torch, kernels, device, heads=12, d=64, max_len=512,
             if length == 0 and out.abs().max().item() != 0.0:
                 raise AssertionError('flash_attention: fully masked rows '
                                      'must be 0')
-            log('check flash_attention S=%d causal=%s length=%s block_q=%s '
-                'max_abs_err=%.3g' % (s, causal, length,
-                                      bq or kernels.fwd_geometry(
-                                          1, heads, s)[0], err))
+            bq_run, blocks, _ = kernels.fwd_geometry(1, heads, s, bq, d=d)
+            log('check flash_attention%s H=%d S=%d causal=%s length=%s '
+                'block_q=%d (%d items, %d blocks) max_abs_err=%.3g'
+                % ('' if d == 64 else ' D=%d' % d, heads, s, causal, length,
+                   bq_run, heads * -(-s // bq_run), blocks, err))
             if not err <= TOL:
                 raise AssertionError('flash_attention disagrees with its '
                                      'plain version: %g > %g' % (err, TOL))
-            worst['flash_attention_fwd'] = max(worst['flash_attention_fwd'],
-                                               err)
+            worst = max(worst, err)
+    return worst
+
+
+def check_kernels(torch, kernels, device, heads=12, d=64, max_len=512,
+                  positions=DECODE_POSITIONS):
+    """Each kernel against its plain version on ``device``; returns
+    {kernel name: max abs error}."""
+    gen = torch.Generator(device='cpu').manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    worst = {'flash_attention_fwd': check_forward(
+        torch, kernels, randn, device, heads, d, attention_cases(),
+        (None,) + kernels.fwd_block_qs(d)), 'flash_decode_fwd': 0.0}
     for seq, checked in ((512, DECODE_CHECK_POSITIONS),
                          (DECODE_LONG, DECODE_LONG_POSITIONS)):
         q, k, v = (randn(1, heads, seq, d) for _ in range(3))
-        for bq in kernels.FWD_BLOCK_Q:
+        for bq in kernels.fwd_block_qs(d):
             equal, diff = decode_identity(torch, kernels, q, k, v, checked,
                                           bq)
-            log('check decode contract S=%d block_q=%d: forward row p '
+            log('check decode contract%s S=%d block_q=%d: forward row p '
                 'bitwise equal to the decode step at p for p in %s: %s (max '
-                'abs difference %g)' % (seq, bq, list(checked), equal, diff))
+                'abs difference %g)' % ('' if d == 64 else ' D=%d' % d, seq,
+                                        bq, list(checked), equal, diff))
             if not all(equal):
                 raise AssertionError('flash_attention row differs from the '
                                      'decode kernel (S=%d block_q=%d): %s'
@@ -811,8 +845,9 @@ def check_kernels(torch, kernels, device, heads=12, d=64, max_len=512,
         ref = kernels.flash_decode_attention_reference(q, keys, values, pos,
                                                        heads)
         err = (out - ref).abs().max().item()
-        log('check flash_decode_attention max_len=%d positions=%s '
-            'max_abs_err=%.3g' % (length, list(checked), err))
+        log('check flash_decode_attention%s max_len=%d positions=%s '
+            'max_abs_err=%.3g' % ('' if d == 64 else ' D=%d' % d, length,
+                                  list(checked), err))
         if not err <= TOL:
             raise AssertionError('flash_decode_attention disagrees with its '
                                  'plain version: %g > %g' % (err, TOL))
@@ -1183,7 +1218,7 @@ def time_kernels(torch, kernels, heads=12, d=64, seq=256, length=200):
         bound_ms=b_ms, bound_by=b_by,
         shape='B1 H%d S%d D%d causal length %d, block_q %d, %d blocks'
         % ((heads, seq, d, length)
-           + kernels.fwd_geometry(1, heads, seq)[:2]))
+           + kernels.fwd_geometry(1, heads, seq, d=d)[:2]))
 
     units = heads * d
     keys, values = randn(SLOTS, 512, units), randn(SLOTS, 512, units)
@@ -2803,20 +2838,21 @@ def assert_healthy(phase, sess, streams=()):
 def serve(torch, serving, kernels, device, cfg=SLICE, slots=SLOTS,
           buckets=BUCKETS, requests=REQUESTS, new_tokens=NEW_TOKENS,
           prompt_range=(8, 256), recheck=2, seed=0, paged=False,
-          capture=True):
+          capture=True, built=None, phase=None):
     """Drive the slice through its entry points and check it: over the
     slot cache (``paged=False``, phase 3) or over the default,
     ``freeze_decode``'s paged cache at page size 16 (phase 3p). The
     session's engine builds the reference's program set as it starts
     (CUDA graphs; ``capture=False``: the same bodies uncaptured, the
-    eager reference), and no request may build another. Returns a dict
-    of results (tokens and launch counts of the run, the programs'
+    eager reference), and no request may build another. ``built``: the
+    (model, params) to serve, else ``cfg``'s drawn from ``seed``. Returns
+    a dict of results (tokens and launch counts of the run, the programs'
     capture seconds, and for a captured run the step's time and
     profile)."""
     import numpy as np
-    phase = 'phase 3p' if paged else 'phase 3'
+    phase = phase or ('phase 3p' if paged else 'phase 3')
     t0 = time.perf_counter()
-    model, params = serving.init_transformer_lm(seed=seed, **cfg)
+    model, params = built or serving.init_transformer_lm(seed=seed, **cfg)
     if paged:
         prog = serving.freeze_decode(model, params, slots=slots,
                                      prefill_buckets=buckets, device=device)
@@ -6540,6 +6576,351 @@ def log_loadgen(lg, card):
            lg['seconds_all'], lg['counts'],
            {k: v for k, v in lg['launches'].items() if v}))
 
+
+# -- phase 3w: every head dim, and GPT-Neo 1.3B's widths ---------------------
+
+# the head dims rows 1, 4 and 4p are held to their plain versions at: below
+# a 16-byte chunk and off 16 bytes (1, 6), inside and on the edges of each
+# padded width (8, 20, 32, 64, 80, 96, 128)
+HEAD_DIM_CHECKS = (1, 6, 8, 20, 32, 64, 80, 96, 128)
+HEAD_DIM_HEADS = 3         # U = 3 D: slot rows off 16 bytes at odd D
+# a forward case with more work items than the card's SMs at every width
+# and block size (16 x ceil(1152 / 128) = 144 > 132 at block_q 128), so
+# each persistent block walks more than one item: the next item's tiles
+# staged across items (two buffers) or after the consume barrier (one
+# buffer, width 128); causal with a length below S, and full
+HEAD_DIM_WALK_HEADS = 16
+HEAD_DIM_WALK = ((1152, True, 1149), (1152, False, None))
+# the kernels' times at a head dim other than 64 (phase 2's shapes and 3w's)
+HEAD_DIM_TIMED = 128
+# GPT-Neo 1.3B's widths (EleutherAI/gpt-neo-1.3B, config.json: hidden_size
+# 2048, num_heads 16, num_layers 24, vocab_size 50257, intermediate_size
+# null, i.e. 4 x 2048), the repo's TransformerLM (global attention in every
+# layer), max_len cut from 2048 to 512 (SLICE's)
+NEO = dict(vocab=50257, units=2048, hidden=8192, layers=24, heads=16,
+           max_len=512)
+NEO_SOURCE = ('EleutherAI/gpt-neo-1.3B config.json (hidden_size 2048, '
+              'num_heads 16, num_layers 24, vocab_size 50257, FFN 4 x 2048)')
+NEO_CUTS = ('max_len 512, not max_position_embeddings 2048; the repo\'s '
+            'TransformerLM (global attention in every layer), not '
+            'GPT-Neo\'s alternating local attention; random weights from '
+            'seed 0')
+# 3w's (head dim, heads): rows 1, 4 and 4p are also held to their plain
+# versions at these, with phase 2's 8 slots x max_len 512 (3w's slot
+# cache) and page size 16 (3w's) among the checked
+HEAD_DIM_SERVED = (NEO['units'] // NEO['heads'], NEO['heads'])
+# rows 1, 4 and 4p at head dim 64 as PERF.md records them before head
+# dims other than 64 were built (NVIDIA H100 80GB HBM3, 700 W)
+D64_DEVICE_MS = {'flash_attention_fwd': 0.0236, 'flash_decode_fwd': 0.0129,
+                 'flash_paged_decode_fwd': 0.0126}
+
+
+def head_dim_launches(kernels, d, walk=True):
+    """The launches :func:`check_kernels` and :func:`check_paged_kernel`
+    make at head dim ``d``, with ``walk`` the forward's
+    :data:`HEAD_DIM_WALK` cases too: one a wrapper call on the card."""
+    nbq = len(kernels.fwd_block_qs(d))
+    paged = 2 * len(PAGED_CHECK_SIZES)
+    return {'flash_attention_fwd': len(attention_cases()) * (1 + nbq)
+            + 2 * nbq + (len(HEAD_DIM_WALK) * nbq if walk else 0),
+            'flash_decode_fwd': 2 * nbq + 3 + paged,
+            'flash_paged_decode_fwd': paged}
+
+
+def check_head_dims(torch, kernels, device, dims=HEAD_DIM_CHECKS,
+                    heads=HEAD_DIM_HEADS):
+    """Phase 3w (a): rows 1, 4 and 4p at each head dim of ``dims`` against
+    their plain versions at phase 2's tiers (:func:`check_kernels`,
+    :func:`check_paged_kernel`: 1e-5 absolute, prefill rows bitwise the
+    decode kernel, the paged instance bitwise the slot one) at ``heads``
+    heads, and the forward at :data:`HEAD_DIM_WALK` (more items than SMs,
+    so every block walks several); then the same checks but the walk at
+    :data:`HEAD_DIM_SERVED`, 3w's (head dim, heads); every call a launch (no CUDA
+    tensor reaches a plain version); then a head dim of 129 refused by
+    each wrapper on the card, typed and naming ROADMAP B1, before any
+    launch. Returns {'errs': worst error by kernel, 'by_dim': {(d,
+    heads): errors}, 'seconds': s}."""
+    t0 = time.perf_counter()
+    worst = dict.fromkeys(('flash_attention_fwd', 'flash_decode_fwd',
+                           'flash_paged_decode_fwd'), 0.0)
+    by_dim = {}
+    gen = torch.Generator(device='cpu').manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    for d, h in [(d, heads) for d in dims] + [HEAD_DIM_SERVED]:
+        walk = (d, h) != HEAD_DIM_SERVED
+        kernels.reset_launch_counts()
+        errs = check_kernels(torch, kernels, device, heads=h, d=d)
+        errs['flash_paged_decode_fwd'] = check_paged_kernel(
+            torch, kernels, device, heads=h, d=d)
+        if walk:
+            for s, _, _ in HEAD_DIM_WALK:
+                for bq in kernels.fwd_block_qs(d):
+                    items = HEAD_DIM_WALK_HEADS * -(-s // bq)
+                    blocks = kernels.fwd_geometry(
+                        1, HEAD_DIM_WALK_HEADS, s, bq, d=d)[1]
+                    if not items > blocks:
+                        raise AssertionError(
+                            'phase 3w (a) D=%d block_q %d: %d items on %d '
+                            'blocks, no block walks two' % (d, bq, items,
+                                                            blocks))
+            errs['flash_attention_fwd'] = max(
+                errs['flash_attention_fwd'], check_forward(
+                    torch, kernels, randn, device, HEAD_DIM_WALK_HEADS, d,
+                    HEAD_DIM_WALK, kernels.fwd_block_qs(d)))
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = head_dim_launches(kernels, d, walk)
+        if launches != want:
+            raise AssertionError('phase 3w (a) D=%d H=%d: launches %r, one '
+                                 'a call %r' % (d, h, launches, want))
+        by_dim[d, h] = errs
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
+        log('phase 3w (a) D=%d (width %d, block_q %s, %d heads%s): max abs '
+            'err %s; prefill rows bitwise decode, paged bitwise slot; '
+            'launches %s, one a call'
+            % (d, kernels.head_width(d), kernels.fwd_block_qs(d), h,
+               '; the forward also at %d heads, S %d, every block walking '
+               'several items' % (HEAD_DIM_WALK_HEADS, HEAD_DIM_WALK[0][0])
+               if walk else ', 3w\'s',
+               {k: '%.3g' % e for k, e in errs.items()}, launches))
+    d = kernels.HEAD_DIM_MAX + 1
+    x = torch.zeros(1, 1, 4, d, device=device)
+    q = torch.zeros(2, 2 * d, device=device)
+    cache = torch.zeros(2, 16, 2 * d, device=device)
+    pos = torch.zeros(2, dtype=torch.int32, device=device)
+    tables = torch.zeros(2, 1, dtype=torch.int32, device=device)
+    kernels.reset_launch_counts()
+    for name, call in (
+            ('flash_attention', lambda: kernels.flash_attention(x, x, x)),
+            ('flash_decode_attention', lambda: kernels.flash_decode_attention(
+                q, cache, cache, pos, 2)),
+            ('flash_paged_decode_attention',
+             lambda: kernels.flash_paged_decode_attention(
+                 q, cache, cache, tables, pos, 2))):
+        try:
+            call()
+        except kernels.HeadDimError as exc:
+            if 'B1' not in str(exc):
+                raise AssertionError('phase 3w (a): %s at D=%d refused '
+                                     'without naming B1: %s'
+                                     % (name, d, exc))
+            log('phase 3w (a) D=%d: %s refused: %s' % (d, name, exc))
+        else:
+            raise AssertionError('phase 3w (a): %s took head dim %d'
+                                 % (name, d))
+    if any(kernels.launch_counts().values()):
+        raise AssertionError('phase 3w (a): a refused call launched %r'
+                             % kernels.launch_counts())
+    return {'errs': worst, 'by_dim': by_dim,
+            'seconds': time.perf_counter() - t0}
+
+
+def neo_params(torch, model, seed, device):
+    """``model``'s parameters as ``init_params`` lays them out (0.05 N(0,
+    1) weights, zero biases, unit layer-norm gains), drawn on ``device``
+    from a generator seeded with ``seed``: at 1.3 B weights numpy's
+    legacy normal draws would hold the host for tens of seconds."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = {}
+    for name, shape in model.param_shapes().items():
+        if name.endswith('_g'):
+            params[name] = torch.ones(shape, device=device)
+        elif name.endswith('_b') or name == 'out_bias':
+            params[name] = torch.zeros(shape, device=device)
+        else:
+            params[name] = torch.randn(shape, generator=gen,
+                                       device=device) * 0.05
+    model.check_params(params)
+    return params
+
+
+def head_dim_children(root):
+    """Phase 3w (c) and the loadgen's default LM: ``python -m
+    mxnet_tpu_torch.serving.adapters`` (head dim 8) and ``python -m
+    mxnet_tpu_torch.loadgen --mode prefix`` (its tiny LM, head dim 8),
+    started together as children on the card. Returns a function that
+    waits for both and returns their verdicts and seconds (``kill``: that
+    ends both at once, on another phase's failure)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env.pop('MXNET_TPU_FAULT', None)
+    env['MXNET_TPU_FLIGHT_PATH'] = os.path.join(root, 'FLIGHT.jsonl')
+    out = {'adapters': os.path.join(root, 'ADAPTERS.json'),
+           'loadgen': os.path.join(root, 'SLO.json')}
+    procs = {
+        'adapters': subprocess.Popen(
+            [sys.executable, '-m', 'mxnet_tpu_torch.serving.adapters',
+             '--out', out['adapters']], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        'loadgen': subprocess.Popen(
+            [sys.executable, '-m', 'mxnet_tpu_torch.loadgen', '--mode',
+             'prefix', '--out', out['loadgen']], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+
+    def wait(kill=False):
+        done = {}
+        try:
+            for name, proc in procs.items():
+                if kill:
+                    break
+                try:
+                    o, e = proc.communicate(timeout=CHILD_DONE_S * 3)
+                except subprocess.TimeoutExpired:
+                    raise AssertionError('phase 3w (c): the %s child did not '
+                                         'finish' % name)
+                done[name] = (proc.returncode, o, e,
+                              time.perf_counter() - t0)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        if kill:
+            return None
+        rcs = {n: d[0] for n, d in done.items()}
+        if rcs != {'adapters': 0, 'loadgen': 0}:
+            raise AssertionError('phase 3w (c): exit codes %r; stdout %s; '
+                                 'stderr %s' % (
+                                     rcs, {n: d[1][-1500:]
+                                           for n, d in done.items()},
+                                     {n: d[2][-1500:]
+                                      for n, d in done.items()}))
+        from mxnet_tpu_torch.loadgen.harness import TINY_LM
+        docs = {}
+        for name, path in out.items():
+            with open(path) as f:
+                docs[name] = json.load(f)
+        legs = docs['adapters']['checks']
+        if docs['adapters']['ok'] is not True or sorted(legs) != sorted(
+                ('artifact', 'pool', 'zero_retrace', 'temp0_identity',
+                 'sampled_spec', 'prefix_isolation')) or any(
+                v != 'ok' for v in legs.values()):
+            raise AssertionError('phase 3w (c): the adapters self-test %r'
+                                 % docs['adapters'])
+        slo = docs['loadgen']
+        failed = sorted(k for k, ok in slo.get('verdicts', {}).items()
+                        if not ok)
+        if failed or not slo.get('verdicts'):
+            raise AssertionError('phase 3w: loadgen --mode prefix verdicts '
+                                 '%r' % slo.get('verdicts'))
+        gen = (slo.get('metrics') or {}).get('generate') or {}
+        return dict(legs=legs, verdicts=slo['verdicts'],
+                    generate=dict(n=gen.get('n'), tokens=gen.get('tokens'),
+                                  ttft_p99_ms=(gen.get('ttft') or {}).get(
+                                      'p99_ms')),
+                    lm='the tiny LM %s' % json.dumps(TINY_LM),
+                    seconds={n: d[3] for n, d in done.items()},
+                    stdout={n: d[1].strip().splitlines()[-1:]
+                            for n, d in done.items()})
+    return wait
+
+
+def serve_neo(torch, serving, kernels, device, cfg=NEO):
+    """Phase 3w: the repo's ``TransformerLM`` at GPT-Neo 1.3B's widths
+    (head dim 128), random weights drawn on the card from seed 0,
+    serving phase 3's 16 requests through the paged cache (page size 16),
+    then the slot cache (:func:`serve`: the reference's program set built
+    at start and none by a request, launches exact, the slot run's tokens
+    re-checked against ``full_forward``); the paged tokens must equal the
+    slot tokens. Returns both runs, the parameter count and seconds."""
+    import gc
+    t0 = time.perf_counter()
+    model = serving.TransformerLM(dict(cfg))
+    params = neo_params(torch, model, 0, device)
+    nparams = sum(p.numel() for p in params.values())
+    draw_s = time.perf_counter() - t0
+    runs = {}
+    for paged in (True, False):
+        run = 'paged' if paged else 'slot'
+        runs[run] = serve(torch, serving, kernels, device, cfg=cfg,
+                          paged=paged, recheck=0 if paged else 2,
+                          built=(model, params), phase='phase 3w ' + run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if runs['paged']['outs'] != runs['slot']['outs']:
+        raise AssertionError('phase 3w: paged tokens differ from the slot '
+                             'cache\'s: requests %s' % [
+                                 i for i, (a, b) in enumerate(zip(
+                                     runs['paged']['outs'],
+                                     runs['slot']['outs'])) if a != b])
+    return dict(runs=runs, nparams=nparams, draw_s=draw_s,
+                seconds=time.perf_counter() - t0)
+
+
+def time_head_dim(torch, kernels):
+    """Phase 3w (b): rows 1, 4 and 4p at head dim 128 at phase 2's
+    serving shapes (12 heads) and at 3w's (16 heads, U 2048):
+    :func:`time_kernels` and :func:`time_paged_decode`, each kernel's
+    device time beside its bound and SDPA over the same inputs. Returns
+    {kernel: {shapes: row}}."""
+    out = {}
+    for label, heads in (('phase 2 shapes', 12), ('3w shapes',
+                                                   NEO['heads'])):
+        rows = time_kernels(torch, kernels, heads=heads, d=HEAD_DIM_TIMED)
+        rows.update(time_paged_decode(torch, kernels, heads=heads,
+                                      d=HEAD_DIM_TIMED))
+        for name, row in rows.items():
+            out.setdefault(name, {})[label] = row
+    return out
+
+
+def log_neo(rw, ra, times_d, times, card):
+    """Phase 3w's lines: (a) by head dim, the serving runs beside the
+    card's name and power limit, (b) the times at head dim 128 and at 64
+    beside PERF.md's, (c) the children."""
+    cfg = NEO
+    log('phase 3w (a): rows 1, 4 and 4p at (D, heads) %s against their plain'
+        ' versions (worst %s), %.1f s'
+        % (list(ra['by_dim']), {k: '%.3g' % e for k, e in
+                                ra['errs'].items()}, ra['seconds']))
+    log('phase 3w slice: TransformerLM at GPT-Neo 1.3B\'s widths (%s): %d '
+        'layers, units %d, %d heads (head dim %d), FFN %d, vocabulary %d; '
+        'cut: %s; %d parameters (%.3f GB float32) drawn in %.1f s'
+        % (NEO_SOURCE, cfg['layers'], cfg['units'], cfg['heads'],
+           cfg['units'] // cfg['heads'], cfg['hidden'], cfg['vocab'],
+           NEO_CUTS, rw['nparams'], rw['nparams'] * 4 / 1e9, rw['draw_s']))
+    weight_ms = rw['nparams'] * 4 / PEAK_BYTES_S * 1e3
+    for run, r in rw['runs'].items():
+        log('phase 3w %s: %d requests, %d prefills, %d steps, launches %s '
+            '(exact); programs %s built at start, none by a request%s'
+            % (run, REQUESTS, r['prefills'], r['steps'],
+               {k: v for k, v in r['launches'].items() if v},
+               sorted(r['compile_seconds']),
+               '' if run == 'paged' else
+               '; %d tokens equal to full_forward, %d ties %s'
+               % (r['recheck_equal'], len(r['recheck_ties']),
+                  r['recheck_ties'])))
+        log('phase 3w %s metrics [%s]: replayed run_step %.4f ms at phase 2\'s'
+            ' positions (weight-read bound %.4f ms: %.3f GB at 3.35 TB/s), '
+            'engine mean step %.3f ms; TTFT p50 %.2f ms, p99 %.2f ms; '
+            'tokens/s %.2f; peak memory %d B, cache %d B; setup %.1f s, '
+            'warm-up %.1f s'
+            % (run, card, r['replay_step_ms'], weight_ms,
+               rw['nparams'] * 4 / 1e9, r['decode_step_ms'], r['ttft_p50_ms'],
+               r['ttft_p99_ms'], r['tokens_per_s'], r['peak_mem_bytes'],
+               r['cache_bytes'], r['setup_s'], r['warmup_s']))
+        log_profile('phase 3w %s captured decode step' % run, card,
+                    r['step_profile'])
+    log('phase 3w: the paged streams token for token the slot cache\'s; '
+        '%.1f s for both runs' % rw['seconds'])
+    for name, by in times_d.items():
+        for label, row in by.items():
+            log('phase 3w (b) %s D=%d at %s [%s]: device %.4f ms, bound %.4f '
+                'ms (%s), SDPA device %.4f ms; kernel %.4f ms a call, plain '
+                '%.4f ms [%s]'
+                % (name, HEAD_DIM_TIMED, label, row['shape'],
+                   row['device_ms'], row['bound_ms'], row['bound_by'],
+                   row['library_device_ms'], row['ms'], row['plain_ms'],
+                   card))
+    log('phase 3w (b) D=64 at phase 2\'s shapes [%s]: device %s ms, '
+        'PERF.md %s ms'
+        % (card, {k: round(times[k]['device_ms'], 4) for k in D64_DEVICE_MS},
+           D64_DEVICE_MS))
+
+
 # -- phase 4: the training slice ---------------------------------------------
 
 
@@ -9128,7 +9509,8 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'bound_f32_rate_ms',
                                       'scan_device_ms', 'finish_device_ms',
                                       'host_ms', 'chain_ms',
-                                      'chain_device_ms', 'by_list')
+                                      'chain_device_ms', 'by_list',
+                                      'at_head_dim_%d' % HEAD_DIM_TIMED)
                     if k in t})
         row['shape'] = t['shape']
         if name in times and name in train_times:
@@ -9259,7 +9641,10 @@ def _main():
         regs, counts = built['bf16']
         log('%s: %s registers; SASS and spills %s' % (name, regs, counts))
     log('flash_attention_fwd instances: registers %s, no spills' % {
-        '%s bq %s' % (_instance(fn), re.search(r'ILi(\d+)E', fn).group(1)): n
+        '%s width %s bq %s%s' % ((_instance(fn),)
+                                 + tuple(re.findall(r'Li(\d+)E', fn)[:2])
+                                 + ('' if 'Lb1E' in fn else ' (d < width)',)
+                                 ): n
         for fn, (n, _) in ptxas_entries(
             reports.get('flash_attention_fwd', ())).items()})
     # the decode kernel's two instances: the slot cache and the page pool
@@ -9850,6 +10235,41 @@ def _main():
     errs['act_fwd'] = max(errs['act_fwd'], lg['act_fwd_err'])
     torch.cuda.empty_cache()
 
+    # phase 3w: rows 1, 4 and 4p at every head dim (the adapters'
+    # self-test and the loadgen's tiny LM as children on the card
+    # meanwhile), then GPT-Neo 1.3B's widths served over both caches and
+    # the kernels timed at head dim 128
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='chip_smoke_3w_')
+    try:
+        wait = head_dim_children(root)
+        try:
+            hd = check_head_dims(torch, kernels, cuda)
+        except BaseException:
+            wait(kill=True)
+            raise
+        kids = wait()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, err in hd['errs'].items():
+        errs[name] = max(errs[name], err)
+    torch.cuda.empty_cache()
+    rw = serve_neo(torch, serving, kernels, cuda)
+    times_d = time_head_dim(torch, kernels)
+    for name, by in times_d.items():
+        times[name]['at_head_dim_%d' % HEAD_DIM_TIMED] = {
+            label: {k: row[k] for k in TIMING_KEYS + ('shape',)}
+            for label, row in by.items()}
+    log_neo(rw, hd, times_d, times, card)
+    log('phase 3w (c) [%s]: python -m mxnet_tpu_torch.serving.adapters on '
+        'the card (head dim 8): rc 0, legs %s, %.1f s; python -m '
+        'mxnet_tpu_torch.loadgen --mode prefix with its default LM (%s): rc '
+        '0, verdicts %s, generate %s, %.1f s'
+        % (card, kids['legs'], kids['seconds']['adapters'], kids['lm'],
+           kids['verdicts'], kids['generate'], kids['seconds']['loadgen']))
+    log('phase 3w wall [%s]: %.1f s' % (card, time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+
     # phase 7: the matmul probe slice
     for m, k, n in probe.SHAPES:
         log('geometry M=%d K=%d N=%d: %s' % (m, k, n, {
@@ -9917,6 +10337,10 @@ def _main():
                             k: v + fl['a']['child_launches'][k]
                             for k, v in fl['launches'].items()},
                         'loadgen modes': lg['launches'],
+                        'gpt-neo 1.3B widths paged serving':
+                            rw['runs']['paged']['launches'],
+                        'gpt-neo 1.3B widths serving':
+                            rw['runs']['slot']['launches'],
                         'matmul probe': probe_launches})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -10,10 +10,10 @@ decode LM behind /generate, one live HTTP endpoint; the gateway modes N
 such replicas behind a ``ServingGateway``), runs the mode, writes the
 ``mxnet_tpu.slo.v1`` artifact, prints a one-screen summary, and exits
 non-zero when the mode's own verdicts fail. The rig runs on the card
-unless ``--device cpu`` is given; ``--lm bert-base`` serves a
-``TransformerLM`` at BERT-base widths (12 layers, 768 units, 12 heads,
-vocabulary 30522, max_len 512, page size 16) in place of the reference's
-tiny LM, whose head dimension (8) the card's attention kernels refuse.
+unless ``--device cpu`` is given, with the reference's tiny LM (head dim
+8) by default; ``--lm bert-base`` serves a ``TransformerLM`` at BERT-base
+widths (12 layers, 768 units, 12 heads, vocabulary 30522, max_len 512,
+page size 16) in its place.
 """
 from __future__ import annotations
 

@@ -31,7 +31,8 @@ Every mode returns a versioned ``mxnet_tpu.slo.v1`` artifact
 reference's network built from the port's gluon and trained one epoch in
 plain torch (its weights are not the reference's: those come from a JAX
 key); ``ServingRig`` takes ``device``, and ``lm`` / ``decode_page_size``
-(default: the reference's tiny LM, page size 8) for a wider decoder; the
+(default: the reference's tiny LM, head dim 8, page size 8, on the card as
+on the CPU) for a wider decoder; the
 adapters mode's "zero retraces" reads the programs built
 (``compile_seconds``), since nothing is traced here.
 """

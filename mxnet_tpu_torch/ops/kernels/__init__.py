@@ -18,7 +18,8 @@ resilience layer.
 """
 from ._launch import (BF16, KERNELS, instance_launches, launch_counts,
                       reset_launch_counts)
-from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
+from .attention import (FWD_BLOCK_Q, HEAD_DIM_MAX, HEAD_WIDTHS, K_BLOCK,
+                        FlashAttentionFunction,
                         dkv_bf16_geometry, dq_bf16_geometry, flash_attention,
                         flash_attention_backward,
                         flash_attention_backward_reference,
@@ -32,8 +33,8 @@ from .attention import (FWD_BLOCK_Q, K_BLOCK, FlashAttentionFunction,
                         flash_decode_attention_reference,
                         flash_paged_decode_attention,
                         flash_paged_decode_attention_reference,
-                        fwd_bf16_geometry, fwd_geometry,
-                        online_softmax_block)
+                        fwd_bf16_geometry, fwd_block_qs, fwd_geometry,
+                        head_width, online_softmax_block)
 from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
                        BnApplyFunction, BnGeometry, EpilogueGeometry,
                        act_backward,
@@ -44,7 +45,8 @@ from .epilogue import (ACT_TYPES, ActFunction, AddActFunction,
                        bn_act_forward_reference, bn_geometry,
                        epilogue_geometry,
                        fused_act, fused_add_act, fused_bn_apply)
-from .errors import KernelBuildFailure, KernelError, KernelLaunchFailure
+from .errors import (HeadDimError, KernelBuildFailure, KernelError,
+                     KernelLaunchFailure)
 from .multi_tensor import MultiTensorPlan
 from .matmul import (VARIANTS as MATMUL_VARIANTS, MatmulGeometry, matmul,
                      matmul_cur, matmul_ep, matmul_geometry, matmul_noacc,
@@ -58,7 +60,8 @@ from .xent import (XENT_INSTANCES, SoftmaxXentFunction, XentBwdChunk,
                    softmax_xent_forward_reference, xent_bwd_geometry,
                    xent_geometry)
 
-__all__ = ['KERNELS', 'BF16', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
+__all__ = ['KERNELS', 'BF16', 'K_BLOCK', 'FWD_BLOCK_Q', 'HEAD_DIM_MAX',
+           'HEAD_WIDTHS', 'head_width', 'fwd_block_qs', 'fwd_geometry',
            'fwd_bf16_geometry', 'dq_bf16_geometry', 'dkv_bf16_geometry',
            'flash_attention_bf16_reference',
            'flash_attention_dq_bf16_reference',
@@ -90,5 +93,6 @@ __all__ = ['KERNELS', 'BF16', 'K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry',
            'matmul_geometry', 'matmul', 'matmul_reference',
            'matmul_cur', 'matmul_noacc', 'matmul_ws', 'matmul_ep',
            'MultiTensorPlan', 'KernelError', 'KernelBuildFailure',
+           'HeadDimError',
            'KernelLaunchFailure',
            'launch_counts', 'instance_launches', 'reset_launch_counts']

@@ -65,6 +65,14 @@ the forward kernel is bitwise the decode kernel's output at that
 position, for every block size :func:`fwd_geometry` can pick. What
 bounds each kernel on the H100, and what its design does about it, is
 noted at the top of its source.
+
+Head dims: the float32 forward and both decode instances take every head
+dim D from 1 to :data:`HEAD_DIM_MAX` (128), through instances built at
+the padded widths :data:`HEAD_WIDTHS` (:func:`head_width`): columns past
+D are zeros in shared memory, so every D keeps the decode bit-identity.
+The backward kernels and the bf16 instances are built for D = 64 alone.
+A head dim no instance takes raises :class:`~.errors.HeadDimError` on a
+CUDA tensor (the CPU's plain versions take any D).
 """
 from __future__ import annotations
 
@@ -77,8 +85,10 @@ from ._launch import (check_inputs as _check_inputs, count as _count,
                       instance as _instance, io_dtype as _io_dtype,
                       on_cpu as _on_cpu, ptr as _ptr, raise_on as _raise_on,
                       require as _require, stream as _stream)
+from .errors import HeadDimError
 
-__all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry', 'fwd_bf16_geometry',
+__all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'HEAD_DIM_MAX', 'HEAD_WIDTHS',
+           'head_width', 'fwd_block_qs', 'fwd_geometry', 'fwd_bf16_geometry',
            'dq_bf16_geometry', 'dkv_bf16_geometry', 'online_softmax_block',
            'flash_attention_bf16_reference',
            'flash_attention_dq_bf16_reference',
@@ -94,13 +104,20 @@ __all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'fwd_geometry', 'fwd_bf16_geometry',
 
 # fixed key-axis block: part of the bit-identity contract
 K_BLOCK = 128
-# query rows a work item of the forward kernel, the instances built,
-# largest first; each does a row's arithmetic alike, so all are bitwise
-# equal
+# query rows a work item of the forward kernel, the instances built at
+# padded widths up to 64, largest first (128 or 32; at width 128, where a
+# block holds one K and one V buffer, 64 or 32: fwd_block_qs); each does
+# a row's arithmetic alike, so all are bitwise equal
 FWD_BLOCK_Q = (128, 32)
+FWD_BLOCK_Q_WIDE = (64, 32)
 SMS = 132                   # streaming multiprocessors of the H100 SXM
 SMEM_BLOCK_MAX = 232448     # bytes of shared memory a block may take
-_D = 64                     # the head dim the kernels are built for
+# the float32 forward and decode kernels: every head dim 1 .. HEAD_DIM_MAX,
+# through instances built at these padded widths (head_width; each launch
+# passes its width to the kernel)
+HEAD_DIM_MAX = 128
+HEAD_WIDTHS = (16, 32, 64, 128)
+_D = 64                     # the head dim of the backward and bf16 kernels
 _NEG_INF = float('-inf')
 _QKV = '(B, H, Sq, D)'
 # the bf16 tensor-core kernels' exp2 constants, as float32 (mma_bf16.cuh)
@@ -178,30 +195,61 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False,
     return out.to(q.dtype), lse
 
 
-def fwd_geometry(batch, heads, sq, block_q=None):
-    """Launch geometry of the forward kernel: (block_q, blocks, shared
-    memory bytes a block).
+def head_width(d, kernel='flash_attention'):
+    """The padded width of head dim ``d``: the smallest of
+    :data:`HEAD_WIDTHS` at least ``d``, the instance of the float32
+    forward and decode kernels that runs it. A head dim outside 1 ..
+    :data:`HEAD_DIM_MAX` raises :class:`~.errors.HeadDimError`."""
+    if not 1 <= d <= HEAD_DIM_MAX:
+        raise HeadDimError(
+            '%s: head dim %d not built: the float32 forward and decode '
+            'kernels take 1-%d (wider heads: ROADMAP B1)'
+            % (kernel, d, HEAD_DIM_MAX))
+    return next(w for w in HEAD_WIDTHS if w >= d)
+
+
+def _require_train_dim(kernel, d):
+    if d != _D:
+        raise HeadDimError(
+            '%s: head dim %d not built: the backward and bf16 kernels are '
+            'built for %d (other head dims: ROADMAP B1)' % (kernel, d, _D))
+
+
+def fwd_block_qs(d=_D):
+    """The float32 forward's block sizes at head dim ``d``, largest first:
+    :data:`FWD_BLOCK_Q` up to width 64, :data:`FWD_BLOCK_Q_WIDE` at 128."""
+    return FWD_BLOCK_Q if head_width(d) <= 64 else FWD_BLOCK_Q_WIDE
+
+
+def fwd_geometry(batch, heads, sq, block_q=None, d=_D):
+    """Launch geometry of the forward kernel at head dim ``d``: (block_q,
+    blocks, shared memory bytes a block).
 
     The kernel's work items are (batch * head, query tile of ``block_q``
     rows), batch * heads * ceil(sq / block_q) of them. ``blocks``
     persistent blocks, at most one an SM, walk them in strides of
     ``blocks``, each staging the next item's tiles while it computes.
-    ``block_q`` is the largest of :data:`FWD_BLOCK_Q` whose items fill
+    ``block_q`` is the largest of :func:`fwd_block_qs` whose items fill
     the :data:`SMS` SMs, else the smallest (short sequences: 96 items at
     1 x 12 x 256); a ``block_q`` given is kept. The bytes follow the
-    kernel's ``Layout`` (``csrc/flash_attention_fwd.cu``): the Q tile,
-    two K and two V tiles of K_BLOCK rows, the K_BLOCK x block_q P tile
-    and three floats a row."""
+    kernel's ``Layout`` (``csrc/flash_attention_fwd.cu``) at the padded
+    width W = :func:`head_width` of ``d``: the Q tile, two K and two V
+    tiles of K_BLOCK rows (one of each at W 128), the K_BLOCK x block_q P
+    tile and three floats a row. A head dim past :data:`HEAD_DIM_MAX`
+    raises :class:`~.errors.HeadDimError`."""
+    width = head_width(d)
+    built = fwd_block_qs(d)
+    buffers = 1 if width > 64 else 2
+
     def items(bq):
         return batch * heads * -(-sq // bq)
     if block_q is None:
-        block_q = next((bq for bq in FWD_BLOCK_Q if items(bq) >= SMS),
-                       FWD_BLOCK_Q[-1])
-    if block_q not in FWD_BLOCK_Q:
+        block_q = next((bq for bq in built if items(bq) >= SMS), built[-1])
+    if block_q not in built:
         raise ValueError('flash_attention: block_q %r not built (have %s)'
-                         % (block_q, FWD_BLOCK_Q))
-    floats = (block_q * _D + 4 * K_BLOCK * _D + K_BLOCK * block_q
-              + 3 * block_q)
+                         % (block_q, built))
+    floats = (block_q * width + 2 * buffers * K_BLOCK * width
+              + K_BLOCK * block_q + 3 * block_q)
     return block_q, min(items(block_q), SMS), 4 * floats
 
 
@@ -210,14 +258,22 @@ def _fwd_lib():
     lib = _build.load('flash_attention_fwd')
     fn = lib.mx_flash_attention_fwd
     if fn.argtypes is None:
-        for bq in FWD_BLOCK_Q:
-            built = lib.mx_flash_attention_fwd_smem(bq)
-            _require(built == fwd_geometry(1, 1, 1, bq)[2],
-                     'flash_attention: fwd_geometry gives %d bytes at '
-                     'block_q %d, the kernel takes %d'
-                     % (fwd_geometry(1, 1, 1, bq)[2], bq, built))
+        smem = lib.mx_flash_attention_fwd_smem
+        smem.restype = ctypes.c_int
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        # every width at every block size: the bytes of its instance, 0
+        # where none is built
+        for width in HEAD_WIDTHS:
+            for bq in sorted(set(FWD_BLOCK_Q + FWD_BLOCK_Q_WIDE)):
+                want = (fwd_geometry(1, 1, 1, bq, width)[2]
+                        if bq in fwd_block_qs(width) else 0)
+                built = smem(bq, width)
+                _require(built == want,
+                         'flash_attention: fwd_geometry gives %d bytes at '
+                         'width %d block_q %d, the kernel takes %d'
+                         % (want, width, bq, built))
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
     return fn
@@ -365,16 +421,15 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
     _require(k.shape == (b, h, sk, d) and v.shape == k.shape,
              'flash_attention: k/v must be (B, H, Sk, D) = %r, got %r / %r'
              % ((b, h, sk, d), tuple(k.shape), tuple(v.shape)))
-    _require(d == _D, 'flash_attention: head dim %d not built (the '
-             'kernel is instantiated for 64)' % d)
     dt = q.dtype
     bf16 = dt == torch.bfloat16
     if bf16:
+        _require_train_dim('flash_attention (bf16)', d)
         _require(block_q in (None, FWD_BF16_BLOCK_Q), 'flash_attention: the '
                  'bf16 kernel is built for block_q %d, not %r'
                  % (FWD_BF16_BLOCK_Q, block_q))
     else:
-        block_q, blocks, _ = fwd_geometry(b, h, sq, block_q)
+        block_q, blocks, _ = fwd_geometry(b, h, sq, block_q, d)
     lens = _lengths_tensor(lengths, b, sk, q.device)
     _check_inputs('flash_attention', {'q': q, 'k': k, 'v': v,
                                       'lengths': lens},
@@ -396,8 +451,8 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
         else:
             err = _fwd_lib()(
                 _ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out), _ptr(lse),
-                b, h, sq, sk, d, float(scale), int(bool(causal)), block_q,
-                blocks, _stream(q.device))
+                b, h, sq, sk, d, head_width(d), float(scale),
+                int(bool(causal)), block_q, blocks, _stream(q.device))
     _raise_on(name, err)
     _count(name)
     return out, lse
@@ -408,7 +463,7 @@ def flash_attention_with_lse(q, k, v, lengths=None, causal=False,
     """:func:`flash_attention` that also returns the log-sum-exp
     (B, H, Sq) float32 -- the forward half of the flash backward.
     ``block_q`` picks the float32 kernel's query rows a work item (one of
-    :data:`FWD_BLOCK_Q`; None: :func:`fwd_geometry` picks); every
+    :func:`fwd_block_qs`; None: :func:`fwd_geometry` picks); every
     instance gives the same bits. The bf16 kernel is built for
     :data:`FWD_BF16_BLOCK_Q` alone."""
     if scale is None:
@@ -658,8 +713,7 @@ def _bwd_checked(kernel, q, k, v, out, lse, do, lengths):
     _require(tuple(lse.shape) == (b, h, sq),
              '%s: lse must be %r, got %r' % (kernel, (b, h, sq),
                                             tuple(lse.shape)))
-    _require(d == 64, '%s: head dim %d not built (the kernel is '
-             'instantiated for 64)' % (kernel, d))
+    _require_train_dim(kernel, d)
     lens = _lengths_tensor(lengths, b, sk, q.device)
     dt = q.dtype
     _check_inputs(kernel, {'q': q, 'k': k, 'v': v, 'out': out, 'lse': lse,
@@ -788,7 +842,7 @@ def _decode_lib():
     fn = lib.mx_flash_decode_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
     return fn
 
@@ -816,8 +870,7 @@ def flash_decode_attention(q, keys, values, positions, heads, scale=None):
                                   tuple(values.shape)))
     _require(tuple(positions.shape) == (slots,),
              'flash_decode_attention: positions must be (slots,)')
-    _require(d == 64, 'flash_decode_attention: head dim %d not built '
-             '(the kernel is instantiated for 64)' % d)
+    width = head_width(d, 'flash_decode_attention')
     _check_inputs('flash_decode_attention',
                   {'q': q, 'keys': keys, 'values': values,
                    'positions': positions},
@@ -827,7 +880,7 @@ def flash_decode_attention(q, keys, values, positions, heads, scale=None):
     fn = _decode_lib()
     with torch.cuda.device(q.device):
         err = fn(_ptr(q), _ptr(keys), _ptr(values), _ptr(positions),
-                 _ptr(out), slots, max_len, u, heads, float(scale),
+                 _ptr(out), slots, max_len, u, heads, width, float(scale),
                  _stream(q.device))
     _raise_on('flash_decode_fwd', err)
     _count('flash_decode_fwd')
@@ -858,7 +911,7 @@ def _paged_decode_lib():
     fn = _build.load('flash_decode_fwd').mx_flash_paged_decode_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
     return fn
 
@@ -899,8 +952,7 @@ def flash_paged_decode_attention(q, key_pool, value_pool, tables, positions,
                                                   tuple(tables.shape)))
     _require(tuple(positions.shape) == (slots,),
              'flash_paged_decode_attention: positions must be (slots,)')
-    _require(d == 64, 'flash_paged_decode_attention: head dim %d not built '
-             '(the kernel is instantiated for 64)' % d)
+    width = head_width(d, 'flash_paged_decode_attention')
     max_pages = tables.shape[1]
     _require(max_pages * page_size < 2 ** 31
              and pages * page_size * u < 2 ** 32,
@@ -917,7 +969,7 @@ def flash_paged_decode_attention(q, key_pool, value_pool, tables, positions,
     with torch.cuda.device(q.device):
         err = fn(_ptr(q), _ptr(key_pool), _ptr(value_pool), _ptr(tables),
                  _ptr(positions), _ptr(out), slots, max_pages, page_size,
-                 pages, u, heads, float(scale), _stream(q.device))
+                 pages, u, heads, width, float(scale), _stream(q.device))
     _raise_on('flash_paged_decode_fwd', err)
     _count('flash_paged_decode_fwd')
     return out

@@ -45,8 +45,8 @@
 //     and the CTAs with no tile leave at once;
 //   * parallel part, per CTA: all 256 threads stage the K and V tile by
 //     cp.async with every copy in flight at once and no register staged
-//     (3 CTAs an SM; the cache read in place in its (slots, max_len, U)
-//     layout, K rows padded to D + 1 floats so that thread j reading key
+//     (3 CTAs an SM at DP 64; the cache read in place in its (slots, max_len, U)
+//     layout, K rows padded to DP + 1 floats so that thread j reading key
 //     row j has no bank conflicts; V is waited for only before the
 //     weights are written, so it lands while the keys are scored);
 //     thread j < 128 scores key j with mx::tile_score; the tile max goes
@@ -55,21 +55,36 @@
 //     memory (mapa), folds them into the round's carried max with fmaxf
 //     (exact in any order, so this is the walk's running max m_{j-1}),
 //     and calls mx::rescale(m_{j-1}, tmax_j) and mx::weight as the walk
-//     does: its safe_m, corr and weights are the walk's bits; thread 64
-//     sums the weights in key order (psum);
+//     does: its safe_m, corr and weights are the walk's bits; the psum
+//     thread sums the weights in key order (psum);
 //   * ordered part, the only chain: l_j = fma(l_{j-1}, corr_j, psum_j) and
 //     acc_j = fma chain over tile j's keys from acc_{j-1} * corr_j, tile
 //     after tile. Each CTA folds its own tile from its own shared memory
-//     and hands its D accumulators and l to the CTA of the next tile by
+//     and hands its DP accumulators and l to the CTA of the next tile by
 //     st.async into that CTA's shared memory (16 bytes a store), each
 //     store completing its bytes on that CTA's mbarrier, which expects
-//     D + 1 floats a phase and which its threads wait on. (Rank 0 folding
+//     DP + 1 floats a phase and which its threads wait on. (Rank 0 folding
 //     every tile from its peers' shared memory after a second cluster
 //     barrier gives the same bits and was slower on the H100.)
 //     The CTA of the last tile writes out = mx::finish_out(acc, l) once.
 //     A cluster barrier ends each round, so no CTA reuses or releases
 //     shared memory that a peer still writes. A slot with no visible key
 //     (position < 0, or max_len 0) writes finish_out(0, 0) from rank 0.
+//
+// Head dims. Every D from 1 to 128 runs, through instances built at the
+// forward kernel's padded widths DP = 16, 32, 64 and 128 (the smallest
+// DP >= D): the D real columns of q, K and V are staged and columns D ..
+// DP - 1 are zero-filled by the copy, so tile_score is the forward
+// kernel's chain over DP (its last DP - D terms fma(0, 0, s) = s) and
+// prefill rows stay bitwise this kernel's output at every D. The DP chain
+// threads t < DP fold and hand off all DP accumulators (the padded ones
+// are zeros), 16 bytes a store; only the D real columns are written. The
+// psum thread lies past the chain threads: 64, or 128 at DP 128, where
+// threads 128-255 otherwise only stage. Where D % 4 != 0 a head's row
+// does not start on 16 bytes and V is copied 4 bytes at a time. Each
+// width is built for D == DP (FULL, d a constant) and for D < DP. At DP
+// 128 the padded K and the V tile take 133 KB of shared memory, so one CTA
+// fits an SM, not the three of DP 64.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -81,15 +96,14 @@ namespace {
 constexpr int THREADS = 2 * mx::K_BLOCK;  // 256: all stage, 128 score
 constexpr int CLUSTER_MAX = 8;            // portable cluster size
 constexpr int SCORE_WARPS = mx::K_BLOCK / 32;
-constexpr int PSUM_THREAD = 64;           // outside the D chain threads
 
-template <int D>
+template <int DP>
 struct Smem {
-  float ks[mx::K_BLOCK * (D + 1)];  // K tile, rows padded
-  float vs[mx::K_BLOCK * D];        // V tile
-  float ps[mx::K_BLOCK];            // weights
-  float qs[D];                      // scaled query
-  alignas(16) float acc_in[D];      // the previous tile's acc
+  float ks[mx::K_BLOCK * (DP + 1)];  // K tile, rows padded
+  float vs[mx::K_BLOCK * DP];        // V tile
+  float ps[mx::K_BLOCK];             // weights
+  float qs[DP];                      // scaled query, zeros past d
+  alignas(16) float acc_in[DP];      // the previous tile's acc
   float wmax[SCORE_WARPS];
   float tmax;                       // this tile's score max
   float safe_m, corr, psum;         // this tile's rescale, weight sum
@@ -258,20 +272,28 @@ struct PagedRows {
   }
 };
 
-template <int D, class Rows>
+template <int DP, bool FULL, class Rows>
 __global__ void __launch_bounds__(THREADS, 3)
 flash_decode_fwd_kernel(const float* __restrict__ q, Rows rows,
                         const int* __restrict__ positions,
                         float* __restrict__ out,
-                        int max_len, int units, float scale) {
-  constexpr int KS = D + 1;
-  constexpr int QUADS = D / 4;
+                        int max_len, int units, int d_arg, float scale) {
+  constexpr int KS = DP + 1;
+  constexpr int QUADS = DP / 4;
+  // outside the DP chain threads; 64 as before DP 128
+  constexpr int PSUM_THREAD = DP > 64 ? DP : 64;
+  // the chain threads' lanes of a warp, for the hand-off's shuffles
+  constexpr unsigned CHAIN = DP >= 32 ? 0xffffffffu : (1u << DP) - 1u;
   static_assert(mx::K_BLOCK * QUADS % THREADS == 0, "tile / threads");
-  static_assert(D <= PSUM_THREAD, "the psum thread lies past the D chain");
+  static_assert(PSUM_THREAD < THREADS && DP <= PSUM_THREAD,
+                "the psum thread lies past the DP chain");
+  static_assert(sizeof(Smem<DP>) + Rows::SMEM <= 232448,
+                "the tile fits a block");
+  const int d = FULL ? DP : d_arg;  // the real head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  Smem<DP>& sm = *reinterpret_cast<Smem<DP>*>(smem_raw);
   // the paged instance's pool offset of each key of the tile
-  unsigned* prow = reinterpret_cast<unsigned*>(smem_raw + sizeof(Smem<D>));
+  unsigned* prow = reinterpret_cast<unsigned*>(smem_raw + sizeof(Smem<DP>));
 
   const int t = threadIdx.x;
   const uint32_t rank = cluster_rank();
@@ -285,12 +307,14 @@ flash_decode_fwd_kernel(const float* __restrict__ q, Rows rows,
 
   // max_len: the view's length (max_pages * ps for the paged instance)
   const size_t row0 = rows.first(slot, max_len);
-  const float* kb = rows.keys + row0 * units + h * D;
-  const float* vb = rows.values + row0 * units + h * D;
-  float* orow = out + (size_t)slot * units + h * D;
+  const float* kb = rows.keys + row0 * units + h * d;
+  const float* vb = rows.values + row0 * units + h * d;
+  float* orow = out + (size_t)slot * units + h * d;
 
-  if (t < D) sm.qs[t] = __fmul_rn(q[(size_t)slot * units + h * D + t], scale);
-  constexpr int HANDOFF_BYTES = (D + 1) * (int)sizeof(float);  // acc, l
+  if (t < DP)
+    sm.qs[t] = t < d ? __fmul_rn(q[(size_t)slot * units + h * d + t], scale)
+                     : 0.f;
+  constexpr int HANDOFF_BYTES = (DP + 1) * (int)sizeof(float);  // acc, l
   if (t == 0) {
     mbar_init(smem_u32(&sm.bar), 1);
     mbar_expect_tx(smem_u32(&sm.bar), HANDOFF_BYTES);  // phase 0 armed
@@ -299,7 +323,7 @@ flash_decode_fwd_kernel(const float* __restrict__ q, Rows rows,
   const bool alone = ntiles == 1;
   if (ntiles == 0 || (alone && rank != 0)) {
     // no visible key: the walk's untouched (l, acc)
-    if (ntiles == 0 && rank == 0 && t < D)
+    if (ntiles == 0 && rank == 0 && t < d)
       orow[t] = mx::finish_out(0.f, 0.f);
     return;  // before any barrier
   }
@@ -320,32 +344,46 @@ flash_decode_fwd_kernel(const float* __restrict__ q, Rows rows,
       }
       // all of the tile's copies in flight at once, no registers staged:
       // K a float at a time into its padded rows, then V 16 bytes at a
-      // time; rows past max_len are zero-filled
+      // time (a float at a time where d % 4 != 0); rows past max_len and
+      // columns past d are zero-filled
 #pragma unroll 8
-      for (int idx = t; idx < mx::K_BLOCK * D; idx += THREADS) {
-        const int kp = kbase + idx / D;
-        const bool in = kp < max_len;
-        cp_async<4>(sm.ks + (idx / D) * KS + idx % D,
-                    kb + Rows::offset(prow, in ? idx / D : 0, in ? kp : 0,
-                                      units) + idx % D,
+      for (int idx = t; idx < mx::K_BLOCK * DP; idx += THREADS) {
+        const int kp = kbase + idx / DP;
+        const bool in = kp < max_len && idx % DP < d;
+        cp_async<4>(sm.ks + (idx / DP) * KS + idx % DP,
+                    kb + Rows::offset(prow, in ? idx / DP : 0, in ? kp : 0,
+                                      units) + (in ? idx % DP : 0),
                     in);
       }
       cp_async_commit();
+      if ((d & 3) == 0) {
 #pragma unroll 8
-      for (int idx = t; idx < mx::K_BLOCK * QUADS; idx += THREADS) {
-        const int kp = kbase + idx / QUADS;
-        const bool in = kp < max_len;
-        cp_async<16>(sm.vs + 4 * idx,
-                     vb + Rows::offset(prow, in ? idx / QUADS : 0,
-                                       in ? kp : 0, units) +
-                         4 * (idx % QUADS),
-                     in);
+        for (int idx = t; idx < mx::K_BLOCK * QUADS; idx += THREADS) {
+          const int kp = kbase + idx / QUADS;
+          const bool in = kp < max_len && 4 * (idx % QUADS) < d;
+          cp_async<16>(sm.vs + 4 * idx,
+                       vb + Rows::offset(prow, in ? idx / QUADS : 0,
+                                         in ? kp : 0, units) +
+                           (in ? 4 * (idx % QUADS) : 0),
+                       in);
+        }
+      } else {
+#pragma unroll 8
+        for (int idx = t; idx < mx::K_BLOCK * DP; idx += THREADS) {
+          const int kp = kbase + idx / DP;
+          const bool in = kp < max_len && idx % DP < d;
+          cp_async<4>(sm.vs + idx,
+                      vb + Rows::offset(prow, in ? idx / DP : 0,
+                                        in ? kp : 0, units) +
+                          (in ? idx % DP : 0),
+                      in);
+        }
       }
       cp_async_commit();
       cp_async_wait<1>();  // this thread's K copies have landed
       __syncthreads();
       if (t < mx::K_BLOCK) {
-        if (kbase + t <= last) s = mx::tile_score<D>(sm.qs, sm.ks + t * KS);
+        if (kbase + t <= last) s = mx::tile_score<DP>(sm.qs, sm.ks + t * KS);
         float wm = s;
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
@@ -389,30 +427,30 @@ flash_decode_fwd_kernel(const float* __restrict__ q, Rows rows,
 
     if (has) {
       float lt = 0.f, at = 0.f;
-      if (t < D && j > 0) {
+      if (t < DP && j > 0) {
         mbar_wait_cluster(smem_u32(&sm.bar), waits & 1u);
         if (t == 0) mbar_expect_tx(smem_u32(&sm.bar), HANDOFF_BYTES);
         lt = sm.l_in;
         at = sm.acc_in[t];
       }
       if (j > 0) ++waits;
-      if (t < D) {
+      if (t < DP) {
         // acc's fold, the walk's expressions in its order
         at = __fmul_rn(at, sm.corr);
 #pragma unroll 16
         for (int jj = 0; jj < mx::K_BLOCK; ++jj)
-          at = __fmaf_rn(sm.ps[jj], sm.vs[jj * D + t], at);
+          at = __fmaf_rn(sm.ps[jj], sm.vs[jj * DP + t], at);
       }
       __syncthreads();  // psum is written
-      if (t < D) {
+      if (t < DP) {
         lt = __fmaf_rn(lt, sm.corr, sm.psum);
         if (j + 1 == ntiles) {
-          orow[t] = mx::finish_out(at, lt);
+          if (t < d) orow[t] = mx::finish_out(at, lt);
         } else {
           // four columns a store: thread 4c sends columns 4c .. 4c + 3
-          const float a1 = __shfl_down_sync(0xffffffffu, at, 1);
-          const float a2 = __shfl_down_sync(0xffffffffu, at, 2);
-          const float a3 = __shfl_down_sync(0xffffffffu, at, 3);
+          const float a1 = __shfl_down_sync(CHAIN, at, 1);
+          const float a2 = __shfl_down_sync(CHAIN, at, 2);
+          const float a3 = __shfl_down_sync(CHAIN, at, 3);
           if ((t & 3) == 0) {
             const uint32_t next = (rank + 1) % (uint32_t)csize;
             const uint32_t bar = peer_u32(smem_u32(&sm.bar), next);
@@ -428,12 +466,12 @@ flash_decode_fwd_kernel(const float* __restrict__ q, Rows rows,
   }
 }
 
-template <int D, class Rows>
+template <int DP, bool FULL, class Rows>
 cudaError_t launch(const float* q, Rows rows, const int* positions,
-                   float* out, int slots, int max_len, int heads, float scale,
-                   cudaStream_t stream) {
-  auto* kernel = flash_decode_fwd_kernel<D, Rows>;
-  constexpr int SMEM_BYTES = (int)sizeof(Smem<D>) + Rows::SMEM;
+                   float* out, int slots, int max_len, int heads, int d,
+                   float scale, cudaStream_t stream) {
+  auto* kernel = flash_decode_fwd_kernel<DP, FULL, Rows>;
+  constexpr int SMEM_BYTES = (int)sizeof(Smem<DP>) + Rows::SMEM;
   // the shared-memory attribute once per device (and instance)
   static bool attr_set[64] = {};
   int dev = 0;
@@ -465,37 +503,75 @@ cudaError_t launch(const float* q, Rows rows, const int* positions,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, q, rows, positions, out, max_len,
-                           heads * D, scale);
+                           heads * d, d, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// the instance built at padded width DP (d <= DP)
+template <int DP, class Rows>
+cudaError_t launch_dp(const float* q, Rows rows, const int* positions,
+                      float* out, int slots, int max_len, int heads, int d,
+                      float scale, cudaStream_t stream) {
+  return d == DP ? launch<DP, true>(q, rows, positions, out, slots, max_len,
+                                    heads, d, scale, stream)
+                 : launch<DP, false>(q, rows, positions, out, slots, max_len,
+                                     heads, d, scale, stream);
+}
+
+// the instance built at padded width ``width`` (16, 32, 64 or 128; d <=
+// width): attention.py head_width
+template <class Rows>
+cudaError_t launch_width(const float* q, Rows rows, const int* positions,
+                         float* out, int slots, int max_len, int heads,
+                         int d, int width, float scale,
+                         cudaStream_t stream) {
+  switch (width) {
+    case 16:
+      return launch_dp<16>(q, rows, positions, out, slots, max_len, heads, d,
+                           scale, stream);
+    case 32:
+      return launch_dp<32>(q, rows, positions, out, slots, max_len, heads, d,
+                           scale, stream);
+    case 64:
+      return launch_dp<64>(q, rows, positions, out, slots, max_len, heads, d,
+                           scale, stream);
+    case 128:
+      return launch_dp<128>(q, rows, positions, out, slots, max_len, heads,
+                            d, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // ---- host entry point ----
 // q (slots, U), keys/values (slots, max_len, U), positions (slots,) int32,
-// out (slots, U); all contiguous on the device, 16-byte aligned, U = heads*D.
-// Returns the cudaError_t of the launch.
+// out (slots, U); all contiguous on the device, 16-byte aligned, U =
+// heads*D, 1 <= D <= width, the padded width of the instance (16, 32, 64 or
+// 128: attention.py head_width). Returns the cudaError_t of the launch.
 extern "C" int mx_flash_decode_fwd(const void* q, const void* keys,
                                    const void* values, const void* positions,
                                    void* out, int slots, int max_len,
-                                   int units, int heads, float scale,
-                                   void* stream) {
-  // the instance the slice needs: head dim 64
-  if (heads <= 0 || units != heads * 64 || slots < 0 || max_len < 0 ||
-      heads > 65535 || slots > 65535)
+                                   int units, int heads, int width,
+                                   float scale, void* stream) {
+  const int d = heads > 0 ? units / heads : 0;
+  if (heads <= 0 || units != heads * d || d < 1 || d > width || slots < 0 ||
+      max_len < 0 || heads > 65535 || slots > 65535)
     return cudaErrorInvalidValue;
   const SlotRows rows = {static_cast<const float*>(keys),
                         static_cast<const float*>(values)};
-  return launch<64>(static_cast<const float*>(q), rows,
-                    static_cast<const int*>(positions),
-                    static_cast<float*>(out), slots, max_len, heads, scale,
-                    static_cast<cudaStream_t>(stream));
+  return launch_width(static_cast<const float*>(q), rows,
+                      static_cast<const int*>(positions),
+                      static_cast<float*>(out), slots, max_len, heads, d,
+                      width, scale, static_cast<cudaStream_t>(stream));
 }
 
 // q (slots, U), key_pool/value_pool (pages, page_size, U), tables (slots,
 // max_pages) int32, positions (slots,) int32, out (slots, U); all contiguous
-// on the device, 16-byte aligned, U = heads*D, page_size a power of two.
+// on the device, 16-byte aligned, U = heads*D (1 <= D <= width, as for
+// mx_flash_decode_fwd), page_size a power of two.
 // Slot s attends keys <= positions[s] of its view, the max_pages * page_size
 // rows its table names. Returns the cudaError_t of the launch.
 extern "C" int mx_flash_paged_decode_fwd(const void* q, const void* key_pool,
@@ -504,11 +580,13 @@ extern "C" int mx_flash_paged_decode_fwd(const void* q, const void* key_pool,
                                          const void* positions, void* out,
                                          int slots, int max_pages,
                                          int page_size, int pages, int units,
-                                         int heads, float scale,
+                                         int heads, int width, float scale,
                                          void* stream) {
   int log2_ps = 0;
   while (log2_ps < 30 && (1 << log2_ps) < page_size) ++log2_ps;
-  if (heads <= 0 || units != heads * 64 || slots < 0 || max_pages < 0 ||
+  const int d = heads > 0 ? units / heads : 0;
+  if (heads <= 0 || units != heads * d || d < 1 || d > width || slots < 0 ||
+      max_pages < 0 ||
       pages < 1 || page_size < 1 || (1 << log2_ps) != page_size ||
       heads > 65535 || slots > 65535 ||
       (long long)max_pages * page_size > 0x7fffffffLL ||
@@ -518,8 +596,9 @@ extern "C" int mx_flash_paged_decode_fwd(const void* q, const void* key_pool,
                           static_cast<const float*>(value_pool),
                           static_cast<const int*>(tables), max_pages,
                           log2_ps, pages};
-  return launch<64>(static_cast<const float*>(q), rows,
-                    static_cast<const int*>(positions),
-                    static_cast<float*>(out), slots, max_pages * page_size,
-                    heads, scale, static_cast<cudaStream_t>(stream));
+  return launch_width(static_cast<const float*>(q), rows,
+                      static_cast<const int*>(positions),
+                      static_cast<float*>(out), slots, max_pages * page_size,
+                      heads, d, width, scale,
+                      static_cast<cudaStream_t>(stream));
 }

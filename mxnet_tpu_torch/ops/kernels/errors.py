@@ -6,10 +6,17 @@ never transient infrastructure trouble: the resilience layer
 :class:`KernelError` before it reads a message, so such a failure fails
 its requests loudly and is never completed on the CPU. Both classes stay
 ``RuntimeError``s, as the errors they name were before.
+
+:class:`HeadDimError` is an input the kernels are not built for, a
+``ValueError`` as the wrappers' other refusals are: a head dim past what
+the float32 serving kernels take (1-128), or other than 64 for the
+training and bf16 kernels. Its message names the ROADMAP item that would
+build it (B1).
 """
 from __future__ import annotations
 
-__all__ = ['KernelError', 'KernelBuildFailure', 'KernelLaunchFailure']
+__all__ = ['KernelError', 'KernelBuildFailure', 'KernelLaunchFailure',
+           'HeadDimError']
 
 
 class KernelError(RuntimeError):
@@ -24,3 +31,7 @@ class KernelBuildFailure(KernelError):
 class KernelLaunchFailure(KernelError):
     """A kernel's C entry point returned a ``cudaError_t`` other than
     ``cudaSuccess``."""
+
+
+class HeadDimError(ValueError):
+    """A head dim no instance of the kernel is built for (ROADMAP B1)."""

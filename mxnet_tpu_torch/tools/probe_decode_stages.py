@@ -66,8 +66,10 @@ CONFIGS = ((128, (127,) * SLOTS), (512, (127,) * SLOTS),
            (512, (511,) * SLOTS), (512, SERVING_POSITIONS),
            *((512, wave) for wave in PHASE3_WAVES))
 PEAK_BYTES_S = 3.35e12
-QS_LINE = ('  if (t < D) sm.qs[t] = __fmul_rn(q[(size_t)slot * units + h * D '
-           '+ t], scale);\n')
+QS_LINE = ('  if (t < DP)\n'
+           '    sm.qs[t] = t < d ? __fmul_rn(q[(size_t)slot * units + h * d '
+           '+ t], scale)\n'
+           '                     : 0.f;\n')
 TMAX_SYNC = ('    if (!alone) cluster_sync();  // every tile max of the round '
              'is written\n')
 CARRY = '    if (t == 0 && g + 1 < rounds) {\n'
@@ -135,7 +137,7 @@ def _slot_sass(build, so):
 def _entry(lib):
     fn = lib.mx_flash_decode_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     return fn
 
@@ -194,7 +196,7 @@ def main(argv=None):
                 k, v = copies[i % len(copies)]
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          pos.data_ptr(), out.data_ptr(), SLOTS, max_len,
-                         units, HEADS, scale, stream)
+                         units, HEADS, D, scale, stream)
                 if err:
                     raise RuntimeError('decode launch failed: %d' % err)
             return run
