@@ -421,7 +421,29 @@ Phases, in order; any failure exits non-zero:
      ``snapshot`` / ``restore`` and ``step_accum(x, y, 2)`` within 1e-5
      of one full-batch step with ``num_update`` 1 (eager, captured and
      replayed), and a captured dropout draw's replays equal to the
-     eager draws of a generator seeded alike;
+     eager draws of a generator seeded alike. 4w, the training rows at
+     every head dim: (a) rows 2 and 3 (float32 dq, dk/dv, on row 1's out
+     and lse) within 1e-5 of each gradient's max abs and 1b-3b within
+     their tiers (``check_bf16_kernels``) of their plain versions at each
+     D of ``TRAIN_HEAD_DIM_CHECKS`` (every width's D == W and D < W
+     instances by each staging route; 3 heads; lengths below S, a length
+     0, Sq != Sk both ways; 16 heads at B 12, S 256: more items than the
+     card holds at once; the main path's B 96, H 12, S 128), one launch a
+     call at the D's width, D 129 refused by
+     the five wrappers before any launch; (b) 2-layer encoders at D 80
+     (units 320, 4 heads) and D 128 (units 256, 2 heads) on the card
+     against the CPU in float32, under ``amp='bf16'`` and after the cast,
+     at 4a's, 4a-amp's and 4a-cast's tiers (but the D-128 token-type
+     table's cast gradient: ``TRAIN_DIM_CAST_EXCEPTIONS``);
+     (c) BERT at microsoft/MiniLM-L12-H384-uncased's widths (12 layers,
+     384 units, 12 heads: head dim 32, FFN 1536; random weights from seed
+     0) at 4b's batch, 2 + 10 captured AdamW steps in float32, under AMP
+     and after the cast: exact launches (12 a step of rows 1-3 or 1b-3b,
+     all at width 32), losses finite, the last three below the first;
+     float32 twins bitwise; step ms, samples/s, peak memory, busy share;
+     (d) rows 2, 3, 1b, 2b, 3b timed at MiniLM's attention (B 96, H 12,
+     S 128, D 32), at D 128 over 768 units (H 6) and at D 64, beside
+     SDPA in the same dtype and the bound;
   5. the ResNet slice. 5a: a narrow v1 ResNet (``[2, 1, 1, 1]`` x ``[8,
      16, 32, 64, 128]``, 10 classes) takes one forward and backward and
      three SGD steps (lr 0.001) on the card and on the CPU from the same
@@ -6958,20 +6980,23 @@ def pretrain_loss_fn(gloss, vocab):
 
 def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
                       shape=SMALL_BATCH, steps=3, seed=0, amp=None,
-                      route=None):
+                      route=None, phase='phase 4a', grad_bounds=None):
     """Phase 4a: one forward + backward, then ``steps`` trainer steps,
     on ``device`` and on the CPU from the same weights; with ``amp``
     ('bf16', phase 4a-amp) the forward runs under the policy's scope and
     the trainer takes ``amp``; with ``route`` 'cast' or 'cast_mp' (phase
     4a-cast) the net is cast to bf16 first and AdamW runs without or with
     ``multi_precision``. Both held to :data:`AMP_LOSS_RTOL` and
-    :data:`AMP_GRAD_REL`. Returns (loss relative error, worst gradient
-    relative error, step losses relative error)."""
+    :data:`AMP_GRAD_REL`; ``grad_bounds`` ({parameter: limit}) names a
+    parameter held to another limit than its route's tier (phase 4w
+    (b)'s :data:`TRAIN_DIM_CAST_EXCEPTIONS`). Returns (loss relative
+    error, worst gradient relative error, step losses relative
+    error)."""
     import warnings
     from mxnet_tpu_torch import amp as amp_mod
     vocab = cfg['vocab_size']
     loss_fn = pretrain_loss_fn(gloss, vocab)
-    phase = 'phase 4a' + ('-amp (%s)' % amp if amp else '') \
+    phase = phase + ('-amp (%s)' % amp if amp else '') \
         + ('-cast (%s)' % route if route else '')
     hyper = dict(TRAIN_HYPER, multi_precision=route == 'cast_mp')
     runs = {}
@@ -7000,26 +7025,38 @@ def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
         runs[dev.type] = (loss, grads, losses)
     (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = runs[device.type], \
         runs['cpu']
+    loss_tol, grad_tol = ((AMP_LOSS_RTOL, AMP_GRAD_REL) if amp or route
+                          else (TOL, GRAD_REL))
+    bounds = dict.fromkeys(g_cpu, grad_tol)
+    if grad_bounds:
+        if not set(grad_bounds) <= set(g_cpu):
+            raise AssertionError('%s: no parameter %s' % (
+                phase, sorted(set(grad_bounds) - set(g_cpu))))
+        bounds.update(grad_bounds)
+        log('%s: held to other limits than %g: %s' % (phase, grad_tol,
+                                                      grad_bounds))
     loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
-    grad_err = 0.0
+    per = {}
     for name, want in g_cpu.items():
         got = g_dev[name]
         if (got is None) != (want is None):
             raise AssertionError('%s: %s has a gradient on one device '
                                  'only' % (phase, name))
         if want is not None:
-            grad_err = max(grad_err, _errs(got, want)[1])
+            per[name] = _errs(got, want)[1]
+    grad_err = max(per.values(), default=0.0)
+    over = {n: e for n, e in per.items() if not e <= bounds[n]}
     step_err = max(abs(a - b) / abs(b) for a, b in zip(s_dev, s_cpu))
     log('%s %s vs cpu: loss %.7g vs %.7g, rel_err %.3g; worst '
-        'gradient rel_err %.3g over %d parameters; %d steps %s vs %s, '
-        'rel_err %.3g' % (phase, device.type, l_dev, l_cpu, loss_err,
-                          grad_err, len(g_cpu), steps, s_dev, s_cpu,
-                          step_err))
-    loss_tol, grad_tol = ((AMP_LOSS_RTOL, AMP_GRAD_REL) if amp or route
-                          else (TOL, GRAD_REL))
-    if not loss_err <= loss_tol or not grad_err <= grad_tol \
-            or not step_err <= loss_tol:
-        raise AssertionError('%s: the card disagrees with the CPU' % phase)
+        'gradient rel_err %.3g over %d parameters (largest %s); %d steps '
+        '%s vs %s, rel_err %.3g'
+        % (phase, device.type, l_dev, l_cpu, loss_err, grad_err, len(g_cpu),
+           ', '.join('%s %.3g' % kv for kv in sorted(
+               per.items(), key=lambda kv: -kv[1])[:3]), steps, s_dev, s_cpu,
+           step_err))
+    if not loss_err <= loss_tol or over or not step_err <= loss_tol:
+        raise AssertionError('%s: the card disagrees with the CPU (gradients '
+                             'past their bounds: %s)' % (phase, over))
     return loss_err, grad_err, step_err
 
 
@@ -7073,17 +7110,19 @@ def cast_train_launches(kernels, layers, mp=False):
 
 def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
                shape=TRAIN, warmup=TRAIN_WARMUP, iters=TRAIN_ITERS, seed=0,
-               amp=None, route=None):
+               amp=None, route=None, phase=None):
     """Phase 4b (``amp`` None: float32), 4c (``amp='bf16'``) or 4d
     (``route`` 'cast': after ``cast('bfloat16')``, AdamW on bf16 weights
     and state, as ``bench_bert`` trains on the accelerator; 'cast_mp',
     4d-mp: with ``multi_precision``): BERT pretraining steps through
     ``ParallelTrainer.step``, captured from the second step on (one
-    program). The launch counts are zeroed after the warm-up and read
-    after the timed steps. Returns a dict of results."""
+    program); ``cfg`` another BERT's widths (phase 4w: ``phase`` names
+    it). The launch counts are zeroed after the warm-up and read after
+    the timed steps (``instances``: by instance, the attention rows' by
+    width). Returns a dict of results."""
     import warnings
-    phase = {None: 'phase 4c' if amp else 'phase 4b', 'cast': 'phase 4d',
-             'cast_mp': 'phase 4d-mp'}[route]
+    phase = phase or {None: 'phase 4c' if amp else 'phase 4b',
+                      'cast': 'phase 4d', 'cast_mp': 'phase 4d-mp'}[route]
     t0 = time.perf_counter()
     if cfg is None:
         net = bert.bert_12_768_12(vocab_size=shape['vocab'], max_length=512,
@@ -7126,6 +7165,7 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     counts = kernels.launch_counts()
+    instances = kernels.instance_launches()
     losses = [float(l) for l in losses]
     if cuda and pt.compile_count != 1:
         raise AssertionError('%s: %d step programs captured, expected 1'
@@ -7166,7 +7206,8 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     step_ms = [s.elapsed_time(e) for s, e in events]
     return {
         'setup_s': setup_s, 'losses': losses, 'launches': counts,
-        'per_step': per_step, 'wall_s': wall, 'amp': pt.amp,
+        'instances': instances, 'per_step': per_step, 'wall_s': wall,
+        'amp': pt.amp,
         'master_dtypes': masters, 'state_dtypes': states,
         'warnings': sum('Accumulating with bfloat16' in str(w.message)
                         for w in warned),
@@ -7251,15 +7292,17 @@ def twin_steps(torch, phase, build, steps=TRAIN_WARMUP + TRAIN_ITERS):
 
 
 def bert_base_trainer(torch, bert, gloss, parallel, device, route=None,
-                      shape=TRAIN, seed=0):
+                      shape=TRAIN, seed=0, cfg=None):
     """4b's configuration (``route`` 'cast': 4d's, after
     ``cast('bfloat16')``): BERT-base with dropout 0.1, its batch, AdamW,
-    the trainer's generator seeded by ``seed``. Returns (net, trainer,
+    the trainer's generator seeded by ``seed``; ``cfg`` another BERT's
+    widths (``get_bert``'s arguments: 4w's MiniLM). Returns (net, trainer,
     step args)."""
     import warnings
     net = bert.init_params(bert.bert_12_768_12(
         vocab_size=shape['vocab'], max_length=512, dropout=0.1,
-        device=device), seed)
+        device=device) if cfg is None else bert.get_bert(device=device,
+                                                         **cfg), seed)
     if route:
         net.cast('bfloat16')
     xs, ys = pretrain_batch(torch, device, shape['vocab'], shape['batch'],
@@ -7301,6 +7344,418 @@ def resnet_twins(torch, resnet, gloss, parallel, optimizer, device,
                       lambda: resnet50_trainer(torch, resnet, gloss, parallel,
                                                optimizer, device, shape,
                                                seed))
+
+
+# -- phase 4w: training attention at every head dim, MiniLM-L12-H384 -------
+
+# (a): the head dims rows 2, 3, 1b, 2b and 3b are held to their plain
+# versions at: each padded width's instance for D == W (16, 32, 64, 128)
+# and for D < W by each staging route of its rows: float32 rows of D % 4
+# != 0 copied 4 bytes at a time (1, 6, 30, 63, 127) and of D % 4 == 0 by
+# 16-byte chunks (8, 20, 24, 36, 48, 80, 96, 100); bf16 rows of D % 8 !=
+# 0 staged through registers (1, 6, 20, 30, 36, 63, 100, 127) and of D %
+# 8 == 0 by 16-byte chunks (8, 24, 48, 80, 96); HEAD_DIM_CHECKS among them
+TRAIN_HEAD_DIM_CHECKS = (1, 6, 8, 16, 20, 24, 30, 32, 36, 48, 63, 64, 80, 96,
+                         100, 127, 128)
+# at each of them, on (batch, Sq, Sk, causal, lengths) at HEAD_DIM_HEADS
+# heads: lengths below S, a row set with no visible key, S 17 with lengths
+# down to 1, Sq != Sk both ways; TRAIN_DIM_WALK at HEAD_DIM_WALK_HEADS
+# heads: 12 x 16 x 2 = 384 work items of 128 rows, more than two blocks an
+# SM hold at once (264), each block walking 8 32-key (dq) or 8 32-query
+# (dk/dv) tiles; and the main path's attention, training_attention_cases()
+# at TRAIN['heads'] heads (MiniLM's B 96, H 12, S 128 at D 32, with
+# lengths below S)
+TRAIN_DIM_CASES = ((2, 128, 128, False, [128, 77]),
+                   (2, 200, 200, True, [200, 0]),
+                   (3, 17, 17, False, [17, 9, 1]),
+                   (2, 100, 300, False, [300, 250]),
+                   (2, 300, 100, True, [100, 37]))
+TRAIN_DIM_WALK = (12, 256, 256, True, [256 - 3 * (i % 4) for i in range(12)])
+TRAIN_DIM_KERNELS = ('flash_attention_dq', 'flash_attention_dkv',
+                     'flash_attention_fwd.bf16', 'flash_attention_dq.bf16',
+                     'flash_attention_dkv.bf16')
+# (b): small encoders on the card against the CPU at D 80 and D 128 (the
+# widths 128 instances, D < W and D == W), 4a's batch
+TRAIN_DIM_BERTS = {
+    80: dict(vocab_size=1000, max_length=128, units=320, hidden_size=1280,
+             num_layers=2, num_heads=4, dropout=0.0),
+    128: dict(vocab_size=1000, max_length=128, units=256, hidden_size=1024,
+              num_layers=2, num_heads=2, dropout=0.0)}
+# (b)'s one exception to 4a-cast's 2e-2, by head dim: after the cast, the
+# token-type table's gradient at D 128 (a sum over every token of the
+# batch into two rows, with cancellation, of upstream gradients that went
+# through the bf16 GEMMs, layer norms and attention) reads 0.021 of its
+# max abs from the CPU's on the H100, the same in every run; held to 0.03,
+# 1.5 x that reading. Every other parameter, the loss and the steps stay
+# at 2e-2
+TRAIN_DIM_CAST_EXCEPTIONS = {128: {'type_weight': 0.03}}
+# (c): microsoft/MiniLM-L12-H384-uncased's widths, BERT's architecture
+# (the JAX package's BERTModel(units=384, hidden_size=1536, num_layers=12,
+# num_heads=12) exactly): head dim 32; bge-small, e5-small and
+# all-MiniLM share them
+MINILM = dict(vocab_size=30522, max_length=512, units=384, hidden_size=1536,
+              num_layers=12, num_heads=12, dropout=0.1)
+MINILM_SOURCE = ('microsoft/MiniLM-L12-H384-uncased config.json (hidden_size '
+                 '384, intermediate_size 1536, num_hidden_layers 12, '
+                 'num_attention_heads 12, vocab_size 30522, '
+                 'max_position_embeddings 512, type_vocab_size 2)')
+MINILM_CUTS = ('none: every width and all 12 layers; random weights from '
+               'seed 0 (bert.init_params), MLM + NSP at bench.py\'s BERT '
+               'batch')
+# (d): the five rows timed at MiniLM's attention, at head dim 128 over
+# BERT-base's units (6 heads), and at 64 again: (label, B, H, S, D)
+TRAIN_DIM_TIMED = (('minilm D32', 96, 12, 128, 32),
+                   ('D128 at 768 units', 96, 6, 128, 128),
+                   ('D64', 96, 12, 128, 64))
+# rows 2, 3, 1b, 2b and 3b at head dim 64 as PERF.md records them before
+# other head dims were built (NVIDIA H100 80GB HBM3, 700 W)
+D64_TRAIN_DEVICE_MS = {'flash_attention_dq': 0.1346,
+                       'flash_attention_dkv': 0.1775,
+                       'flash_attention_fwd.bf16': 0.0379,
+                       'flash_attention_dq.bf16': 0.0477,
+                       'flash_attention_dkv.bf16': 0.0669}
+
+
+def train_dim_launches(kernels, cases):
+    """The launches :func:`check_train_head_dims` makes at one head dim
+    over ``cases`` attention cases: the float32 forward twice a case (its
+    own and the bf16 check's lse reference), every other row once."""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(dict.fromkeys(TRAIN_DIM_KERNELS, cases))
+    want['flash_attention_fwd'] = 2 * cases
+    return {k: v for k, v in want.items() if v}
+
+
+def check_train_head_dims(torch, kernels, device,
+                          dims=TRAIN_HEAD_DIM_CHECKS, heads=HEAD_DIM_HEADS,
+                          cases=TRAIN_DIM_CASES, walk=TRAIN_DIM_WALK,
+                          walk_heads=HEAD_DIM_WALK_HEADS,
+                          main_heads=TRAIN['heads']):
+    """Phase 4w (a): at each head dim of ``dims``, rows 2 and 3 (float32
+    dq and dk/dv, on row 1's out and lse) within TOL of their plain
+    versions, relative to each gradient's max abs, length-0 rows exactly
+    0; rows 1b, 2b and 3b by :func:`check_bf16_kernels`' tiers (2 bf16
+    ULPs of their own plain versions beyond the float32 tier and the flip
+    slack, the reference's bf16 tier of the float32 function), on
+    ``cases`` at ``heads`` heads, ``walk`` at ``walk_heads`` and
+    :func:`training_attention_cases` (the main path's shape) at
+    ``main_heads``; every call a launch of the instance at the head dim's
+    width (no CUDA tensor reaches a plain version). Then a head dim of 129 refused by the five
+    wrappers on the card, typed and naming ROADMAP B1, before any launch.
+    Returns {'errs': worst error by kernel, 'by_dim': {d: errors},
+    'seconds': s}."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device='cpu').manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    worst = dict.fromkeys(TRAIN_DIM_KERNELS, 0.0)
+    by_dim = {}
+    runs = ([(heads, c) for c in cases] + ([(walk_heads, walk)] if walk
+                                           else [])
+            + [(main_heads, (b, s, s, causal, lengths)) for b, s, causal,
+               lengths in training_attention_cases()])
+    for d in dims:
+        width = kernels.head_width(d)
+        kernels.reset_launch_counts()
+        errs = dict.fromkeys(TRAIN_DIM_KERNELS, 0.0)
+        rels = []
+        for h, (b, sq, sk, causal, lengths) in runs:
+            q, do = (randn(b, h, sq, d) for _ in range(2))
+            k, v = (randn(b, h, sk, d) for _ in range(2))
+            lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+            out, lse = kernels.flash_attention_with_lse(q, k, v, lens, causal)
+            dq = kernels.flash_attention_dq(q, k, v, out, lse, do, lens,
+                                            causal)
+            dk, dv = kernels.flash_attention_dkv(q, k, v, out, lse, do, lens,
+                                                 causal)
+            want = kernels.flash_attention_backward_reference(
+                q, k, v, out, lse, do, lens, causal)
+            pairs = [_errs(a, w) for a, w in zip((dq, dk, dv), want)]
+            where = 'D=%d H=%d Sq=%d Sk=%d causal=%s lengths %s' % (
+                d, h, sq, sk, causal, lengths)
+            if not all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv)):
+                raise AssertionError('phase 4w (a) %s: a float32 gradient '
+                                     'is not finite' % where)
+            dead = lens == 0
+            if dead.any() and any(t[dead].abs().max().item() != 0.0
+                                  for t in (dq, dk, dv)):
+                raise AssertionError('phase 4w (a) %s: a length-0 row set '
+                                     'must give dq = dk = dv = 0' % where)
+            if not max(r for _, r in pairs) <= TOL:
+                raise AssertionError('phase 4w (a) %s: dq / dk / dv rel_err '
+                                     '%s (limit %g)' % (
+                                         where, [r for _, r in pairs], TOL))
+            rels.append(max(r for _, r in pairs))
+            errs['flash_attention_dq'] = max(errs['flash_attention_dq'],
+                                             pairs[0][0])
+            errs['flash_attention_dkv'] = max(errs['flash_attention_dkv'],
+                                              pairs[1][0], pairs[2][0])
+            del q, k, v, do, out, lse, dq, dk, dv, want
+            for name, e in check_bf16_kernels(
+                    torch, kernels, device, heads=h, d=d,
+                    cases=[(b, sq, sk, causal, lengths)],
+                    epi_shapes=()).items():
+                if name in errs:
+                    errs[name] = max(errs[name], e)
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        cuda = device.type == 'cuda'
+        if cuda and launches != train_dim_launches(kernels, len(runs)):
+            raise AssertionError('phase 4w (a) D=%d: launches %r, one a call '
+                                 '%r' % (d, launches, train_dim_launches(
+                                     kernels, len(runs))))
+        widths = {i for (name, i), n in kernels.instance_launches().items()
+                  if name.startswith('flash_attention') and n}
+        if cuda and widths != {width}:
+            raise AssertionError('phase 4w (a) D=%d: instances at widths %s, '
+                                 'not %d' % (d, widths, width))
+        by_dim[d] = errs
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
+        log('phase 4w (a) D=%d (width %d): rows 2 / 3 worst rel_err %.3g; '
+            'max abs err %s; launches %s, one a call, all at width %d'
+            % (d, width, max(rels), {k: '%.3g' % e for k, e in errs.items()},
+               launches, width))
+    d = kernels.HEAD_DIM_MAX + 1
+    kernels.reset_launch_counts()
+    # the CPU's plain versions take any head dim: the refusals are the
+    # card's
+    for dt in ((torch.float32, torch.bfloat16) if device.type == 'cuda'
+               else ()):
+        x = torch.zeros(1, 1, 4, d, device=device, dtype=dt)
+        lse = torch.zeros(1, 1, 4, device=device)
+        calls = [('flash_attention_dq', lambda: kernels.flash_attention_dq(
+                      x, x, x, x, lse, x)),
+                 ('flash_attention_dkv', lambda: kernels.flash_attention_dkv(
+                     x, x, x, x, lse, x))]
+        if dt == torch.bfloat16:
+            calls.insert(0, ('flash_attention (bf16)',
+                             lambda: kernels.flash_attention_with_lse(x, x,
+                                                                      x)))
+        for name, call in calls:
+            try:
+                call()
+            except kernels.HeadDimError as exc:
+                if 'B1' not in str(exc):
+                    raise AssertionError('phase 4w (a): %s (%s) at D=%d '
+                                         'refused without naming B1: %s'
+                                         % (name, dt, d, exc))
+                log('phase 4w (a) D=%d: %s (%s) refused: %s'
+                    % (d, name, dt, exc))
+            else:
+                raise AssertionError('phase 4w (a): %s (%s) took head dim %d'
+                                     % (name, dt, d))
+    if any(kernels.launch_counts().values()):
+        raise AssertionError('phase 4w (a): a refused call launched %r'
+                             % kernels.launch_counts())
+    return {'errs': worst, 'by_dim': by_dim,
+            'seconds': time.perf_counter() - t0}
+
+
+def train_head_dims_against_cpu(torch, bert, gloss, parallel, device,
+                                cfgs=TRAIN_DIM_BERTS):
+    """Phase 4w (b): :func:`train_against_cpu` on each encoder of
+    ``cfgs`` (by head dim) in float32, under ``amp='bf16'`` and after
+    ``cast('bfloat16')``, at 4a's, 4a-amp's and 4a-cast's tiers, but for
+    the cast gradients :data:`TRAIN_DIM_CAST_EXCEPTIONS` names. Returns
+    {(head dim, route): (loss, gradient, steps relative errors)}."""
+    out = {}
+    for d, cfg in cfgs.items():
+        if cfg['units'] // cfg['num_heads'] != d:
+            raise AssertionError('phase 4w (b): %r has head dim %d, not %d'
+                                 % (cfg, cfg['units'] // cfg['num_heads'],
+                                    d))
+        for amp, route in ((None, None), ('bf16', None), (None, 'cast')):
+            out[d, amp or route or 'float32'] = train_against_cpu(
+                torch, bert, gloss, parallel, device, cfg=cfg, amp=amp,
+                route=route, phase='phase 4w (b) D=%d' % d,
+                grad_bounds=TRAIN_DIM_CAST_EXCEPTIONS.get(d) if route
+                else None)
+    return out
+
+
+def train_minilm(torch, bert, gloss, parallel, kernels, device, cfg=MINILM):
+    """Phase 4w (c): BERT pretraining at MiniLM-L12-H384's widths
+    (:data:`MINILM`) through :func:`train_full` (4b's batch, AdamW, 2 + 10
+    steps captured from the second on, exact launches a step) in float32,
+    under ``amp='bf16'`` and after ``cast('bfloat16')``: the losses
+    finite and the last three below the first; the attention rows
+    launched at the head dim's width alone, ``num_layers`` a step each;
+    then 12 float32 steps captured against their eager twins, bit for bit
+    under deterministic algorithms (:func:`twin_steps`). Returns {route:
+    train_full's result} and the twins' mean step ms (captured,
+    eager)."""
+    d = cfg['units'] // cfg['num_heads']
+    width = kernels.head_width(d)
+    runs = {}
+    for amp, route, tag in ((None, None, 'float32'), ('bf16', None, 'amp'),
+                            (None, 'cast', 'cast')):
+        phase = 'phase 4w (c) %s' % tag
+        r = train_full(torch, bert, gloss, parallel, kernels, device,
+                       cfg=cfg, amp=amp, route=route, phase=phase)
+        if not max(r['losses'][-3:]) < r['losses'][0]:
+            raise AssertionError('%s: one of the last three losses is not '
+                                 'below the first: %r' % (phase,
+                                                          r['losses']))
+        bf = '' if tag == 'float32' else kernels.BF16
+        want = cfg['num_layers'] * TRAIN_ITERS
+        got = {n + bf: (r['launches'][n + bf],
+                        r['instances'].get((n + bf, width), 0))
+               for n in ('flash_attention_fwd', 'flash_attention_dq',
+                         'flash_attention_dkv')}
+        if device.type == 'cuda' and any(v != (want, want)
+                                         for v in got.values()):
+            raise AssertionError('%s: attention launches (all, at width %d) '
+                                 '%r, want %d each' % (phase, width, got,
+                                                       want))
+        r['attention_launches'] = got
+        runs[tag] = r
+        torch.cuda.empty_cache()
+    twins = twin_steps(torch, 'phase 4w (c) twins', lambda: bert_base_trainer(
+        torch, bert, gloss, parallel, device, cfg=cfg))
+    return runs, twins
+
+
+def time_train_head_dims(torch, kernels, shapes=TRAIN_DIM_TIMED):
+    """Phase 4w (d): rows 2, 3, 1b, 2b and 3b at each (label, B, H, S, D)
+    of ``shapes``, non-causal, every length S: :func:`timings` (per call,
+    device by the slope timer, plain) beside SDPA in the same dtype (its
+    forward for 1b, its backward, dq, dk and dv together, for the others)
+    and the bound: the bytes at 3.35 TB/s against the products at the
+    real D, 3xTF32 (three TF32 products) at 495 TFLOP/s for rows 2 / 3,
+    one bf16 product at 989 TFLOP/s for 1b-3b, as phase 2 bounds them.
+    Returns {kernel: {label: row}}."""
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    bf = torch.bfloat16
+    gen = torch.Generator(device='cpu').manual_seed(9)
+    out = {}
+    for label, batch, heads, seq, d in shapes:
+        q, k, v, do = (torch.randn(batch, heads, seq, d, generator=gen).to(dev)
+                       for _ in range(4))
+        lens = torch.full((batch,), seq, dtype=torch.int32, device=dev)
+        visible = batch * heads * seq * seq
+        lse_b, lens_b = batch * heads * seq * 4, batch * 4
+        shape = 'B%d H%d S%d D%d (width %d) non-causal lengths %d' % (
+            batch, heads, seq, d, kernels.head_width(d), seq)
+        for dt, per in ((torch.float32, 4), (bf, 2)):
+            qx, kx, vx, dox = (t.to(dt) for t in (q, k, v, do))
+            ox, lse = kernels.flash_attention_with_lse(qx, kx, vx, lens)
+            tensor_b = qx.numel() * per
+            qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                          for t in (qx, kx, vx))
+            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, (qs, ks, vs), dox,
+                                           retain_graph=True)
+            ins = (qx, kx, vx, ox, lse, dox, lens)
+            peak, what = ((PEAK_TF32_FLOP_S, '3xTF32 at 495 TFLOP/s')
+                          if dt == torch.float32 else
+                          (PEAK_BF16_FLOP_S, 'one bf16 product at 989 '
+                           'TFLOP/s'))
+            mult = 3 if dt == torch.float32 else 1
+            rows = []
+            if dt == bf:
+                rows.append(('flash_attention_fwd.bf16', (qx, kx, vx, lens),
+                             kernels.flash_attention_with_lse,
+                             kernels.flash_attention_bf16_reference,
+                             lambda q, k, v, lens:
+                                 F.scaled_dot_product_attention(q, k, v),
+                             None, 4 * tensor_b, visible * 4 * d, 'SDPA'))
+            sfx = '' if dt == torch.float32 else kernels.BF16
+            plain = ((kernels.flash_attention_dq_reference,
+                      kernels.flash_attention_dkv_reference)
+                     if dt == torch.float32 else
+                     (kernels.flash_attention_dq_bf16_reference,
+                      kernels.flash_attention_dkv_bf16_reference))
+            rows.append(('flash_attention_dq' + sfx, ins,
+                         kernels.flash_attention_dq, plain[0], sdpa_bwd, (),
+                         6 * tensor_b, mult * visible * 6 * d,
+                         'SDPA backward (dq, dk and dv together)'))
+            rows.append(('flash_attention_dkv' + sfx, ins,
+                         kernels.flash_attention_dkv, plain[1], sdpa_bwd, (),
+                         7 * tensor_b, mult * visible * 8 * d,
+                         'SDPA backward (dq, dk and dv together)'))
+            for name, args, fn, pl, lib, lib_in, nbytes, flops, lib_name \
+                    in rows:
+                b_ms, b_by = bound(nbytes + lse_b + lens_b, flops, peak)
+                row = timings(torch, args, fn, pl, lib, library_inputs=lib_in,
+                              bound_ms=b_ms, bound_by=b_by,
+                              shape='%s, %s; bound: %s; library: %s on %s'
+                              % (shape, 'bf16' if dt == bf else 'float32',
+                                 what, lib_name,
+                                 'bf16' if dt == bf else 'float32'))
+                row['bound_share'] = row['bound_ms'] / row['device_ms']
+                out.setdefault(name, {})[label] = row
+            del qx, kx, vx, dox, ox, lse, qs, ks, vs, sdpa_out, ins, rows
+            torch.cuda.empty_cache()
+        del q, k, v, do
+    return out
+
+
+def log_train_head_dims(ra, rb, rc, twins, times_w, train_times, card):
+    """Phase 4w's lines: (a) by head dim, (b) the encoders card against
+    CPU, (c) MiniLM-L12-H384's runs beside the card's name and power
+    limit, (d) the times at each shape and D 64 beside PERF.md's."""
+    log('phase 4w (a): rows 2, 3, 1b, 2b and 3b at D %s against their plain '
+        'versions (worst %s), %.1f s'
+        % (sorted(ra['by_dim']), {k: '%.3g' % e for k, e in
+                                  ra['errs'].items()}, ra['seconds']))
+    for (d, route), (loss, grad, step) in rb.items():
+        log('phase 4w (b) D=%d %s: card vs cpu loss rel_err %.3g, worst '
+            'gradient rel_err %.3g, 3 steps rel_err %.3g'
+            % (d, route, loss, grad, step))
+    cfg = MINILM
+    log('phase 4w slice: BERT at MiniLM-L12-H384\'s widths (%s): %d layers, '
+        'units %d, %d heads (head dim %d), FFN %d, vocabulary %d, dropout '
+        '%g; cut: %s; batch %d x %d tokens, %d masked, AdamW %s, %d warm-up + '
+        '%d timed steps'
+        % (MINILM_SOURCE, cfg['num_layers'], cfg['units'], cfg['num_heads'],
+           cfg['units'] // cfg['num_heads'], cfg['hidden_size'],
+           cfg['vocab_size'], cfg['dropout'], MINILM_CUTS, TRAIN['batch'],
+           TRAIN['seq'], TRAIN['preds'], TRAIN_HYPER, TRAIN_WARMUP,
+           TRAIN_ITERS))
+    for tag, r in rc.items():
+        log('phase 4w (c) %s: launches in the timed steps %s (per step %s); '
+            'attention (all, at the width) %s; parameters %s, AdamW state %s'
+            % (tag, {k: v for k, v in r['launches'].items() if v},
+               {k: v for k, v in r['per_step'].items() if v},
+               r['attention_launches'], r['master_dtypes'],
+               r['state_dtypes']))
+        log('phase 4w (c) %s losses: %s' % (tag, r['losses']))
+        prof = r['profile']
+        log('phase 4w (c) %s metrics [%s]: samples/s %.2f, mean step %.3f ms '
+            '(CUDA events; each %s), wall %.3f s for %d steps, peak memory %d '
+            'B, busy share %s, setup %.1f s, capture seconds %s'
+            % (tag, card, r['samples_per_s'], r['step_ms'],
+               ['%.3f' % t for t in r['step_ms_each']], r['wall_s'],
+               TRAIN_ITERS, r['peak_mem_bytes'],
+               'not measured' if prof is None else
+               '%.3f' % prof['busy_share'], r['setup_s'],
+               json.dumps({k: round(v, 4) for k, v in
+                           r['compile_seconds'].items()})))
+        log_profile('phase 4w (c) %s' % tag, card, prof)
+    log('phase 4w (c) twins: %d float32 steps captured bit for bit the eager '
+        'body\'s under deterministic algorithms, losses and every '
+        'parameter; mean step %.3f ms captured, %.3f ms eager [%s]'
+        % (TRAIN_WARMUP + TRAIN_ITERS, twins[0], twins[1], card))
+    for name, by in times_w.items():
+        for label, row in by.items():
+            log('phase 4w (d) %s at %s [%s; %s]: device %.4f ms, bound %.4f ms '
+                '(%s), share %.3f, library device %.4f ms; kernel %.4f ms a '
+                'call, plain %.4f ms, library %.4f ms a call'
+                % (name, label, row['shape'], card, row['device_ms'],
+                   row['bound_ms'], row['bound_by'], row['bound_share'],
+                   row['library_device_ms'], row['ms'], row['plain_ms'],
+                   row['library_ms']))
+    log('phase 4w (d) D=64 [%s]: device %s ms in 4w, %s ms in phase 2 of '
+        'this run, PERF.md %s ms'
+        % (card, {k: round(times_w[k]['D64']['device_ms'], 4)
+                  for k in D64_TRAIN_DEVICE_MS},
+           {k: round(train_times[k]['device_ms'], 4)
+            for k in D64_TRAIN_DEVICE_MS}, D64_TRAIN_DEVICE_MS))
 
 
 # -- phase 4t: the trainer's telemetry and resilience -------------------------
@@ -9154,32 +9609,43 @@ def _instance(fn):
     return 'bf16' if '__nv_bfloat16' in fn else 'f32'
 
 
+def _width_instance(fn):
+    """'<element type> W<width>' of a flash training kernel instance
+    (``... D < W`` for the one built for head dims below its width)."""
+    m = re.search(r'ILi(\d+)ELb(\d)E', fn)
+    return '%s W%s%s' % (_instance(fn), m.group(1),
+                         '' if m.group(2) == '1' else ' D < W')
+
+
 def _check_mma_build(build, ptxas, kernel, source='flash_attention_bwd',
-                     instances=('f32', 'bf16'), spill_limit=0):
-    """``kernel``'s ``instances`` (float32, bf16) in ``csrc/<source>.cu``
-    as built: their registers and spills from ptxas (``ptxas``: that
-    source's lines; empty when the library was current) and their
+                     instances=('f32',), spill_limit=0):
+    """``kernel``'s instances in ``csrc/<source>.cu`` as built, one a
+    padded width and D == W or D < W, of the element types ``instances``
+    (float32, bf16): their registers and spills from ptxas (``ptxas``:
+    that source's lines; empty when the library was current) and their
     tensor-core instructions (HMMA) in the SASS. Raises when one spills
-    more than ``spill_limit`` bytes or holds no HMMA, or an instance is
-    missing. Returns {'f32' / 'bf16': (registers or None, {instruction:
-    count, 'spill bytes': n})}."""
+    more than ``spill_limit`` bytes or holds no HMMA, or an instance of a
+    width or element type is missing. Returns {'<type> W<width>[ D < W]':
+    (registers or None, {instruction: count, 'spill bytes': n})}."""
+    from mxnet_tpu_torch.ops.kernels import HEAD_WIDTHS
     regs, spills = {}, {}
     for fn, (n, spill) in ptxas_entries(ptxas).items():
         if kernel + '_kernel' in fn:
             if spill > spill_limit:
                 raise AssertionError('%s (%s) spills %d bytes (limit %d)'
-                                     % (kernel, _instance(fn), spill,
+                                     % (kernel, _width_instance(fn), spill,
                                         spill_limit))
-            regs[_instance(fn)] = n
-            spills[_instance(fn)] = spill
-    counts = {_instance(fn): c for fn, c in sass_counts(
+            regs[_width_instance(fn)] = n
+            spills[_width_instance(fn)] = spill
+    counts = {_width_instance(fn): c for fn, c in sass_counts(
         build, source, (kernel + '_kernel',), ('HMMA', 'LDS')).items()}
-    if set(counts) != set(instances) or not all(
-            c['HMMA'] for c in counts.values()):
+    want = {'%s W%d%s' % (t, w, part) for t in instances
+            for w in HEAD_WIDTHS for part in ('', ' D < W')}
+    if set(counts) != want or not all(c['HMMA'] for c in counts.values()):
         raise AssertionError('%s SASS: an instance missing or without HMMA: '
                              '%s' % (kernel, counts))
     return {k: (regs.get(k), dict(c, **{'spill bytes': spills.get(k)}))
-            for k, c in counts.items()}
+            for k, c in sorted(counts.items())}
 
 
 # the xent kernels, each built for float32 and bf16 logits / dlogits
@@ -9210,20 +9676,20 @@ def check_no_spills(ptxas, source, kernel_keys):
 
 def check_dq_build(build, ptxas):
     """The float32 dq kernel: :func:`_check_mma_build`."""
-    return _check_mma_build(build, ptxas, 'flash_attention_dq',
-                            instances=('f32',))
+    return _check_mma_build(build, ptxas, 'flash_attention_dq')
 
 
 def check_dkv_build(build, ptxas):
     """The float32 dk/dv kernel: :func:`_check_mma_build`."""
-    return _check_mma_build(build, ptxas, 'flash_attention_dkv',
-                            instances=('f32',))
+    return _check_mma_build(build, ptxas, 'flash_attention_dkv')
 
 
 # the bf16 tensor-core flash kernels run two blocks an SM, 128 registers a
-# thread, where ptxas spills a little (72 + 64 and 24 + 24 bytes of spill
-# stores + loads at their first build); one block an SM spills nothing but
-# ran slower (mxnet_tpu_torch/tools/probe_flash_bf16_variants.py)
+# thread, at widths 32 and 64, where ptxas spills a little (72 + 64 and 24
+# + 24 bytes of spill stores + loads at their first build; up to 84 + 84
+# for a D < W instance); one block an SM spills nothing but ran slower
+# (mxnet_tpu_torch/tools/probe_flash_bf16_variants.py). At width 128 dq
+# runs one block an SM at 255 registers and still spills 40 + 40
 TC_SPILL_LIMIT = 256
 TC_SOURCES = ('flash_attention_fwd_bf16', 'flash_attention_dq_bf16',
               'flash_attention_dkv_bf16')
@@ -9510,7 +9976,8 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'scan_device_ms', 'finish_device_ms',
                                       'host_ms', 'chain_ms',
                                       'chain_device_ms', 'by_list',
-                                      'at_head_dim_%d' % HEAD_DIM_TIMED)
+                                      'at_head_dim_%d' % HEAD_DIM_TIMED,
+                                      'at_head_dims')
                     if k in t})
         row['shape'] = t['shape']
         if name in times and name in train_times:
@@ -9638,8 +10105,9 @@ def _main():
             log('%s (%s): %s registers, no spills; SASS %s'
                 % (name, inst, regs, counts))
     for name, built in check_bf16_tc_builds(_build, reports).items():
-        regs, counts = built['bf16']
-        log('%s: %s registers; SASS and spills %s' % (name, regs, counts))
+        for inst, (regs, counts) in built.items():
+            log('%s (%s): %s registers; SASS and spills %s'
+                % (name, inst, regs, counts))
     log('flash_attention_fwd instances: registers %s, no spills' % {
         '%s width %s bq %s%s' % ((_instance(fn),)
                                  + tuple(re.findall(r'Li(\d+)E', fn)[:2])
@@ -10017,6 +10485,29 @@ def _main():
                        te['compile_seconds'].items()}), te['masks']))
     torch.cuda.empty_cache()
 
+    # phase 4w: rows 2, 3, 1b, 2b and 3b at every head dim, small encoders
+    # at D 80 and 128 against the CPU, BERT at MiniLM-L12-H384's widths
+    # (head dim 32) in float32, amp and cast, and the rows' times
+    t0 = time.perf_counter()
+    hw = check_train_head_dims(torch, kernels, cuda)
+    for name, err in hw['errs'].items():
+        errs[name] = max(errs[name], err)
+    torch.cuda.empty_cache()
+    hb = train_head_dims_against_cpu(torch, bert, gloss, parallel, cuda)
+    torch.cuda.empty_cache()
+    mini, mini_twins = train_minilm(torch, bert, gloss, parallel, kernels,
+                                    cuda)
+    torch.cuda.empty_cache()
+    times_w = time_train_head_dims(torch, kernels)
+    for name, by in times_w.items():
+        train_times[name]['at_head_dims'] = {
+            label: {k: row[k] for k in TIMING_KEYS + ('shape',
+                                                      'bound_share')}
+            for label, row in by.items()}
+    log_train_head_dims(hw, hb, mini, mini_twins, times_w, train_times, card)
+    log('phase 4w wall [%s]: %.1f s' % (card, time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+
     # phase 5: the ResNet slice
     resnet_against_cpu(torch, resnet, gloss, gnn, parallel, kernels, cuda)
     torch.cuda.empty_cache()
@@ -10317,6 +10808,12 @@ def _main():
                         'bert bf16 training': cast_runs['cast']['launches'],
                         'bert bf16 training with masters':
                             cast_runs['cast_mp']['launches'],
+                        'minilm-l12-h384 widths training':
+                            mini['float32']['launches'],
+                        'minilm-l12-h384 widths amp training':
+                            mini['amp']['launches'],
+                        'minilm-l12-h384 widths bf16 training':
+                            mini['cast']['launches'],
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
                         'resnet frozen-BN fine-tuning': fz['launches'],

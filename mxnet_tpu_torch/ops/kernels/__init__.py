@@ -20,7 +20,8 @@ from ._launch import (BF16, KERNELS, instance_launches, launch_counts,
                       reset_launch_counts)
 from .attention import (FWD_BLOCK_Q, HEAD_DIM_MAX, HEAD_WIDTHS, K_BLOCK,
                         FlashAttentionFunction,
-                        dkv_bf16_geometry, dq_bf16_geometry, flash_attention,
+                        dkv_bf16_geometry, dkv_geometry, dq_bf16_geometry,
+                        dq_geometry, flash_attention,
                         flash_attention_backward,
                         flash_attention_backward_reference,
                         flash_attention_bf16_reference, flash_attention_dkv,
@@ -62,7 +63,8 @@ from .xent import (XENT_INSTANCES, SoftmaxXentFunction, XentBwdChunk,
 
 __all__ = ['KERNELS', 'BF16', 'K_BLOCK', 'FWD_BLOCK_Q', 'HEAD_DIM_MAX',
            'HEAD_WIDTHS', 'head_width', 'fwd_block_qs', 'fwd_geometry',
-           'fwd_bf16_geometry', 'dq_bf16_geometry', 'dkv_bf16_geometry',
+           'fwd_bf16_geometry', 'dq_geometry', 'dkv_geometry',
+           'dq_bf16_geometry', 'dkv_bf16_geometry',
            'flash_attention_bf16_reference',
            'flash_attention_dq_bf16_reference',
            'flash_attention_dkv_bf16_reference',

@@ -66,13 +66,16 @@ position, for every block size :func:`fwd_geometry` can pick. What
 bounds each kernel on the H100, and what its design does about it, is
 noted at the top of its source.
 
-Head dims: the float32 forward and both decode instances take every head
-dim D from 1 to :data:`HEAD_DIM_MAX` (128), through instances built at
-the padded widths :data:`HEAD_WIDTHS` (:func:`head_width`): columns past
-D are zeros in shared memory, so every D keeps the decode bit-identity.
-The backward kernels and the bf16 instances are built for D = 64 alone.
-A head dim no instance takes raises :class:`~.errors.HeadDimError` on a
-CUDA tensor (the CPU's plain versions take any D).
+Head dims: every kernel here (the forward, dq and dk/dv in float32 and
+bf16, both decode instances) takes every head dim D from 1 to
+:data:`HEAD_DIM_MAX` (128), through instances built at the padded widths
+:data:`HEAD_WIDTHS` (:func:`head_width`, the one place the width is
+chosen; each launch passes it to the kernel): columns past D are zeros in
+shared memory, so every D keeps the decode bit-identity. A head dim no
+instance takes raises :class:`~.errors.HeadDimError` on a CUDA tensor,
+before any launch (the CPU's plain versions take any D). Each launch of
+the training rows counts its width as its instance
+(:func:`~._launch.instance_launches`).
 """
 from __future__ import annotations
 
@@ -89,7 +92,8 @@ from .errors import HeadDimError
 
 __all__ = ['K_BLOCK', 'FWD_BLOCK_Q', 'HEAD_DIM_MAX', 'HEAD_WIDTHS',
            'head_width', 'fwd_block_qs', 'fwd_geometry', 'fwd_bf16_geometry',
-           'dq_bf16_geometry', 'dkv_bf16_geometry', 'online_softmax_block',
+           'dq_geometry', 'dkv_geometry', 'dq_bf16_geometry',
+           'dkv_bf16_geometry', 'online_softmax_block',
            'flash_attention_bf16_reference',
            'flash_attention_dq_bf16_reference',
            'flash_attention_dkv_bf16_reference',
@@ -112,25 +116,31 @@ FWD_BLOCK_Q = (128, 32)
 FWD_BLOCK_Q_WIDE = (64, 32)
 SMS = 132                   # streaming multiprocessors of the H100 SXM
 SMEM_BLOCK_MAX = 232448     # bytes of shared memory a block may take
-# the float32 forward and decode kernels: every head dim 1 .. HEAD_DIM_MAX,
-# through instances built at these padded widths (head_width; each launch
-# passes its width to the kernel)
+# every kernel here: every head dim 1 .. HEAD_DIM_MAX, through instances
+# built at these padded widths (head_width; each launch passes its width
+# to the kernel)
 HEAD_DIM_MAX = 128
 HEAD_WIDTHS = (16, 32, 64, 128)
-_D = 64                     # the head dim of the backward and bf16 kernels
 _NEG_INF = float('-inf')
 _QKV = '(B, H, Sq, D)'
 # the bf16 tensor-core kernels' exp2 constants, as float32 (mma_bf16.cuh)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 # the bf16 forward's query rows a work item, dq's query rows a work item
-# and keys a tile, and dk/dv's keys a block and queries a tile
-# (csrc/flash_attention_{fwd,dq,dkv}_bf16.cu)
+# and keys a tile, and dk/dv's keys a block (64 at width 128) and queries
+# a tile (csrc/flash_attention_{fwd,dq,dkv}_bf16.cu)
 FWD_BF16_BLOCK_Q = 128
 DQ_BF16_BLOCK_Q = 128
 DQ_BF16_BLOCK_K = 128
 DKV_BF16_BLOCK_K = 128
+DKV_BF16_BLOCK_K_WIDE = 64
 DKV_BF16_BLOCK_Q = 32
+# the float32 dq's query rows a block and keys a tile, dk/dv's keys a
+# block and queries a tile, at every width (csrc/flash_attention_bwd.cu)
+DQ_BLOCK_Q = 128
+DQ_BLOCK_K = 32
+DKV_BLOCK_K = 128
+DKV_BLOCK_Q = 32
 
 
 def online_softmax_block(scores, v_blk, m, l, o):
@@ -197,31 +207,23 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False,
 
 def head_width(d, kernel='flash_attention'):
     """The padded width of head dim ``d``: the smallest of
-    :data:`HEAD_WIDTHS` at least ``d``, the instance of the float32
-    forward and decode kernels that runs it. A head dim outside 1 ..
-    :data:`HEAD_DIM_MAX` raises :class:`~.errors.HeadDimError`."""
+    :data:`HEAD_WIDTHS` at least ``d``, the instance of every kernel here
+    that runs it. A head dim outside 1 .. :data:`HEAD_DIM_MAX` raises
+    :class:`~.errors.HeadDimError`."""
     if not 1 <= d <= HEAD_DIM_MAX:
         raise HeadDimError(
-            '%s: head dim %d not built: the float32 forward and decode '
-            'kernels take 1-%d (wider heads: ROADMAP B1)'
-            % (kernel, d, HEAD_DIM_MAX))
+            '%s: head dim %d not built: the attention kernels take 1-%d '
+            '(other head dims: ROADMAP B1)' % (kernel, d, HEAD_DIM_MAX))
     return next(w for w in HEAD_WIDTHS if w >= d)
 
 
-def _require_train_dim(kernel, d):
-    if d != _D:
-        raise HeadDimError(
-            '%s: head dim %d not built: the backward and bf16 kernels are '
-            'built for %d (other head dims: ROADMAP B1)' % (kernel, d, _D))
-
-
-def fwd_block_qs(d=_D):
+def fwd_block_qs(d=64):
     """The float32 forward's block sizes at head dim ``d``, largest first:
     :data:`FWD_BLOCK_Q` up to width 64, :data:`FWD_BLOCK_Q_WIDE` at 128."""
     return FWD_BLOCK_Q if head_width(d) <= 64 else FWD_BLOCK_Q_WIDE
 
 
-def fwd_geometry(batch, heads, sq, block_q=None, d=_D):
+def fwd_geometry(batch, heads, sq, block_q=None, d=64):
     """Launch geometry of the forward kernel at head dim ``d``: (block_q,
     blocks, shared memory bytes a block).
 
@@ -366,50 +368,101 @@ def flash_attention_bf16_reference(q, k, v, lengths=None, causal=False,
     return out.to(q.dtype), lse
 
 
-def fwd_bf16_geometry(batch, heads, sq):
-    """Launch geometry of the bf16 forward kernel: (block_q, blocks,
-    shared memory bytes a block). One block a work item (batch * head,
-    query tile of :data:`FWD_BF16_BLOCK_Q` rows), two resident an SM; the
-    bytes follow the kernel's layout: the Q tile and two K and two V
-    tiles of K_BLOCK rows, bf16."""
+def fwd_bf16_geometry(batch, heads, sq, d=64):
+    """Launch geometry of the bf16 forward kernel at head dim ``d``:
+    (block_q, blocks, shared memory bytes a block). One block a work item
+    (batch * head, query tile of :data:`FWD_BF16_BLOCK_Q` rows), two
+    resident an SM up to width 64 (one at 128); the bytes follow the
+    kernel's layout at the padded width W = :func:`head_width` of ``d``:
+    the Q tile and two K and two V tiles of K_BLOCK rows, bf16."""
+    width = head_width(d, 'flash_attention (bf16)')
     bq = FWD_BF16_BLOCK_Q
-    return bq, batch * heads * -(-sq // bq), 2 * _D * (bq + 4 * K_BLOCK)
+    return bq, batch * heads * -(-sq // bq), 2 * width * (bq + 4 * K_BLOCK)
 
 
-def dq_bf16_geometry(batch, heads, sq):
-    """Launch geometry of the bf16 dq kernel: (block_q, block_k, blocks,
-    shared memory bytes a block). One block a work item (batch * head,
-    query tile of :data:`DQ_BF16_BLOCK_Q` rows), two resident an SM; it
-    walks key tiles of :data:`DQ_BF16_BLOCK_K` rows. The bytes follow the
-    kernel's layout: the Q and dO tiles and two K and two V tiles, bf16."""
+def dq_bf16_geometry(batch, heads, sq, d=64):
+    """Launch geometry of the bf16 dq kernel at head dim ``d``: (block_q,
+    block_k, blocks, shared memory bytes a block). One block a work item
+    (batch * head, query tile of :data:`DQ_BF16_BLOCK_Q` rows), two
+    resident an SM up to width 64 (one at 128); it walks key tiles of
+    :data:`DQ_BF16_BLOCK_K` rows. The bytes follow the kernel's layout at
+    the padded width W of ``d``: the Q and dO tiles and two K and two V
+    tiles, bf16."""
+    width = head_width(d, 'flash_attention_dq (bf16)')
     bq, bk = DQ_BF16_BLOCK_Q, DQ_BF16_BLOCK_K
-    return bq, bk, batch * heads * -(-sq // bq), 2 * _D * (2 * bq + 4 * bk)
+    return (bq, bk, batch * heads * -(-sq // bq),
+            2 * width * (2 * bq + 4 * bk))
 
 
-def dkv_bf16_geometry(batch, heads, sk):
-    """Launch geometry of the bf16 dk/dv kernel: (block_k, block_q,
-    blocks, shared memory bytes a block). One block a (batch * head,
-    :data:`DKV_BF16_BLOCK_K`-key block); it walks query tiles of
-    :data:`DKV_BF16_BLOCK_Q` rows. The bytes follow the kernel's layout:
-    the K and V tiles, two buffers of the Q, dO and O tiles (bf16) and two
-    lse and two delta rows (float32)."""
-    bk, bq = DKV_BF16_BLOCK_K, DKV_BF16_BLOCK_Q
+def dkv_bf16_geometry(batch, heads, sk, d=64):
+    """Launch geometry of the bf16 dk/dv kernel at head dim ``d``:
+    (block_k, block_q, blocks, shared memory bytes a block). One block a
+    (batch * head, key block) of :data:`DKV_BF16_BLOCK_K` keys
+    (:data:`DKV_BF16_BLOCK_K_WIDE` at width 128, where a thread holds 128
+    floats of dK and dV); it walks query tiles of :data:`DKV_BF16_BLOCK_Q`
+    rows. The bytes follow the kernel's layout at the padded width W of
+    ``d``: the K and V tiles, two buffers of the Q, dO and O tiles (bf16)
+    and two lse and two delta rows (float32)."""
+    width = head_width(d, 'flash_attention_dkv (bf16)')
+    bk = DKV_BF16_BLOCK_K if width <= 64 else DKV_BF16_BLOCK_K_WIDE
+    bq = DKV_BF16_BLOCK_Q
     return (bk, bq, batch * heads * -(-sk // bk),
-            2 * _D * (2 * bk + 6 * bq) + 4 * 4 * bq)
+            2 * width * (2 * bk + 6 * bq) + 4 * 4 * bq)
 
 
-def _bf16_lib(source, entry, argtypes, geometry, block_entries):
-    """The ctypes entry of a bf16 tensor-core kernel, its geometry held
-    at first load to what the library reports (shared memory bytes and
-    block sizes)."""
+def _row_floats(width):
+    """Floats a staged row of the float32 backward's tiles at ``width``:
+    at least 32, the swizzle's four 8-float groups."""
+    return max(width, 32)
+
+
+def dq_geometry(batch, heads, sq, d=64):
+    """Launch geometry of the float32 dq kernel at head dim ``d``:
+    (block_q, block_k, blocks, shared memory bytes a block). One block a
+    work item (batch * head, :data:`DQ_BLOCK_Q`-query tile), two resident
+    an SM up to width 64 (one at 128); it walks key tiles of
+    :data:`DQ_BLOCK_K` rows. The bytes follow the kernel's layout
+    (``csrc/flash_attention_bwd.cu`` ``Shape``) at the padded width of
+    ``d``: the Q and dO tiles and two K and two V tiles, float32 rows of
+    :func:`_row_floats`."""
+    rs = _row_floats(head_width(d, 'flash_attention_dq'))
+    bq, bk = DQ_BLOCK_Q, DQ_BLOCK_K
+    return bq, bk, batch * heads * -(-sq // bq), 4 * rs * (2 * bq + 4 * bk)
+
+
+def dkv_geometry(batch, heads, sk, d=64):
+    """Launch geometry of the float32 dk/dv kernel at head dim ``d``:
+    (block_k, block_q, blocks, shared memory bytes a block). One block a
+    (batch * head, :data:`DKV_BLOCK_K`-key block), two resident an SM
+    (one at width 128 and for the D < 64 of width 64, whose warps own 16
+    keys, not 32); it walks query tiles of :data:`DKV_BLOCK_Q` rows. The
+    bytes follow the kernel's layout at the padded width of ``d``: the K
+    and V tiles, two buffers of the Q, dO and O tiles, two lse and two
+    delta rows, float32."""
+    rs = _row_floats(head_width(d, 'flash_attention_dkv'))
+    bk, bq = DKV_BLOCK_K, DKV_BLOCK_Q
+    return (bk, bq, batch * heads * -(-sk // bk),
+            4 * (rs * (2 * bk + 6 * bq) + 4 * bq))
+
+
+def _held_lib(source, entry, argtypes, geometry, entries):
+    """The ctypes entry ``entry`` of the library of ``source``, its
+    geometry held at first load, at every width of :data:`HEAD_WIDTHS`,
+    to what the library reports: each of ``entries`` (C functions of the
+    width: block sizes, then shared memory bytes) against ``geometry`` at
+    d = the width (its block sizes and bytes; the blocks, second to last,
+    left out)."""
     from . import _build
     lib = _build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        built = tuple(getattr(lib, e)() for e in block_entries) + (
-            getattr(lib, entry + '_smem')(),)
-        _require(built == geometry, '%s: the geometry gives %r, the kernel '
-                 'is built for %r' % (entry, geometry, built))
+        for width in HEAD_WIDTHS:
+            built = tuple(getattr(lib, e)(width) for e in entries)
+            geo = geometry(1, 1, 1, d=width)
+            want = geo[:-2] + geo[-1:]
+            _require(built == want, '%s: the geometry gives %r at width '
+                     '%d, the kernel is built for %r'
+                     % (entry, want, width, built))
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return fn
@@ -423,8 +476,9 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
              % ((b, h, sk, d), tuple(k.shape), tuple(v.shape)))
     dt = q.dtype
     bf16 = dt == torch.bfloat16
+    width = head_width(d, 'flash_attention (bf16)' if bf16 else
+                       'flash_attention')
     if bf16:
-        _require_train_dim('flash_attention (bf16)', d)
         _require(block_q in (None, FWD_BF16_BLOCK_Q), 'flash_attention: the '
                  'bf16 kernel is built for block_q %d, not %r'
                  % (FWD_BF16_BLOCK_Q, block_q))
@@ -440,21 +494,22 @@ def _flash_attention_cuda(q, k, v, lengths, causal, scale, block_q=None):
                             dt)
     with torch.cuda.device(q.device):
         if bf16:
-            fn = _bf16_lib('flash_attention_fwd_bf16', entry,
-                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            fn = _held_lib('flash_attention_fwd_bf16', entry,
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-                           (FWD_BF16_BLOCK_Q, fwd_bf16_geometry(1, 1, 1)[2]),
-                           ('mx_flash_attention_fwd_bf16_block_q',))
+                           fwd_bf16_geometry,
+                           ('mx_flash_attention_fwd_bf16_block_q',
+                            'mx_flash_attention_fwd_bf16_smem'))
             err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out),
-                     _ptr(lse), b, h, sq, sk, d, float(scale),
+                     _ptr(lse), b, h, sq, sk, d, width, float(scale),
                      int(bool(causal)), _stream(q.device))
         else:
             err = _fwd_lib()(
                 _ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(out), _ptr(lse),
-                b, h, sq, sk, d, head_width(d), float(scale),
-                int(bool(causal)), block_q, blocks, _stream(q.device))
+                b, h, sq, sk, d, width, float(scale), int(bool(causal)),
+                block_q, blocks, _stream(q.device))
     _raise_on(name, err)
-    _count(name)
+    _count(name, width)
     return out, lse
 
 
@@ -679,19 +734,25 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, lengths=None,
     return dq, dk, dv
 
 
-def _bwd_lib_argtypes(outs):
-    return [ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-
-
-def _bwd_lib(entry):
-    from . import _build
-    fn = getattr(_build.load('flash_attention_bwd'), entry)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _bwd_lib_argtypes(
-            1 if entry.startswith('mx_flash_attention_dq') else 2)
-    return fn
+def _bwd_lib(kernel, dtype):
+    """The ctypes entry of the dq (``kernel`` 'dq') or dk/dv ('dkv')
+    kernel of ``dtype``, its geometry held at first load
+    (:func:`_held_lib`); returns (counted name, entry)."""
+    name, entry = _instance('flash_attention_' + kernel,
+                            'mx_flash_attention_' + kernel, dtype)
+    bf16 = dtype == torch.bfloat16
+    geometry = {('dq', False): dq_geometry, ('dkv', False): dkv_geometry,
+                ('dq', True): dq_bf16_geometry,
+                ('dkv', True): dkv_bf16_geometry}[kernel, bf16]
+    blocks = ('block_q', 'block_k') if kernel == 'dq' else ('block_k',
+                                                             'block_q')
+    outs = 1 if kernel == 'dq' else 2
+    fn = _held_lib(
+        'flash_attention_%s_bf16' % kernel if bf16 else 'flash_attention_bwd',
+        entry, [ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p], geometry,
+        tuple('%s_%s' % (entry, b) for b in blocks) + (entry + '_smem',))
+    return name, fn
 
 
 def _bwd_dtype(kernel, q, k, v, out, do):
@@ -700,8 +761,9 @@ def _bwd_dtype(kernel, q, k, v, out, do):
 
 
 def _bwd_checked(kernel, q, k, v, out, lse, do, lengths):
-    """Shape, dtype and layout checks shared by the two backward kernels;
-    returns the (B,) int32 lengths."""
+    """Shape, dtype, head dim and layout checks shared by the two backward
+    kernels; returns the (B,) int32 lengths and the padded width of the
+    instance (:func:`head_width`)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _require(k.shape == (b, h, sk, d) and v.shape == k.shape,
@@ -713,14 +775,14 @@ def _bwd_checked(kernel, q, k, v, out, lse, do, lengths):
     _require(tuple(lse.shape) == (b, h, sq),
              '%s: lse must be %r, got %r' % (kernel, (b, h, sq),
                                             tuple(lse.shape)))
-    _require_train_dim(kernel, d)
+    width = head_width(d, kernel)
     lens = _lengths_tensor(lengths, b, sk, q.device)
     dt = q.dtype
     _check_inputs(kernel, {'q': q, 'k': k, 'v': v, 'out': out, 'lse': lse,
                            'do': do, 'lengths': lens},
                   {'q': dt, 'k': dt, 'v': dt, 'out': dt,
                    'lse': torch.float32, 'do': dt, 'lengths': torch.int32})
-    return lens
+    return lens, width
 
 
 def flash_attention_dq(q, k, v, out, lse, do, lengths=None, causal=False,
@@ -734,26 +796,17 @@ def flash_attention_dq(q, k, v, out, lse, do, lengths=None, causal=False,
     if _on_cpu('flash_attention_dq', q, _QKV):
         return flash_attention_dq_reference(q, k, v, out, lse, do, lengths,
                                             causal, scale)
-    lens = _bwd_checked('flash_attention_dq', q, k, v, out, lse, do,
-                        lengths)
+    lens, width = _bwd_checked('flash_attention_dq', q, k, v, out, lse, do,
+                               lengths)
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
-    name, entry = _instance('flash_attention_dq', 'mx_flash_attention_dq',
-                            dt)
     with torch.cuda.device(q.device):
-        if dt == torch.bfloat16:
-            geo = dq_bf16_geometry(1, 1, 1)
-            fn = _bf16_lib('flash_attention_dq_bf16', entry,
-                           _bwd_lib_argtypes(1), (geo[0], geo[1], geo[3]),
-                           ('mx_flash_attention_dq_bf16_block_q',
-                            'mx_flash_attention_dq_bf16_block_k'))
-        else:
-            fn = _bwd_lib(entry)
+        name, fn = _bwd_lib('dq', dt)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
-                 _ptr(lens), _ptr(dq), b, h, sq, k.shape[2], d,
+                 _ptr(lens), _ptr(dq), b, h, sq, k.shape[2], d, width,
                  float(scale), int(bool(causal)), _stream(q.device))
     _raise_on(name, err)
-    _count(name)
+    _count(name, width)
     return dq
 
 
@@ -767,28 +820,18 @@ def flash_attention_dkv(q, k, v, out, lse, do, lengths=None, causal=False,
     if _on_cpu('flash_attention_dkv', q, _QKV):
         return flash_attention_dkv_reference(q, k, v, out, lse, do, lengths,
                                              causal, scale)
-    lens = _bwd_checked('flash_attention_dkv', q, k, v, out, lse, do,
-                        lengths)
+    lens, width = _bwd_checked('flash_attention_dkv', q, k, v, out, lse, do,
+                               lengths)
     b, h, sq, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    name, entry = _instance('flash_attention_dkv', 'mx_flash_attention_dkv',
-                            dt)
     with torch.cuda.device(q.device):
-        if dt == torch.bfloat16:
-            geo = dkv_bf16_geometry(1, 1, 1)
-            fn = _bf16_lib('flash_attention_dkv_bf16', entry,
-                           _bwd_lib_argtypes(2),
-                           (geo[0], geo[1], geo[3]),
-                           ('mx_flash_attention_dkv_bf16_block_k',
-                            'mx_flash_attention_dkv_bf16_block_q'))
-        else:
-            fn = _bwd_lib(entry)
+        name, fn = _bwd_lib('dkv', dt)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(do),
                  _ptr(lens), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
-                 float(scale), int(bool(causal)), _stream(q.device))
+                 width, float(scale), int(bool(causal)), _stream(q.device))
     _raise_on(name, err)
-    _count(name)
+    _count(name, width)
     return dk, dv
 
 

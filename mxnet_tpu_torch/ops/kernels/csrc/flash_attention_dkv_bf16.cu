@@ -24,17 +24,25 @@
 // lse, 0.0396 ms at 3.35 TB/s, against 9.66 GFLOP, 0.0098 ms at 989
 // TFLOP/s on bf16 tensor cores.
 //
-// Design. One block of 8 warps a (batch*head, 128-key block), the key
-// blocks of a head adjacent, two blocks an SM (57 KB of shared memory, at
-// most 128 registers a thread), so no sum crosses blocks: no atomics,
-// deterministic results. Warp w owns keys 16w .. 16w + 15 and keeps S^T,
+// Head dims. Every D from 1 to 128 runs, through instances built at the
+// padded widths W = 16, 32, 64 and 128 (attention.py head_width), each for
+// D == W (FULL) and D < W, columns past D zero in the tiles (mma_bf16.cuh:
+// rows of D % 8 != 0 columns staged through registers). A warp's dK and
+// dV accumulators are W floats a thread, 128 at W 128: there a block owns
+// 64 keys (4 warps) and may take 255 registers a thread, two blocks an
+// SM (BK and MIN_BLOCKS below).
+//
+// Design. One block of 8 warps a (batch*head, 128-key block) (4 warps and
+// 64 keys at W 128), the key blocks of a head adjacent, two blocks an SM
+// (57 KB of shared memory and at most 128 registers a thread at W 64), so
+// no sum crosses blocks: no atomics, deterministic results. Warp w owns keys 16w .. 16w + 15 and keeps S^T,
 // P^T, dP^T, dS^T, dK and dV in mma fragments:
 //   * K and V are staged once as raw bf16 by 16-byte cp.async into
 //     swizzled tiles; the block walks 32-query tiles of Q, dO, O and lse,
 //     double-buffered: the next tile's copies run while this one is
-//     computed. Each thread copies one 16-byte chunk of Q, dO and O;
-//     after its own wait it sums its chunk of dO * O, 8 lanes a row by
-//     shuffles give delta (one block barrier a tile publishes tile and
+//     computed. Each thread copies its 16-byte chunks of Q, dO and O (one
+//     of each at W 64); after its own wait it sums its chunks of dO * O,
+//     W / 8 lanes a row by shuffles give delta (one block barrier a tile publishes tile and
 //     statistics). Rows past Sq or Sk are zero-filled by the copy, and
 //     past Sq lse reads -inf;
 //   * per tile: S^T = K Q^T (mma.sync m16n8k16 bf16, float32 sums, K and
@@ -57,25 +65,23 @@ namespace {
 
 using namespace mx_mma;
 
-constexpr int BK = 128;  // keys a block
-constexpr int BQ = 32;   // queries a tile
-constexpr int WARPS = BK / 16;
-constexpr int THREADS = 32 * WARPS;
-constexpr int KTILE = BK * ROW_BYTES;
-constexpr int QTILE = BQ * ROW_BYTES;
-// shared memory: K, V, two buffers of the Q, dO and O tiles, two lse and
-// two delta rows
-constexpr int SMEM_BYTES = 2 * KTILE + 2 * 3 * QTILE + 2 * 2 * BQ * 4;
-static_assert(BQ * CHUNKS == THREADS, "one chunk of each tile a thread");
+// the tiles of the instance at padded width W
+template <int W>
+struct Dkv {
+  static constexpr int BK = 128 - 64 * (W > 64);  // keys a block
+  static constexpr int BQ = 32;                 // queries a tile
+  static constexpr int WARPS = BK / 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int KTILE = BK * 2 * W;
+  static constexpr int QTILE = BQ * 2 * W;
+  // shared memory: K, V, two buffers of the Q, dO and O tiles, two lse and
+  // two delta rows
+  static constexpr int SMEM_BYTES = 2 * KTILE + 2 * 3 * QTILE + 2 * 2 * BQ * 4;
+  static constexpr int MIN_BLOCKS = 2;  // blocks an SM
+};
 
-// tile offsets in bytes
-constexpr int K_AT = 0;
-constexpr int V_AT = KTILE;
-constexpr int QBUF_AT = 2 * KTILE;  // buffer b: Q, dO, O at + b * 3 QTILE
-constexpr int LSE_AT = QBUF_AT + 2 * 3 * QTILE;  // 2 x [BQ] floats
-constexpr int DELTA_AT = LSE_AT + 2 * BQ * 4;    // 2 x [BQ] floats
-
-__global__ void __launch_bounds__(THREADS, 2)
+template <int W, bool FULL>
+__global__ void __launch_bounds__(Dkv<W>::THREADS, Dkv<W>::MIN_BLOCKS)
 flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
@@ -85,7 +91,26 @@ flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                 const int* __restrict__ lengths,
                                 __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int heads,
-                                int sq, int sk, float scale, int causal) {
+                                int sq, int sk, int d_arg, float scale,
+                                int causal) {
+  using G = Dkv<W>;
+  constexpr int BK = G::BK;
+  constexpr int BQ = G::BQ;
+  constexpr int THREADS = G::THREADS;
+  constexpr int KTILE = G::KTILE;
+  constexpr int QTILE = G::QTILE;
+  constexpr int CHUNKS = Row<W>::CHUNKS;
+  // a query tile's chunks, and each thread's passes over them
+  constexpr int QCH = BQ * CHUNKS;
+  constexpr int PASSES = (QCH + THREADS - 1) / THREADS;
+  // tile offsets in bytes
+  constexpr int K_AT = 0;
+  constexpr int V_AT = KTILE;
+  constexpr int QBUF_AT = 2 * KTILE;  // buffer b: Q, dO, O at + b * 3 QTILE
+  constexpr int LSE_AT = QBUF_AT + 2 * 3 * QTILE;  // 2 x [BQ] floats
+  constexpr int DELTA_AT = LSE_AT + 2 * BQ * 4;    // 2 x [BQ] floats
+  static_assert(QCH % 32 == 0, "whole warps of chunks");
+  const int d = FULL ? W : d_arg;  // the real head dim: the row stride
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   float* const lse_s = reinterpret_cast<float*>(smem + LSE_AT);
@@ -99,8 +124,8 @@ flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int w = t >> 5;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const size_t qoff = (size_t)bh * sq * D;
-  const size_t koff = (size_t)bh * sk * D;
+  const size_t qoff = (size_t)bh * sq * d;
+  const size_t koff = (size_t)bh * sk * d;
   const float* lseb = lse + (size_t)bh * sq;
 
   const int len = max(0, min(lengths[bh / heads], sk));
@@ -115,49 +140,63 @@ flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // caller commits the group
   auto stage_queries = [&](int b, int row0) {
     const uint32_t at = base + QBUF_AT + b * 3 * QTILE;
-    stage_rows<BQ, THREADS>(at, q + qoff, row0, sq, t);
-    stage_rows<BQ, THREADS>(at + QTILE, dout + qoff, row0, sq, t);
-    stage_rows<BQ, THREADS>(at + 2 * QTILE, o + qoff, row0, sq, t);
-    if (t % CHUNKS == 0) {
-      const int r = t / CHUNKS;
-      const bool valid = row0 + r < sq;
-      cp_async4(base + LSE_AT + (b * BQ + r) * 4,
-                lseb + (valid ? row0 + r : 0), valid);
+    stage_rows<W, FULL, BQ, THREADS>(at, q + qoff, row0, sq, d, t);
+    stage_rows<W, FULL, BQ, THREADS>(at + QTILE, dout + qoff, row0, sq, d,
+                                     t);
+    stage_rows<W, FULL, BQ, THREADS>(at + 2 * QTILE, o + qoff, row0, sq, d,
+                                     t);
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      const int idx = t + i * THREADS;
+      if ((QCH % THREADS == 0 || idx < QCH) && idx % CHUNKS == 0) {
+        const int r = idx / CHUNKS;
+        const bool valid = row0 + r < sq;
+        cp_async4(base + LSE_AT + (b * BQ + r) * 4,
+                  lseb + (valid ? row0 + r : 0), valid);
+      }
     }
   };
   // delta = rowsum(dO * O) of buffer b from the chunks this thread copied
-  // (visible to it after its own wait, no barrier), the 8 lanes of a row
-  // summed by shuffles; past Sq lse = -inf
+  // (visible to it after its own wait, no barrier), the CHUNKS lanes of a
+  // row summed by shuffles; past Sq lse = -inf. Warps past the tile's
+  // chunks (QCH < THREADS) hold none and skip it whole.
   auto query_stats = [&](int b, int row0) {
-    const int r = t / CHUNKS;
-    const int c = t % CHUNKS;
     const unsigned char* at = smem + QBUF_AT + b * 3 * QTILE;
-    float x[8], y[8];
-    mx_bf16::widen8(*reinterpret_cast<const uint4*>(at + QTILE + off(r, c)),
-                    x);
-    mx_bf16::widen8(
-        *reinterpret_cast<const uint4*>(at + 2 * QTILE + off(r, c)), y);
-    float acc = __fmul_rn(x[0], y[0]);
 #pragma unroll
-    for (int e = 1; e < 8; ++e) acc = __fmaf_rn(x[e], y[e], acc);
+    for (int i = 0; i < PASSES; ++i) {
+      const int idx = t + i * THREADS;
+      if (QCH % THREADS == 0 || idx < QCH) {
+        const int r = idx / CHUNKS;
+        const int c = idx % CHUNKS;
+        float x[8], y[8];
+        mx_bf16::widen8(
+            *reinterpret_cast<const uint4*>(at + QTILE + off<W>(r, c)), x);
+        mx_bf16::widen8(
+            *reinterpret_cast<const uint4*>(at + 2 * QTILE + off<W>(r, c)),
+            y);
+        float acc = __fmul_rn(x[0], y[0]);
 #pragma unroll
-    for (int s = 1; s < CHUNKS; s <<= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (c == 0) {
-      delta_s[b * BQ + r] = acc;
-      if (row0 + r >= sq) lse_s[b * BQ + r] = -CUDART_INF_F;
+        for (int e = 1; e < 8; ++e) acc = __fmaf_rn(x[e], y[e], acc);
+#pragma unroll
+        for (int s = 1; s < CHUNKS; s <<= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, s);
+        if (c == 0) {
+          delta_s[b * BQ + r] = acc;
+          if (row0 + r >= sq) lse_s[b * BQ + r] = -CUDART_INF_F;
+        }
+      }
     }
   };
 
-  float dka[8][4], dva[8][4];
+  float dka[W / 8][4], dva[W / 8][4];
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < W / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
 
   if (ntiles > 0) {
-    stage_rows<BK, THREADS>(base + K_AT, k + koff, k0, sk, t);
-    stage_rows<BK, THREADS>(base + V_AT, v + koff, k0, sk, t);
+    stage_rows<W, FULL, BK, THREADS>(base + K_AT, k + koff, k0, sk, d, t);
+    stage_rows<W, FULL, BK, THREADS>(base + V_AT, v + koff, k0, sk, d, t);
     stage_queries(0, qbegin);
     cp_async_commit();
     cp_async_wait_all();
@@ -181,7 +220,7 @@ flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // 2tq + (e & 1). In a tile visible to every key of the block no query
     // has lse == -inf, and nothing is masked.
     float st[BQ / 8][4];
-    product_nt(st, base + K_AT, qt, 16 * w, lane);
+    product_nt<W>(st, base + K_AT, qt, 16 * w, lane);
     const bool whole = q0 + BQ <= sq && k0 + BK <= len &&
                        (!causal || k0 + BK - 1 <= q0);
 #pragma unroll
@@ -201,10 +240,10 @@ flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         st[n][e] = vis ? p : 0.f;
       }
     }
-    product_pv<BQ / 16>(dva, st, dot, lane);  // dV += P^T dO
+    product_pv<W, BQ / 16>(dva, st, dot, lane);  // dV += P^T dO
 
     float dpt[BQ / 8][4];
-    product_nt(dpt, base + V_AT, dot, 16 * w, lane);
+    product_nt<W>(dpt, base + V_AT, dot, 16 * w, lane);
 #pragma unroll
     for (int n = 0; n < BQ / 8; ++n) {
       const float2 dd = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * tq);
@@ -214,7 +253,7 @@ flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             __fmul_rn(st[n][e], __fsub_rn(dpt[n][e], (e & 1) ? dd.y : dd.x)),
             scale);
     }
-    product_pv<BQ / 16>(dka, dpt, qt, lane);  // dK += dS^T Q
+    product_pv<W, BQ / 16>(dka, dpt, qt, lane);  // dK += dS^T Q
 
     if (j + 1 < ntiles) {
       cp_async_wait_all();
@@ -223,46 +262,92 @@ flash_attention_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   // the warp's K and V rows are its own and read: they take its dK and dV
   const float one[2] = {1.f, 1.f};
-  store_rows(dka, one, smem + K_AT, 16 * w, dk + koff, k0 + 16 * w, sk, lane);
-  store_rows(dva, one, smem + V_AT, 16 * w, dv + koff, k0 + 16 * w, sk, lane);
+  store_rows<W, FULL>(dka, one, smem + K_AT, 16 * w, dk + koff, k0 + 16 * w,
+                      sk, d, lane);
+  store_rows<W, FULL>(dva, one, smem + V_AT, 16 * w, dv + koff, k0 + 16 * w,
+                      sk, d, lane);
 }
 
-}  // namespace
-
-// ---- host entry points ----
-// q, o, do (B*H, Sq, D) and k, v, dk, dv (B*H, Sk, D) bf16; lse (B*H, Sq)
-// float32; lengths (B,) int32. All contiguous on the device, 16-byte
-// aligned. One block a (batch*head, 128-key block). Returns the
-// cudaError_t of the launch.
-extern "C" int mx_flash_attention_dkv_bf16(const void* q, const void* k,
-                                           const void* v, const void* o,
-                                           const void* lse, const void* dout,
-                                           const void* lengths, void* dk,
-                                           void* dv, int batch, int heads,
-                                           int sq, int sk, int d, float scale,
-                                           int causal, void* stream) {
-  if (d != D) return cudaErrorInvalidValue;
+template <int W, bool FULL>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* lse, const void* dout,
+                   const void* lengths, void* dk, void* dv, int batch,
+                   int heads, int sq, int sk, int d, float scale, int causal,
+                   cudaStream_t stream) {
+  using G = Dkv<W>;
+  auto* kernel = flash_attention_dkv_bf16_kernel<W, FULL>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_dkv_bf16_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const long long items = (long long)batch * heads * ((sk + BK - 1) / BK);
+  const long long items =
+      (long long)batch * heads * ((sk + G::BK - 1) / G::BK);
   if (items == 0) return cudaSuccess;
-  flash_attention_dkv_bf16_kernel<<<(unsigned)items, THREADS, SMEM_BYTES,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(unsigned)items, G::THREADS, G::SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), heads, sq, sk, scale, causal);
+      static_cast<__nv_bfloat16*>(dv), heads, sq, sk, d, scale, causal);
   return cudaGetLastError();
 }
 
-// Dynamic shared memory a block in bytes, keys a block and queries a tile,
-// so the wrapper can hold its geometry (attention.py dkv_bf16_geometry) to
-// the kernel's layout.
-extern "C" int mx_flash_attention_dkv_bf16_smem() { return SMEM_BYTES; }
-extern "C" int mx_flash_attention_dkv_bf16_block_k() { return BK; }
-extern "C" int mx_flash_attention_dkv_bf16_block_q() { return BQ; }
+// the padded widths built, each for D == W and for D < W
+#define MX_BF16_WIDTHS(X) X(16) X(32) X(64) X(128)
+
+}  // namespace
+
+// ---- host entry points ----
+// q, o, do (B*H, Sq, D) and k, v, dk, dv (B*H, Sk, D) bf16; lse (B*H, Sq)
+// float32; lengths (B,) int32. All contiguous on the device. width is the
+// padded width of the instance (16, 32, 64 or 128; 1 <= D <= width). One
+// block a (batch*head, key block). Returns the cudaError_t of the launch.
+extern "C" int mx_flash_attention_dkv_bf16(const void* q, const void* k,
+                                           const void* v, const void* o,
+                                           const void* lse, const void* dout,
+                                           const void* lengths, void* dk,
+                                           void* dv, int batch, int heads,
+                                           int sq, int sk, int d, int width,
+                                           float scale, int causal,
+                                           void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > width) return cudaErrorInvalidValue;
+  switch (width) {
+#define X(W)                                                              \
+  case W:                                                                 \
+    return d == W ? launch<W, true>(q, k, v, o, lse, dout, lengths, dk,   \
+                                    dv, batch, heads, sq, sk, d, scale,   \
+                                    causal, st)                           \
+                  : launch<W, false>(q, k, v, o, lse, dout, lengths, dk,  \
+                                     dv, batch, heads, sq, sk, d, scale,  \
+                                     causal, st);
+    MX_BF16_WIDTHS(X)
+#undef X
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block in bytes, keys a block and queries a tile
+// of the instance at padded width `width` (0: not built), so the wrapper
+// can hold its geometry (attention.py dkv_bf16_geometry) to the kernel's
+// layout.
+#define MX_DKV_ENTRY(NAME, FIELD)   \
+  extern "C" int NAME(int width) {  \
+    switch (width) {                \
+      case 16:                      \
+        return Dkv<16>::FIELD;      \
+      case 32:                      \
+        return Dkv<32>::FIELD;      \
+      case 64:                      \
+        return Dkv<64>::FIELD;      \
+      case 128:                     \
+        return Dkv<128>::FIELD;     \
+      default:                      \
+        return 0;                   \
+    }                               \
+  }
+MX_DKV_ENTRY(mx_flash_attention_dkv_bf16_smem, SMEM_BYTES)
+MX_DKV_ENTRY(mx_flash_attention_dkv_bf16_block_k, BK)
+MX_DKV_ENTRY(mx_flash_attention_dkv_bf16_block_q, BQ)

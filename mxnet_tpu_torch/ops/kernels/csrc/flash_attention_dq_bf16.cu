@@ -24,11 +24,18 @@
 // 0.0341 ms at 3.35 TB/s, against 7.25 GFLOP (three products), 0.0073 ms
 // at 989 TFLOP/s on bf16 tensor cores.
 //
+// Head dims. Every D from 1 to 128 runs, through instances built at the
+// padded widths W = 16, 32, 64 and 128 (attention.py head_width), each for
+// D == W (FULL) and D < W, columns past D zero in the tiles (mma_bf16.cuh:
+// rows of D % 8 != 0 columns staged through registers). At W 128 the dq
+// accumulators double (64 floats a thread) and the tiles take 192 KB: one
+// block an SM there (MIN_BLOCKS below), the same 128-query items.
+//
 // Design. One block of 8 warps a work item (batch*head, 128-query tile),
-// the query tiles of a head adjacent, two blocks an SM (96 KB of shared
-// memory, at most 128 registers a thread), so no sum crosses blocks: no
-// atomics, deterministic results. Warp w owns query rows 16w .. 16w + 15
-// and keeps S, P, dP, dS and dQ in mma fragments:
+// the query tiles of a head adjacent, two blocks an SM up to width 64 (96
+// KB of shared memory at 64, at most 128 registers a thread), so no sum
+// crosses blocks: no atomics, deterministic results. Warp w owns query
+// rows 16w .. 16w + 15 and keeps S, P, dP, dS and dQ in mma fragments:
 //   * Q and dO are staged once as raw bf16 by 16-byte cp.async into
 //     swizzled tiles (mma_bf16.cuh); the block walks 128-key tiles of K
 //     and V (one at S 128), double-buffered: the next tile's copies are
@@ -36,8 +43,8 @@
 //     zero-filled by the copy;
 //   * each lane holds its two rows' lse (-inf past Sq) and delta =
 //     rowsum(dO * O): O arrives by 16-byte loads into registers while the
-//     first copies fly and is summed against the staged dO, 8 lanes a row
-//     by shuffles; O is never staged;
+//     first copies fly and is summed against the staged dO, W / 8 lanes a
+//     row by shuffles; O is never staged;
 //   * per 32 keys of a tile (four steps a tile, so S, dP and dQ take 16 +
 //     16 + 32 floats a thread): S = Q K^T (mma.sync m16n8k16 bf16, float32
 //     sums, Q and K by ldmatrix), P, dP = dO V^T (V by ldmatrix), dS in
@@ -62,23 +69,21 @@ namespace {
 
 using namespace mx_mma;
 
-constexpr int BQ = 128;  // query rows a work item
-constexpr int BK = 128;  // keys a tile
-constexpr int KS = 32;   // keys a step
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = 32 * WARPS;
-constexpr int QTILE = BQ * ROW_BYTES;
-constexpr int KTILE = BK * ROW_BYTES;
-// shared memory: the Q and dO tiles, then K and V of buffer 0, K and V of
-// buffer 1
-constexpr int SMEM_BYTES = 2 * QTILE + 2 * 2 * KTILE;
-static_assert(BK % KS == 0 && KS % 16 == 0, "whole steps of k-steps");
-static_assert(16 * CHUNKS == 4 * 32, "four chunks of O a lane");
-
-// tile offsets in bytes
-constexpr int Q_AT = 0;
-constexpr int DO_AT = QTILE;
-constexpr int KV_AT = 2 * QTILE;  // buffer b: K at + b * 2 KTILE, V + KTILE
+// the tiles of the instance at padded width W
+template <int W>
+struct Dq {
+  static constexpr int BQ = 128;  // query rows a work item
+  static constexpr int BK = 128;  // keys a tile
+  static constexpr int KS = 32;   // keys a step
+  static constexpr int WARPS = BQ / 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int QTILE = BQ * 2 * W;
+  static constexpr int KTILE = BK * 2 * W;
+  // shared memory: the Q and dO tiles, then K and V of buffer 0, K and V
+  // of buffer 1
+  static constexpr int SMEM_BYTES = 2 * QTILE + 2 * 2 * KTILE;
+  static constexpr int MIN_BLOCKS = 2 - (W > 64);  // blocks an SM
+};
 
 // 16 bytes of data read once: the read-only path, no L1 line
 __device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
@@ -89,7 +94,8 @@ __device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
   return w;
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+template <int W, bool FULL>
+__global__ void __launch_bounds__(Dq<W>::THREADS, Dq<W>::MIN_BLOCKS)
 flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
@@ -98,7 +104,27 @@ flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ dout,
                                const int* __restrict__ lengths,
                                __nv_bfloat16* __restrict__ dq, int heads,
-                               int sq, int sk, float scale, int causal) {
+                               int sq, int sk, int d_arg, float scale,
+                               int causal) {
+  using G = Dq<W>;
+  constexpr int BQ = G::BQ;
+  constexpr int BK = G::BK;
+  constexpr int KS = G::KS;
+  constexpr int THREADS = G::THREADS;
+  constexpr int QTILE = G::QTILE;
+  constexpr int KTILE = G::KTILE;
+  constexpr int CHUNKS = Row<W>::CHUNKS;
+  constexpr int ROW_BYTES = Row<W>::BYTES;
+  // the lane's O chunks: 16 rows x CHUNKS a warp, OC a lane; RPI rows a
+  // pass of the warp (chunk 32 i + lane: row RPI i + lane / CHUNKS)
+  constexpr int OC = 16 * CHUNKS / 32 > 0 ? 16 * CHUNKS / 32 : 1;
+  constexpr int RPI = 32 / CHUNKS;
+  // tile offsets in bytes
+  constexpr int Q_AT = 0;
+  constexpr int DO_AT = QTILE;
+  constexpr int KV_AT = 2 * QTILE;  // buffer b: K at + b * 2 KTILE, V + KTILE
+  static_assert(BK % KS == 0 && KS % 16 == 0, "whole steps of k-steps");
+  const int d = FULL ? W : d_arg;  // the real head dim: the row stride
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
@@ -110,9 +136,9 @@ flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int w = t >> 5;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const size_t qoff = (size_t)bh * sq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * sk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * sk * D;
+  const size_t qoff = (size_t)bh * sq * d;
+  const __nv_bfloat16* kb = k + (size_t)bh * sk * d;
+  const __nv_bfloat16* vb = v + (size_t)bh * sk * d;
 
   const int len = max(0, min(lengths[bh / heads], sk));
   int kend = len;  // one past the last key any row of the item sees
@@ -121,29 +147,35 @@ flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float scale2 = scale * LOG2E;
   const int r0 = q0 + 16 * w + g;  // the lane's rows r0 and r0 + 8
 
-  float acc[8][4];
+  float acc[W / 8][4];
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < W / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 
-  // the lane's O chunks: chunk 32 i + lane of the warp's 16 rows x 8, so
-  // row 4 i + lane / 8 (of the warp's), chunk lane % 8; zeros past Sq
-  uint4 ov[4];
+  // the lane's O chunks (zeros past Sq and past D)
+  uint4 ov[OC];
   // lse log2 e (-inf past Sq) and delta of the lane's rows r0, r0 + 8
   float lse2[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float delta[2] = {0.f, 0.f};
   if (ntiles > 0) {
-    stage_rows<BQ, THREADS>(base + Q_AT, q + qoff, q0, sq, t);
-    stage_rows<BQ, THREADS>(base + DO_AT, dout + qoff, q0, sq, t);
-    stage_rows<BK, THREADS>(base + KV_AT, kb, 0, sk, t);
-    stage_rows<BK, THREADS>(base + KV_AT + KTILE, vb, 0, sk, t);
+    stage_rows<W, FULL, BQ, THREADS>(base + Q_AT, q + qoff, q0, sq, d, t);
+    stage_rows<W, FULL, BQ, THREADS>(base + DO_AT, dout + qoff, q0, sq, d,
+                                     t);
+    stage_rows<W, FULL, BK, THREADS>(base + KV_AT, kb, 0, sk, d, t);
+    stage_rows<W, FULL, BK, THREADS>(base + KV_AT + KTILE, vb, 0, sk, d, t);
     cp_async_commit();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 16 * w + 4 * i + (lane >> 3);
-      ov[i] = qi < sq ? load16(o + qoff + (size_t)qi * D + 8 * (lane & 7))
-                      : make_uint4(0u, 0u, 0u, 0u);
+    for (int i = 0; i < OC; ++i) {
+      const int qi = q0 + 16 * w + RPI * i + lane / CHUNKS;
+      const int c = lane % CHUNKS;
+      const __nv_bfloat16* row = o + qoff + (size_t)qi * d;
+      if (qi >= sq || (!FULL && 8 * c >= d))
+        ov[i] = make_uint4(0u, 0u, 0u, 0u);
+      else if (FULL || (d & 7) == 0)
+        ov[i] = load16(row + 8 * c);
+      else
+        ov[i] = narrow_chunk(row, c, d);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -159,22 +191,23 @@ flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();      // visible to all; tile j - 1 consumed
     if (j + 1 < ntiles) {
       const uint32_t nt = base + KV_AT + ((j + 1) & 1) * 2 * KTILE;
-      stage_rows<BK, THREADS>(nt, kb, kbase + BK, sk, t);
-      stage_rows<BK, THREADS>(nt + KTILE, vb, kbase + BK, sk, t);
+      stage_rows<W, FULL, BK, THREADS>(nt, kb, kbase + BK, sk, d, t);
+      stage_rows<W, FULL, BK, THREADS>(nt + KTILE, vb, kbase + BK, sk, d, t);
       cp_async_commit();
     }
     if (j == 0) {
-      // delta: each lane sums its 4 chunks of dO * O, the 8 lanes of a row
-      // add theirs by shuffles; row u of the warp's 16 then lies in
-      // part[u / 4] of lanes 8 (u % 4) .. + 7
-      float part[4];
+      // delta: each lane sums its chunks of dO * O, the CHUNKS lanes of a
+      // row add theirs by shuffles; row u of the warp's 16 then lies in
+      // part[u / RPI] of lanes CHUNKS (u % RPI) ..
+      float part[OC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < OC; ++i) {
         float x[8], y[8];
         mx_bf16::widen8(ov[i], x);
         mx_bf16::widen8(*reinterpret_cast<const uint4*>(
                             smem + DO_AT +
-                            off(16 * w + 4 * i + (lane >> 3), lane & 7)),
+                            off<W>(16 * w + RPI * i + lane / CHUNKS,
+                                   lane % CHUNKS)),
                         y);
         float a = __fmul_rn(x[0], y[0]);
 #pragma unroll
@@ -186,10 +219,14 @@ flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // row g + 8h of the warp's
-        const float lo = __shfl_sync(0xffffffffu, part[2 * h], 8 * (g & 3));
-        const float hi =
-            __shfl_sync(0xffffffffu, part[2 * h + 1], 8 * (g & 3));
-        delta[h] = (g >> 2) ? hi : lo;
+        const int u = g + 8 * h;
+#pragma unroll
+        for (int i = 0; i < OC; ++i)
+          if (i >= 8 * h / RPI && i <= (8 * h + 7) / RPI) {
+            const float x =
+                __shfl_sync(0xffffffffu, part[i], CHUNKS * (u % RPI));
+            if (u / RPI == i) delta[h] = x;
+          }
       }
     }
 
@@ -202,9 +239,9 @@ flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int h = 0; h < BK / KS; ++h) {
       const uint32_t ks = kt + h * KS * ROW_BYTES;
       float s[KS / 8][4], dp[KS / 8][4];
-      product_nt(s, base + Q_AT, ks, 16 * w, lane);         // S = Q K^T
-      product_nt(dp, base + DO_AT, vt + h * KS * ROW_BYTES,  // dP = dO V^T
-                 16 * w, lane);
+      product_nt<W>(s, base + Q_AT, ks, 16 * w, lane);         // S = Q K^T
+      product_nt<W>(dp, base + DO_AT, vt + h * KS * ROW_BYTES,  // dP = dO V^T
+                    16 * w, lane);
 #pragma unroll
       for (int n = 0; n < KS / 8; ++n)
 #pragma unroll
@@ -224,51 +261,96 @@ flash_attention_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      scale)
                          : 0.f;
         }
-      product_pv<KS / 16>(acc, dp, ks, lane);  // dQ += dS K
+      product_pv<W, KS / 16>(acc, dp, ks, lane);  // dQ += dS K
     }
   }
   // the warp's Q rows are its own and read: they take its dQ rows
   const float one[2] = {1.f, 1.f};
-  store_rows(acc, one, smem + Q_AT, 16 * w, dq + qoff, q0 + 16 * w, sq,
-             lane);
+  store_rows<W, FULL>(acc, one, smem + Q_AT, 16 * w, dq + qoff, q0 + 16 * w,
+                      sq, d, lane);
 }
 
-}  // namespace
-
-// ---- host entry points ----
-// q, o, do, dq (B*H, Sq, D) and k, v (B*H, Sk, D) bf16; lse (B*H, Sq)
-// float32; lengths (B,) int32. All contiguous on the device, 16-byte
-// aligned. One block a (batch*head, 128-query tile), the tiles of a head
-// adjacent. Returns the cudaError_t of the launch.
-extern "C" int mx_flash_attention_dq_bf16(const void* q, const void* k,
-                                          const void* v, const void* o,
-                                          const void* lse, const void* dout,
-                                          const void* lengths, void* dq,
-                                          int batch, int heads, int sq,
-                                          int sk, int d, float scale,
-                                          int causal, void* stream) {
-  if (d != D) return cudaErrorInvalidValue;
+template <int W, bool FULL>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* lse, const void* dout,
+                   const void* lengths, void* dq, int batch, int heads,
+                   int sq, int sk, int d, float scale, int causal,
+                   cudaStream_t stream) {
+  using G = Dq<W>;
+  auto* kernel = flash_attention_dq_bf16_kernel<W, FULL>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_dq_bf16_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const long long items = (long long)batch * heads * ((sq + BQ - 1) / BQ);
+  const long long items =
+      (long long)batch * heads * ((sq + G::BQ - 1) / G::BQ);
   if (items == 0) return cudaSuccess;
-  flash_attention_dq_bf16_kernel<<<(unsigned)items, THREADS, SMEM_BYTES,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(unsigned)items, G::THREADS, G::SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(dq),
-      heads, sq, sk, scale, causal);
+      heads, sq, sk, d, scale, causal);
   return cudaGetLastError();
 }
 
+// the padded widths built, each for D == W and for D < W
+#define MX_BF16_WIDTHS(X) X(16) X(32) X(64) X(128)
+
+}  // namespace
+
+// ---- host entry points ----
+// q, o, do, dq (B*H, Sq, D) and k, v (B*H, Sk, D) bf16; lse (B*H, Sq)
+// float32; lengths (B,) int32. All contiguous on the device. width is the
+// padded width of the instance (16, 32, 64 or 128; 1 <= D <= width). One
+// block a (batch*head, 128-query tile), the tiles of a head adjacent.
+// Returns the cudaError_t of the launch.
+extern "C" int mx_flash_attention_dq_bf16(const void* q, const void* k,
+                                          const void* v, const void* o,
+                                          const void* lse, const void* dout,
+                                          const void* lengths, void* dq,
+                                          int batch, int heads, int sq,
+                                          int sk, int d, int width,
+                                          float scale, int causal,
+                                          void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > width) return cudaErrorInvalidValue;
+  switch (width) {
+#define X(W)                                                              \
+  case W:                                                                 \
+    return d == W ? launch<W, true>(q, k, v, o, lse, dout, lengths, dq,   \
+                                    batch, heads, sq, sk, d, scale,       \
+                                    causal, st)                           \
+                  : launch<W, false>(q, k, v, o, lse, dout, lengths, dq,  \
+                                     batch, heads, sq, sk, d, scale,      \
+                                     causal, st);
+    MX_BF16_WIDTHS(X)
+#undef X
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // Dynamic shared memory a block in bytes, query rows a work item and keys
-// a tile, so the wrapper can hold its geometry (attention.py
-// dq_bf16_geometry) to the kernel's layout.
-extern "C" int mx_flash_attention_dq_bf16_smem() { return SMEM_BYTES; }
-extern "C" int mx_flash_attention_dq_bf16_block_q() { return BQ; }
-extern "C" int mx_flash_attention_dq_bf16_block_k() { return BK; }
+// a tile of the instance at padded width `width` (0: not built), so the
+// wrapper can hold its geometry (attention.py dq_bf16_geometry) to the
+// kernel's layout.
+#define MX_DQ_ENTRY(NAME, FIELD)    \
+  extern "C" int NAME(int width) {  \
+    switch (width) {                \
+      case 16:                      \
+        return Dq<16>::FIELD;       \
+      case 32:                      \
+        return Dq<32>::FIELD;       \
+      case 64:                      \
+        return Dq<64>::FIELD;       \
+      case 128:                     \
+        return Dq<128>::FIELD;      \
+      default:                      \
+        return 0;                   \
+    }                               \
+  }
+MX_DQ_ENTRY(mx_flash_attention_dq_bf16_smem, SMEM_BYTES)
+MX_DQ_ENTRY(mx_flash_attention_dq_bf16_block_q, BQ)
+MX_DQ_ENTRY(mx_flash_attention_dq_bf16_block_k, BK)

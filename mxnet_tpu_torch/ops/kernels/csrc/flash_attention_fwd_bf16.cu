@@ -26,9 +26,22 @@
 // 3.35 TB/s, against 4.83 GFLOP, 0.0049 ms at 989 TFLOP/s. So mma.sync
 // suffices; what counts is keeping copies in flight.
 //
+// Head dims. Every D from 1 to 128 runs, through instances built at the
+// padded widths W = 16, 32, 64 and 128 (the smallest W >= D, which the
+// wrapper passes: attention.py head_width), each for D == W (FULL: the
+// row stride a constant) and for D < W. Tiles hold W columns, those past
+// D zero (mma_bf16.cuh: 16-byte cp.async where D % 8 == 0, else rows
+// staged through registers, since no cp.async copies 2 bytes), so every
+// product over W is the product over D; only the D real columns of out
+// are written. At W 128 the 128-row query tile's O accumulators (64
+// floats a thread) and the scores (64) do not fit two blocks an SM at 128
+// registers, and its 160 KB of tiles do not fit twice either: one block
+// an SM there (MIN_BLOCKS below), 8 warps of 16 rows as at every width.
+//
 // Design. One block of 8 warps a work item (batch*head, 128-query tile),
-// two blocks an SM (80 KB of shared memory and at most 128 registers a
-// thread each), so one block's copies run while the other computes; warp w
+// two blocks an SM up to width 64 (80 KB of shared memory at 64 and at most
+// 128 registers a thread each), so one block's copies run while the other
+// computes; warp w
 // owns query rows 16w .. 16w + 15 throughout:
 //   * staging: Q, K and V arrive as raw bf16 by 16-byte cp.async into
 //     swizzled tiles (mma_bf16.cuh); K and V are double-buffered, the next
@@ -56,22 +69,35 @@ namespace {
 
 using namespace mx_mma;
 
-constexpr int BQ = 128;  // query rows a work item
-constexpr int BK = 128;  // keys a tile: the reference's K_BLOCK
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = 32 * WARPS;
-constexpr int TILE = 128 * ROW_BYTES;  // bytes of a 128-row tile
-// shared memory: the Q tile, then K and V of buffer 0, K and V of buffer 1
-constexpr int SMEM_BYTES = TILE + 2 * 2 * BK * ROW_BYTES;
+// the tiles of the instance at padded width W
+template <int W>
+struct Fwd {
+  static constexpr int BQ = 128;  // query rows a work item
+  static constexpr int BK = 128;  // keys a tile: the reference's K_BLOCK
+  static constexpr int WARPS = BQ / 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int TILE = 128 * 2 * W;  // bytes of a 128-row tile
+  // shared memory: the Q tile, then K and V of buffer 0, K and V of
+  // buffer 1
+  static constexpr int SMEM_BYTES = TILE + 2 * 2 * BK * 2 * W;
+  static constexpr int MIN_BLOCKS = 2 - (W > 64);  // blocks an SM
+};
 
-__global__ void __launch_bounds__(THREADS, 2)
+template <int W, bool FULL>
+__global__ void __launch_bounds__(Fwd<W>::THREADS, Fwd<W>::MIN_BLOCKS)
 flash_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
                                 const int* __restrict__ lengths,
                                 __nv_bfloat16* __restrict__ out,
                                 float* __restrict__ lse, int heads, int sq,
-                                int sk, float scale, int causal) {
+                                int sk, int d_arg, float scale, int causal) {
+  using G = Fwd<W>;
+  constexpr int BQ = G::BQ;
+  constexpr int BK = G::BK;
+  constexpr int THREADS = G::THREADS;
+  constexpr int TILE = G::TILE;
+  const int d = FULL ? W : d_arg;  // the real head dim: the row stride
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = smem_u32(smem);
   const uint32_t kv0 = qs + TILE;  // K(buf) at kv0 + buf * 2 TILE, V + TILE
@@ -84,9 +110,9 @@ flash_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int w = t >> 5;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const __nv_bfloat16* qb = q + (size_t)bh * sq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * sk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * sk * D;
+  const __nv_bfloat16* qb = q + (size_t)bh * sq * d;
+  const __nv_bfloat16* kb = k + (size_t)bh * sk * d;
+  const __nv_bfloat16* vb = v + (size_t)bh * sk * d;
 
   const int len = max(0, min(lengths[bh / heads], sk));
   int kend = len;  // one past the last key any row of the item sees
@@ -95,18 +121,18 @@ flash_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float scale2 = scale * LOG2E;
   const int r0 = q0 + 16 * w + g;  // the lane's rows r0 and r0 + 8
 
-  float o[8][4];
+  float o[W / 8][4];
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < W / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l[2] = {0.f, 0.f};  // the lane's share of each row's sum
 
   if (ntiles > 0) {
-    stage_rows<BQ, THREADS>(qs, qb, q0, sq, t);
-    stage_rows<BK, THREADS>(kv0, kb, 0, sk, t);
-    stage_rows<BK, THREADS>(kv0 + TILE, vb, 0, sk, t);
+    stage_rows<W, FULL, BQ, THREADS>(qs, qb, q0, sq, d, t);
+    stage_rows<W, FULL, BK, THREADS>(kv0, kb, 0, sk, d, t);
+    stage_rows<W, FULL, BK, THREADS>(kv0 + TILE, vb, 0, sk, d, t);
     cp_async_commit();
   }
   for (int j = 0; j < ntiles; ++j) {
@@ -116,13 +142,13 @@ flash_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();      // visible to all; tile j - 1 consumed
     if (j + 1 < ntiles) {
       const uint32_t nt = kv0 + ((j + 1) & 1) * 2 * TILE;
-      stage_rows<BK, THREADS>(nt, kb, kbase + BK, sk, t);
-      stage_rows<BK, THREADS>(nt + TILE, vb, kbase + BK, sk, t);
+      stage_rows<W, FULL, BK, THREADS>(nt, kb, kbase + BK, sk, d, t);
+      stage_rows<W, FULL, BK, THREADS>(nt + TILE, vb, kbase + BK, sk, d, t);
       cp_async_commit();
     }
 
     float s[BK / 8][4];
-    product_nt(s, qs, kt, 16 * w, lane);
+    product_nt<W>(s, qs, kt, 16 * w, lane);
 
     // x = s * scale log2 e, masked; element e of n-tile n: row r0 +
     // 8 (e >> 1), key kbase + 8n + 2tq + (e & 1)
@@ -165,10 +191,10 @@ flash_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int h = 0; h < 2; ++h)
       l[h] = __fadd_rn(__fmul_rn(l[h], corr[h]), rs[h]);
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int c = 0; c < W / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[c][e] *= corr[e >> 1];
-    product_pv<BK / 16>(o, s, kt + TILE, lane);
+    product_pv<W, BK / 16>(o, s, kt + TILE, lane);
   }
 
   float inv[2];
@@ -179,8 +205,8 @@ flash_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     inv[h] = 1.f / fmaxf(l[h], 1e-20f);
   }
   // the warp's Q rows are its own and read: they take its output rows
-  store_rows(o, inv, smem, 16 * w, out + (size_t)bh * sq * D, q0 + 16 * w, sq,
-             lane);
+  store_rows<W, FULL>(o, inv, smem, 16 * w, out + (size_t)bh * sq * d,
+                      q0 + 16 * w, sq, d, lane);
   if (tq == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -193,36 +219,81 @@ flash_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-// ---- host entry points ----
-// q (B*H, Sq, D), k/v (B*H, Sk, D), out (B*H, Sq, D) bf16; lengths (B,)
-// int32; lse (B*H, Sq) float32; all contiguous on the device, 16-byte
-// aligned. One block a (batch*head, 128-query tile), the tiles of a head
-// adjacent. Returns the cudaError_t of the launch.
-extern "C" int mx_flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* lse, int batch, int heads, int sq, int sk, int d,
-    float scale, int causal, void* stream) {
-  if (d != D) return cudaErrorInvalidValue;  // the instance the port needs
+template <int W, bool FULL>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* lengths, void* out, void* lse, int batch,
+                   int heads, int sq, int sk, int d, float scale, int causal,
+                   cudaStream_t stream) {
+  using G = Fwd<W>;
+  auto* kernel = flash_attention_fwd_bf16_kernel<W, FULL>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_fwd_bf16_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const long long items = (long long)batch * heads * ((sq + BQ - 1) / BQ);
+  const long long items =
+      (long long)batch * heads * ((sq + G::BQ - 1) / G::BQ);
   if (items == 0) return cudaSuccess;
-  flash_attention_fwd_bf16_kernel<<<(unsigned)items, THREADS, SMEM_BYTES,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(unsigned)items, G::THREADS, G::SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), heads, sq, sk, scale, causal);
+      static_cast<float*>(lse), heads, sq, sk, d, scale, causal);
   return cudaGetLastError();
 }
 
-// Dynamic shared memory a block in bytes and query rows a work item, so the
-// wrapper can hold its geometry (attention.py fwd_bf16_geometry) to the
-// kernel's layout.
-extern "C" int mx_flash_attention_fwd_bf16_smem() { return SMEM_BYTES; }
-extern "C" int mx_flash_attention_fwd_bf16_block_q() { return BQ; }
+// the padded widths built, each for D == W and for D < W
+#define MX_BF16_WIDTHS(X) X(16) X(32) X(64) X(128)
+
+}  // namespace
+
+// ---- host entry points ----
+// q (B*H, Sq, D), k/v (B*H, Sk, D), out (B*H, Sq, D) bf16; lengths (B,)
+// int32; lse (B*H, Sq) float32; all contiguous on the device. width is
+// the padded width of the instance (16, 32, 64 or 128; 1 <= D <= width,
+// attention.py head_width). One block a (batch*head, 128-query tile), the
+// tiles of a head adjacent. Returns the cudaError_t of the launch.
+extern "C" int mx_flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* out, void* lse, int batch, int heads, int sq, int sk, int d,
+    int width, float scale, int causal, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > width) return cudaErrorInvalidValue;
+  switch (width) {
+#define X(W)                                                              \
+  case W:                                                                 \
+    return d == W ? launch<W, true>(q, k, v, lengths, out, lse, batch,    \
+                                    heads, sq, sk, d, scale, causal, st)  \
+                  : launch<W, false>(q, k, v, lengths, out, lse, batch,   \
+                                     heads, sq, sk, d, scale, causal, st);
+    MX_BF16_WIDTHS(X)
+#undef X
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block in bytes and query rows a work item of the
+// instance at padded width `width` (0: not built), so the wrapper can hold
+// its geometry (attention.py fwd_bf16_geometry) to the kernel's layout.
+extern "C" int mx_flash_attention_fwd_bf16_smem(int width) {
+  switch (width) {
+#define X(W) \
+  case W:    \
+    return Fwd<W>::SMEM_BYTES;
+    MX_BF16_WIDTHS(X)
+#undef X
+    default:
+      return 0;
+  }
+}
+extern "C" int mx_flash_attention_fwd_bf16_block_q(int width) {
+  switch (width) {
+#define X(W) \
+  case W:    \
+    return Fwd<W>::BQ;
+    MX_BF16_WIDTHS(X)
+#undef X
+    default:
+      return 0;
+  }
+}

@@ -280,19 +280,25 @@ def test_dq_slack_covers_every_ds_that_can_round_the_other_way(seed):
     assert (flips >= 0).all() and flips.max().item() > 0
 
 
-def _constants(*names):
-    """The ``constexpr`` integers of csrc/<name> in order, each
-    evaluated over the ones before it (integer division as C's)."""
-    csrc = os.path.join(os.path.dirname(attn.__file__), 'csrc')
-    env = {}
-    for name in names:
-        with open(os.path.join(csrc, name)) as f:
-            text = f.read()
-        for m in re.finditer(r'^\s*constexpr int (\w+) = ([^;]+);', text,
-                             re.M):
-            expr = m.group(2).replace('/', '//')
-            env[m.group(1)] = eval(expr, {'__builtins__': {}}, dict(env))
-    return env
+def _structs(name, w):
+    """{struct: {constant: value}} of the ``template <int W> struct``s of
+    csrc/<name> at W = ``w``, each constant evaluated over the ones
+    before it (integer division as C's; the sources write them as
+    arithmetic, a comparison counting 0 or 1)."""
+    with open(os.path.join(os.path.dirname(attn.__file__), 'csrc',
+                           name)) as f:
+        text = f.read()
+    out = {}
+    for m in re.finditer(r'template <int W>\s*struct (\w+) \{(.*?)\n\};',
+                         text, re.S):
+        env = {'W': w}
+        for c in re.finditer(r'static constexpr int (\w+) =\s*([^;]+);',
+                             m.group(2)):
+            env[c.group(1)] = eval(c.group(2).replace('/', '//'),
+                                   {'__builtins__': {}}, dict(env))
+        del env['W']
+        out[m.group(1)] = env
+    return out
 
 
 def test_bf16_geometries_follow_the_kernel_sources():
@@ -300,9 +306,9 @@ def test_bf16_geometries_follow_the_kernel_sources():
     sizes and shared-memory bytes the kernels are built with (the
     wrappers hold them to the libraries' ``*_smem`` entries at first load
     on the card), and one block a work item."""
-    fwd = _constants('mma_bf16.cuh', 'flash_attention_fwd_bf16.cu')
-    dkv = _constants('mma_bf16.cuh', 'flash_attention_dkv_bf16.cu')
-    assert fwd['D'] == dkv['D'] == D
+    fwd = _structs('flash_attention_fwd_bf16.cu', D)['Fwd']
+    dkv = _structs('flash_attention_dkv_bf16.cu', D)['Dkv']
+    assert _structs('mma_bf16.cuh', D)['Row']['BYTES'] == 2 * D
     assert fwd['BK'] == kernels.K_BLOCK
     for b, h, s in ((96, 12, 128), (1, 12, 256), (2, 3, 17), (3, 2, 300)):
         assert attn.fwd_bf16_geometry(b, h, s) == (
@@ -311,6 +317,7 @@ def test_bf16_geometries_follow_the_kernel_sources():
             dkv['BK'], dkv['BQ'], b * h * -(-s // dkv['BK']),
             dkv['SMEM_BYTES'])
     # two blocks an SM, as the kernels' launch bounds ask
+    assert fwd['MIN_BLOCKS'] == dkv['MIN_BLOCKS'] == 2
     assert 2 * fwd['SMEM_BYTES'] <= attn.SMEM_BLOCK_MAX
     assert 2 * dkv['SMEM_BYTES'] <= attn.SMEM_BLOCK_MAX
 
@@ -321,8 +328,9 @@ def test_dq_bf16_geometry_follows_the_kernel_source():
     wrapper holds them to the library's ``*_block_q`` / ``*_block_k`` /
     ``*_smem`` entries at first load on the card), one block a work item,
     eight warps of 16 query rows, and whole 16-key k-steps a step."""
-    dq = _constants('mma_bf16.cuh', 'flash_attention_dq_bf16.cu')
-    assert dq['D'] == D and dq['THREADS'] == 32 * dq['BQ'] // 16
+    dq = _structs('flash_attention_dq_bf16.cu', D)['Dq']
+    assert _structs('mma_bf16.cuh', D)['Row']['BYTES'] == 2 * D
+    assert dq['THREADS'] == 32 * dq['BQ'] // 16 and dq['MIN_BLOCKS'] == 2
     assert dq['BK'] % dq['KS'] == 0 and dq['KS'] % 16 == 0
     for b, h, s in ((96, 12, 128), (1, 12, 256), (2, 3, 17), (3, 2, 300)):
         assert attn.dq_bf16_geometry(b, h, s) == (

@@ -260,7 +260,7 @@ def test_captured_programs_equal_eager_bodies_on_card(kind):
         pytest.skip('needs a CUDA card: the programs are CUDA graphs over '
                     'kernels built for sm_90a')
     from mxnet_tpu_torch.serving.decode import init_transformer_lm
-    # the kernels are built for a head dim of 64
+    # head dim 64, the serving slice's width (the kernels take 1-128)
     pmodel, np_params = init_transformer_lm(**dict(CFG, units=128, heads=2))
     args = dict(KINDS[kind], slots=2, prefill_buckets=BUCKETS)
     runs = {}

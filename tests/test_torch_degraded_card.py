@@ -20,7 +20,7 @@ from mxnet_tpu_torch.serving.decode import DecodeEngine, init_transformer_lm
 
 torch.set_num_threads(1)
 
-# head dim 64: the width the attention kernels are built for
+# head dim 64, the serving slice's width (the kernels take 1-128)
 CFG = dict(vocab=23, units=128, hidden=256, layers=2, heads=2, max_len=48)
 PROMPTS = ([3, 1, 4, 1, 5, 9, 2], [8, 8, 2], [2, 7, 1, 8, 2, 8], [6, 5])
 WAIT = 120

@@ -416,7 +416,7 @@ def test_captured_steps_bitwise_eager_steps_on_card(dropout):
     from mxnet_tpu_torch.ops import kernels
     X, Y = _bert_batches(6)
     runs = {}
-    # the kernels are built for a head dim of 64; deterministic algorithms
+    # head dim 64, the width phase 4b trains; deterministic algorithms
     # on both sides, since the MLM gather's backward scatter-adds with
     # atomics by default (two eager runs differ too)
     cfg = dict(CFG, units=128, dropout=dropout)
