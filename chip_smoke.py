@@ -375,7 +375,30 @@ Phases, in order; any failure exits non-zero:
      slot tokens), its replayed step beside its weight-read bound; (b)
      rows 1, 4 and 4p at head dim 128 timed at phase 2's shapes and at
      3w's beside their bounds and SDPA, and the head-dim-64 device times
-     beside ``PERF.md``'s;
+     beside ``PERF.md``'s. 3r, after 3w: the RNN-LM family (``RNNLM``;
+     no kernel of its own: its cells are plain products and pointwise
+     ops, as the JAX model's are XLA's). (a) every mode (lstm, gru,
+     rnn_relu, rnn_tanh) at 2 layers, embed and hidden 48: the card's
+     captured prefill and 4 steps of every slot within 1e-5 of the port's
+     CPU path on the same weights and tokens; (b)
+     ``standard_lstm_lm_1500``'s widths (GluonNLP's model zoo: 2 LSTM
+     layers, embed and hidden 1500, vocabulary 33278, the head apart from
+     the embedding, max_len 512; weights drawn on the card from seed 0 at
+     U(-0.07, 0.07), the reference ``Uniform()``'s scale, at which a
+     1500-wide LSTM is not chaotic) frozen by ``freeze_decode``'s default,
+     the slot cache, serving phase 3's 16 requests greedy and then
+     sampled (temperature 0.8, top-p 0.9, seeds 0-15): the reference's
+     program set built at start and none by a request, one row 18 launch
+     a program call and no other launch, exact against the engine's
+     counts (joining the ``kernels`` line); two greedy streams re-derived
+     by ``full_forward`` after every token and by the CPU fallback, equal
+     but at near ties (top-2 gap < 1e-4, counted); one stream migrated at
+     16 tokens to a second engine through its ``slot`` payload (its bytes
+     printed), the spliced stream the unmigrated one with no prefill
+     there; the replayed step beside its weight-read bound, the step's and
+     the top bucket's prefill's replays alone, tokens/s, TTFT, capture
+     seconds, the program set's memory, peak memory, the step's busy share
+     and profile groups, the prefill's kernels by name;
   4. the training slice. 4a: a small BERT (2 layers, units 256, 4
      heads, vocab 1000) takes one forward and backward and then three
      ``ParallelTrainer`` AdamW steps on the card (kernels) and on the CPU
@@ -6943,6 +6966,420 @@ def log_neo(rw, ra, times_d, times, card):
            D64_DEVICE_MS))
 
 
+# -- phase 3r: the RNN-LM family ---------------------------------------------
+
+# (a): every mode at small widths, the card against the port's CPU path
+RNN_MODES = ('lstm', 'gru', 'rnn_relu', 'rnn_tanh')
+RNN_SMALL = dict(vocab=1000, embed=48, hidden=48, layers=2, max_len=64)
+RNN_SMALL_STEPS = 4
+# (b): standard_lstm_lm_1500's widths, the "large" LSTM LM of Zaremba,
+# Sutskever & Vinyals (2014) on WikiText-2, from GluonNLP's model zoo; the
+# head kept apart from the embedding, as RNNLM has it. max_len 512 bounds a
+# sequence only: an RNN's state does not grow with it, so nothing is cut
+RNN_LM = dict(vocab=33278, embed=1500, hidden=1500, layers=2, mode='lstm',
+              max_len=512)
+RNN_LM_SOURCE = ('GluonNLP model zoo standard_lstm_lm_1500 (2 LSTM layers, '
+                 'embed 1500, hidden 1500; WikiText-2 vocabulary 33278)')
+# weights at the scale of the reference's Uniform() (initializer.py:205),
+# U(-0.07, 0.07): at init_params' N(0, 0.1^2) a 1500-wide LSTM is chaotic
+# and the argmax after a few dozen tokens is float32 noise
+RNN_INIT = 0.07
+RNN_RECHECK = 2            # greedy requests re-derived, by each route
+RNN_MIGRATE_AT = 16        # tokens the migrated stream has on its source
+# the captured RNN step's profile groups
+RNN_GROUPS = (('GEMMs', ('gemm', 'gemv', 'xmma', 'cutlass', 'nvjet'), ()),
+              ('sampling noise kernel', ('threefry',), ()),
+              ('sampling sort and scan', ('radix', 'sort', 'scan'), ()),
+              ('copies', ('memcpy', 'memset'), ()))
+
+
+def check_rnn_modes(torch, serving, device, cfg=RNN_SMALL, slots=SLOTS,
+                    buckets=(16, 32), seed=0):
+    """Phase 3r (a): an RNNLM of every mode at 2 layers, hidden 48, the
+    same weights frozen on the card (captured programs) and on the CPU
+    (the plain path): a 23-token prompt prefilled into the last slot, then
+    ``RNN_SMALL_STEPS`` steps of every slot on the same random tokens.
+    Every logit within ``TOL`` of the CPU's. Returns {mode: max abs
+    error}."""
+    import numpy as np
+    errs = {}
+    rs = np.random.RandomState(seed)
+    for mode in RNN_MODES:
+        model, params = serving.init_rnn_lm(mode=mode, seed=seed, **cfg)
+        prompt = rs.randint(0, cfg['vocab'], 23).tolist()
+        feeds = rs.randint(0, cfg['vocab'], (RNN_SMALL_STEPS, slots))
+        got = {}
+        for where in (device, 'cpu'):
+            prog = serving.freeze_decode(model, params, slots=slots,
+                                         prefill_buckets=buckets,
+                                         sample_args=False, device=where)
+            cache = prog.new_cache()
+            cache, _tok, first = prog.run_prefill(cache, prompt, slots - 1)
+            logits = [first]
+            for k, feed in enumerate(feeds):
+                cache, _toks, row = prog.run_step(
+                    cache, feed, np.full(slots, len(prompt) + k, 'int32'))
+                logits.append(row)
+            got[str(where)] = logits
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(got[str(device)], got['cpu']))
+        if not err <= TOL:
+            raise AssertionError('phase 3r (a) %s: the card\'s logits are '
+                                 '%.3g from the CPU\'s (tolerance %g)'
+                                 % (mode, err, TOL))
+        errs[mode] = err
+    return errs
+
+
+def rnn_lm_params(torch, model, seed, device, scale=RNN_INIT):
+    """``model``'s parameters drawn on ``device`` from a generator seeded
+    with ``seed``: the embedding, the flat cell vector and the head at
+    U(-scale, scale), the head's bias zero (``init_params``' layout)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = {}
+    for name, shape in model.param_shapes().items():
+        if name == 'out_bias':
+            params[name] = torch.zeros(shape, device=device)
+        else:
+            params[name] = (torch.rand(shape, generator=gen, device=device)
+                            * 2 - 1) * scale
+    model.check_params(params)
+    return params
+
+
+def rnn_step_bytes(model, slots=SLOTS):
+    """What one decode step must move: both layers' W_i2h and W_h2h and
+    their biases, the head, the slots' embedding rows, the state read and
+    written, the logits written (float32)."""
+    shapes = model.param_shapes()
+    weights = shapes['rnn_params'][0] + math.prod(shapes['out_weight']) \
+        + shapes['out_bias'][0]
+    state = 2 * len(model.cache_spec().entries) * slots * model.layers \
+        * model.hidden
+    return 4 * (weights + slots * model.embed + state + slots * model.vocab)
+
+
+def _rnn_round(torch, kernels, sess, prompts, laws, phase):
+    """One round of ``prompts`` through ``sess.generate`` (``laws``: the
+    sampling keywords a request), the launch counts zeroed just before and
+    read just after: exactly one noise launch a program call (row 18; the
+    knob's default programs sample), no other kernel. Returns (outs,
+    streams, wall seconds, launches, prefills, steps, step seconds)."""
+    before = sess.stats()['counts']
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = [sess.generate(p, **law) for p, law in zip(prompts, laws)]
+    outs = [s.result(600) for s in streams]
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    after = sess.stats()['counts']
+    prefills = after['prefills'] - before['prefills']
+    steps = after['steps'] - before['steps']
+    want = dict.fromkeys(launches, 0)
+    want['threefry_gumbel'] = prefills + steps
+    if launches != want or prefills != len(prompts):
+        raise AssertionError('%s: launches %r for %d prefills and %d steps, '
+                             'expected %r' % (phase, launches, prefills,
+                                              steps, want))
+    for out, s in zip(outs, streams):
+        if len(out) != NEW_TOKENS or s.finish_reason != 'length':
+            raise AssertionError('%s: a request ended early: %d tokens, %s'
+                                 % (phase, len(out), s.finish_reason))
+    return outs, streams, wall, launches, prefills, steps, \
+        after['step_seconds'] - before['step_seconds']
+
+
+def replay_ms(torch, buf, iters=20):
+    """Device ms of ``iters`` back-to-back replays of ``buf``'s captured
+    program alone (no copy in or out, no host sync between), over CUDA
+    events, after 3 untimed replays."""
+    for _ in range(3):
+        buf.prog.run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        buf.prog.run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _rnn_gap(torch, model, params, prompt, served, t, other):
+    """The card's ``full_forward`` logit gap at token ``t`` of a served
+    greedy stream between the served token and ``other``."""
+    with torch.inference_mode():
+        toks = torch.tensor([list(prompt) + served[:t]],
+                            device=params['out_bias'].device)
+        logits = model.full_forward(params, toks)[0, -1]
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError('phase 3r: non-finite logits')
+    return abs(float(logits[served[t]]) - float(logits[other]))
+
+
+def serve_rnn_lm(torch, serving, kernels, device, cfg=RNN_LM, seed=0):
+    """Phase 3r (b): ``RNN_LM`` (weights drawn on the card from ``seed``)
+    frozen by ``freeze_decode``'s default, the slot cache, and served
+    through ``InferenceSession.generate``: phase 3's 16 requests greedy,
+    then sampled (temperature 0.8, top-p 0.9, seeds 0-15), 32 new tokens
+    each, launches exact (:func:`_rnn_round`); the reference's program
+    set built at start and none by a request; two greedy streams
+    re-derived with ``full_forward`` after every token and with the CPU
+    fallback, equal but at near ties (the card's top-2 gap below ``TIE``);
+    one greedy stream migrated at ``RNN_MIGRATE_AT`` tokens to a second
+    engine through its ``slot`` payload, the spliced stream the
+    unmigrated one with no prefill there; the replayed step timed and
+    profiled beside its bound. Returns a dict of results."""
+    import gc
+
+    import numpy as np
+    phase = 'phase 3r (b)'
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = serving.RNNLM(dict(cfg))
+    params = rnn_lm_params(torch, model, seed, device)
+    nparams = sum(p.numel() for p in params.values())
+    prog = serving.freeze_decode(model, params, slots=SLOTS,
+                                 prefill_buckets=BUCKETS, device=device)
+    if type(prog) is not serving.DecodeProgram:
+        raise AssertionError('%s: freeze_decode gave %r, not the slot cache'
+                             % (phase, prog))
+    setup_s = time.perf_counter() - t0
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(8, 257, size=REQUESTS)
+    prompts = [rs.randint(0, cfg['vocab'], size=n).tolist() for n in lens]
+    # the capture empties the allocator's cache of earlier phases' blocks:
+    # empty it first, so what warmup reserves is the programs' own
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    with serving.InferenceSession(prog, timeout_s=600,
+                                  max_new_tokens=NEW_TOKENS) as sess:
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        programs_bytes = torch.cuda.memory_reserved() - reserved0
+        seconds = check_programs(phase, prog, program_set(BUCKETS), True)
+        sess.generate(prompts[0][:8], max_new_tokens=2).result(600)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        greedy = _rnn_round(torch, kernels, sess, prompts,
+                            [{}] * REQUESTS, phase + ' greedy')
+        sampled = _rnn_round(torch, kernels, sess, prompts,
+                             [dict(temperature=0.8, top_p=0.9, seed=i)
+                              for i in range(REQUESTS)], phase + ' sampled')
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        assert_healthy(phase, sess, greedy[1] + sampled[1])
+    if prog.compile_count != len(seconds):
+        raise AssertionError('%s: a request built a program (%d after the '
+                             'run, %d after warmup)' % (
+                                 phase, prog.compile_count, len(seconds)))
+    outs = greedy[0]
+    for o in outs + sampled[0]:
+        if not all(0 <= t < cfg['vocab'] for t in o):
+            raise AssertionError('%s: token outside the vocabulary' % phase)
+    # greedy streams re-derived: the uncached forward after every token,
+    # and the CPU fallback from the program's host copy of the weights
+    recheck = {'full_forward': [0, []], 'fallback': [0, []]}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for r in range(RNN_RECHECK):
+            for t in range(NEW_TOKENS):
+                toks = torch.tensor([prompts[r] + outs[r][:t]], device=device)
+                best = int(model.full_forward(prog.params, toks)[0, -1]
+                           .argmax())
+                if best == outs[r][t]:
+                    recheck['full_forward'][0] += 1
+                    continue
+                gap = _rnn_gap(torch, model, prog.params, prompts[r],
+                               outs[r], t, best)
+                if not gap < TIE:
+                    raise AssertionError(
+                        '%s: request %d token %d: served %d, full_forward %d,'
+                        ' gap %.3g is no tie' % (phase, r, t, outs[r][t],
+                                                 best, gap))
+                recheck['full_forward'][1].append((r, t, gap))
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in range(RNN_RECHECK):
+        fb = prog.fallback_generate(prompts[r], NEW_TOKENS)
+        t = next((t for t, (a, b) in enumerate(zip(fb, outs[r])) if a != b),
+                 None)
+        if t is None:
+            recheck['fallback'][0] += len(fb)
+            continue
+        recheck['fallback'][0] += t
+        gap = _rnn_gap(torch, model, prog.params, prompts[r], outs[r], t,
+                       fb[t])
+        if not gap < TIE:
+            raise AssertionError('%s: request %d token %d: served %d, CPU '
+                                 'fallback %d, gap %.3g is no tie'
+                                 % (phase, r, t, outs[r][t], fb[t], gap))
+        recheck['fallback'][1].append((r, t, gap))
+    fallback_s = time.perf_counter() - t0
+    # the O(1) slot payload: request 0 migrated mid-way to a second engine
+    dst_prog = serving.freeze_decode(model, params, slots=SLOTS,
+                                     prefill_buckets=BUCKETS[:1],
+                                     device=device)
+    src = serving.decode.DecodeEngine(prog, timeout_s=600)
+    dst = serving.decode.DecodeEngine(dst_prog, timeout_s=600)
+    try:
+        stream = src.generate(prompts[0], max_new_tokens=NEW_TOKENS)
+        it = iter(stream)
+        for _ in range(RNN_MIGRATE_AT):
+            next(it)
+        t0 = time.perf_counter()
+        payload = src.export_sequence(stream, timeout=600)
+        export_s = time.perf_counter() - t0
+        if payload['kind'] != 'slot' or stream.finish_reason != 'migrated':
+            raise AssertionError('%s: export gave kind %r, stream %r'
+                                 % (phase, payload['kind'],
+                                    stream.finish_reason))
+        wire = json.dumps(payload).encode()
+        t0 = time.perf_counter()
+        cont = list(dst.import_sequence(json.loads(wire), timeout=600))
+        import_s = time.perf_counter() - t0
+        spliced = list(payload['emitted']) + cont
+        dcounts = dst.stats()['counts']
+    finally:
+        src.close()
+        dst.close()
+    if spliced != outs[0] or dcounts['prefills'] or \
+            dcounts['migrated_in'] != 1:
+        raise AssertionError('%s: the migrated stream is not the unmigrated '
+                             'one (first difference at %s) or the importer '
+                             'prefilled (%d)' % (
+                                 phase, next((i for i, (a, b) in enumerate(
+                                     zip(spliced, outs[0])) if a != b),
+                                     'the length'), dcounts['prefills']))
+    state_bytes = sum(
+        math.prod(e['shape']) * np.dtype(e['dtype']).itemsize
+        for e in payload['entries'].values())
+    del dst_prog
+    gc.collect()
+    # the replayed step at phase 2's positions, timed and profiled
+    cache = prog.new_cache()
+    step_args = (np.zeros(SLOTS, 'int32'),
+                 np.asarray(DECODE_POSITIONS[:SLOTS], 'int32'))
+    step_ms = time_ms(torch, lambda: prog.run_step(cache, *step_args),
+                      iters=20, warmup=3)
+    step_prof = profile_step(torch, lambda: prog.run_step(cache, *step_args),
+                             RNN_GROUPS)
+    graph_ms = replay_ms(torch, prog._compiled['step'])
+    # the top bucket's prefill (a 250-token prompt): its replay timed, its
+    # kernels by name (the recurrence's W_h2h GEMV: layers x bucket calls)
+    long_prompt = prompts[int(np.argmax(lens))]
+    top = prog.policy.bucket_for(len(long_prompt))
+    prefill_ms = time_ms(torch, lambda: prog.run_prefill(cache, long_prompt,
+                                                         0), iters=5,
+                         warmup=2)
+    prefill_graph_ms = replay_ms(torch, prog._compiled['prefill:%d' % top],
+                                 iters=5)
+    prefill_prof = profile_step(
+        torch, lambda: prog.run_prefill(cache, long_prompt, 0), RNN_GROUPS)
+    ttft = [s.ttft_s for s in greedy[1]]
+    _o, _s, wall, launches, prefills, steps, step_s = greedy
+    _o2, _s2, wall2, launches2, prefills2, steps2, step_s2 = sampled
+    out = dict(
+        nparams=nparams, setup_s=setup_s, warmup_s=warm_s,
+        compile_seconds=seconds, programs_bytes=programs_bytes,
+        peak_mem_bytes=peak, cache_bytes=prog.cache_bytes(),
+        prompt_lens=[int(n) for n in lens], outs=outs,
+        launches={k: launches[k] + launches2[k] for k in launches},
+        prefills=prefills + prefills2, steps=steps + steps2,
+        tokens_per_s=REQUESTS * NEW_TOKENS / wall,
+        sampled_tokens_per_s=REQUESTS * NEW_TOKENS / wall2,
+        ttft_p50_ms=percentile(ttft, 50) * 1e3,
+        ttft_p99_ms=percentile(ttft, 99) * 1e3,
+        decode_step_ms=step_s / steps * 1e3,
+        sampled_decode_step_ms=step_s2 / steps2 * 1e3,
+        recheck=recheck, forward_s=forward_s, fallback_s=fallback_s,
+        payload_bytes=len(wire), state_bytes=state_bytes,
+        export_ms=export_s * 1e3, import_ms=import_s * 1e3,
+        migrated_at=len(payload['emitted']),
+        replay_step_ms=step_ms, step_profile=step_prof,
+        graph_step_ms=graph_ms, prefill_bucket=top,
+        prefill_len=len(long_prompt), prefill_ms=prefill_ms,
+        prefill_graph_ms=prefill_graph_ms,
+        prefill_kernels=[(n[:80], c, ms) for n, (c, ms) in list(
+            prefill_prof['calls'].items())[:6]],
+        prefill_busy_ms=prefill_prof['busy_ms'],
+        bound_ms=rnn_step_bytes(model) / PEAK_BYTES_S * 1e3,
+        step_bytes=rnn_step_bytes(model))
+    del prog, params, cache
+    gc.collect()
+    return out
+
+
+def log_rnn_lm(ra, rb, card, seconds):
+    """Phase 3r's lines: (a) by mode; (b) the served model, its checks and
+    its metrics beside the card's name and power limit."""
+    cfg = RNN_LM
+    log('phase 3r (a): RNNLM in every mode at 2 layers, embed and hidden '
+        '%d, vocabulary %d: the card\'s captured prefill and %d steps '
+        'against the CPU path, max abs error by mode %s (tolerance %g)'
+        % (RNN_SMALL['hidden'], RNN_SMALL['vocab'], RNN_SMALL_STEPS,
+           {m: '%.3g' % e for m, e in ra.items()}, TOL))
+    log('phase 3r slice: RNNLM at %s: %d %s layers, embed %d, hidden %d, '
+        'vocabulary %d, max_len %d (bounds a sequence; the state does not '
+        'grow with it: nothing cut); %d parameters (%.3f GB float32) at '
+        'U(-%g, %g) from seed 0, the head bias zero; freeze_decode\'s '
+        'default: the slot cache (%d B for %d slots)'
+        % (RNN_LM_SOURCE, cfg['layers'], cfg['mode'], cfg['embed'],
+           cfg['hidden'], cfg['vocab'], cfg['max_len'], rb['nparams'],
+           rb['nparams'] * 4 / 1e9, RNN_INIT, RNN_INIT, rb['cache_bytes'],
+           SLOTS))
+    log('phase 3r (b): %d requests (prompts %d-%d tokens) greedy then '
+        'sampled, %d new tokens each: %d prefills, %d steps, launches %s '
+        '(exact: one row 18 noise launch a program call); programs %s built '
+        'at start, none by a request'
+        % (REQUESTS, min(rb['prompt_lens']), max(rb['prompt_lens']),
+           NEW_TOKENS, rb['prefills'], rb['steps'],
+           {k: v for k, v in rb['launches'].items() if v},
+           sorted(rb['compile_seconds'])))
+    for route, (equal, ties) in rb['recheck'].items():
+        log('phase 3r (b) recheck by %s: %d greedy requests, %d tokens '
+            'equal before any difference, %d near ties (top-2 gap < %g) %s'
+            % (route, RNN_RECHECK, equal, len(ties), TIE, ties))
+    log('phase 3r (b) migration: request 0 exported from its engine at %d '
+        'tokens as a slot payload of %d bytes (JSON; the state itself %d B: '
+        'h and c, %d x %d float32 each), export %.2f ms, import and '
+        'continuation %.1f ms on a second engine with no prefill: the '
+        'spliced stream the unmigrated one'
+        % (rb['migrated_at'], rb['payload_bytes'], rb['state_bytes'],
+           cfg['layers'], cfg['hidden'], rb['export_ms'], rb['import_ms']))
+    log('phase 3r (b) metrics [%s]: replayed run_step %.4f ms at phase 2\'s '
+        'positions (median of 20 CUDA-event pairs, the copies in and back '
+        'included), bound '
+        '%.4f ms (%.1f MB a step at 3.35 TB/s: the weights read once, the '
+        'state, the logits); engine mean step %.3f ms greedy, %.3f ms '
+        'sampled; tokens/s %.2f greedy, %.2f sampled; TTFT p50 %.2f ms, p99 '
+        '%.2f ms; capture seconds %s; the program set\'s memory (reserved '
+        'by warmup) %d B; peak memory %d B above the phase\'s start; setup '
+        '%.1f s, warm-up %.1f s; '
+        're-derivation %.1f s on the card, %.1f s CPU fallback; phase 3r '
+        '%.1f s'
+        % (card, rb['replay_step_ms'], rb['bound_ms'], rb['step_bytes'] / 1e6,
+           rb['decode_step_ms'], rb['sampled_decode_step_ms'],
+           rb['tokens_per_s'], rb['sampled_tokens_per_s'], rb['ttft_p50_ms'],
+           rb['ttft_p99_ms'],
+           json.dumps({k: round(v, 3)
+                       for k, v in rb['compile_seconds'].items()}),
+           rb['programs_bytes'], rb['peak_mem_bytes'], rb['setup_s'],
+           rb['warmup_s'], rb['forward_s'], rb['fallback_s'], seconds))
+    log_profile('phase 3r (b) captured decode step', card, rb['step_profile'])
+    log('phase 3r (b) program replays alone [%s] (back to back, no copy or '
+        'host sync between): the step %.4f ms; the prefill of bucket %d %.4f '
+        'ms (run_prefill of a %d-token prompt %.4f ms, CUDA events, '
+        'median); that prefill\'s kernels busy %.4f ms, the top six by '
+        'device time (name, calls, ms) %s'
+        % (card, rb['graph_step_ms'], rb['prefill_bucket'],
+           rb['prefill_graph_ms'], rb['prefill_len'], rb['prefill_ms'],
+           rb['prefill_busy_ms'],
+           [(n, c, round(ms, 4)) for n, c, ms in rb['prefill_kernels']]))
+
+
 # -- phase 4: the training slice ---------------------------------------------
 
 
@@ -8417,6 +8854,10 @@ RESNET_AMP_GROUPS = RESNET_GROUPS[:5] + (
     ('casts', (), ('aten::_to_copy', 'ToCopyBackward')),) + RESNET_GROUPS[5:]
 
 
+# the record_function range around the profiled call of profile_step
+PROFILE_MARK = 'chip_smoke profiled call'
+
+
 def _enclosing(ranges, launch):
     """Names of the CPU ranges on the launching thread that contain the
     runtime call ``launch``."""
@@ -8426,38 +8867,51 @@ def _enclosing(ranges, launch):
 
 
 def profile_step(torch, step, groups):
-    """One more step under ``torch.profiler``: device time by group and
-    the device's busy share of the step's span (the union of kernel
-    intervals over first start to last end). A kernel is tied to the CUDA
-    runtime call that launched it by their shared correlation id, and
-    that call to the CPU ranges enclosing it; kernels with no runtime
-    call in the trace join a group by name only (``unlinked``). Returns
-    None when the trace holds no device event."""
-    from torch.profiler import ProfilerActivity, profile
+    """One more step under ``torch.profiler``, after an untraced call of
+    it in the same session: the tracer's start-up can miss the first
+    kernels of work launched at once (a first profile of phase 3r's
+    captured step on the H100 held 43 of its 91 kernels). Only kernels that start after the
+    marked call begins count: device time by group and the device's busy
+    share of the step's span (the union of kernel intervals over first
+    start to last end). A kernel is tied to the CUDA runtime call that
+    launched it by their shared correlation id, and that call to the CPU
+    ranges enclosing it; kernels with no runtime call in the trace join a
+    group by name only (``unlinked``). ``calls`` maps each kernel name to
+    [calls, device ms], the most time first. Returns None when the trace
+    holds no device event."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+        with record_function(PROFILE_MARK):
+            step()
+            torch.cuda.synchronize()
     events = list(prof.events())
     cpu_type = torch.autograd.DeviceType.CPU
+    mark = min(e.time_range.start for e in events
+               if e.name == PROFILE_MARK and e.device_type == cpu_type)
     keys = {r for _, _, ranges in groups for r in ranges}
     launches = {e.id: e for e in events
                 if e.device_type == cpu_type and e.name.startswith('cu')}
     ranges = [(e.time_range.start, e.time_range.end, e.thread, e.name)
               for e in events if e.device_type == cpu_type
               and any(k in e.name for k in keys)]
-    spans, by_name, unlinked = [], {}, 0
+    spans, calls, unlinked = [], {}, 0
     groups_ms = dict.fromkeys([g for g, _, _ in groups] + ['other'], 0.0)
     for e in events:
         # a record_function range also shows on the device timeline (a
         # user annotation spanning the kernels it launched): not a kernel
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or getattr(e, 'is_user_annotation', False):
+                or getattr(e, 'is_user_annotation', False) \
+                or e.time_range.start < mark:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        row = calls.setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += ms
         launch = launches.get(e.id)
         unlinked += launch is None
         around = [] if launch is None or not ranges \
@@ -8479,11 +8933,13 @@ def profile_step(torch, step, groups):
         cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(calls.items(), key=lambda kv: -kv[1][1])
     return {'kernels': len(spans), 'unlinked': unlinked,
             'busy_ms': busy / 1e3, 'span_ms': span / 1e3,
             'busy_share': busy / span if span else 0,
-            'groups_ms': groups_ms, 'top': [(n[:90], ms) for n, ms in top]}
+            'groups_ms': groups_ms,
+            'top': [(n[:90], ms) for n, (_, ms) in top[:8]],
+            'calls': dict(top)}
 
 
 def log_profile(phase, card, prof):
@@ -10761,6 +11217,14 @@ def _main():
     log('phase 3w wall [%s]: %.1f s' % (card, time.perf_counter() - t0))
     torch.cuda.empty_cache()
 
+    # phase 3r: the RNN-LM family, every mode at small widths against the
+    # CPU, then standard_lstm_lm_1500's widths served over the slot cache
+    t0 = time.perf_counter()
+    r3a = check_rnn_modes(torch, serving, cuda)
+    r3b = serve_rnn_lm(torch, serving, kernels, cuda)
+    log_rnn_lm(r3a, r3b, card, time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
     # phase 7: the matmul probe slice
     for m, k, n in probe.SHAPES:
         log('geometry M=%d K=%d N=%d: %s' % (m, k, n, {
@@ -10838,6 +11302,8 @@ def _main():
                             rw['runs']['paged']['launches'],
                         'gpt-neo 1.3B widths serving':
                             rw['runs']['slot']['launches'],
+                        'rnn-lm standard_lstm_lm_1500 widths serving':
+                            r3b['launches'],
                         'matmul probe': probe_launches})
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -84,6 +84,10 @@ KNOBS = {
     'MXNET_TPU_SERVE_DECODE_SLOTS': (
         int, 8, 'In-flight sequence slots of the continuous decode '
         'batch; the slot KV cache is slots x max_len.'),
+    'MXNET_TPU_SERVE_MAX_SEQ_LEN': (
+        int, 256, 'Per-slot cache capacity of a decode program frozen '
+        'from gluon RNN blocks: prompt + generated tokens a sequence '
+        'never exceed this.'),
     'MXNET_TPU_SERVE_PREFILL_BUCKETS': (
         str, None, 'Explicit prompt-length bucket ladder as a comma '
         'list; unset derives powers of two up to '

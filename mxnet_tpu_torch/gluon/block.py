@@ -100,7 +100,9 @@ def _collect(mod, pre, out):
             _collect(child, pre, out)
 
 
-_AUTO_PREFIX = re.compile(r'^[a-z]+\d+_')
+# a block's auto-numbered prefix: its alias and a count (``lstm0_``;
+# an RNN layer's alias is its mode, ``rnn_relu0_`` / ``rnn_tanh0_``)
+_AUTO_PREFIX = re.compile(r'^(?:rnn_relu|rnn_tanh|[a-z]+)\d+_')
 
 
 @torch.no_grad()

@@ -34,7 +34,17 @@ order of operations, so the CPU parity tests compare like with like:
   * :func:`embedding` (nn.py:1077); :func:`flatten`;
   * :func:`softmax` (nn.py:568), plain, in ``jax.nn.softmax``'s order
     (SSD's detection head), and :func:`relu`, plain ``torch.relu`` as the
-    JAX package's ``relu`` (math.py:41) is ``jax.nn.relu``, no kernel.
+    JAX package's ``relu`` (math.py:41) is ``jax.nn.relu``, no kernel;
+  * :func:`rnn` (nn.py:1151-1297), the fused multi-layer (bi)RNN in modes
+    ``lstm`` / ``gru`` / ``rnn_relu`` / ``rnn_tanh`` over the flat cuDNN
+    parameter layout (:func:`_rnn_unpack_params`): the input projection
+    one product over all T, then a loop over the steps of
+    :func:`_cell_step`, the gate math written out in the JAX op's order
+    (no ``torch.nn.LSTM`` or cuDNN RNN: the gate order and the layout are
+    the reference's by construction). The JAX package computes the cells
+    with XLA, outside any Pallas kernel, and so does the port: plain
+    products and pointwise ops. :func:`_rnn_param_concat`
+    (tensor.py:197) flattens and joins the pieces of that layout.
 
 The kernel ops always go through ``ops/kernels``: the kernels on a CUDA
 tensor, their plain versions on a CPU tensor. There is no knob.
@@ -65,7 +75,7 @@ __all__ = ['fully_connected', 'convolution', 'pooling', 'MaxPoolFunction',
            'BatchNormTrainFunction', 'flash_attention_op',
            'softmax_cross_entropy', 'fused_softmax_xent', 'layer_norm',
            'LayerNormFunction', 'dropout', 'embedding', 'flatten',
-           'softmax', 'relu']
+           'softmax', 'relu', 'rnn', 'rnn_param_size']
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -413,3 +423,160 @@ def embedding(data, weight):
     """Rows of ``weight`` at the indices ``data`` (any numeric dtype,
     cast to integers as ``astype(int32)`` does)."""
     return weight[data.to(torch.int64)]
+
+
+# -- the fused RNN op (nn.py:1151-1297) ---------------------------------------
+
+_GATES = {'rnn_relu': 1, 'rnn_tanh': 1, 'lstm': 4, 'gru': 3}
+
+
+def _gates(mode):
+    if mode not in _GATES:
+        raise ValueError('unsupported RNN mode %r (have %s)'
+                         % (mode, sorted(_GATES)))
+    return _GATES[mode]
+
+
+def _rnn_unpack_params(params, mode, num_layers, input_size, state_size,
+                       bidirectional):
+    """Views of the flat cuDNN-layout vector ``params``: for each layer,
+    for each direction, W_i2h (G*H, in) and W_h2h (G*H, H); then every
+    bias in the same order, b_i2h (G*H,) and b_h2h (G*H,). Returns (Ws,
+    Bs), each ``[layer][direction] = (i2h, h2h)``."""
+    G = _gates(mode)
+    D = 2 if bidirectional else 1
+    H = state_size
+    off = 0
+
+    def take(*shape):
+        nonlocal off
+        n = math.prod(shape)
+        piece = params[off:off + n].reshape(shape)
+        off += n
+        return piece
+
+    Ws = [[(take(G * H, input_size if layer == 0 else H * D),
+            take(G * H, H)) for _ in range(D)]
+          for layer in range(num_layers)]
+    Bs = [[(take(G * H), take(G * H)) for _ in range(D)]
+          for _ in range(num_layers)]
+    return Ws, Bs
+
+
+def rnn_param_size(mode, num_layers, input_size, state_size, bidirectional):
+    """Elements of the flat parameter vector :func:`rnn` takes."""
+    G = _gates(mode)
+    D = 2 if bidirectional else 1
+    H = state_size
+    return sum(D * (G * H * (input_size if layer == 0 else H * D)
+                    + G * H * H + 2 * G * H)
+               for layer in range(num_layers))
+
+
+def _rnn_param_concat(*args):
+    """The pieces of the layout flattened and joined, in order."""
+    return torch.cat([a.reshape(-1) for a in args], dim=0)
+
+
+def _cell_step(mode, carry, xw, w_h2h, b_h2h):
+    """One step of every row; ``xw`` = x @ W_i2h^T + b_i2h, precomputed
+    for all t. Returns (carry, output)."""
+    if mode == 'lstm':
+        h, c = carry
+        gates = xw + torch.matmul(h, w_h2h.t()) + b_h2h
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        g = torch.tanh(g)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        return (h, c), h
+    if mode == 'gru':
+        h = carry[0]
+        hw = torch.matmul(h, w_h2h.t()) + b_h2h
+        xr, xz, xn = xw.chunk(3, dim=-1)
+        hr, hz, hn = hw.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1 - z) * n + z * h
+        return (h,), h
+    act = torch.tanh if mode == 'rnn_tanh' else torch.relu
+    h = act(xw + torch.matmul(carry[0], w_h2h.t()) + b_h2h)
+    return (h,), h
+
+
+def _run_direction(mode, x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h, reverse):
+    """One direction of one layer over x (T, B, in): the input projection
+    as one product, then the steps in order (``reverse``: T-1 down to 0,
+    each output kept at its own t). Returns (carry, ys (T, B, H))."""
+    xw = torch.matmul(x, w_i2h.t()) + b_i2h
+    carry = (h0, c0) if mode == 'lstm' else (h0,)
+    T = x.shape[0]
+    ys = [None] * T
+    for t in (reversed(range(T)) if reverse else range(T)):
+        carry, ys[t] = _cell_step(mode, carry, xw[t], w_h2h, b_h2h)
+    return carry, torch.stack(ys, dim=0)
+
+
+# the JAX op accepts these and ignores them (nn.py:1242-1297): the port
+# refuses a value it would not honour
+_RNN_UNPORTED = (('p', 0.0), ('projection_size', None),
+                 ('lstm_state_clip_min', None),
+                 ('lstm_state_clip_max', None),
+                 ('lstm_state_clip_nan', False),
+                 ('use_sequence_length', False))
+
+
+def rnn(data, parameters, state, state_cell=None, *, state_size,
+        num_layers=1, bidirectional=False, mode='lstm', p=0.0,
+        state_outputs=True, projection_size=None, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, lstm_state_clip_nan=False,
+        use_sequence_length=False):
+    """Fused multi-layer (bi)RNN: data (T, B, I), the flat parameters,
+    state (L*D, B, H) and, for an LSTM, state_cell (L*D, B, H). Returns
+    out (T, B, H*D), with ``state_outputs`` also the final state (and
+    cell), as a tuple; out alone otherwise.
+
+    ``p`` (dropout between layers), ``projection_size``, the
+    ``lstm_state_clip_*`` bounds and ``use_sequence_length``, which the
+    JAX op takes and ignores, raise NotImplementedError naming the
+    argument when given a value other than their default."""
+    given = dict(p=p, projection_size=projection_size,
+                 lstm_state_clip_min=lstm_state_clip_min,
+                 lstm_state_clip_max=lstm_state_clip_max,
+                 lstm_state_clip_nan=lstm_state_clip_nan,
+                 use_sequence_length=use_sequence_length)
+    for name, default in _RNN_UNPORTED:
+        if given[name] != default:
+            raise NotImplementedError(
+                'rnn: %s=%r is not ported (the JAX op ignores it); the port '
+                'runs %s=%r only' % (name, given[name], name, default))
+    if mode == 'lstm' and state_cell is None:
+        raise ValueError('rnn: mode lstm needs state_cell')
+    data, parameters, state, state_cell = _amp('RNN', data, parameters,
+                                               state, state_cell)
+    T, B, I = data.shape
+    H, L = int(state_size), int(num_layers)
+    D = 2 if bidirectional else 1
+    Ws, Bs = _rnn_unpack_params(parameters, mode, L, I, H, bidirectional)
+    x = data
+    out_h, out_c = [], []
+    for layer in range(L):
+        ys = []
+        for d in range(D):
+            li = layer * D + d
+            c0 = state_cell[li] if mode == 'lstm' else None
+            carry, y = _run_direction(mode, x, state[li], c0,
+                                      *Ws[layer][d], *Bs[layer][d],
+                                      reverse=(d == 1))
+            ys.append(y)
+            out_h.append(carry[0])
+            if mode == 'lstm':
+                out_c.append(carry[1])
+        x = torch.cat(ys, dim=-1) if D == 2 else ys[0]
+    if not state_outputs:
+        return x
+    outputs = (x, torch.stack(out_h, dim=0))
+    if mode == 'lstm':
+        outputs += (torch.stack(out_c, dim=0),)
+    return outputs

@@ -9,9 +9,9 @@ gateway over a fleet of endpoints (``ServingGateway``).
 from .batcher import (BackpressureError, BatcherClosed, MicroBatcher,
                       RequestTimeout)
 from .bucket import BucketPolicy
-from .decode import (DecodeProgram, PagedDecodeProgram, TransformerLM,
-                     freeze_decode, init_transformer_lm, load_decode,
-                     params_from_jax)
+from .decode import (RNNLM, DecodeProgram, PagedDecodeProgram, TransformerLM,
+                     freeze_decode, init_rnn_lm, init_transformer_lm,
+                     load_decode, params_from_jax)
 from .freeze import FROZEN_SCHEMA, FrozenProgram, freeze, load_frozen
 from .gateway import ServingGateway
 from .server import (InferenceSession, ServingHTTPServer,
@@ -19,8 +19,9 @@ from .server import (InferenceSession, ServingHTTPServer,
 
 __all__ = ['BackpressureError', 'BatcherClosed', 'MicroBatcher',
            'RequestTimeout', 'BucketPolicy', 'DecodeProgram',
-           'PagedDecodeProgram',
-           'TransformerLM', 'freeze_decode', 'init_transformer_lm',
+           'PagedDecodeProgram', 'RNNLM',
+           'TransformerLM', 'freeze_decode', 'init_rnn_lm',
+           'init_transformer_lm',
            'load_decode', 'params_from_jax', 'FROZEN_SCHEMA', 'FrozenProgram',
            'freeze', 'load_frozen', 'InferenceSession', 'ServingHTTPServer',
            'maybe_start_http_server', 'ServingGateway']

@@ -1,5 +1,6 @@
-"""The causal transformer LM served by the decode engine, the port of
-``TransformerLM`` in ``mxnet_tpu/serving/decode/model.py``.
+"""The decode families served by the decode engine, the port of
+``mxnet_tpu/serving/decode/model.py``: the causal transformer LM
+(``TransformerLM``) and the RNN language model (``RNNLM``).
 
 One math path serves prefill, the decode step and the uncached
 reference forward, so that N tokens decoded through the cache equal the
@@ -21,6 +22,16 @@ the attention function, as the kernels do. Every path takes an optional
 ``ad``, the low-rank adapter deltas of its rows (``lora_targets``: the
 fused QKV and the two FFN projections); the deltas are plain
 ``torch.einsum`` products, as the JAX package leaves them to XLA.
+
+:class:`RNNLM` is Embedding -> the fused multi-layer cell of
+``ops/nn.py`` (lstm, gru, rnn_relu, rnn_tanh) -> Dense. Its recurrent
+state is its cache: a ``(layers, hidden)`` ``h`` (and ``c`` for an LSTM)
+a slot, O(1) a token. The prefill scans every step of its bucket and
+freezes the state at ``t >= length`` on the device, as the reference's
+``t < length`` select does, so no host branch breaks a captured program;
+the step ignores positions. No kernel is on this path: the JAX model runs
+its cells with XLA, and the port with plain products and pointwise ops.
+It takes no adapter and serves the slot cache only.
 """
 from __future__ import annotations
 
@@ -29,14 +40,16 @@ import torch
 import torch.nn.functional as F
 
 from ...context import resolve_device
+from ...ops.nn import _cell_step, _rnn_unpack_params, rnn_param_size
 from ...ops.kernels.attention import (flash_attention, flash_decode_attention,
                                       flash_paged_decode_attention)
 from .cache import CacheSpec, write_position, write_slot
 from .paged import (PagedCacheSpec, gather_pages, write_paged_chunk,
                     write_paged_rows, write_prefill_pages)
 
-__all__ = ['DecodeModel', 'TransformerLM', 'init_transformer_lm',
-           'model_from_config', 'params_from_jax']
+__all__ = ['DecodeModel', 'RNNLM', 'TransformerLM', 'from_gluon_rnn_lm',
+           'init_rnn_lm', 'init_transformer_lm', 'model_from_config',
+           'params_from_jax']
 
 _LAYER_PARAMS = ('qkv_w', 'qkv_b', 'out_w', 'out_b', 'ln1_g', 'ln1_b',
                  'ffn1_w', 'ffn1_b', 'ffn2_w', 'ffn2_b', 'ln2_g', 'ln2_b')
@@ -69,6 +82,167 @@ class DecodeModel:
 
     def __repr__(self):
         return '%s(%r)' % (type(self).__name__, self.config)
+
+    def check_params(self, params):
+        """Raise ValueError unless ``params`` holds exactly this model's
+        names at their shapes (``param_shapes()``)."""
+        self.check_shapes({k: tuple(v.shape) for k, v in params.items()})
+
+    def check_shapes(self, shapes):
+        """:meth:`check_params` over a ``{name: shape}`` dict."""
+        want = self.param_shapes()
+        missing = sorted(set(want) - set(shapes))
+        extra = sorted(set(shapes) - set(want))
+        if missing or extra:
+            raise ValueError('params do not match %r: missing %s, '
+                             'unexpected %s' % (self, missing, extra))
+        for name, shape in want.items():
+            if tuple(shapes[name]) != shape:
+                raise ValueError('param %s has shape %r, expected %r'
+                                 % (name, tuple(shapes[name]), shape))
+
+
+class RNNLM(DecodeModel):
+    """Embedding -> multi-layer {lstm, gru, rnn_relu, rnn_tanh} -> Dense.
+
+    config: vocab, embed, hidden, layers, mode, max_len.
+    params: embed_weight (V, E), rnn_params (the flat cuDNN layout the
+    fused op and the gluon layers' ``_flat_params`` use), out_weight (V,
+    H), out_bias (V,).
+    """
+
+    family = 'rnn_lm'
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.mode = str(config['mode'])
+        if self.mode not in ('lstm', 'gru', 'rnn_relu', 'rnn_tanh'):
+            raise ValueError('unsupported RNN mode %r' % self.mode)
+        self.embed = int(config['embed'])
+        self.hidden = int(config['hidden'])
+        self.layers = int(config['layers'])
+
+    def cache_spec(self):
+        """The state a slot carries: ``h`` (and ``c``), (layers, hidden)
+        each."""
+        entries = {'h': ((self.layers, self.hidden), 'float32')}
+        if self.mode == 'lstm':
+            entries['c'] = ((self.layers, self.hidden), 'float32')
+        return CacheSpec(entries)
+
+    def param_shapes(self):
+        """``{name: shape}`` of every parameter."""
+        n = rnn_param_size(self.mode, self.layers, self.embed, self.hidden,
+                           False)
+        return {'embed_weight': (self.vocab, self.embed),
+                'rnn_params': (n,),
+                'out_weight': (self.vocab, self.hidden),
+                'out_bias': (self.vocab,)}
+
+    def init_params(self, seed=0):
+        """Random float32 weights from ``seed`` as a ``{name: ndarray}``
+        dict, the JAX model's draws in its order (0.1 N(0, 1), a zero
+        head bias)."""
+        rs = onp.random.RandomState(seed)
+        n = self.param_shapes()['rnn_params'][0]
+        return {
+            'embed_weight': rs.randn(self.vocab, self.embed)
+            .astype('float32') * 0.1,
+            'rnn_params': rs.randn(n).astype('float32') * 0.1,
+            'out_weight': rs.randn(self.vocab, self.hidden)
+            .astype('float32') * 0.1,
+            'out_bias': onp.zeros(self.vocab, 'float32'),
+        }
+
+    def _unpacked(self, params):
+        """Each layer's ((W_i2h, W_h2h), (b_i2h, b_h2h)) of the flat
+        vector: views, no copy."""
+        return _rnn_unpack_params(params['rnn_params'], self.mode,
+                                  self.layers, self.embed, self.hidden,
+                                  False)
+
+    def _scan_layers(self, params, x, h0, c0, length=None):
+        """The sequence pass: x (T, B, E) -> (ys (T, B, H), hT, cT), h0 /
+        c0 (layers, B, H). ``length`` (an int, or a one-element int
+        tensor on the device) freezes the state at t >= length and zeroes
+        those outputs, on the device; None runs every step."""
+        Ws, Bs = self._unpacked(params)
+        T = x.shape[0]
+        keep = None if length is None else \
+            torch.arange(T, device=x.device) < torch.as_tensor(
+                length, device=x.device).reshape(())
+        hs, cs = [], []
+        for layer in range(self.layers):
+            (w_i2h, w_h2h), (b_i2h, b_h2h) = Ws[layer][0], Bs[layer][0]
+            # the input projection of the whole sequence as one product
+            xw = torch.matmul(x, w_i2h.t()) + b_i2h
+            carry = (h0[layer], c0[layer]) if self.mode == 'lstm' \
+                else (h0[layer],)
+            ys = []
+            for t in range(T):
+                new, y = _cell_step(self.mode, carry, xw[t], w_h2h, b_h2h)
+                if keep is not None:
+                    new = tuple(torch.where(keep[t], n, o)
+                                for n, o in zip(new, carry))
+                    y = torch.where(keep[t], y, torch.zeros_like(y))
+                carry = new
+                ys.append(y)
+            hs.append(carry[0])
+            if self.mode == 'lstm':
+                cs.append(carry[1])
+            x = torch.stack(ys, dim=0)
+        return x, torch.stack(hs, dim=0), \
+            torch.stack(cs, dim=0) if cs else None
+
+    def _head(self, params, h):
+        return torch.matmul(h, params['out_weight'].t()) + params['out_bias']
+
+    def prefill(self, params, cache, tokens, length, slot):
+        """Scan the padded prompt ``tokens`` (1, S), frozen past
+        ``length``, land the state in ``slot`` (in place) and return
+        (cache, logits (V,)) at position ``length - 1``: the head of the
+        top layer's final h. ``length`` and ``slot``: ints or one-element
+        int tensors on the device."""
+        x = F.embedding(tokens[0], params['embed_weight'])[:, None]
+        zeros = torch.zeros((self.layers, 1, self.hidden),
+                            dtype=torch.float32, device=tokens.device)
+        _, hT, cT = self._scan_layers(params, x, zeros, zeros, length)
+        write_slot(cache['h'], hT[:, 0], slot)
+        if cT is not None:
+            write_slot(cache['c'], cT[:, 0], slot)
+        return cache, self._head(params, hT[-1, 0])
+
+    def step(self, params, cache, tokens, positions):
+        """Advance every slot one token (positions are not read: the
+        state is positionless); the new state is written in place.
+        Returns (cache, logits (slots, V))."""
+        del positions
+        Ws, Bs = self._unpacked(params)
+        x = F.embedding(tokens, params['embed_weight'])   # (slots, E)
+        h, c = cache['h'], cache.get('c')                 # (slots, L, H)
+        new_h, new_c = [], []
+        for layer in range(self.layers):
+            (w_i2h, w_h2h), (b_i2h, b_h2h) = Ws[layer][0], Bs[layer][0]
+            xw = torch.matmul(x, w_i2h.t()) + b_i2h
+            carry = (h[:, layer], c[:, layer]) if self.mode == 'lstm' \
+                else (h[:, layer],)
+            carry, x = _cell_step(self.mode, carry, xw, w_h2h, b_h2h)
+            new_h.append(carry[0])
+            if self.mode == 'lstm':
+                new_c.append(carry[1])
+        h.copy_(torch.stack(new_h, dim=1))
+        if new_c:
+            c.copy_(torch.stack(new_c, dim=1))
+        return cache, self._head(params, x)
+
+    def full_forward(self, params, tokens):
+        """Uncached reference: tokens (B, T) -> logits (B, T, V)."""
+        B = tokens.shape[0]
+        x = F.embedding(tokens, params['embed_weight']).transpose(0, 1)
+        zeros = torch.zeros((self.layers, B, self.hidden),
+                            dtype=torch.float32, device=tokens.device)
+        ys, _, _ = self._scan_layers(params, x, zeros, zeros)
+        return self._head(params, ys).transpose(0, 1)
 
 
 class TransformerLM(DecodeModel):
@@ -116,24 +290,6 @@ class TransformerLM(DecodeModel):
             for n in _LAYER_PARAMS:
                 shapes['l%d_%s' % (i, n)] = per[n]
         return shapes
-
-    def check_params(self, params):
-        """Raise ValueError unless ``params`` holds exactly this model's
-        names at their shapes."""
-        self.check_shapes({k: tuple(v.shape) for k, v in params.items()})
-
-    def check_shapes(self, shapes):
-        """:meth:`check_params` over a ``{name: shape}`` dict."""
-        want = self.param_shapes()
-        missing = sorted(set(want) - set(shapes))
-        extra = sorted(set(shapes) - set(want))
-        if missing or extra:
-            raise ValueError('params do not match %r: missing %s, '
-                             'unexpected %s' % (self, missing, extra))
-        for name, shape in want.items():
-            if tuple(shapes[name]) != shape:
-                raise ValueError('param %s has shape %r, expected %r'
-                                 % (name, tuple(shapes[name]), shape))
 
     def init_params(self, seed=0):
         """Random float32 weights from ``seed`` as a ``{name: ndarray}``
@@ -403,19 +559,14 @@ class TransformerLM(DecodeModel):
         return pool, self._head(params, x)                # (S, C, V)
 
 
-_FAMILIES = {TransformerLM.family: TransformerLM}
+_FAMILIES = {RNNLM.family: RNNLM, TransformerLM.family: TransformerLM}
 
 
 def model_from_config(family, config):
     """The decode model of ``family`` over ``config``: the factory a
     saved decode artifact's loader rebuilds its model through (the
-    reference's ``model_from_config``, ``decode/model.py:669``). The
-    port has ``transformer_lm``; ``rnn_lm`` raises NotImplementedError
-    (ROADMAP A9), any other family ValueError."""
-    if family == 'rnn_lm':
-        raise NotImplementedError(
-            'decode family rnn_lm is not ported yet (ROADMAP A9: the '
-            'RNN-LM family); the port serves transformer_lm')
+    reference's ``model_from_config``, ``decode/model.py:669``); an
+    unknown family raises ValueError."""
     cls = _FAMILIES.get(family)
     if cls is None:
         raise ValueError('unknown decode family %r (have %s)'
@@ -433,6 +584,50 @@ def init_transformer_lm(vocab, units=32, hidden=64, layers=2, heads=4,
     return model, model.init_params(seed)
 
 
+def init_rnn_lm(vocab, embed=32, hidden=64, layers=1, mode='lstm',
+                max_len=128, seed=0):
+    """Deterministic RNN LM: (model, params as a ``{name: ndarray}`` dict
+    from ``seed``)."""
+    model = RNNLM(dict(vocab=vocab, embed=embed, hidden=hidden,
+                       layers=layers, mode=mode, max_len=max_len))
+    return model, model.init_params(seed)
+
+
+def _host(param):
+    return param.detach().to('cpu', torch.float32).numpy()
+
+
+def from_gluon_rnn_lm(embedding, rnn, decoder, max_len=128):
+    """An (RNNLM, params) from the port's gluon blocks: ``Embedding`` ->
+    ``gluon.rnn.LSTM`` / ``GRU`` / ``RNN`` -> ``Dense`` head. The flat
+    vector is rebuilt in the layer's ``_flat_params`` order (every
+    layer's weights, then its biases), so the decode cell reads the
+    slices the fused op does. A bidirectional RNN raises ValueError, as
+    does a head that does not map hidden to the vocabulary. The params
+    are host arrays (``{name: ndarray}``)."""
+    if rnn._dir != 1:
+        raise ValueError('autoregressive decode needs a unidirectional '
+                         'RNN (got bidirectional)')
+    embed_w = _host(embedding.weight)
+    vocab, embed_dim = embed_w.shape
+    pieces = [_host(getattr(rnn, 'l%d_%s' % (layer, piece))).reshape(-1)
+              for group in (('i2h_weight', 'h2h_weight'),
+                            ('i2h_bias', 'h2h_bias'))
+              for layer in range(rnn._num_layers) for piece in group]
+    out_w = _host(decoder.weight)
+    out_b = _host(decoder.bias) if decoder.bias is not None \
+        else onp.zeros(out_w.shape[0], 'float32')
+    if out_w.shape != (vocab, rnn._hidden_size):
+        raise ValueError('decoder weight %r does not map hidden %d -> '
+                         'vocab %d' % (out_w.shape, rnn._hidden_size, vocab))
+    model = RNNLM(dict(vocab=vocab, embed=embed_dim, hidden=rnn._hidden_size,
+                       layers=rnn._num_layers, mode=rnn._mode,
+                       max_len=max_len))
+    return model, {'embed_weight': embed_w,
+                   'rnn_params': onp.concatenate(pieces),
+                   'out_weight': out_w, 'out_bias': out_b}
+
+
 def _config_from_params(shapes):
     """The TransformerLM config a params dict describes (heads and eps
     are not in the shapes; heads is checked by the caller's model)."""
@@ -448,18 +643,25 @@ def _config_from_params(shapes):
                 layers=layers, max_len=shapes['pos'][0])
 
 
-def params_from_jax(np_params, device=None):
-    """Carry a JAX TransformerLM's weights over: ``{name: ndarray}``
-    (its ``init_params`` or ``DecodeProgram._params_np``) -> ``{name:
-    float32 tensor}`` on ``device`` (default cuda) under the same names.
+def params_from_jax(np_params, device=None, model=None):
+    """Carry a JAX decode model's weights over: ``{name: ndarray}`` (its
+    ``init_params`` or ``DecodeProgram._params_np``) -> ``{name: float32
+    tensor}`` on ``device`` (default cuda) under the same names.
 
-    Both packages use the ``(out, in)`` weight layout, so no transposes
-    are needed; every name and shape is checked against the model the
-    dict describes, and any mismatch raises ValueError."""
+    Both packages use the ``(out, in)`` weight layout (an RNNLM's
+    ``rnn_params`` the same flat cuDNN layout), so no transposes are
+    needed. With ``model`` every name and shape is checked against it;
+    without, a TransformerLM dict is checked against the model its shapes
+    describe, and an RNNLM dict (it holds ``rnn_params``; its mode and
+    layers are not in the shapes) is left to the program's check against
+    its model. Any mismatch raises ValueError."""
     device = resolve_device(device)
     shapes = {k: tuple(onp.shape(v)) for k, v in np_params.items()}
-    cfg = _config_from_params(shapes)
-    TransformerLM(dict(cfg, heads=1)).check_shapes(shapes)
+    if model is not None:
+        model.check_shapes(shapes)
+    elif 'rnn_params' not in shapes:
+        cfg = _config_from_params(shapes)
+        TransformerLM(dict(cfg, heads=1)).check_shapes(shapes)
     return {k: torch.as_tensor(onp.asarray(v, dtype='float32'),
                                device=device)
             for k, v in np_params.items()}

@@ -26,7 +26,10 @@ the programs' static buffers, never the programs.
 :class:`PagedDecodeProgram` takes page ids and page tables in their
 place, and adds ``run_verify`` (speculative decoding) and
 ``run_copy_page`` (copy-on-write). ``freeze_decode`` pages a transformer
-by default, as the JAX package does.
+by default and keeps an RNN on the slot cache, as the JAX package does;
+it also freezes gluon RNN blocks (an ``(embedding, rnn, decoder)`` triple
+or an object holding them) through ``from_gluon_rnn_lm``. A family
+without adapters (``RNNLM``) is called without an ``ad`` argument.
 
 Each call runs a *program*, as the reference's calls run its compiled
 executables: one a prefill bucket (``'prefill:<bucket>'``), ``'step'``,
@@ -92,7 +95,7 @@ from ..adapters import AdapterSpec
 from ..bucket import BucketPolicy, default_buckets
 from ..freeze import FROZEN_SCHEMA
 from .cache import cache_bytes, init_cache, write_slot
-from .model import DecodeModel, model_from_config
+from .model import DecodeModel, from_gluon_rnn_lm, model_from_config
 from .paged import (TRASH_PAGE, copy_page, init_pool, pages_for, pool_bytes,
                     write_prefill_pages)
 from .sampling import key_for, sample_tokens
@@ -368,16 +371,19 @@ class DecodeProgram:
                         self._extra_shapes(kind))
 
     def _adapters(self, ex, prefill=False):
-        """The adapter view of a call: the pool rows its ``aidx`` selects
-        (2-D at prefill, one a slot after), or None without a pool."""
+        """The adapter keyword of a model call: ``{'ad': the pool rows the
+        call's ``aidx`` selects}`` (2-D at prefill, one a slot after), or
+        ``{}`` without a pool, so a family without ``lora_targets``
+        (``RNNLM``) is called without one, as the reference calls it."""
         if self.apool is None:
-            return None
+            return {}
         idx = ex['aidx'].long()
         if prefill:
-            return {k: (a.index_select(0, idx)[0], b.index_select(0, idx)[0])
-                    for k, (a, b) in self.apool.items()}
-        return {k: (a.index_select(0, idx), b.index_select(0, idx))
-                for k, (a, b) in self.apool.items()}
+            return {'ad': {k: (a.index_select(0, idx)[0],
+                               b.index_select(0, idx)[0])
+                           for k, (a, b) in self.apool.items()}}
+        return {'ad': {k: (a.index_select(0, idx), b.index_select(0, idx))
+                       for k, (a, b) in self.apool.items()}}
 
     def _tokens(self, logits, ex):
         """The tokens of ``logits`` (..., V): the argmax, or with sampling
@@ -465,7 +471,7 @@ class DecodeProgram:
             ex = buf.extra_args()
             _, logits = m.prefill(p, self._cache,
                                   buf.arg(0, (1, bucket)).long(), buf.arg(1),
-                                  buf.arg(2), ad=self._adapters(ex, True))
+                                  buf.arg(2), **self._adapters(ex, True))
             buf.put(self._tokens(logits, ex), logits)
         return self._build('prefill:%d' % bucket, buf, body,
                            [[0] * bucket, [1], [0]])
@@ -480,7 +486,7 @@ class DecodeProgram:
         def body():
             ex = buf.extra_args()
             _, logits = m.step(p, self._cache, buf.arg(0).long(), buf.arg(1),
-                               ad=self._adapters(ex))
+                               **self._adapters(ex))
             buf.put(self._tokens(logits, ex), logits)
         return self._build('step', buf, body, [[0] * S, [0] * S])
 
@@ -578,19 +584,21 @@ class DecodeProgram:
         :func:`~.sampling.sample_tokens` keyed by ``key_for(seed, pos)``
         of each logits row's position. ``ad`` is an adapter's 2-D host
         tree ``{target: (A, B)}`` (``AdapterRegistry.host_tree``) or None
-        for the base. Reads the host copy of the parameters only: no CUDA
-        tensor is touched. Returns up to ``max_new`` tokens, stopping at
-        ``eos_id`` or the cache's end, as the engine does. ``on_token``,
+        for the base (the model is then called without one, so a family
+        without adapters serves here too). Reads the host copy of the
+        parameters only: no CUDA tensor is touched. Returns up to
+        ``max_new`` tokens, stopping at ``eos_id`` or the cache's end, as
+        the engine does. ``on_token``,
         where given, is called with each token as it is decoded, and a
         false return ends the decode there: the engine streams a degraded
         completion through it and stops it at a cancel or a deadline."""
         tokens = [int(t) for t in onp.asarray(tokens).reshape(-1)]
         temperature = float(temperature)
         params = self._params_host
-        if ad is not None:
-            ad = {k: (torch.as_tensor(onp.asarray(a, 'float32')),
-                      torch.as_tensor(onp.asarray(b, 'float32')))
-                  for k, (a, b) in ad.items()}
+        adkw = {} if ad is None else {'ad': {
+            k: (torch.as_tensor(onp.asarray(a, 'float32')),
+                torch.as_tensor(onp.asarray(b, 'float32')))
+            for k, (a, b) in ad.items()}}
 
         def pick(row, pos):
             if temperature <= 0:
@@ -601,7 +609,7 @@ class DecodeProgram:
         cache = init_cache(self._spec, 1, _CPU)
         cache, logits = self.model.prefill(
             params, cache, torch.tensor([tokens], dtype=torch.int64),
-            len(tokens), 0, ad=ad)
+            len(tokens), 0, **adkw)
         tok = pick(logits, len(tokens) - 1)
         pos = len(tokens)
         out = []
@@ -614,7 +622,7 @@ class DecodeProgram:
                 break
             cache, logits = self.model.step(
                 params, cache, torch.tensor([tok], dtype=torch.int64),
-                torch.tensor([pos], dtype=torch.int32), ad=ad)
+                torch.tensor([pos], dtype=torch.int32), **adkw)
             tok = pick(logits[0], pos)
             pos += 1
         return out
@@ -824,7 +832,7 @@ class PagedDecodeProgram(DecodeProgram):
             _, logits = m.paged_prefill(p, self._cache,
                                         buf.arg(0, (1, bucket)).long(),
                                         buf.arg(1), buf.arg(2).long(),
-                                        ad=self._adapters(ex, True))
+                                        **self._adapters(ex, True))
             buf.put(self._tokens(logits, ex), logits)
         return self._build('prefill:%d' % bucket, buf, body,
                            [[0] * bucket, [1], [TRASH_PAGE] * npages])
@@ -840,7 +848,7 @@ class PagedDecodeProgram(DecodeProgram):
             ex = buf.extra_args()
             _, logits = m.paged_step(p, self._cache, buf.arg(0).long(),
                                      buf.arg(1), buf.arg(2, (S, P)),
-                                     ad=self._adapters(ex))
+                                     **self._adapters(ex))
             buf.put(self._tokens(logits, ex), logits)
         return self._build('step', buf, body, [[0] * S, [0] * S,
                                                [TRASH_PAGE] * (S * P)])
@@ -860,7 +868,7 @@ class PagedDecodeProgram(DecodeProgram):
             _, logits = m.paged_verify(p, self._cache,
                                        buf.arg(0, (S, C)).long(), buf.arg(1),
                                        buf.arg(2, (S, P)),
-                                       ad=self._adapters(ex))
+                                       **self._adapters(ex))
             buf.put(self._tokens(logits, ex), logits)
         return self._build('verify:%d' % C, buf, body,
                            [[0] * (S * C), [0] * S, [TRASH_PAGE] * (S * P)])
@@ -993,15 +1001,25 @@ class PagedDecodeProgram(DecodeProgram):
         return pool
 
 
-def freeze_decode(model, params=None, slots=None, prefill_buckets=None,
+def freeze_decode(obj, params=None, slots=None, prefill_buckets=None,
                   max_len=None, name=None, emit_logits=True, paged=None,
                   page_size=None, pages=None, spec_k=None, adapter_rank=None,
                   sample_args=None, logit_mask=None, adapter_slots=None,
                   device=None):
-    """Bind a :class:`~.model.DecodeModel` and its ``params`` into a
-    program on ``device`` (default cuda): a :class:`PagedDecodeProgram`
-    when ``paged`` (None: ``MXNET_TPU_SERVE_PAGED``, default True, for a
-    family that supports paging), else a slot-cache
+    """Bind a decode model and its weights into a program on ``device``
+    (default cuda). ``obj`` is one of:
+
+      * a :class:`~.model.DecodeModel`, with ``params``;
+      * an ``(embedding, rnn, decoder)`` triple of the port's gluon blocks
+        (``nn.Embedding``, ``rnn.LSTM`` / ``GRU`` / ``RNN``, ``nn.Dense``);
+      * an object with those three as ``.embedding``, ``.lstm`` or
+        ``.rnn``, and ``.decoder`` (``examples/word_lm.py``'s model);
+
+    the gluon forms through :func:`~.model.from_gluon_rnn_lm`, their cache
+    length ``max_len`` (``MXNET_TPU_SERVE_MAX_SEQ_LEN``). The program is a
+    :class:`PagedDecodeProgram` when ``paged`` (None:
+    ``MXNET_TPU_SERVE_PAGED``, default True, for a family that supports
+    paging, so an RNN keeps the slot cache), else a slot-cache
     :class:`DecodeProgram`. ``page_size`` / ``pages`` / ``spec_k``
     configure the pool and the speculative verify
     (``MXNET_TPU_SERVE_PAGE_SIZE`` / ``_PAGES`` / ``_SPEC_K``).
@@ -1011,15 +1029,30 @@ def freeze_decode(model, params=None, slots=None, prefill_buckets=None,
     the base row included) into every program, for a family with
     ``lora_targets``; ``sample_args`` / ``logit_mask`` (None: their knobs,
     sampling on by default) choose the sampling inputs (see
-    :class:`DecodeProgram`). ``max_len``, if given, must equal the model's
-    (the cache length is the model's max_len).
+    :class:`DecodeProgram`). With a DecodeModel, ``max_len``, if given,
+    must equal the model's (the cache length is the model's max_len).
+    Anything else raises TypeError.
     """
-    if not isinstance(model, DecodeModel):
-        raise TypeError('freeze_decode takes a DecodeModel + params; '
-                        'freezing gluon RNN blocks waits for the RNN-LM '
-                        'family (ROADMAP)')
-    if params is None:
-        raise ValueError('params required when freezing a DecodeModel')
+    if isinstance(obj, DecodeModel):
+        if params is None:
+            raise ValueError('params required when freezing a DecodeModel')
+        model = obj
+    else:
+        if isinstance(obj, tuple) and len(obj) == 3:
+            embedding, rnn, decoder = obj
+        else:
+            embedding = getattr(obj, 'embedding', None)
+            rnn = getattr(obj, 'lstm', None) or getattr(obj, 'rnn', None)
+            decoder = getattr(obj, 'decoder', None)
+            if embedding is None or rnn is None or decoder is None:
+                raise TypeError(
+                    'cannot freeze %r for decoding: need a DecodeModel + '
+                    'params, an (embedding, rnn, decoder) gluon triple, or '
+                    'an object with those attributes' % (type(obj).__name__,))
+        if max_len is None:
+            max_len = _config.get('MXNET_TPU_SERVE_MAX_SEQ_LEN')
+        model, params = from_gluon_rnn_lm(embedding, rnn, decoder,
+                                          max_len=int(max_len))
     if adapter_rank is None:
         adapter_rank = _config.get('MXNET_TPU_SERVE_ADAPTER_RANK') or 0
     adapter_spec = None

@@ -1527,6 +1527,33 @@ class ServingGateway:
                                         'line)')
                         gw._note_health(len(gw.healthy_replicas()))
                         dead = True
+                    if orig_max_new is not None \
+                            and relayed >= orig_max_new:
+                        # every token the request asked for reached
+                        # the client and only the done line was lost:
+                        # a re-admission would ask a replica for 0 new
+                        # tokens, which it refuses. Finish the stream
+                        # from the journal, as the done branch does
+                        out = {'done': True, 'finish_reason': 'length',
+                               'request_id': request_id}
+                        if not capped:
+                            out['tokens'] = list(emitted)
+                        else:
+                            out['journal_capped'] = True
+                        if attempts:
+                            out['resumed'] = attempts
+                        if spliced:
+                            out['migrated'] = spliced
+                        _record_event('gateway_done_lost',
+                                      request_id=request_id,
+                                      from_url=rep.base_url,
+                                      tokens=relayed)
+                        try:
+                            handler._chunk_obj(out)
+                        except OSError:
+                            return
+                        handler._end_chunks()
+                        return
                     # the segment failed (typed abort OR transport
                     # death). Resume on a healthy replica while the
                     # budget lasts; past it, surface the typed abort.

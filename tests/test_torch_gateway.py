@@ -248,6 +248,41 @@ def test_journal_cap_readmits_original_prompt_agrees(monkeypatch):
     assert '"journal_capped": true' in got
 
 
+@pytest.mark.parametrize('cause', ['die_after', 'abort_after'])
+def test_lost_done_line_after_the_last_token_finishes_from_the_journal(
+        cause):
+    """A replica lost after it streamed every requested token but before
+    its done line: the port's gateway finishes the stream from the
+    journal and re-admits nothing (a re-admission would ask for 0 new
+    tokens, which a real replica refuses with a 400). The JAX package's
+    gateway re-admits here; the port does not copy that."""
+    a, b = _FAKE(), _FAKE()
+    gw = port_gw.ServingGateway([a.url, b.url], port=0,
+                                health_period_s=30.0, timeout_s=5.0,
+                                resume=True, resume_max=2,
+                                affinity=True).start()
+    try:
+        by_url = {a.url: a, b.url: b}
+        target, survivor = tg._target_and_survivor(gw, by_url)
+        target.ctl[cause] = 6
+        r = _READ(gw.port, {'tokens': tg._PROMPT, 'max_new_tokens': 6,
+                            'stream': True}, timeout=HTTP_S)
+        assert r['error'] is None and r['status'] == 200
+        assert r['tokens'] == tg._expected_tokens(tg._PROMPT, 6)
+        assert r['indices'] == list(range(6))
+        done = r['done']
+        assert 'error' not in done and 'resumed' not in done
+        assert done['finish_reason'] == 'length'
+        assert done['tokens'] == r['tokens'] and done['request_id']
+        assert survivor.ctl['requests'] == []
+        st = gw.stats()
+        assert st['resumes'] == 0 and st['resume_failures'] == 0
+    finally:
+        gw.stop()
+        a.close()
+        b.close()
+
+
 def test_pure_functions_agree():
     """The routing and admission primitives give the reference's values,
     step for step."""

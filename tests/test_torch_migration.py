@@ -1,7 +1,7 @@
 """Port parity of live decode migration: ``DecodeEngine.export_sequence``
 / ``export_all`` / ``import_sequence`` and ``generate(request_id=,
 prefill_only=)`` of ``mxnet_tpu_torch`` against the JAX package's
-(``tests/test_migration.py``, without its gateway-journal and RNN tests).
+(``tests/test_migration.py``, without its gateway-journal tests).
 
 The model is the reference test's (vocab 23, units 16, hidden 32, one
 layer, two heads, max_len 64), its weights from a numpy seed, both

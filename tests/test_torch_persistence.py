@@ -22,8 +22,9 @@ held:
   * the reference's rejection and dispatch tests, mirrored
     (``tests/test_serving.py:356``, ``tests/test_decode.py:189``,
     ``tests/test_paged_decode.py:262``, ``tests/test_adapters.py:133``);
-    a one-shot block without a zoo stamp, a JAX-written one-shot artifact
-    and an ``rnn_lm`` artifact raise NotImplementedError;
+    a one-shot block without a zoo stamp and a JAX-written one-shot
+    artifact raise NotImplementedError; a JAX-written ``rnn_lm`` artifact
+    loads as a slot program serving the JAX program's tokens;
   * a one-shot round trip (tiny SSD, ResNet, BERT) is bitwise the
     in-memory program, and its ``aux:`` keys are exactly the moving
     statistics.
@@ -378,14 +379,21 @@ def test_load_frozen_dispatches_adapter_artifacts(weights, tmp_path):
 
 
 def test_rnn_lm_artifact_raises_naming_a9(tmp_path):
+    """A JAX-written ``rnn_lm`` artifact, refused until the RNN-LM family
+    was ported, loads in the port as a slot program with the JAX model's
+    config, builds the reference's program set at ``warmup()`` and serves
+    the JAX program's greedy tokens; an unknown family stays refused."""
     model, params = jax_init_rnn(vocab=19, embed=8, hidden=12, layers=1,
                                  mode='lstm', max_len=32)
     jprog = JaxDecodeProgram(model, params, slots=2, prefill_buckets=(4,))
     art = jprog.save(str(tmp_path / 'rnn.frozen'), include_programs=False)
-    with pytest.raises(NotImplementedError, match='A9'):
-        load_decode(art, device='cpu')
-    with pytest.raises(NotImplementedError, match='A9'):
-        model_from_config('rnn_lm', {})
+    prog = load_decode(art, device='cpu')
+    assert type(prog) is DecodeProgram and not prog.paged
+    assert prog.model.family == 'rnn_lm' and prog.model.config == model.config
+    assert prog.warmup().compile_count == len(prog.prefill_buckets) + 1
+    assert model_from_config('rnn_lm', model.config).config == model.config
+    prompts = [[5, 3, 1], [2], [7, 1, 18, 4]]
+    assert _port_tokens(prog, prompts) == _jax_tokens(jprog, prompts)
     with pytest.raises(ValueError, match='unknown decode family'):
         model_from_config('nope', {})
 
