@@ -2380,7 +2380,7 @@ def param_lists(torch, bert, resnet):
                                         max_length=512, dropout=0.1,
                                         device=cpu),
             'resnet': resnet.get_resnet(1, RESNET['depth'], device=cpu)}
-    return {name: [tuple(p.shape) for p in net.collect_params().values()
+    return {name: [tuple(p.shape) for p in net.collect_params().tensors().values()
                    if p.requires_grad] for name, net in nets.items()}
 
 
@@ -7448,7 +7448,7 @@ def train_against_cpu(torch, bert, gloss, parallel, device, cfg=SMALL_BERT,
             loss = loss_fn(net(*xs), ys)
         loss.backward()
         grads = {n: None if p.grad is None else p.grad.detach().float().cpu()
-                 for n, p in net.collect_params().items()}
+                 for n, p in net.collect_params().tensors().items()}
         # the graph goes before the trainer's steps: alive, it would hold
         # the parameters' gradient accumulators on the default stream,
         # which a captured step cannot wait on
@@ -8991,7 +8991,7 @@ def resnet_against_cpu(torch, resnet, gloss, gnn, parallel, kernels,
         loss = L(net(x), y).mean()
         loss.backward()
         net.train(False)
-        params = net.collect_params()
+        params = net.collect_params().tensors()
         grads = {n: p.grad.detach().cpu() for n, p in params.items()
                  if p.requires_grad}
         loss = loss.item()      # the graph goes (see train_against_cpu)
@@ -9092,7 +9092,7 @@ def resnet_bf16_against_cpu(torch, resnet, gloss, parallel, device, route,
         loss.backward()
         net.train(False)
         grads = {n: p.grad.detach().float().cpu()
-                 for n, p in net.collect_params().items() if p.requires_grad}
+                 for n, p in net.collect_params().tensors().items() if p.requires_grad}
         loss = loss.item()      # the graph goes (see train_against_cpu)
         with warnings.catch_warnings():
             warnings.simplefilter('ignore')     # bf16 weights, no master
@@ -9263,7 +9263,7 @@ def train_resnet(torch, resnet, gloss, gnn, parallel, optimizer, kernels,
         raise AssertionError('%s: inference launches %r, expected %r'
                              % (phase, infer, want))
     step_ms = [s.elapsed_time(e) for s, e in events]
-    params = net.collect_params().values()
+    params = net.collect_params().tensors().values()
     states = [t for st in pt._states
               for t in (st if isinstance(st, (tuple, list)) else (st,))
               if t is not None]
@@ -9563,7 +9563,7 @@ def _seed_moving_stats(torch, net, seed):
     import numpy as np
     rs = np.random.RandomState(seed)
     with torch.no_grad():
-        for name, p in sorted(net.collect_params().items()):
+        for name, p in sorted(net.collect_params().tensors().items()):
             if name.endswith('running_mean'):
                 p.copy_(torch.from_numpy(
                     0.1 * rs.randn(*p.shape).astype('float32')))
@@ -10400,6 +10400,385 @@ def log_times(times):
                    row['scan_device_ms'], row['finish_device_ms']))
 
 
+# -- phase 5g: the imperative gluon surface on the card -----------------------
+
+GLUON_BF16_ITERS = 5
+GLUON_LOSS_RTOL = 1e-5       # (a) twin loss, (c) the first 3 LeNet losses
+GLUON_WEIGHT_TOL = 1e-4      # (a) twin weights, relative to max |w| a tensor
+GLUON_NOISE_W = 1e-5         # (a) below: a zero-gradient tensor's noise
+GLUON_ND_TOL = 1e-6          # (d) card against CPU, relative to max |CPU|
+LENET_BATCH, LENET_LR, LENET_SAMPLES = 64, 0.05, 2048
+# the rows phase 5g must launch: 5 (BN apply), 7 / 8 (act forward /
+# backward), 9 (add + relu), 10 / 11 (softmax-xent forward / backward),
+# 17 (the whole-model update); (b) their bf16 instances
+GLUON_ROWS = ('bn_act_fwd', 'act_fwd', 'act_bwd', 'add_act_fwd',
+              'softmax_xent_fwd', 'softmax_xent_bwd', 'multi_tensor_update')
+GLUON_BF16_ROWS = ('bn_act_fwd', 'act_fwd.bf16', 'act_bwd.bf16',
+                   'add_act_fwd.bf16', 'softmax_xent_fwd.bf16',
+                   'softmax_xent_bwd.bf16', 'multi_tensor_update.bf16')
+LENET_ROWS = ('act_fwd', 'act_bwd', 'softmax_xent_fwd', 'softmax_xent_bwd',
+              'multi_tensor_update')
+
+
+def _require_rows(phase, counts, rows):
+    idle = [r for r in rows if not counts.get(r)]
+    if idle:
+        raise AssertionError('%s: rows %s launched no time (launches %r)'
+                             % (phase, idle, counts))
+
+
+def _gluon_steps(torch, autograd, net, L, trainer, x, y, batch, n,
+                 events=None):
+    """``n`` steps of the reference's loop; each step's mean loss."""
+    losses = []
+    for _ in range(n):
+        if events is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        with autograd.record():
+            loss = L(net(x), y)
+        loss.backward()
+        trainer.step(batch)
+        if events is not None:
+            end.record()
+            events.append((start, end))
+        losses.append(loss.mean())
+    return [float(l.asscalar()) for l in losses]
+
+
+def gluon_resnet(torch, mx, resnet, gloss, parallel, kernels, device,
+                 route=None, shape=RESNET, warmup=RESNET_WARMUP,
+                 iters=RESNET_ITERS, seed=0):
+    """Phase 5g (a) (``route`` None) or (b) (``route`` 'cast'): ResNet-50 v1
+    trained as bench.py's eager loop writes it: ``resnet50_v1()``,
+    ``initialize(mx.init.Xavier())`` (after ``cast('bfloat16')`` for
+    (b)), ``hybridize(static_alloc=True, static_shape=True)``,
+    ``gluon.Trainer`` with SGD, then ``record()`` / ``backward()`` /
+    ``trainer.step(batch)``. (a) first holds one step against
+    ``ParallelTrainer.step`` from a copy of the same initial weights on
+    the same batch."""
+    import warnings
+    import numpy as np
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon import model_zoo
+    phase = 'phase 5g (%s)' % ('b' if route else 'a')
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    xs = rs.uniform(-1, 1, (shape['batch'], 3, shape['image'],
+                            shape['image'])).astype('float32')
+    ys = rs.randint(0, shape['classes'], (shape['batch'],)).astype('float32')
+    mx.random.seed(seed)
+    net = model_zoo.vision.resnet50_v1()
+    net.initialize(mx.init.Xavier())
+    if route == 'cast':
+        net.cast('bfloat16')
+    net.hybridize(static_alloc=True, static_shape=True)
+    L = gluon.loss.SoftmaxCrossEntropyLoss()
+    x = nd.array(xs, dtype='bfloat16' if route else 'float32')
+    y = nd.array(ys)
+    twin = None
+    if route is None:
+        tnet = resnet.resnet50_v1(device=device)
+        with torch.no_grad():
+            for p, q in zip(net.collect_params().tensors().values(),
+                            tnet.collect_params().tensors().values()):
+                q.copy_(p)
+        pt = parallel.ParallelTrainer(tnet, gloss.SoftmaxCrossEntropyLoss(),
+                                      'sgd', dict(RESNET_HYPER))
+        tloss = float(pt.step(torch.from_numpy(xs).to(device),
+                              torch.from_numpy(ys).to(device)))
+        twin = {'loss': tloss, 'after': [
+            p.detach().clone()
+            for p in tnet.collect_params().tensors().values()]}
+        del pt, tnet
+        torch.cuda.empty_cache()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter('always')
+        trainer = gluon.Trainer(net.collect_params(), 'sgd',
+                                dict(RESNET_HYPER))
+        losses = _gluon_steps(torch, autograd, net, L, trainer, x, y,
+                              shape['batch'], 1)
+    if twin is not None:
+        rel = abs(losses[0] - twin['loss']) / abs(twin['loss'])
+        worst, floored = 0.0, []
+        top = max(float(q.abs().max()) for q in twin['after'])
+        for (n, p), q in zip(net.collect_params().tensors().items(),
+                             twin['after']):
+            err = float((p.detach() - q).abs().max())
+            scale = float(q.abs().max())
+            if scale < GLUON_NOISE_W:
+                # a conv bias under a BatchNorm: its exact gradient is 0,
+                # its step rounding noise, held to the net's weight scale
+                floored.append(n)
+                scale = top
+            worst = max(worst, err / max(scale, 1e-30))
+            if err > GLUON_WEIGHT_TOL * scale:
+                raise AssertionError(
+                    '%s: %s after one step differs from ParallelTrainer.step '
+                    'by %.3g (limit %g x %.3g)'
+                    % (phase, n, err, GLUON_WEIGHT_TOL, scale))
+        if not rel <= GLUON_LOSS_RTOL:
+            raise AssertionError('%s: loss %.7f against ParallelTrainer.step '
+                                 '%.7f, rel %.3g (limit %g)'
+                                 % (phase, losses[0], twin['loss'], rel,
+                                    GLUON_LOSS_RTOL))
+        twin.update(rel=rel, worst=worst, floored=floored, top=top)
+        twin.pop('after')
+    setup_s = time.perf_counter() - t0
+    losses += _gluon_steps(torch, autograd, net, L, trainer, x, y,
+                           shape['batch'], warmup - 1)
+    n = iters if route is None else GLUON_BF16_ITERS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    events = []
+    t1 = time.perf_counter()
+    losses += _gluon_steps(torch, autograd, net, L, trainer, x, y,
+                           shape['batch'], n, events)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    _require_rows(phase, counts, GLUON_BF16_ROWS if route else GLUON_ROWS)
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError('%s: a loss is not finite: %r' % (phase, losses))
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    out = {'losses': losses, 'launches': counts, 'twin': twin,
+           'img_per_s': shape['batch'] * n / wall, 'wall_s': wall,
+           'step_ms': statistics.mean(step_ms), 'step_ms_each': step_ms,
+           'peak_mem_bytes': torch.cuda.max_memory_allocated(),
+           'setup_s': setup_s, 'iters': n, 'warnings': len(warned),
+           'param_dtypes': sorted({str(p.dtype) for p in
+                                   net.collect_params().tensors().values()})}
+    del net, trainer, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def synthetic_digits(n=LENET_SAMPLES):
+    """``examples/train_mnist.py``'s ``get_data`` without a data
+    directory: class k is a bright (k + 2)-square in the top-left corner
+    of faint noise, from a numpy seed."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    y = rs.randint(0, 10, n)
+    x = rs.rand(n, 1, 28, 28).astype('float32') * 0.1
+    for i, k in enumerate(y):
+        x[i, 0, :k + 2, :k + 2] += 0.9
+    return x, y.astype('float32')
+
+
+def _lenet(nn):
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(20, 5, activation='tanh'), nn.MaxPool2D(2, 2),
+                nn.Conv2D(50, 5, activation='tanh'), nn.MaxPool2D(2, 2),
+                nn.Flatten(), nn.Dense(500, activation='tanh'),
+                nn.Dense(10))
+    return net
+
+
+def _lenet_run(mx, x, y, ctx, weights=None, batches=None, seed=0):
+    """``train_gluon``'s loop in ``ctx`` over the synthetic digits, one
+    epoch (or its first ``batches``); the weights after the first forward
+    are ``weights`` when given. Returns (losses, accuracy, the initial
+    weights, the net's launches are read by the caller)."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon import nn
+    with ctx:
+        mx.random.seed(seed)
+        net = _lenet(nn)
+        net.initialize(mx.init.Xavier())
+        net.hybridize(static_alloc=True, static_shape=True)
+        net(nd.zeros((1, 1, 28, 28)))                 # deferred shapes
+        params = net.collect_params()
+        if weights is None:
+            weights = {k: p.data().asnumpy() for k, p in params.items()}
+        else:
+            for k, p in params.items():
+                p.set_data(nd.array(weights[k]))
+        L = gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = gluon.Trainer(params, 'sgd', {'learning_rate': LENET_LR,
+                                                'momentum': 0.9})
+        metric = mx.metric.Accuracy()
+        np.random.seed(seed)                          # the iterator's shuffle
+        train = mx.io.NDArrayIter(x, y, batch_size=LENET_BATCH, shuffle=True,
+                                  label_name='softmax_label')
+        train.reset()
+        metric.reset()
+        losses = []
+        for i, batch in enumerate(train):
+            if batches is not None and i == batches:
+                break
+            xb, yb = batch.data[0], batch.label[0]
+            with autograd.record():
+                out = net(xb)
+                loss = L(out, yb)
+            loss.backward()
+            trainer.step(LENET_BATCH)
+            metric.update([yb], [out])
+            losses.append(loss.mean())
+        return ([float(l.asscalar()) for l in losses], metric.get()[1],
+                weights)
+
+
+def gluon_lenet(torch, mx, kernels):
+    """Phase 5g (c): LeNet trained by ``train_gluon``'s loop, one epoch on
+    the card; its first 3 losses against the same loop on the CPU from
+    the same weights."""
+    x, y = synthetic_digits()
+    t0 = time.perf_counter()
+    cpu_losses, _, weights = _lenet_run(mx, x, y, mx.cpu(), batches=3)
+    cpu_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, acc, _ = _lenet_run(mx, x, y, mx.gpu(0), weights=weights)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    _require_rows('phase 5g (c)', counts, LENET_ROWS)
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses[:3], cpu_losses)]
+    if len(cpu_losses) != 3 or not max(rels) <= GLUON_LOSS_RTOL:
+        raise AssertionError('phase 5g (c): the first losses %r on the card '
+                             'against %r on the CPU, rel %r (limit %g)'
+                             % (losses[:3], cpu_losses, rels,
+                                GLUON_LOSS_RTOL))
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError('phase 5g (c): a loss is not finite')
+    return {'losses': losses, 'cpu_losses': cpu_losses, 'rels': rels,
+            'accuracy': acc, 'launches': counts, 'wall_s': wall,
+            'cpu_s': cpu_s, 'steps': len(losses)}
+
+
+def _nd_case(mx, ctx, xs, ws):
+    """Phase 5g (d)'s recorded work in ``ctx``: a few ``nd`` ops with
+    their backward, ``autograd.grad`` with ``create_graph``, and a custom
+    ``autograd.Function``. Returns host arrays."""
+    from mxnet_tpu_torch import autograd, nd
+
+    class Sigmoid(autograd.Function):
+        def forward(self, x):
+            y = 1 / (1 + nd.exp(-x))
+            self.save_for_backward(y)
+            return y
+
+        def backward(self, dy):
+            y, = self.saved_tensors
+            return dy * y * (1 - y)
+
+    out = {}
+    with ctx:
+        x = nd.array(xs)
+        w = nd.array(ws)
+        x.attach_grad()
+        with autograd.record():
+            h = nd.Activation(nd.FullyConnected(x, w, no_bias=True,
+                                                num_hidden=ws.shape[0]),
+                              act_type='relu')
+            z = nd.tanh(h) * nd.exp(-h) + nd.sum(nd.square(x), axis=1,
+                                                 keepdims=True)
+            head = nd.softmax(z).sum()
+        head.backward()
+        out['ops'] = z.asnumpy()
+        out['ops_grad'] = x.grad.asnumpy()
+        with autograd.record():
+            cube = x * x * x
+            d1 = autograd.grad(cube, x, create_graph=True)
+            second = (d1 * x).sum()
+        second.backward()
+        out['grad_create_graph'] = d1.asnumpy()
+        out['second_order'] = x.grad.asnumpy()
+        with autograd.record():
+            s = Sigmoid()(x)
+            t = (s * x).sum()
+        t.backward()
+        out['function'] = s.asnumpy()
+        out['function_grad'] = x.grad.asnumpy()
+    return out
+
+
+def gluon_nd_checks(torch, mx, kernels):
+    """Phase 5g (d): the card against the CPU on the same inputs, and the
+    act kernel launched by ``nd.Activation`` on the card."""
+    import numpy as np
+    rs = np.random.RandomState(3)
+    xs = rs.uniform(-1, 1, (64, 32)).astype('float32')
+    ws = rs.uniform(-0.5, 0.5, (48, 32)).astype('float32')
+    want = _nd_case(mx, mx.cpu(), xs, ws)
+    kernels.reset_launch_counts()
+    got = _nd_case(mx, mx.gpu(0), xs, ws)
+    counts = kernels.launch_counts()
+    _require_rows('phase 5g (d)', counts, ('act_fwd', 'act_bwd'))
+    errs = {}
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max())
+        errs[k] = err
+        if not err <= GLUON_ND_TOL * max(1.0, float(np.abs(w).max())):
+            raise AssertionError('phase 5g (d): %s on the card differs from '
+                                 'the CPU by %.3g (limit %g)'
+                                 % (k, err, GLUON_ND_TOL))
+    # no fallback: a Trainer whose optimizer the update kernel has no
+    # rule for is refused on the card
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.optimizer import FusedUpdateError
+    with mx.gpu(0):
+        p = gluon.Parameter('w', shape=(3,))
+        p.initialize(init='ones')
+        try:
+            gluon.Trainer({'w': p}, 'adam', {'learning_rate': 0.1})
+        except FusedUpdateError as e:
+            refused = str(e)
+        else:
+            raise AssertionError('phase 5g (d): a gluon.Trainer with adam '
+                                 'was built on the card')
+    return {'errs': errs, 'launches': counts, 'adam_refused': refused}
+
+
+def log_gluon(ga, gb, gc, gd, rn, card):
+    log('phase 5g (a) twin [%s]: one gluon step against '
+        'ParallelTrainer.step from the same weights on the same batch: loss '
+        '%.7f vs %.7f (rel %.3g, limit %g); worst weight gap %.3g of max '
+        '|w| (limit %g)'
+        % (card, ga['losses'][0], ga['twin']['loss'], ga['twin']['rel'],
+           GLUON_LOSS_RTOL, ga['twin']['worst'], GLUON_WEIGHT_TOL))
+    for tag, g, base in (('a', ga, rn), ('b', gb, None)):
+        log('phase 5g (%s) resnet50_v1 %s, batch %d x 3 x %d x %d, gluon.'
+            'Trainer SGD %s, %d warm-up + %d timed steps: losses %s; '
+            'parameters %s; %d optimizer warnings; launches in the timed '
+            'steps %s' % (tag, 'float32' if tag == 'a' else
+                          "after cast('bfloat16') on bf16 images",
+                          RESNET['batch'], RESNET['image'], RESNET['image'],
+                          RESNET_HYPER, RESNET_WARMUP, g['iters'],
+                          g['losses'], g['param_dtypes'], g['warnings'],
+                          g['launches']))
+        log('phase 5g (%s) metrics [%s]: img/s %.2f, mean step %.3f ms (CUDA '
+            'events; each %s), wall %.3f s for %d steps, peak memory %d B, '
+            'setup %.1f s%s'
+            % (tag, card, g['img_per_s'], g['step_ms'],
+               ['%.3f' % t for t in g['step_ms_each']], g['wall_s'],
+               g['iters'], g['peak_mem_bytes'], g['setup_s'],
+               '' if base is None else '; 5b (ParallelTrainer, captured) '
+               '%.3f ms a step, %.2f img/s' % (base['step_ms'],
+                                               base['img_per_s'])))
+    log('phase 5g (c) LeNet, train_gluon\'s loop over the synthetic digits '
+        '[%s]: %d steps of batch %d (one epoch) in %.3f s, accuracy %.4f; '
+        'first losses %s on the card, %s on the CPU (rel %s, limit %g); '
+        'launches %s'
+        % (card, gc['steps'], LENET_BATCH, gc['wall_s'], gc['accuracy'],
+           ['%.7f' % l for l in gc['losses'][:3]],
+           ['%.7f' % l for l in gc['cpu_losses']],
+           ['%.3g' % r for r in gc['rels']], GLUON_LOSS_RTOL,
+           gc['launches']))
+    log('phase 5g (d) nd ops, autograd.grad(create_graph=True) and a custom '
+        'autograd.Function on the card against the CPU: max errors %s '
+        '(limit %g x max(1, max |CPU|)); launches %s; gluon.Trainer(adam) '
+        'refused on the card: %s'
+        % (json.dumps({k: float('%.3g' % v) for k, v in gd['errs'].items()}),
+           GLUON_ND_TOL, gd['launches'], gd['adam_refused']))
+
+
+
 def kernel_rows(errs, times, train_times, launches_by_path):
     """The ``kernels`` JSON rows: each kernel's launches on the main
     paths, its worst error against its plain version and its times. The
@@ -11076,6 +11455,21 @@ def _main():
     log_train_resilience(rt, card)
     torch.cuda.empty_cache()
 
+    # phase 5g: the imperative gluon surface: ResNet-50 v1 trained by the
+    # reference's eager loop (float32 with its ParallelTrainer twin, then
+    # after cast('bfloat16')), LeNet by train_gluon's loop against the
+    # CPU, and recorded nd ops against the CPU
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    ga = gluon_resnet(torch, mx, resnet, gloss, parallel, kernels, cuda)
+    gb = gluon_resnet(torch, mx, resnet, gloss, parallel, kernels, cuda,
+                      route='cast')
+    gc = gluon_lenet(torch, mx, kernels)
+    gd = gluon_nd_checks(torch, mx, kernels)
+    log_gluon(ga, gb, gc, gd, rn, card)
+    log('phase 5g wall [%s]: %.1f s' % (card, time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+
     # phase 6: the SSD detection serving slice
     errs.update(check_nms_kernel(torch, kernels, cuda))
     ssd_against_cpu(torch, ssd, ops, kernels, gnn, cuda)
@@ -11281,6 +11675,9 @@ def _main():
                         'resnet training': rn['launches'],
                         'resnet inference': rn['infer_launches'],
                         'resnet frozen-BN fine-tuning': fz['launches'],
+                        'gluon resnet training': ga['launches'],
+                        'gluon resnet bf16 training': gb['launches'],
+                        'gluon lenet training': gc['launches'],
                         'trainer telemetry and resilience': rt['launches'],
                         'resnet amp training': bf16_runs['amp']['launches'],
                         'resnet amp inference':

@@ -16,21 +16,46 @@ flash dq / dkv backward and the softmax-xent forward / backward kernels;
 ResNet v1 training (``gluon.model_zoo.resnet`` + SGD with momentum
 through the same step), carried by the epilogue kernels (BatchNorm apply
 forward / backward, activation forward / backward, add + relu) and the
-softmax-xent head; and SSD-300 detection served one-shot
+softmax-xent head; SSD-300 detection served one-shot
 (``gluon.model_zoo.ssd`` + ``ops.contrib.multibox_detection`` through
 ``serving.freeze`` -> ``FrozenProgram`` -> ``InferenceSession.infer`` and
 the micro-batcher), carried by the greedy-NMS kernel and the BatchNorm
-apply kernel.
+apply kernel; and the imperative gluon surface (``nd``, ``autograd``,
+``gluon.Parameter`` / ``Block.initialize`` / ``hybridize``,
+``gluon.Trainer`` over the whole-model update kernel, ``init``,
+``lr_scheduler``, ``metric``, ``io.NDArrayIter``), which runs the
+reference's own training loop.
 
-Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
-on a host without CUDA they raise instead of falling back.
-``MXNET_PROFILER_AUTOSTART`` starts :mod:`~mxnet_tpu_torch.profiler` at
-import, as the reference's package does.
+Entry points run on ``cuda`` unless the caller passes ``device='cpu'``
+(or works inside ``with mx.cpu():``); on a host without CUDA they raise
+instead of falling back. ``MXNET_PROFILER_AUTOSTART`` starts
+:mod:`~mxnet_tpu_torch.profiler` at import, as the reference's package
+does. The imperative modules load on first use (``mx.nd``, ``mx.gluon``,
+...).
 """
-from . import config
-from .context import resolve_device
+import importlib as _importlib
 
-__all__ = ['resolve_device']
+from . import config
+from .context import Context, cpu, current_context, gpu, resolve_device
+
+__all__ = ['resolve_device', 'Context', 'cpu', 'gpu', 'current_context',
+           'nd', 'ndarray', 'autograd', 'init', 'initializer', 'metric',
+           'lr_scheduler', 'gluon', 'io', 'random', 'optimizer']
+
+_LAZY = {'nd': 'ndarray', 'ndarray': 'ndarray', 'autograd': 'autograd',
+         'init': 'initializer', 'initializer': 'initializer',
+         'metric': 'metric', 'lr_scheduler': 'lr_scheduler',
+         'gluon': 'gluon', 'io': 'io', 'random': 'random',
+         'optimizer': 'optimizer'}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        mod = _importlib.import_module('.' + _LAZY[name], __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError('module %r has no attribute %r' % (__name__, name))
+
 
 if config.get('MXNET_PROFILER_AUTOSTART'):
     from . import profiler as _profiler

@@ -150,7 +150,7 @@ def init_params(net, seed=0, std=0.02):
     drawn in sorted name order, so the values do not depend on the device
     or on the order of construction. Returns ``net``."""
     rng = onp.random.default_rng(seed)
-    params = net.collect_params()
+    params = net.collect_params().tensors()
     for name in sorted(params):
         p = params[name]
         if name.endswith('gamma'):
@@ -160,4 +160,6 @@ def init_params(net, seed=0, std=0.02):
         else:
             w = rng.standard_normal(tuple(p.shape), dtype=onp.float32) * std
             p.copy_(torch.from_numpy(w))
+    for p in net.collect_params().values():
+        p._initialized = True
     return net

@@ -19,9 +19,11 @@ its 1x1 convs carry biases (checkpoint parity with the reference). The
 v2 (pre-activation) nets are not ported yet (ROADMAP: "the rest of
 training").
 
-Weights: :func:`init_params` fills a net from a numpy seed with the
-bench's initializer, Xavier (uniform, avg, magnitude 3); BatchNorm gamma
-and the running variance are 1, beta, biases and the running mean 0.
+Weights: ``net.initialize(mx.init.Xavier())`` fills a net as the
+bench does (the BatchNorm constants are set when the layers are made);
+:func:`init_params` fills it from a numpy seed with the bench's
+initializer, Xavier (uniform, avg, magnitude 3); BatchNorm gamma and the
+running variance are 1, beta, biases and the running mean 0.
 """
 from __future__ import annotations
 
@@ -228,7 +230,7 @@ def init_params(net, seed=0):
     drawn in sorted name order, so the values do not depend on the device
     or on the order of construction. Returns ``net``."""
     rng = onp.random.default_rng(seed)
-    params = net.collect_params()
+    params = net.collect_params().tensors()
     for name in sorted(params):
         p = params[name]
         if name.endswith(('gamma', 'running_var')):
@@ -239,4 +241,6 @@ def init_params(net, seed=0):
             bound = _xavier_scale(tuple(p.shape))
             w = rng.uniform(-bound, bound, tuple(p.shape)).astype(onp.float32)
             p.copy_(torch.from_numpy(w))
+    for p in net.collect_params().values():
+        p._initialized = True
     return net

@@ -1,117 +1,176 @@
-"""Core layers of the BERT and ResNet paths, the counterpart of
-``mxnet_tpu/gluon/nn/basic_layers.py`` (``HybridSequential`` :73,
-``Dense`` :80, ``Dropout`` :124, ``BatchNorm`` :167, ``Embedding`` :245,
-``Flatten`` :270, ``LayerNorm`` :315) and of ``Activation`` in
-``mxnet_tpu/gluon/nn/activations.py``.
+"""Core layers of the BERT and ResNet paths and of the gluon loop, the
+counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py`` (``Sequential`` /
+``HybridSequential`` :22-78, ``Dense`` :80, ``Dropout`` :124,
+``BatchNorm`` :167, ``Embedding`` :245, ``Flatten`` :270, ``LayerNorm``
+:315) and of ``Activation`` in ``mxnet_tpu/gluon/nn/activations.py``.
 
 Parameters keep the JAX layouts (``Dense`` weight (units, in_units),
-``Embedding`` weight (input_dim, output_dim)) and names (``weight``,
-``bias``, ``gamma``, ``beta``, ``running_mean``, ``running_var``). The
-JAX layers infer ``in_units`` / ``in_channels`` at the first call; a
-``torch.nn.Module`` allocates at construction, so the port needs them up
-front. Weights are allocated uninitialised (the JAX layers'
-``weight_initializer`` is None too: the model's initializer fills them,
-here ``init_params`` or ``params_from_jax`` of the model zoo); biases and
-beta start at 0, gamma and the running variance at 1, the running mean at
-0, the JAX layers' default initializers.
+``Embedding`` weight (input_dim, output_dim)), names (``weight``,
+``bias``, ``gamma``, ``beta``, ``running_mean``, ``running_var``) and
+initializers (``weight_initializer`` None: the model's initializer fills
+them, through ``initialize(init)``, ``init_params`` or
+``params_from_jax``; bias and beta ``'zeros'``, gamma and the running
+variance ``'ones'``, the running mean ``'zeros'``). ``in_units=0`` /
+``in_channels=0`` defer the shape to the first forward, as the JAX layers
+infer it; with the shape given a layer allocates its parameters at
+construction on ``device`` (the constant ones filled, the weights left to
+the initializer).
 """
 from __future__ import annotations
 
 import torch
 
+from ... import random as _random
 from ...context import resolve_device
 from ...ops import nn as ops
-from ..block import Block, torch_dtype
+from ..block import Block, HybridBlock, torch_dtype, training
 
 __all__ = ['Activation', 'BatchNorm', 'Dense', 'Dropout', 'Embedding',
-           'Flatten', 'HybridSequential', 'LayerNorm']
+           'Flatten', 'HybridLambda', 'HybridSequential', 'Lambda',
+           'LayerNorm', 'Sequential']
 
 
-def _param(shape, device, fill=None, requires_grad=True):
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    if fill is not None:
-        t.fill_(fill)
-    return torch.nn.Parameter(t, requires_grad=requires_grad)
+def _declare(block, name, shape, init, device, grad_req='write',
+             differentiable=True):
+    """``block.<name>``: a gluon parameter of ``shape`` (a 0 defers it),
+    allocated now on ``device`` when the shape is known."""
+    p = block.params.get(name, shape=shape, init=init,
+                         allow_deferred_init=True, grad_req=grad_req,
+                         differentiable=differentiable)
+    setattr(block, name, p)
+    if p._tensor is None and all(int(d) > 0 for d in shape):
+        p._allocate(resolve_device(device))
+    return p
 
 
-class HybridSequential(Block):
+def _materialize(block, x, shapes):
+    """Fix the deferred shapes (``{name: shape}``) from the first input
+    ``x`` and allocate them on its device."""
+    for name, shape in shapes.items():
+        p = block._reg_params[name]
+        if p._tensor is None:
+            p.shape = shape
+            if not p._deferred_init:
+                raise p._check_and_get(None)
+            p._finish_deferred_init(x.device)
+
+
+class Sequential(Block):
     """Blocks applied in order; the children are named by their position,
     so they add nothing to the gluon names but their own prefixes."""
 
-    def __init__(self, prefix=''):
-        super().__init__(prefix)
-
     def add(self, *blocks):
         for b in blocks:
-            self.add_module(str(len(self._modules)), b)
+            self.register_child(b)
 
     def forward(self, x):
         for b in self._modules.values():
             x = b(x)
         return x
 
+    def __getitem__(self, key):
+        picked = list(self._modules.values())[key]
+        if not isinstance(picked, list):
+            return picked
+        sub = type(self)(prefix=self.prefix)
+        sub.add(*picked)
+        return sub
 
-class Activation(Block):
+    def __len__(self):
+        return len(self._modules)
+
+
+class HybridSequential(Sequential, HybridBlock):
+    """Sequential of hybridizable blocks."""
+
+    forward = Sequential.forward
+
+
+class Activation(HybridBlock):
     """Elementwise activation chosen by name (``ops.nn.activation``)."""
 
     def __init__(self, activation, prefix=None):
-        super().__init__(activation + '_' if prefix is None else prefix)
         self._kind = activation
+        super().__init__(prefix)
+
+    @property
+    def _unscoped_prefix(self):
+        return self._kind + '_'
+
+    def _alias(self):
+        return self._kind
 
     def forward(self, x):
         return ops.activation(x, self._kind)
 
 
-class Dense(Block):
+class Dense(HybridBlock):
     """Fully connected: ``act(x W^T + b)``."""
 
+    _unscoped_prefix = 'dense_'
+
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 in_units=0, prefix='dense_', device=None):
-        super().__init__(prefix)
-        if in_units <= 0:
-            raise ValueError('Dense: the port allocates at construction and '
-                             'needs in_units > 0, got %r' % (in_units,))
-        device = resolve_device(device)
+                 dtype='float32', weight_initializer=None,
+                 bias_initializer='zeros', in_units=0, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix, params)
         self._units, self._in_units, self._flatten = units, in_units, flatten
-        self.weight = _param((units, in_units), device)
-        self.bias = _param((units,), device, 0.0) if use_bias else None
-        self.act = None if activation is None else Activation(activation)
+        with self.name_scope():
+            _declare(self, 'weight', (units, in_units), weight_initializer,
+                     device)
+            if use_bias:
+                _declare(self, 'bias', (units,), bias_initializer, device)
+            else:
+                self.bias = None
+            self.act = None if activation is None else \
+                Activation(activation, prefix=activation + '_')
 
     def forward(self, x):
+        if self.weight is None:
+            fan_in = 1
+            for d in (x.shape[1:] if self._flatten else x.shape[-1:]):
+                fan_in *= int(d)
+            _materialize(self, x, {'weight': (self._units, fan_in)})
         out = ops.fully_connected(x, self.weight, self.bias,
                                   flatten=self._flatten)
         return out if self.act is None else self.act(out)
 
 
-class Dropout(Block):
+class Dropout(HybridBlock):
     """Inverted dropout; the identity at rate 0 or in inference mode.
 
-    The mask comes from ``self.generator``, a ``torch.Generator`` on the
-    layer's device that the trainer sets (``ParallelTrainer`` owns and
-    seeds one per net); training with a rate above 0 and no generator
-    raises rather than drawing from the global RNG."""
+    The mask comes from ``self.generator`` when a trainer set one
+    (``ParallelTrainer`` owns and seeds one per net), else from the
+    generator of the input's device (``mx.random``)."""
 
-    def __init__(self, rate, prefix='dropout_'):
+    _unscoped_prefix = 'dropout_'
+
+    def __init__(self, rate, axes=(), prefix=None):
         super().__init__(prefix)
+        if axes:
+            raise NotImplementedError('Dropout: axes= is not ported')
         self._rate = rate
         self.generator = None
 
     def forward(self, x):
-        return ops.dropout(x, self._rate, self.generator, self.training)
+        train = training(self)
+        gen = self.generator
+        if gen is None and train and self._rate > 0:
+            gen = _random.generator(x.device)
+        return ops.dropout(x, self._rate, gen, train)
 
 
-class BatchNorm(Block):
+class BatchNorm(HybridBlock):
     """Batch normalization over ``axis`` with moving statistics.
 
-    ``running_mean`` and ``running_var`` are parameters that take no
-    gradient (``grad_req='null'`` in the JAX layer); ``gamma`` /
-    ``beta`` take none when ``scale`` / ``center`` is off. In training
-    mode (and not ``use_global_stats``) the batch statistics normalize
-    and the moving averages are updated in place, as
-    ``keep * running + (1 - keep) * batch`` with ``keep = momentum``;
-    otherwise the moving statistics normalize (``ops.nn.batch_norm``).
-    ``use_global_stats`` may be set on a built net to fine-tune it with
-    its BatchNorm statistics frozen.
+    ``running_mean`` and ``running_var`` take no gradient (``grad_req
+    'null'``); ``gamma`` / ``beta`` take none when ``scale`` / ``center``
+    is off. In training mode (:func:`~..block.training`, and not
+    ``use_global_stats``) the batch statistics normalize and the moving
+    averages are updated in place, as ``keep * running + (1 - keep) *
+    batch`` with ``keep = momentum``; otherwise the moving statistics
+    normalize (``ops.nn.batch_norm``). ``use_global_stats`` may be set on
+    a built net to fine-tune it with its BatchNorm statistics frozen.
 
     :meth:`cast` to float16 or bfloat16 keeps gamma, beta and the moving
     statistics float32 (``BatchNorm.cast``, basic_layers.py:208-219): the
@@ -119,24 +178,28 @@ class BatchNorm(Block):
     activations' dtype and the batch statistics in the moving
     statistics' dtype, so the moving averages accumulate in float32."""
 
+    _unscoped_prefix = 'batchnorm_'
+
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
-                 scale=True, use_global_stats=False, in_channels=0,
-                 prefix='batchnorm_', device=None):
-        super().__init__(prefix)
-        if in_channels <= 0:
-            raise ValueError('BatchNorm: the port allocates at construction '
-                             'and needs in_channels > 0, got %r'
-                             % (in_channels,))
-        device = resolve_device(device)
+                 scale=True, use_global_stats=False,
+                 beta_initializer='zeros', gamma_initializer='ones',
+                 running_mean_initializer='zeros',
+                 running_variance_initializer='ones', in_channels=0,
+                 prefix=None, params=None, device=None):
+        super().__init__(prefix, params)
         self._axis, self._momentum, self._epsilon = axis, momentum, epsilon
         self._fix_gamma = not scale
         self.use_global_stats = use_global_stats
-        self.gamma = _param((in_channels,), device, 1.0, requires_grad=scale)
-        self.beta = _param((in_channels,), device, 0.0, requires_grad=center)
-        self.running_mean = _param((in_channels,), device, 0.0,
-                                   requires_grad=False)
-        self.running_var = _param((in_channels,), device, 1.0,
-                                  requires_grad=False)
+        c = (in_channels,)
+        with self.name_scope():
+            _declare(self, 'gamma', c, gamma_initializer, device,
+                     'write' if scale else 'null')
+            _declare(self, 'beta', c, beta_initializer, device,
+                     'write' if center else 'null')
+            _declare(self, 'running_mean', c, running_mean_initializer,
+                     device, 'null', differentiable=False)
+            _declare(self, 'running_var', c, running_variance_initializer,
+                     device, 'null', differentiable=False)
 
     def cast(self, dtype):
         dt = torch_dtype(dtype)
@@ -144,13 +207,17 @@ class BatchNorm(Block):
                                                      torch.bfloat16) else dt)
 
     def forward(self, x):
-        train = self.training and not self.use_global_stats
+        if self.gamma is None:
+            c = (int(x.shape[self._axis]),)
+            _materialize(self, x, dict.fromkeys(
+                ('gamma', 'beta', 'running_mean', 'running_var'), c))
+        train = training(self)
         out, mean, var = ops.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             eps=self._epsilon, fix_gamma=self._fix_gamma,
             use_global_stats=self.use_global_stats, axis=self._axis,
-            training=self.training)
-        if train:
+            training=train)
+        if train and not self.use_global_stats:
             keep = self._momentum
             with torch.no_grad():
                 self.running_mean.copy_(keep * self.running_mean
@@ -160,45 +227,94 @@ class BatchNorm(Block):
         return out
 
 
-class Flatten(Block):
+class Flatten(HybridBlock):
     """Collapse all axes but the first."""
 
-    def __init__(self, prefix='flatten_'):
-        super().__init__(prefix)
+    _unscoped_prefix = 'flatten_'
 
     def forward(self, x):
         return ops.flatten(x)
 
 
-class Embedding(Block):
+class Embedding(HybridBlock):
     """Integer indices -> rows of a learned (input_dim, output_dim)
     table."""
 
-    def __init__(self, input_dim, output_dim, prefix='embedding_',
-                 device=None):
-        super().__init__(prefix)
-        self.weight = _param((input_dim, output_dim),
-                             resolve_device(device))
+    _unscoped_prefix = 'embedding_'
+
+    def __init__(self, input_dim, output_dim, dtype='float32',
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix, params)
+        with self.name_scope():
+            _declare(self, 'weight', (input_dim, output_dim),
+                     weight_initializer, device)
 
     def forward(self, x):
         return ops.embedding(x, self.weight)
 
 
-class LayerNorm(Block):
+class LayerNorm(HybridBlock):
     """Normalize over one axis with a learned affine (gamma 1, beta 0)."""
 
-    def __init__(self, axis=-1, epsilon=1e-5, in_channels=0,
-                 prefix='layernorm_', device=None):
-        super().__init__(prefix)
-        if in_channels <= 0:
-            raise ValueError('LayerNorm: the port allocates at construction '
-                             'and needs in_channels > 0, got %r'
-                             % (in_channels,))
-        device = resolve_device(device)
+    _unscoped_prefix = 'layernorm_'
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer='zeros', gamma_initializer='ones',
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(prefix, params)
         self._axis, self._epsilon = axis, epsilon
-        self.gamma = _param((in_channels,), device, 1.0)
-        self.beta = _param((in_channels,), device, 0.0)
+        c = (in_channels,)
+        with self.name_scope():
+            _declare(self, 'gamma', c, gamma_initializer, device,
+                     'write' if scale else 'null')
+            _declare(self, 'beta', c, beta_initializer, device,
+                     'write' if center else 'null')
 
     def forward(self, x):
+        if self.gamma is None:
+            c = (int(x.shape[self._axis]),)
+            _materialize(self, x, {'gamma': c, 'beta': c})
         return ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                               eps=self._epsilon)
+
+
+def _nd_function(function, eager):
+    """An op name or a callable, as ``Lambda`` / ``HybridLambda`` take
+    them: a name resolves to ``mx.nd.<name>`` (called ``F.<name>`` for a
+    HybridLambda)."""
+    from ... import ndarray as nd
+    if isinstance(function, str):
+        if not hasattr(nd, function):
+            raise ValueError('Function name %s is not found in ndarray.'
+                             % function)
+        op = getattr(nd, function)
+        return (op if eager else (lambda F, *a: op(*a))), function
+    if callable(function):
+        return function, getattr(function, '__name__', 'custom')
+    raise ValueError('Unrecognized function in lambda: %s of type %s'
+                     % (function, type(function)))
+
+
+class Lambda(Block):
+    """A function (or an ``nd`` op name) as a block, on NDArrays."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix)
+        self._func_impl, self._func_name = _nd_function(function, True)
+
+    def forward(self, *args):
+        from ..block import _unwrap, _wrap
+        return _unwrap(self._func_impl(*_wrap(args)))
+
+
+class HybridLambda(HybridBlock):
+    """A function ``f(F, x, *args)`` (or an op name) as a hybrid
+    block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix)
+        self._func, self._func_name = _nd_function(function, False)
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)

@@ -26,7 +26,7 @@ import torch
 
 from ...context import resolve_device
 from ...ops import nn as ops
-from ..block import Block
+from ..block import Block, training
 
 __all__ = ['RNN', 'LSTM', 'GRU']
 
@@ -126,7 +126,7 @@ class _RNNLayer(Block):
                       state_size=self._hidden_size,
                       num_layers=self._num_layers,
                       bidirectional=self._dir == 2, mode=self._mode,
-                      p=self._dropout if self.training else 0.0)
+                      p=self._dropout if training(self) else 0.0)
         outputs, states = out[0], list(out[1:])
         if self._layout == 'NTC':
             outputs = outputs.transpose(0, 1)

@@ -304,7 +304,7 @@ def _mlp_trainer(device, seed):
                      prefix='dense0_', device=device),
             nn.Dense(CLASSES, in_units=16, prefix='dense1_', device=device))
     with torch.no_grad():
-        for name, p in net.collect_params().items():
+        for name, p in net.collect_params().tensors().items():
             if name.endswith('weight'):
                 s = np.sqrt(6.0 / sum(p.shape))
                 p.copy_(torch.from_numpy(
@@ -357,7 +357,7 @@ def check_bit_identical(device):
             for _ in range(5):
                 pt.step(x, y)
             h = hashlib.sha256()
-            for name, p in sorted(net.collect_params().items()):
+            for name, p in sorted(net.collect_params().tensors().items()):
                 h.update(np.ascontiguousarray(
                     p.detach().cpu().numpy(), dtype='<f4').tobytes())
             return h.hexdigest()

@@ -159,3 +159,45 @@ def multibox_detection(cls_prob, loc_pred, anchor, clip=True,
                    valid_thresh=threshold, topk=nms_topk, coord_start=2,
                    score_index=1, id_index=0, background_id=-1,
                    force_suppress=force_suppress)
+
+
+# -- under their reference names (ops/registry.py) --------------------------
+
+from .registry import register as _register  # noqa: E402
+
+
+@_register('_contrib_box_iou', num_inputs=2)
+def _box_iou_op(lhs, rhs, *, format='corner'):
+    return box_iou(lhs, rhs, format=format)
+
+
+@_register('_contrib_box_nms', num_inputs=1, aliases=('_contrib_nms',))
+def _box_nms_op(data, *, overlap_thresh=0.5, valid_thresh=0.0, topk=-1,
+                coord_start=2, score_index=1, id_index=-1, background_id=-1,
+                force_suppress=False, in_format='corner',
+                out_format='corner'):
+    return box_nms(data, overlap_thresh=overlap_thresh,
+                   valid_thresh=valid_thresh, topk=topk,
+                   coord_start=coord_start, score_index=score_index,
+                   id_index=id_index, background_id=background_id,
+                   force_suppress=force_suppress, in_format=in_format)
+
+
+@_register('_contrib_MultiBoxPrior', num_inputs=1)
+def _multibox_prior_op(data, *, sizes=(1.0,), ratios=(1.0,), clip=False,
+                       steps=(-1.0, -1.0), offsets=(0.5, 0.5)):
+    return multibox_prior(data, sizes=sizes, ratios=ratios, clip=clip,
+                          steps=steps, offsets=offsets)
+
+
+@_register('_contrib_MultiBoxDetection', num_inputs=3)
+def _multibox_detection_op(cls_prob, loc_pred, anchor, *, clip=True,
+                           threshold=0.01, background_id=0,
+                           nms_threshold=0.5, force_suppress=False,
+                           variances=(0.1, 0.1, 0.2, 0.2), nms_topk=-1):
+    return multibox_detection(cls_prob, loc_pred, anchor, clip=clip,
+                              threshold=threshold,
+                              background_id=background_id,
+                              nms_threshold=nms_threshold,
+                              force_suppress=force_suppress,
+                              variances=variances, nms_topk=nms_topk)

@@ -1,7 +1,7 @@
 """Op bodies of the ported training paths, the counterpart of the ops of
 the same names in ``mxnet_tpu/ops/nn.py``.
 
-Only the ops BERT and ResNet v1 reach are here. Each keeps the JAX body's
+The ops of the ported paths are functions here, each in the JAX body's
 order of operations, so the CPU parity tests compare like with like:
 
   * :func:`fully_connected` (nn.py:29): ``x @ W^T`` then ``+ b``, W (out,
@@ -48,6 +48,13 @@ order of operations, so the CPU parity tests compare like with like:
 
 The kernel ops always go through ``ops/kernels``: the kernels on a CUDA
 tensor, their plain versions on a CPU tensor. There is no knob.
+
+At the end of the module these ops, and the rest of the reference's nn
+ops in plain torch (the output heads with their loss-gradient backward,
+the normalizations, the sequence ops, ``Deconvolution``, ``CTCLoss``,
+the spatial transformer, every kind of ``Pooling``), are registered under
+their reference names and signatures (``ops/registry.py``:
+``mx.nd.FullyConnected`` and the rest).
 
 AMP: each op recasts its inputs at entry by the active policy's class
 for the reference op name (``amp.cast_op_inputs``, as the JAX dispatch
@@ -280,10 +287,12 @@ class BatchNormTrainFunction(torch.autograd.Function):
     Forward: one-pass float32 statistics ``mean = E[x]``, ``var =
     max(E[x^2] - E[x]^2, 0)`` (biased), ``inv = rsqrt(var + eps)``, then
     the ``bn_act_fwd`` kernel with ``scale = inv * g``. Returns (out,
-    mean, var); mean and var are not differentiable (the layer reads them
-    under ``no_grad`` for its moving averages, so their cotangents are 0
-    in the JAX step too). Backward: the plain ``_bn_train_bwd`` math from
-    the saved (data, g, mean, inv)."""
+    mean, var). Backward: the plain ``_bn_train_bwd`` math from the saved
+    (data, g, mean, inv), with the mean / var cotangents' terms when they
+    have any (the ``BatchNorm`` op's outputs under ``mx.nd``); the layer
+    reads mean and var under ``no_grad`` for its moving averages, and
+    unused outputs bring no cotangent (``set_materialize_grads(False)``),
+    so its backward is the plain one."""
 
     @staticmethod
     def forward(ctx, data, g, beta, eps, ax):
@@ -301,18 +310,18 @@ class BatchNormTrainFunction(torch.autograd.Function):
                              axis=ax).to(data.dtype)
         ctx.save_for_backward(data, g, mean, inv)
         ctx.ax, ctx.m_count, ctx.beta_dtype = ax, m_count, beta.dtype
-        ctx.mark_non_differentiable(mean, var)
+        ctx.set_materialize_grads(False)
         return out, mean, var
 
     @staticmethod
-    def backward(ctx, dout, _dmean, _dvar):
+    def backward(ctx, dout, dmean, dvar):
         data, g, mean, inv = ctx.saved_tensors
         ax, m_count = ctx.ax, ctx.m_count
         red = tuple(i for i in range(data.dim()) if i != ax)
         shape = [1] * data.dim()
         shape[ax] = data.shape[ax]
         xf = data.float()
-        dyf = dout.float()
+        dyf = torch.zeros_like(xf) if dout is None else dout.float()
         sum_dy = torch.sum(dyf, dim=red)
         sum_dy_x = torch.sum(dyf * xf, dim=red)
         sum_dy_xhat = (sum_dy_x - mean * sum_dy) * inv
@@ -320,6 +329,12 @@ class BatchNormTrainFunction(torch.autograd.Function):
         scale = (g.float() * inv).reshape(shape)
         dx = scale * (dyf - (sum_dy / m_count).reshape(shape)
                       - xhat * (sum_dy_xhat / m_count).reshape(shape))
+        if dmean is not None or dvar is not None:
+            dm = torch.zeros_like(mean) if dmean is None else dmean.float()
+            dv = torch.zeros_like(mean) if dvar is None else dvar.float()
+            dx = dx + (dm / m_count).reshape(shape) \
+                + (2.0 / m_count) * dv.reshape(shape) \
+                * (xf - mean.reshape(shape))
         return (dx.to(data.dtype), sum_dy_xhat.to(g.dtype),
                 sum_dy.to(ctx.beta_dtype), None, None)
 
@@ -580,3 +595,506 @@ def rnn(data, parameters, state, state_cell=None, *, state_size,
     if mode == 'lstm':
         outputs += (torch.stack(out_c, dim=0),)
     return outputs
+
+
+def log_softmax(data, axis=-1, temperature=None):
+    """``x - max - log(sum(exp(x - max)))`` over ``axis``, as
+    ``jax.nn.log_softmax`` computes it."""
+    data, = _amp('log_softmax', data)
+    x = data if temperature in (None, 1.0) else data / temperature
+    ax = -1 if axis is None else int(axis)
+    shifted = x - torch.amax(x, dim=ax, keepdim=True)
+    return shifted - torch.log(torch.sum(torch.exp(shifted), dim=ax,
+                                         keepdim=True))
+
+
+# -- the ops above under their reference names, with the reference
+# signatures (``mx.nd.FullyConnected`` and the other generated wrappers,
+# ops/registry.py) -----------------------------------------------------------
+
+from ..base import torch_dtype as _torch_dtype  # noqa: E402
+from .registry import register as _register  # noqa: E402
+
+
+@_register('FullyConnected', num_inputs=-1)
+def _fully_connected_op(args, *, num_hidden=None, no_bias=False,
+                        flatten=True):
+    bias = None if no_bias or len(args) < 3 else args[2]
+    return fully_connected(args[0], args[1], bias, flatten=flatten)
+
+
+@_register('Convolution', num_inputs=-1)
+def _convolution_op(args, *, kernel=None, stride=None, dilate=None, pad=None,
+                    num_filter=None, num_group=1, workspace=1024,
+                    no_bias=False, cudnn_tune=None, cudnn_off=False,
+                    layout=None):
+    bias = None if no_bias or len(args) < 3 else args[2]
+    return convolution(args[0], args[1], bias,
+                       stride=stride if stride else 1,
+                       pad=pad if pad else 0,
+                       dilate=dilate if dilate else 1, num_group=num_group)
+
+
+@_register('Pooling', aliases=('Pooling_v1',))
+def _pooling_op(data, *, kernel=None, pool_type='max', global_pool=False,
+                cudnn_off=False, pooling_convention='valid', stride=None,
+                pad=None, p_value=2, count_include_pad=True, layout=None):
+    """The reference op: global max / sum / avg, or windows of
+    ``kernel`` at ``stride`` (1 by default, as the reference's) with
+    ``pad``; max windows through :func:`pooling`'s equality-rule
+    backward, sum and avg windows as a window sum (avg divided by the
+    window size, or by the count of unpadded positions)."""
+    if global_pool:
+        if pool_type == 'max':
+            return torch.amax(data, dim=(2, 3), keepdim=True)
+        if pool_type == 'sum':
+            return torch.sum(data, dim=(2, 3), keepdim=True)
+        return pooling(data, pool_type='avg', global_pool=True)
+    if pooling_convention != 'valid':
+        raise NotImplementedError('Pooling: pooling_convention=%r is not '
+                                  'ported' % (pooling_convention,))
+    k = _pair(kernel, 'kernel')
+    s = _pair(stride, 'stride') if stride else (1, 1)
+    p = _pair(pad, 'pad') if pad else (0, 0)
+    if pool_type == 'max':
+        return pooling(data, kernel=k, pool_type='max', stride=s, pad=p)
+    if pool_type not in ('avg', 'sum'):
+        raise NotImplementedError('Pooling: pool_type=%r is not ported'
+                                  % (pool_type,))
+    ssum = F.avg_pool2d(data, k, s, p, count_include_pad=True,
+                        divisor_override=1)
+    if pool_type == 'sum':
+        return ssum
+    if count_include_pad:
+        return ssum / float(k[0] * k[1])
+    cnt = F.avg_pool2d(torch.ones_like(data), k, s, p,
+                       count_include_pad=True, divisor_override=1)
+    return ssum / cnt
+
+
+@_register('Activation')
+def _activation_op(data, *, act_type='relu'):
+    return activation(data, act_type)
+
+
+@_register('LeakyReLU', num_inputs=-1)
+def _leaky_relu_op(args, *, act_type='leaky', slope=0.25, lower_bound=0.125,
+                   upper_bound=0.334):
+    return leaky_relu(args[0], act_type, slope)
+
+
+_register('_contrib_add_relu', num_inputs=2)(add_relu)
+
+
+@_register('_contrib_flash_attention', num_inputs=-1)
+def _flash_attention_op(args, *, num_heads, causal=False, scale=None):
+    return flash_attention_op(*args, num_heads=num_heads, causal=causal,
+                              scale=scale)
+
+
+@_register('softmax')
+def _softmax_op(data, *, axis=-1, temperature=None, dtype=None, length=None):
+    return softmax(data, axis, temperature)
+
+
+@_register('log_softmax')
+def _log_softmax_op(data, *, axis=-1, temperature=None, dtype=None):
+    return log_softmax(data, axis, temperature)
+
+
+_register('softmax_cross_entropy', num_inputs=2)(softmax_cross_entropy)
+_register('_contrib_fused_softmax_xent', num_inputs=2)(fused_softmax_xent)
+
+
+@_register('BatchNorm', num_inputs=5, num_outputs=3,
+           aliases=('BatchNorm_v1',))
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False,
+                   min_calib_range=None, max_calib_range=None,
+                   training=True):
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps=eps,
+                      fix_gamma=fix_gamma,
+                      use_global_stats=use_global_stats, axis=axis,
+                      training=training)
+
+
+@_register('LayerNorm', num_inputs=3, num_outputs=-1)
+def _layer_norm_op(data, gamma, beta, *, axis=-1, eps=1e-5,
+                   output_mean_var=False):
+    out = layer_norm(data, gamma, beta, axis=axis, eps=eps)
+    if not output_mean_var:
+        return out
+    ax = int(axis) % data.dim()
+    _, mean, inv = _ln_forward(data.detach(), gamma, beta, float(eps), ax)
+    return out, torch.squeeze(mean, dim=ax), torch.squeeze(1.0 / inv, dim=ax)
+
+
+@_register('Dropout', needs_rng=True)
+def _dropout_op(gen, data, *, p=0.5, mode='training', axes=None,
+                cudnn_off=False, training=True):
+    if axes:
+        raise NotImplementedError('Dropout: axes= (a broadcast mask) is not '
+                                  'ported')
+    return dropout(data, p, gen, training)
+
+
+@_register('Embedding', num_inputs=2,
+           aliases=('_contrib_SparseEmbedding',))
+def _embedding_op(data, weight, *, input_dim=None, output_dim=None,
+                  dtype='float32', sparse_grad=False):
+    return embedding(data, weight)
+
+
+@_register('RNN', num_inputs=-1)
+def _rnn_op(args, *, state_size=None, num_layers=1, bidirectional=False,
+            mode='lstm', p=0.0, state_outputs=True, projection_size=None,
+            lstm_state_clip_min=None, lstm_state_clip_max=None,
+            lstm_state_clip_nan=False, use_sequence_length=False):
+    return rnn(*args, state_size=state_size, num_layers=num_layers,
+               bidirectional=bidirectional, mode=mode, p=p,
+               state_outputs=state_outputs,
+               projection_size=projection_size,
+               lstm_state_clip_min=lstm_state_clip_min,
+               lstm_state_clip_max=lstm_state_clip_max,
+               lstm_state_clip_nan=lstm_state_clip_nan,
+               use_sequence_length=use_sequence_length)
+
+
+# -- the rest of the reference's nn ops, plain torch (none is a Pallas
+# kernel in the JAX package) ----------------------------------------------------
+
+def _jax_softmax(x, axis):
+    e = torch.exp(x - torch.amax(x, dim=axis, keepdim=True))
+    return e / torch.sum(e, dim=axis, keepdim=True)
+
+
+@_register('softmin')
+def _softmin_op(data, *, axis=-1, temperature=None, dtype=None):
+    x = -data if temperature in (None, 1.0) else -data / temperature
+    out = _jax_softmax(x, -1 if axis is None else int(axis))
+    return out if not dtype else out.to(_torch_dtype(dtype))
+
+
+@_register('SoftmaxActivation')
+def _softmax_activation_op(data, *, mode='instance'):
+    if mode == 'channel':
+        return _jax_softmax(data, 1)
+    return _jax_softmax(data.reshape(data.shape[0], -1), -1).reshape(
+        data.shape)
+
+
+class _LossHead(torch.autograd.Function):
+    """An output head whose backward is its loss's gradient, not the
+    derivative of its forward (``SoftmaxOutput``, the regression outputs,
+    ``SVMOutput``): ``forward`` returns ``out``, ``backward`` the
+    precomputed ``grad`` for the data and zeros for the label."""
+
+    @staticmethod
+    def forward(ctx, data, label, out, grad):
+        ctx.save_for_backward(grad)
+        ctx.label_shape = (label.shape, label.dtype, label.device)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grad, = ctx.saved_tensors
+        shape, dtype, device = ctx.label_shape
+        return grad, torch.zeros(shape, dtype=dtype, device=device), \
+            None, None
+
+
+def _onehot(lab, n, axis, dtype):
+    oh = F.one_hot(lab.to(torch.int64), n).to(dtype)
+    return torch.movedim(oh, -1, axis) if axis not in (-1, oh.dim() - 1) \
+        else oh
+
+
+@_register('SoftmaxOutput', num_inputs=2, aliases=('Softmax',))
+def _softmax_output_op(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                       multi_output=False, use_ignore=False,
+                       preserve_shape=False, normalization='null',
+                       out_grad=False, smooth_alpha=0.0):
+    """Softmax forward; backward ``(softmax - onehot(label)) * scale``
+    (``softmax_output.cc``), ignored labels masked, ``normalization``
+    'valid' / 'batch' dividing the scale."""
+    axis = 1 if multi_output else -1
+    with torch.no_grad():
+        out = _jax_softmax(data, axis)
+        lab = label.to(torch.int32)
+        grad = out - _onehot(torch.clamp(lab, min=0), out.shape[axis], axis,
+                             out.dtype)
+        valid = torch.ones(lab.shape, dtype=out.dtype, device=out.device)
+        if use_ignore:
+            valid = (lab != int(ignore_label)).to(out.dtype)
+            grad = grad * (valid.unsqueeze(axis) if multi_output
+                           else valid[..., None])
+        scale = float(grad_scale)
+        if normalization == 'valid':
+            scale = scale / torch.clamp(valid.sum(), min=1.0)
+        elif normalization == 'batch':
+            scale = scale / lab.shape[0]
+        grad = (grad * scale).to(out.dtype)
+    return _LossHead.apply(data, label, out, grad)
+
+
+def _regression(link, grad_fn, name):
+    @_register(name, num_inputs=2)
+    def _op(data, label, *, grad_scale=1.0):
+        lab = label.reshape(data.shape)
+        with torch.no_grad():
+            out = link(data)
+            num = 1
+            for s in out.shape[1:]:
+                num *= s
+            grad = (grad_fn(out, lab) * (float(grad_scale) / num)).to(
+                out.dtype)
+        return _LossHead.apply(data, label, out, grad)
+    return _op
+
+
+_regression(lambda x: x, lambda o, l: o - l, 'LinearRegressionOutput')
+_regression(lambda x: x, lambda o, l: torch.sign(o - l),
+            'MAERegressionOutput')
+_regression(torch.sigmoid, lambda o, l: o - l, 'LogisticRegressionOutput')
+
+
+@_register('SVMOutput', num_inputs=2)
+def _svm_output_op(data, label, *, margin=1.0, regularization_coefficient=1.0,
+                   use_linear=False):
+    with torch.no_grad():
+        y = 2 * F.one_hot(label.to(torch.int64), data.shape[-1]).to(
+            data.dtype) - 1
+        viol = (margin - y * data) > 0
+        if use_linear:
+            grad = torch.where(viol, -y * regularization_coefficient,
+                               torch.zeros_like(data))
+        else:
+            grad = torch.where(viol, -2 * (margin - y * data) * y
+                               * regularization_coefficient,
+                               torch.zeros_like(data))
+    return _LossHead.apply(data, label, data.detach().clone(), grad)
+
+
+@_register('InstanceNorm', num_inputs=3)
+def _instance_norm_op(data, gamma, beta, *, eps=1e-3):
+    red = tuple(range(2, data.dim()))
+    mean = torch.mean(data, dim=red, keepdim=True)
+    var = torch.mean(torch.square(data - mean), dim=red, keepdim=True)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@_register('L2Normalization')
+def _l2_normalization_op(data, *, eps=1e-10, mode='instance'):
+    if mode == 'instance':
+        red = tuple(range(1, data.dim()))
+    elif mode == 'channel':
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    nrm = torch.sqrt(torch.sum(torch.square(data), dim=red, keepdim=True)
+                     + eps)
+    return data / nrm
+
+
+@_register('LRN')
+def _lrn_op(data, *, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    sq = torch.square(data)
+    half = int(nsize) // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    acc = padded[:, 0:data.shape[1]]
+    for i in range(1, int(nsize)):
+        acc = acc + padded[:, i:i + data.shape[1]]
+    return data / torch.pow(knorm + alpha / nsize * acc, beta)
+
+
+def _seq_mask(lengths, maxlen, dtype):
+    t = torch.arange(maxlen, dtype=torch.float32,
+                     device=lengths.device)[:, None]
+    return (t < lengths.to(torch.float32)[None, :]).to(dtype)
+
+
+@_register('SequenceMask', num_inputs=-1)
+def _sequence_mask_op(args, *, use_sequence_length=False, value=0.0, axis=0):
+    data = args[0]
+    if not use_sequence_length:
+        return data
+    ax = int(axis)
+    mask = _seq_mask(args[1], data.shape[ax], data.dtype)
+    if ax == 1:
+        mask = mask.t()
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return data * mask + value * (1 - mask)
+
+
+@_register('SequenceLast', num_inputs=-1)
+def _sequence_last_op(args, *, use_sequence_length=False, axis=0):
+    data = args[0]
+    ax = int(axis)
+    if not use_sequence_length:
+        return torch.select(data, ax, data.shape[ax] - 1)
+    idx = torch.clamp(args[1].to(torch.int64) - 1, 0, data.shape[ax] - 1)
+    moved = torch.movedim(data, ax, 0)
+    idx = idx.reshape((1, -1) + (1,) * (moved.dim() - 2)).expand(
+        (1,) + tuple(moved.shape[1:]))
+    return torch.gather(moved, 0, idx)[0]
+
+
+@_register('SequenceReverse', num_inputs=-1)
+def _sequence_reverse_op(args, *, use_sequence_length=False, axis=0):
+    data = args[0]
+    if not use_sequence_length:
+        return torch.flip(data, dims=(0,))
+    lens = args[1].to(torch.int64)[None, :]
+    t = torch.arange(data.shape[0], device=data.device)[:, None]
+    src = torch.where(t < lens, lens - 1 - t, t)
+    src = src.reshape((data.shape[0], -1) + (1,) * (data.dim() - 2))
+    return torch.gather(data, 0, src.expand(data.shape))
+
+
+@_register('UpSampling', num_inputs=-1, key_var_num_args='num_args')
+def _upsampling_op(args, *, scale=1, sample_type='nearest', num_args=1,
+                   num_filter=0, multi_input_mode='concat', workspace=512):
+    s = int(scale)
+    outs = []
+    for data in args:
+        if sample_type == 'nearest':
+            out = torch.repeat_interleave(
+                torch.repeat_interleave(data, s, dim=2), s, dim=3)
+        else:
+            out = F.interpolate(data, scale_factor=s, mode='bilinear',
+                                align_corners=False)
+        outs.append(out)
+    if len(outs) == 1:
+        return outs[0]
+    if multi_input_mode == 'sum':
+        total = outs[0]
+        for o in outs[1:]:
+            total = total + o
+        return total
+    return torch.cat(outs, dim=1)
+
+
+@_register('CTCLoss', num_inputs=-1, aliases=(
+    'ctc_loss', '_contrib_CTCLoss', '_contrib_ctc_loss'))
+def _ctc_loss_op(args, *, use_data_lengths=False, use_label_lengths=False,
+                 blank_label='first'):
+    """CTC negative log likelihood per batch row: data (T, B, C)
+    unnormalized activations, label (B, L) padded with 0 (lengths from
+    the non-zero labels unless given)."""
+    data, label = args[0], args[1]
+    t, b, c = data.shape
+    i = 2
+    if use_data_lengths:
+        data_len = args[i].to(torch.int64)
+        i += 1
+    else:
+        data_len = torch.full((b,), t, dtype=torch.int64)
+    lab = label.to(torch.int64)
+    label_len = args[i].to(torch.int64) if use_label_lengths \
+        else torch.sum(lab != 0, dim=-1)
+    logp = torch.log_softmax(data.float(), dim=-1)
+    blank = 0 if blank_label == 'first' else c - 1
+    return F.ctc_loss(logp, lab, data_len.cpu(), label_len.cpu(),
+                      blank=blank, reduction='none').to(data.dtype)
+
+
+@_register('_contrib_SyncBatchNorm', num_inputs=5, num_outputs=3)
+def _sync_batch_norm_op(data, gamma, beta, moving_mean, moving_var, *,
+                        eps=1e-3, momentum=0.9, fix_gamma=True,
+                        use_global_stats=False, output_mean_var=False,
+                        ndev=1, key=None, training=False, axis=1):
+    """BatchNorm: on one device the batch is the global batch."""
+    return _batch_norm_op(data, gamma, beta, moving_mean, moving_var,
+                          eps=eps, momentum=momentum, fix_gamma=fix_gamma,
+                          use_global_stats=use_global_stats,
+                          output_mean_var=output_mean_var, axis=axis,
+                          training=training)
+
+
+@_register('IdentityAttachKLSparseReg')
+def _identity_attach_kl_sparse_reg_op(data, *, sparseness_target=0.1,
+                                      penalty=0.001, momentum=0.9):
+    return data
+
+
+def _tup(v, n, default):
+    if v is None or (isinstance(v, (tuple, list)) and len(v) == 0):
+        return (default,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(int(a) for a in v)
+
+
+@_register('Deconvolution', num_inputs=-1)
+def _deconvolution_op(args, *, kernel=None, stride=None, dilate=None,
+                      pad=None, adj=None, target_shape=None, num_filter=None,
+                      num_group=1, workspace=512, no_bias=True,
+                      cudnn_tune=None, cudnn_off=False, layout=None):
+    """Transposed convolution with the (in, out / groups, *kernel) weight
+    layout: ``conv_transpose`` with ``pad`` and the output padding
+    ``adj``."""
+    data, weight = args[0], args[1]
+    nd_ = len(kernel)
+    fn = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+          3: F.conv_transpose3d}[nd_]
+    bias = args[2] if not no_bias and len(args) > 2 else None
+    return fn(data, weight, bias, stride=_tup(stride, nd_, 1),
+              padding=_tup(pad, nd_, 0), output_padding=_tup(adj, nd_, 0),
+              groups=int(num_group), dilation=_tup(dilate, nd_, 1))
+
+
+@_register('GridGenerator')
+def _grid_generator_op(data, *, transform_type='affine', target_shape=None):
+    h, w = int(target_shape[0]), int(target_shape[1])
+    if transform_type != 'affine':
+        return data                    # warp: data is the flow field
+    n = data.shape[0]
+    theta = data.reshape(n, 2, 3)
+    ys = torch.linspace(-1, 1, h, dtype=data.dtype, device=data.device)
+    xs = torch.linspace(-1, 1, w, dtype=data.dtype, device=data.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing='ij')
+    grid = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                        torch.ones_like(gx).reshape(-1)], dim=0)
+    return torch.einsum('nij,jk->nik', theta, grid).reshape(n, 2, h, w)
+
+
+@_register('BilinearSampler', num_inputs=2)
+def _bilinear_sampler_op(data, grid, *, cudnn_off=False):
+    """Bilinear sampling of ``data`` at the normalized (x, y) of ``grid``,
+    zero outside the image."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1) * (w - 1) / 2
+    gy = (grid[:, 1] + 1) * (h - 1) / 2
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    x1, y1 = x0 + 1, y0 + 1
+    wx1 = gx - x0
+    wx0 = 1 - wx1
+    wy1 = gy - y0
+    wy0 = 1 - wy1
+    flat = data.reshape(n, c, h * w)
+
+    def sample(xi, yi):
+        xc = torch.clamp(xi, 0, w - 1).to(torch.int64)
+        yc = torch.clamp(yi, 0, h - 1).to(torch.int64)
+        valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        idx = (yc * w + xc).reshape(n, 1, -1).expand(n, c, -1)
+        got = torch.gather(flat, 2, idx).reshape((n, c) + tuple(gx.shape[1:]))
+        return got * valid[:, None].to(data.dtype)
+
+    out = (sample(x0, y0) * (wx0 * wy0)[:, None]
+           + sample(x1, y0) * (wx1 * wy0)[:, None]
+           + sample(x0, y1) * (wx0 * wy1)[:, None]
+           + sample(x1, y1) * (wx1 * wy1)[:, None])
+    return out.to(data.dtype)
+
+
+@_register('SpatialTransformer', num_inputs=2)
+def _spatial_transformer_op(data, loc, *, target_shape=None,
+                            transform_type='affine', sampler_type='bilinear',
+                            cudnn_off=False):
+    grid = _grid_generator_op(loc, transform_type=transform_type,
+                              target_shape=target_shape)
+    return _bilinear_sampler_op(data, grid)

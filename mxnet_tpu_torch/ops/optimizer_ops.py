@@ -211,3 +211,238 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, *, lr, momentum=0.0,
     weight32.add_(mom)
     weight.copy_(weight32)
     return weight, mom, weight32
+
+
+# -- under their reference names (``mx.nd.sgd_update`` ...,
+# ops/registry.py): the eager frontend writes the outputs back into the
+# inputs at ``mutate_idx``, which these in-place bodies already updated --
+
+from .registry import register as _register  # noqa: E402
+
+
+@_register('sgd_update', num_inputs=2, mutate_idx=(0,))
+def _sgd_update_op(weight, grad, *, lr=None, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0, lazy_update=False):
+    return sgd_update(weight, grad, lr=lr, wd=wd, rescale_grad=rescale_grad,
+                      clip_gradient=clip_gradient)
+
+
+@_register('sgd_mom_update', num_inputs=3, num_outputs=2, mutate_idx=(0, 2))
+def _sgd_mom_update_op(weight, grad, mom, *, lr=None, momentum=0.0, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0,
+                       lazy_update=False):
+    return sgd_mom_update(weight, grad, mom, lr=lr, momentum=momentum, wd=wd,
+                          rescale_grad=rescale_grad,
+                          clip_gradient=clip_gradient)
+
+
+@_register('mp_sgd_update', num_inputs=3, num_outputs=2, mutate_idx=(0, 2))
+def _mp_sgd_update_op(weight, grad, weight32, *, lr=None, wd=0.0,
+                      rescale_grad=1.0, clip_gradient=-1.0,
+                      lazy_update=False):
+    return mp_sgd_update(weight, grad, weight32, lr=lr, wd=wd,
+                         rescale_grad=rescale_grad,
+                         clip_gradient=clip_gradient)
+
+
+@_register('mp_sgd_mom_update', num_inputs=4, num_outputs=3,
+           mutate_idx=(0, 2, 3))
+def _mp_sgd_mom_update_op(weight, grad, mom, weight32, *, lr=None,
+                          momentum=0.0, wd=0.0, rescale_grad=1.0,
+                          clip_gradient=-1.0, lazy_update=False):
+    return mp_sgd_mom_update(weight, grad, mom, weight32, lr=lr,
+                             momentum=momentum, wd=wd,
+                             rescale_grad=rescale_grad,
+                             clip_gradient=clip_gradient)
+
+
+@_register('_adamw_update', num_inputs=5, num_outputs=3, mutate_idx=(0, 2, 3),
+           aliases=('_contrib_adamw_update',))
+def _adamw_update_op(weight, grad, mean, var, rescale_grad_t, *, lr=None,
+                     beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0, eta=1.0,
+                     clip_gradient=-1.0):
+    return adamw_update(weight, grad, mean, var, rescale_grad_t, lr=lr,
+                        beta1=beta1, beta2=beta2, epsilon=epsilon, wd=wd,
+                        eta=eta, clip_gradient=clip_gradient)
+
+
+@_register('_mp_adamw_update', num_inputs=6, num_outputs=4,
+           mutate_idx=(0, 2, 3, 4), aliases=('_contrib_mp_adamw_update',))
+def _mp_adamw_update_op(weight, grad, mean, var, weight32, rescale_grad_t, *,
+                        lr=None, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                        wd=0.0, eta=1.0, clip_gradient=-1.0):
+    return mp_adamw_update(weight, grad, mean, var, weight32, rescale_grad_t,
+                           lr=lr, beta1=beta1, beta2=beta2, epsilon=epsilon,
+                           wd=wd, eta=eta, clip_gradient=clip_gradient)
+
+
+# -- the reference's other update ops, functional as the JAX ones (the
+# frontend writes each output back into its input at ``mutate_idx``):
+# the port's optimizers do not run them (no kernel covers them) --------
+
+def _rescale_wd_clip(grad, rescale_grad, clip_gradient, wd, weight):
+    """``clip(rescale * grad + wd * weight)``: the Adam family's order,
+    wd folded in before the clip."""
+    g = grad * rescale_grad
+    if wd != 0.0 and weight is not None:
+        g = g + wd * weight
+    if clip_gradient is not None and clip_gradient > 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return g
+
+
+def _clip_only(grad, rescale_grad, clip_gradient):
+    g = grad * rescale_grad
+    if clip_gradient is not None and clip_gradient > 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return g
+
+
+@_register('signsgd_update', num_inputs=2, mutate_idx=(0,))
+def _signsgd_update_op(weight, grad, *, lr=None, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0):
+    g = _clip_only(grad, rescale_grad, clip_gradient)
+    return weight - lr * (torch.sign(g) + wd * weight)
+
+
+@_register('signum_update', num_inputs=3, num_outputs=2, mutate_idx=(0, 2))
+def _signum_update_op(weight, grad, mom, *, lr=None, momentum=0.0, wd=0.0,
+                      rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
+    g = _rescale_clip(grad, rescale_grad, clip_gradient, wd, weight)
+    new_mom = momentum * mom - (1 - momentum) * g
+    return (1 - lr * wd_lh) * weight + lr * torch.sign(new_mom), new_mom
+
+
+@_register('adam_update', num_inputs=4, num_outputs=3, mutate_idx=(0, 2, 3))
+def _adam_update_op(weight, grad, mean, var, *, lr=None, beta1=0.9,
+                    beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                    clip_gradient=-1.0, lazy_update=False):
+    g = _rescale_wd_clip(grad, rescale_grad, clip_gradient, wd, weight)
+    m = beta1 * mean + (1 - beta1) * g
+    v = beta2 * var + (1 - beta2) * torch.square(g)
+    return weight - lr * m / (torch.sqrt(v) + epsilon), m, v
+
+
+@_register('ftml_update', num_inputs=5, num_outputs=4,
+           mutate_idx=(0, 2, 3, 4))
+def _ftml_update_op(weight, grad, d, v, z, *, lr=None, beta1=0.6,
+                    beta2=0.999, epsilon=1e-8, t=1, wd=0.0, rescale_grad=1.0,
+                    clip_grad=-1.0):
+    g = _rescale_wd_clip(grad, rescale_grad, clip_grad, wd, weight)
+    v_t = beta2 * v + (1 - beta2) * torch.square(g)
+    d_t = (1 - beta1 ** t) / lr * (torch.sqrt(v_t / (1 - beta2 ** t))
+                                   + epsilon)
+    sigma_t = d_t - beta1 * d
+    z_t = beta1 * z + (1 - beta1) * g - sigma_t * weight
+    return -z_t / d_t, d_t, v_t, z_t
+
+
+@_register('rmsprop_update', num_inputs=3, num_outputs=2, mutate_idx=(0, 2))
+def _rmsprop_update_op(weight, grad, n, *, lr=None, gamma1=0.95,
+                       epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0, clip_weights=-1.0):
+    g = _rescale_wd_clip(grad, rescale_grad, clip_gradient, wd, weight)
+    n_t = gamma1 * n + (1 - gamma1) * torch.square(g)
+    w = weight - lr * g / torch.sqrt(n_t + epsilon)
+    if clip_weights is not None and clip_weights > 0:
+        w = torch.clamp(w, -clip_weights, clip_weights)
+    return w, n_t
+
+
+@_register('rmspropalex_update', num_inputs=5, num_outputs=4,
+           mutate_idx=(0, 2, 3, 4))
+def _rmspropalex_update_op(weight, grad, n, g_acc, delta, *, lr=None,
+                           gamma1=0.95, gamma2=0.9, epsilon=1e-8, wd=0.0,
+                           rescale_grad=1.0, clip_gradient=-1.0,
+                           clip_weights=-1.0):
+    g = _rescale_wd_clip(grad, rescale_grad, clip_gradient, wd, weight)
+    n_t = gamma1 * n + (1 - gamma1) * torch.square(g)
+    g_t = gamma1 * g_acc + (1 - gamma1) * g
+    delta_t = gamma2 * delta - lr * g / torch.sqrt(n_t - torch.square(g_t)
+                                                   + epsilon)
+    w = weight + delta_t
+    if clip_weights is not None and clip_weights > 0:
+        w = torch.clamp(w, -clip_weights, clip_weights)
+    return w, n_t, g_t, delta_t
+
+
+@_register('ftrl_update', num_inputs=4, num_outputs=3, mutate_idx=(0, 2, 3))
+def _ftrl_update_op(weight, grad, z, n, *, lr=None, lamda1=0.01, beta=1.0,
+                    wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    g = _clip_only(grad, rescale_grad, clip_gradient)
+    n_t = n + torch.square(g)
+    sigma = (torch.sqrt(n_t) - torch.sqrt(n)) / lr
+    z_t = z + g - sigma * weight
+    w = torch.where(torch.abs(z_t) > lamda1,
+                    -(z_t - torch.sign(z_t) * lamda1)
+                    / ((beta + torch.sqrt(n_t)) / lr + wd),
+                    torch.zeros_like(z_t))
+    return w, z_t, n_t
+
+
+@_register('_sparse_adagrad_update', num_inputs=3, num_outputs=2,
+           mutate_idx=(0, 2), aliases=('adagrad_update',))
+def _adagrad_update_op(weight, grad, history, *, lr=None, epsilon=1e-7,
+                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    g = _clip_only(grad, rescale_grad, clip_gradient)
+    h = history + torch.square(g)
+    return weight - lr * (g / torch.sqrt(h + epsilon) + wd * weight), h
+
+
+@_register('_contrib_group_adagrad_update', num_inputs=3, num_outputs=2,
+           mutate_idx=(0, 2))
+def _group_adagrad_update_op(weight, grad, history, *, lr=None, epsilon=1e-5,
+                             rescale_grad=1.0, clip_gradient=-1.0):
+    g = _clip_only(grad, rescale_grad, clip_gradient)
+    if g.dim() > 1:
+        h = history + torch.mean(torch.square(g),
+                                 dim=tuple(range(1, g.dim())), keepdim=True)
+    else:
+        h = history + torch.square(g)
+    return weight - lr * g / (torch.sqrt(h) + epsilon), h
+
+
+def _multi(args, n, per, fn):
+    outs = []
+    for i in range(int(n)):
+        res = fn(i, [a.clone() for a in args[i * per:(i + 1) * per]])
+        outs.extend(res if isinstance(res, tuple) else (res,))
+    return tuple(outs)
+
+
+@_register('multi_sgd_update', num_inputs=-1, num_outputs=-1,
+           key_var_num_args='num_weights')
+def _multi_sgd_update_op(args, *, num_weights=None, lrs=None, wds=None,
+                         rescale_grad=1.0, clip_gradient=-1.0):
+    return _multi(args, num_weights, 2, lambda i, g: sgd_update(
+        g[0], g[1], lr=lrs[i], wd=wds[i], rescale_grad=rescale_grad,
+        clip_gradient=clip_gradient))
+
+
+@_register('multi_sgd_mom_update', num_inputs=-1, num_outputs=-1,
+           key_var_num_args='num_weights')
+def _multi_sgd_mom_update_op(args, *, num_weights=None, lrs=None, wds=None,
+                             momentum=0.0, rescale_grad=1.0,
+                             clip_gradient=-1.0):
+    return _multi(args, num_weights, 3, lambda i, g: sgd_mom_update(
+        g[0], g[1], g[2], lr=lrs[i], wd=wds[i], momentum=momentum,
+        rescale_grad=rescale_grad, clip_gradient=clip_gradient))
+
+
+@_register('multi_mp_sgd_update', num_inputs=-1, num_outputs=-1,
+           key_var_num_args='num_weights')
+def _multi_mp_sgd_update_op(args, *, num_weights=None, lrs=None, wds=None,
+                            rescale_grad=1.0, clip_gradient=-1.0):
+    return _multi(args, num_weights, 3, lambda i, g: mp_sgd_update(
+        g[0], g[1], g[2], lr=lrs[i], wd=wds[i], rescale_grad=rescale_grad,
+        clip_gradient=clip_gradient))
+
+
+@_register('multi_mp_sgd_mom_update', num_inputs=-1, num_outputs=-1,
+           key_var_num_args='num_weights')
+def _multi_mp_sgd_mom_update_op(args, *, num_weights=None, lrs=None,
+                                wds=None, momentum=0.0, rescale_grad=1.0,
+                                clip_gradient=-1.0):
+    return _multi(args, num_weights, 4, lambda i, g: mp_sgd_mom_update(
+        g[0], g[1], g[2], g[3], lr=lrs[i], wd=wds[i], momentum=momentum,
+        rescale_grad=rescale_grad, clip_gradient=clip_gradient))

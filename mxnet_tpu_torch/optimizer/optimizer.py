@@ -1,4 +1,4 @@
-"""Optimizer base, SGD and AdamW, the counterpart of
+"""Optimizer base, SGD, Adam and AdamW, the counterpart of
 ``mxnet_tpu/optimizer/optimizer.py``.
 
 Ported: the ``Optimizer`` bookkeeping (optimizer.py:78-257) -- per-index
@@ -14,10 +14,14 @@ weight's dtype) and ``update_multi_precision`` (SGD: ``mp_sgd_update`` /
 with the widened gradient, as the reference does, which is
 ``mp_adamw_update``). Without ``multi_precision`` a bf16 weight keeps
 bf16 state and the ops round as the reference's traced update does
-(``ops/optimizer_ops.py``). The JAX
-package's learning-rate schedulers, symbol attributes and ``param_dict``
-have no counterpart yet (no caller of the port needs them; there is no
-symbolic API in the port).
+(``ops/optimizer_ops.py``). ``Adam`` (:440-461) is the plain update the
+CPU runs; the whole-model update kernel has no rule for it, so a card
+refuses it (``FusedUpdateError``). ``lr_scheduler`` (read at the
+optimizer's ``num_update``) and ``param_dict`` (index -> gluon
+``Parameter``, whose ``lr_mult`` / ``wd_mult`` win over the tables, as
+the gluon Trainer passes it) are the reference's; so are ``Updater`` and
+``get_updater``, whose pickled states ``Trainer.save_states`` writes.
+There is no symbolic API in the port, so no symbol attributes.
 
 Weight decay reaches every parameter, under SGD as under AdamW:
 ``set_wd_mult`` gives names not ending in ``_weight`` a multiplier of 0,
@@ -28,6 +32,7 @@ package: BatchNorm gamma / beta and conv biases decay too.
 """
 from __future__ import annotations
 
+import pickle
 import warnings
 
 import torch
@@ -35,8 +40,8 @@ import torch
 from ..ops.optimizer_ops import (adamw_update, mp_sgd_mom_update,
                                  mp_sgd_update, sgd_mom_update, sgd_update)
 
-__all__ = ['Optimizer', 'SGD', 'AdamW', 'register', 'create',
-           'opt_registry']
+__all__ = ['Optimizer', 'SGD', 'Adam', 'AdamW', 'register', 'create',
+           'opt_registry', 'Updater', 'get_updater']
 
 opt_registry = {}
 
@@ -74,11 +79,16 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1., param_idx2name=None, wd=0.,
                  clip_gradient=None, learning_rate=0.01,
-                 multi_precision=False):
+                 multi_precision=False, lr_scheduler=None, param_dict=None,
+                 begin_num_update=0):
         self.rescale_grad, self.clip_gradient = rescale_grad, clip_gradient
         self.lr, self.wd = learning_rate, wd
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
+        self.param_dict = dict(param_dict or {})
         self.multi_precision = multi_precision
-        self.num_update = 0
+        self.num_update = begin_num_update
         self._index_update_count = {}
         if param_idx2name is None:
             param_idx2name = {}
@@ -89,9 +99,30 @@ class Optimizer:
         self.set_lr_mult({})
         self.set_wd_mult({})
 
+    @property
+    def learning_rate(self):
+        """The lr of the next update: the scheduler's at ``num_update``, or
+        the base lr."""
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
+
+    def __getstate__(self):
+        # the gluon Parameters stay out of a pickled optimizer (the
+        # Trainer's save_states): the trainer sets them again on load
+        state = dict(self.__dict__)
+        state['param_dict'] = {}
+        return state
+
     def set_learning_rate(self, lr):
-        """The base learning rate from the next update on (the port has no
-        lr scheduler to refuse it, ``optimizer.py:178-185``)."""
+        """The base learning rate from the next update on; refused under a
+        scheduler, as ``optimizer.py:178-185`` does."""
+        if self.lr_scheduler is not None:
+            raise UserWarning('LRScheduler of the optimizer has already '
+                              'been defined. Note that set_learning_rate '
+                              'can mutate the value of the learning rate '
+                              'of the optimizer only when the LRScheduler '
+                              'of the optimizer is undefined.')
         self.lr = lr
 
     def create_state(self, index, weight):
@@ -154,7 +185,11 @@ class Optimizer:
             self.num_update = max(bumped, self.num_update)
 
     def _mult_of(self, index, table):
-        """Per-param multiplier: explicit index beats name lookup."""
+        """Per-param multiplier: the gluon Parameter's (``param_dict``)
+        beats an explicit index, which beats the name lookup."""
+        if index in self.param_dict:
+            attr = 'lr_mult' if table is self.lr_mult else 'wd_mult'
+            return getattr(self.param_dict[index], attr)
         if index in table:
             return table[index]
         if index in self.idx2name:
@@ -162,7 +197,9 @@ class Optimizer:
         return 1.0
 
     def _get_lr(self, index):
-        return self.lr * self._mult_of(index, self.lr_mult)
+        base = self.lr if self.lr_scheduler is None \
+            else self.lr_scheduler(self.num_update)
+        return base * self._mult_of(index, self.lr_mult)
 
     def _get_wd(self, index):
         return self.wd * self._mult_of(index, self.wd_mult)
@@ -225,6 +262,34 @@ class _AdamFamily(Optimizer):
 
 
 @register
+class Adam(_AdamFamily):
+    """Adam: ``g = clip(rescale * grad + wd * w)``, ``m = beta1 m + (1 -
+    beta1) g``, ``v = beta2 v + (1 - beta2) g^2``, ``w -= eta * m /
+    (sqrt(v) + eps)`` with ``eta`` the bias-corrected lr (``adam_update``,
+    optimizer_ops.py:125-136). Plain torch: no kernel covers it."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, beta1=beta1,
+                         beta2=beta2, epsilon=epsilon, **kwargs)
+        self.lazy_update = lazy_update
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        lr = self._bias_corrected(lr, self._step_of(index))
+        mean, var = state
+        g = grad * self.rescale_grad
+        if wd != 0.0:
+            g = g + wd * weight
+        if self.clip_gradient is not None and self.clip_gradient > 0:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        mean.copy_(self.beta1 * mean + (1 - self.beta1) * g)
+        var.copy_(self.beta2 * var + (1 - self.beta2) * torch.square(g))
+        weight.copy_(weight - lr * mean / (torch.sqrt(var) + self.epsilon))
+
+
+@register
 class AdamW(_AdamFamily):
     """AdamW with decoupled weight decay scaled by the bias-corrected
     step: ``w -= eta * (m / (sqrt(v) + eps) + wd * w)`` with
@@ -239,3 +304,43 @@ class AdamW(_AdamFamily):
                      eta=eta, wd=wd, clip_gradient=self.clip_gradient,
                      beta1=self.beta1, beta2=self.beta2,
                      epsilon=self.epsilon)
+
+
+class Updater:
+    """Per-index optimizer state, made on first use, applied as (index,
+    grad, weight) triples arrive (``Updater``, optimizer.py:701-752);
+    ``get_states`` / ``set_states`` pickle the states (and the
+    optimizer)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def state_for(self, idx, weight):
+        if idx not in self.states:
+            self.states[idx] = \
+                self.optimizer.create_state_multi_precision(idx, weight)
+        return self.states[idx]
+
+    def __call__(self, index, grad, weight):
+        triples = zip(index, grad, weight) if isinstance(
+            index, (list, tuple)) else [(index, grad, weight)]
+        for idx, g, w in triples:
+            self.optimizer.update_multi_precision(idx, w, g,
+                                                  self.state_for(idx, w))
+
+    def set_states(self, states):
+        payload = pickle.loads(states)
+        if isinstance(payload, tuple) and len(payload) == 2:
+            self.states, self.optimizer = payload
+        else:
+            self.states = payload
+
+    def get_states(self, dump_optimizer=False):
+        return pickle.dumps((self.states, self.optimizer) if dump_optimizer
+                            else self.states)
+
+
+def get_updater(optimizer):
+    """Wrap an optimizer as an :class:`Updater`."""
+    return Updater(optimizer)

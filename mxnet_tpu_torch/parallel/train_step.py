@@ -130,6 +130,7 @@ import numpy as np
 import torch
 
 from .. import amp as _amp
+from .. import autograd as _autograd
 from .. import config as _config
 from .. import observability as _obs
 from .. import profiler as _profiler
@@ -355,7 +356,7 @@ class ParallelTrainer:
         return sum(p is not None for p in self._programs.values())
 
     def _build(self):
-        named = list(self._net.collect_params().items())
+        named = list(self._net.collect_params().tensors().items())
         opt = self._opt
         if not opt.idx2name:
             opt.idx2name = {i: n for i, (n, _) in enumerate(named)}
@@ -405,11 +406,11 @@ class ParallelTrainer:
     # -- the step's bodies ---------------------------------------------------
 
     def _forward_backward(self, xs, ys):
-        """Forward in training mode, ``mean(loss)``, backward; the
-        gradients accumulate into ``.grad``. Returns the loss."""
+        """Forward in training mode (``autograd.train_mode()``, which the
+        gluon layers read), ``mean(loss)``, backward; the gradients
+        accumulate into ``.grad``. Returns the loss."""
         net = self._net
-        net.train(True)
-        try:
+        with _autograd.train_mode():
             with _amp.scope(self._amp_policy):
                 outs = _as_list(net(*xs))
                 if isinstance(self._loss, torch.nn.Module):
@@ -421,8 +422,6 @@ class ParallelTrainer:
                 # the mean sums in float32 whatever the loss's dtype
                 loss = loss.to(torch.float32)
             loss = torch.mean(loss)
-        finally:
-            net.train(False)
         loss.backward()
         return loss.detach()
 

@@ -64,7 +64,7 @@ def _net_and_loss(device):
                      prefix='dense0_', device=device),
             nn.Dense(CLASSES, in_units=32, prefix='dense1_', device=device))
     with torch.no_grad():
-        for name, p in net.collect_params().items():
+        for name, p in net.collect_params().tensors().items():
             if name.endswith('weight'):
                 s = np.sqrt(6.0 / sum(p.shape))
                 p.copy_(torch.from_numpy(
@@ -89,7 +89,7 @@ def _param_hash(net):
     order: equal hashes, bit-identical parameters."""
     import numpy as np
     h = hashlib.sha256()
-    for name, p in sorted(net.collect_params().items()):
+    for name, p in sorted(net.collect_params().tensors().items()):
         h.update(name.encode())
         h.update(np.ascontiguousarray(p.detach().cpu().numpy(),
                                       dtype='<f4').tobytes())

@@ -208,7 +208,7 @@ class FrozenProgram:
                 'cannot save %s: its block (%s) carries no zoo stamp, and %s'
                 % (self.name, type(self.block).__name__, _SYMBOLIC))
         table = {}
-        for key, p in self._host_block.collect_params().items():
+        for key, p in self._host_block.collect_params().tensors().items():
             if p.dtype != torch.float32:
                 raise TypeError('cannot save %s: parameter %s is %s, the '
                                 'artifact holds float32' % (self.name, key,
@@ -270,7 +270,7 @@ class FrozenProgram:
                     os.path.join(path, 'symbol.json')) else '', _SYMBOLIC))
         device = resolve_device(device)
         host = build(stamp, 'cpu')
-        params = host.collect_params()
+        params = host.collect_params().tensors()
         with onp.load(os.path.join(path, 'params.npz')) as z:
             arrays = {key.partition(':')[2]: z[key] for key in z.files}
         if sorted(arrays) != sorted(params):
@@ -285,7 +285,7 @@ class FrozenProgram:
             t1 = time.perf_counter()
             if device.type != 'cpu':
                 block = build(stamp, device)
-                for key, p in block.collect_params().items():
+                for key, p in block.collect_params().tensors().items():
                     p.copy_(params[key])
         host.train(False)
         block.train(False)

@@ -318,6 +318,15 @@ def _draining_body(raw):
                  or doc.get('status') == 'draining'))
 
 
+def _relay_budget(resp, seconds):
+    """Give the rest of a spliced stream the gateway's own read budget.
+    The handoff timeout bounds the hop (the POST, the import, the first
+    byte); left on the socket, a decode replica's pause between two
+    tokens longer than it would end the relay mid-stream. ``resp`` is
+    urllib's response over a plain HTTP socket."""
+    resp.fp.raw._sock.settimeout(seconds)
+
+
 def _probe_jitter_frac(url):
     """Deterministic per-replica jitter in [0, 1): a hash of the URL,
     so the same fleet gets the same stagger every restart (replayable
@@ -1321,6 +1330,7 @@ class ServingGateway:
                                 seconds=round(dt, 6),
                                 tokens=relayed)
                             handoff_live = False
+                            _relay_budget(resp, gw.timeout_s)
                         else:
                             spliced += 1
                             gw._bump('migrated_streams')

@@ -269,7 +269,7 @@ def test_amp_step0_gradients_match_jax(ref):
     with port_amp.scope(port_amp.bf16()):
         loss = _port_loss_fn()(net(*xs), ys)
     loss.backward()
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     for n, want in ref['grads'].items():
         p = mine[_short(n)]
         got = np.zeros_like(want) if p.grad is None else p.grad.numpy()
@@ -306,13 +306,13 @@ def test_bf16_trajectory_tracks_float32():
     """The port's bf16 against its float32 over 10 AdamW steps on the same
     data and weights: within bf16 tolerance, both learning."""
     weights = _weights([(n, tuple(p.shape)) for n, p in port_bert.get_bert(
-        device='cpu', **CFG).collect_params().items()])
+        device='cpu', **CFG).collect_params().tensors().items()])
     xs, ys = _inputs()
     runs = {}
     for amp in ('off', 'bf16'):
         net = port_bert.get_bert(device='cpu', **CFG)
         with torch.no_grad():
-            for n, p in net.collect_params().items():
+            for n, p in net.collect_params().tensors().items():
                 p.copy_(torch.from_numpy(weights[n]))
         pt = port_parallel.ParallelTrainer(net, _port_loss_fn(), 'adamw',
                                            dict(HYPER), amp=amp)
@@ -328,7 +328,7 @@ def _todays_steps(net, xs, ys, n):
     forward in training mode, mean loss, backward, AdamW per parameter."""
     from mxnet_tpu_torch.optimizer import optimizer as optmod
     opt = optmod.create('adamw', **HYPER)
-    named = list(net.collect_params().items())
+    named = list(net.collect_params().tensors().items())
     opt.idx2name = {i: k for i, (k, _) in enumerate(named)}
     params = [(i, p) for i, (_, p) in enumerate(named) if p.requires_grad]
     states = [opt.create_state(i, p.detach()) for i, p in params]
@@ -364,8 +364,8 @@ def test_amp_off_is_bitwise_todays_path(ref, monkeypatch, amp):
                                        dict(HYPER), amp=amp)
     assert pt.amp == 'off'
     assert [pt.step(xs, ys).item() for _ in range(STEPS)] == want
-    theirs = want_net.collect_params()
-    for n, p in net.collect_params().items():
+    theirs = want_net.collect_params().tensors()
+    for n, p in net.collect_params().tensors().items():
         assert torch.equal(p, theirs[n]), n
 
 

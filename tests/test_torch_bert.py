@@ -145,7 +145,7 @@ def _inputs():
 
 def test_every_jax_parameter_maps_to_one_port_parameter(ref):
     net = _port_net(ref)
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     jax_names = sorted(ref['weights'])
     assert all(n.startswith('bertmodel') for n in jax_names)
     assert sorted(_short(n) for n in jax_names) == sorted(mine)
@@ -185,7 +185,7 @@ def test_step0_gradients_match_jax(ref):
     loss = _port_loss_fn()(net(*xs), ys)
     loss.backward()
     assert abs(loss.item() - ref['loss']) <= LOSS_REL * abs(ref['loss'])
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     for n, want in ref['grads'].items():
         p = mine[_short(n)]
         got = np.zeros_like(want) if p.grad is None else p.grad.numpy()
@@ -206,7 +206,7 @@ def test_three_adamw_steps_match_jax(ref):
     np.testing.assert_allclose(losses, ref['losses'], rtol=LOSS_REL, atol=0)
     assert losses[-1] < losses[0]
     assert pt.num_update == STEPS and pt.learning_rate == 1e-3
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     for n, want in ref['after'].items():
         got = mine[_short(n)].detach().numpy()
         if n.endswith('attn_qkv_bias'):

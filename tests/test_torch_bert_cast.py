@@ -201,7 +201,7 @@ def _inputs():
 
 
 def test_cast_parameters_equal_jax_bitwise(ref):
-    mine = _port_net(ref).collect_params()
+    mine = _port_net(ref).collect_params().tensors()
     theirs = ref['bf16']['params']
     assert sorted(mine) == sorted(theirs)
     for n, want in theirs.items():
@@ -231,7 +231,7 @@ def test_loss_and_step0_gradients_match_jax(ref):
     assert loss.dtype == BF and want['loss_dtype'] == 'bfloat16'
     np.testing.assert_allclose(loss.float().item(), want['loss'],
                                rtol=LOSS_RTOL)
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     names = sorted(want['grads'])
     got = {}
     for n in names:

@@ -204,7 +204,7 @@ def _nd(batch):
 
 
 def _port_params(net):
-    return [p.detach().numpy().copy() for p in net.collect_params().values()]
+    return [p.detach().numpy().copy() for p in net.collect_params().tensors().values()]
 
 
 def _jax_params(net):

@@ -336,7 +336,7 @@ def _lists():
     bert = port_bert.bert_12_768_12(vocab_size=30522, max_length=512,
                                     dropout=0.1, device='cpu')
     rn = port_resnet.get_resnet(1, 50, device='cpu')
-    return {name: [p.numel() for p in net.collect_params().values()
+    return {name: [p.numel() for p in net.collect_params().tensors().values()
                    if p.requires_grad]
             for name, net in (('bert', bert), ('resnet', rn))}
 

@@ -283,6 +283,56 @@ def test_lost_done_line_after_the_last_token_finishes_from_the_journal(
         b.close()
 
 
+class _PausingHandler(tg._FakeHandler):
+    """The reference's fake replica, whose ``/import`` stream stops for
+    ``ctl['pause_s']`` seconds after its ``ctl['pause_after']``-th
+    token."""
+
+    def _chunk(self, obj):
+        super()._chunk(obj)
+        ctl = self.server.ctl
+        if 'token' in obj and self.path.rstrip('/') == '/import':
+            ctl['sent'] = ctl.get('sent', 0) + 1
+            if ctl['sent'] == ctl.get('pause_after'):
+                time.sleep(ctl['pause_s'])
+
+
+def test_spliced_stream_outlives_the_handoff_timeout():
+    """The handoff timeout bounds the hop to the decode replica (the
+    POST, the import, the first byte), not the gaps of its stream after
+    the splice: a decode replica that pauses longer than that timeout
+    between two tokens still finishes the client's stream, with no
+    resume. The JAX package's gateway keeps the hop's timeout on the
+    spliced socket; its read then times out, and the relay ends as if the
+    client had gone, with no done line (a keep-alive client waits out its
+    own budget). The port does not copy that."""
+    prefill, decode = _FAKE(), _FAKE()
+    decode._httpd.RequestHandlerClass = _PausingHandler
+    decode.ctl.update(pause_after=3, pause_s=3.0)
+    gw = port_gw.ServingGateway([(prefill.url, 'prefill'),
+                                 (decode.url, 'decode')], port=0,
+                                health_period_s=30.0, timeout_s=10.0,
+                                resume=True, resume_max=2, affinity=True,
+                                handoff_timeout_s=1.5,
+                                handoff_retries=2).start()
+    try:
+        r = _READ(gw.port, {'tokens': tg._PROMPT, 'max_new_tokens': 8,
+                            'stream': True}, timeout=HTTP_S)
+        assert r['error'] is None and r['status'] == 200
+        assert r['tokens'] == tg._expected_tokens(tg._PROMPT, 8)
+        assert r['indices'] == list(range(8))
+        assert r['done']['finish_reason'] == 'length'
+        assert 'resumed' not in r['done']
+        st = gw.stats()
+        assert st['handoff'] == {'spliced': 1, 'retries': 0,
+                                 'fallbacks': 0}
+        assert st['resumes'] == 0
+    finally:
+        gw.stop()
+        prefill.close()
+        decode.close()
+
+
 def test_pure_functions_agree():
     """The routing and admission primitives give the reference's values,
     step for step."""

@@ -387,7 +387,7 @@ def test_bert_gradients_match_jax_at_head_dim(ref):
     loss = _pretrain_loss(port_loss.SoftmaxCrossEntropyLoss())(net(*xs), ys)
     loss.backward()
     assert abs(loss.item() - ref['loss']) <= LOSS_REL * abs(ref['loss'])
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     for n, want in ref['grads'].items():
         p = mine[_short(n)]
         got = np.zeros_like(want) if p.grad is None else p.grad.numpy()
@@ -404,7 +404,7 @@ def test_bert_three_adamw_steps_match_jax_at_head_dim(ref):
     losses = [pt.step(xs, ys).item() for _ in range(STEPS)]
     np.testing.assert_allclose(losses, ref['losses'], rtol=LOSS_REL, atol=0)
     assert losses[-1] < losses[0]
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     step = 2 * STEPS * HYPER['learning_rate']
     for n, want in ref['after'].items():
         got = mine[_short(n)].detach().numpy()

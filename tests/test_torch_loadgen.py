@@ -17,6 +17,7 @@ layers, serving the same ``/generate`` tokens and ``/predict`` outputs
 import json
 import random
 import threading
+import time
 import urllib.request
 from unittest import mock
 
@@ -532,6 +533,23 @@ def test_rig_serves_the_references():
             port.close()
 
 
+def _settled_stats(rig, budget_s=10.0):
+    """``rig.server_stats()`` once its engine has retired every request
+    and released its adapter pins, waiting at most ``budget_s``. A stream
+    ends (its done line written) before the engine retires the sequence
+    and unpins its adapter row, so a read right after the response can
+    see the request still active and its row still pinned."""
+    deadline = time.monotonic() + budget_s
+    while True:
+        st = rig.server_stats()
+        gen = st['generate']
+        if (gen['pending'] == 0 and gen['active'] == 0
+                and gen.get('adapters', {}).get('pinned', 0) == 0) \
+                or time.monotonic() > deadline:
+            return st
+        time.sleep(0.01)
+
+
 def test_server_stats_keys_are_the_references():
     """``server_stats()`` reads the same engine and batcher keys in both
     packages, the adapter pool's among them."""
@@ -545,7 +563,7 @@ def test_server_stats_keys_are_the_references():
                             'adapter': 'ad1'})
         _ndjson(ref.port, {'tokens': [1, 2, 3], 'max_new_tokens': 2,
                            'adapter': 'ad1'})
-        got, want = port.server_stats(), ref.server_stats()
+        got, want = _settled_stats(port), _settled_stats(ref)
         assert got.keys() == want.keys()
         assert got['generate'].keys() == want['generate'].keys()
         assert got['generate']['adapters'] == want['generate']['adapters']

@@ -437,7 +437,7 @@ def _seeded(net, seed=0):
     from 0 / 1 so that a swap would show."""
     rs = np.random.RandomState(seed)
     with torch.no_grad():
-        for name, p in sorted(net.collect_params().items()):
+        for name, p in sorted(net.collect_params().tensors().items()):
             if name.endswith('running_var'):
                 p.copy_(torch.from_numpy(
                     (0.5 + rs.rand(*p.shape)).astype('float32')))

@@ -293,7 +293,7 @@ def test_trainer_step_records_the_fused_train_step_span(clean, tmp_path):
     net = nn.HybridSequential()
     net.add(nn.Dense(4, in_units=6, prefix='dense0_', device='cpu'))
     with torch.no_grad():
-        net.collect_params()['dense0_weight'].copy_(torch.ones(4, 6))
+        net.collect_params().tensors()['dense0_weight'].copy_(torch.ones(4, 6))
     pt = parallel.ParallelTrainer(net, loss.SoftmaxCrossEntropyLoss(), 'sgd',
                                   {'learning_rate': 0.1})
     x, y = torch.ones(3, 6), torch.zeros(3)

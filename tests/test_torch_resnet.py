@@ -162,7 +162,7 @@ def _inputs():
 
 def test_every_jax_parameter_maps_to_one_port_parameter(ref):
     net = _port_net(ref)
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     jax_names = sorted(ref['weights'])
     assert all(n.startswith('resnetv1') for n in jax_names)
     assert sorted(_short(n) for n in jax_names) == sorted(mine)
@@ -192,7 +192,7 @@ def test_inference_logits_match_jax(ref):
     for n, w in ref['weights'].items():
         if n.endswith('running_var'):
             np.testing.assert_array_equal(
-                net.collect_params()[_short(n)].numpy(), w)
+                net.collect_params().tensors()[_short(n)].numpy(), w)
     # CPU tensors take the plain versions: no kernel launch counted
     assert not any(kernels.launch_counts().values())
 
@@ -209,7 +209,7 @@ def test_step0_gradients_and_running_stats_match_jax(ref):
     np.testing.assert_allclose(logits.detach().numpy(), want, rtol=0,
                                atol=TRAIN_FWD_REL * np.abs(want).max())
     assert abs(loss.item() - ref['loss']) <= LOSS_REL * abs(ref['loss'])
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     largest = max(float(np.abs(g).max()) for g in ref['grads'].values())
     for n, want in ref['grads'].items():
         got = mine[_short(n)].grad.numpy()
@@ -235,7 +235,7 @@ def test_three_sgd_steps_match_jax(ref):
     losses = [pt.step(x, y).item() for _ in range(STEPS)]
     np.testing.assert_allclose(losses, ref['losses'], rtol=LOSS_REL, atol=0)
     assert pt.num_update == STEPS and pt.learning_rate == 0.001
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     for n, want in ref['after'].items():
         np.testing.assert_allclose(mine[_short(n)].detach().numpy(), want,
                                    rtol=0, atol=PARAM_TOL, err_msg=n)
@@ -304,7 +304,7 @@ def full_ref():
 
 def test_resnet50_v1_names_shapes_and_forward_match_jax(full_ref):
     net = port_resnet.resnet50_v1(device='cpu')
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     weights = full_ref['weights']
     assert len(mine) == len(weights) == 299
     assert sorted(_short(n) for n in weights) == sorted(mine)
@@ -326,8 +326,8 @@ def test_init_params_is_seeded_xavier():
     net = port_resnet.ResNetV1(port_resnet.BottleneckV1, LAYERS, CHANNELS,
                                classes=CLASSES, device='cpu')
     a = {n: p.detach().clone()
-         for n, p in port_resnet.init_params(net, 0).collect_params().items()}
-    b = port_resnet.init_params(net, 0).collect_params()
+         for n, p in port_resnet.init_params(net, 0).collect_params().tensors().items()}
+    b = port_resnet.init_params(net, 0).collect_params().tensors()
     assert all(torch.equal(a[n], b[n]) for n in a)
     w = a['stage1_conv1_weight']              # (4, 4, 3, 3)
     bound = np.sqrt(3.0 / ((4 * 9 + 4 * 9) / 2.0))

@@ -388,16 +388,16 @@ def test_cast_keeps_batchnorm_float32_and_statistics_update_in_float32():
     net.add(dense, bn)
     with torch.no_grad():
         dense.weight.copy_(torch.randn(8, 5))
-    before = {n: id(p) for n, p in net.collect_params().items()}
+    before = {n: id(p) for n, p in net.collect_params().tensors().items()}
     w32 = dense.weight.detach().clone()
     assert net.cast('bfloat16') is net
-    dtypes = {n: p.dtype for n, p in net.collect_params().items()}
+    dtypes = {n: p.dtype for n, p in net.collect_params().tensors().items()}
     assert dtypes == {'dense_weight': BF, 'dense_bias': BF,
                       'batchnorm_gamma': torch.float32,
                       'batchnorm_beta': torch.float32,
                       'batchnorm_running_mean': torch.float32,
                       'batchnorm_running_var': torch.float32}
-    assert {n: id(p) for n, p in net.collect_params().items()} == before
+    assert {n: id(p) for n, p in net.collect_params().tensors().items()} == before
     assert torch.equal(dense.weight, w32.to(BF))
     assert dense.weight.requires_grad
     assert not bn.running_var.requires_grad
@@ -544,7 +544,7 @@ def test_cast_parameters_equal_jax_bitwise(ref, route):
     dtype (BatchNorm float32, the rest bf16); route A keeps float32
     masters."""
     net, _, _ = _port_route(route, ref['weights'])
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     assert sorted(mine) == sorted(ref[route]['params'])
     for n, want in ref[route]['params'].items():
         assert mine[n].dtype == want.dtype, n
@@ -594,7 +594,7 @@ def test_loss_and_step0_gradients_match_jax(ref, route):
     assert loss.dtype == (torch.float32 if route == 'amp' else BF)
     np.testing.assert_allclose(loss.float().item(), want['loss'],
                                rtol=LOSS_RTOL)
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     for n in want['grads']:
         assert str(mine[n].grad.dtype).replace('torch.', '') \
             == want['grad_dtypes'][n], n
@@ -616,7 +616,7 @@ def test_three_sgd_steps_match_jax(ref, route):
     state is float32 masters and momentum under ``multi_precision`` or
     amp, bf16 momentum (beside BatchNorm's float32) without."""
     net, x, y = _port_route(route, ref['weights'])
-    dtypes = {n: p.dtype for n, p in net.collect_params().items()}
+    dtypes = {n: p.dtype for n, p in net.collect_params().tensors().items()}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         pt = port_parallel.ParallelTrainer(
@@ -625,7 +625,7 @@ def test_three_sgd_steps_match_jax(ref, route):
         losses = [pt.step(x, y).float().item() for _ in range(STEPS)]
     np.testing.assert_allclose(losses, ref[route]['losses'],
                                rtol=TRAJ_RTOL, atol=0)
-    assert {n: p.dtype for n, p in net.collect_params().items()} == dtypes
+    assert {n: p.dtype for n, p in net.collect_params().tensors().items()} == dtypes
     states = set()
     for s in pt._states:
         for t in (s if isinstance(s, tuple) else (s,)):
@@ -646,7 +646,7 @@ def test_bf16_trajectory_tracks_float32(route):
                         port_resnet.ResNetV1(
                             port_resnet.BottleneckV1, LAYERS, CHANNELS,
                             classes=CLASSES, device='cpu')
-                        .collect_params().items()])
+                        .collect_params().tensors().items()])
     runs = {}
     for r in ('f32', route):
         net, x, y = _port_route('amp' if r == 'f32' else r, weights)
@@ -667,7 +667,7 @@ def _todays_steps(net, x, y, n):
     low-precision protocol: ``create_state`` and ``update`` for every
     parameter that takes a gradient."""
     opt = port_optmod.create('sgd', **HYPER)
-    named = list(net.collect_params().items())
+    named = list(net.collect_params().tensors().items())
     opt.idx2name = {i: k for i, (k, _) in enumerate(named)}
     params = [(i, p) for i, (_, p) in enumerate(named) if p.requires_grad]
     states = [opt.create_state(i, p.detach()) for i, p in params]
@@ -702,6 +702,6 @@ def test_amp_off_is_bitwise_todays_float32_path(ref, monkeypatch, amp):
         amp=amp)
     assert pt.amp == 'off'
     assert [pt.step(x, y).item() for _ in range(STEPS)] == want
-    theirs = want_net.collect_params()
-    for n, p in net.collect_params().items():
+    theirs = want_net.collect_params().tensors()
+    for n, p in net.collect_params().tensors().items():
         assert torch.equal(p, theirs[n]), n

@@ -56,11 +56,11 @@ def _batch(batch, image):
 def _port_losses(x, y, steps, perturb=0.0):
     net = port_resnet.init_params(port_resnet.resnet50_v1(device='cpu'), 0)
     weights = {n: p.detach().numpy().copy()
-               for n, p in net.collect_params().items()}
+               for n, p in net.collect_params().tensors().items()}
     if perturb:
         gen = torch.Generator().manual_seed(3)
         with torch.no_grad():
-            for p in net.collect_params().values():
+            for p in net.collect_params().tensors().values():
                 if p.requires_grad and p.dim() > 1:
                     p.mul_(1 + perturb * torch.randn(p.shape, generator=gen))
     pt = port_parallel.ParallelTrainer(

@@ -168,7 +168,7 @@ def _t(arrays):
 def _hold_bert(net, want, steps, lr=HYPER['learning_rate']):
     """Parameters against the JAX package's at the BERT tier, the key
     bias held to the steps' size."""
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     u = CFG['units']
     for n, w in want.items():
         got = mine[n.split('_', 1)[1]].detach().numpy()
@@ -203,7 +203,7 @@ def test_step_n_is_bitwise_n_steps():
     batches equals n steps, losses and parameters bit for bit."""
     X, Y = _bert_batches(N)
     w = _weights([(n, tuple(p.shape)) for n, p in port_bert.get_bert(
-        device='cpu', **CFG).collect_params().items()])
+        device='cpu', **CFG).collect_params().tensors().items()])
     w = {'bertmodel0_' + n: v for n, v in w.items()}
     runs = []
     for window in (True, False):
@@ -216,7 +216,7 @@ def test_step_n_is_bitwise_n_steps():
                                           _t([a[k] for a in Y]))
                                   for k in range(N)])
         runs.append((losses, [p.detach().clone()
-                              for p in net.collect_params().values()],
+                              for p in net.collect_params().tensors().values()],
                      pt.num_update))
     assert torch.equal(runs[0][0], runs[1][0])
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
@@ -252,7 +252,7 @@ def test_step_accum_matches_jax_and_one_full_batch_step(bert_ref):
     snap = pt.snapshot()
     one = pt.step(xa, ya).item()
     params_one = {n: p.detach().clone()
-                  for n, p in net.collect_params().items()}
+                  for n, p in net.collect_params().tensors().items()}
     pt.restore(snap)
     acc = pt.step_accum(xa, ya, 2).item()
     assert pt.num_update == bert_ref['acc_updates'] == 1
@@ -262,7 +262,7 @@ def test_step_accum_matches_jax_and_one_full_batch_step(bert_ref):
     # the reference's bar against one step on the full batch
     assert abs(one - acc) < 1e-5
     u = CFG['units']
-    for n, p in net.collect_params().items():
+    for n, p in net.collect_params().tensors().items():
         got, want = p.detach().numpy(), params_one[n].numpy()
         if n.endswith('attn_qkv_bias'):
             np.testing.assert_allclose(got[u:2 * u], want[u:2 * u], rtol=0,
@@ -320,7 +320,7 @@ def test_resnet_step_n_matches_jax_and_snapshot_rewinds(resnet_ref):
     losses = pt.step_n(torch.tensor(X), torch.tensor(Y))
     np.testing.assert_allclose(losses.numpy(), resnet_ref['losses'],
                                rtol=RN_LOSS_REL, atol=0)
-    mine = net.collect_params()
+    mine = net.collect_params().tensors()
     for n, want in resnet_ref['after'].items():
         np.testing.assert_allclose(mine[n.split('_', 1)[1]].detach().numpy(),
                                    want, rtol=0, atol=RN_PARAM_TOL,

@@ -193,7 +193,7 @@ def _scenario(name, weights, root):
         params = [p.data().asnumpy() for p in net.collect_params().values()]
     else:
         losses = [float(l) for l in losses]
-        params = [p.detach().numpy() for p in net.collect_params().values()]
+        params = [p.detach().numpy() for p in net.collect_params().tensors().values()]
     return (_delta(before, _series(obs)), _events(obs, ckpt), losses,
             params, pt.num_update)
 
