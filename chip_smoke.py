@@ -111,19 +111,24 @@ Phases, in order; any failure exits non-zero:
      30522, where the xent forward's cluster instance is also timed at 1,
      2, 4 and 8 CTAs a row on bf16 logits and on them widened, in
      turns). Then the whole-model optimizer update (row 17): every rule
-     (SGD, SGD + momentum, AdamW, with rescale, an lr and a wd
-     multiplier, and a clip that clamps at least a fifth of the
-     gradient) in every form (float32; bf16 without a master; bf16 with
-     float32 masters) through the trainer's ``FusedUpdate`` against its
-     plain version, the per-parameter loop of
-     ``update_multi_precision``, bitwise (weights, states, masters,
-     update counts) over 3 steps, with one launch of the form's instance
-     a step, at odd lengths (a misaligned view, a parameter without a
-     gradient) and at BERT-base's and ResNet-50's parameter lists; then
-     timed at the pairs the trainer phases run (BERT-base with AdamW in
-     every form, ResNet-50 with SGD + momentum in float32 and bf16)
-     beside its bound, the plain loop and the ``_foreach_`` chain of the
-     same expressions (not one call). Then the sampler's noise kernel
+     (one for each fusable optimizer: SGD, NAG and DCASGD without and
+     with momentum, AdamW, Adam, signsgd, signum, FTML, AdaGrad, RMSProp
+     plain and centered, AdaDelta, Ftrl, Adamax, Test; with rescale, an
+     lr and a wd multiplier, and a clip that clamps at least a fifth of
+     the gradient) in its forms (float32; bf16 with float32 masters;
+     bf16 without a master for SGD's and AdamW's rules) through the
+     trainer's ``FusedUpdate`` against its plain version, the
+     per-parameter loop of ``update_multi_precision``, bitwise (weights,
+     states, masters, update counts; bit patterns, so Adamax's 0 / 0 on
+     the parameter without a gradient is held too) over 3 steps, with
+     one launch of the form's instance a step counted under its rule, at
+     odd lengths (a misaligned view, a parameter without a gradient) and
+     at BERT-base's and ResNet-50's parameter lists; then timed at the
+     pairs the trainer phases run (BERT-base with AdamW in every form,
+     ResNet-50 with SGD + momentum in float32 and bf16, Adam at both
+     lists and with masters) and at every rule in float32 at BERT-base's
+     list, beside its bound, the plain loop and the ``_foreach_`` chain
+     of the same expressions (not one call). Then the sampler's noise kernel
      (row 18, ``threefry_gumbel``) against its plain version at the
      step's 8 x 30522 keys and draws, the verify's 32 rows, a prefill's
      one and odd widths (1, 255, 257, 1000): the uniforms (its bits
@@ -439,7 +444,12 @@ Phases, in order; any failure exits non-zero:
      its replays); at 4b's and 4d's configurations a captured trainer
      and its eager twin (``capture = False``), both under deterministic
      algorithms, take 12 steps that must agree bit for bit, losses and
-     every parameter. 4e: at the small BERT, ``step_n`` over 12 copies
+     every parameter. 4n: 4b's configuration with Adam in place of AdamW
+     (row 17's ``adam`` rule, its lr bias-corrected each step through
+     the captured step's columns), 2 + 5 steps: one ``adam`` launch a
+     step, the first loss equal to 4b's, the losses finite and falling;
+     its captured steps and their eager twins agree bit for bit (7
+     steps, deterministic algorithms). 4e: at the small BERT, ``step_n`` over 12 copies
      of the batch bit for bit 12 steps (dropout 0.1), ``build`` /
      ``snapshot`` / ``restore`` and ``step_accum(x, y, 2)`` within 1e-5
      of one full-batch step with ``num_update`` 1 (eager, captured and
@@ -528,6 +538,21 @@ Phases, in order; any failure exits non-zero:
      -m mxnet_tpu_torch.observability`` (8 legs ok), ``python -m
      mxnet_tpu_torch.resilience --train`` uninterrupted, preempted (rc 75)
      and restarted (the same ``param_hash``), and ``--watchdog-smoke``;
+     5h: the reference's DCGAN (``examples/dc_gan.py``'s loop) at the
+     upstream example's widths (example/gluon/dc_gan/dcgan.py: nz 100,
+     ngf = ndf = 64, 3 x 64 x 64 synthetic blobs from seed 0, batch 64;
+     ``Conv2DTranspose`` / ``BatchNorm`` / relu / tanh G, ``Conv2D`` /
+     ``BatchNorm`` / ``LeakyReLU(0.2)`` D, ``Normal(0.02)``, two
+     ``gluon.Trainer('adam', lr 2e-4, beta1 0.5)``): its first iteration
+     against the same on the CPU from the same weights, data and noise
+     (errD / errG within 1e-4 relative, every gradient within 1e-5 of
+     its tensor's largest |g|, the weights after the two Adam steps
+     within 1e-4 of its largest |w| but the elements whose gradient lies
+     within 1e-5 of that of zero, counted: Adam's first step is about lr
+     sign(g)); then 2 + 20 iterations, their launches exactly one
+     ``adam`` update a trainer, the act kernels for each LeakyReLU /
+     relu / tanh and the BN apply for each BatchNorm an iteration;
+     losses finite; ms an iteration, images/s, peak memory;
   6. the SSD detection serving slice. The nms kernel against its plain
      version on the card, keep masks bitwise equal: 16 x 7378 boxes
      class-aware at topk 400, 2 x 7378 class-agnostic with every box
@@ -619,6 +644,7 @@ SPEC_ACCEPTANCE = 0.9      # tests/test_paged_decode.py's bar
 TRAIN = dict(batch=96, seq=128, preds=20, vocab=30522, heads=12, d=64)
 TRAIN_HYPER = {'learning_rate': 1e-4, 'wd': 0.01}
 TRAIN_WARMUP, TRAIN_ITERS = 2, 10
+ADAM_WARMUP, ADAM_ITERS = 2, 5          # phase 4n
 SMALL_BERT = dict(vocab_size=1000, max_length=128, units=256,
                   hidden_size=1024, num_layers=2, num_heads=4, dropout=0.0)
 SMALL_BATCH = dict(batch=4, seq=128, preds=8, lengths=(128, 97, 64, 1))
@@ -2347,28 +2373,54 @@ def time_bf16_rows(torch, kernels, batch=RESNET['batch'],
 # 8192 and one more, a tail; tensor 3 a view 4 bytes off 16 (no vector
 # loads), tensor 2 never given a gradient (it reads zeros)
 ODD_LENGTHS = (1, 7, 9, 8, 4097, 8192, 8193, 20001)
-# each rule with clip, rescale, an lr and a wd multiplier; AdamW at the
-# bench's lr and wd. fused_grads draws 0.01 x N(0, 1) gradients, so the
-# rescaled ones have a standard deviation near 3.7e-3 and the clip at
-# 3e-3 clamps about 40 % of the elements in every rule and form
+# each rule with clip, rescale, an lr and a wd multiplier; AdamW and Adam
+# at the bench's lr and wd. fused_grads draws 0.01 x N(0, 1) gradients,
+# so the rescaled ones have a standard deviation near 3.7e-3 and the clip
+# at 3e-3 clamps about 40 % of the elements in every rule and form (Test
+# has no clip)
 FUSED_CLIP = 3e-3
+_CLIPPED = dict(clip_gradient=FUSED_CLIP, rescale_grad=0.37)
 FUSED_HYPER = {
-    'sgd': dict(learning_rate=0.1, wd=1e-4, clip_gradient=FUSED_CLIP,
-                rescale_grad=0.37),
-    'sgd_mom': dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
-                    clip_gradient=FUSED_CLIP, rescale_grad=0.37),
-    'adamw': dict(learning_rate=1e-4, wd=0.01, clip_gradient=FUSED_CLIP,
-                  rescale_grad=0.37)}
+    'sgd': dict(learning_rate=0.1, wd=1e-4, **_CLIPPED),
+    'sgd_mom': dict(learning_rate=0.1, momentum=0.9, wd=1e-4, **_CLIPPED),
+    'adamw': dict(learning_rate=1e-4, wd=0.01, **_CLIPPED),
+    'adam': dict(learning_rate=1e-4, wd=0.01, **_CLIPPED),
+    'nag': dict(learning_rate=0.1, wd=1e-4, **_CLIPPED),
+    'nag_mom': dict(learning_rate=0.1, momentum=0.9, wd=1e-4, **_CLIPPED),
+    'signsgd': dict(learning_rate=0.01, momentum=0.0, wd=1e-4, **_CLIPPED),
+    'signum': dict(learning_rate=0.01, momentum=0.9, wd=1e-4, wd_lh=1e-3,
+                   **_CLIPPED),
+    'ftml': dict(learning_rate=0.0025, wd=1e-4, **_CLIPPED),
+    'dcasgd': dict(learning_rate=0.1, wd=1e-4, **_CLIPPED),
+    'dcasgd_mom': dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                       **_CLIPPED),
+    'adagrad': dict(learning_rate=0.01, wd=1e-4, **_CLIPPED),
+    'rmsprop': dict(learning_rate=1e-3, wd=1e-4, clip_weights=2.0,
+                    **_CLIPPED),
+    'rmspropalex': dict(learning_rate=1e-3, wd=1e-4, centered=True,
+                        clip_weights=2.0, **_CLIPPED),
+    'adadelta': dict(wd=1e-4, **_CLIPPED),
+    'ftrl': dict(learning_rate=0.1, wd=1e-4, lamda1=0.01, **_CLIPPED),
+    'adamax': dict(learning_rate=0.002, wd=1e-4, **_CLIPPED),
+    'test': dict(rescale_grad=0.37)}
+# the optimizer each rule is (the rest: its own name)
+RULE_OPTIMIZER = {'sgd_mom': 'sgd', 'nag_mom': 'nag', 'signsgd': 'signum',
+                  'dcasgd_mom': 'dcasgd', 'rmspropalex': 'rmsprop'}
 # the least share of gradient elements the check must see clamped
 FUSED_CLAMPED = 0.2
 FUSED_STEPS = 3
 # (list, rule, form) timed: the pairs the trainer phases run, BERT-base
 # with AdamW in float32 (4b, 4c), .bf16 (4d) and .mp (4d-mp), ResNet-50
 # with SGD + momentum in float32 (5b, 5d; 5e's BatchNorm parameters) and
-# .bf16 (5e)
-FUSED_TIMED = (('bert', 'adamw', 'float32'), ('bert', 'adamw', 'low'),
-               ('bert', 'adamw', 'master'), ('resnet', 'sgd_mom', 'float32'),
-               ('resnet', 'sgd_mom', 'low'))
+# .bf16 (5e); then every other rule in float32 at BERT-base's list, and
+# Adam (4n, 5h) at ResNet-50's and in its .mp form
+FUSED_TIMED = ((('bert', 'adamw', 'float32'), ('bert', 'adamw', 'low'),
+                ('bert', 'adamw', 'master'),
+                ('resnet', 'sgd_mom', 'float32'),
+                ('resnet', 'sgd_mom', 'low'))
+               + tuple(('bert', r, 'float32') for r in FUSED_HYPER
+                       if r != 'adamw')
+               + (('resnet', 'adam', 'float32'), ('bert', 'adam', 'master')))
 
 
 def param_lists(torch, bert, resnet):
@@ -2401,8 +2453,7 @@ def fused_setup(torch, optimizer, rule, form, shapes, device, seed=0,
         w = base[1:] if odd and i == 3 else base[:n].clone()
         pairs.append((i, torch.nn.Parameter(w.view(shape))))
     hyper = dict(FUSED_HYPER[rule], multi_precision=form == 'master')
-    opt = optimizer.create('sgd' if rule.startswith('sgd') else rule,
-                           **hyper)
+    opt = optimizer.create(RULE_OPTIMIZER.get(rule, rule), **hyper)
     opt.idx2name = {i: 'p%d_weight' % i for i, _ in pairs}
     opt.set_lr_mult({0: 0.5})
     opt.set_wd_mult({'p1_weight': 0.0})
@@ -2425,7 +2476,10 @@ def fused_grads(torch, pairs, step, skip=2):
 def clamped_share(pairs, opt):
     """The share of the step's gradient elements that ``opt``'s clip
     clamps, |g * rescale| > clip in float32 (the bf16 AdamW's rounding
-    of the rescaled gradient and the clip aside)."""
+    of the rescaled gradient, the wd term some rules add before the clip
+    and the clip aside); None for an optimizer without a clip."""
+    if opt.clip_gradient is None:
+        return None
     hit = total = 0
     for _, p in pairs:
         if p.grad is not None:
@@ -2445,6 +2499,16 @@ def _state_tensors(states):
     return out
 
 
+def same_bits(torch, a, b):
+    """``a`` and ``b`` equal bit for bit (a NaN, as Adamax's 0 / 0 on a
+    parameter without a gradient, equals a NaN of its bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(a.detach().view(view[a.dtype]),
+                       b.detach().view(view[b.dtype]))
+
+
 def plain_update(torch, pairs, opt, states):
     """The whole-model update's plain version: ``update_multi_precision``
     parameter by parameter, a missing gradient as zeros."""
@@ -2455,22 +2519,26 @@ def plain_update(torch, pairs, opt, states):
 
 
 def check_fused_update(torch, kernels, optimizer, device, lists,
-                       steps=FUSED_STEPS):
-    """Every instance (rule x form) of ``multi_tensor_update`` through the
-    trainer's ``FusedUpdate`` against its plain version on the card, over
-    ``steps`` consecutive steps from the same weights and states, at each
-    list of ``lists`` (name -> shapes): weights, states, masters, update
-    counts bitwise equal, one launch of the instance a step and nothing
-    else; the clip clamps at least ``FUSED_CLAMPED`` of each step's
-    gradient elements. Returns {instance name: worst max abs error
-    (0.0)}."""
+                       steps=FUSED_STEPS, rules=None):
+    """Every instance (rule x form; the LOW form for SGD's and AdamW's
+    rules) of ``multi_tensor_update`` through the trainer's
+    ``FusedUpdate`` against its plain version on the card, over ``steps``
+    consecutive steps from the same weights and states, at each list of
+    ``lists`` (name -> shapes): weights, states, masters, update counts
+    bit for bit equal, one launch of the instance a step, counted under
+    its rule, and nothing else; the clip clamps at least
+    ``FUSED_CLAMPED`` of each step's gradient elements. ``rules``: a
+    subset of the rules (all by default). Returns {instance name: worst
+    max abs error (0.0)}."""
     from mxnet_tpu_torch.ops.kernels import multi_tensor as mt
     from mxnet_tpu_torch.optimizer import fused
     errs = {}
     for lname, shapes in lists.items():
-        shares = []
-        for rule in mt.RULES:
+        shares, done = [], 0
+        for rule in rules or mt.RULES:
             for form in mt.FORMS:
+                if form == 'low' and rule not in mt.LOW_RULES:
+                    continue
                 name = mt.instance_name(form)
                 odd = lname == 'odd'
                 mine = fused_setup(torch, optimizer, rule, form, shapes,
@@ -2484,26 +2552,33 @@ def check_fused_update(torch, kernels, optimizer, device, lists,
                 for step in range(steps):
                     fused_grads(torch, mine[0], step)
                     fused_grads(torch, want[0], step)
-                    shares.append(clamped_share(mine[0], mine[1]))
-                    if shares[-1] < FUSED_CLAMPED:
-                        raise AssertionError(
-                            'fused update %s %s at %s, step %d: the clip '
-                            'clamps %.3f of the gradient, under %g'
-                            % (rule, form, lname, step, shares[-1],
-                               FUSED_CLAMPED))
+                    share = clamped_share(mine[0], mine[1])
+                    if share is not None:
+                        shares.append(share)
+                        if share < FUSED_CLAMPED:
+                            raise AssertionError(
+                                'fused update %s %s at %s, step %d: the '
+                                'clip clamps %.3f of the gradient, under %g'
+                                % (rule, form, lname, step, share,
+                                   FUSED_CLAMPED))
                     kernels.reset_launch_counts()
                     update()
                     counts = {k: c for k, c in kernels.launch_counts().items()
                               if c}
-                    if device.type == 'cuda' and counts != {name: 1}:
-                        raise AssertionError('fused update %s %s: launches '
-                                             '%r, expected one %s'
-                                             % (rule, form, counts, name))
+                    if device.type == 'cuda' and (
+                            counts != {name: 1}
+                            or kernels.instance_launches()
+                            != {(name, rule): 1}):
+                        raise AssertionError(
+                            'fused update %s %s: launches %r (%r), expected '
+                            'one %s of rule %s'
+                            % (rule, form, counts,
+                               kernels.instance_launches(), name, rule))
                     plain_update(torch, *want)
                     got = [p for _, p in mine[0]] + _state_tensors(mine[2])
                     ref = [p for _, p in want[0]] + _state_tensors(want[2])
                     for a, b in zip(got, ref):
-                        if a.dtype != b.dtype or not torch.equal(a, b):
+                        if not same_bits(torch, a, b):
                             diff = (a.float() - b.float()).abs()
                             raise AssertionError(
                                 'fused update %s %s at %s, step %d: not '
@@ -2517,37 +2592,52 @@ def check_fused_update(torch, kernels, optimizer, device, lists,
                         raise AssertionError('fused update: update counts '
                                              'differ')
                 errs[name] = 0.0
+                done += 1
                 del mine, want, update
                 torch.cuda.empty_cache()
-        log('phase 2 fused update at %s (%d tensors, %d elements): every '
-            'rule and form bitwise its plain version over %d steps, the '
-            'clip clamping %.3f-%.3f of the gradient elements'
+        log('phase 2 fused update at %s (%d tensors, %d elements): %d '
+            'instances (%d rules) bitwise their plain versions over %d '
+            'steps, the clip clamping %.3f-%.3f of the gradient elements'
             % (lname, len(shapes), sum(math.prod(s) for s in shapes),
-               steps, min(shares), max(shares)))
+               done, len(rules or mt.RULES), steps, min(shares),
+               max(shares)))
     return errs
 
 
 def fused_bytes(rule, form, n):
     """Bytes one update of ``n`` elements must move: each input read
     once, each output written once (a master form reads the master, not
-    the bf16 weight, and writes both)."""
+    the bf16 weight, and writes both; Test's state is written, not
+    read)."""
+    from mxnet_tpu_torch.ops.kernels import multi_tensor as mt
     w = 4 if form == 'float32' else 2
     s = 2 if form == 'low' else 4
-    states = {'sgd': 0, 'sgd_mom': 1, 'adamw': 2}[rule]
-    reads = w + (4 if form == 'master' else w) + states * s
+    states = mt.STATES[rule]
+    read_states = states - (rule == 'test')
+    reads = w + (4 if form == 'master' else w) + read_states * s
     writes = (4 + w if form == 'master' else w) + states * s
     return (reads + writes) * n
 
 
-FUSED_FLOPS = {'sgd': 5, 'sgd_mom': 7, 'adamw': 16}
+# float32 operations an element of each rule (csrc/multi_tensor_update.cu:
+# each intrinsic, clamp, sign, select and maximum one)
+FUSED_FLOPS = {'sgd': 5, 'sgd_mom': 7, 'adamw': 16, 'adam': 15, 'nag': 6,
+               'nag_mom': 10, 'signsgd': 7, 'signum': 11, 'ftml': 20,
+               'dcasgd': 11, 'dcasgd_mom': 13, 'adagrad': 10,
+               'rmsprop': 12, 'rmspropalex': 19, 'adadelta': 17,
+               'ftrl': 22, 'adamax': 13, 'test': 2}
 
 
-def foreach_chain(torch, rule, form, pairs, states, lrs, wds, opt):
+def foreach_chain(torch, rule, form, pairs, states, lrs, wds, bs, opt):
     """The update's expressions as a chain of ``torch._foreach_*`` calls
     over the lists (the library yardstick: no one PyTorch call computes
     the function), on the stored dtypes; the master form widens the
     gradients into float32 buffers first and rounds the masters into the
-    weights last. Returns the callable."""
+    weights last. ``lrs`` / ``wds`` / ``bs``: the per-tensor factors of
+    ``FusedUpdate._hypers``. Ftrl's select is written as its
+    soft-threshold, ``-sign(z) max(|z| - lamda1, 0) / den``. Returns the
+    callable."""
+    from mxnet_tpu_torch.ops.kernels import multi_tensor as mt
     f = torch
     weights = [p.data for _, p in pairs]
     grads = [p.grad for _, p in pairs]
@@ -2558,53 +2648,194 @@ def foreach_chain(torch, rule, form, pairs, states, lrs, wds, opt):
         g32 = [torch.empty_like(w) for w in ws]
     else:
         ws, sts = weights, states
+    lists = mt.state_lists(rule, sts)
+    s1, s2, s3 = lists
     clip = opt.clip_gradient
+    clip_on = clip is not None and (clip > 0 or rule in mt.CLIP_SET_RULES)
+
+    def clipped(g):
+        if clip_on:
+            f._foreach_clamp_min_(g, -clip)
+            f._foreach_clamp_max_(g, clip)
+
+    def add_wd(g):
+        f._foreach_add_(g, f._foreach_mul(ws, wds))
 
     def call():
         if master:
             f._foreach_copy_(g32, grads)
         g = f._foreach_mul(g32 if master else grads, opt.rescale_grad)
-        if clip is not None and clip > 0:
-            f._foreach_clamp_min_(g, -clip)
-            f._foreach_clamp_max_(g, clip)
         if rule == 'adamw':
-            m, v = [s[0] for s in sts], [s[1] for s in sts]
-            f._foreach_mul_(m, opt.beta1)
-            f._foreach_add_(m, f._foreach_mul(g, 1 - opt.beta1))
-            f._foreach_mul_(v, opt.beta2)
-            f._foreach_add_(v, f._foreach_mul(f._foreach_mul(g, g),
-                                              1 - opt.beta2))
-            den = f._foreach_sqrt(v)
+            clipped(g)
+            f._foreach_mul_(s1, opt.beta1)
+            f._foreach_add_(s1, f._foreach_mul(g, 1 - opt.beta1))
+            f._foreach_mul_(s2, opt.beta2)
+            f._foreach_add_(s2, f._foreach_mul(f._foreach_mul(g, g),
+                                               1 - opt.beta2))
+            den = f._foreach_sqrt(s2)
             f._foreach_add_(den, opt.epsilon)
-            step = f._foreach_div(m, den)
+            step = f._foreach_div(s1, den)
             f._foreach_add_(step, f._foreach_mul(ws, wds))
             f._foreach_mul_(step, lrs)
             f._foreach_sub_(ws, step)
-        else:
-            f._foreach_add_(g, f._foreach_mul(ws, wds))
+        elif rule in ('sgd', 'sgd_mom'):
+            clipped(g)
+            add_wd(g)
             if rule == 'sgd_mom':
-                f._foreach_mul_(sts, opt.momentum)
-                f._foreach_sub_(sts, f._foreach_mul(g, lrs))
-                f._foreach_add_(ws, sts)
+                f._foreach_mul_(s1, opt.momentum)
+                f._foreach_sub_(s1, f._foreach_mul(g, lrs))
+                f._foreach_add_(ws, s1)
             else:
                 f._foreach_sub_(ws, f._foreach_mul(g, lrs))
+        elif rule in ('adam', 'adamax'):
+            add_wd(g)
+            clipped(g)
+            f._foreach_mul_(s1, opt.beta1)
+            f._foreach_add_(s1, f._foreach_mul(g, 1 - opt.beta1))
+            f._foreach_mul_(s2, opt.beta2)
+            if rule == 'adam':
+                f._foreach_add_(s2, f._foreach_mul(f._foreach_mul(g, g),
+                                                   1 - opt.beta2))
+                den = f._foreach_sqrt(s2)
+                f._foreach_add_(den, opt.epsilon)
+            else:
+                f._foreach_maximum_(s2, f._foreach_abs(g))
+                den = s2
+            f._foreach_sub_(ws, f._foreach_div(f._foreach_mul(s1, lrs),
+                                               den))
+        elif rule in ('nag', 'nag_mom'):
+            clipped(g)
+            if rule == 'nag':
+                add_wd(g)
+            else:
+                f._foreach_mul_(s1, opt.momentum)
+                f._foreach_add_(s1, g)
+                f._foreach_add_(s1, f._foreach_mul(ws, wds))
+                g = f._foreach_add(f._foreach_mul(s1, opt.momentum), g)
+            f._foreach_sub_(ws, f._foreach_mul(g, lrs))
+        elif rule == 'signsgd':
+            clipped(g)
+            t = f._foreach_sign(g)
+            f._foreach_add_(t, f._foreach_mul(ws, wds))
+            f._foreach_sub_(ws, f._foreach_mul(t, lrs))
+        elif rule == 'signum':
+            clipped(g)
+            add_wd(g)
+            f._foreach_mul_(s1, opt.momentum)
+            f._foreach_sub_(s1, f._foreach_mul(g, 1 - opt.momentum))
+            f._foreach_mul_(ws, bs)
+            f._foreach_add_(ws, f._foreach_mul(f._foreach_sign(s1), lrs))
+        elif rule == 'ftml':
+            add_wd(g)
+            clipped(g)
+            f._foreach_mul_(s2, opt.beta2)
+            f._foreach_add_(s2, f._foreach_mul(f._foreach_mul(g, g),
+                                               1 - opt.beta2))
+            d = f._foreach_sqrt(f._foreach_div(s2, bs))
+            f._foreach_add_(d, opt.epsilon)
+            f._foreach_mul_(d, lrs)
+            sigma = f._foreach_sub(d, f._foreach_mul(s1, opt.beta1))
+            f._foreach_mul_(s3, opt.beta1)
+            f._foreach_add_(s3, f._foreach_mul(g, 1 - opt.beta1))
+            f._foreach_sub_(s3, f._foreach_mul(sigma, ws))
+            f._foreach_copy_(s1, d)
+            f._foreach_copy_(ws, f._foreach_neg(f._foreach_div(s3, d)))
+        elif rule in ('dcasgd', 'dcasgd_mom'):
+            clipped(g)
+            prev = s1 if rule == 'dcasgd' else s2
+            comp = f._foreach_mul(f._foreach_mul(g, opt.lamda), g)
+            f._foreach_mul_(comp, f._foreach_sub(ws, prev))
+            delta = f._foreach_add(g, f._foreach_mul(ws, wds))
+            f._foreach_add_(delta, comp)
+            f._foreach_mul_(delta, [-a for a in lrs])
+            if rule == 'dcasgd_mom':
+                f._foreach_mul_(s1, opt.momentum)
+                f._foreach_add_(s1, delta)
+                delta = s1
+            f._foreach_copy_(prev, ws)
+            f._foreach_add_(ws, delta)
+        elif rule == 'adagrad':
+            clipped(g)
+            f._foreach_add_(s1, f._foreach_mul(g, g))
+            t = f._foreach_div(g, f._foreach_sqrt(
+                f._foreach_add(s1, opt.float_stable_eps)))
+            f._foreach_add_(t, f._foreach_mul(ws, wds))
+            f._foreach_sub_(ws, f._foreach_mul(t, lrs))
+        elif rule in ('rmsprop', 'rmspropalex'):
+            add_wd(g)
+            clipped(g)
+            f._foreach_mul_(s1, opt.gamma1)
+            f._foreach_add_(s1, f._foreach_mul(f._foreach_mul(g, g),
+                                               1 - opt.gamma1))
+            if rule == 'rmsprop':
+                den = f._foreach_sqrt(f._foreach_add(s1, opt.epsilon))
+                f._foreach_sub_(ws, f._foreach_div(f._foreach_mul(g, lrs),
+                                                   den))
+            else:
+                f._foreach_mul_(s2, opt.gamma1)
+                f._foreach_add_(s2, f._foreach_mul(g, 1 - opt.gamma1))
+                den = f._foreach_sub(s1, f._foreach_mul(s2, s2))
+                f._foreach_add_(den, opt.epsilon)
+                f._foreach_sqrt_(den)
+                f._foreach_mul_(s3, opt.gamma2)
+                f._foreach_sub_(s3, f._foreach_div(f._foreach_mul(g, lrs),
+                                                   den))
+                f._foreach_add_(ws, s3)
+            if opt.clip_weights:
+                f._foreach_clamp_min_(ws, -opt.clip_weights)
+                f._foreach_clamp_max_(ws, opt.clip_weights)
+        elif rule == 'adadelta':
+            clipped(g)
+            f._foreach_mul_(s1, opt.rho)
+            f._foreach_add_(s1, f._foreach_mul(f._foreach_mul(g, 1 - opt.rho),
+                                               g))
+            step = f._foreach_div(f._foreach_sqrt(
+                f._foreach_add(s2, opt.epsilon)), f._foreach_sqrt(
+                f._foreach_add(s1, opt.epsilon)))
+            f._foreach_mul_(step, g)
+            f._foreach_mul_(s2, opt.rho)
+            f._foreach_add_(s2, f._foreach_mul(f._foreach_mul(
+                step, 1 - opt.rho), step))
+            wdw = f._foreach_mul(ws, wds)
+            f._foreach_sub_(ws, step)
+            f._foreach_sub_(ws, wdw)
+        elif rule == 'ftrl':
+            clipped(g)
+            n = f._foreach_add(s2, f._foreach_mul(g, g))
+            sigma = f._foreach_sub(f._foreach_sqrt(n), f._foreach_sqrt(s2))
+            f._foreach_div_(sigma, lrs)
+            f._foreach_add_(s1, g)
+            f._foreach_sub_(s1, f._foreach_mul(sigma, ws))
+            f._foreach_copy_(s2, n)
+            den = f._foreach_add(f._foreach_sqrt(n), float(opt.beta))
+            f._foreach_div_(den, lrs)
+            f._foreach_add_(den, wds)
+            shrink = f._foreach_clamp_min(f._foreach_sub(
+                f._foreach_abs(s1), opt.lamda1), 0.0)
+            f._foreach_mul_(shrink, f._foreach_sign(s1))
+            f._foreach_copy_(ws, f._foreach_neg(f._foreach_div(shrink,
+                                                               den)))
+        elif rule == 'test':
+            f._foreach_add_(ws, g)
+            f._foreach_copy_(s1, ws)
         if master:
             f._foreach_copy_(weights, ws)
     return call
 
 
 def time_fused_update(torch, kernels, optimizer, device, lists):
-    """Row 17 at the pairs the trainer phases run (``FUSED_TIMED``): the
-    trainer's ``FusedUpdate`` (one launch) timed one event pair a call
-    (``ms``) and by the probe's slope (``device_ms``; the host's cost a
-    call apart, ``host_ms``), beside its bound (bytes at 3.35 TB/s), the
-    plain loop of ``update_multi_precision`` and the ``_foreach_`` chain
-    of the same expressions (``chain_ms``; its device time the busy time
-    of one call's kernels in a ``torch.profiler`` trace: the slope
-    timer's host ran behind the card on it). No one PyTorch call
-    computes the update: ``library_ms`` is None. The row of a form is
-    BERT-base with AdamW; each timed pair of the form is under
-    ``by_list``."""
+    """Row 17 at the pairs the trainer phases run and at every rule
+    (``FUSED_TIMED``): the trainer's ``FusedUpdate`` (one launch) timed
+    one event pair a call (``ms``) and by the probe's slope
+    (``device_ms``; the host's cost a call apart, ``host_ms``), beside its
+    bound (bytes at 3.35 TB/s), the plain loop of
+    ``update_multi_precision`` and the ``_foreach_`` chain of the same
+    expressions (``chain_ms``; its device time the busy time of one
+    call's kernels in a ``torch.profiler`` trace: the slope timer's host
+    ran behind the card on it). No one PyTorch call computes the update:
+    ``library_ms`` is None. The row of a form is BERT-base with AdamW
+    (float32, .bf16, .mp); each timed pair of the form is under
+    ``by_list``, each rule's BERT-base row under ``by_rule``."""
     from mxnet_tpu_torch.ops.kernels import multi_tensor as mt
     from mxnet_tpu_torch.optimizer import fused
     from mxnet_tpu_torch.tools.probe_matmul_pipeline import slope_ms
@@ -2623,8 +2854,8 @@ def time_fused_update(torch, kernels, optimizer, device, lists):
         for _ in range(5):
             update()
         host = (time.perf_counter() - t0) / 5 * 1e3
-        lrs, wds, _ = update._hypers()
-        chain = foreach_chain(torch, rule, form, pairs, states, lrs, wds,
+        a, wd, b, _ = update._hypers()
+        chain = foreach_chain(torch, rule, form, pairs, states, a, wd, b,
                               opt)
         t_bytes, by = bound(fused_bytes(rule, form, n),
                             FUSED_FLOPS[rule] * n)
@@ -2640,17 +2871,21 @@ def time_fused_update(torch, kernels, optimizer, device, lists):
                                                 ())['busy_ms'],
                    bound_ms=t_bytes, bound_by=by,
                    shape='%s list, %s' % (lname, rule))
+        row['bound_share'] = t_bytes / row['device_ms']
         by_form.setdefault(name, []).append(row)
         log('time %s [%s] at %s (%d tensors, %d elements), %s: kernel '
             '%.4f ms (device %.4f ms, host %.4f ms a call), plain loop '
             '%.4f ms, _foreach_ chain %.4f ms (device %.4f ms), bound '
-            '%.4f ms (%s)'
+            '%.4f ms (%s), share %.3f'
             % (name, form, lname, len(shapes), n, rule, row['ms'],
                row['device_ms'], host, row['plain_ms'],
-               row['chain_ms'], row['chain_device_ms'], t_bytes, by))
+               row['chain_ms'], row['chain_device_ms'], t_bytes, by,
+               row['bound_share']))
         del pairs, opt, states, update, chain
         torch.cuda.empty_cache()
-    return {name: dict(rows[0], by_list=rows)
+    return {name: dict(rows[0], by_list=rows,
+                       by_rule={r['rule']: r for r in rows
+                                if r['list'] == 'bert'})
             for name, rows in by_form.items()}
 
 
@@ -7547,16 +7782,17 @@ def cast_train_launches(kernels, layers, mp=False):
 
 def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
                shape=TRAIN, warmup=TRAIN_WARMUP, iters=TRAIN_ITERS, seed=0,
-               amp=None, route=None, phase=None):
+               amp=None, route=None, phase=None, opt='adamw'):
     """Phase 4b (``amp`` None: float32), 4c (``amp='bf16'``) or 4d
     (``route`` 'cast': after ``cast('bfloat16')``, AdamW on bf16 weights
     and state, as ``bench_bert`` trains on the accelerator; 'cast_mp',
     4d-mp: with ``multi_precision``): BERT pretraining steps through
     ``ParallelTrainer.step``, captured from the second step on (one
     program); ``cfg`` another BERT's widths (phase 4w: ``phase`` names
-    it). The launch counts are zeroed after the warm-up and read after
-    the timed steps (``instances``: by instance, the attention rows' by
-    width). Returns a dict of results."""
+    it); ``opt`` the optimizer (4n: 'adam'), its whole-model update
+    counted under its rule. The launch counts are zeroed after the
+    warm-up and read after the timed steps (``instances``: by instance,
+    the attention rows' by width). Returns a dict of results."""
     import warnings
     phase = phase or {None: 'phase 4c' if amp else 'phase 4b',
                       'cast': 'phase 4d', 'cast_mp': 'phase 4d-mp'}[route]
@@ -7574,7 +7810,7 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
     xs, ys = pretrain_batch(torch, device, vocab, shape['batch'],
                             shape['seq'], shape['preds'], seed=seed)
     pt = parallel.ParallelTrainer(
-        net, pretrain_loss_fn(gloss, vocab), 'adamw',
+        net, pretrain_loss_fn(gloss, vocab), opt,
         dict(TRAIN_HYPER, multi_precision=route == 'cast_mp'), seed=seed,
         amp=amp if amp else False)
     setup_s = time.perf_counter() - t0
@@ -7616,6 +7852,12 @@ def train_full(torch, bert, gloss, parallel, kernels, device, cfg=None,
         raise AssertionError('%s: kernel launches %r in %d steps, '
                              'expected %r per step' % (phase, counts, iters,
                                                        per_step))
+    rules = {k[1]: v for k, v in instances.items()
+             if k[0].startswith('multi_tensor_update')}
+    if cuda and rules != {opt: iters}:
+        raise AssertionError('%s: whole-model update launches by rule %r in '
+                             '%d steps, expected %s once a step'
+                             % (phase, rules, iters, opt))
     if not all(math.isfinite(l) for l in losses):
         raise AssertionError('%s: a loss is not finite: %r' % (phase,
                                                                losses))
@@ -7729,12 +7971,12 @@ def twin_steps(torch, phase, build, steps=TRAIN_WARMUP + TRAIN_ITERS):
 
 
 def bert_base_trainer(torch, bert, gloss, parallel, device, route=None,
-                      shape=TRAIN, seed=0, cfg=None):
+                      shape=TRAIN, seed=0, cfg=None, opt='adamw'):
     """4b's configuration (``route`` 'cast': 4d's, after
-    ``cast('bfloat16')``): BERT-base with dropout 0.1, its batch, AdamW,
-    the trainer's generator seeded by ``seed``; ``cfg`` another BERT's
-    widths (``get_bert``'s arguments: 4w's MiniLM). Returns (net, trainer,
-    step args)."""
+    ``cast('bfloat16')``): BERT-base with dropout 0.1, its batch, AdamW
+    (``opt``: 4n's Adam), the trainer's generator seeded by ``seed``;
+    ``cfg`` another BERT's widths (``get_bert``'s arguments: 4w's
+    MiniLM). Returns (net, trainer, step args)."""
     import warnings
     net = bert.init_params(bert.bert_12_768_12(
         vocab_size=shape['vocab'], max_length=512, dropout=0.1,
@@ -7747,7 +7989,7 @@ def bert_base_trainer(torch, bert, gloss, parallel, device, route=None,
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')     # bf16 weights, no master
         pt = parallel.ParallelTrainer(
-            net, pretrain_loss_fn(gloss, shape['vocab']), 'adamw',
+            net, pretrain_loss_fn(gloss, shape['vocab']), opt,
             dict(TRAIN_HYPER), seed=seed)
     return net, pt, (xs, ys)
 
@@ -7766,12 +8008,15 @@ def resnet50_trainer(torch, resnet, gloss, parallel, optimizer, device,
 
 
 def bert_twins(torch, bert, gloss, parallel, device, route=None,
-               shape=TRAIN, seed=0):
+               shape=TRAIN, seed=0, opt='adamw',
+               steps=TRAIN_WARMUP + TRAIN_ITERS):
     """:func:`twin_steps` at 4b's configuration (``route`` 'cast': 4d's,
-    after ``cast('bfloat16')``)."""
-    return twin_steps(torch, 'phase 4 twins (%s)' % (route or 'float32'),
+    after ``cast('bfloat16')``; ``opt`` 'adam': 4n's)."""
+    return twin_steps(torch, 'phase 4 twins (%s, %s)' % (route or 'float32',
+                                                         opt),
                       lambda: bert_base_trainer(torch, bert, gloss, parallel,
-                                                device, route, shape, seed))
+                                                device, route, shape, seed,
+                                                opt=opt), steps)
 
 
 def resnet_twins(torch, resnet, gloss, parallel, optimizer, device,
@@ -10718,21 +10963,25 @@ def gluon_nd_checks(torch, mx, kernels):
             raise AssertionError('phase 5g (d): %s on the card differs from '
                                  'the CPU by %.3g (limit %g)'
                                  % (k, err, GLUON_ND_TOL))
-    # no fallback: a Trainer whose optimizer the update kernel has no
-    # rule for is refused on the card
+    # no fallback: a Trainer whose fusable optimizer the update kernel has
+    # no rule for (a subclass of one with a rule) is refused on the card
     from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import optimizer as optmod
     from mxnet_tpu_torch.optimizer import FusedUpdateError
+
+    class Subclassed(optmod.Adam):
+        """Adam's subclass: its update may differ from the rule's."""
     with mx.gpu(0):
         p = gluon.Parameter('w', shape=(3,))
         p.initialize(init='ones')
         try:
-            gluon.Trainer({'w': p}, 'adam', {'learning_rate': 0.1})
+            gluon.Trainer({'w': p}, Subclassed(learning_rate=0.1))
         except FusedUpdateError as e:
             refused = str(e)
         else:
-            raise AssertionError('phase 5g (d): a gluon.Trainer with adam '
-                                 'was built on the card')
-    return {'errs': errs, 'launches': counts, 'adam_refused': refused}
+            raise AssertionError('phase 5g (d): a gluon.Trainer with a '
+                                 'subclass of Adam was built on the card')
+    return {'errs': errs, 'launches': counts, 'refused': refused}
 
 
 def log_gluon(ga, gb, gc, gd, rn, card):
@@ -10772,11 +11021,533 @@ def log_gluon(ga, gb, gc, gd, rn, card):
            gc['launches']))
     log('phase 5g (d) nd ops, autograd.grad(create_graph=True) and a custom '
         'autograd.Function on the card against the CPU: max errors %s '
-        '(limit %g x max(1, max |CPU|)); launches %s; gluon.Trainer(adam) '
-        'refused on the card: %s'
+        '(limit %g x max(1, max |CPU|)); launches %s; gluon.Trainer of a '
+        'subclass of Adam refused on the card: %s'
         % (json.dumps({k: float('%.3g' % v) for k, v in gd['errs'].items()}),
-           GLUON_ND_TOL, gd['launches'], gd['adam_refused']))
+           GLUON_ND_TOL, gd['launches'], gd['refused']))
 
+
+
+def check_gluon_rule(torch, mx, kernels, name='adam', steps=3, seed=0,
+                     hyper=None):
+    """``gluon.Trainer(name)`` on the card against the optimizer's plain
+    per-parameter loop over copies of the same parameters on the card:
+    ``steps`` steps from seeded weights and gradients (one parameter a
+    misaligned length), bitwise; a fusable optimizer takes one launch of
+    its rule a step, an unfusable one (SGLD, Nadam, LBSGD) none. Returns
+    the launches by instance."""
+    import numpy as np
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import optimizer as optmod
+    from mxnet_tpu_torch.optimizer import fused
+    hyper = dict(hyper or {'learning_rate': 0.01, 'wd': 1e-3,
+                           'clip_gradient': 0.5})
+    rs = np.random.RandomState(seed)
+    w0 = [rs.randn(*s).astype('float32') for s in ((5, 7), (4097,))]
+    gs = [[rs.randn(*w.shape).astype('float32') for w in w0]
+          for _ in range(steps)]
+    seen = {}
+    with mx.gpu(0):
+        ps = [gluon.Parameter('p%d_weight' % i, shape=w.shape)
+              for i, w in enumerate(w0)]
+        for p, w in zip(ps, w0):
+            p.initialize(init='zeros')
+            p.set_data(mx.nd.array(w))
+        tr = gluon.Trainer(ps, name, dict(hyper))
+        plain = optmod.create(name, **hyper)
+        plain.idx2name = {i: p.name for i, p in enumerate(ps)}
+        ref = [torch.tensor(w, device='cuda') for w in w0]
+        states = [plain.create_state(i, r) for i, r in enumerate(ref)]
+        for step in range(steps):
+            kernels.reset_launch_counts()
+            for p, g in zip(ps, gs[step]):
+                p._tensor.grad = torch.tensor(g, device='cuda')
+                p.data()._grad_fresh = True
+            mx.random.seed(seed + step)
+            tr.step(1)
+            got = kernels.instance_launches()
+            for k, v in got.items():
+                seen[k] = seen.get(k, 0) + v
+            rule = fused.rule_of(plain)
+            want = {('multi_tensor_update', rule): 1} if plain.fusable \
+                else {}
+            if got != want:
+                raise AssertionError('gluon.Trainer(%r): launches %r a step, '
+                                     'expected %r' % (name, got, want))
+            mx.random.seed(seed + step)
+            for i, (r, g) in enumerate(zip(ref, gs[step])):
+                plain.update(i, r, torch.tensor(g, device='cuda'),
+                             states[i])
+            for p, r in zip(ps, ref):
+                if not same_bits(torch, p._tensor, r):
+                    raise AssertionError('gluon.Trainer(%r) step %d: not '
+                                         'bitwise the plain loop' % (name,
+                                                                     step))
+    return seen
+
+
+# -- phase 5h: the reference's DCGAN trained on the card ---------------------
+
+# the upstream example's widths (example/gluon/dc_gan/dcgan.py: nz 100,
+# ngf = ndf = 64, 3 x 64 x 64 images, batch 64, Adam lr 2e-4 and beta1
+# 0.5, Normal(0.02)); examples/dc_gan.py runs the same loop at nz 16,
+# ngf = ndf = 16 and 1 x 16 x 16
+DCGAN = dict(nz=100, ngf=64, ndf=64, channels=3, size=64, batch=64)
+DCGAN_SOURCE = ('apache/mxnet example/gluon/dc_gan/dcgan.py (nz 100, ngf = '
+                'ndf = 64, nc 3, 64 x 64 images, batch 64, Adam lr 2e-4 '
+                'beta1 0.5, Normal(0.02))')
+DCGAN_HYPER = {'learning_rate': 2e-4, 'beta1': 0.5}
+DCGAN_WARMUP, DCGAN_ITERS = 2, 20
+DCGAN_LOSS_RTOL = 1e-4     # the first iteration's errD / errG, card vs CPU
+# Its gradients are held to a float64 twin of the iteration
+# (dcgan_float64), not to the CPU's float32: at these widths the first
+# iteration is ill-conditioned in float32. A pre-activation within float32
+# noise of 0 takes the other slope of a relu or LeakyReLU, and the
+# BatchNorms' backward amplifies the rest: the CPU's float32 gradients
+# stand up to 1e-3 of a tensor's largest |g| from float64, the card's
+# (cuDNN's default algorithms) up to 6e-2, but each within a few 1e-3 of
+# the gradient's norm, where a wrong kernel or layer stands at O(1) (at
+# examples/dc_gan.py's own size all within 1e-6). The G step runs through
+# D after Adam's first step, about lr sign(g), so each run's G gradients
+# are held to a float64 G step through that run's own updated D, its D
+# gradients to the float64 D step: the card's and the CPU's each within
+# DCGAN_GRAD_L2 of the float64 gradient's norm (their largest elementwise
+# gaps logged). The weights after the two Adam steps are held, within
+# DCGAN_WEIGHT_REL of each tensor's largest |w|, to Adam's step from the
+# same initial weights with the card's own gradients, in float64: what
+# the step must give whatever the gradients' float32 noise; the elements
+# whose gradient sign the card's float32 run gets other than float64
+# (Adam moving them 2 lr the other way) are counted, beside the CPU's
+DCGAN_GRAD_L2 = 1e-2
+DCGAN_WEIGHT_REL = 1e-4
+
+
+def dcgan_nets(nn, nz, ngf, ndf, channels, size):
+    """The reference's DCGAN for ``size`` x ``size`` images of
+    ``channels`` (``examples/dc_gan.py`` ``build_nets`` at 16, the
+    upstream example's nets at 64): G a 4 x 4 ``Conv2DTranspose`` of the
+    nz x 1 x 1 noise, stride-2 ones halving the width down to ``ngf``,
+    each followed by ``BatchNorm`` and relu, then one to ``channels`` and
+    tanh; D its mirror, ``Conv2D(ndf, 4, 2, 1)`` and ``LeakyReLU(0.2)``,
+    stride-2 convs doubling the width, each with ``BatchNorm`` and
+    ``LeakyReLU(0.2)``, and a 4 x 4 conv to one logit. No bias
+    anywhere."""
+    levels = int(math.log2(size)) - 3
+    netG = nn.HybridSequential()
+    with netG.name_scope():
+        width = ngf * 2 ** levels
+        netG.add(nn.Conv2DTranspose(width, 4, 1, 0, use_bias=False),
+                 nn.BatchNorm(), nn.Activation('relu'))
+        for _ in range(levels):
+            width //= 2
+            netG.add(nn.Conv2DTranspose(width, 4, 2, 1, use_bias=False),
+                     nn.BatchNorm(), nn.Activation('relu'))
+        netG.add(nn.Conv2DTranspose(channels, 4, 2, 1, use_bias=False),
+                 nn.Activation('tanh'))
+    netD = nn.HybridSequential()
+    with netD.name_scope():
+        width = ndf
+        netD.add(nn.Conv2D(width, 4, 2, 1, use_bias=False),
+                 nn.LeakyReLU(0.2))
+        for _ in range(levels):
+            width *= 2
+            netD.add(nn.Conv2D(width, 4, 2, 1, use_bias=False),
+                     nn.BatchNorm(), nn.LeakyReLU(0.2))
+        netD.add(nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return netG, netD
+
+
+def dcgan_real_batch(rs, batch, channels, size):
+    """``examples/dc_gan.py`` ``real_batch`` at ``size`` px: a bright
+    gaussian blob on a dark background a sample, in [-0.9, 0.9], its
+    centre and width scaled with the size, the same in each channel (at
+    16 px and one channel the example's draws and values)."""
+    import numpy as np
+    k = size / 16.0
+    xs = np.full((batch, channels, size, size), -0.9, dtype=np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i in range(batch):
+        cy, cx = rs.randint(int(4 * k), int(12 * k), size=2)
+        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (8.0 * k * k))
+        xs[i, :] = blob * 1.8 - 0.9
+    return xs
+
+
+def dcgan_iteration(autograd, netG, netD, L, trainerG, trainerD, data,
+                    noise, real_label, fake_label, batch, keep=None):
+    """One iteration of ``examples/dc_gan.py``'s loop: the D step on the
+    real batch and the detached fake, then the G step. ``keep``: a dict
+    that receives D's gradients before its step and G's before its.
+    Returns (errD, errG), each the mean of its per-sample loss."""
+    with autograd.record():
+        out_real = netD(data).reshape((-1,))
+        fake = netG(noise)
+        out_fake = netD(fake.detach()).reshape((-1,))
+        errD = L(out_real, real_label) + L(out_fake, fake_label)
+    errD.backward()
+    if keep is not None:
+        keep['gradD'] = [p.grad().asnumpy() for p in
+                         netD.collect_params().values()
+                         if p.grad_req != 'null']
+    trainerD.step(batch)
+    with autograd.record():
+        out = netD(netG(noise)).reshape((-1,))
+        errG = L(out, real_label)
+    errG.backward()
+    if keep is not None:
+        keep['gradG'] = [p.grad().asnumpy() for p in
+                         netG.collect_params().values()
+                         if p.grad_req != 'null']
+    trainerG.step(batch)
+    return errD.mean(), errG.mean()
+
+
+def dcgan_setup(mx, ctx, cfg, seed=0, weights=None):
+    """The nets of ``cfg`` in ``ctx``, ``initialize(Normal(0.02))`` from
+    ``seed`` (or ``weights``, a list in ``collect_params`` order), the
+    deferred shapes fixed by one forward outside ``record`` (BatchNorm's
+    moving statistics untouched), the two Adam trainers and the loss.
+    Returns (netG, netD, trainerG, trainerD, L)."""
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon import nn
+    with ctx:
+        mx.random.seed(seed)
+        netG, netD = dcgan_nets(nn, cfg['nz'], cfg['ngf'], cfg['ndf'],
+                                cfg['channels'], cfg['size'])
+        netG.initialize(mx.init.Normal(0.02))
+        netD.initialize(mx.init.Normal(0.02))
+        netD(netG(nd.zeros((1, cfg['nz'], 1, 1))))
+        params = list(netG.collect_params().values()) + \
+            list(netD.collect_params().values())
+        if weights is not None:
+            for p, w in zip(params, weights):
+                p.set_data(nd.array(w))
+        trainerG = gluon.Trainer(netG.collect_params(), 'adam',
+                                 dict(DCGAN_HYPER))
+        trainerD = gluon.Trainer(netD.collect_params(), 'adam',
+                                 dict(DCGAN_HYPER))
+        L = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    return netG, netD, trainerG, trainerD, L
+
+
+def dcgan_first(mx, ctx, cfg, data, noise, weights=None):
+    """The first iteration in ``ctx`` from ``weights`` (or the seeded
+    initialization): its losses, D's and G's gradients before their
+    steps and every parameter after them, as host arrays; the initial
+    weights."""
+    from mxnet_tpu_torch import autograd, nd
+    netG, netD, trainerG, trainerD, L = dcgan_setup(mx, ctx, cfg,
+                                                    weights=weights)
+    params = list(netG.collect_params().values()) + \
+        list(netD.collect_params().values())
+    with ctx:
+        init = [p.data().asnumpy() for p in params]
+        batch = cfg['batch']
+        keep = {}
+        errD, errG = dcgan_iteration(
+            autograd, netG, netD, L, trainerG, trainerD, nd.array(data),
+            nd.array(noise), nd.ones((batch,)), nd.zeros((batch,)), batch,
+            keep)
+        trainable = [p for p in params if p.grad_req != 'null']
+        return {'errD': float(errD.asscalar()), 'errG': float(errG.asscalar()),
+                'grads': keep['gradD'] + keep['gradG'],
+                'after': [p.data().asnumpy() for p in trainable],
+                'names': [p.name for p in trainable],
+                'gradG_first': len(keep['gradD'])}, init
+
+
+def dcgan_float64(torch, cfg, weights, data, noise, d_after=None, lr=2e-4,
+                  beta1=0.5, beta2=0.999, epsilon=1e-8):
+    """The first iteration of :func:`dcgan_iteration` in float64 on the
+    CPU, as plain functional torch over ``weights`` (the trainable ones,
+    in ``collect_params`` order: G's, then D's): the D step's gradients
+    and its Adam step, then the G step's through the updated D (or
+    through ``d_after``, a float32 run's D after its step: the G step's
+    float32 noise apart from the D step's) and its Adam step. Returns the
+    structure of :func:`dcgan_first` (losses, gradients D's then G's,
+    weights after the steps G's then D's)."""
+    import torch.nn.functional as F
+    levels = int(math.log2(cfg['size'])) - 3
+    W = [torch.tensor(w, dtype=torch.float64, requires_grad=True)
+         for w in weights]
+    ng = 3 * levels + 4          # G: levels + 2 convs, levels + 1 BNs
+    W_G, W_D = W[:ng], W[ng:]
+    it = iter(W_G)
+    G = [('convt', next(it), 1, 0), ('bn', next(it), next(it)), ('relu',)]
+    for _ in range(levels):
+        G += [('convt', next(it), 2, 1), ('bn', next(it), next(it)),
+              ('relu',)]
+    G += [('convt', next(it), 2, 1), ('tanh',)]
+    it = iter(W_D)
+    D = [('conv', next(it), 2, 1), ('leaky',)]
+    for _ in range(levels):
+        D += [('conv', next(it), 2, 1), ('bn', next(it), next(it)),
+              ('leaky',)]
+    D += [('conv', next(it), 1, 0)]
+
+    def run(layers, x):
+        for kind, *a in layers:
+            if kind == 'convt':
+                x = F.conv_transpose2d(x, a[0], stride=a[1], padding=a[2])
+            elif kind == 'conv':
+                x = F.conv2d(x, a[0], stride=a[1], padding=a[2])
+            elif kind == 'bn':
+                x = F.batch_norm(x, None, None, a[0], a[1], training=True,
+                                 eps=1e-5)
+            elif kind == 'relu':
+                x = torch.relu(x)
+            elif kind == 'tanh':
+                x = torch.tanh(x)
+            else:
+                x = torch.where(x >= 0, x, 0.2 * x)
+        return x
+
+    def bce(logit, y):
+        logit = logit.reshape(-1)
+        return torch.relu(logit) - logit * y + F.softplus(-torch.abs(logit))
+
+    def adam(ws, gs):
+        eta = lr * (1 - beta2) ** 0.5 / (1 - beta1)
+        with torch.no_grad():
+            for w, g in zip(ws, gs):
+                g = g / cfg['batch']
+                w -= eta * ((1 - beta1) * g) / (
+                    torch.sqrt((1 - beta2) * g * g) + epsilon)
+    x = torch.tensor(data, dtype=torch.float64)
+    fake = run(G, torch.tensor(noise, dtype=torch.float64))
+    errD = bce(run(D, x), 1.0) + bce(run(D, fake.detach()), 0.0)
+    gD = torch.autograd.grad(errD.sum(), W_D)
+    adam(W_D, gD)
+    if d_after is not None:
+        with torch.no_grad():
+            for w, a in zip(W_D, d_after):
+                w.copy_(torch.from_numpy(a))
+    errG = bce(run(D, fake), 1.0)
+    gG = torch.autograd.grad(errG.sum(), W_G)
+    adam(W_G, gG)
+    return {'errD': float(errD.detach().mean()),
+            'errG': float(errG.detach().mean()),
+            'grads': [g.numpy() for g in gD] + [g.numpy() for g in gG],
+            'after': [w.detach().numpy() for w in W],
+            'gradG_first': len(gD)}
+
+
+def _g_then_d(run, key):
+    """``run[key]`` (D's tensors, then G's) in the weights' order, G's
+    then D's."""
+    k = run['gradG_first']
+    return run[key][k:] + run[key][:k]
+
+
+def adam_first_step(w, g, batch, lr=DCGAN_HYPER['learning_rate'],
+                    beta1=DCGAN_HYPER['beta1'], beta2=0.999, epsilon=1e-8):
+    """Adam's first step of the weights ``w`` with gradients ``g`` (the
+    sum over a batch of ``batch``, as ``Trainer.step(batch)`` rescales
+    it), in float64."""
+    import numpy as np
+    g = np.asarray(g, np.float64) / batch
+    eta = lr * (1 - beta2) ** 0.5 / (1 - beta1)
+    return np.asarray(w, np.float64) - eta * ((1 - beta1) * g) / (
+        np.sqrt((1 - beta2) * g * g) + epsilon)
+
+
+def dcgan_against(cpu, card, refs, init, batch):
+    """The card's first iteration against the CPU's (losses), float64
+    (gradients) and Adam's step from ``init`` (the trainable initial
+    weights) with its own gradients (weights). ``refs``: the float64
+    twins whose G step runs through the card's and the CPU's updated D
+    (:func:`dcgan_float64`), each run's G gradients held to its own, the
+    D gradients (before any step) to either. Returns losses' relative
+    gaps card / CPU and card / float64; per tensor the card's and the
+    CPU's gradient gaps of the float64 gradient's norm and of its largest
+    |g|; the worst weight gap of its largest |w|; the card's and the
+    CPU's gradient signs other than float64's. Raises past the tolerances (see
+    ``DCGAN_GRAD_L2``), after the caller may log them (``failed``)."""
+    import numpy as np
+    ref_card, ref_cpu = refs
+    rels = [abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ('errD', 'errG')]
+    rels64 = [abs(card[k] - ref_card[k]) / abs(ref_card[k])
+              for k in ('errD', 'errG')]
+    out = {'rels': rels, 'rels64': rels64, 'gaps': [], 'weight_rel': 0.0,
+           'sign_flips': [0, 0], 'failed': []}
+    if not max(rels) <= DCGAN_LOSS_RTOL:
+        out['failed'].append('errD / errG %r on the card against %r on the '
+                             'CPU (rel %r, limit %g)'
+                             % ([card['errD'], card['errG']],
+                                [cpu['errD'], cpu['errG']], rels,
+                                DCGAN_LOSS_RTOL))
+    for name, g64c, g64p, gc, gp, w0, wc in zip(
+            card['names'], _g_then_d(ref_card, 'grads'),
+            _g_then_d(ref_cpu, 'grads'), _g_then_d(card, 'grads'),
+            _g_then_d(cpu, 'grads'), init, card['after']):
+        gap = []
+        for g, g64 in ((gc, g64c), (gp, g64p)):
+            gap += [float(np.linalg.norm(g - g64))
+                    / max(float(np.linalg.norm(g64)), 1e-30),
+                    float(np.abs(g - g64).max())
+                    / max(float(np.abs(g64).max()), 1e-30)]
+        out['gaps'].append([name] + gap)
+        for who, l2 in (('card', gap[0]), ('CPU', gap[2])):
+            if not l2 <= DCGAN_GRAD_L2:
+                out['failed'].append(
+                    '%s\'s gradient on the %s is %.3g of its norm off '
+                    'float64 (limit %g)' % (name, who, l2, DCGAN_GRAD_L2))
+        out['sign_flips'][0] += int((np.sign(gc) != np.sign(g64c)).sum())
+        out['sign_flips'][1] += int((np.sign(gp) != np.sign(g64p)).sum())
+        want = adam_first_step(w0, gc, batch)
+        werr = float(np.abs(wc - want).max()) / max(float(np.abs(want).max()),
+                                                    1e-30)
+        out['weight_rel'] = max(out['weight_rel'], werr)
+        if werr > DCGAN_WEIGHT_REL:
+            out['failed'].append('%s after the first Adam step is %.3g of '
+                                 'its largest |w| off Adam\'s step with its '
+                                 'gradient (limit %g)'
+                                 % (name, werr, DCGAN_WEIGHT_REL))
+    out['elements'] = int(sum(np.size(w) for w in init))
+    return out
+
+
+def dcgan_launches(netG, netD):
+    """The launches of one iteration: the act forward for each LeakyReLU
+    of D three times (real, fake, the G step) and each relu / tanh of G
+    twice, the act backward for D's twice in the D step and once in the
+    G step and G's once; the loss's softplus (softrelu) forward and
+    backward once a loss call (three); the BN apply for D's BatchNorms
+    three times and G's twice; one Adam update a trainer."""
+    from mxnet_tpu_torch.gluon import nn
+
+    def count(net, *kinds):
+        return sum(isinstance(b, kinds) for b in net._modules.values())
+    d_act, g_act = count(netD, nn.LeakyReLU), count(netG, nn.Activation)
+    d_bn, g_bn = count(netD, nn.BatchNorm), count(netG, nn.BatchNorm)
+    return {'act_fwd': 3 * d_act + 2 * g_act + 3,
+            'act_bwd': 3 * d_act + g_act + 3,
+            'bn_act_fwd': 3 * d_bn + 2 * g_bn, 'multi_tensor_update': 2}
+
+
+def train_dcgan(torch, mx, kernels, cfg=DCGAN, warmup=DCGAN_WARMUP,
+                iters=DCGAN_ITERS, seed=0):
+    """Phase 5h: the DCGAN of ``cfg`` trained on the card by
+    ``examples/dc_gan.py``'s loop. Its first iteration is held against
+    the same on the CPU from the same weights, data and noise
+    (:func:`dcgan_against`); then ``warmup - 1`` more iterations and
+    ``iters`` timed ones (CUDA events), their launches counted: exactly
+    :func:`dcgan_launches` an iteration, the Adam updates on row 17's
+    ``adam`` rule. Losses finite."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd, nd
+    batch = cfg['batch']
+    rs = np.random.RandomState(seed)
+    data = [dcgan_real_batch(rs, batch, cfg['channels'], cfg['size'])
+            for _ in range(warmup + iters)]
+    noise = [rs.randn(batch, cfg['nz'], 1, 1).astype(np.float32)
+             for _ in range(warmup + iters)]
+    t0 = time.perf_counter()
+    card, init = dcgan_first(mx, mx.gpu(0), cfg, data[0], noise[0])
+    cpu, _ = dcgan_first(mx, mx.cpu(), cfg, data[0], noise[0], weights=init)
+    netG, netD, trainerG, trainerD, L = dcgan_setup(mx, mx.gpu(0), cfg,
+                                                    weights=init)
+    trainable = [w for p, w in zip(
+        list(netG.collect_params().values())
+        + list(netD.collect_params().values()), init)
+        if p.grad_req != 'null']
+    nd_ = len([p for p in netD.collect_params().values()
+               if p.grad_req != 'null'])
+    refs = [dcgan_float64(torch, cfg, trainable, data[0], noise[0],
+                          d_after=run['after'][-nd_:]) for run in (card, cpu)]
+    cpu_s = time.perf_counter() - t0
+    first = dcgan_against(cpu, card, refs, trainable, batch)
+    first.update(card=[card['errD'], card['errG']],
+                 cpu=[cpu['errD'], cpu['errG']],
+                 float64=[refs[0]['errD'], refs[0]['errG']])
+    if first['failed']:
+        log_dcgan({'first': first}, None)
+        raise AssertionError('phase 5h: %s' % '; '.join(first['failed']))
+    nparams = [sum(int(np.prod(p.shape)) for p in n.collect_params().values()
+                   if p.grad_req != 'null') for n in (netG, netD)]
+    losses = []
+    with mx.gpu(0):
+        ones, zeros = nd.ones((batch,)), nd.zeros((batch,))
+        xs = [nd.array(x) for x in data]
+        zs = [nd.array(z) for z in noise]
+        for i in range(warmup):
+            losses.append(dcgan_iteration(autograd, netG, netD, L, trainerG,
+                                          trainerD, xs[i], zs[i], ones,
+                                          zeros, batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        events = []
+        t1 = time.perf_counter()
+        for i in range(warmup, warmup + iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(dcgan_iteration(autograd, netG, netD, L, trainerG,
+                                          trainerD, xs[i], zs[i], ones,
+                                          zeros, batch))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    instances = kernels.instance_launches()
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({k: v * iters for k, v in dcgan_launches(netG,
+                                                         netD).items()})
+    if counts != want or instances != {('multi_tensor_update', 'adam'):
+                                       2 * iters}:
+        raise AssertionError('phase 5h: launches %r (%r) in %d iterations, '
+                             'expected %r' % ({k: v for k, v in counts.items()
+                                               if v}, instances, iters,
+                                              {k: v for k, v in want.items()
+                                               if v}))
+    losses = [(float(d.asscalar()), float(g.asscalar())) for d, g in losses]
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError('phase 5h: a loss is not finite: %r' % losses)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    out = {'first': first,
+           'params': nparams, 'losses': losses, 'launches': counts,
+           'instances': instances, 'iter_ms': statistics.mean(step_ms),
+           'iter_ms_each': step_ms, 'img_per_s': batch * iters / wall,
+           'wall_s': wall, 'cpu_check_s': cpu_s,
+           'peak_mem_bytes': torch.cuda.max_memory_allocated()}
+    del netG, netD, trainerG, trainerD, xs, zs
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_dcgan(dc, card):
+    """Phase 5h's lines (the first iteration's alone when it failed)."""
+    f = dc['first']
+    log('phase 5h first iteration, card against CPU and a float64 twin '
+        '(same weights, data, noise; TF32 off): errD / errG %s, CPU %s, '
+        'float64 %s; card / CPU rel %s (limit %g), card / float64 rel %s'
+        % (['%.7f' % v for v in f['card']], ['%.7f' % v for v in f['cpu']],
+           ['%.7f' % v for v in f['float64']],
+           ['%.3g' % r for r in f['rels']], DCGAN_LOSS_RTOL,
+           ['%.3g' % r for r in f['rels64']]))
+    log('phase 5h gradients off float64 [name, card: of the norm, of the '
+        'largest |g|; CPU: the same]: %s (limit %g of the norm); weights '
+        'after the two Adam steps within %.3g of its largest |w| of Adam\'s '
+        'step with the card\'s gradients in float64 (limit %g); gradient '
+        'signs other than float64\'s: card %d, CPU %d, of %d elements'
+        % (json.dumps([[g[0]] + [float('%.3g' % v) for v in g[1:]]
+                       for g in f['gaps']]), DCGAN_GRAD_L2, f['weight_rel'],
+           DCGAN_WEIGHT_REL, f['sign_flips'][0], f['sign_flips'][1],
+           f['elements']))
+    if 'params' not in dc:
+        return
+    log('phase 5h slice: DCGAN at %s (G %d, D %d parameters), %d + %d '
+        'iterations; launches in the timed iterations %s (adam rule %s); '
+        'losses (errD, errG) first %s, last %s'
+        % (DCGAN_SOURCE, dc['params'][0], dc['params'][1], DCGAN_WARMUP,
+           DCGAN_ITERS, {k: v for k, v in dc['launches'].items() if v},
+           dc['instances'], dc['losses'][0], dc['losses'][-1]))
+    log('phase 5h metrics [%s]: %.3f ms an iteration (CUDA events; each %s), '
+        '%.2f images/s, peak memory %d B, the CPU check %.1f s'
+        % (card, dc['iter_ms'], ['%.3f' % t for t in dc['iter_ms_each']],
+           dc['img_per_s'], dc['peak_mem_bytes'], dc['cpu_check_s']))
 
 
 def kernel_rows(errs, times, train_times, launches_by_path):
@@ -10811,6 +11582,7 @@ def kernel_rows(errs, times, train_times, launches_by_path):
                                       'scan_device_ms', 'finish_device_ms',
                                       'host_ms', 'chain_ms',
                                       'chain_device_ms', 'by_list',
+                                      'by_rule',
                                       'at_head_dim_%d' % HEAD_DIM_TIMED,
                                       'at_head_dims')
                     if k in t})
@@ -11219,6 +11991,43 @@ def _main():
            TRAIN_WARMUP + TRAIN_ITERS, cap_ms, eager_ms, card))
     torch.cuda.empty_cache()
 
+    # phase 4n: 4b's configuration with Adam in place of AdamW (row 17's
+    # adam rule, its lr bias-corrected each step, through the captured
+    # step's columns), then its captured steps against their eager twins
+    tn = train_full(torch, bert, gloss, parallel, kernels, cuda,
+                    warmup=ADAM_WARMUP, iters=ADAM_ITERS, opt='adam',
+                    phase='phase 4n')
+    if tn['losses'][0] != tr['losses'][0]:
+        raise AssertionError('phase 4n: first loss %r is not 4b\'s %r (the '
+                             'same weights, batch and masks before any '
+                             'update)' % (tn['losses'][0], tr['losses'][0]))
+    log('phase 4n slice: BERT-base with Adam (%s), batch %d, S %d, %d '
+        'warm-up + %d timed steps; launches in the timed steps %s (adam '
+        'rule %s); losses %s (the first equal to 4b\'s)'
+        % (json.dumps(TRAIN_HYPER), TRAIN['batch'], TRAIN['seq'],
+           ADAM_WARMUP, ADAM_ITERS, {k: v for k, v in tn['launches'].items()
+                                     if v},
+           {k[1]: v for k, v in tn['instances'].items()
+            if k[0].startswith('multi_tensor_update')}, tn['losses']))
+    log('phase 4n metrics [%s]: samples/s %.2f (4b %.2f), mean step %.3f ms '
+        '(4b %.3f; CUDA events; each %s), peak memory %d B'
+        % (card, tn['samples_per_s'], tr['samples_per_s'], tn['step_ms'],
+           tr['step_ms'], ['%.3f' % t for t in tn['step_ms_each']],
+           tn['peak_mem_bytes']))
+    log_profile('phase 4n', card, tn['profile'])
+    torch.cuda.empty_cache()
+    cap_n, eager_n = bert_twins(torch, bert, gloss, parallel, cuda,
+                                opt='adam', steps=ADAM_WARMUP + ADAM_ITERS)
+    log('phase 4n program: captured at the second step in %s s; twins: %d '
+        'steps (%d + %d) captured bit for bit the eager body\'s, losses and '
+        'every parameter; mean step %.3f ms captured, %.3f ms eager (CUDA '
+        'events, deterministic algorithms) [%s]'
+        % (json.dumps({k: round(v, 4) for k, v in
+                       tn['compile_seconds'].items()}),
+           ADAM_WARMUP + ADAM_ITERS, ADAM_WARMUP, ADAM_ITERS, cap_n, eager_n,
+           card))
+    torch.cuda.empty_cache()
+
     # phase 4c: the same under amp='bf16' (bf16 compute over float32
     # masters), first its small BERT on the card against the CPU
     train_against_cpu(torch, bert, gloss, parallel, cuda, amp='bf16')
@@ -11470,6 +12279,15 @@ def _main():
     log('phase 5g wall [%s]: %.1f s' % (card, time.perf_counter() - t0))
     torch.cuda.empty_cache()
 
+    # phase 5h: the reference's DCGAN at the upstream example's widths,
+    # trained by examples/dc_gan.py's loop (two Adam trainers on row 17's
+    # adam rule, the activations on rows 7 / 8, the BatchNorms on row 5)
+    t0 = time.perf_counter()
+    dc = train_dcgan(torch, mx, kernels)
+    log_dcgan(dc, card)
+    log('phase 5h wall [%s]: %.1f s' % (card, time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+
     # phase 6: the SSD detection serving slice
     errs.update(check_nms_kernel(torch, kernels, cuda))
     ssd_against_cpu(torch, ssd, ops, kernels, gnn, cuda)
@@ -11662,6 +12480,7 @@ def _main():
                             hs['drain']['launches'],
                         'degraded serving': rf['launches'],
                         'training': tr['launches'],
+                        'bert adam training': tn['launches'],
                         'bert amp training': tc['launches'],
                         'bert bf16 training': cast_runs['cast']['launches'],
                         'bert bf16 training with masters':
@@ -11678,6 +12497,7 @@ def _main():
                         'gluon resnet training': ga['launches'],
                         'gluon resnet bf16 training': gb['launches'],
                         'gluon lenet training': gc['launches'],
+                        'dcgan training': dc['launches'],
                         'trainer telemetry and resilience': rt['launches'],
                         'resnet amp training': bf16_runs['amp']['launches'],
                         'resnet amp inference':
@@ -11702,6 +12522,18 @@ def _main():
                         'rnn-lm standard_lstm_lm_1500 widths serving':
                             r3b['launches'],
                         'matmul probe': probe_launches})
+    # row 17's launches on the main paths by rule, where a phase counted
+    # them by instance (4b-4d-mp, 4n, 5h)
+    by_rule = {}
+    for got in [tr, tc, cast_runs['cast'], cast_runs['cast_mp'], tn,
+                {'instances': dc['instances']}]:
+        for (kname, inst), v in got['instances'].items():
+            if kname.startswith('multi_tensor_update'):
+                key = by_rule.setdefault(kname, {})
+                key[inst] = key.get(inst, 0) + v
+    for row in rows:
+        if row['name'] in by_rule:
+            row['launches_by_rule'] = by_rule[row['name']]
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

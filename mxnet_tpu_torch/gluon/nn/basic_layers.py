@@ -1,8 +1,9 @@
 """Core layers of the BERT and ResNet paths and of the gluon loop, the
 counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py`` (``Sequential`` /
 ``HybridSequential`` :22-78, ``Dense`` :80, ``Dropout`` :124,
-``BatchNorm`` :167, ``Embedding`` :245, ``Flatten`` :270, ``LayerNorm``
-:315) and of ``Activation`` in ``mxnet_tpu/gluon/nn/activations.py``.
+``BatchNorm`` :167, ``Embedding`` :245, ``Flatten`` :270,
+``InstanceNorm`` :281, ``LayerNorm`` :315). ``Activation`` lives in
+``activations.py`` and is exported here too.
 
 Parameters keep the JAX layouts (``Dense`` weight (units, in_units),
 ``Embedding`` weight (input_dim, output_dim)), names (``weight``,
@@ -24,10 +25,11 @@ from ... import random as _random
 from ...context import resolve_device
 from ...ops import nn as ops
 from ..block import Block, HybridBlock, torch_dtype, training
+from .activations import Activation
 
 __all__ = ['Activation', 'BatchNorm', 'Dense', 'Dropout', 'Embedding',
-           'Flatten', 'HybridLambda', 'HybridSequential', 'Lambda',
-           'LayerNorm', 'Sequential']
+           'Flatten', 'HybridLambda', 'HybridSequential', 'InstanceNorm',
+           'Lambda', 'LayerNorm', 'Sequential']
 
 
 def _declare(block, name, shape, init, device, grad_req='write',
@@ -84,24 +86,6 @@ class HybridSequential(Sequential, HybridBlock):
     """Sequential of hybridizable blocks."""
 
     forward = Sequential.forward
-
-
-class Activation(HybridBlock):
-    """Elementwise activation chosen by name (``ops.nn.activation``)."""
-
-    def __init__(self, activation, prefix=None):
-        self._kind = activation
-        super().__init__(prefix)
-
-    @property
-    def _unscoped_prefix(self):
-        return self._kind + '_'
-
-    def _alias(self):
-        return self._kind
-
-    def forward(self, x):
-        return ops.activation(x, self._kind)
 
 
 class Dense(HybridBlock):
@@ -252,6 +236,40 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return ops.embedding(x, self.weight)
+
+
+class InstanceNorm(HybridBlock):
+    """Per-sample, per-channel normalization over the spatial axes
+    (``InstanceNorm`` op): ``(x - mean) / sqrt(var + eps) * gamma +
+    beta``; gamma (ones) takes no gradient unless ``scale``, beta (zeros)
+    none unless ``center``. ``axis`` other than 1 is swapped in and back
+    out, as the JAX layer does."""
+
+    _unscoped_prefix = 'instancenorm_'
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer='zeros', gamma_initializer='ones',
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(prefix, params)
+        self._axis, self._epsilon = axis, epsilon
+        self.in_channels = in_channels
+        c = (in_channels,)
+        with self.name_scope():
+            _declare(self, 'gamma', c, gamma_initializer, device,
+                     'write' if scale else 'null')
+            _declare(self, 'beta', c, beta_initializer, device,
+                     'write' if center else 'null')
+
+    def forward(self, x):
+        if self.gamma is None:
+            _materialize(self, x, dict.fromkeys(
+                ('gamma', 'beta'), (int(x.shape[self._axis]),)))
+        if self._axis == 1:
+            return ops.instance_norm(x, self.gamma, self.beta,
+                                     eps=self._epsilon)
+        out = ops.instance_norm(x.transpose(1, self._axis), self.gamma,
+                                self.beta, eps=self._epsilon)
+        return out.transpose(1, self._axis)
 
 
 class LayerNorm(HybridBlock):

@@ -6,9 +6,14 @@ step, through the port's whole-model update, :class:`FusedUpdate`
 (``optimizer/fused.py``): one multi-tensor kernel launch per parameter
 form on a card, the per-parameter ``update_multi_precision`` loop on the
 CPU. It stands where the JAX Trainer's ``_try_fused_update``
-(trainer.py:329-355) stands; the JAX package's eager-loop fallback is not
-copied: on a card an optimizer the kernel has no rule for (anything but
-the port's SGD and AdamW) raises ``FusedUpdateError``.
+(trainer.py:329-355) stands: every optimizer whose ``fusable`` is True
+takes one kernel launch per parameter form on a card, and the three that
+the reference keeps out of its fused update (``SGLD``, ``Nadam``,
+``LBSGD``: ``fusable`` False, trainer.py:335) run their per-parameter
+loop there, as in the reference. The JAX package's fallback from a
+failed trace to that loop is not copied: on a card a fusable optimizer
+the kernel has no rule for (a subclass of one with a rule) raises
+``FusedUpdateError``.
 
 A parameter with ``grad_req`` other than ``'null'`` whose gradient is
 stale (no backward wrote it since the last step) raises the reference's
@@ -96,14 +101,16 @@ class Trainer:
         self._updaters = [opt.get_updater(self._optimizer)]
 
     def _check_rule(self):
-        """On a card the whole-model update needs a rule for the
+        """On a card the whole-model update needs a rule for a fusable
         optimizer: refuse early when the parameters already live there."""
         devices = {p._tensor.device.type for p in self._params
                    if p._tensor is not None}
-        if 'cuda' in devices and _fused.rule_of(self._optimizer) is None:
+        if 'cuda' in devices and self._optimizer.fusable and \
+                _fused.rule_of(self._optimizer) is None:
             raise _fused.FusedUpdateError(
                 'the whole-model update has no kernel for %s on a CUDA '
-                "device: it covers the port's SGD and AdamW"
+                'device: it covers the fusable optimizers of the port, '
+                'exactly those classes'
                 % type(self._optimizer).__name__)
 
     @property

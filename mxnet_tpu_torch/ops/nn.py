@@ -6,16 +6,23 @@ order of operations, so the CPU parity tests compare like with like:
 
   * :func:`fully_connected` (nn.py:29): ``x @ W^T`` then ``+ b``, W (out,
     in);
-  * :func:`convolution` (nn.py:100): 2-D NCHW convolution as one
-    ``F.conv2d`` (the JAX op is one XLA convolution, outside any Pallas
-    kernel);
-  * :func:`pooling` (nn.py:261): max pooling with ``_max_pool_core``'s
-    equality-mask backward (:class:`MaxPoolFunction`) and global average
-    pooling;
+  * :func:`convolution` (nn.py:100): 1-, 2- or 3-D convolution over
+    NC(D)(H)W as one ``F.conv{1,2,3}d`` (the JAX op is one XLA
+    convolution, outside any Pallas kernel); :func:`deconvolution`
+    (nn.py:138), the transposed convolution with the (in, out / groups,
+    *kernel) weight and the output padding ``adj``, as one
+    ``F.conv_transpose{1,2,3}d``;
+  * :func:`pooling` (nn.py:261): 1-, 2- or 3-D max pooling with
+    ``_max_pool_core``'s equality-mask backward (:class:`MaxPoolFunction`),
+    sum and average windows (``count_include_pad`` either way), the
+    ``full`` convention's right extension, and global max, sum and
+    average pooling;
   * :func:`activation` (nn.py:439) and :func:`leaky_relu` (nn.py:454):
     the kernel-covered activations go through the epilogue kernels'
     save-output core, as the JAX ops do with the ``epilogue`` family on;
-    gelu stays plain;
+    elu and selu through the same save-output backward in plain torch
+    (:class:`OutputActFunction`, ``_act_core``), as the JAX op with
+    ``MXNET_TPU_VJP_RESCHEDULE`` on (its default); prelu and gelu plain;
   * :func:`add_relu` (nn.py:490): the ResNet v1 block join through the
     add+act kernel;
   * :func:`batch_norm` (nn.py:785-917): training mode through
@@ -68,6 +75,7 @@ casts are the identity.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -77,8 +85,9 @@ from ..amp import cast_op_inputs as _amp
 from .kernels import (bn_act_forward, flash_attention, fused_act,
                       fused_add_act, fused_bn_apply, fused_softmax_xent_rows)
 
-__all__ = ['fully_connected', 'convolution', 'pooling', 'MaxPoolFunction',
-           'activation', 'leaky_relu', 'add_relu', 'batch_norm',
+__all__ = ['fully_connected', 'convolution', 'deconvolution', 'pooling',
+           'MaxPoolFunction', 'OutputActFunction', 'activation',
+           'leaky_relu', 'instance_norm', 'add_relu', 'batch_norm',
            'BatchNormTrainFunction', 'flash_attention_op',
            'softmax_cross_entropy', 'fused_softmax_xent', 'layer_norm',
            'LayerNormFunction', 'dropout', 'embedding', 'flatten',
@@ -96,78 +105,173 @@ def fully_connected(data, weight, bias=None, flatten=True):
     return out
 
 
-def _pair(v, what):
-    t = (int(v),) * 2 if isinstance(v, int) else tuple(int(a) for a in v)
-    if len(t) != 2:
-        raise ValueError('%s must be an int or 2 ints, got %r' % (what, v))
+def _ntuple(v, n, what):
+    """``v`` (an int, or ``n`` ints) as an ``n``-tuple of ints."""
+    t = (int(v),) * n if isinstance(v, int) else tuple(int(a) for a in v)
+    if len(t) != n:
+        raise ValueError('%s must be an int or %d ints, got %r'
+                         % (what, n, v))
     return t
+
+
+def _spatial(data, what):
+    nd_ = data.dim() - 2
+    if nd_ not in (1, 2, 3):
+        raise NotImplementedError('%s: 1-, 2- or 3-D data (N, C, ...) only, '
+                                  'got %d-D' % (what, data.dim()))
+    return nd_
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
 
 
 def convolution(data, weight, bias=None, stride=1, pad=0, dilate=1,
                 num_group=1):
-    """2-D convolution over NCHW ``data`` with an (out, in // groups, kh,
-    kw) ``weight`` and an optional (out,) ``bias``."""
-    if data.dim() != 4:
-        raise NotImplementedError('convolution: only the 2-D NCHW form is '
-                                  'ported, got %d-D data' % data.dim())
+    """1-, 2- or 3-D convolution over NC(D)(H)W ``data`` with an (out, in
+    // groups, *kernel) ``weight`` and an optional (out,) ``bias``."""
+    nd_ = _spatial(data, 'convolution')
     data, weight, bias = _amp('Convolution', data, weight, bias)
-    return F.conv2d(data, weight, bias, stride=_pair(stride, 'stride'),
-                    padding=_pair(pad, 'pad'),
-                    dilation=_pair(dilate, 'dilate'), groups=int(num_group))
+    return _CONV[nd_](data, weight, bias,
+                      stride=_ntuple(stride, nd_, 'stride'),
+                      padding=_ntuple(pad, nd_, 'pad'),
+                      dilation=_ntuple(dilate, nd_, 'dilate'),
+                      groups=int(num_group))
+
+
+def deconvolution(data, weight, bias=None, stride=1, pad=0, adj=0,
+                  dilate=1, num_group=1):
+    """1-, 2- or 3-D transposed convolution with an (in, out // groups,
+    *kernel) ``weight``: ``pad`` cut from each side of the full output,
+    ``adj`` added on the right (the reference's ``target_shape`` is not
+    read, as the JAX op reads it not)."""
+    nd_ = _spatial(data, 'deconvolution')
+    data, weight, bias = _amp('Deconvolution', data, weight, bias)
+    return _CONV_T[nd_](data, weight, bias,
+                        stride=_ntuple(stride, nd_, 'stride'),
+                        padding=_ntuple(pad, nd_, 'pad'),
+                        output_padding=_ntuple(adj, nd_, 'adj'),
+                        groups=int(num_group),
+                        dilation=_ntuple(dilate, nd_, 'dilate'))
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _pad_list(pad, extra):
+    """``F.pad``'s list (last axis first) for ``pad`` on each side of each
+    spatial axis and ``extra`` more on its right."""
+    flat = []
+    for p, e in reversed(list(zip(pad, extra))):
+        flat += [p, p + e]
+    return flat
 
 
 class MaxPoolFunction(torch.autograd.Function):
     """``_max_pool_core`` (nn.py:193-254): max pooling whose backward
     gives the cotangent of a window to EVERY position equal to the
     window's max (the reference's pool.h rule), where autograd of
-    ``F.max_pool2d`` picks one winner. For each of the kh x kw window
-    offsets, one strided slice of the -inf-padded input is compared with
-    the output and the masked cotangent is added back at that offset, in
-    the JAX loop's order."""
+    ``F.max_pool2d`` picks one winner. For each of the window offsets (in
+    the JAX loop's order, the last axis fastest), one strided slice of the
+    -inf-padded input is compared with the output and the masked
+    cotangent is added back at that offset. 1-, 2- or 3-D; ``extra`` the
+    ``full`` convention's right extension of each axis."""
 
     @staticmethod
-    def forward(ctx, data, kernel, stride, pad):
-        out = F.max_pool2d(data, kernel, stride, pad)
+    def forward(ctx, data, kernel, stride, pad, extra=None):
+        nd_ = data.dim() - 2
+        extra = tuple(extra) if extra is not None else (0,) * nd_
+        if any(extra):
+            out = _MAX_POOL[nd_](F.pad(data, _pad_list(pad, extra),
+                                       value=-math.inf), kernel, stride, 0)
+        else:
+            out = _MAX_POOL[nd_](data, kernel, stride, pad)
         ctx.save_for_backward(data, out)
-        ctx.kernel, ctx.stride, ctx.pad = kernel, stride, pad
+        ctx.kernel, ctx.stride, ctx.pad, ctx.extra = (kernel, stride, pad,
+                                                      extra)
         return out
 
     @staticmethod
     def backward(ctx, g):
         data, out = ctx.saved_tensors
-        (kh, kw), (sh, sw), (ph, pw) = ctx.kernel, ctx.stride, ctx.pad
-        xp = F.pad(data, (pw, pw, ph, ph), value=-math.inf)
-        oh, ow = out.shape[2:]
+        k, s, p = ctx.kernel, ctx.stride, ctx.pad
+        xp = F.pad(data, _pad_list(p, ctx.extra), value=-math.inf)
+        osp = out.shape[2:]
         dxp = torch.zeros(xp.shape, dtype=g.dtype, device=g.device)
-        for i in range(kh):
-            for j in range(kw):
-                rows = slice(i, i + (oh - 1) * sh + 1, sh)
-                cols = slice(j, j + (ow - 1) * sw + 1, sw)
-                hit = (xp[:, :, rows, cols] == out).to(g.dtype)
-                dxp[:, :, rows, cols] += g * hit
-        h, w = data.shape[2:]
-        dx = dxp[:, :, ph:ph + h, pw:pw + w]
-        return dx.to(data.dtype), None, None, None
+        both = (slice(None), slice(None))
+        for off in itertools.product(*(range(kk) for kk in k)):
+            at = both + tuple(slice(o, o + (n - 1) * st + 1, st)
+                              for o, n, st in zip(off, osp, s))
+            hit = (xp[at] == out).to(g.dtype)
+            dxp[at] += g * hit
+        dx = dxp[both + tuple(slice(pp, pp + n)
+                              for pp, n in zip(p, data.shape[2:]))]
+        return dx.to(data.dtype), None, None, None, None
+
+
+def _window_sum(data, k, s, p, extra):
+    """The sum over each pooling window of ``data`` padded with zeros
+    (``p`` each side, ``extra`` more on the right)."""
+    nd_ = data.dim() - 2
+    if nd_ == 1:
+        return _window_sum(data.unsqueeze(2), (1,) + k, (1,) + s,
+                           (0,) + p, (0,) + extra).squeeze(2)
+    pool = F.avg_pool2d if nd_ == 2 else F.avg_pool3d
+    if any(extra):
+        data, p = F.pad(data, _pad_list(p, extra)), (0,) * nd_
+    return pool(data, k, s, p, count_include_pad=True, divisor_override=1)
 
 
 def pooling(data, kernel=(1, 1), pool_type='max', global_pool=False,
-            stride=None, pad=0):
-    """2-D pooling over NCHW ``data``: max pooling over windows
-    (``pooling_convention='valid'``) or average pooling over the whole
-    plane (``global_pool``), the two kinds ResNet v1 runs. The JAX op
-    falls back to autodiff's one-winner backward above 64 window offsets;
-    the port keeps the equality rule for every window."""
-    if data.dim() != 4:
-        raise NotImplementedError('pooling: only 2-D NCHW is ported')
-    if global_pool and pool_type == 'avg':
-        return torch.mean(data, dim=(2, 3), keepdim=True)
-    if not global_pool and pool_type == 'max':
-        k = _pair(kernel, 'kernel')
-        s = k if stride is None else _pair(stride, 'stride')
-        return MaxPoolFunction.apply(data, k, s, _pair(pad, 'pad'))
-    raise NotImplementedError('pooling: %s%s pooling is not ported '
-                              '(ROADMAP: "the rest of training")' % (
-                                  'global ' if global_pool else '', pool_type))
+            stride=None, pad=0, pooling_convention='valid',
+            count_include_pad=True):
+    """1-, 2- or 3-D pooling over NC(D)(H)W ``data`` (``pooling``,
+    nn.py:261-322): ``global_pool`` reduces each plane (max, sum, avg);
+    else windows of ``kernel`` at ``stride`` (the kernel by default) with
+    ``pad``: max through :class:`MaxPoolFunction`, sum, or avg (the window
+    sum over the window's size, or with ``count_include_pad`` False over
+    the count of its unpadded positions). ``pooling_convention='full'``
+    rounds the output size up, the windows past the end reading padding,
+    as the reference's. The JAX op falls back to autodiff's one-winner
+    backward above 64 window offsets; the port keeps the equality rule for
+    every window."""
+    nd_ = _spatial(data, 'pooling')
+    if global_pool:
+        axes = tuple(range(2, 2 + nd_))
+        if pool_type == 'max':
+            return torch.amax(data, dim=axes, keepdim=True)
+        if pool_type == 'sum':
+            return torch.sum(data, dim=axes, keepdim=True)
+        if pool_type == 'avg':
+            return torch.mean(data, dim=axes, keepdim=True)
+    k = _ntuple(kernel, nd_, 'kernel')
+    s = k if stride is None else _ntuple(stride, nd_, 'stride')
+    p = _ntuple(pad, nd_, 'pad')
+    if pooling_convention == 'full':
+        extra = []
+        for i in range(nd_):
+            rem = (int(data.shape[2 + i]) + 2 * p[i] - k[i]) % s[i]
+            extra.append((s[i] - rem) % s[i] if rem else 0)
+        extra = tuple(extra)
+    elif pooling_convention == 'valid':
+        extra = (0,) * nd_
+    else:
+        raise NotImplementedError('pooling: pooling_convention=%r is not '
+                                  'ported' % (pooling_convention,))
+    if pool_type == 'max' and not global_pool:
+        return MaxPoolFunction.apply(data, k, s, p,
+                                     extra if any(extra) else None)
+    if pool_type not in ('avg', 'sum') or global_pool:
+        raise NotImplementedError('pooling: %s%s pooling is not ported'
+                                  % ('global ' if global_pool else '',
+                                     pool_type))
+    ssum = _window_sum(data, k, s, p, extra)
+    if pool_type == 'sum':
+        return ssum
+    if count_include_pad:
+        return ssum / float(math.prod(k))
+    return ssum / _window_sum(torch.ones_like(data), k, s, p, extra)
 
 
 # the activations with an output-only derivative: the epilogue kernels'
@@ -188,20 +292,68 @@ def activation(data, act_type='relu'):
                                                    | {'gelu'}))))
 
 
-def leaky_relu(data, act_type='leaky', slope=0.25):
-    """``LeakyReLU``: ``leaky`` (and ``rrelu``, which the JAX op computes
-    as leaky) through the act kernels when ``slope > 0`` -- the sign
-    invariant the output-only backward needs -- and plainly otherwise;
-    ``gelu`` plain. The other kinds (prelu, elu, selu) are not ported."""
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+_SQRT_HALF = math.sqrt(0.5)
+
+
+class OutputActFunction(torch.autograd.Function):
+    """elu / selu with the JAX op's save-output backward (``_act_core``,
+    nn.py:375-437): the forward ``where(x >= 0, x, slope * expm1(x))``
+    (selu: ``scale * where(x >= 0, x, alpha * expm1(x))``), the output
+    saved, the derivative from it, ``where(out >= 0, 1, out + slope)``
+    (selu: ``where(out >= 0, scale, out + scale * alpha)``). Plain torch:
+    the JAX package computes them with XLA, outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, data, act_type, slope):
+        if act_type == 'elu':
+            out = torch.where(data >= 0, data, slope * torch.expm1(data))
+        else:
+            out = _SELU_SCALE * torch.where(
+                data >= 0, data, _SELU_ALPHA * torch.expm1(data))
+        ctx.save_for_backward(out)
+        ctx.act_type, ctx.slope = act_type, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        one = torch.ones_like(out)
+        if ctx.act_type == 'elu':
+            d = torch.where(out >= 0, one, out + ctx.slope)
+        else:
+            d = torch.where(out >= 0, _SELU_SCALE * one,
+                            out + _SELU_SCALE * _SELU_ALPHA)
+        return (g * d).to(out.dtype), None, None
+
+
+def leaky_relu(data, act_type='leaky', slope=0.25, gamma=None):
+    """``LeakyReLU`` (nn.py:454-487): ``leaky`` (and ``rrelu``, which the
+    JAX op computes as leaky) through the act kernels when ``slope > 0``
+    -- the sign invariant the output-only backward needs -- and plainly
+    otherwise; ``prelu`` ``where(x >= 0, x, gamma x)`` with the learned
+    ``gamma`` (a (C,) one broadcast over axis 1); ``elu`` (``slope`` its
+    alpha; :class:`OutputActFunction` when ``slope > 0``, else plain) and
+    ``selu`` through :class:`OutputActFunction`; ``gelu`` plain, as
+    ``jax.nn.gelu`` computes it, ``0.5 x erfc(-x sqrt(1/2))`` (exact in
+    the negative tail, where ``1 + erf`` cancels)."""
     if act_type in ('leaky', 'rrelu'):
         if slope > 0:
             return fused_act(data, 'leaky', float(slope))
         return torch.where(data >= 0, data, slope * data)
+    if act_type == 'prelu':
+        if gamma.dim() == 1 and data.dim() > 1:
+            gamma = gamma.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data >= 0, data, gamma * data)
+    if act_type == 'elu':
+        if slope > 0:
+            return OutputActFunction.apply(data, 'elu', float(slope))
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == 'selu':
+        return OutputActFunction.apply(data, 'selu', 0.0)
     if act_type == 'gelu':
-        return F.gelu(data, approximate='none')
-    raise NotImplementedError('leaky_relu: act_type %r is not ported '
-                              '(ROADMAP: "the rest of training")'
-                              % (act_type,))
+        return 0.5 * data * torch.erfc(-data * _SQRT_HALF)
+    raise ValueError('unknown act_type %s' % (act_type,))
 
 
 def add_relu(data, residual):
@@ -639,37 +791,14 @@ def _convolution_op(args, *, kernel=None, stride=None, dilate=None, pad=None,
 def _pooling_op(data, *, kernel=None, pool_type='max', global_pool=False,
                 cudnn_off=False, pooling_convention='valid', stride=None,
                 pad=None, p_value=2, count_include_pad=True, layout=None):
-    """The reference op: global max / sum / avg, or windows of
-    ``kernel`` at ``stride`` (1 by default, as the reference's) with
-    ``pad``; max windows through :func:`pooling`'s equality-rule
-    backward, sum and avg windows as a window sum (avg divided by the
-    window size, or by the count of unpadded positions)."""
-    if global_pool:
-        if pool_type == 'max':
-            return torch.amax(data, dim=(2, 3), keepdim=True)
-        if pool_type == 'sum':
-            return torch.sum(data, dim=(2, 3), keepdim=True)
-        return pooling(data, pool_type='avg', global_pool=True)
-    if pooling_convention != 'valid':
-        raise NotImplementedError('Pooling: pooling_convention=%r is not '
-                                  'ported' % (pooling_convention,))
-    k = _pair(kernel, 'kernel')
-    s = _pair(stride, 'stride') if stride else (1, 1)
-    p = _pair(pad, 'pad') if pad else (0, 0)
-    if pool_type == 'max':
-        return pooling(data, kernel=k, pool_type='max', stride=s, pad=p)
-    if pool_type not in ('avg', 'sum'):
-        raise NotImplementedError('Pooling: pool_type=%r is not ported'
-                                  % (pool_type,))
-    ssum = F.avg_pool2d(data, k, s, p, count_include_pad=True,
-                        divisor_override=1)
-    if pool_type == 'sum':
-        return ssum
-    if count_include_pad:
-        return ssum / float(k[0] * k[1])
-    cnt = F.avg_pool2d(torch.ones_like(data), k, s, p,
-                       count_include_pad=True, divisor_override=1)
-    return ssum / cnt
+    """The reference op: :func:`pooling`, its stride 1 by default, as the
+    reference's."""
+    nd_ = data.dim() - 2
+    return pooling(data, kernel=kernel if kernel else (1,) * nd_,
+                   pool_type=pool_type, global_pool=global_pool,
+                   stride=stride if stride else 1, pad=pad if pad else 0,
+                   pooling_convention=pooling_convention,
+                   count_include_pad=count_include_pad)
 
 
 @_register('Activation')
@@ -680,7 +809,8 @@ def _activation_op(data, *, act_type='relu'):
 @_register('LeakyReLU', num_inputs=-1)
 def _leaky_relu_op(args, *, act_type='leaky', slope=0.25, lower_bound=0.125,
                    upper_bound=0.334):
-    return leaky_relu(args[0], act_type, slope)
+    return leaky_relu(args[0], act_type, slope,
+                      args[1] if len(args) > 1 else None)
 
 
 _register('_contrib_add_relu', num_inputs=2)(add_relu)
@@ -877,7 +1007,10 @@ def _svm_output_op(data, label, *, margin=1.0, regularization_coefficient=1.0,
 
 
 @_register('InstanceNorm', num_inputs=3)
-def _instance_norm_op(data, gamma, beta, *, eps=1e-3):
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """``InstanceNorm`` (nn.py:994-1001): each (sample, channel) plane
+    normalized by its mean and (biased) variance, then ``* gamma +
+    beta`` per channel."""
     red = tuple(range(2, data.dim()))
     mean = torch.mean(data, dim=red, keepdim=True)
     var = torch.mean(torch.square(data - mean), dim=red, keepdim=True)
@@ -1033,17 +1166,13 @@ def _deconvolution_op(args, *, kernel=None, stride=None, dilate=None,
                       pad=None, adj=None, target_shape=None, num_filter=None,
                       num_group=1, workspace=512, no_bias=True,
                       cudnn_tune=None, cudnn_off=False, layout=None):
-    """Transposed convolution with the (in, out / groups, *kernel) weight
-    layout: ``conv_transpose`` with ``pad`` and the output padding
-    ``adj``."""
+    """:func:`deconvolution` with the reference's arguments."""
     data, weight = args[0], args[1]
     nd_ = len(kernel)
-    fn = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
-          3: F.conv_transpose3d}[nd_]
     bias = args[2] if not no_bias and len(args) > 2 else None
-    return fn(data, weight, bias, stride=_tup(stride, nd_, 1),
-              padding=_tup(pad, nd_, 0), output_padding=_tup(adj, nd_, 0),
-              groups=int(num_group), dilation=_tup(dilate, nd_, 1))
+    return deconvolution(data, weight, bias, stride=_tup(stride, nd_, 1),
+                         pad=_tup(pad, nd_, 0), adj=_tup(adj, nd_, 0),
+                         dilate=_tup(dilate, nd_, 1), num_group=num_group)
 
 
 @_register('GridGenerator')

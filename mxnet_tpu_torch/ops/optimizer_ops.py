@@ -10,6 +10,18 @@ return new arrays, the port updates the weight and its state in place:
 the update then holds no second copy of the model and its optimizer
 state. The expressions and their order are the JAX ops'.
 
+The rest of the reference's update ops (``signsgd_update`` /
+``signum_update``, ``adam_update``, ``ftml_update``, ``rmsprop_update`` /
+``rmspropalex_update``, ``ftrl_update``, ``_sparse_adagrad_update``,
+:160-247 there) are functional, as the JAX ones: they return the new
+weight and states, which the optimizers of ``optimizer/optimizer.py``
+copy into place. Their float32 form is the plain version of the
+whole-model update kernel's rules, which is bitwise it; so a division by
+a Python scalar (FTML's ``1 - beta2^t``, Ftrl's lr) divides by a 0-dim
+float32 tensor of the divisor (:func:`_over`): PyTorch on a CUDA device
+multiplies by the reciprocal of a Python scalar divisor, a true division
+by a tensor everywhere, as the JAX op divides.
+
 bf16 weights without a float32 master (``sgd_update`` / ``sgd_mom_update``
 on bf16 tensors, as ``bench_resnet`` trains a ``cast('bfloat16')`` net):
 the port computes what the JAX trainer's traced update computes
@@ -44,7 +56,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ['adamw_update', 'mp_adamw_update', 'sgd_update', 'sgd_mom_update',
-           'mp_sgd_update', 'mp_sgd_mom_update', 'low_scalar']
+           'mp_sgd_update', 'mp_sgd_mom_update', 'low_scalar',
+           'signsgd_update', 'signum_update', 'adam_update', 'ftml_update',
+           'rmsprop_update', 'rmspropalex_update', 'ftrl_update',
+           'adagrad_update']
 
 _LOW = (torch.float16, torch.bfloat16)
 
@@ -277,8 +292,17 @@ def _mp_adamw_update_op(weight, grad, mean, var, weight32, rescale_grad_t, *,
 
 
 # -- the reference's other update ops, functional as the JAX ones (the
-# frontend writes each output back into its input at ``mutate_idx``):
-# the port's optimizers do not run them (no kernel covers them) --------
+# frontend writes each output back into its input at ``mutate_idx``; the
+# optimizers copy them into place) ----------------------------------------
+
+def _over(t, c):
+    """``t / c`` for a Python number ``c``: a true division on every
+    device (a float32 ``t`` divided by ``c`` as a 0-dim float32 tensor on
+    its device; see the module docstring)."""
+    if t.dtype == torch.float32:
+        return t / torch.full((), c, dtype=torch.float32, device=t.device)
+    return t / c
+
 
 def _rescale_wd_clip(grad, rescale_grad, clip_gradient, wd, weight):
     """``clip(rescale * grad + wd * weight)``: the Adam family's order,
@@ -330,7 +354,7 @@ def _ftml_update_op(weight, grad, d, v, z, *, lr=None, beta1=0.6,
                     clip_grad=-1.0):
     g = _rescale_wd_clip(grad, rescale_grad, clip_grad, wd, weight)
     v_t = beta2 * v + (1 - beta2) * torch.square(g)
-    d_t = (1 - beta1 ** t) / lr * (torch.sqrt(v_t / (1 - beta2 ** t))
+    d_t = (1 - beta1 ** t) / lr * (torch.sqrt(_over(v_t, 1 - beta2 ** t))
                                    + epsilon)
     sigma_t = d_t - beta1 * d
     z_t = beta1 * z + (1 - beta1) * g - sigma_t * weight
@@ -371,11 +395,11 @@ def _ftrl_update_op(weight, grad, z, n, *, lr=None, lamda1=0.01, beta=1.0,
                     wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
     g = _clip_only(grad, rescale_grad, clip_gradient)
     n_t = n + torch.square(g)
-    sigma = (torch.sqrt(n_t) - torch.sqrt(n)) / lr
+    sigma = _over(torch.sqrt(n_t) - torch.sqrt(n), lr)
     z_t = z + g - sigma * weight
     w = torch.where(torch.abs(z_t) > lamda1,
                     -(z_t - torch.sign(z_t) * lamda1)
-                    / ((beta + torch.sqrt(n_t)) / lr + wd),
+                    / (_over(beta + torch.sqrt(n_t), lr) + wd),
                     torch.zeros_like(z_t))
     return w, z_t, n_t
 
@@ -400,6 +424,16 @@ def _group_adagrad_update_op(weight, grad, history, *, lr=None, epsilon=1e-5,
     else:
         h = history + torch.square(g)
     return weight - lr * g / (torch.sqrt(h) + epsilon), h
+
+
+signsgd_update = _signsgd_update_op
+signum_update = _signum_update_op
+adam_update = _adam_update_op
+ftml_update = _ftml_update_op
+rmsprop_update = _rmsprop_update_op
+rmspropalex_update = _rmspropalex_update_op
+ftrl_update = _ftrl_update_op
+adagrad_update = _adagrad_update_op
 
 
 def _multi(args, n, per, fn):

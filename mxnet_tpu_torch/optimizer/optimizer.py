@@ -1,27 +1,41 @@
-"""Optimizer base, SGD, Adam and AdamW, the counterpart of
-``mxnet_tpu/optimizer/optimizer.py``.
+"""The optimizer zoo, the counterpart of ``mxnet_tpu/optimizer/optimizer.py``.
 
 Ported: the ``Optimizer`` bookkeeping (optimizer.py:78-257) -- per-index
 update counts, lr / wd multiplier tables, ``rescale_grad``,
-``clip_gradient``, the registry -- plus ``SGD`` (:259-305; PyTorch
-gradients are dense, so its row-sparse ``lazy_update`` has no
-counterpart), ``_AdamFamily`` (:423-437) and ``AdamW`` (:464-483), and
+``clip_gradient``, the registry -- and every optimizer of the reference,
+under its registered name, with its defaults, ``create_state`` and
+``update``: ``SGD`` (:259-305; PyTorch gradients are dense, so its
+row-sparse ``lazy_update`` has no counterpart), ``Signum``, ``FTML``,
+``DCASGD``, ``NAG``, ``SGLD``, ``ccSGD`` (:309-419), ``Adam``, ``AdamW``
+(:423-483), ``AdaGrad``, ``RMSProp``, ``AdaDelta``, ``Ftrl``, ``Adamax``,
+``Nadam``, ``LBSGD`` and ``Test`` (:487-698). Each update goes through the
+port's ops of the reference's names (``ops/optimizer_ops.py``) or, where
+the JAX body is plain array arithmetic (``DCASGD``, ``NAG``, ``SGLD``,
+``AdaDelta``, ``Adamax``, ``Nadam``, ``Test``, and the port's ``Adam``),
+through the same expressions on tensors, in the JAX body's order. So is
 the low-precision protocol (:93-150, 278-300): ``multi_precision``,
 ``create_state_multi_precision`` (a float32 master for a float16 or
 bfloat16 weight when ``multi_precision``, else a warning and state in the
 weight's dtype) and ``update_multi_precision`` (SGD: ``mp_sgd_update`` /
-``mp_sgd_mom_update`` on the master; AdamW: ``update`` on the master
-with the widened gradient, as the reference does, which is
-``mp_adamw_update``). Without ``multi_precision`` a bf16 weight keeps
-bf16 state and the ops round as the reference's traced update does
-(``ops/optimizer_ops.py``). ``Adam`` (:440-461) is the plain update the
-CPU runs; the whole-model update kernel has no rule for it, so a card
-refuses it (``FusedUpdateError``). ``lr_scheduler`` (read at the
-optimizer's ``num_update``) and ``param_dict`` (index -> gluon
-``Parameter``, whose ``lr_mult`` / ``wd_mult`` win over the tables, as
-the gluon Trainer passes it) are the reference's; so are ``Updater`` and
-``get_updater``, whose pickled states ``Trainer.save_states`` writes.
-There is no symbolic API in the port, so no symbol attributes.
+``mp_sgd_mom_update`` on the master; every other optimizer: ``update`` on
+the master with the widened gradient, as the reference does). Without
+``multi_precision`` a bf16 weight keeps bf16 state and SGD's and AdamW's
+ops round as the reference's traced update does (``ops/optimizer_ops.py``).
+
+``fusable`` is the reference's flag: the whole-model update
+(``optimizer/fused.py``) has a kernel rule for every optimizer whose
+``fusable`` is True; ``SGLD`` (its noise), ``Nadam`` (its host-side
+``m_schedule``) and ``LBSGD`` (its norms read back) are False and run
+their per-parameter loop, as the JAX ``Trainer`` runs them. ``SGLD``
+draws its noise from the port's generator of the weight's device
+(``random.py``): torch's bits, not threefry's, with the same law.
+
+``lr_scheduler`` (read at the optimizer's ``num_update``) and
+``param_dict`` (index -> gluon ``Parameter``, whose ``lr_mult`` /
+``wd_mult`` win over the tables, as the gluon Trainer passes it) are the
+reference's; so are ``Updater`` and ``get_updater``, whose pickled states
+``Trainer.save_states`` writes. There is no symbolic API in the port, so
+no symbol attributes.
 
 Weight decay reaches every parameter, under SGD as under AdamW:
 ``set_wd_mult`` gives names not ending in ``_weight`` a multiplier of 0,
@@ -32,16 +46,23 @@ package: BatchNorm gamma / beta and conv biases decay too.
 """
 from __future__ import annotations
 
+import math
 import pickle
 import warnings
 
 import torch
 
-from ..ops.optimizer_ops import (adamw_update, mp_sgd_mom_update,
-                                 mp_sgd_update, sgd_mom_update, sgd_update)
+from .. import random as _random
+from ..ops.optimizer_ops import (adagrad_update, adamw_update, ftml_update,
+                                 ftrl_update, mp_sgd_mom_update,
+                                 mp_sgd_update, rmsprop_update,
+                                 rmspropalex_update, sgd_mom_update,
+                                 sgd_update, signsgd_update, signum_update)
 
-__all__ = ['Optimizer', 'SGD', 'Adam', 'AdamW', 'register', 'create',
-           'opt_registry', 'Updater', 'get_updater']
+__all__ = ['Optimizer', 'SGD', 'Signum', 'FTML', 'DCASGD', 'NAG', 'SGLD',
+           'Adam', 'AdaGrad', 'RMSProp', 'AdaDelta', 'Ftrl', 'Adamax',
+           'Nadam', 'LBSGD', 'AdamW', 'Test', 'Updater', 'register',
+           'create', 'get_updater', 'opt_registry', 'ccSGD']
 
 opt_registry = {}
 
@@ -76,6 +97,10 @@ def create(name, **kwargs):
 class Optimizer:
     """Base optimizer: update counts, lr/wd multiplier tables,
     rescale/clip."""
+
+    # the whole-model update has a kernel rule for this optimizer (see the
+    # module docstring); False: it runs its per-parameter loop
+    fusable = True
 
     def __init__(self, rescale_grad=1., param_idx2name=None, wd=0.,
                  clip_gradient=None, learning_rate=0.01,
@@ -167,6 +192,18 @@ class Optimizer:
     def _step_of(self, index):
         return self._index_update_count[index]
 
+    def _clipped(self, grad):
+        """``rescale_grad * grad``, clipped to [-clip, clip] whenever
+        ``clip_gradient`` is set (``_clipped``, optimizer.py:152-157)."""
+        g = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        return g
+
+    def _base_kwargs(self, lr, wd):
+        return {'lr': lr, 'wd': wd, 'rescale_grad': self.rescale_grad,
+                'clip_gradient': self.clip_gradient}
+
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = dict(args_lr_mult)
 
@@ -211,9 +248,11 @@ class SGD(Optimizer):
     (clip(g) + wd * w)``, ``w += mom``; without momentum (the default)
     ``w -= lr * (clip(g) + wd * w)`` and no state."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
-        self.momentum = momentum
+        # kept for the reference's signature: the port's gradients are
+        # dense, which the reference updates in full whatever the flag
+        self.momentum, self.lazy_update = momentum, lazy_update
 
     def create_state(self, index, weight):
         return torch.zeros_like(weight) if self.momentum != 0.0 else None
@@ -243,6 +282,141 @@ class SGD(Optimizer):
             sgd_update(weight, grad, **kwargs)
 
 
+@register
+class Signum(Optimizer):
+    """SignSGD (``momentum`` 0: ``w -= lr (sign(g) + wd w)``) and Signum
+    (``mom = momentum mom - (1 - momentum) g``, ``w = (1 - lr wd_lh) w +
+    lr sign(mom)``), through ``signsgd_update`` / ``signum_update``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.wd_lh = momentum, wd_lh
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        kwargs = self._base_kwargs(lr, wd)
+        if state is None:
+            weight.copy_(signsgd_update(weight, grad, **kwargs))
+        else:
+            w, mom = signum_update(weight, grad, state,
+                                   momentum=self.momentum,
+                                   wd_lh=self.wd_lh, **kwargs)
+            state.copy_(mom)
+            weight.copy_(w)
+
+
+@register
+class FTML(Optimizer):
+    """FTML (``ftml_update``): state (d, v, z), ``t`` the parameter's
+    update count."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return tuple(torch.zeros_like(weight) for _ in 'dvz')
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        d, v, z = state
+        outs = ftml_update(weight, grad, d, v, z, lr=lr, wd=wd,
+                           rescale_grad=self.rescale_grad,
+                           clip_grad=self.clip_gradient, beta1=self.beta1,
+                           beta2=self.beta2, epsilon=self.epsilon,
+                           t=self._step_of(index))
+        for dst, src in zip((weight, d, v, z), outs):
+            dst.copy_(src)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated async SGD: ``delta = -lr (g + wd w + lamda g^2
+    (w - prev))``, through a momentum when ``momentum`` != 0; state
+    (momentum or None, the previous weight)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum, self.lamda = momentum, lamda
+        self.weight_previous = {}
+
+    def create_state(self, index, weight):
+        mom = torch.zeros_like(weight) if self.momentum != 0.0 else None
+        return (mom, weight.detach().clone())
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        g = self._clipped(grad)
+        mom, prev = state
+        delta = -lr * (g + wd * weight +
+                       self.lamda * g * g * (weight - prev))
+        if mom is not None:
+            mom.copy_(self.momentum * mom + delta)
+            delta = mom
+        prev.copy_(weight)
+        weight.copy_(weight + delta)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD: ``mom = momentum mom + g + wd w``, ``w -=
+    lr (momentum mom + g)``; without momentum ``w -= lr (g + wd w)``."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        g = self._clipped(grad)
+        if state is None:
+            weight.copy_(weight - lr * (g + wd * weight))
+        else:
+            state.copy_(self.momentum * state + g + wd * weight)
+            # the lookahead step: the gradient past the momentum move
+            g = self.momentum * state + g
+            weight.copy_(weight - lr * g)
+
+
+def _sgld_noise(weight, lr):
+    """SGLD's noise: N(0, lr) in the weight's dtype, from the generator
+    of its device (``random.generator``)."""
+    return torch.normal(0.0, math.sqrt(lr), tuple(weight.shape),
+                        generator=_random.generator(weight.device),
+                        dtype=weight.dtype, device=weight.device)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics: ``w -= lr / 2 (g + wd w)``
+    plus N(0, lr) noise."""
+
+    fusable = False  # lr ** 0.5 scales a sampler
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        g = self._clipped(grad)
+        noise = _sgld_noise(weight, lr)
+        weight.copy_(weight - lr / 2 * (g + wd * weight) + noise)
+
+
+@register  # pylint: disable=invalid-name
+class ccSGD(SGD):
+    """The reference's deprecated alias of SGD."""
+
+
 class _AdamFamily(Optimizer):
     """Shared (mean, var) state + bias-correction arithmetic."""
 
@@ -266,7 +440,7 @@ class Adam(_AdamFamily):
     """Adam: ``g = clip(rescale * grad + wd * w)``, ``m = beta1 m + (1 -
     beta1) g``, ``v = beta2 v + (1 - beta2) g^2``, ``w -= eta * m /
     (sqrt(v) + eps)`` with ``eta`` the bias-corrected lr (``adam_update``,
-    optimizer_ops.py:125-136). Plain torch: no kernel covers it."""
+    optimizer_ops.py:125-136), written out on tensors."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -304,6 +478,230 @@ class AdamW(_AdamFamily):
                      eta=eta, wd=wd, clip_gradient=self.clip_gradient,
                      beta1=self.beta1, beta2=self.beta2,
                      epsilon=self.epsilon)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (``_sparse_adagrad_update``): ``h += g^2``, ``w -= lr (g /
+    sqrt(h + eps) + wd w)``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        w, h = adagrad_update(weight, grad, state, lr=lr, wd=wd,
+                              rescale_grad=self.rescale_grad,
+                              clip_gradient=self.clip_gradient,
+                              epsilon=self.float_stable_eps)
+        state.copy_(h)
+        weight.copy_(w)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain (Tieleman, ``rmsprop_update``) or ``centered``
+    (Graves, ``rmspropalex_update``: state (n, g, delta))."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.epsilon, self.centered = epsilon, centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if not self.centered:
+            return torch.zeros_like(weight)
+        return tuple(torch.zeros_like(weight) for _ in 'ngd')
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        kwargs = {'gamma1': self.gamma1, 'epsilon': self.epsilon,
+                  **self._base_kwargs(lr, wd)}
+        if self.clip_weights:
+            kwargs['clip_weights'] = self.clip_weights
+        if self.centered:
+            n, g, delta = state
+            outs = rmspropalex_update(weight, grad, n, g, delta,
+                                      gamma2=self.gamma2, **kwargs)
+            for dst, src in zip((weight, n, g, delta), outs):
+                dst.copy_(src)
+        else:
+            w, n = rmsprop_update(weight, grad, state, **kwargs)
+            state.copy_(n)
+            weight.copy_(w)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: state (E[g^2], E[dx^2]); the lr is not read."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        _, wd = self._begin(index)
+        g = self._clipped(grad)
+        acc_g, acc_delta = state
+        acc_g.copy_(self.rho * acc_g + (1. - self.rho) * g * g)
+        step = (torch.sqrt(acc_delta + self.epsilon)
+                / torch.sqrt(acc_g + self.epsilon)) * g
+        acc_delta.copy_(self.rho * acc_delta
+                        + (1. - self.rho) * step * step)
+        weight.copy_(weight - step - wd * weight)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (``ftrl_update``): state (z, n)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        z, n = state
+        outs = ftrl_update(weight, grad, z, n, lamda1=self.lamda1,
+                           beta=self.beta, **self._base_kwargs(lr, wd))
+        for dst, src in zip((weight, z, n), outs):
+            dst.copy_(src)
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam with an infinity-norm second moment: ``g = clip(rescale
+    grad + wd w)``, ``m = beta1 m + (1 - beta1) g``, ``u = max(beta2 u,
+    |g|)``, ``w -= lr / (1 - beta1^t) m / u``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        lr /= 1. - self.beta1 ** self._step_of(index)
+        # the reference's order: rescale, add wd, then clip
+        g = grad * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        m, u = state
+        m.copy_(self.beta1 * m + (1. - self.beta1) * g)
+        u.copy_(torch.maximum(self.beta2 * u, torch.abs(g)))
+        weight.copy_(weight - lr * m / u)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam, with the reference's host-side ``m_schedule``."""
+
+    fusable = False  # mutates self.m_schedule per update
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def _momentum_at(self, t):
+        return self.beta1 * (1. - 0.5 * 0.96 ** (t * self.schedule_decay))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin(index)
+        t = self._step_of(index)
+        g = grad * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        mu_t, mu_next = self._momentum_at(t), self._momentum_at(t + 1)
+        self.m_schedule *= mu_t
+        schedule_next = self.m_schedule * mu_next
+        m, v = state
+        m.copy_(self.beta1 * m + (1. - self.beta1) * g)
+        v.copy_(self.beta2 * v + (1. - self.beta2) * g * g)
+        g_hat = g / (1. - self.m_schedule)
+        m_hat = m / (1. - schedule_next)
+        v_hat = v / (1. - self.beta2 ** t)
+        m_bar = (1. - mu_t) * g_hat + mu_next * m_hat
+        weight.copy_(weight - lr * m_bar / (torch.sqrt(v_hat)
+                                            + self.epsilon))
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD with LARS's layer-wise lr: SGD's update at ``lr
+    eta ||w|| / (||g|| + wd ||w|| + 1e-9)`` (``eta`` 0.001), the norms
+    read back on the host; the warm-up arguments are the reference's and
+    unused, as there."""
+
+    fusable = False  # the LARS norms are read back on the host
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy='linear', warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(momentum=momentum, multi_precision=multi_precision,
+                         **kwargs)
+        self.eta = 0.001  # LARS trust coefficient
+
+    def _update_impl(self, index, weight, grad, state, multi_precision=False):
+        lr, wd = self._begin(index)
+        wnorm = float(torch.linalg.vector_norm(weight))
+        gnorm = float(torch.linalg.vector_norm(grad * self.rescale_grad))
+        if wnorm > 0 and gnorm > 0:
+            lr *= self.eta * wnorm / (gnorm + wd * wnorm + 1e-9)
+        kwargs = self._base_kwargs(lr, wd)
+        if multi_precision:
+            master, mom = state
+            if mom is not None:
+                mp_sgd_mom_update(weight, grad, mom, master,
+                                  momentum=self.momentum, **kwargs)
+            else:
+                mp_sgd_update(weight, grad, master, **kwargs)
+        elif state is not None:
+            sgd_mom_update(weight, grad, state, momentum=self.momentum,
+                           **kwargs)
+        else:
+            sgd_update(weight, grad, **kwargs)
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``w += rescale g``, its state the
+    new weight; no update count."""
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        weight.copy_(weight + grad * self.rescale_grad)
+        state.copy_(weight)
 
 
 class Updater:

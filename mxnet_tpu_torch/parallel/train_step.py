@@ -40,7 +40,8 @@ does that the port keeps:
   * ``idx2name`` is filled at the first step when the optimizer has none,
     and the wd table is not rebuilt: weight decay reaches every
     parameter (see ``optimizer/optimizer.py``);
-  * update counts, and so AdamW's ``t``, run per parameter from 1; a
+  * update counts, and so Adam's and AdamW's ``t``, run per parameter
+    from 1; a
     parameter the loss does not reach gets a zero gradient and is still
     updated (its weight decays), as the traced update does;
   * parameters that take no gradient (``requires_grad`` False: the
@@ -72,6 +73,12 @@ does that the port keeps:
     generator's state in place of the reference's base key; ``restore``
     copies into the storage the graphs were captured against, so a fresh
     trainer builds (captures) first and restores after.
+
+An optimizer whose ``fusable`` is False (``SGLD``, ``Nadam``,
+``LBSGD``) is refused with ``FusedUpdateError``: the JAX step traces it
+anyway, and so freezes ``Nadam``'s host-side ``m_schedule`` (and SGLD's
+and LBSGD's host reads) at their trace-time values; the port does not
+copy that quirk (ROADMAP C3). ``gluon.Trainer`` runs their loops.
 
 The step-boundary protocol of the reference (train_step.py:278-436):
 ``attach_preemption`` (a pending stop drains an emergency checkpoint
@@ -138,6 +145,7 @@ from ..capture import Program
 from ..gluon.nn import Dropout
 from ..observability import metrics as _metrics
 from ..observability.spans import span as _span
+from ..ops.kernels import multi_tensor as _mt
 from ..optimizer import fused as _fused
 from ..optimizer import optimizer as _optmod
 
@@ -197,15 +205,16 @@ def _copy_in(what, dst, values):
 
 
 class _Staged:
-    """A captured step's static inputs: the update's (width, 3) int32
-    columns, then each data and label tensor, each 16-byte aligned in one
-    device buffer (``dev``) that the replay reads, filled by one copy from
-    one of two pinned staging buffers, each reused only once the copy out
-    of it ran."""
+    """A captured step's static inputs: the update's (width,
+    len(COLUMNS)) int32 columns, then each data and label tensor, each
+    16-byte aligned in one device buffer (``dev``) that the replay reads,
+    filled by one copy from one of two pinned staging buffers, each reused
+    only once the copy out of it ran."""
 
     def __init__(self, device, width, specs):
         at, self._at = 0, []
-        for shape, dtype in [((width, 3), torch.int32)] + list(specs):
+        for shape, dtype in [((width, len(_mt.COLUMNS)), torch.int32)] \
+                + list(specs):
             self._at.append((at, shape, dtype))
             at += -(-math.prod(shape) * dtype.itemsize // 16) * 16
         self.nbytes = max(at, 16)
@@ -314,6 +323,13 @@ class ParallelTrainer:
             self._opt = _optmod.create(optimizer, **(optimizer_params or {}))
         else:
             self._opt = optimizer
+        if not self._opt.fusable:
+            raise _fused.FusedUpdateError(
+                'ParallelTrainer: %s is not fusable (its update reads host '
+                'state each step), and the step is one program with the '
+                'whole-model update; train it with gluon.Trainer, which '
+                'runs its per-parameter loop (ROADMAP C3)'
+                % type(self._opt).__name__)
         self._device = next(net.parameters()).device
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(int(seed))
@@ -518,8 +534,9 @@ class ParallelTrainer:
     def _replay(self, prog, arrays):
         """One step through ``prog``: resolve the step's hypers, stage
         its columns and inputs, replay. Returns a copy of the loss."""
-        a, wd, _ = self._update._hypers()
-        prog.staged.load(self._update.columns(prog.bindings, a, wd), arrays)
+        a, wd, b, _ = self._update._hypers()
+        prog.staged.load(self._update.columns(prog.bindings, a, wd, b),
+                         arrays)
         prog.graph.run()
         self.num_update += 1
         return prog.loss.clone()
@@ -791,11 +808,11 @@ class ParallelTrainer:
         n = int(arrays[0].shape[0])
         prog = self._programs[self._key([a[0] for a in arrays])]
         st = prog.staged
-        hypers = [self._update._hypers()[:2] for _ in range(n)]
+        hypers = [self._update._hypers()[:3] for _ in range(n)]
         host = torch.zeros((n, st.nbytes), dtype=torch.uint8,
                            pin_memory=True)
-        for i, (a, wd) in enumerate(hypers):
-            st.fill(host[i], self._update.columns(prog.bindings, a, wd),
+        for i, (a, wd, b) in enumerate(hypers):
+            st.fill(host[i], self._update.columns(prog.bindings, a, wd, b),
                     [t[i] for t in arrays])
         dev = host.to(self._device, non_blocking=True)
         losses = torch.empty(n, dtype=prog.loss.dtype, device=self._device)

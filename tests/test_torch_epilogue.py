@@ -289,8 +289,16 @@ def test_activation_and_leaky_relu_ops_match_jax():
     np.testing.assert_array_equal(dx, dw)
     with pytest.raises(ValueError, match='unknown act_type'):
         port_nn.activation(torch.tensor(x), 'swish')
-    with pytest.raises(NotImplementedError, match='prelu'):
-        port_nn.leaky_relu(torch.tensor(x), act_type='prelu')
+    # the prelu kind (ported since the gluon layers need it) computes as
+    # the JAX op, a (C,) slope over axis 1; an unknown kind raises
+    gamma = np.linspace(0.05, 0.5, x.shape[1]).astype('float32')
+    np.testing.assert_array_equal(
+        port_nn.leaky_relu(torch.tensor(x), act_type='prelu',
+                           gamma=torch.tensor(gamma)).numpy(),
+        np.asarray(jax_nn.leaky_relu([jnp.asarray(x), jnp.asarray(gamma)],
+                                     act_type='prelu')))
+    with pytest.raises(ValueError, match='unknown act_type'):
+        port_nn.leaky_relu(torch.tensor(x), act_type='swish')
 
 
 def test_add_relu_op_matches_jax():

@@ -40,7 +40,6 @@ from mxnet_tpu.gluon import nn as jnn
 from mxnet_tpu_torch import gluon as pgluon
 from mxnet_tpu_torch.gluon import nn as pnn
 from mxnet_tpu_torch.gluon.block import params_from_jax
-from mxnet_tpu_torch.optimizer import FusedUpdateError
 
 LOSS_REL = 1e-5
 W_REL = 1e-5
@@ -168,15 +167,18 @@ def test_adam_runs_its_plain_update_on_the_cpu():
 
 @pytest.mark.cuda
 def test_adam_on_the_card_raises_fused_update_error():
+    """On the card ``gluon.Trainer('adam')`` (once refused with
+    ``FusedUpdateError``) takes one launch of the whole-model update's
+    ``adam`` rule a step, bitwise the plain per-parameter loop over the
+    same parameters on the card (``chip_smoke.check_gluon_rule``)."""
     import torch
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA card: off the card the plain loop runs '
-                    'every optimizer')
-    with pmx.gpu(0):
-        p = pgluon.Parameter('w', shape=(3,))
-        p.initialize(init='ones')
-        with pytest.raises(FusedUpdateError):
-            pgluon.Trainer({'w': p}, 'adam', {'learning_rate': 0.1})
+        pytest.skip('needs a CUDA card: the kernel is CUDA C++ for sm_90a '
+                    'and has no CPU mode')
+    import chip_smoke
+    from mxnet_tpu_torch.ops import kernels
+    assert chip_smoke.check_gluon_rule(torch, pmx, kernels, 'adam') == {
+        ('multi_tensor_update', 'adam'): 3}
 
 
 def test_guardrail_is_not_ported():

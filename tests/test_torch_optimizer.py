@@ -88,8 +88,9 @@ def test_wd_mult_follows_names_known_at_init():
     opt = port_optimizer.create('adamw', wd=0.1,
                                 param_idx2name={0: 'a_weight', 1: 'a_bias'})
     assert opt._get_wd(0) == pytest.approx(0.1) and opt._get_wd(1) == 0.0
+    # every optimizer of the reference is ported: an unknown name raises
     with pytest.raises(ValueError, match='Cannot find optimizer'):
-        port_optimizer.create('ftml')
+        port_optimizer.create('no_such_optimizer')
 
 
 @pytest.mark.parametrize('momentum', [0.0, 0.9])

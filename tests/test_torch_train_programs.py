@@ -359,14 +359,16 @@ def test_snapshot_rewinds_the_generator_and_refuses_before_build():
 
 def _update(rule, form, seed=0):
     """A FusedUpdate over odd-length CPU parameters of ``form`` under
-    ``rule``, an lr multiplier and a wd multiplier of 0 on one."""
+    ``rule`` (its optimizer at phase 2's hyperparameters), an lr
+    multiplier and a wd multiplier of 0 on one."""
+    import chip_smoke
     gen = torch.Generator().manual_seed(seed)
     dt = torch.float32 if form == 'float32' else torch.bfloat16
     params = [(i, torch.nn.Parameter(torch.randn(n, generator=gen).to(dt)))
               for i, n in enumerate((7, 9000, 1, 300))]
-    kw = dict(learning_rate=0.01, wd=1e-3, multi_precision=form == 'master')
-    opt = port_opt.AdamW(**kw) if rule == 'adamw' else port_opt.SGD(
-        momentum=0.9 if rule == 'sgd_mom' else 0.0, **kw)
+    kw = dict(chip_smoke.FUSED_HYPER[rule], learning_rate=0.01, wd=1e-3,
+              multi_precision=form == 'master')
+    opt = port_opt.create(chip_smoke.RULE_OPTIMIZER.get(rule, rule), **kw)
     opt.idx2name = {i: 'p%d_weight' % i for i, _ in params}
     opt.set_lr_mult({1: 0.5})
     opt.set_wd_mult({'p2_weight': 0.0})
@@ -378,33 +380,35 @@ def _update(rule, form, seed=0):
                                      torch.device('cpu'))
 
 
-@pytest.mark.parametrize('form', multi_tensor.FORMS)
-@pytest.mark.parametrize('rule', multi_tensor.RULES)
+@pytest.mark.parametrize('rule,form', [
+    (r, f) for r in multi_tensor.RULES for f in multi_tensor.FORMS
+    if f != 'low' or r in multi_tensor.LOW_RULES])
 def test_hypers_resolved_ahead_equal_single_resolutions(rule, form):
     """A captured window resolves n steps' hypers before its first
     replay; its columns equal, bit for bit, what n single resolutions
-    pack into the table, step by step (AdamW's eta from each step's
-    count)."""
+    pack into the table, step by step (Adam's and AdamW's bias-corrected
+    lr, FTML's and Adamax's factors from each step's count)."""
     n = 4
     params, ahead = _update(rule, form)
     grads = [torch.zeros_like(p) for _, p in params]
     bindings = ahead.bind()
     for poses, b in bindings:
         b.pack([grads[k] for k in poses])
-    cols = [ahead.columns(bindings, *ahead._hypers()[:2]) for _ in range(n)]
+    cols = [ahead.columns(bindings, *ahead._hypers()[:3]) for _ in range(n)]
     _, single = _update(rule, form)
     for k in range(n):
-        a, wd, _ = single._hypers()
+        a, wd, b, _ = single._hypers()
         want = []
         for poses, plan in single._plans():
             tab = plan.table([grads[j] for j in poses], [a[j] for j in poses],
-                             [wd[j] for j in poses])
+                             [wd[j] for j in poses], [b[j] for j in poses])
             want.append(np.stack([tab['a'].view(np.int32),
                                   tab['wd'].view(np.int32),
+                                  tab['b'].view(np.int32),
                                   tab['flags'].astype(np.int32)], axis=1))
         np.testing.assert_array_equal(cols[k], np.concatenate(want))
-    if rule == 'adamw':
-        assert cols[0][0, 0] != cols[1][0, 0]       # eta moves with t
+    if rule in ('adamw', 'adam', 'ftml', 'adamax'):
+        assert cols[0][0, 0] != cols[1][0, 0]       # the lr moves with t
 
 
 @pytest.mark.cuda
